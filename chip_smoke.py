@@ -6,25 +6,38 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. In order it:
 
 1. prints the card (torch name; nvidia-smi name and power limit);
-2. builds the hand kernels from pixie_tpu_torch/ops/kernels/hopper_kernels.cu
-   (nvcc, cached in pixie_tpu_torch/_build/) and prints the build time;
-3. holds each kernel (H1-H4) against its plain PyTorch version on the card
-   at the main path's shapes (2^21-row blocks, 16 groups) and at shapes that
-   take its global-memory path, and times kernel, plain version and the one
-   PyTorch library call that computes the same function, where there is one
-   (median of 30 calls, CUDA events between calls queued behind a sleep
+2. builds the hand kernels from pixie_tpu_torch/ops/kernels/*.cu (one nvcc
+   per source, started together, cached in pixie_tpu_torch/_build/) and
+   prints the build time;
+3. holds each kernel against its plain PyTorch version on the card at the
+   main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
+   as config 3 runs them) and at shapes that take its other memory path,
+   under the contract PERF.md states (integers and hashes exact; t-digest
+   cluster cells under Fault-4), and times kernel, plain version and the
+   one PyTorch library call that computes the same function, where there is
+   one (median of 30 calls, CUDA events between calls queued behind a sleep
    kernel), and the kernel again with the calls paced by the host;
-4. runs the port's main path: px/service_stats over a generated http_events
-   table (bench.py's generator: seed 42, 16 services, status mix
-   {200: .85, 301/404/500: .05}, exponential(3e7) latency; 2^26 rows by
-   default) through Carnot(device_executor=DeviceExecutor(block_rows=2^21)),
-   one cold and three warm queries, with bench.py's verify() checks (counts
-   exact, error_rate within 1e-9, p50/p99 within 4% of a numpy truth
-   histogram), after an end-to-end check of the kernel path against the
-   plain path on a smaller table. Kernel launch counts are zeroed just
-   before the main path and must show every kernel launched;
-5. prints one JSON line of per-kernel results, the nvidia-smi line, and as
-   its last line {"ok": true, "device": {...}}.
+4. checks the kernel path against the plain path end to end at 2^20 rows
+   for the three queries below;
+5. runs the port's main paths through
+   Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
+   launch counts zeroed just before it, one cold and three warm queries,
+   each verified against numpy truths of the generated columns, and the
+   counts read just after it (every kernel of the path must have launched):
+   - px/service_stats (BASELINE config 2) over http_events (bench.py's
+     generator: seed 42, 16 services, status mix {200: .85, 301/404/500:
+     .05}, exponential(3e7) latency; 2^26 rows by default) with bench.py's
+     verify() checks (counts exact, error_rate within 1e-9, p50/p99 within
+     4% of a numpy truth histogram);
+   - config 5, t-digest + count-min over the same table: count-min totals
+     exact, max_est equal to the largest cell the true per-status counts
+     give, t-digest p50/p99 within 4% of the truth histogram's;
+   - config 3, px/net_flow_graph over conn_flows (bench.py's generator: seed
+     45, 64 pods each side, 4096 (src, dst) groups; 64,000,000 rows,
+     bench.py's BENCH_SMALL_ROWS default): byte sums exact, distinct ports within 12% of the truth for
+     every pair and 2.5% on average;
+6. prints each phase's seconds, one JSON line of per-kernel results, the
+   nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
 line. Without a CUDA device it exits non-zero at once.
@@ -49,6 +62,7 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 BLOCK_ROWS = 1 << 21
+TIME_REPS, TIME_WARMUP = 30, 3  # calls per time_ms
 WARM_QUERIES = 3
 N_SERVICES = 16
 TRUTH_BINS = 4096
@@ -59,8 +73,25 @@ REPLACES = {
     "segment_sum_f64": "pixie_tpu/ops/segment.py:593",
     "log_histogram_update": "pixie_tpu/ops/histogram.py:59",
     "hist_quantiles": "pixie_tpu/ops/histogram.py:83",
+    "hash32": "pixie_tpu/ops/hashing.py:106",
+    "hll_update": "pixie_tpu/ops/hll.py:54",
+    "countmin_update": "pixie_tpu/ops/countmin.py:58",
+    "tdigest_pack": "pixie_tpu/ops/tdigest.py:56",
+    "tdigest_cluster": "pixie_tpu/ops/tdigest.py:78",
+    "tdigest_merge": "pixie_tpu/ops/tdigest.py:133",
+    "tdigest_quantiles": "pixie_tpu/ops/tdigest.py:163",
+    "hll_estimate": "pixie_tpu/ops/hll.py:118",
 }
-SOURCE = "pixie_tpu_torch/ops/kernels/hopper_kernels.cu"
+SOURCES = {
+    **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
+    **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:]},
+}
+N_PODS = 64
+FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
+FLOW_GROUPS = N_PODS * N_PODS
+STATUSES = (200, 301, 404, 500)
+F4_EPS = 1e-4  # the Fault-4 contract (PERF.md)
+QS = (0.01, 0.10, 0.25, 0.50, 0.75, 0.90, 0.99)
 SERVICE_STATS = (
     "df = px.DataFrame(table='http_events')\n"
     "df.failure = df.resp_status >= 400\n"
@@ -70,6 +101,24 @@ SERVICE_STATS = (
     "    latency=('latency', px.quantiles),\n"
     ")\n"
     "px.display(stats, 'service_stats')\n"
+)
+# BASELINE config 5 (bench.py:701-707) and config 3 (bench.py:966-973).
+SKETCHES = (
+    "df = px.DataFrame(table='http_events')\n"
+    "s = df.groupby(['service']).agg(\n"
+    "    lat=('latency', px.quantiles_tdigest),\n"
+    "    freq=('resp_status', px.count_min),\n"
+    ")\n"
+    "px.display(s, 'sketches')\n"
+)
+FLOWS = (
+    "df = px.DataFrame(table='conn_flows')\n"
+    "s = df.groupby(['src', 'dst']).agg(\n"
+    "    bytes_sent=('bytes_sent', px.sum),\n"
+    "    bytes_recv=('bytes_recv', px.sum),\n"
+    "    ports=('remote_port', px.approx_count_distinct),\n"
+    ")\n"
+    "px.display(s, 'flows')\n"
 )
 
 
@@ -90,7 +139,8 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3, behind_sleep: bool = True) -> float:
+def time_ms(fn, reps: int = TIME_REPS, warmup: int = TIME_WARMUP,
+            behind_sleep: bool = True) -> float:
     """Median milliseconds of ``fn()`` on the card over ``reps`` calls, from
     CUDA events recorded between consecutive calls. With ``behind_sleep`` a
     sleep kernel queued first keeps the device busy while the host enqueues
@@ -110,6 +160,14 @@ def time_ms(fn, reps: int = 30, warmup: int = 3, behind_sleep: bool = True) -> f
         events[i + 1].record()
     torch.cuda.synchronize()
     return float(np.median([events[i].elapsed_time(events[i + 1]) for i in range(reps)]))
+
+
+def fresh(make, calls: int = 2 * (TIME_REPS + TIME_WARMUP)):
+    """One new state from ``make()`` for each of ``record``'s ``calls`` timed
+    calls of a kernel (made ahead, so no reset is timed); a further call
+    raises IndexError."""
+    pool = [make() for _ in range(calls)]
+    return pool.pop
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -312,6 +370,239 @@ def kernel_phases(kernels, segment, histogram, dev) -> dict:
     return records
 
 
+def sketch_kernel_phases(dev) -> dict:
+    """The sketch kernels against their plain versions on the card, at the
+    main paths' shapes (2^21-row blocks; 16 groups, and 4096 for H5 and
+    H10 as config 3 runs them); returns their records."""
+    from pixie_tpu_torch.ops import countmin, hashing, hll, kernels, tdigest
+
+    M32 = hashing.M32
+    rng = np.random.default_rng(1)
+    n = BLOCK_ROWS
+    records: dict = {}
+    mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
+
+    # The hash kernel, bit for bit: config 5's widened resp_status words
+    # (seed 1, pair, as count-min runs it) and edge words.
+    status = torch.from_numpy(
+        np.array(STATUSES, np.int64)[rng.choice(4, n, p=[0.85, 0.05, 0.05, 0.05])]
+    ).to(dev)
+    edge_words = np.concatenate([
+        np.array([0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max, 1024, 65534], np.int64),
+        np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324], np.float64).view(np.int64),
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 1 << 16, dtype=np.int64),
+    ])
+    words = torch.from_numpy(edge_words).to(dev)
+    for seed in (0, 1):
+        a, b = hashing.hash32_pair_plain(words, seed)
+        pair = kernels.hash32(words, seed, pair=True).to(torch.int64) & M32
+        one = kernels.hash32(words, seed, pair=False).to(torch.int64) & M32
+        torch.cuda.synchronize()
+        check(torch.equal(pair[0], a) and torch.equal(pair[1], b), f"hash32_pair seed {seed}")
+        check(torch.equal(one[0], hashing.hash32_plain(words, seed)), f"hash32 seed {seed}")
+    log(f"hash32: bit for bit on {words.numel()} edge and random words, seeds 0 and 1, "
+        "single and pair")
+    records["hash32"] = record(
+        lambda: kernels.hash32(status, 1, pair=True),
+        lambda: hashing.hash32_pair_plain(status, 1),
+        None,
+        *bound(n * 8 + 2 * n * 4, 2 * 24 * n), 0.0, f"words[{n}] pair seed 1",
+    )
+
+    # H5: G = 16 keeps the registers in shared memory, 4096 (config 3) in
+    # global; timed at 4096 on zeroed registers, as a query's first block
+    # finds them (registers already holding the block would skip every
+    # atomicMax). Bytes: the rows, and each register the block touches
+    # read and written once.
+    ports = torch.from_numpy(rng.integers(1024, 65535, n)).to(dev)
+    m = 1 << hll.DEFAULT_PRECISION
+    for G in (N_SERVICES, FLOW_GROUPS):
+        g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+        got = hll.update(hll.init(G, dev), g, ports, mask)
+        want = hll.update_plain(hll.init(G, dev), g, ports, mask)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"H5 G={G} registers differ from the plain version")
+        log(f"H5 hll_update G={G} shared="
+            f"{kernels.uses_shared('hll_update', dev, G, nbins=m)}: registers exact")
+    regs, g4096 = got, g
+    reg, rho = hll._reg_rho(ports, hll.DEFAULT_PRECISION)
+    flat = (g4096.long() * m + reg.long())[mask]
+    touched, rho_kept = torch.unique(flat).numel(), rho[mask]
+    lib_state = torch.zeros(G * m, dtype=torch.int32, device=dev)
+    zeroed, plain_state = fresh(lambda: hll.init(G, dev)), hll.init(G, dev)
+    records["hll_update"] = record(
+        lambda: kernels.hll_update(ports, g4096, mask, zeroed()),
+        lambda: hll.update_plain(plain_state, g4096, ports, mask),
+        lambda: lib_state.scatter_reduce_(0, flat, rho_kept, "amax"),
+        *bound(n * 8 + n * 4 + n + 2 * touched * 4, 40 * n), 0.0,
+        f"words[{n}] state[{G},{m}] zeroed, {touched} registers touched",
+    )
+
+    # H10 on config 3's 4096 groups of those registers: the estimate within
+    # 1e-12 before rounding; rounded equal unless within that of a .5.
+    est, rounded = kernels.hll_estimate(regs, hll._alpha(m))
+    want_est = hll.estimate_plain(regs)
+    rel = ((est - want_est).abs() / want_est.abs().clamp_min(1e-300)).max().item()
+    half = ((want_est - torch.floor(want_est) - 0.5).abs() <= 1e-12 * want_est)
+    torch.cuda.synchronize()
+    check(rel <= 1e-12, f"H10 relative error {rel}")
+    check(bool(torch.all((rounded == torch.round(want_est).long()) | half)), "H10 rounding")
+    log(f"H10 hll_estimate G={G}: max rel err {rel:.3g}, rounded estimates equal")
+    records["hll_estimate"] = record(
+        lambda: kernels.hll_estimate(regs, hll._alpha(m)),
+        lambda: hll.estimate_plain(regs),
+        None,
+        *bound(G * m * 4 + G * 16, 3 * G * m), rel, f"state[{G},{m}]",
+    )
+
+    # H6: config 5's 16 groups, its (h1, h2) pair from the hash kernel.
+    G = N_SERVICES
+    g16 = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+    pair = kernels.hash32(status, 1, pair=True)
+    cm, total = countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)
+    kernels.countmin_update(pair, g16, mask, cm, total)
+    want_cm = countmin.update_plain(countmin.init(G, dev), g16, status, mask)
+    torch.cuda.synchronize()
+    check(torch.equal(cm, want_cm), "H6 cells differ from the plain version")
+    check(torch.equal(total, torch.bincount(g16[mask].long(), minlength=G)), "H6 totals")
+    log(f"H6 countmin_update G={G}: cells and totals exact")
+    depth, width = cm.shape[1], cm.shape[2]
+    buckets = countmin._buckets(status, depth, width)
+    flat4 = torch.cat([
+        ((g16.long() * depth + d) * width + b.long())[mask] for d, b in enumerate(buckets)
+    ])
+    ones4 = torch.ones_like(flat4)
+    touched = torch.unique(flat4).numel()  # the cells the block can touch
+    lib_cm = torch.zeros(G * depth * width, dtype=torch.int64, device=dev)
+    records["countmin_update"] = record(
+        lambda: kernels.countmin_update(pair, g16, mask, cm, total),
+        lambda: countmin.update_plain(cm, g16, status, mask),
+        lambda: lib_cm.index_add_(0, flat4, ones4),
+        *bound(n * 8 + n * 4 + n + 2 * touched * 8 + 2 * G * 8, 6 * n), 0.0,
+        f"pair[2,{n}] cm[{G},{depth},{width}], {touched} cells touched",
+    )
+
+    # H7a + torch.sort: the sorted keys decode to the plain version's sorted
+    # (group, value) rows bit for bit, packed (G = 16) and two-key (G = 300).
+    lat = torch.from_numpy(rng.exponential(3e7, n).astype(np.float32)).to(dev)
+    C = tdigest.DEFAULT_CAPACITY
+    for G in (N_SERVICES, 300):
+        g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+        keys, counts = kernels.tdigest_pack(lat, g, mask, G)
+        ks = torch.sort(keys).values
+        g_s, v_s = decode_keys(tdigest, ks, G)
+        want_g, want_v = tdigest._sorted_rows(g, lat, mask, G)
+        torch.cuda.synchronize()
+        check(torch.equal(g_s, want_g), f"H7a G={G}: sorted groups")
+        check(torch.equal(v_s.view(torch.int32), want_v.view(torch.int32)), f"H7a G={G}: values")
+        check(torch.equal(counts.long(), torch.bincount(want_g, minlength=G + 1)), f"H7a G={G} counts")
+        # H7b over the sorted keys, under the Fault-4 contract: group weights
+        # exact; per group, the cells' weights move by at most two per row
+        # whose f64 cluster coordinate lies within 1e-4 of an integer; value
+        # sums of the other cells within 1e-12 (f64 sums in another order).
+        sums = kernels.tdigest_cluster(ks, counts, G, C)
+        want_sums = tdigest._cluster_sums_plain(want_g, want_v, G, C)
+        near = near_edge_rows(tdigest, want_g, G, C)
+        dw = (sums[0] - want_sums[0]).abs()
+        same = dw == 0
+        verr = ((sums[1] - want_sums[1]).abs() / want_sums[1].abs().clamp_min(1e-300))[same]
+        torch.cuda.synchronize()
+        check(torch.equal(sums[0].sum(dim=1), want_sums[0].sum(dim=1)), f"H7b G={G} weights")
+        check(bool(torch.all(dw.sum(dim=1) <= 2 * near)), f"H7b G={G}: beyond Fault-4")
+        check(verr.max().item() <= 1e-12, f"H7b G={G}: value sums {verr.max().item()}")
+        log(f"H7a+sort+H7b G={G} ({'wide' if G > 254 else 'packed'} keys): sorted rows "
+            f"exact; {int((~same).sum())} cells moved by {int(near.sum())} rows near a "
+            f"cluster edge; value sums max rel err {verr.max().item():.3g}")
+        if G != N_SERVICES:
+            continue
+        sorted_keys, counts16, sums16 = ks, counts, sums
+        records["tdigest_pack"] = record(
+            lambda: kernels.tdigest_pack(lat, g, mask, N_SERVICES),
+            lambda: tdigest._sorted_rows(g, lat, mask, N_SERVICES),
+            None,
+            *bound(n * 4 + n * 4 + n + n * 4 + (G + 1) * 4, 6 * n), 0.0,
+            f"values[{n}] G={G}",
+        )
+        flat_cells, _ = tdigest._row_clusters(want_g, G, C)
+        lib_sums = torch.zeros(G * C + 1, dtype=torch.float64, device=dev)
+        v64 = want_v.double()
+        records["tdigest_cluster"] = record(
+            lambda: kernels.tdigest_cluster(sorted_keys, counts16, N_SERVICES, C),
+            lambda: tdigest._cluster_sums_plain(want_g, want_v, N_SERVICES, C),
+            lambda: lib_sums.index_add_(0, flat_cells, v64),
+            *bound(n * 4 + (G + 1) * 4 + 2 * G * C * 8, 60 * n), verr.max().item(),
+            f"keys[{n}] G={G} C={C}",
+        )
+
+    # H8: a digest of a few plain blocks merged with H7b's raw sums; H9 on
+    # the result. Weights exact per group; cells under Fault-4 as above;
+    # means of the others within 2C * 2^-24 * max|mean| (f32 sums in the
+    # plain version's atomic order); quantiles of one state within 1e-6.
+    G = N_SERVICES
+    a = tdigest.init(G, dev)
+    for _ in range(3):
+        a = tdigest.update_plain(
+            a, torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.exponential(3e7, n).astype(np.float32)).to(dev), mask,
+        )
+    got = kernels.tdigest_merge(a["means"], a["weights"], sums16[0], sums16[1], raw_b=True)
+    want = tdigest.merge_plain(a, tdigest.batch_from_sums(sums16[0], sums16[1]))
+    same = got["weights"] == want["weights"]
+    mbound = 2 * C * 2.0**-24 * want["means"].abs().amax(dim=1, keepdim=True)
+    merr = (got["means"] - want["means"]).abs()
+    torch.cuda.synchronize()
+    check(torch.equal(got["weights"].sum(dim=1), want["weights"].sum(dim=1)), "H8 weights")
+    check((~same).float().mean().item() <= 0.01, "H8: more than 1% of cells moved")
+    check(bool(torch.all(merr[same] <= mbound.expand_as(merr)[same])), "H8 means")
+    log(f"H8 tdigest_merge G={G}: group weights exact, {int((~same).sum())} cells moved, "
+        f"means max |err| {merr[same].max().item():.3g}")
+    records["tdigest_merge"] = record(
+        lambda: kernels.tdigest_merge(a["means"], a["weights"], sums16[0], sums16[1], raw_b=True),
+        lambda: tdigest.merge_plain(a, tdigest.batch_from_sums(sums16[0], sums16[1])),
+        None,
+        # ops: a comparison sort of 2C centroids and one pass over them
+        *bound(2 * G * C * 4 + 2 * G * C * 8 + 2 * G * C * 4,
+               G * 2 * C * (math.log2(2 * C) + 1)),
+        merr[same].max().item(), f"state[{G},{C}] + sums[2,{G},{C}]",
+    )
+    qs_t = torch.tensor(QS, dtype=torch.float32, device=dev)
+    qg = kernels.tdigest_quantiles(got["means"], got["weights"], qs_t)
+    qw = tdigest.quantile_values_plain(got, QS)
+    qrel = ((qg - qw).abs() / qw.abs().clamp_min(1e-300)).max().item()
+    torch.cuda.synchronize()
+    check(qrel <= 1e-6, f"H9 relative error {qrel}")
+    log(f"H9 tdigest_quantiles G={G}: max rel err {qrel:.3g}")
+    records["tdigest_quantiles"] = record(
+        lambda: kernels.tdigest_quantiles(got["means"], got["weights"], qs_t),
+        lambda: tdigest.quantile_values_plain(got, QS),
+        None,
+        *bound(2 * G * C * 4 + len(QS) * 4 + G * len(QS) * 8, 6 * G * len(QS) * C), qrel,
+        f"state[{G},{C}] Q={len(QS)}",
+    )
+    return records
+
+
+def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
+    flipped, or int64 (group << 32 | order key)."""
+    if ks.dtype == torch.int64:
+        return ks >> 32, tdigest._from_order_key(ks & 0xFFFFFFFF)
+    bits_g = (G + 1).bit_length()
+    k = (ks.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    return k >> (32 - bits_g), tdigest._from_order_key((k << bits_g) & 0xFFFFFFFF)
+
+
+def near_edge_rows(tdigest, g_s: torch.Tensor, G: int, C: int) -> torch.Tensor:
+    """Per group, the sorted rows whose f64 cluster coordinate k(qmid) * C
+    (qmid in f32, as the reference computes it) lies within the Fault-4
+    contract's 1e-4 of an integer."""
+    _, qmid = tdigest._row_clusters(g_s, G, C)
+    q = torch.clamp(qmid.double(), float(np.float32(1e-7)), float(np.float32(1 - 1e-7)))
+    c = (torch.asin(2 * q - 1) / math.pi + 0.5) * C
+    near = ((c - torch.round(c)).abs() <= F4_EPS) & (g_s < G)
+    return torch.bincount(g_s[near], minlength=G)[:G]
+
+
 def copy_rate(dev) -> float:
     """Bytes/s of a 1 GiB device-to-device copy (read + write counted)."""
     src = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
@@ -323,7 +614,7 @@ def copy_rate(dev) -> float:
 # ---------------------------------------------------------------- the slice
 def http_events(n_rows: int) -> dict:
     """bench.py's http_events generator (build_http, seed 42) with its truth
-    counts and truth latency histograms."""
+    counts, truth latency histograms and per-(service, status) counts."""
     rng = np.random.default_rng(42)
     svc = np.empty(n_rows, np.uint8)
     status = np.empty(n_rows, np.uint16)
@@ -331,13 +622,15 @@ def http_events(n_rows: int) -> dict:
     tc = np.zeros(N_SERVICES, np.int64)
     te = np.zeros(N_SERVICES, np.int64)
     th = np.zeros((N_SERVICES, TRUTH_BINS), np.int64)
-    opts = np.array([200, 301, 404, 500], np.uint16)
+    ts = np.zeros((N_SERVICES, len(STATUSES)), np.int64)
+    opts = np.array(STATUSES, np.uint16)
     cum = np.cumsum([0.85, 0.05, 0.05, 0.05])
     chunk = 16_000_000
     for off in range(0, n_rows, chunk):
         m = min(chunk, n_rows - off)
         si = rng.integers(0, N_SERVICES, m, dtype=np.uint8)
-        st = opts[np.searchsorted(cum, rng.random(m), side="right")]
+        pick = np.searchsorted(cum, rng.random(m), side="right")
+        st = opts[pick]
         la = rng.exponential(3e7, m)
         svc[off : off + m] = si
         status[off : off + m] = st
@@ -348,7 +641,32 @@ def http_events(n_rows: int) -> dict:
         th += np.bincount(
             si.astype(np.int64) * TRUTH_BINS + bins, minlength=N_SERVICES * TRUTH_BINS
         ).reshape(N_SERVICES, TRUTH_BINS)
-    return dict(svc=svc, status=status, latency=latency, tc=tc, te=te, th=th)
+        ts += np.bincount(
+            si.astype(np.int64) * len(STATUSES) + pick, minlength=N_SERVICES * len(STATUSES)
+        ).reshape(N_SERVICES, len(STATUSES))
+    return dict(svc=svc, status=status, latency=latency, tc=tc, te=te, th=th, ts=ts)
+
+
+def conn_flows(n_rows: int) -> dict:
+    """bench.py's conn_flows generator (build_flows, seed 45: 64 pods each
+    side, remote_port uniform in [1024, 65535), byte counts uniform in
+    [0, 2^20)) with its truth byte sums and distinct ports per (src, dst)."""
+    rng = np.random.default_rng(45)
+    d = {
+        "src": rng.integers(0, N_PODS, n_rows, dtype=np.uint8),
+        "dst": rng.integers(0, N_PODS, n_rows, dtype=np.uint8),
+        "port": rng.integers(1024, 65535, n_rows, dtype=np.uint16),
+        "bs": rng.integers(0, 1 << 20, n_rows, dtype=np.uint32),
+        "br": rng.integers(0, 1 << 20, n_rows, dtype=np.uint32),
+    }
+    pair = d["src"].astype(np.int64) * N_PODS + d["dst"]
+    # Per-pair byte sums stay below 2^53, so the float64 bincount is exact.
+    d["sent"] = np.bincount(pair, weights=d["bs"], minlength=FLOW_GROUPS).astype(np.int64)
+    d["recv"] = np.bincount(pair, weights=d["br"], minlength=FLOW_GROUPS).astype(np.int64)
+    seen = np.zeros(FLOW_GROUPS << 16, dtype=bool)
+    seen[(pair << 16) | d["port"]] = True
+    d["distinct"] = seen.reshape(FLOW_GROUPS, 1 << 16).sum(axis=1)
+    return d
 
 
 def truth_quantile(hist_row: np.ndarray, q: float) -> float:
@@ -394,6 +712,42 @@ def build_carnot(data: dict, n_rows: int, device: str):
     return carnot
 
 
+def build_flows_carnot(fl: dict, n_rows: int, device: str):
+    """bench.py's conn_flows table (run_config_3): identity dictionary codes
+    for the 64 pods of each side, written in 16M-row chunks."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    S, I = DataType.STRING, DataType.INT64
+    rel = Relation.of(
+        ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS), ("src", S), ("dst", S),
+        ("remote_port", I), ("bytes_sent", I), ("bytes_recv", I),
+    )
+    table = carnot.table_store.create_table("conn_flows", rel, size_limit=1 << 42)
+    for col in ("src", "dst"):
+        for i in range(N_PODS):
+            table.dictionaries[col].get_code(f"default/pod-{i}")
+    chunk = 16_000_000
+    for off in range(0, n_rows, chunk):
+        m = min(chunk, n_rows - off)
+        sl = slice(off, off + m)
+        table.write_pydict({
+            "time_": np.arange(off, off + m, dtype=np.int64) * 1000,
+            "src": DictColumn(fl["src"][sl].astype(np.int32), table.dictionaries["src"]),
+            "dst": DictColumn(fl["dst"][sl].astype(np.int32), table.dictionaries["dst"]),
+            "remote_port": fl["port"][sl],
+            "bytes_sent": fl["bs"][sl],
+            "bytes_recv": fl["br"][sl],
+        })
+    table.compact()
+    table.stop()
+    check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "table expired rows")
+    return carnot
+
+
 def verify(result, data: dict, n_rows: int) -> None:
     """bench.py's run_config_2 verify(), unchanged in substance."""
     rows = result.table("service_stats")
@@ -411,13 +765,84 @@ def verify(result, data: dict, n_rows: int) -> None:
             check(abs(q[key] - want) <= 0.04 * want, f"{key} of svc-{j}")
 
 
+def countmin_max_truth(ts: np.ndarray) -> np.ndarray:
+    """Per service, the largest count-min cell the true per-status counts
+    give: each status adds its count into its four buckets (the plain
+    _buckets), and max_est is the largest cell of all four rows."""
+    from pixie_tpu_torch.ops import countmin
+
+    buckets = countmin._buckets(torch.tensor(STATUSES, dtype=torch.int64),
+                                countmin.DEFAULT_DEPTH, countmin.DEFAULT_WIDTH)
+    out = np.zeros(N_SERVICES, np.int64)
+    for j in range(N_SERVICES):
+        cells = np.zeros((countmin.DEFAULT_DEPTH, countmin.DEFAULT_WIDTH), np.int64)
+        for d, b in enumerate(buckets):
+            np.add.at(cells[d], b.numpy(), ts[j])
+        out[j] = cells.max()
+    return out
+
+
+def verify_sketches(result, data: dict, n_rows: int) -> None:
+    """Config 5: count-min totals equal the true per-service counts, max_est
+    is at least the largest true status count and equals the bucket truth,
+    and the t-digest p50/p99 lie within 4% of the truth histogram's."""
+    rows = result.table("sketches")
+    by_svc = {s: i for i, s in enumerate(rows["service"])}
+    check(len(by_svc) == N_SERVICES, f"sketches: got {len(by_svc)} groups")
+    max_truth = data.setdefault("cm_max", countmin_max_truth(data["ts"]))
+    for j in range(N_SERVICES):
+        i = by_svc[f"ns/svc-{j}"]
+        f = json.loads(rows["freq"][i])
+        check(f["total"] == data["tc"][j], f"count-min total of svc-{j}")
+        check(f["max_est"] >= data["ts"][j].max(), f"max_est of svc-{j} below its top status")
+        check(f["max_est"] == max_truth[j], f"max_est of svc-{j}: {f['max_est']} != {max_truth[j]}")
+        q = json.loads(rows["lat"][i])
+        for key, qq in (("p50", 0.50), ("p99", 0.99)):
+            want = truth_quantile(data["th"][j], qq)
+            check(abs(q[key] - want) <= 0.04 * want, f"t-digest {key} of svc-{j}")
+
+
+def verify_flows(result, fl: dict, n_rows: int) -> None:
+    """Config 3: 4096 groups, byte sums equal the bincount truths, distinct
+    ports within 12% for every pair (5.2 sigma at 1.04/sqrt(2048)) and mean
+    |relative error| <= 2.5%."""
+    rows = result.table("flows")
+    check(len(rows["src"]) == FLOW_GROUPS, f"flows: got {len(rows['src'])} groups")
+    pod = lambda name: int(name.rsplit("-", 1)[1])
+    pair = np.array([pod(a) * N_PODS + pod(b) for a, b in zip(rows["src"], rows["dst"])])
+    check(np.array_equal(np.sort(pair), np.arange(FLOW_GROUPS)), "flows: (src, dst) pairs")
+    check(np.array_equal(np.asarray(rows["bytes_sent"]), fl["sent"][pair]), "bytes_sent")
+    check(np.array_equal(np.asarray(rows["bytes_recv"]), fl["recv"][pair]), "bytes_recv")
+    rel = np.abs(np.asarray(rows["ports"]) / fl["distinct"][pair] - 1.0)
+    check(rel.max() <= 0.12, f"distinct ports: max rel err {rel.max():.4f}")
+    check(rel.mean() <= 0.025, f"distinct ports: mean rel err {rel.mean():.4f}")
+    fl["ports_rel"] = (float(rel.max()), float(rel.mean()))
+
+
+def quantiles_close(got: list, want: list, what: str) -> float:
+    """The quantile contract between the kernel path and the plain path
+    (PERF.md): parsed values within a relative 1e-2 (Fault-4), and three
+    quarters within 1e-5. Returns the largest relative difference."""
+    rel = []
+    for gq, wq in zip(got, want):
+        g, w = json.loads(gq), json.loads(wq)
+        check(list(g) == list(w), f"{what}: quantile keys")
+        rel += [abs(g[k] - w[k]) / max(abs(w[k]), 1e-300) for k in w]
+    rel = np.array(rel)
+    check(rel.max() <= 1e-2, f"{what}: quantile rel diff {rel.max()}")
+    check((rel <= 1e-5).mean() >= 0.75, f"{what}: under 3/4 of quantiles within 1e-5")
+    return float(rel.max())
+
+
 def slice_parity(n_rows: int) -> None:
-    """The kernel path against the plain path end to end on one table."""
+    """The kernel path against the plain path end to end on one table, for
+    the three queries."""
     from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
 
     data = http_events(n_rows)
-    got = build_carnot(data, n_rows, "cuda").execute_query(SERVICE_STATS).table("service_stats")
-    want = build_carnot(data, n_rows, "cpu").execute_query(SERVICE_STATS).table("service_stats")
+    cuda, cpu = build_carnot(data, n_rows, "cuda"), build_carnot(data, n_rows, "cpu")
+    got = cuda.execute_query(SERVICE_STATS).table("service_stats")
+    want = cpu.execute_query(SERVICE_STATS).table("service_stats")
     check(got["service"] == want["service"], "group set/order: cuda vs cpu")
     check(got["throughput"] == want["throughput"], "throughput: cuda vs cpu")
     check(np.allclose(got["error_rate"], want["error_rate"], rtol=0, atol=1e-12),
@@ -427,7 +852,56 @@ def slice_parity(n_rows: int) -> None:
         for k in w:
             check(g[k] == w[k] or max(g[k], w[k]) / min(g[k], w[k])
                   <= DEFAULT_SPEC.gamma * (1 + 1e-9), f"quantile {k}: cuda vs cpu")
-    log(f"slice parity at {n_rows} rows: kernel path == plain path")
+    log(f"slice parity at {n_rows} rows: service_stats kernel path == plain path")
+    got = cuda.execute_query(SKETCHES).table("sketches")
+    want = cpu.execute_query(SKETCHES).table("sketches")
+    check(got["service"] == want["service"], "sketches group set/order: cuda vs cpu")
+    check(got["freq"] == want["freq"], "count-min JSON: cuda vs cpu")
+    worst = quantiles_close(got["lat"], want["lat"], "t-digest cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: sketches count-min JSON equal, t-digest "
+        f"quantiles max rel diff {worst:.3g}")
+    fl = conn_flows(n_rows)
+    got = build_flows_carnot(fl, n_rows, "cuda").execute_query(FLOWS).table("flows")
+    want = build_flows_carnot(fl, n_rows, "cpu").execute_query(FLOWS).table("flows")
+    for k in ("src", "dst", "bytes_sent", "bytes_recv"):
+        check(got[k] == want[k], f"flows {k}: cuda vs cpu")
+    dp = np.abs(np.asarray(got["ports"]) - np.asarray(want["ports"]))
+    # Equal registers; H10's f64 sum may round a .5 the other way.
+    check(dp.max() <= 1 and (dp > 0).mean() <= 1e-3, "flows ports: cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: flows groups and byte sums equal, "
+        f"{int((dp > 0).sum())} of {dp.size} distinct counts one apart")
+
+
+def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
+    """One main path: launch counts zeroed just before, one cold query (the
+    executor's staged columns and key plans dropped first, so that no path
+    reuses another's) and WARM_QUERIES warm queries, each verified, counts
+    read just after."""
+    from pixie_tpu_torch.ops import kernels
+    from pixie_tpu_torch.parallel import staging
+
+    carnot.device_executor.clear_caches()
+    kernels.reset_launches()
+    staging.reset_cold_profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = carnot.execute_query(query)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    cold_phases = staging.reset_cold_profile()
+    verify_fn(result)
+    warm = []
+    for _ in range(WARM_QUERIES):
+        t0 = time.perf_counter()
+        result = carnot.execute_query(query)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        verify_fn(result)
+    launches = dict(kernels.LAUNCHES)
+    for name in expect:
+        check(launches[name] > 0, f"kernel {name} was not launched on its main path")
+    check(carnot.device_executor.last_fold_ms is not None, "fragment not offloaded")
+    return dict(cold=cold, cold_phases=cold_phases, warm=warm, launches=launches)
 
 
 def main() -> int:
@@ -435,8 +909,8 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1 << 26,
                     help="http_events rows (bench.py's full scale is 256000000)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm query with torch.profiler and print "
-                         "its device time by op")
+                    help="also trace one warm query of each path with torch.profiler "
+                         "and print its device time by op")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -444,8 +918,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from pixie_tpu_torch.ops import histogram, kernels, segment
-    from pixie_tpu_torch.parallel import staging
 
+    t_start = time.perf_counter()
+    phase_s: dict = {}
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -461,55 +936,83 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     log(f"opt-in shared memory per block: {kernels.smem_optin_bytes(dev)} B")
+    phase_s["build"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     records = kernel_phases(kernels, segment, histogram, dev)
+    records.update(sketch_kernel_phases(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
+    phase_s["kernels"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     slice_parity(1 << 20)
+    phase_s["slice_parity"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     data = http_events(args.rows)
     carnot = build_carnot(data, args.rows, "cuda")
     log(f"http_events: {args.rows} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_s["http_events_table"] = time.perf_counter() - t0
 
-    # ---- the main path: counts from zero, cold query, warm queries
-    kernels.reset_launches()
-    staging.reset_cold_profile()
-    torch.cuda.synchronize()
+    # ---- the main paths: counts from zero before each, read after it
+    paths = {}
     t0 = time.perf_counter()
-    result = carnot.execute_query(SERVICE_STATS)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    cold_phases = staging.reset_cold_profile()
-    verify(result, data, args.rows)
-    warm = []
-    for _ in range(WARM_QUERIES):
-        t0 = time.perf_counter()
-        result = carnot.execute_query(SERVICE_STATS)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-        verify(result, data, args.rows)
-    launches = dict(kernels.LAUNCHES)
+    paths["service_stats"] = drive(
+        carnot, SERVICE_STATS, lambda r: verify(r, data, args.rows), kernels.KERNELS[:4]
+    )
+    phase_s["service_stats"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["sketches"] = drive(
+        carnot, SKETCHES, lambda r: verify_sketches(r, data, args.rows),
+        ("segment_rows_sum_i64", "hash32", "countmin_update", "tdigest_pack",
+         "tdigest_cluster", "tdigest_merge", "tdigest_quantiles"),
+    )
+    phase_s["sketches"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fl = conn_flows(FLOW_ROWS)
+    flows = build_flows_carnot(fl, FLOW_ROWS, "cuda")
+    log(f"conn_flows: {FLOW_ROWS} rows generated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_s["conn_flows_table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["flows"] = drive(
+        flows, FLOWS, lambda r: verify_flows(r, fl, FLOW_ROWS),
+        ("segment_rows_sum_i64", "hll_update", "hll_estimate"),
+    )
+    phase_s["flows"] = time.perf_counter() - t0
+    log(f"flows distinct ports vs truth: max rel err {fl['ports_rel'][0]:.4f}, "
+        f"mean {fl['ports_rel'][1]:.4f}")
+
     n_queries = 1 + WARM_QUERIES
+    rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS}
+    for name, p in paths.items():
+        best = min(p["warm"])
+        log(f"{name} cold {p['cold']:.3f} s "
+            f"{json.dumps({k: round(v, 3) for k, v in p['cold_phases'].items()})}")
+        log(f"{name} warm {[round(w, 4) for w in p['warm']]} s; best {best:.4f} s = "
+            f"{rows_of[name] / best:.4g} rows/s on {smi}")
+        log(f"{name} launches over {n_queries} queries: "
+            f"{ {k: v for k, v in p['launches'].items() if v} }; per query: "
+            f"{ {k: v / n_queries for k, v in p['launches'].items() if v} }")
+    launches = {k: sum(p["launches"][k] for p in paths.values()) for k in kernels.KERNELS}
     for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    check(carnot.device_executor.last_fold_ms is not None, "fragment not offloaded")
-    best = min(warm)
-    log(f"service_stats cold {cold:.3f} s {json.dumps({k: round(v, 3) for k, v in cold_phases.items()})}")
-    log(f"service_stats warm {[round(w, 4) for w in warm]} s; best {best:.4f} s = "
-        f"{args.rows / best:.4g} rows/s on {smi}")
-    log(f"launches over {n_queries} queries: {launches}")
+        check(count > 0, f"kernel {name} was not launched on the main paths")
 
     if args.profile:
-        profile_warm(carnot, best)
+        profile_warm(carnot, SERVICE_STATS, min(paths["service_stats"]["warm"]))
+        profile_warm(carnot, SKETCHES, min(paths["sketches"]["warm"]))
+        profile_warm(flows, FLOWS, min(paths["flows"]["warm"]))
 
+    phase_s["total"] = time.perf_counter() - t_start
+    log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     out = []
     for name in kernels.KERNELS:
         r = records[name]
         out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "host_paced_ms": r["host_paced_ms"], "plain_ms": r["plain_ms"],
@@ -525,7 +1028,7 @@ def main() -> int:
     return 0
 
 
-def profile_warm(carnot, warm_best: float) -> None:
+def profile_warm(carnot, query: str, warm_best: float) -> None:
     """One warm query under torch.profiler: device time by op, and the
     device's busy time as a share of the profiled wall and of the best
     unprofiled warm query."""
@@ -534,7 +1037,7 @@ def profile_warm(carnot, warm_best: float) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        carnot.execute_query(SERVICE_STATS)
+        carnot.execute_query(query)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device events only: CPU ops also carry their kernels' device time.
@@ -543,9 +1046,9 @@ def profile_warm(carnot, warm_best: float) -> None:
     )
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
     busy = device_us / 1e6
-    log(f"profile: device busy {busy:.4f} s = {100 * busy / wall:.1f}% of the profiled "
-        f"wall {wall:.4f} s, {100 * busy / warm_best:.1f}% of the best warm query "
-        f"{warm_best:.4f} s")
+    log(f"profile {query.splitlines()[-1]}: device busy {busy:.4f} s = "
+        f"{100 * busy / wall:.1f}% of the profiled wall {wall:.4f} s, "
+        f"{100 * busy / warm_best:.1f}% of the best warm query {warm_best:.4f} s")
     log(table)
 
 

@@ -1,0 +1,100 @@
+"""Count-min frequency sketch, vectorized over groups
+(pixie_tpu/ops/countmin.py).
+
+State is int64 [num_groups, depth, width]. Each row adds one to ``depth``
+buckets of its group, bucket_d = (h1 + d * h2) & (width - 1) from the two
+u32 hashes of ``hashing.hash32_pair(value, seed=1)`` (Kirsch-Mitzenmacher
+double hashing). Merge is an elementwise add; ``query`` takes the min over
+the depth rows.
+
+On a CUDA tensor ``update_counted`` launches the hash kernel for the pair and
+H6 for the buckets, which also adds each group's row count into the UDA's
+``total`` in the same pass; on a CPU tensor the plain versions below run.
+``query`` is a plain version only: no query runs on the port's path. The
+reference's int-dictionary cell lane (``cell_update``) gives the same cells
+as the row path and is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pixie_tpu_torch.ops import hashing, kernels, segment
+
+DEFAULT_DEPTH = 4
+DEFAULT_WIDTH = 8192  # eps ~ e / width ~ 3.3e-4 of the total count
+
+
+def init(
+    num_groups: int, device, depth: int = DEFAULT_DEPTH, width: int = DEFAULT_WIDTH
+) -> torch.Tensor:
+    if width & (width - 1):
+        raise ValueError(
+            f"count-min width must be a power of two (got {width}): "
+            "bucketing masks with width-1"
+        )
+    return torch.zeros((num_groups, depth, width), dtype=torch.int64, device=device)
+
+
+def _buckets(values: torch.Tensor, depth: int, width: int) -> list:
+    """The ``depth`` int32 bucket indices of each value (plain; H6 computes
+    them from the hash kernel's pair)."""
+    h1, h2 = hashing.hash32_pair_plain(values, seed=1)
+    return [((h1 + d * h2) & (width - 1)).to(torch.int32) for d in range(depth)]
+
+
+def update_plain(
+    state: torch.Tensor, gids: torch.Tensor, values: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of H6's sketch update: the new counts."""
+    num_groups, depth, width = state.shape
+    outs = [
+        segment.seg_count_plain(
+            segment.flat_segment_ids(gids, b, width), num_groups * width, mask
+        ).reshape(num_groups, width)
+        for b in _buckets(values, depth, width)
+    ]
+    return state + torch.stack(outs, dim=1)
+
+
+def update_counted(
+    state: torch.Tensor, total: torch.Tensor, gids: torch.Tensor,
+    values: torch.Tensor, mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts, total): the sketch updated with a block of rows and each
+    group's count of valid rows added to ``total`` (int64 [num_groups]).
+    On CUDA both are updated in place by one H6 launch."""
+    if state.is_cuda:
+        pair = kernels.hash32(hashing.words64(values).contiguous(), 1, pair=True)
+        kernels.countmin_update(
+            pair, gids.to(torch.int32).contiguous(), mask, state, total
+        )
+        return state, total
+    counts = update_plain(state, gids, values, mask)
+    return counts, total + segment.seg_count_plain(gids, total.shape[0], mask)
+
+
+def update(
+    state: torch.Tensor, gids: torch.Tensor, values: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The reference's ``update``: the sketch alone."""
+    if state.is_cuda:
+        scratch = torch.zeros(state.shape[0], dtype=torch.int64, device=state.device)
+        return update_counted(state, scratch, gids, values, mask)[0]
+    return update_plain(state, gids, values, mask)
+
+
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def query(state: torch.Tensor, gids: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Estimated counts of (group, value) pairs: the min over depth rows."""
+    _, depth, width = state.shape
+    g = gids.to(torch.int64)
+    ests = [state[g, d, b.to(torch.int64)] for d, b in enumerate(_buckets(values, depth, width))]
+    return torch.min(torch.stack(ests, dim=0), dim=0).values

@@ -1,12 +1,15 @@
 """The hand-written Hopper kernels: build, bind, launch, count.
 
-``hopper_kernels.cu`` holds the four CUDA C++ kernels of the device fold
-(H1-H4, see its header). At the first launch, ``library()`` compiles it with
-``nvcc`` for ``sm_90a`` into ``pixie_tpu_torch/_build/`` as a shared library
-with a plain C interface, keyed by a hash of the source and the flags, and
-loads it with ctypes; a later process finds the library there and skips the
-build. Nothing here is imported, built or probed at module import: the CPU
-tests import this module on machines with no CUDA toolkit.
+``hopper_kernels.cu`` holds the CUDA C++ kernels of the sum and
+log-histogram fold (H1-H4) and ``sketch_kernels.cu`` those of the sketches
+(the hash kernel and H5-H10; see each file's header). At the first launch,
+``library()`` compiles both with ``nvcc`` for ``sm_90a``, one process per
+source started together, and links them into ``pixie_tpu_torch/_build/`` as
+one shared library with a plain C interface, keyed by a hash of the sources,
+their headers and the flags, and loads it with ctypes; a later process finds
+the library there and skips the build. Nothing here is imported, built or
+probed at module import: the CPU tests import this module on machines with
+no CUDA toolkit.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its output
 with torch on the input's device, makes that device current for the launch
@@ -36,24 +39,25 @@ KERNELS = (
     "segment_sum_f64",
     "log_histogram_update",
     "hist_quantiles",
+    "hash32",
+    "hll_update",
+    "countmin_update",
+    "tdigest_pack",
+    "tdigest_cluster",
+    "tdigest_merge",
+    "tdigest_quantiles",
+    "hll_estimate",
 )
 
 # Launch counts per kernel since the last reset_launches().
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(_DIR, "hopper_kernels.cu")
+SOURCES = ("hopper_kernels.cu", "sketch_kernels.cu")
+HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
-NVCC_FLAGS = (
-    "-O3",
-    "-std=c++17",
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-)
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +73,14 @@ _SIGNATURES = {
         _P, _I, _I, _P, _I, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, _P, _P,
     ),
+    "px_hash32": (_P, _LL, ctypes.c_uint, _I, _P, _P),
+    "px_hll_update": (_P, _LL, _P, _P, _I, _I, _P, _I, _P),
+    "px_countmin_update": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "px_tdigest_pack": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _I, _P),
+    "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
+    "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -98,39 +110,51 @@ def _nvcc() -> str:
     )
 
 
+def _run(cmd: list) -> subprocess.Popen:
+    return subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+
+
+def _finish(proc: subprocess.Popen, what: str) -> str:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {what} failed ({proc.returncode}):\n{err}{out}")
+    return err
+
+
 def build() -> str:
     """Compile the kernels (once per source hash) and return the library path."""
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so_path = os.path.join(BUILD_DIR, f"libpixie_kernels_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    so_path = os.path.join(BUILD_DIR, f"libpixie_kernels_{h.hexdigest()[:16]}.so")
     if os.path.exists(so_path):
         BUILD_INFO.update(path=so_path, cached=True, seconds=0.0, ptxas="")
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, _SOURCE, "-o", tmp],
-            capture_output=True,
-            text=True,
-            timeout=600,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}"
-            )
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, f"{os.path.splitext(n)[0]}.o") for n in SOURCES]
+        # One nvcc per source, all started together.
+        procs = [
+            _run([nvcc, *NVCC_FLAGS, "-c", os.path.join(_DIR, n), "-o", o])
+            for n, o in zip(SOURCES, objs)
+        ]
+        try:
+            ptxas = "".join(_finish(p, n) for p, n in zip(procs, SOURCES))
+        finally:  # a failed compile leaves no other nvcc running
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        lib = os.path.join(tmp, "lib.so")
+        _finish(_run([nvcc, "-shared", ARCH, *objs, "-o", lib]), "link")
+        os.replace(lib, so_path)
     BUILD_INFO.update(
-        path=so_path,
-        cached=False,
-        seconds=time.perf_counter() - t0,
-        ptxas=proc.stderr,
+        path=so_path, cached=False, seconds=time.perf_counter() - t0, ptxas=ptxas
     )
     return so_path
 
@@ -210,6 +234,10 @@ def uses_shared(
         nbytes = num_segments * 8
     elif kernel == "log_histogram_update":
         nbytes = num_segments * nbins * 4
+    elif kernel == "hll_update":
+        nbytes = num_segments * nbins * 4  # nbins: registers per group
+    elif kernel == "tdigest_cluster":
+        nbytes = 2 * num_segments * nbins * 8  # nbins: capacity
     else:
         raise ValueError(kernel)
     return nbytes <= smem_optin_bytes(device)
@@ -304,3 +332,195 @@ def hist_quantiles(
         sqrt_gamma, out.data_ptr(),
     )
     return out
+
+
+# ---------------------------------------------------------------- sketches
+def hash32(words: torch.Tensor, seed: int, pair: bool) -> torch.Tensor:
+    """The hash kernel: u32 hashes of 64-bit words (int64 [n]) as their bit
+    patterns in int32, [1, n] (hash32) or [2, n] (hash32_pair)."""
+    device = words.device
+    _require(words, "words", torch.int64, device, 1)
+    n = words.shape[0]
+    out = torch.empty((2 if pair else 1, n), dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    _launch("hash32", device, words.data_ptr(), n, seed & 0xFFFFFFFF, int(pair),
+            out.data_ptr())
+    return out
+
+
+def hll_update(
+    words: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    state: torch.Tensor,
+) -> torch.Tensor:
+    """H5: folds each valid row's (register, rho) into ``state`` (int32
+    [S, 2^p]) IN PLACE by atomic max, and returns it."""
+    device = gids.device
+    _require(words, "words", torch.int64, device, 1)
+    _require(state, "state", torch.int32, device, 2)
+    n = words.shape[0]
+    mask = _gids_mask(gids, mask, n, device)
+    S, m = state.shape
+    precision = m.bit_length() - 1
+    if m != 1 << precision or precision < 4:
+        raise ValueError(f"HLL state width {m} is not a power of two >= 16")
+    if n == 0 or S == 0:
+        return state
+    _launch(
+        "hll_update", device,
+        words.data_ptr(), n, gids.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        S, precision, state.data_ptr(),
+        int(uses_shared("hll_update", device, S, nbins=m)),
+    )
+    return state
+
+
+def countmin_update(
+    pair: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    cm: torch.Tensor, total: torch.Tensor,
+) -> None:
+    """H6: adds one to each valid row's ``depth`` buckets of ``cm`` (int64
+    [S, depth, width]) and to its group's ``total`` (int64 [S]), IN PLACE.
+    ``pair`` is the hash kernel's [2, n] output for seed 1."""
+    device = gids.device
+    _require(pair, "pair", torch.int32, device, 2)
+    _require(cm, "cm", torch.int64, device, 3)
+    _require(total, "total", torch.int64, device, 1)
+    n = pair.shape[1]
+    mask = _gids_mask(gids, mask, n, device)
+    S, depth, width = cm.shape
+    if pair.shape[0] != 2 or total.shape[0] != S or width & (width - 1):
+        raise ValueError("countmin_update: pair must be [2, n], total [S], width a power of two")
+    if n == 0 or S == 0:
+        return
+    _launch(
+        "countmin_update", device,
+        pair.data_ptr(), n, gids.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        S, depth, width, cm.data_ptr(), total.data_ptr(),
+        int(S * 8 <= smem_optin_bytes(device)),
+    )
+
+
+PACK_MAX_GROUP_BITS = 8
+
+
+def tdigest_pack(
+    values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    num_groups: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """H7a: (keys, counts) — each row's sort key (int32 packed keys with the
+    sign bit flipped up to 254 groups, else int64 (group << 32 | value
+    order key)) and int32 [G + 1] rows per group, the last the masked rows."""
+    device = gids.device
+    _require(values, "values", torch.float32, device, 1)
+    n = values.shape[0]
+    mask = _gids_mask(gids, mask, n, device)
+    bits_g = max((num_groups + 1).bit_length(), 1)
+    wide = bits_g > PACK_MAX_GROUP_BITS
+    keys = torch.empty(n, dtype=torch.int64 if wide else torch.int32, device=device)
+    counts = torch.zeros(num_groups + 1, dtype=torch.int32, device=device)
+    if n == 0:
+        return keys, counts
+    _launch(
+        "tdigest_pack", device,
+        values.data_ptr(), n, gids.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        num_groups, bits_g, int(wide), keys.data_ptr(), counts.data_ptr(),
+        int((num_groups + 1) * 4 <= 48 * 1024),
+    )
+    return keys, counts
+
+
+def tdigest_cluster(
+    keys: torch.Tensor, counts: torch.Tensor, num_groups: int, capacity: int
+) -> torch.Tensor:
+    """H7b: f64 [2, G, C] per-(group, cluster) row counts and value sums
+    over H7a's keys, sorted."""
+    device = keys.device
+    bits_g = max((num_groups + 1).bit_length(), 1)
+    wide = bits_g > PACK_MAX_GROUP_BITS
+    _require(keys, "keys", torch.int64 if wide else torch.int32, device, 1)
+    _require(counts, "counts", torch.int32, device, 1)
+    if counts.shape[0] != num_groups + 1:
+        raise ValueError(f"counts has {counts.shape[0]} entries, expected {num_groups + 1}")
+    n = keys.shape[0]
+    sums = torch.zeros((2, num_groups, capacity), dtype=torch.float64, device=device)
+    if n == 0 or num_groups == 0:
+        return sums
+    _launch(
+        "tdigest_cluster", device,
+        keys.data_ptr(), n, counts.data_ptr(), num_groups, capacity, bits_g,
+        int(wide), sums.data_ptr(),
+        int(uses_shared("tdigest_cluster", device, num_groups, nbins=capacity)),
+    )
+    return sums
+
+
+def tdigest_merge(
+    a_means: torch.Tensor, a_weights: torch.Tensor, b0: torch.Tensor,
+    b1: torch.Tensor, raw_b: bool = False,
+) -> dict:
+    """H8: the merged digest {"means", "weights"} (new f32 [G, C] tensors)
+    of digest a and digest b (f32 means, weights) or, with ``raw_b``, of a
+    and H7b's f64 (weight, value) sums."""
+    device = a_means.device
+    G, C = a_means.shape
+    b_dtype = torch.float64 if raw_b else torch.float32
+    for t, name, dtype in ((a_means, "a_means", torch.float32),
+                           (a_weights, "a_weights", torch.float32),
+                           (b0, "b0", b_dtype), (b1, "b1", b_dtype)):
+        _require(t, name, dtype, device, 2)
+        if tuple(t.shape) != (G, C):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(G, C)}")
+    if 2 * C > 1024:
+        raise ValueError(f"t-digest capacity {C} above 512 is not supported")
+    out = {
+        "means": torch.empty((G, C), dtype=torch.float32, device=device),
+        "weights": torch.empty((G, C), dtype=torch.float32, device=device),
+    }
+    if G == 0:
+        return out
+    _launch(
+        "tdigest_merge", device,
+        a_means.data_ptr(), a_weights.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+        int(raw_b), G, C, out["means"].data_ptr(), out["weights"].data_ptr(),
+    )
+    return out
+
+
+def tdigest_quantiles(
+    means: torch.Tensor, weights: torch.Tensor, qs: torch.Tensor
+) -> torch.Tensor:
+    """H9: f64 [G, Q] quantiles of each group's digest."""
+    device = means.device
+    _require(means, "means", torch.float32, device, 2)
+    _require(weights, "weights", torch.float32, device, 2)
+    _require(qs, "qs", torch.float32, device, 1)
+    G, C = means.shape
+    Q = qs.shape[0]
+    out = torch.empty((G, Q), dtype=torch.float64, device=device)
+    if G == 0 or Q == 0:
+        return out
+    _launch(
+        "tdigest_quantiles", device,
+        means.data_ptr(), weights.data_ptr(), G, C, qs.data_ptr(), Q, out.data_ptr(),
+    )
+    return out
+
+
+def hll_estimate(state: torch.Tensor, alpha: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """H10: (f64 [S] estimates, int64 [S] estimates rounded half to even)."""
+    device = state.device
+    _require(state, "state", torch.int32, device, 2)
+    S, m = state.shape
+    est = torch.empty(S, dtype=torch.float64, device=device)
+    rounded = torch.empty(S, dtype=torch.int64, device=device)
+    if S == 0:
+        return est, rounded
+    _launch(
+        "hll_estimate", device,
+        state.data_ptr(), S, m, alpha * m * m, est.data_ptr(), rounded.data_ptr(),
+    )
+    return est, rounded

@@ -14,6 +14,8 @@
 //    + update (:49, :59).
 // H4 px_hist_quantiles        replaces pixie_tpu/ops/histogram.py
 //    quantile_values (:83).
+// The sketch kernels (the hash kernel, H5-H10) are in sketch_kernels.cu,
+// the launch helpers both use in common.cuh.
 //
 // The TPU versions ride the matrix unit through one-hot einsums and split
 // int64 into 8-bit limbs so that f32 accumulation stays exact; that design
@@ -37,32 +39,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-
-int num_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
-}
-
-int grid_for(long long n, int ctas_per_sm) {
-  long long want = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)num_sms() * ctas_per_sm;
-  if (want > cap) want = cap;
-  return want > 0 ? (int)want : 1;
-}
-
-// Raises the kernel's dynamic shared-memory limit when the partial needs
-// more than the 48 KB every kernel may use without opting in.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
+using px::allow_smem;
+using px::grid_for;
+using px::kThreads;
 
 // ---------------------------------------------------------------- H1
 __global__ void segment_rows_sum_i64_kernel(const long long* __restrict__ rows, int R,

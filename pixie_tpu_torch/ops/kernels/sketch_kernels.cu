@@ -1,0 +1,557 @@
+// Hand-written CUDA kernels of the sketch UDAs (t-digest, count-min,
+// HyperLogLog), built for Hopper (sm_90a) into the same ctypes library as
+// hopper_kernels.cu (ops/kernels/__init__.py). Each launches on the CUDA
+// runtime's current device and the caller's stream, allocates nothing, and
+// returns the cudaError_t of its launch.
+//
+// hash  px_hash32            replaces pixie_tpu/ops/hashing.py u32_words,
+//    mix32, hash32, hash32_pair (:78-112): one or two u32 hashes per word.
+// H5  px_hll_update          replaces pixie_tpu/ops/hll.py _reg_rho + update
+//    (:43, :54), with hash32 and clz32 (:100, :114) inlined.
+// H6  px_countmin_update     replaces pixie_tpu/ops/countmin.py _buckets +
+//    update (:48, :58) and the UDA's per-group total (seg_count).
+// H7a px_tdigest_pack        replaces the key packing of
+//    pixie_tpu/ops/tdigest.py _packed_sort (:56) and the group counts of
+//    update (:78); the sort between H7a and H7b is torch.sort.
+// H7b px_tdigest_cluster     replaces the rank, k1 cluster and per-cluster
+//    sums of pixie_tpu/ops/tdigest.py update (:78).
+// H8  px_tdigest_merge       replaces pixie_tpu/ops/tdigest.py merge (:133).
+// H9  px_tdigest_quantiles   replaces pixie_tpu/ops/tdigest.py
+//    quantile_values (:163).
+// H10 px_hll_estimate        replaces pixie_tpu/ops/hll.py estimate (:118).
+//
+// What bounds them on an H100. The hash kernel, H5, H7a and H7b read each
+// row once (8-16 bytes) and are bytes-bound when their atomics keep up. H5
+// keeps its registers in shared memory while [G, 2^p] int32 fits (G <= 16
+// at p = 11) and otherwise reads the global register before its atomicMax,
+// which skips the atomic once registers saturate. H6 adds depth u64 atomics
+// per row into a [G, depth, width] global sketch (4 MB at G = 16), so with
+// few distinct (group, value) pairs the serialised same-address atomics in
+// L2, not HBM, set its time. H7b walks the sorted keys in one contiguous
+// chunk per thread, so each thread flushes one atomic per (group, cluster)
+// run, not per row. H8-H10 are one CTA (or thread) per group and
+// latency-bound at the main path's 16 groups.
+//
+// Float arithmetic. The t-digest's f32 steps (rank + 0.5, the division by
+// the count, 2q - 1, the division by pi, + 0.5, * capacity, and those of
+// H8 and H9) use the __f*_rn intrinsics, so nvcc cannot contract them into
+// FMAs and each rounds on its own, as the reference's quantile_values does
+// when XLA-CPU compiles it alone (inside a larger fused program XLA-CPU
+// contracts some of them; PERF.md's quantile bound covers that).
+// asinf is CUDA's accurate one (no fast-math); it may differ from XLA's and
+// the plain version's arcsin by an ulp or two, which moves a cluster id by
+// one only where k(q) * capacity lies within 1e-4 of an integer (the
+// Fault-4 contract, PERF.md). Per-cluster sums of H7b add in f64 and round
+// to f32 once.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "sketch_hash.cuh"
+
+namespace {
+
+using px::allow_smem;
+using px::grid_for;
+using px::kThreads;
+
+constexpr float kPiF = 3.14159265358979323846f;
+
+// ---------------------------------------------------------------- hash
+__global__ void hash32_kernel(const unsigned long long* __restrict__ words, long long n,
+                              uint32_t seed, int pair, uint32_t* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const unsigned long long w = words[i];
+    if (pair) {
+      const uint2 h = px::hash32_pair(w, seed);
+      out[i] = h.x;
+      out[n + i] = h.y;
+    } else {
+      out[i] = px::hash32(w, seed);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- H5
+__global__ void hll_update_kernel(const unsigned long long* __restrict__ words, long long n,
+                                  const int* __restrict__ gids,
+                                  const unsigned char* __restrict__ mask, int S,
+                                  int precision, int* state, int use_shared) {
+  extern __shared__ int sh_regs[];
+  const int m = 1 << precision;
+  const long long cells = (long long)S * m;
+  if (use_shared) {
+    for (long long c = threadIdx.x; c < cells; c += blockDim.x) sh_regs[c] = 0;
+    __syncthreads();
+  }
+  const int rho_max = 32 - precision + 1;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if (mask != nullptr && !mask[i]) continue;
+    const int g = gids[i];
+    if (g < 0 || g >= S) continue;
+    const uint32_t h = px::hash32(words[i], 0u);
+    const int reg = (int)(h >> (32 - precision));
+    const int rho = min(px::clz32(h << precision) + 1, rho_max);
+    int* cell = (use_shared ? sh_regs : state) + (long long)g * m + reg;
+    // Registers only grow, so a stale read can only cost an extra atomic.
+    if (*cell < rho) atomicMax(cell, rho);
+  }
+  if (use_shared) {
+    __syncthreads();
+    for (long long c = threadIdx.x; c < cells; c += blockDim.x) {
+      const int v = sh_regs[c];
+      if (v > 0 && state[c] < v) atomicMax(&state[c], v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- H6
+__global__ void countmin_update_kernel(const uint32_t* __restrict__ pair, long long n,
+                                       const int* __restrict__ gids,
+                                       const unsigned char* __restrict__ mask, int S,
+                                       int depth, int width,
+                                       unsigned long long* __restrict__ cm,
+                                       unsigned long long* __restrict__ total,
+                                       int total_shared) {
+  extern __shared__ unsigned long long sh_total[];
+  if (total_shared) {
+    for (int c = threadIdx.x; c < S; c += blockDim.x) sh_total[c] = 0ull;
+    __syncthreads();
+  }
+  const uint32_t wmask = (uint32_t)width - 1u;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if (mask != nullptr && !mask[i]) continue;
+    const int g = gids[i];
+    if (g < 0 || g >= S) continue;
+    const uint32_t h1 = pair[i], h2 = pair[n + i];
+    unsigned long long* row = cm + (long long)g * depth * width;
+    for (int d = 0; d < depth; ++d) {
+      atomicAdd(&row[(long long)d * width + ((h1 + (uint32_t)d * h2) & wmask)], 1ull);
+    }
+    atomicAdd(total_shared ? &sh_total[g] : &total[g], 1ull);
+  }
+  if (total_shared) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < S; c += blockDim.x) {
+      const unsigned long long v = sh_total[c];
+      if (v != 0ull) atomicAdd(&total[c], v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- H7a
+// The order-preserving u32 map of an f32's bits: negatives flipped, the
+// sign bit set on the rest.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u >> 31) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_key(uint32_t mp) {
+  return __uint_as_float((mp >> 31) ? (mp & 0x7FFFFFFFu) : ~mp);
+}
+
+// Each row's sort key and the row count of each group (masked rows and gids
+// outside [0, G) go to the sentinel group G). Packed (G <= 254): the
+// u32 key (group << (32 - bits_g)) | (order_key >> bits_g), stored with its
+// sign bit flipped so that a signed int32 sort orders it as u32. Wide: the
+// int64 key (group << 32) | order_key.
+__global__ void tdigest_pack_kernel(const float* __restrict__ values, long long n,
+                                    const int* __restrict__ gids,
+                                    const unsigned char* __restrict__ mask, int G,
+                                    int bits_g, int wide, void* __restrict__ keys,
+                                    int* __restrict__ counts, int counts_shared) {
+  extern __shared__ int sh_counts[];
+  if (counts_shared) {
+    for (int c = threadIdx.x; c <= G; c += blockDim.x) sh_counts[c] = 0;
+    __syncthreads();
+  }
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    int g = gids[i];
+    if ((mask != nullptr && !mask[i]) || g < 0 || g >= G) g = G;
+    const uint32_t mapped = order_key(values[i]);
+    if (wide) {
+      ((unsigned long long*)keys)[i] = ((unsigned long long)g << 32) | mapped;
+    } else {
+      const uint32_t key = ((uint32_t)g << (32 - bits_g)) | (mapped >> bits_g);
+      ((uint32_t*)keys)[i] = key ^ 0x80000000u;
+    }
+    atomicAdd(counts_shared ? &sh_counts[g] : &counts[g], 1);
+  }
+  if (counts_shared) {
+    __syncthreads();
+    for (int c = threadIdx.x; c <= G; c += blockDim.x) {
+      if (sh_counts[c] != 0) atomicAdd(&counts[c], sh_counts[c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- H7b
+__device__ __forceinline__ void decode_key(const void* keys, long long i, int bits_g, int wide,
+                                           int* g, float* v) {
+  if (wide) {
+    const unsigned long long k = ((const unsigned long long*)keys)[i];
+    *g = (int)(k >> 32);
+    *v = from_order_key((uint32_t)k);
+  } else {
+    const uint32_t k = ((const uint32_t*)keys)[i] ^ 0x80000000u;
+    *g = (int)(k >> (32 - bits_g));
+    *v = from_order_key(k << bits_g);
+  }
+}
+
+__device__ __forceinline__ int key_group(const void* keys, long long i, int bits_g, int wide) {
+  if (wide) return (int)(((const unsigned long long*)keys)[i] >> 32);
+  return (int)((((const uint32_t*)keys)[i] ^ 0x80000000u) >> (32 - bits_g));
+}
+
+// The k1-scale cluster of a mid-quantile, as pixie_tpu/ops/tdigest.py
+// _cluster_ids computes it in f32: clip(q, 1e-7, 1 - 1e-7), 2q - 1,
+// arcsin / pi + 0.5, * capacity, floor, clip.
+__device__ __forceinline__ int cluster_id(float q, int C) {
+  q = fminf(fmaxf(q, 1e-7f), (float)(1.0 - 1e-7));
+  const float x = __fsub_rn(__fmul_rn(2.0f, q), 1.0f);
+  const float k = __fadd_rn(__fdiv_rn(asinf(x), kPiF), 0.5f);
+  const int c = __float2int_rz(floorf(__fmul_rn(k, (float)C)));
+  return min(max(c, 0), C - 1);
+}
+
+// Over the sorted keys: each row's rank in its group, its mid-quantile
+// (rank + 0.5) / count, its cluster, and the (weight, value) sums of each
+// (group, cluster) into sums [2, G * C] (zeroed by the caller). Each thread
+// walks one contiguous chunk; a group's first row is found by a binary
+// search at the chunk's start and is the row where the group changes after
+// it. Sentinel rows sort last and end the walk.
+__global__ void tdigest_cluster_kernel(const void* __restrict__ keys, long long n,
+                                       const int* __restrict__ counts, int G, int C,
+                                       int bits_g, int wide, double* __restrict__ sums,
+                                       int use_shared) {
+  extern __shared__ double sh_sums[];
+  const long long cells = (long long)G * C;
+  if (use_shared) {
+    for (long long c = threadIdx.x; c < 2 * cells; c += blockDim.x) sh_sums[c] = 0.0;
+    __syncthreads();
+  }
+  double* acc = use_shared ? sh_sums : sums;
+  const long long nthreads = (long long)gridDim.x * blockDim.x;
+  const long long per = (n + nthreads - 1) / nthreads;
+  const long long lo = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * per;
+  const long long hi = min(lo + per, n);
+  if (lo < hi) {
+    int g = key_group(keys, lo, bits_g, wide);
+    long long start = 0;
+    {
+      long long a = 0, b = lo;  // first row whose group is >= g
+      while (a < b) {
+        const long long mid = (a + b) >> 1;
+        if (key_group(keys, mid, bits_g, wide) < g) a = mid + 1; else b = mid;
+      }
+      start = a;
+    }
+    int cur_g = g;
+    long long cur_cell = -1;
+    double w_acc = 0.0, v_acc = 0.0;
+    for (long long i = lo; i < hi; ++i) {
+      float v;
+      decode_key(keys, i, bits_g, wide, &g, &v);
+      if (g >= G) break;
+      if (g != cur_g) {
+        cur_g = g;
+        start = i;
+      }
+      const float rank = (float)(i - start);
+      const float q = __fdiv_rn(__fadd_rn(rank, 0.5f), fmaxf((float)counts[g], 1.0f));
+      const long long cell = (long long)g * C + cluster_id(q, C);
+      if (cell != cur_cell) {
+        if (cur_cell >= 0) {
+          atomicAdd(&acc[cur_cell], w_acc);
+          atomicAdd(&acc[cells + cur_cell], v_acc);
+        }
+        cur_cell = cell;
+        w_acc = 0.0;
+        v_acc = 0.0;
+      }
+      w_acc += 1.0;
+      v_acc += (double)v;
+    }
+    if (cur_cell >= 0) {
+      atomicAdd(&acc[cur_cell], w_acc);
+      atomicAdd(&acc[cells + cur_cell], v_acc);
+    }
+  }
+  if (use_shared) {
+    __syncthreads();
+    for (long long c = threadIdx.x; c < 2 * cells; c += blockDim.x) {
+      const double v = sh_sums[c];
+      if (v != 0.0) atomicAdd(&sums[c], v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- H8
+// The total order of the reference's argsort keys: -0.0 == +0.0, NaN last.
+__device__ __forceinline__ uint32_t sort_key(float x) {
+  if (x != x) return 0xFFFFFFFFu;
+  return order_key(x == 0.0f ? 0.0f : x);
+}
+
+// One CTA of 2C threads per group: the 2C centroids of a and b, a stable
+// sort by (weight > 0 ? mean : +inf) as a rank count over unique
+// (key, index) pairs, the f32 cumulative weights (exact for integer weights
+// below 2^24), cluster ids of their midpoints, and each cluster's f32 sums
+// in sorted order. With raw_b, b is H7b's f64 (weight, value) sums and its
+// centroids are built as the reference's update builds its batch.
+__global__ void tdigest_merge_kernel(const float* __restrict__ a_means,
+                                     const float* __restrict__ a_weights,
+                                     const void* __restrict__ b0, const void* __restrict__ b1,
+                                     int raw_b, int C, float* __restrict__ out_means,
+                                     float* __restrict__ out_weights) {
+  extern __shared__ unsigned long long sh_keys[];
+  const int n2 = 2 * C;
+  float* sm = (float*)(sh_keys + n2);
+  float* sw = sm + n2;
+  float* cum = sw + n2;
+  int* cl = (int*)(cum + n2);
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x * C;
+  float mv, wv;
+  if (t < C) {
+    mv = a_means[base + t];
+    wv = a_weights[base + t];
+  } else if (raw_b) {
+    wv = (float)((const double*)b0)[base + t - C];
+    const float vs = (float)((const double*)b1)[base + t - C];
+    mv = wv > 0.0f ? __fdiv_rn(vs, fmaxf(wv, 1.0f)) : 0.0f;
+  } else {
+    mv = ((const float*)b0)[base + t - C];
+    wv = ((const float*)b1)[base + t - C];
+  }
+  const unsigned long long mine =
+      ((unsigned long long)sort_key(wv > 0.0f ? mv : __int_as_float(0x7f800000)) << 32) | (unsigned)t;
+  sh_keys[t] = mine;
+  __syncthreads();
+  int rank = 0;
+  for (int j = 0; j < n2; ++j) rank += sh_keys[j] < mine;
+  sm[rank] = mv;
+  sw[rank] = wv;
+  __syncthreads();
+  cum[t] = sw[t];
+  __syncthreads();
+  for (int off = 1; off < n2; off <<= 1) {
+    const float add = t >= off ? cum[t - off] : 0.0f;
+    __syncthreads();
+    cum[t] = __fadd_rn(cum[t], add);
+    __syncthreads();
+  }
+  const float total = cum[n2 - 1];
+  const float q = __fdiv_rn(__fsub_rn(cum[t], __fmul_rn(0.5f, sw[t])), fmaxf(total, 1.0f));
+  cl[t] = cluster_id(q, C);
+  __syncthreads();
+  if (t < C) {
+    float ws = 0.0f, ms = 0.0f;
+    for (int j = 0; j < n2; ++j) {
+      if (cl[j] == t) {
+        ws = __fadd_rn(ws, sw[j]);
+        ms = __fadd_rn(ms, __fmul_rn(sm[j], sw[j]));
+      }
+    }
+    out_weights[base + t] = ws;
+    out_means[base + t] = ws > 0.0f ? __fdiv_rn(ms, fmaxf(ws, 1e-9f)) : 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------- H9
+// One thread per (group, q): the first non-empty centroid whose cumulative
+// midpoint reaches q * total (else the last non-empty one), and the f32
+// interpolation between it and its predecessor, as quantile_values does.
+__global__ void tdigest_quantiles_kernel(const float* __restrict__ means,
+                                         const float* __restrict__ weights, int G, int C,
+                                         const float* __restrict__ qs, int Q,
+                                         double* __restrict__ out) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= G * Q) return;
+  const int g = idx / Q;
+  const float* w = weights + (long long)g * C;
+  const float* m = means + (long long)g * C;
+  float total = 0.0f;
+  for (int i = 0; i < C; ++i) total = __fadd_rn(total, w[i]);
+  const float target = __fmul_rn(qs[idx % Q], total);
+  int hi = -1, nvalid = 0;
+  float run = 0.0f;
+  for (int i = 0; i < C; ++i) {
+    run = __fadd_rn(run, w[i]);
+    if (w[i] > 0.0f) {
+      ++nvalid;
+      if (hi < 0 && __fsub_rn(run, __fmul_rn(0.5f, w[i])) >= target) hi = i;
+    }
+  }
+  if (hi < 0) hi = max(nvalid - 1, 0);
+  const int lo = max(hi - 1, 0);
+  float c_lo = 0.0f, c_hi = 0.0f;
+  run = 0.0f;
+  for (int i = 0; i <= hi; ++i) {
+    run = __fadd_rn(run, w[i]);
+    const float c = __fsub_rn(run, __fmul_rn(0.5f, w[i]));
+    if (i == lo) c_lo = c;
+    if (i == hi) c_hi = c;
+  }
+  const float m_lo = m[lo], m_hi = m[hi];
+  float frac = c_hi > c_lo
+                   ? __fdiv_rn(__fsub_rn(target, c_lo), fmaxf(__fsub_rn(c_hi, c_lo), 1e-9f))
+                   : 1.0f;
+  frac = fminf(fmaxf(frac, 0.0f), 1.0f);
+  float v = __fadd_rn(m_lo, __fmul_rn(frac, __fsub_rn(m_hi, m_lo)));
+  if (hi == lo) v = m_hi;
+  out[idx] = total > 0.0f ? (double)v : 0.0;
+}
+
+// ---------------------------------------------------------------- H10
+constexpr int kEstThreads = 256;
+
+// One CTA per group: the f64 sum of 2^-reg and the zero count, then the
+// linear-counting and 2^32 large-range corrections of hll.py estimate, and
+// the estimate rounded half to even (jnp.round) as int64.
+__global__ void hll_estimate_kernel(const int* __restrict__ state, int m, double alpha_m2,
+                                    double* __restrict__ est, long long* __restrict__ rounded) {
+  __shared__ double sh_sum[kEstThreads];
+  __shared__ int sh_zeros[kEstThreads];
+  const int* regs = state + (long long)blockIdx.x * m;
+  double s = 0.0;
+  int zeros = 0;
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    const int r = regs[j];
+    s += ldexp(1.0, -r);
+    zeros += r == 0;
+  }
+  sh_sum[threadIdx.x] = s;
+  sh_zeros[threadIdx.x] = zeros;
+  __syncthreads();
+  for (int off = kEstThreads / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) {
+      sh_sum[threadIdx.x] += sh_sum[threadIdx.x + off];
+      sh_zeros[threadIdx.x] += sh_zeros[threadIdx.x + off];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    const double md = (double)m;
+    const double raw = alpha_m2 / sh_sum[0];
+    const double z = (double)sh_zeros[0];
+    const double linear = md * log(fmax(md / fmax(z, 1e-9), 1.0));
+    const bool use_linear = raw <= 2.5 * md && z > 0.0;
+    const double two32 = 4294967296.0;
+    const double large = -two32 * log(fmax(1.0 - fmin(raw, two32 * 0.9999) / two32, 1e-12));
+    const double corrected = raw > two32 / 30.0 ? large : raw;
+    const double e = use_linear ? linear : corrected;
+    est[blockIdx.x] = e;
+    rounded[blockIdx.x] = llrint(e);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// out: u32 [n] (pair = 0) or [2, n] (pair = 1).
+int px_hash32(const void* words, long long n, unsigned int seed, int pair, void* out,
+              void* stream) {
+  hash32_kernel<<<grid_for(n, 8), kThreads, 0, (cudaStream_t)stream>>>(
+      (const unsigned long long*)words, n, seed, pair, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// state: int32 [S, 2^precision], updated in place.
+int px_hll_update(const void* words, long long n, const void* gids, const void* mask, int S,
+                  int precision, void* state, int use_shared, void* stream) {
+  const size_t smem = use_shared ? (size_t)S * ((size_t)1 << precision) * sizeof(int) : 0;
+  cudaError_t err = allow_smem(hll_update_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  hll_update_kernel<<<grid_for(n, use_shared ? 1 : 8), kThreads, smem,
+                      (cudaStream_t)stream>>>(
+      (const unsigned long long*)words, n, (const int*)gids, (const unsigned char*)mask, S,
+      precision, (int*)state, use_shared);
+  return (int)cudaGetLastError();
+}
+
+// pair: u32 [2, n]; cm: int64 [S, depth, width] and total: int64 [S],
+// updated in place.
+int px_countmin_update(const void* pair, long long n, const void* gids, const void* mask,
+                       int S, int depth, int width, void* cm, void* total, int total_shared,
+                       void* stream) {
+  const size_t smem = total_shared ? (size_t)S * sizeof(unsigned long long) : 0;
+  cudaError_t err = allow_smem(countmin_update_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  countmin_update_kernel<<<grid_for(n, 4), kThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)pair, n, (const int*)gids, (const unsigned char*)mask, S, depth, width,
+      (unsigned long long*)cm, (unsigned long long*)total, total_shared);
+  return (int)cudaGetLastError();
+}
+
+// keys: u32 [n] (wide = 0) or int64 [n] (wide = 1); counts: int32 [G + 1],
+// zeroed by the caller.
+int px_tdigest_pack(const void* values, long long n, const void* gids, const void* mask, int G,
+                    int bits_g, int wide, void* keys, void* counts, int counts_shared,
+                    void* stream) {
+  const size_t smem = counts_shared ? (size_t)(G + 1) * sizeof(int) : 0;
+  cudaError_t err = allow_smem(tdigest_pack_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tdigest_pack_kernel<<<grid_for(n, 4), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)values, n, (const int*)gids, (const unsigned char*)mask, G, bits_g, wide,
+      keys, (int*)counts, counts_shared);
+  return (int)cudaGetLastError();
+}
+
+// keys: H7a's keys, sorted; sums: f64 [2, G * C], zeroed by the caller.
+int px_tdigest_cluster(const void* keys, long long n, const void* counts, int G, int C,
+                       int bits_g, int wide, void* sums, int use_shared, void* stream) {
+  const size_t smem = use_shared ? (size_t)2 * G * C * sizeof(double) : 0;
+  cudaError_t err = allow_smem(tdigest_cluster_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tdigest_cluster_kernel<<<grid_for(n, use_shared ? 2 : 4), kThreads, smem,
+                           (cudaStream_t)stream>>>(
+      keys, n, (const int*)counts, G, C, bits_g, wide, (double*)sums, use_shared);
+  return (int)cudaGetLastError();
+}
+
+// a_*: f32 [G, C]; b0/b1: f32 [G, C] means/weights, or with raw_b f64
+// [G, C] weight/value sums; out_*: f32 [G, C].
+int px_tdigest_merge(const void* a_means, const void* a_weights, const void* b0,
+                     const void* b1, int raw_b, int G, int C, void* out_means,
+                     void* out_weights, void* stream) {
+  if (G <= 0) return 0;
+  const size_t smem = (size_t)2 * C * (sizeof(unsigned long long) + 3 * sizeof(float) + sizeof(int));
+  cudaError_t err = allow_smem(tdigest_merge_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tdigest_merge_kernel<<<G, 2 * C, smem, (cudaStream_t)stream>>>(
+      (const float*)a_means, (const float*)a_weights, b0, b1, raw_b, C, (float*)out_means,
+      (float*)out_weights);
+  return (int)cudaGetLastError();
+}
+
+// out: f64 [G, Q].
+int px_tdigest_quantiles(const void* means, const void* weights, int G, int C, const void* qs,
+                         int Q, void* out, void* stream) {
+  const int total = G * Q;
+  if (total <= 0) return 0;
+  const int threads = 128;
+  tdigest_quantiles_kernel<<<(total + threads - 1) / threads, threads, 0,
+                             (cudaStream_t)stream>>>(
+      (const float*)means, (const float*)weights, G, C, (const float*)qs, Q, (double*)out);
+  return (int)cudaGetLastError();
+}
+
+// est: f64 [S]; rounded: int64 [S].
+int px_hll_estimate(const void* state, int S, int m, double alpha_m2, void* est, void* rounded,
+                    void* stream) {
+  if (S <= 0) return 0;
+  hll_estimate_kernel<<<S, kEstThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)state, m, alpha_m2, (double*)est, (long long*)rounded);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -43,6 +43,14 @@ def segment_rows_sum_i64_plain(
     return out
 
 
+def seg_count_plain(
+    seg_ids: torch.Tensor, num_segments: int, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Plain int64 [S] count of valid rows per segment, on any device."""
+    empty = torch.empty((0, seg_ids.shape[0]), dtype=torch.int64, device=seg_ids.device)
+    return segment_rows_sum_i64_plain(empty, seg_ids, mask, num_segments)[0]
+
+
 def segment_sum_f64_plain(
     values: torch.Tensor, seg_ids: torch.Tensor, mask: Optional[torch.Tensor],
     num_segments: int,
@@ -106,3 +114,27 @@ def seg_sum(
             values.contiguous(), seg_ids.contiguous(), mask, num_segments
         )
     return segment_sum_f64_plain(values, seg_ids, mask, num_segments)
+
+
+def seg_max(
+    values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-segment max; empty segments hold the dtype's smallest value, as
+    the reference's ``jax.ops.segment_max`` gives. A plain version only: the
+    port's one caller on the card, the HLL register update, is the fused
+    kernel H5 (ops/hll.py)."""
+    ok, idx = _valid(seg_ids, num_segments, mask)
+    if values.is_floating_point():
+        fill = float("-inf")
+    else:
+        fill = torch.iinfo(values.dtype).min
+    out = torch.full((num_segments,), fill, dtype=values.dtype, device=values.device)
+    return out.scatter_reduce_(0, idx[ok], values[ok], "amax", include_self=True)
+
+
+def flat_segment_ids(
+    gids: torch.Tensor, inner_ids: torch.Tensor, inner_size: int
+) -> torch.Tensor:
+    """(group, bucket) -> flat segment id gids * inner_size + inner, int32."""
+    return gids.to(torch.int32) * inner_size + inner_ids.to(torch.int32)

@@ -5,19 +5,22 @@ aggregation core. Fragments of the shape
 
     MemorySource -> (Map | Filter)* -> Agg(FULL, not windowed)
 
-whose group key is absent or one dictionary-coded string column run here: the
-needed columns are staged once (parallel/staging.py, cached per table
-version), then every block is folded into the UDA states by
-``_make_scan_body`` — predicates and gids as elementwise torch ops, the
-sum-family UDAs and the presence counter through ONE fused segment sum
-(kernel H1), every other UDA through its own update (H2, H3) — and the
-states are finalized on the device (H4 for quantiles) and fetched with one
-device -> host copy per pass. On one device the reference's cross-device
-merge (``_merge_states``) is the identity, so the port has none yet.
+run here. A group key that is one dictionary-coded string column is its
+codes, evaluated per block on the device; any other key (several columns,
+ints, computed values) is densified on the host by a chunked GroupEncoder
+pass over the table (cached per table version) and its gids stage as one
+more per-block lane. The needed columns are staged once
+(parallel/staging.py, cached per table version), then every block is folded
+into the UDA states by ``_make_scan_body`` — predicates as elementwise torch
+ops, the sum-family UDAs and the presence counter through ONE fused segment
+sum (kernel H1), every other UDA through its own update (H2, H3, the sketch
+kernels H5-H8) — and the states are finalized on the device (H4, H9, H10)
+and fetched with one device -> host copy per pass. On one device the
+reference's cross-device merge (``_merge_states``) is the identity, so the
+port has none yet.
 
-A fragment outside that shape — windowed or PARTIAL aggregation, LUT or
-host-densified keys, int-dictionary cell lanes, string-hash UDA args —
-returns None and reaches the host exec graph, which raises
+A fragment outside that shape — windowed or PARTIAL aggregation, string-hash
+UDA args — returns None and reaches the host exec graph, which raises
 NotImplementedError for the aggregation: the port has no host AggNode and no
 fallback. Errors raise; nothing is caught and sent elsewhere.
 """
@@ -35,6 +38,7 @@ import torch
 from pixie_tpu_torch.compiler.analyzer import substitute
 from pixie_tpu_torch.device import resolve_device
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
+from pixie_tpu_torch.exec.group_encoder import GroupEncoder
 from pixie_tpu_torch.ops import segment
 from pixie_tpu_torch.parallel.staging import (
     StagedColumns,
@@ -129,9 +133,10 @@ def match_fragment(fragment: PlanFragment, relations) -> Optional[_Match]:
 @dataclasses.dataclass
 class _KeyPlan:
     """How gids materialize: ``device_expr`` evaluated per block on the
-    device (None: one group)."""
+    device, or ``host_gids`` densified on the host (neither: one group)."""
 
     device_expr: Optional[Any] = None
+    host_gids: Optional[np.ndarray] = None
     num_groups: int = 0
     key_columns: list = dataclasses.field(default_factory=list)
 
@@ -179,6 +184,11 @@ class DeviceExecutor:
             collections.OrderedDict()
         )
         self._staged_cache_cap = flags.staged_cache_cap
+        # Host-densified key plans per (table version, key exprs, window), LRU.
+        self._keyplan_cache: "collections.OrderedDict[tuple, _KeyPlan]" = (
+            collections.OrderedDict()
+        )
+        self._keyplan_cache_cap = flags.keyplan_cache_cap
         self.last_fold_ms: Optional[float] = None
 
     # -- public -------------------------------------------------------------
@@ -209,7 +219,7 @@ class DeviceExecutor:
         for _, e, uda in specs:
             if uda.reads_args:
                 base_cols |= referenced_columns(e)
-        key_plan = self._plan_keys(m, table, registry, base_cols)
+        key_plan = self._plan_keys(m, table, registry, func_ctx, base_cols)
         if key_plan is None:
             return None
         f32_cols = self._sketch_f32_cols(m, specs)
@@ -239,7 +249,9 @@ class DeviceExecutor:
                 )
             with timed("stage"):
                 staged = stage_columns(
-                    cols, n, self.device, block_rows=self.block_rows, f32_cols=f32_cols
+                    cols, n, self.device, block_rows=self.block_rows,
+                    f32_cols=f32_cols, gids=key_plan.host_gids,
+                    num_groups=key_plan.num_groups,
                 )
             self._staged_insert(cache_key, staged)
         aux = self._build_aux(evaluator, table)
@@ -250,6 +262,12 @@ class DeviceExecutor:
         batch = self._finalize(m, specs, key_plan, outputs, registry)
         self.last_fold_ms = (time.perf_counter() - t0) * 1e3
         return m.agg_nid, batch
+
+    def clear_caches(self) -> None:
+        """Drop the staged columns and key plans: the next query of every
+        table is cold."""
+        self._staged_cache.clear()
+        self._keyplan_cache.clear()
 
     # -- staged-column cache -------------------------------------------------
     def _staged_lookup(self, cache_key) -> Optional[StagedColumns]:
@@ -316,31 +334,103 @@ class DeviceExecutor:
         except ValueError:
             return None
 
-    def _plan_keys(self, m: _Match, table, registry, base_cols: set):
+    def _plan_keys(self, m: _Match, table, registry, func_ctx, base_cols: set):
         """No key: one group. One bare string column with a dictionary: its
-        codes are the gids, evaluated on the device. Anything else (LUT and
-        host-densified keys) is not in the slice: None."""
+        codes are the gids, evaluated on the device. Any other key: densified
+        on the host (``_host_key_plan``)."""
         groups = m.agg_op.groups
         if not groups:
             return _KeyPlan(device_expr=None, num_groups=1, key_columns=[])
-        if len(groups) != 1:
-            return None
-        e = m.col_exprs[groups[0]]
-        try:
-            t = expr_data_type(e, m.source_relation, registry)
-        except (KeyError, ValueError):
-            return None
-        if t != DataType.STRING or not isinstance(e, ColumnRef):
-            return None
-        d = table.dictionaries.get(e.name)
-        if d is None:
-            return None
-        base_cols.add(e.name)
-        return _KeyPlan(
-            device_expr=e,
-            num_groups=len(d),
-            key_columns=[DictColumn(np.arange(len(d), dtype=np.int32), d)],
+        if len(groups) == 1:
+            e = m.col_exprs[groups[0]]
+            try:
+                t = expr_data_type(e, m.source_relation, registry)
+            except (KeyError, ValueError):
+                return None
+            d = table.dictionaries.get(e.name) if isinstance(e, ColumnRef) else None
+            if t == DataType.STRING and d is not None:
+                base_cols.add(e.name)
+                return _KeyPlan(
+                    device_expr=e,
+                    num_groups=len(d),
+                    key_columns=[DictColumn(np.arange(len(d), dtype=np.int32), d)],
+                )
+        return self._host_key_plan(m, table, registry, func_ctx)
+
+    def _host_key_plan(self, m: _Match, table, registry, func_ctx) -> _KeyPlan:
+        """Evaluate the key exprs over the table once, per cursor batch, and
+        densify them with one GroupEncoder (gids in its first-seen order),
+        as pixie_tpu/parallel/pipeline.py:4524 does; cached per table
+        version + key exprs + time window. (The reference does not cache a
+        key that calls a metadata-state function; the port has none yet.)"""
+        groups = m.agg_op.groups
+        kp_key = (
+            m.source_op.table_name,
+            (table.min_row_id(), table.end_row_id()),
+            repr([m.col_exprs[g] for g in groups]),
+            m.source_op.start_time,
+            m.source_op.stop_time,
         )
+        cached = self._keyplan_cache.get(kp_key)
+        if cached is not None:
+            self._keyplan_cache.move_to_end(kp_key)
+            return cached
+        key_refs: set = set()
+        for g in groups:
+            key_refs |= referenced_columns(m.col_exprs[g])
+        sub_names = [c for c in m.source_relation.col_names() if c in key_refs]
+        sub_rel = m.source_relation.select(sub_names)
+        ev = ExpressionEvaluator(
+            [(g, m.col_exprs[g]) for g in groups], sub_rel, registry, func_ctx
+        )
+        out_rel = MapOp(
+            tuple((g, m.col_exprs[g]) for g in groups)
+        ).output_relation([sub_rel], registry)
+        enc = GroupEncoder()
+        gid_parts: list = []
+        # Bare string columns keep the table's dictionary, so their codes are
+        # stable across batches; computed string keys get a fresh dictionary
+        # per batch and are re-encoded through one stable dictionary.
+        stable_dicts: dict = {}
+        out_dicts: dict = {}
+        with timed("key_plan"):
+            cur = table.cursor(m.source_op.start_time, m.source_op.stop_time)
+            while not cur.done():
+                b = cur.next_batch()
+                if b is None:
+                    break
+                if not b.num_rows:
+                    continue
+                key_batch = ev.evaluate(b.select(sub_names), out_rel)
+                key_cols = []
+                for g, col in zip(groups, key_batch.columns):
+                    if isinstance(col, DictColumn):
+                        if isinstance(m.col_exprs[g], ColumnRef):
+                            out_dicts[g] = col.dictionary
+                        else:
+                            d = stable_dicts.setdefault(g, StringDictionary())
+                            col = DictColumn(d.encode(col.decode()), d)
+                            out_dicts[g] = d
+                    key_cols.append(col)
+                gid_parts.append(enc.encode(key_cols))
+        gids = np.concatenate(gid_parts) if gid_parts else np.empty(0, np.int32)
+        key_columns = []
+        for g, arr in zip(groups, enc.key_arrays() or [[] for _ in groups]):
+            arr = np.asarray(arr)
+            key_columns.append(
+                DictColumn(arr.astype(np.int32), out_dicts[g]) if g in out_dicts else arr
+            )
+        kp = _KeyPlan(host_gids=gids, num_groups=enc.num_groups, key_columns=key_columns)
+        # Plans of older versions of the same table can never hit again.
+        for k in [
+            k for k in self._keyplan_cache
+            if k[0] == m.source_op.table_name and k[1] != kp_key[1]
+        ]:
+            del self._keyplan_cache[k]
+        self._keyplan_cache[kp_key] = kp
+        while len(self._keyplan_cache) > max(self._keyplan_cache_cap, 1):
+            self._keyplan_cache.popitem(last=False)
+        return kp
 
     def _sketch_f32_cols(self, m: _Match, specs) -> set:
         """FLOAT64 source columns read ONLY as bare args of f32-grained
@@ -405,6 +495,7 @@ class DeviceExecutor:
             for name, off in sorted(staged.narrow_offsets.items())
         ]
         device_key = key_plan.device_expr
+        host_gids = key_plan.host_gids is not None
 
         def body(states, presence, blk: int, gid_base: int):
             env = {name: t[0, blk] for name, t in staged.blocks.items()}
@@ -412,7 +503,9 @@ class DeviceExecutor:
                 # Widen in int64: torch has no arithmetic on uint16.
                 env[name] = env[name].to(torch.int64) + off
             mask = staged.mask[0, blk]
-            if device_key is None:
+            if host_gids:
+                gids = staged.gids[0, blk].to(torch.int32)
+            elif device_key is None:
                 gids = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
             else:
                 gids = evaluator.device_eval(device_key, env, aux).to(torch.int32)
@@ -483,7 +576,11 @@ class DeviceExecutor:
             keep = presence[:n] > 0
         else:
             keep = np.ones(1, dtype=bool)  # group-by-none keeps its one row
-        out_cols: list = [col.take(np.nonzero(keep)[0]) for col in key_plan.key_columns]
+        idx = np.nonzero(keep)[0]
+        out_cols: list = [
+            col.take(idx) if isinstance(col, DictColumn) else np.asarray(col)[idx]
+            for col in key_plan.key_columns
+        ]
         for (out_name, _, uda), val in zip(specs, values):
             schema = rel.col(out_name)
             arr = val[:n][keep]

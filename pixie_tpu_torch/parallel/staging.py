@@ -5,9 +5,11 @@ read through a table cursor, int columns whose value range fits are narrowed
 to uint8/uint16/int32 of (value - offset) (frame of reference, widened back
 to int64 per block on the device), float64 columns read only by f32-grained
 sketches stage as float32, and everything is padded to [1, nblk, B] blocks
-with a validity mask built on the device (row index < num_rows). The block
-geometry is the reference's, so both packages cut a table into the same
-blocks.
+with a validity mask built on the device (row index < num_rows). Group ids
+densified on the host (multi-column and non-dictionary keys) stage as one
+more per-block lane, narrowed to uint8/uint16 when the group count fits. The
+block geometry is the reference's, so both packages cut a table into the
+same blocks.
 
 This slice stages uncompressed and in one piece: the reference's staging
 codec (ops/codec.py) and its streamed, double-buffered cold path are not
@@ -68,6 +70,8 @@ class StagedColumns:
     block_rows: int
     # name -> offset of the frame-of-reference narrowed int columns.
     narrow_offsets: dict = dataclasses.field(default_factory=dict)
+    # [1, nblk, B] host-densified group ids (uint8/uint16/int32), or None.
+    gids: Optional[torch.Tensor] = None
 
     @property
     def num_blocks(self) -> int:
@@ -152,6 +156,16 @@ def _narrow_int(arr: np.ndarray) -> tuple[np.ndarray, Optional[int]]:
     return arr, None
 
 
+def _narrow_gids(gids: np.ndarray, num_groups: int) -> np.ndarray:
+    """Dense gids ship as uint8/uint16 when the group count fits; the fold
+    widens them to int32 per block."""
+    if num_groups <= 0xFF + 1:
+        return gids.astype(np.uint8)
+    if num_groups <= 0xFFFF + 1:
+        return gids.astype(np.uint16)
+    return gids.astype(np.int32)
+
+
 def build_mask(nblk: int, b: int, num_rows: int, device) -> torch.Tensor:
     """Validity mask [1, nblk, b] computed on the device (iota < num_rows),
     so no mask bytes cross the host link."""
@@ -164,10 +178,26 @@ def stage_columns(
     device,
     block_rows: int = DEFAULT_BLOCK_ROWS,
     f32_cols: Optional[set] = None,
+    gids: Optional[np.ndarray] = None,
+    num_groups: int = 0,
 ) -> StagedColumns:
-    """Pad/reshape host columns into [1, nblk, B] blocks on ``device``."""
+    """Pad/reshape host columns (and host-densified ``gids`` of
+    ``num_groups`` groups, when given) into [1, nblk, B] blocks on
+    ``device``."""
     b, nblk = block_geometry(num_rows, 1, block_rows)
     total = nblk * b
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        with timed("stage_host_pack"):
+            flat = np.zeros(total, dtype=a.dtype if a.size else np.int32)
+            flat[:num_rows] = a
+        with timed("stage_transfer"):
+            out = torch.from_numpy(flat).to(device).reshape(1, nblk, b)
+        COLD_PROFILE["stage_bytes"] = COLD_PROFILE.get("stage_bytes", 0.0) + float(
+            flat.nbytes
+        )
+        return out
+
     narrow_offsets: dict[str, int] = {}
     blocks: dict[str, torch.Tensor] = {}
     for name, a in cols.items():
@@ -178,17 +208,17 @@ def stage_columns(
                 a, off = _narrow_int(a)
                 if off is not None:
                     narrow_offsets[name] = off
-            flat = np.zeros(total, dtype=a.dtype if a.size else np.int32)
-            flat[:num_rows] = a
-        with timed("stage_transfer"):
-            blocks[name] = torch.from_numpy(flat).to(device).reshape(1, nblk, b)
-        COLD_PROFILE["stage_bytes"] = COLD_PROFILE.get("stage_bytes", 0.0) + float(
-            flat.nbytes
-        )
+        blocks[name] = put(a)
+    staged_gids = None
+    if gids is not None:
+        with timed("stage_host_pack"):
+            narrow = _narrow_gids(gids, num_groups)
+        staged_gids = put(narrow)
     return StagedColumns(
         blocks=blocks,
         mask=build_mask(nblk, b, num_rows, device),
         num_rows=num_rows,
         block_rows=b,
         narrow_offsets=narrow_offsets,
+        gids=staged_gids,
     )

@@ -90,9 +90,12 @@ def referenced_columns(expr) -> set[str]:
     return {e.name for e in walk(expr) if isinstance(e, ColumnRef)}
 
 
-def _reject_unported(name: str, registry) -> None:
-    if name in getattr(registry, "not_ported", ()):
-        raise ValueError(f"{name} is not ported yet to pixie_tpu_torch")
+def _reject_unported(name: str, registry, arg_types=()) -> None:
+    if name in getattr(registry, "not_ported", ()) or (
+        (name, tuple(arg_types)) in getattr(registry, "not_ported_overloads", ())
+    ):
+        args = ", ".join(t.name for t in arg_types)
+        raise ValueError(f"{name}({args}) is not ported yet to pixie_tpu_torch")
 
 
 def expr_data_type(expr, relation: Relation, registry) -> DataType:
@@ -110,7 +113,7 @@ def expr_data_type(expr, relation: Relation, registry) -> DataType:
         arg_types = [expr_data_type(a, relation, registry) for a in expr.args]
         udf = registry.lookup_scalar(expr.name, arg_types)
         if udf is None:
-            _reject_unported(expr.name, registry)
+            _reject_unported(expr.name, registry, arg_types)
             raise ValueError(
                 f"no scalar function {expr.name}"
                 f"({', '.join(t.name for t in arg_types)})"
@@ -120,7 +123,7 @@ def expr_data_type(expr, relation: Relation, registry) -> DataType:
         arg_types = [expr_data_type(a, relation, registry) for a in expr.args]
         uda = registry.lookup_uda(expr.name, arg_types)
         if uda is None:
-            _reject_unported(expr.name, registry)
+            _reject_unported(expr.name, registry, arg_types)
             raise ValueError(
                 f"no aggregate {expr.name}"
                 f"({', '.join(t.name for t in arg_types)})"

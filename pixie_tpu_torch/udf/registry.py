@@ -63,6 +63,8 @@ class Registry:
         # Names the reference registers that the port does not have yet:
         # the compiler rejects them with "not ported yet".
         self.not_ported: frozenset = frozenset()
+        # (name, arg types) overloads of ported names that are not ported.
+        self.not_ported_overloads: frozenset = frozenset()
 
     # -- registration ------------------------------------------------------
     def register_scalar(self, udf: ScalarUDF) -> None:

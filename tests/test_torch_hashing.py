@@ -1,0 +1,99 @@
+"""Bit-exactness of pixie_tpu_torch.ops.hashing (plain versions of the hash
+kernel's __device__ functions) against pixie_tpu.ops.hashing's u32 path on
+the CPU, over edge values: 0, -1, int64 min/max, negatives, +-0.0, NaN
+payloads, +-inf, subnormals, and narrow int and bool columns. Every hash is
+held exactly equal, bit for bit (Fault-2, ROADMAP queue 3)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pixie_tpu.ops import hashing as ref
+from pixie_tpu_torch.ops import hashing
+
+I64 = np.iinfo(np.int64)
+
+
+def _ints(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.integers(I64.min, I64.max, 20_000, dtype=np.int64)
+    x[:12] = [0, -1, 1, I64.min, I64.max, I64.min + 1, I64.max - 1,
+              1 << 32, (1 << 32) - 1, -(1 << 32), 1024, 65534]
+    return x
+
+
+def _floats(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 1e9, 20_000)
+    nan_payload = np.array([0x7FF8000000000001, 0xFFF8000000000000 - (1 << 64)],
+                           dtype=np.int64).view(np.float64)
+    x[:10] = [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324, -5e-324,
+              np.finfo(np.float64).max, *nan_payload]
+    return x
+
+
+def _float32() -> np.ndarray:
+    with np.errstate(over="ignore"):  # float64 max -> inf
+        return _floats(3).astype(np.float32)
+
+
+def _columns():
+    ints = _ints(1)
+    return {
+        "int64": ints,
+        "float64": _floats(2),
+        "float32": _float32(),
+        "int32": ints.astype(np.int32),
+        "uint16": (ints & 0xFFFF).astype(np.uint16),
+        "uint8": (ints & 0xFF).astype(np.uint8),
+        "bool": ints % 3 == 0,
+    }
+
+
+@pytest.mark.parametrize("kind", list(_columns()))
+@pytest.mark.parametrize("seed", [0, 1, 0x9E3779B9, 0xFFFFFFFF])
+def test_hash32_and_pair_bit_exact(kind, seed):
+    x = _columns()[kind]
+    want = np.asarray(ref.hash32(jnp.asarray(x), seed)).astype(np.int64)
+    got = hashing.hash32(torch.from_numpy(x), seed).numpy()
+    np.testing.assert_array_equal(got, want)
+    wa, wb = ref.hash32_pair(jnp.asarray(x), seed)
+    ga, gb = hashing.hash32_pair(torch.from_numpy(x), seed)
+    np.testing.assert_array_equal(ga.numpy(), np.asarray(wa).astype(np.int64))
+    np.testing.assert_array_equal(gb.numpy(), np.asarray(wb).astype(np.int64))
+
+
+@pytest.mark.parametrize("kind", ["int64", "float64", "int32", "bool"])
+def test_u32_words_bit_exact(kind):
+    x = _columns()[kind]
+    wlo, whi = ref.u32_words(jnp.asarray(x))
+    glo, ghi = hashing.u32_words(torch.from_numpy(x))
+    np.testing.assert_array_equal(glo.numpy(), np.asarray(wlo).astype(np.int64))
+    np.testing.assert_array_equal(ghi.numpy(), np.asarray(whi).astype(np.int64))
+
+
+def test_float_words_keep_signed_zero_and_nan_payloads():
+    """-0.0 and +0.0, and two NaNs with different payloads, hash apart, as
+    the reference's bitcast does."""
+    x = torch.tensor(_floats(4)[[0, 1, 8, 9]])
+    h = hashing.hash32(x)
+    assert h[0] != h[1] and h[2] != h[3]
+
+
+def test_mix32_and_clz32_bit_exact():
+    rng = np.random.default_rng(5)
+    u = rng.integers(0, 1 << 32, 50_000, dtype=np.uint64).astype(np.uint32)
+    u[:6] = [0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    for seed in (0, 1, 0x85EBCA77):
+        np.testing.assert_array_equal(
+            hashing.mix32(torch.from_numpy(u.astype(np.int64)), seed).numpy(),
+            np.asarray(ref.mix32(jnp.asarray(u), seed)).astype(np.int64),
+        )
+    # every bit length, and random values
+    powers = np.array([0] + [1 << k for k in range(32)], dtype=np.uint64).astype(np.uint32)
+    for v in (u, powers, powers - 1):
+        np.testing.assert_array_equal(
+            hashing.clz32(torch.from_numpy(v.astype(np.int64))).numpy(),
+            np.asarray(ref.clz32(jnp.asarray(v))),
+        )

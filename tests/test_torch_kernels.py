@@ -1,4 +1,5 @@
-"""The hand kernels H1-H4 against their plain PyTorch versions on the card.
+"""The hand kernels (H1-H10 and the hash kernel) against their plain PyTorch
+versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
 without one; the last two need a second card. The file imports neither JAX
@@ -8,7 +9,12 @@ PyTorch: ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 Tolerances: integer results exactly equal; f64 sums within 1e-12 * sum|v|
 per group (H2's bound, PERF.md); log-histogram counts exactly equal once the
 rows whose bin coordinate lies within 2.5e-4 of a bin edge are left out (the
-Fault-1 contract); quantiles within a relative 1e-12 on one state.
+Fault-1 contract); quantiles within a relative 1e-12 on one state. Sketches:
+hashes bit for bit, HLL registers and count-min cells and totals exactly,
+HLL estimates within a relative 1e-12; t-digest group weights exactly, at
+most 1% of (group, cluster) cells moved by the Fault-4 contract, means of
+the others within B * (w + 2) * 2^-24 * max|v| after B blocks, quantiles of
+one state within a relative 1e-6.
 """
 
 import json
@@ -18,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from pixie_tpu_torch.ops import histogram, kernels, segment
+from pixie_tpu_torch.ops import countmin, hashing, histogram, hll, kernels, segment, tdigest
 
 EDGE = 2.5e-4
 SPEC = histogram.DEFAULT_SPEC
@@ -86,6 +92,72 @@ def _check_histogram_kernels(dev: torch.device) -> None:
         )
 
 
+def _check_sketch_kernels(dev: torch.device) -> None:
+    rng = np.random.default_rng(7)
+    n = 50_000
+    words = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    words[:6] = [0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max, 1024, 65534]
+    words[6:9] = np.array([0.0, -0.0, np.nan]).view(np.int64)
+    w = torch.from_numpy(words)
+    for seed in (0, 1):
+        got = kernels.hash32(w.to(dev), seed, pair=True).cpu().to(torch.int64) & 0xFFFFFFFF
+        a, b = hashing.hash32_pair_plain(w, seed)
+        assert torch.equal(got[0], a) and torch.equal(got[1], b)
+        one = kernels.hash32(w.to(dev), seed, pair=False).cpu().to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(one[0], hashing.hash32_plain(w, seed))
+    mask = torch.from_numpy(rng.random(n) < 0.9)
+    for G in (16, 300):  # shared-memory registers, then global
+        gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32))
+        vals = torch.from_numpy(rng.integers(1024, 65535, n))
+        want = hll.update_plain(hll.init(G, "cpu"), gids, vals, mask)
+        got = hll.update(hll.init(G, dev), gids.to(dev), vals.to(dev), mask.to(dev))
+        assert torch.equal(got.cpu(), want)
+        torch.testing.assert_close(
+            hll.estimate(got).cpu(), hll.estimate_plain(want), rtol=1e-12, atol=0
+        )
+        assert torch.equal(hll.estimate_rounded(got).cpu(), torch.round(hll.estimate_plain(want)).long())
+    G = 16
+    gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32))
+    status = torch.from_numpy(rng.choice(np.array([200, 301, 404, 500]), n))
+    cm_w, tot_w = countmin.update_counted(
+        countmin.init(G, "cpu"), torch.zeros(G, dtype=torch.int64), gids, status, mask
+    )
+    cm_g, tot_g = countmin.update_counted(
+        countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev),
+        gids.to(dev), status.to(dev), mask.to(dev),
+    )
+    assert torch.equal(cm_g.cpu(), cm_w) and torch.equal(tot_g.cpu(), tot_w)
+    for G in (16, 300):  # packed keys, then (group, value) int64 keys
+        want, got = tdigest.init(G, "cpu"), tdigest.init(G, dev)
+        vmax, blocks = 0.0, 3
+        for _ in range(blocks):
+            gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32))
+            v = torch.from_numpy(rng.exponential(3e7, n))
+            vmax = max(vmax, float(v.float().abs().max()))
+            want = tdigest.update(want, gids, v, mask)
+            got = tdigest.update(got, gids.to(dev), v.to(dev), mask.to(dev))
+        gw, ww = got["weights"].cpu(), want["weights"]
+        assert torch.equal(gw.sum(dim=1), ww.sum(dim=1))
+        same = gw == ww
+        assert (~same).float().mean().item() <= 0.01
+        bound = blocks * (ww.double() + 2) * 2.0**-24 * vmax
+        err = (got["means"].cpu().double() - want["means"].double()).abs()
+        assert torch.all(err[same] <= bound[same])
+        q = tdigest.quantile_values(want_dev := {k: t.to(dev) for k, t in want.items()}, QS)
+        torch.testing.assert_close(
+            q.cpu(), tdigest.quantile_values_plain(want, QS), rtol=1e-6, atol=0
+        )
+        merged = tdigest.merge(want_dev, want_dev)
+        plain = tdigest.merge_plain(want, want)
+        assert torch.equal(merged["weights"].cpu().sum(dim=1), plain["weights"].sum(dim=1))
+
+
+@pytest.mark.cuda
+def test_sketch_kernels_match_plain_on_card():
+    _need_cards(1)
+    _check_sketch_kernels(torch.device("cuda", 0))
+
+
 @pytest.mark.cuda
 def test_segment_kernels_match_plain_on_card():
     _need_cards(1)
@@ -105,6 +177,7 @@ def test_kernels_run_on_their_tensors_card():
     torch.cuda.set_device(0)
     _check_segment_kernels(torch.device("cuda:1"))
     _check_histogram_kernels(torch.device("cuda:1"))
+    _check_sketch_kernels(torch.device("cuda:1"))
     assert torch.cuda.current_device() == 0
 
 
@@ -146,7 +219,7 @@ def test_device_executor_on_second_card():
         kernels.reset_launches()
         out[device] = carnot.execute_query(pxl).table("o")
         if device == "cuda:1":
-            assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNELS)
+            assert all(kernels.LAUNCHES[k] > 0 for k in kernels.KERNELS[:4])
     got, want = out["cuda:1"], out["cpu"]
     assert got["service"] == want["service"]
     assert got["throughput"] == want["throughput"]

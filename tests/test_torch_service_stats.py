@@ -165,6 +165,25 @@ def test_filtered_groups_are_dropped_and_ordered():
         "df.groupby(['service', 'resp_status']).agg(n=('time_', px.count))",
     ],
 )
+def test_host_densified_keys_match_reference(agg):
+    """Keys other than one dictionary-coded string column are densified on
+    the host (GroupEncoder): groups, their order and the counts equal the
+    reference's."""
+    query = f"df = px.DataFrame(table='http_events')\nstats = {agg}\npx.display(stats, 'o')\n"
+    want, got = _run_both(_http_events(5_000, 7, seed=0), query, "o")
+    assert got == want
+
+
+@pytest.mark.parametrize(
+    "agg",
+    [
+        # an aggregation over an aggregation: the second runs on the host
+        "df.groupby(['service']).agg(n=('time_', px.count))"
+        ".groupby(['n']).agg(k=('n', px.count))",
+        # a source shared with another sink: the fragment is not offloaded
+        "df.groupby(['service']).agg(n=('time_', px.count))\npx.display(df, 'raw')",
+    ],
+)
 def test_unoffloadable_fragment_raises(agg):
     port = Carnot(device_executor=DeviceExecutor(device="cpu"))
     rel = Relation.of(

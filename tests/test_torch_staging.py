@@ -71,3 +71,28 @@ def test_staged_blocks_mask_and_offsets():
     # Widening on the device restores the values exactly (uint16 -> int64).
     rs = got.blocks["resp_status"].to(torch.int64) + got.narrow_offsets["resp_status"]
     np.testing.assert_array_equal(rs.reshape(-1)[:n].numpy(), cols["resp_status"])
+
+
+@pytest.mark.parametrize("num_groups", [1, 16, 256, 257, 4096, 65536, 65537])
+def test_narrow_gids(num_groups):
+    gids = np.random.default_rng(num_groups).integers(0, num_groups, 5_000).astype(np.int32)
+    got = staging._narrow_gids(gids, num_groups)
+    want = ref_staging._narrow_gids(gids, num_groups)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_host_gids_stage_as_a_lane():
+    """Host-densified gids ship narrowed (uint16 at 4096 groups), padded like
+    every column, and widen back to the gids."""
+    n = 70_001
+    gids = np.random.default_rng(1).integers(0, 4096, n).astype(np.int32)
+    staged = staging.stage_columns(
+        {"x": np.arange(n, dtype=np.int64)}, n, "cpu", block_rows=1 << 14,
+        gids=gids, num_groups=4096,
+    )
+    assert staged.gids.dtype == torch.uint16
+    assert staged.gids.shape == staged.mask.shape
+    flat = staged.gids.reshape(-1).to(torch.int32).numpy()
+    np.testing.assert_array_equal(flat[:n], gids)
+    assert not flat[n:].any()
