@@ -11,14 +11,17 @@ the CUDA toolkit. In order it:
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
-   as config 3 runs them) and at shapes that take its other memory path,
-   under the contract PERF.md states (integers and hashes exact; t-digest
-   cluster cells under Fault-4), and times kernel, plain version and the
+   and H11 as config 3 and the flows min/max run them, config 1's first
+   block for H12) and at shapes that take its other memory path,
+   under the contract PERF.md states (integers, hashes, min/max and the
+   scan's compaction exact; t-digest cluster cells under Fault-4), and
+   times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
    kernel), and the kernel again with the calls paced by the host;
 4. checks the kernel path against the plain path end to end at 2^20 rows
-   for the three queries below;
+   for the six queries below and config 4 with a filter (any() through
+   H11);
 5. runs the port's main paths through
    Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
    launch counts zeroed just before it, one cold and three warm queries,
@@ -36,6 +39,15 @@ the CUDA toolkit. In order it:
      45, 64 pods each side, 4096 (src, dst) groups; 64,000,000 rows,
      bench.py's BENCH_SMALL_ROWS default): byte sums exact, distinct ports within 12% of the truth for
      every pair and 2.5% on average;
+   - the per-pair min/max of px/net_flow_graph over the same conn_flows
+     (H11): every min and max exact;
+   - config 1, px/http_data over http_small (bench.py's generator: seed 44,
+     status {200: .9, 404/500: .05}; 64,000,000 rows) through the device
+     scan (H12): the first 1000 rows with resp_status >= 400 in row order,
+     time_, service and latency / 1e6 bit-equal to numpy's;
+   - config 4, px/perf_flamegraph over stacks (seed 43, 4096 stacks;
+     64,000,000 rows): any() on its host lane and the sums through H1;
+     4096 rows, count sums exact, each stack_trace its identity string;
 6. prints each phase's seconds, one JSON line of per-kernel results, the
    nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 
@@ -81,13 +93,20 @@ REPLACES = {
     "tdigest_merge": "pixie_tpu/ops/tdigest.py:133",
     "tdigest_quantiles": "pixie_tpu/ops/tdigest.py:163",
     "hll_estimate": "pixie_tpu/ops/hll.py:118",
+    "segment_minmax": "pixie_tpu/ops/segment.py:657",
+    "scan_compact": "pixie_tpu/parallel/pipeline.py:4126",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
-    **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:]},
+    **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:12]},
+    "segment_minmax": "pixie_tpu_torch/ops/kernels/minmax_kernels.cu",
+    "scan_compact": "pixie_tpu_torch/ops/kernels/scan_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
+SMALL_ROWS = 64_000_000  # http_small and stacks rows: the same default
+N_STACKS = 4096
+SCAN_LIMIT = 1000
 FLOW_GROUPS = N_PODS * N_PODS
 STATUSES = (200, 301, 404, 500)
 F4_EPS = 1e-4  # the Fault-4 contract (PERF.md)
@@ -119,6 +138,40 @@ FLOWS = (
     "    ports=('remote_port', px.approx_count_distinct),\n"
     ")\n"
     "px.display(s, 'flows')\n"
+)
+# BASELINE config 1 (bench.py:856-863), config 4 (bench.py:769-776) and the
+# per-pair aggregate of px/net_flow_graph (net_flow_graph.pxl:46-51) keyed by
+# conn_flows' (src, dst) as config 3 keys it.
+HTTP_DATA = (
+    "df = px.DataFrame(table='http_small')\n"
+    "df = df[df.resp_status >= 400]\n"
+    "df.latency_ms = df.latency / 1000000.0\n"
+    "df = df[['time_', 'service', 'latency_ms']]\n"
+    f"df = df.head({SCAN_LIMIT})\n"
+    "px.display(df, 'out')\n"
+)
+FLAMEGRAPH = (
+    "df = px.DataFrame(table='stacks')\n"
+    "s = df.groupby(['stack_trace_id']).agg(\n"
+    "    stack_trace=('stack_trace', px.any),\n"
+    "    count=('count', px.sum),\n"
+    ")\n"
+    "px.display(s, 'merged')\n"
+)
+# With a predicate, any() folds on the device (H11) instead of its host lane.
+FLAMEGRAPH_FILTERED = FLAMEGRAPH.replace(
+    "df = px.DataFrame(table='stacks')\n",
+    "df = px.DataFrame(table='stacks')\ndf = df[df.count > 50]\n",
+)
+FLOW_SPAN = (
+    "df = px.DataFrame(table='conn_flows')\n"
+    "s = df.groupby(['src', 'dst']).agg(\n"
+    "    bytes_sent_min=('bytes_sent', px.min),\n"
+    "    bytes_sent_max=('bytes_sent', px.max),\n"
+    "    bytes_recv_min=('bytes_recv', px.min),\n"
+    "    bytes_recv_max=('bytes_recv', px.max),\n"
+    ")\n"
+    "px.display(s, 'flow_span')\n"
 )
 
 
@@ -582,6 +635,148 @@ def sketch_kernel_phases(dev) -> dict:
     return records
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit (NaN payloads and signs of zero included)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def minmax_kernel_phase(dev) -> dict:
+    """H11 against its plain version, bit for bit: min and max over int64
+    and f64 at 16 and 4096 groups (shared partials) and 2^20 groups (global
+    atomics), then a block of edge values. Timed at the flows min/max shape:
+    int64 byte counts, 4096 (src, dst) groups, each call on a fresh
+    identity-filled state, as a query's first block finds it."""
+    from pixie_tpu_torch.ops import kernels, segment
+
+    rng = np.random.default_rng(2)
+    n = BLOCK_ROWS
+    mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
+    records: dict = {}
+    for S in (N_SERVICES, FLOW_GROUPS, 1 << 20):
+        g = torch.from_numpy(rng.integers(-1, S + 1, n).astype(np.int32)).to(dev)
+        for dtype in (torch.int64, torch.float64):
+            v = (torch.from_numpy(rng.integers(0, 1 << 20, n)) if dtype == torch.int64
+                 else torch.from_numpy(rng.normal(0.0, 1e6, n))).to(dev)
+            for is_min in (True, False):
+                fill = segment._identity_for(dtype, is_min)
+                got = kernels.segment_minmax(
+                    v, g, mask, torch.full((S,), fill, dtype=dtype, device=dev), is_min)
+                want = segment.segment_minmax_plain(
+                    torch.full((S,), fill, dtype=dtype, device=dev), v, g, mask, is_min)
+                torch.cuda.synchronize()
+                check(bits_equal(got, want),
+                      f"H11 S={S} {dtype} {'min' if is_min else 'max'} differs from plain")
+        log(f"H11 segment_minmax S={S} shared="
+            f"{kernels.uses_shared('segment_minmax', dev, S)}: int64 and f64, min and "
+            "max, bit for bit")
+    # Edge values into 8 groups: NaN of both signs, +-0.0 in one group (both
+    # orders), +-inf, subnormals, int64 min and max, an all-masked group; then
+    # a second launch into the same state, which holds NaN and +-0.0 by then.
+    f64_edge = [
+        (0, [1.0, np.nan, 3.0]), (1, [0.0, -0.0]), (2, [-0.0, 0.0]),
+        (3, [-np.nan, 2.0]), (4, [np.inf, -np.inf]), (5, [5e-324, -5e-324]),
+        (6, [7.0, 8.0]),  # masked below
+    ]
+    i64_edge = [
+        (0, [np.iinfo(np.int64).min, 5]), (1, [np.iinfo(np.int64).max, -5]),
+        (2, [0, -1]), (6, [7, 8]),  # masked below
+    ]
+    S = 8
+    for dtype, edge in ((torch.float64, f64_edge), (torch.int64, i64_edge)):
+        gl = np.concatenate([[gg] * len(vs) for gg, vs in edge]).astype(np.int32)
+        vl = np.concatenate([np.array(vs, dtype=np.float64 if dtype == torch.float64
+                                      else np.int64) for _, vs in edge])
+        g = torch.from_numpy(gl).to(dev)
+        v = torch.from_numpy(vl).to(dev)
+        m = g != 6
+        for is_min in (True, False):
+            fill = segment._identity_for(dtype, is_min)
+            got = torch.full((S,), fill, dtype=dtype, device=dev)
+            want = got.clone()
+            for _ in range(2):
+                kernels.segment_minmax(v, g, m, got, is_min)
+                segment.segment_minmax_plain(want, v, g, m, is_min)
+            torch.cuda.synchronize()
+            check(bits_equal(got, want), f"H11 edge block {dtype} min={is_min}: "
+                  f"{got.tolist()} vs {want.tolist()}")
+    log("H11 edge block (NaN of both signs, +-0.0 both orders, +-inf, subnormals, "
+        "int64 min/max, an all-masked group, a second launch): bit for bit")
+    S = FLOW_GROUPS
+    g = torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(0, 1 << 20, n)).to(dev)
+    ident = segment._identity_for(torch.int64, False)
+    states = fresh(lambda: torch.full((S,), ident, dtype=torch.int64, device=dev))
+    plain_state = torch.full((S,), ident, dtype=torch.int64, device=dev)
+    idx, vals = g[mask].long(), v[mask]
+    lib_state = torch.full((S,), ident, dtype=torch.int64, device=dev)
+    records["segment_minmax"] = record(
+        lambda: kernels.segment_minmax(v, g, mask, states(), False),
+        lambda: segment.segment_minmax_plain(plain_state, v, g, mask, False),
+        lambda: lib_state.scatter_reduce_(0, idx, vals, "amax", include_self=True),
+        # values, gids and mask read once; the state read and written once
+        *bound(n * 8 + n * 4 + n + 2 * S * 8, n), 0.0,
+        f"values[{n}] int64 state[{S}] max, fresh identity state",
+    )
+    return records
+
+
+def scan_kernel_phase(dev) -> dict:
+    """H12 against its plain version on 2^21-row blocks, bit for bit
+    (written and every buffer): limit 0 and 1, a limit that ends inside a
+    block, one past every survivor, a block with no survivor, and a last
+    block mostly padding. Timed at config 1's first block: 10% of rows
+    selected, time_ (int64), service codes (int32), latency_ms (f64), limit
+    1000, a fresh zeroed counter each call."""
+    from pixie_tpu_torch.ops import kernels, scan
+
+    rng = np.random.default_rng(3)
+    n = BLOCK_ROWS
+
+    def block(frac: float, valid: int = n):
+        mask = torch.from_numpy((rng.random(n) < frac) & (np.arange(n) < valid)).to(dev)
+        cols = [torch.from_numpy(rng.integers(0, 1 << 40, n)).to(dev),
+                torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev),
+                torch.from_numpy(rng.exponential(30.0, n)).to(dev)]
+        return mask, cols
+
+    blocks = [block(0.1), block(0.0), block(0.5, valid=1000)]  # empty, then mostly padding
+    total = sum(int(m.sum()) for m, _ in blocks)
+    first = int(blocks[0][0].sum())
+    for limit in (0, 1, first + 300, total, total + 7):
+        out = []
+        for compact in (kernels.scan_compact, scan.compact_rows_plain):
+            written = torch.zeros(1, dtype=torch.int32, device=dev)
+            bufs = [torch.zeros(limit, dtype=c.dtype, device=dev) for c in blocks[0][1]]
+            for mask, cols in blocks:
+                compact(mask, cols, written, bufs, limit)
+            out.append((written, bufs))
+        torch.cuda.synchronize()
+        (wk, bk), (wp, bp) = out
+        check(int(wk[0]) == int(wp[0]) == min(limit, total), f"H12 limit={limit}: written")
+        check(all(bits_equal(a, b) for a, b in zip(bk, bp)), f"H12 limit={limit}: buffers")
+    log(f"H12 scan_compact: limits 0, 1, {first + 300} (inside the third block), {total} "
+        f"and {total + 7} (every survivor) over blocks of {n} rows (10%, none, "
+        "1000 valid rows at 50%): written and buffers bit for bit")
+    mask, cols = blocks[0]
+    sel = torch.nonzero(mask).flatten()
+    span = int(sel[SCAN_LIMIT - 1]) + 1  # the rows the compaction must scan
+    row_bytes = sum(c.element_size() for c in cols)
+    counters = fresh(lambda: torch.zeros(1, dtype=torch.int32, device=dev))
+    bufs = [torch.zeros(SCAN_LIMIT, dtype=c.dtype, device=dev) for c in cols]
+    plain_w = torch.zeros(1, dtype=torch.int32, device=dev)
+    records = {"scan_compact": record(
+        lambda: kernels.scan_compact(mask, cols, counters(), bufs, SCAN_LIMIT),
+        lambda: (plain_w.zero_(), scan.compact_rows_plain(mask, cols, plain_w, bufs, SCAN_LIMIT)),
+        lambda: [c[mask] for c in cols],
+        # what the function needs: the mask up to the last row written (one
+        # test a row), the written rows read once and written once
+        *bound(span + 2 * SCAN_LIMIT * row_bytes, span), 0.0,
+        f"mask[{n}] 10% selected, 3 columns, limit {SCAN_LIMIT}, span {span} rows",
+    )}
+    return records
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -669,6 +864,47 @@ def conn_flows(n_rows: int) -> dict:
     return d
 
 
+def flow_extremes(fl: dict) -> None:
+    """Per (src, dst) pair, the min and max of bytes_sent and bytes_recv:
+    sort the keys pair << 20 | value (values < 2^20) and take each pair's
+    first and last."""
+    pair = fl["src"].astype(np.int64) * N_PODS + fl["dst"]
+    bounds = np.arange(FLOW_GROUPS + 1, dtype=np.int64) << 20
+    for col, key in (("bs", "bytes_sent"), ("br", "bytes_recv")):
+        keys = np.sort((pair << 20) | fl[col])
+        first = np.searchsorted(keys, bounds[:-1])
+        last = np.searchsorted(keys, bounds[1:]) - 1
+        check(bool(np.all(first <= last)), "conn_flows: a (src, dst) pair without rows")
+        fl[f"{key}_min"] = keys[first] & 0xFFFFF
+        fl[f"{key}_max"] = keys[last] & 0xFFFFF
+
+
+def http_small(n_rows: int) -> dict:
+    """bench.py's http_small generator (build_small, seed 44): 16 services,
+    status {200: .9, 404: .05, 500: .05}, exponential(3e7) latency."""
+    rng = np.random.default_rng(44)
+    svc = rng.integers(0, N_SERVICES, n_rows, dtype=np.uint8)
+    cum = np.cumsum([0.9, 0.05, 0.05])
+    status = np.array([200, 404, 500], np.uint16)[
+        np.searchsorted(cum, rng.random(n_rows), side="right")]
+    return {"svc": svc, "status": status, "latency": rng.exponential(3e7, n_rows)}
+
+
+def stacks(n_rows: int) -> dict:
+    """bench.py's stacks generator (build_stacks, seed 43): 4096 stack ids,
+    counts in [1, 100), with the truth count sum of each stack."""
+    rng = np.random.default_rng(43)
+    d = {"sid": rng.integers(0, N_STACKS, n_rows, dtype=np.uint16),
+         "cnt": rng.integers(1, 100, n_rows, dtype=np.uint8)}
+    # Sums stay below 2^53, so the float64 bincount is exact.
+    d["sums"] = np.bincount(d["sid"], weights=d["cnt"], minlength=N_STACKS).astype(np.int64)
+    return d
+
+
+def stack_name(i: int) -> str:
+    return f"main;f{i % 61};g{i % 127};h{i}"
+
+
 def truth_quantile(hist_row: np.ndarray, q: float) -> float:
     total = hist_row.sum()
     if total == 0:
@@ -746,6 +982,105 @@ def build_flows_carnot(fl: dict, n_rows: int, device: str):
     table.stop()
     check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "table expired rows")
     return carnot
+
+
+def build_small_carnot(hs: dict, n_rows: int, device: str):
+    """bench.py's http_small table (ensure_small_table): identity service
+    codes, 16M-row chunks."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    rel = Relation.of(
+        ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
+        ("service", DataType.STRING, SemanticType.ST_SERVICE_NAME),
+        ("resp_status", DataType.INT64),
+        ("latency", DataType.FLOAT64, SemanticType.ST_DURATION_NS),
+    )
+    table = carnot.table_store.create_table("http_small", rel, size_limit=1 << 42)
+    sd = table.dictionaries["service"]
+    for i in range(N_SERVICES):
+        sd.get_code(f"ns/svc-{i}")
+    for off in range(0, n_rows, 16_000_000):
+        sl = slice(off, min(off + 16_000_000, n_rows))
+        table.write_pydict({
+            "time_": np.arange(sl.start, sl.stop, dtype=np.int64) * 1000,
+            "service": DictColumn(hs["svc"][sl].astype(np.int32), sd),
+            "resp_status": hs["status"][sl],
+            "latency": hs["latency"][sl],
+        })
+    table.compact()
+    table.stop()
+    check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "table expired rows")
+    return carnot
+
+
+def build_stacks_carnot(st: dict, n_rows: int, device: str):
+    """bench.py's stacks table (run_config_4): stack_trace codes equal the
+    stack ids (identity dictionary), 16M-row chunks."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    rel = Relation.of(
+        ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
+        ("stack_trace_id", DataType.INT64), ("stack_trace", DataType.STRING),
+        ("count", DataType.INT64),
+    )
+    table = carnot.table_store.create_table("stacks", rel, size_limit=1 << 42)
+    sd = table.dictionaries["stack_trace"]
+    for i in range(N_STACKS):
+        sd.get_code(stack_name(i))
+    for off in range(0, n_rows, 16_000_000):
+        sl = slice(off, min(off + 16_000_000, n_rows))
+        table.write_pydict({
+            "time_": np.arange(sl.start, sl.stop, dtype=np.int64) * 1000,
+            "stack_trace_id": st["sid"][sl],
+            "stack_trace": DictColumn(st["sid"][sl].astype(np.int32), sd),
+            "count": st["cnt"][sl],
+        })
+    table.compact()
+    table.stop()
+    check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "table expired rows")
+    return carnot
+
+
+def verify_http_data(result, hs: dict) -> None:
+    """Config 1: the first 1000 rows with resp_status >= 400, in row order;
+    time_, service and latency / 1e6 bit-equal to numpy's."""
+    rows = result.table("out")
+    sel = np.flatnonzero(hs["status"] >= 400)[:SCAN_LIMIT]
+    check(len(rows["time_"]) == SCAN_LIMIT, f"http_data: {len(rows['time_'])} rows")
+    check(np.array_equal(np.asarray(rows["time_"]), sel * 1000), "http_data: time_")
+    check(rows["service"] == [f"ns/svc-{i}" for i in hs["svc"][sel]], "http_data: service")
+    lat = np.asarray(rows["latency_ms"], dtype=np.float64)
+    check(np.array_equal(lat.view(np.int64), (hs["latency"][sel] / 1e6).view(np.int64)),
+          "http_data: latency_ms")
+
+
+def verify_flamegraph(result, st: dict) -> None:
+    """Config 4: all 4096 stacks, each count sum exact, each stack_trace its
+    identity string."""
+    rows = result.table("merged")
+    sids = np.asarray(rows["stack_trace_id"])
+    check(len(sids) == N_STACKS and np.array_equal(np.sort(sids), np.arange(N_STACKS)),
+          f"flamegraph: {len(sids)} stacks")
+    check(np.array_equal(np.asarray(rows["count"]), st["sums"][sids]), "flamegraph: counts")
+    check(rows["stack_trace"] == [stack_name(i) for i in sids], "flamegraph: stack_trace")
+
+
+def verify_flow_span(result, fl: dict) -> None:
+    """The flows min/max: 4096 pairs, each min and max exact."""
+    rows = result.table("flow_span")
+    check(len(rows["src"]) == FLOW_GROUPS, f"flow_span: got {len(rows['src'])} groups")
+    pod = lambda name: int(name.rsplit("-", 1)[1])
+    pair = np.array([pod(a) * N_PODS + pod(b) for a, b in zip(rows["src"], rows["dst"])])
+    for key in ("bytes_sent_min", "bytes_sent_max", "bytes_recv_min", "bytes_recv_max"):
+        check(np.array_equal(np.asarray(rows[key]), fl[key][pair]), f"flow_span: {key}")
 
 
 def verify(result, data: dict, n_rows: int) -> None:
@@ -835,8 +1170,9 @@ def quantiles_close(got: list, want: list, what: str) -> float:
 
 
 def slice_parity(n_rows: int) -> None:
-    """The kernel path against the plain path end to end on one table, for
-    the three queries."""
+    """The kernel path against the plain path end to end, for the three
+    queries of the earlier slices and the flows min/max, config 1 and config
+    4 plain and filtered (any() through H11)."""
     from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
 
     data = http_events(n_rows)
@@ -861,8 +1197,10 @@ def slice_parity(n_rows: int) -> None:
     log(f"slice parity at {n_rows} rows: sketches count-min JSON equal, t-digest "
         f"quantiles max rel diff {worst:.3g}")
     fl = conn_flows(n_rows)
-    got = build_flows_carnot(fl, n_rows, "cuda").execute_query(FLOWS).table("flows")
-    want = build_flows_carnot(fl, n_rows, "cpu").execute_query(FLOWS).table("flows")
+    flows_cuda = build_flows_carnot(fl, n_rows, "cuda")
+    flows_cpu = build_flows_carnot(fl, n_rows, "cpu")
+    got = flows_cuda.execute_query(FLOWS).table("flows")
+    want = flows_cpu.execute_query(FLOWS).table("flows")
     for k in ("src", "dst", "bytes_sent", "bytes_recv"):
         check(got[k] == want[k], f"flows {k}: cuda vs cpu")
     dp = np.abs(np.asarray(got["ports"]) - np.asarray(want["ports"]))
@@ -870,6 +1208,21 @@ def slice_parity(n_rows: int) -> None:
     check(dp.max() <= 1 and (dp > 0).mean() <= 1e-3, "flows ports: cuda vs cpu")
     log(f"slice parity at {n_rows} rows: flows groups and byte sums equal, "
         f"{int((dp > 0).sum())} of {dp.size} distinct counts one apart")
+    got = flows_cuda.execute_query(FLOW_SPAN).table("flow_span")
+    want = flows_cpu.execute_query(FLOW_SPAN).table("flow_span")
+    check(got == want, "flow_span: cuda vs cpu")
+    hs = http_small(n_rows)
+    got = build_small_carnot(hs, n_rows, "cuda").execute_query(HTTP_DATA).table("out")
+    want = build_small_carnot(hs, n_rows, "cpu").execute_query(HTTP_DATA).table("out")
+    check(got == want and len(got["time_"]) == SCAN_LIMIT, "http_data: cuda vs cpu")
+    st = stacks(n_rows)
+    st_cuda, st_cpu = build_stacks_carnot(st, n_rows, "cuda"), build_stacks_carnot(st, n_rows, "cpu")
+    for query in (FLAMEGRAPH, FLAMEGRAPH_FILTERED):
+        got = st_cuda.execute_query(query).table("merged")
+        want = st_cpu.execute_query(query).table("merged")
+        check(got == want and len(got["stack_trace_id"]) == N_STACKS, "flamegraph: cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: flow_span, http_data and flamegraph (plain and "
+        "filtered) kernel path == plain path, every column")
 
 
 def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
@@ -941,6 +1294,8 @@ def main() -> int:
     t0 = time.perf_counter()
     records = kernel_phases(kernels, segment, histogram, dev)
     records.update(sketch_kernel_phases(dev))
+    records.update(minmax_kernel_phase(dev))
+    records.update(scan_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -985,9 +1340,41 @@ def main() -> int:
     phase_s["flows"] = time.perf_counter() - t0
     log(f"flows distinct ports vs truth: max rel err {fl['ports_rel'][0]:.4f}, "
         f"mean {fl['ports_rel'][1]:.4f}")
+    t0 = time.perf_counter()
+    flow_extremes(fl)
+    paths["flow_span"] = drive(
+        flows, FLOW_SPAN, lambda r: verify_flow_span(r, fl), ("segment_minmax",)
+    )
+    phase_s["flow_span"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    hs = http_small(SMALL_ROWS)
+    small = build_small_carnot(hs, SMALL_ROWS, "cuda")
+    log(f"http_small: {SMALL_ROWS} rows generated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_s["http_small_table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["http_data"] = drive(
+        small, HTTP_DATA, lambda r: verify_http_data(r, hs), ("scan_compact",)
+    )
+    phase_s["http_data"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    st = stacks(SMALL_ROWS)
+    stack_carnot = build_stacks_carnot(st, SMALL_ROWS, "cuda")
+    log(f"stacks: {SMALL_ROWS} rows generated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_s["stacks_table"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["flamegraph"] = drive(
+        stack_carnot, FLAMEGRAPH, lambda r: verify_flamegraph(r, st),
+        ("segment_rows_sum_i64",),
+    )
+    phase_s["flamegraph"] = time.perf_counter() - t0
 
     n_queries = 1 + WARM_QUERIES
-    rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS}
+    rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS,
+               "flow_span": FLOW_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
         log(f"{name} cold {p['cold']:.3f} s "
@@ -1005,6 +1392,9 @@ def main() -> int:
         profile_warm(carnot, SERVICE_STATS, min(paths["service_stats"]["warm"]))
         profile_warm(carnot, SKETCHES, min(paths["sketches"]["warm"]))
         profile_warm(flows, FLOWS, min(paths["flows"]["warm"]))
+        profile_warm(flows, FLOW_SPAN, min(paths["flow_span"]["warm"]))
+        profile_warm(small, HTTP_DATA, min(paths["http_data"]["warm"]))
+        profile_warm(stack_carnot, FLAMEGRAPH, min(paths["flamegraph"]["warm"]))
 
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
@@ -1029,12 +1419,15 @@ def main() -> int:
 
 
 def profile_warm(carnot, query: str, warm_best: float) -> None:
-    """One warm query under torch.profiler: device time by op, and the
-    device's busy time as a share of the profiled wall and of the best
-    unprofiled warm query."""
+    """One warm query under torch.profiler (after one unprofiled query, which
+    restages what a later path's cold query dropped): device time by op,
+    and the device's busy time as a share of the profiled wall and of the
+    best unprofiled warm query."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    carnot.execute_query(query)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carnot.execute_query(query)

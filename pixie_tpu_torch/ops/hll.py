@@ -55,7 +55,8 @@ def update_plain(
     if mask is not None:
         rho = torch.where(mask, rho, 0)
     flat = segment.flat_segment_ids(gids, reg, m)
-    maxes = segment.seg_max(rho, flat, num_groups * m)
+    maxes = torch.zeros(num_groups * m, dtype=rho.dtype, device=rho.device)
+    segment.segment_minmax_plain(maxes, rho, flat, None, is_min=False)
     return torch.maximum(state, maxes.reshape(num_groups, m))
 
 

@@ -1,10 +1,12 @@
 """The hand-written Hopper kernels: build, bind, launch, count.
 
 ``hopper_kernels.cu`` holds the CUDA C++ kernels of the sum and
-log-histogram fold (H1-H4) and ``sketch_kernels.cu`` those of the sketches
-(the hash kernel and H5-H10; see each file's header). At the first launch,
-``library()`` compiles both with ``nvcc`` for ``sm_90a``, one process per
-source started together, and links them into ``pixie_tpu_torch/_build/`` as
+log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
+(the hash kernel and H5-H10), ``minmax_kernels.cu`` the segment min/max
+(H11) and ``scan_kernels.cu`` the scan's stream compaction (H12); see each
+file's header. At the first launch, ``library()`` compiles them with
+``nvcc`` for ``sm_90a``, one process per source started together, and
+links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
 their headers and the flags, and loads it with ctypes; a later process finds
 the library there and skips the build. Nothing here is imported, built or
@@ -47,13 +49,15 @@ KERNELS = (
     "tdigest_merge",
     "tdigest_quantiles",
     "hll_estimate",
+    "segment_minmax",
+    "scan_compact",
 )
 
 # Launch counts per kernel since the last reset_launches().
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("hopper_kernels.cu", "sketch_kernels.cu")
+SOURCES = ("hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu")
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -81,6 +85,8 @@ _SIGNATURES = {
     "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
+    "px_segment_minmax": (_P, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
+    "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -238,6 +244,8 @@ def uses_shared(
         nbytes = num_segments * nbins * 4  # nbins: registers per group
     elif kernel == "tdigest_cluster":
         nbytes = 2 * num_segments * nbins * 8  # nbins: capacity
+    elif kernel == "segment_minmax":
+        nbytes = num_segments * 8
     else:
         raise ValueError(kernel)
     return nbytes <= smem_optin_bytes(device)
@@ -524,3 +532,77 @@ def hll_estimate(state: torch.Tensor, alpha: float) -> tuple[torch.Tensor, torch
         state.data_ptr(), S, m, alpha * m * m, est.data_ptr(), rounded.data_ptr(),
     )
     return est, rounded
+
+
+# ---------------------------------------------------------------- min/max
+def segment_minmax(
+    values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    state: torch.Tensor, is_min: bool,
+) -> torch.Tensor:
+    """H11: ``state[g] = min/max(state[g], v)`` over each valid row's value,
+    IN PLACE on ``state`` (int64 or f64 [S], the dtype of ``values``), and
+    returns it. f64 orders -0.0 below +0.0; a NaN wins and is written as
+    the canonical quiet NaN; a NaN already in the state stays."""
+    device = gids.device
+    if values.dtype not in (torch.int64, torch.float64):
+        raise TypeError(f"values has dtype {values.dtype}, expected int64 or float64")
+    _require(values, "values", values.dtype, device, 1)
+    _require(state, "state", values.dtype, device, 1)
+    n = values.shape[0]
+    mask = _gids_mask(gids, mask, n, device)
+    S = state.shape[0]
+    if n == 0 or S == 0:
+        return state
+    _launch(
+        "segment_minmax", device,
+        values.data_ptr(), n, gids.data_ptr(),
+        mask.data_ptr() if mask is not None else None,
+        S, state.data_ptr(), int(is_min), int(values.dtype == torch.float64),
+        int(uses_shared("segment_minmax", device, S)),
+    )
+    return state
+
+
+# ---------------------------------------------------------------- scan
+SCAN_MAX_COLS = 64  # kMaxScanCols of scan_kernels.cu
+SCAN_TILE_ROWS = 2048  # kTile of scan_kernels.cu
+_SCAN_WIDE = {torch.int64: 1, torch.float64: 1, torch.int32: 0}
+
+
+def scan_compact(
+    mask: torch.Tensor, cols: list, written: torch.Tensor, bufs: list, limit: int
+) -> None:
+    """H12: writes the rows of one block whose ``mask`` is true, in row
+    order, to ``bufs[c][written + rank]`` while that is below ``limit``, and
+    sets ``written`` (int32 [1], on the device) to min(written + count,
+    limit), all on the device; a launch that finds written >= limit returns
+    at once. ``cols[c]`` ([n]) and ``bufs[c]`` share an int64, f64 or int32
+    dtype."""
+    device = mask.device
+    _require(mask, "mask", torch.bool, device, 1)
+    _require(written, "written", torch.int32, device, 1)
+    n = mask.shape[0]
+    if len(cols) != len(bufs) or len(cols) > SCAN_MAX_COLS:
+        raise ValueError(f"scan_compact takes up to {SCAN_MAX_COLS} columns and one buffer each")
+    if not 0 <= limit < 2**31 or n >= 2**31 or written.shape[0] != 1:
+        raise ValueError("scan_compact: limit and rows must fit int32, written must be [1]")
+    for i, (c, b) in enumerate(zip(cols, bufs)):
+        if c.dtype not in _SCAN_WIDE:
+            raise TypeError(f"column {i} has dtype {c.dtype}, expected int64, f64 or int32")
+        _require(c, f"column {i}", c.dtype, device, 1)
+        _require(b, f"buffer {i}", c.dtype, device, 1)
+        if c.shape[0] != n or b.shape[0] < limit:
+            raise ValueError(f"column {i} must have {n} rows and its buffer {limit} or more")
+    if n == 0:
+        return
+    k = len(cols)
+    tiles = (n + SCAN_TILE_ROWS - 1) // SCAN_TILE_ROWS
+    scratch = torch.zeros(tiles + 1, dtype=torch.int64, device=device)
+    _launch(
+        "scan_compact", device,
+        mask.data_ptr(), n,
+        (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
+        (ctypes.c_void_p * k)(*[b.data_ptr() for b in bufs]),
+        (ctypes.c_int * k)(*[_SCAN_WIDE[c.dtype] for c in cols]),
+        k, written.data_ptr(), limit, scratch.data_ptr(),
+    )

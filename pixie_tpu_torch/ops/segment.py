@@ -7,9 +7,10 @@ limbs exist only to keep the TPU's slow scatter unit off the hot path.
 
 Each function takes its device from its tensors: on a CUDA tensor it
 launches the hand kernel of ``ops/kernels`` (H1 for integer sums and counts,
-H2 for f64 sums), on a CPU tensor it runs the plain PyTorch version beside
-it. The plain versions are the ones the CPU tests hold against the
-reference, and chip_smoke.py holds the kernels against them on the card.
+H2 for f64 sums, H11 for min and max), on a CPU tensor it runs the plain
+PyTorch version beside it. The plain versions are the ones the CPU tests
+hold against the reference, and chip_smoke.py holds the kernels against
+them on the card.
 """
 
 from __future__ import annotations
@@ -116,21 +117,110 @@ def seg_sum(
     return segment_sum_f64_plain(values, seg_ids, mask, num_segments)
 
 
+def _identity_for(dtype: torch.dtype, is_min: bool):
+    """The min/max identity of ``dtype`` that empty segments hold: +-inf for
+    floats, the integer type's max (min) or min (max)."""
+    if dtype.is_floating_point:
+        return float("inf") if is_min else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if is_min else info.min
+
+
+_F64_LOW63 = 0x7FFFFFFFFFFFFFFF
+_CANONICAL_NAN = 0x7FF8000000000000
+
+
+def _f64_keys(values: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """H11's order-preserving int64 key of each f64: a non-negative bit
+    pattern is its own key, a negative one has its low 63 bits flipped (so
+    -0.0 sorts just below +0.0), and every NaN takes the key that wins."""
+    bits = values.view(torch.int64)
+    keys = torch.where(bits >= 0, bits, bits ^ _F64_LOW63)
+    nan_key = torch.iinfo(torch.int64).min if is_min else torch.iinfo(torch.int64).max
+    return torch.where(torch.isnan(values), nan_key, keys)
+
+
+def _f64_from_keys(keys: torch.Tensor, is_min: bool) -> torch.Tensor:
+    nan_key = torch.iinfo(torch.int64).min if is_min else torch.iinfo(torch.int64).max
+    bits = torch.where(keys >= 0, keys, keys ^ _F64_LOW63)
+    return torch.where(keys == nan_key, _CANONICAL_NAN, bits).view(torch.float64)
+
+
+def segment_minmax_plain(
+    state: torch.Tensor, values: torch.Tensor, seg_ids: torch.Tensor,
+    mask: Optional[torch.Tensor], is_min: bool,
+) -> torch.Tensor:
+    """Plain version of H11: ``state[g] = min/max(state[g], v)`` over the
+    valid rows, IN PLACE; returns ``state``. Integers compare as themselves;
+    f64 by H11's order keys, so -0.0 < +0.0, a NaN value wins and is written
+    as the canonical quiet NaN, and a NaN already in the state stays."""
+    ok, idx = _valid(seg_ids, state.shape[0], mask)
+    reduce = "amin" if is_min else "amax"
+    if state.dtype != torch.float64:
+        state.scatter_reduce_(0, idx[ok], values[ok].to(state.dtype), reduce, include_self=True)
+        return state
+    keys = _f64_keys(state, is_min)
+    keys.scatter_reduce_(0, idx[ok], _f64_keys(values[ok], is_min), reduce, include_self=True)
+    return state.copy_(torch.where(torch.isnan(state), state, _f64_from_keys(keys, is_min)))
+
+
+def segment_minmax(
+    state: torch.Tensor, values: torch.Tensor, seg_ids: torch.Tensor,
+    mask: Optional[torch.Tensor], is_min: bool,
+) -> torch.Tensor:
+    """``state[g] = min/max(state[g], v)`` over the valid rows, in place on
+    ``state`` (int64 or f64, the dtype ``values`` is cast to). H11 on CUDA."""
+    values = values.to(state.dtype)
+    seg_ids = seg_ids.to(torch.int32)
+    if seg_ids.is_cuda:
+        return kernels.segment_minmax(
+            values.contiguous(), seg_ids.contiguous(), mask, state, is_min
+        )
+    return segment_minmax_plain(state, values, seg_ids, mask, is_min)
+
+
+def minmax_pick(a: torch.Tensor, b: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """Elementwise min/max of two states in H11's order (jnp.minimum /
+    jnp.maximum's: NaN propagates, -0.0 < +0.0): the UDAs' merge."""
+    out = a.clone()
+    idx = torch.arange(a.shape[0], device=a.device)
+    return segment_minmax_plain(out, b, idx, None, is_min)
+
+
+def _filled(values: torch.Tensor, num_segments: int, is_min: bool) -> torch.Tensor:
+    ident = _identity_for(values.dtype, is_min)
+    return torch.full((num_segments,), ident, dtype=values.dtype, device=values.device)
+
+
+def seg_min(
+    values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-segment min of int64 or f64 values; empty segments hold the
+    identity (+inf, int64 max), as the reference's scatter lane gives."""
+    return segment_minmax(_filled(values, num_segments, True), values, seg_ids, mask, True)
+
+
 def seg_max(
     values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-segment max; empty segments hold the dtype's smallest value, as
-    the reference's ``jax.ops.segment_max`` gives. A plain version only: the
-    port's one caller on the card, the HLL register update, is the fused
-    kernel H5 (ops/hll.py)."""
-    ok, idx = _valid(seg_ids, num_segments, mask)
-    if values.is_floating_point():
-        fill = float("-inf")
-    else:
-        fill = torch.iinfo(values.dtype).min
-    out = torch.full((num_segments,), fill, dtype=values.dtype, device=values.device)
-    return out.scatter_reduce_(0, idx[ok], values[ok], "amax", include_self=True)
+    """Per-segment max of int64 or f64 values; empty segments hold the
+    identity (-inf, int64 min)."""
+    return segment_minmax(_filled(values, num_segments, False), values, seg_ids, mask, False)
+
+
+def seg_any(
+    values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-segment "any nonzero" as the reference computes it: the max of
+    the values as integers, masked rows counting 0, cast to bool, so a
+    segment that no row reaches holds the identity and reads True."""
+    v = values.to(torch.int64)
+    if mask is not None:
+        v = torch.where(mask, v, 0)
+    return seg_max(v, seg_ids, num_segments).to(torch.bool)
 
 
 def flat_segment_ids(

@@ -19,10 +19,22 @@ and fetched with one device -> host copy per pass. On one device the
 reference's cross-device merge (``_merge_states``) is the identity, so the
 port has none yet.
 
-A fragment outside that shape — windowed or PARTIAL aggregation, string-hash
-UDA args — returns None and reaches the host exec graph, which raises
-NotImplementedError for the aggregation: the port has no host AggNode and no
-fallback. Errors raise; nothing is caught and sent elsewhere.
+``any`` over a bare column with no predicate takes the reference's host
+lane (``_plan_host_any``): one representative per group from the key plan's
+gids, never staged; with a predicate it folds on the device as a max (H11).
+
+A fragment with no aggregate, of the shape
+
+    MemorySource -> (Map | Filter)* -> Limit(n <= device_scan_limit_cap)
+
+takes the device scan (``_try_execute_scan``): per block the predicates and
+projections as torch ops, then the stable compaction H12 appends the
+selected rows to the output buffers until ``limit`` rows are written.
+
+A fragment outside those shapes — windowed or PARTIAL aggregation, string-hash
+UDA args, joins — returns None and reaches the host exec graph, which raises
+NotImplementedError for an aggregation or a join: the port has no host
+AggNode and no fallback. Errors raise; nothing is caught and sent elsewhere.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ from pixie_tpu_torch.compiler.analyzer import substitute
 from pixie_tpu_torch.device import resolve_device
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
-from pixie_tpu_torch.ops import segment
+from pixie_tpu_torch.ops import scan, segment
 from pixie_tpu_torch.parallel.staging import (
     StagedColumns,
     _pow2_at_least,
@@ -56,6 +68,7 @@ from pixie_tpu_torch.plan.operators import (
     AggOp,
     AggStage,
     FilterOp,
+    LimitOp,
     MapOp,
     MemorySourceOp,
 )
@@ -131,6 +144,71 @@ def match_fragment(fragment: PlanFragment, relations) -> Optional[_Match]:
 
 
 @dataclasses.dataclass
+class _ScanMatch:
+    """Source -> (Map | Filter)* -> Limit chain with no aggregate: the device
+    evaluates predicates and projections and returns the first ``limit``
+    surviving rows (pixie_tpu/parallel/pipeline.py:633)."""
+
+    source_nid: int
+    limit_nid: int
+    source_op: MemorySourceOp
+    limit: int
+    out_exprs: list  # [(name, expr in source terms)]
+    predicates: list
+    source_relation: Any
+    out_relation: Any
+
+
+def match_scan_fragment(fragment: PlanFragment, relations) -> Optional[_ScanMatch]:
+    """Find MemorySource -> (Map | Filter)* -> Limit with single-parent and
+    single-child links (pixie_tpu/parallel/pipeline.py:652). Unbounded scans
+    stay on the host: their output is the whole selection."""
+    for nid in fragment.topo_order():
+        op = fragment.node(nid)
+        if not isinstance(op, LimitOp):
+            continue
+        chain = []
+        cur = nid
+        while True:
+            parents = fragment.parents(cur)
+            if len(parents) != 1:
+                return None
+            cur = parents[0]
+            pop = fragment.node(cur)
+            if len(fragment.children(cur)) != 1:
+                return None
+            if isinstance(pop, MemorySourceOp):
+                if pop.streaming:
+                    return None
+                source_nid = cur
+                break
+            if not isinstance(pop, (MapOp, FilterOp)):
+                return None
+            chain.append(pop)
+        chain.reverse()
+        source_rel = relations[source_nid]
+        mapping = {c.name: ColumnRef(c.name) for c in source_rel}
+        preds = []
+        for pop in chain:
+            if isinstance(pop, FilterOp):
+                preds.append(substitute(pop.expr, mapping))
+            else:
+                mapping = {name: substitute(e, mapping) for name, e in pop.exprs}
+        out_rel = relations[nid]
+        return _ScanMatch(
+            source_nid=source_nid,
+            limit_nid=nid,
+            source_op=fragment.node(source_nid),
+            limit=op.n,
+            out_exprs=[(c.name, mapping[c.name]) for c in out_rel],
+            predicates=preds,
+            source_relation=source_rel,
+            out_relation=out_rel,
+        )
+    return None
+
+
+@dataclasses.dataclass
 class _KeyPlan:
     """How gids materialize: ``device_expr`` evaluated per block on the
     device, or ``host_gids`` densified on the host (neither: one group)."""
@@ -163,6 +241,45 @@ def _fetch(tensors: list) -> list:
     return out
 
 
+# The scan's output buffer dtype per column type: strings as their int32
+# dictionary codes, bools as int32 0/1 (H12 moves 4- and 8-byte elements).
+_SCAN_DTYPES = {
+    DataType.STRING: torch.int32,
+    DataType.BOOLEAN: torch.int32,
+    DataType.INT64: torch.int64,
+    DataType.TIME64NS: torch.int64,
+    DataType.FLOAT64: torch.float64,
+}
+
+
+class _FullProbe:
+    """Whether a scan's ``written`` counter has reached its limit, learnt
+    without waiting: on CUDA each ``record()`` queues a copy of the counter
+    to pinned host memory, and ``full()`` reads the last copy that has
+    finished (False while none has). On the CPU the counter is read
+    directly."""
+
+    def __init__(self, written: torch.Tensor, limit: int):
+        self.written, self.limit = written, limit
+        self.host = self.event = None
+        if written.is_cuda:
+            self.host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+
+    def record(self) -> None:
+        if self.host is not None and self.event is None:
+            self.host.copy_(self.written, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def full(self) -> bool:
+        if self.host is None:
+            return int(self.written[0]) >= self.limit
+        if self.event is None or not self.event.query():
+            return False
+        self.event = None
+        return int(self.host[0]) >= self.limit
+
+
 def _state_bytes(state) -> int:
     leaves = state.values() if isinstance(state, dict) else [state]
     return sum(t.numel() * t.element_size() for t in leaves)
@@ -189,19 +306,33 @@ class DeviceExecutor:
             collections.OrderedDict()
         )
         self._keyplan_cache_cap = flags.keyplan_cache_cap
+        # Host any() representatives per (table version, window, keys,
+        # column), LRU.
+        self._hostany_cache: "collections.OrderedDict[tuple, np.ndarray]" = (
+            collections.OrderedDict()
+        )
         self.last_fold_ms: Optional[float] = None
 
     # -- public -------------------------------------------------------------
     def try_execute_fragment(
         self, fragment: PlanFragment, table_store, registry, func_ctx=None
     ) -> Optional[tuple[int, RowBatch]]:
-        """(agg node id, finalized agg RowBatch) when the fragment has the
-        device shape, else None (the host graph then runs the fragment)."""
+        """(agg or limit node id, its RowBatch) when the fragment has a device
+        shape, else None (the host graph then runs the fragment)."""
         t0 = time.perf_counter()
         table_rel = lambda op: table_store.get_relation(op.table_name)
         relations = fragment.resolve_relations(registry, table_rel)
         m = match_fragment(fragment, relations)
-        if m is None or m.agg_op.stage != AggStage.FULL or m.agg_op.windowed:
+        if m is None:
+            # No aggregate: the bounded scan (the reference tries its join
+            # lanes first; joins are not ported and raise in the host graph).
+            out = self._try_execute_scan(
+                fragment, relations, table_store, registry, func_ctx
+            )
+            if out is not None:
+                self.last_fold_ms = (time.perf_counter() - t0) * 1e3
+            return out
+        if m.agg_op.stage != AggStage.FULL or m.agg_op.windowed:
             return None
         table = table_store.get_table(m.source_op.table_name)
         if table is None:
@@ -212,62 +343,130 @@ class DeviceExecutor:
         evaluator = self._make_evaluator(m, specs, registry, func_ctx)
         if evaluator is None:
             return None
-        # UDAs that never read their column (count) stage nothing for it.
+        # any() over a bare column with no predicate may take the host lane
+        # (_plan_host_any): its column is not staged unless that lane falls
+        # through. UDAs that never read their column (count) stage nothing.
+        any_candidates = set()
+        if not m.predicates:
+            any_candidates = {
+                out for out, arg_e, uda in specs
+                if uda.name == "any" and uda.reads_args and isinstance(arg_e, ColumnRef)
+            }
         base_cols = set()
         for e in m.predicates:
             base_cols |= referenced_columns(e)
-        for _, e, uda in specs:
-            if uda.reads_args:
+        for out, e, uda in specs:
+            if uda.reads_args and out not in any_candidates:
                 base_cols |= referenced_columns(e)
         key_plan = self._plan_keys(m, table, registry, func_ctx, base_cols)
         if key_plan is None:
             return None
-        f32_cols = self._sketch_f32_cols(m, specs)
+        with timed("host_any"):
+            host_any = (
+                self._plan_host_any(m, specs, key_plan, table) if any_candidates else {}
+            )
+        for out, e, uda in specs:
+            if out in any_candidates and out not in host_any:
+                base_cols |= referenced_columns(e)  # back to the device lane
+        device_specs = [sp for sp in specs if sp[0] not in host_any]
+        f32_cols = self._sketch_f32_cols(m, device_specs)
         key_sig = repr([m.col_exprs[g] for g in m.agg_op.groups]) + ":dev"
-        # Version = (min_row_id, end_row_id): writes bump end_row_id and
-        # ring-buffer expiry bumps min_row_id, so either invalidates.
-        version = (table.min_row_id(), table.end_row_id())
-        cache_key = (
-            m.source_op.table_name,
-            version,
-            tuple(sorted(base_cols)),
-            m.source_op.start_time,
-            m.source_op.stop_time,
-            self.block_rows,
-            key_sig,
-            key_plan.num_groups,
-            tuple(sorted(f32_cols)),
+        staged = self._stage_cached(
+            table, m.source_op, base_cols, key_sig, key_plan.num_groups,
+            f32_cols=f32_cols, gids=key_plan.host_gids,
         )
-        staged = self._staged_lookup(cache_key)
-        if staged is None:
-            with timed("read_columns"):
-                cols, n = read_columns(
-                    table,
-                    sorted(base_cols),
-                    m.source_op.start_time,
-                    m.source_op.stop_time,
-                )
-            with timed("stage"):
-                staged = stage_columns(
-                    cols, n, self.device, block_rows=self.block_rows,
-                    f32_cols=f32_cols, gids=key_plan.host_gids,
-                    num_groups=key_plan.num_groups,
-                )
-            self._staged_insert(cache_key, staged)
         aux = self._build_aux(evaluator, table)
         with timed("fold"):
             outputs, capacity = self._run_program(
-                specs, evaluator, key_plan, staged, aux
+                device_specs, evaluator, key_plan, staged, aux
             )
-        batch = self._finalize(m, specs, key_plan, outputs, registry)
+        batch = self._finalize(
+            m, specs, key_plan, outputs, registry, table, host_any=host_any
+        )
         self.last_fold_ms = (time.perf_counter() - t0) * 1e3
         return m.agg_nid, batch
 
     def clear_caches(self) -> None:
-        """Drop the staged columns and key plans: the next query of every
-        table is cold."""
+        """Drop the staged columns, key plans and host any() representatives:
+        the next query of every table is cold."""
         self._staged_cache.clear()
         self._keyplan_cache.clear()
+        self._hostany_cache.clear()
+
+    # -- the scan (filter / project / limit, no aggregate) ---------------------
+    def _try_execute_scan(
+        self, fragment, relations, table_store, registry, func_ctx
+    ) -> Optional[tuple[int, RowBatch]]:
+        """(limit node id, the first ``limit`` surviving rows) for a bounded
+        scan (pixie_tpu/parallel/pipeline.py:3793), else None. STRING outputs
+        must be bare source columns: they stay codes of the table's
+        dictionary and come back as DictColumns of it."""
+        m = match_scan_fragment(fragment, relations)
+        if m is None or m.limit > flags.device_scan_limit_cap:
+            return None
+        dtypes = [_SCAN_DTYPES.get(m.out_relation.col(name).data_type) for name, _ in m.out_exprs]
+        if None in dtypes or len(dtypes) > scan.kernels.SCAN_MAX_COLS:
+            return None
+        table = table_store.get_table(m.source_op.table_name)
+        if table is None:
+            return None
+        for name, e in m.out_exprs:
+            if m.out_relation.col(name).data_type == DataType.STRING and (
+                not isinstance(e, ColumnRef) or e.name not in table.dictionaries
+            ):
+                return None
+        named = [(f"pred{i}", p) for i, p in enumerate(m.predicates)]
+        named += [(f"out:{name}", e) for name, e in m.out_exprs]
+        try:
+            evaluator = ExpressionEvaluator(named, m.source_relation, registry, func_ctx)
+        except ValueError:
+            return None
+        base_cols = set()
+        for _, e in named:
+            base_cols |= referenced_columns(e)
+        staged = self._stage_cached(table, m.source_op, base_cols, ":scan", 0)
+        aux = self._build_aux(evaluator, table)
+        with timed("fold"):
+            rows = self._run_scan(m, evaluator, staged, aux, dtypes)
+        out_cols = []
+        for (name, e), arr in zip(m.out_exprs, rows):
+            schema = m.out_relation.col(name)
+            if schema.data_type == DataType.STRING:
+                out_cols.append(DictColumn(arr, table.dictionaries[e.name]))
+            else:
+                out_cols.append(arr.astype(host_dtype(schema.data_type)))
+        return m.limit_nid, RowBatch(m.out_relation, out_cols, eow=True, eos=True)
+
+    def _run_scan(self, m: _ScanMatch, evaluator, staged, aux, dtypes) -> list:
+        """Every block's predicates ANDed into its validity mask, its output
+        expressions cast to their buffers' dtypes (int32 codes for strings),
+        and the selected rows compacted into buffers of ``limit`` rows; then
+        ONE fetch of ``written`` and one of the selected prefix.
+        On CUDA the host copies ``written`` back without waiting after each
+        block and stops enqueuing blocks once a finished copy shows the
+        limit reached (the kernel already returns at once for a full scan,
+        so where the host stops changes no result)."""
+        bufs = [torch.zeros(m.limit, dtype=dt, device=self.device) for dt in dtypes]
+        written = torch.zeros(1, dtype=torch.int32, device=self.device)
+        preds = [e for n, e in evaluator.named_exprs if n.startswith("pred")]
+        outs = [e for n, e in evaluator.named_exprs if n.startswith("out:")]
+        probe = _FullProbe(written, m.limit)
+        for blk in range(staged.num_blocks):
+            if probe.full():
+                break
+            env = self._block_env(staged, blk)
+            mask = staged.mask[0, blk]
+            for p in preds:
+                mask = mask & evaluator.device_eval(p, env, aux)
+            n = mask.shape[0]
+            vals = []
+            for e, buf in zip(outs, bufs):
+                v = torch.as_tensor(evaluator.device_eval(e, env, aux), device=mask.device)
+                vals.append(v.to(buf.dtype).expand(n).contiguous())
+            scan.compact_rows(mask.contiguous(), vals, written, bufs, m.limit)
+            probe.record()
+        w = int(written[0])
+        return _fetch([b[:w] for b in bufs])
 
     # -- staged-column cache -------------------------------------------------
     def _staged_lookup(self, cache_key) -> Optional[StagedColumns]:
@@ -298,6 +497,50 @@ class DeviceExecutor:
         while len(self._staged_cache) > max(self._staged_cache_cap, 1):
             self._staged_cache.popitem(last=False)
 
+    def _stage_cached(
+        self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
+        f32_cols: Optional[set] = None, gids: Optional[np.ndarray] = None,
+    ) -> StagedColumns:
+        """The staged columns of this table version and window, staged and
+        cached on a miss. ``key_sig`` pins what the staging serves (the
+        group expressions, or ``":scan"``)."""
+        f32_cols = f32_cols or set()
+        # Version = (min_row_id, end_row_id): writes bump end_row_id and
+        # ring-buffer expiry bumps min_row_id, so either invalidates.
+        cache_key = (
+            source_op.table_name,
+            (table.min_row_id(), table.end_row_id()),
+            tuple(sorted(base_cols)),
+            source_op.start_time,
+            source_op.stop_time,
+            self.block_rows,
+            key_sig,
+            num_groups,
+            tuple(sorted(f32_cols)),
+        )
+        staged = self._staged_lookup(cache_key)
+        if staged is None:
+            with timed("read_columns"):
+                cols, n = read_columns(
+                    table, sorted(base_cols), source_op.start_time, source_op.stop_time
+                )
+            with timed("stage"):
+                staged = stage_columns(
+                    cols, n, self.device, block_rows=self.block_rows,
+                    f32_cols=f32_cols, gids=gids, num_groups=num_groups,
+                )
+            self._staged_insert(cache_key, staged)
+        return staged
+
+    @staticmethod
+    def _block_env(staged: StagedColumns, blk: int) -> dict:
+        """Block ``blk``'s columns, the narrowed ints widened back to int64
+        (torch has no arithmetic on uint16)."""
+        env = {name: t[0, blk] for name, t in staged.blocks.items()}
+        for name, off in staged.narrow_offsets.items():
+            env[name] = env[name].to(torch.int64) + off
+        return env
+
     # -- planning ------------------------------------------------------------
     def _agg_specs(self, m: _Match, registry):
         """[(out_name, source-term arg expr, uda)] or None when an aggregate
@@ -317,8 +560,15 @@ class DeviceExecutor:
             if not uda.reads_args:
                 specs.append((out_name, arg_exprs[0], uda))
                 continue
-            if len(arg_exprs) != 1 or types[0] == DataType.STRING:
-                return None  # multi-arg and string-arg UDAs: not in the slice
+            if len(arg_exprs) != 1:
+                return None  # multi-arg UDAs: not in the slice
+            if types[0] == DataType.STRING and not (
+                # A code-valued state (any) decodes through the table
+                # dictionary: only a bare source column has one. The
+                # string-hash UDAs are not ported.
+                uda.string_state and isinstance(arg_exprs[0], ColumnRef)
+            ):
+                return None
             specs.append((out_name, arg_exprs[0], uda))
         return specs
 
@@ -432,6 +682,57 @@ class DeviceExecutor:
             self._keyplan_cache.popitem(last=False)
         return kp
 
+    def _plan_host_any(self, m: _Match, specs, key_plan: _KeyPlan, table) -> dict:
+        """any() with no predicate needs ONE representative per group: the
+        first row of the group in row order, from the key plan's host gids
+        (or the dictionary key's codes) in one vectorized pass on the host
+        (pixie_tpu/parallel/pipeline.py:4328). {out_name: per-group array
+        (codes for strings)}, cached per (table version, window, keys,
+        column); {} when no gid source is usable, which sends the column
+        back to the device lane."""
+        if m.predicates:
+            return {}
+        num_groups = max(key_plan.num_groups, 1)
+        gids = key_plan.host_gids
+        gid_col = None
+        if gids is None:
+            if not isinstance(key_plan.device_expr, ColumnRef):
+                return {}
+            gid_col = key_plan.device_expr.name
+        out = {}
+        for out_name, arg_e, uda in specs:
+            if not (uda.name == "any" and uda.reads_args and isinstance(arg_e, ColumnRef)):
+                continue
+            ck = (
+                m.source_op.table_name,
+                (table.min_row_id(), table.end_row_id()),
+                m.source_op.start_time,
+                m.source_op.stop_time,
+                repr([m.col_exprs[g] for g in m.agg_op.groups]),
+                arg_e.name,
+            )
+            rep = self._hostany_cache.get(ck)
+            if rep is not None:
+                self._hostany_cache.move_to_end(ck)
+            else:
+                want = sorted({arg_e.name} | ({gid_col} if gid_col else set()))
+                cols, n = read_columns(
+                    table, want, m.source_op.start_time, m.source_op.stop_time
+                )
+                g = gids if gids is not None else np.maximum(cols[gid_col], 0)
+                if len(g) != n or n == 0 or int(g.max()) >= num_groups:
+                    return {}  # the table moved under the key plan
+                vals = cols[arg_e.name]
+                rep = np.zeros(num_groups, vals.dtype)
+                # Reversed assignment: the last write per gid wins, which is
+                # the first occurrence in row order.
+                rep[g[::-1]] = vals[::-1]
+                self._hostany_cache[ck] = rep
+                while len(self._hostany_cache) > 32:
+                    self._hostany_cache.popitem(last=False)
+            out[out_name] = rep
+        return out
+
     def _sketch_f32_cols(self, m: _Match, specs) -> set:
         """FLOAT64 source columns read ONLY as bare args of f32-grained
         sketch UDAs: staging them as f32 halves their bytes and changes no
@@ -490,18 +791,11 @@ class DeviceExecutor:
         then updates every UDA: the sum-family UDAs and the presence row in
         one fused segment sum (H1), the others through their own update."""
         preds = [e for n, e in evaluator.named_exprs if n.startswith("pred")]
-        narrow = [
-            (name, torch.tensor(off, dtype=torch.int64))
-            for name, off in sorted(staged.narrow_offsets.items())
-        ]
         device_key = key_plan.device_expr
         host_gids = key_plan.host_gids is not None
 
         def body(states, presence, blk: int, gid_base: int):
-            env = {name: t[0, blk] for name, t in staged.blocks.items()}
-            for name, off in narrow:
-                # Widen in int64: torch has no arithmetic on uint16.
-                env[name] = env[name].to(torch.int64) + off
+            env = self._block_env(staged, blk)
             mask = staged.mask[0, blk]
             if host_gids:
                 gids = staged.gids[0, blk].to(torch.int32)
@@ -566,10 +860,17 @@ class DeviceExecutor:
         leaves = [np.concatenate(parts, axis=0) for parts in zip(*per_pass)]
         return (leaves[:-1], leaves[-1]), capacity
 
-    def _finalize(self, m, specs, key_plan, outputs, registry) -> RowBatch:
+    def _finalize(
+        self, m, specs, key_plan, outputs, registry, table, host_any=None
+    ) -> RowBatch:
         """Emit only the observed groups (presence > 0), in gid order — the
-        dictionary-code order — as the reference's _finalize does."""
+        dictionary-code order — as the reference's _finalize does. ``outputs``
+        hold the device specs' values (those not in ``host_any``); host any()
+        representatives and code-valued states decode through the table's
+        dictionary (pixie_tpu/parallel/pipeline.py:7397-7438)."""
+        host_any = host_any or {}
         values, presence = outputs
+        device_vals = iter(values)
         n = max(key_plan.num_groups, 1) if m.agg_op.groups else 1
         rel = m.agg_op.output_relation([_pre_agg_relation(m, registry)], registry)
         if m.agg_op.groups:
@@ -581,19 +882,28 @@ class DeviceExecutor:
             col.take(idx) if isinstance(col, DictColumn) else np.asarray(col)[idx]
             for col in key_plan.key_columns
         ]
-        for (out_name, _, uda), val in zip(specs, values):
+        for out_name, arg_e, uda in specs:
             schema = rel.col(out_name)
-            arr = val[:n][keep]
-            out = (
-                uda.format_output(arr)
-                if uda.device_finalize is not None and uda.format_output is not None
-                else arr
-            )
-            if schema.data_type == DataType.STRING:
-                d = StringDictionary()
-                out_cols.append(DictColumn(d.encode(np.asarray(out, dtype=object)), d))
+            if out_name in host_any:
+                out = np.asarray(host_any[out_name])[:n][keep]
             else:
+                arr = next(device_vals)[:n][keep]
+                out = (
+                    uda.format_output(arr)
+                    if uda.device_finalize is not None and uda.format_output is not None
+                    else arr
+                )
+            if schema.data_type != DataType.STRING:
                 out_cols.append(np.asarray(out, dtype=host_dtype(schema.data_type)))
+                continue
+            if uda.string_state:
+                # Code-valued state (any(STRING)): decode through the table
+                # dictionary of its bare source column.
+                vals = table.dictionaries[arg_e.name].decode(np.asarray(out).astype(np.int32))
+            else:
+                vals = np.asarray(out, dtype=object)
+            d = StringDictionary()
+            out_cols.append(DictColumn(d.encode(np.asarray(vals, dtype=object)), d))
         return RowBatch(rel, out_cols, eow=True, eos=True)
 
 

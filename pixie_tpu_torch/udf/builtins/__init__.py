@@ -1,12 +1,12 @@
 """Builtin function library of the port (ref: pixie_tpu/udf/builtins).
 
 Ported so far: the arithmetic, logical and comparison scalars and the count,
-sum and mean UDAs (math_ops), and the sketch UDAs ``quantiles``,
-``quantiles_tdigest``, ``approx_count_distinct`` and ``count_min``
-(sketch_ops). Every other builtin of the reference is named in NOT_PORTED,
-and the overloads of ported names that are not ported yet in
-NOT_PORTED_OVERLOADS, so the compiler rejects a script that calls one with
-"not ported yet" instead of an unknown-function error.
+sum, mean, min and max UDAs (math_ops), ``any`` (collections), and the
+sketch UDAs ``quantiles``, ``quantiles_tdigest``, ``approx_count_distinct``
+and ``count_min`` (sketch_ops). Every other builtin of the reference is
+named in NOT_PORTED, and the overloads of ported names that are not ported
+yet in NOT_PORTED_OVERLOADS, so the compiler rejects a script that calls
+one with "not ported yet" instead of an unknown-function error.
 """
 
 from pixie_tpu_torch.types import DataType
@@ -16,12 +16,12 @@ NOT_PORTED = frozenset({
     "DurationNanos", "GetAgentStatus", "GetSchemas", "GetTableStatus",
     "GetTables", "GetUDFList", "Time", "_build_request_path_clusters",
     "_exec_host_num_cpus", "_exec_hostname", "_match_endpoint",
-    "_predict_request_path_cluster", "abs", "any", "atof", "atoi",
+    "_predict_request_path_cluster", "abs", "atof", "atoi",
     "bin", "ceil", "cidrs_contain_ip", "container_id_to_status",
     "contains", "endsWith", "exp", "find", "floor", "has_service_id",
     "has_service_name", "ip_to_pod_id", "ip_to_service_id", "kmeans",
-    "kmeans_predict", "length", "ln", "log", "log10", "log2", "max",
-    "min", "normalize_mysql", "normalize_pgsql", "nslookup", "pluck",
+    "kmeans_predict", "length", "ln", "log", "log10", "log2",
+    "normalize_mysql", "normalize_pgsql", "nslookup", "pluck",
     "pluck_float64", "pluck_int64", "pod_id_to_namespace",
     "pod_id_to_node_name", "pod_id_to_pod_name", "pod_id_to_service_id",
     "pod_id_to_service_name", "pod_name_to_pod_id",
@@ -48,9 +48,10 @@ NOT_PORTED_OVERLOADS = frozenset({
 
 
 def register_all(registry: Registry) -> None:
-    from pixie_tpu_torch.udf.builtins import math_ops, sketch_ops
+    from pixie_tpu_torch.udf.builtins import collections, math_ops, sketch_ops
 
     math_ops.register(registry)
+    collections.register(registry)
     sketch_ops.register(registry)
     registry.not_ported = NOT_PORTED
     registry.not_ported_overloads = NOT_PORTED_OVERLOADS

@@ -1,4 +1,5 @@
-"""Arithmetic/comparison scalar UDFs and the count, sum and mean UDAs.
+"""Arithmetic/comparison scalar UDFs and the count, sum, mean, min and max
+UDAs.
 
 Counterpart of pixie_tpu/udf/builtins/math_ops.py for the subset the port
 runs. Scalars are elementwise functions that work on numpy arrays (the host
@@ -178,3 +179,32 @@ def register(r: Registry) -> None:
         )
 
     r.register_uda(mean_uda(F))
+
+    def minmax_uda(name, arg_t, is_min):
+        # The reference's init, update, merge and finalize
+        # (pixie_tpu/udf/builtins/math_ops.py:183-219): update is
+        # pick(state, seg_fn(col)), which H11 computes in place on the state.
+        dtype = torch.float64 if arg_t == F else torch.int64
+        ident = segment._identity_for(dtype, is_min)
+
+        def fin(st):
+            return torch.where(st == ident, torch.zeros_like(st), st)
+
+        return UDA(
+            name=name,
+            arg_types=(arg_t,),
+            out_type=arg_t,
+            init=lambda g, device: torch.full((g,), ident, dtype=dtype, device=device),
+            update=lambda st, gids, col, mask=None: segment.segment_minmax(
+                st, col.to(dtype), gids, mask, is_min
+            ),
+            merge=lambda a, b: segment.minmax_pick(a, b, is_min),
+            finalize=fin,
+            merge_kind=MergeKind.PMIN if is_min else MergeKind.PMAX,
+            out_semantic=_preserve_first,
+            doc=f"{'Minimum' if is_min else 'Maximum'} value in the group.",
+        )
+
+    for arg_t in (F, I):
+        r.register_uda(minmax_uda("min", arg_t, True))
+        r.register_uda(minmax_uda("max", arg_t, False))

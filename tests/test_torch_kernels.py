@@ -1,4 +1,4 @@
-"""The hand kernels (H1-H10 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H12 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
@@ -14,7 +14,8 @@ hashes bit for bit, HLL registers and count-min cells and totals exactly,
 HLL estimates within a relative 1e-12; t-digest group weights exactly, at
 most 1% of (group, cluster) cells moved by the Fault-4 contract, means of
 the others within B * (w + 2) * 2^-24 * max|v| after B blocks, quantiles of
-one state within a relative 1e-6.
+one state within a relative 1e-6. Segment min/max (H11) and the scan's
+compaction (H12) bit for bit, NaN, signed zeros and subnormals included.
 """
 
 import json
@@ -24,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from pixie_tpu_torch.ops import countmin, hashing, histogram, hll, kernels, segment, tdigest
+from pixie_tpu_torch.ops import (
+    countmin, hashing, histogram, hll, kernels, scan, segment, tdigest,
+)
 
 EDGE = 2.5e-4
 SPEC = histogram.DEFAULT_SPEC
@@ -150,6 +153,72 @@ def _check_sketch_kernels(dev: torch.device) -> None:
         merged = tdigest.merge(want_dev, want_dev)
         plain = tdigest.merge_plain(want, want)
         assert torch.equal(merged["weights"].cpu().sum(dim=1), plain["weights"].sum(dim=1))
+
+
+def _check_minmax_kernel(dev: torch.device) -> None:
+    rng = np.random.default_rng(9)
+    n = 50_000
+    special = np.array([np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 5e-324, -5e-324])
+    for S in (16, 4096, 1 << 20):  # shared partials, then global atomics
+        gids = rng.integers(-2, S + 2, n).astype(np.int32)
+        gids[: special.size] = 3
+        mask = rng.random(n) < 0.9
+        mask[: special.size] = True
+        for dtype in (torch.int64, torch.float64):
+            if dtype == torch.int64:
+                v = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+            else:
+                v = rng.normal(0.0, 1e6, n)
+                v[: special.size] = special
+            for is_min in (True, False):
+                fill = segment._identity_for(dtype, is_min)
+                want = torch.full((S,), fill, dtype=dtype)
+                segment.segment_minmax_plain(
+                    want, torch.from_numpy(v), torch.from_numpy(gids), torch.from_numpy(mask), is_min
+                )
+                got = torch.full((S,), fill, dtype=dtype, device=dev)
+                kernels.segment_minmax(
+                    torch.from_numpy(v).to(dev), torch.from_numpy(gids).to(dev),
+                    torch.from_numpy(mask).to(dev), got, is_min,
+                )
+                assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+
+
+def _check_scan_kernel(dev: torch.device) -> None:
+    rng = np.random.default_rng(13)
+    n = 3 * 2048 * 5 + 17  # a ragged last tile
+    blocks = []
+    for frac in (0.1, 0.0, 0.5):  # a block with no survivor in the middle
+        blocks.append((
+            torch.from_numpy(rng.random(n) < frac),
+            [torch.from_numpy(rng.integers(0, 1 << 40, n)),
+             torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)),
+             torch.from_numpy(rng.normal(size=n))],
+        ))
+    total = sum(int(m.sum()) for m, _ in blocks)
+    for limit in (0, 1, 1000, 3000, total + 5):
+        out = []
+        for where in ("cpu", dev):
+            written = torch.zeros(1, dtype=torch.int32, device=where)
+            bufs = [torch.zeros(limit, dtype=c.dtype, device=where) for c in blocks[0][1]]
+            for mask, cols in blocks:
+                scan.compact_rows(mask.to(where), [c.to(where) for c in cols], written, bufs, limit)
+            out.append((int(written[0]), [b.cpu() for b in bufs]))
+        (w0, b0), (w1, b1) = out
+        assert w0 == w1 == min(limit, total)
+        assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(b0, b1))
+
+
+@pytest.mark.cuda
+def test_minmax_kernel_matches_plain_on_card():
+    _need_cards(1)
+    _check_minmax_kernel(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_scan_kernel_matches_plain_on_card():
+    _need_cards(1)
+    _check_scan_kernel(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda
