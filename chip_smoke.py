@@ -12,16 +12,18 @@ the CUDA toolkit. In order it:
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
    and H11 as config 3 and the flows min/max run them, config 1's first
-   block for H12) and at shapes that take its other memory path,
+   block for H12, config 8's probe side for H13-H15) and at shapes that
+   take its other memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
-   scan's compaction exact; t-digest cluster cells under Fault-4), and
+   scan's compaction and the join exact; t-digest cluster cells under
+   Fault-4), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
    kernel), and the kernel again with the calls paced by the host;
 4. checks the kernel path against the plain path end to end at 2^20 rows
-   for the six queries below and config 4 with a filter (any() through
-   H11);
+   for the queries below, config 4 with a filter (any() through H11), and
+   every join type over both owner tables;
 5. runs the port's main paths through
    Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
    launch counts zeroed just before it, one cold and three warm queries,
@@ -48,6 +50,16 @@ the CUDA toolkit. In order it:
    - config 4, px/perf_flamegraph over stacks (seed 43, 4096 stacks;
      64,000,000 rows): any() on its host lane and the sums through H1;
      4096 rows, count sums exact, each stack_trace its identity string;
+   - config 8, the equijoin of svc_owners (16 services, 4 teams) INNER to
+     join_fact (bench.py's generator: seed 46, 16 services, exponential(3e7)
+     latency; 4,000,000 rows, bench.py's default) through the sort-merge
+     lane (torch.sort, H13, H14, H15): 4,000,000 rows, time_ and latency the
+     fact columns bit for bit in row order, svc == service, owner ==
+     team-{i % 4}; and the same fact table OUTER-joined to
+     svc_owners_partial (14 services owned, 4 ghosts; H12 compacts the
+     unmatched rows): the owned rows in row order, then the unowned ones
+     with svc and owner "", then the 4 ghosts with time_ 0, service "" and
+     latency 0.0; each query must count the join_sort_merge lane;
 6. prints each phase's seconds, one JSON line of per-kernel results, the
    nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 
@@ -95,17 +107,25 @@ REPLACES = {
     "hll_estimate": "pixie_tpu/ops/hll.py:118",
     "segment_minmax": "pixie_tpu/ops/segment.py:657",
     "scan_compact": "pixie_tpu/parallel/pipeline.py:4126",
+    "join_probe": "pixie_tpu/ops/segment.py:524",
+    "join_emit_pairs": "pixie_tpu/ops/segment.py:531",
+    "join_gather": "pixie_tpu/parallel/pipeline.py:3318",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
     **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:12]},
     "segment_minmax": "pixie_tpu_torch/ops/kernels/minmax_kernels.cu",
     "scan_compact": "pixie_tpu_torch/ops/kernels/scan_kernels.cu",
+    **{k: "pixie_tpu_torch/ops/kernels/join_kernels.cu"
+       for k in ("join_probe", "join_emit_pairs", "join_gather")},
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
 SMALL_ROWS = 64_000_000  # http_small and stacks rows: the same default
 N_STACKS = 4096
+JOIN_ROWS = 4_000_000  # join_fact rows: bench.py's BENCH_JOIN_ROWS default
+SERVICES = [f"ns/svc-{i}" for i in range(N_SERVICES)]
+UNOWNED = (3, 11)  # the services svc_owners_partial does not own
 SCAN_LIMIT = 1000
 FLOW_GROUPS = N_PODS * N_PODS
 STATUSES = (200, 301, 404, 500)
@@ -173,6 +193,26 @@ FLOW_SPAN = (
     ")\n"
     "px.display(s, 'flow_span')\n"
 )
+
+# BASELINE config 8 (bench.py:1143-1149), and the same fact table OUTER-joined
+# to svc_owners_partial (14 of the 16 services owned, 4 services the fact
+# table never names).
+JOIN8 = (
+    "l = px.DataFrame(table='svc_owners')\n"
+    "r = px.DataFrame(table='join_fact')\n"
+    "j = l.merge(r, how='inner', left_on=['svc'],"
+    " right_on=['service'], suffixes=['', '_r'])\n"
+    "px.display(j, 'joined')\n"
+)
+JOIN8_OUTER = JOIN8.replace("svc_owners", "svc_owners_partial").replace(
+    "how='inner'", "how='outer'")
+
+
+def partial_owners() -> list:
+    """svc_owners_partial's services in row order: the 14 owned, with the
+    four ghosts placed between them."""
+    owned = [s for i, s in enumerate(SERVICES) if i not in UNOWNED]
+    return owned[:2] + ["ghost-0"] + owned[2:6] + ["ghost-1"] + owned[6:] + ["ghost-2", "ghost-3"]
 
 
 def log(msg: str) -> None:
@@ -777,6 +817,155 @@ def scan_kernel_phase(dev) -> dict:
     return records
 
 
+def join_edge_keys(seed: int, nb: int, n_probe: int, K: int, pad_b: int, pad_p: int):
+    """Sentinel-applied join keys: many-to-many (key 0 on a tenth of the build
+    rows: a large fanout), id 1 on the probe side only (fanout 0), id K - 1
+    on the build side only, padded rows keyed K (build) and K + 1 (probe)."""
+    rng = np.random.default_rng(seed)
+    lk = rng.integers(0, K, nb).astype(np.int32)
+    lk[rng.random(nb) < 0.1] = 0
+    lk[lk == 1] = 2
+    rk = rng.integers(0, K, n_probe).astype(np.int32)
+    rk[rk == K - 1] = 3
+    lmask = np.arange(nb) < nb - pad_b
+    rmask = np.arange(n_probe) < n_probe - pad_p
+    return (np.where(lmask, lk, K).astype(np.int32), np.where(rmask, rk, K + 1).astype(np.int32),
+            lmask, rmask)
+
+
+def join_kernel_phase(dev) -> dict:
+    """H13, H14, H15 and H12's compaction of unmatched row indices against
+    their plain versions on the card, bit for bit, on the slots below the
+    match count: first edge cases (many-to-many keys, fanout 0 and a large
+    fanout, padded rows, a cap exactly at the count) through all four join
+    types' sections, then config 8's shapes, where the kernels are timed:
+    the 16-row build side padded to 256, 4,000,000 probe rows padded to
+    4,194,304 (2^21-row blocks), one match each, cap_m 4,194,304; H15 on the
+    f64 latency column; H12 on the OUTER join's unmatched probe rows (the
+    two services svc_owners_partial does not own)."""
+    from pixie_tpu_torch.ops import kernels, scan, segment
+
+    K = 40
+    for seed, nb, n_probe, pad_b, pad_p in ((0, 256, 3001, 37, 5), (1, 7, 1, 0, 0),
+                                            (2, 5000, 20000, 1000, 0)):
+        host = [torch.from_numpy(a) for a in join_edge_keys(seed, nb, n_probe, K, pad_b, pad_p)]
+        card = [t.to(dev) for t in host]
+        _, fanout, _ = segment.join_probe_plain(torch.sort(host[0], stable=True)[0], host[1])
+        M = int(fanout.sum())
+        for cap_r, cap_l in ((0, 0), (0, 64), (4096, 0), (4096, 1024)):  # INNER, LEFT, RIGHT, OUTER
+            got = segment.local_sort_merge(*card, M, cap_r, cap_l, K)
+            want = segment.local_sort_merge(*host, M, cap_r, cap_l, K)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                check((g is None) == (w is None) and (g is None or torch.equal(g.cpu(), w)),
+                      f"join edge case {seed} caps {cap_r},{cap_l}: kernel path != plain")
+            rng = np.random.default_rng(seed)
+            col = torch.from_numpy(rng.integers(0, 256, nb).astype(np.uint8))
+            for side in (0, 1):
+                secs = ([(want[0], M), (None, cap_r), (want[4], cap_l)] if side == 0
+                        else [(want[1], M), (want[3], cap_r), (None, cap_l)])
+                g = kernels.join_gather(col.to(dev), [(i.to(dev) if i is not None else None, r)
+                                                      for i, r in secs], 5, -1)
+                w = segment.join_gather_plain(col, secs, 5, -1)
+                check(torch.equal(g.cpu(), w), f"H15 edge case {seed} side {side}: differs")
+    log("H13/H14/H12 (via local_sort_merge) and H15: edge cases (many-to-many, fanout 0, "
+        "a large fanout, padded rows, cap at the count), INNER/LEFT/RIGHT/OUTER, bit for bit")
+
+    # Config 8's shapes.
+    rng = np.random.default_rng(46)
+    n_real, n = JOIN_ROWS, 2 * BLOCK_ROWS
+    svc_idx = rng.integers(0, N_SERVICES, n_real).astype(np.int32)
+    latency = np.zeros(n)
+    latency[:n_real] = rng.exponential(3e7, n_real)
+    nb, K = 256, N_SERVICES
+    lkey = torch.tensor(list(range(K)) + [K] * (nb - K), dtype=torch.int32, device=dev)
+    rkey_np = np.full(n, K + 1, np.int32)
+    rkey_np[:n_real] = svc_idx
+    rkey = torch.from_numpy(rkey_np).to(dev)
+    sk, order = torch.sort(lkey, stable=True)
+    order = order.to(torch.int32)
+    got = kernels.join_probe(sk, rkey)
+    want = segment.join_probe_plain(sk, rkey)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "H13 config 8: differs")
+    lo, fanout, _ = want
+    prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
+    M = int(prefix[-1])
+    check(M == n_real, f"config 8: {M} matches, expected {n_real}")
+    cap = 1 << (M - 1).bit_length()
+    gb, gp = kernels.join_emit_pairs(lo, fanout, prefix, order, cap)
+    wb, wp = segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap)
+    torch.cuda.synchronize()
+    check(torch.equal(gb[:M], wb[:M]) and torch.equal(gp[:M], wp[:M]), "H14 config 8: differs")
+    col = torch.from_numpy(latency).to(dev)
+    secs = [(wp, cap), (None, 0), (None, 0)]
+    g = kernels.join_gather(col, secs, None, 0)
+    w = segment.join_gather_plain(col, secs, None, 0)
+    torch.cuda.synchronize()
+    check(bits_equal(g, w), "H15 config 8 latency: differs")
+    log(f"H13/H14/H15 at config 8's shapes (build {nb} rows, probe {n} rows, cap_m {cap}): "
+        "bit for bit")
+    log2 = max(nb, 1).bit_length()
+    records = {
+        "join_probe": record(
+            lambda: kernels.join_probe(sk, rkey),
+            lambda: segment.join_probe_plain(sk, rkey),
+            lambda: (torch.searchsorted(sk, rkey), torch.searchsorted(sk, rkey, right=True)),
+            # probe keys read, lo and fanout written; the build keys read once;
+            # two binary searches of log2(nb) + 1 compares a row
+            *bound(n * 12 + nb * 4, 2 * log2 * n), 0.0,
+            f"build keys[{nb}] probe keys[{n}]",
+        ),
+        "join_emit_pairs": record(
+            lambda: kernels.join_emit_pairs(lo, fanout, prefix, order, cap),
+            lambda: segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap),
+            None,  # repeat_interleave gives the probe rows, not the build rows
+            # lo, fanout, prefix read, the build order read once, M pairs written
+            *bound(n * 12 + nb * 4 + M * 8, M), 0.0,
+            f"probe rows[{n}] M {M} cap {cap}",
+        ),
+        "join_gather": record(
+            lambda: kernels.join_gather(col, secs, None, 0),
+            lambda: segment.join_gather_plain(col, secs, None, 0),
+            lambda: torch.index_select(col, 0, wp),
+            # the index read, the column read once, the output written
+            *bound(cap * 4 + n * 8 + cap * 8, 0), 0.0,
+            f"f64 column[{n}] matched section[{cap}]",
+        ),
+    }
+    # H12 over the row indices of the OUTER join's unmatched probe rows.
+    owned = [i for i in range(N_SERVICES) if i not in UNOWNED]
+    lkey = torch.tensor(owned + list(range(K, K + 4)) + [K + 4] * (nb - 18),
+                        dtype=torch.int32, device=dev)
+    rkey = torch.where(rkey <= K, rkey, K + 5)
+    _, fanout, _ = segment.join_probe(torch.sort(lkey, stable=True)[0], rkey)
+    rmask = torch.arange(n, device=dev) < n_real
+    unmatched = rmask & (fanout == 0)
+    UR = int(unmatched.sum())
+    cap_r = 1 << (UR - 1).bit_length()
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    got = segment.compact_unmatched_rows(unmatched, cap_r)
+    plain_out = torch.full((cap_r,), n, dtype=torch.int32, device=dev)
+    plain_w = torch.zeros(1, dtype=torch.int32, device=dev)
+    scan.compact_rows_plain(unmatched, [idx], plain_w, [plain_out], cap_r)
+    torch.cuda.synchronize()
+    check(torch.equal(got, plain_out), "H12 unmatched-row compaction: differs")
+    counters = fresh(lambda: torch.zeros(1, dtype=torch.int32, device=dev))
+    out = torch.full((cap_r,), n, dtype=torch.int32, device=dev)
+    h12 = record(
+        lambda: kernels.scan_compact(unmatched, [idx], counters(), [out], cap_r),
+        lambda: (plain_w.zero_(), scan.compact_rows_plain(unmatched, [idx], plain_w, [out], cap_r)),
+        lambda: torch.nonzero(unmatched),
+        # the mask read once, the unmatched rows' indices read and written
+        *bound(n + 8 * UR, n), 0.0,
+        f"mask[{n}] {UR} unmatched, cap_r {cap_r}",
+    )
+    log(f"H12 unmatched-row compaction at config 8 OUTER ({UR} of {n} probe rows, cap_r "
+        f"{cap_r}): bit for bit; ms {h12['ms']} plain_ms {h12['plain_ms']} library_ms "
+        f"(nonzero) {h12['library_ms']} bound_ms {h12['bound_ms']} ({h12['bound_by']})")
+    return records
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -1049,6 +1238,56 @@ def build_stacks_carnot(st: dict, n_rows: int, device: str):
     return carnot
 
 
+def join_fact(n_rows: int) -> dict:
+    """bench.py's join_fact generator (run_config_8, seed 46): a service
+    index per row, uniform over the 16 services, exponential(3e7) latency."""
+    rng = np.random.default_rng(46)
+    return {"svc_idx": rng.integers(0, N_SERVICES, n_rows, dtype=np.uint8),
+            "latency": rng.exponential(3e7, n_rows)}
+
+
+def build_join_carnot(jf: dict, n_rows: int, device: str):
+    """bench.py's config 8 tables (run_config_8): svc_owners (service i owned
+    by team-{i % 4}), svc_owners_partial (partial_owners(), row j owned by
+    team-{j % 4}) and join_fact (identity service codes, 16M-row chunks)."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    S = DataType.STRING
+    for name, svcs in (("svc_owners", SERVICES), ("svc_owners_partial", partial_owners())):
+        t = carnot.table_store.create_table(
+            name, Relation.of(("svc", S, SemanticType.ST_SERVICE_NAME), ("owner", S)))
+        t.write_pydict({
+            "svc": np.array(svcs, dtype=object),
+            "owner": np.array([f"team-{i % 4}" for i in range(len(svcs))], dtype=object),
+        })
+        t.compact()
+        t.stop()
+    rel = Relation.of(
+        ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
+        ("service", S, SemanticType.ST_SERVICE_NAME),
+        ("latency", DataType.FLOAT64, SemanticType.ST_DURATION_NS),
+    )
+    table = carnot.table_store.create_table("join_fact", rel, size_limit=1 << 42)
+    fd = table.dictionaries["service"]
+    for name in SERVICES:
+        fd.get_code(name)
+    for off in range(0, n_rows, 16_000_000):
+        sl = slice(off, min(off + 16_000_000, n_rows))
+        table.write_pydict({
+            "time_": np.arange(sl.start, sl.stop, dtype=np.int64) * 1000,
+            "service": DictColumn(jf["svc_idx"][sl].astype(np.int32), fd),
+            "latency": jf["latency"][sl],
+        })
+    table.compact()
+    table.stop()
+    check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "table expired rows")
+    return carnot
+
+
 def verify_http_data(result, hs: dict) -> None:
     """Config 1: the first 1000 rows with resp_status >= 400, in row order;
     time_, service and latency / 1e6 bit-equal to numpy's."""
@@ -1081,6 +1320,73 @@ def verify_flow_span(result, fl: dict) -> None:
     pair = np.array([pod(a) * N_PODS + pod(b) for a, b in zip(rows["src"], rows["dst"])])
     for key in ("bytes_sent_min", "bytes_sent_max", "bytes_recv_min", "bytes_recv_max"):
         check(np.array_equal(np.asarray(rows[key]), fl[key][pair]), f"flow_span: {key}")
+
+
+def joined(result) -> dict:
+    """The joined rows as numpy columns, strings as their index into the
+    names given to ``names_of`` (fast at 4M rows: no per-row decode)."""
+    from pixie_tpu_torch.table.row_batch import RowBatch
+
+    batch = RowBatch.concat([b for b in result.tables["joined"] if b.num_rows])
+    return {c.name: batch.col(c.name) for c in batch.relation}
+
+
+def name_index(col, names: list) -> np.ndarray:
+    """Each row's string as its index in ``names``: -1 for "" (an outer
+    join's null), -2 for a string not in ``names``."""
+    pos = {v: i for i, v in enumerate(names)}
+    lut = np.array([-1 if v == "" else pos.get(v, -2) for v in col.dictionary.values()]
+                   + [-2], dtype=np.int64)
+    return lut[col.codes]
+
+
+def f64_bits_equal(a, b) -> bool:
+    a, b = np.ascontiguousarray(a, np.float64), np.ascontiguousarray(b, np.float64)
+    return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
+
+
+def verify_join8(result, jf: dict) -> None:
+    """Config 8 (INNER, one match a fact row): exactly n rows, time_ and
+    latency the fact columns bit for bit in row order, svc == service ==
+    the fact row's service, owner == team-{i % 4}."""
+    cols = joined(result)
+    n = len(jf["svc_idx"])
+    idx = jf["svc_idx"].astype(np.int64)
+    check(len(cols["time_"]) == n, f"join8: {len(cols['time_'])} rows, expected {n}")
+    check(np.array_equal(cols["time_"], np.arange(n, dtype=np.int64) * 1000), "join8: time_")
+    check(f64_bits_equal(cols["latency"], jf["latency"]), "join8: latency")
+    check(np.array_equal(name_index(cols["svc"], SERVICES), idx), "join8: svc")
+    check(np.array_equal(name_index(cols["service"], SERVICES), idx), "join8: service")
+    check(np.array_equal(name_index(cols["owner"], [f"team-{i}" for i in range(4)]), idx % 4),
+          "join8: owner")
+
+
+def verify_join8_outer(result, jf: dict) -> None:
+    """The OUTER join to svc_owners_partial, in order: the owned fact rows in
+    row order with their owner; then the unowned fact rows in row order with
+    svc and owner ""; then the 4 ghost rows with time_ 0, service "" and
+    latency 0.0."""
+    cols = joined(result)
+    partial = partial_owners()
+    idx = jf["svc_idx"].astype(np.int64)
+    owned = ~np.isin(idx, UNOWNED)
+    rows = np.concatenate([np.flatnonzero(owned), np.flatnonzero(~owned)])
+    m, n = int(owned.sum()), len(idx)
+    ghosts = [partial.index(f"ghost-{j}") for j in range(4)]
+    pos = np.array([partial.index(s) if s in partial else -1 for s in SERVICES])
+    nulls = np.full(n - m, -1)
+    check(len(cols["time_"]) == n + 4, f"join8_outer: {len(cols['time_'])} rows, expected {n + 4}")
+    check(np.array_equal(cols["time_"], np.concatenate([rows * 1000, [0] * 4])),
+          "join8_outer: time_")
+    check(f64_bits_equal(cols["latency"], np.concatenate([jf["latency"][rows], [0.0] * 4])),
+          "join8_outer: latency")
+    check(np.array_equal(name_index(cols["service"], SERVICES),
+                         np.concatenate([idx[rows], [-1] * 4])), "join8_outer: service")
+    check(np.array_equal(name_index(cols["svc"], partial),
+                         np.concatenate([pos[idx[owned]], nulls, ghosts])), "join8_outer: svc")
+    check(np.array_equal(name_index(cols["owner"], [f"team-{i}" for i in range(4)]),
+                         np.concatenate([pos[idx[owned]] % 4, nulls, np.array(ghosts) % 4])),
+          "join8_outer: owner")
 
 
 def verify(result, data: dict, n_rows: int) -> None:
@@ -1172,7 +1478,8 @@ def quantiles_close(got: list, want: list, what: str) -> float:
 def slice_parity(n_rows: int) -> None:
     """The kernel path against the plain path end to end, for the three
     queries of the earlier slices and the flows min/max, config 1 and config
-    4 plain and filtered (any() through H11)."""
+    4 plain and filtered (any() through H11), and config 8's join and its
+    LEFT, RIGHT and OUTER variants over svc_owners and svc_owners_partial."""
     from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
 
     data = http_events(n_rows)
@@ -1223,6 +1530,20 @@ def slice_parity(n_rows: int) -> None:
         check(got == want and len(got["stack_trace_id"]) == N_STACKS, "flamegraph: cuda vs cpu")
     log(f"slice parity at {n_rows} rows: flow_span, http_data and flamegraph (plain and "
         "filtered) kernel path == plain path, every column")
+    jf = join_fact(n_rows)
+    join_cuda, join_cpu = build_join_carnot(jf, n_rows, "cuda"), build_join_carnot(jf, n_rows, "cpu")
+    for how in ("inner", "left", "right", "outer"):
+        for query in (JOIN8.replace("how='inner'", f"how='{how}'"),
+                      JOIN8_OUTER.replace("how='outer'", f"how='{how}'")):
+            got, want = joined(join_cuda.execute_query(query)), joined(join_cpu.execute_query(query))
+            check(got.keys() == want.keys(), f"join {how}: columns")
+            for k in got:
+                a, b = got[k], want[k]
+                same = (np.array_equal(a.decode(), b.decode()) if hasattr(a, "decode")
+                        else np.array_equal(np.asarray(a).view(np.uint8), np.asarray(b).view(np.uint8)))
+                check(same, f"join {how} {k}: cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: joins INNER, LEFT, RIGHT and OUTER to svc_owners and "
+        "svc_owners_partial, kernel path == plain path, every column and row order")
 
 
 def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
@@ -1296,6 +1617,7 @@ def main() -> int:
     records.update(sketch_kernel_phases(dev))
     records.update(minmax_kernel_phase(dev))
     records.update(scan_kernel_phase(dev))
+    records.update(join_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -1372,9 +1694,29 @@ def main() -> int:
     )
     phase_s["flamegraph"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    jf = join_fact(JOIN_ROWS)
+    join_carnot = build_join_carnot(jf, JOIN_ROWS, "cuda")
+    log(f"join_fact: {JOIN_ROWS} rows generated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    phase_s["join_tables"] = time.perf_counter() - t0
+    join_kernels = ("join_probe", "join_emit_pairs", "join_gather")
+    for name, query, verify_fn, expect in (
+        ("join8", JOIN8, verify_join8, join_kernels),
+        ("join8_outer", JOIN8_OUTER, verify_join8_outer, join_kernels + ("scan_compact",)),
+    ):
+        t0 = time.perf_counter()
+        segment.reduce_lanes(reset=True)
+        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, jf), expect)
+        lanes = segment.reduce_lanes(reset=True)
+        check(lanes.get("join_sort_merge") == 1 + WARM_QUERIES,
+              f"{name}: lanes {lanes}, expected join_sort_merge on every query")
+        phase_s[name] = time.perf_counter() - t0
+
     n_queries = 1 + WARM_QUERIES
     rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS,
-               "flow_span": FLOW_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS}
+               "flow_span": FLOW_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS,
+               "join8": JOIN_ROWS, "join8_outer": JOIN_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
         log(f"{name} cold {p['cold']:.3f} s "
@@ -1395,6 +1737,8 @@ def main() -> int:
         profile_warm(flows, FLOW_SPAN, min(paths["flow_span"]["warm"]))
         profile_warm(small, HTTP_DATA, min(paths["http_data"]["warm"]))
         profile_warm(stack_carnot, FLAMEGRAPH, min(paths["flamegraph"]["warm"]))
+        profile_warm(join_carnot, JOIN8, min(paths["join8"]["warm"]))
+        profile_warm(join_carnot, JOIN8_OUTER, min(paths["join8_outer"]["warm"]))
 
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

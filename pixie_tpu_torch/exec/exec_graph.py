@@ -8,9 +8,10 @@ depth-first through ConsumeNext; when no source can progress the loop yields
 with a timeout (waiting on bridge data or table activity); limits abort
 sources via exec_state.
 
-The port's host engine has no AggNode or EquijoinNode yet: a fragment whose
-aggregation the DeviceExecutor did not take, or any join, raises
-NotImplementedError here instead of running.
+The port's host engine has no AggNode yet: a fragment whose aggregation the
+DeviceExecutor did not take raises NotImplementedError here instead of
+running. Joins run on the EquijoinNode (exec/join_node.py) when the
+DeviceExecutor's sort-merge lane does not take them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import time
 from typing import Callable, Optional
 
 from pixie_tpu_torch.exec.exec_node import ExecNode
+from pixie_tpu_torch.exec.join_node import EquijoinNode
 from pixie_tpu_torch.exec.nodes import (
     BridgeSinkNode,
     BridgeSourceNode,
@@ -69,7 +71,6 @@ define_flag(
 # Operators whose host exec node is not ported yet.
 _NOT_PORTED = {
     AggOp: "AggOp on the host engine is not ported yet",
-    JoinOp: "JoinOp on the host engine is not ported yet",
 }
 
 _NODE_TYPES = {
@@ -82,6 +83,7 @@ _NODE_TYPES = {
     FilterOp: FilterNode,
     LimitOp: LimitNode,
     UnionOp: UnionNode,
+    JoinOp: EquijoinNode,
     MemorySinkOp: MemorySinkNode,
     ResultSinkOp: ResultSinkNode,
     BridgeSinkOp: BridgeSinkNode,
@@ -118,6 +120,10 @@ class ExecutionGraph:
             # Resolve input relations for expression-bearing nodes.
             if isinstance(node, (MapNode, FilterNode)):
                 node.set_input_relation(relations[parents[0]], st.registry)
+            elif isinstance(node, EquijoinNode):
+                node.set_input_relations(
+                    relations[parents[0]], relations[parents[1]]
+                )
             self.nodes[nid] = node
             if node.is_source:
                 self.sources.append(node)

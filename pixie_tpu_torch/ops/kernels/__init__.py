@@ -3,8 +3,9 @@
 ``hopper_kernels.cu`` holds the CUDA C++ kernels of the sum and
 log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
 (the hash kernel and H5-H10), ``minmax_kernels.cu`` the segment min/max
-(H11) and ``scan_kernels.cu`` the scan's stream compaction (H12); see each
-file's header. At the first launch, ``library()`` compiles them with
+(H11), ``scan_kernels.cu`` the scan's stream compaction (H12) and
+``join_kernels.cu`` the sort-merge join's probe, pair emission and gathers
+(H13-H15); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -51,13 +52,19 @@ KERNELS = (
     "hll_estimate",
     "segment_minmax",
     "scan_compact",
+    "join_probe",
+    "join_emit_pairs",
+    "join_gather",
 )
 
 # Launch counts per kernel since the last reset_launches().
 LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu")
+SOURCES = (
+    "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
+    "join_kernels.cu",
+)
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -87,6 +94,9 @@ _SIGNATURES = {
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
     "px_segment_minmax": (_P, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
     "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P),
+    "px_join_probe": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
+    "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
+    "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -606,3 +616,113 @@ def scan_compact(
         (ctypes.c_int * k)(*[_SCAN_WIDE[c.dtype] for c in cols]),
         k, written.data_ptr(), limit, scratch.data_ptr(),
     )
+
+
+# ---------------------------------------------------------------- join
+def _int32_1d(t: torch.Tensor, name: str, device) -> int:
+    _require(t, name, torch.int32, device, 1)
+    return t.shape[0]
+
+
+def join_probe(
+    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """H13: (lo, fanout, present) — each probe key's lower bound in the
+    ascending int32 build keys ``sorted_keys`` and its count of equal keys
+    (int32 [n] each); with ``present_size`` > 0 also a bool presence array
+    [present_size] whose entry k is True iff some probe key equals k (else
+    None)."""
+    device = keys.device
+    nb = _int32_1d(sorted_keys, "sorted_keys", device)
+    n = _int32_1d(keys, "keys", device)
+    if nb >= 2**31 or present_size < 0 or present_size >= 2**31:
+        raise ValueError("join_probe: build rows and presence size must fit int32")
+    lo = torch.empty(n, dtype=torch.int32, device=device)
+    fanout = torch.empty(n, dtype=torch.int32, device=device)
+    present = (
+        torch.zeros(present_size, dtype=torch.bool, device=device) if present_size else None
+    )
+    if n == 0:
+        return lo, fanout, present
+    _launch(
+        "join_probe", device,
+        sorted_keys.data_ptr(), nb, keys.data_ptr(), n, lo.data_ptr(), fanout.data_ptr(),
+        present.data_ptr() if present is not None else None, present_size,
+    )
+    return lo, fanout, present
+
+
+def join_emit_pairs(
+    lo: torch.Tensor, fanout: torch.Tensor, prefix: torch.Tensor, order: torch.Tensor,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """H14: (build_rows, probe_rows), int32 [cap] — probe row p's pairs at
+    slots prefix[p] - fanout[p] + j (j < fanout[p], slot < cap), build row
+    ``order[lo[p] + j]`` (the position clamped into ``order``). ``prefix`` is
+    the inclusive int32 prefix sum of ``fanout``. Slots at or past the match
+    count are left unwritten."""
+    device = lo.device
+    n = _int32_1d(lo, "lo", device)
+    for t, name in ((fanout, "fanout"), (prefix, "prefix")):
+        if _int32_1d(t, name, device) != n:
+            raise ValueError(f"{name} has {t.shape[0]} rows, expected {n}")
+    nb = _int32_1d(order, "order", device)
+    if not 0 <= cap < 2**31:
+        raise ValueError(f"join_emit_pairs: cap {cap} must fit int32")
+    build_rows = torch.empty(cap, dtype=torch.int32, device=device)
+    probe_rows = torch.empty(cap, dtype=torch.int32, device=device)
+    if n == 0 or cap == 0 or nb == 0:
+        return build_rows, probe_rows
+    _launch(
+        "join_emit_pairs", device,
+        lo.data_ptr(), fanout.data_ptr(), prefix.data_ptr(), n, order.data_ptr(), nb, cap,
+        build_rows.data_ptr(), probe_rows.data_ptr(),
+    )
+    return build_rows, probe_rows
+
+
+# Source dtypes H15 reads as unsigned (uint8, uint16) or signed (int32,
+# int64) integers when it widens a narrowed column.
+_GATHER_WIDEN = {torch.uint8, torch.uint16, torch.int32, torch.int64}
+
+
+def join_gather(
+    col: torch.Tensor, sections: list, offset: Optional[int], null_value,
+) -> torch.Tensor:
+    """H15: one output column of the join, the concatenation of its
+    sections. ``sections`` is three (index or None, rows) pairs, the matched
+    pairs, the unmatched probe rows and the unmatched build rows (rows 0
+    skips a section): a section with an int32 index reads
+    ``col[clamp(index, 0, len(col) - 1)]``, one without holds
+    ``null_value``. With ``offset`` (a narrowed int column) the rows are
+    widened to int64 and the offset added; otherwise they keep ``col``'s
+    dtype, bit for bit."""
+    device = col.device
+    if col.dim() != 1 or not col.is_contiguous():
+        raise ValueError("join_gather: col must be 1-d and contiguous")
+    if len(sections) != 3:
+        raise ValueError("join_gather takes three sections")
+    if offset is not None and col.dtype not in _GATHER_WIDEN:
+        raise TypeError(f"join_gather: a {col.dtype} column cannot be widened")
+    if col.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"join_gather: {col.dtype} is not a 1, 2, 4 or 8-byte type")
+    args, total = [], 0
+    for i, (idx, rows) in enumerate(sections):
+        if idx is not None and _int32_1d(idx, f"index {i}", device) < rows:
+            raise ValueError(f"index {i} has {idx.shape[0]} rows, expected {rows} or more")
+        args += [idx.data_ptr() if idx is not None and rows else None, rows]
+        total += rows
+    widen = offset is not None
+    out_dtype = torch.int64 if widen else col.dtype
+    out = torch.empty(total, dtype=out_dtype, device=device)
+    if total == 0:
+        return out
+    null_bits = torch.tensor([null_value], dtype=out_dtype).view(
+        {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[out.element_size()]
+    )
+    _launch(
+        "join_gather", device,
+        col.data_ptr(), col.shape[0], col.element_size(), int(widen), int(offset or 0),
+        *args, int(null_bits[0]), out.data_ptr(),
+    )
+    return out

@@ -7,8 +7,9 @@ limbs exist only to keep the TPU's slow scatter unit off the hot path.
 
 Each function takes its device from its tensors: on a CUDA tensor it
 launches the hand kernel of ``ops/kernels`` (H1 for integer sums and counts,
-H2 for f64 sums, H11 for min and max), on a CPU tensor it runs the plain
-PyTorch version beside it. The plain versions are the ones the CPU tests
+H2 for f64 sums, H11 for min and max; H13-H15 and H12 for the sort-merge
+join's primitives at the end), on a CPU tensor it runs the plain PyTorch
+version beside it. The plain versions are the ones the CPU tests
 hold against the reference, and chip_smoke.py holds the kernels against
 them on the card.
 """
@@ -19,7 +20,24 @@ from typing import Optional, Sequence
 
 import torch
 
-from pixie_tpu_torch.ops import kernels
+from pixie_tpu_torch.ops import kernels, scan
+
+# Which device lanes ran, by name, since the last reduce_lanes(reset=True).
+# The reference counts a lane once per compiled program; the port builds no
+# programs, so it counts each run of the lane (``join_sort_merge``: once per
+# device join).
+LANE_COUNTS: dict[str, int] = {}
+
+
+def lane_count(name: str) -> None:
+    LANE_COUNTS[name] = LANE_COUNTS.get(name, 0) + 1
+
+
+def reduce_lanes(reset: bool = False) -> dict:
+    snap = dict(LANE_COUNTS)
+    if reset:
+        LANE_COUNTS.clear()
+    return snap
 
 
 def _valid(seg_ids: torch.Tensor, num_segments: int, mask: Optional[torch.Tensor]):
@@ -228,3 +246,157 @@ def flat_segment_ids(
 ) -> torch.Tensor:
     """(group, bucket) -> flat segment id gids * inner_size + inner, int32."""
     return gids.to(torch.int32) * inner_size + inner_ids.to(torch.int32)
+
+
+# -- sort-merge join primitives (pixie_tpu/ops/segment.py:497-590) -----------
+# A stable sort orders the build keys (torch.sort, a library primitive), H13
+# probes each probe key into them, a cumsum of the fanouts gives each probe
+# row its first pair slot, H14 writes the pairs, and H12 compacts the
+# unmatched row indices of the outer variants. Keys are int32 ids of one
+# shared key space; padded build rows carry the sentinel K and padded probe
+# rows K + 1, so neither pairs.
+
+
+def join_probe_plain(
+    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of H13: (lo, fanout, present) — the left searchsorted of
+    each probe key, its count of equal build keys, and (``present_size`` >
+    0) whether each key id in [0, present_size) occurs among the probe
+    keys."""
+    lo = torch.searchsorted(sorted_keys, keys, side="left").to(torch.int32)
+    hi = torch.searchsorted(sorted_keys, keys, side="right").to(torch.int32)
+    present = None
+    if present_size:
+        present = torch.zeros(present_size, dtype=torch.bool, device=keys.device)
+        inside = (keys >= 0) & (keys < present_size)
+        present[keys[inside].long()] = True
+    return lo, hi - lo, present
+
+
+def join_probe(
+    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0
+) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """H13 on CUDA, ``join_probe_plain`` on the CPU."""
+    if keys.is_cuda:
+        return kernels.join_probe(sorted_keys.contiguous(), keys.contiguous(), present_size)
+    return join_probe_plain(sorted_keys, keys, present_size)
+
+
+def join_emit_pairs_plain(
+    lo: torch.Tensor, fanout: torch.Tensor, prefix: torch.Tensor, order: torch.Tensor,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of H14, the reference's formulation: slot t belongs to
+    the first probe row whose inclusive prefix exceeds t (clamped to the last
+    row), at build position lo + (t - its first slot), clamped into
+    ``order``. Every slot is filled; those past the match count hold what
+    the clamps give, as the reference's do."""
+    n, nb = lo.shape[0], order.shape[0]
+    t = torch.arange(cap, dtype=torch.int32, device=lo.device)
+    probe_rows = torch.clamp(
+        torch.searchsorted(prefix, t, side="right").to(torch.int32), max=n - 1
+    )
+    pr = probe_rows.long()
+    base = prefix[pr] - fanout[pr]
+    build_pos = torch.clamp(lo[pr] + (t - base), 0, nb - 1)
+    return order[build_pos.long()], probe_rows
+
+
+def join_emit_pairs(
+    lo: torch.Tensor, fanout: torch.Tensor, prefix: torch.Tensor, order: torch.Tensor,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(build_rows, probe_rows), int32 [cap], probe-row-major; only the slots
+    below the match count are defined. H14 on CUDA."""
+    if lo.is_cuda:
+        return kernels.join_emit_pairs(lo, fanout, prefix, order, cap)
+    return join_emit_pairs_plain(lo, fanout, prefix, order, cap)
+
+
+def merge_join_pairs(
+    sorted_build_keys: torch.Tensor, build_order: torch.Tensor, probe_keys: torch.Tensor,
+    pair_cap: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Up to ``pair_cap`` (build_row, probe_row) pairs of an equijoin between
+    the SORTED build keys (``build_order`` = each sorted position's build
+    row, from one stable sort) and the probe keys: probe row p's pairs
+    occupy slots [prefix[p] - fanout[p], prefix[p]), its build rows in
+    sorted order. Returns (build_rows, probe_rows, valid, fanout), int32
+    but the bool ``valid`` (slot < match count); slots past the count are
+    undefined. Callers guarantee the match count fits int32."""
+    lo, fanout, _ = join_probe(sorted_build_keys, probe_keys)
+    prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
+    build_rows, probe_rows = join_emit_pairs(lo, fanout, prefix, build_order, pair_cap)
+    total = prefix[-1] if prefix.numel() else torch.zeros((), dtype=torch.int32)
+    valid = torch.arange(pair_cap, device=probe_keys.device) < total
+    return build_rows, probe_rows, valid, fanout
+
+
+def compact_unmatched_rows(unmatched: torch.Tensor, cap: int) -> torch.Tensor:
+    """The indices of the ``unmatched`` rows in row order, int32 [cap];
+    entries past their count are ``n`` (padding), as the reference's
+    sentinel sort gives. The compaction is H12 on CUDA, over an int32
+    row-index column."""
+    n = unmatched.shape[0]
+    out = torch.full((cap,), n, dtype=torch.int32, device=unmatched.device)
+    if cap and n:
+        written = torch.zeros(1, dtype=torch.int32, device=unmatched.device)
+        idx = torch.arange(n, dtype=torch.int32, device=unmatched.device)
+        scan.compact_rows(unmatched.contiguous(), [idx], written, [out], cap)
+    return out
+
+
+def local_sort_merge(
+    lkey: torch.Tensor, rkey: torch.Tensor, lmask: torch.Tensor, rmask: torch.Tensor,
+    cap_m: int, cap_r: int, cap_l: int, num_keys: int,
+):
+    """The sort -> merge -> compact core of the join lane over sentinel-
+    applied int32 keys of ``num_keys`` real ids (build padding ``num_keys``,
+    probe padding ``num_keys + 1``). Returns (build_rows, probe_rows, fanout,
+    ur, ul): the pairs, each probe row's match count, and the compacted
+    unmatched probe rows (cap_r) and build rows (cap_l), None where the cap
+    is 0. A build row is matched iff its key occurs among the probe keys:
+    H13's presence array over [0, num_keys + 2)."""
+    sorted_keys, order = torch.sort(lkey, stable=True)
+    order = order.to(torch.int32)
+    lo, fanout, present = join_probe(sorted_keys, rkey, num_keys + 2 if cap_l else 0)
+    prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
+    build_rows, probe_rows = join_emit_pairs(lo, fanout, prefix, order, cap_m)
+    ur = compact_unmatched_rows(rmask & (fanout == 0), cap_r) if cap_r else None
+    ul = None
+    if cap_l:
+        ul = compact_unmatched_rows(lmask & ~present[lkey.long()], cap_l)
+    return build_rows, probe_rows, fanout, ur, ul
+
+
+def join_gather_plain(
+    col: torch.Tensor, sections: list, offset: Optional[int], null_value,
+) -> torch.Tensor:
+    """Plain version of H15: each (index or None, rows) section of the
+    output, an index section gathering ``col`` at the clamped index (widened
+    to int64 plus ``offset`` for a narrowed column), an index-less one
+    ``null_value``; concatenated."""
+    src = col.to(torch.int64) if offset is not None else col
+    parts = []
+    for idx, rows in sections:
+        if not rows:
+            continue
+        if idx is None:
+            parts.append(torch.full((rows,), null_value, dtype=src.dtype, device=col.device))
+            continue
+        g = src[torch.clamp(idx[:rows].long(), 0, col.shape[0] - 1)]
+        parts.append(g + offset if offset is not None else g)
+    if not parts:
+        return torch.empty(0, dtype=src.dtype, device=col.device)
+    return torch.cat(parts)
+
+
+def join_gather(
+    col: torch.Tensor, sections: list, offset: Optional[int], null_value,
+) -> torch.Tensor:
+    """One join output column from its three sections (matched, unmatched
+    probe, unmatched build). H15 on CUDA."""
+    if col.is_cuda:
+        return kernels.join_gather(col.contiguous(), sections, offset, null_value)
+    return join_gather_plain(col, sections, offset, null_value)

@@ -31,10 +31,24 @@ takes the device scan (``_try_execute_scan``): per block the predicates and
 projections as torch ops, then the stable compaction H12 appends the
 selected rows to the output buffers until ``limit`` rows are written.
 
+A fragment with no aggregate whose one join walks to two distinct tables,
+
+    MemorySource -> (Map | Filter)* -> Join(INNER | LEFT | RIGHT | OUTER) -> [suffix]
+    MemorySource -> (Map | Filter)* ---^
+
+takes the device sort-merge join (``_try_execute_join``, tried before the
+scan as the reference tries it): both sides' keys densify on the host into
+one id space, both sides stage with those ids as their gids, and
+``ops/segment.local_sort_merge`` (a stable ``torch.sort``, H13, H14, H12)
+and H15 build every output column on the device; the suffix runs on the host
+graph against the result. A join the lane declines (the reference's gates,
+and pre-join predicates, which the port does not push down yet) runs on the
+host EquijoinNode with the same result.
+
 A fragment outside those shapes — windowed or PARTIAL aggregation, string-hash
-UDA args, joins — returns None and reaches the host exec graph, which raises
-NotImplementedError for an aggregation or a join: the port has no host
-AggNode and no fallback. Errors raise; nothing is caught and sent elsewhere.
+UDA args — returns None and reaches the host exec graph, which raises
+NotImplementedError for an aggregation: the port has no host AggNode and no
+fallback. Errors raise; nothing is caught and sent elsewhere.
 """
 
 from __future__ import annotations
@@ -68,6 +82,8 @@ from pixie_tpu_torch.plan.operators import (
     AggOp,
     AggStage,
     FilterOp,
+    JoinOp,
+    JoinType,
     LimitOp,
     MapOp,
     MemorySourceOp,
@@ -208,6 +224,111 @@ def match_scan_fragment(fragment: PlanFragment, relations) -> Optional[_ScanMatc
     return None
 
 
+def _chain_to_source(fragment, start_nid, relations):
+    """Walk (Map|Filter)* up to a non-streaming MemorySource; returns
+    (source_nid, mapping, preds, relation) or None
+    (pixie_tpu/parallel/pipeline.py:742)."""
+    chain = []
+    cur = start_nid
+    while True:
+        op = fragment.node(cur)
+        if isinstance(op, MemorySourceOp):
+            if op.streaming:
+                return None
+            source_nid = cur
+            break
+        if not isinstance(op, (MapOp, FilterOp)):
+            return None
+        if len(fragment.children(cur)) != 1:
+            return None
+        chain.append(op)
+        parents = fragment.parents(cur)
+        if len(parents) != 1:
+            return None
+        cur = parents[0]
+    chain.reverse()
+    rel = relations[source_nid]
+    mapping = {c.name: ColumnRef(c.name) for c in rel}
+    preds = []
+    for op in chain:
+        if isinstance(op, FilterOp):
+            preds.append(substitute(op.expr, mapping))
+        else:
+            mapping = {n: substitute(e, mapping) for n, e in op.exprs}
+    return source_nid, mapping, preds, rel
+
+
+@dataclasses.dataclass
+class _JoinMatch:
+    """Source -> (Map|Filter)* -> Join <- (Map|Filter)* <- Source, then a host
+    suffix (pixie_tpu/parallel/pipeline.py:908): the pairs are materialized
+    on the device and whatever follows the join runs on the host against the
+    spliced batch."""
+
+    join_nid: int
+    left_source_op: MemorySourceOp
+    right_source_op: MemorySourceOp
+    join_op: JoinOp
+    left_exprs: dict  # left source-term mapping (pre-join chain)
+    right_exprs: dict
+    left_preds: list  # pre-join predicates, left source terms
+    right_preds: list
+    left_key_exprs: list  # join keys in left source terms
+    right_key_exprs: list
+    left_relation: Any
+    right_relation: Any
+    out_relation: Any  # join output, in output_columns order
+
+
+def match_join(fragment: PlanFragment, relations) -> Optional[_JoinMatch]:
+    """Match a standalone equijoin whose inputs walk to two DISTINCT
+    non-streaming sources (pixie_tpu/parallel/pipeline.py:933). All four
+    join types qualify; a RIGHT or OUTER join under a Limit does not (its
+    unmatched probe rows come after every match here, where the host node
+    interleaves them per probe batch, and a Limit keeps the first rows)."""
+    join_nid = None
+    for nid in fragment.topo_order():
+        if isinstance(fragment.node(nid), JoinOp):
+            if join_nid is not None:
+                return None  # multi-join plans: the host engine's
+            join_nid = nid
+    if join_nid is None:
+        return None
+    join_op: JoinOp = fragment.node(join_nid)
+    if not join_op.left_on:
+        return None
+    parents = fragment.parents(join_nid)
+    if len(parents) != 2:
+        return None
+    left = _chain_to_source(fragment, parents[0], relations)
+    right = _chain_to_source(fragment, parents[1], relations)
+    if left is None or right is None:
+        return None
+    lsrc, lmap, lpreds, lrel = left
+    rsrc, rmap, rpreds, rrel = right
+    if lsrc == rsrc:
+        return None  # self-join over one cursor: the host engine's
+    if join_op.how in (JoinType.RIGHT, JoinType.OUTER):
+        for nid in fragment.topo_order():
+            if isinstance(fragment.node(nid), LimitOp):
+                return None
+    return _JoinMatch(
+        join_nid=join_nid,
+        left_source_op=fragment.node(lsrc),
+        right_source_op=fragment.node(rsrc),
+        join_op=join_op,
+        left_exprs=lmap,
+        right_exprs=rmap,
+        left_preds=lpreds,
+        right_preds=rpreds,
+        left_key_exprs=[substitute(ColumnRef(k), lmap) for k in join_op.left_on],
+        right_key_exprs=[substitute(ColumnRef(k), rmap) for k in join_op.right_on],
+        left_relation=lrel,
+        right_relation=rrel,
+        out_relation=relations[join_nid],
+    )
+
+
 @dataclasses.dataclass
 class _KeyPlan:
     """How gids materialize: ``device_expr`` evaluated per block on the
@@ -324,11 +445,16 @@ class DeviceExecutor:
         relations = fragment.resolve_relations(registry, table_rel)
         m = match_fragment(fragment, relations)
         if m is None:
-            # No aggregate: the bounded scan (the reference tries its join
-            # lanes first; joins are not ported and raise in the host graph).
-            out = self._try_execute_scan(
+            # No aggregate: the standalone join lane first, then the bounded
+            # scan, as the reference orders them (its join-aggregate lane,
+            # tried before both, is not ported).
+            out = self._try_execute_join(
                 fragment, relations, table_store, registry, func_ctx
             )
+            if out is None:
+                out = self._try_execute_scan(
+                    fragment, relations, table_store, registry, func_ctx
+                )
             if out is not None:
                 self.last_fold_ms = (time.perf_counter() - t0) * 1e3
             return out
@@ -467,6 +593,189 @@ class DeviceExecutor:
             probe.record()
         w = int(written[0])
         return _fetch([b[:w] for b in bufs])
+
+    # -- the standalone join (sort-merge lane) ---------------------------------
+    def _try_execute_join(
+        self, fragment, relations, table_store, registry, func_ctx
+    ) -> Optional[tuple[int, RowBatch]]:
+        """(join node id, the joined rows) for a standalone equijoin, else
+        None (pixie_tpu/parallel/pipeline.py:2881, its replicated one-device
+        path). The gates are the reference's: the ``device_join`` flag, a
+        matched shape, bare-column keys and outputs, a dictionary for every
+        STRING output, two non-empty sides of ``device_join_min_rows`` rows or
+        more together, at most 2^22 key ids, and at most
+        ``device_join_max_out`` output rows. Two more are the port's: a side
+        with a pre-join predicate (the reference pushes predicates down
+        through its predicate normalizer, not ported yet) and a UINT128 key or
+        output (staging has no 128-bit lane) decline too. A declined join runs
+        on the host EquijoinNode with the same result."""
+        if not flags.device_join:
+            return None
+        m = match_join(fragment, relations)
+        if m is None or m.left_preds or m.right_preds:
+            return None
+        lt = table_store.get_table(m.left_source_op.table_name)
+        rt = table_store.get_table(m.right_source_op.table_name)
+        if lt is None or rt is None:
+            return None
+        if not all(isinstance(e, ColumnRef) for e in m.left_key_exprs + m.right_key_exprs):
+            return None
+        out_plan = []  # [(side, source column, out name, DataType)]
+        for side, in_col, out_name in m.join_op.output_columns:
+            e = substitute(ColumnRef(in_col), m.left_exprs if side == 0 else m.right_exprs)
+            if not isinstance(e, ColumnRef):
+                return None
+            dt = m.out_relation.col(out_name).data_type
+            if dt == DataType.UINT128:
+                return None
+            if dt == DataType.STRING and (lt if side == 0 else rt).dictionaries.get(e.name) is None:
+                return None
+            out_plan.append((side, e.name, out_name, dt))
+        key_types = [m.left_relation.col(e.name).data_type for e in m.left_key_exprs]
+        key_types += [m.right_relation.col(e.name).data_type for e in m.right_key_exprs]
+        if DataType.UINT128 in key_types:
+            return None
+        with timed("read_columns"):
+            lcols, nl = read_columns(
+                lt, sorted({e.name for e in m.left_key_exprs}),
+                m.left_source_op.start_time, m.left_source_op.stop_time,
+            )
+            rcols, nr = read_columns(
+                rt, sorted({e.name for e in m.right_key_exprs}),
+                m.right_source_op.start_time, m.right_source_op.stop_time,
+            )
+        if nl == 0 or nr == 0 or nl + nr < flags.device_join_min_rows:
+            return None  # a trivial side or a small join: the host node's
+        with timed("key_plan"):
+            kl, kr, K = self._join_key_ids(m, lt, rt, lcols, rcols)
+        if kl is None or K > (1 << 22):
+            return None
+        # Exact output counts from host bincounts: they size the sections and
+        # slice the result.
+        count_l = np.bincount(kl, minlength=K).astype(np.int64)
+        count_r = np.bincount(kr, minlength=K).astype(np.int64)
+        how = m.join_op.how
+        probe_outer = how in (JoinType.RIGHT, JoinType.OUTER)
+        build_outer = how in (JoinType.LEFT, JoinType.OUTER)
+        M = int((count_l * count_r).sum())
+        UR = int(count_r[count_l == 0].sum()) if probe_outer else 0
+        UL = int(count_l[count_r == 0].sum()) if build_outer else 0
+        if M + UR + UL > flags.device_join_max_out:
+            return None
+        cap_m = _pow2_at_least(max(M, 1))
+        cap_r = _pow2_at_least(max(UR, 1)) if probe_outer else 0
+        cap_l = _pow2_at_least(max(UL, 1)) if build_outer else 0
+        # Both sides' staging identity pins the WHOLE key space: left keys
+        # encode first, so a write to either table changes both sides' ids.
+        key_space_sig = repr((
+            m.left_source_op.table_name, (lt.min_row_id(), lt.end_row_id()),
+            m.right_source_op.table_name, (rt.min_row_id(), rt.end_row_id()),
+            repr(m.left_key_exprs) + repr(m.right_key_exprs),
+            m.left_source_op.start_time, m.left_source_op.stop_time,
+            m.right_source_op.start_time, m.right_source_op.stop_time,
+        ))
+        # A side with no output column still needs its mask and ids on the
+        # device: it stages its first key column.
+        cols_l = {src for side, src, _, _ in out_plan if side == 0} or {m.left_key_exprs[0].name}
+        cols_r = {src for side, src, _, _ in out_plan if side == 1} or {m.right_key_exprs[0].name}
+        staged_l = self._stage_cached(
+            lt, m.left_source_op, cols_l, ":joindevL:" + key_space_sig, K, gids=kl
+        )
+        staged_r = self._stage_cached(
+            rt, m.right_source_op, cols_r, ":joindevR:" + key_space_sig, K, gids=kr
+        )
+        if staged_l.num_rows != nl or staged_r.num_rows != nr:
+            return None  # a table moved between the key read and the staging
+        with timed("fold"):
+            batch = self._run_device_join(
+                m, lt, rt, staged_l, staged_r, out_plan, (M, UR, UL), (cap_m, cap_r, cap_l), K
+            )
+        return m.join_nid, batch
+
+    @staticmethod
+    def _join_key_ids(m: _JoinMatch, lt, rt, lcols: dict, rcols: dict):
+        """(left ids, right ids, K): both sides' join keys densified into one
+        id space by one GroupEncoder, left first, so right-only keys get ids
+        the left never uses; string keys align through one shared
+        StringDictionary first (pixie_tpu/parallel/pipeline.py:3012-3048).
+        (None, None, 0) when a string key lacks a dictionary or meets a
+        non-string key."""
+        lkeys, rkeys = [], []
+        for le, re_ in zip(m.left_key_exprs, m.right_key_exprs):
+            la, ra = lcols[le.name], rcols[re_.name]
+            lt_dt = m.left_relation.col(le.name).data_type
+            rt_dt = m.right_relation.col(re_.name).data_type
+            if DataType.STRING in (lt_dt, rt_dt):
+                dl, dr = lt.dictionaries.get(le.name), rt.dictionaries.get(re_.name)
+                if lt_dt != rt_dt or dl is None or dr is None:
+                    return None, None, 0
+                shared = StringDictionary()
+                lut_l = shared.encode(np.asarray(list(dl.values()), dtype=object))
+                lut_r = shared.encode(np.asarray(list(dr.values()), dtype=object))
+                la = lut_l[la] if len(lut_l) else la
+                ra = lut_r[ra] if len(lut_r) else ra
+            lkeys.append(np.asarray(la))
+            rkeys.append(np.asarray(ra))
+        enc = GroupEncoder()
+        kl = enc.encode(lkeys)
+        kr = enc.encode(rkeys)
+        return kl, kr, max(enc.num_groups, 1)
+
+    def _run_device_join(
+        self, m: _JoinMatch, lt, rt, staged_l, staged_r, out_plan, counts, caps, K
+    ) -> RowBatch:
+        """The join on the device (pixie_tpu/parallel/pipeline.py:3209):
+        padded build rows take key K and padded probe rows K + 1, so neither
+        pairs; ``local_sort_merge`` gives the pairs and the compacted
+        unmatched rows, and H15 builds each output column as three sections
+        [matched cap_m | unmatched probe cap_r | unmatched build cap_l]. The
+        first M, UR and UL rows of the sections come back in ONE device ->
+        host copy. Null rows carry the host node's type defaults: code -1 for
+        STRING (the code of "" in a copy of the dictionary), 0 or False
+        otherwise. Pairs are probe-row-major with each key's build rows in
+        their original order, then the unmatched probe rows, then the
+        unmatched build rows, each in row order."""
+        M, UR, UL = counts
+        cap_m, cap_r, cap_l = caps
+        segment.lane_count("join_sort_merge")
+        lmask = staged_l.mask.reshape(-1)
+        rmask = staged_r.mask.reshape(-1)
+        lkey = torch.where(lmask, staged_l.gids.reshape(-1).to(torch.int32), K)
+        rkey = torch.where(rmask, staged_r.gids.reshape(-1).to(torch.int32), K + 1)
+        build_rows, probe_rows, _, ur, ul = segment.local_sort_merge(
+            lkey, rkey, lmask, rmask, cap_m, cap_r, cap_l, K
+        )
+        parts = []
+        for side, src, _, dt in out_plan:
+            staged = staged_l if side == 0 else staged_r
+            sections = (
+                [(build_rows, cap_m), (None, cap_r), (ul, cap_l)]
+                if side == 0
+                else [(probe_rows, cap_m), (ur, cap_r), (None, cap_l)]
+            )
+            col = segment.join_gather(
+                staged.blocks[src].reshape(-1), sections, staged.narrow_offsets.get(src),
+                -1 if dt == DataType.STRING else 0,
+            )
+            parts += [col[:M], col[cap_m : cap_m + UR], col[cap_m + cap_r : cap_m + cap_r + UL]]
+        host = _fetch(parts)
+        data = {}
+        for i, (side, src, out_name, dt) in enumerate(out_plan):
+            a = np.concatenate(host[3 * i : 3 * i + 3])
+            if dt != DataType.STRING:
+                data[out_name] = a.astype(host_dtype(dt))
+                continue
+            codes = a.astype(np.int32)
+            d = (lt if side == 0 else rt).dictionaries[src]
+            neg = codes < 0
+            if neg.any():
+                # Outer-null rows decode to "", the host node's type default:
+                # a copy of the dictionary that holds "" takes their code
+                # (the reference decodes every row and re-encodes them).
+                d = StringDictionary(d.values())
+                codes = np.where(neg, d.get_code(""), codes).astype(np.int32)
+            data[out_name] = DictColumn(codes, d)
+        return RowBatch.from_pydict(m.out_relation, data, eow=True, eos=True)
 
     # -- staged-column cache -------------------------------------------------
     def _staged_lookup(self, cache_key) -> Optional[StagedColumns]:

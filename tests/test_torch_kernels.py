@@ -1,4 +1,4 @@
-"""The hand kernels (H1-H12 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H15 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
@@ -16,6 +16,9 @@ most 1% of (group, cluster) cells moved by the Fault-4 contract, means of
 the others within B * (w + 2) * 2^-24 * max|v| after B blocks, quantiles of
 one state within a relative 1e-6. Segment min/max (H11) and the scan's
 compaction (H12) bit for bit, NaN, signed zeros and subnormals included.
+The join's probe (H13), pair emission (H14) on the slots below the match
+count, gathers (H15) and unmatched-row compaction (H12 over row indices)
+exactly.
 """
 
 import json
@@ -207,6 +210,85 @@ def _check_scan_kernel(dev: torch.device) -> None:
         (w0, b0), (w1, b1) = out
         assert w0 == w1 == min(limit, total)
         assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8)) for x, y in zip(b0, b1))
+
+
+def _join_keys(seed: int, nb: int, n_probe: int, K: int, pad_b: int, pad_p: int):
+    """Sentinel-applied join keys as the join lane builds them: build keys
+    with many duplicates (key 0 on a tenth of the rows: a large fanout), probe
+    keys over [0, K + 3) so some meet no build key, padded rows (mask False)
+    keyed K (build) and K + 1 (probe)."""
+    rng = np.random.default_rng(seed)
+    lk = rng.integers(0, K, nb).astype(np.int32)
+    lk[rng.random(nb) < 0.1] = 0
+    lk[lk == 1] = 2  # id 1: probe-only
+    rk = rng.integers(0, K, n_probe).astype(np.int32)
+    rk[rk == K - 1] = 3  # id K - 1: build-only
+    lmask = np.arange(nb) < nb - pad_b
+    rmask = np.arange(n_probe) < n_probe - pad_p
+    lk = np.where(lmask, lk, K).astype(np.int32)
+    rk = np.where(rmask, rk, K + 1).astype(np.int32)
+    return [torch.from_numpy(a) for a in (lk, rk, lmask, rmask)]
+
+
+def _check_join_kernels(dev: torch.device) -> None:
+    K = 40
+    for seed, nb, n_probe, pad_b, pad_p in ((0, 256, 3001, 37, 5), (1, 7, 1, 0, 0),
+                                            (2, 5000, 20000, 1000, 0)):
+        lk, rk, lmask, rmask = _join_keys(seed, nb, n_probe, K, pad_b, pad_p)
+        sk, order = torch.sort(lk, stable=True)
+        order = order.to(torch.int32)
+        want = segment.join_probe_plain(sk, rk, K + 2)
+        got = kernels.join_probe(sk.to(dev), rk.to(dev), K + 2)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        lo, fanout, _ = want
+        prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
+        M = int(prefix[-1])
+        for cap in (M, M + 9):  # a cap exactly at the count, then above it
+            wb, wp = segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap)
+            gb, gp = kernels.join_emit_pairs(
+                lo.to(dev), fanout.to(dev), prefix.to(dev), order.to(dev), cap
+            )
+            assert torch.equal(gb[:M].cpu(), wb[:M]) and torch.equal(gp[:M].cpu(), wp[:M])
+        for cap_r, cap_l in ((0, 0), (64, 0), (0, 64), (4096, 1024)):
+            want = segment.local_sort_merge(lk, rk, lmask, rmask, M, cap_r, cap_l, K)
+            got = segment.local_sort_merge(
+                lk.to(dev), rk.to(dev), lmask.to(dev), rmask.to(dev), M, cap_r, cap_l, K
+            )
+            assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+            assert torch.equal(got[2].cpu(), want[2])
+            for g, w in zip(got[3:], want[3:]):
+                assert (g is None) == (w is None)
+                assert g is None or torch.equal(g.cpu(), w)
+            ur, ul = want[3], want[4]
+        # H15 over every column type staging produces, null sections included.
+        rng = np.random.default_rng(seed)
+        cols = [
+            (torch.from_numpy(rng.integers(0, 256, nb).astype(np.uint8)), 7, -1),
+            (torch.from_numpy(rng.integers(0, 65536, nb).astype(np.uint16)), -3, 0),
+            (torch.from_numpy(rng.integers(0, 1 << 31, nb).astype(np.int32)), 1 << 40, 0),
+            (torch.from_numpy(rng.integers(0, 16, nb).astype(np.int32)), None, -1),
+            (torch.from_numpy(rng.integers(-(2**62), 2**62, nb)), None, 0),
+            (torch.from_numpy(rng.normal(size=nb)), None, 0),
+            (torch.from_numpy(rng.random(nb) < 0.5), None, 0),
+        ]
+        sections = [(want[0], M), (None, 4096), (ul, 1024)]
+        for col, offset, null in cols:
+            w = segment.join_gather_plain(col, sections, offset, null)
+            g = kernels.join_gather(
+                col.to(dev), [(i.to(dev) if i is not None else None, r) for i, r in sections],
+                offset, null,
+            )
+            assert g.dtype == w.dtype and torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8))
+        # H12 over an int32 row-index column: the unmatched probe rows.
+        got = segment.compact_unmatched_rows((rmask & (fanout == 0)).to(dev), 4096)
+        assert torch.equal(got.cpu(), ur)
+
+
+@pytest.mark.cuda
+def test_join_kernels_match_plain_on_card():
+    _need_cards(1)
+    _check_join_kernels(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda
