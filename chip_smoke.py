@@ -12,8 +12,9 @@ the CUDA toolkit. In order it:
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
    and H11 as config 3 and the flows min/max run them, config 1's first
-   block for H12, config 8's probe side for H13-H15) and at shapes that
-   take its other memory path (edge cases for the join's kernels),
+   block for H12, config 8's probe side for H13-H15, join8_oncall_agg's
+   block for H16) and at shapes that take its other memory path (edge
+   cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
    scan's compaction and the join exact; t-digest cluster cells under
    Fault-4), and
@@ -22,8 +23,8 @@ the CUDA toolkit. In order it:
    one (median of 30 calls, CUDA events between calls queued behind a sleep
    kernel), and the kernel again with the calls paced by the host;
 4. checks the kernel path against the plain path end to end at 2^20 rows
-   for the queries below, config 4 with a filter (any() through H11), and
-   every join type over both owner tables;
+   for the queries below, config 4 with a filter (any() through H11),
+   every join type over both owner tables, and the three join aggregates;
 5. runs the port's main paths through
    Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
    launch counts zeroed just before it, one cold and three warm queries,
@@ -60,6 +61,19 @@ the CUDA toolkit. In order it:
      unmatched rows): the owned rows in row order, then the unowned ones
      with svc and owner "", then the 4 ghosts with time_ 0, service "" and
      latency 0.0; each query must count the join_sort_merge lane;
+   - joins that feed an aggregation, over the same tables and svc_oncall
+     (service i has i % 4 on-call rows with 1 + (i + j) % 5 seats):
+     join8_team_agg, svc_owners INNER join_fact grouped by owner (count,
+     sum, mean, min, max of latency), and join8_oncall_agg, join_fact INNER
+     svc_oncall grouped by service (count and sum of latency, sum and max
+     of seats), through the join-aggregate lane (H1, H2, H11 over the right
+     side's join keys; H16 and H11 over the left side): counts, integer
+     sums and min/max exact, f64 sums within 1e-12 * sum |terms| of numpy's,
+     each query counting the join_agg lane; join8_left_agg, join_fact LEFT
+     svc_owners_partial grouped by owner (count, mean, max of latency),
+     through the sort-merge lane and the host AggNode on the card (H1, H2,
+     H11): four teams and the unowned services' group, counts and maxima
+     exact, means within a relative 1e-12;
 6. prints each phase's seconds, one JSON line of per-kernel results, the
    nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 
@@ -110,6 +124,7 @@ REPLACES = {
     "join_probe": "pixie_tpu/ops/segment.py:524",
     "join_emit_pairs": "pixie_tpu/ops/segment.py:531",
     "join_gather": "pixie_tpu/parallel/pipeline.py:3318",
+    "join_agg_fold": "pixie_tpu/parallel/pipeline.py:2664",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -118,6 +133,7 @@ SOURCES = {
     "scan_compact": "pixie_tpu_torch/ops/kernels/scan_kernels.cu",
     **{k: "pixie_tpu_torch/ops/kernels/join_kernels.cu"
        for k in ("join_probe", "join_emit_pairs", "join_gather")},
+    "join_agg_fold": "pixie_tpu_torch/ops/kernels/join_agg_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -206,6 +222,42 @@ JOIN8 = (
 )
 JOIN8_OUTER = JOIN8.replace("svc_owners", "svc_owners_partial").replace(
     "how='inner'", "how='outer'")
+# Joins that feed an aggregation, over the same tables. Per-team load (the
+# dashboard a service owner opens): the join-aggregate lane, whose right pass
+# reduces the 4M fact rows to per-service statistics.
+JOIN8_TEAM_AGG = (
+    "l = px.DataFrame(table='svc_owners')\n"
+    "r = px.DataFrame(table='join_fact')\n"
+    "j = l.merge(r, how='inner', left_on=['svc'], right_on=['service'], suffixes=['', '_r'])\n"
+    "s = j.groupby(['owner']).agg(n=('latency', px.count), lat_total=('latency', px.sum),\n"
+    "    lat_mean=('latency', px.mean), lat_min=('latency', px.min),\n"
+    "    lat_max=('latency', px.max))\n"
+    "px.display(s, 'out')\n"
+)
+# Per-service load weighted by on-call rows: the lane's left pass folds the 4M
+# fact rows with weights 0-3 (H16).
+JOIN8_ONCALL_AGG = (
+    "l = px.DataFrame(table='join_fact')\n"
+    "r = px.DataFrame(table='svc_oncall')\n"
+    "j = l.merge(r, how='inner', left_on=['service'], right_on=['svc'], suffixes=['', '_r'])\n"
+    "s = j.groupby(['service']).agg(n=('latency', px.count), lat_total=('latency', px.sum),\n"
+    "    seats_total=('seats', px.sum), seats_max=('seats', px.max))\n"
+    "px.display(s, 'out')\n"
+)
+# A LEFT join is not the lane's shape: the sort-merge lane builds the 4M
+# joined rows and the host AggNode folds them on the card.
+JOIN8_LEFT_AGG = (
+    "l = px.DataFrame(table='join_fact')\n"
+    "r = px.DataFrame(table='svc_owners_partial')\n"
+    "j = l.merge(r, how='left', left_on=['service'], right_on=['svc'], suffixes=['', '_r'])\n"
+    "s = j.groupby(['owner']).agg(n=('latency', px.count), lat_mean=('latency', px.mean),\n"
+    "    lat_max=('latency', px.max))\n"
+    "px.display(s, 'out')\n"
+)
+# The groups of JOIN8_LEFT_AGG in emission order: each team as its first
+# matched svc_owners_partial row meets it, then the unowned services' rows
+# (owner ""), as tests/test_torch_join_agg.py pins against the reference.
+LEFT_AGG_OWNERS = ["team-0", "team-1", "team-3", "team-2", ""]
 
 
 def partial_owners() -> list:
@@ -966,6 +1018,97 @@ def join_kernel_phase(dev) -> dict:
     return records
 
 
+def join_agg_case(dev, seed: int, n: int, K: int, cap: int, jk, gids, mask, n_right, left, right):
+    """H16 against its plain version on the card: the count row and the
+    effective mask exact, every sum within 1e-12 * sum |terms| of its cell
+    (H2's bound). Returns (kernel acc, max abs difference of the sums)."""
+    from pixie_tpu_torch.ops import kernels, segment
+
+    rows = 1 + left.shape[0] + right.shape[0]
+    got = torch.zeros((rows, cap), dtype=torch.float64, device=dev)
+    want, mag = torch.zeros_like(got), torch.zeros_like(got)
+    eff_got = torch.empty(n, dtype=torch.bool, device=dev)
+    eff_want = torch.empty_like(eff_got)
+    kernels.join_agg_fold(jk, gids, mask, n_right, left, right, got, eff_got)
+    segment.join_agg_fold_plain(jk, gids, mask, n_right, left, right, want, eff_want)
+    segment.join_agg_fold_plain(jk, gids, mask, n_right, left.abs(), right.abs(), mag)
+    torch.cuda.synchronize()
+    what = f"H16 seed {seed} (K {K}, cap {cap})"
+    check(torch.equal(eff_got, eff_want), f"{what}: effective mask differs")
+    check(torch.equal(got[0], want[0]), f"{what}: count row differs")
+    check(bool(torch.isfinite(got).all()), f"{what}: a non-finite sum")
+    err = (got - want).abs()
+    check(bool(torch.all(err <= 1e-12 * mag)), f"{what}: a sum outside 1e-12 * sum|terms|")
+    return got, float(err.max())
+
+
+def join_agg_kernel_phase(dev) -> dict:
+    """H16 against its plain version on the card at two shapes: (a)
+    join8_oncall_agg's block, 2^21 rows of join_fact keyed by service (K 16,
+    16 groups), the f64 latency weighted by the on-call rows of each service
+    (0-3) and one gathered right sum (the seats), which takes the shared-
+    memory path; (b) K 2^20 keys and 2^16 groups, weights 0-5 and a random
+    mask, which takes the global one. Masked and zero-weight rows carry
+    +-inf and NaN at (b). Timed at (a), with the index_select + index_add_
+    sequence of the reference's formula as the library yardstick."""
+    from pixie_tpu_torch.ops import kernels, segment
+
+    n = BLOCK_ROWS
+    rng = np.random.default_rng(46)
+    svc = rng.integers(0, N_SERVICES, n).astype(np.int32)
+    seats = np.array([sum(1 + (i + j) % 5 for j in range(i % 4)) for i in range(N_SERVICES)])
+    a = [torch.from_numpy(x).to(dev) for x in (
+        svc, svc, np.ones(n, dtype=bool), np.arange(N_SERVICES) % 4.0,
+        rng.exponential(3e7, (1, n)), seats[None, :].astype(np.float64),
+    )]
+    _, err_a = join_agg_case(dev, 46, n, N_SERVICES, N_SERVICES, *a)
+    K, cap = 1 << 20, 1 << 16
+    jk = rng.integers(0, K, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    n_right = rng.integers(0, 6, K).astype(np.float64)
+    left = rng.exponential(3e7, (1, n))
+    dead = ~mask | (n_right[jk] == 0)
+    left[0, dead] = rng.choice([np.inf, -np.inf, np.nan], int(dead.sum()))
+    b = [torch.from_numpy(x).to(dev) for x in (
+        jk, rng.integers(0, cap, n).astype(np.int32), mask, n_right, left,
+        rng.exponential(3e7, (1, K)),
+    )]
+    _, err_b = join_agg_case(dev, 47, n, K, cap, *b)
+    log(f"H16 join_agg_fold: (a) K {N_SERVICES} cap {N_SERVICES} S_l 1 S_r 1 and (b) K {K} "
+        f"cap {cap}, {n} rows each: count rows and effective masks exact, sums within 1e-12 * "
+        f"sum|terms| (max abs diff {err_a:.3g}, {err_b:.3g})")
+
+    def timed_case(ins, cap_):
+        jk_, gids_, mask_, nr_, left_, right_ = ins
+        acc = torch.zeros((1 + left_.shape[0] + right_.shape[0], cap_), dtype=torch.float64,
+                          device=dev)
+        eff = torch.empty(n, dtype=torch.bool, device=dev)
+
+        def library():
+            w = torch.index_select(nr_, 0, jk_)
+            wm = torch.where(mask_ & (w > 0), w, 0.0)
+            acc[0].index_add_(0, gids_, wm)
+            acc[1].index_add_(0, gids_, left_[0] * wm)
+            acc[2].index_add_(0, gids_, torch.where(wm > 0, torch.index_select(right_[0], 0, jk_), 0.0))
+
+        K_ = nr_.shape[0]
+        nbytes = n * (4 + 4 + 1 + 8 * left_.shape[0] + 1) + 8 * K_ * (1 + right_.shape[0]) + 16 * acc.numel()
+        ops = n * (1 + 2 * left_.shape[0] + right_.shape[0])
+        return record(
+            lambda: kernels.join_agg_fold(jk_, gids_, mask_, nr_, left_, right_, acc, eff),
+            lambda: segment.join_agg_fold_plain(jk_, gids_, mask_, nr_, left_, right_, acc, eff),
+            library, *bound(nbytes, ops), 0.0, "",
+        )
+
+    rec = timed_case(a, N_SERVICES)
+    rec.update(max_abs_err=err_a, shape=f"rows[{n}] K {N_SERVICES} cap {N_SERVICES} S_l 1 S_r 1")
+    rec_b = timed_case(b, cap)
+    log(f"H16 at (b) K {K} cap {cap}: ms {rec_b['ms']} plain_ms {rec_b['plain_ms']} library_ms "
+        f"(index_select + index_add_) {rec_b['library_ms']} bound_ms {rec_b['bound_ms']} "
+        f"({rec_b['bound_by']})")
+    return {"join_agg_fold": rec}
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -1249,7 +1392,9 @@ def join_fact(n_rows: int) -> dict:
 def build_join_carnot(jf: dict, n_rows: int, device: str):
     """bench.py's config 8 tables (run_config_8): svc_owners (service i owned
     by team-{i % 4}), svc_owners_partial (partial_owners(), row j owned by
-    team-{j % 4}) and join_fact (identity service codes, 16M-row chunks)."""
+    team-{j % 4}) and join_fact (identity service codes, 16M-row chunks);
+    and svc_oncall, service i's i % 4 on-call rows j (engineer eng-{i}-{j},
+    seats 1 + (i + j) % 5), 24 in all: services 0, 4, 8 and 12 have none."""
     from pixie_tpu_torch.engine import Carnot
     from pixie_tpu_torch.parallel import DeviceExecutor
     from pixie_tpu_torch.table.column import DictColumn
@@ -1266,6 +1411,16 @@ def build_join_carnot(jf: dict, n_rows: int, device: str):
         })
         t.compact()
         t.stop()
+    t = carnot.table_store.create_table("svc_oncall", Relation.of(
+        ("svc", S, SemanticType.ST_SERVICE_NAME), ("engineer", S), ("seats", DataType.INT64)))
+    oncall = [(i, j) for i in range(N_SERVICES) for j in range(i % 4)]
+    t.write_pydict({
+        "svc": np.array([SERVICES[i] for i, _ in oncall], dtype=object),
+        "engineer": np.array([f"eng-{i}-{j}" for i, j in oncall], dtype=object),
+        "seats": np.array([1 + (i + j) % 5 for i, j in oncall], dtype=np.int64),
+    })
+    t.compact()
+    t.stop()
     rel = Relation.of(
         ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
         ("service", S, SemanticType.ST_SERVICE_NAME),
@@ -1387,6 +1542,68 @@ def verify_join8_outer(result, jf: dict) -> None:
     check(np.array_equal(name_index(cols["owner"], [f"team-{i}" for i in range(4)]),
                          np.concatenate([pos[idx[owned]] % 4, nulls, np.array(ghosts) % 4])),
           "join8_outer: owner")
+
+
+def join_fact_truth(jf: dict) -> dict:
+    """Per service: rows, latency sum, sum |latency|, min and max (numpy)."""
+    idx, lat = jf["svc_idx"].astype(np.int64), jf["latency"]
+    per = [lat[idx == i] for i in range(N_SERVICES)]
+    return {"count": np.bincount(idx, minlength=N_SERVICES),
+            "sum": np.array([p.sum() for p in per]), "abs": np.array([np.abs(p).sum() for p in per]),
+            "min": np.array([p.min() for p in per]), "max": np.array([p.max() for p in per])}
+
+
+def verify_join8_team_agg(result, truth: dict) -> None:
+    """Per team t, over the fact rows of services i with i % 4 == t: n
+    exact, lat_min and lat_max bit for bit, lat_total and lat_mean within
+    1e-12 * sum |latency| (over n for the mean) of numpy's."""
+    rows = result.table("out")
+    check(rows["owner"] == [f"team-{t}" for t in range(4)], f"team_agg: groups {rows['owner']}")
+    for t in range(4):
+        sel = np.arange(N_SERVICES) % 4 == t
+        n, total, mag = (int(truth["count"][sel].sum()), truth["sum"][sel].sum(),
+                         truth["abs"][sel].sum())
+        check(rows["n"][t] == n, f"team_agg team-{t}: n {rows['n'][t]}, expected {n}")
+        check(abs(rows["lat_total"][t] - total) <= 1e-12 * mag, f"team_agg team-{t}: lat_total")
+        check(abs(rows["lat_mean"][t] - total / n) <= 1e-12 * mag / n, f"team_agg team-{t}: lat_mean")
+        check(f64_bits_equal([rows["lat_min"][t]], [truth["min"][sel].min()]), f"team_agg team-{t}: lat_min")
+        check(f64_bits_equal([rows["lat_max"][t]], [truth["max"][sel].max()]), f"team_agg team-{t}: lat_max")
+
+
+def verify_join8_oncall_agg(result, truth: dict) -> None:
+    """The 12 services with k_i = i % 4 > 0 on-call rows, in code order:
+    n = k_i * c_i, seats_total = c_i * sum_j seats_ij and seats_max exact,
+    lat_total within 1e-12 * k_i * sum |latency_i| of k_i * sum latency_i."""
+    rows = result.table("out")
+    have = [i for i in range(N_SERVICES) if i % 4]
+    check(rows["service"] == [SERVICES[i] for i in have], f"oncall_agg: groups {rows['service']}")
+    for r, i in enumerate(have):
+        k, c = i % 4, int(truth["count"][i])
+        seats = [1 + (i + j) % 5 for j in range(k)]
+        check(rows["n"][r] == k * c, f"oncall_agg svc-{i}: n")
+        check(rows["seats_total"][r] == c * sum(seats), f"oncall_agg svc-{i}: seats_total")
+        check(rows["seats_max"][r] == max(seats), f"oncall_agg svc-{i}: seats_max")
+        check(abs(rows["lat_total"][r] - k * truth["sum"][i]) <= 1e-12 * k * truth["abs"][i],
+              f"oncall_agg svc-{i}: lat_total")
+
+
+def verify_join8_left_agg(result, truth: dict) -> None:
+    """The four teams and the unowned services' group (owner ""), in
+    LEFT_AGG_OWNERS' order: n exact, lat_max bit for bit, lat_mean within a
+    relative 1e-12 of numpy's."""
+    rows = result.table("out")
+    check(rows["owner"] == LEFT_AGG_OWNERS, f"left_agg: groups {rows['owner']}")
+    partial = partial_owners()
+    team = [f"team-{partial.index(s) % 4}" if i not in UNOWNED else ""
+            for i, s in enumerate(SERVICES)]
+    for r, owner in enumerate(LEFT_AGG_OWNERS):
+        sel = np.array([t == owner for t in team])
+        n, total = int(truth["count"][sel].sum()), truth["sum"][sel].sum()
+        check(rows["n"][r] == n, f"left_agg {owner!r}: n {rows['n'][r]}, expected {n}")
+        check(abs(rows["lat_mean"][r] - total / n) <= 1e-12 * abs(total / n),
+              f"left_agg {owner!r}: lat_mean")
+        check(f64_bits_equal([rows["lat_max"][r]], [truth["max"][sel].max()]),
+              f"left_agg {owner!r}: lat_max")
 
 
 def verify(result, data: dict, n_rows: int) -> None:
@@ -1544,6 +1761,18 @@ def slice_parity(n_rows: int) -> None:
                 check(same, f"join {how} {k}: cuda vs cpu")
     log(f"slice parity at {n_rows} rows: joins INNER, LEFT, RIGHT and OUTER to svc_owners and "
         "svc_owners_partial, kernel path == plain path, every column and row order")
+    for query in (JOIN8_TEAM_AGG, JOIN8_ONCALL_AGG, JOIN8_LEFT_AGG):
+        got = join_cuda.execute_query(query).table("out")
+        want = join_cpu.execute_query(query).table("out")
+        check(got.keys() == want.keys() and len(got["n"]) > 0, "join aggregates: columns")
+        for k in got:
+            if want[k] and isinstance(want[k][0], float) and not k.endswith(("_min", "_max")):
+                check(np.allclose(got[k], want[k], rtol=1e-12, atol=0), f"join aggregate {k}: cuda vs cpu")
+            else:
+                check(got[k] == want[k], f"join aggregate {k}: cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: join8_team_agg, join8_oncall_agg (join-aggregate lane) "
+        "and join8_left_agg (host AggNode): groups, counts, ints and min/max equal, sums within "
+        "1e-12 relative")
 
 
 def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
@@ -1618,6 +1847,7 @@ def main() -> int:
     records.update(minmax_kernel_phase(dev))
     records.update(scan_kernel_phase(dev))
     records.update(join_kernel_phase(dev))
+    records.update(join_agg_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -1712,11 +1942,30 @@ def main() -> int:
         check(lanes.get("join_sort_merge") == 1 + WARM_QUERIES,
               f"{name}: lanes {lanes}, expected join_sort_merge on every query")
         phase_s[name] = time.perf_counter() - t0
+    truth = join_fact_truth(jf)
+    host_agg = ("segment_rows_sum_i64", "segment_sum_f64", "segment_minmax")
+    for name, query, verify_fn, expect, lane in (
+        ("join8_team_agg", JOIN8_TEAM_AGG, verify_join8_team_agg,
+         host_agg + ("join_agg_fold",), "join_agg"),
+        ("join8_oncall_agg", JOIN8_ONCALL_AGG, verify_join8_oncall_agg,
+         host_agg + ("join_agg_fold",), "join_agg"),
+        # The host AggNode's kernels (H1, H2, H11) prove it ran on the card.
+        ("join8_left_agg", JOIN8_LEFT_AGG, verify_join8_left_agg,
+         join_kernels + ("scan_compact",) + host_agg, "join_sort_merge"),
+    ):
+        t0 = time.perf_counter()
+        segment.reduce_lanes(reset=True)
+        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, truth), expect)
+        lanes = segment.reduce_lanes(reset=True)
+        check(lanes == {lane: 1 + WARM_QUERIES},
+              f"{name}: lanes {lanes}, expected only {lane} on every query")
+        phase_s[name] = time.perf_counter() - t0
 
     n_queries = 1 + WARM_QUERIES
     rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS,
                "flow_span": FLOW_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS,
-               "join8": JOIN_ROWS, "join8_outer": JOIN_ROWS}
+               "join8": JOIN_ROWS, "join8_outer": JOIN_ROWS, "join8_team_agg": JOIN_ROWS,
+               "join8_oncall_agg": JOIN_ROWS, "join8_left_agg": JOIN_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
         log(f"{name} cold {p['cold']:.3f} s "
@@ -1739,6 +1988,10 @@ def main() -> int:
         profile_warm(stack_carnot, FLAMEGRAPH, min(paths["flamegraph"]["warm"]))
         profile_warm(join_carnot, JOIN8, min(paths["join8"]["warm"]))
         profile_warm(join_carnot, JOIN8_OUTER, min(paths["join8_outer"]["warm"]))
+        for name, query in (("join8_team_agg", JOIN8_TEAM_AGG),
+                            ("join8_oncall_agg", JOIN8_ONCALL_AGG),
+                            ("join8_left_agg", JOIN8_LEFT_AGG)):
+            profile_warm(join_carnot, query, min(paths[name]["warm"]), name)
 
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
@@ -1762,7 +2015,7 @@ def main() -> int:
     return 0
 
 
-def profile_warm(carnot, query: str, warm_best: float) -> None:
+def profile_warm(carnot, query: str, warm_best: float, name: str = "") -> None:
     """One warm query under torch.profiler (after one unprofiled query, which
     restages what a later path's cold query dropped): device time by op,
     and the device's busy time as a share of the profiled wall and of the
@@ -1783,7 +2036,7 @@ def profile_warm(carnot, query: str, warm_best: float) -> None:
     )
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
     busy = device_us / 1e6
-    log(f"profile {query.splitlines()[-1]}: device busy {busy:.4f} s = "
+    log(f"profile {name or query.splitlines()[-1]}: device busy {busy:.4f} s = "
         f"{100 * busy / wall:.1f}% of the profiled wall {wall:.4f} s, "
         f"{100 * busy / warm_best:.1f}% of the best warm query {warm_best:.4f} s")
     log(table)

@@ -7,7 +7,9 @@ per-operator stats to the result destination).
 
 Port of pixie_tpu/engine.py. A ``device_executor`` (pixie_tpu_torch.parallel.
 DeviceExecutor) takes the fragments whose aggregation runs on the device;
-the host exec graph runs the rest. The self-telemetry tables are not here:
+the host exec graph runs the rest, its AggNode's states on the executor's
+device, or without an executor on ``device`` (None: the CUDA card, resolved
+when an AggNode first prepares). The self-telemetry tables are not here:
 ingest is not ported yet.
 """
 
@@ -162,6 +164,7 @@ class Carnot:
         device_executor=None,
         vizier_ctx=None,
         otel_exporter=None,
+        device=None,
     ):
         self.table_store = table_store or TableStore()
         self.vizier_ctx = vizier_ctx
@@ -186,6 +189,9 @@ class Carnot:
         # matching the source→map/filter→agg chain fold on the device; the
         # host exec graph runs the suffix.
         self.device_executor = device_executor
+        # Where the host AggNode keeps its states without a device executor
+        # ("cpu" for the plain versions; None: CUDA, resolved on first use).
+        self.device = device
         self.compiler = Compiler(registry)
         # Live per-query exec states (r17): lets the broker's hedge path
         # cancel a losing duplicate mid-flight through the r9 abort
@@ -366,6 +372,11 @@ class Carnot:
                         otel_exporter=self.otel_exporter,
                         deadline=deadline,
                         bridge_token=bridge_token,
+                        device=(
+                            self.device_executor.device
+                            if self.device_executor is not None
+                            else self.device
+                        ),
                     )
                     my_states.append(state)
                     self._track_state(qid, state)

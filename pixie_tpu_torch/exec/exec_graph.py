@@ -8,10 +8,9 @@ depth-first through ConsumeNext; when no source can progress the loop yields
 with a timeout (waiting on bridge data or table activity); limits abort
 sources via exec_state.
 
-The port's host engine has no AggNode yet: a fragment whose aggregation the
-DeviceExecutor did not take raises NotImplementedError here instead of
-running. Joins run on the EquijoinNode (exec/join_node.py) when the
-DeviceExecutor's sort-merge lane does not take them.
+Aggregations the DeviceExecutor does not take run on the AggNode
+(exec/agg_node.py), whose states live on the engine's device; joins it does
+not take run on the EquijoinNode (exec/join_node.py).
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
+from pixie_tpu_torch.exec.agg_node import AggNode
 from pixie_tpu_torch.exec.exec_node import ExecNode
 from pixie_tpu_torch.exec.join_node import EquijoinNode
 from pixie_tpu_torch.exec.nodes import (
@@ -68,11 +68,6 @@ define_flag(
     "source health checks).",
 )
 
-# Operators whose host exec node is not ported yet.
-_NOT_PORTED = {
-    AggOp: "AggOp on the host engine is not ported yet",
-}
-
 _NODE_TYPES = {
     MemorySourceOp: MemorySourceNode,
     InlineSourceOp: InlineSourceNode,
@@ -83,6 +78,7 @@ _NODE_TYPES = {
     FilterOp: FilterNode,
     LimitOp: LimitNode,
     UnionOp: UnionNode,
+    AggOp: AggNode,
     JoinOp: EquijoinNode,
     MemorySinkOp: MemorySinkNode,
     ResultSinkOp: ResultSinkNode,
@@ -107,8 +103,6 @@ class ExecutionGraph:
         relations = self.fragment.resolve_relations(st.registry, table_rel)
         for nid in self.fragment.topo_order():
             op = self.fragment.node(nid)
-            if type(op) in _NOT_PORTED:
-                raise NotImplementedError(_NOT_PORTED[type(op)])
             node_cls = _NODE_TYPES.get(type(op))
             if node_cls is None:
                 raise ValueError(f"no exec node for operator {op!r}")
@@ -119,6 +113,8 @@ class ExecutionGraph:
                 self.nodes[p].add_child(node, slot)
             # Resolve input relations for expression-bearing nodes.
             if isinstance(node, (MapNode, FilterNode)):
+                node.set_input_relation(relations[parents[0]], st.registry)
+            elif isinstance(node, AggNode):
                 node.set_input_relation(relations[parents[0]], st.registry)
             elif isinstance(node, EquijoinNode):
                 node.set_input_relations(

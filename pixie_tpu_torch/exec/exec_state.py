@@ -11,6 +11,9 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional
 
+import torch
+
+from pixie_tpu_torch.device import resolve_device
 from pixie_tpu_torch.utils import trace
 
 
@@ -51,6 +54,7 @@ class ExecState:
         otel_exporter: Any = None,
         deadline: Optional[float] = None,
         bridge_token: Optional[tuple] = None,
+        device=None,
     ):
         self.query_id = query_id
         self.table_store = table_store
@@ -70,8 +74,10 @@ class ExecState:
         self.otel_exporter = otel_exporter
         self.instance = instance
         # The exec graph is the host-side (PEM-role) engine and runs in
-        # numpy; device compute goes exclusively through the device fold
-        # (pixie_tpu_torch.parallel.DeviceExecutor).
+        # numpy, but for the AggNode's UDA states: they live on ``device``
+        # (None: the CUDA card), resolved by compute_device() when an
+        # AggNode prepares, so a fragment with no aggregation needs none.
+        self.device = device
         # Batches substituted by another executor (device pipeline results),
         # keyed by InlineSourceOp.key.
         self.inline_batches: dict[str, list] = {}
@@ -94,6 +100,11 @@ class ExecState:
         # replacement consumer replays the committed stream. None = the
         # pre-r17 direct push/pop semantics.
         self.bridge_token = bridge_token
+
+    def compute_device(self) -> torch.device:
+        """The device of the host AggNode's states: ``device`` resolved
+        (None is CUDA, raising NoCudaDeviceError without a card)."""
+        return resolve_device(self.device)
 
     # -- limit/source abort (ref: exec_state keep-running + limit signal) ---
     def stop_sources(self) -> None:

@@ -4,6 +4,9 @@ For this system the state that a model's weights stand for is the UDA state
 of a fold and the tables it folds. ``state_from_numpy``/``state_to_numpy``
 convert between a reference UDA state, given as a pytree of numpy arrays (an
 array, or a dict of arrays), and the port's state of torch tensors;
+``state_batch_from_reference`` carries a whole partial aggregate (the
+reference's StateBatch: group keys, numpy states, latched dictionaries)
+into the port's StateBatch, so a port MERGE stage can consume it;
 ``table_from_columns`` fills the port's TableStore from the same numpy dict
 that fills the reference's.
 """
@@ -15,6 +18,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from pixie_tpu_torch.exec.agg_node import StateBatch, tree_map
+from pixie_tpu_torch.table.column import DictColumn, StringDictionary
 from pixie_tpu_torch.table.table import Table
 from pixie_tpu_torch.table.table_store import TableStore
 from pixie_tpu_torch.types import Relation
@@ -51,6 +56,36 @@ def state_to_numpy(uda, state):
     if isinstance(state, dict):
         return {k: v.detach().cpu().numpy() for k, v in state.items()}
     return state.detach().cpu().numpy()
+
+
+def state_batch_from_reference(sb, device="cpu") -> StateBatch:
+    """A reference StateBatch -> the port's, its states as tensors on
+    ``device``. Key columns and latched dictionaries are rebuilt from their
+    codes and values (the reference's DictColumn and StringDictionary carry
+    the same ``codes``, ``dictionary`` and ``values()``)."""
+    keys = []
+    for col in sb.key_columns:
+        if hasattr(col, "codes"):
+            keys.append(DictColumn(
+                np.asarray(col.codes, dtype=np.int32), StringDictionary(col.dictionary.values())
+            ))
+        else:
+            keys.append(np.asarray(col))
+    states = {
+        name: tree_map(
+            lambda a: torch.from_numpy(np.array(a, copy=True, order="C")).to(device), st
+        )
+        for name, st in sb.states.items()
+    }
+    return StateBatch(
+        key_columns=keys,
+        states=states,
+        num_groups=int(sb.num_groups),
+        group_names=tuple(sb.group_names),
+        eow=bool(sb.eow),
+        eos=bool(sb.eos),
+        arg_dicts={name: StringDictionary(d.values()) for name, d in sb.arg_dicts.items()},
+    )
 
 
 def table_from_columns(

@@ -5,7 +5,8 @@ log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
 (the hash kernel and H5-H10), ``minmax_kernels.cu`` the segment min/max
 (H11), ``scan_kernels.cu`` the scan's stream compaction (H12) and
 ``join_kernels.cu`` the sort-merge join's probe, pair emission and gathers
-(H13-H15); see each file's header. At the first launch, ``library()`` compiles them with
+(H13-H15) and ``join_agg_kernels.cu`` the join-aggregate lane's weighted
+fold (H16); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -55,6 +56,7 @@ KERNELS = (
     "join_probe",
     "join_emit_pairs",
     "join_gather",
+    "join_agg_fold",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -63,7 +65,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
-    "join_kernels.cu",
+    "join_kernels.cu", "join_agg_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -97,6 +99,7 @@ _SIGNATURES = {
     "px_join_probe": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
     "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
+    "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -726,3 +729,54 @@ def join_gather(
         *args, int(null_bits[0]), out.data_ptr(),
     )
     return out
+
+
+# ---------------------------------------------------------------- join-aggregate
+def join_agg_fold(
+    jk: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    n_right: torch.Tensor, left_vals: torch.Tensor, right_sums: torch.Tensor,
+    acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """H16: for every row r with ``mask[r]`` and w = n_right[jk[r]] > 0, adds
+    w to acc[0, g], left_vals[i, r] * w to acc[1 + i, g] and
+    right_sums[j, jk[r]] to acc[1 + S_l + j, g] (g = gids[r] in [0, cap)),
+    IN PLACE on ``acc`` (f64 [1 + S_l + S_r, cap]), and returns it; writes
+    mask[r] && w > 0 to ``eff_mask`` (bool [n]) when given. ``jk``, ``gids``
+    int32 [n]; ``n_right`` f64 [K]; ``left_vals`` f64 [S_l, n];
+    ``right_sums`` f64 [S_r, K]."""
+    device = jk.device
+    n = _int32_1d(jk, "jk", device)
+    mask = _gids_mask(gids, mask, n, device)
+    _require(n_right, "n_right", torch.float64, device, 1)
+    _require(left_vals, "left_vals", torch.float64, device, 2)
+    _require(right_sums, "right_sums", torch.float64, device, 2)
+    _require(acc, "acc", torch.float64, device, 2)
+    K = n_right.shape[0]
+    S_l, S_r = left_vals.shape[0], right_sums.shape[0]
+    cap = acc.shape[1]
+    if left_vals.shape[1] != n or right_sums.shape[1] != K or acc.shape[0] != 1 + S_l + S_r:
+        raise ValueError(
+            f"join_agg_fold: left_vals must be [S_l, {n}], right_sums [S_r, {K}] and acc "
+            f"[1 + S_l + S_r, cap]; got {tuple(left_vals.shape)}, {tuple(right_sums.shape)}, "
+            f"{tuple(acc.shape)}"
+        )
+    if eff_mask is not None:
+        _require(eff_mask, "eff_mask", torch.bool, device, 1)
+        if eff_mask.shape[0] != n:
+            raise ValueError(f"eff_mask has {eff_mask.shape[0]} rows, expected {n}")
+    if K >= 2**31 or cap >= 2**31:
+        raise ValueError("join_agg_fold: K and cap must fit int32")
+    if n == 0:
+        return acc
+    optin = smem_optin_bytes(device)
+    acc_bytes = (1 + S_l + S_r) * cap * 8
+    shared_acc = acc_bytes <= optin
+    shared_stats = (1 + S_r) * K * 8 + (acc_bytes if shared_acc else 0) <= optin
+    _launch(
+        "join_agg_fold", device,
+        jk.data_ptr(), gids.data_ptr(), mask.data_ptr() if mask is not None else None, n,
+        n_right.data_ptr(), K, left_vals.data_ptr(), S_l, right_sums.data_ptr(), S_r,
+        acc.data_ptr(), cap, eff_mask.data_ptr() if eff_mask is not None else None,
+        int(shared_acc), int(shared_stats),
+    )
+    return acc

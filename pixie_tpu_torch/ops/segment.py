@@ -8,7 +8,8 @@ limbs exist only to keep the TPU's slow scatter unit off the hot path.
 Each function takes its device from its tensors: on a CUDA tensor it
 launches the hand kernel of ``ops/kernels`` (H1 for integer sums and counts,
 H2 for f64 sums, H11 for min and max; H13-H15 and H12 for the sort-merge
-join's primitives at the end), on a CPU tensor it runs the plain PyTorch
+join's primitives, H16 for the join-aggregate lane's weighted fold at the
+end), on a CPU tensor it runs the plain PyTorch
 version beside it. The plain versions are the ones the CPU tests
 hold against the reference, and chip_smoke.py holds the kernels against
 them on the card.
@@ -25,7 +26,7 @@ from pixie_tpu_torch.ops import kernels, scan
 # Which device lanes ran, by name, since the last reduce_lanes(reset=True).
 # The reference counts a lane once per compiled program; the port builds no
 # programs, so it counts each run of the lane (``join_sort_merge``: once per
-# device join).
+# device join; ``join_agg``: once per join-aggregate query).
 LANE_COUNTS: dict[str, int] = {}
 
 
@@ -400,3 +401,54 @@ def join_gather(
     if col.is_cuda:
         return kernels.join_gather(col.contiguous(), sections, offset, null_value)
     return join_gather_plain(col, sections, offset, null_value)
+
+
+# -- the join-aggregate lane's weighted fold (pixie_tpu/parallel/pipeline.py
+# _run_left_join_agg, :2664-2732) ---------------------------------------------
+def join_agg_fold_plain(
+    jk: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    n_right: torch.Tensor, left_vals: torch.Tensor, right_sums: torch.Tensor,
+    acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of H16: over the rows with ``mask`` and a weight
+    w = n_right[jk] > 0 (a key outside [0, K) weighs 0), adds w, each left
+    value times w and each gathered right sum into acc[:, gids] IN PLACE (a
+    gid outside [0, cap) adds nothing); returns ``acc``. Writes the effective
+    mask (mask & w > 0) into ``eff_mask`` when given. Rows that fail it are
+    left out, never multiplied by a zero weight (Fault-7)."""
+    K, cap = n_right.shape[0], acc.shape[1]
+    S_l = left_vals.shape[0]
+    k_ok = (jk >= 0) & (jk < K)
+    kk = torch.where(k_ok, jk, 0).long()
+    w = torch.where(k_ok, n_right[kk], 0.0)
+    eff = w > 0
+    if mask is not None:
+        eff = eff & mask
+    if eff_mask is not None:
+        eff_mask.copy_(eff)
+    ok = eff & (gids >= 0) & (gids < cap)
+    g, wk, kr = gids[ok].long(), w[ok], kk[ok]
+    acc[0].index_add_(0, g, wk)
+    if S_l:
+        acc[1 : 1 + S_l].index_add_(1, g, left_vals[:, ok] * wk)
+    if right_sums.shape[0]:
+        acc[1 + S_l :].index_add_(1, g, right_sums[:, kr])
+    return acc
+
+
+def join_agg_fold(
+    jk: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    n_right: torch.Tensor, left_vals: torch.Tensor, right_sums: torch.Tensor,
+    acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The join-aggregate lane's left-side fold of one block: the join's
+    count, the weighted left sums and the gathered right sums per group in
+    ``acc`` (f64 [1 + S_l + S_r, cap], in place), and the effective mask.
+    H16 on CUDA."""
+    jk, gids = jk.to(torch.int32), gids.to(torch.int32)
+    if jk.is_cuda:
+        return kernels.join_agg_fold(
+            jk.contiguous(), gids.contiguous(), mask, n_right.contiguous(),
+            left_vals.contiguous(), right_sums.contiguous(), acc, eff_mask,
+        )
+    return join_agg_fold_plain(jk, gids, mask, n_right, left_vals, right_sums, acc, eff_mask)

@@ -45,10 +45,25 @@ graph against the result. A join the lane declines (the reference's gates,
 and pre-join predicates, which the port does not push down yet) runs on the
 host EquijoinNode with the same result.
 
-A fragment outside those shapes — windowed or PARTIAL aggregation, string-hash
-UDA args — returns None and reaches the host exec graph, which raises
-NotImplementedError for an aggregation: the port has no host AggNode and no
-fallback. Errors raise; nothing is caught and sent elsewhere.
+A join that feeds an aggregation,
+
+    MemorySource -> (Map | Filter)* -> INNER Join -> (Map | Filter)* -> Agg(FULL)
+    MemorySource -> (Map | Filter)* ---^
+
+with count/sum/mean/min/max of one column each and groups from the left
+side takes the join-aggregate lane (``_try_execute_join_agg``, tried before
+the standalone join as the reference tries it): the pairs are never built.
+The right side reduces to per-key statistics (H1, H2, H11 over the join-key
+ids) and the left side folds once with per-row weights nR[jk] (H16, then
+H11 under H16's effective mask).
+
+A fragment outside those shapes — windowed or PARTIAL aggregation, an
+aggregation over an aggregation, a source shared with a second sink,
+string-hash UDA args, a join the lanes decline — returns None and runs on
+the host exec graph: its aggregations on the host AggNode
+(exec/agg_node.py), whose UDA states live on the engine's device, so on the
+card they update through the same kernels. Errors raise; nothing is caught
+and sent elsewhere.
 """
 
 from __future__ import annotations
@@ -91,7 +106,7 @@ from pixie_tpu_torch.plan.operators import (
 from pixie_tpu_torch.plan.plan import PlanFragment
 from pixie_tpu_torch.table.column import DictColumn, StringDictionary
 from pixie_tpu_torch.table.row_batch import RowBatch
-from pixie_tpu_torch.types import DataType
+from pixie_tpu_torch.types import ColumnSchema, DataType, Relation
 from pixie_tpu_torch.types.dtypes import host_dtype
 from pixie_tpu_torch.utils import flags
 
@@ -330,6 +345,166 @@ def match_join(fragment: PlanFragment, relations) -> Optional[_JoinMatch]:
 
 
 @dataclasses.dataclass
+class _JoinAggMatch:
+    """Source -> (Map|Filter)* -> INNER Join <- (Map|Filter)* <- Source, then
+    (Map|Filter)* -> Agg(FULL, not windowed) (pixie_tpu/parallel/pipeline.py
+    :704). The join's pairs are never materialized: aggregating over the
+    join equals aggregating the LEFT rows with per-row weight w = (number of
+    matching RIGHT rows), plus per-key RIGHT statistics gathered by join key:
+    count = sum_L w; sum(left x) = sum_L x * w; sum(right y) = sum_L
+    sumR[y, key]; min/max(right y) = min/max over L of minR/maxR[y, key]."""
+
+    left_source_nid: int
+    right_source_nid: int
+    join_nid: int
+    agg_nid: int
+    left_source_op: MemorySourceOp
+    right_source_op: MemorySourceOp
+    join_op: JoinOp
+    agg_op: AggOp
+    left_exprs: dict  # left source-term mapping (pre-join chain)
+    right_exprs: dict
+    left_preds: list  # pre-join predicates, left source terms
+    right_preds: list
+    left_key_exprs: list  # join keys in left source terms
+    right_key_exprs: list
+    post_left_preds: list  # post-join predicates that touch only the left side
+    post_right_preds: list
+    left_relation: Any
+    right_relation: Any
+    specs: list  # [(out_name, side, arg expr in that side's source terms, agg name)]
+    group_exprs: list  # [(group name, left-side expr)]
+
+
+def _expr_side(expr, left_cols: set, right_cols: set):
+    """0 if the expression references only left-output columns, 1 if only
+    right, None if mixed/unknown (pixie_tpu/parallel/pipeline.py:775)."""
+    refs = referenced_columns(expr)
+    if refs <= left_cols:
+        return 0
+    if refs <= right_cols:
+        return 1
+    return None
+
+
+# Aggregates with a join decomposition (pixie_tpu/parallel/pipeline.py:904).
+_JOIN_DECOMPOSABLE = {"count", "sum", "mean", "min", "max"}
+
+
+def match_join_agg(fragment: PlanFragment, relations) -> Optional[_JoinAggMatch]:
+    """The reference's matcher (pixie_tpu/parallel/pipeline.py:786) and its
+    gates: the first join of the fragment, INNER, with keys, two DISTINCT
+    non-streaming sources, one child; (Map|Filter)* down to a FULL,
+    non-windowed Agg with one parent; post-join predicates, groups and args
+    each on one side; groups from the left side only; count/sum/mean/min/max
+    with an argument."""
+    join_nid = None
+    for nid in fragment.topo_order():
+        if isinstance(fragment.node(nid), JoinOp):
+            join_nid = nid
+            break
+    if join_nid is None:
+        return None
+    join_op: JoinOp = fragment.node(join_nid)
+    if join_op.how != JoinType.INNER or not join_op.left_on:
+        return None
+    parents = fragment.parents(join_nid)
+    if len(parents) != 2 or len(fragment.children(join_nid)) != 1:
+        return None
+    left = _chain_to_source(fragment, parents[0], relations)
+    right = _chain_to_source(fragment, parents[1], relations)
+    if left is None or right is None:
+        return None
+    lsrc, lmap, lpreds, lrel = left
+    rsrc, rmap, rpreds, rrel = right
+    if lsrc == rsrc:
+        return None  # self-join over one cursor: the host engine's
+    # Walk DOWN from the join through (Map|Filter)* to the Agg.
+    out_cols = {o: (side, name) for side, name, o in join_op.output_columns}
+    post_map = {o: ColumnRef(o) for o in out_cols}
+    post_preds = []
+    cur = join_nid
+    while True:
+        children = fragment.children(cur)
+        if len(children) != 1:
+            return None
+        cur = children[0]
+        op = fragment.node(cur)
+        if isinstance(op, AggOp):
+            # FULL only: a PARTIAL stage must emit states for its MERGE
+            # consumer, which this decomposition does not build.
+            if op.windowed or op.stage != AggStage.FULL:
+                return None
+            if len(fragment.parents(cur)) != 1:
+                return None
+            agg_nid = cur
+            break
+        if isinstance(op, FilterOp):
+            post_preds.append(substitute(op.expr, post_map))
+        elif isinstance(op, MapOp):
+            post_map = {n: substitute(e, post_map) for n, e in op.exprs}
+        else:
+            return None
+    agg_op: AggOp = fragment.node(agg_nid)
+    left_out = {o for o, (side, _) in out_cols.items() if side == 0}
+    right_out = {o for o, (side, _) in out_cols.items() if side == 1}
+
+    def rewrite(expr):
+        side = _expr_side(expr, left_out, right_out)
+        if side is None:
+            return None
+        src_map = lmap if side == 0 else rmap
+        name_map = {
+            o: substitute(ColumnRef(out_cols[o][1]), src_map)
+            for o in (left_out if side == 0 else right_out)
+        }
+        return side, substitute(expr, name_map)
+
+    post_left_preds, post_right_preds = [], []
+    for p in post_preds:
+        rw = rewrite(p)
+        if rw is None:
+            return None
+        (post_left_preds if rw[0] == 0 else post_right_preds).append(rw[1])
+    group_exprs = []
+    for g in agg_op.groups:
+        rw = rewrite(post_map[g] if g in post_map else ColumnRef(g))
+        if rw is None or rw[0] != 0:
+            return None  # groups must come from the left side
+        group_exprs.append((g, rw[1]))
+    specs = []
+    for out_name, agg in agg_op.values:
+        if agg.name not in _JOIN_DECOMPOSABLE or not agg.args:
+            return None
+        rw = rewrite(substitute(agg.args[0], post_map))
+        if rw is None:
+            return None
+        specs.append((out_name, rw[0], rw[1], agg.name))
+    return _JoinAggMatch(
+        left_source_nid=lsrc,
+        right_source_nid=rsrc,
+        join_nid=join_nid,
+        agg_nid=agg_nid,
+        left_source_op=fragment.node(lsrc),
+        right_source_op=fragment.node(rsrc),
+        join_op=join_op,
+        agg_op=agg_op,
+        left_exprs=lmap,
+        right_exprs=rmap,
+        left_preds=lpreds,
+        right_preds=rpreds,
+        left_key_exprs=[substitute(ColumnRef(k), lmap) for k in join_op.left_on],
+        right_key_exprs=[substitute(ColumnRef(k), rmap) for k in join_op.right_on],
+        post_left_preds=post_left_preds,
+        post_right_preds=post_right_preds,
+        left_relation=lrel,
+        right_relation=rrel,
+        specs=specs,
+        group_exprs=group_exprs,
+    )
+
+
+@dataclasses.dataclass
 class _KeyPlan:
     """How gids materialize: ``device_expr`` evaluated per block on the
     device, or ``host_gids`` densified on the host (neither: one group)."""
@@ -445,12 +620,17 @@ class DeviceExecutor:
         relations = fragment.resolve_relations(registry, table_rel)
         m = match_fragment(fragment, relations)
         if m is None:
-            # No aggregate: the standalone join lane first, then the bounded
-            # scan, as the reference orders them (its join-aggregate lane,
-            # tried before both, is not ported).
-            out = self._try_execute_join(
+            # No chain from one source to an aggregate: the join-aggregate
+            # lane first (it never materializes the pairs), then the
+            # standalone join lane, then the bounded scan, as the reference
+            # orders them (pixie_tpu/parallel/pipeline.py:1911).
+            out = self._try_execute_join_agg(
                 fragment, relations, table_store, registry, func_ctx
             )
+            if out is None:
+                out = self._try_execute_join(
+                    fragment, relations, table_store, registry, func_ctx
+                )
             if out is None:
                 out = self._try_execute_scan(
                     fragment, relations, table_store, registry, func_ctx
@@ -693,7 +873,7 @@ class DeviceExecutor:
         return m.join_nid, batch
 
     @staticmethod
-    def _join_key_ids(m: _JoinMatch, lt, rt, lcols: dict, rcols: dict):
+    def _join_key_ids(m, lt, rt, lcols: dict, rcols: dict):
         """(left ids, right ids, K): both sides' join keys densified into one
         id space by one GroupEncoder, left first, so right-only keys get ids
         the left never uses; string keys align through one shared
@@ -745,8 +925,8 @@ class DeviceExecutor:
         build_rows, probe_rows, _, ur, ul = segment.local_sort_merge(
             lkey, rkey, lmask, rmask, cap_m, cap_r, cap_l, K
         )
-        parts = []
-        for side, src, _, dt in out_plan:
+        parts, firsts = [], {}
+        for i, (side, src, _, dt) in enumerate(out_plan):
             staged = staged_l if side == 0 else staged_r
             sections = (
                 [(build_rows, cap_m), (None, cap_r), (ul, cap_l)]
@@ -758,7 +938,13 @@ class DeviceExecutor:
                 -1 if dt == DataType.STRING else 0,
             )
             parts += [col[:M], col[cap_m : cap_m + UR], col[cap_m + cap_r : cap_m + cap_r + UL]]
-        host = _fetch(parts)
+            if dt == DataType.STRING and (UR if side == 0 else UL):
+                # A column with outer-null rows: each code's first row, for
+                # the reference's numbering (_reencode_outer_nulls).
+                d = (lt if side == 0 else rt).dictionaries[src]
+                firsts[i] = _first_rows(torch.cat(parts[-3:]), len(d))
+        host = _fetch(parts + list(firsts.values()))
+        first_of = dict(zip(firsts, host[len(parts):]))
         data = {}
         for i, (side, src, out_name, dt) in enumerate(out_plan):
             a = np.concatenate(host[3 * i : 3 * i + 3])
@@ -767,15 +953,294 @@ class DeviceExecutor:
                 continue
             codes = a.astype(np.int32)
             d = (lt if side == 0 else rt).dictionaries[src]
-            neg = codes < 0
-            if neg.any():
-                # Outer-null rows decode to "", the host node's type default:
-                # a copy of the dictionary that holds "" takes their code
-                # (the reference decodes every row and re-encodes them).
-                d = StringDictionary(d.values())
-                codes = np.where(neg, d.get_code(""), codes).astype(np.int32)
+            if i in first_of:
+                d, codes = _reencode_outer_nulls(codes, d, first_of[i])
             data[out_name] = DictColumn(codes, d)
         return RowBatch.from_pydict(m.out_relation, data, eow=True, eos=True)
+
+    # -- the join-aggregate lane (K17) -----------------------------------------
+    def _try_execute_join_agg(
+        self, fragment, relations, table_store, registry, func_ctx
+    ) -> Optional[tuple[int, RowBatch]]:
+        """(agg node id, the aggregate) for an INNER join that feeds a
+        count/sum/mean/min/max group-by, else None
+        (pixie_tpu/parallel/pipeline.py:2214). The gates are the
+        reference's: ``match_join_agg``'s, bare-column join keys,
+        single-argument aggregates, no STRING argument, at most 2^22 join-key
+        ids (``_join_key_ids``: the reference's shared StringDictionary and
+        GroupEncoder) and a group capacity of at most 2^20. One gate is the
+        port's: a UINT128 argument (staging has no 128-bit lane). One
+        reference gate is not kept: a ``count`` whose argument is a right
+        column, which the reference's right pass declines though the count
+        needs no right statistic (ROADMAP Fault-8); the port takes the lane,
+        with the same result. The right side reduces to per-key statistics
+        (``_run_right_stats``), the left side folds once with per-row
+        weights (``_run_left_join_agg``); the pairs are never built."""
+        m = match_join_agg(fragment, relations)
+        if m is None:
+            return None
+        lt = table_store.get_table(m.left_source_op.table_name)
+        rt = table_store.get_table(m.right_source_op.table_name)
+        if lt is None or rt is None:
+            return None
+        if not all(isinstance(e, ColumnRef) for e in m.left_key_exprs + m.right_key_exprs):
+            return None
+        for (_, agg), (_o, side, arg_e, _n) in zip(m.agg_op.values, m.specs):
+            if len(agg.args) != 1:
+                return None  # single-argument decompositions only
+            rel = m.left_relation if side == 0 else m.right_relation
+            try:
+                dt = expr_data_type(arg_e, rel, registry)
+            except (KeyError, ValueError):
+                return None
+            if dt in (DataType.STRING, DataType.UINT128):
+                return None
+        lsrc, rsrc = m.left_source_op, m.right_source_op
+        with timed("read_columns"):
+            lcols, nl = read_columns(
+                lt, sorted({e.name for e in m.left_key_exprs}), lsrc.start_time, lsrc.stop_time
+            )
+            rcols, nr = read_columns(
+                rt, sorted({e.name for e in m.right_key_exprs}), rsrc.start_time, rsrc.stop_time
+            )
+        with timed("key_plan"):
+            kl, kr, K = self._join_key_ids(m, lt, rt, lcols, rcols)
+        if kl is None or K > (1 << 22):
+            return None
+        # The group-key plan over the LEFT side.
+        shim = _Match(
+            source_nid=m.left_source_nid,
+            agg_nid=m.agg_nid,
+            source_op=lsrc,
+            agg_op=dataclasses.replace(m.agg_op, groups=tuple(g for g, _ in m.group_exprs)),
+            col_exprs={g: e for g, e in m.group_exprs},
+            predicates=[],
+            source_relation=m.left_relation,
+        )
+        key_plan = self._plan_keys(shim, lt, registry, func_ctx, set())
+        if key_plan is None:
+            return None
+        if m.group_exprs and key_plan.host_gids is None:
+            # _plan_keys takes a dictionary key's codes as device gids; the
+            # fold stages host gids, and the codes are those gids
+            # (pixie_tpu/parallel/pipeline.py:2296-2321).
+            if not isinstance(key_plan.device_expr, ColumnRef):
+                return None
+            name = key_plan.device_expr.name
+            codes, _ = read_columns(lt, [name], lsrc.start_time, lsrc.stop_time)
+            key_plan = dataclasses.replace(key_plan, host_gids=codes[name].astype(np.int32))
+        if key_plan.host_gids is None:
+            # Group-by-none: one group, still staged as a gid lane (:2324-2329).
+            key_plan = dataclasses.replace(
+                key_plan, host_gids=np.zeros(nl, np.int32), num_groups=1
+            )
+        if len(key_plan.host_gids) != nl:
+            return None
+        capacity = _pow2_at_least(max(key_plan.num_groups, 1))
+        if capacity > (1 << 20):
+            return None
+        # A count reads no argument: __count__, the weighted row count,
+        # serves every count spec of either side.
+        right_specs = [(o, e, name) for o, side, e, name in m.specs
+                       if side == 1 and name != "count"]
+        r_preds = m.right_preds + m.post_right_preds
+        l_preds = m.left_preds + m.post_left_preds
+        try:
+            r_eval = ExpressionEvaluator(
+                [(f"pred{i}", p) for i, p in enumerate(r_preds)]
+                + [(f"arg:{o}", e) for o, e, _ in right_specs],
+                m.right_relation, registry, func_ctx,
+            )
+            l_eval = ExpressionEvaluator(
+                [(f"pred{i}", p) for i, p in enumerate(l_preds)]
+                + [(f"arg:{o}", e) for o, side, e, name in m.specs
+                   if side == 0 and name != "count"],
+                m.left_relation, registry, func_ctx,
+            )
+        except ValueError:
+            return None
+        # Left keys encode first, so the right side's ids depend on the left
+        # table too: the right staging's identity pins the whole key space.
+        key_space_sig = repr((
+            lsrc.table_name, (lt.min_row_id(), lt.end_row_id()),
+            repr(m.left_key_exprs) + repr(m.right_key_exprs),
+            lsrc.start_time, lsrc.stop_time,
+        ))
+        rstats = self._run_right_stats(m, rt, kr, nr, K, r_eval, right_specs, key_space_sig)
+        if rstats is None:
+            return None
+        batch = self._run_left_join_agg(m, lt, kl, nl, key_plan, capacity, l_eval, rstats, registry)
+        if batch is None:
+            return None
+        segment.lane_count("join_agg")
+        return m.agg_nid, batch
+
+    @staticmethod
+    def _f64_arg(evaluator, e, env, aux, mask: torch.Tensor) -> torch.Tensor:
+        """An argument of the lane as a contiguous f64 column of the block."""
+        v = torch.as_tensor(evaluator.device_eval(e, env, aux), device=mask.device)
+        return v.to(torch.float64).expand(mask.shape[0]).contiguous()
+
+    def _block_mask(self, evaluator, staged, blk: int, env, aux) -> torch.Tensor:
+        mask = staged.mask[0, blk]
+        for n, e in evaluator.named_exprs:
+            if n.startswith("pred"):
+                mask = mask & evaluator.device_eval(e, env, aux)
+        return mask
+
+    def _run_right_stats(self, m, table, kr, nr, K, evaluator, right_specs, key_space_sig):
+        """Stage the right side with its join-key ids as the gids and reduce
+        per-key statistics (pixie_tpu/parallel/pipeline.py:2402): nR, the
+        match count of each key, through H1 as an int64 count (exact in
+        f64); each right sum/mean argument's sum through H2; each min/max
+        through H11, in place on a state of +-inf identities, which is the
+        reference's jnp.minimum(acc, seg_min(...)) merge under Fault-5.
+        Returns (nR f64 [K], {(kind, out name): f64 [K]}) on the device, or
+        None when the table moved since its keys were read."""
+        base: set = set()
+        for _, e in evaluator.named_exprs:
+            base |= referenced_columns(e)
+        staged = self._stage_cached(
+            table, m.right_source_op, base, ":joinright:" + key_space_sig, K, gids=kr
+        )
+        if staged.num_rows != nr:
+            return None
+        aux = self._build_aux(evaluator, table)
+        args = {n[4:]: e for n, e in evaluator.named_exprs if n.startswith("arg:")}
+        kinds = [(o, "sum" if name in ("sum", "mean") else name) for o, _, name in right_specs]
+        counts = torch.zeros(K, dtype=torch.int64, device=self.device)
+        stats = {}
+        for o, kind in kinds:
+            if kind == "sum":
+                stats[(kind, o)] = torch.zeros(K, dtype=torch.float64, device=self.device)
+            else:
+                ident = float("inf") if kind == "min" else float("-inf")
+                stats[(kind, o)] = torch.full((K,), ident, dtype=torch.float64, device=self.device)
+        with timed("fold"):
+            for blk in range(staged.num_blocks):
+                env = self._block_env(staged, blk)
+                mask = self._block_mask(evaluator, staged, blk, env, aux)
+                jk = staged.gids[0, blk].to(torch.int32)
+                counts += segment.seg_count(jk, K, mask)
+                for o, kind in kinds:
+                    val = self._f64_arg(evaluator, args[o], env, aux, mask)
+                    st = stats[(kind, o)]
+                    if kind == "sum":
+                        st += segment.seg_sum(val, jk, K, mask)
+                    else:
+                        segment.segment_minmax(st, val, jk, mask, kind == "min")
+        return counts.to(torch.float64), stats
+
+    def _run_left_join_agg(
+        self, m, table, kl, nl, key_plan, capacity, evaluator, rstats, registry
+    ) -> Optional[RowBatch]:
+        """Fold the LEFT side once with per-row weights w = nR[jk]
+        (pixie_tpu/parallel/pipeline.py:2588): per block, H16 adds the
+        join's count, the weighted left sums and the gathered right sums of
+        every group and writes the effective mask (mask & w > 0), under
+        which H11 folds the left min/max arguments and the right minR/maxR
+        gathered by join key. ONE device -> host copy, then the reference's
+        finalize: groups with a count, mean = sum / max(count, 1), integer
+        outputs the f64 result rounded and cast (so an INT64 sum over a join
+        goes through f64, as in the reference)."""
+        n_right, rstat = rstats
+        base: set = set()
+        for _, e in evaluator.named_exprs:
+            base |= referenced_columns(e)
+        staged = self._stage_cached(
+            table, m.left_source_op, base,
+            ":joinleft:" + repr(m.left_key_exprs) + repr([e for _, e in m.group_exprs]),
+            key_plan.num_groups, gids=key_plan.host_gids,
+            extra_cols={"__jk__": kl.astype(np.int32)},
+        )
+        if staged.num_rows != nl:
+            return None
+        aux = self._build_aux(evaluator, table)
+        args = {n[4:]: e for n, e in evaluator.named_exprs if n.startswith("arg:")}
+        sums_l = [o for o, side, _, name in m.specs if side == 0 and name in ("sum", "mean")]
+        sums_r = [o for o, side, _, name in m.specs if side == 1 and name in ("sum", "mean")]
+        extremes = [(o, side, name) for o, side, _, name in m.specs if name in ("min", "max")]
+        K = n_right.shape[0]
+        dev = self.device
+        right_sums = (
+            torch.stack([rstat[("sum", o)] for o in sums_r]) if sums_r
+            else torch.empty((0, K), dtype=torch.float64, device=dev)
+        )
+        acc = torch.zeros((1 + len(sums_l) + len(sums_r), capacity), dtype=torch.float64, device=dev)
+        ext = {
+            o: torch.full((capacity,), float("inf") if name == "min" else float("-inf"),
+                          dtype=torch.float64, device=dev)
+            for o, _, name in extremes
+        }
+        with timed("fold"):
+            for blk in range(staged.num_blocks):
+                env = self._block_env(staged, blk)
+                mask = self._block_mask(evaluator, staged, blk, env, aux)
+                jk = env["__jk__"].to(torch.int32)
+                gids = staged.gids[0, blk].to(torch.int32)
+                n = mask.shape[0]
+                left_vals = (
+                    torch.stack([self._f64_arg(evaluator, args[o], env, aux, mask) for o in sums_l])
+                    if sums_l else torch.empty((0, n), dtype=torch.float64, device=dev)
+                )
+                eff = torch.empty(n, dtype=torch.bool, device=dev) if extremes else None
+                segment.join_agg_fold(jk, gids, mask, n_right, left_vals, right_sums, acc, eff)
+                for o, side, name in extremes:
+                    if side == 0:
+                        val = self._f64_arg(evaluator, args[o], env, aux, mask)
+                    else:
+                        val = rstat[(name, o)][jk.long()]
+                    segment.segment_minmax(ext[o], val, gids, eff, name == "min")
+            host = _fetch([acc] + [ext[o] for o, _, _ in extremes])
+        counts = host[0][0]
+        vals = {o: host[0][1 + i] for i, o in enumerate(sums_l)}
+        vals.update({o: host[0][1 + len(sums_l) + j] for j, o in enumerate(sums_r)})
+        vals.update({o: host[1 + i] for i, (o, _, _) in enumerate(extremes)})
+        n = max(key_plan.num_groups, 1) if m.agg_op.groups else 1
+        keep = counts[:n] > 0 if m.agg_op.groups else np.ones(1, dtype=bool)
+        idx = np.nonzero(keep)[0]
+        rel = m.agg_op.output_relation([self._join_pre_agg_relation(m, registry)], registry)
+        out_cols: list = [
+            col.take(idx) if isinstance(col, DictColumn) else np.asarray(col)[keep]
+            for col in key_plan.key_columns
+        ]
+        for out_name, _side, _e, name in m.specs:
+            if name == "count":
+                out = counts[:n][keep]
+            elif name == "mean":
+                out = vals[out_name][:n][keep] / np.maximum(counts[:n][keep], 1.0)
+            else:
+                out = vals[out_name][:n][keep]
+            dt = host_dtype(rel.col(out_name).data_type)
+            out_cols.append(
+                np.round(out).astype(dt) if np.issubdtype(dt, np.integer) else out.astype(dt)
+            )
+        return RowBatch(rel, out_cols, eow=True, eos=True)
+
+    @staticmethod
+    def _join_pre_agg_relation(m: _JoinAggMatch, registry) -> Relation:
+        """The relation the agg's output resolution expects: the group
+        columns (left source terms), then each post-join argument column
+        typed by its side (pixie_tpu/parallel/pipeline.py:2846)."""
+        cols, seen = [], set()
+        for g, e in m.group_exprs:
+            cols.append(ColumnSchema(g, expr_data_type(e, m.left_relation, registry)))
+            seen.add(g)
+        for out_name, agg in m.agg_op.values:
+            for ref in referenced_columns(agg):
+                if ref in seen:
+                    continue
+                for o, side, arg_e, _n in m.specs:
+                    if o == out_name:
+                        rel = m.left_relation if side == 0 else m.right_relation
+                        try:
+                            dt = expr_data_type(arg_e, rel, registry)
+                        except (KeyError, ValueError):
+                            dt = DataType.FLOAT64
+                        cols.append(ColumnSchema(ref, dt))
+                        seen.add(ref)
+                        break
+        return Relation(cols)
 
     # -- staged-column cache -------------------------------------------------
     def _staged_lookup(self, cache_key) -> Optional[StagedColumns]:
@@ -809,10 +1274,13 @@ class DeviceExecutor:
     def _stage_cached(
         self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
         f32_cols: Optional[set] = None, gids: Optional[np.ndarray] = None,
+        extra_cols: Optional[dict] = None,
     ) -> StagedColumns:
         """The staged columns of this table version and window, staged and
         cached on a miss. ``key_sig`` pins what the staging serves (the
-        group expressions, or ``":scan"``)."""
+        group expressions, or ``":scan"``) and with it any ``extra_cols``,
+        host columns of the table's rows staged beside the read ones (the
+        join-aggregate lane's join-key ids)."""
         f32_cols = f32_cols or set()
         # Version = (min_row_id, end_row_id): writes bump end_row_id and
         # ring-buffer expiry bumps min_row_id, so either invalidates.
@@ -833,6 +1301,7 @@ class DeviceExecutor:
                 cols, n = read_columns(
                     table, sorted(base_cols), source_op.start_time, source_op.stop_time
                 )
+            cols.update(extra_cols or {})
             with timed("stage"):
                 staged = stage_columns(
                     cols, n, self.device, block_rows=self.block_rows,
@@ -1214,6 +1683,40 @@ class DeviceExecutor:
             d = StringDictionary()
             out_cols.append(DictColumn(d.encode(np.asarray(vals, dtype=object)), d))
         return RowBatch(rel, out_cols, eow=True, eos=True)
+
+
+def _first_rows(codes: torch.Tensor, num_codes: int) -> torch.Tensor:
+    """int64 [num_codes + 1]: the first row of each code of ``codes`` (the
+    last entry: of the null code -1), int64 max for a code that does not
+    occur: the segment min of the row index, H11 on the card."""
+    n = codes.shape[0]
+    ids = torch.remainder(codes.to(torch.int64), num_codes + 1)
+    return segment.seg_min(torch.arange(n, device=codes.device), ids, num_codes + 1)
+
+
+def _reencode_outer_nulls(codes: np.ndarray, d: StringDictionary, first: np.ndarray):
+    """(dictionary, codes) of an outer join's STRING column whose null rows
+    (code -1) read "", the host node's type default: what the reference
+    gets by decoding every row and re-encoding the strings into a fresh
+    dictionary (pixie_tpu/parallel/pipeline.py:3404-3416, RowBatch.from_pydict),
+    computed from the codes and each code's first row (``_first_rows``)
+    without per-row string work. The numbering matters downstream (a host
+    AggNode emits a batch's groups in code order). StringDictionary.encode
+    numbers new values by first occurrence on its native path, which it
+    takes from 1024 rows up, and in sorted order below: the distinct values
+    in first-occurrence order, padded to 1024 entries where the column has
+    that many, take the same path and get the same numbering."""
+    values = d.values()
+    n = len(codes)
+    seen = np.flatnonzero(first < n)
+    seen = seen[np.argsort(first[seen], kind="stable")]
+    proxy = np.asarray(values + [""], dtype=object)[seen]
+    if n >= 1024 and len(proxy) < 1024:
+        proxy = np.concatenate([proxy, np.repeat(proxy[:1], 1024 - len(proxy))])
+    out = StringDictionary()
+    lut = np.zeros(len(values) + 1, dtype=np.int32)
+    lut[seen] = out.encode(proxy)[: len(seen)]
+    return out, lut[codes]  # code -1 reads lut[-1], the null's entry
 
 
 def _pre_agg_relation(m: _Match, registry):

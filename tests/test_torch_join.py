@@ -22,7 +22,8 @@ Three levels, every one exact (a join only gathers, so no tolerance):
   ``fallback_errors`` stays empty). The gates route the same joins to both
   host nodes; a pre-join filter sends the port's join to its host node and
   the reference's to its lane (the port does not push predicates down yet),
-  with equal results.
+  with equal results; a join feeding a group-by takes the port's
+  join-aggregate lane (tests/test_torch_join_agg.py holds that lane).
 """
 
 import jax
@@ -479,16 +480,65 @@ def test_write_to_either_side_restages_both(join_flags):
     assert got["owner"].count("team-new") == int((fact["svc_idx"] == 3).sum())
 
 
-def test_join_then_aggregate_is_not_ported_yet(join_flags):
-    """A join feeding a group-by needs the join-aggregate lane (K17) or the
-    host AggNode; the port has neither yet and raises."""
+def test_join_then_aggregate_matches_reference(join_flags):
+    """Config 8's join feeding a per-team count. The port takes its
+    join-aggregate lane; the reference, whose lane declines a count of a
+    right column (Fault-8), builds the pairs and counts them on its host
+    AggNode. The counts are equal and numpy's."""
     fact = fact_data(3_000)
     q = join_query(
         "inner", "svc_owners",
         suffix="j = j.groupby(['owner']).agg(n=('latency', px.count))\n",
     )
-    ex = DeviceExecutor(device="cpu", block_rows=BLOCK_ROWS)
-    c = Carnot(device_executor=ex)
-    _fill(c, "port", fact)
-    with pytest.raises(NotImplementedError, match="AggOp"):
-        c.execute_query(q)
+    got, lanes = run_port(fact, q)
+    want, ref_lanes = run_ref(fact, q)
+    assert lanes == {"join_agg": 1} and ref_lanes.get("join_sort_merge") == 1
+    assert got == want
+    teams = fact["svc_idx"] % 4
+    assert got["owner"] == [f"team-{t}" for t in range(4)]
+    assert got["n"] == [int((teams == t).sum()) for t in range(4)]
+
+
+@pytest.mark.parametrize("n_fact", [600, 20_000])
+@pytest.mark.parametrize("how", ["left", "right", "outer"])
+def test_outer_null_strings_take_the_reference_codes(join_flags, how, n_fact):
+    """A STRING column with outer-null rows: the reference decodes it and
+    re-encodes the strings into a fresh dictionary, numbered in sorted order
+    below 1024 rows and by first occurrence above; the port's lane gives the
+    same dictionary and codes (a host AggNode after the join emits its
+    groups in code order)."""
+    fact = fact_data(n_fact)
+    q = join_query(how, "svc_owners_partial")
+    batches = {}
+    for pkg, carnot in (("port", Carnot(device_executor=DeviceExecutor(
+            device="cpu", block_rows=BLOCK_ROWS))), ("ref", RefCarnot(device_executor=MeshExecutor(
+            mesh=Mesh(np.array(jax.devices()[:1]), ("d",)), block_rows=BLOCK_ROWS)))):
+        _fill(carnot, pkg, fact)
+        (batches[pkg],) = [b for b in carnot.execute_query(q).tables["joined"] if b.num_rows]
+    for name in ("svc", "owner", "service"):
+        got, want = batches["port"].col(name), batches["ref"].col(name)
+        assert got.dictionary.values() == want.dictionary.values(), name
+        assert np.array_equal(got.codes, want.codes), name
+
+
+def test_left_join_then_aggregate_matches_reference(join_flags):
+    """chip_smoke.py's join8_left_agg: LEFT is not the join-aggregate lane's
+    shape, so both sort-merge lanes build the pairs and both host AggNodes
+    aggregate them: the four teams in first-occurrence order, then the
+    unowned services' rows (owner ""). Counts and maxima exact, means
+    within a relative 1e-12."""
+    fact = fact_data(20_000)
+    q = (
+        "l = px.DataFrame(table='join_fact')\n"
+        "r = px.DataFrame(table='svc_owners_partial')\n"
+        "j = l.merge(r, how='left', left_on=['service'], right_on=['svc'], suffixes=['', '_r'])\n"
+        "j = j.groupby(['owner']).agg(n=('latency', px.count), lat_mean=('latency', px.mean),"
+        " lat_max=('latency', px.max))\n"
+        "px.display(j, 'joined')\n"
+    )
+    got, lanes = run_port(fact, q)
+    want, ref_lanes = run_ref(fact, q)
+    assert lanes == {"join_sort_merge": 1} and ref_lanes.get("join_sort_merge") == 1
+    assert got["owner"] == want["owner"] == ["team-0", "team-1", "team-3", "team-2", ""]
+    assert got["n"] == want["n"] and got["lat_max"] == want["lat_max"]
+    np.testing.assert_allclose(got["lat_mean"], want["lat_mean"], rtol=1e-12, atol=0)

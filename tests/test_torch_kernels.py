@@ -1,4 +1,4 @@
-"""The hand kernels (H1-H15 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H16 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
@@ -18,7 +18,8 @@ one state within a relative 1e-6. Segment min/max (H11) and the scan's
 compaction (H12) bit for bit, NaN, signed zeros and subnormals included.
 The join's probe (H13), pair emission (H14) on the slots below the match
 count, gathers (H15) and unmatched-row compaction (H12 over row indices)
-exactly.
+exactly. The join-aggregate fold (H16): the count row and the effective
+mask exactly, every sum within 1e-12 * sum |terms| of its cell (H2's bound).
 """
 
 import json
@@ -319,6 +320,57 @@ def test_segment_kernels_match_plain_on_card():
 def test_histogram_kernels_match_plain_on_card():
     _need_cards(1)
     _check_histogram_kernels(torch.device("cuda", 0))
+
+
+def join_agg_inputs(seed: int, n: int, K: int, cap: int, S_l: int, S_r: int, dev):
+    """H16's inputs: weights 0-5 (a zero weight is a key with no match), a
+    random mask, masked and zero-weight rows carrying +-inf and NaN."""
+    rng = np.random.default_rng(seed)
+    jk = rng.integers(0, K, n).astype(np.int32)
+    gids = rng.integers(0, cap, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    n_right = rng.integers(0, 6, K).astype(np.float64)
+    left = rng.exponential(3e7, (S_l, n))
+    dead = ~mask | (n_right[jk] == 0)
+    left[:, dead] = rng.choice([np.inf, -np.inf, np.nan], (S_l, int(dead.sum())))
+    right = rng.exponential(3e7, (S_r, K))
+    return [torch.from_numpy(a).to(dev) for a in (jk, gids, mask, n_right, left, right)]
+
+
+def check_join_agg_fold(ins, cap: int) -> None:
+    """H16 against its plain version on the same card tensors."""
+    jk, gids, mask, n_right, left, right = ins
+    rows = 1 + left.shape[0] + right.shape[0]
+    dev = jk.device
+    got = torch.zeros((rows, cap), dtype=torch.float64, device=dev)
+    want = torch.zeros_like(got)
+    mag = torch.zeros_like(got)
+    eff_got = torch.empty(jk.shape[0], dtype=torch.bool, device=dev)
+    eff_want = torch.empty_like(eff_got)
+    before = kernels.LAUNCHES["join_agg_fold"]
+    segment.join_agg_fold(jk, gids, mask, n_right, left, right, got, eff_got)
+    assert kernels.LAUNCHES["join_agg_fold"] == before + 1
+    segment.join_agg_fold_plain(jk, gids, mask, n_right, left, right, want, eff_want)
+    # sum |terms| per cell: the plain fold of |values| (weights are >= 0).
+    segment.join_agg_fold_plain(jk, gids, mask, n_right, left.abs(), right.abs(), mag)
+    torch.cuda.synchronize()
+    assert torch.equal(eff_got, eff_want)
+    assert torch.equal(got[0], want[0])
+    assert bool(torch.isfinite(got).all())
+    assert bool(torch.all((got - want).abs() <= 1e-12 * mag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,cap,S_l,S_r", [
+    (16, 16, 1, 1),  # the join8_oncall_agg block: statistics and sums in shared memory
+    (1 << 20, 1 << 16, 1, 1),  # both in global memory
+    (1 << 16, 16, 2, 0),  # shared sums, statistics through __ldg
+    (16, 1 << 16, 0, 2),  # shared statistics, global sums
+])
+def test_join_agg_kernel_matches_plain_on_card(K, cap, S_l, S_r):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    check_join_agg_fold(join_agg_inputs(K + cap, 1 << 21, K, cap, S_l, S_r, dev), cap)
 
 
 @pytest.mark.cuda

@@ -55,7 +55,9 @@ def _http_events(n: int, n_services: int, seed: int) -> dict:
     }
 
 
-def _run_both(data: dict, query: str = SERVICE_STATS, name: str = "service_stats"):
+def _carnots(data: dict):
+    """The reference's Carnot + MeshExecutor and the port's Carnot +
+    DeviceExecutor(device="cpu"), each holding http_events = ``data``."""
     ref = RefCarnot(
         device_executor=MeshExecutor(
             mesh=Mesh(np.array(jax.devices()[:1]), ("d",)), block_rows=1 << 14
@@ -77,6 +79,11 @@ def _run_both(data: dict, query: str = SERVICE_STATS, name: str = "service_stats
         ("latency", DataType.FLOAT64, SemanticType.ST_DURATION_NS),
     )
     table_from_columns(port.table_store, "http_events", rel, dict(data))
+    return ref, port
+
+
+def _run_both(data: dict, query: str = SERVICE_STATS, name: str = "service_stats"):
+    ref, port = _carnots(data)
     want = ref.execute_query(query)
     # The reference folded on its device path, not on its host AggNode.
     assert ref.device_executor.last_fold_ms is not None
@@ -184,18 +191,19 @@ def test_host_densified_keys_match_reference(agg):
         "df.groupby(['service']).agg(n=('time_', px.count))\npx.display(df, 'raw')",
     ],
 )
-def test_unoffloadable_fragment_raises(agg):
-    port = Carnot(device_executor=DeviceExecutor(device="cpu"))
-    rel = Relation.of(
-        ("time_", DataType.TIME64NS),
-        ("service", DataType.STRING),
-        ("resp_status", DataType.INT64),
-        ("latency", DataType.FLOAT64),
-    )
-    table_from_columns(port.table_store, "http_events", rel, _http_events(100, 3, 0))
+def test_unoffloadable_fragment_runs_on_the_host_aggnode(agg):
+    """What the DeviceExecutor does not take runs on the host AggNode, its
+    states on the executor's device (the CPU here), and equals the
+    reference's result: the second aggregation after the device fold, and
+    both sinks of the shared source."""
+    ref, port = _carnots(_http_events(2_000, 3, 0))
     query = f"df = px.DataFrame(table='http_events')\nstats = {agg}\npx.display(stats, 'o')\n"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port.execute_query(query)
+    want = ref.execute_query(query)
+    got = port.execute_query(query)
+    assert not ref.device_executor.fallback_errors
+    assert sorted(got.tables) == sorted(want.tables)
+    for name in want.tables:
+        assert got.table(name) == want.table(name) and got.table(name)
 
 
 def test_unported_udf_fails_at_compile_time():
