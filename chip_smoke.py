@@ -13,18 +13,21 @@ the CUDA toolkit. In order it:
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
    and H11 as config 3 and the flows min/max run them, config 1's first
    block for H12, config 8's probe side for H13-H15, join8_oncall_agg's
-   block for H16) and at shapes that take its other memory path (edge
-   cases for the join's kernels),
+   block for H16, a block of the let table for H17's two programs: svc_let's
+   predicate program and an f64 program) and at shapes that take its other
+   memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
    scan's compaction and the join exact; t-digest cluster cells under
-   Fault-4), and
+   Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
-   kernel), and the kernel again with the calls paced by the host;
+   kernel; for H17 the tree of torch ops it replaces), and the kernel again
+   with the calls paced by the host;
 4. checks the kernel path against the plain path end to end at 2^20 rows
    for the queries below, config 4 with a filter (any() through H11),
-   every join type over both owner tables, and the three join aggregates;
+   every join type over both owner tables, the three join aggregates and
+   Q1-Q4;
 5. runs the port's main paths through
    Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
    launch counts zeroed just before it, one cold and three warm queries,
@@ -74,6 +77,20 @@ the CUDA toolkit. In order it:
      through the sort-merge lane and the host AggNode on the card (H1, H2,
      H11): four teams and the unowned services' group, counts and maxima
      exact, means within a relative 1e-12;
+   - service_stats.pxl's own functions over a let table (seed 47, 2^25 rows
+     18 us apart: 16 services, 4096 request paths /api/v1/res-<r>/<id> plus
+     /healthz and /readyz, 1024 clients plus '-', config 2's status mix,
+     exponential(3e7) latency, lognormal body sizes), each through H17:
+     Q1 svc_let (filters, contains(service, 'svc-1'), bin windows on the
+     host key plan; H1-H4), Q2 http_code_histogram and Q3
+     latency_histogram (counts exact, Q3's float bins bit-equal to numpy's),
+     and Q4, per-endpoint load keyed by regex_replace of the path (the
+     dictionary-LUT key) with approx_count_distinct and count_min over
+     STRING columns (the arghash lane: hash32, H5, H6, H10), stddev,
+     variance, a select sum, mean(log10) and a floor sum, against numpy
+     truths (counts and integer sums exact, p50/p90/p99 within 4%, error
+     rate within 1e-9, distinct clients within 12%, variance within
+     4e-12 * sumsq / n), each query counting its fold lane;
 6. prints each phase's seconds, one JSON line of per-kernel results, the
    nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 
@@ -125,6 +142,7 @@ REPLACES = {
     "join_emit_pairs": "pixie_tpu/ops/segment.py:531",
     "join_gather": "pixie_tpu/parallel/pipeline.py:3318",
     "join_agg_fold": "pixie_tpu/parallel/pipeline.py:2664",
+    "scalar_eval": "pixie_tpu/exec/expression_evaluator.py:219",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -134,6 +152,7 @@ SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/join_kernels.cu"
        for k in ("join_probe", "join_emit_pairs", "join_gather")},
     "join_agg_fold": "pixie_tpu_torch/ops/kernels/join_agg_kernels.cu",
+    "scalar_eval": "pixie_tpu_torch/ops/kernels/scalar_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -254,6 +273,62 @@ JOIN8_LEFT_AGG = (
     "    lat_max=('latency', px.max))\n"
     "px.display(s, 'out')\n"
 )
+# service_stats.pxl's own functions (ROADMAP queue 1 item 1's path) over an
+# http_events table with the columns they read: svc_let (Q1),
+# http_code_histogram (Q2) and latency_histogram (Q3), df.ctx['service']
+# read as the table's service column (metadata is ROADMAP queue 1 item 2);
+# and Q4, per-endpoint load keyed by the request path with its IDs
+# collapsed (the dictionary-LUT key lane), with the STRING sketches (the
+# arghash lane), stddev, variance and three H17 arguments.
+LET_ROWS = 1 << 25
+LET_NOW = 1_700_000_000_000_000_000
+LET_ROW_NS = 18_000  # 2^25 rows span ~604 s: ~61 windows of 10 s
+N_RESOURCES, N_IDS, N_ADDRS = 32, 128, 1024
+N_PATHS = N_RESOURCES * N_IDS  # then /healthz (2%) and /readyz (1%)
+LET_SERVICES = [f"svc-{i}" for i in range(N_SERVICES)]
+LET_FAMILY = (1,) + tuple(range(10, 16))  # contains(service, 'svc-1')
+LET_WINDOW_NS = 10 * 1_000_000_000
+LET_BIN_NS = 50 * 1_000_000
+SERVICE_STATS_PXL = "pixie_tpu/scripts/px/service_stats/service_stats.pxl"
+LET_CALLS = {
+    "let": "px.display(svc_let('-15m', 'svc-1'), 'let')",
+    "codes": "px.display(http_code_histogram('-15m', 'svc-1'), 'codes')",
+    "lat_hist": "px.display(latency_histogram('-15m', 'svc-1'), 'lat_hist')",
+}
+ENDPOINT_LOAD = (
+    "df = px.DataFrame(table='http_events', start_time='-15m')\n"
+    "df.endpoint = px.regex_replace('/[0-9]+', df.req_path, '/{id}')\n"
+    "df.err_bytes = px.select(df.resp_status >= 400, df.resp_body_size, 0)\n"
+    "df.log_lat = px.log10(df.latency)\n"
+    "df.lat_ms = px.floor(df.latency / 1000000.0)\n"
+    "s = df.groupby('endpoint').agg(\n"
+    "    n=('latency', px.count),\n"
+    "    clients=('remote_addr', px.approx_count_distinct),\n"
+    "    paths=('req_path', px.count_min),\n"
+    "    sd=('latency', px.stddev),\n"
+    "    var=('latency', px.variance),\n"
+    "    err_bytes=('err_bytes', px.sum),\n"
+    "    mlog=('log_lat', px.mean),\n"
+    "    ms=('lat_ms', px.sum),\n"
+    ")\n"
+    "px.display(s, 'load')\n"
+)
+
+
+def let_queries() -> dict:
+    """{output table: PxL} of Q1-Q4: the bundled script, unchanged except
+    for the ctx read, with one call of its function appended."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), SERVICE_STATS_PXL)
+    with open(path) as f:
+        script = f.read().replace("df.ctx[k8s_object]", "df[k8s_object]")
+    check("df[k8s_object]" in script, "service_stats.pxl: the ctx read was not found")
+    out = {name: script + "\n" + call + "\n" for name, call in LET_CALLS.items()}
+    out["load"] = ENDPOINT_LOAD
+    return out
+
+
 # The groups of JOIN8_LEFT_AGG in emission order: each team as its first
 # matched svc_owners_partial row meets it, then the unowned services' rows
 # (owner ""), as tests/test_torch_join_agg.py pins against the reference.
@@ -1109,6 +1184,150 @@ def join_agg_kernel_phase(dev) -> dict:
     return {"join_agg_fold": rec}
 
 
+def let_programs(dev, n: int):
+    """H17's two programs of the kernel phase over one block of Q1-Q4's
+    table staged as the main path stages it (codes and ints narrowed,
+    H17 widening them on load): (a) Q1's predicate program (service != '',
+    the health-check and unresolved-client filters, contains(service,
+    'svc-1') through a bool LUT, all ANDed into the validity mask) with the
+    failure output; (b) floor(latency / 1e6), log10(latency) and
+    select(resp_status >= 400, resp_body_size, 0). Returns [(name, program,
+    raw columns, offsets, aux, the trees, the evaluator)]."""
+    from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
+    from pixie_tpu_torch.parallel.staging import stage_columns
+    from pixie_tpu_torch.plan.expressions import ColumnRef as C, Constant as K, FuncCall as Fn
+    from pixie_tpu_torch.table.column import StringDictionary
+    from pixie_tpu_torch.types import DataType as DT, Relation
+    from pixie_tpu_torch.udf.builtins import register_all
+    from pixie_tpu_torch.udf.registry import Registry
+
+    reg = Registry()
+    register_all(reg)
+    ev = let_events(n)
+    cols = {"service": ev["svc"], "req_path": ev["path"], "remote_addr": ev["addr"],
+            "resp_status": ev["status"], "latency": ev["latency"], "resp_body_size": ev["body"]}
+    staged = stage_columns(cols, n, dev, block_rows=n)
+    raw = {c: t[0, 0] for c, t in staged.blocks.items()}
+    raw["__valid__"] = staged.mask[0, 0]
+    dicts = {}
+    for c, values in let_dictionaries().items():
+        dicts[c] = StringDictionary()
+        dicts[c].encode(np.asarray(values, dtype=object))
+    rel = Relation.of(("service", DT.STRING), ("req_path", DT.STRING), ("remote_addr", DT.STRING),
+                      ("resp_status", DT.INT64), ("latency", DT.FLOAT64), ("resp_body_size", DT.INT64))
+    s, i, f, b = (lambda v: K(v, DT.STRING)), (lambda v: K(v, DT.INT64)), \
+        (lambda v: K(v, DT.FLOAT64)), (lambda v: K(v, DT.BOOLEAN))
+    ne = lambda col, v: Fn("notEqual", (C(col), s(v)))
+    preds = [
+        ne("service", ""),
+        Fn("logical_and", (Fn("logical_and", (Fn("logical_or", (ne("req_path", "/healthz"), b(False))),
+                                              Fn("logical_or", (ne("req_path", "/readyz"), b(False))))),
+                           Fn("logical_or", (ne("remote_addr", "-"), b(False))))),
+        Fn("contains", (C("service"), s("svc-1"))),
+    ]
+    programs = {
+        "a": ([("failure", Fn("greaterThanEqual", (C("resp_status"), i(400))))], preds),
+        "b": ([("lat_ms", Fn("floor", (Fn("divide", (C("latency"), f(1e6))),))),
+               ("log_lat", Fn("log10", (C("latency"),))),
+               ("err_bytes", Fn("select", (Fn("greaterThanEqual", (C("resp_status"), i(400))),
+                                           C("resp_body_size"), i(0))))], []),
+    }
+    out = []
+    for name, (roots, pr) in programs.items():
+        evr = ExpressionEvaluator(roots + [(f"pred{k}", p) for k, p in enumerate(pr)], rel, reg)
+        aux = {}
+        for _, e in evr.named_exprs:
+            aux.update({k: torch.as_tensor(np.asarray(v), device=dev)
+                        for k, v in evr.build_aux(e, dicts).items()})
+        dtypes = {c.name: {DT.FLOAT64: torch.float64}.get(c.data_type, torch.int64) for c in rel}
+        dtypes["__valid__"] = torch.bool
+        prog = evr.compile_program([(k, e, None, None) for k, e in roots], dtypes, aux,
+                                   mask=("__valid__", pr))
+        out.append((name, prog, raw, staged.narrow_offsets, aux, roots, pr, evr))
+    return out
+
+
+def scalar_kernel_phase(dev) -> dict:
+    """H17 against its plain interpreter on the card at 2^21 rows over the
+    two programs of ``let_programs``: bool and int outputs bit for bit,
+    floor and select too, log10 within 2 ulp (PERF.md's H17 contract).
+    Timed: H17, the plain interpreter (the same instructions as torch ops)
+    and the tree of torch ops it replaces (each narrowed column widened,
+    then one torch call per node: device_eval). No one PyTorch call
+    computes an expression tree, so library_ms is null; the torch tree's
+    time stands beside it."""
+    from pixie_tpu_torch.ops import kernels, scalar
+
+    n = BLOCK_ROWS
+    rec = {}
+    for name, prog, raw, offs, aux, roots, preds, evr in let_programs(dev, n):
+        cols = [raw[c] for c in prog.columns]
+        offsets = [int(offs.get(c, 0)) for c in prog.columns]
+        luts = [aux[k] for k in prog.luts]
+
+        def h17():
+            return prog.run({"__valid__": raw["__valid__"]}, aux, n, raw=raw, offsets=offs)
+
+        def plain():
+            return scalar.eval_plain(prog, cols, luts, n, offsets)
+
+        def tree():
+            env = {c: (t.to(torch.int64) + offs[c] if c in offs else t) for c, t in raw.items()}
+            out = {}
+            if preds:
+                m = env["__valid__"]
+                for p in preds:
+                    m = m & evr.device_eval(p, env, aux)
+                out["__mask__"] = m
+            for k, e in roots:
+                out[k] = torch.as_tensor(evr.device_eval(e, env, aux))
+            return out
+
+        before = kernels.LAUNCHES["scalar_eval"]
+        got = h17()
+        check(kernels.LAUNCHES["scalar_eval"] == before + 1, "H17 counts one launch a run")
+        want = dict(zip([o for o, _ in prog.outputs], plain()))
+        walk = tree()
+        torch.cuda.synchronize()
+        err, ulp = 0.0, 0
+        for k, w in want.items():
+            g = got[k]
+            check(g.dtype == w.dtype, f"H17 ({name}) {k}: dtype")
+            if k == "log_lat":
+                same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+                gi, wi = g.view(torch.int64)[~same], w.view(torch.int64)[~same]
+                ulp = int((gi - wi).abs().max()) if gi.numel() else 0
+                check(ulp <= 2, f"H17 ({name}) log10: {ulp} ulp from the plain version")
+                err = max(err, float((g - w).abs().max()))
+            else:
+                check(bits_equal(g, w), f"H17 ({name}) {k}: not bit-equal to the plain version")
+            tw = walk[k].to(w.dtype)
+            check(bits_equal(tw, w) or k == "log_lat", f"H17 ({name}) {k}: plain vs torch tree")
+        if "__mask__" in want:
+            kept = int(want["__mask__"].sum())
+            check(0 < kept < n, f"H17 ({name}): mask keeps {kept} rows")
+        in_bytes = sum(c.numel() * c.element_size() for c in cols)
+        out_bytes = sum(t.numel() * t.element_size() for t in want.values())
+        ops = n * sum(1 for ins in prog.code
+                      if scalar.OPS[ins[0]] not in ("LOAD", "CONST", "STORE"))
+        r = record(h17, plain, None, *bound(in_bytes + out_bytes, ops), err,
+                   f"program ({name}): {len(prog.code)} instructions, {len(cols)} columns "
+                   f"{[str(c.dtype).replace('torch.', '') for c in cols]}, {len(prog.outputs)} "
+                   f"outputs, {n} rows")
+        r["torch_tree_ms"] = time_ms(tree)
+        r["library_ms_note"] = "none: an expression tree is several torch calls"
+        r["log10_ulp"] = ulp
+        log(f"H17 scalar_eval ({name}): {r['shape']}: {r['ms']:.4f} ms (host-paced "
+            f"{r['host_paced_ms']:.4f}), plain {r['plain_ms']:.4f}, torch tree "
+            f"{r['torch_tree_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']}, "
+            f"{in_bytes + out_bytes} B); bit-equal but log10 ({ulp} ulp)")
+        rec[name] = r
+    main = dict(rec["a"])
+    for k, v in rec["b"].items():
+        main[f"b_{k}"] = v
+    return {"scalar_eval": main}
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -1606,6 +1825,197 @@ def verify_join8_left_agg(result, truth: dict) -> None:
               f"left_agg {owner!r}: lat_max")
 
 
+def let_events(n_rows: int) -> dict:
+    """Q1-Q4's http_events, seed 47, as dictionary codes and values: 16
+    services; request paths /api/v1/res-<r>/<id> over 32 resources and 128
+    ids (code r * 128 + id), /healthz at 2% (code 4096) and /readyz at 1%
+    (4097); 1024 client IPs and '-' at 1% (code 1024); config 2's status
+    mix; exponential(3e7) latency; lognormal(7, 1) body sizes, rounded;
+    rows 18 us apart, ending at LET_NOW."""
+    rng = np.random.default_rng(47)
+    u = rng.random(n_rows)
+    path = rng.integers(0, N_PATHS, n_rows).astype(np.int32)
+    path[u < 0.02] = N_PATHS
+    path[(u >= 0.02) & (u < 0.03)] = N_PATHS + 1
+    addr = rng.integers(0, N_ADDRS, n_rows).astype(np.int32)
+    addr[rng.random(n_rows) < 0.01] = N_ADDRS
+    opts = np.array(STATUSES, np.int64)
+    status = opts[np.searchsorted(np.cumsum([0.85, 0.05, 0.05, 0.05]), rng.random(n_rows),
+                                  side="right")]
+    return dict(
+        time_=LET_NOW - (n_rows - np.arange(n_rows, dtype=np.int64)) * LET_ROW_NS,
+        svc=rng.integers(0, N_SERVICES, n_rows).astype(np.int32),
+        path=path, addr=addr, status=status,
+        latency=rng.exponential(3e7, n_rows),
+        body=np.round(rng.lognormal(7.0, 1.0, n_rows)).astype(np.int64),
+    )
+
+
+def let_dictionaries() -> dict:
+    paths = [f"/api/v1/res-{r}/{i}" for r in range(N_RESOURCES) for i in range(N_IDS)]
+    addrs = [f"10.0.{i // 256}.{i % 256}" for i in range(N_ADDRS)]
+    return {"service": LET_SERVICES, "req_path": paths + ["/healthz", "/readyz"],
+            "remote_addr": addrs + ["-"]}
+
+
+def build_let_carnot(ev: dict, n_rows: int, device: str):
+    """Q1-Q4's table with identity dictionary codes, written in 16M-row
+    chunks."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    rel = Relation.of(
+        ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
+        ("service", DataType.STRING, SemanticType.ST_SERVICE_NAME),
+        ("req_path", DataType.STRING), ("remote_addr", DataType.STRING),
+        ("resp_status", DataType.INT64),
+        ("latency", DataType.FLOAT64, SemanticType.ST_DURATION_NS),
+        ("resp_body_size", DataType.INT64, SemanticType.ST_BYTES),
+    )
+    table = carnot.table_store.create_table("http_events", rel, size_limit=1 << 42)
+    for col, values in let_dictionaries().items():
+        for v in values:
+            table.dictionaries[col].get_code(v)
+    codes = {"service": "svc", "req_path": "path", "remote_addr": "addr"}
+    chunk = 16_000_000
+    for off in range(0, n_rows, chunk):
+        sl = slice(off, min(off + chunk, n_rows))
+        table.write_pydict({
+            "time_": ev["time_"][sl],
+            **{c: DictColumn(ev[k][sl], table.dictionaries[c]) for c, k in codes.items()},
+            "resp_status": ev["status"][sl], "latency": ev["latency"][sl],
+            "resp_body_size": ev["body"][sl],
+        })
+    table.compact()
+    table.stop()
+    check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "let table expired rows")
+    return carnot
+
+
+def let_truth(ev: dict) -> dict:
+    """numpy truths of Q1-Q4 from the generated columns."""
+    keep = (ev["path"] < N_PATHS) & (ev["addr"] < N_ADDRS)
+    fam = keep & np.isin(ev["svc"], LET_FAMILY)
+    t = {}
+    # Q1: per (service, window) count, failures, body bytes, latency histogram.
+    win = ev["time_"][fam] - np.remainder(ev["time_"][fam], LET_WINDOW_NS)
+    w0 = int(win.min()) if win.size else 0
+    wi = (win - w0) // LET_WINDOW_NS
+    nw = int(wi.max()) + 1 if win.size else 1
+    g = ev["svc"][fam].astype(np.int64) * nw + wi
+    size = N_SERVICES * nw
+    # Integer sums below 2^53 are exact in f64 in any order.
+    t["q1"] = dict(
+        w0=w0, nw=nw,
+        count=np.bincount(g, minlength=size),
+        fail=np.bincount(g, weights=ev["status"][fam] >= 400, minlength=size).astype(np.int64),
+        bytes=np.bincount(g, weights=ev["body"][fam], minlength=size).astype(np.int64),
+        hist=np.bincount(g * TRUTH_BINS + np.digitize(ev["latency"][fam], TRUTH_EDGES),
+                         minlength=size * TRUTH_BINS).reshape(size, TRUTH_BINS),
+    )
+    st, cnt = np.unique(ev["status"][fam], return_counts=True)
+    t["q2"] = dict(zip(st.tolist(), cnt.tolist()))
+    lat = ev["latency"][fam]
+    bins, cnt = np.unique((lat - np.remainder(lat, float(LET_BIN_NS))).astype(np.int64),
+                          return_counts=True)
+    t["q3"] = dict(zip(bins.tolist(), cnt.tolist()))
+    # Q4: the endpoint of a path is its resource (code // 128), then the
+    # two health paths.
+    ep = np.where(ev["path"] < N_PATHS, ev["path"] // N_IDS,
+                  N_RESOURCES + ev["path"] - N_PATHS).astype(np.int64)
+    E = N_RESOURCES + 2
+    x = ev["latency"]
+    err = np.where(ev["status"] >= 400, ev["body"], 0)
+    q4 = dict(
+        n=np.bincount(ep, minlength=E),
+        err_bytes=np.bincount(ep, weights=err, minlength=E).astype(np.int64),
+        ms=np.bincount(ep, weights=np.floor(x / 1e6), minlength=E).astype(np.int64),
+        sum=np.zeros(E), sumsq=np.zeros(E), mlog=np.zeros(E), path_max=np.zeros(E, np.int64),
+    )
+    pf = np.bincount(ev["path"], minlength=N_PATHS + 2)
+    for e in range(E):
+        xs = x[ep == e]  # np.sum adds pairwise: the f64 truths' error stays ~1e-16
+        q4["sum"][e], q4["sumsq"][e] = np.sum(xs), np.sum(xs * xs)
+        q4["mlog"][e] = np.sum(np.log10(xs))
+        codes = (np.arange(e * N_IDS, (e + 1) * N_IDS) if e < N_RESOURCES
+                 else [N_PATHS + e - N_RESOURCES])
+        q4["path_max"][e] = pf[codes].max()
+    seen = np.zeros((E, N_ADDRS + 1), bool)
+    seen[ep, ev["addr"]] = True
+    q4["clients"] = seen.sum(axis=1)
+    t["q4"] = q4
+    return t
+
+
+def endpoint_names() -> list:
+    return [f"/api/v1/res-{r}/{{id}}" for r in range(N_RESOURCES)] + ["/healthz", "/readyz"]
+
+
+def verify_q1(result, t: dict) -> None:
+    """Q1 (svc_let): the (service, window) groups of svc-1 and svc-10..15,
+    time_ the window start, request and byte throughputs exact (count and
+    byte sum over 10 s), error rate within 1e-9 of the truth's, p50, p90
+    and p99 within 4% of the truth histogram's."""
+    rows = result.table("let")
+    q = t["q1"]
+    want = {(LET_SERVICES[k // q["nw"]], q["w0"] + (k % q["nw"]) * LET_WINDOW_NS)
+            for k in np.flatnonzero(q["count"])}
+    got = list(zip(rows["k8s"], rows["time_"]))
+    check(len(got) == len(set(got)) and set(got) == want, f"let groups: {len(got)} vs {len(want)}")
+    for i, (svc, ts) in enumerate(got):
+        k = LET_SERVICES.index(svc) * q["nw"] + (ts - q["w0"]) // LET_WINDOW_NS
+        n = int(q["count"][k])
+        check(rows["request_throughput"][i] == n / LET_WINDOW_NS, f"let {svc} {ts}: throughput")
+        check(rows["bytes_throughput"][i] == int(q["bytes"][k]) / LET_WINDOW_NS,
+              f"let {svc} {ts}: bytes")
+        er = rows["error_rate"][i] * LET_WINDOW_NS / n
+        check(abs(er - q["fail"][k] / n) <= 1e-9, f"let {svc} {ts}: error rate")
+        for key, qq in (("latency_p50", 0.50), ("latency_p90", 0.90), ("latency_p99", 0.99)):
+            want_q = truth_quantile(q["hist"][k], qq)
+            check(abs(rows[key][i] - want_q) <= 0.04 * want_q, f"let {svc} {ts}: {key}")
+
+
+def verify_q2(result, t: dict) -> None:
+    rows = result.table("codes")
+    check(dict(zip(rows["resp_status"], rows["count"])) == t["q2"], "http_code_histogram counts")
+
+
+def verify_q3(result, t: dict) -> None:
+    rows = result.table("lat_hist")
+    check(dict(zip(rows["request_latency"], rows["count"])) == t["q3"],
+          "latency_histogram bins and counts")
+
+
+def verify_q4(result, t: dict) -> None:
+    """Q4: counts, the select sum and the floor(ms) sum exact; distinct
+    clients within 12% per endpoint and 2.5% on average; count-min total
+    exact and max_est between the largest true path frequency and the
+    total; variance within 4e-12 * sumsq / n of the truth's formula, stddev
+    correspondingly; mean(log10) within a relative 1e-12."""
+    rows = result.table("load")
+    q = t["q4"]
+    check(rows["endpoint"] == endpoint_names(), f"load endpoints: {rows['endpoint'][:3]}...")
+    rel = []
+    for e in range(len(rows["endpoint"])):
+        n = int(q["n"][e])
+        check(rows["n"][e] == n, f"load {e}: n")
+        check(rows["err_bytes"][e] == q["err_bytes"][e], f"load {e}: err_bytes")
+        check(rows["ms"][e] == q["ms"][e], f"load {e}: ms")
+        cm = json.loads(rows["paths"][e])
+        check(cm["total"] == n and q["path_max"][e] <= cm["max_est"] <= n, f"load {e}: count_min")
+        rel.append(abs(rows["clients"][e] - q["clients"][e]) / q["clients"][e])
+        ex2 = q["sumsq"][e] / n
+        var = ex2 - (q["sum"][e] / n) ** 2
+        check(abs(rows["var"][e] - var) <= 4e-12 * ex2, f"load {e}: variance")
+        check(abs(rows["sd"][e] ** 2 - var) <= 4e-12 * ex2, f"load {e}: stddev")
+        mlog = q["mlog"][e] / n
+        check(abs(rows["mlog"][e] - mlog) <= 1e-12 * abs(mlog), f"load {e}: mean log10")
+    check(max(rel) <= 0.12 and float(np.mean(rel)) <= 0.025, f"load clients: rel err {max(rel)}")
+
+
 def verify(result, data: dict, n_rows: int) -> None:
     """bench.py's run_config_2 verify(), unchanged in substance."""
     rows = result.table("service_stats")
@@ -1773,9 +2183,40 @@ def slice_parity(n_rows: int) -> None:
     log(f"slice parity at {n_rows} rows: join8_team_agg, join8_oncall_agg (join-aggregate lane) "
         "and join8_left_agg (host AggNode): groups, counts, ints and min/max equal, sums within "
         "1e-12 relative")
+    let_parity(n_rows)
 
 
-def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
+def let_parity(n_rows: int) -> None:
+    """Q1-Q4, kernel path against plain path at ``n_rows`` rows: groups,
+    order, counts, integer sums, count-min JSON and time_ exact; the
+    quantile latencies within one log bin (Fault-1); error rates, means and
+    variances within a relative 1e-12 (f64 sums in another order); distinct
+    counts at most one apart (equal registers, H10's f64 sum)."""
+    from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
+
+    ev = let_events(n_rows)
+    cuda, cpu = build_let_carnot(ev, n_rows, "cuda"), build_let_carnot(ev, n_rows, "cpu")
+    for table, query in let_queries().items():
+        got = cuda.execute_query(query, now_ns=LET_NOW).table(table)
+        want = cpu.execute_query(query, now_ns=LET_NOW).table(table)
+        check(got.keys() == want.keys() and len(next(iter(got.values()))) > 0, f"{table}: columns")
+        for k in got:
+            g, w = got[k], want[k]
+            if k.startswith("latency_p"):
+                ok = all(abs(a - b) <= (DEFAULT_SPEC.gamma - 1) * max(a, b) * (1 + 1e-9) + 1
+                         for a, b in zip(g, w))
+            elif k == "clients":
+                ok = max(abs(a - b) for a, b in zip(g, w)) <= 1
+            elif w and isinstance(w[0], float):
+                ok = np.allclose(g, w, rtol=1e-12, atol=0)
+            else:
+                ok = g == w
+            check(ok, f"{table} {k}: cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: svc_let, http_code_histogram, latency_histogram and "
+        "endpoint load kernel path == plain path (quantiles within a bin, f64 within 1e-12)")
+
+
+def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None) -> dict:
     """One main path: launch counts zeroed just before, one cold query (the
     executor's staged columns and key plans dropped first, so that no path
     reuses another's) and WARM_QUERIES warm queries, each verified, counts
@@ -1788,7 +2229,7 @@ def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
     staging.reset_cold_profile()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = carnot.execute_query(query)
+    result = carnot.execute_query(query, now_ns=now_ns)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     cold_phases = staging.reset_cold_profile()
@@ -1796,7 +2237,7 @@ def drive(carnot, query: str, verify_fn, expect: tuple) -> dict:
     warm = []
     for _ in range(WARM_QUERIES):
         t0 = time.perf_counter()
-        result = carnot.execute_query(query)
+        result = carnot.execute_query(query, now_ns=now_ns)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
         verify_fn(result)
@@ -1848,6 +2289,7 @@ def main() -> int:
     records.update(scan_kernel_phase(dev))
     records.update(join_kernel_phase(dev))
     records.update(join_agg_kernel_phase(dev))
+    records.update(scalar_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -1867,7 +2309,8 @@ def main() -> int:
     paths = {}
     t0 = time.perf_counter()
     paths["service_stats"] = drive(
-        carnot, SERVICE_STATS, lambda r: verify(r, data, args.rows), kernels.KERNELS[:4]
+        carnot, SERVICE_STATS, lambda r: verify(r, data, args.rows),
+        kernels.KERNELS[:4] + ("scalar_eval",),  # H17: mean(resp_status >= 400)
     )
     phase_s["service_stats"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1907,7 +2350,7 @@ def main() -> int:
     phase_s["http_small_table"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     paths["http_data"] = drive(
-        small, HTTP_DATA, lambda r: verify_http_data(r, hs), ("scan_compact",)
+        small, HTTP_DATA, lambda r: verify_http_data(r, hs), ("scan_compact", "scalar_eval")
     )
     phase_s["http_data"] = time.perf_counter() - t0
 
@@ -1961,11 +2404,43 @@ def main() -> int:
               f"{name}: lanes {lanes}, expected only {lane} on every query")
         phase_s[name] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    ev = let_events(LET_ROWS)
+    let_carnot = build_let_carnot(ev, LET_ROWS, "cuda")
+    log(f"let http_events: {LET_ROWS} rows generated and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    truth = let_truth(ev)
+    del ev
+    log(f"let truths in {time.perf_counter() - t1:.1f} s")
+    phase_s["let_table"] = time.perf_counter() - t0
+    queries = let_queries()
+    fold = ("scalar_eval", "segment_rows_sum_i64")
+    for name, table, verify_fn, expect, lanes_want in (
+        ("svc_let", "let", verify_q1,
+         fold + ("segment_sum_f64", "log_histogram_update", "hist_quantiles"),
+         {"fold_key_host": 1 + WARM_QUERIES}),
+        ("code_histogram", "codes", verify_q2, fold, {"fold_key_host": 1 + WARM_QUERIES}),
+        ("latency_histogram", "lat_hist", verify_q3, fold, {"fold_key_host": 1 + WARM_QUERIES}),
+        ("endpoint_load", "load", verify_q4,
+         fold + ("segment_sum_f64", "hash32", "hll_update", "hll_estimate", "countmin_update"),
+         {"fold_key_lut": 1 + WARM_QUERIES, "arghash": 1 + WARM_QUERIES}),
+    ):
+        t0 = time.perf_counter()
+        segment.reduce_lanes(reset=True)
+        paths[name] = drive(let_carnot, queries[table], lambda r, f=verify_fn: f(r, truth),
+                            expect, now_ns=LET_NOW)
+        lanes = segment.reduce_lanes(reset=True)
+        check(lanes == lanes_want, f"{name}: lanes {lanes}, expected {lanes_want}")
+        phase_s[name] = time.perf_counter() - t0
+
     n_queries = 1 + WARM_QUERIES
     rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS,
                "flow_span": FLOW_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS,
                "join8": JOIN_ROWS, "join8_outer": JOIN_ROWS, "join8_team_agg": JOIN_ROWS,
-               "join8_oncall_agg": JOIN_ROWS, "join8_left_agg": JOIN_ROWS}
+               "join8_oncall_agg": JOIN_ROWS, "join8_left_agg": JOIN_ROWS,
+               "svc_let": LET_ROWS, "code_histogram": LET_ROWS, "latency_histogram": LET_ROWS,
+               "endpoint_load": LET_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
         log(f"{name} cold {p['cold']:.3f} s "
@@ -1992,6 +2467,10 @@ def main() -> int:
                             ("join8_oncall_agg", JOIN8_ONCALL_AGG),
                             ("join8_left_agg", JOIN8_LEFT_AGG)):
             profile_warm(join_carnot, query, min(paths[name]["warm"]), name)
+        for name, table in (("svc_let", "let"), ("code_histogram", "codes"),
+                            ("latency_histogram", "lat_hist"), ("endpoint_load", "load")):
+            profile_warm(let_carnot, queries[table], min(paths[name]["warm"]), name,
+                         now_ns=LET_NOW)
 
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
@@ -2007,6 +2486,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"],
             "copy_bound_ms": r["bound_ms"] * HBM_BYTES_PER_S / rate
             if r["bound_by"] == "bytes" else None,
+            **{k: v for k, v in r.items() if k.startswith(("b_", "torch_tree", "log10", "library_ms_"))},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi_line(), flush=True)
@@ -2015,7 +2495,7 @@ def main() -> int:
     return 0
 
 
-def profile_warm(carnot, query: str, warm_best: float, name: str = "") -> None:
+def profile_warm(carnot, query: str, warm_best: float, name: str = "", now_ns=None) -> None:
     """One warm query under torch.profiler (after one unprofiled query, which
     restages what a later path's cold query dropped): device time by op,
     and the device's busy time as a share of the profiled wall and of the
@@ -2023,11 +2503,11 @@ def profile_warm(carnot, query: str, warm_best: float, name: str = "") -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    carnot.execute_query(query)
+    carnot.execute_query(query, now_ns=now_ns)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        carnot.execute_query(query)
+        carnot.execute_query(query, now_ns=now_ns)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device events only: CPU ops also carry their kernels' device time.

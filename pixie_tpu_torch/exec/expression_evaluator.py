@@ -9,12 +9,15 @@ arrays). Ours also has two, split along the TPU boundary:
   columns stay dictionary-encoded; ``dict_compatible`` host funcs run on the
   dictionary's (tiny) unique values and the result is gathered through the
   codes — the row-count work never touches Python strings.
-- **device path** (``device_eval``): elementwise torch ops over a dict of
-  tensors on the fold's device (the counterpart of the reference's jnp
-  device_eval, pixie_tpu/exec/expression_evaluator.py:219). String
+- **device path** (``compile_program``): the trees a block needs compile
+  into one register program (ops/scalar.py) that the kernel H17 runs per
+  block on the card, and its plain interpreter on the CPU (the counterpart
+  of the reference's jnp device_eval, pixie_tpu/exec/
+  expression_evaluator.py:219, which XLA fuses into the fold). String
   semantics are code-space; host-func subtrees must have been precomputed
   into lookup tables by ``build_aux`` (host side, per staging) and moved to
-  the device by the caller.
+  the device by the caller. ``device_eval``, the same trees as one torch op
+  per node, stays as a second reference for the tests.
 
 String comparisons lower to int32 code comparisons (the write-side dictionary
 encode in table/column.py guarantees code comparability within a table).
@@ -27,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from pixie_tpu_torch.ops import scalar
 from pixie_tpu_torch.plan.expressions import (
     ColumnRef,
     Constant,
@@ -58,6 +62,8 @@ class ExpressionEvaluator:
         self._resolved: dict[int, Any] = {}
         for _, e in self.named_exprs:
             self._resolve(e)
+        # Compiled H17 programs, by (roots, mask, env dtypes, aux).
+        self._programs: dict = {}
 
     def _resolve(self, expr) -> None:
         """Pre-resolve UDF lookups for every FuncCall in the tree."""
@@ -220,7 +226,9 @@ class ExpressionEvaluator:
 
     # ---------------------------------------------------------------- device
     def device_eval(self, expr, env: dict, aux: dict):
-        """Elementwise torch evaluation on the fold's device.
+        """Elementwise torch evaluation, one op per node: the tree walk the
+        tests hold H17's compiled program against (the device lanes run
+        ``compile_program``'s program instead).
 
         ``env`` maps column name → tensor (string columns as int codes);
         ``aux`` maps aux keys from ``build_aux`` → tensors on the same
@@ -256,6 +264,38 @@ class ExpressionEvaluator:
             )
         args = [self.device_eval(a, env, aux) for a in expr.args]
         return udf.fn(*args, *expr.init_args)
+
+    def compile_program(
+        self, roots, env_dtypes: dict, aux: dict, mask=None
+    ) -> scalar.ScalarProgram:
+        """The H17 program of one block's trees, compiled once per key.
+
+        ``roots``: [(result name, expr, torch dtype or None (the expr's
+        own), aux key of a LUT to gather the result through or None)].
+        ``mask``: (env name of the block's validity mask, [predicates]): the
+        result ``"__mask__"`` is the mask ANDed with every predicate.
+        ``env_dtypes`` maps each env column to its dtype; ``aux`` holds the
+        string-constant codes (baked into the program) and the LUTs (read
+        per launch). Raises ValueError on a tree the kernel cannot run (a
+        host function without a table, an unknown function, a tree deeper
+        than the register file)."""
+        consts = tuple(
+            (k, int(v)) for k, v in sorted(aux.items()) if k.startswith("const:")
+        )
+        key = (
+            tuple((n, id(e), dt, lut) for n, e, dt, lut in roots),
+            None if mask is None else (mask[0], tuple(id(p) for p in mask[1])),
+            tuple(sorted((k, str(v)) for k, v in env_dtypes.items())),
+            consts,
+            tuple(sorted((k, str(v.dtype)) for k, v in aux.items() if not k.startswith("const:"))),
+        )
+        hit = self._programs.get(key)
+        if hit is None:
+            prog = _ProgramCompiler(self, env_dtypes, aux).compile(roots, mask)
+            # The entry keeps its trees alive, so their ids in the key
+            # cannot be reused by other trees.
+            hit = self._programs[key] = (roots, mask, prog)
+        return hit[2]
 
     def build_aux(self, expr, dictionaries: dict[str, StringDictionary]) -> dict:
         """Host-side precomputation making ``expr`` device-traceable:
@@ -327,6 +367,251 @@ class ExpressionEvaluator:
                 if isinstance(a, ColumnRef) and a.name in dictionaries:
                     return dictionaries[a.name]
         return None
+
+
+def _kind_of(t: DataType) -> int:
+    if t == DataType.FLOAT64:
+        return scalar.F
+    if t == DataType.BOOLEAN:
+        return scalar.B
+    if t in (DataType.INT64, DataType.TIME64NS, DataType.STRING):
+        return scalar.I  # strings compare as their int32 codes
+    raise ValueError(f"H17 has no {t.name} registers")
+
+
+_ARITH = {"add": "ADD", "subtract": "SUB", "multiply": "MUL"}
+_CMPS = {
+    "equal": "EQ", "notEqual": "NE", "lessThan": "LT",
+    "lessThanEqual": "LE", "greaterThan": "GT", "greaterThanEqual": "GE",
+}
+_F_UNARY = {"ln": "LN", "log2": "LOG2", "log10": "LOG10", "exp": "EXP", "sqrt": "SQRT"}
+_TO_INT = {"floor": "FLOOR_F", "ceil": "CEIL_F", "round": "RINT_F"}
+
+
+class _ProgramCompiler:
+    """Expression trees -> one H17 program: virtual registers in emission
+    order (each column loaded once, a shared subtree emitted once), the
+    reference's dtype semantics as explicit casts, then registers assigned
+    by last use into the kernel's register file."""
+
+    def __init__(self, ev: ExpressionEvaluator, env_dtypes: dict, aux: dict):
+        self.ev, self.env_dtypes, self.aux = ev, env_dtypes, aux
+        self.code: list = []  # [op, dst, a, b, c] over virtual registers
+        self.kinds: list = []
+        self.columns: list = []
+        self.consts: list = []
+        self.luts: list = []
+        self.outputs: list = []
+        self.memo: dict = {}
+
+    def emit(self, op: str, kind: int, a: int = 0, b: int = 0, c: int = 0) -> int:
+        self.kinds.append(kind)
+        v = len(self.kinds) - 1
+        self.code.append([scalar.OP[op], v, a, b, c])
+        return v
+
+    def const(self, value, kind: int) -> int:
+        if kind == scalar.F:
+            bits = int(torch.tensor([float(value)], dtype=torch.float64).view(torch.int64)[0])
+        else:
+            bits = int(bool(value)) if kind == scalar.B else int(value)
+        memo = ("const", bits, kind)
+        if memo not in self.memo:
+            if bits not in self.consts:
+                self.consts.append(bits)
+            self.memo[memo] = self.emit("CONST", kind, self.consts.index(bits), kind)
+        return self.memo[memo]
+
+    def coerce(self, v: int, want: int) -> int:
+        have = self.kinds[v]
+        if have == want:
+            return v
+        if want == scalar.F:
+            return self.emit("I2F", scalar.F, v)
+        if want == scalar.I and have == scalar.B:
+            return self.emit("B2I", scalar.I, v)
+        raise ValueError(f"H17 has no implicit cast from kind {have} to {want}")
+
+    def lut(self, v: int, key: str) -> int:
+        if key not in self.luts:
+            self.luts.append(key)
+        return self.emit("LUT", scalar.value_kind(self.aux[key].dtype), v, self.luts.index(key))
+
+    def expr(self, e) -> int:
+        memo = ("col", e.name) if isinstance(e, ColumnRef) else ("expr", id(e))
+        if memo in self.memo:
+            return self.memo[memo]
+        if isinstance(e, ColumnRef):
+            if e.name not in self.env_dtypes:
+                raise ValueError(f"column {e.name} is not in the block's env")
+            if e.name not in self.columns:
+                self.columns.append(e.name)
+            v = self.emit(
+                "LOAD", scalar.value_kind(self.env_dtypes[e.name]), self.columns.index(e.name)
+            )
+        elif isinstance(e, Constant):
+            if e.data_type == DataType.STRING:
+                v = self.const(int(self.aux[f"const:{id(e)}"]), scalar.I)
+            else:
+                v = self.const(e.value, _kind_of(e.data_type))
+        else:
+            v = self.call(e)
+        self.memo[memo] = v
+        return v
+
+    def call(self, e: FuncCall) -> int:
+        udf, arg_types = self.ev._resolved[id(e)]
+        lut_key = f"lut:{id(e)}"
+        if lut_key in self.aux:
+            (col,) = [
+                a for a, t in zip(e.args, arg_types)
+                if t == DataType.STRING and isinstance(a, ColumnRef)
+            ]
+            return self.lut(self.expr(col), lut_key)
+        if udf.executor != Executor.DEVICE:
+            raise ValueError(
+                f"{udf.name} is a HOST function with no precomputed table; "
+                "cannot run on the device"
+            )
+        if e.init_args:
+            raise ValueError(f"H17 takes no init args ({udf.name})")
+        args = [self.coerce(self.expr(a), _kind_of(t)) for a, t in zip(e.args, arg_types)]
+        name, out = udf.name, _kind_of(udf.out_type)
+        fk = arg_types and arg_types[0] == DataType.FLOAT64
+        if name in _ARITH:
+            return self.emit(_ARITH[name] + ("_F" if out == scalar.F else "_I"), out, *args)
+        if name in _CMPS:
+            return self.emit(_CMPS[name] + ("_F" if fk else "_I"), scalar.B, *args)
+        if name == "divide":  # f64 division whatever the overload
+            a, b = (self.coerce(x, scalar.F) for x in args)
+            return self.emit("DIV_F", scalar.F, a, b)
+        if name == "modulo":
+            return self.emit("MOD_F" if fk else "MOD_I", out, *args)
+        if name in ("negate", "abs"):
+            return self.emit(("NEG" if name == "negate" else "ABS") + ("_F" if fk else "_I"), out, *args)
+        if name in ("logical_and", "logical_or"):
+            return self.emit("AND" if name == "logical_and" else "OR", scalar.B, *args)
+        if name == "logical_not":
+            return self.emit("NOT", scalar.B, *args)
+        if name in _TO_INT:
+            return self.emit("F2I", scalar.I, self.emit(_TO_INT[name], scalar.F, *args))
+        if name in _F_UNARY:
+            return self.emit(_F_UNARY[name], scalar.F, *args)
+        if name == "pow":
+            return self.emit("POW", scalar.F, *args)
+        if name == "log":  # log(b, x)
+            return self.emit("LOGB", scalar.F, *args)
+        if name == "bin":  # t - t % max(size, 1)
+            t, size = args
+            m = self.emit("MAX_I", scalar.I, size, self.const(1, scalar.I))
+            if self.kinds[t] == scalar.F:
+                m = self.emit("I2F", scalar.F, m)
+                return self.emit("SUB_F", scalar.F, t, self.emit("MOD_F", scalar.F, t, m))
+            return self.emit("SUB_I", scalar.I, t, self.emit("MOD_I", scalar.I, t, m))
+        if name == "DurationNanos":
+            return self.emit("F2I", scalar.I, args[0]) if fk else args[0]
+        if name == "Time":
+            return args[0]
+        if name == "select":
+            return self.emit("SELECT", out, *args)
+        raise ValueError(f"H17 cannot compile {name}")
+
+    def store(self, name: str, v: int, dtype) -> None:
+        want = scalar.value_kind(dtype)
+        if want == scalar.B and self.kinds[v] != scalar.B:
+            raise ValueError(f"H17 cannot store kind {self.kinds[v]} as bool")
+        if want == scalar.I and self.kinds[v] == scalar.F:
+            raise ValueError(f"H17 stores no f64 as {dtype}")
+        if want == scalar.F:
+            v = self.coerce(v, scalar.F)
+        self.outputs.append((name, dtype))
+        self.code.append([scalar.OP["STORE"], -1, v, len(self.outputs) - 1, 0])
+
+    def compile(self, roots, mask) -> scalar.ScalarProgram:
+        passthrough = {}
+        for name, e, dtype, lut in roots:
+            if lut is None and isinstance(e, ColumnRef):
+                passthrough[name] = (e.name, dtype)
+            elif lut is None and isinstance(e, Constant) and e.data_type != DataType.STRING:
+                passthrough[name] = (
+                    e.value, dtype or scalar.dtype_of_kind(_kind_of(e.data_type))
+                )
+            else:
+                v = self.expr(e)
+                if lut is not None:
+                    v = self.lut(v, lut)
+                self.store(name, v, dtype or scalar.dtype_of_kind(self.kinds[v]))
+        if mask is not None:
+            base, preds = mask
+            if not preds:
+                passthrough["__mask__"] = (base, torch.bool)
+            else:
+                v = self.expr(ColumnRef(base))
+                for p in preds:
+                    pv = self.expr(p)
+                    if self.kinds[pv] != scalar.B:
+                        raise ValueError("a predicate is not boolean")
+                    v = self.emit("AND", scalar.B, v, pv)
+                self.store("__mask__", v, torch.bool)
+        return scalar.ScalarProgram(
+            code=self.allocate(), consts=self.consts, columns=self.columns,
+            luts=self.luts, outputs=self.outputs, passthrough=passthrough,
+        )
+
+    def allocate(self) -> list:
+        """Virtual -> physical registers: each value's register is free again
+        after its last read (an op reads its operands before it writes)."""
+        reads = _register_operands
+        last: dict = {}
+        for i, ins in enumerate(self.code):
+            for v in reads(ins):
+                last[v] = i
+        free = list(range(scalar.MAX_REGS - 1, -1, -1))
+        phys: dict = {}
+        out = []
+        for i, ins in enumerate(self.code):
+            op, dst = ins[0], ins[1]
+            srcs = reads(ins)
+            new = list(ins)
+            for pos, v in _operand_slots(ins):
+                new[pos] = phys[v]
+            for v in set(srcs):
+                if last[v] == i:
+                    free.append(phys.pop(v))
+            if dst >= 0:
+                if not free:
+                    raise ValueError(
+                        f"the expression needs more than {scalar.MAX_REGS} registers"
+                    )
+                phys[dst] = free.pop()
+                new[1] = phys[dst]
+                if dst not in last:  # never read: free at once
+                    free.append(phys.pop(dst))
+            else:
+                new[1] = 0
+            out.append(new)
+        if len(out) > scalar.MAX_INSTRS or len(self.consts) > scalar.MAX_CONSTS:
+            raise ValueError("the program exceeds H17's instruction or constant pool")
+        if (len(self.columns) > scalar.MAX_COLS or len(self.luts) > scalar.MAX_LUTS
+                or len(self.outputs) > scalar.MAX_OUTS):
+            raise ValueError("the program exceeds H17's column, LUT or output tables")
+        return out
+
+
+def _operand_slots(ins) -> list:
+    """(position, virtual register) of each register operand of ``ins``."""
+    op = scalar.OPS[ins[0]]
+    if op in ("LOAD", "CONST"):
+        return []
+    if op in ("STORE", "LUT") or op in scalar.UNARY_OPS:
+        return [(2, ins[2])]
+    if op == "SELECT":
+        return [(2, ins[2]), (3, ins[3]), (4, ins[4])]
+    return [(2, ins[2]), (3, ins[3])]
+
+
+def _register_operands(ins) -> list:
+    return [v for _, v in _operand_slots(ins)]
 
 
 def _find_parent(root, target):

@@ -3,7 +3,8 @@
 For this system the state that a model's weights stand for is the UDA state
 of a fold and the tables it folds. ``state_from_numpy``/``state_to_numpy``
 convert between a reference UDA state, given as a pytree of numpy arrays (an
-array, or a dict of arrays), and the port's state of torch tensors;
+array, or a dict of arrays such as variance's and stddev's {n, sum, sumsq}),
+and the port's state of torch tensors;
 ``state_batch_from_reference`` carries a whole partial aggregate (the
 reference's StateBatch: group keys, numpy states, latched dictionaries)
 into the port's StateBatch, so a port MERGE stage can consume it;

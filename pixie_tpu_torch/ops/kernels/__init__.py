@@ -5,8 +5,9 @@ log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
 (the hash kernel and H5-H10), ``minmax_kernels.cu`` the segment min/max
 (H11), ``scan_kernels.cu`` the scan's stream compaction (H12) and
 ``join_kernels.cu`` the sort-merge join's probe, pair emission and gathers
-(H13-H15) and ``join_agg_kernels.cu`` the join-aggregate lane's weighted
-fold (H16); see each file's header. At the first launch, ``library()`` compiles them with
+(H13-H15), ``join_agg_kernels.cu`` the join-aggregate lane's weighted
+fold (H16) and ``scalar_kernels.cu`` the fused scalar-expression
+interpreter (H17); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -57,6 +58,7 @@ KERNELS = (
     "join_emit_pairs",
     "join_gather",
     "join_agg_fold",
+    "scalar_eval",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -65,7 +67,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
-    "join_kernels.cu", "join_agg_kernels.cu",
+    "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -100,6 +102,7 @@ _SIGNATURES = {
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
     "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
     "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
+    "px_scalar_eval": (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL, _P),
 }
 
 _lock = threading.Lock()
@@ -780,3 +783,67 @@ def join_agg_fold(
         int(shared_acc), int(shared_stats),
     )
     return acc
+
+
+# ---------------------------------------------------------------- scalar programs
+# Storage kinds of H17's columns, LUTs and outputs (scalar_kernels.cu Kind).
+SCALAR_KINDS = {
+    torch.bool: 0, torch.uint8: 1, torch.uint16: 2, torch.int32: 3,
+    torch.int64: 4, torch.float32: 5, torch.float64: 6,
+}
+_SCALAR_OUT = (torch.bool, torch.int32, torch.int64, torch.float64)
+_SCALAR_LUT = (torch.bool, torch.int32, torch.int64, torch.float64)
+
+
+def scalar_eval(
+    code: torch.Tensor, consts: torch.Tensor, cols: list, luts: list, out_dtypes: list,
+    n: int, offsets: Optional[list] = None,
+) -> list:
+    """H17: runs the compiled program ``code`` (int32 [n_instr, 5]) with its
+    constant pool ``consts`` (int64 [k], the 8-byte constants' bits) for
+    every row of one block: ``cols`` are its input columns ([n] each: bool,
+    uint8, uint16, int32, int64, f32 or f64; an int column loads as int64
+    plus its entry of ``offsets``, 0 by default), ``luts`` its lookup tables
+    (1-d bool, int32, int64 or f64). Returns one new [n] tensor per entry of
+    ``out_dtypes`` (bool, int32, int64 or f64), in the program's out-index
+    order (ops/scalar.py states the program and its semantics)."""
+    device = code.device
+    _require(code, "code", torch.int32, device, 2)
+    _require(consts, "consts", torch.int64, device, 1)
+    if code.shape[1] != 5:
+        raise ValueError(f"code must be [n_instr, 5], got {tuple(code.shape)}")
+    for i, c in enumerate(cols):
+        if c.dtype not in SCALAR_KINDS:
+            raise TypeError(f"column {i} has dtype {c.dtype}, which H17 does not read")
+        _require(c, f"column {i}", c.dtype, device, 1)
+        if c.shape[0] != n:
+            raise ValueError(f"column {i} has {c.shape[0]} rows, expected {n}")
+    for i, t in enumerate(luts):
+        if t.dtype not in _SCALAR_LUT:
+            raise TypeError(f"LUT {i} has dtype {t.dtype}, expected bool, int32, int64 or f64")
+        _require(t, f"LUT {i}", t.dtype, device, 1)
+        if t.shape[0] == 0:
+            raise ValueError(f"LUT {i} is empty")
+    for dt in out_dtypes:
+        if dt not in _SCALAR_OUT:
+            raise TypeError(f"H17 writes no {dt} output")
+    outs = [torch.empty(n, dtype=dt, device=device) for dt in out_dtypes]
+    if n == 0 or code.shape[0] == 0:
+        return outs
+    k, t, o = len(cols), len(luts), len(outs)
+    offsets = list(offsets) if offsets is not None else [0] * k
+    if len(offsets) != k:
+        raise ValueError(f"{len(offsets)} offsets for {k} columns")
+    _launch(
+        "scalar_eval", device,
+        code.data_ptr(), code.shape[0], consts.data_ptr(), consts.shape[0],
+        (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols]),
+        (ctypes.c_int * max(k, 1))(*[SCALAR_KINDS[c.dtype] for c in cols]),
+        (ctypes.c_longlong * max(k, 1))(*[int(x) for x in offsets]), k,
+        (ctypes.c_void_p * max(t, 1))(*[x.data_ptr() for x in luts]),
+        (ctypes.c_int * max(t, 1))(*[SCALAR_KINDS[x.dtype] for x in luts]),
+        (ctypes.c_longlong * max(t, 1))(*[x.shape[0] for x in luts]), t,
+        (ctypes.c_void_p * max(o, 1))(*[x.data_ptr() for x in outs]),
+        (ctypes.c_int * max(o, 1))(*[SCALAR_KINDS[x.dtype] for x in outs]), o, n,
+    )
+    return outs

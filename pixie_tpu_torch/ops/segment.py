@@ -26,7 +26,10 @@ from pixie_tpu_torch.ops import kernels, scan
 # Which device lanes ran, by name, since the last reduce_lanes(reset=True).
 # The reference counts a lane once per compiled program; the port builds no
 # programs, so it counts each run of the lane (``join_sort_merge``: once per
-# device join; ``join_agg``: once per join-aggregate query).
+# device join; ``join_agg``: once per join-aggregate query; ``fold_key_host``,
+# ``fold_key_lut``, ``fold_key_codes`` or ``fold_key_none``: once per device
+# fold, by how its gids materialize; ``arghash``: once per fold that gathers
+# a string-hash argument through its content-hash LUT).
 LANE_COUNTS: dict[str, int] = {}
 
 

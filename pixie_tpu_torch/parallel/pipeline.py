@@ -6,18 +6,23 @@ aggregation core. Fragments of the shape
     MemorySource -> (Map | Filter)* -> Agg(FULL, not windowed)
 
 run here. A group key that is one dictionary-coded string column is its
-codes, evaluated per block on the device; any other key (several columns,
-ints, computed values) is densified on the host by a chunked GroupEncoder
-pass over the table (cached per table version) and its gids stage as one
-more per-block lane. The needed columns are staged once
-(parallel/staging.py, cached per table version), then every block is folded
-into the UDA states by ``_make_scan_body`` — predicates as elementwise torch
-ops, the sum-family UDAs and the presence counter through ONE fused segment
-sum (kernel H1), every other UDA through its own update (H2, H3, the sketch
-kernels H5-H8) — and the states are finalized on the device (H4, H9, H10)
-and fetched with one device -> host copy per pass. On one device the
-reference's cross-device merge (``_merge_states``) is the identity, so the
-port has none yet.
+codes, evaluated per block on the device; a string key computed by a
+dict_compatible host function of one dictionary column (``regex_replace``
+of a request path) is the dictionary-LUT key (``_dict_lut_key``): per-code
+gids gathered on the device; any other key (several columns, ints,
+computed values) is densified on the host by a chunked GroupEncoder pass
+over the table (cached per table version) and its gids stage as one more
+per-block lane. The needed columns are staged once (parallel/staging.py,
+cached per table version), then every block is folded into the UDA states
+by ``_make_scan_body``: ONE launch of H17 evaluates the block's compiled
+scalar program (the predicates ANDed into its mask, a LUT key's gids, each
+UDA argument that is not a bare column, a string-hash argument's content
+hashes through its ``arghash`` LUT), the sum-family UDAs and the presence
+counter go through ONE fused segment sum (kernel H1), every other UDA
+through its own update (H2, H3, the sketch kernels H5-H8); the states are
+finalized on the device (H4, H9, H10) and fetched with one device -> host
+copy per pass. On one device the reference's cross-device merge
+(``_merge_states``) is the identity, so the port has none yet.
 
 ``any`` over a bare column with no predicate takes the reference's host
 lane (``_plan_host_any``): one representative per group from the key plan's
@@ -28,7 +33,7 @@ A fragment with no aggregate, of the shape
     MemorySource -> (Map | Filter)* -> Limit(n <= device_scan_limit_cap)
 
 takes the device scan (``_try_execute_scan``): per block the predicates and
-projections as torch ops, then the stable compaction H12 appends the
+projections in one H17 launch, then the stable compaction H12 appends the
 selected rows to the output buffers until ``limit`` rows are written.
 
 A fragment with no aggregate whose one join walks to two distinct tables,
@@ -58,12 +63,14 @@ ids) and the left side folds once with per-row weights nR[jk] (H16, then
 H11 under H16's effective mask).
 
 A fragment outside those shapes — windowed or PARTIAL aggregation, an
-aggregation over an aggregation, a source shared with a second sink,
-string-hash UDA args, a join the lanes decline — returns None and runs on
-the host exec graph: its aggregations on the host AggNode
-(exec/agg_node.py), whose UDA states live on the engine's device, so on the
-card they update through the same kernels. Errors raise; nothing is caught
-and sent elsewhere.
+aggregation over an aggregation, a source shared with a second sink, a
+string-hash or code-valued UDA over a computed string argument (only a
+bare dictionary column has the content hashes or codes, as in the
+reference), a tree H17 cannot run (a host function without a table), a join
+the lanes decline — returns None and runs on the host exec graph: its
+aggregations on the host AggNode (exec/agg_node.py), whose UDA states live
+on the engine's device, so on the card they update through the same
+kernels. Errors raise; nothing is caught and sent elsewhere.
 """
 
 from __future__ import annotations
@@ -90,6 +97,8 @@ from pixie_tpu_torch.parallel.staging import (
 )
 from pixie_tpu_torch.plan.expressions import (
     ColumnRef,
+    Constant,
+    FuncCall,
     expr_data_type,
     referenced_columns,
 )
@@ -108,6 +117,7 @@ from pixie_tpu_torch.table.column import DictColumn, StringDictionary
 from pixie_tpu_torch.table.row_batch import RowBatch
 from pixie_tpu_torch.types import ColumnSchema, DataType, Relation
 from pixie_tpu_torch.types.dtypes import host_dtype
+from pixie_tpu_torch.udf.udf import Executor
 from pixie_tpu_torch.utils import flags
 
 
@@ -515,6 +525,17 @@ class _KeyPlan:
     key_columns: list = dataclasses.field(default_factory=list)
 
 
+# The register kind each column type loads as in H17's programs (its
+# staged dtype may be narrower: the kernel reads what is staged). A type
+# not listed (UINT128) has no register: a tree that reads one declines.
+_REGISTER_DTYPES = {
+    DataType.BOOLEAN: torch.bool,
+    DataType.FLOAT64: torch.float64,
+    DataType.INT64: torch.int64,
+    DataType.TIME64NS: torch.int64,
+    DataType.STRING: torch.int64,  # dictionary codes
+}
+
 _NP_DTYPES = {
     torch.bool: np.bool_,
     torch.int32: np.int32,
@@ -675,17 +696,39 @@ class DeviceExecutor:
             if out in any_candidates and out not in host_any:
                 base_cols |= referenced_columns(e)  # back to the device lane
         device_specs = [sp for sp in specs if sp[0] not in host_any]
+        roots = []
+        for out, arg_e, uda in device_specs:
+            if uda.reads_args:
+                lut = f"arghash:{arg_e.name}" if uda.string_args == "hash" and isinstance(
+                    arg_e, ColumnRef) and arg_e.name in table.dictionaries else None
+                roots.append((f"arg:{out}", arg_e, None, lut))
+        if isinstance(key_plan.device_expr, tuple):
+            # The dictionary-LUT key: per-code gids gathered on the device.
+            roots.append(("__gids__", ColumnRef(key_plan.device_expr[1]), torch.int32, "keylut"))
+        elif key_plan.device_expr is not None:
+            roots.append(("__gids__", key_plan.device_expr, torch.int32, None))
+        compiled = self._compile(evaluator, table, m.source_relation, roots, m.predicates,
+                                 specs=device_specs, key_plan=key_plan)
+        if compiled is None:
+            return None
+        program, aux = compiled
         f32_cols = self._sketch_f32_cols(m, device_specs)
         key_sig = repr([m.col_exprs[g] for g in m.agg_op.groups]) + ":dev"
         staged = self._stage_cached(
             table, m.source_op, base_cols, key_sig, key_plan.num_groups,
             f32_cols=f32_cols, gids=key_plan.host_gids,
         )
-        aux = self._build_aux(evaluator, table)
         with timed("fold"):
             outputs, capacity = self._run_program(
-                device_specs, evaluator, key_plan, staged, aux
+                device_specs, program, key_plan, staged, aux
             )
+        segment.lane_count("fold_key_" + (
+            "host" if key_plan.host_gids is not None
+            else "lut" if isinstance(key_plan.device_expr, tuple)
+            else "codes" if key_plan.device_expr is not None else "none"
+        ))
+        if any(lut and lut.startswith("arghash:") for _, _, _, lut in roots):
+            segment.lane_count("arghash")
         batch = self._finalize(
             m, specs, key_plan, outputs, registry, table, host_any=host_any
         )
@@ -727,13 +770,17 @@ class DeviceExecutor:
             evaluator = ExpressionEvaluator(named, m.source_relation, registry, func_ctx)
         except ValueError:
             return None
+        roots = [(f"out:{name}", e, dt, None) for (name, e), dt in zip(m.out_exprs, dtypes)]
+        compiled = self._compile(evaluator, table, m.source_relation, roots, m.predicates)
+        if compiled is None:
+            return None
+        program, aux = compiled
         base_cols = set()
         for _, e in named:
             base_cols |= referenced_columns(e)
         staged = self._stage_cached(table, m.source_op, base_cols, ":scan", 0)
-        aux = self._build_aux(evaluator, table)
         with timed("fold"):
-            rows = self._run_scan(m, evaluator, staged, aux, dtypes)
+            rows = self._run_scan(m, program, staged, aux, dtypes)
         out_cols = []
         for (name, e), arr in zip(m.out_exprs, rows):
             schema = m.out_relation.col(name)
@@ -743,33 +790,25 @@ class DeviceExecutor:
                 out_cols.append(arr.astype(host_dtype(schema.data_type)))
         return m.limit_nid, RowBatch(m.out_relation, out_cols, eow=True, eos=True)
 
-    def _run_scan(self, m: _ScanMatch, evaluator, staged, aux, dtypes) -> list:
-        """Every block's predicates ANDed into its validity mask, its output
-        expressions cast to their buffers' dtypes (int32 codes for strings),
-        and the selected rows compacted into buffers of ``limit`` rows; then
-        ONE fetch of ``written`` and one of the selected prefix.
+    def _run_scan(self, m: _ScanMatch, program, staged, aux, dtypes) -> list:
+        """Every block's predicates ANDed into its validity mask and its
+        output expressions cast to their buffers' dtypes (int32 codes for
+        strings) by one H17 launch, the selected rows compacted into buffers
+        of ``limit`` rows by H12; then ONE fetch of ``written`` and one of the
+        selected prefix.
         On CUDA the host copies ``written`` back without waiting after each
         block and stops enqueuing blocks once a finished copy shows the
         limit reached (the kernel already returns at once for a full scan,
         so where the host stops changes no result)."""
         bufs = [torch.zeros(m.limit, dtype=dt, device=self.device) for dt in dtypes]
         written = torch.zeros(1, dtype=torch.int32, device=self.device)
-        preds = [e for n, e in evaluator.named_exprs if n.startswith("pred")]
-        outs = [e for n, e in evaluator.named_exprs if n.startswith("out:")]
         probe = _FullProbe(written, m.limit)
         for blk in range(staged.num_blocks):
             if probe.full():
                 break
-            env = self._block_env(staged, blk)
-            mask = staged.mask[0, blk]
-            for p in preds:
-                mask = mask & evaluator.device_eval(p, env, aux)
-            n = mask.shape[0]
-            vals = []
-            for e, buf in zip(outs, bufs):
-                v = torch.as_tensor(evaluator.device_eval(e, env, aux), device=mask.device)
-                vals.append(v.to(buf.dtype).expand(n).contiguous())
-            scan.compact_rows(mask.contiguous(), vals, written, bufs, m.limit)
+            vals = self._run_block(program, staged, blk, aux)
+            cols = [vals[f"out:{name}"].contiguous() for name, _ in m.out_exprs]
+            scan.compact_rows(vals["__mask__"].contiguous(), cols, written, bufs, m.limit)
             probe.record()
         w = int(written[0])
         return _fetch([b[:w] for b in bufs])
@@ -1021,14 +1060,17 @@ class DeviceExecutor:
         if key_plan is None:
             return None
         if m.group_exprs and key_plan.host_gids is None:
-            # _plan_keys takes a dictionary key's codes as device gids; the
-            # fold stages host gids, and the codes are those gids
+            # _plan_keys takes a dictionary key's codes (or a LUT key's
+            # per-code gids) as device gids; the fold stages host gids, read
+            # from the same dictionary structures
             # (pixie_tpu/parallel/pipeline.py:2296-2321).
-            if not isinstance(key_plan.device_expr, ColumnRef):
-                return None
-            name = key_plan.device_expr.name
+            if isinstance(key_plan.device_expr, ColumnRef):
+                name, lut = key_plan.device_expr.name, None
+            else:
+                _, name, lut = key_plan.device_expr
             codes, _ = read_columns(lt, [name], lsrc.start_time, lsrc.stop_time)
-            key_plan = dataclasses.replace(key_plan, host_gids=codes[name].astype(np.int32))
+            gids = codes[name] if lut is None else np.asarray(lut)[np.maximum(codes[name], 0)]
+            key_plan = dataclasses.replace(key_plan, host_gids=gids.astype(np.int32))
         if key_plan.host_gids is None:
             # Group-by-none: one group, still staged as a gid lane (:2324-2329).
             key_plan = dataclasses.replace(
@@ -1075,18 +1117,14 @@ class DeviceExecutor:
         segment.lane_count("join_agg")
         return m.agg_nid, batch
 
-    @staticmethod
-    def _f64_arg(evaluator, e, env, aux, mask: torch.Tensor) -> torch.Tensor:
-        """An argument of the lane as a contiguous f64 column of the block."""
-        v = torch.as_tensor(evaluator.device_eval(e, env, aux), device=mask.device)
-        return v.to(torch.float64).expand(mask.shape[0]).contiguous()
-
-    def _block_mask(self, evaluator, staged, blk: int, env, aux) -> torch.Tensor:
-        mask = staged.mask[0, blk]
-        for n, e in evaluator.named_exprs:
-            if n.startswith("pred"):
-                mask = mask & evaluator.device_eval(e, env, aux)
-        return mask
+    def _join_program(self, evaluator, table, relation):
+        """(program, aux) of a join lane's side: its predicates into the
+        block mask and each argument as an f64 column ``arg:<out>``; None
+        when a tree cannot run on the device."""
+        preds = [e for n, e in evaluator.named_exprs if n.startswith("pred")]
+        roots = [(n, e, torch.float64, None) for n, e in evaluator.named_exprs
+                 if n.startswith("arg:")]
+        return self._compile(evaluator, table, relation, roots, preds)
 
     def _run_right_stats(self, m, table, kr, nr, K, evaluator, right_specs, key_space_sig):
         """Stage the right side with its join-key ids as the gids and reduce
@@ -1100,13 +1138,15 @@ class DeviceExecutor:
         base: set = set()
         for _, e in evaluator.named_exprs:
             base |= referenced_columns(e)
+        compiled = self._join_program(evaluator, table, m.right_relation)
+        if compiled is None:
+            return None
+        program, aux = compiled
         staged = self._stage_cached(
             table, m.right_source_op, base, ":joinright:" + key_space_sig, K, gids=kr
         )
         if staged.num_rows != nr:
             return None
-        aux = self._build_aux(evaluator, table)
-        args = {n[4:]: e for n, e in evaluator.named_exprs if n.startswith("arg:")}
         kinds = [(o, "sum" if name in ("sum", "mean") else name) for o, _, name in right_specs]
         counts = torch.zeros(K, dtype=torch.int64, device=self.device)
         stats = {}
@@ -1118,12 +1158,12 @@ class DeviceExecutor:
                 stats[(kind, o)] = torch.full((K,), ident, dtype=torch.float64, device=self.device)
         with timed("fold"):
             for blk in range(staged.num_blocks):
-                env = self._block_env(staged, blk)
-                mask = self._block_mask(evaluator, staged, blk, env, aux)
+                vals = self._run_block(program, staged, blk, aux)
+                mask = vals["__mask__"]
                 jk = staged.gids[0, blk].to(torch.int32)
                 counts += segment.seg_count(jk, K, mask)
                 for o, kind in kinds:
-                    val = self._f64_arg(evaluator, args[o], env, aux, mask)
+                    val = vals[f"arg:{o}"].contiguous()
                     st = stats[(kind, o)]
                     if kind == "sum":
                         st += segment.seg_sum(val, jk, K, mask)
@@ -1144,6 +1184,10 @@ class DeviceExecutor:
         outputs the f64 result rounded and cast (so an INT64 sum over a join
         goes through f64, as in the reference)."""
         n_right, rstat = rstats
+        compiled = self._join_program(evaluator, table, m.left_relation)
+        if compiled is None:
+            return None
+        program, aux = compiled
         base: set = set()
         for _, e in evaluator.named_exprs:
             base |= referenced_columns(e)
@@ -1155,8 +1199,6 @@ class DeviceExecutor:
         )
         if staged.num_rows != nl:
             return None
-        aux = self._build_aux(evaluator, table)
-        args = {n[4:]: e for n, e in evaluator.named_exprs if n.startswith("arg:")}
         sums_l = [o for o, side, _, name in m.specs if side == 0 and name in ("sum", "mean")]
         sums_r = [o for o, side, _, name in m.specs if side == 1 and name in ("sum", "mean")]
         extremes = [(o, side, name) for o, side, _, name in m.specs if name in ("min", "max")]
@@ -1174,20 +1216,20 @@ class DeviceExecutor:
         }
         with timed("fold"):
             for blk in range(staged.num_blocks):
-                env = self._block_env(staged, blk)
-                mask = self._block_mask(evaluator, staged, blk, env, aux)
-                jk = env["__jk__"].to(torch.int32)
+                vals = self._run_block(program, staged, blk, aux)
+                mask = vals["__mask__"]
+                jk = self._block_env(staged, blk, ["__jk__"])["__jk__"].to(torch.int32)
                 gids = staged.gids[0, blk].to(torch.int32)
                 n = mask.shape[0]
                 left_vals = (
-                    torch.stack([self._f64_arg(evaluator, args[o], env, aux, mask) for o in sums_l])
+                    torch.stack([vals[f"arg:{o}"] for o in sums_l])
                     if sums_l else torch.empty((0, n), dtype=torch.float64, device=dev)
                 )
                 eff = torch.empty(n, dtype=torch.bool, device=dev) if extremes else None
                 segment.join_agg_fold(jk, gids, mask, n_right, left_vals, right_sums, acc, eff)
                 for o, side, name in extremes:
                     if side == 0:
-                        val = self._f64_arg(evaluator, args[o], env, aux, mask)
+                        val = vals[f"arg:{o}"].contiguous()
                     else:
                         val = rstat[(name, o)][jk.long()]
                     segment.segment_minmax(ext[o], val, gids, eff, name == "min")
@@ -1311,13 +1353,29 @@ class DeviceExecutor:
         return staged
 
     @staticmethod
-    def _block_env(staged: StagedColumns, blk: int) -> dict:
-        """Block ``blk``'s columns, the narrowed ints widened back to int64
-        (torch has no arithmetic on uint16)."""
-        env = {name: t[0, blk] for name, t in staged.blocks.items()}
-        for name, off in staged.narrow_offsets.items():
-            env[name] = env[name].to(torch.int64) + off
+    def _block_env(staged: StagedColumns, blk: int, names=None) -> dict:
+        """Block ``blk``'s columns (``names``, or all of them), the narrowed
+        ints widened back to int64 (torch has no arithmetic on uint16)."""
+        names = staged.blocks if names is None else names
+        env = {name: staged.blocks[name][0, blk] for name in names}
+        for name in env:
+            if name in staged.narrow_offsets:
+                env[name] = env[name].to(torch.int64) + staged.narrow_offsets[name]
         return env
+
+    def _run_block(self, program, staged: StagedColumns, blk: int, aux) -> dict:
+        """One block through its H17 program: {result name: [n] tensor}, the
+        block's mask (``__mask__``) among them. The program reads the staged
+        columns as they are (H17 widens a narrowed int on load); only the
+        columns a passthrough hands on are widened here."""
+        valid = staged.mask[0, blk]
+        raw = {c: staged.blocks[c][0, blk] for c in program.columns if c in staged.blocks}
+        raw["__valid__"] = valid
+        env = self._block_env(
+            staged, blk, [c for c in program.passthrough_names() if c in staged.blocks]
+        )
+        env["__valid__"] = valid
+        return program.run(env, aux, staged.block_rows, raw=raw, offsets=staged.narrow_offsets)
 
     # -- planning ------------------------------------------------------------
     def _agg_specs(self, m: _Match, registry):
@@ -1340,11 +1398,15 @@ class DeviceExecutor:
                 continue
             if len(arg_exprs) != 1:
                 return None  # multi-arg UDAs: not in the slice
-            if types[0] == DataType.STRING and not (
-                # A code-valued state (any) decodes through the table
-                # dictionary: only a bare source column has one. The
-                # string-hash UDAs are not ported.
-                uda.string_state and isinstance(arg_exprs[0], ColumnRef)
+            if types[0] == DataType.STRING and (
+                uda.string_args == "values"  # needs decoded strings: the host's
+                or (
+                    # A code-valued state (any) decodes through, and a
+                    # string-hash argument gathers its content hashes from,
+                    # the table dictionary: only a bare source column has one.
+                    (uda.string_args == "hash" or uda.string_state)
+                    and not isinstance(arg_exprs[0], ColumnRef)
+                )
             ):
                 return None
             specs.append((out_name, arg_exprs[0], uda))
@@ -1364,8 +1426,11 @@ class DeviceExecutor:
 
     def _plan_keys(self, m: _Match, table, registry, func_ctx, base_cols: set):
         """No key: one group. One bare string column with a dictionary: its
-        codes are the gids, evaluated on the device. Any other key: densified
-        on the host (``_host_key_plan``)."""
+        codes are the gids, evaluated on the device. One string key computed
+        by a dict_compatible host function of one dictionary column
+        (``_dict_lut_key``): per-code gids through a LUT on the device
+        (device_expr ``("lut", column, lut)``). Any other key: densified on
+        the host (``_host_key_plan``)."""
         groups = m.agg_op.groups
         if not groups:
             return _KeyPlan(device_expr=None, num_groups=1, key_columns=[])
@@ -1383,7 +1448,46 @@ class DeviceExecutor:
                     num_groups=len(d),
                     key_columns=[DictColumn(np.arange(len(d), dtype=np.int32), d)],
                 )
+            lut = self._dict_lut_key(e, table, registry, func_ctx) if t == DataType.STRING else None
+            if lut is not None:
+                lut_codes, out_dict, src = lut
+                base_cols.add(src)
+                return _KeyPlan(
+                    device_expr=("lut", src, lut_codes),
+                    num_groups=len(out_dict),
+                    key_columns=[DictColumn(np.arange(len(out_dict), dtype=np.int32), out_dict)],
+                )
         return self._host_key_plan(m, table, registry, func_ctx)
+
+    @staticmethod
+    def _dict_lut_key(e, table, registry, func_ctx=None):
+        """(per-code gids int32, the key's dictionary, source column) for a
+        string key computed by a dict_compatible HOST function of one
+        dictionary column and constants (the ``ctx['service']`` and
+        ``regex_replace(..., req_path, ...)`` shapes): the function runs
+        once per dictionary value and its results are encoded in that order
+        (pixie_tpu/parallel/pipeline.py:4617-4648); None for any other key."""
+        if not isinstance(e, FuncCall):
+            return None
+        str_cols = [a for a in e.args if isinstance(a, ColumnRef)]
+        if len(str_cols) != 1 or not all(isinstance(a, (ColumnRef, Constant)) for a in e.args):
+            return None
+        src = str_cols[0].name
+        d = table.dictionaries.get(src)
+        if d is None:
+            return None
+        arg_types = [DataType.STRING if isinstance(a, ColumnRef) else a.data_type for a in e.args]
+        udf = registry.lookup_scalar(e.name, arg_types)
+        if udf is None or udf.executor != Executor.HOST or not udf.dict_compatible:
+            return None
+        values = np.asarray(d.values(), dtype=object)
+        fn_args = [values if isinstance(a, ColumnRef) else a.value for a in e.args]
+        fn_args += list(e.init_args)
+        if udf.needs_ctx:
+            fn_args = [func_ctx] + fn_args
+        per_value = np.asarray(udf.fn(*fn_args), dtype=object)
+        out_dict = StringDictionary()
+        return out_dict.encode(per_value).astype(np.int32), out_dict, src
 
     def _host_key_plan(self, m: _Match, table, registry, func_ctx) -> _KeyPlan:
         """Evaluate the key exprs over the table once, per cursor batch, and
@@ -1537,14 +1641,44 @@ class DeviceExecutor:
                 out.add(col)
         return out
 
-    def _build_aux(self, evaluator, table) -> dict:
+    def _build_aux(self, evaluator, table, specs=(), key_plan=None) -> dict:
         """String-constant codes and dict-func LUTs of the predicates and
-        args, as tensors on the device."""
+        args, the content-hash LUT ``arghash:<col>`` of each string-hash UDA
+        over a bare dictionary column (pixie_tpu/parallel/pipeline.py:
+        4652-4670) and a LUT key's per-code gids ``keylut``, as tensors on
+        the device. Raises ValueError where a host function cannot become a
+        table (a string-producing one)."""
         aux: dict[str, np.ndarray] = {}
+        for out, arg_e, uda in specs:
+            if uda.reads_args and uda.string_args == "hash" and isinstance(arg_e, ColumnRef):
+                d = table.dictionaries.get(arg_e.name)
+                if d is not None:
+                    aux[f"arghash:{arg_e.name}"] = d.content_hashes().view(np.int64)
+        if key_plan is not None and isinstance(key_plan.device_expr, tuple):
+            aux["keylut"] = key_plan.device_expr[2]
         for name, e in evaluator.named_exprs:
             if not name.startswith("key:"):
                 aux.update(evaluator.build_aux(e, table.dictionaries))
         return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in aux.items()}
+
+    def _compile(self, evaluator, table, relation, roots, preds, specs=(), key_plan=None):
+        """(H17 program, aux) of one fragment's block trees, or None when a
+        tree cannot run on the device: a host function without a table, a
+        string-producing host function, an unknown function or a tree deeper
+        than H17's register file. The reference's device lane fails on the
+        same trees and its fragment runs on the host engine; here the gate
+        sends the fragment to the host graph before anything is staged."""
+        dtypes = {
+            c.name: _REGISTER_DTYPES[c.data_type] for c in relation
+            if c.data_type in _REGISTER_DTYPES
+        }
+        dtypes["__valid__"] = torch.bool
+        try:
+            aux = self._build_aux(evaluator, table, specs, key_plan)
+            program = evaluator.compile_program(roots, dtypes, aux, mask=("__valid__", preds))
+        except ValueError:
+            return None
+        return program, aux
 
     def _pass_plan(self, specs, num_groups: int) -> tuple[int, int]:
         """(per-pass capacity, n_passes): bound UDA state memory for
@@ -1562,30 +1696,29 @@ class DeviceExecutor:
         return capacity, n_passes
 
     # -- the fold --------------------------------------------------------------
-    def _make_scan_body(self, specs, evaluator, staged, key_plan, capacity, aux):
+    def _make_scan_body(self, specs, program, staged, key_plan, capacity, aux):
         """The per-block fold: (states, presence, block, gid_base) ->
-        (states, presence). Widens the narrowed int columns, evaluates the
-        predicates and gids, masks rows outside this pass's gid window,
-        then updates every UDA: the sum-family UDAs and the presence row in
-        one fused segment sum (H1), the others through their own update."""
-        preds = [e for n, e in evaluator.named_exprs if n.startswith("pred")]
-        device_key = key_plan.device_expr
+        (states, presence). One H17 launch evaluates the block's mask (its
+        predicates ANDed in), its gids (a dictionary key's codes, or the LUT
+        key's per-code gids) and every UDA argument that is not a bare column
+        (a string-hash argument gathered through its content-hash LUT); rows
+        outside this pass's gid window are masked; then every UDA updates:
+        the sum-family UDAs and the presence row in one fused segment sum
+        (H1), the others through their own update."""
         host_gids = key_plan.host_gids is not None
 
         def body(states, presence, blk: int, gid_base: int):
-            env = self._block_env(staged, blk)
-            mask = staged.mask[0, blk]
+            vals = self._run_block(program, staged, blk, aux)
+            mask = vals["__mask__"]
             if host_gids:
                 gids = staged.gids[0, blk].to(torch.int32)
-            elif device_key is None:
-                gids = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+            elif "__gids__" in vals:
+                gids = vals["__gids__"]
             else:
-                gids = evaluator.device_eval(device_key, env, aux).to(torch.int32)
+                gids = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
             gids = gids - gid_base
             gid_ok = (gids >= 0) & (gids < capacity)
             gids = torch.clamp(gids, 0, capacity - 1)
-            for p in preds:
-                mask = mask & evaluator.device_eval(p, env, aux)
             mask = mask & gid_ok
 
             rows = []
@@ -1593,7 +1726,7 @@ class DeviceExecutor:
             for out, arg_e, uda in specs:
                 if uda.fused_rows is None:
                     continue
-                col = evaluator.device_eval(arg_e, env, aux) if uda.reads_args else None
+                col = vals[f"arg:{out}"] if uda.reads_args else None
                 r = uda.fused_rows(col, mask)
                 fused[out] = (len(rows), len(rows) + len(r))
                 rows.extend(r)
@@ -1607,8 +1740,7 @@ class DeviceExecutor:
                 elif not uda.reads_args:
                     new_states.append(uda.update(st, gids, gids, mask=mask))
                 else:
-                    col = evaluator.device_eval(arg_e, env, aux)
-                    new_states.append(uda.update(st, gids, col, mask=mask))
+                    new_states.append(uda.update(st, gids, vals[f"arg:{out}"], mask=mask))
             return new_states, presence
 
         return body
@@ -1622,11 +1754,11 @@ class DeviceExecutor:
         ]
         return outs + [presence]
 
-    def _run_program(self, specs, evaluator, key_plan, staged, aux):
+    def _run_program(self, specs, program, key_plan, staged, aux):
         """Fold every block, pass by pass; returns (([per-spec output],
         presence) as numpy, capacity)."""
         capacity, n_passes = self._pass_plan(specs, key_plan.num_groups)
-        body = self._make_scan_body(specs, evaluator, staged, key_plan, capacity, aux)
+        body = self._make_scan_body(specs, program, staged, key_plan, capacity, aux)
         per_pass = []
         for p in range(n_passes):
             states = [uda.init(capacity, self.device) for _, _, uda in specs]

@@ -1,9 +1,13 @@
-"""Arithmetic/comparison scalar UDFs and the count, sum, mean, min and max
-UDAs.
+"""Arithmetic, comparison and math scalar UDFs and the count, sum, mean,
+min, max, variance and stddev UDAs.
 
-Counterpart of pixie_tpu/udf/builtins/math_ops.py for the subset the port
-runs. Scalars are elementwise functions that work on numpy arrays (the host
-exec graph) and on torch tensors (the device fold) alike. UDA states are
+Counterpart of pixie_tpu/udf/builtins/math_ops.py. Scalars are elementwise
+functions that work on numpy arrays (the host exec graph) and on torch
+tensors (the device fold's tree walk) alike; on the device the fold compiles
+the same trees into one program for the kernel H17 (ops/scalar.py), whose
+semantics these functions define. Every float -> int64 conversion saturates
+as JAX's does (Fault-11: NaN -> 0, >= 2^63 -> INT64_MAX, <= -2^63 ->
+INT64_MIN), which neither numpy's nor torch's cast does. UDA states are
 torch tensors with a leading num_groups axis, built on an explicit device;
 ``update`` reduces through pixie_tpu_torch.ops.segment, whose CUDA kernels
 run on the card. Sum-family UDAs feed int64 rows to the fused-sum lane: the
@@ -51,8 +55,120 @@ def _divide(a, b):
     return _where(b != 0, a / _where(b == 0, 1.0, b), 0.0)
 
 
+def _is_torch(*xs) -> bool:
+    return any(isinstance(x, torch.Tensor) for x in xs)
+
+
+def _tensors(*xs):
+    """The operands as torch tensors on the first tensor's device; Python
+    floats become f64 (torch's default float is f32: Fault-3)."""
+    dev = next(x.device for x in xs if isinstance(x, torch.Tensor))
+    out = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, float) or (isinstance(x, np.ndarray) and x.dtype.kind == "f"):
+            out.append(torch.as_tensor(x, dtype=torch.float64, device=dev))
+        else:
+            out.append(torch.as_tensor(x, device=dev))
+    return out
+
+
+def floor_mod(a, b):
+    """jnp's ``%``: a floor modulo whose sign follows the divisor. Floats
+    take jnp.remainder's form r = fmod(a, b), r += b where r != 0 and its
+    sign differs from b's (numpy's ``%`` returns +-0 with b's sign instead,
+    and fmod's zero keeps a's); ints take the floor remainder, 0 for a
+    divisor of -1 (INT64_MIN % -1 traps in C)."""
+    if _is_torch(a, b):
+        a, b = _tensors(a, b)
+        if a.is_floating_point() or b.is_floating_point():
+            a, b = a.to(torch.float64), b.to(torch.float64)
+            r = torch.fmod(a, b)
+            return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+        return torch.where(b == -1, 0, torch.remainder(a, torch.where(b == -1, 1, b)))
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f" or b.dtype.kind == "f":
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        with np.errstate(invalid="ignore"):
+            r = np.fmod(a, b)
+            return np.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+    return np.where(b == -1, 0, a % np.where(b == -1, 1, b))
+
+
 def _modulo(a, b):
-    return _where(b != 0, a % _where(b == 0, 1, b), 0)
+    if _is_torch(a, b):
+        a, b = _tensors(a, b)
+        r = floor_mod(a, torch.where(b == 0, torch.ones_like(b), b))
+        return torch.where(b != 0, r, torch.zeros_like(r))
+    b = np.asarray(b)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = floor_mod(a, np.where(b == 0, 1, b))
+    return np.where(b != 0, r, np.zeros_like(r))
+
+
+INT64_MIN, INT64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def to_int64(x):
+    """Float -> int64 as JAX converts (Fault-11): truncation toward zero,
+    NaN -> 0, values >= 2^63 -> INT64_MAX, <= -2^63 -> INT64_MIN. Ints and
+    bools pass through as int64."""
+    if _is_torch(x):
+        (x,) = _tensors(x)
+        if not x.is_floating_point():
+            return x.to(torch.int64)
+        x = x.to(torch.float64)
+        hi, lo = x >= 2.0**63, x <= -(2.0**63)
+        safe = torch.where(hi | lo | torch.isnan(x), torch.zeros_like(x), x)
+        out = safe.to(torch.int64)
+        out = torch.where(hi, torch.full_like(out, INT64_MAX), out)
+        return torch.where(lo, torch.full_like(out, INT64_MIN), out)
+    x = np.asarray(x)
+    if x.dtype.kind != "f":
+        return x.astype(np.int64)
+    x = x.astype(np.float64)
+    hi, lo = x >= 2.0**63, x <= -(2.0**63)
+    safe = np.where(hi | lo | np.isnan(x), 0.0, x)
+    out = safe.astype(np.int64)
+    return np.where(hi, INT64_MAX, np.where(lo, INT64_MIN, out)).astype(np.int64)
+
+
+def _unary(torch_fn, np_fn):
+    """An elementwise f64 function of numpy arrays or torch tensors."""
+
+    def fn(a):
+        if _is_torch(a):
+            (a,) = _tensors(a)
+            return torch_fn(a.to(torch.float64))
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            return np_fn(np.asarray(a, dtype=np.float64))
+
+    return fn
+
+
+def _abs(a):
+    return torch.abs(a) if _is_torch(a) else np.abs(a)
+
+
+def _pow(a, b):
+    if _is_torch(a, b):
+        a, b = _tensors(a, b)
+        return torch.pow(a.to(torch.float64), b.to(torch.float64))
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        return np.power(np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64))
+
+
+def _log_base(b, x):
+    """log(b, x) = ln(x) / ln(b), the reference's two logs and a divide."""
+    ln = _unary(torch.log, np.log)
+    lx, lb = ln(x), ln(b)
+    if _is_torch(lx, lb):
+        lx, lb = _tensors(lx, lb)
+    else:
+        lx, lb = np.asarray(lx), np.asarray(lb)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return lx / lb
 
 
 def register(r: Registry) -> None:
@@ -63,6 +179,7 @@ def register(r: Registry) -> None:
         ("multiply", lambda a, b: a * b, [((F, F), F), ((I, I), I)]),
         ("divide", _divide, [((F, F), F), ((I, I), F)]),
         ("modulo", _modulo, [((I, I), I), ((F, F), F)]),
+        ("pow", _pow, [((F, F), F)]),
         ("logical_and", lambda a, b: a & b, [((B, B), B)]),
         ("logical_or", lambda a, b: a | b, [((B, B), B)]),
     ]
@@ -93,6 +210,16 @@ def register(r: Registry) -> None:
     unary = [
         ("negate", lambda a: -a, [(F, F), (I, I)]),
         ("logical_not", lambda a: ~a, [(B, B)]),
+        ("abs", _abs, [(F, F), (I, I)]),
+        ("ceil", lambda a: to_int64(_unary(torch.ceil, np.ceil)(a)), [(F, I)]),
+        ("floor", lambda a: to_int64(_unary(torch.floor, np.floor)(a)), [(F, I)]),
+        # Round half to even, as jnp.round, torch.round and np.round do.
+        ("round", lambda a: to_int64(_unary(torch.round, np.round)(a)), [(F, I)]),
+        ("ln", _unary(torch.log, np.log), [(F, F)]),
+        ("log2", _unary(torch.log2, np.log2), [(F, F)]),
+        ("log10", _unary(torch.log10, np.log10), [(F, F)]),
+        ("exp", _unary(torch.exp, np.exp), [(F, F)]),
+        ("sqrt", _unary(torch.sqrt, np.sqrt), [(F, F)]),
     ]
     for name, fn, sigs in unary:
         for arg, out in sigs:
@@ -100,6 +227,7 @@ def register(r: Registry) -> None:
                 ScalarUDF(name, (arg,), out, fn, Executor.DEVICE,
                           out_semantic=_preserve_first)
             )
+    r.register_scalar(ScalarUDF("log", (F, F), F, _log_base, Executor.DEVICE))
 
     # -- UDAs: init(num_groups, device) -> state ---------------------------
     def count_uda(arg_t):
@@ -208,3 +336,39 @@ def register(r: Registry) -> None:
     for arg_t in (F, I):
         r.register_uda(minmax_uda("min", arg_t, True))
         r.register_uda(minmax_uda("max", arg_t, False))
+
+    def var_state_uda(name, finalize):
+        # State n, sum, sumsq (pixie_tpu/udf/builtins/math_ops.py:222-251):
+        # n through the fused-sum lane's count (H1), the sums through H2.
+        return UDA(
+            name=name,
+            arg_types=(F,),
+            out_type=F,
+            init=lambda g, device: {
+                "n": torch.zeros(g, dtype=torch.int64, device=device),
+                "sum": torch.zeros(g, dtype=torch.float64, device=device),
+                "sumsq": torch.zeros(g, dtype=torch.float64, device=device),
+            },
+            update=lambda st, gids, col, mask=None: {
+                "n": st["n"] + segment.seg_count(gids, st["n"].shape[0], mask),
+                "sum": st["sum"] + segment.seg_sum(
+                    col.to(torch.float64), gids, st["sum"].shape[0], mask
+                ),
+                "sumsq": st["sumsq"] + segment.seg_sum(
+                    col.to(torch.float64) * col.to(torch.float64), gids,
+                    st["sumsq"].shape[0], mask,
+                ),
+            },
+            merge=lambda a, b: {k: a[k] + b[k] for k in a},
+            finalize=finalize,
+            merge_kind=MergeKind.PSUM,
+            doc="Moment-based dispersion aggregate.",
+        )
+
+    def _var(st):
+        n = torch.clamp_min(st["n"].to(torch.float64), 1.0)
+        v = st["sumsq"] / n - (st["sum"] / n) ** 2
+        return torch.clamp_min(v, 0.0)
+
+    r.register_uda(var_state_uda("variance", _var))
+    r.register_uda(var_state_uda("stddev", lambda st: torch.sqrt(_var(st))))

@@ -9,10 +9,10 @@ the JSON string {"p01":..,"p10":..,"p25":..,"p50":..,"p75":..,"p90":..,
 `px.pluck_float64(col, 'p50')` keeps working downstream; count-min emits
 {"total":..,"depth":4,"width":8192,"max_est":..}.
 
-The STRING overloads of approx_count_distinct and count_min hash each
-string's content through a per-dictionary LUT on the device; that lane is
-not ported yet, so compiling one fails with "not ported yet" (NOT_PORTED_
-OVERLOADS in udf/builtins/__init__.py).
+The STRING overloads of approx_count_distinct and count_min take each
+string's content hash (``string_args="hash"``): the device fold gathers it
+through a per-dictionary LUT (``arghash:<col>``), the host AggNode from the
+dictionary's ``content_hashes``; both then hash it as an int64 value.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def register(r: Registry) -> None:
         )
     )
 
-    for t in (I, F):
+    for t in (I, F, S):  # strings arrive as their content hashes
         r.register_uda(
             UDA(
                 name="approx_count_distinct",
@@ -132,32 +132,35 @@ def register(r: Registry) -> None:
             )
         )
 
-    r.register_uda(
-        UDA(
-            name="count_min",
-            arg_types=(I,),
-            out_type=S,
-            init=lambda g, device: {
-                "cm": countmin.init(g, device),
-                "total": torch.zeros((g,), dtype=torch.int64, device=device),
-            },
-            update=_countmin_update,
-            merge=lambda a, b: {
-                "cm": countmin.merge(a["cm"], b["cm"]),
-                "total": a["total"] + b["total"],
-            },
-            finalize=lambda st: _format_cm_totals(
-                _to_numpy(_countmin_totals(st))
-            ),
-            device_finalize=_countmin_totals,
-            format_output=_format_cm_totals,
-            merge_kind=MergeKind.PSUM,
-            host_finalize=True,
-            doc=(
-                "Count-min frequency sketch (4x8192; psum-mergeable). "
-                "Finalize emits sketch metadata JSON."
-            ),
-        )
+    for t in (I, S):
+        r.register_uda(_countmin_uda(t))
+
+
+def _countmin_uda(arg_t) -> UDA:
+    return UDA(
+        name="count_min",
+        arg_types=(arg_t,),
+        out_type=S,
+        init=lambda g, device: {
+            "cm": countmin.init(g, device),
+            "total": torch.zeros((g,), dtype=torch.int64, device=device),
+        },
+        update=_countmin_update,
+        merge=lambda a, b: {
+            "cm": countmin.merge(a["cm"], b["cm"]),
+            "total": a["total"] + b["total"],
+        },
+        finalize=lambda st: _format_cm_totals(
+            _to_numpy(_countmin_totals(st))
+        ),
+        device_finalize=_countmin_totals,
+        format_output=_format_cm_totals,
+        merge_kind=MergeKind.PSUM,
+        host_finalize=True,
+        doc=(
+            "Count-min frequency sketch (4x8192; psum-mergeable). "
+            "Finalize emits sketch metadata JSON."
+        ),
     )
 
 

@@ -197,3 +197,30 @@ def test_scan_lane_constant_projection_matches_host_graph():
     got = port.execute_query(query).table("out")
     assert port_ex.last_fold_ms is not None
     assert got == host.execute_query(query).table("out") and got["one"] == [1] * 300
+
+
+
+def test_constant_projection_host_graph_matches_reference_host_engine():
+    """Fault-10's chain to the reference: the port's host graph (a Carnot
+    with no device executor), which the scan lane's constant projection is
+    held against above, equals the reference's host engine for the same
+    query, every column and row."""
+    query = (
+        "df = px.DataFrame(table='t')\n"
+        "df = df[df.resp_status >= 400]\n"
+        "df.one = 1\n"
+        "df = df[['time_', 'one']]\n"
+        "df = df.head(300)\n"
+        "px.display(df, 'out')\n"
+    )
+    cols = _columns()
+    ref = RefCarnot(device_executor=None)
+    rel = RefRelation.of(("time_", RefDT.TIME64NS), ("service", RefDT.STRING),
+                         ("resp_status", RefDT.INT64), ("latency", RefDT.FLOAT64))
+    t = ref.table_store.create_table("t", rel)
+    t.write_pydict({**cols, "service": RefDictColumn(cols["service"], t.dictionaries["service"])})
+    host = Carnot()
+    _port_table(host)
+    want = ref.execute_query(query).table("out")
+    got = host.execute_query(query).table("out")
+    assert got == want and len(got["time_"]) == 300 and got["one"] == [1] * 300

@@ -282,14 +282,17 @@ def test_key_plan_is_cached_per_table_version():
 
 @pytest.mark.parametrize("uda", ["approx_count_distinct", "count_min"])
 def test_string_sketch_overloads_fail_to_compile(uda):
-    port = Carnot(device_executor=DeviceExecutor(device="cpu"))
-    _fill(port.table_store, http_events(100), DictColumn, DataType, Relation.of, SemanticType)
+    """The STRING overloads, which failed to compile while their lane was
+    unported, now compile and fold on the device through the content-hash
+    LUT (arghash) and equal the reference's device lane: the distinct
+    count (equal registers) and the count-min JSON letter for letter."""
+    data = http_events(20_000)
     query = (
         "df = px.DataFrame(table='http_events')\n"
         f"s = df.groupby(['resp_status']).agg(x=('service', px.{uda}))\n"
         "px.display(s, 'o')\n"
     )
-    # A wrongly typed aggregate fails to compile with a ValueError, as in
-    # the reference; an unported overload says so.
-    with pytest.raises(ValueError, match=rf"{uda}\(STRING\) is not ported yet"):
-        port.compiler.compile(query, port.table_store.relation_map())
+    ex = DeviceExecutor(device="cpu", block_rows=1 << 14)
+    got, want = run_port(data, query, "o", executor=ex), run_ref(data, query, "o")
+    assert ex.last_fold_ms is not None  # the device fold took it
+    assert got == want and len(got["x"]) == 4
