@@ -14,11 +14,15 @@ the CUDA toolkit. In order it:
    and H11 as config 3 and the flows min/max run them, config 1's first
    block for H12, config 8's probe side for H13-H15, join8_oncall_agg's
    block for H16, a block of the let table for H17's two programs: svc_let's
-   predicate program and an f64 program) and at shapes that take its other
-   memory path (edge cases for the join's kernels),
+   predicate program and an f64 program; a full 2^23-row stream window for
+   the codec's decodes H18 (4096 runs, every block dtype) and H19 (nibble,
+   uint8 and uint16 deltas into every integer dtype); config 5's 16 x 4
+   cells and the budget's 32 x 256 for H20 and H21) and at shapes that take
+   its other memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
    scan's compaction and the join exact; t-digest cluster cells under
-   Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp), and
+   Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp; H18
+   and H19 bit for bit; H20 and H21 exact), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
@@ -27,12 +31,20 @@ the CUDA toolkit. In order it:
 4. checks the kernel path against the plain path end to end at 2^20 rows
    for the queries below, config 4 with a filter (any() through H11),
    every join type over both owner tables, the three join aggregates and
-   Q1-Q4;
+   Q1-Q4; flow_window and status_mix at one stream window and at four
+   (2^18 rows each), twice each; and a group-by over http_events sorted by
+   (service, status), whose gid lane and status column ship as RLE (H18),
+   likewise, then driven like a main path (sorted_keys);
 5. runs the port's main paths through
    Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
-   launch counts zeroed just before it, one cold and three warm queries,
-   each verified against numpy truths of the generated columns, and the
-   counts read just after it (every kernel of the path must have launched):
+   launch counts and lanes zeroed just before it, one cold and three warm
+   queries, each verified against numpy truths of the generated columns,
+   and the counts read just after it (every kernel of the path must have
+   launched). With the default flags every aggregate path's cold query
+   stages through the stream (2^23-row windows: 8 for the 2^26- and
+   64M-row tables, 4 for the let table; the stage_stream lane, checked)
+   with the staging codec; the scan and the joins stage in one piece, with
+   the codec:
    - px/service_stats (BASELINE config 2) over http_events (bench.py's
      generator: seed 42, 16 services, status mix {200: .85, 301/404/500:
      .05}, exponential(3e7) latency; 2^26 rows by default) with bench.py's
@@ -40,13 +52,21 @@ the CUDA toolkit. In order it:
      4% of a numpy truth histogram);
    - config 5, t-digest + count-min over the same table: count-min totals
      exact, max_est equal to the largest cell the true per-status counts
-     give, t-digest p50/p99 within 4% of the truth histogram's;
+     give, t-digest p50/p99 within 4% of the truth histogram's; count_min
+     takes the int-dictionary cell lane (H21; no hash kernel, no H6);
+   - status_mix, approx_count_distinct and count_min of resp_status per
+     service over the same table, both on the cell lane (H20, H21): kinds
+     within 12% of 4 in every group, count-min totals exact;
    - config 3, px/net_flow_graph over conn_flows (bench.py's generator: seed
      45, 64 pods each side, 4096 (src, dst) groups; 64,000,000 rows,
      bench.py's BENCH_SMALL_ROWS default): byte sums exact, distinct ports within 12% of the truth for
      every pair and 2.5% on average;
    - the per-pair min/max of px/net_flow_graph over the same conn_flows
      (H11): every min and max exact;
+   - flow_window, px/net_flow_graph's time window (net_flow_graph.pxl:
+     38-41, without its ctx filter) over the same conn_flows: time_ ships as
+     nibble deltas (H19), then H11: time_min 0 and time_max 63,999,999,000
+     exactly;
    - config 1, px/http_data over http_small (bench.py's generator: seed 44,
      status {200: .9, 404/500: .05}; 64,000,000 rows) through the device
      scan (H12): the first 1000 rows with resp_status >= 400 in row order,
@@ -91,8 +111,10 @@ the CUDA toolkit. In order it:
      truths (counts and integer sums exact, p50/p90/p99 within 4%, error
      rate within 1e-9, distinct clients within 12%, variance within
      4e-12 * sumsq / n), each query counting its fold lane;
-6. prints each phase's seconds, one JSON line of per-kernel results, the
-   nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
+6. prints each path's cold breakdown (the stream's keys and wire_bytes /
+   stage_bytes), warm times and launches, each phase's seconds, one JSON
+   line of per-kernel results (H1-H21 and the hash kernel), the nvidia-smi
+   line, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
 line. Without a CUDA device it exits non-zero at once.
@@ -143,6 +165,10 @@ REPLACES = {
     "join_gather": "pixie_tpu/parallel/pipeline.py:3318",
     "join_agg_fold": "pixie_tpu/parallel/pipeline.py:2664",
     "scalar_eval": "pixie_tpu/exec/expression_evaluator.py:219",
+    "codec_rle_decode": "pixie_tpu/ops/codec.py:383",
+    "codec_delta_decode": "pixie_tpu/ops/codec.py:398",
+    "hll_cell_update": "pixie_tpu/ops/hll.py:82",
+    "countmin_cell_update": "pixie_tpu/ops/countmin.py:82",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -153,6 +179,10 @@ SOURCES = {
        for k in ("join_probe", "join_emit_pairs", "join_gather")},
     "join_agg_fold": "pixie_tpu_torch/ops/kernels/join_agg_kernels.cu",
     "scalar_eval": "pixie_tpu_torch/ops/kernels/scalar_kernels.cu",
+    **{k: "pixie_tpu_torch/ops/kernels/codec_kernels.cu"
+       for k in ("codec_rle_decode", "codec_delta_decode")},
+    **{k: "pixie_tpu_torch/ops/kernels/cell_kernels.cu"
+       for k in ("hll_cell_update", "countmin_cell_update")},
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -228,6 +258,39 @@ FLOW_SPAN = (
     ")\n"
     "px.display(s, 'flow_span')\n"
 )
+# The time window of px/net_flow_graph (net_flow_graph.pxl:38-41) over
+# conn_flows, without the script's df.ctx['pod'] filter (metadata is not
+# ported): time_ is monotone, so it ships as nibble deltas (H19), then H11.
+FLOW_WINDOW = (
+    "df = px.DataFrame(table='conn_flows')\n"
+    "s = df.agg(time_min=('time_', px.min), time_max=('time_', px.max))\n"
+    "px.display(s, 'window')\n"
+)
+# Status variety per service over http_events: resp_status (INT64, four
+# values) stages as int-dictionary codes and both sketches fold per cell
+# (H20, H21).
+STATUS_MIX = (
+    "df = px.DataFrame(table='http_events')\n"
+    "s = df.groupby(['service']).agg(\n"
+    "    kinds=('resp_status', px.approx_count_distinct),\n"
+    "    freq=('resp_status', px.count_min),\n"
+    ")\n"
+    "px.display(s, 'status_mix')\n"
+)
+# A group-by over http_events sorted by (service, status): the host gid lane
+# and the status column are run-heavy and ship as RLE (H18), the shape of
+# the reference's tests/test_codec.py:806.
+SORTED_KEYS = (
+    "df = px.DataFrame(table='http_events')\n"
+    "s = df.groupby(['service', 'resp_status']).agg(\n"
+    "    n=('time_', px.count),\n"
+    "    lat=('latency', px.sum),\n"
+    "    lat_max=('latency', px.max),\n"
+    "    st=('resp_status', px.sum),\n"
+    ")\n"
+    "px.display(s, 'sorted')\n"
+)
+SORTED_ROWS = 1 << 20
 
 # BASELINE config 8 (bench.py:1143-1149), and the same fact table OUTER-joined
 # to svc_owners_partial (14 of the 16 services owned, 4 services the fact
@@ -1328,6 +1391,157 @@ def scalar_kernel_phase(dev) -> dict:
     return {"scalar_eval": main}
 
 
+def codec_kernel_phase(dev) -> dict:
+    """H18 and H19 against their plain versions on the card, bit for bit, at
+    a full stream window (2^23 rows): H18 with 4096 runs in every block
+    dtype (NaN payloads and -0.0 among the values), H19 for each delta
+    dtype (nibbles, uint8, uint16) into every integer block dtype. Timed at
+    each dtype; the records are uint16 for H18 (the sorted path's status
+    column) and nibbles into int64 for H19 (flow_window's time_)."""
+    from pixie_tpu_torch.ops import codec, kernels
+
+    rng = np.random.default_rng(18)
+    L, R = 1 << 23, 4096
+    records: dict = {}
+    ends = np.sort(rng.choice(np.arange(1, L), R - 1, replace=False)).astype(np.int32)
+    ends = torch.from_numpy(np.append(ends, L).astype(np.int32)[None, :]).to(dev)
+    by_dtype = {}
+    for dtype in (torch.uint8, torch.uint16, torch.int32, torch.int64, torch.float32,
+                  torch.float64):
+        w = torch.empty(0, dtype=dtype).element_size()
+        raw = rng.integers(0, 1 << 63, R, dtype=np.uint64)
+        raw[:3] = [0x7FF80000DEADBEEF, 1 << 63, 0x7FC0DEAD]  # f64 NaN, -0.0, f32 NaN
+        values = torch.from_numpy(raw.view(np.uint8).reshape(R, 8)[:, :w].copy()
+                                  .reshape(1, R * w)).view(dtype).to(dev)
+        out, out2 = (torch.empty((1, L), dtype=dtype, device=dev) for _ in range(2))
+        kernels.codec_rle_decode(values, ends, out)
+        codec.rle_decode_plain(values, ends, out2)
+        torch.cuda.synchronize()
+        check(torch.equal(out.view(torch.uint8), out2.view(torch.uint8)),
+              f"H18 {dtype}: differs from the plain version")
+        rec = record(
+            lambda: kernels.codec_rle_decode(values, ends, out),
+            lambda: codec.rle_decode_plain(values, ends, out2),
+            None,
+            *bound(R * (w + 4) + L * w, 12 * L), 0.0,
+            f"values[1,{R}] {dtype} -> [1,{L}]",
+        )
+        by_dtype[str(dtype).split(".")[1]] = rec["ms"]
+        if dtype == torch.uint16:
+            records["codec_rle_decode"] = rec
+    records["codec_rle_decode"]["by_dtype_ms"] = by_dtype
+    log(f"H18 codec_rle_decode: bit for bit in 6 dtypes at {L} rows, {R} runs; ms {by_dtype}")
+
+    by_delta = {}
+    bases = torch.tensor([1 << 40], dtype=torch.int64, device=dev)
+    rows = torch.tensor([L], dtype=torch.int32, device=dev)
+    for kind in ("nib", torch.uint8, torch.uint16):
+        nib = kind == "nib"
+        if nib:
+            deltas = torch.from_numpy(rng.integers(0, 256, (1, L // 2)).astype(np.uint8))
+            width = 0.5
+        else:
+            np_dt = np.uint8 if kind == torch.uint8 else np.uint16
+            deltas = torch.from_numpy(rng.integers(0, np.iinfo(np_dt).max, (1, L)).astype(np_dt))
+            width = deltas.element_size()
+        deltas = deltas.to(dev)
+        off = -7
+        for out_dtype in (torch.uint8, torch.uint16, torch.int32, torch.int64):
+            out, out2 = (torch.empty((1, L), dtype=out_dtype, device=dev) for _ in range(2))
+            kernels.codec_delta_decode(bases, deltas, rows, off, nib, out)
+            codec.delta_decode_plain(bases, deltas, rows, off, nib, out2)
+            torch.cuda.synchronize()
+            check(torch.equal(out, out2), f"H19 {kind} -> {out_dtype}: differs from plain")
+        d64 = torch.randint(0, 16, (L,), dtype=torch.int64, device=dev)
+        rec = record(
+            lambda: kernels.codec_delta_decode(bases, deltas, rows, off, nib, out),
+            lambda: codec.delta_decode_plain(bases, deltas, rows, off, nib, out2),
+            lambda: torch.cumsum(d64, dim=0),
+            *bound(L * width + 12 + L * 8, 2 * L), 0.0,
+            f"deltas {kind} [1,{L}] -> int64 [1,{L}]",
+        )
+        by_delta[str(kind).replace("torch.", "")] = rec["ms"]
+        if nib:
+            records["codec_delta_decode"] = rec
+    # A fixed-cadence timestamp (flow_window's time_) decodes to itself.
+    const = torch.zeros((1, L // 2), dtype=torch.uint8, device=dev)
+    ts = torch.empty((1, L), dtype=torch.int64, device=dev)
+    kernels.codec_delta_decode(torch.zeros(1, dtype=torch.int64, device=dev), const, rows,
+                               1000, True, ts)
+    check(torch.equal(ts[0], torch.arange(L, device=dev) * 1000), "H19: time_ ramp")
+    records["codec_delta_decode"]["by_dtype_ms"] = by_delta
+    log(f"H19 codec_delta_decode: bit for bit, 3 delta x 4 block dtypes at {L} rows; "
+        f"ms into int64 {by_delta}")
+    return records
+
+
+def cell_kernel_phase(dev) -> dict:
+    """H20 and H21 against their plain versions on the card, exactly, at
+    config 5's shape (16 groups, 4 status codes) and the budget's edge (32
+    groups, 256 codes), on zeroed states as a query's pass starts them.
+    Records: the config 5 shape."""
+    from pixie_tpu_torch.ops import countmin, hll, kernels
+
+    rng = np.random.default_rng(20)
+    records: dict = {}
+    m = 1 << hll.DEFAULT_PRECISION
+    for G, C in ((N_SERVICES, len(STATUSES)), (32, 256)):
+        hist = torch.from_numpy(rng.integers(1, 1 << 22, (G, C))).to(dev)
+        if C > len(STATUSES):
+            hist[torch.from_numpy(rng.random((G, C)) < 0.3).to(dev)] = 0
+            lut = np.unique(rng.integers(0, 1 << 40, C + 64))[:C]
+        else:
+            lut = np.array(STATUSES, np.int64)
+        lut = torch.from_numpy(lut).to(dev)
+        want = hll.cell_update_plain(hll.init(G, dev), hist, lut)
+        got = kernels.hll_cell_update(hll.init(G, dev), hist, lut)
+        cm, total = countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)
+        kernels.countmin_cell_update(cm, total, hist, lut)
+        want_cm = countmin.cell_update_plain(countmin.init(G, dev), hist, lut)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"H20 G={G} C={C}: registers differ from plain")
+        check(torch.equal(cm, want_cm) and torch.equal(total, hist.sum(dim=1)),
+              f"H21 G={G} C={C}: cells or totals differ from plain")
+        present = hist > 0
+        reg, rho = hll._reg_rho(lut, hll.DEFAULT_PRECISION)
+        gg = torch.arange(G, device=dev)[:, None].expand(G, C)
+        flat = (gg * m + reg[None, :].long())[present]
+        rho_p = rho[None, :].expand(G, C)[present]
+        cells = int(present.sum())
+        lib_state = torch.zeros(G * m, dtype=torch.int32, device=dev)
+        zeroed, plain_state = fresh(lambda: hll.init(G, dev)), hll.init(G, dev)
+        h20 = record(
+            lambda: kernels.hll_cell_update(zeroed(), hist, lut),
+            lambda: hll.cell_update_plain(plain_state, hist, lut),
+            lambda: lib_state.scatter_reduce_(0, flat, rho_p, "amax"),
+            *bound(G * C * 8 + C * 8 + 2 * cells * 4, 40 * G * C), 0.0,
+            f"hist[{G},{C}] {cells} cells, state[{G},{m}] zeroed",
+        )
+        depth, width = cm.shape[1], cm.shape[2]
+        buckets = countmin._buckets(lut, depth, width)
+        flat4 = torch.cat([((gg * depth + d) * width + b[None, :].long())[present]
+                           for d, b in enumerate(buckets)])
+        counts4 = hist[present].repeat(depth)
+        lib_cm = torch.zeros(G * depth * width, dtype=torch.int64, device=dev)
+        cms = fresh(lambda: (countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)))
+        h21 = record(
+            lambda: kernels.countmin_cell_update(*cms(), hist, lut),
+            lambda: countmin.cell_update_plain(cm, hist, lut),
+            lambda: lib_cm.index_add_(0, flat4, counts4),
+            *bound(G * C * 8 + C * 8 + 2 * depth * cells * 8 + 2 * G * 8, 40 * G * C),
+            0.0, f"hist[{G},{C}] {cells} cells, cm[{G},{depth},{width}] zeroed",
+        )
+        log(f"H20 hll_cell_update, H21 countmin_cell_update G={G} C={C}: registers, cells and "
+            f"totals exact; {h20['ms']:.4f} / {h21['ms']:.4f} ms")
+        if G == N_SERVICES:
+            records["hll_cell_update"], records["countmin_cell_update"] = h20, h21
+        else:
+            for name, rec in (("hll_cell_update", h20), ("countmin_cell_update", h21)):
+                records[name]["by_shape_32x256"] = {k: rec[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms")}
+    return records
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -2087,6 +2301,59 @@ def verify_flows(result, fl: dict, n_rows: int) -> None:
     fl["ports_rel"] = (float(rel.max()), float(rel.mean()))
 
 
+def verify_flow_window(result) -> None:
+    """flow_window: one row, time_min 0 and time_max (FLOW_ROWS - 1) * 1000
+    ns, exactly."""
+    rows = result.table("window")
+    check(rows["time_min"] == [0] and rows["time_max"] == [(FLOW_ROWS - 1) * 1000],
+          f"flow_window: {rows}")
+
+
+def verify_status_mix(result, data: dict) -> None:
+    """status_mix: 16 groups; distinct statuses within HLL's 12% of 4 in every
+    group; count-min totals equal the true per-service counts and max_est
+    the largest true cell."""
+    rows = result.table("status_mix")
+    by_svc = {s: i for i, s in enumerate(rows["service"])}
+    check(len(by_svc) == N_SERVICES, f"status_mix: got {len(by_svc)} groups")
+    max_truth = data.setdefault("cm_max", countmin_max_truth(data["ts"]))
+    for j in range(N_SERVICES):
+        i = by_svc[f"ns/svc-{j}"]
+        check(abs(rows["kinds"][i] - len(STATUSES)) <= 0.12 * len(STATUSES),
+              f"status_mix kinds of svc-{j}: {rows['kinds'][i]}")
+        f = json.loads(rows["freq"][i])
+        check(f["total"] == data["tc"][j], f"status_mix count-min total of svc-{j}")
+        check(f["max_est"] == max_truth[j], f"status_mix max_est of svc-{j}")
+
+
+def sorted_events(n_rows: int) -> dict:
+    """http_events rows sorted by (service, status), stable: the run-heavy
+    table of the sorted-key path, with its per-(service, status) truths."""
+    data = http_events(n_rows)
+    order = np.lexsort((data["status"], data["svc"]))
+    out = dict(data)
+    for k in ("svc", "status", "latency"):
+        out[k] = data[k][order]
+    return out
+
+
+def verify_sorted(result, data: dict, want: dict) -> None:
+    """The sorted-key path: 64 (service, status) groups in row order, counts
+    and status sums equal the generator's truths, maxima equal the plain
+    path's and the latency sums within 1e-12 of them, relative."""
+    rows = result.table("sorted")
+    n = N_SERVICES * len(STATUSES)
+    check(len(rows["n"]) == n, f"sorted: {len(rows['n'])} groups")
+    check(rows["service"] == [f"ns/svc-{j}" for j in range(N_SERVICES) for _ in STATUSES],
+          "sorted: group order")
+    check(rows["resp_status"] == list(STATUSES) * N_SERVICES, "sorted: status keys")
+    check(np.array_equal(rows["n"], data["ts"].reshape(-1)), "sorted: counts")
+    check(np.array_equal(rows["st"], (data["ts"] * np.array(STATUSES)).reshape(-1)),
+          "sorted: status sums")
+    check(rows["lat_max"] == want["lat_max"], "sorted: latency maxima vs the plain path")
+    check(np.allclose(rows["lat"], want["lat"], rtol=1e-12, atol=0), "sorted: latency sums")
+
+
 def quantiles_close(got: list, want: list, what: str) -> float:
     """The quantile contract between the kernel path and the plain path
     (PERF.md): parsed values within a relative 1e-2 (Fault-4), and three
@@ -2183,7 +2450,57 @@ def slice_parity(n_rows: int) -> None:
     log(f"slice parity at {n_rows} rows: join8_team_agg, join8_oncall_agg (join-aggregate lane) "
         "and join8_left_agg (host AggNode): groups, counts, ints and min/max equal, sums within "
         "1e-12 relative")
+    # The new paths, at the default window (one window here) and at 2^18-row
+    # windows (four windows, each its own block, through the pinned ring and
+    # the side stream), each run twice on the card.
+    from pixie_tpu_torch.utils import flags
+
+    for window in (flags.streaming_window_rows, 1 << 18):
+        flags.set("streaming_window_rows", window)
+        try:
+            for rep in range(2):
+                for c in (cuda, cpu, flows_cuda, flows_cpu):
+                    c.device_executor.clear_caches()
+                got = flows_cuda.execute_query(FLOW_WINDOW).table("window")
+                want = flows_cpu.execute_query(FLOW_WINDOW).table("window")
+                check(got == want and got["time_max"] == [(n_rows - 1) * 1000],
+                      f"flow_window: cuda vs cpu ({window}-row windows)")
+                got = cuda.execute_query(STATUS_MIX).table("status_mix")
+                want = cpu.execute_query(STATUS_MIX).table("status_mix")
+                check(got["service"] == want["service"] and got["freq"] == want["freq"],
+                      f"status_mix: cuda vs cpu ({window}-row windows)")
+                dk = np.abs(np.asarray(got["kinds"]) - np.asarray(want["kinds"]))
+                check(dk.max() <= 1, "status_mix kinds: cuda vs cpu")
+        finally:
+            flags.reset("streaming_window_rows")
+    log(f"slice parity at {n_rows} rows: flow_window and status_mix kernel path == plain path, "
+        "one window and four, twice each")
     let_parity(n_rows)
+
+
+def sorted_path(n_rows: int) -> dict:
+    """The sorted-key path (the gid lane and the status column through RLE,
+    H18): the kernel path against the plain path at one window and at four,
+    twice each, then driven on the card like a main path."""
+    from pixie_tpu_torch.utils import flags
+
+    data = sorted_events(n_rows)
+    cuda, cpu = build_carnot(data, n_rows, "cuda"), build_carnot(data, n_rows, "cpu")
+    want = cpu.execute_query(SORTED_KEYS).table("sorted")
+    verify_sorted(cpu.execute_query(SORTED_KEYS), data, want)
+    for window in (flags.streaming_window_rows, 1 << 18):
+        flags.set("streaming_window_rows", window)
+        try:
+            for rep in range(2):
+                cuda.device_executor.clear_caches()
+                verify_sorted(cuda.execute_query(SORTED_KEYS), data, want)
+        finally:
+            flags.reset("streaming_window_rows")
+    log(f"slice parity at {n_rows} rows: sorted keys kernel path == plain path (one window and "
+        "four, twice each)")
+    return drive(cuda, SORTED_KEYS, lambda r: verify_sorted(r, data, want),
+                 ("codec_rle_decode", "segment_rows_sum_i64", "segment_sum_f64",
+                  "segment_minmax"))
 
 
 def let_parity(n_rows: int) -> None:
@@ -2216,17 +2533,21 @@ def let_parity(n_rows: int) -> None:
         "endpoint load kernel path == plain path (quantiles within a bin, f64 within 1e-12)")
 
 
-def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None) -> dict:
-    """One main path: launch counts zeroed just before, one cold query (the
-    executor's staged columns and key plans dropped first, so that no path
-    reuses another's) and WARM_QUERIES warm queries, each verified, counts
-    read just after."""
-    from pixie_tpu_torch.ops import kernels
+def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
+          streamed: bool = True) -> dict:
+    """One main path: launch counts and lanes zeroed just before, one cold
+    query (the executor's staged columns and key plans dropped first, so
+    that no path reuses another's) and WARM_QUERIES warm queries, each
+    verified, counts and lanes read just after. A ``streamed`` path must
+    have staged its cold query through the stream (the stage_stream lane,
+    once) and no warm one."""
+    from pixie_tpu_torch.ops import kernels, segment
     from pixie_tpu_torch.parallel import staging
 
     carnot.device_executor.clear_caches()
     kernels.reset_launches()
     staging.reset_cold_profile()
+    segment.reduce_lanes(reset=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = carnot.execute_query(query, now_ns=now_ns)
@@ -2242,10 +2563,14 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None) -> dict:
         warm.append(time.perf_counter() - t0)
         verify_fn(result)
     launches = dict(kernels.LAUNCHES)
+    lanes = segment.reduce_lanes(reset=True)
     for name in expect:
         check(launches[name] > 0, f"kernel {name} was not launched on its main path")
     check(carnot.device_executor.last_fold_ms is not None, "fragment not offloaded")
-    return dict(cold=cold, cold_phases=cold_phases, warm=warm, launches=launches)
+    if streamed:
+        check(lanes.get("stage_stream") == 1 and cold_phases.get("stream_windows", 0) > 0,
+              f"the cold query did not stream once: lanes {lanes}")
+    return dict(cold=cold, cold_phases=cold_phases, warm=warm, launches=launches, lanes=lanes)
 
 
 def main() -> int:
@@ -2290,12 +2615,16 @@ def main() -> int:
     records.update(join_kernel_phase(dev))
     records.update(join_agg_kernel_phase(dev))
     records.update(scalar_kernel_phase(dev))
+    records.update(codec_kernel_phase(dev))
+    records.update(cell_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
 
+    paths = {}
     t0 = time.perf_counter()
     slice_parity(1 << 20)
+    paths["sorted_keys"] = sorted_path(SORTED_ROWS)
     phase_s["slice_parity"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2306,7 +2635,6 @@ def main() -> int:
     phase_s["http_events_table"] = time.perf_counter() - t0
 
     # ---- the main paths: counts from zero before each, read after it
-    paths = {}
     t0 = time.perf_counter()
     paths["service_stats"] = drive(
         carnot, SERVICE_STATS, lambda r: verify(r, data, args.rows),
@@ -2314,12 +2642,27 @@ def main() -> int:
     )
     phase_s["service_stats"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    # count_min(resp_status) takes the int-dictionary cell lane (H21): no
+    # hash kernel, no H6.
     paths["sketches"] = drive(
         carnot, SKETCHES, lambda r: verify_sketches(r, data, args.rows),
-        ("segment_rows_sum_i64", "hash32", "countmin_update", "tdigest_pack",
+        ("segment_rows_sum_i64", "countmin_cell_update", "tdigest_pack",
          "tdigest_cluster", "tdigest_merge", "tdigest_quantiles"),
     )
+    check(paths["sketches"]["lanes"].get("cell_lane") == 1 + WARM_QUERIES
+          and paths["sketches"]["launches"]["countmin_update"] == 0
+          and paths["sketches"]["launches"]["hash32"] == 0,
+          f"sketches: count_min(resp_status) left the cell lane: {paths['sketches']['lanes']}")
     phase_s["sketches"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["status_mix"] = drive(
+        carnot, STATUS_MIX, lambda r: verify_status_mix(r, data),
+        ("segment_rows_sum_i64", "hll_cell_update", "countmin_cell_update", "hll_estimate"),
+    )
+    check(paths["status_mix"]["launches"]["hll_update"] == 0
+          and paths["status_mix"]["launches"]["countmin_update"] == 0,
+          "status_mix: a sketch took its row path")
+    phase_s["status_mix"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     fl = conn_flows(FLOW_ROWS)
@@ -2341,6 +2684,11 @@ def main() -> int:
         flows, FLOW_SPAN, lambda r: verify_flow_span(r, fl), ("segment_minmax",)
     )
     phase_s["flow_span"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths["flow_window"] = drive(
+        flows, FLOW_WINDOW, verify_flow_window, ("codec_delta_decode", "segment_minmax")
+    )
+    phase_s["flow_window"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     hs = http_small(SMALL_ROWS)
@@ -2349,8 +2697,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     phase_s["http_small_table"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    paths["http_data"] = drive(
-        small, HTTP_DATA, lambda r: verify_http_data(r, hs), ("scan_compact", "scalar_eval")
+    paths["http_data"] = drive(  # the scan stages in one piece (with the codec)
+        small, HTTP_DATA, lambda r: verify_http_data(r, hs), ("scan_compact", "scalar_eval"),
+        streamed=False,
     )
     phase_s["http_data"] = time.perf_counter() - t0
 
@@ -2379,9 +2728,9 @@ def main() -> int:
         ("join8_outer", JOIN8_OUTER, verify_join8_outer, join_kernels + ("scan_compact",)),
     ):
         t0 = time.perf_counter()
-        segment.reduce_lanes(reset=True)
-        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, jf), expect)
-        lanes = segment.reduce_lanes(reset=True)
+        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, jf), expect,
+                            streamed=False)
+        lanes = paths[name]["lanes"]
         check(lanes.get("join_sort_merge") == 1 + WARM_QUERIES,
               f"{name}: lanes {lanes}, expected join_sort_merge on every query")
         phase_s[name] = time.perf_counter() - t0
@@ -2397,9 +2746,9 @@ def main() -> int:
          join_kernels + ("scan_compact",) + host_agg, "join_sort_merge"),
     ):
         t0 = time.perf_counter()
-        segment.reduce_lanes(reset=True)
-        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, truth), expect)
-        lanes = segment.reduce_lanes(reset=True)
+        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, truth), expect,
+                            streamed=False)
+        lanes = paths[name]["lanes"]
         check(lanes == {lane: 1 + WARM_QUERIES},
               f"{name}: lanes {lanes}, expected only {lane} on every query")
         phase_s[name] = time.perf_counter() - t0
@@ -2419,32 +2768,43 @@ def main() -> int:
     for name, table, verify_fn, expect, lanes_want in (
         ("svc_let", "let", verify_q1,
          fold + ("segment_sum_f64", "log_histogram_update", "hist_quantiles"),
-         {"fold_key_host": 1 + WARM_QUERIES}),
-        ("code_histogram", "codes", verify_q2, fold, {"fold_key_host": 1 + WARM_QUERIES}),
-        ("latency_histogram", "lat_hist", verify_q3, fold, {"fold_key_host": 1 + WARM_QUERIES}),
+         {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
+        ("code_histogram", "codes", verify_q2, fold,
+         {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
+        ("latency_histogram", "lat_hist", verify_q3, fold,
+         {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
         ("endpoint_load", "load", verify_q4,
          fold + ("segment_sum_f64", "hash32", "hll_update", "hll_estimate", "countmin_update"),
-         {"fold_key_lut": 1 + WARM_QUERIES, "arghash": 1 + WARM_QUERIES}),
+         {"fold_key_lut": 1 + WARM_QUERIES, "arghash": 1 + WARM_QUERIES, "stage_stream": 1}),
     ):
         t0 = time.perf_counter()
-        segment.reduce_lanes(reset=True)
         paths[name] = drive(let_carnot, queries[table], lambda r, f=verify_fn: f(r, truth),
                             expect, now_ns=LET_NOW)
-        lanes = segment.reduce_lanes(reset=True)
+        lanes = paths[name]["lanes"]
         check(lanes == lanes_want, f"{name}: lanes {lanes}, expected {lanes_want}")
         phase_s[name] = time.perf_counter() - t0
 
     n_queries = 1 + WARM_QUERIES
-    rows_of = {"service_stats": args.rows, "sketches": args.rows, "flows": FLOW_ROWS,
-               "flow_span": FLOW_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS,
+    rows_of = {"service_stats": args.rows, "sketches": args.rows, "status_mix": args.rows,
+               "flows": FLOW_ROWS, "flow_span": FLOW_ROWS, "flow_window": FLOW_ROWS,
+               "sorted_keys": SORTED_ROWS, "http_data": SMALL_ROWS, "flamegraph": SMALL_ROWS,
                "join8": JOIN_ROWS, "join8_outer": JOIN_ROWS, "join8_team_agg": JOIN_ROWS,
                "join8_oncall_agg": JOIN_ROWS, "join8_left_agg": JOIN_ROWS,
                "svc_let": LET_ROWS, "code_histogram": LET_ROWS, "latency_histogram": LET_ROWS,
                "endpoint_load": LET_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
+        cp = p["cold_phases"]
         log(f"{name} cold {p['cold']:.3f} s "
-            f"{json.dumps({k: round(v, 3) for k, v in p['cold_phases'].items()})}")
+            f"{json.dumps({k: round(v, 3) for k, v in cp.items()})}")
+        if cp.get("stage_bytes"):
+            log(f"{name} cold staging: {int(cp.get('stream_windows', 0))} stream windows, "
+                f"stage_stream_pack_wait {cp.get('stage_stream_pack_wait', 0.0):.3f} s, "
+                f"stage_stream_put {cp.get('stage_stream_put', 0.0):.3f} s, stage_encode "
+                f"{cp.get('stage_encode', 0.0):.3f} s, stage_decode "
+                f"{cp.get('stage_decode', 0.0):.3f} s, wire_bytes / stage_bytes = "
+                f"{cp.get('wire_bytes', 0.0) / cp['stage_bytes']:.4f} "
+                f"({int(cp.get('wire_bytes', 0))} / {int(cp['stage_bytes'])})")
         log(f"{name} warm {[round(w, 4) for w in p['warm']]} s; best {best:.4f} s = "
             f"{rows_of[name] / best:.4g} rows/s on {smi}")
         log(f"{name} launches over {n_queries} queries: "
@@ -2459,6 +2819,8 @@ def main() -> int:
         profile_warm(carnot, SKETCHES, min(paths["sketches"]["warm"]))
         profile_warm(flows, FLOWS, min(paths["flows"]["warm"]))
         profile_warm(flows, FLOW_SPAN, min(paths["flow_span"]["warm"]))
+        profile_warm(flows, FLOW_WINDOW, min(paths["flow_window"]["warm"]), "flow_window")
+        profile_warm(carnot, STATUS_MIX, min(paths["status_mix"]["warm"]), "status_mix")
         profile_warm(small, HTTP_DATA, min(paths["http_data"]["warm"]))
         profile_warm(stack_carnot, FLAMEGRAPH, min(paths["flamegraph"]["warm"]))
         profile_warm(join_carnot, JOIN8, min(paths["join8"]["warm"]))
@@ -2486,7 +2848,8 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"],
             "copy_bound_ms": r["bound_ms"] * HBM_BYTES_PER_S / rate
             if r["bound_by"] == "bytes" else None,
-            **{k: v for k, v in r.items() if k.startswith(("b_", "torch_tree", "log10", "library_ms_"))},
+            **{k: v for k, v in r.items()
+               if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_"))},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi_line(), flush=True)

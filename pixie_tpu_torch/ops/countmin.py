@@ -10,9 +10,10 @@ the depth rows.
 On a CUDA tensor ``update_counted`` launches the hash kernel for the pair and
 H6 for the buckets, which also adds each group's row count into the UDA's
 ``total`` in the same pass; on a CPU tensor the plain versions below run.
-``query`` is a plain version only: no query runs on the port's path. The
-reference's int-dictionary cell lane (``cell_update``) gives the same cells
-as the row path and is not ported yet.
+``cell_update_counted`` is the int-dictionary cell lane: one update per
+(group, value code) cell of a histogram, which gives the row path's cells;
+on CUDA one H21 launch updates the sketch and ``total`` in place. ``query``
+is a plain version only: no query runs on the port's path.
 """
 
 from __future__ import annotations
@@ -86,6 +87,38 @@ def update(
         scratch = torch.zeros(state.shape[0], dtype=torch.int64, device=state.device)
         return update_counted(state, scratch, gids, values, mask)[0]
     return update_plain(state, gids, values, mask)
+
+
+def cell_update_plain(state: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Plain version of H21's sketch update: the new counts. Every row of a
+    cell hashes alike, so adding the cell's COUNT to its value's buckets is
+    the row path's update (pixie_tpu/ops/countmin.py:82)."""
+    num_groups, depth, width = state.shape
+    C = lut.shape[0]
+    cg = torch.arange(num_groups * C, dtype=torch.int64, device=state.device) // C
+    counts = hist.reshape(-1).to(torch.int64)
+    outs = []
+    for b in _buckets(lut, depth, width):
+        flat = cg * width + b.to(torch.int64).repeat(num_groups)
+        outs.append(
+            torch.zeros(num_groups * width, dtype=torch.int64, device=state.device)
+            .index_add_(0, flat, counts)
+            .reshape(num_groups, width)
+        )
+    return state + torch.stack(outs, dim=1)
+
+
+def cell_update_counted(
+    state: torch.Tensor, total: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts, total): the sketch updated with a per-(group, value code)
+    histogram (int64 [G, C]; ``lut`` [C] the int64 value of each code) and
+    each group's row count added to ``total``. On CUDA both are updated in
+    place by one H21 launch."""
+    if state.is_cuda:
+        kernels.countmin_cell_update(state, total, hist.contiguous(), lut.contiguous())
+        return state, total
+    return cell_update_plain(state, hist, lut), total + hist.sum(dim=1)
 
 
 def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

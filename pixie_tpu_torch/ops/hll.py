@@ -7,10 +7,11 @@ of the rest, plus one), and each register keeps its largest rho. Merge is an
 elementwise max.
 
 On a CUDA tensor ``update`` launches H5 (hash, register, rho and an atomic
-max in one pass over the block, IN PLACE) and ``estimate`` H10; on a CPU
-tensor the plain versions below run. The reference's sort-compact lane and
-its scatter-max give the same registers; the int-dictionary cell lane
-(``cell_update``) is not ported yet.
+max in one pass over the block, IN PLACE), ``cell_update`` H20 (the
+int-dictionary cell lane: one update per (group, value code) cell present in
+a histogram, IN PLACE) and ``estimate`` H10; on a CPU tensor the plain
+versions below run. The reference's sort-compact lane and its scatter-max
+give the same registers.
 """
 
 from __future__ import annotations
@@ -72,6 +73,30 @@ def update(
             mask, state,
         )
     return update_plain(state, gids, values, mask)
+
+
+def cell_update_plain(state: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Plain version of H20: the new registers. Every row of a cell carries
+    the same (register, rho), so the max of rho over the PRESENT cells
+    (hist > 0) is the row path's register (pixie_tpu/ops/hll.py:82)."""
+    num_groups, m = state.shape
+    reg, rho = _reg_rho(lut, _precision(m))  # [C] each
+    rho_gc = torch.where(hist > 0, rho[None, :], 0).to(torch.int32)
+    flat = (
+        torch.arange(num_groups, dtype=torch.int32, device=state.device)[:, None] * m
+        + reg[None, :]
+    ).reshape(-1)
+    maxes = torch.zeros(num_groups * m, dtype=torch.int32, device=state.device)
+    segment.segment_minmax_plain(maxes, rho_gc.reshape(-1), flat, None, is_min=False)
+    return torch.maximum(state, maxes.reshape(num_groups, m))
+
+
+def cell_update(state: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Fold a per-(group, value code) histogram (int64 [G, C]; ``lut`` [C]
+    the int64 value of each code) into the registers; on CUDA in place."""
+    if state.is_cuda:
+        return kernels.hll_cell_update(state, hist.contiguous(), lut.contiguous())
+    return cell_update_plain(state, hist, lut)
 
 
 def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,10 @@ log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
 (H11), ``scan_kernels.cu`` the scan's stream compaction (H12) and
 ``join_kernels.cu`` the sort-merge join's probe, pair emission and gathers
 (H13-H15), ``join_agg_kernels.cu`` the join-aggregate lane's weighted
-fold (H16) and ``scalar_kernels.cu`` the fused scalar-expression
-interpreter (H17); see each file's header. At the first launch, ``library()`` compiles them with
+fold (H16), ``scalar_kernels.cu`` the fused scalar-expression
+interpreter (H17), ``codec_kernels.cu`` the staging codec's device decode
+(H18, H19) and ``cell_kernels.cu`` the sketches' int-dictionary cell lane
+(H20, H21); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -59,6 +61,10 @@ KERNELS = (
     "join_gather",
     "join_agg_fold",
     "scalar_eval",
+    "codec_rle_decode",
+    "codec_delta_decode",
+    "hll_cell_update",
+    "countmin_cell_update",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -67,7 +73,8 @@ LAUNCHES: dict[str, int] = {k: 0 for k in KERNELS}
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
-    "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu",
+    "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
+    "cell_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -103,6 +110,10 @@ _SIGNATURES = {
     "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
     "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
     "px_scalar_eval": (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL, _P),
+    "px_codec_rle_decode": (_P, _P, _I, _I, _LL, _I, _P, _P),
+    "px_codec_delta_decode": (_P, _P, _LL, _I, _P, _LL, _I, _LL, _I, _P, _P, _P),
+    "px_hll_cell_update": (_P, _P, _I, _I, _I, _P, _P),
+    "px_countmin_cell_update": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -847,3 +858,137 @@ def scalar_eval(
         (ctypes.c_int * max(o, 1))(*[SCALAR_KINDS[x.dtype] for x in outs]), o, n,
     )
     return outs
+
+
+# ---------------------------------------------------------------- staging codec
+# H19's delta kinds (codec_kernels.cu): nibbles are uint8 with ``nib``.
+_DELTA_KINDS = {torch.uint8: 1, torch.uint16: 2, torch.int8: 3, torch.int16: 4, torch.int32: 5}
+DELTA_TILE_ROWS = 2048  # kTile of codec_kernels.cu
+
+
+def _decode_out(out: torch.Tensor, device) -> tuple[int, int]:
+    if out.device != device:
+        raise ValueError(f"out is on {out.device}, expected {device}")
+    if out.dim() != 2 or not out.is_contiguous():
+        raise ValueError("out must be a contiguous [d, L] tensor")
+    if out.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"out has dtype {out.dtype}, not a 1, 2, 4 or 8-byte type")
+    return out.shape[0], out.shape[1]
+
+
+def codec_rle_decode(values: torch.Tensor, ends: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """H18: writes values[s, min(searchsorted(ends[s], i, right), R - 1)] to
+    ``out[s, i]`` for every row i of each shard s, as bits, and returns
+    ``out`` ([d, L], the dtype of ``values`` [d, R]; ``ends`` int32 [d, R],
+    ascending in each shard)."""
+    device = values.device
+    d, L = _decode_out(out, device)
+    _require(values, "values", out.dtype, device, 2)
+    _require(ends, "ends", torch.int32, device, 2)
+    R = values.shape[1]
+    if values.shape[0] != d or tuple(ends.shape) != (d, R) or R == 0 or R >= 2**31:
+        raise ValueError(
+            f"codec_rle_decode: values and ends must be [{d}, R] with 0 < R < 2^31; got "
+            f"{tuple(values.shape)}, {tuple(ends.shape)}"
+        )
+    if d == 0 or L == 0:
+        return out
+    _launch(
+        "codec_rle_decode", device,
+        values.data_ptr(), ends.data_ptr(), d, R, L, out.element_size(), out.data_ptr(),
+    )
+    return out
+
+
+def codec_delta_decode(
+    bases: torch.Tensor, deltas: torch.Tensor, rows: torch.Tensor, off: int, nib: bool,
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """H19: writes bases[s] + inclusive_cumsum(d64) to ``out[s, i]`` for i
+    below rows[s] and 0 past it, with d64 = delta + off (wrapping int64 adds)
+    zeroed at row 0 and past rows[s], each sum cast to ``out``'s integer
+    dtype by its low bytes; returns ``out`` ([d, L]). ``bases`` int64 [d],
+    ``rows`` int32 [d]; ``deltas`` [d, L] uint8, uint16, int8, int16 or
+    int32, or with ``nib`` uint8 [d, ceil(L / 2)], the even row in the low
+    nibble."""
+    device = bases.device
+    d, L = _decode_out(out, device)
+    if out.dtype.is_floating_point or out.dtype == torch.bool:
+        raise TypeError(f"codec_delta_decode writes integers, not {out.dtype}")
+    _require(bases, "bases", torch.int64, device, 1)
+    _require(rows, "rows", torch.int32, device, 1)
+    if nib:
+        _require(deltas, "deltas", torch.uint8, device, 2)
+        kind, width = 0, (L + 1) // 2
+    else:
+        if deltas.dtype not in _DELTA_KINDS:
+            raise TypeError(f"deltas has dtype {deltas.dtype}, expected uint8, uint16, int8, "
+                            "int16 or int32")
+        _require(deltas, "deltas", deltas.dtype, device, 2)
+        kind, width = _DELTA_KINDS[deltas.dtype], L
+    if bases.shape[0] != d or rows.shape[0] != d or tuple(deltas.shape) != (d, width):
+        raise ValueError(
+            f"codec_delta_decode: bases and rows must be [{d}] and deltas [{d}, {width}]; got "
+            f"{tuple(bases.shape)}, {tuple(rows.shape)}, {tuple(deltas.shape)}"
+        )
+    if d == 0 or L == 0:
+        return out
+    tiles = d * ((L + DELTA_TILE_ROWS - 1) // DELTA_TILE_ROWS)
+    scratch = torch.zeros(3 * tiles + 1, dtype=torch.int64, device=device)
+    _launch(
+        "codec_delta_decode", device,
+        bases.data_ptr(), deltas.data_ptr(), width, kind, rows.data_ptr(), int(off), d, L,
+        out.element_size(), out.data_ptr(), scratch.data_ptr(),
+    )
+    return out
+
+
+# ---------------------------------------------------------------- cell lane
+def _cell_inputs(hist: torch.Tensor, lut: torch.Tensor, G: int, device) -> int:
+    _require(hist, "hist", torch.int64, device, 2)
+    _require(lut, "lut", torch.int64, device, 1)
+    C = lut.shape[0]
+    if tuple(hist.shape) != (G, C):
+        raise ValueError(f"hist has shape {tuple(hist.shape)}, expected {(G, C)}")
+    return C
+
+
+def hll_cell_update(state: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """H20: for every cell (g, c) with hist[g, c] > 0, register reg(lut[c])
+    of group g takes the max with rho(lut[c]), IN PLACE on ``state`` (int32
+    [G, 2^p]); returns it. ``hist`` int64 [G, C], ``lut`` int64 [C]."""
+    device = state.device
+    _require(state, "state", torch.int32, device, 2)
+    G, m = state.shape
+    precision = m.bit_length() - 1
+    if m != 1 << precision or precision < 4:
+        raise ValueError(f"HLL state width {m} is not a power of two >= 16")
+    C = _cell_inputs(hist, lut, G, device)
+    if G == 0 or C == 0:
+        return state
+    _launch(
+        "hll_cell_update", device,
+        hist.data_ptr(), lut.data_ptr(), G, C, precision, state.data_ptr(),
+    )
+    return state
+
+
+def countmin_cell_update(
+    cm: torch.Tensor, total: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor
+) -> None:
+    """H21: adds hist[g, c] to the ``depth`` buckets of lut[c] in group g of
+    ``cm`` (int64 [G, depth, width]) and to total[g] (int64 [G]), IN PLACE.
+    ``hist`` int64 [G, C], ``lut`` int64 [C]."""
+    device = cm.device
+    _require(cm, "cm", torch.int64, device, 3)
+    _require(total, "total", torch.int64, device, 1)
+    G, depth, width = cm.shape
+    if total.shape[0] != G or width & (width - 1):
+        raise ValueError("countmin_cell_update: total must be [G], width a power of two")
+    C = _cell_inputs(hist, lut, G, device)
+    if G == 0 or C == 0:
+        return
+    _launch(
+        "countmin_cell_update", device,
+        hist.data_ptr(), lut.data_ptr(), G, C, depth, width, cm.data_ptr(), total.data_ptr(),
+    )

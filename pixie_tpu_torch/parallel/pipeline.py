@@ -12,14 +12,21 @@ of a request path) is the dictionary-LUT key (``_dict_lut_key``): per-code
 gids gathered on the device; any other key (several columns, ints,
 computed values) is densified on the host by a chunked GroupEncoder pass
 over the table (cached per table version) and its gids stage as one more
-per-block lane. The needed columns are staged once (parallel/staging.py,
-cached per table version), then every block is folded into the UDA states
-by ``_make_scan_body``: ONE launch of H17 evaluates the block's compiled
+per-block lane. The needed columns are staged once per table version
+(parallel/staging.py, with the staging codec): a cold query of one pass
+takes the reference's default streamed path (``_stream_execute``: window
+k+1 packs on a background thread while window k copies on a side stream,
+decodes and folds, and the windows land in one staging for the warm
+cache); more than one pass, and every warm query, fold the staged blocks
+(``_run_program``). Every block is folded into the UDA states by
+``_make_scan_body``: ONE launch of H17 evaluates the block's compiled
 scalar program (the predicates ANDed into its mask, a LUT key's gids, each
 UDA argument that is not a bare column, a string-hash argument's content
 hashes through its ``arghash`` LUT), the sum-family UDAs and the presence
-counter go through ONE fused segment sum (kernel H1), every other UDA
-through its own update (H2, H3, the sketch kernels H5-H8); the states are
+counter go through ONE fused segment sum (kernel H1), a sketch over an
+INT64 column with few values through the int-dictionary cell lane (its
+(group, code) histogram by H1, folded once a pass by H20/H21), every other
+UDA through its own update (H2, H3, the sketch kernels H5-H8); the states are
 finalized on the device (H4, H9, H10) and fetched with one device -> host
 copy per pass. On one device the reference's cross-device merge
 (``_merge_states``) is the identity, so the port has none yet.
@@ -89,10 +96,15 @@ from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
 from pixie_tpu_torch.ops import scan, segment
 from pixie_tpu_torch.parallel.staging import (
+    COLD_PROFILE,
     StagedColumns,
+    WindowStager,
     _pow2_at_least,
+    int_dict_encode,
+    plan_stream,
     read_columns,
     stage_columns,
+    staged_gid_nbytes,
     timed,
 )
 from pixie_tpu_torch.plan.expressions import (
@@ -118,7 +130,7 @@ from pixie_tpu_torch.table.row_batch import RowBatch
 from pixie_tpu_torch.types import ColumnSchema, DataType, Relation
 from pixie_tpu_torch.types.dtypes import host_dtype
 from pixie_tpu_torch.udf.udf import Executor
-from pixie_tpu_torch.utils import flags
+from pixie_tpu_torch.utils import flags, trace
 
 
 @dataclasses.dataclass
@@ -545,6 +557,20 @@ _NP_DTYPES = {
 }
 
 
+# The cell lane's budget of (group, code) cells, the reference's
+# segment.MATMUL_MAX_SEGMENTS (pixie_tpu/ops/segment.py), so that both
+# packages stage the same codes and take the same lane.
+CELL_MAX_CELLS = 8192
+
+
+def _cell_served(arg_e, uda, cell_cols: dict) -> bool:
+    """Whether a UDA reads its argument through the cell lane's column (a
+    bare cell column): it then has no H17 root and takes no fused rows."""
+    return uda.cell_update is not None and isinstance(arg_e, ColumnRef) and (
+        arg_e.name in cell_cols
+    )
+
+
 def _fetch(tensors: list) -> list:
     """Bring device tensors to the host with ONE device -> host copy: each
     is viewed as bytes, the bytes are concatenated, copied, and split."""
@@ -696,9 +722,11 @@ class DeviceExecutor:
             if out in any_candidates and out not in host_any:
                 base_cols |= referenced_columns(e)  # back to the device lane
         device_specs = [sp for sp in specs if sp[0] not in host_any]
+        capacity, n_passes = self._pass_plan(device_specs, key_plan.num_groups)
+        cell_cols = self._cell_cols(m, device_specs, capacity)
         roots = []
         for out, arg_e, uda in device_specs:
-            if uda.reads_args:
+            if uda.reads_args and not _cell_served(arg_e, uda, cell_cols):
                 lut = f"arghash:{arg_e.name}" if uda.string_args == "hash" and isinstance(
                     arg_e, ColumnRef) and arg_e.name in table.dictionaries else None
                 roots.append((f"arg:{out}", arg_e, None, lut))
@@ -714,14 +742,37 @@ class DeviceExecutor:
         program, aux = compiled
         f32_cols = self._sketch_f32_cols(m, device_specs)
         key_sig = repr([m.col_exprs[g] for g in m.agg_op.groups]) + ":dev"
-        staged = self._stage_cached(
-            table, m.source_op, base_cols, key_sig, key_plan.num_groups,
-            f32_cols=f32_cols, gids=key_plan.host_gids,
+        cache_key = self._staged_key(
+            table, m.source_op, base_cols, key_sig, key_plan.num_groups, f32_cols, cell_cols
         )
-        with timed("fold"):
-            outputs, capacity = self._run_program(
-                device_specs, program, key_plan, staged, aux
-            )
+        staged = self._staged_lookup(cache_key)
+        outputs = None
+        if staged is None:
+            with timed("read_columns"):
+                cols, n = read_columns(
+                    table, sorted(base_cols), m.source_op.start_time, m.source_op.stop_time
+                )
+            if flags.streaming_stage and n_passes == 1:
+                # The reference's default cold path: the aggregate is folded
+                # window by window while the table stages. More than one
+                # pass re-scans the staged blocks, so it stages in one piece
+                # (pixie_tpu/parallel/pipeline.py:5982-5985).
+                with timed("stage"):
+                    outputs, staged = self._stream_execute(
+                        device_specs, program, key_plan, aux, cols, n, f32_cols, cell_cols,
+                        capacity,
+                    )
+                segment.lane_count("stage_stream")
+            else:
+                staged = self._stage_monolithic(cols, n, key_plan, f32_cols, cell_cols)
+                segment.lane_count("stage_monolithic")
+            self._staged_insert(cache_key, staged)
+        if outputs is None:
+            with timed("fold"):
+                outputs, capacity = self._run_program(
+                    device_specs, program, key_plan, staged, self._with_intdicts(aux, staged),
+                    cell_cols,
+                )
         segment.lane_count("fold_key_" + (
             "host" if key_plan.host_gids is not None
             else "lut" if isinstance(key_plan.device_expr, tuple)
@@ -1313,21 +1364,20 @@ class DeviceExecutor:
         while len(self._staged_cache) > max(self._staged_cache_cap, 1):
             self._staged_cache.popitem(last=False)
 
-    def _stage_cached(
+    def _staged_key(
         self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
-        f32_cols: Optional[set] = None, gids: Optional[np.ndarray] = None,
-        extra_cols: Optional[dict] = None,
-    ) -> StagedColumns:
-        """The staged columns of this table version and window, staged and
-        cached on a miss. ``key_sig`` pins what the staging serves (the
-        group expressions, or ``":scan"``) and with it any ``extra_cols``,
-        host columns of the table's rows staged beside the read ones (the
-        join-aggregate lane's join-key ids)."""
-        f32_cols = f32_cols or set()
-        # Version = (min_row_id, end_row_id): writes bump end_row_id and
-        # ring-buffer expiry bumps min_row_id, so either invalidates.
-        cache_key = (
+        f32_cols: Optional[set] = None, cell_cols: Optional[dict] = None,
+    ) -> tuple:
+        """The staged-column cache key of this table version and window.
+        ``key_sig`` pins what the staging serves (the group expressions, or
+        ``":scan"``); the f32 sketch columns and the int-dictionary cell
+        columns (name and cardinality bound) are part of it, so an exact
+        query never reuses a column staged as f32 or as sketch codes
+        (pixie_tpu/parallel/pipeline.py:2029-2032)."""
+        return (
             source_op.table_name,
+            # Version = (min_row_id, end_row_id): writes bump end_row_id and
+            # ring-buffer expiry bumps min_row_id, so either invalidates.
             (table.min_row_id(), table.end_row_id()),
             tuple(sorted(base_cols)),
             source_op.start_time,
@@ -1335,8 +1385,20 @@ class DeviceExecutor:
             self.block_rows,
             key_sig,
             num_groups,
-            tuple(sorted(f32_cols)),
+            tuple(sorted(f32_cols or ())),
+            tuple(sorted((cell_cols or {}).items())),
         )
+
+    def _stage_cached(
+        self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
+        gids: Optional[np.ndarray] = None, extra_cols: Optional[dict] = None,
+    ) -> StagedColumns:
+        """The staged columns of this table version and window, staged in
+        one piece (with the codec) and cached on a miss: the scan, join and
+        join-aggregate lanes. ``extra_cols`` are host columns of the table's
+        rows staged beside the read ones (the join-aggregate lane's join-key
+        ids), pinned by ``key_sig``."""
+        cache_key = self._staged_key(table, source_op, base_cols, key_sig, num_groups)
         staged = self._staged_lookup(cache_key)
         if staged is None:
             with timed("read_columns"):
@@ -1346,11 +1408,39 @@ class DeviceExecutor:
             cols.update(extra_cols or {})
             with timed("stage"):
                 staged = stage_columns(
-                    cols, n, self.device, block_rows=self.block_rows,
-                    f32_cols=f32_cols, gids=gids, num_groups=num_groups,
+                    cols, n, self.device, block_rows=self.block_rows, gids=gids,
+                    num_groups=num_groups,
                 )
             self._staged_insert(cache_key, staged)
         return staged
+
+    def _stage_monolithic(
+        self, cols: dict, n: int, key_plan: _KeyPlan, f32_cols: set, cell_cols: dict
+    ) -> StagedColumns:
+        """The aggregate lane's staging in one piece: the cell columns whose
+        value set fits their bound replaced by codes (``int_dict_encode``),
+        then ``stage_columns``."""
+        int_dicts = {}
+        with timed("int_dict_encode"):
+            for col, max_card in cell_cols.items():
+                enc = int_dict_encode(cols[col], max_card)
+                if enc is not None:
+                    cols[col], int_dicts[col] = enc
+        with timed("stage"):
+            return stage_columns(
+                cols, n, self.device, block_rows=self.block_rows, f32_cols=f32_cols,
+                gids=key_plan.host_gids, num_groups=key_plan.num_groups, int_dicts=int_dicts,
+            )
+
+    def _with_intdicts(self, aux: dict, staged: StagedColumns) -> dict:
+        """``aux`` plus each int-dictionary column's value LUT on the device,
+        ``intdict:<col>`` (pixie_tpu/parallel/pipeline.py:2100-2107)."""
+        if not staged.int_dicts:
+            return aux
+        out = dict(aux)
+        for col, lut in staged.int_dicts.items():
+            out[f"intdict:{col}"] = torch.as_tensor(np.asarray(lut, np.int64), device=self.device)
+        return out
 
     @staticmethod
     def _block_env(staged: StagedColumns, blk: int, names=None) -> dict:
@@ -1695,19 +1785,83 @@ class DeviceExecutor:
         n_passes = (max(num_groups, 1) + capacity - 1) // capacity
         return capacity, n_passes
 
-    # -- the fold --------------------------------------------------------------
-    def _make_scan_body(self, specs, program, staged, key_plan, capacity, aux):
-        """The per-block fold: (states, presence, block, gid_base) ->
-        (states, presence). One H17 launch evaluates the block's mask (its
-        predicates ANDed in), its gids (a dictionary key's codes, or the LUT
-        key's per-code gids) and every UDA argument that is not a bare column
-        (a string-hash argument gathered through its content-hash LUT); rows
-        outside this pass's gid window are masked; then every UDA updates:
-        the sum-family UDAs and the presence row in one fused segment sum
-        (H1), the others through their own update."""
-        host_gids = key_plan.host_gids is not None
+    def _cell_cols(self, m: _Match, specs, capacity: int) -> dict:
+        """{column: cardinality bound} of the columns eligible for the
+        int-dictionary cell lane (pixie_tpu/parallel/pipeline.py:4230-4267):
+        INT64, read ONLY as the bare argument of cell-capable UDAs, in no
+        predicate or key. The bound keeps capacity * C within the
+        reference's segment budget, so both packages stage the same codes
+        and take the same lane (the budget bounds the reference's one-hot
+        einsum; here it bounds H1's histogram and H20/H21's cells)."""
+        max_card = min(256, CELL_MAX_CELLS // max(capacity, 1))
+        if max_card < 2:
+            return {}
+        blocked = set()
+        for p in m.predicates:
+            blocked |= referenced_columns(p)
+        for g in m.agg_op.groups:
+            blocked |= referenced_columns(m.col_exprs[g])
+        consumers: dict[str, list] = {}
+        for _out, arg_e, uda in specs:
+            if not uda.reads_args:
+                continue
+            for col in referenced_columns(arg_e):
+                consumers.setdefault(col, []).append((arg_e, uda))
+        out = {}
+        for col, cons in consumers.items():
+            if col in blocked:
+                continue
+            try:
+                if m.source_relation.col(col).data_type != DataType.INT64:
+                    continue
+            except KeyError:
+                continue
+            if all(isinstance(ae, ColumnRef) and u.cell_update is not None for ae, u in cons):
+                out[col] = max_card
+        return out
 
-        def body(states, presence, blk: int, gid_base: int):
+    # -- the fold --------------------------------------------------------------
+    def _make_scan_body(self, specs, program, staged, key_plan, capacity, aux, cell_cols):
+        """The per-block fold: body(carry, block, gid_base) updates ``carry``
+        (``_new_carry``). One H17 launch evaluates the block's mask (its
+        predicates ANDed in), its gids (a dictionary key's codes, or the LUT
+        key's per-code gids) and every UDA argument that is not a bare
+        column (a string-hash argument gathered through its content-hash
+        LUT); rows outside this pass's gid window are masked; then every UDA
+        updates: the sum-family UDAs and the presence row in one fused
+        segment sum (H1), the others through their own update.
+
+        The cell lane (pixie_tpu/parallel/pipeline.py:5453-5510): a
+        cell-capable UDA over a column staged as int-dictionary codes takes
+        no rows. Each block adds its masked (group, code) counts, gids * C +
+        code, into the pass's histogram (H1), and ``_finish_pass`` folds the
+        histogram into the state once (``cell_update``: H20, H21); max and
+        integer sums do not depend on order, so this gives the reference's
+        per-block updates. Where capacity * C is over the budget (a cached
+        staging under a larger capacity), the UDA takes the row path on
+        LUT-gathered values; a cell column the staging did not encode (too
+        many values) takes it on its raw values. Returns (body, hist_cols),
+        hist_cols {column: C} of the histogram lanes."""
+        host_gids = key_plan.host_gids is not None
+        cell = {
+            out: arg_e.name for out, arg_e, uda in specs if _cell_served(arg_e, uda, cell_cols)
+        }
+        hist_cols = {
+            col: len(staged.int_dicts[col]) for col in set(cell.values())
+            if col in staged.int_dicts and capacity * len(staged.int_dicts[col]) <= CELL_MAX_CELLS
+        }
+        if hist_cols:
+            segment.lane_count("cell_lane")
+
+        def cell_values(col: str, blk: int) -> torch.Tensor:
+            """The row path's values of a cell column: LUT-gathered codes, or
+            the column as staged."""
+            if col in staged.int_dicts:
+                codes = staged.blocks[col][0, blk].to(torch.int64)
+                return aux[f"intdict:{col}"][codes]
+            return self._block_env(staged, blk, [col])[col]
+
+        def body(carry: dict, blk: int, gid_base: int) -> None:
             vals = self._run_block(program, staged, blk, aux)
             mask = vals["__mask__"]
             if host_gids:
@@ -1724,26 +1878,60 @@ class DeviceExecutor:
             rows = []
             fused: dict[str, tuple[int, int]] = {}
             for out, arg_e, uda in specs:
-                if uda.fused_rows is None:
+                if uda.fused_rows is None or out in cell:
                     continue
                 col = vals[f"arg:{out}"] if uda.reads_args else None
                 r = uda.fused_rows(col, mask)
                 fused[out] = (len(rows), len(rows) + len(r))
                 rows.extend(r)
             totals = segment.fused_segment_sums(rows, gids, capacity, mask)
-            presence = presence + totals[-1]
+            carry["presence"] = carry["presence"] + totals[-1]
+            for col, C in hist_cols.items():
+                flat = gids * C + staged.blocks[col][0, blk].to(torch.int32)
+                carry["hists"][col] += segment.seg_count(flat, capacity * C, mask)
             new_states = []
-            for (out, arg_e, uda), st in zip(specs, states):
-                if out in fused:
+            for (out, arg_e, uda), st in zip(specs, carry["states"]):
+                if out in cell:
+                    if cell[out] in hist_cols:
+                        new_states.append(st)  # folded once, in _finish_pass
+                    else:
+                        new_states.append(
+                            uda.update(st, gids, cell_values(cell[out], blk), mask=mask)
+                        )
+                elif out in fused:
                     a, b = fused[out]
                     new_states.append(uda.fused_apply(st, totals[a:b]))
                 elif not uda.reads_args:
                     new_states.append(uda.update(st, gids, gids, mask=mask))
                 else:
                     new_states.append(uda.update(st, gids, vals[f"arg:{out}"], mask=mask))
-            return new_states, presence
+            carry["states"] = new_states
 
-        return body
+        return body, hist_cols
+
+    def _new_carry(self, specs, capacity: int, hist_cols: dict) -> dict:
+        """One pass's fold state: the UDA states, the presence counter and
+        the cell lane's (group, code) histograms."""
+        return {
+            "states": [uda.init(capacity, self.device) for _, _, uda in specs],
+            "presence": torch.zeros(capacity, dtype=torch.int64, device=self.device),
+            "hists": {
+                col: torch.zeros(capacity * C, dtype=torch.int64, device=self.device)
+                for col, C in hist_cols.items()
+            },
+        }
+
+    def _finish_pass(self, specs, carry: dict, capacity: int, aux: dict, hist_cols: dict,
+                     cell_cols: dict) -> list:
+        """The pass's outputs on the device: each cell-lane UDA takes its
+        histogram (H20, H21), then every state is finalized."""
+        states = list(carry["states"])
+        for i, (out, arg_e, uda) in enumerate(specs):
+            if _cell_served(arg_e, uda, cell_cols) and arg_e.name in hist_cols:
+                col = arg_e.name
+                hist = carry["hists"][col].reshape(capacity, hist_cols[col])
+                states[i] = uda.cell_update(states[i], hist, aux[f"intdict:{col}"])
+        return self._finalize_pack(specs, states, carry["presence"])
 
     def _finalize_pack(self, specs, states, presence) -> list:
         """Finalize on the device where the UDA allows it (device_finalize,
@@ -1754,21 +1942,107 @@ class DeviceExecutor:
         ]
         return outs + [presence]
 
-    def _run_program(self, specs, program, key_plan, staged, aux):
+    @staticmethod
+    def _outputs(per_pass: list) -> tuple:
+        leaves = [np.concatenate(parts, axis=0) for parts in zip(*per_pass)]
+        return leaves[:-1], leaves[-1]
+
+    def _run_program(self, specs, program, key_plan, staged, aux, cell_cols):
         """Fold every block, pass by pass; returns (([per-spec output],
         presence) as numpy, capacity)."""
         capacity, n_passes = self._pass_plan(specs, key_plan.num_groups)
-        body = self._make_scan_body(specs, program, staged, key_plan, capacity, aux)
+        body, hist_cols = self._make_scan_body(
+            specs, program, staged, key_plan, capacity, aux, cell_cols
+        )
         per_pass = []
         for p in range(n_passes):
-            states = [uda.init(capacity, self.device) for _, _, uda in specs]
-            presence = torch.zeros(capacity, dtype=torch.int64, device=self.device)
+            carry = self._new_carry(specs, capacity, hist_cols)
             for blk in range(staged.num_blocks):
-                states, presence = body(states, presence, blk, p * capacity)
+                body(carry, blk, p * capacity)
             # ONE blocking device -> host copy per pass.
-            per_pass.append(_fetch(self._finalize_pack(specs, states, presence)))
-        leaves = [np.concatenate(parts, axis=0) for parts in zip(*per_pass)]
-        return (leaves[:-1], leaves[-1]), capacity
+            per_pass.append(_fetch(
+                self._finish_pass(specs, carry, capacity, aux, hist_cols, cell_cols)
+            ))
+        return self._outputs(per_pass), capacity
+
+    def _stream_execute(
+        self, specs, program, key_plan, aux, cols: dict, n: int, f32_cols: set,
+        cell_cols: dict, capacity: int,
+    ):
+        """The streamed cold path (pixie_tpu/parallel/pipeline.py:5939-6459,
+        for one device and one pass): (outputs, the staging for the warm
+        cache). A background thread packs window k+1 into a pinned buffer
+        while window k copies on a side stream, decodes and folds on the
+        compute stream (``WindowStager``); at most two windows' folds are in
+        flight (:6243-6251). Every window lands in its slice of one
+        preallocated staging, which is the warm-cache entry. The reference
+        catches any error here and restages in one piece (:5946-5969); the
+        port raises. Left out, as later queue items: the mesh dispatch and
+        the checkpointed resume (:6043-6061, :6219-6225, :6257-6288), the
+        background AOT compiles (:6097-6133, :6430-6455; nothing is
+        compiled here), the resident ring (:5990-6005, :6186-6197) and the
+        cost model (:6232-6239, :6345-6356)."""
+        import concurrent.futures
+
+        gids = key_plan.host_gids
+        plan = plan_stream(
+            cols, n, flags.streaming_window_rows, block_rows=self.block_rows,
+            f32_cols=f32_cols, cell_cols=cell_cols, num_groups=max(key_plan.num_groups, 1),
+            has_gids=gids is not None, gids=gids,
+        )
+        stager = WindowStager(plan, self.device)
+        staged = stager.staged
+        aux = self._with_intdicts(aux, staged)
+        body, hist_cols = self._make_scan_body(
+            specs, program, staged, key_plan, capacity, aux, cell_cols
+        )
+        carry = self._new_carry(specs, capacity, hist_cols)
+        inflight: collections.deque = collections.deque()
+        t_wall = time.perf_counter()
+        pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="stream-pack"
+        )
+        # The pack thread runs under the query's trace context and
+        # attribution, as the reference's does (:6292-6297).
+        pack = trace.attributed(stager.pack, phase="pack")
+        try:
+            fut = pool.submit(pack, cols, gids, 0)
+            for w in range(plan.n_windows):
+                with timed("stage_stream_pack_wait"):
+                    win = fut.result()
+                if w + 1 < plan.n_windows:
+                    fut = pool.submit(pack, cols, gids, w + 1)
+                with timed("stage_stream_put"):
+                    stager.put(win)
+                COLD_PROFILE["stage_bytes"] = COLD_PROFILE.get("stage_bytes", 0.0) + float(
+                    plan.window_block_nbytes() + staged_gid_nbytes(win.gids)
+                )
+                COLD_PROFILE["wire_bytes"] = COLD_PROFILE.get("wire_bytes", 0.0) + float(
+                    win.wire_nbytes
+                )
+                with timed("stage_stream_dispatch"):
+                    for blk in range(w * plan.nblk, (w + 1) * plan.nblk):
+                        body(carry, blk, 0)
+                if stager.cuda:
+                    done = torch.cuda.Event()
+                    done.record(stager.compute)
+                    inflight.append(done)
+                    if len(inflight) > 2:
+                        with timed("stage_stream_compute_wait"):
+                            inflight.popleft().synchronize()
+            with timed("stage_stream_drain"):
+                outputs = self._outputs([_fetch(
+                    self._finish_pass(specs, carry, capacity, aux, hist_cols, cell_cols)
+                )])
+        finally:
+            pool.shutdown(wait=True)
+            COLD_PROFILE["stage_overlap"] = COLD_PROFILE.get("stage_overlap", 0.0) + (
+                time.perf_counter() - t_wall
+            )
+            COLD_PROFILE["stream_windows"] = COLD_PROFILE.get("stream_windows", 0.0) + float(
+                plan.n_windows
+            )
+        return outputs, staged
 
     def _finalize(
         self, m, specs, key_plan, outputs, registry, table, host_any=None

@@ -123,6 +123,10 @@ def register(r: Registry) -> None:
                     st, gids, col, mask
                 ),
                 merge=hll.merge,
+                # The int-dictionary cell lane: the pipeline routes only
+                # INT64 columns here, so the LUT hashes as the row path's
+                # values do.
+                cell_update=hll.cell_update,
                 finalize=hll.estimate_rounded,
                 merge_kind=MergeKind.PMAX,
                 doc=(
@@ -150,6 +154,7 @@ def _countmin_uda(arg_t) -> UDA:
             "cm": countmin.merge(a["cm"], b["cm"]),
             "total": a["total"] + b["total"],
         },
+        cell_update=_countmin_cell_update,
         finalize=lambda st: _format_cm_totals(
             _to_numpy(_countmin_totals(st))
         ),
@@ -166,6 +171,11 @@ def _countmin_uda(arg_t) -> UDA:
 
 def _countmin_update(st, gids, col, mask=None) -> dict:
     cm, total = countmin.update_counted(st["cm"], st["total"], gids, col, mask)
+    return {"cm": cm, "total": total}
+
+
+def _countmin_cell_update(st, hist, lut) -> dict:
+    cm, total = countmin.cell_update_counted(st["cm"], st["total"], hist, lut)
     return {"cm": cm, "total": total}
 
 

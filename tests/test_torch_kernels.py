@@ -1,4 +1,4 @@
-"""The hand kernels (H1-H17 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H21 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
@@ -21,7 +21,9 @@ count, gathers (H15) and unmatched-row compaction (H12 over row indices)
 exactly. The join-aggregate fold (H16): the count row and the effective
 mask exactly, every sum within 1e-12 * sum |terms| of its cell (H2's bound).
 The scalar-expression interpreter (H17): bool, int and f64 outputs bit for
-bit, the f64 transcendentals within 2 ulp.
+bit, the f64 transcendentals within 2 ulp. The codec's decodes (H18, H19)
+bit for bit; the cell lane's HLL registers, count-min cells and totals
+(H20, H21) exactly.
 """
 
 import json
@@ -502,6 +504,90 @@ def check_scalar_programs(dev) -> dict:
 def test_scalar_kernel_matches_plain_on_card():
     _need_cards(1)
     check_scalar_programs(torch.device("cuda", 0))
+
+
+def check_codec_kernels(dev: torch.device) -> None:
+    """H18 and H19 against their plain versions, bit for bit: RLE of every
+    block dtype (NaN payloads and signed zeros of both float widths) over
+    several shards, and delta decodes of every delta and block dtype, odd
+    lengths, rows short of the shard and an empty shard, across many tiles
+    (the look-back) and in one."""
+    from pixie_tpu_torch.ops import codec
+
+    rng = np.random.default_rng(18)
+    for dtype in (torch.uint8, torch.uint16, torch.int32, torch.int64, torch.float32,
+                  torch.float64):
+        d, L, R = 3, 100_003, 4096
+        ends = np.sort(rng.choice(np.arange(1, L), (d, R - 1)), axis=1).astype(np.int32)
+        ends = np.concatenate([ends, np.full((d, 1), L, np.int32)], axis=1)
+        ends[2, 100:] = L  # a shard with padding runs
+        width = torch.empty(0, dtype=dtype).element_size()
+        raw = rng.integers(0, 1 << 63, (d, R), dtype=np.uint64)
+        raw[:, :3] = [0x7FF80000DEADBEEF, 1 << 63, 0x7FC0DEAD]  # NaN, -0.0; f32 NaN
+        values = torch.from_numpy(raw.view(np.uint8).reshape(d, R, 8)[:, :, :width].copy()
+                                  .reshape(d, R * width)).view(dtype)
+        want = codec.rle_decode_plain(values, torch.from_numpy(ends),
+                                      torch.empty((d, L), dtype=dtype))
+        got = kernels.codec_rle_decode(values.to(dev), torch.from_numpy(ends).to(dev),
+                                       torch.empty((d, L), dtype=dtype, device=dev))
+        assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), dtype
+    for nib, ddt in ((True, torch.uint8), (False, torch.uint8), (False, torch.uint16),
+                     (False, torch.int8), (False, torch.int16), (False, torch.int32)):
+        for out_dtype in (torch.uint8, torch.uint16, torch.int32, torch.int64):
+            for d, L in ((3, 1_000_001), (1, 2048), (2, 7)):
+                rows = torch.tensor([L, L // 2 + 1, 0][:d], dtype=torch.int32)
+                bases = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, d))
+                off = int(rng.integers(-(1 << 40), 1 << 40))
+                if nib:
+                    deltas = torch.from_numpy(rng.integers(0, 256, (d, (L + 1) // 2))
+                                              .astype(np.uint8))
+                else:
+                    np_dt = {torch.uint8: np.uint8, torch.uint16: np.uint16,
+                             torch.int8: np.int8, torch.int16: np.int16,
+                             torch.int32: np.int32}[ddt]
+                    info = np.iinfo(np_dt)
+                    deltas = torch.from_numpy(rng.integers(info.min, info.max, (d, L))
+                                              .astype(np_dt))
+                want = codec.delta_decode_plain(bases, deltas, rows, off, nib,
+                                                torch.empty((d, L), dtype=out_dtype))
+                got = kernels.codec_delta_decode(
+                    bases.to(dev), deltas.to(dev), rows.to(dev), off, nib,
+                    torch.empty((d, L), dtype=out_dtype, device=dev))
+                assert torch.equal(got.cpu(), want), (nib, ddt, out_dtype, d, L)
+
+
+def check_cell_kernels(dev: torch.device) -> None:
+    """H20 and H21 against their plain versions, exactly, at config 5's shape
+    (16 groups, 4 codes) and the budget's edge (32, 256), on filled
+    states."""
+    rng = np.random.default_rng(20)
+    for G, C in ((16, 4), (32, 256), (3, 1)):
+        hist = torch.from_numpy(np.where(rng.random((G, C)) < 0.7,
+                                         rng.integers(1, 1 << 20, (G, C)), 0))
+        lut = torch.from_numpy(np.unique(rng.integers(-(1 << 50), 1 << 50, C + 8))[:C])
+        state = torch.from_numpy(rng.integers(0, 6, (G, 2048)).astype(np.int32))
+        want = hll.cell_update_plain(state, hist, lut)
+        got = kernels.hll_cell_update(state.clone().to(dev), hist.to(dev), lut.to(dev))
+        assert torch.equal(got.cpu(), want), (G, C)
+        cm = torch.from_numpy(rng.integers(0, 9, (G, 4, 8192)))
+        total = torch.from_numpy(rng.integers(0, 99, G))
+        want_cm = countmin.cell_update_plain(cm, hist, lut)
+        cm_d, total_d = cm.clone().to(dev), total.clone().to(dev)
+        kernels.countmin_cell_update(cm_d, total_d, hist.to(dev), lut.to(dev))
+        assert torch.equal(cm_d.cpu(), want_cm) and torch.equal(total_d.cpu(),
+                                                                total + hist.sum(dim=1))
+
+
+@pytest.mark.cuda
+def test_codec_kernels_match_plain_on_card():
+    _need_cards(1)
+    check_codec_kernels(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_cell_kernels_match_plain_on_card():
+    _need_cards(1)
+    check_cell_kernels(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda

@@ -137,6 +137,7 @@ def _run(engines, name: str):
     folds = [k for k in ref.device_executor._program_cache if k.startswith("fold|")]
     assert len(folds) == 1 and not ref.device_executor.fallback_errors
     segment.reduce_lanes(reset=True)
+    port.device_executor.clear_caches()  # every run cold: one stage_stream lane
     port.device_executor.last_fold_ms = None
     got = port.execute_query(QUERIES[name], now_ns=NOW).table(name)
     assert port.device_executor.last_fold_ms is not None
@@ -173,7 +174,7 @@ def ref_lane_q4(request):
 def test_q1_svc_let_matches_reference(engines, ref_lane):
     data, _, _ = engines
     got, want, fold, lanes = _run(engines, "let")
-    assert "hostgids:True" in fold and lanes == {"fold_key_host": 1}
+    assert "hostgids:True" in fold and lanes == {"fold_key_host": 1, "stage_stream": 1}
     assert got["k8s"] == want["k8s"] and got["time_"] == want["time_"]
     assert set(got["k8s"]) == {"svc-1"} | {f"svc-1{i}" for i in range(6)}
     for k in ("latency_p50", "latency_p90", "latency_p99"):
@@ -193,7 +194,7 @@ def test_q1_svc_let_matches_reference(engines, ref_lane):
 def test_q2_code_histogram_matches_reference(engines, ref_lane):
     data, _, _ = engines
     got, want, fold, lanes = _run(engines, "codes")
-    assert "hostgids:True" in fold and lanes == {"fold_key_host": 1}
+    assert "hostgids:True" in fold and lanes == {"fold_key_host": 1, "stage_stream": 1}
     assert got == want
     keep = ((data["req_path"] != "/healthz") & (data["req_path"] != "/readyz")
             & (data["remote_addr"] != "-")
@@ -205,7 +206,7 @@ def test_q2_code_histogram_matches_reference(engines, ref_lane):
 def test_q3_latency_histogram_matches_reference(engines, ref_lane):
     data, _, _ = engines
     got, want, fold, lanes = _run(engines, "lat_hist")
-    assert "hostgids:True" in fold and lanes == {"fold_key_host": 1}
+    assert "hostgids:True" in fold and lanes == {"fold_key_host": 1, "stage_stream": 1}
     assert got == want
     keep = ((data["req_path"] != "/healthz") & (data["req_path"] != "/readyz")
             & (data["remote_addr"] != "-")
@@ -219,7 +220,7 @@ def test_q4_endpoint_load_matches_reference(engines, ref_lane_q4):
     data, _, _ = engines
     got, want, fold, lanes = _run(engines, "load")
     assert "key:lut:req_path" in fold and "hostgids:False" in fold
-    assert lanes == {"fold_key_lut": 1, "arghash": 1}
+    assert lanes == {"fold_key_lut": 1, "arghash": 1, "stage_stream": 1}
     for k in ("endpoint", "n", "clients", "paths", "err_bytes", "ms"):
         assert got[k] == want[k], k
     _close(got["mlog"], want["mlog"], 1e-12)
