@@ -17,12 +17,16 @@ the CUDA toolkit. In order it:
    predicate program and an f64 program; a full 2^23-row stream window for
    the codec's decodes H18 (4096 runs, every block dtype) and H19 (nibble,
    uint8 and uint16 deltas into every integer dtype); config 5's 16 x 4
-   cells and the budget's 32 x 256 for H20 and H21) and at shapes that take
+   cells and the budget's 32 x 256 for H20 and H21; a block of the
+   service_stats table for H22 (B = 1, 7, 16, 32 slots of one to three
+   terms, op-6 lists of 2 and 1024 members) and H23 (the seven families'
+   slot bits, 16 groups; 4096 groups for its global path)) and at shapes that take
    its other memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
    scan's compaction and the join exact; t-digest cluster cells under
    Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp; H18
-   and H19 bit for bit; H20 and H21 exact), and
+   and H19 bit for bit; H20 and H21 exact; H22 bit for bit, H23's integers
+   exact and its f64 sums within 1e-12 * sum |v|), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
@@ -34,7 +38,10 @@ the CUDA toolkit. In order it:
    Q1-Q4; flow_window and status_mix at one stream window and at four
    (2^18 rows each), twice each; and a group-by over http_events sorted by
    (service, status), whose gid lane and status column ship as RLE (H18),
-   likewise, then driven like a main path (sorted_keys);
+   likewise, then driven like a main path (sorted_keys); and K16's batched
+   fold, one batch of the seven soak families and one of three sketch
+   thresholds called through ``_run_program_batched`` on both paths, each
+   slot also against its query run alone on the card;
 5. runs the port's main paths through
    Carnot(device_executor=DeviceExecutor(block_rows=2^21)), each with the
    launch counts and lanes zeroed just before it, one cold and three warm
@@ -57,6 +64,16 @@ the CUDA toolkit. In order it:
    - status_mix, approx_count_distinct and count_min of resp_status per
      service over the same table, both on the cell lane (H20, H21): kinds
      within 12% of 4 in every group, count-min totals exact;
+   - shared_scan, bench.py config 6's query families over the same table:
+     the serving soak's seven predicate families x two output-name variants
+     (count and sum of latency by service) and a sketch group (quantiles
+     and approx_count_distinct by service under three latency thresholds),
+     each run serially first, then 16 closed-loop client threads, 4
+     requests each, with shared scans, predicate batching and a 25 ms
+     window: every result equal to its serial baseline (f64 sums within
+     1e-12 * sum |v|) and to numpy's counts, a dispatch of width >= 2, no
+     detached follower, H22 and H23 launched; it prints queries/s, p50/p99,
+     dispatches per query and the batch-width histogram;
    - config 3, px/net_flow_graph over conn_flows (bench.py's generator: seed
      45, 64 pods each side, 4096 (src, dst) groups; 64,000,000 rows,
      bench.py's BENCH_SMALL_ROWS default): byte sums exact, distinct ports within 12% of the truth for
@@ -113,7 +130,7 @@ the CUDA toolkit. In order it:
      4e-12 * sumsq / n), each query counting its fold lane;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H21 and the hash kernel), the nvidia-smi
+   line of per-kernel results (H1-H23 and the hash kernel), the nvidia-smi
    line, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -127,6 +144,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -169,6 +187,8 @@ REPLACES = {
     "codec_delta_decode": "pixie_tpu/ops/codec.py:398",
     "hll_cell_update": "pixie_tpu/ops/hll.py:82",
     "countmin_cell_update": "pixie_tpu/ops/countmin.py:82",
+    "pred_slot_masks": "pixie_tpu/parallel/pipeline.py:5541",
+    "batched_segment_sums": "pixie_tpu/parallel/pipeline.py:5598",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -183,6 +203,8 @@ SOURCES = {
        for k in ("codec_rle_decode", "codec_delta_decode")},
     **{k: "pixie_tpu_torch/ops/kernels/cell_kernels.cu"
        for k in ("hll_cell_update", "countmin_cell_update")},
+    **{k: "pixie_tpu_torch/ops/kernels/batch_kernels.cu"
+       for k in ("pred_slot_masks", "batched_segment_sums")},
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -291,6 +313,46 @@ SORTED_KEYS = (
     "px.display(s, 'sorted')\n"
 )
 SORTED_ROWS = 1 << 20
+
+
+def soak_query(pred, names) -> str:
+    """One query of the serving soak's compatible set (tools/soak_serving.py:
+    56-83): count and sum(latency) by service under one predicate family."""
+    filt = f"df = df[{pred}]\n" if pred else ""
+    return ("df = px.DataFrame(table='http_events')\n" + filt
+            + "st = df.groupby(['service']).agg(\n"
+            f"    {names[0]}=('time_', px.count),\n"
+            f"    {names[1]}=('latency', px.sum),\n"
+            ")\npx.display(st, 'out')\n")
+
+
+# The soak's seven predicate families (its join family left out), the first
+# reading every column the others read, so its staging serves them all.
+SOAK_PREDS = (
+    ("df.resp_status == 200", lambda st, la: st == 200),
+    ("df.resp_status == 404", lambda st, la: st == 404),
+    ("df.resp_status == 500", lambda st, la: st == 500),
+    ("df.resp_status != 200", lambda st, la: st != 200),
+    ("df.latency > 20000000.0", lambda st, la: la > 2e7),
+    ("df.resp_status in [200, 404]", lambda st, la: (st == 200) | (st == 404)),
+    (None, lambda st, la: np.ones(st.shape, bool)),
+)
+SUM_GROUP = [(soak_query(p, names), fam) for p, fam in SOAK_PREDS
+             for names in (("n", "total"), ("cnt", "s"))]
+SKETCH_THRESHOLDS = (1e7, 2e7, 4e7)
+SKETCH_GROUP = [
+    "df = px.DataFrame(table='http_events')\n"
+    f"df = df[df.latency > {thr!r}]\n"
+    "st = df.groupby(['service']).agg(\n"
+    "    q=('latency', px.quantiles),\n"
+    "    u=('resp_status', px.approx_count_distinct),\n"
+    ")\npx.display(st, 'out')\n"
+    for thr in SKETCH_THRESHOLDS
+]
+SHARED_QUERIES = [q for q, _ in SUM_GROUP] + SKETCH_GROUP
+SOAK_CLIENTS, SOAK_REQUESTS = 16, 4  # bench.py's BENCH_SOAK_REQUESTS
+SOAK_WINDOW_MS = 25.0  # tools/soak_serving.py's SOAK_WINDOW_MS
+JOIN_TIMEOUT_S = 600
 
 # BASELINE config 8 (bench.py:1143-1149), and the same fact table OUTER-joined
 # to svc_owners_partial (14 of the 16 services owned, 4 services the fact
@@ -1542,6 +1604,155 @@ def cell_kernel_phase(dev) -> dict:
     return records
 
 
+def soak_terms() -> list:
+    """The sum group's seven families as the normalizer writes their terms
+    (resp_status on the int stack, latency on the float stack)."""
+    return [
+        [("i", "resp_status", 0, 200, 0.0, ())], [("i", "resp_status", 0, 404, 0.0, ())],
+        [("i", "resp_status", 0, 500, 0.0, ())], [("i", "resp_status", 1, 200, 0.0, ())],
+        [("f", "latency", 4, 0, 2e7, ())], [("i", "resp_status", 6, 0, 0.0, (200, 404))], [],
+    ]
+
+
+def wide_terms(B: int) -> list:
+    """B slots of one to three terms: the soak's families, then further
+    families with an op-6 list of 1024 members (every even status) and a
+    latency range."""
+    fams = soak_terms()
+    out = []
+    for s in range(B):
+        terms = list(fams[s % len(fams)])
+        if s >= len(fams):
+            terms.append(("i", "resp_status", 6, 0, 0.0, tuple(range(0, 2048, 2))))
+        if s >= 2 * len(fams):
+            terms.append(("f", "latency", 2, 0, float(1e6 * (s + 1)), ()))
+        out.append(terms)
+    return out
+
+
+def torch_tree(cols: dict, base: torch.Tensor, slot_terms: list):
+    """The tree of torch ops H22 replaces: per slot, each term's compare
+    (isin for op 6) ANDed into the block mask, shifted into its bit."""
+    dev = base.device
+    ops = [torch.eq, torch.ne, torch.lt, torch.le, torch.gt, torch.ge]
+    wide = {c: (t.to(torch.int64) + off if not t.dtype.is_floating_point else t)
+            for c, (t, off) in cols.items()}
+    lists = {id(t): torch.tensor(t[5], dtype=torch.int64, device=dev)
+             for terms in slot_terms for t in terms if t[2] == 6}
+
+    def run():
+        bits = torch.zeros(base.shape[0], dtype=torch.int64, device=dev)
+        for s, terms in enumerate(slot_terms):
+            m = base
+            for t in terms:
+                v = wide[t[1]]
+                if t[2] == 6:
+                    m = m & torch.isin(v, lists[id(t)])
+                else:
+                    m = m & ops[t[2]](v, t[4] if t[0] == "f" else t[3])
+            bits |= m.to(torch.int64) << s
+        return bits
+
+    return run
+
+
+def batch_kernel_phase(dev) -> dict:
+    """H22 and H23 against their plain versions on the card at a 2^21-row
+    block of the service_stats table (16 groups; resp_status narrowed to
+    uint16 at offset 200 as staging narrows it, f64 latency). H22 for B = 1,
+    7 (the sum group's seven families: T = 1, an op-6 list of 2), 16 and 32
+    (T = 2 and 3 with an op-6 list of 1024), bit for bit; H23 for the shared
+    partials at the main path's shape (the 7 families' bits, no int row, one
+    f64 row, 16 groups) and at B = 16 with two int and two f64 rows, and for
+    the global-memory path at B = 32 and 4096 groups: integers exact, f64
+    sums within 1e-12 * sum |v|. Records: the main path's shapes (B = 7)."""
+    from pixie_tpu_torch.ops import batched, kernels
+
+    rng = np.random.default_rng(24)
+    n = BLOCK_ROWS
+    status = np.array(STATUSES)[rng.choice(4, n, p=[0.85, 0.05, 0.05, 0.05])]
+    latency = rng.exponential(3e7, n)
+    cols = {
+        "resp_status": (torch.from_numpy((status - 200).astype(np.uint16)).to(dev), 200),
+        "latency": (torch.from_numpy(latency).to(dev), 0),
+    }
+    dtypes = {c: np.dtype(np.uint16 if c == "resp_status" else np.float64) for c in cols}
+    base = torch.from_numpy(rng.random(n) < 0.97).to(dev)
+    records: dict = {}
+    bits7 = None
+    for B in (7, 1, 16, 32):  # the main path's shape first: its record
+        slot_terms = soak_terms() if B == 7 else wide_terms(B)
+        table = batched.build_term_table(slot_terms, dtypes).to(dev)
+        tcols = [cols[c][0] for c in table.columns]
+        offs = [cols[c][1] for c in table.columns]
+        got = batched.slot_masks(tcols, offs, base, table)
+        want = batched.slot_masks_plain(tcols, offs, base, table)
+        tree = torch_tree(cols, base, slot_terms)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"H22 B={B}: slot bits differ from plain")
+        check(torch.equal(got.to(torch.int64) & 0xFFFFFFFF, tree()), f"H22 B={B}: bits vs torch tree")
+        col_bytes = sum(t.element_size() for t in tcols)
+        rec = record(
+            lambda: batched.slot_masks(tcols, offs, base, table),
+            lambda: batched.slot_masks_plain(tcols, offs, base, table), None,
+            *bound(n * (1 + col_bytes + 4), n * table.B * table.T), 0,
+            f"{n} rows, B={B} (padded {table.B}), T={table.T}, L={table.L}, "
+            f"columns {table.columns}",
+        )
+        rec["torch_tree_ms"] = time_ms(tree)
+        log(f"H22 pred_slot_masks B={B} T={table.T} L={table.L}: bit-equal to plain; "
+            f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, torch tree "
+            f"{rec['torch_tree_ms']:.4f}, bound {rec['bound_ms']:.4f})")
+        if B == 7:
+            records["pred_slot_masks"], bits7 = rec, got
+        else:
+            records["pred_slot_masks"][f"by_shape_B{B}"] = {
+                k: rec[k] for k in ("ms", "plain_ms", "torch_tree_ms", "bound_ms")}
+    lat = cols["latency"][0]
+    for B, R, F, S in ((7, 0, 1, N_SERVICES), (16, 2, 2, N_SERVICES), (32, 1, 1, 4096)):
+        gids = torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
+        bits = bits7 if B == 7 else torch.from_numpy(
+            rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(dev)
+        irows = torch.from_numpy(rng.integers(-(2**40), 2**40, (R, n))).to(dev)
+        frows = torch.stack([lat] + [lat * (f + 2) for f in range(F - 1)]) if F else \
+            torch.empty((0, n), dtype=torch.float64, device=dev)
+        got_i, got_f = batched.batched_segment_sums(irows, frows, gids, bits, B, S)
+        want_i, want_f = batched.batched_segment_sums_plain(irows, frows, gids, bits, B, S)
+        _, abs_f = batched.batched_segment_sums_plain(irows, frows.abs(), gids, bits, B, S)
+        torch.cuda.synchronize()
+        check(torch.equal(got_i, want_i), f"H23 B={B} S={S}: integer sums or presence differ")
+        err = float((got_f - want_f).abs().max()) if F else 0.0
+        check(bool(torch.all((got_f - want_f).abs() <= 1e-12 * abs_f)),
+              f"H23 B={B} S={S}: f64 sums beyond 1e-12 * sum |v|")
+        # One index_add_ over slot-flattened ids s * S + g of the B-times
+        # expanded first f64 row (rows outside a slot into a spare cell).
+        slots = torch.arange(B, device=dev)[:, None]
+        on = ((bits.to(torch.int64)[None, :] >> slots) & 1).bool()
+        flat = torch.where(on, slots * S + gids[None, :].long(), B * S).reshape(-1)
+        vals = frows[0].expand(B, n).reshape(-1)
+        lib_out = torch.zeros(B * S + 1, dtype=torch.float64, device=dev)
+        shared = kernels.uses_shared("batched_segment_sums", dev, S, rows=B * (R + 1 + F))
+        rec = record(
+            lambda: batched.batched_segment_sums(irows, frows, gids, bits, B, S),
+            lambda: batched.batched_segment_sums_plain(irows, frows, gids, bits, B, S),
+            lambda: lib_out.index_add_(0, flat, vals),
+            *bound(n * (4 + 4 + 8 * (R + F)) + B * (R + 1 + F) * S * 8,
+                   int(on.sum()) * (R + 1 + F)),
+            err, f"{n} rows, B={B}, R={R}, F={F}, S={S}, "
+            f"{'shared partials' if shared else 'global atomics'}",
+        )
+        log(f"H23 batched_segment_sums B={B} R={R} F={F} S={S} "
+            f"({'shared' if shared else 'global'}): integers exact, f64 max abs err {err:.3g}; "
+            f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, index_add_ "
+            f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f})")
+        if B == 7:
+            records["batched_segment_sums"] = rec
+        else:
+            records["batched_segment_sums"][f"by_shape_B{B}_S{S}"] = {
+                k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return records
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -2475,7 +2686,249 @@ def slice_parity(n_rows: int) -> None:
             flags.reset("streaming_window_rows")
     log(f"slice parity at {n_rows} rows: flow_window and status_mix kernel path == plain path, "
         "one window and four, twice each")
+    shared_scan_parity(cuda, cpu, n_rows)
     let_parity(n_rows)
+
+
+class CaptureScans:
+    """Stands in for an executor's shared-scan coordinator: runs each query
+    alone and keeps what it offered the coordinator (keys, terms and its
+    compute_batch)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def run(self, key, compute, batch_key=None, terms=None, compute_batch=None):
+        solo = compute()
+        self.calls.append(dict(key=key, batch_key=batch_key, terms=terms,
+                               compute_batch=compute_batch, solo=solo))
+        return solo
+
+
+def batched_call(carnot, queries: list) -> tuple:
+    """Each query once (the first stages what all of them read), then again
+    with the coordinator captured, then ONE ``_run_program_batched`` call
+    over every query's terms: (each query's solo outputs, each slot's)."""
+    ex = carnot.device_executor
+    for q in queries:
+        carnot.execute_query(q)
+    cap, saved = CaptureScans(), ex._shared_scans
+    ex._shared_scans = cap
+    try:
+        for q in queries:
+            carnot.execute_query(q)
+    finally:
+        ex._shared_scans = saved
+    calls = cap.calls
+    check(len(calls) == len(queries) and all(c["terms"] is not None for c in calls)
+          and len({c["batch_key"] for c in calls}) == 1,
+          "batched parity: the queries do not share one batch key")
+    return [c["solo"] for c in calls], calls[0]["compute_batch"]([c["terms"] for c in calls])
+
+
+def outputs_close(got, want, what: str, sketch: bool, same_bins: bool) -> None:
+    """One slot's outputs against another run's: presence and counts exact;
+    f64 sums within 1e-12 * sum |v| (the latencies are positive, so sum |v|
+    is the sum); quantiles equal (``same_bins``: both runs binned by H3) or
+    one log bin apart (Fault-1, the card against the CPU); HLL estimates
+    within a relative 1e-12 (equal registers)."""
+    from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
+
+    (gv, gp), gcap = got
+    (wv, wp), wcap = want
+    check(gcap == wcap and np.array_equal(gp, wp), f"{what}: presence")
+    if not sketch:
+        check(np.array_equal(gv[0], wv[0]), f"{what}: counts")
+        check(bool(np.all(np.abs(gv[1] - wv[1]) <= 1e-12 * np.abs(wv[1]))), f"{what}: sums")
+        return
+    gq, wq = np.asarray(gv[0]), np.asarray(wv[0])
+    ratio = np.maximum(gq, wq) / np.maximum(np.minimum(gq, wq), 1e-300)
+    near = np.zeros(gq.shape, bool) if same_bins else ratio <= DEFAULT_SPEC.gamma * (1 + 1e-9)
+    check(bool(np.all((gq == wq) | near)), f"{what}: quantiles")
+    check(bool(np.all(np.abs(np.asarray(gv[1]) - np.asarray(wv[1]))
+                      <= 1e-12 * np.abs(np.asarray(wv[1])))), f"{what}: HLL estimates")
+
+
+def shared_scan_parity(cuda, cpu, n_rows: int) -> None:
+    """K16's batched fold, kernel path against plain path: one batch of the
+    sum group's seven families and one of the sketch group's three
+    thresholds, each called directly through ``_run_program_batched`` (a
+    fixed composition) on both executors; every slot of the card's batch
+    also against the card's solo run of its query. H22 and H23 must have
+    launched."""
+    from pixie_tpu_torch.ops import kernels
+
+    groups = (("sum", [soak_query(p, ("n", "total")) for p, _ in SOAK_PREDS], False),
+              ("sketch", SKETCH_GROUP, True))
+    for name, queries, sketch in groups:
+        kernels.reset_launches()
+        solo_c, slots_c = batched_call(cuda, queries)
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] for k in ("pred_slot_masks", "batched_segment_sums")}
+        check(all(launched.values()), f"batched parity {name}: H22/H23 not launched: {launched}")
+        _, slots_p = batched_call(cpu, queries)
+        for s, (a, b, solo) in enumerate(zip(slots_c, slots_p, solo_c)):
+            outputs_close(a, b, f"batched {name} slot {s}: cuda vs cpu", sketch, False)
+            outputs_close(a, solo, f"batched {name} slot {s}: batched vs solo on the card",
+                          sketch, True)
+    log(f"slice parity at {n_rows} rows: K16 batched fold (7 sum families, 3 sketch thresholds) "
+        "kernel path == plain path and == each query alone on the card")
+
+
+def shared_truths(data: dict) -> list:
+    """Per sum-group family: (counts, latency sums) per service, numpy."""
+    out = []
+    for _, fam in SOAK_PREDS:
+        keep = fam(data["status"], data["latency"])
+        svc = data["svc"][keep]
+        out.append((np.bincount(svc, minlength=N_SERVICES),
+                    np.bincount(svc, weights=data["latency"][keep], minlength=N_SERVICES)))
+    return out
+
+
+def verify_shared(res: dict, q: int, truths: list, serial: dict) -> None:
+    """A shared-scan result against numpy (sum group: counts per service
+    exact, latency sums within 1e-12 * sum |v|; sketch group: four status
+    kinds per service within 12%) and against its serial baseline (counts,
+    quantile JSON and distinct counts equal; sums within 1e-12 * sum |v|)."""
+    cols = list(res)
+    check(cols == list(serial) and res["service"] == serial["service"],
+          f"shared query {q}: columns or groups differ from serial")
+    if q < len(SUM_GROUP):
+        counts, sums = truths[q // 2]
+        idx = [int(s.rsplit("-", 1)[1]) for s in res["service"]]
+        check(np.array_equal(np.asarray(res[cols[1]]), counts[idx]),
+              f"shared query {q}: counts vs numpy")
+        check(res[cols[1]] == serial[cols[1]], f"shared query {q}: counts vs serial")
+        got = np.asarray(res[cols[2]])
+        for want in (sums[idx], np.asarray(serial[cols[2]])):
+            check(bool(np.all(np.abs(got - want) <= 1e-12 * sums[idx])),
+                  f"shared query {q}: latency sums beyond 1e-12 * sum |v|")
+    else:
+        check(res["q"] == serial["q"] and res["u"] == serial["u"],
+              f"shared query {q}: sketches differ from serial")
+        check(all(abs(u - 4) <= 0.12 * 4 for u in res["u"]), f"shared query {q}: status kinds")
+
+
+def shared_scan_path(carnot, data: dict, profile: bool) -> dict:
+    """The concurrent serving path (bench.py config 6's query families over
+    the service_stats table): the serial baselines first (each query twice,
+    the second warm run timed), then SOAK_CLIENTS closed-loop client threads
+    released on a barrier, SOAK_REQUESTS requests each (client i's r-th
+    request sends query (i + SOAK_CLIENTS r) mod 17), with shared scans,
+    predicate batching and a SOAK_WINDOW_MS window. Launch counts and lanes
+    zeroed just before the concurrent run and read just after."""
+    from pixie_tpu_torch.ops import kernels, segment
+    from pixie_tpu_torch.utils import flags, metrics_registry
+
+    carnot.device_executor.clear_caches()
+    truths = shared_truths(data)
+    serial, warm = [], []
+    for q in SHARED_QUERIES:
+        carnot.execute_query(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial.append(carnot.execute_query(q).table("out"))
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    for q, res in enumerate(serial):
+        verify_shared(res, q, truths, res)
+    m = metrics_registry()
+    width = m.histogram("serving_shared_scan_batch_width")
+    size = m.histogram("serving_shared_scan_batch_size")
+    counters = {k: m.counter(f"serving_shared_scan_{k}_total") for k in (
+        "dispatches", "saved_dispatches", "follower_detach", "predicate_batched_queries")}
+    plan = [[(i + SOAK_CLIENTS * r) % len(SHARED_QUERIES) for r in range(SOAK_REQUESTS)]
+            for i in range(SOAK_CLIENTS)]
+
+    def run_clients():
+        results, lat, errors = {}, [], []
+        lock = threading.Lock()
+        barrier = threading.Barrier(SOAK_CLIENTS)
+
+        def client(i):
+            try:
+                barrier.wait()
+                for r, q in enumerate(plan[i]):
+                    t0 = time.perf_counter()
+                    res = carnot.execute_query(SHARED_QUERIES[q]).table("out")
+                    with lock:
+                        lat.append(time.perf_counter() - t0)
+                        results[(i, r)] = (q, res)
+            except BaseException as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SOAK_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=JOIN_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "shared_scan: a client thread hung")
+        check(not errors, f"shared_scan: client errors {errors!r}")
+        return results, lat, wall
+
+    for k, v in (("shared_scans", True), ("shared_scan_predicate_batching", True),
+                 ("shared_scan_window_ms", SOAK_WINDOW_MS)):
+        flags.set(k, v)
+    try:
+        before = {k: c.value() for k, c in counters.items()}
+        w0, z0 = width.merged_counts(), size.merged_counts()
+        kernels.reset_launches()
+        segment.reduce_lanes(reset=True)
+        results, lat, wall = run_clients()
+        launches = dict(kernels.LAUNCHES)
+        lanes = segment.reduce_lanes(reset=True)
+        delta = {k: c.value() - before[k] for k, c in counters.items()}
+        widths = [a - b for a, b in zip(width.merged_counts(), w0)]
+        sizes = [a - b for a, b in zip(size.merged_counts(), z0)]
+        busy = None
+        if profile:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile as tprofile
+
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, _, pwall = run_clients()
+            device_us = sum(e.self_device_time_total for e in prof.events()
+                            if e.device_type == DeviceType.CUDA)
+            busy = (device_us / 1e6, pwall)
+            log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+    finally:
+        for k in ("shared_scan_window_ms", "shared_scan_predicate_batching", "shared_scans"):
+            flags.reset(k)
+    n_req = SOAK_CLIENTS * SOAK_REQUESTS
+    check(len(results) == n_req, "shared_scan: missing results")
+    for q, res in results.values():
+        verify_shared(res, q, truths, serial[q])
+    for name in ("pred_slot_masks", "batched_segment_sums"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the shared_scan path")
+    check(sum(widths[1:]) > 0, f"shared_scan: no dispatch of width >= 2 ({widths})")
+    check(delta["follower_detach"] == 0, "shared_scan: a follower detached")
+    serial_s = sum(warm[q] for row in plan for q in row)
+    lat = np.sort(np.asarray(lat))
+    out = dict(
+        launches=launches, lanes=lanes, wall=wall, qps=n_req / wall,
+        serial_qps=n_req / serial_s, p50=float(np.percentile(lat, 50)),
+        p99=float(np.percentile(lat, 99)), dispatches=delta["dispatches"], requests=n_req,
+        widths=widths, sizes=sizes, counters=delta, serial_warm=warm,
+    )
+    log(f"shared_scan: {n_req} requests from {SOAK_CLIENTS} clients in {wall:.4f} s = "
+        f"{out['qps']:.2f} queries/s (serial baselines' summed warm time {serial_s:.4f} s = "
+        f"{out['serial_qps']:.2f} queries/s); latency p50 {out['p50']:.4f} s, p99 "
+        f"{out['p99']:.4f} s; {delta['dispatches']:.0f} dispatches for {n_req} queries "
+        f"({delta['dispatches'] / n_req:.3f} a query), saved {delta['saved_dispatches']:.0f}, "
+        f"predicate-batched queries {delta['predicate_batched_queries']:.0f}, detached "
+        f"{delta['follower_detach']:.0f}")
+    log(f"shared_scan batch width histogram (buckets {width.buckets}): {widths}; "
+        f"batch size histogram: {sizes}")
+    log(f"shared_scan launches: { {k: v for k, v in launches.items() if v} }; lanes {lanes}")
+    log(f"shared_scan serial warm s per query: {[round(w, 4) for w in warm]}")
+    if busy is not None:
+        log(f"profile shared_scan: device busy {busy[0]:.4f} s = {100 * busy[0] / busy[1]:.1f}% "
+            f"of the profiled concurrent wall {busy[1]:.4f} s")
+    return out
 
 
 def sorted_path(n_rows: int) -> dict:
@@ -2617,6 +3070,7 @@ def main() -> int:
     records.update(scalar_kernel_phase(dev))
     records.update(codec_kernel_phase(dev))
     records.update(cell_kernel_phase(dev))
+    records.update(batch_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -2663,6 +3117,9 @@ def main() -> int:
           and paths["status_mix"]["launches"]["countmin_update"] == 0,
           "status_mix: a sketch took its row path")
     phase_s["status_mix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shared = shared_scan_path(carnot, data, args.profile)
+    phase_s["shared_scan"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     fl = conn_flows(FLOW_ROWS)
@@ -2810,7 +3267,8 @@ def main() -> int:
         log(f"{name} launches over {n_queries} queries: "
             f"{ {k: v for k, v in p['launches'].items() if v} }; per query: "
             f"{ {k: v / n_queries for k, v in p['launches'].items() if v} }")
-    launches = {k: sum(p["launches"][k] for p in paths.values()) for k in kernels.KERNELS}
+    launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
+                for k in kernels.KERNELS}
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main paths")
 

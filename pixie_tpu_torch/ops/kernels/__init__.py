@@ -8,8 +8,9 @@ log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
 (H13-H15), ``join_agg_kernels.cu`` the join-aggregate lane's weighted
 fold (H16), ``scalar_kernels.cu`` the fused scalar-expression
 interpreter (H17), ``codec_kernels.cu`` the staging codec's device decode
-(H18, H19) and ``cell_kernels.cu`` the sketches' int-dictionary cell lane
-(H20, H21); see each file's header. At the first launch, ``library()`` compiles them with
+(H18, H19), ``cell_kernels.cu`` the sketches' int-dictionary cell lane
+(H20, H21) and ``batch_kernels.cu`` the predicate-batched fold's slot masks
+and slot-batched segment sums (H22, H23); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -65,6 +66,8 @@ KERNELS = (
     "codec_delta_decode",
     "hll_cell_update",
     "countmin_cell_update",
+    "pred_slot_masks",
+    "batched_segment_sums",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -74,7 +77,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
     "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
-    "cell_kernels.cu",
+    "cell_kernels.cu", "batch_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -114,9 +117,15 @@ _SIGNATURES = {
     "px_codec_delta_decode": (_P, _P, _LL, _I, _P, _LL, _I, _LL, _I, _P, _P, _P),
     "px_hll_cell_update": (_P, _P, _I, _I, _I, _P, _P),
     "px_countmin_cell_update": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "px_pred_slot_masks": (
+        _P, _P, _P, _I, _P, _LL, _P, _I, _I, _P, ctypes.c_uint, _P, _P,
+    ),
+    "px_batched_segment_sums": (_P, _I, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()
+# Concurrent queries launch from their own threads: LAUNCHES updates hold it.
+_launch_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # Opt-in shared-memory limit per block, by device index.
 _smem_optin: dict[int, int] = {}
@@ -125,8 +134,9 @@ BUILD_INFO: dict = {}
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -230,7 +240,13 @@ def _launch(name: str, device: torch.device, *args) -> None:
             *args, torch.cuda.current_stream(device).cuda_stream
         )
     _check(status, name)
-    LAUNCHES[name] += 1
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """LAUNCHES[name] += 1, atomically."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, device, ndim: int) -> None:
@@ -273,6 +289,8 @@ def uses_shared(
         nbytes = 2 * num_segments * nbins * 8  # nbins: capacity
     elif kernel == "segment_minmax":
         nbytes = num_segments * 8
+    elif kernel == "batched_segment_sums":
+        nbytes = rows * num_segments * 8  # rows: B * ((R + 1) + F)
     else:
         raise ValueError(kernel)
     return nbytes <= smem_optin_bytes(device)
@@ -992,3 +1010,92 @@ def countmin_cell_update(
         "countmin_cell_update", device,
         hist.data_ptr(), lut.data_ptr(), G, C, depth, width, cm.data_ptr(), total.data_ptr(),
     )
+
+
+# ---------------------------------------------------------------- batched fold
+# H22's limits (batch_kernels.cu's kMaxSlots, kMaxTerms, kMaxPredCols).
+PRED_MAX_SLOTS = 32
+PRED_MAX_TERMS = 16
+PRED_MAX_COLS = 16
+PRED_TERM_WORDS = 7
+# H22's codes of the staged block dtypes (batch_kernels.cu enum ColKind).
+PRED_COL_KINDS = {
+    torch.bool: 0, torch.uint8: 1, torch.uint16: 2, torch.int32: 3, torch.int64: 4,
+    torch.float32: 5, torch.float64: 6,
+}
+
+
+def pred_slot_masks(
+    cols: list, offsets: list, base: torch.Tensor, terms: torch.Tensor, lut: torch.Tensor,
+    B: int, T: int, slot_on: int,
+) -> torch.Tensor:
+    """H22: int32 [n], each row's uint32 slot bits: bit s set where base[i]
+    holds, bit s of ``slot_on`` is set, and every active term of slot s
+    holds on row i. ``cols``: the term columns' blocks as staged (bool,
+    uint8, uint16, int32, int64 with ``offsets`` added, f32, f64), [n] each;
+    ``terms`` int64 [B * T, 7] (ops.batched.TermTable); ``lut`` int64, the
+    op-6 members, sorted within each term's (offset, length)."""
+    device = base.device
+    _require(base, "base", torch.bool, device, 1)
+    n = base.shape[0]
+    if not 1 <= B <= PRED_MAX_SLOTS or not 1 <= T <= PRED_MAX_TERMS:
+        raise ValueError(f"pred_slot_masks: B {B} must be in [1, {PRED_MAX_SLOTS}] and T {T} "
+                         f"in [1, {PRED_MAX_TERMS}]")
+    if len(cols) > PRED_MAX_COLS or len(offsets) != len(cols):
+        raise ValueError(f"pred_slot_masks: at most {PRED_MAX_COLS} columns, one offset each")
+    _require(terms, "terms", torch.int64, device, 2)
+    if tuple(terms.shape) != (B * T, PRED_TERM_WORDS):
+        raise ValueError(f"terms has shape {tuple(terms.shape)}, expected {(B * T, 7)}")
+    _require(lut, "lut", torch.int64, device, 1)
+    for c in cols:
+        if c.dtype not in PRED_COL_KINDS:
+            raise TypeError(f"a term column has dtype {c.dtype}")
+        _require(c, "a term column", c.dtype, device, 1)
+        if c.shape[0] != n:
+            raise ValueError(f"a term column has {c.shape[0]} rows, expected {n}")
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    k = max(len(cols), 1)
+    ptrs = (ctypes.c_longlong * k)(*[c.data_ptr() for c in cols])
+    offs = (ctypes.c_longlong * k)(*[int(o) for o in offsets])
+    kinds = (ctypes.c_int * k)(*[PRED_COL_KINDS[c.dtype] for c in cols])
+    _launch(
+        "pred_slot_masks", device,
+        ctypes.addressof(ptrs), ctypes.addressof(offs), ctypes.addressof(kinds), len(cols),
+        base.data_ptr(), n, terms.data_ptr(), B, T, lut.data_ptr(), slot_on, out.data_ptr(),
+    )
+    return out
+
+
+def batched_segment_sums(
+    irows: torch.Tensor, frows: torch.Tensor, gids: torch.Tensor, bits: torch.Tensor,
+    B: int, num_segments: int,
+) -> tuple:
+    """H23: (int64 [B, R + 1, S], f64 [B, F, S]). Every row i with a gid in
+    [0, S) adds, for each set bit s of bits[i] (s < B), irows[r, i] into
+    [s, r, g] (wrapping, exact mod 2^64), one into [s, R, g] and frows[f, i]
+    into the f64 [s, f, g]. ``irows`` int64 [R, n], ``frows`` f64 [F, n],
+    ``gids`` and ``bits`` int32 [n]."""
+    device = gids.device
+    _require(irows, "irows", torch.int64, device, 2)
+    _require(frows, "frows", torch.float64, device, 2)
+    _require(bits, "bits", torch.int32, device, 1)
+    R, n = irows.shape
+    F = frows.shape[0]
+    if frows.shape[1] != n or bits.shape[0] != n:
+        raise ValueError("batched_segment_sums: irows, frows and bits need the same rows")
+    _gids_mask(gids, None, n, device)
+    if not 1 <= B <= PRED_MAX_SLOTS:
+        raise ValueError(f"batched_segment_sums: B {B} must be in [1, {PRED_MAX_SLOTS}]")
+    out_i = torch.zeros((B, R + 1, num_segments), dtype=torch.int64, device=device)
+    out_f = torch.zeros((B, F, num_segments), dtype=torch.float64, device=device)
+    if n == 0 or num_segments == 0:
+        return out_i, out_f
+    shared = uses_shared("batched_segment_sums", device, num_segments, rows=B * (R + 1 + F))
+    _launch(
+        "batched_segment_sums", device,
+        irows.data_ptr(), R, frows.data_ptr(), F, n, gids.data_ptr(), bits.data_ptr(), B,
+        num_segments, out_i.data_ptr(), out_f.data_ptr(), int(shared),
+    )
+    return out_i, out_f

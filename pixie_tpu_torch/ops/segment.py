@@ -17,6 +17,7 @@ them on the card.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -31,16 +32,19 @@ from pixie_tpu_torch.ops import kernels, scan
 # fold, by how its gids materialize; ``arghash``: once per fold that gathers
 # a string-hash argument through its content-hash LUT).
 LANE_COUNTS: dict[str, int] = {}
+_LANE_LOCK = threading.Lock()  # concurrent queries count from their threads
 
 
 def lane_count(name: str) -> None:
-    LANE_COUNTS[name] = LANE_COUNTS.get(name, 0) + 1
+    with _LANE_LOCK:
+        LANE_COUNTS[name] = LANE_COUNTS.get(name, 0) + 1
 
 
 def reduce_lanes(reset: bool = False) -> dict:
-    snap = dict(LANE_COUNTS)
-    if reset:
-        LANE_COUNTS.clear()
+    with _LANE_LOCK:
+        snap = dict(LANE_COUNTS)
+        if reset:
+            LANE_COUNTS.clear()
     return snap
 
 

@@ -84,6 +84,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Any, Optional
 
@@ -94,14 +95,14 @@ from pixie_tpu_torch.compiler.analyzer import substitute
 from pixie_tpu_torch.device import resolve_device
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
-from pixie_tpu_torch.ops import scan, segment
+from pixie_tpu_torch.ops import batched, scan, segment
 from pixie_tpu_torch.parallel.staging import (
-    COLD_PROFILE,
     StagedColumns,
     WindowStager,
     _pow2_at_least,
     int_dict_encode,
     plan_stream,
+    profile_add,
     read_columns,
     stage_columns,
     staged_gid_nbytes,
@@ -113,6 +114,7 @@ from pixie_tpu_torch.plan.expressions import (
     FuncCall,
     expr_data_type,
     referenced_columns,
+    walk,
 )
 from pixie_tpu_torch.plan.operators import (
     AggOp,
@@ -125,6 +127,7 @@ from pixie_tpu_torch.plan.operators import (
     MemorySourceOp,
 )
 from pixie_tpu_torch.plan.plan import PlanFragment
+from pixie_tpu_torch.serving.shared_scan import SharedScanCoordinator, aux_digest
 from pixie_tpu_torch.table.column import DictColumn, StringDictionary
 from pixie_tpu_torch.table.row_batch import RowBatch
 from pixie_tpu_torch.types import ColumnSchema, DataType, Relation
@@ -526,6 +529,261 @@ def match_join_agg(fragment: PlanFragment, relations) -> Optional[_JoinAggMatch]
     )
 
 
+# -- predicate normalization (pixie_tpu/parallel/pipeline.py:254-545) -------
+# Lowers conjunctive predicate trees to data terms
+# ``(stack, column, op, int_thr, flt_thr, in_vals)``: the predicate-batched
+# shared scan (``DeviceExecutor._shared_scan_run``) folds one slot per
+# distinct term list. The terms are the reference's, term for term
+# (tests/test_torch_shared_scan.py holds the two normalizers together).
+
+_CMP_OPS = {
+    "equal": 0, "notEqual": 1,
+    "lessThan": 2, "lessThanEqual": 3,
+    "greaterThan": 4, "greaterThanEqual": 5,
+}
+# const-on-the-left flips the comparison, not the operands.
+_CMP_FLIP = {0: 0, 1: 1, 2: 4, 3: 5, 4: 2, 5: 3}
+
+
+def _block_dtype(block: torch.Tensor) -> np.dtype:
+    """The numpy dtype of a staged block."""
+    return np.dtype(_NP_DTYPES[block.dtype])
+
+
+def normalize_predicates(predicates, evaluator, staged, aux):
+    """Lower ``predicates`` to conjunctive data terms ``(stack, column, op,
+    int_thr, flt_thr, in_vals)``, or None when any predicate falls outside
+    the normalizable class (the query then shares only through the
+    identical-signature rung) (pixie_tpu/parallel/pipeline.py:271).
+
+    The class: a comparison of a staged column against a constant (either
+    order), a bare boolean column, a conjunction (``logical_and`` splits
+    into more terms), an IN-list (a ``logical_or`` tree of ``equal(col,
+    const)`` leaves over one column: one membership term, op 6, whose
+    sorted distinct values ride the term's LUT lane), and a LUT-backed host
+    function predicate over a dictionary column (``_lut_pred_term``: op 6
+    over the codes its table keeps). Exactness per term: int, bool and code
+    columns compare in int64 (a narrowed column widened with its offset);
+    float columns in float64 with the threshold pre-rounded through the
+    column's staged dtype (an f32-staged threshold through f32). Float
+    IN-lists are refused; a string constant rides as its dictionary code
+    from ``aux`` (-1 when unseen, equal to no row); columns staged as
+    int-dictionary codes (``staged.int_dicts``) are refused. ``aux`` holds
+    host values (``const:<id>`` codes, ``lut:<id>`` tables)."""
+    terms = []
+    for p in predicates:
+        if not _normalize_pred(p, evaluator, staged, aux, terms):
+            return None
+    return terms
+
+
+def _normalize_pred(p, evaluator, staged, aux, terms) -> bool:
+    """Normalize one predicate tree into ``terms``; False refuses the
+    whole attempt (pixie_tpu/parallel/pipeline.py:310)."""
+    if isinstance(p, ColumnRef):
+        if (
+            p.name not in staged.blocks
+            or p.name in staged.int_dicts
+            or _block_dtype(staged.blocks[p.name]) != np.bool_
+        ):
+            return False
+        terms.append(("i", p.name, 1, 0, 0.0, ()))  # col != 0
+        return True
+    if not isinstance(p, FuncCall):
+        return False
+    if p.name == "logical_and" and len(p.args) == 2:
+        return _normalize_pred(p.args[0], evaluator, staged, aux, terms) and (
+            _normalize_pred(p.args[1], evaluator, staged, aux, terms)
+        )
+    if p.name == "logical_or" and len(p.args) == 2:
+        t = _in_list_term(p, evaluator, staged, aux)
+        if t is None:
+            return False
+        terms.append(t)
+        return True
+    t = _lut_pred_term(p, evaluator, staged, aux)
+    if t is not None:
+        terms.append(t)
+        return True
+    op = _CMP_OPS.get(p.name)
+    if op is None or len(p.args) != 2:
+        return False
+    col_const = _col_and_const(p)
+    if col_const is None:
+        return False
+    col, const = col_const
+    if isinstance(p.args[0], Constant):
+        op = _CMP_FLIP[op]
+    if col.name not in staged.blocks or col.name in staged.int_dicts:
+        return False
+    resolved = evaluator._resolved.get(id(p))
+    if resolved is None:
+        return False
+    t0 = resolved[1][0]
+    bdt = _block_dtype(staged.blocks[col.name])
+    if t0 == DataType.STRING:
+        if op > 1:
+            return False  # only ==/!= have code-space semantics
+        code = aux.get(f"const:{id(const)}")
+        if code is None:
+            return False
+        terms.append(("i", col.name, op, int(code), 0.0, ()))
+    elif t0 == DataType.FLOAT64:
+        v = const.value
+        if not isinstance(v, (int, float, np.floating, np.integer)) or isinstance(v, bool):
+            return False
+        if bdt == np.float32:
+            thr = float(np.float64(np.float32(v)))
+        elif bdt == np.float64:
+            thr = float(v)
+        else:
+            return False
+        terms.append(("f", col.name, op, 0, thr, ()))
+    elif t0 in (DataType.INT64, DataType.TIME64NS, DataType.BOOLEAN):
+        thr = _int_const(const, bdt)
+        if thr is None:
+            return False
+        terms.append(("i", col.name, op, thr, 0.0, ()))
+    else:
+        return False
+    return True
+
+
+def _col_and_const(p):
+    """(column, constant) of a two-argument call over one column and one
+    constant in either order, else None."""
+    a0, a1 = p.args
+    if isinstance(a0, ColumnRef) and isinstance(a1, Constant):
+        return a0, a1
+    if isinstance(a1, ColumnRef) and isinstance(a0, Constant):
+        return a1, a0
+    return None
+
+
+def _int_const(const, bdt: np.dtype) -> Optional[int]:
+    """An int-stack threshold: the constant as an int64, None when the
+    column is a float block or the value does not fit."""
+    if bdt.kind == "f":
+        return None
+    try:
+        v = int(const.value)
+    except (TypeError, ValueError):
+        return None
+    return v if -(1 << 63) <= v < (1 << 63) else None
+
+
+def _in_list_term(p, evaluator, staged, aux):
+    """Fold a ``logical_or`` tree whose leaves are all ``equal(same_col,
+    const)`` into one membership term ``("i", col, 6, 0, 0.0, values)``,
+    the values sorted and distinct; None refuses
+    (pixie_tpu/parallel/pipeline.py:401)."""
+    leaves, stack = [], [p]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, FuncCall) and n.name == "logical_or" and len(n.args) == 2:
+            stack.extend(n.args)
+        else:
+            leaves.append(n)
+    col_name = None
+    vals = []
+    for leaf in leaves:
+        if not isinstance(leaf, FuncCall) or leaf.name != "equal" or len(leaf.args) != 2:
+            return None
+        col_const = _col_and_const(leaf)
+        if col_const is None:
+            return None
+        col, const = col_const
+        if col_name is None:
+            col_name = col.name
+        elif col.name != col_name:
+            return None
+        if col.name not in staged.blocks or col.name in staged.int_dicts:
+            return None
+        resolved = evaluator._resolved.get(id(leaf))
+        if resolved is None:
+            return None
+        t0 = resolved[1][0]
+        if t0 == DataType.STRING:
+            code = aux.get(f"const:{id(const)}")
+            if code is None:
+                return None
+            vals.append(int(code))
+        elif t0 in (DataType.INT64, DataType.TIME64NS, DataType.BOOLEAN):
+            v = _int_const(const, _block_dtype(staged.blocks[col.name]))
+            if v is None:
+                return None
+            vals.append(v)
+        else:
+            return None  # float IN-lists are refused
+    if col_name is None or not vals:
+        return None
+    # Membership ignores order and repeats: equivalent lists share a slot.
+    return ("i", col_name, 6, 0, 0.0, tuple(sorted(set(vals))))
+
+
+# numpy mirrors of the comparison ids, for a LUT's per-value results.
+_NP_CMP = {
+    0: np.equal, 1: np.not_equal, 2: np.less,
+    3: np.less_equal, 4: np.greater, 5: np.greater_equal,
+}
+# Most dictionary codes an op-6 term from a LUT predicate may keep: a wider
+# kept set refuses normalization (the query folds solo) rather than widen
+# every co-batched query's LUT lane.
+_LUT_PRED_MAX_KEPT = 1024
+
+
+def _lut_pred_term(p, evaluator, staged, aux):
+    """A LUT-backed host-function predicate as one membership term
+    (pixie_tpu/parallel/pipeline.py:487): a bare boolean function of one
+    dictionary column (``f(col)``, whose table ``lut:<id>`` ``build_aux``
+    made) or a comparison of such a function with a numeric constant
+    (either order). Both keep the set of codes whose table entry passes:
+    op 6 over the column's codes, as H17's LUT gather then compare keeps
+    row code k iff lut[k] passes. None refuses: no table, a non-bool table
+    on the bare shape, a string or bool constant, or more than
+    ``_LUT_PRED_MAX_KEPT`` kept codes."""
+    op = _CMP_OPS.get(p.name)
+    const = None
+    if op is not None and len(p.args) == 2:
+        a0, a1 = p.args
+        if isinstance(a0, FuncCall) and isinstance(a1, Constant):
+            f_expr, const = a0, a1
+        elif isinstance(a1, FuncCall) and isinstance(a0, Constant):
+            f_expr, const = a1, a0
+            op = _CMP_FLIP[op]
+        else:
+            return None
+    elif f"lut:{id(p)}" in aux:
+        f_expr, op = p, None  # bare boolean function: keep where true
+    else:
+        return None
+    lut = aux.get(f"lut:{id(f_expr)}")
+    if lut is None:
+        return None
+    cols = [a for a in f_expr.args if isinstance(a, ColumnRef)]
+    if len(cols) != 1:
+        return None
+    col = cols[0]
+    if col.name not in staged.blocks or col.name in staged.int_dicts:
+        return None
+    lut = np.asarray(lut)
+    if lut.ndim != 1 or lut.dtype.kind not in "bif":
+        return None
+    if op is None:
+        if lut.dtype != np.bool_:
+            return None
+        kept = lut
+    else:
+        v = const.value
+        if not isinstance(v, (int, float, np.integer, np.floating)) or isinstance(v, bool):
+            return None
+        kept = _NP_CMP[op](lut, v)
+    codes = np.nonzero(np.asarray(kept, dtype=bool))[0]
+    if len(codes) > _LUT_PRED_MAX_KEPT:
+        return None
+    return ("i", col.name, 6, 0, 0.0, tuple(int(c) for c in codes))
+
+
 @dataclasses.dataclass
 class _KeyPlan:
     """How gids materialize: ``device_expr`` evaluated per block on the
@@ -548,8 +806,21 @@ _REGISTER_DTYPES = {
     DataType.STRING: torch.int64,  # dictionary codes
 }
 
+def _register_dtypes(relation) -> dict:
+    """The register dtype of each column an H17 program may load, and of
+    the block's validity ``__valid__``."""
+    dtypes = {
+        c.name: _REGISTER_DTYPES[c.data_type] for c in relation
+        if c.data_type in _REGISTER_DTYPES
+    }
+    dtypes["__valid__"] = torch.bool
+    return dtypes
+
+
 _NP_DTYPES = {
     torch.bool: np.bool_,
+    torch.uint8: np.uint8,
+    torch.uint16: np.uint16,
     torch.int32: np.int32,
     torch.int64: np.int64,
     torch.float32: np.float32,
@@ -628,6 +899,38 @@ def _state_bytes(state) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
+def _program_sig(program, specs) -> tuple:
+    """An H17 program's identity without the query's own names: each
+    ``arg:<out>`` result named by its spec's position, each ``lut:<id>``
+    table by its position (its values are in the aux digest)."""
+    names = {f"arg:{out}": f"arg#{i}" for i, (out, _, _) in enumerate(specs)}
+    return (
+        tuple(tuple(ins) for ins in program.code),
+        tuple(program.consts),
+        tuple(program.columns),
+        tuple("lut" if k.startswith("lut:") else k for k in program.luts),
+        tuple((names.get(n, n), str(dt)) for n, dt in program.outputs),
+        tuple(sorted(
+            (names.get(n, n), src if isinstance(src, str) else repr(src), str(dt))
+            for n, (src, dt) in program.passthrough.items()
+        )),
+    )
+
+
+def _sum_lane(uda) -> Optional[str]:
+    """The batched fold's H23 lane of a sum-family UDA: "count" (the slot's
+    presence), "sum_i" (an int64 row), "sum_f" (an f64 row), "mean" (an f64
+    row and the presence); None for every other UDA (its own update, once a
+    slot)."""
+    if uda.name == "count":
+        return "count"
+    if uda.name == "sum":
+        return "sum_i" if uda.fused_rows is not None else "sum_f"
+    if uda.name == "mean":
+        return "mean"
+    return None
+
+
 class DeviceExecutor:
     """Runs matching fragments on one device: ``device=None`` is the CUDA
     card (raising when there is none), ``device="cpu"`` runs the plain
@@ -654,6 +957,12 @@ class DeviceExecutor:
         self._hostany_cache: "collections.OrderedDict[tuple, np.ndarray]" = (
             collections.OrderedDict()
         )
+        # Concurrent queries share the three caches: every walk or change of
+        # one holds this lock.
+        self._cache_lock = threading.Lock()
+        # Concurrent compatible warm folds share one dispatch (flag
+        # ``shared_scans``; ``_shared_scan_run``).
+        self._shared_scans = SharedScanCoordinator()
         self.last_fold_ms: Optional[float] = None
 
     # -- public -------------------------------------------------------------
@@ -735,8 +1044,9 @@ class DeviceExecutor:
             roots.append(("__gids__", ColumnRef(key_plan.device_expr[1]), torch.int32, "keylut"))
         elif key_plan.device_expr is not None:
             roots.append(("__gids__", key_plan.device_expr, torch.int32, None))
+        host_aux: dict = {}
         compiled = self._compile(evaluator, table, m.source_relation, roots, m.predicates,
-                                 specs=device_specs, key_plan=key_plan)
+                                 specs=device_specs, key_plan=key_plan, host_aux=host_aux)
         if compiled is None:
             return None
         program, aux = compiled
@@ -745,7 +1055,7 @@ class DeviceExecutor:
         cache_key = self._staged_key(
             table, m.source_op, base_cols, key_sig, key_plan.num_groups, f32_cols, cell_cols
         )
-        staged = self._staged_lookup(cache_key)
+        staged_key, staged = self._staged_lookup(cache_key)
         outputs = None
         if staged is None:
             with timed("read_columns"):
@@ -768,11 +1078,24 @@ class DeviceExecutor:
                 segment.lane_count("stage_monolithic")
             self._staged_insert(cache_key, staged)
         if outputs is None:
+            aux = self._with_intdicts(aux, staged)
             with timed("fold"):
-                outputs, capacity = self._run_program(
-                    device_specs, program, key_plan, staged, self._with_intdicts(aux, staged),
-                    cell_cols,
-                )
+                if flags.shared_scans:
+                    outputs, capacity = self._shared_scan_run(
+                        m, device_specs, evaluator, table, key_plan, roots, program, aux,
+                        host_aux, staged_key, staged, cell_cols,
+                    )
+                else:
+                    outputs, capacity = self._run_program(
+                        device_specs, program, key_plan, staged, aux, cell_cols
+                    )
+        elif flags.shared_scans and trace.ACTIVE:
+            # The stream computed the fold while staging: nothing to share,
+            # but the span family stays uniform (pipeline.py:2160-2168).
+            trace.record(
+                "serving.shared_scan", 0,
+                attrs={"shared_scan_batch_size": 1, "role": "stream"},
+            )
         segment.lane_count("fold_key_" + (
             "host" if key_plan.host_gids is not None
             else "lut" if isinstance(key_plan.device_expr, tuple)
@@ -789,9 +1112,10 @@ class DeviceExecutor:
     def clear_caches(self) -> None:
         """Drop the staged columns, key plans and host any() representatives:
         the next query of every table is cold."""
-        self._staged_cache.clear()
-        self._keyplan_cache.clear()
-        self._hostany_cache.clear()
+        with self._cache_lock:
+            self._staged_cache.clear()
+            self._keyplan_cache.clear()
+            self._hostany_cache.clear()
 
     # -- the scan (filter / project / limit, no aggregate) ---------------------
     def _try_execute_scan(
@@ -1336,33 +1660,36 @@ class DeviceExecutor:
         return Relation(cols)
 
     # -- staged-column cache -------------------------------------------------
-    def _staged_lookup(self, cache_key) -> Optional[StagedColumns]:
-        staged = self._staged_cache.get(cache_key)
-        if staged is None:
-            # Superset reuse: an entry staged for a wider column set of the
-            # same table version/window/key plan serves this query.
-            for k, v in self._staged_cache.items():
-                if (
-                    k[:2] == cache_key[:2]
-                    and set(k[2]) >= set(cache_key[2])
-                    and k[3:] == cache_key[3:]
-                ):
-                    cache_key, staged = k, v
-                    break
-        if staged is not None:
-            self._staged_cache.move_to_end(cache_key)
-        return staged
+    def _staged_lookup(self, cache_key) -> tuple:
+        """(the key of the entry found, the entry), or (cache_key, None)."""
+        with self._cache_lock:
+            staged = self._staged_cache.get(cache_key)
+            if staged is None:
+                # Superset reuse: an entry staged for a wider column set of
+                # the same table version/window/key plan serves this query.
+                for k, v in self._staged_cache.items():
+                    if (
+                        k[:2] == cache_key[:2]
+                        and set(k[2]) >= set(cache_key[2])
+                        and k[3:] == cache_key[3:]
+                    ):
+                        cache_key, staged = k, v
+                        break
+            if staged is not None:
+                self._staged_cache.move_to_end(cache_key)
+            return cache_key, staged
 
     def _staged_insert(self, cache_key, staged) -> None:
         # Entries of older versions of the same table can never hit again.
         table_name, version = cache_key[:2]
-        for k in [
-            k for k in self._staged_cache if k[0] == table_name and k[1] != version
-        ]:
-            del self._staged_cache[k]
-        self._staged_cache[cache_key] = staged
-        while len(self._staged_cache) > max(self._staged_cache_cap, 1):
-            self._staged_cache.popitem(last=False)
+        with self._cache_lock:
+            for k in [
+                k for k in self._staged_cache if k[0] == table_name and k[1] != version
+            ]:
+                del self._staged_cache[k]
+            self._staged_cache[cache_key] = staged
+            while len(self._staged_cache) > max(self._staged_cache_cap, 1):
+                self._staged_cache.popitem(last=False)
 
     def _staged_key(
         self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
@@ -1399,7 +1726,7 @@ class DeviceExecutor:
         rows staged beside the read ones (the join-aggregate lane's join-key
         ids), pinned by ``key_sig``."""
         cache_key = self._staged_key(table, source_op, base_cols, key_sig, num_groups)
-        staged = self._staged_lookup(cache_key)
+        _, staged = self._staged_lookup(cache_key)
         if staged is None:
             with timed("read_columns"):
                 cols, n = read_columns(
@@ -1593,10 +1920,11 @@ class DeviceExecutor:
             m.source_op.start_time,
             m.source_op.stop_time,
         )
-        cached = self._keyplan_cache.get(kp_key)
-        if cached is not None:
-            self._keyplan_cache.move_to_end(kp_key)
-            return cached
+        with self._cache_lock:
+            cached = self._keyplan_cache.get(kp_key)
+            if cached is not None:
+                self._keyplan_cache.move_to_end(kp_key)
+                return cached
         key_refs: set = set()
         for g in groups:
             key_refs |= referenced_columns(m.col_exprs[g])
@@ -1644,14 +1972,15 @@ class DeviceExecutor:
             )
         kp = _KeyPlan(host_gids=gids, num_groups=enc.num_groups, key_columns=key_columns)
         # Plans of older versions of the same table can never hit again.
-        for k in [
-            k for k in self._keyplan_cache
-            if k[0] == m.source_op.table_name and k[1] != kp_key[1]
-        ]:
-            del self._keyplan_cache[k]
-        self._keyplan_cache[kp_key] = kp
-        while len(self._keyplan_cache) > max(self._keyplan_cache_cap, 1):
-            self._keyplan_cache.popitem(last=False)
+        with self._cache_lock:
+            for k in [
+                k for k in self._keyplan_cache
+                if k[0] == m.source_op.table_name and k[1] != kp_key[1]
+            ]:
+                del self._keyplan_cache[k]
+            self._keyplan_cache[kp_key] = kp
+            while len(self._keyplan_cache) > max(self._keyplan_cache_cap, 1):
+                self._keyplan_cache.popitem(last=False)
         return kp
 
     def _plan_host_any(self, m: _Match, specs, key_plan: _KeyPlan, table) -> dict:
@@ -1683,10 +2012,11 @@ class DeviceExecutor:
                 repr([m.col_exprs[g] for g in m.agg_op.groups]),
                 arg_e.name,
             )
-            rep = self._hostany_cache.get(ck)
-            if rep is not None:
-                self._hostany_cache.move_to_end(ck)
-            else:
+            with self._cache_lock:
+                rep = self._hostany_cache.get(ck)
+                if rep is not None:
+                    self._hostany_cache.move_to_end(ck)
+            if rep is None:
                 want = sorted({arg_e.name} | ({gid_col} if gid_col else set()))
                 cols, n = read_columns(
                     table, want, m.source_op.start_time, m.source_op.stop_time
@@ -1699,9 +2029,10 @@ class DeviceExecutor:
                 # Reversed assignment: the last write per gid wins, which is
                 # the first occurrence in row order.
                 rep[g[::-1]] = vals[::-1]
-                self._hostany_cache[ck] = rep
-                while len(self._hostany_cache) > 32:
-                    self._hostany_cache.popitem(last=False)
+                with self._cache_lock:
+                    self._hostany_cache[ck] = rep
+                    while len(self._hostany_cache) > 32:
+                        self._hostany_cache.popitem(last=False)
             out[out_name] = rep
         return out
 
@@ -1731,13 +2062,14 @@ class DeviceExecutor:
                 out.add(col)
         return out
 
-    def _build_aux(self, evaluator, table, specs=(), key_plan=None) -> dict:
+    @staticmethod
+    def _host_aux(evaluator, table, specs=(), key_plan=None) -> dict:
         """String-constant codes and dict-func LUTs of the predicates and
         args, the content-hash LUT ``arghash:<col>`` of each string-hash UDA
         over a bare dictionary column (pixie_tpu/parallel/pipeline.py:
-        4652-4670) and a LUT key's per-code gids ``keylut``, as tensors on
-        the device. Raises ValueError where a host function cannot become a
-        table (a string-producing one)."""
+        4652-4670) and a LUT key's per-code gids ``keylut``, as host arrays.
+        Raises ValueError where a host function cannot become a table (a
+        string-producing one)."""
         aux: dict[str, np.ndarray] = {}
         for out, arg_e, uda in specs:
             if uda.reads_args and uda.string_args == "hash" and isinstance(arg_e, ColumnRef):
@@ -1749,22 +2081,28 @@ class DeviceExecutor:
         for name, e in evaluator.named_exprs:
             if not name.startswith("key:"):
                 aux.update(evaluator.build_aux(e, table.dictionaries))
-        return {k: torch.as_tensor(np.asarray(v), device=self.device) for k, v in aux.items()}
+        return aux
 
-    def _compile(self, evaluator, table, relation, roots, preds, specs=(), key_plan=None):
-        """(H17 program, aux) of one fragment's block trees, or None when a
-        tree cannot run on the device: a host function without a table, a
-        string-producing host function, an unknown function or a tree deeper
-        than H17's register file. The reference's device lane fails on the
-        same trees and its fragment runs on the host engine; here the gate
-        sends the fragment to the host graph before anything is staged."""
-        dtypes = {
-            c.name: _REGISTER_DTYPES[c.data_type] for c in relation
-            if c.data_type in _REGISTER_DTYPES
-        }
-        dtypes["__valid__"] = torch.bool
+    def _compile(self, evaluator, table, relation, roots, preds, specs=(), key_plan=None,
+                 host_aux: Optional[dict] = None):
+        """(H17 program, aux on the device) of one fragment's block trees, or
+        None when a tree cannot run on the device: a host function without a
+        table, a string-producing host function, an unknown function or a
+        tree deeper than H17's register file. The reference's device lane
+        fails on the same trees and its fragment runs on the host engine;
+        here the gate sends the fragment to the host graph before anything
+        is staged. ``host_aux``: a dict to fill with the aux's host arrays
+        (``_host_aux``), or the arrays an earlier call filled in."""
+        dtypes = _register_dtypes(relation)
         try:
-            aux = self._build_aux(evaluator, table, specs, key_plan)
+            if not host_aux:
+                fresh = self._host_aux(evaluator, table, specs, key_plan)
+                if host_aux is not None:
+                    host_aux.update(fresh)
+            aux = {
+                k: torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in (host_aux or fresh).items()
+            }
             program = evaluator.compile_program(roots, dtypes, aux, mask=("__valid__", preds))
         except ValueError:
             return None
@@ -1821,7 +2159,8 @@ class DeviceExecutor:
         return out
 
     # -- the fold --------------------------------------------------------------
-    def _make_scan_body(self, specs, program, staged, key_plan, capacity, aux, cell_cols):
+    def _make_scan_body(self, specs, program, staged, key_plan, capacity, aux, cell_cols,
+                        pred_batch: Optional[batched.TermTable] = None):
         """The per-block fold: body(carry, block, gid_base) updates ``carry``
         (``_new_carry``). One H17 launch evaluates the block's mask (its
         predicates ANDed in), its gids (a dictionary key's codes, or the LUT
@@ -1840,8 +2179,21 @@ class DeviceExecutor:
         per-block updates. Where capacity * C is over the budget (a cached
         staging under a larger capacity), the UDA takes the row path on
         LUT-gathered values; a cell column the staging did not encode (too
-        many values) takes it on its raw values. Returns (body, hist_cols),
-        hist_cols {column: C} of the histogram lanes."""
+        many values) takes it on its raw values.
+
+        With ``pred_batch`` (the predicate-batched fold, K16:
+        pixie_tpu/parallel/pipeline.py:5539-5600) the body serves one slot
+        per query: body(carries, block, gid_base) with one carry a slot.
+        ``program`` is the predicate-erased program (its mask is the block's
+        validity), gids and arguments are shared; H22 gives every row its
+        slot bits from the block mask and the term table, ONE H23 launch
+        adds the sum family of every slot (count and mean's count are the
+        slot's presence, integer sums, f64 sums and mean's sums), and every
+        other UDA and the cell lane's histogram update once per slot under
+        that slot's mask, read from the bits.
+
+        Returns (body, hist_cols), hist_cols {column: C} of the histogram
+        lanes."""
         host_gids = key_plan.host_gids is not None
         cell = {
             out: arg_e.name for out, arg_e, uda in specs if _cell_served(arg_e, uda, cell_cols)
@@ -1861,7 +2213,9 @@ class DeviceExecutor:
                 return aux[f"intdict:{col}"][codes]
             return self._block_env(staged, blk, [col])[col]
 
-        def body(carry: dict, blk: int, gid_base: int) -> None:
+        def prologue(blk: int, gid_base: int) -> tuple:
+            """(program results, the mask in this pass's gid window, gids
+            relative to the window)."""
             vals = self._run_block(program, staged, blk, aux)
             mask = vals["__mask__"]
             if host_gids:
@@ -1872,9 +2226,33 @@ class DeviceExecutor:
                 gids = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
             gids = gids - gid_base
             gid_ok = (gids >= 0) & (gids < capacity)
-            gids = torch.clamp(gids, 0, capacity - 1)
-            mask = mask & gid_ok
+            return vals, mask & gid_ok, torch.clamp(gids, 0, capacity - 1)
 
+        def update_states(carry: dict, vals, gids, mask, blk: int, done: dict) -> None:
+            """The cell lane's histograms and every state not in ``done``
+            ({out: its new state}) under ``mask``."""
+            for col, C in hist_cols.items():
+                flat = gids * C + staged.blocks[col][0, blk].to(torch.int32)
+                carry["hists"][col] += segment.seg_count(flat, capacity * C, mask)
+            new_states = []
+            for (out, arg_e, uda), st in zip(specs, carry["states"]):
+                if out in done:
+                    new_states.append(done[out])
+                elif out in cell:
+                    if cell[out] in hist_cols:
+                        new_states.append(st)  # folded once, in _finish_pass
+                    else:
+                        new_states.append(
+                            uda.update(st, gids, cell_values(cell[out], blk), mask=mask)
+                        )
+                elif not uda.reads_args:
+                    new_states.append(uda.update(st, gids, gids, mask=mask))
+                else:
+                    new_states.append(uda.update(st, gids, vals[f"arg:{out}"], mask=mask))
+            carry["states"] = new_states
+
+        def body(carry: dict, blk: int, gid_base: int) -> None:
+            vals, mask, gids = prologue(blk, gid_base)
             rows = []
             fused: dict[str, tuple[int, int]] = {}
             for out, arg_e, uda in specs:
@@ -1886,28 +2264,59 @@ class DeviceExecutor:
                 rows.extend(r)
             totals = segment.fused_segment_sums(rows, gids, capacity, mask)
             carry["presence"] = carry["presence"] + totals[-1]
-            for col, C in hist_cols.items():
-                flat = gids * C + staged.blocks[col][0, blk].to(torch.int32)
-                carry["hists"][col] += segment.seg_count(flat, capacity * C, mask)
-            new_states = []
-            for (out, arg_e, uda), st in zip(specs, carry["states"]):
-                if out in cell:
-                    if cell[out] in hist_cols:
-                        new_states.append(st)  # folded once, in _finish_pass
-                    else:
-                        new_states.append(
-                            uda.update(st, gids, cell_values(cell[out], blk), mask=mask)
-                        )
-                elif out in fused:
-                    a, b = fused[out]
-                    new_states.append(uda.fused_apply(st, totals[a:b]))
-                elif not uda.reads_args:
-                    new_states.append(uda.update(st, gids, gids, mask=mask))
-                else:
-                    new_states.append(uda.update(st, gids, vals[f"arg:{out}"], mask=mask))
-            carry["states"] = new_states
+            done = {
+                out: uda.fused_apply(st, totals[fused[out][0] : fused[out][1]])
+                for (out, _, uda), st in zip(specs, carry["states"]) if out in fused
+            }
+            update_states(carry, vals, gids, mask, blk, done)
 
-        return body, hist_cols
+        if pred_batch is None:
+            return body, hist_cols
+
+        lanes = {out: _sum_lane(uda) for out, _, uda in specs if out not in cell}
+        lanes = {out: lane for out, lane in lanes.items() if lane is not None}
+        per_slot = bool(hist_cols) or len(lanes) < len(specs)
+
+        def batched_body(carries: list, blk: int, gid_base: int) -> None:
+            vals, base, gids = prologue(blk, gid_base)
+            cols, offsets = batched.term_columns(staged, pred_batch, blk)
+            bits = batched.slot_masks(cols, offsets, base, pred_batch)
+            irows, frows, where = [], [], {}
+            for out, lane in lanes.items():
+                if lane == "sum_i":
+                    where[out] = len(irows)
+                    irows.append(vals[f"arg:{out}"].to(torch.int64))
+                elif lane in ("sum_f", "mean"):
+                    where[out] = len(frows)
+                    frows.append(vals[f"arg:{out}"].to(torch.float64))
+            n, dev = base.shape[0], base.device
+            ti, tf = batched.batched_segment_sums(
+                torch.stack(irows) if irows else torch.empty((0, n), dtype=torch.int64, device=dev),
+                torch.stack(frows) if frows else torch.empty((0, n), dtype=torch.float64, device=dev),
+                gids, bits, len(carries), capacity,
+            )
+            R = len(irows)
+            for s, carry in enumerate(carries):
+                presence = ti[s, R]
+                carry["presence"] = carry["presence"] + presence
+                done = {}
+                for (out, _, _), st in zip(specs, carry["states"]):
+                    lane = lanes.get(out)
+                    if lane == "count":
+                        done[out] = st + presence
+                    elif lane == "sum_i":
+                        done[out] = st + ti[s, where[out]]
+                    elif lane == "sum_f":
+                        done[out] = st + tf[s, where[out]]
+                    elif lane == "mean":
+                        done[out] = {"sum": st["sum"] + tf[s, where[out]],
+                                     "count": st["count"] + presence}
+                if per_slot:
+                    update_states(carry, vals, gids, batched.slot_mask(bits, s), blk, done)
+                else:
+                    carry["states"] = [done[out] for out, _, _ in specs]
+
+        return batched_body, hist_cols
 
     def _new_carry(self, specs, capacity: int, hist_cols: dict) -> dict:
         """One pass's fold state: the UDA states, the presence counter and
@@ -1965,6 +2374,134 @@ class DeviceExecutor:
             ))
         return self._outputs(per_pass), capacity
 
+    # -- shared scans (K16 and the coordinator) --------------------------------
+    def _shared_scan_run(
+        self, m, specs, evaluator, table, key_plan, roots, program, aux, host_aux,
+        staged_key, staged, cell_cols,
+    ):
+        """The warm fold through the shared-scan coordinator (flag
+        ``shared_scans``; pixie_tpu/parallel/pipeline.py:6489): concurrent
+        queries whose keys match share ONE dispatch, and each finalizes its
+        own outputs. Returns what ``_run_program`` returns.
+
+        The EXACT key is everything the outputs depend on: the staged
+        entry's identity (its cache key and ``id``), the H17 program with
+        its predicates (``_program_sig``: the query's output names left
+        out), the UDA lanes, the key mode, capacity and passes
+        (``_fold_lanes``), the agg stage, and a digest of the aux values
+        (string-constant codes, function tables, content-hash LUTs, the key
+        LUT) with each int-dictionary column's value LUT. Output names and
+        finalize modes are not in it: queries that differ only there share.
+
+        When the predicates normalize to data terms
+        (``normalize_predicates``) the query also offers a BATCH key: the
+        same, but with the predicate-erased program (``preds=[]``) and only
+        the aux that no predicate owns. Queries matching on it fold as the
+        slots of one ``_run_program_batched`` dispatch. A query with more
+        terms or term columns than one term table holds (H22's limits)
+        offers none."""
+        capacity, n_passes = self._pass_plan(specs, key_plan.num_groups)
+        lanes = self._fold_lanes(specs, key_plan, capacity, n_passes, cell_cols)
+        stage = m.agg_op.stage.value
+        intdicts = [np.asarray(staged.int_dicts[c]) for c in sorted(staged.int_dicts)]
+        key = (
+            staged_key, id(staged), _program_sig(program, specs), lanes, stage,
+            aux_digest(list(host_aux.values()) + intdicts),
+        )
+
+        def compute():
+            return self._run_program(specs, program, key_plan, staged, aux, cell_cols)
+
+        batch_key = terms = compute_batch = None
+        if flags.shared_scan_predicate_batching:
+            terms = normalize_predicates(m.predicates, evaluator, staged, host_aux)
+            if terms is not None and not batched.fits([terms]):
+                terms = None
+        if terms is not None:
+            # The predicates' constants and tables ride the term table as
+            # data: they leave the erased program and the batch key (but for
+            # a table the erased program reads too).
+            erased = evaluator.compile_program(
+                roots, _register_dtypes(m.source_relation), aux, mask=("__valid__", [])
+            )
+            owned = set()
+            for p in m.predicates:
+                for e in walk(p):
+                    owned |= {f"const:{id(e)}", f"lut:{id(e)}"}
+            owned -= set(erased.luts)
+            shared = [v for k, v in host_aux.items() if k not in owned]
+            batch_key = (
+                staged_key, id(staged), _program_sig(erased, specs), lanes, stage,
+                aux_digest(shared + intdicts),
+            )
+
+            def compute_batch(slot_terms):
+                return self._run_program_batched(
+                    specs, erased, key_plan, staged, aux, cell_cols, slot_terms
+                )
+
+        return self._shared_scans.run(
+            key, compute, batch_key=batch_key, terms=terms, compute_batch=compute_batch
+        )
+
+    @staticmethod
+    def _fold_lanes(specs, key_plan, capacity: int, n_passes: int, cell_cols: dict) -> tuple:
+        """The fold's UDA lanes (name, argument types, argument), key mode,
+        group count, capacity, passes and cell columns: with the staged
+        entry and the program, what the outputs depend on."""
+        if key_plan.host_gids is not None:
+            key_mode = "host"
+        elif isinstance(key_plan.device_expr, tuple):
+            key_mode = f"lut:{key_plan.device_expr[1]}"
+        else:
+            key_mode = repr(key_plan.device_expr)
+        return (
+            tuple(
+                (uda.name, tuple(t.name for t in uda.arg_types),
+                 repr(arg_e) if uda.reads_args else None)
+                for _, arg_e, uda in specs
+            ),
+            key_mode, key_plan.num_groups, capacity, n_passes, tuple(sorted(cell_cols.items())),
+        )
+
+    def _run_program_batched(self, specs, program, key_plan, staged, aux, cell_cols, slot_terms):
+        """ONE scan of the staged blocks for ``len(slot_terms)`` queries (K16,
+        pixie_tpu/parallel/pipeline.py:6883): each slot's outputs are what
+        ``_run_program`` gives for that query alone. ``program`` is the
+        predicate-erased program; each slot's predicates are its normalized
+        terms, laid out in one term table (``batched.build_term_table``: B,
+        T and L padded to powers of two) that goes to the device once. Every
+        block runs the batched body (``_make_scan_body``: one H17, one H22
+        and one H23 launch, then the other UDAs once a slot); each pass ends
+        with every slot's ``_finish_pass`` and ONE device -> host copy for
+        all slots. Slots beyond one table's limits (``batched.split_batch``)
+        take further scans."""
+        capacity, n_passes = self._pass_plan(specs, key_plan.num_groups)
+        dtypes = {c: _block_dtype(b) for c, b in staged.blocks.items()}
+        results: list = [None] * len(slot_terms)
+        for run in batched.split_batch(slot_terms):
+            table = batched.build_term_table([slot_terms[s] for s in run], dtypes)
+            body, hist_cols = self._make_scan_body(
+                specs, program, staged, key_plan, capacity, aux, cell_cols,
+                pred_batch=table.to(self.device),
+            )
+            per_slot: list = [[] for _ in run]
+            for p in range(n_passes):
+                carries = [self._new_carry(specs, capacity, hist_cols) for _ in run]
+                for blk in range(staged.num_blocks):
+                    body(carries, blk, p * capacity)
+                outs = [
+                    self._finish_pass(specs, c, capacity, aux, hist_cols, cell_cols)
+                    for c in carries
+                ]
+                host = _fetch([t for o in outs for t in o])  # ONE copy per pass
+                k = len(outs[0])
+                for i in range(len(run)):
+                    per_slot[i].append(host[i * k : (i + 1) * k])
+            for i, s in enumerate(run):
+                results[s] = (self._outputs(per_slot[i]), capacity)
+        return results
+
     def _stream_execute(
         self, specs, program, key_plan, aux, cols: dict, n: int, f32_cols: set,
         cell_cols: dict, capacity: int,
@@ -2014,12 +2551,8 @@ class DeviceExecutor:
                     fut = pool.submit(pack, cols, gids, w + 1)
                 with timed("stage_stream_put"):
                     stager.put(win)
-                COLD_PROFILE["stage_bytes"] = COLD_PROFILE.get("stage_bytes", 0.0) + float(
-                    plan.window_block_nbytes() + staged_gid_nbytes(win.gids)
-                )
-                COLD_PROFILE["wire_bytes"] = COLD_PROFILE.get("wire_bytes", 0.0) + float(
-                    win.wire_nbytes
-                )
+                profile_add("stage_bytes", plan.window_block_nbytes() + staged_gid_nbytes(win.gids))
+                profile_add("wire_bytes", win.wire_nbytes)
                 with timed("stage_stream_dispatch"):
                     for blk in range(w * plan.nblk, (w + 1) * plan.nblk):
                         body(carry, blk, 0)
@@ -2036,12 +2569,8 @@ class DeviceExecutor:
                 )])
         finally:
             pool.shutdown(wait=True)
-            COLD_PROFILE["stage_overlap"] = COLD_PROFILE.get("stage_overlap", 0.0) + (
-                time.perf_counter() - t_wall
-            )
-            COLD_PROFILE["stream_windows"] = COLD_PROFILE.get("stream_windows", 0.0) + float(
-                plan.n_windows
-            )
+            profile_add("stage_overlap", time.perf_counter() - t_wall)
+            profile_add("stream_windows", plan.n_windows)
         return outputs, staged
 
     def _finalize(

@@ -26,6 +26,7 @@ leave the host: their int32 dictionary codes do.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Optional
 
@@ -42,8 +43,10 @@ DEFAULT_BLOCK_ROWS = 1 << 17
 # Cold-path phase timings (cumulative seconds since the last reset), as in
 # the reference: host column reads, host pack, encode, host -> device
 # transfer, decode, the stream's pack wait and puts; and counters: staged
-# (decoded) bytes, wire bytes, stream windows.
+# (decoded) bytes, wire bytes, stream windows. Concurrent queries add to it
+# from their own threads: every update goes through ``profile_add``.
 COLD_PROFILE: dict[str, float] = {}
+_PROFILE_LOCK = threading.Lock()
 
 
 def codec_min_ratio() -> float:
@@ -53,13 +56,16 @@ def codec_min_ratio() -> float:
     return float(flags.staging_codec_min_ratio)
 
 
-def _count(key: str, value: float) -> None:
-    COLD_PROFILE[key] = COLD_PROFILE.get(key, 0.0) + float(value)
+def profile_add(key: str, value: float) -> None:
+    """COLD_PROFILE[key] += value, atomically."""
+    with _PROFILE_LOCK:
+        COLD_PROFILE[key] = COLD_PROFILE.get(key, 0.0) + float(value)
 
 
 def reset_cold_profile() -> dict:
-    snap = dict(COLD_PROFILE)
-    COLD_PROFILE.clear()
+    with _PROFILE_LOCK:
+        snap = dict(COLD_PROFILE)
+        COLD_PROFILE.clear()
     return snap
 
 
@@ -75,7 +81,7 @@ class timed:
 
     def __exit__(self, *exc):
         dt = time.perf_counter() - self.t0
-        COLD_PROFILE[self.key] = COLD_PROFILE.get(self.key, 0.0) + dt
+        profile_add(self.key, dt)
         if trace.ACTIVE:
             trace.phase(f"device.{self.key}", dt)
         return False
@@ -293,7 +299,7 @@ def stage_columns(
         with timed("stage_host_pack"):
             flat = np.zeros(total, dtype=a.dtype if a.size else np.int32)
             flat[:num_rows] = a
-        _count("stage_bytes", flat.nbytes)
+        profile_add("stage_bytes", flat.nbytes)
         payload = None
         if use_codec:
             with timed("stage_encode"):
@@ -301,7 +307,7 @@ def stage_columns(
             payload = _encode_or_none(flat, plan, num_rows)
         out = torch.empty((1, nblk, b), dtype=codec.TORCH_DTYPES[flat.dtype], device=device)
         land(payload if payload is not None else flat, out)
-        _count("wire_bytes", payload.nbytes if payload is not None else flat.nbytes)
+        profile_add("wire_bytes", payload.nbytes if payload is not None else flat.nbytes)
         return out
 
     narrow_offsets: dict[str, int] = {}

@@ -24,8 +24,9 @@ import numpy as np
 import pixie_tpu_torch
 from pixie_tpu_torch.engine import Carnot
 from pixie_tpu_torch.interop import table_from_columns
-from pixie_tpu_torch.ops import kernels
+from pixie_tpu_torch.ops import batched, kernels
 from pixie_tpu_torch.parallel import DeviceExecutor
+from pixie_tpu_torch.serving import SharedScanCoordinator
 from pixie_tpu_torch.types import DataType, Relation
 
 c = Carnot(device_executor=DeviceExecutor(device="cpu"))
@@ -64,6 +65,8 @@ def test_sources_never_import_jax_or_the_reference():
     pat_ref = re.compile(r"\bpixie_tpu\.")
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 30
+    for new in ("serving/__init__.py", "serving/shared_scan.py", "ops/batched.py"):
+        assert PKG / new in files, new
     for f in files:
         text = f.read_text()
         assert "import jax" not in text, f

@@ -1,4 +1,4 @@
-"""The hand kernels (H1-H21 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H23 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
@@ -23,7 +23,9 @@ mask exactly, every sum within 1e-12 * sum |terms| of its cell (H2's bound).
 The scalar-expression interpreter (H17): bool, int and f64 outputs bit for
 bit, the f64 transcendentals within 2 ulp. The codec's decodes (H18, H19)
 bit for bit; the cell lane's HLL registers, count-min cells and totals
-(H20, H21) exactly.
+(H20, H21) exactly. The batched fold: H22's slot bits bit for bit, H23's
+integer sums and presence exactly and its f64 sums within 1e-12 * sum |v|
+of their cell (H2's bound).
 """
 
 import json
@@ -34,7 +36,7 @@ import pytest
 import torch
 
 from pixie_tpu_torch.ops import (
-    countmin, hashing, histogram, hll, kernels, scan, segment, tdigest,
+    batched, countmin, hashing, histogram, hll, kernels, scan, segment, tdigest,
 )
 
 EDGE = 2.5e-4
@@ -588,6 +590,69 @@ def test_codec_kernels_match_plain_on_card():
 def test_cell_kernels_match_plain_on_card():
     _need_cards(1)
     check_cell_kernels(torch.device("cuda", 0))
+
+
+def _pred_columns(n: int):
+    """Term columns as the batched fold stages them: a narrowed uint16
+    status with its offset, f64 latency with NaN and signed zeros, int32
+    codes (-1 included), f32 and bool blocks."""
+    rng = np.random.default_rng(21)
+    status = rng.choice([200, 301, 404, 500], n).astype(np.int64)
+    lat = rng.exponential(3e7, n)
+    lat[:4] = [np.nan, 0.0, -0.0, 2e7]
+    cols = {
+        "status": (torch.from_numpy((status - 200).astype(np.uint16)), 200),
+        "latency": (torch.from_numpy(lat), 0),
+        "codes": (torch.from_numpy(rng.integers(-1, 4000, n).astype(np.int32)), 0),
+        "l32": (torch.from_numpy(lat.astype(np.float32)), 0),
+        "ok": (torch.from_numpy(rng.random(n) < 0.5), 0),
+    }
+    return cols, {c: t.numpy().dtype for c, (t, _) in cols.items()}
+
+
+def _slot_terms(B: int) -> list:
+    fams = [
+        [("i", "status", 0, 200, 0.0, ())], [("i", "status", 1, 200, 0.0, ())],
+        [("f", "latency", 4, 0, 2e7, ())], [("i", "status", 6, 0, 0.0, (200, 404))],
+        [("f", "latency", 1, 0, -0.0, ()), ("i", "ok", 1, 0, 0.0, ())],
+        [("i", "codes", 6, 0, 0.0, tuple(range(-1, 2047, 2)))],  # 1024 members
+        [("f", "l32", 2, 0, float(np.float64(np.float32(1e7))), ())],
+        [],
+    ]
+    return [fams[s % len(fams)] + ([("i", "status", 5, 200 + s, 0.0, ())] if s >= 8 else [])
+            for s in range(B)]
+
+
+def check_batch_kernels(dev: torch.device) -> None:
+    n = 1 << 18
+    cols, dtypes = _pred_columns(n)
+    base = torch.from_numpy(np.random.default_rng(22).random(n) < 0.9)
+    for B in (1, 7, 16, 32):
+        table = batched.build_term_table(_slot_terms(B), dtypes)
+        args = ([cols[c][0] for c in table.columns], [cols[c][1] for c in table.columns])
+        want = batched.slot_masks_plain(*args, base, table)
+        got = batched.slot_masks([t.to(dev) for t in args[0]], args[1], base.to(dev),
+                                 table.to(dev))
+        assert got.device == dev and torch.equal(got.cpu(), want), B
+    rng = np.random.default_rng(23)
+    bits = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
+    irows = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (2, n), dtype=np.int64))
+    frows = torch.from_numpy(rng.exponential(3e7, (2, n)))
+    for B, S in ((16, 16), (32, 4096)):  # shared partials, then the global path
+        assert kernels.uses_shared("batched_segment_sums", dev, S, rows=B * 5) == (S == 16)
+        gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32))
+        want_i, want_f = batched.batched_segment_sums_plain(irows, frows, gids, bits, B, S)
+        got_i, got_f = batched.batched_segment_sums(
+            irows.to(dev), frows.to(dev), gids.to(dev), bits.to(dev), B, S)
+        assert torch.equal(got_i.cpu(), want_i)
+        _, abs_f = batched.batched_segment_sums_plain(irows, frows.abs(), gids, bits, B, S)
+        assert torch.all((got_f.cpu() - want_f).abs() <= 1e-12 * abs_f)
+
+
+@pytest.mark.cuda
+def test_batch_kernels_match_plain_on_card():
+    _need_cards(1)
+    check_batch_kernels(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda
