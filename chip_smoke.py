@@ -20,13 +20,16 @@ the CUDA toolkit. In order it:
    cells and the budget's 32 x 256 for H20 and H21; a block of the
    service_stats table for H22 (B = 1, 7, 16, 32 slots of one to three
    terms, op-6 lists of 2 and 1024 members) and H23 (the seven families'
-   slot bits, 16 groups; 4096 groups for its global path)) and at shapes that take
-   its other memory path (edge cases for the join's kernels),
+   slot bits, 16 groups; 4096 groups for its global path); a 2^21-row ring
+   window for H24 (int32 codes and int64 narrowed, f64 to f32 with NaN
+   payloads, +-0, +-inf, f32 subnormals and overflow, int-dictionary codes
+   at C = 3, 256 and 65536, a raw cast), also against the host pack) and at
+   shapes that take its other memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
    scan's compaction and the join exact; t-digest cluster cells under
    Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp; H18
    and H19 bit for bit; H20 and H21 exact; H22 bit for bit, H23's integers
-   exact and its f64 sums within 1e-12 * sum |v|), and
+   exact and its f64 sums within 1e-12 * sum |v|; H24 bit for bit), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
@@ -88,6 +91,20 @@ the CUDA toolkit. In order it:
      status {200: .9, 404/500: .05}; 64,000,000 rows) through the device
      scan (H12): the first 1000 rows with resp_status >= 400 in row order,
      time_, service and latency / 1e6 bit-equal to numpy's;
+   - config 5's sketches over the same http_small (sketches_small, the
+     unringed baseline of sketches_ring), then bench.py's default build of
+     http_small: a second table, http_small_ring, built with resident ingest
+     on (2^21-row ring windows, depth 64): the ring must be valid with 30
+     windows, 1,761,607,680 resident bytes, pinned, and memory_allocated
+     must rise by them (build seconds printed against the unringed build);
+     http_data_ring, config 1 over it: 30 resident hits, wire_bytes below a
+     third of stage_bytes, no wire bytes on a warm query, H24 launched; a
+     time-bounded count over it (0 hits, counts exact); sketches_ring, config
+     5's sketches over it: 30 hits in 31 stream windows, latency converted
+     as f32, resp_status as int-dictionary codes and the service codes
+     narrowed on every hit, count-min cells equal to sketches_small's; then
+     the ring is released (0 resident bytes, memory_allocated drops by
+     them);
    - config 4, px/perf_flamegraph over stacks (seed 43, 4096 stacks;
      64,000,000 rows): any() on its host lane and the sums through H1;
      4096 rows, count sums exact, each stack_trace its identity string;
@@ -130,7 +147,7 @@ the CUDA toolkit. In order it:
      4e-12 * sumsq / n), each query counting its fold lane;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H23 and the hash kernel), the nvidia-smi
+   line of per-kernel results (H1-H24 and the hash kernel), the nvidia-smi
    line, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -189,6 +206,7 @@ REPLACES = {
     "countmin_cell_update": "pixie_tpu/ops/countmin.py:82",
     "pred_slot_masks": "pixie_tpu/parallel/pipeline.py:5541",
     "batched_segment_sums": "pixie_tpu/parallel/pipeline.py:5598",
+    "ring_convert": "pixie_tpu/ops/codec.py:479",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -205,6 +223,7 @@ SOURCES = {
        for k in ("hll_cell_update", "countmin_cell_update")},
     **{k: "pixie_tpu_torch/ops/kernels/batch_kernels.cu"
        for k in ("pred_slot_masks", "batched_segment_sums")},
+    "ring_convert": "pixie_tpu_torch/ops/kernels/convert_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -257,6 +276,16 @@ HTTP_DATA = (
     f"df = df.head({SCAN_LIMIT})\n"
     "px.display(df, 'out')\n"
 )
+# The ring paths: bench.py's config 1 and config 5's sketches over the
+# http_small table built with resident ingest on, as bench.py builds it by
+# default (BENCH_RESIDENT=1, bench.py:790-846).
+HTTP_DATA_RING = HTTP_DATA.replace("'http_small'", "'http_small_ring'")
+SKETCHES_RING = SKETCHES.replace("'http_events'", "'http_small_ring'")
+SKETCH_KERNELS = ("segment_rows_sum_i64", "countmin_cell_update", "tdigest_pack",
+                  "tdigest_cluster", "tdigest_merge", "tdigest_quantiles")
+RING_WINDOWS = SMALL_ROWS // (1 << 21)  # 30 full 2^21-row windows of 64M rows
+RING_BYTES = RING_WINDOWS * (1 << 21) * (8 + 4 + 8 + 8)  # time_, service, status, latency
+BOUNDED_ROWS = 5_000_000  # the time-bounded query's rows
 FLAMEGRAPH = (
     "df = px.DataFrame(table='stacks')\n"
     "s = df.groupby(['stack_trace_id']).agg(\n"
@@ -1753,6 +1782,138 @@ def batch_kernel_phase(dev) -> dict:
     return records
 
 
+# f64 edge values of the f32 conversion (bits): NaN payloads of both signs,
+# quiet and signalling, +-inf, +-0, f32 subnormals (2^-149, 1.5 * 2^-149,
+# just below 2^-126), a rounding tie, values that overflow f32.
+F64_EDGES = np.array([
+    0x7FF8000000000000, 0xFFF8000000000000, 0x7FF80000DEADBEEF, 0x7FF4000000000001,
+    0xFFF0000000000001, 0x7FF0000000000000, 0xFFF0000000000000, 0x0000000000000000,
+    0x8000000000000000, 0x36A0000000000000, 0xB6A8000000000000, 0x380FFFFFFFFFFFFF,
+    0x47EFFFFFF0000000, 0x4800000000000000, 0x7FEFFFFFFFFFFFFF, 0x3FF0000010000000,
+], dtype=np.uint64)
+
+
+def ring_case(name: str, rng, n: int):
+    """(raw numpy column, col_plan, the plan's block dtype, the narrow
+    offset or None) of one H24 case at n rows: the
+    kinds the ring paths convert (service codes and resp_status narrowed,
+    latency as f32, resp_status as int-dictionary codes) and the others the
+    plans can give."""
+    from pixie_tpu_torch.ops import codec
+
+    if name == "narrow_i32_u8":  # service codes (http_data_ring, sketches_ring)
+        return (rng.integers(0, N_SERVICES, n).astype(np.int32),
+                ("narrow", (np.dtype(np.uint8), 0)), np.dtype(np.uint8), 0)
+    if name == "narrow_i64_u16":  # resp_status (http_data_ring)
+        a = rng.choice([200, 404, 500, 200 + 65535], n).astype(np.int64)
+        return a, ("narrow", (np.dtype(np.uint16), 200)), np.dtype(np.uint16), 200
+    if name == "narrow_i64_i32":
+        a = rng.integers(-(1 << 40), -(1 << 40) + (1 << 31) - 1, n).astype(np.int64)
+        return a, ("narrow", (np.dtype(np.int32), -(1 << 40))), np.dtype(np.int32), -(1 << 40)
+    if name == "f32":  # latency (sketches_ring's t-digest)
+        x = rng.exponential(3e7, n)
+        x[: F64_EDGES.size] = F64_EDGES.view(np.float64)
+        x[F64_EDGES.size : 2 * F64_EDGES.size] = -F64_EDGES.view(np.float64)
+        return x, ("f32", None), np.dtype(np.float32), None
+    if name.startswith("intdict"):  # resp_status (sketches_ring's cell lane)
+        C = int(name.split("_c")[1])
+        lut = (np.array([200, 404, 500], np.int64) if C == 3 else
+               np.unique(rng.integers(-(1 << 50), 1 << 50, C + 64))[:C].astype(np.int64))
+        dt = np.dtype(np.uint8 if C <= 256 else np.uint16)
+        return lut[rng.integers(0, C, n)], ("intdict", (lut, dt)), dt, None
+    if name == "raw_i64_i32":
+        return (rng.integers(-(1 << 62), 1 << 62, n), ("raw", None), np.dtype(np.int32), None)
+    raise AssertionError(name)
+
+
+RING_CASES = ("narrow_i32_u8", "narrow_i64_u16", "narrow_i64_i32", "f32", "intdict_c3",
+              "intdict_c256", "intdict_c65536", "raw_i64_i32")
+
+
+def ring_kernel_phase(dev) -> dict:
+    """H24 against ``convert_block_plain`` on the card and against the host
+    pack (numpy, pack_stream_window's transform) of the same rows, bit for
+    bit, at a 2^21-row ring window, for every case of RING_CASES (uint8 and
+    uint16 int-dictionary codes with C = 3, 256 and 65536, the largest
+    int_dict_lut admits). Timed per case: kernel, plain version, the one
+    torch call that computes the function where there is one (``Tensor.to``
+    for the casts), and the torch sequence otherwise (narrow: a subtract
+    and a cast; intdict: searchsorted, clamp, cast). Record: int64 ->
+    uint16 narrow (resp_status, http_data_ring). Also reports what torch's
+    own f64 -> f32 cast on the card makes of NaN payloads against numpy."""
+    from pixie_tpu_torch.ops import codec, kernels
+    from pixie_tpu_torch.parallel import staging
+
+    rng = np.random.default_rng(24)
+    n = BLOCK_ROWS
+    by_case = {}
+    record_out = None
+    for name in RING_CASES:
+        raw, col_plan, dt, off = ring_case(name, rng, n)
+        x = torch.from_numpy(raw.reshape(1, 1, n)).to(dev)
+        out = torch.empty((1, 1, n), dtype=codec.TORCH_DTYPES[dt], device=dev)
+        out2 = torch.empty_like(out)
+        int_dtype = dt if col_plan[0] == "raw" else None
+        codec.convert_block(col_plan, x, out=out, int_dtype=int_dtype)
+        codec.convert_block_plain(col_plan, x, out2)
+        torch.cuda.synchronize()
+        check(torch.equal(out.view(torch.uint8), out2.view(torch.uint8)),
+              f"H24 {name}: differs from the plain version")
+        with np.errstate(all="ignore"):
+            if col_plan[0] == "raw":
+                host = raw.astype(dt)
+            else:
+                plan = staging.StreamPlan(
+                    col_plans={"c": col_plan}, narrow_offsets={}, int_dicts={},
+                    block_dtypes={"c": dt}, window_rows=n, num_rows=n, n_windows=1, d=1,
+                    nblk=1, b=n, gid_dtype=None, num_groups=1,
+                )
+                host = np.asarray(staging.pack_stream_window(plan, {"c": raw}, None, 0)[1]["c"])
+        check(np.array_equal(out.cpu().numpy().reshape(-1).view(np.uint8),
+                             host.reshape(-1).view(np.uint8)),
+              f"H24 {name}: differs from the host pack")
+        lut_t = (torch.as_tensor(col_plan[1][0], device=dev) if col_plan[0] == "intdict"
+                 else None)
+        dst = out.dtype
+        if col_plan[0] in ("raw", "f32"):
+            library, seq = (lambda: x.to(dst)), None
+        elif col_plan[0] == "narrow":
+            library, seq = None, (lambda: (x - off).to(dst))
+        else:
+            C = lut_t.numel()
+            library = None
+            seq = lambda: torch.searchsorted(lut_t, x.reshape(-1)).clamp_max_(C - 1).to(dst)
+        kind = col_plan[0]
+        lut_bytes = lut_t.numel() * 8 if lut_t is not None else 0
+        # A binary search is ceil(log2(C + 1)) compares an element.
+        ops = n * math.ceil(math.log2(lut_t.numel() + 1)) if lut_t is not None else n
+        fn = (lambda: kernels.ring_convert(x, out, kind, off=off or 0, lut=lut_t))
+        rec = record(
+            fn, lambda: codec.convert_block_plain(col_plan, x, out2), library,
+            *bound(n * (x.element_size() + out.element_size()) + lut_bytes, ops), 0.0,
+            f"{x.dtype} [1,1,{n}] -> {dst}",
+        )
+        if seq is not None:
+            rec["torch_seq_ms"] = time_ms(seq)
+        by_case[name] = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_case[name]["torch_seq_ms"] = rec.get("torch_seq_ms")
+        if name == "narrow_i64_u16":
+            record_out = rec
+    # torch's own cast of NaN payloads on the card against the host's.
+    x = torch.from_numpy(F64_EDGES.view(np.float64)[:5].copy()).to(dev)
+    card = x.to(torch.float32).cpu().numpy().view(np.uint32)
+    with np.errstate(all="ignore"):
+        host = F64_EDGES.view(np.float64)[:5].astype(np.float32).view(np.uint32)
+    log("NaN payloads: f64 bits " + ", ".join(hex(v) for v in F64_EDGES[:5]) +
+        f" -> Tensor.to(float32) on the card {[hex(v) for v in card]}, numpy (and H24) "
+        f"{[hex(v) for v in host]}; equal: {bool(np.array_equal(card, host))}")
+    record_out["by_case"] = by_case
+    log("H24 ring_convert: bit for bit the plain version and the host pack in "
+        f"{len(RING_CASES)} cases at {n} rows; ms [bound] " +
+        ", ".join(f"{k} {v['ms']:.4f} [{v['bound_ms']:.4f}]" for k, v in by_case.items()))
+    return {"ring_convert": record_out}
+
+
 def decode_keys(tdigest, ks: torch.Tensor, G: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(group, value) of H7a's sorted keys: packed u32 keys with the sign bit
     flipped, or int64 (group << 32 | order key)."""
@@ -1960,22 +2121,23 @@ def build_flows_carnot(fl: dict, n_rows: int, device: str):
     return carnot
 
 
-def build_small_carnot(hs: dict, n_rows: int, device: str):
-    """bench.py's http_small table (ensure_small_table): identity service
-    codes, 16M-row chunks."""
-    from pixie_tpu_torch.engine import Carnot
-    from pixie_tpu_torch.parallel import DeviceExecutor
+def build_small_table(carnot, name: str, hs: dict, n_rows: int) -> float:
+    """bench.py's http_small table (ensure_small_table) as ``name`` in
+    ``carnot``: identity service codes, 16M-row chunks, then compact() and
+    stop(). Returns the seconds from create_table to stop(), the device's
+    work included (a resident ring stages on the writer's thread)."""
     from pixie_tpu_torch.table.column import DictColumn
     from pixie_tpu_torch.types import DataType, Relation, SemanticType
 
-    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
     rel = Relation.of(
         ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
         ("service", DataType.STRING, SemanticType.ST_SERVICE_NAME),
         ("resp_status", DataType.INT64),
         ("latency", DataType.FLOAT64, SemanticType.ST_DURATION_NS),
     )
-    table = carnot.table_store.create_table("http_small", rel, size_limit=1 << 42)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = carnot.table_store.create_table(name, rel, size_limit=1 << 42)
     sd = table.dictionaries["service"]
     for i in range(N_SERVICES):
         sd.get_code(f"ns/svc-{i}")
@@ -1989,8 +2151,37 @@ def build_small_carnot(hs: dict, n_rows: int, device: str):
         })
     table.compact()
     table.stop()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     check(table.min_row_id() == 0 and table.end_row_id() == n_rows, "table expired rows")
-    return carnot
+    return seconds
+
+
+def build_small_carnot(hs: dict, n_rows: int, device: str):
+    """A Carnot holding bench.py's http_small table (no ring), and the
+    seconds its table took to build."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    return carnot, build_small_table(carnot, "http_small", hs, n_rows)
+
+
+def small_truths(hs: dict) -> dict:
+    """http_small's truths in http_events' form (verify_sketches): counts,
+    latency histograms and per-(service, status) counts of its statuses."""
+    statuses = (200, 404, 500)
+    svc = hs["svc"].astype(np.int64)
+    tc = np.bincount(svc, minlength=N_SERVICES)
+    th = np.zeros((N_SERVICES, TRUTH_BINS), np.int64)
+    chunk = 16_000_000
+    for off in range(0, svc.size, chunk):
+        sl = slice(off, off + chunk)
+        th += np.bincount(svc[sl] * TRUTH_BINS + np.digitize(hs["latency"][sl], TRUTH_EDGES),
+                          minlength=N_SERVICES * TRUTH_BINS).reshape(N_SERVICES, TRUTH_BINS)
+    pick = np.searchsorted(np.array(statuses), hs["status"])
+    ts = np.bincount(svc * len(statuses) + pick, minlength=N_SERVICES * len(statuses))
+    return dict(tc=tc, th=th, ts=ts.reshape(N_SERVICES, len(statuses)), statuses=statuses)
 
 
 def build_stacks_carnot(st: dict, n_rows: int, device: str):
@@ -2458,13 +2649,13 @@ def verify(result, data: dict, n_rows: int) -> None:
             check(abs(q[key] - want) <= 0.04 * want, f"{key} of svc-{j}")
 
 
-def countmin_max_truth(ts: np.ndarray) -> np.ndarray:
+def countmin_max_truth(ts: np.ndarray, statuses=STATUSES) -> np.ndarray:
     """Per service, the largest count-min cell the true per-status counts
     give: each status adds its count into its four buckets (the plain
     _buckets), and max_est is the largest cell of all four rows."""
     from pixie_tpu_torch.ops import countmin
 
-    buckets = countmin._buckets(torch.tensor(STATUSES, dtype=torch.int64),
+    buckets = countmin._buckets(torch.tensor(statuses, dtype=torch.int64),
                                 countmin.DEFAULT_DEPTH, countmin.DEFAULT_WIDTH)
     out = np.zeros(N_SERVICES, np.int64)
     for j in range(N_SERVICES):
@@ -2482,7 +2673,8 @@ def verify_sketches(result, data: dict, n_rows: int) -> None:
     rows = result.table("sketches")
     by_svc = {s: i for i, s in enumerate(rows["service"])}
     check(len(by_svc) == N_SERVICES, f"sketches: got {len(by_svc)} groups")
-    max_truth = data.setdefault("cm_max", countmin_max_truth(data["ts"]))
+    max_truth = data.setdefault(
+        "cm_max", countmin_max_truth(data["ts"], data.get("statuses", STATUSES)))
     for j in range(N_SERVICES):
         i = by_svc[f"ns/svc-{j}"]
         f = json.loads(rows["freq"][i])
@@ -2624,8 +2816,8 @@ def slice_parity(n_rows: int) -> None:
     want = flows_cpu.execute_query(FLOW_SPAN).table("flow_span")
     check(got == want, "flow_span: cuda vs cpu")
     hs = http_small(n_rows)
-    got = build_small_carnot(hs, n_rows, "cuda").execute_query(HTTP_DATA).table("out")
-    want = build_small_carnot(hs, n_rows, "cpu").execute_query(HTTP_DATA).table("out")
+    got = build_small_carnot(hs, n_rows, "cuda")[0].execute_query(HTTP_DATA).table("out")
+    want = build_small_carnot(hs, n_rows, "cpu")[0].execute_query(HTTP_DATA).table("out")
     check(got == want and len(got["time_"]) == SCAN_LIMIT, "http_data: cuda vs cpu")
     st = stacks(n_rows)
     st_cuda, st_cpu = build_stacks_carnot(st, n_rows, "cuda"), build_stacks_carnot(st, n_rows, "cpu")
@@ -2986,6 +3178,111 @@ def let_parity(n_rows: int) -> None:
         "endpoint load kernel path == plain path (quantiles within a bin, f64 within 1e-12)")
 
 
+def ring_paths(small, hs: dict, truth: dict, plain_build_s: float, paths: dict) -> dict:
+    """Resident ingest on the card: builds http_small_ring in ``small`` with
+    ``resident_ingest`` on (the default window and depth: 2^21 rows, 64),
+    checks the ring and its accounting, drives http_data_ring (config 1),
+    a time-bounded count and sketches_ring (config 5's sketches) over it,
+    then releases the ring. Returns the launches of the ring's build (its
+    window decodes), which belong to the path."""
+    from pixie_tpu_torch.ops import kernels
+    from pixie_tpu_torch.parallel import staging
+    from pixie_tpu_torch.utils import flags
+
+    ex = small.device_executor
+    flags.set("resident_ingest", True)
+    try:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        build_s = build_small_table(small, "http_small_ring", hs, SMALL_ROWS)
+        build_launches = dict(kernels.LAUNCHES)
+        rise = torch.cuda.memory_allocated() - mem0
+        ring = ex._resident.ring_for("http_small_ring")
+        snap, pool = ring.snapshot(), ex._staged_cache.snapshot()
+        log(f"http_small_ring: built in {build_s:.3f} s with its ring, {plain_build_s:.3f} s "
+            f"without (http_small); ring {json.dumps(snap)}; pool {json.dumps(pool)}; "
+            f"memory_allocated rose {rise} B; launches "
+            f"{ {k: v for k, v in build_launches.items() if v} }")
+        check(snap["valid"] and snap["last_error"] is None, f"the ring is invalid: {snap}")
+        check(snap["windows"] == RING_WINDOWS, f"ring windows {snap['windows']} != {RING_WINDOWS}")
+        check(pool["resident_bytes"] == RING_BYTES,
+              f"resident bytes {pool['resident_bytes']} != {RING_BYTES}")
+        check(pool["pinned_bytes"] >= RING_BYTES, f"pinned bytes {pool['pinned_bytes']}")
+        check(rise >= RING_BYTES, f"memory_allocated rose {rise} B < {RING_BYTES}")
+
+        t0 = time.perf_counter()
+        p = paths["http_data_ring"] = drive(
+            small, HTTP_DATA_RING, lambda r: verify_http_data(r, hs),
+            ("scan_compact", "scalar_eval", "ring_convert"), streamed=False,
+        )
+        cp = p["cold_phases"]
+        check(cp.get("stage_resident_hits") == RING_WINDOWS,
+              f"http_data_ring: {cp.get('stage_resident_hits')} resident hits")
+        check(cp["wire_bytes"] < cp["stage_bytes"] / 3,
+              f"http_data_ring: wire {cp['wire_bytes']} of stage {cp['stage_bytes']}")
+        check(all(w.get("wire_bytes", 0.0) == 0.0 for w in p["warm_phases"]),
+              f"http_data_ring: a warm query copied {p['warm_phases']}")
+        check(p["lanes"].get("convert_narrow") == 2 * RING_WINDOWS
+              and p["lanes"].get("convert_identity") == 2 * RING_WINDOWS,
+              f"http_data_ring: lanes {p['lanes']}")
+        log(f"http_data_ring: {time.perf_counter() - t0:.1f} s; lanes {p['lanes']}")
+
+        bounded = (
+            "df = px.DataFrame(table='http_small_ring', start_time=0, "
+            f"end_time={(BOUNDED_ROWS - 1) * 1000})\n"
+            "s = df.groupby(['service']).agg(n=('time_', px.count))\n"
+            "px.display(s, 'bounded')\n"
+        )
+        ex.clear_caches()
+        staging.reset_cold_profile()
+        rows = small.execute_query(bounded).table("bounded")
+        bp = staging.reset_cold_profile()
+        want = np.bincount(hs["svc"][:BOUNDED_ROWS], minlength=N_SERVICES)
+        got = {s: n for s, n in zip(rows["service"], rows["n"])}
+        check(bp.get("stage_resident_hits", 0.0) == 0.0, f"time-bounded query: {bp}")
+        check(all(got[f"ns/svc-{j}"] == want[j] for j in range(N_SERVICES))
+              and sum(got.values()) == BOUNDED_ROWS, f"time-bounded counts {got}")
+        log(f"time-bounded count over http_small_ring ({BOUNDED_ROWS} rows): 0 resident hits, "
+            f"counts exact; cold {json.dumps({k: round(v, 3) for k, v in bp.items()})}")
+
+        t0 = time.perf_counter()
+        p = paths["sketches_ring"] = drive(
+            small, SKETCHES_RING, lambda r: verify_sketches(r, truth, SMALL_ROWS),
+            SKETCH_KERNELS + ("ring_convert",),
+        )
+        cp, lanes = p["cold_phases"], p["lanes"]
+        check(cp.get("stage_resident_hits") == RING_WINDOWS
+              and cp.get("stream_windows") == RING_WINDOWS + 1,
+              f"sketches_ring: {cp.get('stage_resident_hits')} hits in "
+              f"{cp.get('stream_windows')} windows")
+        check(all(lanes.get(f"convert_{k}") == RING_WINDOWS for k in ("f32", "intdict", "narrow")),
+              f"sketches_ring: lanes {lanes}")
+        check(lanes.get("cell_lane") == 1 + WARM_QUERIES, f"sketches_ring: lanes {lanes}")
+        ring_rows = p["result"].table("sketches")
+        plain_rows = paths["sketches_small"]["result"].table("sketches")
+        check(ring_rows["service"] == plain_rows["service"]
+              and ring_rows["freq"] == plain_rows["freq"],
+              "sketches_ring: count-min cells differ from the unringed table's")
+        log(f"sketches_ring: {time.perf_counter() - t0:.1f} s; lanes {lanes}; count-min equal to "
+            f"sketches_small's; t-digest quantiles bit-equal to sketches_small's: "
+            f"{ring_rows['lat'] == plain_rows['lat']}")
+
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        ring.release_all()
+        torch.cuda.synchronize()
+        drop = mem1 - torch.cuda.memory_allocated()
+        pool = ex._staged_cache.snapshot()
+        check(pool["resident_bytes"] == 0 and pool["resident_windows"] == 0,
+              f"released ring still accounted: {pool}")
+        check(drop >= RING_BYTES, f"memory_allocated dropped {drop} B < {RING_BYTES}")
+        log(f"ring released: resident bytes 0, memory_allocated dropped {drop} B")
+    finally:
+        flags.reset("resident_ingest")
+    return build_launches
+
+
 def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
           streamed: bool = True) -> dict:
     """One main path: launch counts and lanes zeroed just before, one cold
@@ -3008,12 +3305,13 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
     cold = time.perf_counter() - t0
     cold_phases = staging.reset_cold_profile()
     verify_fn(result)
-    warm = []
+    warm, warm_phases = [], []
     for _ in range(WARM_QUERIES):
         t0 = time.perf_counter()
         result = carnot.execute_query(query, now_ns=now_ns)
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
+        warm_phases.append(staging.reset_cold_profile())
         verify_fn(result)
     launches = dict(kernels.LAUNCHES)
     lanes = segment.reduce_lanes(reset=True)
@@ -3023,7 +3321,8 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
     if streamed:
         check(lanes.get("stage_stream") == 1 and cold_phases.get("stream_windows", 0) > 0,
               f"the cold query did not stream once: lanes {lanes}")
-    return dict(cold=cold, cold_phases=cold_phases, warm=warm, launches=launches, lanes=lanes)
+    return dict(cold=cold, cold_phases=cold_phases, warm=warm, warm_phases=warm_phases,
+                launches=launches, lanes=lanes, result=result)
 
 
 def main() -> int:
@@ -3071,6 +3370,7 @@ def main() -> int:
     records.update(codec_kernel_phase(dev))
     records.update(cell_kernel_phase(dev))
     records.update(batch_kernel_phase(dev))
+    records.update(ring_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -3099,9 +3399,7 @@ def main() -> int:
     # count_min(resp_status) takes the int-dictionary cell lane (H21): no
     # hash kernel, no H6.
     paths["sketches"] = drive(
-        carnot, SKETCHES, lambda r: verify_sketches(r, data, args.rows),
-        ("segment_rows_sum_i64", "countmin_cell_update", "tdigest_pack",
-         "tdigest_cluster", "tdigest_merge", "tdigest_quantiles"),
+        carnot, SKETCHES, lambda r: verify_sketches(r, data, args.rows), SKETCH_KERNELS,
     )
     check(paths["sketches"]["lanes"].get("cell_lane") == 1 + WARM_QUERIES
           and paths["sketches"]["launches"]["countmin_update"] == 0
@@ -3149,9 +3447,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     hs = http_small(SMALL_ROWS)
-    small = build_small_carnot(hs, SMALL_ROWS, "cuda")
+    small, small_build_s = build_small_carnot(hs, SMALL_ROWS, "cuda")
     log(f"http_small: {SMALL_ROWS} rows generated and written in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (the table's build {small_build_s:.3f} s)")
     phase_s["http_small_table"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     paths["http_data"] = drive(  # the scan stages in one piece (with the codec)
@@ -3159,6 +3457,18 @@ def main() -> int:
         streamed=False,
     )
     phase_s["http_data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small_truth = small_truths(hs)
+    paths["sketches_small"] = drive(
+        small, SKETCHES.replace("'http_events'", "'http_small'"),
+        lambda r: verify_sketches(r, small_truth, SMALL_ROWS), SKETCH_KERNELS,
+    )
+    check(paths["sketches_small"]["lanes"].get("cell_lane") == 1 + WARM_QUERIES,
+          f"sketches_small: lanes {paths['sketches_small']['lanes']}")
+    phase_s["sketches_small"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ring_launches = ring_paths(small, hs, small_truth, small_build_s, paths)
+    phase_s["ring_paths"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     st = stacks(SMALL_ROWS)
@@ -3248,7 +3558,8 @@ def main() -> int:
                "join8": JOIN_ROWS, "join8_outer": JOIN_ROWS, "join8_team_agg": JOIN_ROWS,
                "join8_oncall_agg": JOIN_ROWS, "join8_left_agg": JOIN_ROWS,
                "svc_let": LET_ROWS, "code_histogram": LET_ROWS, "latency_histogram": LET_ROWS,
-               "endpoint_load": LET_ROWS}
+               "endpoint_load": LET_ROWS, "sketches_small": SMALL_ROWS,
+               "http_data_ring": SMALL_ROWS, "sketches_ring": SMALL_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
         cp = p["cold_phases"]
@@ -3268,7 +3579,7 @@ def main() -> int:
             f"{ {k: v for k, v in p['launches'].items() if v} }; per query: "
             f"{ {k: v / n_queries for k, v in p['launches'].items() if v} }")
     launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
-                for k in kernels.KERNELS}
+                + ring_launches[k] for k in kernels.KERNELS}
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main paths")
 
@@ -3280,6 +3591,9 @@ def main() -> int:
         profile_warm(flows, FLOW_WINDOW, min(paths["flow_window"]["warm"]), "flow_window")
         profile_warm(carnot, STATUS_MIX, min(paths["status_mix"]["warm"]), "status_mix")
         profile_warm(small, HTTP_DATA, min(paths["http_data"]["warm"]))
+        for name, query in (("sketches_small", SKETCHES.replace("'http_events'", "'http_small'")),
+                            ("http_data_ring", HTTP_DATA_RING), ("sketches_ring", SKETCHES_RING)):
+            profile_warm(small, query, min(paths[name]["warm"]), name)
         profile_warm(stack_carnot, FLAMEGRAPH, min(paths["flamegraph"]["warm"]))
         profile_warm(join_carnot, JOIN8, min(paths["join8"]["warm"]))
         profile_warm(join_carnot, JOIN8_OUTER, min(paths["join8_outer"]["warm"]))

@@ -189,6 +189,13 @@ class Carnot:
         # matching the source→map/filter→agg chain fold on the device; the
         # host exec graph runs the suffix.
         self.device_executor = device_executor
+        if device_executor is not None and hasattr(device_executor, "enable_resident_ingest"):
+            # With flag ``resident_ingest``, every created table gets a device
+            # ring fed by its appends (serving/resident.py), so a hot table
+            # never cold-stages its full windows (pixie_tpu/engine.py:203).
+            self.table_store.add_create_listener(
+                lambda name, table: device_executor.enable_resident_ingest(table)
+            )
         # Where the host AggNode keeps its states without a device executor
         # ("cpu" for the plain versions; None: CUDA, resolved on first use).
         self.device = device

@@ -20,8 +20,15 @@ encoding), so a decoded block equals the packed block by construction.
 The host side (planning, encoding) is numpy and equals the reference's
 payloads bit for bit. ``decode`` runs H18 (``codec_rle_decode``) or H19
 (``codec_delta_decode``) of ``ops/kernels`` on CUDA tensors and the plain
-versions below on CPU tensors. The reference's raw -> plan converters (K8,
-``_converter``) serve device-resident ingest, which is not ported.
+versions below on CPU tensors.
+
+The raw -> plan converters (the reference's ``_converter`` and
+``convert_block``, K8) serve device-resident ingest (serving/resident.py):
+a ring window holds RAW column dtypes, and a query's plan may narrow, cast
+to f32 or int-dictionary-encode a column. ``convert_block`` computes the
+plan-dtype block on the device, bit for bit the host pack of the same rows
+(``pack_stream_window``): H24 (``ring_convert``) on CUDA tensors,
+``convert_block_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -391,3 +398,81 @@ def decode(arrays: list, plan: CodecPlan, out: torch.Tensor) -> torch.Tensor:
     if out.is_cuda:
         return kernels.codec_delta_decode(bases, deltas, rows, plan.delta_off, nib, out)
     return delta_decode_plain(bases, deltas, rows, plan.delta_off, nib, out)
+
+
+# -- raw -> plan converters (device-resident ingest) -------------------------
+
+def _wrap_to(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An integer tensor cast to an integer or bool ``dtype`` keeping the
+    low bytes, as numpy's astype wraps (torch has no int64 -> uint16 path:
+    it goes through int32)."""
+    if dtype == torch.bool:
+        return v != 0
+    if dtype == torch.uint16:
+        return (v.to(torch.int64) & 0xFFFF).to(torch.int32).to(torch.uint16)
+    if dtype == torch.uint8:
+        return (v.to(torch.int64) & 0xFF).to(torch.uint8)
+    return v.to(dtype)
+
+
+def convert_block_plain(col_plan, raw_block: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of H24: ``out`` (the plan's dtype, the shape of
+    ``raw_block``) gets ``raw_block`` converted per ``col_plan``:
+    ("raw", _) a cast, ("narrow", (dt, off)) ``(x.astype(int64) - off)
+    .astype(dt)``, ("f32", _) ``x.astype(float32)``, ("intdict", (lut, dt))
+    ``min(searchsorted(lut, x), C - 1).astype(dt)``; integers wrap to their
+    low bytes."""
+    kind, info = col_plan
+    x = raw_block
+    if kind in ("raw", "f32") and (x.dtype.is_floating_point or out.dtype.is_floating_point):
+        # f64 -> f32 as numpy's astype: round to nearest even, overflow to
+        # inf, subnormals kept, a NaN's sign and top payload bits kept.
+        v = x.to(out.dtype)
+    elif kind == "raw":
+        v = _wrap_to(x, out.dtype)
+    elif kind == "narrow":
+        v = _wrap_to(x.to(torch.int64) - int(info[1]), out.dtype)
+    elif kind == "intdict":
+        lut = torch.as_tensor(np.asarray(info[0], np.int64), device=x.device)
+        c = torch.searchsorted(lut, x.to(torch.int64).reshape(-1)).clamp_max(lut.numel() - 1)
+        v = _wrap_to(c.reshape(x.shape), out.dtype)
+    else:
+        raise ValueError(f"unknown col plan kind {kind!r}")
+    out.copy_(v.reshape(out.shape))
+    return out
+
+
+def convert_block(col_plan, raw_block: torch.Tensor, out: Optional[torch.Tensor] = None,
+                  int_dtype=None) -> torch.Tensor:
+    """Apply a StreamPlan col_plan ("raw" / "narrow" / "f32" / "intdict") to
+    a raw-dtype resident block ([1, nblk, b]), returning the plan-dtype
+    block the fold reads. ``out`` (the window's slice of the stream's
+    preallocated staging) receives it with no further allocation;
+    ``int_dtype`` is the plan's block dtype of a "raw" column. The narrow
+    offset and the LUT are the whole column's (``plan_stream``). H24 on
+    CUDA tensors, ``convert_block_plain`` on CPU tensors."""
+    kind, info = col_plan
+    if kind == "raw":
+        dst = raw_block.dtype if int_dtype is None else TORCH_DTYPES[np.dtype(int_dtype)]
+    elif kind == "f32":
+        dst = torch.float32
+    elif kind == "narrow":
+        dst = TORCH_DTYPES[np.dtype(info[0])]
+    elif kind == "intdict":
+        dst = TORCH_DTYPES[np.dtype(info[1])]
+    else:
+        raise ValueError(f"unknown col plan kind {kind!r}")
+    if out is None:
+        out = torch.empty(raw_block.shape, dtype=dst, device=raw_block.device)
+    elif out.dtype != dst or out.shape != raw_block.shape:
+        raise ValueError(
+            f"convert_block: out is {out.dtype} {tuple(out.shape)}, the plan needs {dst} "
+            f"{tuple(raw_block.shape)}"
+        )
+    if not raw_block.is_cuda:
+        return convert_block_plain(col_plan, raw_block, out)
+    if kind == "intdict":
+        lut = torch.as_tensor(np.asarray(info[0], np.int64), device=raw_block.device)
+        return kernels.ring_convert(raw_block, out, "intdict", lut=lut)
+    off = int(info[1]) if kind == "narrow" else 0
+    return kernels.ring_convert(raw_block, out, kind, off=off)

@@ -10,7 +10,8 @@ fold (H16), ``scalar_kernels.cu`` the fused scalar-expression
 interpreter (H17), ``codec_kernels.cu`` the staging codec's device decode
 (H18, H19), ``cell_kernels.cu`` the sketches' int-dictionary cell lane
 (H20, H21) and ``batch_kernels.cu`` the predicate-batched fold's slot masks
-and slot-batched segment sums (H22, H23); see each file's header. At the first launch, ``library()`` compiles them with
+and slot-batched segment sums (H22, H23) and ``convert_kernels.cu`` the
+resident ring's raw -> plan converters (H24); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -68,6 +69,7 @@ KERNELS = (
     "countmin_cell_update",
     "pred_slot_masks",
     "batched_segment_sums",
+    "ring_convert",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -77,7 +79,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
     "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
-    "cell_kernels.cu", "batch_kernels.cu",
+    "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -121,6 +123,7 @@ _SIGNATURES = {
         _P, _P, _P, _I, _P, _LL, _P, _I, _I, _P, ctypes.c_uint, _P, _P,
     ),
     "px_batched_segment_sums": (_P, _I, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _P),
+    "px_ring_convert": (_P, _I, _P, _I, _I, _LL, _P, _I, _LL, _P),
 }
 
 _lock = threading.Lock()
@@ -1099,3 +1102,64 @@ def batched_segment_sums(
         num_segments, out_i.data_ptr(), out_f.data_ptr(), int(shared),
     )
     return out_i, out_f
+
+
+# -- H24: the resident ring's raw -> plan converters ---------------------------
+
+# dtype codes of convert_kernels.cu.
+_CONVERT_CODES = {
+    torch.bool: 0, torch.uint8: 1, torch.uint16: 2, torch.int32: 3, torch.int64: 4,
+    torch.float32: 5, torch.float64: 6,
+}
+_CONVERT_KINDS = {"raw": 0, "narrow": 1, "f32": 2, "intdict": 3}
+_INTS = (torch.uint8, torch.uint16, torch.int32, torch.int64)
+# The (source, destination) dtype pairs the stream plans produce, per kind.
+CONVERT_PAIRS = {
+    "raw": {(s, d) for s in (torch.bool, torch.int32, torch.int64)
+            for d in (torch.bool,) + _INTS + (torch.float32,)}
+    | {(torch.float64, torch.float32), (torch.float64, torch.float64)},
+    "narrow": {(s, d) for s in (torch.int32, torch.int64) for d in _INTS},
+    "f32": {(torch.float64, torch.float32)},
+    "intdict": {(torch.int64, d) for d in (torch.uint8, torch.uint16, torch.int32)},
+}
+CONVERT_MAX_LUT = 1 << 16  # uint16 codes
+
+
+def ring_convert(src: torch.Tensor, out: torch.Tensor, kind: str, off: int = 0,
+                 lut: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """H24: writes ``src`` (a resident block in its raw dtype) converted per
+    ``kind`` into ``out`` (the plan's dtype, as many elements, any shape;
+    a slice of a staging is fine when contiguous) and returns ``out``:
+    "raw" a cast, "narrow" (int64(x) - off) keeping the low bytes, "f32"
+    f64 -> f32 with NaN payloads kept as the host casts them, "intdict"
+    min(searchsorted(lut, x), C - 1) with ``lut`` sorted int64 [C],
+    1 <= C <= 65536."""
+    device = src.device
+    if kind not in _CONVERT_KINDS:
+        raise ValueError(f"ring_convert: unknown kind {kind!r}")
+    if (src.dtype, out.dtype) not in CONVERT_PAIRS[kind]:
+        raise TypeError(f"ring_convert: {kind} does not convert {src.dtype} to {out.dtype}")
+    if out.device != device:
+        raise ValueError(f"out is on {out.device}, expected {device}")
+    if not src.is_contiguous() or not out.is_contiguous():
+        raise ValueError("ring_convert: src and out must be contiguous")
+    n = src.numel()
+    if out.numel() != n:
+        raise ValueError(f"ring_convert: src has {n} elements, out {out.numel()}")
+    lut_ptr, C = None, 0
+    if kind == "intdict":
+        if lut is None:
+            raise ValueError("ring_convert: intdict needs its lut")
+        _require(lut, "lut", torch.int64, device, 1)
+        C = lut.numel()
+        if not 1 <= C <= CONVERT_MAX_LUT:
+            raise ValueError(f"ring_convert: lut of {C} entries, expected 1 to {CONVERT_MAX_LUT}")
+        lut_ptr = lut.data_ptr()
+    if n == 0:
+        return out
+    _launch(
+        "ring_convert", device,
+        src.data_ptr(), _CONVERT_CODES[src.dtype], out.data_ptr(), _CONVERT_CODES[out.dtype],
+        _CONVERT_KINDS[kind], int(off), lut_ptr, C, n,
+    )
+    return out

@@ -18,7 +18,14 @@ takes the reference's default streamed path (``_stream_execute``: window
 k+1 packs on a background thread while window k copies on a side stream,
 decodes and folds, and the windows land in one staging for the warm
 cache); more than one pass, and every warm query, fold the staged blocks
-(``_run_program``). Every block is folded into the UDA states by
+(``_run_program``). The staged cache is a byte-accounted ResidencyPool
+(serving/residency.py) whose entries a fold pins while it runs. With
+``resident_ingest`` every table the engine creates keeps its full append
+windows on the device (serving/resident.py): a query over it without time
+bounds streams (the scan and the joins: assembles its staging) at the
+ring's window size, and a window the ring holds is converted on the device
+by H24 (``codec.convert_block``) instead of packed and copied. Every block
+is folded into the UDA states by
 ``_make_scan_body``: ONE launch of H17 evaluates the block's compiled
 scalar program (the predicates ANDed into its mask, a LUT key's gids, each
 UDA argument that is not a bare column, a string-hash argument's content
@@ -95,7 +102,7 @@ from pixie_tpu_torch.compiler.analyzer import substitute
 from pixie_tpu_torch.device import resolve_device
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
-from pixie_tpu_torch.ops import batched, scan, segment
+from pixie_tpu_torch.ops import batched, codec, scan, segment
 from pixie_tpu_torch.parallel.staging import (
     StagedColumns,
     WindowStager,
@@ -127,6 +134,8 @@ from pixie_tpu_torch.plan.operators import (
     MemorySourceOp,
 )
 from pixie_tpu_torch.plan.plan import PlanFragment
+from pixie_tpu_torch.serving.residency import ResidencyPool
+from pixie_tpu_torch.serving.resident import ResidentIngestManager
 from pixie_tpu_torch.serving.shared_scan import SharedScanCoordinator, aux_digest
 from pixie_tpu_torch.table.column import DictColumn, StringDictionary
 from pixie_tpu_torch.table.row_batch import RowBatch
@@ -941,12 +950,15 @@ class DeviceExecutor:
         self.block_rows = (
             block_rows if block_rows is not None else flags.device_block_rows
         )
-        # Staged columns per (table version, columns, key plan, ...), LRU:
-        # a table version is staged once and every matching query reuses it.
-        self._staged_cache: "collections.OrderedDict[tuple, StagedColumns]" = (
-            collections.OrderedDict()
-        )
-        self._staged_cache_cap = flags.staged_cache_cap
+        # Staged columns per (table version, columns, key plan, ...): a table
+        # version is staged once and every matching query reuses it. A
+        # byte-accounted pool (serving/residency.py): LRU under the entry cap
+        # and, with ``hbm_budget_mb``, the byte watermarks; a fold pins its
+        # entry while it runs; resident ring windows count as pinned bytes.
+        self._staged_cache = ResidencyPool(cap_entries=flags.staged_cache_cap)
+        # Device-resident ingest rings (flag ``resident_ingest``), made on the
+        # first ``enable_resident_ingest``.
+        self._resident: Optional[ResidentIngestManager] = None
         # Host-densified key plans per (table version, key exprs, window), LRU.
         self._keyplan_cache: "collections.OrderedDict[tuple, _KeyPlan]" = (
             collections.OrderedDict()
@@ -957,8 +969,8 @@ class DeviceExecutor:
         self._hostany_cache: "collections.OrderedDict[tuple, np.ndarray]" = (
             collections.OrderedDict()
         )
-        # Concurrent queries share the three caches: every walk or change of
-        # one holds this lock.
+        # Concurrent queries share the key-plan and any() caches: every walk
+        # or change of one holds this lock (the staged pool has its own).
         self._cache_lock = threading.Lock()
         # Concurrent compatible warm folds share one dispatch (flag
         # ``shared_scans``; ``_shared_scan_run``).
@@ -1058,6 +1070,7 @@ class DeviceExecutor:
         staged_key, staged = self._staged_lookup(cache_key)
         outputs = None
         if staged is None:
+            base_row = table.min_row_id()
             with timed("read_columns"):
                 cols, n = read_columns(
                     table, sorted(base_cols), m.source_op.start_time, m.source_op.stop_time
@@ -1070,7 +1083,7 @@ class DeviceExecutor:
                 with timed("stage"):
                     outputs, staged = self._stream_execute(
                         device_specs, program, key_plan, aux, cols, n, f32_cols, cell_cols,
-                        capacity,
+                        capacity, self._resident_ring(table, m.source_op), base_row,
                     )
                 segment.lane_count("stage_stream")
             else:
@@ -1079,7 +1092,8 @@ class DeviceExecutor:
             self._staged_insert(cache_key, staged)
         if outputs is None:
             aux = self._with_intdicts(aux, staged)
-            with timed("fold"):
+            # The fold pins its entry: no eviction retires it in flight.
+            with self._staged_cache.pin(staged_key), timed("fold"):
                 if flags.shared_scans:
                     outputs, capacity = self._shared_scan_run(
                         m, device_specs, evaluator, table, key_plan, roots, program, aux,
@@ -1111,11 +1125,111 @@ class DeviceExecutor:
 
     def clear_caches(self) -> None:
         """Drop the staged columns, key plans and host any() representatives:
-        the next query of every table is cold."""
+        the next query of every table is cold. The resident ring windows
+        stay (they are the table's ingest, not a query's staging)."""
+        self._staged_cache.clear(reason="clear")
         with self._cache_lock:
-            self._staged_cache.clear()
             self._keyplan_cache.clear()
             self._hostany_cache.clear()
+
+    # -- device-resident ingest --------------------------------------------------
+    def enable_resident_ingest(self, table):
+        """Attach a device ring to ``table``'s appends (flag
+        ``resident_ingest``; the engine calls it from the table store's
+        create listener, so every new table opts in;
+        pixie_tpu/parallel/pipeline.py:1252). Returns the ring or None."""
+        if not flags.resident_ingest:
+            return None
+        return self._resident_manager().enable(table)
+
+    def _resident_manager(self) -> ResidentIngestManager:
+        with self._cache_lock:
+            if self._resident is None:
+                self._resident = ResidentIngestManager(
+                    self.device, self.block_rows, self._staged_cache
+                )
+            return self._resident
+
+    def _resident_ring(self, table, source_op):
+        """The table's ring when the resident path applies: a ring exists,
+        ``resident_ingest`` is on and the query has no time bounds (window w
+        of the plan is ring window (min_row + w * W) / W only when the
+        cursor returns every row; pixie_tpu/parallel/pipeline.py:1296)."""
+        if self._resident is None or not flags.resident_ingest:
+            return None
+        if source_op.start_time is not None or source_op.stop_time is not None:
+            return None
+        return self._resident.ring_for(source_op.table_name)
+
+    @staticmethod
+    def _resident_hits(ring, plan, base_row: int, col_names) -> dict:
+        """{plan window: its resident window} for every full plan window the
+        ring holds with all ``col_names``; none when the plan's geometry is
+        not the ring's (a plan clamped to a small table)."""
+        if ring is None or plan.window_rows != ring.window_rows or (
+            (plan.d, plan.nblk, plan.b) != (ring.d, ring.nblk, ring.b)
+        ):
+            return {}
+        hits = {}
+        for w in range(plan.n_windows):
+            rw = ring.lookup(base_row + w * plan.window_rows, plan.rows_of(w), col_names)
+            if rw is not None:
+                hits[w] = rw
+        return hits
+
+    @staticmethod
+    def _convert_resident_window(plan, rw, staged: StagedColumns, w: int) -> None:
+        """Resident window ``rw``'s raw blocks, converted to the plan's block
+        dtypes on the device (``codec.convert_block``: H24), into window
+        ``w``'s slice of ``staged``: bit for bit the host pack, no wire bytes
+        (pixie_tpu/parallel/pipeline.py:1396). A "raw" column whose dtype
+        already matches is one device-to-device copy, not K8: timed apart as
+        ``stage_resident_identity`` inside ``stage_resident_convert``."""
+        t0 = time.perf_counter()
+        lo, hi = w * plan.nblk, (w + 1) * plan.nblk
+        for name, block in staged.blocks.items():
+            raw, col_plan, out = rw.blocks[name], plan.col_plans[name], block[:, lo:hi]
+            if col_plan[0] == "raw" and raw.dtype == out.dtype:
+                t1 = time.perf_counter()
+                out.copy_(raw)
+                profile_add("stage_resident_identity", time.perf_counter() - t1)
+                segment.lane_count("convert_identity")
+                continue
+            codec.convert_block(col_plan, raw, out=out, int_dtype=plan.block_dtypes[name])
+            segment.lane_count(f"convert_{col_plan[0]}")
+        profile_add("stage_resident_convert", time.perf_counter() - t0)
+        profile_add("stage_resident_hits", 1.0)
+
+    def _try_resident_assemble(self, table, source_op, cols: dict, n: int, gids, num_groups: int,
+                               base_row: int) -> Optional[StagedColumns]:
+        """The staging of ``cols`` assembled from the table's resident ring
+        windows plus the staged tail (pixie_tpu/parallel/pipeline.py:4008):
+        planned as a stream at the ring's window size, a hit window
+        converted on the device into its slice, a miss window packed and
+        copied (with the codec) by a WindowStager; only a hit window's gids
+        travel. None when no ring applies, the geometry is not the ring's,
+        or no window hits; an error raises (the reference stages in one
+        piece instead)."""
+        ring = self._resident_ring(table, source_op)
+        if ring is None or n <= 0 or not cols:
+            return None
+        plan = plan_stream(
+            cols, n, ring.window_rows, block_rows=self.block_rows,
+            num_groups=max(num_groups, 1), has_gids=gids is not None, gids=gids,
+        )
+        hits = self._resident_hits(ring, plan, base_row, sorted(cols))
+        if not hits:
+            return None
+        stager = WindowStager(plan, self.device)
+        for w in range(plan.n_windows):
+            win = stager.pack(cols, gids, w, skip_cols=w in hits)
+            if w in hits:
+                self._convert_resident_window(plan, hits[w], stager.staged, w)
+            stager.put(win)
+            profile_add("stage_bytes", plan.window_block_nbytes() + staged_gid_nbytes(win.gids))
+            profile_add("wire_bytes", win.wire_nbytes)
+        segment.lane_count("stage_resident")
+        return stager.staged
 
     # -- the scan (filter / project / limit, no aggregate) ---------------------
     def _try_execute_scan(
@@ -1153,8 +1267,8 @@ class DeviceExecutor:
         base_cols = set()
         for _, e in named:
             base_cols |= referenced_columns(e)
-        staged = self._stage_cached(table, m.source_op, base_cols, ":scan", 0)
-        with timed("fold"):
+        key, staged = self._stage_cached(table, m.source_op, base_cols, ":scan", 0)
+        with self._staged_cache.pin(key), timed("fold"):
             rows = self._run_scan(m, program, staged, aux, dtypes)
         out_cols = []
         for (name, e), arr in zip(m.out_exprs, rows):
@@ -1272,15 +1386,16 @@ class DeviceExecutor:
         # device: it stages its first key column.
         cols_l = {src for side, src, _, _ in out_plan if side == 0} or {m.left_key_exprs[0].name}
         cols_r = {src for side, src, _, _ in out_plan if side == 1} or {m.right_key_exprs[0].name}
-        staged_l = self._stage_cached(
+        key_l, staged_l = self._stage_cached(
             lt, m.left_source_op, cols_l, ":joindevL:" + key_space_sig, K, gids=kl
         )
-        staged_r = self._stage_cached(
+        key_r, staged_r = self._stage_cached(
             rt, m.right_source_op, cols_r, ":joindevR:" + key_space_sig, K, gids=kr
         )
         if staged_l.num_rows != nl or staged_r.num_rows != nr:
             return None  # a table moved between the key read and the staging
-        with timed("fold"):
+        pool = self._staged_cache
+        with pool.pin(key_l), pool.pin(key_r), timed("fold"):
             batch = self._run_device_join(
                 m, lt, rt, staged_l, staged_r, out_plan, (M, UR, UL), (cap_m, cap_r, cap_l), K
             )
@@ -1517,7 +1632,7 @@ class DeviceExecutor:
         if compiled is None:
             return None
         program, aux = compiled
-        staged = self._stage_cached(
+        key, staged = self._stage_cached(
             table, m.right_source_op, base, ":joinright:" + key_space_sig, K, gids=kr
         )
         if staged.num_rows != nr:
@@ -1531,7 +1646,7 @@ class DeviceExecutor:
             else:
                 ident = float("inf") if kind == "min" else float("-inf")
                 stats[(kind, o)] = torch.full((K,), ident, dtype=torch.float64, device=self.device)
-        with timed("fold"):
+        with self._staged_cache.pin(key), timed("fold"):
             for blk in range(staged.num_blocks):
                 vals = self._run_block(program, staged, blk, aux)
                 mask = vals["__mask__"]
@@ -1566,7 +1681,7 @@ class DeviceExecutor:
         base: set = set()
         for _, e in evaluator.named_exprs:
             base |= referenced_columns(e)
-        staged = self._stage_cached(
+        key, staged = self._stage_cached(
             table, m.left_source_op, base,
             ":joinleft:" + repr(m.left_key_exprs) + repr([e for _, e in m.group_exprs]),
             key_plan.num_groups, gids=key_plan.host_gids,
@@ -1589,7 +1704,7 @@ class DeviceExecutor:
                           dtype=torch.float64, device=dev)
             for o, _, name in extremes
         }
-        with timed("fold"):
+        with self._staged_cache.pin(key), timed("fold"):
             for blk in range(staged.num_blocks):
                 vals = self._run_block(program, staged, blk, aux)
                 mask = vals["__mask__"]
@@ -1662,34 +1777,27 @@ class DeviceExecutor:
     # -- staged-column cache -------------------------------------------------
     def _staged_lookup(self, cache_key) -> tuple:
         """(the key of the entry found, the entry), or (cache_key, None)."""
-        with self._cache_lock:
-            staged = self._staged_cache.get(cache_key)
-            if staged is None:
-                # Superset reuse: an entry staged for a wider column set of
-                # the same table version/window/key plan serves this query.
-                for k, v in self._staged_cache.items():
-                    if (
-                        k[:2] == cache_key[:2]
-                        and set(k[2]) >= set(cache_key[2])
-                        and k[3:] == cache_key[3:]
-                    ):
-                        cache_key, staged = k, v
-                        break
-            if staged is not None:
-                self._staged_cache.move_to_end(cache_key)
-            return cache_key, staged
+        staged = self._staged_cache.get(cache_key)
+        if staged is None:
+            # Superset reuse: an entry staged for a wider column set of the
+            # same table version/window/key plan serves this query.
+            for k, v in self._staged_cache.items():
+                if (
+                    k[:2] == cache_key[:2]
+                    and set(k[2]) >= set(cache_key[2])
+                    and k[3:] == cache_key[3:]
+                ):
+                    cache_key, staged = k, v
+                    self._staged_cache.touch(k)
+                    break
+        return cache_key, staged
 
     def _staged_insert(self, cache_key, staged) -> None:
-        # Entries of older versions of the same table can never hit again.
+        """Register a staging with the pool, which supersedes the older
+        versions of the same table (they can never hit again) and enforces
+        the entry cap and the byte watermarks."""
         table_name, version = cache_key[:2]
-        with self._cache_lock:
-            for k in [
-                k for k in self._staged_cache if k[0] == table_name and k[1] != version
-            ]:
-                del self._staged_cache[k]
-            self._staged_cache[cache_key] = staged
-            while len(self._staged_cache) > max(self._staged_cache_cap, 1):
-                self._staged_cache.popitem(last=False)
+        self._staged_cache.insert(cache_key, staged, table_name, version)
 
     def _staged_key(
         self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
@@ -1719,27 +1827,36 @@ class DeviceExecutor:
     def _stage_cached(
         self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
         gids: Optional[np.ndarray] = None, extra_cols: Optional[dict] = None,
-    ) -> StagedColumns:
-        """The staged columns of this table version and window, staged in
-        one piece (with the codec) and cached on a miss: the scan, join and
-        join-aggregate lanes. ``extra_cols`` are host columns of the table's
-        rows staged beside the read ones (the join-aggregate lane's join-key
-        ids), pinned by ``key_sig``."""
+    ) -> tuple:
+        """(cache key, the staged columns) of this table version and window,
+        staged in one piece (with the codec) and cached on a miss: the scan,
+        join and join-aggregate lanes. With no ``extra_cols`` a table with a
+        resident ring assembles its staging from the ring's windows and the
+        staged tail (``_try_resident_assemble``). ``extra_cols`` are host
+        columns of the table's rows staged beside the read ones (the
+        join-aggregate lane's join-key ids), pinned by ``key_sig``."""
         cache_key = self._staged_key(table, source_op, base_cols, key_sig, num_groups)
-        _, staged = self._staged_lookup(cache_key)
+        key, staged = self._staged_lookup(cache_key)
         if staged is None:
+            base_row = table.min_row_id()
             with timed("read_columns"):
                 cols, n = read_columns(
                     table, sorted(base_cols), source_op.start_time, source_op.stop_time
                 )
             cols.update(extra_cols or {})
             with timed("stage"):
-                staged = stage_columns(
-                    cols, n, self.device, block_rows=self.block_rows, gids=gids,
-                    num_groups=num_groups,
-                )
+                if not extra_cols:
+                    staged = self._try_resident_assemble(
+                        table, source_op, cols, n, gids, num_groups, base_row
+                    )
+                if staged is None:
+                    staged = stage_columns(
+                        cols, n, self.device, block_rows=self.block_rows, gids=gids,
+                        num_groups=num_groups,
+                    )
             self._staged_insert(cache_key, staged)
-        return staged
+            key = cache_key
+        return key, staged
 
     def _stage_monolithic(
         self, cols: dict, n: int, key_plan: _KeyPlan, f32_cols: set, cell_cols: dict
@@ -2504,7 +2621,7 @@ class DeviceExecutor:
 
     def _stream_execute(
         self, specs, program, key_plan, aux, cols: dict, n: int, f32_cols: set,
-        cell_cols: dict, capacity: int,
+        cell_cols: dict, capacity: int, ring=None, base_row: int = 0,
     ):
         """The streamed cold path (pixie_tpu/parallel/pipeline.py:5939-6459,
         for one device and one pass): (outputs, the staging for the warm
@@ -2512,21 +2629,26 @@ class DeviceExecutor:
         while window k copies on a side stream, decodes and folds on the
         compute stream (``WindowStager``); at most two windows' folds are in
         flight (:6243-6251). Every window lands in its slice of one
-        preallocated staging, which is the warm-cache entry. The reference
+        preallocated staging, which is the warm-cache entry. With the
+        table's resident ``ring`` (``base_row`` its first row id) the stream
+        runs at the ring's window size, and a window the ring holds packs
+        only its gids and converts its columns on the device instead of
+        copying them (:5990-6005, :6186-6197, :6310-6320). The reference
         catches any error here and restages in one piece (:5946-5969); the
         port raises. Left out, as later queue items: the mesh dispatch and
         the checkpointed resume (:6043-6061, :6219-6225, :6257-6288), the
         background AOT compiles (:6097-6133, :6430-6455; nothing is
-        compiled here), the resident ring (:5990-6005, :6186-6197) and the
-        cost model (:6232-6239, :6345-6356)."""
+        compiled here) and the cost model (:6232-6239, :6345-6356)."""
         import concurrent.futures
 
         gids = key_plan.host_gids
+        window_rows = ring.window_rows if ring is not None else flags.streaming_window_rows
         plan = plan_stream(
-            cols, n, flags.streaming_window_rows, block_rows=self.block_rows,
+            cols, n, window_rows, block_rows=self.block_rows,
             f32_cols=f32_cols, cell_cols=cell_cols, num_groups=max(key_plan.num_groups, 1),
             has_gids=gids is not None, gids=gids,
         )
+        hits = self._resident_hits(ring, plan, base_row, sorted(cols))
         stager = WindowStager(plan, self.device)
         staged = stager.staged
         aux = self._with_intdicts(aux, staged)
@@ -2543,13 +2665,15 @@ class DeviceExecutor:
         # attribution, as the reference's does (:6292-6297).
         pack = trace.attributed(stager.pack, phase="pack")
         try:
-            fut = pool.submit(pack, cols, gids, 0)
+            fut = pool.submit(pack, cols, gids, 0, 0 in hits)
             for w in range(plan.n_windows):
                 with timed("stage_stream_pack_wait"):
                     win = fut.result()
                 if w + 1 < plan.n_windows:
-                    fut = pool.submit(pack, cols, gids, w + 1)
+                    fut = pool.submit(pack, cols, gids, w + 1, (w + 1) in hits)
                 with timed("stage_stream_put"):
+                    if w in hits:
+                        self._convert_resident_window(plan, hits[w], staged, w)
                     stager.put(win)
                 profile_add("stage_bytes", plan.window_block_nbytes() + staged_gid_nbytes(win.gids))
                 profile_add("wire_bytes", win.wire_nbytes)

@@ -478,6 +478,7 @@ def pack_stream_window(
     gids: Optional[np.ndarray],
     w: int,
     alloc: Optional[Callable[[int, np.dtype], np.ndarray]] = None,
+    skip_cols: bool = False,
 ):
     """Host-pack window ``w`` per the plan (pixie_tpu/parallel/staging.py:
     788): narrow / f32 / int-dict encode, pad, reshape to [d, nblk, b], and
@@ -485,7 +486,8 @@ def pack_stream_window(
     thread. Returns (rows, packed_cols, packed_gids, wire_nbytes); a packed
     value is an ndarray or a CodecPayload, and wire_nbytes counts what
     ships. ``alloc(n, dtype)`` places each raw block (a pinned buffer on
-    CUDA); by default np.empty."""
+    CUDA); by default np.empty. ``skip_cols`` packs only the gids: the
+    resident-ingest hit, whose columns are already on the device."""
     if faults.ACTIVE:
         faults.check("staging.pack")
     alloc = alloc or _np_empty
@@ -513,7 +515,7 @@ def pack_stream_window(
 
         packed: dict = {}
         nbytes = 0
-        for name, arr in cols.items():
+        for name, arr in ({} if skip_cols else cols).items():
             a = arr[lo:hi]
             kind, info = plan.col_plans[name]
             if kind == "f32":
@@ -733,19 +735,27 @@ class WindowStager:
                 nbytes += cp.wire_nbytes()
         return nbytes
 
-    def pack(self, cols: dict, gids: Optional[np.ndarray], w: int) -> PackedWindow:
+    def pack(self, cols: dict, gids: Optional[np.ndarray], w: int,
+             skip_cols: bool = False) -> PackedWindow:
+        """Window ``w`` packed (with ``skip_cols``, its gids only: a resident
+        hit, whose columns the executor converts on the device)."""
         if not self.cuda:
-            return PackedWindow(w, *pack_stream_window(self.plan, cols, gids, w))
+            return PackedWindow(w, *pack_stream_window(self.plan, cols, gids, w,
+                                                       skip_cols=skip_cols))
         k = w % self.N_SLOTS
         if self.copied[k] is not None:
             self.copied[k].synchronize()  # its last copy has left the buffer
         arena = _Arena(self.slots[k])
-        rows, packed, pgids, nbytes = pack_stream_window(self.plan, cols, gids, w, arena.alloc)
+        rows, packed, pgids, nbytes = pack_stream_window(
+            self.plan, cols, gids, w, arena.alloc, skip_cols=skip_cols
+        )
         packed = {name: arena.adopt(v) for name, v in packed.items()}
         return PackedWindow(w, rows, packed, arena.adopt(pgids), nbytes, arena)
 
     def put(self, win: PackedWindow) -> None:
-        """Land window ``win`` in its slice of the staging."""
+        """Land window ``win``'s packed arrays (its columns unless it was
+        packed with ``skip_cols``, and its gids) in its slice of the
+        staging."""
         plan, staged = self.plan, self.staged
         lo, hi = win.w * plan.nblk, (win.w + 1) * plan.nblk
         targets = [(win.packed[name], staged.blocks[name][:, lo:hi]) for name in win.packed]

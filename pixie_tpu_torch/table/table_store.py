@@ -28,7 +28,9 @@ class TableStore:
         # Registration hooks: fn(name, table), fired after a table
         # registers (r8: the engine attaches the device executor's
         # compile prewarm here). Best-effort — a failing listener must
-        # never fail table creation.
+        # never fail table creation, but for a NotImplementedError: a flag
+        # that asks for an unported part (the resident ring's spill or
+        # replicas) must not run without it.
         self._listeners: list = []
 
     def add_create_listener(self, fn) -> None:
@@ -55,6 +57,8 @@ class TableStore:
         for fn in listeners:
             try:
                 fn(name, table)
+            except NotImplementedError:
+                raise
             except Exception:
                 import logging
 

@@ -26,7 +26,8 @@ from pixie_tpu_torch.engine import Carnot
 from pixie_tpu_torch.interop import table_from_columns
 from pixie_tpu_torch.ops import batched, kernels
 from pixie_tpu_torch.parallel import DeviceExecutor
-from pixie_tpu_torch.serving import SharedScanCoordinator
+from pixie_tpu_torch.serving import ResidencyPool, ResidentRing, SharedScanCoordinator
+from pixie_tpu_torch.serving.resident import ResidentIngestManager
 from pixie_tpu_torch.types import DataType, Relation
 
 c = Carnot(device_executor=DeviceExecutor(device="cpu"))
@@ -65,7 +66,8 @@ def test_sources_never_import_jax_or_the_reference():
     pat_ref = re.compile(r"\bpixie_tpu\.")
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 30
-    for new in ("serving/__init__.py", "serving/shared_scan.py", "ops/batched.py"):
+    for new in ("serving/__init__.py", "serving/shared_scan.py", "ops/batched.py",
+                "serving/residency.py", "serving/resident.py"):
         assert PKG / new in files, new
     for f in files:
         text = f.read_text()

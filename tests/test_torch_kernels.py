@@ -25,7 +25,8 @@ bit, the f64 transcendentals within 2 ulp. The codec's decodes (H18, H19)
 bit for bit; the cell lane's HLL registers, count-min cells and totals
 (H20, H21) exactly. The batched fold: H22's slot bits bit for bit, H23's
 integer sums and presence exactly and its f64 sums within 1e-12 * sum |v|
-of their cell (H2's bound).
+of their cell (H2's bound). The resident ring's converters (H24) bit for
+bit, NaN payloads and f32 subnormals included.
 """
 
 import json
@@ -584,6 +585,75 @@ def check_cell_kernels(dev: torch.device) -> None:
 def test_codec_kernels_match_plain_on_card():
     _need_cards(1)
     check_codec_kernels(torch.device("cuda", 0))
+
+
+_F64_EDGES = np.array([
+    0x7FF8000000000000, 0xFFF8000000000000, 0x7FF80000DEADBEEF, 0x7FF4000000000001,
+    0x7FF0000000000000, 0xFFF0000000000000, 0x0000000000000000, 0x8000000000000000,
+    0x36A0000000000000, 0xB6A8000000000000, 0x380FFFFFFFFFFFFF, 0x47EFFFFFF0000000,
+    0x4800000000000000, 0x0000000000000001,
+], dtype=np.uint64)
+
+
+def check_convert_kernel(dev: torch.device) -> None:
+    """H24 against ``convert_block_plain``, bit for bit, for every (kind,
+    source, destination) pair it admits: odd lengths, a slice of a larger
+    staging as ``out``, f64 edges (NaN payloads of both signs, +-inf, +-0,
+    f32 subnormals, overflow) and LUTs of 1, 3, 256, 6144 (the largest in
+    shared memory), 6145 and 65536 entries."""
+    from pixie_tpu_torch.ops import codec
+
+    rng = np.random.default_rng(24)
+    n = 1_000_003
+
+    def src_of(dtype):
+        if dtype == torch.bool:
+            return torch.from_numpy(rng.random(n) < 0.5)
+        if dtype == torch.float64:
+            x = rng.exponential(3e7, n) * rng.choice([-1.0, 1.0], n)
+            x[: _F64_EDGES.size] = _F64_EDGES.view(np.float64)
+            return torch.from_numpy(x)
+        big = 1 << 62 if dtype == torch.int64 else 1 << 30
+        return torch.from_numpy(rng.integers(-big, big, n)).to(dtype)
+
+    np_dt = {torch.uint8: np.uint8, torch.uint16: np.uint16, torch.int32: np.int32,
+             torch.int64: np.int64, torch.float32: np.float32, torch.bool: np.bool_}
+    for kind, pairs in kernels.CONVERT_PAIRS.items():
+        if kind == "intdict":
+            continue
+        for src_dt, dst_dt in sorted(pairs, key=str):
+            x = src_of(src_dt)
+            if kind == "narrow":
+                plan = ("narrow", (np.dtype(np_dt[dst_dt]), -12345))
+            elif kind == "f32":
+                plan = ("f32", None)
+            else:
+                plan = ("raw", None)
+            int_dtype = np.dtype(np.float64) if dst_dt == torch.float64 else np.dtype(np_dt[dst_dt])
+            want = codec.convert_block(plan, x, int_dtype=int_dtype)
+            staged = torch.zeros(n + 100, dtype=dst_dt, device=dev)
+            got = codec.convert_block(plan, x.to(dev), out=staged[50 : 50 + n], int_dtype=int_dtype)
+            assert got.data_ptr() == staged[50:].data_ptr()
+            assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (
+                kind, src_dt, dst_dt)
+            edges = staged.cpu().view(torch.uint8)  # torch has no any() of uint16
+            es = staged.element_size()
+            assert not edges[: 50 * es].any() and not edges[-50 * es :].any()
+    for C in (1, 3, 256, 6144, 6145, 1 << 16):
+        lut = np.unique(rng.integers(-(1 << 50), 1 << 50, C + 100))[:C].astype(np.int64)
+        x = torch.from_numpy(np.concatenate([lut[rng.integers(0, C, n - 4)],
+                                             [lut[0] - 1, lut[-1] + 1, -(1 << 63), (1 << 63) - 1]]))
+        for dst_dt in (torch.uint8, torch.uint16, torch.int32):
+            plan = ("intdict", (lut, np.dtype(np_dt[dst_dt])))
+            want = codec.convert_block(plan, x)
+            got = codec.convert_block(plan, x.to(dev))
+            assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (C, dst_dt)
+
+
+@pytest.mark.cuda
+def test_convert_kernel_matches_plain_on_card():
+    _need_cards(1)
+    check_convert_kernel(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda
