@@ -207,6 +207,10 @@ REPLACES = {
     "pred_slot_masks": "pixie_tpu/parallel/pipeline.py:5541",
     "batched_segment_sums": "pixie_tpu/parallel/pipeline.py:5598",
     "ring_convert": "pixie_tpu/ops/codec.py:479",
+    "reservoir_priority": "pixie_tpu/ops/ml.py:37",
+    "reservoir_topk": "pixie_tpu/ops/ml.py:47",
+    "kmeans_fit": "pixie_tpu/ops/ml.py:128",
+    "encoder_forward": "pixie_tpu/ops/transformer.py:76",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -224,6 +228,9 @@ SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/batch_kernels.cu"
        for k in ("pred_slot_masks", "batched_segment_sums")},
     "ring_convert": "pixie_tpu_torch/ops/kernels/convert_kernels.cu",
+    **{k: "pixie_tpu_torch/ops/kernels/ml_kernels.cu"
+       for k in ("reservoir_priority", "reservoir_topk", "kmeans_fit")},
+    "encoder_forward": "pixie_tpu_torch/ops/kernels/transformer_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -2878,6 +2885,7 @@ def slice_parity(n_rows: int) -> None:
             flags.reset("streaming_window_rows")
     log(f"slice parity at {n_rows} rows: flow_window and status_mix kernel path == plain path, "
         "one window and four, twice each")
+    ml_parity(cuda, cpu, flows_cuda, flows_cpu, n_rows)
     shared_scan_parity(cuda, cpu, n_rows)
     let_parity(n_rows)
 
@@ -3283,14 +3291,449 @@ def ring_paths(small, hs: dict, truth: dict, plain_build_s: float, paths: dict) 
     return build_launches
 
 
+# ---------------------------------------------------------------- the ML lane
+RESERVOIR_K = 64
+RESERVOIR_LATENCY = (
+    "df = px.DataFrame(table='http_events')\n"
+    "s = df.groupby(['service']).agg(\n"
+    "    lat=('latency', px.reservoir_sample),\n"
+    "    status=('resp_status', px.reservoir_sample),\n"
+    "    n=('latency', px.count),\n"
+    ")\n"
+    "px.display(s, 'sample')\n"
+)
+FLOW_SAMPLE_MIN_RECV = 1 << 19  # about half the rows: the masked salt
+RESERVOIR_FLOWS = (
+    "df = px.DataFrame(table='conn_flows')\n"
+    f"df = df[df.bytes_recv >= {FLOW_SAMPLE_MIN_RECV}]\n"
+    "s = df.groupby(['src', 'dst']).agg(sent=('bytes_sent', px.reservoir_sample))\n"
+    "px.display(s, 'sample')\n"
+)
+PATH_K = 8
+PATH_EMBEDDINGS = (
+    "df = px.DataFrame(table='http_events')\n"
+    "t = df.groupby(['req_path']).agg(n=('latency', px.count))\n"
+    "t.tokens = px.sentencepiece(t.req_path)\n"
+    "t.emb = px.transformer(t.tokens)\n"
+    f"t.k = {PATH_K}\n"
+    "m = t.agg(model=('emb', 'k', px.kmeans))\n"
+    "px.display(t[['req_path', 'n', 'emb']], 'emb')\n"
+    "px.display(m, 'model')\n"
+)
+KM_ROWS, KM_K, KM_D = 1 << 16, 4, 64
+KMEANS_SERVICES = (
+    "df = px.DataFrame(table='embeddings')\n"
+    f"df.k = {KM_K}\n"
+    "m = df.groupby(['service']).agg(model=('emb', 'k', px.kmeans))\n"
+    "px.display(m, 'models')\n"
+)
+
+
+def kmeans_predict_query(model: str) -> str:
+    return ("df = px.DataFrame(table='embeddings')\n"
+            f"df.cluster = px.kmeans_predict(df.emb, '{model}')\n"
+            "s = df.groupby(['cluster']).agg(n=('time_', px.count))\n"
+            "px.display(s, 'clusters')\n")
+
+
+def encoder_flops(lens: np.ndarray) -> float:
+    """The encoder's multiply-adds, as 2 operations each, that documents of
+    ``lens`` tokens need: per layer and document of l tokens, Q, K, V and Wo
+    over l rows, the scores and the context of 4 heads over l x l (a pad
+    key's weight is exactly 0, a pad row never reaches the pool), and the
+    MLP over l rows."""
+    D, FF, H, DH = 64, 256, 4, 16
+    ell = lens.astype(np.float64)
+    per_layer = 2 * (4 * ell * D * D + 2 * H * ell * ell * DH + 2 * ell * D * FF)
+    return float(2 * per_layer.sum())
+
+
+def encoder_bytes(ids: np.ndarray, lens: np.ndarray, weight_floats: int) -> float:
+    """The bytes the encoder must move for these documents: each document's
+    real ids and its length, the embedding rows its ids name (each distinct
+    row once), the positions of the longest document, every layer's weights
+    once, and the embeddings out."""
+    D = 64
+    real = ids[np.arange(ids.shape[1])[None, :] < lens[:, None]]
+    return float(real.size * 4 + lens.size * 4 + np.unique(real).size * D * 4
+                 + int(lens.max()) * D * 4 + weight_floats * 4
+                 + lens.size * D * 4)
+
+
+def kmeans_flops(live: int, d: int, k: int, iters: int = 10) -> float:
+    """The operations that ``live`` weighted points need: each seeding step
+    one distance a point to the newest center (a running minimum), each
+    Lloyd step k distances a point and its coordinates added to its own
+    center's sum (3 operations a coordinate of a distance, 2 of a sum)."""
+    seeding = (k - 1) * d * 3
+    return float(live * (seeding + iters * (k * d * 3 + d * 2)))
+
+
+def ml_kernel_phase(dev) -> dict:
+    """H25-H28 against their plain versions on the card at the paths' shapes:
+    H25 bit for bit on a 2^21-row block (int64 and f64 with NaN, +-0, +-inf,
+    masked and not, a salt near 2^40); H26 bit for bit at 16 and 4096 groups
+    on an empty and a full state and on forced equal priorities fed
+    directly; H27 within 1e-5 at G 16, S 128, d 64, k 4 and 8 with
+    duplicated points; H28 within 1e-5 at 1 and 4098 documents of 1, 17
+    and 64 tokens. Records: H25 f64 masked, H26 16 groups full, H27 k 8,
+    H28 4098 documents."""
+    from pixie_tpu_torch.ops import kernels, ml, transformer
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is off: the plain versions' products run in full f32 on the card")
+    rng = np.random.default_rng(40)
+    n = BLOCK_ROWS
+    records: dict = {}
+    ints = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)).to(dev)
+    f = rng.exponential(3e7, n)
+    f[:6] = [np.nan, 0.0, -0.0, np.inf, -np.inf,
+             np.array([0x7FF8000000000001], np.int64).view(np.float64)[0]]
+    floats = torch.from_numpy(f).to(dev)
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    salt = (1 << 40) + 12345
+    salt_t = torch.tensor([salt], dtype=torch.int64, device=dev)
+    for name, v in (("int64", ints), ("float64", floats)):
+        for m in (None, mask):
+            got, want = ml.priorities(v, salt, m), ml.priorities_plain(v, salt, m)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
+                  f"H25 {name} mask={m is not None}: priorities differ from plain")
+    words = floats.view(torch.int64)
+    records["reservoir_priority"] = record(
+        lambda: kernels.reservoir_priority(words, mask, salt_t),
+        lambda: ml.priorities_plain(floats, salt_t, mask), None,
+        *bound(n * (8 + 1 + 8), n * 40.0), 0.0,
+        f"{n} rows f64, 70% masked in, salt 2^40 + 12345",
+    )
+    log(f"H25 reservoir_priority: int64 and f64, masked and not, bit for bit; "
+        f"{records['reservoir_priority']['ms']:.4f} ms")
+
+    def same_state(a: dict, b: dict) -> bool:
+        return all(torch.equal(a[k].view(torch.int64) if a[k].dtype == torch.float64 else a[k],
+                               b[k].view(torch.int64) if b[k].dtype == torch.float64 else b[k])
+                   for k in b)
+
+    for G in (N_SERVICES, FLOW_GROUPS):
+        gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+        st_k = st_p = ml.reservoir_init(G, dev)
+        for step in range(2):  # an empty state, then a full one
+            st_k = ml.reservoir_update(st_k, gids, floats, mask)
+            st_p = ml.update_plain(st_p, gids, floats, mask)
+            torch.cuda.synchronize()
+            check(same_state(st_k, st_p), f"H26 G={G} step {step}: state differs from plain")
+        g = torch.where(mask, gids.to(torch.int64), G)
+        pri = ml.priorities(floats, st_k["count"].sum(), mask)
+        order, offsets = ml.bucket_rows(g, G)
+        sv, sp = st_k["values"].view(torch.int64), st_k["priority"]
+        # What the data needs: each candidate's index and priority, the
+        # values of the rows that enter, the state read and written once.
+        cand = int(mask.sum())
+        entered = int((~torch.isin(ml.topk_rows_plain(st_k, g, pri, floats)["priority"], sp)).sum())
+        rec = record(
+            lambda: kernels.reservoir_topk(sv, sp, words, pri, order, offsets),
+            lambda: ml.topk_rows_plain(st_k, g, pri, floats), None,
+            *bound(cand * 16 + entered * 8 + 2 * G * RESERVOIR_K * 16 + (G + 1) * 8, cand * 4.0),
+            0.0,
+            f"{n} rows into {G} full reservoirs of {RESERVOIR_K}",
+        )
+        if G == N_SERVICES:
+            records["reservoir_topk"] = rec
+        else:
+            records["reservoir_topk"]["by_groups_4096"] = {
+                k: rec[k] for k in ("ms", "plain_ms", "bound_ms")}
+    # Forced ties: priorities on a grid of 8 values, the state's too.
+    G = N_SERVICES
+    tie_pri = torch.from_numpy(np.floor(rng.random(n) * 8) / 8).to(dev)
+    tie_pri[~mask] = -torch.inf
+    tie_state = ml.reservoir_init(G, dev)
+    tie_state["priority"] = torch.from_numpy(
+        -np.sort(-np.floor(rng.random((G, RESERVOIR_K)) * 8) / 8, axis=1)).to(dev)
+    tie_state["values"] = torch.from_numpy(rng.normal(0, 1, (G, RESERVOIR_K))).to(dev)
+    gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+    g = torch.where(mask, gids.to(torch.int64), G)
+    order, offsets = ml.bucket_rows(g, G)
+    vk, pk = kernels.reservoir_topk(tie_state["values"].view(torch.int64), tie_state["priority"],
+                                    words, tie_pri, order, offsets)
+    want = ml.topk_rows_plain(tie_state, g, tie_pri, floats)
+    torch.cuda.synchronize()
+    check(torch.equal(vk, want["values"].view(torch.int64)) and torch.equal(pk, want["priority"]),
+          "H26 forced ties: the state's slots first, then the rows in row order")
+    check(same_state(ml.reservoir_merge(tie_state, want), ml.reservoir_merge_plain(tie_state, want)),
+          "H26 merge with ties: differs from plain")
+    log(f"H26 reservoir_topk: 16 and 4096 groups, empty and full, forced ties and a merge, "
+        f"bit for bit; {records['reservoir_topk']['ms']:.4f} ms (16 groups), "
+        f"{records['reservoir_topk']['by_groups_4096']['ms']:.4f} ms (4096)")
+
+    Gk, S, d = N_SERVICES, 128, KM_D
+    truth = rng.normal(0, 3, (8, d)).astype(np.float32)
+    lab = rng.integers(0, 8, (Gk, S))
+    pts_np = (truth[lab] + 0.05 * rng.normal(0, 1, (Gk, S, d))).astype(np.float32)
+    pts_np[:, 96:] = pts_np[:, :32]  # exact duplicates: the first-index ties
+    w_np = (rng.random((Gk, S)) < 0.9).astype(np.float32)
+    pts, w = torch.from_numpy(pts_np).to(dev), torch.from_numpy(w_np).to(dev)
+    for k in (4, 8):
+        err = float((ml.kmeans_fit(pts, w, k) - ml.kmeans_fit_plain(pts, w, k)).abs().max())
+        check(err <= 1e-5, f"H27 k={k}: centers {err:.3g} from plain")
+    records["kmeans_fit"] = record(
+        lambda: kernels.kmeans_fit(pts, w, 8),
+        lambda: ml.kmeans_fit_plain(pts, w, 8), None,
+        *bound(Gk * S * d * 4 + Gk * S * 4 + Gk * 8 * d * 4, kmeans_flops(int(w_np.sum()), d, 8)),
+        float((ml.kmeans_fit(pts, w, 8) - ml.kmeans_fit_plain(pts, w, 8)).abs().max()),
+        f"G {Gk}, S {S}, d {d}, k 8, 10 iterations",
+    )
+    log(f"H27 kmeans_fit: k 4 and 8 within 1e-5 of plain; {records['kmeans_fit']['ms']:.4f} ms")
+
+    params = transformer._init_params(0)
+    enc = transformer.TransformerEncoder(params, dev)
+    for B in (1, N_PATHS + 2):
+        lens = torch.from_numpy(rng.choice([1, 17, 64], B).astype(np.int32)).to(dev)
+        ids = torch.from_numpy(rng.integers(1, transformer.VOCAB, (B, 64)).astype(np.int32)).to(dev)
+        ids[torch.arange(64, device=dev)[None, :] >= lens[:, None]] = 0
+        got = enc(ids, lens)
+        want = transformer.encoder_forward_plain(ids, lens, enc.embed, enc.pos, enc.layers)
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"H28 {B} documents: embeddings {err:.3g} from plain")
+    ids_np, lens_np = ids.cpu().numpy(), lens.cpu().numpy()
+    records["encoder_forward"] = record(
+        lambda: kernels.encoder_forward(ids, lens, enc.embed, enc.pos, enc.layers),
+        lambda: transformer.encoder_forward_plain(ids, lens, enc.embed, enc.pos, enc.layers),
+        None, *bound(encoder_bytes(ids_np, lens_np, enc.layers.numel()), encoder_flops(lens_np)), err,
+        f"{B} documents of 1, 17 or 64 tokens, 2 layers, f32",
+    )
+    log(f"H28 encoder_forward: 1 and {B} documents within 1e-5 of plain (max {err:.3g}); "
+        f"{records['encoder_forward']['ms']:.4f} ms at {B}")
+    return records
+
+
+def np_splitmix64(x: np.ndarray) -> np.ndarray:
+    """SplitMix64 of uint64 values in numpy's wrapping uint64 arithmetic."""
+    z = x + np.uint64(0x9E3779B97F4A7C15)
+    z ^= z >> np.uint64(30)
+    z *= np.uint64(0xBF58476D1CE4E5B9)
+    z ^= z >> np.uint64(27)
+    z *= np.uint64(0x94D049BB133111EB)
+    z ^= z >> np.uint64(31)
+    return z
+
+
+def np_priority_keys(words: np.ndarray, mask) -> np.ndarray:
+    """int64 [n]: each row's 53-bit priority key under the blocked salt rule:
+    row i of 2^21-row block b gets combine(splitmix64(word),
+    splitmix64(i + salt_b)) >> 11, salt_b the masked-in rows before block b;
+    -1 for a row masked out. The blocks run on 8 threads (numpy's ufuncs
+    release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = words.size
+    keys = np.empty(n, np.int64)
+    golden = np.uint64(0x9E3779B97F4A7C15)
+    offs = list(range(0, n, BLOCK_ROWS))
+    sizes = [min(BLOCK_ROWS, n - off) for off in offs]
+    if mask is None:
+        salts = np.cumsum([0] + sizes[:-1])
+    else:
+        salts = np.cumsum([0] + [int(mask[off:off + BLOCK_ROWS].sum()) for off in offs[:-1]])
+
+    def block(b: int) -> None:
+        off, end = offs[b], offs[b] + sizes[b]
+        h1 = np_splitmix64(words[off:end])
+        h2 = np_splitmix64(np.arange(end - off, dtype=np.uint64) + np.uint64(salts[b]))
+        h = np_splitmix64(h1 ^ (h2 + golden + (h1 << np.uint64(6)) + (h1 >> np.uint64(2))))
+        k = (h >> np.uint64(11)).view(np.int64)
+        if mask is not None:
+            k[~mask[off:end]] = -1
+        keys[off:end] = k
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(block, range(len(offs))))
+    return keys
+
+
+def reservoir_truth(values: np.ndarray, gids: np.ndarray, G: int, mask=None) -> list:
+    """[G] JSON strings, as the port's finalize writes them, of each group's
+    RESERVOIR_K rows of highest priority key (ties to the earlier row), from
+    numpy's uint64 SplitMix64 under the blocked salt rule."""
+    is_int = values.dtype.kind in "iu"
+    vals = values.astype(np.int64) if is_int else values.astype(np.float64)
+    keys = np_priority_keys(vals.view(np.uint64), mask)
+    gids = gids.astype(np.int64)
+    counts = np.bincount(gids[keys >= 0], minlength=G)
+    need = np.minimum(counts, RESERVOIR_K)
+    frac = min(1.0, 16.0 * RESERVOIR_K / max(int(counts[counts > 0].min()), 1))
+    while True:  # candidates above a key every group keeps RESERVOIR_K over
+        thr = int((1.0 - frac) * (1 << 53)) - 1 if frac < 1.0 else -1
+        cand = np.nonzero(keys > thr)[0]
+        have = np.bincount(gids[cand], minlength=G)
+        if frac >= 1.0 or np.all(have >= need):
+            break
+        frac = min(1.0, frac * 4)
+    order = cand[np.lexsort((cand, -keys[cand], gids[cand]))]
+    bounds = np.searchsorted(gids[order], np.arange(G + 1))
+    out = []
+    for g in range(G):
+        sample = vals[order[bounds[g] : bounds[g + 1]][:RESERVOIR_K]]
+        if not is_int:
+            sample = sample[np.isfinite(sample)]
+        out.append(json.dumps({"count": int(counts[g]),
+                               "sample": [int(x) if is_int else float(x) for x in sample]}))
+    return out
+
+
+def latency_sample_truth(data: dict) -> dict:
+    gids = data["svc"]
+    return dict(lat=reservoir_truth(data["latency"], gids, N_SERVICES),
+                status=reservoir_truth(data["status"], gids, N_SERVICES))
+
+
+def verify_reservoir_latency(result, data: dict, truth: dict) -> None:
+    """reservoir_latency: 16 services; each JSON string-equal to numpy's."""
+    rows = result.table("sample")
+    idx = [SERVICES.index(s) for s in rows["service"]]
+    check(sorted(idx) == list(range(N_SERVICES)), "reservoir_latency: the services")
+    check(list(rows["n"]) == [int(data["tc"][i]) for i in idx], "reservoir_latency: counts")
+    for i, lat, status in zip(idx, rows["lat"], rows["status"]):
+        check(lat == truth["lat"][i], f"reservoir_latency: latency sample of {SERVICES[i]}")
+        check(status == truth["status"][i], f"reservoir_latency: status sample of {SERVICES[i]}")
+        check(len(json.loads(lat)["sample"]) == RESERVOIR_K, "reservoir_latency: 64 values")
+
+
+def flows_sample_truth(fl: dict) -> list:
+    pair = fl["src"].astype(np.int64) * N_PODS + fl["dst"]
+    return reservoir_truth(fl["bs"], pair, FLOW_GROUPS, mask=fl["br"] >= FLOW_SAMPLE_MIN_RECV)
+
+
+def verify_reservoir_flows(result, truth: list) -> None:
+    """reservoir_flows: 4096 pod pairs; each JSON string-equal to numpy's."""
+    rows = result.table("sample")
+    pod = lambda name: int(name.rsplit("-", 1)[1])
+    pair = [pod(a) * N_PODS + pod(b) for a, b in zip(rows["src"], rows["dst"])]
+    check(sorted(pair) == list(range(FLOW_GROUPS)), "reservoir_flows: the pod pairs")
+    for p, js in zip(pair, rows["sent"]):
+        check(js == truth[p], f"reservoir_flows: the sample of pair {p}")
+
+
+def path_embedding_truth(dev) -> np.ndarray:
+    """f32 [4098, 64]: each request path's embedding by the plain encoder on
+    the card, from the port's tokenizer, in let_dictionaries' order."""
+    from pixie_tpu_torch.ops import transformer
+
+    paths = let_dictionaries()["req_path"]
+    ids = np.zeros((len(paths), 64), np.int32)
+    lens = np.zeros(len(paths), np.int32)
+    for i, p in enumerate(paths):
+        toks = json.loads(transformer.tokenize(p))[:64]
+        ids[i, : len(toks)] = [(t + 1) % transformer.VOCAB for t in toks]
+        lens[i] = len(toks)
+    enc = transformer.TransformerEncoder(transformer._init_params(0), dev)
+    out = transformer.encoder_forward_plain(
+        torch.from_numpy(ids).to(dev), torch.from_numpy(lens).to(dev),
+        enc.embed, enc.pos, enc.layers)
+    return out.cpu().numpy()
+
+
+def verify_path_embeddings(result, path_counts: np.ndarray, want: np.ndarray) -> None:
+    """path_embeddings: 4098 paths with their counts; each embedding within
+    1e-5 of the plain encoder's after the JSON's 6-decimal rounding (5e-7);
+    a k-means model of 8 centers of 64 dims."""
+    rows = result.table("emb")
+    names = let_dictionaries()["req_path"]
+    idx = np.array([names.index(p) for p in rows["req_path"]])
+    check(np.array_equal(np.sort(idx), np.arange(len(names))), "path_embeddings: the paths")
+    check(np.array_equal(np.asarray(rows["n"]), path_counts[idx]), "path_embeddings: counts")
+    got = np.array([json.loads(e) for e in rows["emb"]], np.float64)
+    check(got.shape == (len(names), 64), f"path_embeddings: shape {got.shape}")
+    err = float(np.abs(got - want[idx]).max())
+    check(err <= 1e-5 + 5e-7, f"path_embeddings: {err:.3g} from the plain encoder")
+    model = json.loads(result.table("model")["model"][0])
+    centers = np.asarray(model["centers"])
+    check(model["k"] == PATH_K and centers.shape == (PATH_K, 64) and np.isfinite(centers).all(),
+          f"path_embeddings: model shape {centers.shape}")
+
+
+def km_embeddings(n_rows: int) -> dict:
+    """kmeans_services' table, seed 48: 16 services; each row one of 4
+    well-separated 64-dim cluster centers (2.0 on its own 16 dims, 11.3
+    apart) plus N(0, 0.1) noise, as JSON with 4 decimals."""
+    rng = np.random.default_rng(48)
+    centers = np.zeros((KM_K, KM_D))
+    for c in range(KM_K):
+        centers[c, c * 16 : (c + 1) * 16] = 2.0
+    svc = rng.integers(0, N_SERVICES, n_rows)
+    lab = rng.integers(0, KM_K, n_rows)
+    pts = np.round(centers[lab] + 0.1 * rng.standard_normal((n_rows, KM_D)), 4)
+    emb = np.array([json.dumps(p.tolist()) for p in pts], dtype=object)
+    return dict(svc=svc, lab=lab, emb=emb, centers=centers)
+
+
+def build_km_carnot(km: dict, n_rows: int, device: str):
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    rel = Relation.of(("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
+                      ("service", DataType.STRING), ("emb", DataType.STRING))
+    table = carnot.table_store.create_table("embeddings", rel)
+    table.write_pydict({
+        "time_": np.arange(n_rows, dtype=np.int64) * 1000,
+        "service": np.array(SERVICES, dtype=object)[km["svc"]],
+        "emb": km["emb"],
+    })
+    table.compact()
+    table.stop()
+    return carnot
+
+
+def verify_kmeans_services(result, km: dict) -> None:
+    """kmeans_services: one model a service, k 4, every true center within
+    0.5 of a fitted one; keeps svc-0's model for the predict query."""
+    rows = result.table("models")
+    check(sorted(rows["service"]) == sorted(SERVICES), "kmeans_services: the services")
+    for svc, js in zip(rows["service"], rows["model"]):
+        model = json.loads(js)
+        centers = np.asarray(model["centers"])
+        check(model["k"] == KM_K and centers.shape == (KM_K, KM_D), f"{svc}: model shape")
+        dist = np.linalg.norm(centers[None, :, :] - km["centers"][:, None, :], axis=2)
+        check(dist.min(axis=1).max() <= 0.5, f"{svc}: a true center {dist.min(axis=1).max():.3f} "
+              "from every fitted one")
+        if svc == SERVICES[0]:
+            km["model"] = js
+
+
+def verify_kmeans_predict(result, km: dict) -> None:
+    """The predicted clusters under svc-0's model: counts equal the
+    generator's labels, each fitted center mapped to its nearest true one."""
+    centers = np.asarray(json.loads(km["model"])["centers"])
+    nearest = np.linalg.norm(centers[:, None, :] - km["centers"][None, :, :], axis=2).argmin(1)
+    check(sorted(nearest.tolist()) == list(range(KM_K)), "kmeans_predict: the model's centers")
+    rows = result.table("clusters")
+    want = np.bincount(km["lab"], minlength=KM_K)
+    got = dict(zip(rows["cluster"], rows["n"]))
+    check(got == {j: int(want[nearest[j]]) for j in range(KM_K)},
+          f"kmeans_predict: counts {got} against the labels {want.tolist()}")
+
+
+def ml_parity(cuda, cpu, flows_cuda, flows_cpu, n_rows: int) -> None:
+    """reservoir_latency and reservoir_flows: the kernel path's JSON equals
+    the plain path's, every group."""
+    for name, a, b, query in (("reservoir_latency", cuda, cpu, RESERVOIR_LATENCY),
+                              ("reservoir_flows", flows_cuda, flows_cpu, RESERVOIR_FLOWS)):
+        got, want = a.execute_query(query).table("sample"), b.execute_query(query).table("sample")
+        check(got == want and len(next(iter(got.values()))) > 0, f"{name}: cuda vs cpu")
+    log(f"slice parity at {n_rows} rows: reservoir_latency and reservoir_flows JSON "
+        "kernel path == plain path")
+
+
 def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
-          streamed: bool = True) -> dict:
+          streamed: bool = True, offloaded: bool = True) -> dict:
     """One main path: launch counts and lanes zeroed just before, one cold
     query (the executor's staged columns and key plans dropped first, so
     that no path reuses another's) and WARM_QUERIES warm queries, each
     verified, counts and lanes read just after. A ``streamed`` path must
     have staged its cold query through the stream (the stage_stream lane,
-    once) and no warm one."""
+    once) and no warm one; an ``offloaded`` one must have folded on the
+    device lanes (a path of host aggregations only does not)."""
     from pixie_tpu_torch.ops import kernels, segment
     from pixie_tpu_torch.parallel import staging
 
@@ -3317,7 +3760,8 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
     lanes = segment.reduce_lanes(reset=True)
     for name in expect:
         check(launches[name] > 0, f"kernel {name} was not launched on its main path")
-    check(carnot.device_executor.last_fold_ms is not None, "fragment not offloaded")
+    check(not offloaded or carnot.device_executor.last_fold_ms is not None,
+          "fragment not offloaded")
     if streamed:
         check(lanes.get("stage_stream") == 1 and cold_phases.get("stream_windows", 0) > 0,
               f"the cold query did not stream once: lanes {lanes}")
@@ -3371,6 +3815,7 @@ def main() -> int:
     records.update(cell_kernel_phase(dev))
     records.update(batch_kernel_phase(dev))
     records.update(ring_kernel_phase(dev))
+    records.update(ml_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -3416,6 +3861,14 @@ def main() -> int:
           "status_mix: a sketch took its row path")
     phase_s["status_mix"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    lat_truth = latency_sample_truth(data)
+    log(f"reservoir_latency truths in {time.perf_counter() - t0:.1f} s")
+    paths["reservoir_latency"] = drive(
+        carnot, RESERVOIR_LATENCY, lambda r: verify_reservoir_latency(r, data, lat_truth),
+        ("reservoir_priority", "reservoir_topk", "segment_rows_sum_i64"),
+    )
+    phase_s["reservoir_latency"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     shared = shared_scan_path(carnot, data, args.profile)
     phase_s["shared_scan"] = time.perf_counter() - t0
 
@@ -3444,6 +3897,14 @@ def main() -> int:
         flows, FLOW_WINDOW, verify_flow_window, ("codec_delta_decode", "segment_minmax")
     )
     phase_s["flow_window"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flow_truth = flows_sample_truth(fl)
+    log(f"reservoir_flows truths in {time.perf_counter() - t0:.1f} s")
+    paths["reservoir_flows"] = drive(
+        flows, RESERVOIR_FLOWS, lambda r: verify_reservoir_flows(r, flow_truth),
+        ("reservoir_priority", "reservoir_topk", "scalar_eval"),
+    )
+    phase_s["reservoir_flows"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     hs = http_small(SMALL_ROWS)
@@ -3527,6 +3988,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
     truth = let_truth(ev)
+    path_counts = np.bincount(ev["path"], minlength=N_PATHS + 2)
     del ev
     log(f"let truths in {time.perf_counter() - t1:.1f} s")
     phase_s["let_table"] = time.perf_counter() - t0
@@ -3550,6 +4012,28 @@ def main() -> int:
         lanes = paths[name]["lanes"]
         check(lanes == lanes_want, f"{name}: lanes {lanes}, expected {lanes_want}")
         phase_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emb_truth = path_embedding_truth(dev)
+    paths["path_embeddings"] = drive(
+        let_carnot, PATH_EMBEDDINGS,
+        lambda r: verify_path_embeddings(r, path_counts, emb_truth),
+        ("segment_rows_sum_i64", "encoder_forward", "kmeans_fit"),
+    )
+    phase_s["path_embeddings"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    km = km_embeddings(KM_ROWS)
+    km_carnot = build_km_carnot(km, KM_ROWS, "cuda")
+    log(f"embeddings: {KM_ROWS} rows generated and written in {time.perf_counter() - t0:.1f} s")
+    paths["kmeans_services"] = drive(  # a host aggregation: the AggNode, H27 at finalize
+        km_carnot, KMEANS_SERVICES, lambda r: verify_kmeans_services(r, km), ("kmeans_fit",),
+        streamed=False, offloaded=False,
+    )
+    paths["kmeans_predict"] = drive(
+        km_carnot, kmeans_predict_query(km["model"]), lambda r: verify_kmeans_predict(r, km),
+        ("segment_rows_sum_i64",),
+    )
+    phase_s["kmeans_services"] = time.perf_counter() - t0
 
     n_queries = 1 + WARM_QUERIES
     rows_of = {"service_stats": args.rows, "sketches": args.rows, "status_mix": args.rows,
@@ -3559,7 +4043,10 @@ def main() -> int:
                "join8_oncall_agg": JOIN_ROWS, "join8_left_agg": JOIN_ROWS,
                "svc_let": LET_ROWS, "code_histogram": LET_ROWS, "latency_histogram": LET_ROWS,
                "endpoint_load": LET_ROWS, "sketches_small": SMALL_ROWS,
-               "http_data_ring": SMALL_ROWS, "sketches_ring": SMALL_ROWS}
+               "http_data_ring": SMALL_ROWS, "sketches_ring": SMALL_ROWS,
+               "reservoir_latency": args.rows, "reservoir_flows": FLOW_ROWS,
+               "path_embeddings": LET_ROWS, "kmeans_services": KM_ROWS,
+               "kmeans_predict": KM_ROWS}
     for name, p in paths.items():
         best = min(p["warm"])
         cp = p["cold_phases"]
@@ -3605,6 +4092,14 @@ def main() -> int:
                             ("latency_histogram", "lat_hist"), ("endpoint_load", "load")):
             profile_warm(let_carnot, queries[table], min(paths[name]["warm"]), name,
                          now_ns=LET_NOW)
+        for name, c, query in (
+            ("reservoir_latency", carnot, RESERVOIR_LATENCY),
+            ("reservoir_flows", flows, RESERVOIR_FLOWS),
+            ("path_embeddings", let_carnot, PATH_EMBEDDINGS),
+            ("kmeans_services", km_carnot, KMEANS_SERVICES),
+            ("kmeans_predict", km_carnot, kmeans_predict_query(km["model"])),
+        ):
+            profile_warm(c, query, min(paths[name]["warm"]), name)
 
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

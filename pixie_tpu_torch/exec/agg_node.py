@@ -10,7 +10,9 @@ state is torch tensors with a leading [capacity] group axis on the node's
 device (the engine's: the DeviceExecutor's device, else ``Carnot(device=)``,
 resolved when the node prepares), updated by one ``uda.update(state, gids,
 col)`` per batch, so on the card a host-side aggregation runs the UDAs'
-kernels (H1-H3, H5-H11) on CUDA tensors. Capacity grows by doubling (concat
+kernels (H1-H3, H5-H11, H25, H26) on CUDA tensors; a ``host_state`` UDA
+(kmeans) keeps its state on the CPU and finalizes on the node's device.
+Capacity grows by doubling (concat
 with ``uda.init(extra)``, the merge identity by UDA contract). The PARTIAL
 stage emits a StateBatch (keys + state tensors); the MERGE stage scatters
 incoming states onto its own gids and folds them with ``uda.merge``.
@@ -190,7 +192,14 @@ class AggNode(ExecNode):
         """The states go on the engine's device, resolved now (so a fragment
         with no aggregation never needs a device)."""
         self._device = exec_state.compute_device()
-        self._states = {s.out_name: s.uda.init(self._capacity, self._device) for s in self._specs}
+        self._states = {
+            s.out_name: s.uda.init(self._capacity, self._state_device(s)) for s in self._specs
+        }
+
+    def _state_device(self, spec) -> torch.device:
+        """Where ``spec``'s state lives: the CPU for a ``host_state`` UDA,
+        else the node's device."""
+        return torch.device("cpu") if spec.uda.host_state else self._device
 
     def set_input_relation(self, rel: Relation, registry) -> None:
         if self.op.stage == AggStage.MERGE and self.op.pre_agg_relation is not None:
@@ -221,17 +230,21 @@ class AggNode(ExecNode):
                 self._emit(exec_state, eow=batch.eow, eos=batch.eos)
             return
         if batch.num_rows:
-            gids = torch.from_numpy(self._gids_for(batch)).to(self._device)
+            host_gids = torch.from_numpy(self._gids_for(batch))
+            gids = host_gids.to(self._device)
             self._ensure_capacity(self._encoder.num_groups or 1)
             for spec in self._specs:
+                dev = self._state_device(spec)
+                g = host_gids if dev.type == "cpu" else gids
                 if spec.uda.reads_args:
                     cols = [
-                        self._arg_tensor(batch, n, spec.uda.string_args) for n in spec.arg_names
+                        self._arg_tensor(batch, n, spec.uda.string_args, dev)
+                        for n in spec.arg_names
                     ]
                 else:
-                    cols = [gids]  # count: never reads its column
+                    cols = [g]  # count: never reads its column
                 self._states[spec.out_name] = spec.uda.update(
-                    self._states[spec.out_name], gids, *cols
+                    self._states[spec.out_name], g, *cols
                 )
         if batch.eos or (batch.eow and self.op.windowed):
             self._emit(exec_state, eow=batch.eow, eos=batch.eos)
@@ -266,19 +279,22 @@ class AggNode(ExecNode):
         key_cols = [self._latch_key_column(g, batch.col(g)) for g in self.op.groups]
         return self._encoder.encode(key_cols)
 
-    def _arg_tensor(self, batch: RowBatch, name: str, mode: str) -> torch.Tensor:
-        """An argument column on the node's device: strings as the content
-        hashes of their values (``"hash"``) or as codes of the latched
-        dictionary (``"code"``)."""
+    def _arg_tensor(self, batch: RowBatch, name: str, mode: str, device):
+        """An argument column on ``device``: strings as the content hashes of
+        their values (``"hash"``), as codes of the latched dictionary
+        (``"code"``), or decoded (``"values"``: a numpy object array that
+        stays on the host)."""
         col = batch.col(name)
         if isinstance(col, DictColumn):
+            if mode == "values":
+                return col.decode()
             if mode == "hash":
                 arr = col.dictionary.content_hashes().view(np.int64)[col.codes]
             else:
                 arr = self._latch_key_column(name, col).codes
         else:
             arr = np.asarray(col)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self._device)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
     def _ensure_capacity(self, needed: int) -> None:
         while self._capacity < needed:
@@ -287,7 +303,7 @@ class AggNode(ExecNode):
                 self._states[spec.out_name] = tree_map(
                     lambda a, b: torch.cat([a, b]),
                     self._states[spec.out_name],
-                    spec.uda.init(extra, self._device),
+                    spec.uda.init(extra, self._state_device(spec)),
                 )
             self._capacity += extra
 
@@ -303,16 +319,17 @@ class AggNode(ExecNode):
         else:
             idx = np.zeros(sb.num_groups, np.int32)
         self._ensure_capacity(self._encoder.num_groups or 1)
-        idx_t = torch.from_numpy(idx.astype(np.int64)).to(self._device)
         for spec in self._specs:
-            incoming = tree_map(lambda a: _as_tensor(a, self._device), sb.states[spec.out_name])
+            dev = self._state_device(spec)
+            idx_t = torch.from_numpy(idx.astype(np.int64)).to(dev)
+            incoming = tree_map(lambda a: _as_tensor(a, dev), sb.states[spec.out_name])
             if spec.uda.string_state and spec.out_name in sb.arg_dicts:
                 incoming = self._translate_state_codes(
                     spec.arg_names[0], incoming, sb.arg_dicts[spec.out_name]
                 )
             aligned = tree_map(
                 lambda z, inc: z.index_put_((idx_t,), inc.to(z.dtype)),
-                spec.uda.init(self._capacity, self._device),
+                spec.uda.init(self._capacity, dev),
                 incoming,
             )
             self._states[spec.out_name] = spec.uda.merge(self._states[spec.out_name], aligned)
@@ -401,7 +418,10 @@ class AggNode(ExecNode):
                 out_cols.append(np.asarray(col, dtype=host_dtype(rel.col(g).data_type)))
         for spec in self._specs:
             state = tree_map(lambda a: a[:n], self._states[spec.out_name])
-            out = spec.uda.finalize(state)
+            if spec.uda.host_state:
+                out = spec.uda.finalize(state, self._device)
+            else:
+                out = spec.uda.finalize(state)
             if isinstance(out, torch.Tensor):
                 out = out.cpu().numpy()
             schema = rel.col(spec.out_name)
@@ -426,4 +446,6 @@ class AggNode(ExecNode):
         self._key_dicts.clear()
         self._key_dict_sources.clear()
         self._capacity = INITIAL_CAPACITY if self.op.groups else 1
-        self._states = {s.out_name: s.uda.init(self._capacity, self._device) for s in self._specs}
+        self._states = {
+            s.out_name: s.uda.init(self._capacity, self._state_device(s)) for s in self._specs
+        }

@@ -38,11 +38,22 @@ from pixie_tpu_torch.plan.expressions import (
     ScalarExpression,
     expr_data_type,
 )
+from pixie_tpu_torch.device import resolve_device
 from pixie_tpu_torch.table.column import DictColumn, StringDictionary
 from pixie_tpu_torch.table.row_batch import RowBatch
 from pixie_tpu_torch.types import DataType, Relation
 from pixie_tpu_torch.types.dtypes import host_dtype
 from pixie_tpu_torch.udf.udf import Executor
+
+
+def call_host(udf, fn_args: list, func_ctx=None, device=None):
+    """A HOST function over ``fn_args``, with the function context first
+    (``needs_ctx``) and the engine's device (``needs_device``)."""
+    if udf.needs_ctx:
+        fn_args = [func_ctx] + list(fn_args)
+    if udf.needs_device:
+        return udf.fn(*fn_args, device=resolve_device(device))
+    return udf.fn(*fn_args)
 
 
 class ExpressionEvaluator:
@@ -54,11 +65,15 @@ class ExpressionEvaluator:
         input_relation: Relation,
         registry,
         func_ctx=None,
+        device=None,
     ):
         self.named_exprs = list(named_exprs)
         self.input_relation = input_relation
         self.registry = registry
         self.func_ctx = func_ctx
+        # The engine's device (None: the card), handed to the HOST functions
+        # that ask for it (``needs_device``): resolved at the call.
+        self.device = device
         self._resolved: dict[int, Any] = {}
         for _, e in self.named_exprs:
             self._resolve(e)
@@ -137,7 +152,7 @@ class ExpressionEvaluator:
             if udf.needs_ctx:
                 out = udf.fn(self.func_ctx, *fn_args)
             elif udf.executor == Executor.HOST:
-                out = np.asarray(udf.fn(*fn_args))
+                out = np.asarray(call_host(udf, fn_args, self.func_ctx, self.device))
             else:
                 out = udf.fn(*fn_args)
         # String-producing funcs must hand a DictColumn to their consumer —
@@ -200,9 +215,7 @@ class ExpressionEvaluator:
             fn_args = [
                 (values if isinstance(a, DictColumn) else a) for a in args
             ] + list(expr.init_args)
-            if udf.needs_ctx:
-                fn_args = [self.func_ctx] + fn_args
-            per_value = np.asarray(udf.fn(*fn_args))
+            per_value = np.asarray(call_host(udf, fn_args, self.func_ctx, self.device))
             codes = dict_args[0].codes
             if udf.out_type == DataType.STRING:
                 out_dict = StringDictionary()
@@ -220,9 +233,7 @@ class ExpressionEvaluator:
         fn_args = [
             (a.decode() if isinstance(a, DictColumn) else a) for a in args
         ] + list(expr.init_args)
-        if udf.needs_ctx:
-            fn_args = [self.func_ctx] + fn_args
-        return np.asarray(udf.fn(*fn_args))
+        return np.asarray(call_host(udf, fn_args, self.func_ctx, self.device))
 
     # ---------------------------------------------------------------- device
     def device_eval(self, expr, env: dict, aux: dict):
@@ -342,9 +353,7 @@ class ExpressionEvaluator:
                     else (a.value if isinstance(a, Constant) else None)
                     for a, t in zip(expr.args, arg_types)
                 ] + list(expr.init_args)
-                if udf.needs_ctx:
-                    fn_args = [self.func_ctx] + fn_args
-                out = np.asarray(udf.fn(*fn_args))
+                out = np.asarray(call_host(udf, fn_args, self.func_ctx, self.device))
                 if udf.out_type == DataType.STRING:
                     raise ValueError(
                         "string-producing host funcs need a Map before the "

@@ -225,6 +225,7 @@ class MapNode(ExecNode):
 
     def consume_next_impl(self, exec_state, batch, parent_index) -> None:
         self._evaluator.func_ctx = exec_state.func_ctx
+        self._evaluator.device = exec_state.device
         self.send(exec_state, self._evaluator.evaluate(batch, self.output_relation))
 
 
@@ -241,6 +242,7 @@ class FilterNode(ExecNode):
 
     def consume_next_impl(self, exec_state, batch, parent_index) -> None:
         self._evaluator.func_ctx = exec_state.func_ctx
+        self._evaluator.device = exec_state.device
         if batch.num_rows:
             mask = self._evaluator.evaluate_predicate(batch)
             if not mask.all():

@@ -10,9 +10,14 @@ stay distinct, as in the reference), a narrower int cast to u32.
 
 On a CUDA tensor ``hash32`` and ``hash32_pair`` launch the hash kernel of
 ``ops/kernels`` (the same ``__device__`` functions H5 and the count-min path
-use); on a CPU tensor the plain versions below run. The 64-bit functions of
-the reference (splitmix64, hash64, combine, hash_columns, clz64) feed only
-the ML reservoir and are not ported yet.
+use); on a CPU tensor the plain versions below run.
+
+The 64-bit path (splitmix64, hash64, combine, hash_columns, clz64) holds
+each u64 in an int64 tensor: products and sums wrap mod 2^64 as the u32
+path relies on (Fault-2), a logical right shift is ``(x >> s) & (2^(64-s) -
+1)``. Its ``__device__`` versions are ``kernels/hash64.cuh``, which H25
+(the reservoir's priorities) inlines; ``hash_columns`` and ``clz64`` have no
+caller in either package and exist as plain versions only.
 """
 
 from __future__ import annotations
@@ -87,4 +92,70 @@ def clz32(x: torch.Tensor) -> torch.Tensor:
         top_clear = (x >> (32 - s)) == 0
         n = n + torch.where(top_clear, s, 0)
         x = torch.where(top_clear, (x << s) & M32, x)
+    return (n + (x == 0).to(n.dtype)).to(torch.int32)
+
+
+# -- 64-bit path ---------------------------------------------------------------
+M64 = (1 << 64) - 1
+
+
+def _i64(c: int) -> int:
+    """The int64 that holds the u64 constant ``c``."""
+    c &= M64
+    return c - (1 << 64) if c >> 63 else c
+
+
+GOLDEN64 = _i64(0x9E3779B97F4A7C15)
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+
+
+def srl64(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of u64 values held in int64."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """SplitMix64 finalizer on u64 values held in int64."""
+    z = x.to(torch.int64) + GOLDEN64
+    z = (z ^ srl64(z, 30)) * _MIX1
+    z = (z ^ srl64(z, 27)) * _MIX2
+    return z ^ srl64(z, 31)
+
+
+def words_u64(x: torch.Tensor) -> torch.Tensor:
+    """int64 [n]: the u64 each value hashes as in the reference's ``hash64``:
+    a float bit-cast from float64 (so +0.0 and -0.0 hash apart), a bool as
+    0/1, an int sign-extended (``astype(uint64)``)."""
+    if x.is_floating_point():
+        return x.to(torch.float64).view(torch.int64)
+    return x.to(torch.int64)
+
+
+def hash64(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """u64 hash of each value (held in int64); plain on any device."""
+    return splitmix64(words_u64(x) ^ _i64(seed * 0x9E3779B97F4A7C15))
+
+
+def combine(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """Order-dependent (boost-style) combine of two u64 hashes."""
+    return splitmix64(h1 ^ (h2 + GOLDEN64 + (h1 << 6) + srl64(h1, 2)))
+
+
+def hash_columns(cols: list, seed: int = 0) -> torch.Tensor:
+    """Row-wise u64 hash of a multi-column key (no caller in either package)."""
+    h = hash64(cols[0], seed)
+    for c in cols[1:]:
+        h = combine(h, hash64(c, seed))
+    return h
+
+
+def clz64(x: torch.Tensor) -> torch.Tensor:
+    """int32 count of leading zeros of u64 values held in int64 (64 for 0;
+    no caller in either package)."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        top_clear = srl64(x, 64 - s) == 0
+        n = n + torch.where(top_clear, s, 0)
+        x = torch.where(top_clear, x << s, x)
     return (n + (x == 0).to(n.dtype)).to(torch.int32)

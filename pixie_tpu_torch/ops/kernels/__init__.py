@@ -10,8 +10,11 @@ fold (H16), ``scalar_kernels.cu`` the fused scalar-expression
 interpreter (H17), ``codec_kernels.cu`` the staging codec's device decode
 (H18, H19), ``cell_kernels.cu`` the sketches' int-dictionary cell lane
 (H20, H21) and ``batch_kernels.cu`` the predicate-batched fold's slot masks
-and slot-batched segment sums (H22, H23) and ``convert_kernels.cu`` the
-resident ring's raw -> plan converters (H24); see each file's header. At the first launch, ``library()`` compiles them with
+and slot-batched segment sums (H22, H23), ``convert_kernels.cu`` the
+resident ring's raw -> plan converters (H24), ``ml_kernels.cu`` the ML
+lane's reservoir priorities, reservoir top-k and k-means (H25-H27, with the
+64-bit hashes of ``hash64.cuh``) and ``transformer_kernels.cu`` the
+transformer UDF's encoder (H28); see each file's header. At the first launch, ``library()`` compiles them with
 ``nvcc`` for ``sm_90a``, one process per source started together, and
 links them into ``pixie_tpu_torch/_build/`` as
 one shared library with a plain C interface, keyed by a hash of the sources,
@@ -70,6 +73,10 @@ KERNELS = (
     "pred_slot_masks",
     "batched_segment_sums",
     "ring_convert",
+    "reservoir_priority",
+    "reservoir_topk",
+    "kmeans_fit",
+    "encoder_forward",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -79,9 +86,10 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
     "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
-    "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu",
+    "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu", "ml_kernels.cu",
+    "transformer_kernels.cu",
 )
-HEADERS = ("common.cuh", "sketch_hash.cuh")
+HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -124,6 +132,10 @@ _SIGNATURES = {
     ),
     "px_batched_segment_sums": (_P, _I, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _P),
     "px_ring_convert": (_P, _I, _P, _I, _I, _LL, _P, _I, _LL, _P),
+    "px_reservoir_priority": (_P, _LL, _P, _P, _P, _P),
+    "px_reservoir_topk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "px_encoder_forward": (_P, _P, _I, _P, _P, _P, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -1162,4 +1174,109 @@ def ring_convert(src: torch.Tensor, out: torch.Tensor, kind: str, off: int = 0,
         src.data_ptr(), _CONVERT_CODES[src.dtype], out.data_ptr(), _CONVERT_CODES[out.dtype],
         _CONVERT_KINDS[kind], int(off), lut_ptr, C, n,
     )
+    return out
+
+
+# ---------------------------------------------------------------- ML lane
+RESERVOIR_MAX_K = 768  # H26's buffer (1024 entries) less one tile of rows
+ENCODER_LAYER_FLOATS = 4 * 64 * 64 + 2 * 64 * 256 + 2 * 64  # pack_layer's layout = kLayerFloats
+
+
+def reservoir_priority(words: torch.Tensor, mask: Optional[torch.Tensor],
+                       salt: torch.Tensor) -> torch.Tensor:
+    """H25: f64 [n] priorities of a block's rows, -inf where ``mask`` is
+    False: combine(hash64(words[i]), hash64(i + salt)) >> 11, / 2^53.
+    ``words`` int64 [n] (each value's u64 word), ``salt`` int64 [1] on the
+    device (read by the kernel, so nothing waits for it)."""
+    device = words.device
+    _require(words, "words", torch.int64, device, 1)
+    _require(salt, "salt", torch.int64, device, 1)
+    n = words.shape[0]
+    if mask is not None:
+        _require(mask, "mask", torch.bool, device, 1)
+        if mask.shape[0] != n:
+            raise ValueError(f"mask has {mask.shape[0]} rows, expected {n}")
+    out = torch.empty(n, dtype=torch.float64, device=device)
+    if n == 0:
+        return out
+    _launch("reservoir_priority", device, words.data_ptr(), n,
+            mask.data_ptr() if mask is not None else None, salt.data_ptr(), out.data_ptr())
+    return out
+
+
+def reservoir_topk(
+    st_vals: torch.Tensor, st_pri: torch.Tensor, row_vals: torch.Tensor,
+    row_pri: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """H26: each group's k highest priorities of its state slots (``st_vals``
+    int64 bits [G, k], ``st_pri`` f64 [G, k]) and its candidate rows, in
+    descending order, ties to the state's slots and then to the rows in
+    order. Group g's rows are ``order[offsets[g]:offsets[g + 1]]`` (int64
+    indices into ``row_vals`` int64 bits [n] and ``row_pri`` f64 [n]; a
+    -inf priority never enters). Returns new (values, priorities)."""
+    device = st_vals.device
+    _require(st_vals, "st_vals", torch.int64, device, 2)
+    _require(st_pri, "st_pri", torch.float64, device, 2)
+    _require(row_vals, "row_vals", torch.int64, device, 1)
+    _require(row_pri, "row_pri", torch.float64, device, 1)
+    _require(order, "order", torch.int64, device, 1)
+    _require(offsets, "offsets", torch.int64, device, 1)
+    G, k = st_vals.shape
+    if st_pri.shape != (G, k) or row_pri.shape != row_vals.shape or offsets.shape[0] != G + 1:
+        raise ValueError("reservoir_topk: mismatched shapes")
+    if not 1 <= k <= RESERVOIR_MAX_K:
+        raise ValueError(f"reservoir_topk: k {k} outside 1..{RESERVOIR_MAX_K}")
+    out_vals = torch.empty_like(st_vals)
+    out_pri = torch.empty_like(st_pri)
+    if G == 0:
+        return out_vals, out_pri
+    _launch("reservoir_topk", device, st_vals.data_ptr(), st_pri.data_ptr(), G, k,
+            row_vals.data_ptr(), row_pri.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+            out_vals.data_ptr(), out_pri.data_ptr())
+    return out_vals, out_pri
+
+
+def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int,
+               iters: int = 10) -> torch.Tensor:
+    """H27: f32 [G, k, d] centers of each group's points (f32 [G, S, d]) with
+    weights (f32 [G, S], 0 = an empty slot): farthest-point seeding, then
+    ``iters`` Lloyd steps."""
+    device = points.device
+    _require(points, "points", torch.float32, device, 3)
+    _require(weights, "weights", torch.float32, device, 2)
+    G, S, d = points.shape
+    if weights.shape != (G, S):
+        raise ValueError("kmeans_fit: weights must be [G, S]")
+    if k < 1 or S < 1 or d < 1:
+        raise ValueError(f"kmeans_fit: k {k}, S {S}, d {d} must be positive")
+    out = torch.empty((G, k, d), dtype=torch.float32, device=device)
+    if G == 0:
+        return out
+    _launch("kmeans_fit", device, points.data_ptr(), weights.data_ptr(), G, S, d, k, iters,
+            out.data_ptr())
+    return out
+
+
+def encoder_forward(ids: torch.Tensor, lens: torch.Tensor, embed: torch.Tensor,
+                    pos: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
+    """H28: f32 [B, 64] unit sentence embeddings of B documents: ``ids``
+    int32 [B, 64] (shifted, pad 0), ``lens`` int32 [B] (tokens, 1..64),
+    ``embed`` f32 [V, 64], ``pos`` f32 [64, 64], ``layers`` f32 [n_layers,
+    ENCODER_LAYER_FLOATS] (``ops/transformer.py`` pack_layer's layout)."""
+    device = ids.device
+    _require(ids, "ids", torch.int32, device, 2)
+    _require(lens, "lens", torch.int32, device, 1)
+    _require(embed, "embed", torch.float32, device, 2)
+    _require(pos, "pos", torch.float32, device, 2)
+    _require(layers, "layers", torch.float32, device, 2)
+    B = ids.shape[0]
+    if ids.shape[1] != 64 or lens.shape[0] != B or embed.shape[1] != 64 or pos.shape != (64, 64):
+        raise ValueError("encoder_forward: expected ids [B, 64], lens [B], d 64, L 64")
+    if layers.shape[1] != ENCODER_LAYER_FLOATS:
+        raise ValueError(f"encoder_forward: a layer holds {ENCODER_LAYER_FLOATS} floats")
+    out = torch.empty((B, 64), dtype=torch.float32, device=device)
+    if B == 0:
+        return out
+    _launch("encoder_forward", device, ids.data_ptr(), lens.data_ptr(), B, embed.data_ptr(),
+            pos.data_ptr(), layers.data_ptr(), layers.shape[0], out.data_ptr())
     return out

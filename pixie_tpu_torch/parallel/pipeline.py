@@ -100,7 +100,7 @@ import torch
 
 from pixie_tpu_torch.compiler.analyzer import substitute
 from pixie_tpu_torch.device import resolve_device
-from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
+from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator, call_host
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
 from pixie_tpu_torch.ops import batched, codec, scan, segment
 from pixie_tpu_torch.parallel.staging import (
@@ -926,6 +926,20 @@ def _program_sig(program, specs) -> tuple:
     )
 
 
+def _state_mode(uda) -> bool:
+    """Whether the fold finalizes ``uda`` on the host from its fetched state
+    (the reference's "state" mode, pixie_tpu/parallel/pipeline.py:4699-4710):
+    its finalize makes host values (JSON strings) and it has no
+    device_finalize."""
+    return uda.device_finalize is None and uda.host_finalize
+
+
+def _state_keys(uda) -> Optional[tuple]:
+    """The sorted leaf names of ``uda``'s state (None: one tensor)."""
+    st = uda.init(1, "cpu")
+    return tuple(sorted(st)) if isinstance(st, dict) else None
+
+
 def _sum_lane(uda) -> Optional[str]:
     """The batched fold's H23 lane of a sum-family UDA: "count" (the slot's
     presence), "sum_i" (an int64 row), "sum_f" (an f64 row), "mean" (an f64
@@ -1256,7 +1270,8 @@ class DeviceExecutor:
         named = [(f"pred{i}", p) for i, p in enumerate(m.predicates)]
         named += [(f"out:{name}", e) for name, e in m.out_exprs]
         try:
-            evaluator = ExpressionEvaluator(named, m.source_relation, registry, func_ctx)
+            evaluator = ExpressionEvaluator(named, m.source_relation, registry, func_ctx,
+                                            device=self.device)
         except ValueError:
             return None
         roots = [(f"out:{name}", e, dt, None) for (name, e), dt in zip(m.out_exprs, dtypes)]
@@ -1581,13 +1596,13 @@ class DeviceExecutor:
             r_eval = ExpressionEvaluator(
                 [(f"pred{i}", p) for i, p in enumerate(r_preds)]
                 + [(f"arg:{o}", e) for o, e, _ in right_specs],
-                m.right_relation, registry, func_ctx,
+                m.right_relation, registry, func_ctx, device=self.device,
             )
             l_eval = ExpressionEvaluator(
                 [(f"pred{i}", p) for i, p in enumerate(l_preds)]
                 + [(f"arg:{o}", e) for o, side, e, name in m.specs
                    if side == 0 and name != "count"],
-                m.left_relation, registry, func_ctx,
+                m.left_relation, registry, func_ctx, device=self.device,
             )
         except ValueError:
             return None
@@ -1954,7 +1969,8 @@ class DeviceExecutor:
         for g in m.agg_op.groups:
             named.append((f"key:{g}", m.col_exprs[g]))
         try:
-            return ExpressionEvaluator(named, m.source_relation, registry, func_ctx)
+            return ExpressionEvaluator(named, m.source_relation, registry, func_ctx,
+                                       device=self.device)
         except ValueError:
             return None
 
@@ -1982,7 +1998,7 @@ class DeviceExecutor:
                     num_groups=len(d),
                     key_columns=[DictColumn(np.arange(len(d), dtype=np.int32), d)],
                 )
-            lut = self._dict_lut_key(e, table, registry, func_ctx) if t == DataType.STRING else None
+            lut = self._dict_lut_key(e, table, registry, func_ctx, self.device) if t == DataType.STRING else None
             if lut is not None:
                 lut_codes, out_dict, src = lut
                 base_cols.add(src)
@@ -1994,7 +2010,7 @@ class DeviceExecutor:
         return self._host_key_plan(m, table, registry, func_ctx)
 
     @staticmethod
-    def _dict_lut_key(e, table, registry, func_ctx=None):
+    def _dict_lut_key(e, table, registry, func_ctx=None, device=None):
         """(per-code gids int32, the key's dictionary, source column) for a
         string key computed by a dict_compatible HOST function of one
         dictionary column and constants (the ``ctx['service']`` and
@@ -2017,9 +2033,7 @@ class DeviceExecutor:
         values = np.asarray(d.values(), dtype=object)
         fn_args = [values if isinstance(a, ColumnRef) else a.value for a in e.args]
         fn_args += list(e.init_args)
-        if udf.needs_ctx:
-            fn_args = [func_ctx] + fn_args
-        per_value = np.asarray(udf.fn(*fn_args), dtype=object)
+        per_value = np.asarray(call_host(udf, fn_args, func_ctx, device), dtype=object)
         out_dict = StringDictionary()
         return out_dict.encode(per_value).astype(np.int32), out_dict, src
 
@@ -2048,7 +2062,8 @@ class DeviceExecutor:
         sub_names = [c for c in m.source_relation.col_names() if c in key_refs]
         sub_rel = m.source_relation.select(sub_names)
         ev = ExpressionEvaluator(
-            [(g, m.col_exprs[g]) for g in groups], sub_rel, registry, func_ctx
+            [(g, m.col_exprs[g]) for g in groups], sub_rel, registry, func_ctx,
+            device=self.device,
         )
         out_rel = MapOp(
             tuple((g, m.col_exprs[g]) for g in groups)
@@ -2461,11 +2476,19 @@ class DeviceExecutor:
 
     def _finalize_pack(self, specs, states, presence) -> list:
         """Finalize on the device where the UDA allows it (device_finalize,
-        else finalize): one output tensor per spec, then presence."""
-        outs = [
-            uda.device_finalize(st) if uda.device_finalize is not None else uda.finalize(st)
-            for (_, _, uda), st in zip(specs, states)
-        ]
+        else finalize): one output tensor per spec; a UDA whose finalize
+        makes host values (``_state_mode``) packs its state's leaves instead
+        (``_state_keys`` order), which ride the pass's one device -> host
+        copy; then presence."""
+        outs = []
+        for (_, _, uda), st in zip(specs, states):
+            if _state_mode(uda):
+                keys = _state_keys(uda)
+                outs.extend([st[key] for key in keys] if keys is not None else [st])
+            elif uda.device_finalize is not None:
+                outs.append(uda.device_finalize(st))
+            else:
+                outs.append(uda.finalize(st))
         return outs + [presence]
 
     @staticmethod
@@ -2723,6 +2746,14 @@ class DeviceExecutor:
             schema = rel.col(out_name)
             if out_name in host_any:
                 out = np.asarray(host_any[out_name])[:n][keep]
+            elif _state_mode(uda):
+                # The reference's "state" mode (pipeline.py:7416-7418):
+                # finalize on the fetched state, sliced to the groups kept.
+                keys = _state_keys(uda)
+                if keys is None:
+                    out = uda.finalize(next(device_vals)[:n][keep])
+                else:
+                    out = uda.finalize({key: next(device_vals)[:n][keep] for key in keys})
             else:
                 arr = next(device_vals)[:n][keep]
                 out = (

@@ -128,13 +128,7 @@ class StringDictionary:
             with self._lock:
                 m = len(self._hashes)
                 if m < n:
-                    fresh = self._values[m:n]
-                    if _native is not None:
-                        new = _native.fnv1a64_batch(fresh)
-                    else:
-                        new = np.array(
-                            [_fnv1a64(v) for v in fresh], dtype=np.uint64
-                        )
+                    new = fnv1a64_batch(self._values[m:n])
                     self._hashes = np.concatenate([self._hashes, new])
         return self._hashes
 
@@ -144,6 +138,14 @@ def _fnv1a64(s: str) -> np.uint64:
     for b in s.encode("utf-8"):
         h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
     return np.uint64(h)
+
+
+def fnv1a64_batch(strings) -> np.ndarray:
+    """uint64 [n]: ``_fnv1a64`` of each string (the native batch when the
+    host runtime loaded)."""
+    if _native is not None:
+        return _native.fnv1a64_batch(strings)
+    return np.array([_fnv1a64(v) for v in strings], dtype=np.uint64)
 
 
 @dataclass

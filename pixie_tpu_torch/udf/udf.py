@@ -59,6 +59,10 @@ class ScalarUDF:
     # True -> fn(ctx, *cols) receives the exec FunctionContext (metadata
     # state etc.; ref: udf.h FunctionContext).
     needs_ctx: bool = False
+    # True -> fn(*cols, device=...) receives the engine's device (the
+    # DeviceExecutor's, else Carnot(device=)), where a HOST function runs its
+    # kernels (the transformer's encoder).
+    needs_device: bool = False
     out_semantic: SemanticType | Callable | None = None
     doc: str = ""
 
@@ -113,7 +117,16 @@ class UDA:
     #   "code" — codes re-encoded into the agg node's latched per-column
     #            dictionary. Right for UDAs whose state/output must remain
     #            decodable back to the string (e.g. any(STRING)).
+    #   "values" — the decoded strings, a numpy object array that never
+    #            reaches a device (host-only UDAs that parse content, e.g.
+    #            kmeans over JSON embeddings; the device lanes decline it).
     string_args: str = "hash"
+    # True when the state lives on the CPU whatever the engine's device (a
+    # host UDA that updates it row by row: a loop over device tensors would
+    # wait on every element). The AggNode keeps it there through growth and
+    # merges, and calls ``finalize(state, device)`` with the engine's device,
+    # where the numeric reduction runs.
+    host_state: bool = False
     # True when the state itself holds codes into the latched dictionary of
     # arg 0; the partial stage then ships that dictionary in the StateBatch
     # and the merge stage translates incoming codes into its own latch.

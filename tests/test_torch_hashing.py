@@ -97,3 +97,63 @@ def test_mix32_and_clz32_bit_exact():
             hashing.clz32(torch.from_numpy(v.astype(np.int64))).numpy(),
             np.asarray(ref.clz32(jnp.asarray(v))),
         )
+
+
+# -- the 64-bit path (K9's splitmix64, hash64, combine, hash_columns, clz64) ----
+SEEDS64 = [0, 1, 7, 0x9E3779B9, (1 << 40) + 3]
+
+
+def _u64_view(a) -> np.ndarray:
+    return np.array(a).view(np.int64)
+
+
+@pytest.mark.parametrize("kind", list(_columns()))
+@pytest.mark.parametrize("seed", SEEDS64)
+def test_hash64_bit_exact(kind, seed):
+    """Every column kind, NaN payloads, +-0, INT64_MIN and narrow ints
+    (sign-extended, as ``astype(uint64)``), bit for bit."""
+    x = _columns()[kind]
+    want = _u64_view(ref.hash64(jnp.asarray(x), seed))
+    got = hashing.hash64(torch.from_numpy(x), seed).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_hash64_float_words_keep_signed_zero_and_nan_payloads():
+    x = torch.tensor(_floats(4)[[0, 1, 8, 9]])
+    h = hashing.hash64(x)
+    assert h[0] != h[1] and h[2] != h[3]
+
+
+def test_splitmix64_and_combine_bit_exact():
+    x = _ints(5)
+    y = _ints(6)
+    np.testing.assert_array_equal(
+        hashing.splitmix64(torch.from_numpy(x)).numpy(),
+        _u64_view(ref.splitmix64(jnp.asarray(x.view(np.uint64)))),
+    )
+    hx, hy = ref.hash64(jnp.asarray(x)), ref.hash64(jnp.asarray(y))
+    np.testing.assert_array_equal(
+        hashing.combine(torch.from_numpy(_u64_view(hx)), torch.from_numpy(_u64_view(hy))).numpy(),
+        _u64_view(ref.combine(hx, hy)),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_hash_columns_bit_exact(seed):
+    """No caller in either package: the plain version against the
+    reference's."""
+    cols = [_ints(7), _floats(8), _ints(9).astype(np.int32)]
+    want = _u64_view(ref.hash_columns([jnp.asarray(c) for c in cols], seed))
+    got = hashing.hash_columns([torch.from_numpy(c) for c in cols], seed).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_clz64_bit_exact():
+    """No caller in either package: every leading-zero count 0..64."""
+    x = _ints(10).view(np.uint64)
+    shifts = np.arange(len(x), dtype=np.uint64) % np.uint64(64)
+    words = np.concatenate([x, x >> shifts, np.array([0, 1, 1 << 63], np.uint64)])
+    want = np.asarray(ref.clz64(jnp.asarray(words)))
+    got = hashing.clz64(torch.from_numpy(words.view(np.int64))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert set(got.tolist()) == set(range(65))

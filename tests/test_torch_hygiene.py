@@ -24,8 +24,9 @@ import numpy as np
 import pixie_tpu_torch
 from pixie_tpu_torch.engine import Carnot
 from pixie_tpu_torch.interop import table_from_columns
-from pixie_tpu_torch.ops import batched, kernels
+from pixie_tpu_torch.ops import batched, kernels, ml, transformer
 from pixie_tpu_torch.parallel import DeviceExecutor
+from pixie_tpu_torch.udf.builtins import ml_ops
 from pixie_tpu_torch.serving import ResidencyPool, ResidentRing, SharedScanCoordinator
 from pixie_tpu_torch.serving.resident import ResidentIngestManager
 from pixie_tpu_torch.types import DataType, Relation
@@ -42,6 +43,14 @@ r = c.execute_query(
     "px.display(s, 'o')\n"
 )
 assert r.table("o")["m"] == [2.0, 2.0], r.table("o")
+r = c.execute_query(
+    "df = px.DataFrame(table='t')\n"
+    "df.tokens = px.sentencepiece(df.service)\n"
+    "df.emb = px.transformer(df.tokens)\n"
+    "s = df.groupby(['service']).agg(r=('latency', px.reservoir_sample))\n"
+    "px.display(s, 'o')\n"
+)
+assert len(r.table("o")["r"]) == 2, r.table("o")
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "pixie_tpu" or m.startswith("pixie_tpu."))
 assert not bad, bad
@@ -67,7 +76,8 @@ def test_sources_never_import_jax_or_the_reference():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 30
     for new in ("serving/__init__.py", "serving/shared_scan.py", "ops/batched.py",
-                "serving/residency.py", "serving/resident.py"):
+                "serving/residency.py", "serving/resident.py", "ops/ml.py",
+                "ops/transformer.py", "udf/builtins/ml_ops.py"):
         assert PKG / new in files, new
     for f in files:
         text = f.read_text()
@@ -85,3 +95,11 @@ def test_default_device_needs_cuda():
     with pytest.raises(NoCudaDeviceError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_never_imports_jax_or_the_reference():
+    text = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
+    assert not re.search(r"^\s*(import pixie_tpu\b|from pixie_tpu[ .])", text, re.M)
+    for kernel in ("reservoir_priority", "reservoir_topk", "kmeans_fit", "encoder_forward"):
+        assert f'"{kernel}"' in text, kernel

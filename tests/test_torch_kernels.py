@@ -26,7 +26,9 @@ bit for bit; the cell lane's HLL registers, count-min cells and totals
 (H20, H21) exactly. The batched fold: H22's slot bits bit for bit, H23's
 integer sums and presence exactly and its f64 sums within 1e-12 * sum |v|
 of their cell (H2's bound). The resident ring's converters (H24) bit for
-bit, NaN payloads and f32 subnormals included.
+bit, NaN payloads and f32 subnormals included. The ML lane: H25's
+priorities and H26's reservoir states bit for bit (forced ties included),
+H27's k-means centers and H28's embeddings within 1e-5.
 """
 
 import json
@@ -37,8 +39,9 @@ import pytest
 import torch
 
 from pixie_tpu_torch.ops import (
-    batched, countmin, hashing, histogram, hll, kernels, scan, segment, tdigest,
+    batched, countmin, hashing, histogram, hll, kernels, ml, scan, segment, tdigest,
 )
+from pixie_tpu_torch.ops import transformer
 
 EDGE = 2.5e-4
 SPEC = histogram.DEFAULT_SPEC
@@ -723,6 +726,82 @@ def check_batch_kernels(dev: torch.device) -> None:
 def test_batch_kernels_match_plain_on_card():
     _need_cards(1)
     check_batch_kernels(torch.device("cuda", 0))
+
+
+def check_ml_kernels(dev: torch.device) -> None:
+    """H25 and H26 against their plain versions bit for bit (int64 and f64
+    blocks with NaN, +-0, masks and a salt near 2^40; an empty and a full
+    state; 16 and 4096 groups; a merge with forced ties), H27 within 1e-5."""
+    rng = np.random.default_rng(30)
+    n = 1 << 16
+    for dtype in (torch.int64, torch.float64):
+        if dtype == torch.int64:
+            v = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64))
+        else:
+            x = rng.normal(0, 1e6, n)
+            x[:4] = [np.nan, 0.0, -0.0, np.inf]
+            v = torch.from_numpy(x)
+        mask = torch.from_numpy(rng.random(n) < 0.8)
+        salt = (1 << 40) + 3
+        want = ml.priorities_plain(v, salt, mask)
+        got = ml.priorities(v.to(dev), salt, mask.to(dev))
+        assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+        for G in (16, 4096):
+            st = ml.reservoir_init(G, "cpu", dtype=dtype)
+            st_dev = ml.reservoir_init(G, dev, dtype=dtype)
+            for _ in range(3):  # empty, then fuller states
+                gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32))
+                st = ml.update_plain(st, gids, v, mask)
+                st_dev = ml.reservoir_update(st_dev, gids.to(dev), v.to(dev), mask.to(dev))
+                for key in st:
+                    a, b = st_dev[key].cpu(), st[key]
+                    assert torch.equal(a.view(torch.int64) if a.dtype == torch.float64 else a,
+                                       b.view(torch.int64) if b.dtype == torch.float64 else b)
+    pri = torch.tensor([[0.5, 0.5, 0.25, -np.inf], [0.75, 0.5, 0.5, 0.5]], dtype=torch.float64)
+    vals = torch.arange(8, dtype=torch.float64).reshape(2, 4)
+    a = {"values": vals, "priority": pri, "count": torch.tensor([3, 4])}
+    b = {"values": 100 + vals, "priority": pri.sort(dim=1, descending=True).values,
+         "count": torch.tensor([3, 4])}
+    want = ml.reservoir_merge(a, b)
+    got = ml.reservoir_merge({k: t.to(dev) for k, t in a.items()},
+                             {k: t.to(dev) for k, t in b.items()})
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key])
+    pts = torch.from_numpy(rng.normal(0, 1, (16, 128, 64)).astype(np.float32))
+    pts[:, 64:] = pts[:, :64]  # duplicated points: the first-index ties
+    w = torch.from_numpy((rng.random((16, 128)) < 0.9).astype(np.float32))
+    for k in (4, 8):
+        want = ml.kmeans_fit_plain(pts, w, k)
+        got = ml.kmeans_fit(pts.to(dev), w.to(dev), k).cpu()
+        assert (got - want).abs().max() <= 1e-5
+
+
+def check_encoder_kernel(dev: torch.device) -> None:
+    """H28 against its plain version within 1e-5, at 1 and 300 documents of
+    1, 17 and 64 tokens."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    params = transformer._init_params(0)
+    cpu, card = (transformer.TransformerEncoder(params, d) for d in ("cpu", dev))
+    rng = np.random.default_rng(31)
+    for B in (1, 300):
+        lens = torch.from_numpy(rng.choice([1, 17, 64], B).astype(np.int32))
+        ids = torch.from_numpy(rng.integers(1, transformer.VOCAB, (B, 64)).astype(np.int32))
+        ids[torch.arange(64)[None, :] >= lens[:, None]] = 0
+        want = cpu(ids, lens)
+        got = card(ids.to(dev), lens.to(dev)).cpu()
+        assert (got - want).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ml_kernels_match_plain_on_card():
+    _need_cards(1)
+    check_ml_kernels(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_encoder_kernel_matches_plain_on_card():
+    _need_cards(1)
+    check_encoder_kernel(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda

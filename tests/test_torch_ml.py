@@ -1,0 +1,508 @@
+"""The ML lane of the port (pixie_tpu_torch/ops/ml.py and
+udf/builtins/ml_ops.py) against the reference's (pixie_tpu/ops/ml.py,
+udf/builtins/ml_ops.py) on the CPU, over the same numpy inputs.
+
+Contracts. Priorities, reservoir states (values, priorities, counts) and
+merges bit for bit, forced ties included (the state's slots first, then the
+rows in row order). ``reservoir_sample`` through PxL: the JSON string-equal
+to the reference's in every geometry that changes a salt: a filter (the
+masked salt), several blocks (the same small ``block_rows`` on both
+executors), several passes (a small ``device_group_state_budget_mb`` in both
+packages' flags), a ringed table (``resident_ingest``), the host AggNode
+(after a join, and on an engine without a device executor), and a query
+batched by the shared-scan coordinator, equal to the same query alone.
+k-means centers within 1e-5 absolute of the reference's (f32 sums in
+another order), exact on duplicated points (the first-index tie rule);
+``kmeans`` and ``kmeans_predict`` through PxL on both packages (the
+reference's tests/test_ml.py cases), the parsed centers within 1e-5.
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from pixie_tpu.engine import Carnot as RefCarnot
+from pixie_tpu.ops import ml as ref_ml
+from pixie_tpu.parallel import MeshExecutor
+from pixie_tpu.types import DataType as RefDT, Relation as RefRelation
+from pixie_tpu.utils import flags as ref_flags
+from pixie_tpu_torch.engine import Carnot
+from pixie_tpu_torch.ops import kernels, ml
+from pixie_tpu_torch.parallel import DeviceExecutor
+from pixie_tpu_torch.serving import SharedScanCoordinator
+from pixie_tpu_torch.types import DataType, Relation
+from pixie_tpu_torch.udf.builtins import NOT_PORTED
+from pixie_tpu_torch.utils import flags
+
+I64 = np.iinfo(np.int64)
+BLOCK = 512
+
+
+def _bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.int64) if a.dtype.itemsize == 8 else a
+
+
+def _state_equal(port: dict, ref: dict) -> None:
+    assert sorted(port) == sorted(ref)
+    for key in ref:
+        want = np.asarray(ref[key])
+        got = port[key].numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=key)
+
+
+def _values(kind: str, rng, n: int) -> np.ndarray:
+    if kind == "int64":
+        x = rng.integers(I64.min, I64.max, n, dtype=np.int64)
+        x[:5] = [I64.min, I64.max, (1 << 53) + 1, -(1 << 60) - 3, 0]
+        return x
+    x = rng.normal(0.0, 1e6, n)
+    nan_payload = np.array([0x7FF8000000000001], np.int64).view(np.float64)[0]
+    x[:6] = [np.nan, -0.0, 0.0, np.inf, -np.inf, nan_payload]
+    return x
+
+
+# -- the priorities and the reservoir op by op ----------------------------------
+@pytest.mark.parametrize("salt", [0, 12345, (1 << 40) + 7])
+@pytest.mark.parametrize("kind", ["int64", "float64"])
+def test_priorities_bit_exact(kind, salt):
+    rng = np.random.default_rng(1)
+    v = _values(kind, rng, 5000)
+    want = np.asarray(ref_ml._priorities(jnp.asarray(v), salt))
+    got = ml.priorities(torch.from_numpy(v), salt).numpy()
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+    assert np.all((got >= 0) & (got < 1))
+    mask = rng.random(5000) < 0.5
+    masked = ml.priorities(torch.from_numpy(v), salt, torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(masked[mask], got[mask])
+    assert np.all(masked[~mask] == -np.inf)
+
+
+@pytest.mark.parametrize("kind", ["int64", "float64"])
+def test_reservoir_update_bit_exact(kind):
+    """Four blocks of 3000 rows into 7 groups, 70% masked in (the masked
+    salt), ints beyond 2^53, NaN, +-0 and +-inf values."""
+    rng = np.random.default_rng(2)
+    G = 7
+    ref_st = ref_ml.reservoir_init(G, dtype=jnp.int64 if kind == "int64" else jnp.float64)
+    st = ml.reservoir_init(G, "cpu", dtype=torch.int64 if kind == "int64" else torch.float64)
+    for _ in range(4):
+        gids = rng.integers(0, G, 3000).astype(np.int32)
+        v = _values(kind, rng, 3000)
+        mask = rng.random(3000) < 0.7
+        ref_st = ref_ml.reservoir_update(ref_st, jnp.asarray(gids), jnp.asarray(v), jnp.asarray(mask))
+        st = ml.reservoir_update(st, torch.from_numpy(gids), torch.from_numpy(v),
+                                 torch.from_numpy(mask))
+        _state_equal(st, ref_st)
+    # Unmasked, too (the reference's mask=None path).
+    gids = rng.integers(0, G, 500).astype(np.int32)
+    v = _values(kind, rng, 500)
+    _state_equal(ml.reservoir_update(st, torch.from_numpy(gids), torch.from_numpy(v)),
+                 ref_ml.reservoir_update(ref_st, jnp.asarray(gids), jnp.asarray(v)))
+    assert list(ml.reservoir_finalize(st)) == list(ref_ml.reservoir_finalize(ref_st))
+
+
+def test_reservoir_merge_forced_ties():
+    """Equal priorities across and within the two sides: the first side's
+    slots win, each side in slot order; -inf slots last."""
+    pri_a = np.array([[0.9, 0.5, 0.5, -np.inf], [0.3, 0.3, 0.3, 0.3], [-np.inf] * 4])
+    pri_b = np.array([[0.5, 0.5, 0.1, -np.inf], [0.3, 0.9, 0.3, 0.3], [0.2, 0.2, -np.inf, 0.2]])
+    a = {"values": np.arange(12.0).reshape(3, 4), "priority": pri_a, "count": np.array([3, 4, 0])}
+    b = {"values": 100 + np.arange(12.0).reshape(3, 4), "priority": pri_b,
+         "count": np.array([2, 4, 3])}
+    want = ref_ml.reservoir_merge({k: jnp.asarray(v) for k, v in a.items()},
+                                  {k: jnp.asarray(v) for k, v in b.items()})
+    got = ml.reservoir_merge({k: torch.from_numpy(v) for k, v in a.items()},
+                             {k: torch.from_numpy(v) for k, v in b.items()})
+    _state_equal(got, want)
+    assert got["values"][0].tolist() == [0.0, 1.0, 2.0, 100.0]
+    assert got["values"][1].tolist() == [105.0, 4.0, 5.0, 6.0]
+
+
+def test_reservoir_update_ties_within_a_block():
+    """Repeated (value, position) pairs cannot tie (the position salts them),
+    so the tie rule inside a block is pinned through a merge of candidates
+    with equal priorities fed directly, as the kernel phase does on the
+    card; here the update keeps rows in row order among equal values."""
+    st = ml.reservoir_init(1, "cpu", k=4)
+    v = torch.full((10,), 7.0, dtype=torch.float64)
+    out = ml.reservoir_update(st, torch.zeros(10, dtype=torch.int32), v)
+    ref = ref_ml.reservoir_update(ref_ml.reservoir_init(1, k=4), jnp.zeros(10, jnp.int32),
+                                  jnp.full(10, 7.0))
+    _state_equal(out, ref)
+
+
+def test_reservoir_finalize_drops_nonfinite_from_json():
+    st = ml.reservoir_init(2, "cpu", k=4)
+    st["values"][0] = torch.tensor([1.5, np.nan, np.inf, -2.0], dtype=torch.float64)
+    st["priority"][0] = torch.tensor([0.9, 0.8, 0.7, 0.6], dtype=torch.float64)
+    st["count"][0] = 9
+    got = ml.reservoir_finalize(st)
+    assert json.loads(got[0]) == {"count": 9, "sample": [1.5, -2.0]}
+    assert json.loads(got[1]) == {"count": 0, "sample": []}
+    want = ref_ml.reservoir_finalize({k: v.numpy() for k, v in st.items()})
+    assert list(got) == list(want)
+
+
+# -- k-means ------------------------------------------------------------------------
+def _clusters(rng, G: int, S: int, d: int, k: int) -> tuple:
+    truth = rng.normal(0.0, 1.0, (k, d)).astype(np.float32) * 3
+    lab = rng.integers(0, k, (G, S))
+    pts = (truth[lab] + 0.05 * rng.normal(0.0, 1.0, (G, S, d))).astype(np.float32)
+    w = (rng.random((G, S)) < 0.85).astype(np.float32)
+    w[1, :20] = 0.0  # the first live point is not point 0
+    pts[w == 0] = 0.0
+    return pts, w
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_kmeans_fit_batched_matches_reference(k):
+    rng = np.random.default_rng(3)
+    pts, w = _clusters(rng, 4, 128, 64, k)
+    fit = jax.jit(jax.vmap(ref_ml.kmeans_fit, in_axes=(0, 0, None)), static_argnums=2)
+    want = np.asarray(fit(jnp.asarray(pts), jnp.asarray(w), k))
+    got = ml.kmeans_fit(torch.from_numpy(pts), torch.from_numpy(w), k).numpy()
+    assert got.shape == (4, k, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    one = ml.kmeans_fit(torch.from_numpy(pts[0]), torch.from_numpy(w[0]), k).numpy()
+    np.testing.assert_array_equal(one, got[0])
+
+
+def test_kmeans_fit_ties_take_the_first_index():
+    """Exactly duplicated points: seeding's argmax and Lloyd's argmin both
+    take the first index, so the centers are exact copies."""
+    base = np.array([[0, 0], [0, 0], [4, 0], [4, 0], [0, 4], [0, 4], [4, 4], [4, 4]], np.float32)
+    pts = np.stack([base, base[::-1].copy()])
+    w = np.ones((2, 8), np.float32)
+    fit = jax.vmap(ref_ml.kmeans_fit, in_axes=(0, 0, None))
+    for k in (2, 3, 4):
+        want = np.asarray(fit(jnp.asarray(pts), jnp.asarray(w), k))
+        got = ml.kmeans_fit(torch.from_numpy(pts), torch.from_numpy(w), k).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+# -- through PxL ------------------------------------------------------------------
+SAMPLE = (
+    "df = px.DataFrame(table='events')\n"
+    "{filter}"
+    "s = df.groupby(['svc']).agg(\n"
+    "    lat=('latency', px.reservoir_sample),\n"
+    "    big=('big', px.reservoir_sample),\n"
+    "    st=('status', px.reservoir_sample),\n"
+    "    n=('latency', px.count),\n"
+    ")\n"
+    "px.display(s, 'out')\n"
+)
+
+
+def _events(n: int = 6000, n_svc: int = 5, seed: int = 4) -> dict:
+    rng = np.random.default_rng(seed)
+    lat = rng.exponential(3e7, n)
+    lat[[5, 77, 301]] = [np.nan, np.inf, -0.0]
+    return {
+        "time_": np.arange(n, dtype=np.int64) * 1000,
+        "svc": np.array([f"svc-{i}" for i in rng.integers(0, n_svc, n)], dtype=object),
+        "latency": lat,
+        "big": rng.integers(1 << 55, 1 << 62, n, dtype=np.int64),
+        "status": rng.choice([200, 301, 404, 500], n).astype(np.int64),  # staged narrowed
+    }
+
+
+def _rel(pkg):
+    dt = RefDT if pkg == "ref" else DataType
+    rel = RefRelation if pkg == "ref" else Relation
+    return rel.of(("time_", dt.TIME64NS), ("svc", dt.STRING), ("latency", dt.FLOAT64),
+                  ("big", dt.INT64), ("status", dt.INT64))
+
+
+def _write(carnot, pkg: str, data: dict, chunk: int = 0) -> None:
+    t = carnot.table_store.create_table("events", _rel(pkg))
+    n = len(data["time_"])
+    step = chunk or n
+    for off in range(0, n, step):
+        t.write_pydict({k: v[off : off + step] for k, v in data.items()})
+    t.compact()
+    t.stop()
+
+
+def _port(data: dict, executor: bool = True, chunk: int = 0):
+    ex = DeviceExecutor(device="cpu", block_rows=BLOCK) if executor else None
+    c = Carnot(device_executor=ex, device="cpu")
+    _write(c, "port", data, chunk)
+    return c
+
+
+def _ref(data: dict, executor: bool = True, chunk: int = 0):
+    ex = (MeshExecutor(mesh=Mesh(np.array(jax.devices()[:1]), ("d",)), block_rows=BLOCK)
+          if executor else None)
+    c = RefCarnot(device_executor=ex)
+    _write(c, "ref", data, chunk)
+    return c
+
+
+class _flags:
+    """Sets flags in both packages, restored on exit."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        for k, v in self.kv.items():
+            flags.set(k, v)
+            ref_flags.set(k, v)
+
+    def __exit__(self, *exc):
+        for k in self.kv:
+            flags.reset(k)
+            ref_flags.reset(k)
+        return False
+
+
+def _assert_json_equal(got: dict, want: dict) -> None:
+    assert got["svc"] == want["svc"]
+    assert got["n"] == want["n"]
+    assert got["lat"] == want["lat"]  # string-equal JSON
+    assert got["big"] == want["big"]
+    assert got["st"] == want["st"]
+
+
+def _both(query: str, data: dict, executor: bool = True, chunk: int = 0) -> tuple:
+    port, ref = _port(data, executor, chunk), _ref(data, executor, chunk)
+    got = port.execute_query(query).table("out")
+    want = ref.execute_query(query).table("out")
+    if executor:
+        assert port.device_executor.last_fold_ms is not None
+        assert ref.device_executor.last_fold_ms is not None
+        assert not ref.device_executor.fallback_errors
+    return got, want
+
+
+@pytest.mark.parametrize("geometry", ["one_block", "blocks", "filter", "passes"])
+def test_reservoir_sample_json_equals_reference(geometry):
+    data = _events(6000 if geometry != "one_block" else 400)
+    filt = "df = df[df.latency > 2e7]\n" if geometry == "filter" else ""
+    query = SAMPLE.format(filter=filt)
+    budget = {"device_group_state_budget_mb": 0} if geometry == "passes" else {}
+    if geometry == "passes":
+        data = _events(6000, n_svc=20)
+    kernels.reset_launches()
+    with _flags(**budget):
+        got, want = _both(query, data)
+    _assert_json_equal(got, want)
+    if geometry == "passes":
+        assert len(got["svc"]) == 20
+    for js in got["big"]:
+        sample = json.loads(js)["sample"]
+        assert sample and all(x > (1 << 53) for x in sample)  # ints round-trip exactly
+        assert set(sample) <= set(data["big"].tolist())
+    assert all(v == 0 for v in kernels.LAUNCHES.values())  # the plain versions ran
+
+
+def test_reservoir_sample_passes_split_the_salt():
+    """With more groups than one pass holds, each pass folds its own state
+    (its own salt): the port's pass plan is the reference's."""
+    data = _events(6000, n_svc=20)
+    with _flags(device_group_state_budget_mb=0):
+        port = _port(data)
+        ex = port.device_executor
+        specs_caps = []
+        real = ex._pass_plan
+        ex._pass_plan = lambda specs, g: specs_caps.append(real(specs, g)) or real(specs, g)
+        port.execute_query(SAMPLE.format(filter=""))
+    assert specs_caps and specs_caps[0] == (8, 3)
+
+
+def test_reservoir_sample_on_a_ringed_table():
+    data = _events(20_000)
+    with _flags(resident_ingest=True, resident_window_rows=4096):
+        got, want = _both(SAMPLE.format(filter=""), data, chunk=2048)
+    _assert_json_equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["no_executor", "after_join"])
+def test_reservoir_sample_on_the_host_aggnode(route):
+    """Fragments the device lanes decline: the host AggNode salts per batch
+    in both packages."""
+    data = _events(3000)
+    if route == "no_executor":
+        got, want = _both(SAMPLE.format(filter=""), data, executor=False, chunk=700)
+        _assert_json_equal(got, want)
+        return
+    owners = {"svc": np.array([f"svc-{i}" for i in range(4)], dtype=object),
+              "team": np.array(["t0", "t1", "t0", "t1"], dtype=object)}
+    query = (
+        "l = px.DataFrame(table='events')\n"
+        "r = px.DataFrame(table='owners')\n"
+        "j = l.merge(r, how='left', left_on=['svc'], right_on=['svc'], suffixes=['', '_r'])\n"
+        "s = j.groupby(['team']).agg(lat=('latency', px.reservoir_sample),\n"
+        "    big=('big', px.reservoir_sample), st=('status', px.reservoir_sample),\n"
+        "    n=('latency', px.count))\n"
+        "px.display(s, 'out')\n"
+    )
+    outs = []
+    with _flags(device_join_min_rows=0):
+        for pkg, make in (("port", _port), ("ref", _ref)):
+            c = make(data)
+            dt = RefDT if pkg == "ref" else DataType
+            rel = (RefRelation if pkg == "ref" else Relation).of(("svc", dt.STRING),
+                                                               ("team", dt.STRING))
+            c.table_store.create_table("owners", rel).write_pydict(dict(owners))
+            outs.append(c.execute_query(query).table("out"))
+    got, want = outs
+    assert got["team"] == want["team"] and len(got["team"]) == 3
+    assert got["n"] == want["n"] and got["lat"] == want["lat"] and got["big"] == want["big"]
+    assert got["st"] == want["st"]
+
+
+class _Capture:
+    """Stands in for an executor's coordinator: runs each query solo and
+    keeps what it offered."""
+
+    def __init__(self):
+        self.calls = []
+
+    def run(self, key, compute, batch_key=None, terms=None, compute_batch=None):
+        solo = compute()
+        self.calls.append(dict(key=key, batch_key=batch_key, terms=terms,
+                               compute_batch=compute_batch, solo=solo))
+        return solo
+
+
+def test_reservoir_sample_batched_slots_equal_solo():
+    """Three reservoir queries that differ only in a latency threshold batch
+    into one ``_run_program_batched`` call; each slot's state leaves are
+    bit-equal to the query alone, and the query alone is the reference's."""
+    data = _events(6000)
+    queries = [SAMPLE.format(filter=f"df = df[df.latency > {t}]\n") for t in (1e7, 2e7, 4e7)]
+    flags.set("shared_scans", True)
+    flags.set("shared_scan_predicate_batching", True)
+    try:
+        port = _port(data)
+        ex = port.device_executor
+        for q in queries:
+            port.execute_query(q)
+        cap = _Capture()
+        ex._shared_scans = cap
+        alone = [port.execute_query(q).table("out") for q in queries]
+        ex._shared_scans = SharedScanCoordinator()
+    finally:
+        flags.reset("shared_scans")
+        flags.reset("shared_scan_predicate_batching")
+    calls = cap.calls
+    assert len(calls) == 3 and all(c["terms"] is not None for c in calls)
+    assert len({c["batch_key"] for c in calls}) == 1
+    slots = calls[0]["compute_batch"]([c["terms"] for c in calls])
+    for call, slot in zip(calls, slots):
+        (vals_a, pres_a), cap_a = call["solo"]
+        (vals_b, pres_b), cap_b = slot
+        assert cap_a == cap_b and np.array_equal(pres_a, pres_b)
+        assert len(vals_a) == len(vals_b) == 10  # 3 x 3 state leaves, then the count
+        for x, y in zip(vals_a, vals_b):
+            assert np.array_equal(np.asarray(x).view(np.uint8), np.asarray(y).view(np.uint8))
+    ref = _ref(data)
+    for q, got in zip(queries, alone):
+        _assert_json_equal(got, ref.execute_query(q).table("out"))
+
+
+def _ml_events(pkg: str, n: int = 600):
+    """The reference's tests/test_ml.py table: two clusters of 2-d JSON
+    embeddings around (0, 0) and (10, -5)."""
+    dt = RefDT if pkg == "ref" else DataType
+    c = RefCarnot() if pkg == "ref" else Carnot(device="cpu")
+    rel = (RefRelation if pkg == "ref" else Relation).of(
+        ("time_", dt.TIME64NS), ("svc", dt.STRING), ("emb", dt.STRING), ("v", dt.FLOAT64))
+    t = c.table_store.create_table("events", rel)
+    rng = np.random.default_rng(2)
+    cl = rng.integers(0, 2, n)
+    embs = np.array([json.dumps([float(10 * k + rng.normal(0, 0.2)),
+                                 float(-5 * k + rng.normal(0, 0.2))]) for k in cl], dtype=object)
+    t.write_pydict({
+        "time_": np.arange(n),
+        "svc": np.array(["a" if i % 2 else "b" for i in range(n)], dtype=object),
+        "emb": embs,
+        "v": rng.normal(50, 5, n),
+    })
+    t.compact()
+    t.stop()
+    return c, cl
+
+
+@pytest.mark.parametrize("groups", ["", "groupby(['svc'])."])
+def test_kmeans_uda_through_pxl_matches_reference(groups):
+    query = ("df = px.DataFrame(table='events')\n"
+             "df.k = 2\n"
+             f"m = df.{groups}agg(model=('emb', 'k', px.kmeans))\n"
+             "px.display(m, 'model')\n")
+    got = _ml_events("port")[0].execute_query(query).table("model")
+    want = _ml_events("ref")[0].execute_query(query).table("model")
+    assert len(got["model"]) == len(want["model"]) == (2 if groups else 1)
+    for g, w in zip(got["model"], want["model"]):
+        g, w = json.loads(g), json.loads(w)
+        assert g["k"] == w["k"] == 2
+        np.testing.assert_allclose(g["centers"], w["centers"], rtol=0, atol=1e-5)
+        for t in ([0.0, 0.0], [10.0, -5.0]):
+            assert np.min(np.linalg.norm(np.asarray(g["centers"]) - t, axis=1)) < 1.0
+
+
+def test_kmeans_state_stays_on_the_cpu():
+    """The AggNode keeps kmeans' state on the CPU whatever the engine's
+    device (``host_state``; ``init`` itself honours the device it is
+    given), through growth and merge."""
+    from pixie_tpu_torch.udf.registry import default_registry
+
+    from pixie_tpu_torch import plan as p
+    from pixie_tpu_torch.exec.agg_node import AggNode
+
+    registry = default_registry()
+    uda = registry.lookup_uda("kmeans", [DataType.STRING, DataType.INT64])
+    assert uda.host_state and uda.string_args == "values"
+    assert all(v.device.type == "meta" for v in uda.init(4, torch.device("meta")).values())
+    rel = Relation.of(("service", DataType.STRING), ("emb", DataType.STRING), ("k", DataType.INT64))
+    op = p.AggOp(groups=("service",), values=(
+        ("model", p.AggregateExpression("kmeans", (p.ColumnRef("emb"), p.ColumnRef("k")))),))
+    node = AggNode(op, op.output_relation([rel], registry), 0)
+    node.set_input_relation(rel, registry)
+    node._device = torch.device("meta")  # any engine device but the CPU
+    node._reset_window()
+    node._ensure_capacity(4 * node._capacity)  # growth
+    st = node._states["model"]
+    assert all(v.device.type == "cpu" for v in st.values())
+    merged = uda.merge(st, uda.init(st["count"].shape[0], "cpu"))
+    assert all(v.device.type == "cpu" for v in merged.values())
+
+
+def test_kmeans_predict_through_pxl_matches_reference():
+    model = json.dumps({"k": 2, "centers": [[0.0, 0.0], [10.0, -5.0]]})
+    query = ("df = px.DataFrame(table='events')\n"
+             f"df.cluster = px.kmeans_predict(df.emb, '{model}')\n"
+             "s = df.groupby(['cluster']).agg(n=('time_', px.count))\n"
+             "px.display(s, 'out')\n")
+    port, cl = _ml_events("port", 200)
+    got = port.execute_query(query).table("out")
+    want = _ml_events("ref", 200)[0].execute_query(query).table("out")
+    assert got == want
+    assert dict(zip(got["cluster"], got["n"])) == {0: int((cl == 0).sum()), 1: int((cl == 1).sum())}
+
+
+def test_kmeans_predict_malformed_inputs():
+    from pixie_tpu_torch.udf.builtins import ml_ops
+
+    from pixie_tpu.udf.registry import default_registry as ref_registry
+
+    ref_fn = ref_registry().lookup_scalar("kmeans_predict", [RefDT.STRING, RefDT.STRING]).fn
+    embs = np.array(["[0.1, 0.2]", "not json", "[]", "[9.5, -4.0, 3.0]"], dtype=object)
+    for model in ('{"k":2,"centers":[[0,0],[10,-5]]}', "nope", '{"k":0,"centers":[]}'):
+        got = ml_ops.kmeans_predict(embs, np.array([model], dtype=object))
+        want = ref_fn(embs, np.array([model], dtype=object))
+        np.testing.assert_array_equal(got, want)
+
+
+def test_ml_names_are_ported():
+    for name in ("reservoir_sample", "kmeans", "kmeans_predict", "sentencepiece", "transformer"):
+        assert name not in NOT_PORTED
