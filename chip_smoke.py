@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port (pixie_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--rows N] [--profile]
+    python3 chip_smoke.py --mesh-cards N      (N cards: config 10 only)
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. In order it:
@@ -29,7 +30,10 @@ the CUDA toolkit. In order it:
    scan's compaction and the join exact; t-digest cluster cells under
    Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp; H18
    and H19 bit for bit; H20 and H21 exact; H22 bit for bit, H23's integers
-   exact and its f64 sums within 1e-12 * sum |v|; H24 bit for bit), and
+   exact and its f64 sums within 1e-12 * sum |v|; H24 bit for bit; H29,
+   the cross-shard merge, bit for bit at 2, 4 and 8 shards of 4096 groups
+   in every lane, with NaN, -0.0/+0.0, int64 overflow and empty shards,
+   timed at config 10's largest merge), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
@@ -145,9 +149,24 @@ the CUDA toolkit. In order it:
      truths (counts and integer sums exact, p50/p90/p99 within 4%, error
      rate within 1e-9, distinct clients within 12%, variance within
      4e-12 * sumsq / n), each query counting its fold lane;
+   - the sharded fold (distributed/mesh.py; K18 as H29): config 5's
+     t-digest (TREE merges through H8) and reservoir_latency (TREE merges
+     through H26) over http_events on a 4-shard mesh of the card
+     (``DeviceExecutor(mesh_config=d:4, devices=[cuda:0] * 4)``), held to
+     verify_sketches and to the reservoirs' numpy truth for that geometry;
+     and bench.py config 10's mesh-width sweep: 2^25 rows of
+     tools/microbench_mesh.py's mesh_bench (seed 21, 64 services, status
+     0-6, standard normal lat) and its query (count, sum, min, max,
+     approx_count_distinct, count_min) at d:1 and over 8 logical shards of
+     the card at hosts:1,d:8, hosts:2,d:4, hosts:4,d:2 and hosts:8,d:1:
+     counts, min and max equal numpy's, sums within 1e-12 * sum |v| of
+     math.fsum, every 8-shard width's integer, min/max, HLL and count-min
+     outputs equal d:1's, H29 launched; each width's warm and cold
+     seconds, K18's device milliseconds and share of a warm query, and
+     H29's launches are printed;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H24 and the hash kernel), the nvidia-smi
+   line of per-kernel results (H1-H29 and the hash kernel), the nvidia-smi
    line, and as its last line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -211,6 +230,7 @@ REPLACES = {
     "reservoir_topk": "pixie_tpu/ops/ml.py:47",
     "kmeans_fit": "pixie_tpu/ops/ml.py:128",
     "encoder_forward": "pixie_tpu/ops/transformer.py:76",
+    "merge_states": "pixie_tpu/parallel/pipeline.py:5605",
 }
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
@@ -231,6 +251,7 @@ SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/ml_kernels.cu"
        for k in ("reservoir_priority", "reservoir_topk", "kmeans_fit")},
     "encoder_forward": "pixie_tpu_torch/ops/kernels/transformer_kernels.cu",
+    "merge_states": "pixie_tpu_torch/ops/kernels/merge_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -3517,28 +3538,49 @@ def np_splitmix64(x: np.ndarray) -> np.ndarray:
     return z
 
 
-def np_priority_keys(words: np.ndarray, mask) -> np.ndarray:
+def fold_blocks(n: int, shards: int) -> list:
+    """[(first row, rows, shard)] of every block of an n-row table staged
+    through the stream over ``shards`` shards, in each shard's fold order:
+    the reference's geometry (windows of streaming_window_rows, clamped to
+    the table's pow2-padded rows; block_geometry per window; shard s holds a
+    window's rows from s * nblk * b)."""
+    from pixie_tpu_torch.parallel.staging import _pow2_at_least, block_geometry
+    from pixie_tpu_torch.utils import flags
+
+    W = max(min(int(flags.streaming_window_rows), _pow2_at_least(max(n, 1), floor=1)), 1)
+    b, nblk = block_geometry(W, shards, BLOCK_ROWS)
+    out = []
+    for s in range(shards):
+        for w in range(-(-n // W)):
+            end = min((w + 1) * W, n)
+            for k in range(nblk):
+                off = w * W + (s * nblk + k) * b
+                out.append((off, max(min(b, end - off), 0), s))
+    return out
+
+
+def np_priority_keys(words: np.ndarray, mask, shards: int = 1) -> np.ndarray:
     """int64 [n]: each row's 53-bit priority key under the blocked salt rule:
-    row i of 2^21-row block b gets combine(splitmix64(word),
-    splitmix64(i + salt_b)) >> 11, salt_b the masked-in rows before block b;
-    -1 for a row masked out. The blocks run on 8 threads (numpy's ufuncs
-    release the GIL)."""
+    row i of a block gets combine(splitmix64(word), splitmix64(i + salt)) >>
+    11, salt the masked-in rows of the earlier blocks of its shard's fold
+    (``fold_blocks``); -1 for a row masked out. The blocks run on 8 threads
+    (numpy's ufuncs release the GIL)."""
     from concurrent.futures import ThreadPoolExecutor
 
     n = words.size
     keys = np.empty(n, np.int64)
     golden = np.uint64(0x9E3779B97F4A7C15)
-    offs = list(range(0, n, BLOCK_ROWS))
-    sizes = [min(BLOCK_ROWS, n - off) for off in offs]
-    if mask is None:
-        salts = np.cumsum([0] + sizes[:-1])
-    else:
-        salts = np.cumsum([0] + [int(mask[off:off + BLOCK_ROWS].sum()) for off in offs[:-1]])
+    blocks = [blk for blk in fold_blocks(n, shards) if blk[1] > 0]
+    salts, seen = [], [0] * shards
+    for off, size, sh in blocks:
+        salts.append(seen[sh])
+        seen[sh] += size if mask is None else int(mask[off:off + size].sum())
 
-    def block(b: int) -> None:
-        off, end = offs[b], offs[b] + sizes[b]
+    def block(j: int) -> None:
+        off, size, _ = blocks[j]
+        end = off + size
         h1 = np_splitmix64(words[off:end])
-        h2 = np_splitmix64(np.arange(end - off, dtype=np.uint64) + np.uint64(salts[b]))
+        h2 = np_splitmix64(np.arange(size, dtype=np.uint64) + np.uint64(salts[j]))
         h = np_splitmix64(h1 ^ (h2 + golden + (h1 << np.uint64(6)) + (h1 >> np.uint64(2))))
         k = (h >> np.uint64(11)).view(np.int64)
         if mask is not None:
@@ -3546,17 +3588,19 @@ def np_priority_keys(words: np.ndarray, mask) -> np.ndarray:
         keys[off:end] = k
 
     with ThreadPoolExecutor(8) as pool:
-        list(pool.map(block, range(len(offs))))
+        list(pool.map(block, range(len(blocks))))
     return keys
 
 
-def reservoir_truth(values: np.ndarray, gids: np.ndarray, G: int, mask=None) -> list:
+def reservoir_truth(values: np.ndarray, gids: np.ndarray, G: int, mask=None,
+                    shards: int = 1) -> list:
     """[G] JSON strings, as the port's finalize writes them, of each group's
     RESERVOIR_K rows of highest priority key (ties to the earlier row), from
-    numpy's uint64 SplitMix64 under the blocked salt rule."""
+    numpy's uint64 SplitMix64 under the blocked salt rule of a fold over
+    ``shards`` shards (the shards' reservoirs merged: the top keys of all)."""
     is_int = values.dtype.kind in "iu"
     vals = values.astype(np.int64) if is_int else values.astype(np.float64)
-    keys = np_priority_keys(vals.view(np.uint64), mask)
+    keys = np_priority_keys(vals.view(np.uint64), mask, shards)
     gids = gids.astype(np.int64)
     counts = np.bincount(gids[keys >= 0], minlength=G)
     need = np.minimum(counts, RESERVOIR_K)
@@ -3580,10 +3624,10 @@ def reservoir_truth(values: np.ndarray, gids: np.ndarray, G: int, mask=None) -> 
     return out
 
 
-def latency_sample_truth(data: dict) -> dict:
+def latency_sample_truth(data: dict, shards: int = 1) -> dict:
     gids = data["svc"]
-    return dict(lat=reservoir_truth(data["latency"], gids, N_SERVICES),
-                status=reservoir_truth(data["status"], gids, N_SERVICES))
+    return dict(lat=reservoir_truth(data["latency"], gids, N_SERVICES, shards=shards),
+                status=reservoir_truth(data["status"], gids, N_SERVICES, shards=shards))
 
 
 def verify_reservoir_latency(result, data: dict, truth: dict) -> None:
@@ -3725,6 +3769,297 @@ def ml_parity(cuda, cpu, flows_cuda, flows_cpu, n_rows: int) -> None:
         "kernel path == plain path")
 
 
+# ---------------------------------------------------------------- the mesh
+# bench.py config 10 (bench.py:1241-1275) with the table and query of
+# tools/microbench_mesh.py (:50-58, :82-90): one group-by of the mergeable
+# UDAs at every mesh width over the same devices: here 8 logical shards of
+# one card, and a 4-shard mesh for the TREE merges.
+MESH_ROWS = 1 << 25
+MESH_SERVICES = 64
+MESH_SHARDS = 8
+MESH_WIDTHS = ("hosts:1,d:8", "hosts:2,d:4", "hosts:4,d:2", "hosts:8,d:1")
+TREE_SHARDS = 4
+MESH_QUERY = (
+    "df = px.DataFrame(table='mesh_bench')\n"
+    "g = df.groupby('service').agg("
+    "n=('lat', px.count), s=('lat', px.sum),"
+    " mn=('lat', px.min), mx=('lat', px.max),"
+    " u=('service', px.approx_count_distinct),"
+    " cm=('status', px.count_min))\n"
+    "px.display(g, 'out')\n"
+)
+# The f64 sums' bound (PERF.md; ROADMAP Fault-17): |sum - fsum| <=
+# 1e-12 * sum |v| of the group, the bound every port f64 sum is held to.
+SUM_BOUND = 1e-12
+
+
+def merge_lane_stack(rng, D: int, L: int, dtype, kind: str) -> torch.Tensor:
+    """A [D, L] stack of D shards' leaves of one H29 lane: random values,
+    the last shard empty (the identity of ``kind``), and for f64 NaN in
+    shard 0 or 1, -0.0/+0.0 disagreeing in both orders, all -0.0, a NaN
+    payload, +-inf and subnormals; int64 sums overflowing."""
+    if dtype == torch.float64:
+        a = rng.standard_normal((D, L)) * 1e3
+        a[0, 0] = np.nan
+        a[min(1, D - 1), 1] = np.nan
+        a[:, 2] = 0.0
+        a[0, 2] = -0.0
+        a[:, 3] = -0.0
+        a[min(1, D - 1), 3] = 0.0
+        a[:, 4] = -0.0
+        a[0, 5] = np.array([0x7FF8000000000001], np.int64).view(np.float64)[0]
+        a[0, 6], a[min(1, D - 1), 7] = np.inf, -np.inf
+        a[:, 8] = 5e-324
+        ident = {"sum": 0.0, "max": -np.inf, "min": np.inf}[kind]
+    elif dtype == torch.int64:
+        a = rng.integers(-(2**62), 2**62, (D, L), dtype=np.int64)
+        a[:, :8] = 2**63 - 1
+        ident = {"sum": 0, "max": -(2**63), "min": 2**63 - 1}[kind]
+    else:
+        a = rng.integers(0, 64, (D, L)).astype(np.int32)
+        ident = {"max": 0, "min": 2**31 - 1}[kind]
+    a[D - 1] = ident
+    return torch.from_numpy(a).cuda()
+
+
+MERGE_LANES = ((torch.int64, "sum"), (torch.float64, "sum"), (torch.int64, "max"),
+               (torch.int64, "min"), (torch.int32, "max"), (torch.int32, "min"),
+               (torch.float64, "max"), (torch.float64, "min"))
+
+
+def merge_kernel_phase(dev) -> dict:
+    """H29 against merge_stack_plain on the card, bit for bit, at D = 2, 4
+    and 8 shards of L = 4096 groups in every lane (int64 and f64 sums;
+    int64, int32 and f64 max and min; ``merge_lane_stack``'s edge values).
+    Record: the config 10 fold's largest merge, its int64 sums at D = 8
+    (count-min cells and totals, counts and presence of 64 groups), and
+    each lane at D = 8, L = 4096."""
+    from pixie_tpu_torch.ops import kernels, merge
+
+    rng = np.random.default_rng(51)
+    L = 4096
+    by_lane = {}
+    for D in (2, 4, 8):
+        for dtype, kind in MERGE_LANES:
+            stack = merge_lane_stack(rng, D, L, dtype, kind)
+            got = kernels.merge_states(stack, kind)
+            want = merge.merge_stack_plain(stack, kind)
+            torch.cuda.synchronize()
+            check(bits_equal(got, want), f"H29 {kind} {dtype} D {D}: kernel != plain")
+            if D == 8:
+                by_lane[f"{kind}_{str(dtype).split('.')[-1]}"] = time_ms(
+                    lambda st=stack, k=kind: kernels.merge_states(st, k))
+    L_main = MESH_SERVICES * (1 + 4 * 8192 + 1 + 1)
+    stack = torch.from_numpy(rng.integers(0, 1 << 20, (MESH_SHARDS, L_main))).to(dev)
+    got, want = kernels.merge_states(stack, "sum"), merge.merge_stack_plain(stack, "sum")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "H29 int64 sum at the mesh path's shape")
+    b_ms, by = bound((MESH_SHARDS + 1) * L_main * 8, MESH_SHARDS * L_main)
+    rec = record(
+        lambda: kernels.merge_states(stack, "sum"),
+        lambda: merge.merge_stack_plain(stack, "sum"),
+        lambda: torch.sum(stack, 0), b_ms, by, 0.0,
+        f"D {MESH_SHARDS}, L {L_main} int64 sums",
+    )
+    rec["by_lane_d8_l4096_ms"] = by_lane
+    log(f"H29 merge_states: {rec['ms']:.4f} ms [bound {b_ms:.4f}], plain {rec['plain_ms']:.4f}, "
+        f"torch.sum {rec['library_ms']:.4f}; D 8 L 4096 by lane {by_lane}")
+    return {"merge_states": rec}
+
+
+def mesh_table(n_rows: int) -> dict:
+    """tools/microbench_mesh.py's mesh_bench columns (seed 21), the service
+    as its index (svc<i>), with the per-service truths: counts, min, max,
+    math.fsum and sum |lat|."""
+    rng = np.random.default_rng(21)
+    mb = {"svc": rng.integers(0, MESH_SERVICES, n_rows), "status": rng.integers(0, 7, n_rows),
+          "lat": rng.standard_normal(n_rows)}
+    order = np.argsort(mb["svc"].astype(np.uint8), kind="stable")
+    lat = mb["lat"][order]
+    counts = np.bincount(mb["svc"], minlength=MESH_SERVICES)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    mb["n"] = counts
+    mb["mn"] = np.minimum.reduceat(lat, starts)
+    mb["mx"] = np.maximum.reduceat(lat, starts)
+    mb["fsum"] = [math.fsum(lat[a:a + c]) for a, c in zip(starts, counts)]
+    mb["abs"] = np.add.reduceat(np.abs(lat), starts)
+    return mb
+
+
+def build_mesh_carnot(mb: dict, n_rows: int, device: str):
+    """A Carnot on the flat mesh d:1 of ``device`` with mesh_bench written
+    (16M-row chunks); the widths' Carnots share its table store."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.types import DataType, Relation
+
+    carnot = Carnot(device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    rel = Relation.of(("service", DataType.STRING), ("status", DataType.INT64),
+                      ("lat", DataType.FLOAT64))
+    table = carnot.table_store.create_table("mesh_bench", rel, size_limit=1 << 42)
+    svc_dict = table.dictionaries["service"]
+    for i in range(MESH_SERVICES):
+        svc_dict.get_code(f"svc{i}")
+    chunk = 16_000_000
+    for off in range(0, n_rows, chunk):
+        m = min(chunk, n_rows - off)
+        table.write_pydict({
+            "service": DictColumn(mb["svc"][off:off + m].astype(np.int32), svc_dict),
+            "status": mb["status"][off:off + m],
+            "lat": mb["lat"][off:off + m],
+        })
+    table.compact()
+    table.stop()
+    return carnot
+
+
+def mesh_carnot(base, spec: str, shards: int, devices=None):
+    """A Carnot over ``base``'s tables whose executor folds on the mesh
+    ``spec`` over ``devices`` (by default ``shards`` logical shards of
+    ``base``'s device)."""
+    from pixie_tpu_torch.distributed import MeshConfig
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+
+    devices = devices or [base.device_executor.device] * shards
+    ex = DeviceExecutor(block_rows=BLOCK_ROWS, mesh_config=MeshConfig.parse(spec, shards),
+                        devices=devices)
+    return Carnot(table_store=base.table_store, device_executor=ex)
+
+
+def verify_mesh(result, mb: dict) -> dict:
+    """Config 10's outputs against numpy: counts, min and max exact, sums
+    within SUM_BOUND * sum |v| of math.fsum, one distinct service per group,
+    count-min totals the counts. Returns the outputs by service index."""
+    rows = result.table("out")
+    idx = [int(name[3:]) for name in rows["service"]]
+    check(sorted(idx) == list(range(MESH_SERVICES)), "mesh: the 64 services")
+    out = {}
+    for k in ("n", "s", "mn", "mx", "u", "cm"):
+        vals = [None] * MESH_SERVICES
+        for i, v in zip(idx, rows[k]):
+            vals[i] = v
+        out[k] = vals
+    for i in range(MESH_SERVICES):
+        check(out["n"][i] == mb["n"][i], f"mesh: count of svc{i}")
+        check(f64_bits_equal(out["mn"][i], mb["mn"][i]) and f64_bits_equal(out["mx"][i], mb["mx"][i]),
+              f"mesh: min/max of svc{i}")
+        err = abs(out["s"][i] - mb["fsum"][i])
+        check(err <= SUM_BOUND * mb["abs"][i], f"mesh: sum of svc{i} off by {err}")
+        check(out["u"][i] == 1, f"mesh: distinct services of svc{i}: {out['u'][i]}")
+        check(json.loads(out["cm"][i])["total"] == mb["n"][i], f"mesh: count-min total of svc{i}")
+    return out
+
+
+def k18_reads(carnot, device: str) -> tuple:
+    """(median K18 device ms, median seconds) of WARM_QUERIES more warm
+    queries of config 10, each read alone (``merge_device_ms``)."""
+    ex = carnot.device_executor
+    ex.merge_device_ms()
+    k18, secs = [], []
+    for _ in range(WARM_QUERIES):
+        t1 = time.perf_counter()
+        carnot.execute_query(MESH_QUERY)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        k18.append(ex.merge_device_ms())
+    return float(np.median(k18)), float(np.median(secs))
+
+
+def mesh_paths(mb: dict, paths: dict, phase_s: dict, device: str = "cuda") -> dict:
+    """Config 10's sweep: d:1, then every 8-shard width, each driven (cold,
+    then warm) and checked against numpy; every 8-shard width's integer,
+    min/max, HLL and count-min outputs equal d:1's, and it launches H29.
+    Three more warm queries a width read K18's device time (``k18_reads``).
+    Returns {width: {warm_s, cold_s, k18_ms, k18_share, h29_launches}}."""
+    t0 = time.perf_counter()
+    base = build_mesh_carnot(mb, MESH_ROWS, device)
+    log(f"mesh_bench: {MESH_ROWS} rows written in {time.perf_counter() - t0:.1f} s")
+    phase_s["mesh_table"] = time.perf_counter() - t0
+    summary, first = {}, None
+    for spec in ("d:1",) + MESH_WIDTHS:
+        t0 = time.perf_counter()
+        c = base if spec == "d:1" else mesh_carnot(base, spec, MESH_SHARDS)
+        got = {}
+        name = "mesh_" + spec.replace(":", "").replace(",", "_")
+        expect = ("segment_rows_sum_i64", "segment_minmax")
+        paths[name] = drive(c, MESH_QUERY, lambda r: got.update(verify_mesh(r, mb)),
+                            expect + (() if spec == "d:1" else ("merge_states",)))
+        if spec == "d:1":
+            check(paths[name]["launches"]["merge_states"] == 0, "d:1 launched H29")
+            first = got
+        else:
+            for k in ("n", "mn", "mx", "u", "cm"):
+                check(got[k] == first[k] if k != "mn" and k != "mx"
+                      else all(f64_bits_equal(a, b) for a, b in zip(got[k], first[k])),
+                      f"mesh {spec}: {k} differs from d:1")
+        k18, warm_one = k18_reads(c, device)
+        p = paths[name]
+        summary[spec] = dict(warm_s=min(p["warm"]), cold_s=p["cold"], k18_ms=k18,
+                             k18_share=k18 / (warm_one * 1e3),
+                             h29_launches=p["launches"]["merge_states"])
+        log(f"mesh {spec}: warm {min(p['warm']):.4f} s, cold {p['cold']:.3f} s, K18 {k18:.4f} ms "
+            f"= {100 * k18 / (warm_one * 1e3):.2f}% of a warm query ({warm_one:.4f} s), "
+            f"H29 launches {p['launches']['merge_states']} (medians of {WARM_QUERIES} more "
+            "warm queries)")
+        phase_s[name] = time.perf_counter() - t0
+    return summary
+
+
+def mesh_cards_sweep(n: int, device: str = "cuda", cards=None) -> dict:
+    """``--mesh-cards n``: config 10's table and query over n real cards and
+    over n logical shards of card 0, at d:n and hosts:2,d:n/2, in turns
+    (logical, cards, cards, logical), each driven cold and warm and checked
+    as ``mesh_paths`` checks a width; the cards' outputs equal the logical
+    shards' but the f64 sums. Returns {spec: {placement: (best warm s,
+    best cold s, best of the turns' median K18 ms)}}."""
+    if cards is None:
+        check(torch.cuda.device_count() >= n, f"--mesh-cards {n}: {torch.cuda.device_count()} cards")
+        cards = [torch.device("cuda", i) for i in range(n)]
+    mb = mesh_table(MESH_ROWS)
+    base = build_mesh_carnot(mb, MESH_ROWS, device)
+    out = {}
+    for spec in (f"d:{n}", f"hosts:2,d:{n // 2}"):
+        res, first = {"cards": [], "logical": []}, None
+        for placement in ("logical", "cards", "cards", "logical"):
+            c = mesh_carnot(base, spec, n, cards if placement == "cards" else None)
+            got = {}
+            p = drive(c, MESH_QUERY, lambda r: got.update(verify_mesh(r, mb)), ("merge_states",))
+            if first is None:
+                first = got
+            for k in ("n", "mn", "mx", "u", "cm"):
+                check(str(got[k]) == str(first[k]), f"{spec} {placement}: {k} differs")
+            res[placement].append((min(p["warm"]), p["cold"], k18_reads(c, device)[0]))
+        out[spec] = {k: (min(r[0] for r in v), min(r[1] for r in v), min(r[2] for r in v))
+                     for k, v in res.items()}
+        log(f"mesh over {n} cards, {spec}: best warm / cold s / K18 ms: {out[spec]}")
+    return out
+
+
+def tree_merge_paths(carnot, data: dict, paths: dict, phase_s: dict) -> None:
+    """Config 5's t-digest (H8 merges) and reservoir_latency (H26 merges)
+    over http_events on a 4-shard mesh of the card, held to the one-shard
+    phases' truths: verify_sketches, and the reservoirs' numpy truth for the
+    4-shard fold (``reservoir_truth``)."""
+    t0 = time.perf_counter()
+    c = mesh_carnot(carnot, f"d:{TREE_SHARDS}", TREE_SHARDS)
+    paths["sketches_mesh4"] = drive(
+        c, SKETCHES, lambda r: verify_sketches(r, data, len(data["svc"])),
+        ("tdigest_merge", "merge_states"),
+    )
+    phase_s["sketches_mesh4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    truth = latency_sample_truth(data, TREE_SHARDS)
+    log(f"reservoir_latency 4-shard truths in {time.perf_counter() - t0:.1f} s")
+    paths["reservoir_mesh4"] = drive(
+        c, RESERVOIR_LATENCY, lambda r: verify_reservoir_latency(r, data, truth),
+        ("reservoir_topk", "merge_states"),
+    )
+    phase_s["reservoir_mesh4"] = time.perf_counter() - t0
+
+
 def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
           streamed: bool = True, offloaded: bool = True) -> dict:
     """One main path: launch counts and lanes zeroed just before, one cold
@@ -3776,6 +4111,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one warm query of each path with torch.profiler "
                          "and print its device time by op")
+    ap.add_argument("--mesh-cards", type=int, default=0,
+                    help="run only config 10 over this many real cards against the same "
+                         "geometry over logical shards of card 0 (needs that many cards)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3802,6 +4140,13 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     log(f"opt-in shared memory per block: {kernels.smem_optin_bytes(dev)} B")
     phase_s["build"] = time.perf_counter() - t0
+    if args.mesh_cards:
+        sweep = mesh_cards_sweep(args.mesh_cards)
+        log(f"mesh cards sweep: {json.dumps(sweep)}; {time.perf_counter() - t_start:.1f} s")
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     records = kernel_phases(kernels, segment, histogram, dev)
@@ -3816,6 +4161,7 @@ def main() -> int:
     records.update(batch_kernel_phase(dev))
     records.update(ring_kernel_phase(dev))
     records.update(ml_kernel_phase(dev))
+    records.update(merge_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -3868,6 +4214,7 @@ def main() -> int:
         ("reservoir_priority", "reservoir_topk", "segment_rows_sum_i64"),
     )
     phase_s["reservoir_latency"] = time.perf_counter() - t0
+    tree_merge_paths(carnot, data, paths, phase_s)
     t0 = time.perf_counter()
     shared = shared_scan_path(carnot, data, args.profile)
     phase_s["shared_scan"] = time.perf_counter() - t0
@@ -4035,6 +4382,11 @@ def main() -> int:
     )
     phase_s["kmeans_services"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    mb = mesh_table(MESH_ROWS)
+    phase_s["mesh_truths"] = time.perf_counter() - t0
+    mesh = mesh_paths(mb, paths, phase_s)
+
     n_queries = 1 + WARM_QUERIES
     rows_of = {"service_stats": args.rows, "sketches": args.rows, "status_mix": args.rows,
                "flows": FLOW_ROWS, "flow_span": FLOW_ROWS, "flow_window": FLOW_ROWS,
@@ -4046,7 +4398,10 @@ def main() -> int:
                "http_data_ring": SMALL_ROWS, "sketches_ring": SMALL_ROWS,
                "reservoir_latency": args.rows, "reservoir_flows": FLOW_ROWS,
                "path_embeddings": LET_ROWS, "kmeans_services": KM_ROWS,
-               "kmeans_predict": KM_ROWS}
+               "kmeans_predict": KM_ROWS, "sketches_mesh4": args.rows,
+               "reservoir_mesh4": args.rows,
+               **{"mesh_" + spec.replace(":", "").replace(",", "_"): MESH_ROWS
+                  for spec in ("d:1",) + MESH_WIDTHS}}
     for name, p in paths.items():
         best = min(p["warm"])
         cp = p["cold_phases"]
@@ -4101,6 +4456,8 @@ def main() -> int:
         ):
             profile_warm(c, query, min(paths[name]["warm"]), name)
 
+    log(f"mesh sweep (config 10, {MESH_ROWS} rows, {MESH_SHARDS} logical shards of the card): "
+        f"{json.dumps(mesh)}")
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     out = []

@@ -14,12 +14,14 @@ and slot-batched segment sums (H22, H23), ``convert_kernels.cu`` the
 resident ring's raw -> plan converters (H24), ``ml_kernels.cu`` the ML
 lane's reservoir priorities, reservoir top-k and k-means (H25-H27, with the
 64-bit hashes of ``hash64.cuh``) and ``transformer_kernels.cu`` the
-transformer UDF's encoder (H28); see each file's header. At the first launch, ``library()`` compiles them with
-``nvcc`` for ``sm_90a``, one process per source started together, and
-links them into ``pixie_tpu_torch/_build/`` as
-one shared library with a plain C interface, keyed by a hash of the sources,
-their headers and the flags, and loads it with ctypes; a later process finds
-the library there and skips the build. Nothing here is imported, built or
+transformer UDF's encoder (H28) and ``merge_kernels.cu`` the sharded
+fold's cross-shard merge of the states (H29); see each file's header. At
+the first launch, ``library()`` compiles them with ``nvcc`` for
+``sm_90a``, one process per source started together, and links them into
+``pixie_tpu_torch/_build/`` as one shared library with a plain C
+interface, keyed by a hash of the sources, their headers and the flags, and
+loads it with ctypes; a later process finds the library there and skips the
+build. Nothing here is imported, built or
 probed at module import: the CPU tests import this module on machines with
 no CUDA toolkit.
 
@@ -77,6 +79,7 @@ KERNELS = (
     "reservoir_topk",
     "kmeans_fit",
     "encoder_forward",
+    "merge_states",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -87,7 +90,7 @@ SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
     "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
     "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu", "ml_kernels.cu",
-    "transformer_kernels.cu",
+    "transformer_kernels.cu", "merge_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -136,6 +139,7 @@ _SIGNATURES = {
     "px_reservoir_topk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "px_encoder_forward": (_P, _P, _I, _P, _P, _P, _I, _P, _P),
+    "px_merge_states": (_P, _I, _LL, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -1279,4 +1283,34 @@ def encoder_forward(ids: torch.Tensor, lens: torch.Tensor, embed: torch.Tensor,
         return out
     _launch("encoder_forward", device, ids.data_ptr(), lens.data_ptr(), B, embed.data_ptr(),
             pos.data_ptr(), layers.data_ptr(), layers.shape[0], out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------- mesh merge
+MERGE_KINDS = {"sum": 0, "max": 1, "min": 2}
+_MERGE_TYPES = {torch.int64: 0, torch.int32: 1, torch.float64: 2}
+
+
+def merge_states(stack: torch.Tensor, kind: str) -> torch.Tensor:
+    """H29: [L] = the reduction of a [D, L] stack of D shards' leaves over
+    the shard axis, in order d = 0..D-1: "sum" of int64 (wrapping mod 2^64)
+    or f64 (IEEE adds in that order); "max"/"min" of int64, int32 or f64
+    (f64 in H11's order: -0.0 below +0.0, a NaN in the accumulator stays, a
+    NaN that arrives wins as the canonical quiet NaN)."""
+    device = stack.device
+    if kind not in MERGE_KINDS:
+        raise ValueError(f"merge_states: unknown kind {kind!r}")
+    if stack.dtype not in _MERGE_TYPES or (kind == "sum" and stack.dtype == torch.int32):
+        raise TypeError(f"merge_states: no {kind} of {stack.dtype}")
+    _require(stack, "stack", stack.dtype, device, 2)
+    D, L = stack.shape
+    if D < 1:
+        raise ValueError("merge_states: a stack of no shards")
+    out = torch.empty(L, dtype=stack.dtype, device=device)
+    if L == 0:
+        return out
+    _launch(
+        "merge_states", device,
+        stack.data_ptr(), D, L, MERGE_KINDS[kind], _MERGE_TYPES[stack.dtype], out.data_ptr(),
+    )
     return out

@@ -1,7 +1,9 @@
 """Device execution of the port: staging and the device fold.
 
-Ref: pixie_tpu/parallel (MeshExecutor). One CUDA device for now; the
-multi-GPU merge (the reference's shard_map collectives) is not ported yet.
+Ref: pixie_tpu/parallel (MeshExecutor). The executor folds over a mesh of
+devices (distributed/mesh.py), one shard a device, and merges the shards'
+states at the root (ops/merge.py, K18); the partitioned join and the mesh
+recovery plane are not ported yet.
 """
 
 from pixie_tpu_torch.parallel.pipeline import DeviceExecutor

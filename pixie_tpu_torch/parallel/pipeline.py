@@ -35,8 +35,16 @@ INT64 column with few values through the int-dictionary cell lane (its
 (group, code) histogram by H1, folded once a pass by H20/H21), every other
 UDA through its own update (H2, H3, the sketch kernels H5-H8); the states are
 finalized on the device (H4, H9, H10) and fetched with one device -> host
-copy per pass. On one device the reference's cross-device merge
-(``_merge_states``) is the identity, so the port has none yet.
+copy per pass.
+
+The executor runs on a mesh (distributed/mesh.py): the flat mesh ``d:1`` on
+one device by default, or D shards over a list of devices (distinct cards,
+or logical shards of one). The staging is shard-major (shard i holds its
+rows on device i), every shard folds its own blocks into its own states,
+and the states merge at the root, shard 0's device, in flat device order
+(K18, ``ops/merge.py``: H29 for the elementwise states, the UDA's merge in
+order for a TREE state) before the one finalize and fetch. On one shard the
+merge is the identity.
 
 ``any`` over a bare column with no predicate takes the reference's host
 lane (``_plan_host_any``): one representative per group from the key plan's
@@ -99,10 +107,10 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch.compiler.analyzer import substitute
-from pixie_tpu_torch.device import resolve_device
+from pixie_tpu_torch.distributed.mesh import resolve_mesh
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator, call_host
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
-from pixie_tpu_torch.ops import batched, codec, scan, segment
+from pixie_tpu_torch.ops import batched, codec, merge, scan, segment
 from pixie_tpu_torch.parallel.staging import (
     StagedColumns,
     WindowStager,
@@ -111,6 +119,7 @@ from pixie_tpu_torch.parallel.staging import (
     plan_stream,
     profile_add,
     read_columns,
+    shard_of,
     stage_columns,
     staged_gid_nbytes,
     timed,
@@ -853,7 +862,8 @@ def _cell_served(arg_e, uda, cell_cols: dict) -> bool:
 
 def _fetch(tensors: list) -> list:
     """Bring device tensors to the host with ONE device -> host copy: each
-    is viewed as bytes, the bytes are concatenated, copied, and split."""
+    is viewed as bytes, the bytes are concatenated, copied, and split. The
+    tensors share one device (the root's)."""
     parts = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
     host = torch.cat(parts).cpu().numpy()
     out, off = [], 0
@@ -892,7 +902,7 @@ class _FullProbe:
         if self.host is not None and self.event is None:
             self.host.copy_(self.written, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(self.written.device))
 
     def full(self) -> bool:
         if self.host is None:
@@ -955,12 +965,25 @@ def _sum_lane(uda) -> Optional[str]:
 
 
 class DeviceExecutor:
-    """Runs matching fragments on one device: ``device=None`` is the CUDA
-    card (raising when there is none), ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels."""
+    """Runs matching fragments on a mesh of devices. ``device=None`` is the
+    flat mesh ``d:1`` on the CUDA card (raising when there is none),
+    ``device="cpu"`` on the CPU, which runs the plain PyTorch versions of
+    the kernels. A mesh of more shards comes from ``mesh`` (a
+    ``distributed.Mesh``), from ``mesh_config`` over ``devices`` (every
+    CUDA card when None; a list may name one device several times: logical
+    shards of it), or from the ``mesh_axes`` flag (``resolve_mesh``). A
+    geometry that wants more devices than it is given raises ValueError."""
 
-    def __init__(self, device=None, block_rows: Optional[int] = None):
-        self.device = resolve_device(device)
+    def __init__(self, device=None, block_rows: Optional[int] = None, mesh=None,
+                 mesh_config=None, devices=None):
+        self.mesh, self.mesh_config = resolve_mesh(mesh, mesh_config, devices, device)
+        # The root: shard 0's device, where states merge and finalize.
+        self.device = self.mesh.root
+        # The geometry (and its device list) in every staged-cache and
+        # shared-scan key, as the reference's f"mesh:{self._mesh_sig}": a
+        # staging of one geometry is never read as another.
+        self._mesh_sig = self.mesh_config.signature()
+        self._mesh_key = f"mesh:{self._mesh_sig}@" + ",".join(map(str, self.mesh.devices))
         self.block_rows = (
             block_rows if block_rows is not None else flags.device_block_rows
         )
@@ -990,6 +1013,8 @@ class DeviceExecutor:
         # ``shared_scans``; ``_shared_scan_run``).
         self._shared_scans = SharedScanCoordinator()
         self.last_fold_ms: Optional[float] = None
+        # K18's spans since the last merge_device_ms() (under _cache_lock).
+        self._merge_marks: list = []
 
     # -- public -------------------------------------------------------------
     def try_execute_fragment(
@@ -1160,7 +1185,7 @@ class DeviceExecutor:
         with self._cache_lock:
             if self._resident is None:
                 self._resident = ResidentIngestManager(
-                    self.device, self.block_rows, self._staged_cache
+                    self.device, self.block_rows, self._staged_cache, shards=self.mesh.size
                 )
             return self._resident
 
@@ -1298,24 +1323,42 @@ class DeviceExecutor:
         """Every block's predicates ANDed into its validity mask and its
         output expressions cast to their buffers' dtypes (int32 codes for
         strings) by one H17 launch, the selected rows compacted into buffers
-        of ``limit`` rows by H12; then ONE fetch of ``written`` and one of the
-        selected prefix.
-        On CUDA the host copies ``written`` back without waiting after each
-        block and stops enqueuing blocks once a finished copy shows the
-        limit reached (the kernel already returns at once for a full scan,
-        so where the host stops changes no result)."""
-        bufs = [torch.zeros(m.limit, dtype=dt, device=self.device) for dt in dtypes]
-        written = torch.zeros(1, dtype=torch.int32, device=self.device)
-        probe = _FullProbe(written, m.limit)
+        of ``limit`` rows by H12. Each shard compacts its own rows into its
+        own buffers, up to ``limit`` (pixie_tpu/parallel/pipeline.py:4126);
+        then the host takes the shards' prefixes in device order up to
+        ``limit`` rows (:3900-3915): one fetch of the ``written`` counters
+        and one of the prefixes taken.
+        On CUDA the host copies a shard's ``written`` back without waiting
+        after each block and stops enqueuing that shard's blocks once a
+        finished copy shows its limit reached (the kernel already returns at
+        once for a full scan, so where the host stops changes no result)."""
+        shards = []
+        for s, a in enumerate(self._replicate(aux)):
+            dev = staged.shard_device(s)
+            bufs = [torch.zeros(m.limit, dtype=dt, device=dev) for dt in dtypes]
+            written = torch.zeros(1, dtype=torch.int32, device=dev)
+            shards.append((staged.shard(s), a, bufs, written, _FullProbe(written, m.limit)))
         for blk in range(staged.num_blocks):
-            if probe.full():
+            live = [sh for sh in shards if not sh[4].full()]
+            if not live:
                 break
-            vals = self._run_block(program, staged, blk, aux)
-            cols = [vals[f"out:{name}"].contiguous() for name, _ in m.out_exprs]
-            scan.compact_rows(vals["__mask__"].contiguous(), cols, written, bufs, m.limit)
-            probe.record()
-        w = int(written[0])
-        return _fetch([b[:w] for b in bufs])
+            for sv, a, bufs, written, probe in live:
+                vals = self._run_block(program, sv, blk, a)
+                cols = [vals[f"out:{name}"].contiguous() for name, _ in m.out_exprs]
+                scan.compact_rows(vals["__mask__"].contiguous(), cols, written, bufs, m.limit)
+                probe.record()
+        counts = _fetch([merge.to_root(sh[3], self.device) for sh in shards])
+        parts, remaining = [], m.limit
+        for (_, _, bufs, _, _), w in zip(shards, counts):
+            take = min(int(w[0]), remaining)
+            if take > 0:
+                parts.append([merge.to_root(b[:take], self.device) for b in bufs])
+                remaining -= take
+        if not parts:
+            return _fetch([b[:0] for b in shards[0][2]])
+        if len(parts) == 1:
+            return _fetch(parts[0])
+        return _fetch([torch.cat(cols) for cols in zip(*parts)])
 
     # -- the standalone join (sort-merge lane) ---------------------------------
     def _try_execute_join(
@@ -1329,9 +1372,11 @@ class DeviceExecutor:
         more together, at most 2^22 key ids, and at most
         ``device_join_max_out`` output rows. Two more are the port's: a side
         with a pre-join predicate (the reference pushes predicates down
-        through its predicate normalizer, not ported yet) and a UINT128 key or
-        output (staging has no 128-bit lane) decline too. A declined join runs
-        on the host EquijoinNode with the same result."""
+        through its predicate normalizer and a row-selected staging; the port
+        has the normalizer, ``normalize_predicates``, but not the pushdown
+        yet) and a UINT128 key or output (staging has no 128-bit lane)
+        decline too. A declined join runs on the host EquijoinNode with the
+        same result."""
         if not flags.device_join:
             return None
         m = match_join(fragment, relations)
@@ -1448,8 +1493,13 @@ class DeviceExecutor:
     def _run_device_join(
         self, m: _JoinMatch, lt, rt, staged_l, staged_r, out_plan, counts, caps, K
     ) -> RowBatch:
-        """The join on the device (pixie_tpu/parallel/pipeline.py:3209):
-        padded build rows take key K and padded probe rows K + 1, so neither
+        """The join on the device (pixie_tpu/parallel/pipeline.py:3209), the
+        replicated lane: both sides' shards gather to the root in device
+        order (the reference all_gathers them, :3276-3283), which is row
+        order, and the sort-merge runs there. (On a mesh whose ``hosts`` axis
+        is wider than 1 the reference takes its partitioned join instead,
+        :3089-3097, with the same rows; the port has not ported it yet.)
+        Padded build rows take key K and padded probe rows K + 1, so neither
         pairs; ``local_sort_merge`` gives the pairs and the compacted
         unmatched rows, and H15 builds each output column as three sections
         [matched cap_m | unmatched probe cap_r | unmatched build cap_l]. The
@@ -1462,10 +1512,11 @@ class DeviceExecutor:
         M, UR, UL = counts
         cap_m, cap_r, cap_l = caps
         segment.lane_count("join_sort_merge")
-        lmask = staged_l.mask.reshape(-1)
-        rmask = staged_r.mask.reshape(-1)
-        lkey = torch.where(lmask, staged_l.gids.reshape(-1).to(torch.int32), K)
-        rkey = torch.where(rmask, staged_r.gids.reshape(-1).to(torch.int32), K + 1)
+        flat = self._flat_on_root
+        lmask = flat(staged_l.mask)
+        rmask = flat(staged_r.mask)
+        lkey = torch.where(lmask, flat(staged_l.gids).to(torch.int32), K)
+        rkey = torch.where(rmask, flat(staged_r.gids).to(torch.int32), K + 1)
         build_rows, probe_rows, _, ur, ul = segment.local_sort_merge(
             lkey, rkey, lmask, rmask, cap_m, cap_r, cap_l, K
         )
@@ -1478,7 +1529,7 @@ class DeviceExecutor:
                 else [(probe_rows, cap_m), (ur, cap_r), (None, cap_l)]
             )
             col = segment.join_gather(
-                staged.blocks[src].reshape(-1), sections, staged.narrow_offsets.get(src),
+                flat(staged.blocks[src]), sections, staged.narrow_offsets.get(src),
                 -1 if dt == DataType.STRING else 0,
             )
             parts += [col[:M], col[cap_m : cap_m + UR], col[cap_m + cap_r : cap_m + cap_r + UL]]
@@ -1637,8 +1688,9 @@ class DeviceExecutor:
         match count of each key, through H1 as an int64 count (exact in
         f64); each right sum/mean argument's sum through H2; each min/max
         through H11, in place on a state of +-inf identities, which is the
-        reference's jnp.minimum(acc, seg_min(...)) merge under Fault-5.
-        Returns (nR f64 [K], {(kind, out name): f64 [K]}) on the device, or
+        reference's jnp.minimum(acc, seg_min(...)) merge under Fault-5. Each
+        shard reduces its rows; the shards' statistics merge at the root.
+        Returns (nR f64 [K], {(kind, out name): f64 [K]}) on the root, or
         None when the table moved since its keys were read."""
         base: set = set()
         for _, e in evaluator.named_exprs:
@@ -1653,28 +1705,37 @@ class DeviceExecutor:
         if staged.num_rows != nr:
             return None
         kinds = [(o, "sum" if name in ("sum", "mean") else name) for o, _, name in right_specs]
-        counts = torch.zeros(K, dtype=torch.int64, device=self.device)
-        stats = {}
-        for o, kind in kinds:
-            if kind == "sum":
-                stats[(kind, o)] = torch.zeros(K, dtype=torch.float64, device=self.device)
-            else:
-                ident = float("inf") if kind == "min" else float("-inf")
-                stats[(kind, o)] = torch.full((K,), ident, dtype=torch.float64, device=self.device)
+        shard_leaves = []
         with self._staged_cache.pin(key), timed("fold"):
-            for blk in range(staged.num_blocks):
-                vals = self._run_block(program, staged, blk, aux)
-                mask = vals["__mask__"]
-                jk = staged.gids[0, blk].to(torch.int32)
-                counts += segment.seg_count(jk, K, mask)
+            for s, a in enumerate(self._replicate(aux)):
+                sv, dev = staged.shard(s), staged.shard_device(s)
+                counts = torch.zeros(K, dtype=torch.int64, device=dev)
+                stats = []
                 for o, kind in kinds:
-                    val = vals[f"arg:{o}"].contiguous()
-                    st = stats[(kind, o)]
                     if kind == "sum":
-                        st += segment.seg_sum(val, jk, K, mask)
+                        stats.append(torch.zeros(K, dtype=torch.float64, device=dev))
                     else:
-                        segment.segment_minmax(st, val, jk, mask, kind == "min")
-        return counts.to(torch.float64), stats
+                        ident = float("inf") if kind == "min" else float("-inf")
+                        stats.append(torch.full((K,), ident, dtype=torch.float64, device=dev))
+                for blk in range(sv.num_blocks):
+                    vals = self._run_block(program, sv, blk, a)
+                    mask = vals["__mask__"]
+                    jk = sv.gids[0, blk].to(torch.int32)
+                    counts += segment.seg_count(jk, K, mask)
+                    for (o, kind), st in zip(kinds, stats):
+                        val = vals[f"arg:{o}"].contiguous()
+                        if kind == "sum":
+                            st += segment.seg_sum(val, jk, K, mask)
+                        else:
+                            segment.segment_minmax(st, val, jk, mask, kind == "min")
+                shard_leaves.append([counts] + stats)
+            # The shards' statistics merge at the root (K18: psum, pmin,
+            # pmax; pixie_tpu/parallel/pipeline.py:2533-2536).
+            merged = merge.merge_leaves(
+                shard_leaves, ["sum"] + [kind for _, kind in kinds], self.device
+            )
+        stats = {(kind, o): st for (o, kind), st in zip(kinds, merged[1:])}
+        return merged[0].to(torch.float64), stats
 
     def _run_left_join_agg(
         self, m, table, kl, nl, key_plan, capacity, evaluator, rstats, registry
@@ -1684,7 +1745,8 @@ class DeviceExecutor:
         join's count, the weighted left sums and the gathered right sums of
         every group and writes the effective mask (mask & w > 0), under
         which H11 folds the left min/max arguments and the right minR/maxR
-        gathered by join key. ONE device -> host copy, then the reference's
+        gathered by join key. Each shard folds its rows; the shards' folds
+        merge at the root; ONE device -> host copy, then the reference's
         finalize: groups with a count, mean = sum / max(count, 1), integer
         outputs the f64 result rounded and cast (so an INT64 sum over a join
         goes through f64, as in the reference)."""
@@ -1708,37 +1770,51 @@ class DeviceExecutor:
         sums_r = [o for o, side, _, name in m.specs if side == 1 and name in ("sum", "mean")]
         extremes = [(o, side, name) for o, side, _, name in m.specs if name in ("min", "max")]
         K = n_right.shape[0]
-        dev = self.device
-        right_sums = (
-            torch.stack([rstat[("sum", o)] for o in sums_r]) if sums_r
-            else torch.empty((0, K), dtype=torch.float64, device=dev)
-        )
-        acc = torch.zeros((1 + len(sums_l) + len(sums_r), capacity), dtype=torch.float64, device=dev)
-        ext = {
-            o: torch.full((capacity,), float("inf") if name == "min" else float("-inf"),
-                          dtype=torch.float64, device=dev)
-            for o, _, name in extremes
+        root = {
+            "n_right": n_right,
+            "right_sums": (
+                torch.stack([rstat[("sum", o)] for o in sums_r]) if sums_r
+                else torch.empty((0, K), dtype=torch.float64, device=self.device)
+            ),
         }
+        root.update({f"r:{o}": rstat[(name, o)] for o, side, name in extremes if side == 1})
+        shard_leaves = []
         with self._staged_cache.pin(key), timed("fold"):
-            for blk in range(staged.num_blocks):
-                vals = self._run_block(program, staged, blk, aux)
-                mask = vals["__mask__"]
-                jk = self._block_env(staged, blk, ["__jk__"])["__jk__"].to(torch.int32)
-                gids = staged.gids[0, blk].to(torch.int32)
-                n = mask.shape[0]
-                left_vals = (
-                    torch.stack([vals[f"arg:{o}"] for o in sums_l])
-                    if sums_l else torch.empty((0, n), dtype=torch.float64, device=dev)
-                )
-                eff = torch.empty(n, dtype=torch.bool, device=dev) if extremes else None
-                segment.join_agg_fold(jk, gids, mask, n_right, left_vals, right_sums, acc, eff)
-                for o, side, name in extremes:
-                    if side == 0:
-                        val = vals[f"arg:{o}"].contiguous()
-                    else:
-                        val = rstat[(name, o)][jk.long()]
-                    segment.segment_minmax(ext[o], val, gids, eff, name == "min")
-            host = _fetch([acc] + [ext[o] for o, _, _ in extremes])
+            for s, (a, rs) in enumerate(zip(self._replicate(aux), self._replicate(root))):
+                sv, dev = staged.shard(s), staged.shard_device(s)
+                acc = torch.zeros((1 + len(sums_l) + len(sums_r), capacity), dtype=torch.float64,
+                                  device=dev)
+                ext = [
+                    torch.full((capacity,), float("inf") if name == "min" else float("-inf"),
+                               dtype=torch.float64, device=dev)
+                    for _, _, name in extremes
+                ]
+                for blk in range(sv.num_blocks):
+                    vals = self._run_block(program, sv, blk, a)
+                    mask = vals["__mask__"]
+                    jk = self._block_env(sv, blk, ["__jk__"])["__jk__"].to(torch.int32)
+                    gids = sv.gids[0, blk].to(torch.int32)
+                    n = mask.shape[0]
+                    left_vals = (
+                        torch.stack([vals[f"arg:{o}"] for o in sums_l])
+                        if sums_l else torch.empty((0, n), dtype=torch.float64, device=dev)
+                    )
+                    eff = torch.empty(n, dtype=torch.bool, device=dev) if extremes else None
+                    segment.join_agg_fold(jk, gids, mask, rs["n_right"], left_vals,
+                                          rs["right_sums"], acc, eff)
+                    for (o, side, name), st in zip(extremes, ext):
+                        if side == 0:
+                            val = vals[f"arg:{o}"].contiguous()
+                        else:
+                            val = rs[f"r:{o}"][jk.long()]
+                        segment.segment_minmax(st, val, gids, eff, name == "min")
+                shard_leaves.append([acc] + ext)
+            # The shards' folds merge at the root (K18: the count and sums
+            # psum, min/max pmin/pmax; pixie_tpu/parallel/pipeline.py:2756-2766).
+            merged = merge.merge_leaves(
+                shard_leaves, ["sum"] + [name for _, _, name in extremes], self.device
+            )
+            host = _fetch(merged)
         counts = host[0][0]
         vals = {o: host[0][1 + i] for i, o in enumerate(sums_l)}
         vals.update({o: host[0][1 + len(sums_l) + j] for j, o in enumerate(sums_r)})
@@ -1837,6 +1913,7 @@ class DeviceExecutor:
             num_groups,
             tuple(sorted(f32_cols or ())),
             tuple(sorted((cell_cols or {}).items())),
+            self._mesh_key,
         )
 
     def _stage_cached(
@@ -1866,7 +1943,7 @@ class DeviceExecutor:
                     )
                 if staged is None:
                     staged = stage_columns(
-                        cols, n, self.device, block_rows=self.block_rows, gids=gids,
+                        cols, n, self.mesh.devices, block_rows=self.block_rows, gids=gids,
                         num_groups=num_groups,
                     )
             self._staged_insert(cache_key, staged)
@@ -1887,7 +1964,7 @@ class DeviceExecutor:
                     cols[col], int_dicts[col] = enc
         with timed("stage"):
             return stage_columns(
-                cols, n, self.device, block_rows=self.block_rows, f32_cols=f32_cols,
+                cols, n, self.mesh.devices, block_rows=self.block_rows, f32_cols=f32_cols,
                 gids=key_plan.host_gids, num_groups=key_plan.num_groups, int_dicts=int_dicts,
             )
 
@@ -2290,6 +2367,84 @@ class DeviceExecutor:
                 out[col] = max_card
         return out
 
+    # -- the mesh ----------------------------------------------------------------
+    def _replicate(self, tensors: dict) -> list:
+        """``tensors`` (on the root) on every shard's device: one dict a
+        shard, one copy a distinct device (the reference replicates its aux
+        values, LUTs and tables over the mesh)."""
+        per_device = {self.device: tensors}
+        for dev in self.mesh.distinct_devices():
+            if dev not in per_device:
+                per_device[dev] = {k: v.to(dev) for k, v in tensors.items()}
+        return [per_device[dev] for dev in self.mesh.devices]
+
+    def _flat_on_root(self, lane) -> torch.Tensor:
+        """A staged lane as one flat [D * nblk * B] tensor on the root, the
+        shards in device order (the reference's all_gather over the mesh):
+        row order, since shard i holds the rows after shard i - 1's."""
+        if isinstance(lane, torch.Tensor):
+            return lane.reshape(-1)
+        return torch.cat([merge.to_root(p.reshape(-1), self.device) for p in lane.parts])
+
+    def merge_device_ms(self) -> float:
+        """Milliseconds of K18 (the cross-shard merge) since the last call:
+        on CUDA the root stream's time from the first copy's wait to the last
+        merge, read from events once the query has fetched; on the CPU the
+        host's time."""
+        with self._cache_lock:
+            marks, self._merge_marks = self._merge_marks, []
+        total = 0.0
+        for start, end in marks:
+            total += start.elapsed_time(end) if isinstance(start, torch.cuda.Event) else end - start
+        return total
+
+    def _merge(self, specs, shard_states: list, shard_presence: list) -> tuple:
+        """K18 (``merge.merge_states``) at the root, its span marked for
+        ``merge_device_ms`` when there is more than one shard."""
+        if len(shard_states) == 1:
+            return list(shard_states[0]), shard_presence[0]
+        cuda = self.device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        else:
+            start = time.perf_counter() * 1e3
+        with timed("merge"):
+            out = merge.merge_states(specs, shard_states, shard_presence, self.device)
+        if cuda:
+            end.record(stream)
+        else:
+            end = time.perf_counter() * 1e3
+        with self._cache_lock:
+            self._merge_marks.append((start, end))
+        return out
+
+    def _hist_cols(self, specs, staged, capacity: int, cell_cols: dict) -> dict:
+        """{column: C} of the cell lane's histograms: the cell columns the
+        staging encoded, where capacity * C is within the budget."""
+        cell = {arg_e.name for _, arg_e, uda in specs if _cell_served(arg_e, uda, cell_cols)}
+        return {
+            col: len(staged.int_dicts[col]) for col in cell
+            if col in staged.int_dicts and capacity * len(staged.int_dicts[col]) <= CELL_MAX_CELLS
+        }
+
+    def _make_scan_bodies(self, specs, program, staged, key_plan, capacity, auxes: list,
+                          cell_cols, pred_batch: Optional[batched.TermTable] = None):
+        """(one ``_make_scan_body`` body a shard, hist_cols): shard s reads
+        its own blocks with ``auxes[s]``, on its device."""
+        bodies = []
+        for s in range(staged.num_shards):
+            dev = staged.shard_device(s)
+            body, hist_cols = self._make_scan_body(
+                specs, program, staged.shard(s), key_plan, capacity, auxes[s], cell_cols,
+                pred_batch=None if pred_batch is None else pred_batch.to(dev),
+            )
+            bodies.append(body)
+        if hist_cols:
+            segment.lane_count("cell_lane")
+        return bodies, hist_cols
+
     # -- the fold --------------------------------------------------------------
     def _make_scan_body(self, specs, program, staged, key_plan, capacity, aux, cell_cols,
                         pred_batch: Optional[batched.TermTable] = None):
@@ -2324,18 +2479,14 @@ class DeviceExecutor:
         other UDA and the cell lane's histogram update once per slot under
         that slot's mask, read from the bits.
 
-        Returns (body, hist_cols), hist_cols {column: C} of the histogram
-        lanes."""
+        ``staged`` is one shard (``StagedColumns.shard``) and ``aux`` on its
+        device. Returns (body, hist_cols), hist_cols {column: C} of the
+        histogram lanes."""
         host_gids = key_plan.host_gids is not None
         cell = {
             out: arg_e.name for out, arg_e, uda in specs if _cell_served(arg_e, uda, cell_cols)
         }
-        hist_cols = {
-            col: len(staged.int_dicts[col]) for col in set(cell.values())
-            if col in staged.int_dicts and capacity * len(staged.int_dicts[col]) <= CELL_MAX_CELLS
-        }
-        if hist_cols:
-            segment.lane_count("cell_lane")
+        hist_cols = self._hist_cols(specs, staged, capacity, cell_cols)
 
         def cell_values(col: str, blk: int) -> torch.Tensor:
             """The row path's values of a cell column: LUT-gathered codes, or
@@ -2450,29 +2601,48 @@ class DeviceExecutor:
 
         return batched_body, hist_cols
 
-    def _new_carry(self, specs, capacity: int, hist_cols: dict) -> dict:
-        """One pass's fold state: the UDA states, the presence counter and
-        the cell lane's (group, code) histograms."""
+    @staticmethod
+    def _new_carry(specs, capacity: int, hist_cols: dict, device) -> dict:
+        """One shard's fold state for a pass, on its device: the UDA states,
+        the presence counter and the cell lane's (group, code) histograms."""
         return {
-            "states": [uda.init(capacity, self.device) for _, _, uda in specs],
-            "presence": torch.zeros(capacity, dtype=torch.int64, device=self.device),
+            "states": [uda.init(capacity, device) for _, _, uda in specs],
+            "presence": torch.zeros(capacity, dtype=torch.int64, device=device),
             "hists": {
-                col: torch.zeros(capacity * C, dtype=torch.int64, device=self.device)
+                col: torch.zeros(capacity * C, dtype=torch.int64, device=device)
                 for col, C in hist_cols.items()
             },
         }
 
-    def _finish_pass(self, specs, carry: dict, capacity: int, aux: dict, hist_cols: dict,
-                     cell_cols: dict) -> list:
-        """The pass's outputs on the device: each cell-lane UDA takes its
-        histogram (H20, H21), then every state is finalized."""
+    def _new_carries(self, specs, capacity: int, hist_cols: dict, staged) -> list:
+        return [
+            self._new_carry(specs, capacity, hist_cols, staged.shard_device(s))
+            for s in range(staged.num_shards)
+        ]
+
+    @staticmethod
+    def _shard_states(specs, carry: dict, capacity: int, aux: dict, hist_cols: dict,
+                      cell_cols: dict) -> list:
+        """One shard's states at the end of a pass: each cell-lane UDA takes
+        its histogram (H20, H21)."""
         states = list(carry["states"])
         for i, (out, arg_e, uda) in enumerate(specs):
             if _cell_served(arg_e, uda, cell_cols) and arg_e.name in hist_cols:
                 col = arg_e.name
                 hist = carry["hists"][col].reshape(capacity, hist_cols[col])
                 states[i] = uda.cell_update(states[i], hist, aux[f"intdict:{col}"])
-        return self._finalize_pack(specs, states, carry["presence"])
+        return states
+
+    def _finish_pass(self, specs, carries: list, capacity: int, auxes: list, hist_cols: dict,
+                     cell_cols: dict) -> list:
+        """The pass's outputs on the root: every shard's states, merged over
+        the shards (K18), then finalized."""
+        shard_states = [
+            self._shard_states(specs, c, capacity, a, hist_cols, cell_cols)
+            for c, a in zip(carries, auxes)
+        ]
+        states, presence = self._merge(specs, shard_states, [c["presence"] for c in carries])
+        return self._finalize_pack(specs, states, presence)
 
     def _finalize_pack(self, specs, states, presence) -> list:
         """Finalize on the device where the UDA allows it (device_finalize,
@@ -2497,20 +2667,24 @@ class DeviceExecutor:
         return leaves[:-1], leaves[-1]
 
     def _run_program(self, specs, program, key_plan, staged, aux, cell_cols):
-        """Fold every block, pass by pass; returns (([per-spec output],
-        presence) as numpy, capacity)."""
+        """Fold every block, pass by pass: every shard folds its own blocks
+        into its own carry (block by block across the shards, so every
+        device has work queued), then the carries merge at the root; returns
+        (([per-spec output], presence) as numpy, capacity)."""
         capacity, n_passes = self._pass_plan(specs, key_plan.num_groups)
-        body, hist_cols = self._make_scan_body(
-            specs, program, staged, key_plan, capacity, aux, cell_cols
+        auxes = self._replicate(aux)
+        bodies, hist_cols = self._make_scan_bodies(
+            specs, program, staged, key_plan, capacity, auxes, cell_cols
         )
         per_pass = []
         for p in range(n_passes):
-            carry = self._new_carry(specs, capacity, hist_cols)
+            carries = self._new_carries(specs, capacity, hist_cols, staged)
             for blk in range(staged.num_blocks):
-                body(carry, blk, p * capacity)
+                for body, carry in zip(bodies, carries):
+                    body(carry, blk, p * capacity)
             # ONE blocking device -> host copy per pass.
             per_pass.append(_fetch(
-                self._finish_pass(specs, carry, capacity, aux, hist_cols, cell_cols)
+                self._finish_pass(specs, carries, capacity, auxes, hist_cols, cell_cols)
             ))
         return self._outputs(per_pass), capacity
 
@@ -2617,22 +2791,30 @@ class DeviceExecutor:
         all slots. Slots beyond one table's limits (``batched.split_batch``)
         take further scans."""
         capacity, n_passes = self._pass_plan(specs, key_plan.num_groups)
-        dtypes = {c: _block_dtype(b) for c, b in staged.blocks.items()}
+        dtypes = {c: _block_dtype(shard_of(b, 0)) for c, b in staged.blocks.items()}
+        auxes = self._replicate(aux)
         results: list = [None] * len(slot_terms)
         for run in batched.split_batch(slot_terms):
             table = batched.build_term_table([slot_terms[s] for s in run], dtypes)
-            body, hist_cols = self._make_scan_body(
-                specs, program, staged, key_plan, capacity, aux, cell_cols,
-                pred_batch=table.to(self.device),
+            bodies, hist_cols = self._make_scan_bodies(
+                specs, program, staged, key_plan, capacity, auxes, cell_cols, pred_batch=table,
             )
             per_slot: list = [[] for _ in run]
             for p in range(n_passes):
-                carries = [self._new_carry(specs, capacity, hist_cols) for _ in run]
+                # carries[shard][slot]
+                carries = [
+                    [self._new_carry(specs, capacity, hist_cols, staged.shard_device(sh))
+                     for _ in run]
+                    for sh in range(staged.num_shards)
+                ]
                 for blk in range(staged.num_blocks):
-                    body(carries, blk, p * capacity)
+                    for body, shard_carries in zip(bodies, carries):
+                        body(shard_carries, blk, p * capacity)
                 outs = [
-                    self._finish_pass(specs, c, capacity, aux, hist_cols, cell_cols)
-                    for c in carries
+                    self._finish_pass(
+                        specs, [c[i] for c in carries], capacity, auxes, hist_cols, cell_cols
+                    )
+                    for i in range(len(run))
                 ]
                 host = _fetch([t for o in outs for t in o])  # ONE copy per pass
                 k = len(outs[0])
@@ -2647,21 +2829,25 @@ class DeviceExecutor:
         cell_cols: dict, capacity: int, ring=None, base_row: int = 0,
     ):
         """The streamed cold path (pixie_tpu/parallel/pipeline.py:5939-6459,
-        for one device and one pass): (outputs, the staging for the warm
-        cache). A background thread packs window k+1 into a pinned buffer
-        while window k copies on a side stream, decodes and folds on the
-        compute stream (``WindowStager``); at most two windows' folds are in
-        flight (:6243-6251). Every window lands in its slice of one
-        preallocated staging, which is the warm-cache entry. With the
-        table's resident ``ring`` (``base_row`` its first row id) the stream
-        runs at the ring's window size, and a window the ring holds packs
-        only its gids and converts its columns on the device instead of
-        copying them (:5990-6005, :6186-6197, :6310-6320). The reference
-        catches any error here and restages in one piece (:5946-5969); the
-        port raises. Left out, as later queue items: the mesh dispatch and
-        the checkpointed resume (:6043-6061, :6219-6225, :6257-6288), the
-        background AOT compiles (:6097-6133, :6430-6455; nothing is
-        compiled here) and the cost model (:6232-6239, :6345-6356)."""
+        for one pass): (outputs, the staging for the warm cache). A
+        background thread packs window k+1 into a pinned buffer while window
+        k copies on a side stream of every device, decodes and folds on the
+        compute streams (``WindowStager``); at most two windows' folds are in
+        flight (:6243-6251). Every window is [D, nblk, b], shard s's part on
+        its device; each shard folds its part of every window into its own
+        carry, and the carries merge once, after the last window
+        (``_build_fold``/``_build_merge``, :5805-5938). Every window lands in
+        its slice of one preallocated staging, which is the warm-cache
+        entry. With the table's resident ``ring`` (``base_row`` its first
+        row id; one shard only) the stream runs at the ring's window size,
+        and a window the ring holds packs only its gids and converts its
+        columns on the device instead of copying them (:5990-6005,
+        :6186-6197, :6310-6320). The reference catches any error here and
+        restages in one piece (:5946-5969); the port raises. Left out, as
+        later queue items: the mesh recovery dispatch and the checkpointed
+        resume (:6043-6061, :6219-6225, :6257-6288), the background AOT
+        compiles (:6097-6133, :6430-6455; nothing is compiled here) and the
+        cost model (:6232-6239, :6345-6356)."""
         import concurrent.futures
 
         gids = key_plan.host_gids
@@ -2669,16 +2855,17 @@ class DeviceExecutor:
         plan = plan_stream(
             cols, n, window_rows, block_rows=self.block_rows,
             f32_cols=f32_cols, cell_cols=cell_cols, num_groups=max(key_plan.num_groups, 1),
-            has_gids=gids is not None, gids=gids,
+            has_gids=gids is not None, gids=gids, d=self.mesh.size,
         )
         hits = self._resident_hits(ring, plan, base_row, sorted(cols))
-        stager = WindowStager(plan, self.device)
+        stager = WindowStager(plan, self.mesh.devices)
         staged = stager.staged
         aux = self._with_intdicts(aux, staged)
-        body, hist_cols = self._make_scan_body(
-            specs, program, staged, key_plan, capacity, aux, cell_cols
+        auxes = self._replicate(aux)
+        bodies, hist_cols = self._make_scan_bodies(
+            specs, program, staged, key_plan, capacity, auxes, cell_cols
         )
-        carry = self._new_carry(specs, capacity, hist_cols)
+        carries = self._new_carries(specs, capacity, hist_cols, staged)
         inflight: collections.deque = collections.deque()
         t_wall = time.perf_counter()
         pool = concurrent.futures.ThreadPoolExecutor(
@@ -2702,17 +2889,22 @@ class DeviceExecutor:
                 profile_add("wire_bytes", win.wire_nbytes)
                 with timed("stage_stream_dispatch"):
                     for blk in range(w * plan.nblk, (w + 1) * plan.nblk):
-                        body(carry, blk, 0)
+                        for body, carry in zip(bodies, carries):
+                            body(carry, blk, 0)
                 if stager.cuda:
-                    done = torch.cuda.Event()
-                    done.record(stager.compute)
+                    done = []
+                    for stream in stager.compute.values():
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                        done.append(event)
                     inflight.append(done)
                     if len(inflight) > 2:
                         with timed("stage_stream_compute_wait"):
-                            inflight.popleft().synchronize()
+                            for event in inflight.popleft():
+                                event.synchronize()
             with timed("stage_stream_drain"):
                 outputs = self._outputs([_fetch(
-                    self._finish_pass(specs, carry, capacity, aux, hist_cols, cell_cols)
+                    self._finish_pass(specs, carries, capacity, auxes, hist_cols, cell_cols)
                 )])
         finally:
             pool.shutdown(wait=True)

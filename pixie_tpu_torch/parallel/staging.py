@@ -1,26 +1,36 @@
-"""Host -> device staging: table columns -> padded blocks on one CUDA device.
+"""Host -> device staging: table columns -> padded shard-major blocks.
 
-Counterpart of pixie_tpu/parallel/staging.py for one device: columns are
-read through a table cursor, int columns whose value range fits are narrowed
-to uint8/uint16/int32 of (value - offset) (frame of reference, widened back
-to int64 per block on the device), float64 columns read only by f32-grained
+Counterpart of pixie_tpu/parallel/staging.py: columns are read through a
+table cursor, int columns whose value range fits are narrowed to
+uint8/uint16/int32 of (value - offset) (frame of reference, widened back to
+int64 per block on the device), float64 columns read only by f32-grained
 sketches stage as float32, small-domain INT64 columns read only by
 cell-capable sketches stage as uint8/uint16 codes of a value LUT (the
-int-dictionary cell lane), and everything is padded to [1, nblk, B] blocks
+int-dictionary cell lane), and everything is padded to [D, nblk, B] blocks
 with a validity mask built on the device. Group ids densified on the host
 (multi-column and non-dictionary keys) stage as one more per-block lane,
 narrowed to uint8/uint16 when the group count fits. The block geometry is
-the reference's, so both packages cut a table into the same blocks.
+the reference's (``block_geometry``), so both packages cut a table into the
+same shards and blocks.
+
+D is the mesh's shard count (distributed/mesh.py): shard i holds rows
+[i * nblk * B, (i + 1) * nblk * B) of the staging (of each window, in the
+stream) and lives on the mesh's device i. When every shard is on one device
+(one card, logical shards of it, or the CPU) a lane is one [D, nblk, B]
+tensor; over distinct devices it is a ``ShardedBlocks`` of one [1, nblk, B]
+tensor a shard. ``StagedColumns.shard(i)`` is shard i's one-shard view,
+which is what the fold reads.
 
 With ``staging_codec`` (on by default, as in the reference) a packed column
 or gid lane ships encoded when RLE or delta pays (ops/codec.py) and is
-decoded on the device into the block the raw copy would have landed (H18,
-H19). ``stage_columns`` stages a table in one piece; the streamed cold path
-(``plan_stream``, ``pack_stream_window``, ``WindowStager``) packs window
-k+1 on a background thread into a pinned buffer while window k copies on a
-side stream and folds, and lands every window in its slice of one
-preallocated staging, which becomes the warm-cache entry. Strings never
-leave the host: their int32 dictionary codes do.
+decoded on each shard's device into the block the raw copy would have
+landed (H18, H19). ``stage_columns`` stages a table in one piece; the
+streamed cold path (``plan_stream``, ``pack_stream_window``,
+``WindowStager``) packs window k+1 on a background thread into a pinned
+buffer while window k copies on a side stream of every device and folds,
+and lands every window in its slice of one preallocated staging, which
+becomes the warm-cache entry. Strings never leave the host: their int32
+dictionary codes do.
 """
 
 from __future__ import annotations
@@ -28,11 +38,12 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from pixie_tpu_torch.distributed.mesh import indexed_device
 from pixie_tpu_torch.ops import codec, segment
 from pixie_tpu_torch.table.column import DictColumn
 from pixie_tpu_torch.table.table import Table
@@ -87,26 +98,108 @@ class timed:
         return False
 
 
+class ShardedBlocks:
+    """A staged [D, nblk, B] lane whose shard s is the [1, nblk, B] tensor
+    ``parts[s]`` on the mesh's device s: the lanes of a mesh over distinct
+    devices. ``lane[:, lo:hi]`` is the lane of those blocks of every shard."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = tuple(parts)
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + tuple(self.parts[0].shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def __getitem__(self, idx) -> "ShardedBlocks":
+        if not (isinstance(idx, tuple) and len(idx) == 2 and idx[0] == slice(None)):
+            raise IndexError("a sharded lane slices its blocks only: lane[:, lo:hi]")
+        return ShardedBlocks(p[idx] for p in self.parts)
+
+
+Lane = Union[torch.Tensor, ShardedBlocks]
+
+
+def as_devices(device) -> tuple:
+    """A device, or a sequence of them (a mesh's, one a shard), as a tuple
+    of torch.devices (a CUDA device with its index, as its tensors name
+    it)."""
+    if isinstance(device, (str, torch.device)):
+        return (indexed_device(device),)
+    return tuple(indexed_device(d) for d in device)
+
+
+def shard_of(lane: Lane, s: int) -> torch.Tensor:
+    """Shard ``s`` of a lane: a [1, nblk, B] tensor on its device."""
+    if isinstance(lane, ShardedBlocks):
+        return lane.parts[s]
+    return lane[s : s + 1]
+
+
+def lane_from_parts(parts: list, devices: tuple) -> Lane:
+    """One lane from shard s's [1, ...] tensor on ``devices[s]``: one tensor
+    when every shard is on one device, else a ShardedBlocks."""
+    if len(set(devices)) == 1:
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return ShardedBlocks(parts)
+
+
+def alloc_lane(shape: tuple, dtype: torch.dtype, devices: tuple) -> Lane:
+    """An uninitialized [D, ...] lane with shard s on ``devices[s]``."""
+    if len(set(devices)) == 1:
+        return torch.empty(shape, dtype=dtype, device=devices[0])
+    return ShardedBlocks(torch.empty((1,) + tuple(shape[1:]), dtype=dtype, device=dev)
+                         for dev in devices)
+
+
 @dataclasses.dataclass
 class StagedColumns:
-    """Columns resident on the device."""
+    """Columns resident on the mesh's devices."""
 
-    blocks: dict[str, torch.Tensor]  # name -> [1, nblk, B]
-    mask: torch.Tensor  # [1, nblk, B] bool, False on padding
+    blocks: dict[str, Lane]  # name -> [D, nblk, B]
+    mask: Lane  # [D, nblk, B] bool, False on padding
     num_rows: int
     block_rows: int
     # name -> offset of the frame-of-reference narrowed int columns.
     narrow_offsets: dict = dataclasses.field(default_factory=dict)
-    # [1, nblk, B] host-densified group ids (uint8/uint16/int32), or None.
-    gids: Optional[torch.Tensor] = None
+    # [D, nblk, B] host-densified group ids (uint8/uint16/int32), or None.
+    gids: Optional[Lane] = None
     # Int-dictionary columns: blocks[name] holds small-domain CODES
     # (uint8/uint16) and int_dicts[name] is the [C] int64 value LUT; the
     # cell lane aggregates per (group, code) cell instead of per row.
     int_dicts: dict = dataclasses.field(default_factory=dict)
+    # The device of each shard (len D); empty: every shard on the mask's.
+    devices: tuple = ()
 
     @property
     def num_blocks(self) -> int:
+        """Blocks per shard."""
         return self.mask.shape[1]
+
+    @property
+    def num_shards(self) -> int:
+        return self.mask.shape[0]
+
+    def shard_device(self, s: int) -> torch.device:
+        return self.devices[s] if self.devices else shard_of(self.mask, s).device
+
+    def shard(self, s: int) -> "StagedColumns":
+        """Shard ``s`` as a one-shard staging ([1, nblk, B] lanes on its
+        device): the rows it holds, in their order. Itself when D is 1."""
+        if self.num_shards == 1:
+            return self
+        return dataclasses.replace(
+            self,
+            blocks={k: shard_of(v, s) for k, v in self.blocks.items()},
+            mask=shard_of(self.mask, s),
+            gids=shard_of(self.gids, s) if self.gids is not None else None,
+            devices=(self.shard_device(s),),
+        )
 
 
 def _pow2_at_least(n: int, floor: int = 8) -> int:
@@ -240,25 +333,58 @@ def _narrow_gids(gids: np.ndarray, num_groups: int) -> np.ndarray:
     return gids.astype(_gid_dtype(num_groups))
 
 
-def build_mask(nblk: int, b: int, num_rows: int, device) -> torch.Tensor:
-    """Validity mask [1, nblk, b] computed on the device (iota < num_rows),
-    so no mask bytes cross the host link."""
-    return (torch.arange(nblk * b, device=device) < num_rows).reshape(1, nblk, b)
+def build_mask(nblk: int, b: int, num_rows: int, device) -> Lane:
+    """Validity mask [D, nblk, b] computed on each shard's device (flat index
+    < num_rows, shard s holding flat indices from s * nblk * b), so no mask
+    bytes cross the host link (pixie_tpu/parallel/staging.py:289-310).
+    ``device`` is one device (D = 1) or the shards' devices."""
+    devices = as_devices(device)
+    span = nblk * b
+    parts = [
+        ((torch.arange(span, device=dev) + s * span) < num_rows).reshape(1, nblk, b)
+        for s, dev in enumerate(devices)
+    ]
+    return lane_from_parts(parts, devices)
 
 
-def land(packed, out: torch.Tensor) -> None:
-    """Land one packed array in ``out`` (a [1, nblk, b] block or a window's
-    slice of one) with a synchronous copy: a raw ndarray as it is; a
-    CodecPayload (what ``encode_window`` made) by copying its arrays and
-    decoding them on the device into ``out``, bit for bit the raw copy."""
+def _shard_packed(packed, s: int, d: int):
+    """Shard ``s`` (of ``d``) of a packed array: a raw array's s-th row of
+    d, or a CodecPayload cut to that shard's arrays under a one-shard plan."""
     if isinstance(packed, codec.CodecPayload):
+        plan = dataclasses.replace(packed.plan, d=1)
+        return codec.CodecPayload(plan, tuple(a[s : s + 1] for a in packed.arrays))
+    return packed.reshape(d, -1)[s : s + 1]
+
+
+def split_targets(packed, out: Lane) -> list:
+    """[(packed part, destination)] that land ``packed`` in ``out``, each
+    destination on one device, and contiguous where it is decoded: the whole
+    lane at once where it is one tensor (a decode needs it contiguous: a
+    window's slice of a one-device lane of D > 1 shards is not), else one
+    pair a shard."""
+    if isinstance(out, ShardedBlocks):
+        return [(_shard_packed(packed, s, len(out.parts)), p) for s, p in enumerate(out.parts)]
+    if isinstance(packed, codec.CodecPayload) and not out.is_contiguous():
+        d = out.shape[0]
+        return [(_shard_packed(packed, s, d), out[s : s + 1]) for s in range(d)]
+    return [(packed, out)]
+
+
+def land(packed, out: Lane) -> None:
+    """Land one packed array in ``out`` (a [D, nblk, b] lane or a window's
+    slice of one) with synchronous copies: a raw ndarray as it is; a
+    CodecPayload (what ``encode_window`` made) by copying its arrays and
+    decoding them on each shard's device into ``out``, bit for bit the raw
+    copy."""
+    for part, dst in split_targets(packed, out):
+        if isinstance(part, codec.CodecPayload):
+            with timed("stage_transfer"):
+                args = [torch.from_numpy(a).to(dst.device) for a in part.arrays]
+            with timed("stage_decode"):
+                codec.decode(args, part.plan, dst.view(part.plan.d, part.plan.shard_len))
+            continue
         with timed("stage_transfer"):
-            args = [torch.from_numpy(a).to(out.device) for a in packed.arrays]
-        with timed("stage_decode"):
-            codec.decode(args, packed.plan, out.view(packed.plan.d, packed.plan.shard_len))
-        return
-    with timed("stage_transfer"):
-        out.copy_(torch.from_numpy(packed).reshape(out.shape))
+            dst.copy_(torch.from_numpy(part).reshape(dst.shape))
 
 
 def _encode_or_none(flat: np.ndarray, plan: Optional[codec.CodecPlan], rows: int):
@@ -286,16 +412,19 @@ def stage_columns(
     int_dicts: Optional[dict] = None,
 ) -> StagedColumns:
     """Pad/reshape host columns (and host-densified ``gids`` of
-    ``num_groups`` groups, when given) into [1, nblk, B] blocks on
-    ``device`` in one piece. ``int_dicts`` maps the columns already replaced
-    by small-domain codes (``int_dict_encode``) to their value LUTs. With
+    ``num_groups`` groups, when given) into [D, nblk, B] blocks in one
+    piece, shard s on the s-th of ``device`` (one device, D = 1, or the
+    mesh's devices). ``int_dicts`` maps the columns already replaced by
+    small-domain codes (``int_dict_encode``) to their value LUTs. With
     ``staging_codec`` every column and the gid lane ship encoded where an
-    encoder pays (plan_codec_local on the packed column)."""
-    b, nblk = block_geometry(num_rows, 1, block_rows)
-    total = nblk * b
+    encoder pays (plan_codec_local on the packed column, per shard)."""
+    devices = as_devices(device)
+    d = len(devices)
+    b, nblk = block_geometry(num_rows, d, block_rows)
+    total = d * nblk * b
     use_codec = flags.staging_codec and num_rows > 0
 
-    def put(a: np.ndarray) -> torch.Tensor:
+    def put(a: np.ndarray) -> Lane:
         with timed("stage_host_pack"):
             flat = np.zeros(total, dtype=a.dtype if a.size else np.int32)
             flat[:num_rows] = a
@@ -303,15 +432,15 @@ def stage_columns(
         payload = None
         if use_codec:
             with timed("stage_encode"):
-                plan = codec.plan_codec_local(flat, 1, nblk, b, num_rows, codec_min_ratio())
+                plan = codec.plan_codec_local(flat, d, nblk, b, num_rows, codec_min_ratio())
             payload = _encode_or_none(flat, plan, num_rows)
-        out = torch.empty((1, nblk, b), dtype=codec.TORCH_DTYPES[flat.dtype], device=device)
+        out = alloc_lane((d, nblk, b), codec.TORCH_DTYPES[flat.dtype], devices)
         land(payload if payload is not None else flat, out)
         profile_add("wire_bytes", payload.nbytes if payload is not None else flat.nbytes)
         return out
 
     narrow_offsets: dict[str, int] = {}
-    blocks: dict[str, torch.Tensor] = {}
+    blocks: dict[str, Lane] = {}
     for name, a in cols.items():
         with timed("stage_host_pack"):
             if f32_cols and name in f32_cols and a.dtype == np.float64:
@@ -328,12 +457,13 @@ def stage_columns(
         staged_gids = put(narrow)
     return StagedColumns(
         blocks=blocks,
-        mask=build_mask(nblk, b, num_rows, device),
+        mask=build_mask(nblk, b, num_rows, devices),
         num_rows=num_rows,
         block_rows=b,
         narrow_offsets=narrow_offsets,
         gids=staged_gids,
         int_dicts=dict(int_dicts or {}),
+        devices=devices,
     )
 
 
@@ -396,15 +526,16 @@ def plan_stream(
     num_groups: int = 1,
     has_gids: bool = False,
     gids: Optional[np.ndarray] = None,
+    d: int = 1,
 ) -> StreamPlan:
-    """Fix the pack recipe and window geometry of a streamed staging
-    (pixie_tpu/parallel/staging.py:676, for one device).
+    """Fix the pack recipe and window geometry of a streamed staging over
+    ``d`` shards (pixie_tpu/parallel/staging.py:676): each window is
+    [d, nblk, b], shard s holding the window's rows from s * nblk * b.
 
     window_rows is clamped to the table (to its pow2-padded row count under
     ``signature_buckets``), so a small table is ONE window whose geometry is
     the monolithic one, and a window that is a multiple of the block size
     cuts the table into the monolithic blocks."""
-    d = 1
     clamp = max(num_rows, 1)
     if flags.signature_buckets:
         clamp = _pow2_at_least(clamp, floor=1)
@@ -562,38 +693,54 @@ def _stream_padding(plan: StreamPlan) -> int:
     return bucket_block_count(total) - total if flags.signature_buckets else 0
 
 
-def alloc_stream_staging(plan: StreamPlan, device) -> StagedColumns:
-    """The warm-cache entry of a streamed staging, allocated once: every
-    column's (and the gid lane's) [1, n_windows * nblk + pad, b] block, each
-    window's slice to be landed by a copy or a decode, the bucket padding
-    zeroed, and the per-window mask (row < that window's rows) built on the
-    device. ``concat_stream_windows`` is its counterpart from per-window
-    blocks: the same entry, at the cost of a second copy."""
-    nblk_total = plan.n_windows * plan.nblk
-    pad = _stream_padding(plan)
-    shape = (1, nblk_total + pad, plan.b)
-
-    def block(dtype) -> torch.Tensor:
-        t = torch.empty(shape, dtype=codec.TORCH_DTYPES[np.dtype(dtype)], device=device)
-        if pad:
-            t[0, nblk_total:].zero_()
-        return t
-
+def _stream_mask(plan: StreamPlan, s: int, device, pad: int) -> torch.Tensor:
+    """Shard ``s``'s [1, n_windows * nblk + pad, b] mask of a streamed
+    staging: in window w, flat index s * nblk * b + i is valid below that
+    window's rows; the padding blocks are invalid."""
+    span = plan.nblk * plan.b
     rows = torch.tensor([plan.rows_of(w) for w in range(plan.n_windows)], device=device)
-    idx = torch.arange(plan.nblk * plan.b, device=device)
-    mask = (idx[None, :] < rows[:, None]).reshape(1, nblk_total, plan.b)
+    idx = torch.arange(span, device=device) + s * span
+    mask = (idx[None, :] < rows[:, None]).reshape(1, plan.n_windows * plan.nblk, plan.b)
     if pad:
         mask = torch.cat(
             [mask, torch.zeros((1, pad, plan.b), dtype=torch.bool, device=device)], dim=1
         )
+    return mask
+
+
+def alloc_stream_staging(plan: StreamPlan, device) -> StagedColumns:
+    """The warm-cache entry of a streamed staging, allocated once: every
+    column's (and the gid lane's) [d, n_windows * nblk + pad, b] lane (shard
+    s on the s-th of ``device``), each window's slice to be landed by a copy
+    or a decode, the bucket padding zeroed, and the per-window mask (flat
+    index < that window's rows) built on each shard's device.
+    ``concat_stream_windows`` is its one-device counterpart from per-window
+    blocks: the same entry, at the cost of a second copy."""
+    devices = as_devices(device)
+    if len(devices) != plan.d:
+        raise ValueError(f"a plan of {plan.d} shards on {len(devices)} devices")
+    nblk_total = plan.n_windows * plan.nblk
+    pad = _stream_padding(plan)
+    shape = (plan.d, nblk_total + pad, plan.b)
+
+    def block(dtype) -> Lane:
+        lane = alloc_lane(shape, codec.TORCH_DTYPES[np.dtype(dtype)], devices)
+        if pad:
+            for s in range(plan.d):
+                shard_of(lane, s)[0, nblk_total:].zero_()
+        return lane
+
     return StagedColumns(
         blocks={name: block(dt) for name, dt in plan.block_dtypes.items()},
-        mask=mask,
+        mask=lane_from_parts(
+            [_stream_mask(plan, s, dev, pad) for s, dev in enumerate(devices)], devices
+        ),
         num_rows=plan.num_rows,
         block_rows=plan.b,
         narrow_offsets=dict(plan.narrow_offsets),
         gids=block(plan.gid_dtype) if plan.gid_dtype is not None else None,
         int_dicts=dict(plan.int_dicts),
+        devices=devices,
     )
 
 
@@ -685,42 +832,52 @@ class PackedWindow:
 
 
 class WindowStager:
-    """Lands a StreamPlan's windows in one preallocated staging on
-    ``device`` (``alloc_stream_staging``).
+    """Lands a StreamPlan's windows in one preallocated staging on the
+    shards' devices (``alloc_stream_staging``).
 
     On CUDA: ``pack`` (the stream's background thread) packs window w into
-    pinned host buffer w % 2, after that buffer's last copy event completed;
-    ``put`` copies the window on a side stream with ``non_blocking=True``,
-    records a copy event, makes the compute stream wait on it, and decodes
+    pinned host buffer w % 2, after that buffer's last copy events
+    completed; ``put`` copies each shard's part of the window on a side
+    stream of the shard's device with ``non_blocking=True``, records a copy
+    event there, makes that device's compute stream wait on it, and decodes
     the encoded arrays there into the window's slice. Payload tensors made
-    on the side stream and used on the compute stream are marked with
-    ``record_stream``, as is the staging itself, which the side stream
-    writes. On the CPU both are synchronous (``land``)."""
+    on a side stream and used on the compute stream are marked with
+    ``record_stream``, as is the staging itself, which the side streams
+    write. On the CPU both are synchronous (``land``)."""
 
     N_SLOTS = 2
 
-    def __init__(self, plan: StreamPlan, device: torch.device):
+    def __init__(self, plan: StreamPlan, device):
+        devices = as_devices(device)
         self.plan = plan
-        self.staged = alloc_stream_staging(plan, device)
-        self.cuda = device.type == "cuda"
+        self.staged = alloc_stream_staging(plan, devices)
+        self.cuda = devices[0].type == "cuda"
         if not self.cuda:
             return
-        self.compute = torch.cuda.current_stream(device)
-        self.copy_stream = torch.cuda.Stream(device)
-        # The staging is allocated (and its padding zeroed) on the compute
-        # stream; the side stream writes it.
-        self.copy_stream.wait_stream(self.compute)
+        self.compute = {}
+        self.copy_streams = {}
+        for dev in dict.fromkeys(devices):
+            self.compute[dev] = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            # The staging is allocated (and its padding zeroed) on the
+            # compute stream; the side stream writes it.
+            side.wait_stream(self.compute[dev])
+            self.copy_streams[dev] = side
         for t in self._targets_all():
-            t.record_stream(self.copy_stream)
+            t.record_stream(self.copy_streams[t.device])
         self.slots = [
             torch.empty(self._slot_nbytes(), dtype=torch.uint8, pin_memory=True)
             for _ in range(self.N_SLOTS)
         ]
-        self.copied: list = [None] * self.N_SLOTS
+        self.copied: list = [[] for _ in range(self.N_SLOTS)]
 
     def _targets_all(self) -> list:
-        out = list(self.staged.blocks.values())
-        return out + ([self.staged.gids] if self.staged.gids is not None else [])
+        lanes = list(self.staged.blocks.values())
+        lanes += [self.staged.gids] if self.staged.gids is not None else []
+        out = []
+        for lane in lanes:
+            out += list(lane.parts) if isinstance(lane, ShardedBlocks) else [lane]
+        return out
 
     def _slot_nbytes(self) -> int:
         plan = self.plan
@@ -743,8 +900,8 @@ class WindowStager:
             return PackedWindow(w, *pack_stream_window(self.plan, cols, gids, w,
                                                        skip_cols=skip_cols))
         k = w % self.N_SLOTS
-        if self.copied[k] is not None:
-            self.copied[k].synchronize()  # its last copy has left the buffer
+        for event in self.copied[k]:
+            event.synchronize()  # its last copies have left the buffer
         arena = _Arena(self.slots[k])
         rows, packed, pgids, nbytes = pack_stream_window(
             self.plan, cols, gids, w, arena.alloc, skip_cols=skip_cols
@@ -765,26 +922,34 @@ class WindowStager:
             for packed, out in targets:
                 land(packed, out)
             return
+        by_device: dict = {}
+        for packed, out in targets:
+            for part, dst in split_targets(packed, out):
+                by_device.setdefault(dst.device, []).append((part, dst))
         arena = win.arena
-        decodes = []
-        with timed("stage_transfer"), torch.cuda.stream(self.copy_stream):
-            for packed, out in targets:
-                if isinstance(packed, codec.CodecPayload):
-                    args = []
-                    for a in packed.arrays:
-                        t = torch.empty(a.shape, dtype=codec.TORCH_DTYPES[a.dtype],
-                                        device=out.device)
-                        t.copy_(arena.tensor(a), non_blocking=True)
-                        args.append(t)
-                    decodes.append((args, packed.plan, out))
-                else:
-                    out.copy_(arena.tensor(packed).reshape(out.shape), non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self.copy_stream)
-        self.copied[win.w % self.N_SLOTS] = event
-        self.compute.wait_event(event)
+        events, decodes = [], []
+        with timed("stage_transfer"):
+            for dev, pairs in by_device.items():
+                with torch.cuda.stream(self.copy_streams[dev]):
+                    for packed, out in pairs:
+                        if isinstance(packed, codec.CodecPayload):
+                            args = []
+                            for a in packed.arrays:
+                                t = torch.empty(a.shape, dtype=codec.TORCH_DTYPES[a.dtype],
+                                                device=dev)
+                                t.copy_(arena.tensor(a), non_blocking=True)
+                                args.append(t)
+                            decodes.append((args, packed.plan, out))
+                        else:
+                            out.copy_(arena.tensor(packed).reshape(out.shape), non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(self.copy_streams[dev])
+                self.compute[dev].wait_event(event)
+                events.append(event)
+        self.copied[win.w % self.N_SLOTS] = events
         with timed("stage_decode"):
             for args, cp, out in decodes:
-                for t in args:
-                    t.record_stream(self.compute)
-                codec.decode(args, cp, out.view(cp.d, cp.shard_len))
+                with torch.cuda.device(out.device):
+                    for t in args:
+                        t.record_stream(self.compute[out.device])
+                    codec.decode(args, cp, out.view(cp.d, cp.shard_len))

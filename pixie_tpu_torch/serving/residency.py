@@ -73,15 +73,26 @@ def _tensor_nbytes(t: Any) -> int:
     return int(numel()) * int(t.element_size())
 
 
+def _lane_nbytes(lane: Any) -> int:
+    """A staged lane's bytes: a tensor's, or the sum over the shards of a
+    lane sharded over distinct devices (``parts``)."""
+    parts = getattr(lane, "parts", None)
+    if parts is not None:
+        return sum(_tensor_nbytes(p) for p in parts)
+    return _tensor_nbytes(lane)
+
+
 def staged_nbytes(staged: Any) -> int:
     """Device bytes of a StagedColumns entry: column blocks + validity mask
-    + (optional) gid blocks, ``numel() * element_size()`` of each tensor.
+    + (optional) gid blocks, ``numel() * element_size()`` of each tensor,
+    summed over the shards of a mesh (one budget, ``hbm_budget_mb``, for
+    them all, as the reference reads a sharded array's global ``nbytes``).
     Anything without those attributes (test shims) counts 0."""
     total = 0
     for t in getattr(staged, "blocks", {}).values():
-        total += _tensor_nbytes(t)
-    total += _tensor_nbytes(getattr(staged, "mask", None))
-    total += _tensor_nbytes(getattr(staged, "gids", None))
+        total += _lane_nbytes(t)
+    total += _lane_nbytes(getattr(staged, "mask", None))
+    total += _lane_nbytes(getattr(staged, "gids", None))
     return total
 
 

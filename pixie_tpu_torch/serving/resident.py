@@ -82,7 +82,12 @@ _RAW_DTYPES = {
 }
 
 
-def _check_ported_flags() -> None:
+def _check_ported_flags(shards: int = 1) -> None:
+    if shards > 1:
+        raise NotImplementedError(
+            f"a resident ring on a mesh of {shards} shards: the sharded ring "
+            "(shard-major ring windows) is not ported yet"
+        )
     if flags.durable_resident and flags.wal_dir:
         raise NotImplementedError(
             "durable_resident: the resident ring's durable spill "
@@ -109,10 +114,11 @@ class ResidentWindow:
 class ResidentRing:
     """Per-table device ring of full append windows in raw column dtypes."""
 
-    def __init__(self, device: torch.device, table, block_rows: int, pool=None):
+    def __init__(self, device: torch.device, table, block_rows: int, pool=None,
+                 shards: int = 1):
         from pixie_tpu_torch.parallel.staging import block_geometry
 
-        _check_ported_flags()
+        _check_ported_flags(shards)
         self.device = device
         self.table_name = table.name
         self.window_rows = int(flags.resident_window_rows)
@@ -288,10 +294,12 @@ class ResidentRing:
 class ResidentIngestManager:
     """The DeviceExecutor's registry of per-table rings."""
 
-    def __init__(self, device: torch.device, block_rows: int, pool=None):
+    def __init__(self, device: torch.device, block_rows: int, pool=None, shards: int = 1):
         self.device = device
         self.block_rows = block_rows
         self.pool = pool
+        # The executor's mesh shards: a ring over more than one raises.
+        self.shards = shards
         self._lock = threading.Lock()
         self._rings: dict[str, ResidentRing] = {}
 
@@ -302,7 +310,7 @@ class ResidentIngestManager:
             ring = self._rings.get(table.name)
             if ring is not None:
                 return ring
-            ring = ResidentRing(self.device, table, self.block_rows, self.pool)
+            ring = ResidentRing(self.device, table, self.block_rows, self.pool, self.shards)
             if not ring.columns:
                 return None
             self._rings[table.name] = ring

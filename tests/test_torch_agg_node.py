@@ -40,6 +40,10 @@ from pixie_tpu_torch.table.table_store import TableStore
 from pixie_tpu_torch.types import DataType, Relation
 from pixie_tpu_torch.udf.registry import default_registry
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 PKGS = {
     "ref": dict(plan=rplan, DT=RefDT, Relation=RefRelation, Store=RefStore, registry=ref_registry,
                 ExecState=RefExecState, Graph=RefGraph, Router=RefRouter, AggNode=RefAggNode,

@@ -20,6 +20,7 @@ reciprocal product bit for bit.
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from pixie_tpu.engine import Carnot as RefCarnot
@@ -31,6 +32,10 @@ from pixie_tpu_torch.ops import kernels
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.table.column import DictColumn
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
 
 N_SERVICES = 16
 N_STACKS = 4096

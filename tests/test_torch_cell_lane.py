@@ -32,6 +32,10 @@ from pixie_tpu_torch.parallel.pipeline import CELL_MAX_CELLS
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
 from pixie_tpu_torch.utils import flags
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 LUT = np.array([-3, 0, 5, 17, 1 << 40, 999, 12345], np.int64)
 
 

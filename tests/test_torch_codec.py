@@ -32,6 +32,10 @@ from pixie_tpu_torch.parallel import DeviceExecutor, staging
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
 from pixie_tpu_torch.utils import flags
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 NBLK, B = 2, 256
 
 

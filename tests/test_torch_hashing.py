@@ -12,6 +12,10 @@ import torch
 from pixie_tpu.ops import hashing as ref
 from pixie_tpu_torch.ops import hashing
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 I64 = np.iinfo(np.int64)
 
 

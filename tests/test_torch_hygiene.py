@@ -15,6 +15,10 @@ import pixie_tpu_torch
 from pixie_tpu_torch.device import NoCudaDeviceError, resolve_device
 from pixie_tpu_torch.parallel import DeviceExecutor
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 PKG = pathlib.Path(pixie_tpu_torch.__file__).parent
 REPO = PKG.parent
 
@@ -24,7 +28,8 @@ import numpy as np
 import pixie_tpu_torch
 from pixie_tpu_torch.engine import Carnot
 from pixie_tpu_torch.interop import table_from_columns
-from pixie_tpu_torch.ops import batched, kernels, ml, transformer
+from pixie_tpu_torch.ops import batched, kernels, merge, ml, transformer
+from pixie_tpu_torch.distributed import MeshConfig
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.udf.builtins import ml_ops
 from pixie_tpu_torch.serving import ResidencyPool, ResidentRing, SharedScanCoordinator
@@ -51,6 +56,18 @@ r = c.execute_query(
     "px.display(s, 'o')\n"
 )
 assert len(r.table("o")["r"]) == 2, r.table("o")
+m = Carnot(device_executor=DeviceExecutor(mesh_config=MeshConfig.parse("hosts:2,d:1", 2),
+                                          devices=["cpu", "cpu"]))
+table_from_columns(m.table_store, "t", rel, {
+    "service": np.array(["a", "b", "a"], dtype=object),
+    "latency": np.array([1.0, 2.0, 3.0]),
+})
+r = m.execute_query(
+    "df = px.DataFrame(table='t')\n"
+    "s = df.groupby(['service']).agg(m=('latency', px.max), n=('latency', px.count))\n"
+    "px.display(s, 'o')\n"
+)
+assert r.table("o")["m"] == [3.0, 2.0] and r.table("o")["n"] == [2, 1], r.table("o")
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "pixie_tpu" or m.startswith("pixie_tpu."))
 assert not bad, bad
@@ -77,7 +94,8 @@ def test_sources_never_import_jax_or_the_reference():
     assert len(files) > 30
     for new in ("serving/__init__.py", "serving/shared_scan.py", "ops/batched.py",
                 "serving/residency.py", "serving/resident.py", "ops/ml.py",
-                "ops/transformer.py", "udf/builtins/ml_ops.py"):
+                "ops/transformer.py", "udf/builtins/ml_ops.py", "distributed/__init__.py",
+                "distributed/mesh.py", "ops/merge.py"):
         assert PKG / new in files, new
     for f in files:
         text = f.read_text()
@@ -101,5 +119,6 @@ def test_chip_smoke_never_imports_jax_or_the_reference():
     text = (REPO / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
     assert not re.search(r"^\s*(import pixie_tpu\b|from pixie_tpu[ .])", text, re.M)
-    for kernel in ("reservoir_priority", "reservoir_topk", "kmeans_fit", "encoder_forward"):
+    for kernel in ("reservoir_priority", "reservoir_topk", "kmeans_fit", "encoder_forward",
+                   "merge_states"):
         assert f'"{kernel}"' in text, kernel

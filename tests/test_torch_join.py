@@ -47,6 +47,10 @@ from pixie_tpu_torch.utils import flags
 
 import torch
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 N_SERVICES = 16
 SERVICES = [f"ns/svc-{i}" for i in range(N_SERVICES)]
 UNOWNED = (3, 11)

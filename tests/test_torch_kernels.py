@@ -1,10 +1,11 @@
-"""The hand kernels (H1-H23 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H29 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
-without one; the last two need a second card. The file imports neither JAX
-nor the reference package, so it also runs on a machine that has only
-PyTorch: ``python -m pytest --noconftest tests/test_torch_kernels.py``.
+without one; the last four need a second card (one of them, at 4, a
+fourth). The file imports neither JAX nor the reference package, so it also
+runs on a machine that has only PyTorch:
+``python -m pytest --noconftest tests/test_torch_kernels.py``.
 
 Tolerances: integer results exactly equal; f64 sums within 1e-12 * sum|v|
 per group (H2's bound, PERF.md); log-histogram counts exactly equal once the
@@ -28,7 +29,10 @@ integer sums and presence exactly and its f64 sums within 1e-12 * sum |v|
 of their cell (H2's bound). The resident ring's converters (H24) bit for
 bit, NaN payloads and f32 subnormals included. The ML lane: H25's
 priorities and H26's reservoir states bit for bit (forced ties included),
-H27's k-means centers and H28's embeddings within 1e-5.
+H27's k-means centers and H28's embeddings within 1e-5. The cross-shard
+merge (H29) bit for bit, NaN, signed zeros and int64 overflow included; the
+sharded fold over real cards equal to the same geometry over logical shards
+of one card, exactly but for f64 sums (within 1e-12 * sum |v|).
 """
 
 import json
@@ -862,4 +866,165 @@ def test_device_executor_on_second_card():
         g, w = json.loads(gq), json.loads(wq)
         for k in w:
             assert g[k] == w[k] or max(g[k], w[k]) / min(g[k], w[k]) <= SPEC.gamma * (1 + 1e-9)
+    assert torch.cuda.current_device() == 0
+
+
+def _merge_stack(rng, D: int, L: int, dtype, kind: str, dev) -> torch.Tensor:
+    """[D, L] shard leaves of one H29 lane: the last shard empty (the
+    identity of ``kind``); f64 with NaN, disagreeing signed zeros, a NaN
+    payload, infinities and subnormals; int64 sums that overflow."""
+    if dtype == torch.float64:
+        a = rng.standard_normal((D, L)) * 1e3
+        a[0, 0], a[1, 1] = np.nan, np.nan
+        a[:, 2], a[0, 2] = 0.0, -0.0
+        a[:, 3], a[1, 3] = -0.0, 0.0
+        a[0, 4] = np.array([0x7FF8000000000001], np.int64).view(np.float64)[0]
+        a[0, 5], a[1, 6], a[:, 7] = np.inf, -np.inf, 5e-324
+        ident = {"sum": 0.0, "max": -np.inf, "min": np.inf}[kind]
+    elif dtype == torch.int64:
+        a = rng.integers(-(2**62), 2**62, (D, L), dtype=np.int64)
+        a[:, :8] = 2**63 - 1
+        ident = {"sum": 0, "max": -(2**63), "min": 2**63 - 1}[kind]
+    else:
+        a = rng.integers(0, 64, (D, L)).astype(np.int32)
+        ident = {"max": 0, "min": 2**31 - 1}[kind]
+    a[D - 1] = ident
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.cuda
+def test_merge_kernel_matches_plain_on_card():
+    """H29 against merge_stack_plain, bit for bit, at 2, 4 and 8 shards of
+    4096 groups in every lane, and at one shard (a copy)."""
+    _need_cards(1)
+    from pixie_tpu_torch.ops import merge
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    lanes = [(torch.int64, "sum"), (torch.float64, "sum"), (torch.int64, "max"),
+             (torch.int64, "min"), (torch.int32, "max"), (torch.int32, "min"),
+             (torch.float64, "max"), (torch.float64, "min")]
+    kernels.reset_launches()
+    for D in (2, 4, 8):
+        for dtype, kind in lanes:
+            stack = _merge_stack(rng, D, 4096, dtype, kind, dev)
+            got = merge.merge_stack(stack, kind)
+            want = merge.merge_stack_plain(stack, kind)
+            assert got.view(torch.uint8).equal(want.view(torch.uint8)), (D, dtype, kind)
+    one = _merge_stack(rng, 2, 4096, torch.float64, "sum", dev)[:1]
+    assert kernels.merge_states(one, "sum").view(torch.int64).equal(one[0].view(torch.int64))
+    assert kernels.LAUNCHES["merge_states"] == 3 * len(lanes) + 1
+    with pytest.raises(TypeError):
+        kernels.merge_states(torch.zeros((2, 4), dtype=torch.int32, device=dev), "sum")
+
+
+MESH_QUERY = (  # bench.py config 10's query (tools/microbench_mesh.py)
+    "df = px.DataFrame(table='mesh_bench')\n"
+    "g = df.groupby('service').agg("
+    "n=('lat', px.count), s=('lat', px.sum),"
+    " mn=('lat', px.min), mx=('lat', px.max),"
+    " u=('service', px.approx_count_distinct),"
+    " cm=('status', px.count_min))\n"
+    "px.display(g, 'out')\n"
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards,spec", [(2, "d:2"), (4, "hosts:2,d:2")])
+def test_mesh_fold_over_cards_equals_logical_shards(cards, spec):
+    """Config 10's fold, cold (the stream, a side stream a card) and warm,
+    over ``cards`` real cards equals the same geometry over logical shards
+    of cuda:0: exact in counts, min/max, HLL and count-min; f64 sums within
+    1e-12 * sum |v| of math.fsum. Each card launches its shard's kernels
+    and H29 merges on cuda:0."""
+    _need_cards(cards)
+    from pixie_tpu_torch.distributed import MeshConfig
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.types import DataType, Relation
+
+    rng = np.random.default_rng(21)
+    n = 300_000
+    data = {"service": np.array([f"svc{i}" for i in rng.integers(0, 64, n)], dtype=object),
+            "status": rng.integers(0, 7, n), "lat": rng.standard_normal(n)}
+    rel = Relation.of(("service", DataType.STRING), ("status", DataType.INT64),
+                      ("lat", DataType.FLOAT64))
+    torch.cuda.set_device(0)
+    out = {}
+    for name, devices in (("cards", [f"cuda:{i}" for i in range(cards)]),
+                          ("logical", ["cuda:0"] * cards)):
+        ex = DeviceExecutor(block_rows=1 << 14, mesh_config=MeshConfig.parse(spec, cards),
+                            devices=devices)
+        c = Carnot(device_executor=ex)
+        c.table_store.create_table("mesh_bench", rel).write_pydict(
+            {k: v.copy() for k, v in data.items()})
+        kernels.reset_launches()
+        out[name] = [c.execute_query(MESH_QUERY).table("out") for _ in range(2)]
+        assert kernels.LAUNCHES["merge_states"] > 0
+    want = out["logical"][0]
+    for got in out["cards"] + out["logical"][1:]:
+        for k in ("service", "n", "mn", "mx", "u", "cm"):
+            assert got[k] == want[k], k
+        for name, s in zip(got["service"], got["s"]):
+            v = data["lat"][data["service"] == name]
+            assert abs(s - math.fsum(v)) <= 1e-12 * np.abs(v).sum(), name
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_mesh_lanes_over_cards_equal_logical_shards():
+    """The other lanes over 2 real cards against 2 logical shards of cuda:0,
+    exactly: a head(n) scan (each card compacts its rows, the root takes the
+    prefixes in card order), an INNER join (both sides gathered to cuda:0),
+    a join that feeds a group-by (the shards' folds merged by H29) and
+    reservoir samples (TREE merges of states copied across cards)."""
+    _need_cards(2)
+    from pixie_tpu_torch.distributed import MeshConfig
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.types import DataType, Relation
+    from pixie_tpu_torch.utils import flags
+
+    rng = np.random.default_rng(23)
+    n = 200_000
+    svcs = np.array([f"svc-{i}" for i in range(12)], dtype=object)
+    fact = {"time_": np.arange(n, dtype=np.int64) * 10, "service": svcs[rng.integers(0, 12, n)],
+            "latency": rng.exponential(3e7, n), "bytes": rng.integers(0, 1 << 20, n)}
+    owners = {"svc": np.array(list(svcs[:10]) + ["ghost"], dtype=object),
+              "owner": np.array([f"team-{i % 3}" for i in range(11)], dtype=object)}
+    queries = [
+        "df = px.DataFrame(table='fact')\ndf = df[df.bytes >= 900000]\n"
+        "df = df[['time_', 'service', 'latency']]\ndf = df.head(5000)\npx.display(df, 'out')\n",
+        "f = px.DataFrame(table='fact')\no = px.DataFrame(table='owners')\n"
+        "j = f.merge(o, how='inner', left_on=['service'], right_on=['svc'], suffixes=['', '_o'])\n"
+        "px.display(j, 'out')\n",
+        "f = px.DataFrame(table='fact')\no = px.DataFrame(table='owners')\n"
+        "j = o.merge(f, how='inner', left_on=['svc'], right_on=['service'], suffixes=['', '_f'])\n"
+        "s = j.groupby(['owner']).agg(n=('latency', px.count), s=('bytes', px.sum),\n"
+        "    lo=('latency', px.min), hi=('latency', px.max))\npx.display(s, 'out')\n",
+        "df = px.DataFrame(table='fact')\n"
+        "s = df.groupby(['service']).agg(r=('latency', px.reservoir_sample),\n"
+        "    b=('bytes', px.reservoir_sample), n=('latency', px.count))\npx.display(s, 'out')\n",
+    ]
+    torch.cuda.set_device(0)
+    flags.set("device_join_min_rows", 0)
+    try:
+        out = {}
+        for name, devices in (("cards", ["cuda:0", "cuda:1"]), ("logical", ["cuda:0"] * 2)):
+            c = Carnot(device_executor=DeviceExecutor(
+                block_rows=1 << 14, mesh_config=MeshConfig.parse("d:2", 2), devices=devices))
+            c.table_store.create_table("fact", Relation.of(
+                ("time_", DataType.TIME64NS), ("service", DataType.STRING),
+                ("latency", DataType.FLOAT64), ("bytes", DataType.INT64))).write_pydict(
+                {k: v.copy() for k, v in fact.items()})
+            c.table_store.create_table("owners", Relation.of(
+                ("svc", DataType.STRING), ("owner", DataType.STRING))).write_pydict(
+                {k: v.copy() for k, v in owners.items()})
+            kernels.reset_launches()
+            out[name] = [c.execute_query(q).table("out") for q in queries for _ in range(2)]
+            assert kernels.LAUNCHES["merge_states"] > 0 and kernels.LAUNCHES["scan_compact"] > 0
+    finally:
+        flags.reset("device_join_min_rows")
+    for got, want in zip(out["cards"], out["logical"]):
+        assert got == want
     assert torch.cuda.current_device() == 0

@@ -31,6 +31,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from pixie_tpu.engine import Carnot as RefCarnot
@@ -45,6 +46,10 @@ from pixie_tpu_torch.ops import kernels, segment
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
 from pixie_tpu_torch.udf.builtins import NOT_PORTED
+
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
 
 NOW = 1_700_000_000_000_000_000
 ROW_NS = 18_000

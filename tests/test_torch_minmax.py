@@ -27,6 +27,10 @@ from pixie_tpu_torch.ops import segment
 from pixie_tpu_torch.types import DataType
 from pixie_tpu_torch.udf.registry import default_registry
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 N = 20_000
 
 

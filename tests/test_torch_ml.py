@@ -39,6 +39,10 @@ from pixie_tpu_torch.types import DataType, Relation
 from pixie_tpu_torch.udf.builtins import NOT_PORTED
 from pixie_tpu_torch.utils import flags
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 I64 = np.iinfo(np.int64)
 BLOCK = 512
 

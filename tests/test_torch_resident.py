@@ -42,6 +42,10 @@ from pixie_tpu_torch.serving import ResidencyPool, staged_nbytes
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
 from pixie_tpu_torch.utils import faults, flags, metrics_registry
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 N, WINDOW, BLOCK, SEED = 20_000, 4096, 512, 7
 AGG_PXL = (
     "df = px.DataFrame(table='http_events')\n"

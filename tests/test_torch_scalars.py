@@ -45,6 +45,10 @@ from pixie_tpu_torch.types import DataType, Relation
 from pixie_tpu_torch.udf.builtins import register_all
 from pixie_tpu_torch.udf.registry import Registry
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 F, I, B, T, S = (DataType.FLOAT64, DataType.INT64, DataType.BOOLEAN,
                  DataType.TIME64NS, DataType.STRING)
 INT64_MIN, INT64_MAX = -(2**63), 2**63 - 1

@@ -30,6 +30,10 @@ from pixie_tpu_torch.parallel.staging import stage_columns
 from pixie_tpu_torch.table.column import DictColumn
 from pixie_tpu_torch.types import DataType, Relation
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 B = 1 << 12
 N = 2 * B + 10
 QUERY = (

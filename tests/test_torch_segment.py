@@ -19,6 +19,10 @@ from pixie_tpu_torch.ops import segment
 from pixie_tpu_torch.udf.registry import default_registry
 from pixie_tpu_torch.types import DataType
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 S = 16
 N = 20_000
 

@@ -13,6 +13,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 from jax.sharding import Mesh
 
 from pixie_tpu.engine import Carnot as RefCarnot
@@ -27,6 +28,10 @@ from pixie_tpu_torch.ops import kernels
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
 from pixie_tpu_torch.utils import flags
+
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
 
 SERVICE_STATS = (
     "df = px.DataFrame(table='http_events')\n"

@@ -46,6 +46,10 @@ from pixie_tpu_torch.udf.builtins import register_all
 from pixie_tpu_torch.udf.registry import Registry
 from pixie_tpu_torch.utils import flags, metrics_registry
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 JOIN_S = 60  # every thread joins within this many seconds
 F, I, B, T, S = (DataType.FLOAT64, DataType.INT64, DataType.BOOLEAN,
                  DataType.TIME64NS, DataType.STRING)

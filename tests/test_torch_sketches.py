@@ -38,6 +38,10 @@ from pixie_tpu_torch.ops import countmin, hll, tdigest
 from pixie_tpu_torch.types import DataType
 from pixie_tpu_torch.udf.registry import default_registry
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 N = 30_000
 QS = (0.01, 0.10, 0.25, 0.50, 0.75, 0.90, 0.99)
 EPS_F4 = 1e-4  # the Fault-4 contract's distance to an integer coordinate

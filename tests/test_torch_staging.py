@@ -12,6 +12,10 @@ from jax.sharding import Mesh
 from pixie_tpu.parallel import staging as ref_staging
 from pixie_tpu_torch.parallel import staging
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 
 @pytest.mark.parametrize("num_rows", [0, 1, 255, 1000, 1 << 14, 70_001, 200_000])
 @pytest.mark.parametrize("block_rows", [1 << 12, 1 << 14, 1 << 17])

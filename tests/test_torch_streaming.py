@@ -33,6 +33,10 @@ from pixie_tpu_torch.parallel import DeviceExecutor, staging
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
 from pixie_tpu_torch.utils import faults, flags
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 STATS_PXL = (
     "df = px.DataFrame(table='http_events')\n"
     "df.failure = df.resp_status >= 400\n"

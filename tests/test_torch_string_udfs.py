@@ -7,6 +7,7 @@ through the codes). Exact, value for value.
 
 import numpy as np
 import pytest
+import torch
 
 from pixie_tpu.exec.expression_evaluator import ExpressionEvaluator as RefEvaluator
 from pixie_tpu.plan.expressions import ColumnRef as RefCol, Constant as RefConst, FuncCall as RefCall
@@ -22,6 +23,10 @@ from pixie_tpu_torch.table.row_batch import RowBatch
 from pixie_tpu_torch.types import DataType, Relation
 from pixie_tpu_torch.udf.builtins import register_all
 from pixie_tpu_torch.udf.registry import Registry
+
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
 
 REF = RefRegistry()
 ref_register_all(REF)

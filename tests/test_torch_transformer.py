@@ -25,6 +25,10 @@ from pixie_tpu_torch.ops import transformer as tr
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.types import DataType, Relation
 
+# Two intra-op threads: the CPU tests share the host with the reference's
+# timing-sensitive tests under several workers.
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 
 
