@@ -1,7 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port (pixie_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--rows N] [--profile]
-    python3 chip_smoke.py --mesh-cards N      (N cards: config 10 only)
+    python3 chip_smoke.py --mesh-cards N      (N cards: the mesh paths only)
+    python3 chip_smoke.py --ab-parent DIR     (config 10's widths, DIR's tree
+                                               against this one, in turns)
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. In order it:
@@ -33,7 +35,10 @@ the CUDA toolkit. In order it:
    exact and its f64 sums within 1e-12 * sum |v|; H24 bit for bit; H29,
    the cross-shard merge, bit for bit at 2, 4 and 8 shards of 4096 groups
    in every lane, with NaN, -0.0/+0.0, int64 overflow and empty shards,
-   timed at config 10's largest merge), and
+   timed at config 10's largest merge; H30-H32, the kernels of the TPU
+   kernels no path calls, exactly: the count-min query over config 10's
+   64 x 4 x 8192 state and 2^21 queries, hash_columns over 2^21 (int64,
+   f64) rows and edge words, clz64 over its outputs), and
    times kernel, plain version and the
    one PyTorch library call that computes the same function, where there is
    one (median of 30 calls, CUDA events between calls queued behind a sleep
@@ -164,10 +169,29 @@ the CUDA toolkit. In order it:
      outputs equal d:1's, H29 launched; each width's warm and cold
      seconds, K18's device milliseconds and share of a warm query, and
      H29's launches are printed;
+   - the partitioned join (mesh_join): config 8's INNER and OUTER joins on
+     hosts:2,d:4 and hosts:4,d:2 over 8 logical shards of the card, each
+     query counting the join_partitioned lane (H13-H15, H12), held to the
+     d:1 joins' truths and rows and to the replicated lane's rows on the
+     same mesh; warm and cold seconds with the host's inverse reorder
+     (join_reorder) are printed;
+   - the recovery plane (mesh_chaos, bench.py config 12 at config 10's
+     scale): 2^25 rows of mesh_bench (seed 23) in 8 stream windows on
+     hosts:2,d:4 over 8 logical shards; cold folds with window checkpoints
+     on and off, then one with mesh.host_loss armed after window 4: it
+     resumes from window 4's checkpoint on d:8 and equals the unfaulted
+     flat fold (and numpy); after an append the next fold runs on the full
+     geometry again; recovery seconds, the refolded fraction and the
+     checkpoints' cost are printed;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H29 and the hash kernel), the nvidia-smi
-   line, and as its last line {"ok": true, "device": {...}}.
+   line of per-kernel results (H1-H32 and the hash kernel; H30-H32 with 0
+   launches: no path calls them), the nvidia-smi line, and as its last line
+   {"ok": true, "device": {...}}.
+
+With ``--mesh-cards N`` it runs only the mesh paths over N real cards
+against the same geometry over N logical shards of card 0: config 10 at
+d:N and hosts:2,d:N/2, config 8's joins and config 12 at hosts:2,d:N/2.
 
 Any failed check raises, and the script exits non-zero before the last
 line. Without a CUDA device it exits non-zero at once.
@@ -231,7 +255,13 @@ REPLACES = {
     "kmeans_fit": "pixie_tpu/ops/ml.py:128",
     "encoder_forward": "pixie_tpu/ops/transformer.py:76",
     "merge_states": "pixie_tpu/parallel/pipeline.py:5605",
+    "countmin_query": "pixie_tpu/ops/countmin.py:114",
+    "hash_columns": "pixie_tpu/ops/hashing.py:48",
+    "clz64": "pixie_tpu/ops/hashing.py:56",
 }
+# The TPU kernels no path of either package calls: their launch count on the
+# main paths is 0 by design; their kernel phase holds and times them.
+UNCALLED = ("countmin_query", "hash_columns", "clz64")
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
     **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:12]},
@@ -252,6 +282,8 @@ SOURCES = {
        for k in ("reservoir_priority", "reservoir_topk", "kmeans_fit")},
     "encoder_forward": "pixie_tpu_torch/ops/kernels/transformer_kernels.cu",
     "merge_states": "pixie_tpu_torch/ops/kernels/merge_kernels.cu",
+    "countmin_query": "pixie_tpu_torch/ops/kernels/sketch_kernels.cu",
+    **{k: "pixie_tpu_torch/ops/kernels/hash_kernels.cu" for k in ("hash_columns", "clz64")},
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -3867,11 +3899,105 @@ def merge_kernel_phase(dev) -> dict:
     return {"merge_states": rec}
 
 
-def mesh_table(n_rows: int) -> dict:
-    """tools/microbench_mesh.py's mesh_bench columns (seed 21), the service
-    as its index (svc<i>), with the per-service truths: counts, min, max,
-    math.fsum and sum |lat|."""
-    rng = np.random.default_rng(21)
+UNCALLED_ROWS = 1 << 21
+
+
+def uncalled_kernel_phase(dev) -> dict:
+    """H30-H32, the kernels of the TPU kernels no path calls, against their
+    plain versions on the card, exactly: H30 (count-min query) over config
+    10's state shape, 64 groups x 4 x 8192 cells filled by H6 from 2^22
+    rows of resp_status values, and 2^21 (group, resp_status) queries; H31
+    (hash_columns) over 2^21 rows of (int64 service code, f64 latency), and
+    over edge words (-0.0, NaN payloads, +-inf, a bool column, eight
+    columns); H32 (clz64) over H31's 2^21 outputs and the edge words 0, 1,
+    2^63 and 2^64 - 1. Each timed with its plain version; no one torch call
+    computes any of them (library_ms none), so the torch sequence's time is
+    given: H30's gathers and min over precomputed buckets, H31 and H32 are
+    their plain versions."""
+    from pixie_tpu_torch.ops import countmin, hashing, kernels
+
+    rng = np.random.default_rng(30)
+    n = UNCALLED_ROWS
+    out = {}
+    # H30: config 10's count-min state (64 services, status 0-6).
+    G, depth, width = MESH_SERVICES, countmin.DEFAULT_DEPTH, countmin.DEFAULT_WIDTH
+    state = countmin.update(
+        countmin.init(G, dev),
+        torch.from_numpy(rng.integers(0, G, 1 << 22).astype(np.int32)).to(dev),
+        torch.from_numpy(rng.integers(0, 7, 1 << 22)).to(dev),
+    )
+    gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.integers(0, 7, n)).to(dev)
+    words = hashing.words64(vals).contiguous()
+    got, want = countmin.query(state, gids, vals), countmin.query_plain(state, gids, vals)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "H30 countmin_query: kernel != plain")
+    check(int(got.min()) > 0, "H30: every status was counted")
+    g64 = gids.long()
+    buckets = [b.long() for b in countmin._buckets(vals, depth, width)]
+    # The bound reads only the state cells these queries touch, each once
+    # (64 groups x 7 statuses x 4 rows at most), as H5/H6's count the cells
+    # their rows touch.
+    cells = int(torch.unique(torch.cat(
+        [(g64 * depth + d) * width + b for d, b in enumerate(buckets)])).numel())
+    rec = record(
+        lambda: kernels.countmin_query(state, gids, words),
+        lambda: countmin.query_plain(state, gids, vals), None,
+        *bound(n * (4 + 8 + 8) + cells * 8, n * depth), 0.0,
+        f"state [{G},{depth},{width}] int64 ({cells} cells touched), {n} queries",
+    )
+    rec["library_ms_torch_seq"] = time_ms(
+        lambda: torch.stack([state[g64, d, b] for d, b in enumerate(buckets)]).min(0).values)
+    out["countmin_query"] = rec
+    # H31: (service code, latency) rows, then the edge words.
+    code = torch.from_numpy(rng.integers(0, MESH_SERVICES, n)).to(dev)
+    lat = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
+    h = hashing.hash_columns([code, lat], 0)
+    torch.cuda.synchronize()
+    check(torch.equal(h, hashing.hash_columns_plain([code, lat], 0)), "H31 hash_columns: kernel != plain")
+    edge_f = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 5e-324] * 4,
+                          dtype=torch.float64)
+    edge_f[6] = torch.tensor([0x7FF8000000000001], dtype=torch.int64).view(torch.float64)[0]
+    edge_i = torch.tensor([0, -1, 1, -(2**63), 2**63 - 1, 7] * 4, dtype=torch.int64)
+    edge_b = torch.tensor([True, False, True] * 8)
+    for cols, seed in (([edge_f], 0), ([edge_b, edge_i, edge_f], 3),
+                       ([edge_i, edge_f, edge_b, edge_f, edge_i, edge_b, edge_f, edge_i], 5)):
+        kg = hashing.hash_columns([c.to(dev) for c in cols], seed).cpu()
+        check(torch.equal(kg, hashing.hash_columns_plain(cols, seed)),
+              f"H31 hash_columns: edge words of {len(cols)} columns")
+    rec = record(
+        lambda: kernels.hash_columns([code, lat], 0),
+        lambda: hashing.hash_columns_plain([code, lat], 0), None,
+        *bound(n * (8 + 8 + 8), n * 40), 0.0, f"{n} rows x (int64, f64)",
+    )
+    rec["library_ms_torch_seq"] = rec["plain_ms"]
+    out["hash_columns"] = rec
+    # H32: H31's outputs, then the edge words.
+    z = hashing.clz64(h)
+    torch.cuda.synchronize()
+    check(torch.equal(z, hashing.clz64_plain(h)), "H32 clz64: kernel != plain")
+    edges = torch.tensor([0, 1, -(2**63), -1, 2**62, 2**63 - 1], dtype=torch.int64)
+    check(hashing.clz64(edges.to(dev)).cpu().tolist() == [64, 63, 0, 0, 1, 1]
+          and torch.equal(hashing.clz64_plain(edges), torch.tensor([64, 63, 0, 0, 1, 1],
+                                                                   dtype=torch.int32)),
+          "H32 clz64: the edge words")
+    rec = record(
+        lambda: kernels.clz64(h), lambda: hashing.clz64_plain(h), None,
+        *bound(n * (8 + 4), n), 0.0, f"{n} u64",
+    )
+    rec["library_ms_torch_seq"] = rec["plain_ms"]
+    out["clz64"] = rec
+    for name, r in out.items():
+        log(f"{name}: {r['ms']:.4f} ms [bound {r['bound_ms']:.4f}], plain {r['plain_ms']:.4f}, "
+            f"torch sequence {r['library_ms_torch_seq']:.4f} (no one torch call)")
+    return out
+
+
+def mesh_table(n_rows: int, seed: int = 21) -> dict:
+    """tools/microbench_mesh.py's mesh_bench columns (seed 21; config 12's
+    seed 23), the service as its index (svc<i>), with the per-service
+    truths: counts, min, max, math.fsum and sum |lat|."""
+    rng = np.random.default_rng(seed)
     mb = {"svc": rng.integers(0, MESH_SERVICES, n_rows), "status": rng.integers(0, 7, n_rows),
           "lat": rng.standard_normal(n_rows)}
     order = np.argsort(mb["svc"].astype(np.uint8), kind="stable")
@@ -4060,6 +4186,227 @@ def tree_merge_paths(carnot, data: dict, paths: dict, phase_s: dict) -> None:
     phase_s["reservoir_mesh4"] = time.perf_counter() - t0
 
 
+MESH_JOIN_SPECS = ("hosts:2,d:4", "hosts:4,d:2")
+JOIN_KERNELS = ("join_probe", "join_emit_pairs", "join_gather")
+
+
+def joined_equal(a, b) -> bool:
+    """Two joined results hold the same rows in the same order: numbers bit
+    for bit, strings as decoded (each of b's codes mapped to the code of the
+    same string in a's dictionary, so no row is decoded)."""
+    ca, cb = joined(a), joined(b)
+    if list(ca) != list(cb):
+        return False
+    for k in ca:
+        x, y = ca[k], cb[k]
+        if hasattr(x, "codes"):
+            pos = {v: i for i, v in enumerate(x.dictionary.values())}
+            lut = np.array([pos.get(v, -2) for v in y.dictionary.values()], dtype=np.int64)
+            if len(x.codes) != len(y.codes) or not np.array_equal(
+                    np.asarray(x.codes, np.int64), lut[y.codes]):
+                return False
+        elif not np.array_equal(np.asarray(x).view(np.uint8), np.asarray(y).view(np.uint8)):
+            return False
+    return True
+
+
+def mesh_join_paths(join_carnot, jf: dict, paths: dict, phase_s: dict, specs=MESH_JOIN_SPECS,
+                    shards: int = MESH_SHARDS, devices=None, tag: str = "") -> dict:
+    """Config 8's INNER and OUTER joins on meshes with a hosts axis (by
+    default over ``shards`` logical shards of the card): each a main path
+    (cold, then warm) through the partitioned lane (the join_partitioned
+    lane on every query; H13-H15, and H12 for OUTER), held to the d:1
+    paths' truths (verify_join8, verify_join8_outer) and to their rows, and
+    to the replicated lane's rows on the same mesh (mesh_distributed_join
+    off). Returns {path: {warm_s, cold_s, cold_reorder_s, warm_reorder_s}}."""
+    from pixie_tpu_torch.utils import flags
+
+    summary = {}
+    for spec in specs:
+        c = mesh_carnot(join_carnot, spec, shards, devices)
+        for name, query, verify_fn, expect in (
+            ("join8", JOIN8, verify_join8, JOIN_KERNELS),
+            ("join8_outer", JOIN8_OUTER, verify_join8_outer, JOIN_KERNELS + ("scan_compact",)),
+        ):
+            t0 = time.perf_counter()
+            pname = f"mesh{tag}_{name}_" + spec.replace(":", "").replace(",", "_")
+            p = paths[pname] = drive(c, query, lambda r, f=verify_fn: f(r, jf), expect,
+                                     streamed=False)
+            check(p["lanes"] == {"join_partitioned": 1 + WARM_QUERIES},
+                  f"{pname}: lanes {p['lanes']}, expected join_partitioned on every query")
+            if name in paths:
+                check(joined_equal(p["result"], paths[name]["result"]),
+                      f"{pname}: rows differ from d:1's")
+            flags.set("mesh_distributed_join", False)
+            try:
+                from pixie_tpu_torch.ops import segment
+
+                segment.reduce_lanes(reset=True)
+                replicated = c.execute_query(query)
+                check(segment.reduce_lanes(reset=True) == {"join_sort_merge": 1},
+                      f"{pname}: the flag off did not take the replicated lane")
+            finally:
+                flags.reset("mesh_distributed_join")
+            check(joined_equal(p["result"], replicated),
+                  f"{pname}: rows differ from the replicated lane's")
+            del replicated
+            summary[pname] = dict(
+                warm_s=min(p["warm"]), cold_s=p["cold"],
+                cold_reorder_s=p["cold_phases"].get("join_reorder", 0.0),
+                warm_reorder_s=min(w.get("join_reorder", 0.0) for w in p["warm_phases"]),
+            )
+            log(f"{pname}: warm {summary[pname]['warm_s']:.4f} s (join_reorder "
+                f"{summary[pname]['warm_reorder_s']:.4f}), cold {p['cold']:.3f} s "
+                f"(join_reorder {summary[pname]['cold_reorder_s']:.4f}); equal to d:1 and to "
+                "the replicated lane")
+            phase_s[pname] = time.perf_counter() - t0
+    return summary
+
+
+CHAOS_ROWS = 1 << 25
+CHAOS_WINDOWS = 8
+CHAOS_SPEC = "hosts:2,d:4"
+CHAOS_APPEND = 4096
+
+
+def mesh_chaos(mb: dict, spec: str = CHAOS_SPEC, shards: int = MESH_SHARDS,
+               devices=None, device: str = "cuda") -> dict:
+    """bench.py config 12 (tools/microbench_mesh.py:176-310) at config 10's
+    scale: mesh_bench's query over a table of ``mb``'s rows (seed 23), written
+    anew for each call, in
+    CHAOS_WINDOWS stream windows on ``spec`` (by default over ``shards``
+    logical shards of the card). The truth is the unfaulted flat fold over
+    the same devices and numpy's (verify_mesh). Cold folds (a new executor
+    each) with mesh_fold_checkpoint on and off, in turns; then one with
+    ``mesh.host_loss`` armed after CHAOS_WINDOWS // 2 window dispatches: it
+    must resume from that window's checkpoint on the next rung and equal
+    the truth (counts, min/max, HLL and count-min exactly, the f64 sums
+    within SUM_BOUND * sum |v|); then CHAOS_APPEND rows more and one more
+    fold must run on the full geometry again."""
+    from pixie_tpu_torch.ops import kernels
+    from pixie_tpu_torch.parallel import staging
+    from pixie_tpu_torch.table.column import DictColumn
+    from pixie_tpu_torch.utils import faults, flags
+
+    n = int(mb["n"].sum())
+    t0 = time.perf_counter()
+    chaos_base = build_mesh_carnot(mb, n, device)
+    table_s = time.perf_counter() - t0
+    flags.set("streaming_window_rows", n // CHAOS_WINDOWS)
+
+    def cold_fold(sp, ckpt=True):
+        flags.set("mesh_fold_checkpoint", ckpt)
+        c = mesh_carnot(chaos_base, sp, shards, devices)
+        staging.reset_cold_profile()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = c.execute_query(MESH_QUERY)
+        torch.cuda.synchronize()
+        return c, res, time.perf_counter() - t0, staging.reset_cold_profile()
+
+    try:
+        _, res, _, _ = cold_fold(f"d:{shards}")
+        truth = verify_mesh(res, mb)
+        walls = {True: [], False: []}
+        ckpt_s = []
+        for ckpt in (True, False, True, False):
+            c, res, wall, prof = cold_fold(spec, ckpt)
+            got = verify_mesh(res, mb)
+            for k in ("n", "mn", "mx", "u", "cm"):
+                check(str(got[k]) == str(truth[k]), f"chaos unfaulted {spec}: {k} differs")
+            snap = c.device_executor.mesh_recovery_snapshot()
+            check(snap["checkpoint_windows"] == (CHAOS_WINDOWS if ckpt else 0),
+                  f"chaos: {snap['checkpoint_windows']} windows checkpointed")
+            walls[ckpt].append(wall)
+            if ckpt:
+                ckpt_s.append(prof.get("stage_stream_ckpt", 0.0))
+        after = CHAOS_WINDOWS // 2
+        kernels.reset_launches()
+        faults.arm("mesh.host_loss", count=1, after=after)
+        try:
+            c, res, faulted, prof = cold_fold(spec)
+        finally:
+            faults.reset()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        got = verify_mesh(res, mb)
+        for k in ("n", "mn", "mx", "u", "cm"):
+            check(str(got[k]) == str(truth[k]), f"chaos recovered {spec}: {k} differs")
+        ex = c.device_executor
+        snap, rs = ex.mesh_recovery_snapshot(), ex.last_resume_stats
+        check(rs == {"resumed_from_window": after, "refolded_windows": CHAOS_WINDOWS - after,
+                     "total_windows": CHAOS_WINDOWS}, f"chaos: resume stats {rs}")
+        check(snap["degrade_events"] == 1 and snap["checkpoint_resumes"] == 1,
+              f"chaos: snapshot {snap}")
+        degraded_to = snap["geometry"]
+        table = chaos_base.table_store.get_table("mesh_bench")
+        rng = np.random.default_rng(24)
+        table.write_pydict({
+            "service": DictColumn(rng.integers(0, MESH_SERVICES, CHAOS_APPEND).astype(np.int32),
+                                  table.dictionaries["service"]),
+            "status": rng.integers(0, 7, CHAOS_APPEND),
+            "lat": rng.standard_normal(CHAOS_APPEND),
+        })
+        res = c.execute_query(MESH_QUERY)
+        check(sum(res.table("out")["n"]) == n + CHAOS_APPEND, "chaos: the fold after the append")
+        restored = not ex.mesh_recovery_snapshot()["degraded"]
+        check(restored, "chaos: the next fold did not restore the full geometry")
+    finally:
+        flags.reset("streaming_window_rows")
+        flags.reset("mesh_fold_checkpoint")
+    unfaulted = min(walls[True])
+    frac = rs["refolded_windows"] / rs["total_windows"]
+    check(frac < 1.0, "chaos: the checkpoints saved no window")
+    summary = dict(
+        geometry=spec, degraded_to=degraded_to, rows=n, windows=CHAOS_WINDOWS, table_s=table_s,
+        fault_after_window=after, unfaulted_fold_s=unfaulted, faulted_fold_s=faulted,
+        recovery_seconds=max(0.0, faulted - unfaulted),
+        resumed_from_window=rs["resumed_from_window"], refolded_windows=rs["refolded_windows"],
+        refolded_window_fraction=frac, checkpoint_saved_fraction=1.0 - frac,
+        degrade_events=snap["degrade_events"], restored_after_next_fold=restored,
+        cold_ckpt_on_s=walls[True], cold_ckpt_off_s=walls[False],
+        stage_stream_ckpt_s=ckpt_s, faulted_launches=launches,
+        recovered={k: got[k] for k in ("n", "mn", "mx", "u", "cm")},
+    )
+    log(f"mesh_chaos {spec}: recovery {summary['recovery_seconds']:.3f} s over the unfaulted "
+        f"{unfaulted:.3f} s (faulted {faulted:.3f} s on {spec} -> {degraded_to}); resumed "
+        f"from window {rs['resumed_from_window']}, refolded {rs['refolded_windows']} of "
+        f"{CHAOS_WINDOWS}; cold checkpoints on {walls[True]} / off {walls[False]} s, "
+        f"stage_stream_ckpt {ckpt_s} s; launches of the faulted fold {launches}")
+    return summary
+
+
+def mesh_cards_paths(n: int, paths: dict, phase_s: dict) -> dict:
+    """``--mesh-cards n``: config 8's joins and config 12 at hosts:2,d:n/2
+    over n real cards against the same geometry over n logical shards of
+    card 0 (the joins in turns logical, cards, cards, logical, each held to
+    the d:1 joins' truths and rows; the chaos once each, its recovered
+    outputs equal). Returns {what: {placement: numbers}}."""
+    cards = [torch.device("cuda", i) for i in range(n)]
+    spec = f"hosts:2,d:{n // 2}"
+    jf = join_fact(JOIN_ROWS)
+    join_carnot = build_join_carnot(jf, JOIN_ROWS, "cuda")
+    for name, query, verify_fn, expect in (
+        ("join8", JOIN8, verify_join8, JOIN_KERNELS),
+        ("join8_outer", JOIN8_OUTER, verify_join8_outer, JOIN_KERNELS + ("scan_compact",)),
+    ):
+        paths[name] = drive(join_carnot, query, lambda r, f=verify_fn: f(r, jf), expect,
+                            streamed=False)
+    out = {"join": {"logical": [], "cards": []}}
+    for i, placement in enumerate(("logical", "cards", "cards", "logical")):
+        out["join"][placement].append(mesh_join_paths(
+            join_carnot, jf, paths, phase_s, specs=(spec,), shards=n,
+            devices=cards if placement == "cards" else None, tag=f"_{placement}{i}"))
+    cm = mesh_table(CHAOS_ROWS, seed=23)
+    chaos = {placement: mesh_chaos(cm, spec, n, cards if placement == "cards" else None)
+             for placement in ("logical", "cards")}
+    check(str(chaos["cards"].pop("recovered")) == str(chaos["logical"].pop("recovered")),
+          "mesh_chaos over cards: the recovered outputs differ from the logical shards'")
+    out["chaos"] = chaos
+    log(f"mesh over {n} cards, {spec}: joins {json.dumps(out['join'])}; chaos "
+        f"{json.dumps(chaos)}")
+    return out
+
+
 def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
           streamed: bool = True, offloaded: bool = True) -> dict:
     """One main path: launch counts and lanes zeroed just before, one cold
@@ -4104,6 +4451,84 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
                 launches=launches, lanes=lanes, result=result)
 
 
+# One turn of ``--ab-parent``: config 10's table and query in the tree of
+# the working directory, every width cold once and then warm. In a tree
+# whose executor has the recovery plane, each warm query alternates with one
+# that calls the attempt and the dispatches directly (``bypassed``).
+AB_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from pixie_tpu_torch.ops import kernels
+kernels.library()
+mb = cs.mesh_table(cs.MESH_ROWS)
+base = cs.build_mesh_carnot(mb, cs.MESH_ROWS, "cuda")
+out = {}
+for spec in ("d:1",) + cs.MESH_WIDTHS:
+    c = base if spec == "d:1" else cs.mesh_carnot(base, spec, cs.MESH_SHARDS)
+    ex = c.device_executor
+    t = time.perf_counter(); c.execute_query(cs.MESH_QUERY); cold = time.perf_counter() - t
+    plane = hasattr(ex, "_execute_with_recovery")
+    warm, bypassed = [], []
+    for i in range(2 * %d):
+        off = plane and i %% 2 == 1
+        if off:
+            ex.try_execute_fragment = ex._try_execute_fragment
+            ex._mesh_dispatch = lambda fn, what="fold": fn()
+        t = time.perf_counter(); c.execute_query(cs.MESH_QUERY); dt = time.perf_counter() - t
+        if off:
+            del ex.try_execute_fragment, ex._mesh_dispatch
+        (bypassed if off else warm).append(dt)
+    out[spec] = {"cold_s": cold, "warm_s": warm, "bypassed_s": bypassed}
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
+    """``--ab-parent``: config 10's d:1 and 8-shard widths in ``parent``'s
+    tree and in this one, ``pairs`` pairs of turns in ABBA order (parent,
+    change, change, parent, ...), each turn its own process (its own kernel
+    build, table and executors). A turn reads each width's cold query and
+    ``warm`` warm ones (per turn the median). Per width: each side's turn
+    medians, the change's wins and the change minus the parent's median of
+    turn medians; in the change's turns also the recovery plane bypassed."""
+    import os
+
+    turns = {"parent": [], "change": []}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for i in range(pairs):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for tag in order:
+            p = subprocess.run([sys.executable, "-c", AB_CHILD % warm],
+                               cwd=parent if tag == "parent" else here,
+                               capture_output=True, text=True, timeout=600)
+            line = [x for x in p.stdout.splitlines() if x.startswith("RESULT ")]
+            check(p.returncode == 0 and bool(line),
+                  f"--ab-parent: the {tag} turn failed ({p.returncode}): {p.stderr[-2000:]}")
+            turns[tag].append(json.loads(line[0][len("RESULT "):]))
+            log(f"ab pair {i} {tag}: " + ", ".join(
+                f"{k} {float(np.median(v['warm_s'])):.5f}" for k, v in turns[tag][-1].items()))
+    out = {}
+    for spec in turns["change"][0]:
+        med = {tag: [float(np.median(t[spec]["warm_s"])) for t in turns[tag]] for tag in turns}
+        cold = {tag: [t[spec]["cold_s"] for t in turns[tag]] for tag in turns}
+        byp = [float(np.median(t[spec]["bypassed_s"])) for t in turns["change"]]
+        out[spec] = dict(
+            parent_warm=med["parent"], change_warm=med["change"], change_bypassed=byp,
+            parent_cold=cold["parent"], change_cold=cold["change"],
+            change_wins=sum(c < p for c, p in zip(med["change"], med["parent"])),
+            delta_warm=float(np.median(med["change"]) - np.median(med["parent"])),
+            delta_bypass=float(np.median(med["change"]) - np.median(byp)),
+        )
+        log(f"ab {spec}: warm parent {np.median(med['parent']):.5f} "
+            f"[{min(med['parent']):.5f}, {max(med['parent']):.5f}], change "
+            f"{np.median(med['change']):.5f} [{min(med['change']):.5f}, "
+            f"{max(med['change']):.5f}], bypassed {np.median(byp):.5f}; change wins "
+            f"{out[spec]['change_wins']} of {pairs}; cold parent {np.median(cold['parent']):.3f} "
+            f"change {np.median(cold['change']):.3f}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
@@ -4114,12 +4539,24 @@ def main() -> int:
     ap.add_argument("--mesh-cards", type=int, default=0,
                     help="run only config 10 over this many real cards against the same "
                          "geometry over logical shards of card 0 (needs that many cards)")
+    ap.add_argument("--ab-parent", default="",
+                    help="run only config 10's d:1 and 8-shard widths, this directory's tree "
+                         "against this one's in turns (a checkout of another commit)")
+    ap.add_argument("--ab-pairs", type=int, default=10, help="pairs of --ab-parent turns")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    if args.ab_parent:
+        log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi_line()}")
+        log("ab: " + json.dumps(ab_widths(args.ab_parent, args.ab_pairs)))
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     from pixie_tpu_torch.ops import histogram, kernels, segment
 
     t_start = time.perf_counter()
@@ -4143,6 +4580,8 @@ def main() -> int:
     if args.mesh_cards:
         sweep = mesh_cards_sweep(args.mesh_cards)
         log(f"mesh cards sweep: {json.dumps(sweep)}; {time.perf_counter() - t_start:.1f} s")
+        mesh_cards_paths(args.mesh_cards, {}, phase_s)
+        log(f"mesh cards joins and chaos: {time.perf_counter() - t_start:.1f} s")
         print(nvidia_smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -4162,6 +4601,7 @@ def main() -> int:
     records.update(ring_kernel_phase(dev))
     records.update(ml_kernel_phase(dev))
     records.update(merge_kernel_phase(dev))
+    records.update(uncalled_kernel_phase(dev))
     rate = copy_rate(dev)
     log(f"1 GiB device-to-device copy: {rate / 1e9:.1f} GB/s (read + write)")
     phase_s["kernels"] = time.perf_counter() - t0
@@ -4327,6 +4767,7 @@ def main() -> int:
         check(lanes == {lane: 1 + WARM_QUERIES},
               f"{name}: lanes {lanes}, expected only {lane} on every query")
         phase_s[name] = time.perf_counter() - t0
+    mesh_join = mesh_join_paths(join_carnot, jf, paths, phase_s)
 
     t0 = time.perf_counter()
     ev = let_events(LET_ROWS)
@@ -4386,6 +4827,10 @@ def main() -> int:
     mb = mesh_table(MESH_ROWS)
     phase_s["mesh_truths"] = time.perf_counter() - t0
     mesh = mesh_paths(mb, paths, phase_s)
+    t0 = time.perf_counter()
+    chaos = mesh_chaos(mesh_table(CHAOS_ROWS, seed=23))
+    chaos.pop("recovered")
+    phase_s["mesh_chaos"] = time.perf_counter() - t0
 
     n_queries = 1 + WARM_QUERIES
     rows_of = {"service_stats": args.rows, "sketches": args.rows, "status_mix": args.rows,
@@ -4401,7 +4846,8 @@ def main() -> int:
                "kmeans_predict": KM_ROWS, "sketches_mesh4": args.rows,
                "reservoir_mesh4": args.rows,
                **{"mesh_" + spec.replace(":", "").replace(",", "_"): MESH_ROWS
-                  for spec in ("d:1",) + MESH_WIDTHS}}
+                  for spec in ("d:1",) + MESH_WIDTHS},
+               **{name: JOIN_ROWS for name in mesh_join}}
     for name, p in paths.items():
         best = min(p["warm"])
         cp = p["cold_phases"]
@@ -4423,7 +4869,10 @@ def main() -> int:
     launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
                 + ring_launches[k] for k in kernels.KERNELS}
     for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main paths")
+        if name in UNCALLED:
+            check(count == 0, f"kernel {name} has no caller but launched {count} times")
+        else:
+            check(count > 0, f"kernel {name} was not launched on the main paths")
 
     if args.profile:
         profile_warm(carnot, SERVICE_STATS, min(paths["service_stats"]["warm"]))
@@ -4458,6 +4907,10 @@ def main() -> int:
 
     log(f"mesh sweep (config 10, {MESH_ROWS} rows, {MESH_SHARDS} logical shards of the card): "
         f"{json.dumps(mesh)}")
+    log(f"mesh joins (config 8, {JOIN_ROWS} fact rows, {MESH_SHARDS} logical shards of the "
+        f"card): {json.dumps(mesh_join)}")
+    log(f"mesh chaos (config 12, {CHAOS_ROWS} rows, {CHAOS_SPEC} over {MESH_SHARDS} logical "
+        f"shards of the card): {json.dumps(chaos)}")
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     out = []

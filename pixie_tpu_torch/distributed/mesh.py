@@ -18,9 +18,12 @@ devices); a geometry is a geometry either way. ``MeshConfig.build`` checks
 the device count exactly as the reference does and never shrinks a geometry
 to fit the devices it finds.
 
-The partition-rule helpers of the reference (``match_partition_rules`` and
-the sharding constructors) serve only ``repartition_staged`` and are not
-ported yet.
+The reference's partition rules map each staged lane name to a
+``NamedSharding`` and re-place a cached staging when a degradation rung
+changes the geometry. The port needs neither: a staged lane puts shard i on
+``mesh.devices[i]``, every rung of the ladder is built over the same device
+tuple, and the staged cache keys name that tuple, so a staging never has to
+move.
 """
 
 from __future__ import annotations

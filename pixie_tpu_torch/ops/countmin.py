@@ -13,7 +13,7 @@ H6 for the buckets, which also adds each group's row count into the UDA's
 ``cell_update_counted`` is the int-dictionary cell lane: one update per
 (group, value code) cell of a histogram, which gives the row path's cells;
 on CUDA one H21 launch updates the sketch and ``total`` in place. ``query``
-is a plain version only: no query runs on the port's path.
+launches H30 on CUDA (no path calls it in either package yet).
 """
 
 from __future__ import annotations
@@ -126,7 +126,18 @@ def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def query(state: torch.Tensor, gids: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
-    """Estimated counts of (group, value) pairs: the min over depth rows."""
+    """Estimated counts of (group, value) pairs: the min over depth rows.
+    One H30 launch on CUDA (gids in [0, num_groups))."""
+    if state.is_cuda:
+        return kernels.countmin_query(
+            state.contiguous(), gids.to(torch.int32).contiguous(),
+            hashing.words64(values).contiguous(),
+        )
+    return query_plain(state, gids, values)
+
+
+def query_plain(state: torch.Tensor, gids: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Plain version of H30."""
     _, depth, width = state.shape
     g = gids.to(torch.int64)
     ests = [state[g, d, b.to(torch.int64)] for d, b in enumerate(_buckets(values, depth, width))]

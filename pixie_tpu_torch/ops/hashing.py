@@ -16,8 +16,9 @@ The 64-bit path (splitmix64, hash64, combine, hash_columns, clz64) holds
 each u64 in an int64 tensor: products and sums wrap mod 2^64 as the u32
 path relies on (Fault-2), a logical right shift is ``(x >> s) & (2^(64-s) -
 1)``. Its ``__device__`` versions are ``kernels/hash64.cuh``, which H25
-(the reservoir's priorities) inlines; ``hash_columns`` and ``clz64`` have no
-caller in either package and exist as plain versions only.
+(the reservoir's priorities) and H31 inline. On a CUDA tensor
+``hash_columns`` launches H31 and ``clz64`` H32; neither has a caller in
+either package yet.
 """
 
 from __future__ import annotations
@@ -143,7 +144,19 @@ def combine(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
 
 
 def hash_columns(cols: list, seed: int = 0) -> torch.Tensor:
-    """Row-wise u64 hash of a multi-column key (no caller in either package)."""
+    """Row-wise u64 hash of a multi-column key (no caller in either
+    package): one H31 launch on CUDA, each column as the word ``hash64``
+    reads (a float as float64 bits, a bool as 0/1, an int sign-extended)."""
+    if cols[0].is_cuda:
+        words = [c if c.dtype in (torch.bool, torch.float64) else
+                 c.to(torch.float64) if c.is_floating_point() else c.to(torch.int64)
+                 for c in cols]
+        return kernels.hash_columns([w.contiguous() for w in words], seed)
+    return hash_columns_plain(cols, seed)
+
+
+def hash_columns_plain(cols: list, seed: int = 0) -> torch.Tensor:
+    """Plain version of H31."""
     h = hash64(cols[0], seed)
     for c in cols[1:]:
         h = combine(h, hash64(c, seed))
@@ -152,7 +165,14 @@ def hash_columns(cols: list, seed: int = 0) -> torch.Tensor:
 
 def clz64(x: torch.Tensor) -> torch.Tensor:
     """int32 count of leading zeros of u64 values held in int64 (64 for 0;
-    no caller in either package)."""
+    no caller in either package): one H32 launch on CUDA."""
+    if x.is_cuda:
+        return kernels.clz64(x.to(torch.int64).contiguous())
+    return clz64_plain(x)
+
+
+def clz64_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of H32."""
     n = torch.zeros_like(x)
     for s in (32, 16, 8, 4, 2, 1):
         top_clear = srl64(x, 64 - s) == 0

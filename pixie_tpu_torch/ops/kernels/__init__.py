@@ -14,8 +14,11 @@ and slot-batched segment sums (H22, H23), ``convert_kernels.cu`` the
 resident ring's raw -> plan converters (H24), ``ml_kernels.cu`` the ML
 lane's reservoir priorities, reservoir top-k and k-means (H25-H27, with the
 64-bit hashes of ``hash64.cuh``) and ``transformer_kernels.cu`` the
-transformer UDF's encoder (H28) and ``merge_kernels.cu`` the sharded
-fold's cross-shard merge of the states (H29); see each file's header. At
+transformer UDF's encoder (H28), ``merge_kernels.cu`` the sharded
+fold's cross-shard merge of the states (H29), and ``hash_kernels.cu`` the
+row-wise 64-bit hash of several columns and the u64 leading-zero count
+(H31, H32; ``sketch_kernels.cu`` also holds the count-min query, H30:
+these three have no caller in either package yet); see each file's header. At
 the first launch, ``library()`` compiles them with ``nvcc`` for
 ``sm_90a``, one process per source started together, and links them into
 ``pixie_tpu_torch/_build/`` as one shared library with a plain C
@@ -80,6 +83,9 @@ KERNELS = (
     "kmeans_fit",
     "encoder_forward",
     "merge_states",
+    "countmin_query",
+    "hash_columns",
+    "clz64",
 )
 
 # Launch counts per kernel since the last reset_launches().
@@ -90,7 +96,7 @@ SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
     "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
     "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu", "ml_kernels.cu",
-    "transformer_kernels.cu", "merge_kernels.cu",
+    "transformer_kernels.cu", "merge_kernels.cu", "hash_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -140,6 +146,11 @@ _SIGNATURES = {
     "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "px_encoder_forward": (_P, _P, _I, _P, _P, _P, _I, _P, _P),
     "px_merge_states": (_P, _I, _LL, _I, _I, _P, _P),
+    "px_countmin_query": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
+    "px_hash_columns": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_ulonglong, _LL, _P, _P,
+    ),
+    "px_clz64": (_P, _LL, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -473,6 +484,30 @@ def countmin_update(
         S, depth, width, cm.data_ptr(), total.data_ptr(),
         int(S * 8 <= smem_optin_bytes(device)),
     )
+
+
+def countmin_query(state: torch.Tensor, gids: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """H30: int64 [n], each (gid, word)'s count-min estimate: the min over
+    the depth rows of ``state[gid, d, (h1 + d * h2) & (width - 1)]`` with
+    (h1, h2) the hash kernel's seed-1 pair of the word. ``state`` int64
+    [G, depth, width], width a power of two; gids int32 [n] in [0, G) (the
+    kernel clamps any other into the state); words int64 [n]."""
+    device = state.device
+    _require(state, "state", torch.int64, device, 3)
+    _require(gids, "gids", torch.int32, device, 1)
+    _require(words, "words", torch.int64, device, 1)
+    G, depth, width = state.shape
+    n = words.shape[0]
+    if gids.shape[0] != n or width & (width - 1) or depth < 1:
+        raise ValueError("countmin_query: gids and words of one length, width a power of two")
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    if G == 0:
+        raise ValueError("countmin_query: a query of an empty state")
+    _launch("countmin_query", device, state.data_ptr(), G, depth, width, gids.data_ptr(),
+            words.data_ptr(), n, out.data_ptr())
+    return out
 
 
 PACK_MAX_GROUP_BITS = 8
@@ -1313,4 +1348,47 @@ def merge_states(stack: torch.Tensor, kind: str) -> torch.Tensor:
         "merge_states", device,
         stack.data_ptr(), D, L, MERGE_KINDS[kind], _MERGE_TYPES[stack.dtype], out.data_ptr(),
     )
+    return out
+
+
+# ---------------------------------------------------------------- 64-bit hashes
+HASH_MAX_COLUMNS = 8
+_GOLDEN64 = 0x9E3779B97F4A7C15
+
+
+def hash_columns(cols: list, seed: int) -> torch.Tensor:
+    """H31: the row-wise u64 hash of 1-8 columns (int64 and float64 read as
+    their 8-byte words, bool as 0/1), hash64 of the first combined left to
+    right with each other's, as int64 bit patterns [n]."""
+    if not 1 <= len(cols) <= HASH_MAX_COLUMNS:
+        raise ValueError(f"hash_columns takes 1 to {HASH_MAX_COLUMNS} columns, got {len(cols)}")
+    device = cols[0].device
+    n = cols[0].shape[0]
+    bool_mask = 0
+    for c, col in enumerate(cols):
+        if col.dtype == torch.bool:
+            bool_mask |= 1 << c
+        elif col.dtype not in (torch.int64, torch.float64):
+            raise TypeError(f"column {c} has dtype {col.dtype}: int64, float64 or bool")
+        _require(col, f"column {c}", col.dtype, device, 1)
+        if col.shape[0] != n:
+            raise ValueError(f"column {c} has {col.shape[0]} rows, expected {n}")
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return out
+    ptrs = [col.data_ptr() for col in cols] + [None] * (HASH_MAX_COLUMNS - len(cols))
+    _launch("hash_columns", device, *ptrs, len(cols), bool_mask,
+            (seed * _GOLDEN64) & 0xFFFFFFFFFFFFFFFF, n, out.data_ptr())
+    return out
+
+
+def clz64(x: torch.Tensor) -> torch.Tensor:
+    """H32: int32 [n], the leading zeros of each u64 (held in int64), 64
+    for zero."""
+    device = x.device
+    _require(x, "x", torch.int64, device, 1)
+    n = x.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        _launch("clz64", device, x.data_ptr(), n, out.data_ptr())
     return out

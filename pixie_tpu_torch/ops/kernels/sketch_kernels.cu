@@ -19,6 +19,8 @@
 // H9  px_tdigest_quantiles   replaces pixie_tpu/ops/tdigest.py
 //    quantile_values (:163).
 // H10 px_hll_estimate        replaces pixie_tpu/ops/hll.py estimate (:118).
+// H30 px_countmin_query      replaces pixie_tpu/ops/countmin.py query
+//    (:114-120) with its _buckets (:48): the min over the depth rows.
 //
 // What bounds them on an H100. The hash kernel, H5, H7a and H7b read each
 // row once (8-16 bytes) and are bytes-bound when their atomics keep up. H5
@@ -30,7 +32,10 @@
 // L2, not HBM, set its time. H7b walks the sorted keys in one contiguous
 // chunk per thread, so each thread flushes one atomic per (group, cluster)
 // run, not per row. H8-H10 are one CTA (or thread) per group and
-// latency-bound at the main path's 16 groups.
+// latency-bound at the main path's 16 groups. H30 is a gather: one thread a
+// query hashes its word once and reads its group's depth cells, so it moves
+// 12 bytes in and 8 out a query plus the cells it touches; at config 10's
+// 64 x 4 x 8192 state (16 MB) the cells stay in L2.
 //
 // Float arithmetic. The t-digest's f32 steps (rank + 0.5, the division by
 // the count, 2q - 1, the division by pi, + 0.5, * capacity, and those of
@@ -453,6 +458,27 @@ __global__ void hll_estimate_kernel(const int* __restrict__ state, int m, double
   }
 }
 
+// ---------------------------------------------------------------- H30
+__global__ void countmin_query_kernel(const long long* __restrict__ state, int G, int depth,
+                                      int width, const int* __restrict__ gids,
+                                      const unsigned long long* __restrict__ words, long long n,
+                                      long long* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const uint32_t wmask = (uint32_t)width - 1u;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    int g = gids[i];
+    g = g < 0 ? 0 : (g >= G ? G - 1 : g);  // never read outside the state
+    const uint2 h = px::hash32_pair(words[i], 1u);
+    const long long* row = state + (long long)g * depth * width;
+    long long best = row[h.x & wmask];
+    for (int d = 1; d < depth; ++d) {
+      const long long v = row[(long long)d * width + ((h.x + (uint32_t)d * h.y) & wmask)];
+      best = v < best ? v : best;
+    }
+    out[i] = best;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -551,6 +577,16 @@ int px_hll_estimate(const void* state, int S, int m, double alpha_m2, void* est,
   if (S <= 0) return 0;
   hll_estimate_kernel<<<S, kEstThreads, 0, (cudaStream_t)stream>>>(
       (const int*)state, m, alpha_m2, (double*)est, (long long*)rounded);
+  return (int)cudaGetLastError();
+}
+
+// state: int64 [G, depth, width] (width a power of two); gids int32 [n];
+// words: the values' 64-bit words [n]; out: int64 [n].
+int px_countmin_query(const void* state, int G, int depth, int width, const void* gids,
+                      const void* words, long long n, void* out, void* stream) {
+  countmin_query_kernel<<<grid_for(n, 8), kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)state, G, depth, width, (const int*)gids,
+      (const unsigned long long*)words, n, (long long*)out);
   return (int)cudaGetLastError();
 }
 

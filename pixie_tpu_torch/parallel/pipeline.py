@@ -44,7 +44,12 @@ rows on device i), every shard folds its own blocks into its own states,
 and the states merge at the root, shard 0's device, in flat device order
 (K18, ``ops/merge.py``: H29 for the elementwise states, the UDA's merge in
 order for a TREE state) before the one finalize and fetch. On one shard the
-merge is the identity.
+merge is the identity. Every fold runs under the mesh recovery plane
+(``_execute_with_recovery``): on a multi-axis mesh a lost host or a hung
+dispatch re-plans the fold on the next rung of the degradation ladder (the
+same devices, another factorization, the same result), the per-geometry
+breaker skips a rung that keeps failing, and the stream checkpoints its
+carries at every window so a re-planned fold resumes where it stopped.
 
 ``any`` over a bare column with no predicate takes the reference's host
 lane (``_plan_host_any``): one representative per group from the key plan's
@@ -68,7 +73,10 @@ scan as the reference tries it): both sides' keys densify on the host into
 one id space, both sides stage with those ids as their gids, and
 ``ops/segment.local_sort_merge`` (a stable ``torch.sort``, H13, H14, H12)
 and H15 build every output column on the device; the suffix runs on the host
-graph against the result. A join the lane declines (the reference's gates,
+graph against the result. On a mesh whose ``hosts`` axis is wider than 1
+the join is partitioned (``_try_partitioned_join``): each host joins one
+contiguous range of key ids on its own devices, and the host reorders the
+sections into the same rows. A join the lane declines (the reference's gates,
 and pre-join predicates, which the port does not push down yet) runs on the
 host EquijoinNode with the same result.
 
@@ -98,7 +106,9 @@ kernels. Errors raise; nothing is caught and sent elsewhere.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import logging
 import threading
 import time
 from typing import Any, Optional
@@ -107,7 +117,7 @@ import numpy as np
 import torch
 
 from pixie_tpu_torch.compiler.analyzer import substitute
-from pixie_tpu_torch.distributed.mesh import resolve_mesh
+from pixie_tpu_torch.distributed.mesh import MeshGeometryError, resolve_mesh
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator, call_host
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
 from pixie_tpu_torch.ops import batched, codec, merge, scan, segment
@@ -121,6 +131,7 @@ from pixie_tpu_torch.parallel.staging import (
     read_columns,
     shard_of,
     stage_columns,
+    stage_partitioned,
     staged_gid_nbytes,
     timed,
 )
@@ -151,7 +162,29 @@ from pixie_tpu_torch.table.row_batch import RowBatch
 from pixie_tpu_torch.types import ColumnSchema, DataType, Relation
 from pixie_tpu_torch.types.dtypes import host_dtype
 from pixie_tpu_torch.udf.udf import Executor
-from pixie_tpu_torch.utils import flags, trace
+from pixie_tpu_torch.utils import faults, flags, metrics_registry, trace
+
+_LOG = logging.getLogger("pixie_tpu_torch.parallel")
+_M = metrics_registry()
+_MESH_DEGRADE = _M.counter(
+    "mesh_degrade_events_total",
+    "Mesh geometry failures (host loss, hung dispatch) recovered by "
+    "re-planning the fold on the next degradation rung.",
+)
+_MESH_CKPT_WINDOWS = _M.counter(
+    "mesh_checkpoint_windows_total",
+    "Stream-fold windows whose carried states were checkpointed to the host "
+    "at the window boundary (flag mesh_fold_checkpoint).",
+)
+_MESH_RESUMES = _M.counter(
+    "mesh_checkpoint_resumes_total",
+    "Stream folds resumed from a window checkpoint on a surviving geometry "
+    "instead of refolding from the first window.",
+)
+# A watchdog's reaper threads run one mesh dispatch at a time: an abandoned
+# (timed-out) dispatch keeps it until its work has drained, and the next
+# armed dispatch queues behind it (pixie_tpu/parallel/pipeline.py:1715).
+_WATCHDOG_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -860,18 +893,46 @@ def _cell_served(arg_e, uda, cell_cols: dict) -> bool:
     )
 
 
+def _pack_bytes(tensors: list) -> tuple:
+    """(one uint8 tensor of the tensors' bytes, concatenated, each tensor's
+    (dtype, shape, byte count)). The tensors share one device."""
+    parts = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    meta = [(t.dtype, tuple(t.shape), p.numel()) for t, p in zip(tensors, parts)]
+    return torch.cat(parts), meta
+
+
+def _unpack_bytes(host: np.ndarray, meta: list) -> list:
+    """The numpy arrays of ``_pack_bytes``' tensors from their host bytes."""
+    out, off = [], 0
+    for dtype, shape, n in meta:
+        out.append(host[off : off + n].view(_NP_DTYPES[dtype]).reshape(shape))
+        off += n
+    return out
+
+
 def _fetch(tensors: list) -> list:
     """Bring device tensors to the host with ONE device -> host copy: each
     is viewed as bytes, the bytes are concatenated, copied, and split. The
     tensors share one device (the root's)."""
-    parts = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    host = torch.cat(parts).cpu().numpy()
-    out, off = [], 0
-    for t, p in zip(tensors, parts):
-        n = p.numel()
-        out.append(host[off : off + n].view(_NP_DTYPES[t.dtype]).reshape(tuple(t.shape)))
-        off += n
-    return out
+    buf, meta = _pack_bytes(tensors)
+    return _unpack_bytes(buf.cpu().numpy(), meta)
+
+
+def _copy_to_host(packed: list) -> list:
+    """[(host bytes, meta)] of each ``_pack_bytes`` result, which may lie on
+    different cards: every copy is enqueued (into pinned memory on CUDA)
+    before any is waited for, then one wait a card."""
+    out = []
+    for buf, meta in packed:
+        if buf.is_cuda:
+            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+        else:
+            host = buf
+        out.append((host, meta))
+    for dev in dict.fromkeys(buf.device for buf, _ in packed if buf.is_cuda):
+        torch.cuda.current_stream(dev).synchronize()
+    return [(host.numpy(), meta) for host, meta in out]
 
 
 # The scan's output buffer dtype per column type: strings as their int32
@@ -911,6 +972,39 @@ class _FullProbe:
             return False
         self.event = None
         return int(self.host[0]) >= self.limit
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of a fold carry (nested dicts, lists and tuples of tensors
+    and scalars), in its own order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _same_leaf_type(a, b) -> bool:
+    """Whether a checkpointed leaf (a host array where the carry holds a
+    tensor) fits a fresh carry's leaf."""
+    if isinstance(b, torch.Tensor):
+        return (isinstance(a, np.ndarray) and a.shape == tuple(b.shape)
+                and a.dtype == _NP_DTYPES.get(b.dtype))
+    return type(a) is type(b)
+
+
+def _tree_rebuild(tree, leaves: list):
+    """``tree`` with its leaves replaced, in ``_tree_leaves``' order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(tree)
 
 
 def _state_bytes(state) -> int:
@@ -979,11 +1073,13 @@ class DeviceExecutor:
         self.mesh, self.mesh_config = resolve_mesh(mesh, mesh_config, devices, device)
         # The root: shard 0's device, where states merge and finalize.
         self.device = self.mesh.root
-        # The geometry (and its device list) in every staged-cache and
-        # shared-scan key, as the reference's f"mesh:{self._mesh_sig}": a
-        # staging of one geometry is never read as another.
         self._mesh_sig = self.mesh_config.signature()
-        self._mesh_key = f"mesh:{self._mesh_sig}@" + ",".join(map(str, self.mesh.devices))
+        # The device list in every staged-cache and shared-scan key: a
+        # staging's layout (shard i on device i) depends on it and not on
+        # the factorization, so every rung of the degradation ladder (the
+        # same devices) reads the same entries, as the reference's
+        # geometry-free keys do.
+        self._mesh_key = "devices:" + ",".join(map(str, self.mesh.devices))
         self.block_rows = (
             block_rows if block_rows is not None else flags.device_block_rows
         )
@@ -1015,13 +1111,287 @@ class DeviceExecutor:
         self.last_fold_ms: Optional[float] = None
         # K18's spans since the last merge_device_ms() (under _cache_lock).
         self._merge_marks: list = []
+        # The mesh recovery plane (pixie_tpu/parallel/pipeline.py:1121-1149):
+        # the degradation ladder (the full geometry first, flat last, None
+        # for the host engine), one Mesh a rung over the same devices, the
+        # per-geometry breaker (signature -> [failures, open until]), and
+        # the stream fold's window checkpoints under a geometry-free key.
+        self._geom_lock = threading.RLock()
+        self._full_mesh_config = self.mesh_config
+        self._geom_ladder = self.mesh_config.ladder()
+        self._rung_meshes = {self._mesh_sig: self.mesh}
+        self._geom_breaker: dict = {}
+        self._fold_ckpt: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
+        self._geom_events = {"degrade": 0, "checkpoint_windows": 0, "resumes": 0,
+                             "recovered_folds": 0}
+        # The windows of the latest checkpoint resume (bench.py config 12).
+        self.last_resume_stats: Optional[dict] = None
 
     # -- public -------------------------------------------------------------
     def try_execute_fragment(
         self, fragment: PlanFragment, table_store, registry, func_ctx=None
     ) -> Optional[tuple[int, RowBatch]]:
-        """(agg or limit node id, its RowBatch) when the fragment has a device
-        shape, else None (the host graph then runs the fragment)."""
+        """(agg, join or limit node id, its RowBatch) when the fragment has a
+        device shape, else None (the host graph then runs the fragment). The
+        fold runs under the mesh recovery plane (``_execute_with_recovery``):
+        a host loss or a hung dispatch re-plans it on the next rung of the
+        degradation ladder. An exhausted ladder raises its last
+        MeshGeometryError (ROADMAP Difference-19)."""
+        return self._execute_with_recovery(fragment, table_store, registry, func_ctx)
+
+    # -- the mesh recovery plane -------------------------------------------------
+    def _geom_breaker_open(self, sig: str) -> bool:
+        if flags.mesh_breaker_threshold <= 0:
+            return False
+        with self._geom_lock:
+            st = self._geom_breaker.get(sig)
+            return st is not None and st[1] > time.monotonic()
+
+    def _geom_breaker_record(self, sig: str, ok: bool) -> None:
+        threshold = flags.mesh_breaker_threshold
+        if threshold <= 0:
+            return
+        with self._geom_lock:
+            if ok:
+                self._geom_breaker.pop(sig, None)  # success closes it
+                return
+            st = self._geom_breaker.setdefault(sig, [0, 0.0])
+            st[0] += 1
+            if st[0] >= threshold:
+                # Open, or open again after a failed half-open trial: new
+                # folds skip this rung for the cooldown; the first fold
+                # after it is the half-open trial.
+                st[1] = time.monotonic() + flags.mesh_breaker_cooldown_s
+                _LOG.warning(
+                    "mesh geometry breaker OPEN for %.1fs: %s failed %d consecutive "
+                    "folds; new folds start on the next degradation rung",
+                    flags.mesh_breaker_cooldown_s, sig, st[0],
+                )
+
+    def mesh_breaker_snapshot(self) -> dict:
+        """{geometry signature: {state, failures, open_remaining_s}}: state
+        "open" while the cooldown runs, "half_open" after it (the next fold
+        is the trial), "degrading" below the threshold."""
+        if flags.mesh_breaker_threshold <= 0:
+            return {}
+        now = time.monotonic()
+        out = {}
+        with self._geom_lock:
+            for sig, (fails, open_until) in self._geom_breaker.items():
+                state = ("open" if open_until > now
+                         else "half_open" if open_until > 0 else "degrading")
+                out[sig] = {"state": state, "failures": fails,
+                            "open_remaining_s": round(max(0.0, open_until - now), 3)}
+        return out
+
+    def mesh_recovery_snapshot(self) -> dict:
+        """The recovery plane's state: the active and the full geometry, the
+        ladder, the breaker, and the counts of degrades, checkpointed
+        windows, resumes and folds recovered on a lower rung."""
+        with self._geom_lock:
+            full = self._full_mesh_config.signature()
+            return {
+                "geometry": self._mesh_sig,
+                "full_geometry": full,
+                "degraded": self._mesh_sig != full,
+                "ladder": [c.signature() if c is not None else "host" for c in self._geom_ladder],
+                "breaker": self.mesh_breaker_snapshot(),
+                "degrade_events": self._geom_events["degrade"],
+                "checkpoint_windows": self._geom_events["checkpoint_windows"],
+                "checkpoint_resumes": self._geom_events["resumes"],
+                "recovered_folds": self._geom_events["recovered_folds"],
+                "checkpoints_held": len(self._fold_ckpt),
+            }
+
+    def _activate_geometry(self, cfg) -> None:
+        """Point the executor at ``cfg``'s mesh over the same devices. A
+        rung's Mesh is made once and reused, so restoring a rung restores
+        the original object. Staged entries stay valid: every rung shares
+        the same device tuple, which their keys name."""
+        with self._geom_lock:
+            sig = cfg.signature()
+            if sig == self._mesh_sig:
+                return
+            mesh = self._rung_meshes.get(sig)
+            if mesh is None:
+                mesh = self._rung_meshes[sig] = cfg.build(self.mesh.devices)
+            self.mesh, self.mesh_config, self._mesh_sig = mesh, cfg, sig
+
+    def _execute_with_recovery(self, fragment, table_store, registry, func_ctx):
+        """Walk the degradation ladder (pixie_tpu/parallel/pipeline.py:1555):
+        start at the first rung whose breaker is closed (an expired cooldown
+        makes it the half-open trial) and, on a recoverable
+        MeshGeometryError, re-plan the SAME fold one rung down: every rung
+        folds the same device list to the same result, and the stream
+        resumes from its last window checkpoint. A non-recoverable error
+        propagates; so does the last error of an exhausted ladder, where the
+        reference hands the fragment to its host engine (Difference-19)."""
+        rungs = self._geom_ladder
+        last_err = None
+        for i, cfg in enumerate(rungs):
+            if cfg is None:
+                break  # past the mesh
+            sig = cfg.signature()
+            if self._geom_breaker_open(sig):
+                continue
+            self._activate_geometry(cfg)
+            try:
+                out = self._try_execute_fragment(fragment, table_store, registry, func_ctx)
+            except MeshGeometryError as e:
+                if not e.recoverable:
+                    raise
+                self._geom_breaker_record(sig, ok=False)
+                _MESH_DEGRADE.inc()
+                with self._geom_lock:
+                    self._geom_events["degrade"] += 1
+                nxt = next((r.signature() for r in rungs[i + 1:] if r is not None), "host")
+                if trace.ACTIVE:
+                    trace.record("mesh.recover", 0, attrs={"kind": e.kind, "from": sig, "to": nxt})
+                _LOG.warning("mesh geometry failure [%s] on %s: re-planning the fold on %s",
+                             e.kind, sig, nxt)
+                last_err = e
+                continue
+            self._geom_breaker_record(sig, ok=True)
+            if last_err is not None and out is not None:
+                with self._geom_lock:
+                    self._geom_events["recovered_folds"] += 1
+            return out
+        if last_err is not None:
+            raise last_err
+        return None
+
+    def _watchdog_deadline(self) -> Optional[float]:
+        """The watchdog's deadline for one mesh dispatch: the
+        ``mesh_dispatch_timeout_s`` flag when positive, else None. (The
+        reference derives one from its cost model when the flag is 0,
+        pixie_tpu/parallel/pipeline.py:1634-1654; the port has no cost model
+        yet, so 0 arms nothing.)"""
+        t = float(flags.mesh_dispatch_timeout_s)
+        return t if t > 0 else None
+
+    def _mesh_dispatch(self, fn, what: str = "fold"):
+        """One sharded dispatch under the recovery plane
+        (pixie_tpu/parallel/pipeline.py:1656): on a multi-axis mesh the
+        fault sites ``mesh.host_loss`` and ``mesh.collective_timeout`` first
+        (from one process a dead host and a hung dispatch both look like a
+        dispatch that never completes), then, with a deadline armed,
+        ``_watchdog_run``. With no deadline it is a plain call: one process
+        that enqueues every shard's work has no rendezvous to wedge, so
+        the reference's process-wide lock and block around every
+        multi-axis dispatch (:1686-1710) are left out (Difference-18). A
+        flat mesh, or a flat rung, never checks the sites."""
+        if len(self.mesh_config.axes) > 1:
+            if faults.ACTIVE:
+                if faults.fires("mesh.host_loss"):
+                    raise MeshGeometryError("host_loss", f"{what} on {self._mesh_sig}")
+                if faults.fires("mesh.collective_timeout"):
+                    raise MeshGeometryError("collective_timeout", f"{what} on {self._mesh_sig}")
+            deadline = self._watchdog_deadline()
+            if deadline is not None:
+                return self._watchdog_run(deadline, fn, what)
+        return fn()
+
+    def _watchdog_run(self, deadline: float, fn, what: str):
+        """``fn()`` on a reaper thread that then waits for the mesh's cards
+        (so the deadline times the work, not its enqueue); a miss raises a
+        ``collective_timeout`` MeshGeometryError and abandons the thread.
+        The reaper adopts the caller's current stream of every card and
+        holds ``_WATCHDOG_LOCK`` until its work has drained, so an abandoned
+        dispatch delays the next armed one instead of overlapping it; the
+        wait for the lock is not timed."""
+        box: dict = {}
+        started, done = threading.Event(), threading.Event()
+        cards = [d for d in self.mesh.distinct_devices() if d.type == "cuda"]
+        streams = [torch.cuda.current_stream(d) for d in cards]
+
+        def run():
+            with _WATCHDOG_LOCK:
+                started.set()
+                try:
+                    with contextlib.ExitStack() as stack:
+                        for st in streams:
+                            stack.enter_context(torch.cuda.stream(st))
+                        box["value"] = fn()
+                        for st in streams:
+                            st.synchronize()
+                except BaseException as e:  # re-raised on the caller's thread
+                    box["error"] = e
+                finally:
+                    done.set()
+
+        threading.Thread(target=run, name="mesh-watchdog", daemon=True).start()
+        started.wait()
+        if not done.wait(timeout=deadline):
+            raise MeshGeometryError(
+                "collective_timeout",
+                f"{what} exceeded the {deadline:.3f}s watchdog deadline on {self._mesh_sig}",
+            )
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    def _checkpoints_apply(self) -> bool:
+        """Window checkpoints are taken on a multi-axis full mesh only: a
+        flat mesh has no rung to resume on."""
+        return flags.mesh_fold_checkpoint and len(self._full_mesh_config.axes) > 1
+
+    def _load_fold_checkpoint(self, key: str, carries: list, devices: tuple):
+        """(carries, windows done) from ``key``'s checkpoint, each shard's
+        leaves copied to its device in ``devices``, or (None, 0). A corrupt
+        checkpoint (the ``mesh.checkpoint_corrupt`` site, or leaves whose
+        count, shape or dtype differ from the fresh ``carries``) is
+        discarded and the fold starts from its first window: bad carry
+        state is never resumed (pixie_tpu/parallel/pipeline.py:1794)."""
+        with self._geom_lock:
+            ck = self._fold_ckpt.get(key)
+        if ck is None:
+            return None, 0
+        corrupt = faults.ACTIVE and faults.fires("mesh.checkpoint_corrupt")
+        fresh = [_tree_leaves(c) for c in carries]
+        st = ck["state"]
+        if not corrupt:
+            corrupt = len(st) != len(fresh) or any(
+                len(a) != len(b) or any(not _same_leaf_type(x, y) for x, y in zip(a, b))
+                for a, b in zip(st, fresh)
+            )
+        if corrupt:
+            with self._geom_lock:
+                self._fold_ckpt.pop(key, None)
+            _LOG.warning("discarding a corrupt mesh fold checkpoint: refolding from the "
+                         "first window, never resuming bad carry state")
+            return None, 0
+        # .copy(): an aligned buffer of the carry's own, never the checkpoint's.
+        restored = [
+            _tree_rebuild(c, [torch.from_numpy(x.copy()).to(dev) if isinstance(x, np.ndarray)
+                              else x for x in leaves])
+            for c, leaves, dev in zip(carries, st, devices)
+        ]
+        return restored, int(ck["windows"])
+
+    def _checkpoint_carries(self, key: str, windows_done: int, carries: list) -> None:
+        """Every shard's carry copied to the host bit for bit, one copy a
+        shard (``_copy_to_host``: pinned buffers on CUDA, one wait a card):
+        the window-boundary checkpoint. The wait gives up the stream's
+        overlap for this window, the flag's documented cost. The executor
+        keeps the last four folds' checkpoints."""
+        leaves = [_tree_leaves(c) for c in carries]
+        packed = [_pack_bytes([x for x in ls if isinstance(x, torch.Tensor)]) for ls in leaves]
+        host = []
+        for ls, arrays in zip(leaves, (_unpack_bytes(*p) for p in _copy_to_host(packed))):
+            it = iter(arrays)
+            host.append([next(it) if isinstance(x, torch.Tensor) else x for x in ls])
+        with self._geom_lock:
+            self._fold_ckpt[key] = {"windows": int(windows_done), "state": host}
+            self._fold_ckpt.move_to_end(key)
+            while len(self._fold_ckpt) > 4:
+                self._fold_ckpt.popitem(last=False)
+            self._geom_events["checkpoint_windows"] += 1
+        _MESH_CKPT_WINDOWS.inc()
+
+    def _try_execute_fragment(
+        self, fragment: PlanFragment, table_store, registry, func_ctx=None
+    ) -> Optional[tuple[int, RowBatch]]:
+        """One attempt of ``try_execute_fragment`` on the current rung."""
         t0 = time.perf_counter()
         table_rel = lambda op: table_store.get_relation(op.table_name)
         relations = fragment.resolve_relations(registry, table_rel)
@@ -1119,10 +1489,23 @@ class DeviceExecutor:
                 # window by window while the table stages. More than one
                 # pass re-scans the staged blocks, so it stages in one piece
                 # (pixie_tpu/parallel/pipeline.py:5982-5985).
+                # The checkpoint identity, only where checkpoints apply:
+                # the staging's key (the table version, the columns, the
+                # key plan, the devices), the program with its aux values
+                # and the fold's lanes; no geometry, so a resume on
+                # another rung finds it.
+                ckpt_ident = None
+                if self._checkpoints_apply():
+                    ckpt_ident = repr((
+                        cache_key, _program_sig(program, device_specs),
+                        aux_digest(list(host_aux.values())),
+                        self._fold_lanes(device_specs, key_plan, capacity, n_passes, cell_cols),
+                    ))
                 with timed("stage"):
                     outputs, staged = self._stream_execute(
                         device_specs, program, key_plan, aux, cols, n, f32_cols, cell_cols,
                         capacity, self._resident_ring(table, m.source_op), base_row,
+                        ckpt_ident=ckpt_ident,
                     )
                 segment.lane_count("stage_stream")
             else:
@@ -1446,6 +1829,17 @@ class DeviceExecutor:
         # device: it stages its first key column.
         cols_l = {src for side, src, _, _ in out_plan if side == 0} or {m.left_key_exprs[0].name}
         cols_r = {src for side, src, _, _ in out_plan if side == 1} or {m.right_key_exprs[0].name}
+        if (flags.mesh_distributed_join and len(self.mesh_config.axes) > 1
+                and self.mesh.shape[0] > 1):
+            # The partitioned join over the hosts axis (:3089-3097): each
+            # host joins its own key range. None falls through to the
+            # replicated lane below, never to the host.
+            batch = self._try_partitioned_join(
+                m, lt, rt, kl, kr, K, count_l, count_r, out_plan, key_space_sig,
+                cols_l, cols_r, nl, nr,
+            )
+            if batch is not None:
+                return m.join_nid, batch
         key_l, staged_l = self._stage_cached(
             lt, m.left_source_op, cols_l, ":joindevL:" + key_space_sig, K, gids=kl
         )
@@ -1497,8 +1891,8 @@ class DeviceExecutor:
         replicated lane: both sides' shards gather to the root in device
         order (the reference all_gathers them, :3276-3283), which is row
         order, and the sort-merge runs there. (On a mesh whose ``hosts`` axis
-        is wider than 1 the reference takes its partitioned join instead,
-        :3089-3097, with the same rows; the port has not ported it yet.)
+        is wider than 1 the partitioned join, ``_try_partitioned_join``,
+        runs instead, with the same rows.)
         Padded build rows take key K and padded probe rows K + 1, so neither
         pairs; ``local_sort_merge`` gives the pairs and the compacted
         unmatched rows, and H15 builds each output column as three sections
@@ -1552,6 +1946,192 @@ class DeviceExecutor:
                 d, codes = _reencode_outer_nulls(codes, d, first_of[i])
             data[out_name] = DictColumn(codes, d)
         return RowBatch.from_pydict(m.out_relation, data, eow=True, eos=True)
+
+    # -- the partitioned join (K15's rest) --------------------------------------
+    def _try_partitioned_join(
+        self, m: _JoinMatch, lt, rt, kl, kr, K: int, count_l, count_r, out_plan,
+        key_space_sig: str, cols_l: set, cols_r: set, nl: int, nr: int,
+    ) -> Optional[RowBatch]:
+        """The sort-merge join over the hosts axis
+        (pixie_tpu/parallel/pipeline.py:3426): both sides' rows go to one
+        contiguous key range a host, the ranges balanced by each key's exact
+        work (``count_l * count_r + count_l + count_r``: its pairs and the
+        rows that move); each side stages shard-major (a stable permutation,
+        so a host's rows keep their order; ``stage_partitioned``), each host
+        sorts and merges its own range (``_run_partitioned_join``), and the
+        host reorders the sections to the engine's emission order: the rows
+        of the replicated lane and of the host EquijoinNode, in their order.
+        Per-host pair and unmatched counts are exact, and every host's
+        sections take the largest host's power-of-two caps. None (a side
+        moved while staging, or no work at all) falls through to the
+        replicated lane. The mesh is read once: another query may move the
+        executor to another rung meanwhile, and every step of this one
+        stays on the geometry it planned for."""
+        mesh = self.mesh
+        H = int(mesh.shape[0])
+        work = count_l * count_r + count_l + count_r
+        cum = np.cumsum(work)
+        total_w = int(cum[-1]) if len(cum) else 0
+        if total_w <= 0:
+            return None
+        how = m.join_op.how
+        with timed("key_plan"):
+            targets = (np.arange(1, H, dtype=np.int64) * total_w) // H
+            bounds = np.searchsorted(cum, targets, side="left")
+            key_shard = np.searchsorted(bounds, np.arange(K), side="right").astype(np.int32)
+            shard_l, shard_r = key_shard[kl], key_shard[kr]
+            perm_l = np.argsort(shard_l, kind="stable")
+            perm_r = np.argsort(shard_r, kind="stable")
+            rows_l = np.bincount(shard_l, minlength=H).astype(np.int64)
+            rows_r = np.bincount(shard_r, minlength=H).astype(np.int64)
+            m_s = np.zeros(H, np.int64)
+            np.add.at(m_s, key_shard, count_l * count_r)
+            ur_s = np.zeros(H, np.int64)
+            np.add.at(ur_s, key_shard, np.where(count_l == 0, count_r, 0))
+            ul_s = np.zeros(H, np.int64)
+            np.add.at(ul_s, key_shard, np.where(count_r == 0, count_l, 0))
+        caps = (
+            _pow2_at_least(max(int(m_s.max()), 1)),
+            _pow2_at_least(max(int(ur_s.max()), 1)) if how in (JoinType.RIGHT, JoinType.OUTER) else 0,
+            _pow2_at_least(max(int(ul_s.max()), 1)) if how in (JoinType.LEFT, JoinType.OUTER) else 0,
+        )
+        ck_l, staged_l = self._stage_partitioned_side(
+            mesh, lt, m.left_source_op, cols_l, kl, perm_l, rows_l, K, nl, key_space_sig, "L")
+        if staged_l is None:
+            return None
+        ck_r, staged_r = self._stage_partitioned_side(
+            mesh, rt, m.right_source_op, cols_r, kr, perm_r, rows_r, K, nr, key_space_sig, "R")
+        if staged_r is None:
+            return None
+        segment.lane_count("join_partitioned")
+        pool = self._staged_cache
+        with pool.pin(ck_l), pool.pin(ck_r), timed("fold"):
+            hosts = self._run_partitioned_join(
+                mesh, staged_l, staged_r, out_plan, K, caps, (m_s, ur_s, ul_s))
+        with timed("join_reorder"):
+            # The device emits each host's pairs probe-row-major over its
+            # permuted probe rows; the engine emits them probe-row-major over
+            # the original probe order with each probe row's build matches
+            # together, so a stable argsort of the emitted original probe
+            # rows (each repeated by its fan-out) is the exact inverse.
+            fan_r = count_l[kr[perm_r]]
+            order_m = np.argsort(np.repeat(perm_r, fan_r), kind="stable")
+            emit_r = perm_r[(count_l[kr] == 0)[perm_r]]
+            order_r = np.argsort(emit_r, kind="stable")
+            emit_l = perm_l[(count_r[kl] == 0)[perm_l]]
+            order_l = np.argsort(emit_l, kind="stable")
+            data = {}
+            for i, (side, src, out_name, dt) in enumerate(out_plan):
+                secs = [np.concatenate([h[3 * i] for h in hosts])[order_m]]
+                if caps[1]:
+                    secs.append(np.concatenate([h[3 * i + 1] for h in hosts])[order_r])
+                if caps[2]:
+                    secs.append(np.concatenate([h[3 * i + 2] for h in hosts])[order_l])
+                a = np.concatenate(secs)
+                if dt != DataType.STRING:
+                    data[out_name] = a.astype(host_dtype(dt))
+                    continue
+                codes = a.astype(np.int32)
+                d = (lt if side == 0 else rt).dictionaries[src]
+                if (codes < 0).any():
+                    # Outer-null rows: the replicated lane's numbering
+                    # (Fault-9), each code's first row taken on the host.
+                    first = np.full(len(d) + 1, np.iinfo(np.int64).max, np.int64)
+                    np.minimum.at(first, codes.astype(np.int64) % (len(d) + 1),
+                                  np.arange(len(codes), dtype=np.int64))
+                    d, codes = _reencode_outer_nulls(codes, d, first)
+                data[out_name] = DictColumn(codes, d)
+        return RowBatch.from_pydict(m.out_relation, data, eow=True, eos=True)
+
+    def _stage_partitioned_side(
+        self, mesh, table, src_op, cols_needed: set, kk, perm, rows_s, K: int, n_expect: int,
+        key_space_sig: str, tag: str,
+    ) -> tuple:
+        """(cache key, staging) of one join side read, permuted shard-major
+        and staged by ``stage_partitioned`` (pixie_tpu/parallel/pipeline.py:
+        3557), or (None, None) when the table moved under the read. Cached
+        and registered in the residency pool under ``:meshjoin{tag}:{H}:``;
+        an out-of-memory staging clears the pool and retries once, the
+        reference's policy."""
+        ck = self._staged_key(table, src_op, cols_needed,
+                              f":meshjoin{tag}:{int(mesh.shape[0])}:" + key_space_sig, K)
+        key, staged = self._staged_lookup(ck)
+        if staged is not None and staged.num_rows == n_expect:
+            return key, staged
+        with timed("read_columns"):
+            cols, n = read_columns(table, sorted(cols_needed), src_op.start_time,
+                                   src_op.stop_time)
+        if n != n_expect or len(kk) != n:
+            return None, None
+        with timed("stage_host_pack"):
+            cols = {c: np.asarray(a)[perm] for c, a in cols.items()}
+            gids = kk[perm].astype(np.int32)
+        with timed("stage"):
+            try:
+                staged = stage_partitioned(mesh, cols, gids, rows_s, K,
+                                           block_rows=self.block_rows)
+            except torch.OutOfMemoryError:
+                self._staged_cache.clear(reason="oom")
+                staged = stage_partitioned(mesh, cols, gids, rows_s, K,
+                                           block_rows=self.block_rows)
+        self._staged_insert(ck, staged)
+        return ck, staged
+
+    def _host_lane(self, lane, h: int, d_host: int) -> torch.Tensor:
+        """Host h's shards of a staged lane as one flat tensor on host h's
+        first device (the reference's all_gather over the inner axes): a
+        view when the shards share a device (logical shards), else a peer
+        copy of each to it."""
+        lo, hi = h * d_host, (h + 1) * d_host
+        if isinstance(lane, torch.Tensor):
+            return lane[lo:hi].reshape(-1)
+        dev = lane.parts[lo].device
+        return torch.cat([lane.parts[s].reshape(-1).to(dev, non_blocking=True)
+                          for s in range(lo, hi)])
+
+    def _run_partitioned_join(
+        self, mesh, staged_l, staged_r, out_plan, K: int, caps: tuple, counts: tuple,
+    ) -> list:
+        """Each host's sort-merge (pixie_tpu/parallel/pipeline.py:3615) on
+        its first device: its inner shards' lanes concatenated there, the
+        sentinels K (build padding) and K + 1 (probe padding; other hosts'
+        keys never appear), ``segment.local_sort_merge`` (``torch.sort``,
+        H13, cumsum, H14, H12) and H15 per output column into the sections
+        [cap_m | cap_r | cap_l]. Every host's work is enqueued on its own
+        device before any host waits, so cards overlap; then each host's
+        sections cut to its exact counts come back in ONE device -> host
+        copy a host. Returns, for each host, [matched, unmatched probe,
+        unmatched build] of every output column, as numpy."""
+        cap_m, cap_r, cap_l = caps
+        m_s, ur_s, ul_s = counts
+        H = int(mesh.shape[0])
+        d_host = mesh.size // H
+        packed = []
+        for h in range(H):
+            lane_l = lambda lane: self._host_lane(lane, h, d_host)  # noqa: E731
+            lmask, rmask = lane_l(staged_l.mask), lane_l(staged_r.mask)
+            lkey = torch.where(lmask, lane_l(staged_l.gids).to(torch.int32), K)
+            rkey = torch.where(rmask, lane_l(staged_r.gids).to(torch.int32), K + 1)
+            build_rows, probe_rows, _, ur, ul = segment.local_sort_merge(
+                lkey, rkey, lmask, rmask, cap_m, cap_r, cap_l, K
+            )
+            parts = []
+            M, UR, UL = int(m_s[h]), int(ur_s[h]), int(ul_s[h])
+            for side, src, _, dt in out_plan:
+                staged = staged_l if side == 0 else staged_r
+                sections = (
+                    [(build_rows, cap_m), (None, cap_r), (ul, cap_l)]
+                    if side == 0
+                    else [(probe_rows, cap_m), (ur, cap_r), (None, cap_l)]
+                )
+                col = segment.join_gather(
+                    lane_l(staged.blocks[src]), sections, staged.narrow_offsets.get(src),
+                    -1 if dt == DataType.STRING else 0,
+                )
+                parts += [col[:M], col[cap_m : cap_m + UR],
+                          col[cap_m + cap_r : cap_m + cap_r + UL]]
+            packed.append(_pack_bytes(parts))
+        return [_unpack_bytes(*p) for p in _copy_to_host(packed)]
 
     # -- the join-aggregate lane (K17) -----------------------------------------
     def _try_execute_join_agg(
@@ -1867,7 +2447,11 @@ class DeviceExecutor:
 
     # -- staged-column cache -------------------------------------------------
     def _staged_lookup(self, cache_key) -> tuple:
-        """(the key of the entry found, the entry), or (cache_key, None)."""
+        """(the key of the entry found, the entry), or (cache_key, None).
+        Keys name the executor's device tuple and every rung of the
+        degradation ladder is built over it, so an entry's shards already
+        sit where the current mesh puts them (the reference re-places a
+        staging here; the port never has to)."""
         staged = self._staged_cache.get(cache_key)
         if staged is None:
             # Superset reuse: an entry staged for a wider column set of the
@@ -1881,6 +2465,10 @@ class DeviceExecutor:
                     cache_key, staged = k, v
                     self._staged_cache.touch(k)
                     break
+        devices = getattr(staged, "devices", ())
+        assert not devices or tuple(devices) == tuple(self.mesh.devices), (
+            "a staged entry on other devices than the mesh's"
+        )
         return cache_key, staged
 
     def _staged_insert(self, cache_key, staged) -> None:
@@ -2676,16 +3264,18 @@ class DeviceExecutor:
         bodies, hist_cols = self._make_scan_bodies(
             specs, program, staged, key_plan, capacity, auxes, cell_cols
         )
-        per_pass = []
-        for p in range(n_passes):
+
+        def one_pass(p: int) -> list:
             carries = self._new_carries(specs, capacity, hist_cols, staged)
             for blk in range(staged.num_blocks):
                 for body, carry in zip(bodies, carries):
                     body(carry, blk, p * capacity)
             # ONE blocking device -> host copy per pass.
-            per_pass.append(_fetch(
-                self._finish_pass(specs, carries, capacity, auxes, hist_cols, cell_cols)
-            ))
+            return _fetch(self._finish_pass(specs, carries, capacity, auxes, hist_cols, cell_cols))
+
+        per_pass = [
+            self._mesh_dispatch(lambda: one_pass(p), what="warm_fold") for p in range(n_passes)
+        ]
         return self._outputs(per_pass), capacity
 
     # -- shared scans (K16 and the coordinator) --------------------------------
@@ -2800,7 +3390,8 @@ class DeviceExecutor:
                 specs, program, staged, key_plan, capacity, auxes, cell_cols, pred_batch=table,
             )
             per_slot: list = [[] for _ in run]
-            for p in range(n_passes):
+
+            def one_pass(p: int, run=run, bodies=bodies, hist_cols=hist_cols) -> tuple:
                 # carries[shard][slot]
                 carries = [
                     [self._new_carry(specs, capacity, hist_cols, staged.shard_device(sh))
@@ -2816,8 +3407,10 @@ class DeviceExecutor:
                     )
                     for i in range(len(run))
                 ]
-                host = _fetch([t for o in outs for t in o])  # ONE copy per pass
-                k = len(outs[0])
+                return _fetch([t for o in outs for t in o]), len(outs[0])  # ONE copy per pass
+
+            for p in range(n_passes):
+                host, k = self._mesh_dispatch(lambda: one_pass(p), what="batched_fold")
                 for i in range(len(run)):
                     per_slot[i].append(host[i * k : (i + 1) * k])
             for i, s in enumerate(run):
@@ -2827,6 +3420,7 @@ class DeviceExecutor:
     def _stream_execute(
         self, specs, program, key_plan, aux, cols: dict, n: int, f32_cols: set,
         cell_cols: dict, capacity: int, ring=None, base_row: int = 0,
+        ckpt_ident: Optional[str] = None,
     ):
         """The streamed cold path (pixie_tpu/parallel/pipeline.py:5939-6459,
         for one pass): (outputs, the staging for the warm cache). A
@@ -2842,10 +3436,19 @@ class DeviceExecutor:
         row id; one shard only) the stream runs at the ring's window size,
         and a window the ring holds packs only its gids and converts its
         columns on the device instead of copying them (:5990-6005,
-        :6186-6197, :6310-6320). The reference catches any error here and
-        restages in one piece (:5946-5969); the port raises. Left out, as
-        later queue items: the mesh recovery dispatch and the checkpointed
-        resume (:6043-6061, :6219-6225, :6257-6288), the background AOT
+        :6186-6197, :6310-6320).
+
+        Each window's fold and the final merge are mesh dispatches
+        (``_mesh_dispatch``, :6219-6225, :6391-6397). On an executor whose
+        full geometry has more than one axis, with ``mesh_fold_checkpoint``,
+        every window's carries are checkpointed to the host after its fold
+        under ``ckpt_ident`` (the fold's identity, free of geometry) and
+        the window size, and a fold that finds a checkpoint of its identity
+        (an earlier attempt on a failed rung) adopts it on this rung's
+        devices and folds only the later windows; the earlier windows still
+        land in the staging (:6040-6061, :6255-6292). The reference catches
+        any other error here and restages in one piece (:5946-5969); the
+        port raises. Left out, as later queue items: the background AOT
         compiles (:6097-6133, :6430-6455; nothing is compiled here) and the
         cost model (:6232-6239, :6345-6356)."""
         import concurrent.futures
@@ -2866,6 +3469,24 @@ class DeviceExecutor:
             specs, program, staged, key_plan, capacity, auxes, cell_cols
         )
         carries = self._new_carries(specs, capacity, hist_cols, staged)
+        # Every rung keeps the device count, so the window geometry and the
+        # carries' shapes are the same on every rung.
+        ckpt_key = None
+        start_w = 0
+        if ckpt_ident is not None and self._checkpoints_apply():
+            ckpt_key = f"{ckpt_ident}|win:{plan.window_rows}"
+            resumed, start_w = self._load_fold_checkpoint(ckpt_key, carries, self.mesh.devices)
+            if start_w:
+                carries = resumed
+                _MESH_RESUMES.inc()
+                with self._geom_lock:
+                    self._geom_events["resumes"] += 1
+
+        def fold_window(w: int) -> None:
+            for blk in range(w * plan.nblk, (w + 1) * plan.nblk):
+                for body, carry in zip(bodies, carries):
+                    body(carry, blk, 0)
+
         inflight: collections.deque = collections.deque()
         t_wall = time.perf_counter()
         pool = concurrent.futures.ThreadPoolExecutor(
@@ -2887,10 +3508,10 @@ class DeviceExecutor:
                     stager.put(win)
                 profile_add("stage_bytes", plan.window_block_nbytes() + staged_gid_nbytes(win.gids))
                 profile_add("wire_bytes", win.wire_nbytes)
+                if w < start_w:
+                    continue  # in the adopted carries: staged, never refolded
                 with timed("stage_stream_dispatch"):
-                    for blk in range(w * plan.nblk, (w + 1) * plan.nblk):
-                        for body, carry in zip(bodies, carries):
-                            body(carry, blk, 0)
+                    self._mesh_dispatch(lambda: fold_window(w), what="stream_fold")
                 if stager.cuda:
                     done = []
                     for stream in stager.compute.values():
@@ -2902,14 +3523,30 @@ class DeviceExecutor:
                         with timed("stage_stream_compute_wait"):
                             for event in inflight.popleft():
                                 event.synchronize()
+                if ckpt_key is not None:
+                    with timed("stage_stream_ckpt"):
+                        self._checkpoint_carries(ckpt_key, w + 1, carries)
             with timed("stage_stream_drain"):
-                outputs = self._outputs([_fetch(
-                    self._finish_pass(specs, carries, capacity, auxes, hist_cols, cell_cols)
-                )])
+                outputs = self._mesh_dispatch(
+                    lambda: self._outputs([_fetch(self._finish_pass(
+                        specs, carries, capacity, auxes, hist_cols, cell_cols
+                    ))]),
+                    what="stream_merge",
+                )
         finally:
             pool.shutdown(wait=True)
             profile_add("stage_overlap", time.perf_counter() - t_wall)
             profile_add("stream_windows", plan.n_windows)
+        if ckpt_key is not None:
+            # The fold's answer is out: its checkpoint must not outlive it.
+            with self._geom_lock:
+                self._fold_ckpt.pop(ckpt_key, None)
+            if start_w:
+                self.last_resume_stats = {
+                    "resumed_from_window": int(start_w),
+                    "refolded_windows": int(plan.n_windows - start_w),
+                    "total_windows": int(plan.n_windows),
+                }
         return outputs, staged
 
     def _finalize(

@@ -29,8 +29,10 @@ streamed cold path (``plan_stream``, ``pack_stream_window``,
 ``WindowStager``) packs window k+1 on a background thread into a pinned
 buffer while window k copies on a side stream of every device and folds,
 and lands every window in its slice of one preallocated staging, which
-becomes the warm-cache entry. Strings never leave the host: their int32
-dictionary codes do.
+becomes the warm-cache entry. ``stage_partitioned`` stages the
+partitioned join's sides, each host's shard in its own region of devices.
+Strings never leave the host: their int32 dictionary
+codes do.
 """
 
 from __future__ import annotations
@@ -463,6 +465,98 @@ def stage_columns(
         narrow_offsets=narrow_offsets,
         gids=staged_gids,
         int_dicts=dict(int_dicts or {}),
+        devices=devices,
+    )
+
+
+def _shard_mask(nblk: int, b: int, d_host: int, shard_rows: np.ndarray, devices: tuple) -> Lane:
+    """The partitioned staging's mask (pixie_tpu/parallel/staging.py:493):
+    shard s belongs to host s // d_host, whose region of d_host shards is
+    valid up to that host's row count: a ragged host pads at the tail of
+    its own region. An iota compare on each shard's device."""
+    span = nblk * b
+    parts = [
+        ((torch.arange(span, device=dev) + (s % d_host) * span)
+         < int(shard_rows[s // d_host])).reshape(1, nblk, b)
+        for s, dev in enumerate(devices)
+    ]
+    return lane_from_parts(parts, devices)
+
+
+def stage_partitioned(
+    mesh,
+    cols: dict[str, np.ndarray],
+    gids: np.ndarray,
+    shard_rows: np.ndarray,
+    num_groups: int,
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+) -> StagedColumns:
+    """Stage host columns so each hosts-axis shard owns a contiguous region
+    of devices (pixie_tpu/parallel/staging.py:514, the partitioned join's
+    layout). ``cols`` and ``gids`` arrive permuted shard-major (host h's
+    rows contiguous, in their original order) with ``shard_rows[h]`` rows
+    of host h. Every host gets the ``block_geometry`` of the LARGEST shard
+    over its d/H devices, so the regions are uniform, and a ragged shard
+    pads at the tail of its own region (``_shard_mask``). Narrowing is
+    ``stage_columns``': one frame-of-reference offset per column over the
+    whole permuted array. There is no staging codec on this path, as in the
+    reference. Each column packs into one host buffer (pinned when the mesh
+    is on CUDA), and shard i copies from it to ``mesh.devices[i]``."""
+    devices = tuple(mesh.devices)
+    H = int(mesh.shape[0])
+    d = len(devices)
+    d_host = d // H
+    shard_rows = np.asarray(shard_rows, np.int64)
+    if shard_rows.shape != (H,) or int(shard_rows.sum()) != len(gids):
+        raise ValueError(f"shard_rows {shard_rows.tolist()} do not cover {len(gids)} rows")
+    b, nblk = block_geometry(int(max(shard_rows.max(), 1)), d_host, block_rows)
+    region = d_host * nblk * b
+    total = d * nblk * b
+    offs = np.concatenate([[0], np.cumsum(shard_rows)[:-1]])
+    cuda = devices[0].type == "cuda"
+    pinned = []  # the host buffers, alive until their copies are done
+
+    def put(a: np.ndarray) -> Lane:
+        dtype = a.dtype if a.size else np.dtype(np.int32)
+        with timed("stage_host_pack"):
+            buf = torch.zeros(total, dtype=codec.TORCH_DTYPES[dtype], pin_memory=cuda)
+            flat = buf.numpy()
+            for h in range(H):
+                r = int(shard_rows[h])
+                flat[h * region : h * region + r] = a[offs[h] : offs[h] + r]
+        pinned.append(buf)
+        profile_add("stage_bytes", flat.nbytes)
+        profile_add("wire_bytes", flat.nbytes)
+        out = alloc_lane((d, nblk, b), buf.dtype, devices)
+        src = buf.view(d, nblk, b)
+        with timed("stage_transfer"):
+            if isinstance(out, ShardedBlocks):
+                for s, part in enumerate(out.parts):
+                    part.copy_(src[s : s + 1], non_blocking=cuda)
+            else:
+                out.copy_(src, non_blocking=cuda)
+        return out
+
+    narrow_offsets: dict[str, int] = {}
+    blocks: dict[str, Lane] = {}
+    for name, a in cols.items():
+        with timed("stage_host_pack"):
+            a, off = _narrow_int(np.asarray(a))
+        if off is not None:
+            narrow_offsets[name] = off
+        blocks[name] = put(a)
+    staged_gids = put(_narrow_gids(np.asarray(gids), num_groups))
+    if cuda:
+        with timed("stage_transfer"):
+            for dev in dict.fromkeys(devices):
+                torch.cuda.synchronize(dev)
+    return StagedColumns(
+        blocks=blocks,
+        mask=_shard_mask(nblk, b, d_host, shard_rows, devices),
+        num_rows=int(shard_rows.sum()),
+        block_rows=b,
+        narrow_offsets=narrow_offsets,
+        gids=staged_gids,
         devices=devices,
     )
 

@@ -152,6 +152,43 @@ def test_hash_columns_bit_exact(seed):
     np.testing.assert_array_equal(got, want)
 
 
+def _edge_bools(seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    b = rng.random(20_000) < 0.5
+    b[:2] = [False, True]
+    return b
+
+
+@pytest.mark.parametrize("cols", [
+    ["f64"], ["bool"], ["f64", "bool"], ["bool", "i64", "f32"],
+    ["i64", "f64", "bool", "i32", "f32", "i64", "f64", "bool"],
+])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_hash_columns_edge_words_bit_exact(cols, seed):
+    """H31's plain version against the reference on the edge words: -0.0
+    and +0.0 and NaN payloads (f64 bit-cast, f32 widened first), bool
+    columns as 0/1, INT64_MIN/MAX, one column and eight."""
+    make = {
+        "i64": lambda i: _ints(20 + i), "f64": lambda i: _floats(30 + i),
+        "bool": lambda i: _edge_bools(40 + i), "i32": lambda i: _ints(50 + i).astype(np.int32),
+        "f32": lambda i: _floats(60 + i).astype(np.float32),
+    }
+    with np.errstate(over="ignore"):  # f64 max narrows to f32 inf
+        arrs = [make[k](i) for i, k in enumerate(cols)]
+    want = _u64_view(ref.hash_columns([jnp.asarray(a) for a in arrs], seed))
+    got = hashing.hash_columns([torch.from_numpy(a) for a in arrs], seed).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_clz64_edge_words():
+    words = np.array([0, 1, 1 << 63, (1 << 63) - 1, (1 << 64) - 1, 1 << 62, 2, 3],
+                     dtype=np.uint64)
+    want = np.asarray(ref.clz64(jnp.asarray(words)))
+    got = hashing.clz64(torch.from_numpy(words.view(np.int64))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.tolist() == [64, 63, 0, 1, 0, 1, 62, 62]
+
+
 def test_clz64_bit_exact():
     """No caller in either package: every leading-zero count 0..64."""
     x = _ints(10).view(np.uint64)

@@ -1,9 +1,9 @@
-"""The hand kernels (H1-H29 and the hash kernel) against their plain PyTorch
+"""The hand kernels (H1-H32 and the hash kernel) against their plain PyTorch
 versions on the card.
 
 Every test here needs a CUDA device (the kernels have no CPU mode) and skips
-without one; the last four need a second card (one of them, at 4, a
-fourth). The file imports neither JAX nor the reference package, so it also
+without one; the mesh tests over real cards need a second card (two of
+them, at 4, a fourth). The file imports neither JAX nor the reference package, so it also
 runs on a machine that has only PyTorch:
 ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 
@@ -32,7 +32,10 @@ priorities and H26's reservoir states bit for bit (forced ties included),
 H27's k-means centers and H28's embeddings within 1e-5. The cross-shard
 merge (H29) bit for bit, NaN, signed zeros and int64 overflow included; the
 sharded fold over real cards equal to the same geometry over logical shards
-of one card, exactly but for f64 sums (within 1e-12 * sum |v|).
+of one card, exactly but for f64 sums (within 1e-12 * sum |v|), and so are
+the partitioned join and a checkpointed resume over 2 and 4 cards. The
+kernels no path calls (H30 count-min query, H31 hash_columns, H32 clz64)
+exactly.
 """
 
 import json
@@ -1027,4 +1030,126 @@ def test_mesh_lanes_over_cards_equal_logical_shards():
         flags.reset("device_join_min_rows")
     for got, want in zip(out["cards"], out["logical"]):
         assert got == want
+    assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.cuda
+def test_uncalled_kernels_equal_plain():
+    """H30 (count-min query), H31 (hash_columns) and H32 (clz64), the kernels
+    of the TPU kernels no path calls, against their plain versions, exactly:
+    H30 at config 10's state shape with every depth row holding some
+    query's minimum; H31 over -0.0, NaN payloads, +-inf, bool columns, one
+    to eight columns and two seeds; H32 over 0, 1, 2^63, 2^64 - 1 and
+    every leading-zero count."""
+    _need_cards(1)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(32)
+    kernels.reset_launches()
+    G, depth, width = 64, countmin.DEFAULT_DEPTH, countmin.DEFAULT_WIDTH
+    state = torch.from_numpy(rng.integers(1000, 2000, (G, depth, width))).to(dev)
+    n = 50_000
+    gids = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.integers(-(2**40), 2**40, n)).to(dev)
+    cells = countmin._buckets(vals, depth, width)
+    for d in range(depth):  # query i's row i % depth holds its minimum
+        sel = torch.arange(n, device=dev) % depth == d
+        state[gids[sel].long(), d, cells[d][sel].long()] = torch.from_numpy(
+            rng.integers(0, 1000, int(sel.sum()))).to(dev)
+    got, want = countmin.query(state, gids, vals), countmin.query_plain(state, gids, vals)
+    assert torch.equal(got, want)
+    per_row = torch.stack([state[gids.long(), d, cells[d].long()] for d in range(depth)])
+    assert set(per_row.argmin(0).unique().tolist()) == set(range(depth))
+    f = rng.standard_normal(n) * 1e9
+    f[:8] = [0.0, -0.0, np.nan, np.inf, -np.inf, 5e-324,
+             *np.array([0x7FF8000000000001, -(1 << 51)], dtype=np.int64).view(np.float64)]
+    i = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    b = rng.random(n) < 0.5
+    cols = {"f": torch.from_numpy(f), "i": torch.from_numpy(i), "b": torch.from_numpy(b)}
+    for names in ("f", "b", "ib", "fib", "fbifbifb"):
+        for seed in (0, 7):
+            host = [cols[c] for c in names]
+            got = hashing.hash_columns([t.to(dev) for t in host], seed).cpu()
+            assert torch.equal(got, hashing.hash_columns_plain(host, seed)), (names, seed)
+    words = torch.from_numpy(np.concatenate([
+        i, i >> (np.arange(n) % 64), np.array([0, 1, -(2**63), -1], dtype=np.int64)]))
+    got = hashing.clz64(words.to(dev)).cpu()
+    assert torch.equal(got, hashing.clz64_plain(words))
+    assert got[-4:].tolist() == [64, 63, 0, 0] and set(got.tolist()) == set(range(65))
+    assert kernels.LAUNCHES["countmin_query"] == 1
+    assert kernels.LAUNCHES["hash_columns"] == 10 and kernels.LAUNCHES["clz64"] == 1
+    with pytest.raises(ValueError):
+        kernels.hash_columns([cols["i"].to(dev)] * 9, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards,spec", [(2, "hosts:2,d:1"), (4, "hosts:2,d:2")])
+def test_partitioned_join_and_resume_over_cards(cards, spec):
+    """The partitioned join (each host's shards concatenated onto its first
+    card) and a stream fold resumed from its window checkpoint after a host
+    loss, over ``cards`` real cards, equal the same geometry over logical
+    shards of cuda:0: the join rows exactly, in order; the fold's outputs
+    exactly but the f64 sums (within 1e-12 * sum |v| of math.fsum), and the
+    same resume."""
+    _need_cards(cards)
+    from pixie_tpu_torch.distributed import MeshConfig
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.types import DataType, Relation
+    from pixie_tpu_torch.utils import faults, flags
+
+    rng = np.random.default_rng(33)
+    n = 200_000
+    svcs = np.array([f"svc-{i}" for i in range(12)], dtype=object)
+    fact = {"time_": np.arange(n, dtype=np.int64) * 10, "service": svcs[rng.integers(0, 12, n)],
+            "latency": rng.exponential(3e7, n)}
+    owners = {"svc": np.array(list(svcs[:10]) + ["ghost"], dtype=object),
+              "owner": np.array([f"team-{i % 3}" for i in range(11)], dtype=object)}
+    mb = {"service": np.array([f"svc{i}" for i in rng.integers(0, 64, n)], dtype=object),
+          "status": rng.integers(0, 7, n), "lat": rng.standard_normal(n)}
+    joins = [
+        "f = px.DataFrame(table='fact')\no = px.DataFrame(table='owners')\n"
+        f"j = f.merge(o, how='{how}', left_on=['service'], right_on=['svc'], "
+        "suffixes=['', '_o'])\npx.display(j, 'out')\n"
+        for how in ("inner", "outer")
+    ]
+    torch.cuda.set_device(0)
+    flags.set("device_join_min_rows", 0)
+    flags.set("streaming_window_rows", n // 8)
+    out = {}
+    try:
+        for name, devices in (("cards", [f"cuda:{i}" for i in range(cards)]),
+                              ("logical", ["cuda:0"] * cards)):
+            ex = DeviceExecutor(block_rows=1 << 14, mesh_config=MeshConfig.parse(spec, cards),
+                                devices=devices)
+            c = Carnot(device_executor=ex)
+            c.table_store.create_table("fact", Relation.of(
+                ("time_", DataType.TIME64NS), ("service", DataType.STRING),
+                ("latency", DataType.FLOAT64))).write_pydict({k: v.copy() for k, v in fact.items()})
+            c.table_store.create_table("owners", Relation.of(
+                ("svc", DataType.STRING), ("owner", DataType.STRING))).write_pydict(
+                {k: v.copy() for k, v in owners.items()})
+            c.table_store.create_table("mesh_bench", Relation.of(
+                ("service", DataType.STRING), ("status", DataType.INT64),
+                ("lat", DataType.FLOAT64))).write_pydict({k: v.copy() for k, v in mb.items()})
+            segment.reduce_lanes(reset=True)
+            rows = [c.execute_query(q).table("out") for q in joins for _ in range(2)]
+            assert segment.reduce_lanes(reset=True) == {"join_partitioned": 4}
+            faults.arm("mesh.host_loss", count=1, after=4)
+            try:
+                fold = c.execute_query(MESH_QUERY).table("out")
+            finally:
+                faults.reset()
+            assert ex.last_resume_stats == {"resumed_from_window": 4, "refolded_windows": 4,
+                                            "total_windows": 8}
+            out[name] = (rows, fold)
+    finally:
+        flags.reset("device_join_min_rows")
+        flags.reset("streaming_window_rows")
+    assert out["cards"][0] == out["logical"][0]
+    got, want = out["cards"][1], out["logical"][1]
+    for k in ("service", "n", "mn", "mx", "u", "cm"):
+        assert got[k] == want[k], k
+    for name, s in zip(got["service"], got["s"]):
+        v = mb["lat"][mb["service"] == name]
+        assert abs(s - math.fsum(v)) <= 1e-12 * np.abs(v).sum(), name
     assert torch.cuda.current_device() == 0

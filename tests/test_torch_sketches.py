@@ -145,6 +145,28 @@ def test_countmin_cells_and_totals_exact(sorted_lane, kind):
     )
 
 
+def test_countmin_query_takes_every_depth_row():
+    """H30's plain version against the reference's query where each depth
+    row in turn holds a query's smallest cell: the min reaches every row,
+    and the estimates are the reference's exactly."""
+    G, depth, width = 3, 4, 8192
+    rng = np.random.default_rng(31)
+    n = 4000
+    gids = rng.integers(0, G, n).astype(np.int32)
+    vals = rng.integers(-(2**40), 2**40, n)
+    state = rng.integers(1000, 2000, (G, depth, width)).astype(np.int64)
+    cells = [b.numpy() for b in countmin._buckets(_t(vals), depth, width)]
+    for i in range(n):  # query i's cell in row i % depth is its smallest
+        d = i % depth
+        state[gids[i], d, cells[d][i]] = rng.integers(0, 1000)
+    got = countmin.query(_t(state), _t(gids), _t(vals)).numpy()
+    want = np.asarray(ref_cm.query(jnp.asarray(state), jnp.asarray(gids), jnp.asarray(vals)))
+    np.testing.assert_array_equal(got, want)
+    per_row = np.stack([state[gids, d, cells[d]] for d in range(depth)])
+    assert set(np.argmin(per_row, axis=0).tolist()) == set(range(depth))
+    np.testing.assert_array_equal(got, per_row.min(axis=0))
+
+
 def test_countmin_uda_json_letter_for_letter():
     """The count_min UDA (update, merge, device finalize, format) against the
     reference UDA's finalize, as strings."""
