@@ -4,6 +4,8 @@
     python3 chip_smoke.py --mesh-cards N      (N cards: the mesh paths only)
     python3 chip_smoke.py --ab-parent DIR     (config 10's widths, DIR's tree
                                                against this one, in turns)
+    python3 chip_smoke.py --ab-parent DIR --ab-paths reservoir_latency,...
+                                              (the named paths instead)
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. In order it:
@@ -19,7 +21,9 @@ the CUDA toolkit. In order it:
    block for H16, a block of the let table for H17's two programs: svc_let's
    predicate program and an f64 program; a full 2^23-row stream window for
    the codec's decodes H18 (4096 runs, every block dtype) and H19 (nibble,
-   uint8 and uint16 deltas into every integer dtype); config 5's 16 x 4
+   uint8 and uint16 deltas into every integer dtype; and its edges: 3
+   shards of 1, 7 and 1,000,001 rows, rows on and off its tile edges, sums
+   that wrap); config 5's 16 x 4
    cells and the budget's 32 x 256 for H20 and H21; a block of the
    service_stats table for H22 (B = 1, 7, 16, 32 slots of one to three
    terms, op-6 lists of 2 and 1024 members) and H23 (the seven families'
@@ -252,6 +256,7 @@ REPLACES = {
     "ring_convert": "pixie_tpu/ops/codec.py:479",
     "reservoir_priority": "pixie_tpu/ops/ml.py:37",
     "reservoir_topk": "pixie_tpu/ops/ml.py:47",
+    "reservoir_topk_rows": "pixie_tpu/ops/ml.py:47",
     "kmeans_fit": "pixie_tpu/ops/ml.py:128",
     "encoder_forward": "pixie_tpu/ops/transformer.py:76",
     "merge_states": "pixie_tpu/parallel/pipeline.py:5605",
@@ -279,7 +284,7 @@ SOURCES = {
        for k in ("pred_slot_masks", "batched_segment_sums")},
     "ring_convert": "pixie_tpu_torch/ops/kernels/convert_kernels.cu",
     **{k: "pixie_tpu_torch/ops/kernels/ml_kernels.cu"
-       for k in ("reservoir_priority", "reservoir_topk", "kmeans_fit")},
+       for k in ("reservoir_priority", "reservoir_topk", "reservoir_topk_rows", "kmeans_fit")},
     "encoder_forward": "pixie_tpu_torch/ops/kernels/transformer_kernels.cu",
     "merge_states": "pixie_tpu_torch/ops/kernels/merge_kernels.cu",
     "countmin_query": "pixie_tpu_torch/ops/kernels/sketch_kernels.cu",
@@ -1546,9 +1551,10 @@ def codec_kernel_phase(dev) -> dict:
     """H18 and H19 against their plain versions on the card, bit for bit, at
     a full stream window (2^23 rows): H18 with 4096 runs in every block
     dtype (NaN payloads and -0.0 among the values), H19 for each delta
-    dtype (nibbles, uint8, uint16) into every integer block dtype. Timed at
-    each dtype; the records are uint16 for H18 (the sorted path's status
-    column) and nibbles into int64 for H19 (flow_window's time_)."""
+    dtype (nibbles, uint8, uint16) into every integer block dtype, then
+    H19's edges (``delta_edges``). Timed at each dtype; the records are
+    uint16 for H18 (the sorted path's status column) and nibbles into int64
+    for H19 (flow_window's time_)."""
     from pixie_tpu_torch.ops import codec, kernels
 
     rng = np.random.default_rng(18)
@@ -1614,6 +1620,7 @@ def codec_kernel_phase(dev) -> dict:
         by_delta[str(kind).replace("torch.", "")] = rec["ms"]
         if nib:
             records["codec_delta_decode"] = rec
+    delta_edges(dev, rng)
     # A fixed-cadence timestamp (flow_window's time_) decodes to itself.
     const = torch.zeros((1, L // 2), dtype=torch.uint8, device=dev)
     ts = torch.empty((1, L), dtype=torch.int64, device=dev)
@@ -1621,9 +1628,43 @@ def codec_kernel_phase(dev) -> dict:
                                1000, True, ts)
     check(torch.equal(ts[0], torch.arange(L, device=dev) * 1000), "H19: time_ ramp")
     records["codec_delta_decode"]["by_dtype_ms"] = by_delta
-    log(f"H19 codec_delta_decode: bit for bit, 3 delta x 4 block dtypes at {L} rows; "
-        f"ms into int64 {by_delta}")
+    log(f"H19 codec_delta_decode: bit for bit, 3 delta x 4 block dtypes at {L} rows and the "
+        f"edges; ms into int64 {by_delta}")
     return records
+
+
+def delta_edges(dev, rng) -> None:
+    """H19 bit for bit against its plain version over 3 shards of L = 1, 7
+    and 1,000,001 rows (odd: the nibble payload and the block of shards 1
+    and 2 are not 16-byte aligned) and 3 tiles, rows on the 4096-row tile
+    edges and one off them, offsets near +-2^40, bases near +-2^63 (the
+    sums wrap), nibble and int16 deltas into int64 and uint8 blocks."""
+    from pixie_tpu_torch.ops import codec, kernels
+
+    tile = kernels.DELTA_TILE_ROWS
+    bases = torch.tensor([2**63 - 5000, -(2**63) + 3, 12345], dtype=torch.int64, device=dev)
+    cases = 0
+    for L, rows in ((1, (1, 0, 1)), (7, (7, 6, 1)),
+                    (1_000_001, (100 * tile, 100 * tile + 1, 100 * tile - 1)),
+                    (1_000_001, (1_000_001, tile, tile - 1)),
+                    (3 * tile, (3 * tile, 2 * tile, 2 * tile + 1))):
+        rows_t = torch.tensor(rows, dtype=torch.int32, device=dev)
+        for nib in (True, False):
+            deltas = torch.from_numpy(
+                rng.integers(0, 256, (3, (L + 1) // 2)).astype(np.uint8) if nib
+                else rng.integers(-(1 << 15), 1 << 15, (3, L)).astype(np.int16)).to(dev)
+            for off in ((1 << 40) - 5, -(1 << 40) + 3):
+                for out_dtype in (torch.int64, torch.uint8):
+                    got, want = (torch.empty((3, L), dtype=out_dtype, device=dev)
+                                 for _ in range(2))
+                    kernels.codec_delta_decode(bases, deltas, rows_t, off, nib, got)
+                    codec.delta_decode_plain(bases, deltas, rows_t, off, nib, want)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"H19 L={L} rows={rows} nib={nib} off={off} -> {out_dtype}: differs")
+                    cases += 1
+    log(f"H19 edges: {cases} cases bit for bit (L 1, 7, 1,000,001, 3 tiles; rows on and "
+        f"off the tile edges)")
 
 
 def cell_kernel_phase(dev) -> dict:
@@ -3427,10 +3468,14 @@ def ml_kernel_phase(dev) -> dict:
     H25 bit for bit on a 2^21-row block (int64 and f64 with NaN, +-0, +-inf,
     masked and not, a salt near 2^40); H26 bit for bit at 16 and 4096 groups
     on an empty and a full state and on forced equal priorities fed
-    directly; H27 within 1e-5 at G 16, S 128, d 64, k 4 and 8 with
-    duplicated points; H28 within 1e-5 at 1 and 4098 documents of 1, 17
-    and 64 tokens. Records: H25 f64 masked, H26 16 groups full, H27 k 8,
-    H28 4098 documents."""
+    directly, and at its edges (``topk_edges``), through both entries (the
+    sort-free one for few groups, the bucketed one); H27 within 1e-5 at G
+    16, S 128, d 64, k 4 and 8 with duplicated points; H28 within 1e-5 at 1
+    and 4098 documents of 1, 17 and 64 tokens. Records: H25 f64 masked, H26's
+    sort-free entry at 16 full groups (reservoir_latency's update; also an
+    empty state and the whole update) and its bucketed entry at 4096
+    (reservoir_flows'; also the bucketing sort and the whole update), H27
+    k 8, H28 4098 documents."""
     from pixie_tpu_torch.ops import kernels, ml, transformer
 
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -3479,22 +3524,38 @@ def ml_kernel_phase(dev) -> dict:
         pri = ml.priorities(floats, st_k["count"].sum(), mask)
         order, offsets = ml.bucket_rows(g, G)
         sv, sp = st_k["values"].view(torch.int64), st_k["priority"]
-        # What the data needs: each candidate's index and priority, the
-        # values of the rows that enter, the state read and written once.
+        # What the data needs: each candidate's priority and its order index
+        # (bucketed) or each row's gid (sort-free), the values of the rows
+        # that enter, the state read and written once.
         cand = int(mask.sum())
         entered = int((~torch.isin(ml.topk_rows_plain(st_k, g, pri, floats)["priority"], sp)).sum())
-        rec = record(
-            lambda: kernels.reservoir_topk(sv, sp, words, pri, order, offsets),
-            lambda: ml.topk_rows_plain(st_k, g, pri, floats), None,
-            *bound(cand * 16 + entered * 8 + 2 * G * RESERVOIR_K * 16 + (G + 1) * 8, cand * 4.0),
-            0.0,
-            f"{n} rows into {G} full reservoirs of {RESERVOIR_K}",
-        )
-        if G == N_SERVICES:
-            records["reservoir_topk"] = rec
-        else:
-            records["reservoir_topk"]["by_groups_4096"] = {
-                k: rec[k] for k in ("ms", "plain_ms", "bound_ms")}
+        state_bytes = 2 * G * RESERVOIR_K * 16
+        if G == N_SERVICES:  # reservoir_latency's update: the sort-free entry
+            g32, cnt = g.to(torch.int32), st_k["count"]
+            rec = records["reservoir_topk_rows"] = record(
+                lambda: kernels.reservoir_topk_rows(sv, sp, cnt, words, pri, g32),
+                lambda: ml.topk_rows_plain(st_k, g, pri, floats), None,
+                *bound(n * 4 + cand * 8 + entered * 8 + state_bytes + 2 * G * 8, cand * 4.0),
+                0.0,
+                f"{n} rows (gids, no bucketing) into {G} full reservoirs of {RESERVOIR_K}",
+            )
+            # The first block's call (an empty state: every chunk fills and
+            # cuts) and the whole update (H25, H26).
+            empty = ml.reservoir_init(G, dev)
+            rec["by_empty_state_16"] = {
+                "ms": time_ms(lambda: kernels.reservoir_topk_rows(
+                    empty["values"].view(torch.int64), empty["priority"], empty["count"], words,
+                    pri, g32)),
+                "plain_ms": time_ms(lambda: ml.topk_rows_plain(empty, g, pri, floats))}
+        else:  # reservoir_flows' update: the bucketed entry after the gid sort
+            rec = records["reservoir_topk"] = record(
+                lambda: kernels.reservoir_topk(sv, sp, words, pri, order, offsets),
+                lambda: ml.topk_rows_plain(st_k, g, pri, floats), None,
+                *bound(cand * 16 + entered * 8 + state_bytes + (G + 1) * 8, cand * 4.0), 0.0,
+                f"{n} rows into {G} full reservoirs of {RESERVOIR_K}",
+            )
+            rec["by_bucket_rows_ms"] = time_ms(lambda: ml.bucket_rows(g, G))
+        rec["by_update_ms"] = time_ms(lambda: ml.reservoir_update(st_k, gids, floats, mask))
     # Forced ties: priorities on a grid of 8 values, the state's too.
     G = N_SERVICES
     tie_pri = torch.from_numpy(np.floor(rng.random(n) * 8) / 8).to(dev)
@@ -3514,9 +3575,13 @@ def ml_kernel_phase(dev) -> dict:
           "H26 forced ties: the state's slots first, then the rows in row order")
     check(same_state(ml.reservoir_merge(tie_state, want), ml.reservoir_merge_plain(tie_state, want)),
           "H26 merge with ties: differs from plain")
-    log(f"H26 reservoir_topk: 16 and 4096 groups, empty and full, forced ties and a merge, "
-        f"bit for bit; {records['reservoir_topk']['ms']:.4f} ms (16 groups), "
-        f"{records['reservoir_topk']['by_groups_4096']['ms']:.4f} ms (4096)")
+    topk_edges(dev, rng)
+    r26, r26r = records["reservoir_topk"], records["reservoir_topk_rows"]
+    log(f"H26 reservoir_topk, reservoir_topk_rows: 16 and 4096 groups, empty and full, forced "
+        f"ties, merges and the edges, bit for bit; sort-free {r26r['ms']:.4f} ms (16 groups; "
+        f"{r26r['by_empty_state_16']['ms']:.4f} ms with an empty state), bucketed "
+        f"{r26['ms']:.4f} ms (4096; bucket_rows {r26['by_bucket_rows_ms']:.4f} ms); the whole "
+        f"update {r26r['by_update_ms']:.4f} ms (16), {r26['by_update_ms']:.4f} ms (4096)")
 
     Gk, S, d = N_SERVICES, 128, KM_D
     truth = rng.normal(0, 3, (8, d)).astype(np.float32)
@@ -3557,6 +3622,84 @@ def ml_kernel_phase(dev) -> dict:
     log(f"H28 encoder_forward: 1 and {B} documents within 1e-5 of plain (max {err:.3g}); "
         f"{records['encoder_forward']['ms']:.4f} ms at {B}")
     return records
+
+
+def topk_edges(dev, rng, n: int = BLOCK_ROWS) -> None:
+    """H26 bit for bit against ``topk_rows_plain`` (both on the card) at
+    2^21 rows, 70% masked in: 1, 16 and 4096 groups, one group holding every
+    row, empty groups (the odd ones), k 1, 64 and 768 (at 16 and 4096
+    groups), 64 groups of 16, priorities on a grid of 8 values (ties across
+    every chunk edge) or not, an empty and a full state (its
+    priorities on the grid too), through the bucketed entry and, where it
+    fits, the sort-free one (its counts too); then
+    ``reservoir_merge`` of 16 and 4096 full reservoirs with ties, chained as
+    the TREE merge chains four shards' states."""
+    from pixie_tpu_torch.ops import kernels, ml
+
+    mask = rng.random(n) < 0.7
+    words = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)).to(dev)
+    cases = 0
+    for name, G, k, layout in (("G1", 1, 64, "spread"), ("G16", 16, 64, "spread"),
+                               ("G4096", 4096, 64, "spread"), ("one_group", 16, 64, "one"),
+                               ("empty_groups", 16, 64, "even"), ("k1", 16, 1, "spread"),
+                               ("k768", 16, 768, "spread"), ("k768_G4096", 4096, 768, "spread"),
+                               ("G64_k16", 64, 16, "spread")):
+        gids = rng.integers(0, G, n)
+        if layout == "one":
+            gids[:] = 5
+        elif layout == "even":
+            gids = 2 * rng.integers(0, G // 2, n)
+        g = torch.from_numpy(np.where(mask, gids, G)).to(dev)
+        order, offsets = ml.bucket_rows(g, G)
+        for ties in (False, True):
+            p = np.floor(rng.random(n) * 8) / 8 if ties else rng.random(n)
+            pri = torch.from_numpy(np.where(mask, p, -np.inf)).to(dev)
+            for full in (False, True):
+                st = topk_state(rng, G, k, full, ties, dev)
+                vk, pk = kernels.reservoir_topk(st["values"].view(torch.int64), st["priority"],
+                                                words, pri, order, offsets)
+                want = ml.topk_rows_plain(st, g, pri, words.view(torch.float64))
+                torch.cuda.synchronize()
+                check(torch.equal(vk, want["values"].view(torch.int64))
+                      and torch.equal(pk.view(torch.int64), want["priority"].view(torch.int64)),
+                      f"H26 {name} ties={ties} full={full}: differs from plain")
+                cases += 1
+                if kernels.topk_rows_fits(G, k):  # the sort-free entry
+                    vr, pr_, cr = kernels.reservoir_topk_rows(
+                        st["values"].view(torch.int64), st["priority"], st["count"], words, pri,
+                        g.to(torch.int32))
+                    torch.cuda.synchronize()
+                    check(torch.equal(vr, want["values"].view(torch.int64))
+                          and torch.equal(pr_.view(torch.int64),
+                                          want["priority"].view(torch.int64))
+                          and torch.equal(cr, want["count"]),
+                          f"H26 sort-free {name} ties={ties} full={full}: differs from plain")
+                    cases += 1
+    for G in (N_SERVICES, FLOW_GROUPS):
+        shards = [topk_state(rng, G, RESERVOIR_K, True, ties, dev)
+                  for ties in (True, True, False, True)]
+        acc = acc_plain = shards[0]
+        for b in shards[1:]:
+            acc, acc_plain = ml.reservoir_merge(acc, b), ml.reservoir_merge_plain(acc_plain, b)
+            torch.cuda.synchronize()
+            check(all(torch.equal(acc[key], acc_plain[key]) for key in acc),
+                  f"H26 TREE merge of {G} reservoirs: differs from plain")
+            cases += 1
+    log(f"H26 edges: {cases} cases bit for bit (1-4096 groups, one group, empty groups, "
+        f"k 1/64/768, ties, empty and full states, merges)")
+
+
+def topk_state(rng, G: int, k: int, full: bool, ties: bool, dev) -> dict:
+    """An empty reservoir state, or a full one in descending order whose
+    priorities lie on a grid of 8 values (``ties``) or not."""
+    from pixie_tpu_torch.ops import ml
+
+    st = ml.reservoir_init(G, dev, k=k)
+    if full:
+        p = np.floor(rng.random((G, k)) * 8) / 8 if ties else rng.random((G, k))
+        st["priority"] = torch.from_numpy(-np.sort(-p, axis=1)).to(dev)
+        st["values"] = torch.from_numpy(rng.normal(0, 1, (G, k))).to(dev)
+    return st
 
 
 def np_splitmix64(x: np.ndarray) -> np.ndarray:
@@ -4164,11 +4307,13 @@ def mesh_cards_sweep(n: int, device: str = "cuda", cards=None) -> dict:
     return out
 
 
-def tree_merge_paths(carnot, data: dict, paths: dict, phase_s: dict) -> None:
+def tree_merge_paths(carnot, data: dict, paths: dict, phase_s: dict,
+                     profile: bool = False) -> None:
     """Config 5's t-digest (H8 merges) and reservoir_latency (H26 merges)
     over http_events on a 4-shard mesh of the card, held to the one-shard
     phases' truths: verify_sketches, and the reservoirs' numpy truth for the
-    4-shard fold (``reservoir_truth``)."""
+    4-shard fold (``reservoir_truth``); with ``profile`` one warm
+    reservoir_mesh4 query is traced (``profile_warm``)."""
     t0 = time.perf_counter()
     c = mesh_carnot(carnot, f"d:{TREE_SHARDS}", TREE_SHARDS)
     paths["sketches_mesh4"] = drive(
@@ -4181,9 +4326,12 @@ def tree_merge_paths(carnot, data: dict, paths: dict, phase_s: dict) -> None:
     log(f"reservoir_latency 4-shard truths in {time.perf_counter() - t0:.1f} s")
     paths["reservoir_mesh4"] = drive(
         c, RESERVOIR_LATENCY, lambda r: verify_reservoir_latency(r, data, truth),
-        ("reservoir_topk", "merge_states"),
+        ("reservoir_topk_rows", "reservoir_topk", "merge_states"),
     )
     phase_s["reservoir_mesh4"] = time.perf_counter() - t0
+    if profile:
+        profile_warm(c, RESERVOIR_LATENCY, min(paths["reservoir_mesh4"]["warm"]),
+                     "reservoir_mesh4")
 
 
 MESH_JOIN_SPECS = ("hosts:2,d:4", "hosts:4,d:2")
@@ -4484,14 +4632,11 @@ print("RESULT " + json.dumps(out), flush=True)
 """
 
 
-def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
-    """``--ab-parent``: config 10's d:1 and 8-shard widths in ``parent``'s
-    tree and in this one, ``pairs`` pairs of turns in ABBA order (parent,
-    change, change, parent, ...), each turn its own process (its own kernel
-    build, table and executors). A turn reads each width's cold query and
-    ``warm`` warm ones (per turn the median). Per width: each side's turn
-    medians, the change's wins and the change minus the parent's median of
-    turn medians; in the change's turns also the recovery plane bypassed."""
+def ab_turns(parent: str, pairs: int, child: str) -> dict:
+    """``pairs`` pairs of turns of the ``child`` program, ``parent``'s tree
+    and this one in ABBA order (parent, change, change, parent, ...), each
+    turn its own process (its own kernel build, tables and executors),
+    each printing one RESULT line of JSON. Returns each side's turns."""
     import os
 
     turns = {"parent": [], "change": []}
@@ -4499,15 +4644,27 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
     for i in range(pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for tag in order:
-            p = subprocess.run([sys.executable, "-c", AB_CHILD % warm],
+            p = subprocess.run([sys.executable, "-c", child],
                                cwd=parent if tag == "parent" else here,
-                               capture_output=True, text=True, timeout=600)
+                               capture_output=True, text=True, timeout=900)
             line = [x for x in p.stdout.splitlines() if x.startswith("RESULT ")]
             check(p.returncode == 0 and bool(line),
                   f"--ab-parent: the {tag} turn failed ({p.returncode}): {p.stderr[-2000:]}")
             turns[tag].append(json.loads(line[0][len("RESULT "):]))
             log(f"ab pair {i} {tag}: " + ", ".join(
-                f"{k} {float(np.median(v['warm_s'])):.5f}" for k, v in turns[tag][-1].items()))
+                f"{k} {float(np.median(v['warm_s'] if isinstance(v, dict) else v)):.5f}"
+                for k, v in turns[tag][-1].items()))
+    return turns
+
+
+def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
+    """``--ab-parent``: config 10's d:1 and 8-shard widths in ``parent``'s
+    tree and in this one (``ab_turns``). A turn reads each width's cold
+    query and ``warm`` warm ones (per turn the median). Per width: each
+    side's turn medians, the change's wins and the change minus the
+    parent's median of turn medians; in the change's turns also the
+    recovery plane bypassed."""
+    turns = ab_turns(parent, pairs, AB_CHILD % warm)
     out = {}
     for spec in turns["change"][0]:
         med = {tag: [float(np.median(t[spec]["warm_s"])) for t in turns[tag]] for tag in turns}
@@ -4529,6 +4686,77 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
     return out
 
 
+# One turn of ``--ab-parent --ab-paths``: the named paths in the tree of the
+# working directory, each on its own table as the main run builds it:
+# reservoir_latency (http_events) and reservoir_flows (conn_flows) warm,
+# flow_window (conn_flows) cold (the executor's caches dropped before each
+# query), the build of http_small_ring with resident ingest on (seconds
+# from create_table to stop(), the ring's window decodes included).
+AB_PATHS = ("reservoir_latency", "reservoir_flows", "flow_window", "ring_build")
+AB_PATHS_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from pixie_tpu_torch.ops import kernels
+kernels.library()
+paths, reps = %r, %d
+out = {}
+def timed(c, q, cold):
+    if cold:
+        c.device_executor.clear_caches()
+    torch.cuda.synchronize()
+    t = time.perf_counter(); c.execute_query(q); torch.cuda.synchronize()
+    return time.perf_counter() - t
+if "reservoir_latency" in paths:
+    c = cs.build_carnot(cs.http_events(1 << 26), 1 << 26, "cuda")
+    timed(c, cs.RESERVOIR_LATENCY, True)
+    out["reservoir_latency"] = [timed(c, cs.RESERVOIR_LATENCY, False) for _ in range(reps)]
+    del c
+if "reservoir_flows" in paths or "flow_window" in paths:
+    f = cs.build_flows_carnot(cs.conn_flows(cs.FLOW_ROWS), cs.FLOW_ROWS, "cuda")
+    if "reservoir_flows" in paths:
+        timed(f, cs.RESERVOIR_FLOWS, True)
+        out["reservoir_flows"] = [timed(f, cs.RESERVOIR_FLOWS, False) for _ in range(reps)]
+    if "flow_window" in paths:
+        out["flow_window"] = [timed(f, cs.FLOW_WINDOW, True) for _ in range(3)]
+    del f
+if "ring_build" in paths:
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.utils import flags
+    hs = cs.http_small(cs.SMALL_ROWS)
+    flags.set("resident_ingest", True)
+    c = Carnot(device_executor=DeviceExecutor(device="cuda", block_rows=cs.BLOCK_ROWS))
+    out["ring_build"] = [cs.build_small_table(c, "http_small_ring", hs, cs.SMALL_ROWS)]
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def ab_paths(parent: str, pairs: int, paths: list, reps: int = 15) -> dict:
+    """``--ab-parent DIR --ab-paths ...``: the named paths of AB_PATHS in
+    ``parent``'s tree and in this one (``ab_turns``); a warm path times
+    ``reps`` warm queries a turn, flow_window three cold ones, ring_build
+    one build. Per path: each side's turn medians, the change's wins and
+    the change minus the parent's median of turn medians, with the
+    parent's own spread (its largest turn median less its smallest)."""
+    turns = ab_turns(parent, pairs, AB_PATHS_CHILD % (tuple(paths), reps))
+    out = {}
+    for name in paths:
+        med = {tag: [float(np.median(t[name])) for t in turns[tag]] for tag in turns}
+        out[name] = dict(
+            parent=med["parent"], change=med["change"],
+            change_wins=sum(c < p for c, p in zip(med["change"], med["parent"])),
+            delta=float(np.median(med["change"]) - np.median(med["parent"])),
+            parent_spread=max(med["parent"]) - min(med["parent"]),
+        )
+        log(f"ab {name}: parent {np.median(med['parent']):.5f} [{min(med['parent']):.5f}, "
+            f"{max(med['parent']):.5f}], change {np.median(med['change']):.5f} "
+            f"[{min(med['change']):.5f}, {max(med['change']):.5f}]; change wins "
+            f"{out[name]['change_wins']} of {pairs}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 26,
@@ -4543,6 +4771,11 @@ def main() -> int:
                     help="run only config 10's d:1 and 8-shard widths, this directory's tree "
                          "against this one's in turns (a checkout of another commit)")
     ap.add_argument("--ab-pairs", type=int, default=10, help="pairs of --ab-parent turns")
+    ap.add_argument("--ab-paths", default="",
+                    help="with --ab-parent: a comma list of " + ", ".join(AB_PATHS)
+                         + " to compare instead of config 10's widths")
+    ap.add_argument("--ab-reps", type=int, default=15,
+                    help="with --ab-paths: warm queries a turn of a warm path")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4551,7 +4784,13 @@ def main() -> int:
         return 2
     if args.ab_parent:
         log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi_line()}")
-        log("ab: " + json.dumps(ab_widths(args.ab_parent, args.ab_pairs)))
+        if args.ab_paths:
+            paths = args.ab_paths.split(",")
+            check(set(paths) <= set(AB_PATHS), f"--ab-paths: {paths} not in {AB_PATHS}")
+            log("ab: " + json.dumps(ab_paths(args.ab_parent, args.ab_pairs, paths,
+                                             args.ab_reps)))
+        else:
+            log("ab: " + json.dumps(ab_widths(args.ab_parent, args.ab_pairs)))
         print(nvidia_smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4651,10 +4890,12 @@ def main() -> int:
     log(f"reservoir_latency truths in {time.perf_counter() - t0:.1f} s")
     paths["reservoir_latency"] = drive(
         carnot, RESERVOIR_LATENCY, lambda r: verify_reservoir_latency(r, data, lat_truth),
-        ("reservoir_priority", "reservoir_topk", "segment_rows_sum_i64"),
+        ("reservoir_priority", "reservoir_topk_rows", "segment_rows_sum_i64"),
     )
+    check(paths["reservoir_latency"]["launches"]["reservoir_topk"] == 0,
+          "reservoir_latency: an update of 16 groups took the bucketed entry")
     phase_s["reservoir_latency"] = time.perf_counter() - t0
-    tree_merge_paths(carnot, data, paths, phase_s)
+    tree_merge_paths(carnot, data, paths, phase_s, args.profile)
     t0 = time.perf_counter()
     shared = shared_scan_path(carnot, data, args.profile)
     phase_s["shared_scan"] = time.perf_counter() - t0
@@ -4691,6 +4932,8 @@ def main() -> int:
         flows, RESERVOIR_FLOWS, lambda r: verify_reservoir_flows(r, flow_truth),
         ("reservoir_priority", "reservoir_topk", "scalar_eval"),
     )
+    check(paths["reservoir_flows"]["launches"]["reservoir_topk_rows"] == 0,
+          "reservoir_flows: an update of 4096 groups took the sort-free entry")
     phase_s["reservoir_flows"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

@@ -80,6 +80,7 @@ KERNELS = (
     "ring_convert",
     "reservoir_priority",
     "reservoir_topk",
+    "reservoir_topk_rows",
     "kmeans_fit",
     "encoder_forward",
     "merge_states",
@@ -143,6 +144,9 @@ _SIGNATURES = {
     "px_ring_convert": (_P, _I, _P, _I, _I, _LL, _P, _I, _LL, _P),
     "px_reservoir_priority": (_P, _LL, _P, _P, _P, _P),
     "px_reservoir_topk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "px_reservoir_topk_rows": (
+        _P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P,
+    ),
     "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "px_encoder_forward": (_P, _P, _I, _P, _P, _P, _I, _P, _P),
     "px_merge_states": (_P, _I, _LL, _I, _I, _P, _P),
@@ -264,7 +268,8 @@ def _check(status: int, what: str) -> None:
 
 def _launch(name: str, device: torch.device, *args) -> None:
     """Calls the library's ``px_<name>`` with ``device`` current and torch's
-    current stream of ``device`` as the last argument, and counts it."""
+    current stream of ``device`` as the last argument, and counts it as a
+    launch of ``name``."""
     with torch.cuda.device(device):
         status = getattr(library(), f"px_{name}")(
             *args, torch.cuda.current_stream(device).cuda_stream
@@ -935,7 +940,13 @@ def scalar_eval(
 # ---------------------------------------------------------------- staging codec
 # H19's delta kinds (codec_kernels.cu): nibbles are uint8 with ``nib``.
 _DELTA_KINDS = {torch.uint8: 1, torch.uint16: 2, torch.int8: 3, torch.int16: 4, torch.int32: 5}
-DELTA_TILE_ROWS = 2048  # kTile of codec_kernels.cu
+DELTA_TILE_ROWS = 4096  # kDeltaTile of codec_kernels.cu
+
+
+def delta_tiles(d: int, L: int) -> int:
+    """H19's tiles for a [d, L] block: each shard's rows in tiles of
+    DELTA_TILE_ROWS (a ragged last tile), one scratch word a tile."""
+    return d * ((L + DELTA_TILE_ROWS - 1) // DELTA_TILE_ROWS)
 
 
 def _decode_out(out: torch.Tensor, device) -> tuple[int, int]:
@@ -982,7 +993,8 @@ def codec_delta_decode(
     dtype by its low bytes; returns ``out`` ([d, L]). ``bases`` int64 [d],
     ``rows`` int32 [d]; ``deltas`` [d, L] uint8, uint16, int8, int16 or
     int32, or with ``nib`` uint8 [d, ceil(L / 2)], the even row in the low
-    nibble."""
+    nibble. One count for the call's three grids (tile sums, their scan,
+    the decode)."""
     device = bases.device
     d, L = _decode_out(out, device)
     if out.dtype.is_floating_point or out.dtype == torch.bool:
@@ -1005,8 +1017,8 @@ def codec_delta_decode(
         )
     if d == 0 or L == 0:
         return out
-    tiles = d * ((L + DELTA_TILE_ROWS - 1) // DELTA_TILE_ROWS)
-    scratch = torch.zeros(3 * tiles + 1, dtype=torch.int64, device=device)
+    # The tile sums, then prefixes: every word is written before it is read.
+    scratch = torch.empty(delta_tiles(d, L), dtype=torch.int64, device=device)
     _launch(
         "codec_delta_decode", device,
         bases.data_ptr(), deltas.data_ptr(), width, kind, rows.data_ptr(), int(off), d, L,
@@ -1217,7 +1229,10 @@ def ring_convert(src: torch.Tensor, out: torch.Tensor, kind: str, off: int = 0,
 
 
 # ---------------------------------------------------------------- ML lane
-RESERVOIR_MAX_K = 768  # H26's buffer (1024 entries) less one tile of rows
+RESERVOIR_MAX_K = 1024  # H26's buffer (2048 entries) less one step of rows
+TOPK_STEP_ROWS = 1024  # kTopkStep of ml_kernels.cu
+TOPK_CTAS_PER_SM = 4
+TOPK_ROWS_MAX_G = 64  # kChunkMaxG of ml_kernels.cu
 ENCODER_LAYER_FLOATS = 4 * 64 * 64 + 2 * 64 * 256 + 2 * 64  # pack_layer's layout = kLayerFloats
 
 
@@ -1243,6 +1258,37 @@ def reservoir_priority(words: torch.Tensor, mask: Optional[torch.Tensor],
     return out
 
 
+def topk_scratch_words(G: int, S: int, k: int) -> int:
+    """int64 words of G x S of H26's lists of k entries: int64 keys, int32
+    origins, counts and rows (``list_words`` of ml_kernels.cu)."""
+    return G * S * k + (G * S * (k + 2) + 1) // 2
+
+
+def topk_rows_fits(G: int, k: int) -> bool:
+    """Whether H26's sort-free path takes G groups of k: every group's k
+    best and one step of rows fit one CTA's buffer."""
+    return 1 <= G <= TOPK_ROWS_MAX_G and G * k <= RESERVOIR_MAX_K
+
+
+def topk_chunks(n: int, k: int, sms: int) -> tuple[int, int]:
+    """(C, M) of H26's sort-free path over n rows: C chunks of at least a
+    step of rows, up to TOPK_CTAS_PER_SM a SM; M merges of a step's worth
+    of lists each (TOPK_STEP_ROWS // k lists)."""
+    C = max(1, min(TOPK_CTAS_PER_SM * sms, -(-n // TOPK_STEP_ROWS)))
+    per = max(1, TOPK_STEP_ROWS // k)
+    return C, -(-C // per)
+
+
+_sm_count: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_count:
+        _sm_count[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_count[index]
+
+
 def reservoir_topk(
     st_vals: torch.Tensor, st_pri: torch.Tensor, row_vals: torch.Tensor,
     row_pri: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
@@ -1252,7 +1298,8 @@ def reservoir_topk(
     descending order, ties to the state's slots and then to the rows in
     order. Group g's rows are ``order[offsets[g]:offsets[g + 1]]`` (int64
     indices into ``row_vals`` int64 bits [n] and ``row_pri`` f64 [n]; a
-    -inf priority never enters). Returns new (values, priorities)."""
+    -inf priority never enters). Returns new (values, priorities). One CTA
+    a group."""
     device = st_vals.device
     _require(st_vals, "st_vals", torch.int64, device, 2)
     _require(st_pri, "st_pri", torch.float64, device, 2)
@@ -1261,10 +1308,13 @@ def reservoir_topk(
     _require(order, "order", torch.int64, device, 1)
     _require(offsets, "offsets", torch.int64, device, 1)
     G, k = st_vals.shape
+    n = order.shape[0]
     if st_pri.shape != (G, k) or row_pri.shape != row_vals.shape or offsets.shape[0] != G + 1:
         raise ValueError("reservoir_topk: mismatched shapes")
     if not 1 <= k <= RESERVOIR_MAX_K:
         raise ValueError(f"reservoir_topk: k {k} outside 1..{RESERVOIR_MAX_K}")
+    if n + k >= 2**31:
+        raise ValueError(f"reservoir_topk: {n} rows exceed H26's int32 origins")
     out_vals = torch.empty_like(st_vals)
     out_pri = torch.empty_like(st_pri)
     if G == 0:
@@ -1273,6 +1323,45 @@ def reservoir_topk(
             row_vals.data_ptr(), row_pri.data_ptr(), order.data_ptr(), offsets.data_ptr(),
             out_vals.data_ptr(), out_pri.data_ptr())
     return out_vals, out_pri
+
+
+def reservoir_topk_rows(
+    st_vals: torch.Tensor, st_pri: torch.Tensor, st_count: torch.Tensor,
+    row_vals: torch.Tensor, row_pri: torch.Tensor, gids: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """H26's sort-free path (``topk_rows_fits``): the function of
+    ``reservoir_topk`` over rows in row order, ``gids`` int32 [n] giving
+    each row's group (G: not a candidate), no bucketing. Returns new
+    (values, priorities, counts), counts = ``st_count`` int64 [G] plus each
+    group's candidate rows. One count for the call's three grids; each
+    call fills its own per-group thresholds with -1."""
+    device = st_vals.device
+    _require(st_vals, "st_vals", torch.int64, device, 2)
+    _require(st_pri, "st_pri", torch.float64, device, 2)
+    _require(st_count, "st_count", torch.int64, device, 1)
+    _require(row_vals, "row_vals", torch.int64, device, 1)
+    _require(row_pri, "row_pri", torch.float64, device, 1)
+    _require(gids, "gids", torch.int32, device, 1)
+    G, k = st_vals.shape
+    n = gids.shape[0]
+    if (st_pri.shape != (G, k) or st_count.shape[0] != G or row_pri.shape != row_vals.shape
+            or row_vals.shape[0] != n):
+        raise ValueError("reservoir_topk_rows: mismatched shapes")
+    if not topk_rows_fits(G, k):
+        raise ValueError(f"reservoir_topk_rows: {G} groups of {k} do not fit H26's buffer")
+    if n + k >= 2**31:
+        raise ValueError(f"reservoir_topk_rows: {n} rows exceed H26's int32 origins")
+    out_vals, out_pri = torch.empty_like(st_vals), torch.empty_like(st_pri)
+    out_count = torch.empty_like(st_count)
+    C, M = topk_chunks(n, k, sm_count(device))
+    scratch = torch.empty(topk_scratch_words(G, C, k) + topk_scratch_words(G, M, k),
+                          dtype=torch.int64, device=device)
+    thr = torch.full((G,), -1, dtype=torch.int64, device=device)
+    _launch("reservoir_topk_rows", device, st_vals.data_ptr(), st_pri.data_ptr(),
+            st_count.data_ptr(), G, k, row_vals.data_ptr(), row_pri.data_ptr(), gids.data_ptr(),
+            n, C, M, scratch.data_ptr(), thr.data_ptr(), out_vals.data_ptr(),
+            out_pri.data_ptr(), out_count.data_ptr())
+    return out_vals, out_pri, out_count
 
 
 def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int,

@@ -2,7 +2,7 @@
 // (sm_90a) with the other kernel sources into one shared library that has a
 // plain C interface (ops/kernels/__init__.py builds and binds it). Each
 // launches on the CUDA runtime's current device and the caller's stream,
-// allocates nothing, and returns the cudaError_t of its launch.
+// allocates nothing, and returns the cudaError_t of its launches.
 //
 // H18 px_codec_rle_decode    replaces the RLE branch of
 //    pixie_tpu/ops/codec.py _decoder (:383-393): out[s, i] =
@@ -10,7 +10,8 @@
 // H19 px_codec_delta_decode  replaces the delta branch of _decoder
 //    (:398-414): d64 = delta + off, zeroed at row 0 and at rows >= rows[s];
 //    v = bases[s] + inclusive_cumsum(d64), zeroed at rows >= rows[s], cast
-//    to the block dtype.
+//    to the block dtype. It enqueues three grids (below); the wrapper
+//    counts the call as one launch.
 //
 // Both copy bits: H18 moves each value as an unsigned integer of its width
 // (NaN payloads and signed zeros survive), H19 adds in unsigned 64-bit
@@ -22,14 +23,28 @@
 // block once, so bytes bound them (a 2^23-row int64 block is 64 MB, ~20 us
 // at 3.35 TB/s). H18 is one thread per output row with a binary search over
 // its shard's run ends (R int32, ~16 KB at 4096 runs, served from L1/L2).
-// H19 is a single-pass scan with decoupled look-back, the pattern of H12
-// (scan_kernels.cu): each CTA takes the next tile by a ticket, so a tile
-// only waits on tiles whose CTAs already run; it publishes its tile sum
-// (flag 1) and then its inclusive prefix (flag 2). The sums are 64-bit, so
-// a flag word and two value words per tile replace H12's packed status
-// word: a value is written, then fenced, then its flag set; a reader fences
-// after it sees the flag. Tiles never look back across a shard: the first
-// tile of each shard publishes its inclusive prefix at once.
+//
+// H19's first design (a single-pass scan with decoupled look-back over
+// 2048-row tiles) took 0.268 ms at 2^23 nibble rows whatever the output
+// width: thread 0 of each tile walked its predecessors' flags one at a time
+// (a serialized L2 round trip a tile, ~65 ns x 4096 tiles), each thread's 8
+// consecutive rows made every warp store touch 32 separate spans, and the
+// wrapper zeroed 3 words a tile on every call. Now it is a reduce-then-scan
+// in three grids on the caller's stream, with nothing to spin on and no
+// zeroed scratch:
+//   1. a CTA a 4096-row tile sums its d64 and writes the sum (every tile
+//      sum is written, so the scratch needs no reset);
+//   2. one CTA a shard scans its tile sums in place into exclusive
+//      prefixes plus the shard's base;
+//   3. a CTA a tile re-reads its payload (0.5 B a nibble row: ~1.3 us for
+//      2^23 rows), scans it in registers (32 rows a thread for nibbles, one
+//      uint4 of payload; 16 for the other kinds) and across the CTA, adds
+//      its prefix, stages the low bytes of each sum in shared memory (a pad
+//      word every 32, so the threads' strided writes miss each other's
+//      banks) and writes the tile out in 16-byte vectors that neighbouring
+//      threads place side by side.
+// A shard whose payload or block is not 16-byte aligned (a short odd shard
+// of a multi-shard window) is read or written row by row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,66 +88,256 @@ cudaError_t launch_rle(const void* values, const void* ends, int d, int R, long 
 }
 
 // ---------------------------------------------------------------- H19
-constexpr int kScanThreads = 256;
-constexpr int kItems = 8;  // consecutive rows per thread
-constexpr int kTile = kScanThreads * kItems;
-constexpr int kWarps = kScanThreads / 32;
+// A tile is kDeltaTile rows of one shard. Each thread owns kRows
+// consecutive rows: 32 for nibbles (one uint4 of payload), 16 for the
+// other kinds (one to four uint4s).
+constexpr int kDeltaTile = 4096;
+
+template <int kKind>
+struct DeltaCfg {
+  static constexpr int kRows = kKind == 0 ? 32 : 16;
+  static constexpr int kThreads = kDeltaTile / kRows;
+  static constexpr int kWarps = kThreads / 32;
+  // Payload bytes of one row (nibbles: 0, two rows a byte).
+  static constexpr int kElem = kKind == 0 ? 0 : (kKind == 2 || kKind == 4) ? 2 : kKind == 5 ? 4 : 1;
+  static constexpr int kBytes = kKind == 0 ? kRows / 2 : kRows * kElem;  // a thread's payload
+};
 
 // Delta kinds of the wrapper: 0 nibbles (uint8, low first), 1 uint8,
 // 2 uint16, 3 int8, 4 int16, 5 int32.
 template <int kKind>
-__device__ __forceinline__ unsigned long long load_delta(const void* deltas, long long i) {
+__device__ __forceinline__ unsigned long long load_delta(const unsigned char* dbase, long long i) {
   if (kKind == 0) {
-    const unsigned char byte = static_cast<const unsigned char*>(deltas)[i >> 1];
+    const unsigned char byte = dbase[i >> 1];
     return (i & 1) ? (unsigned long long)(byte >> 4) : (unsigned long long)(byte & 0xF);
   } else if (kKind == 1) {
-    return (unsigned long long)static_cast<const uint8_t*>(deltas)[i];
+    return (unsigned long long)dbase[i];
   } else if (kKind == 2) {
-    return (unsigned long long)static_cast<const uint16_t*>(deltas)[i];
+    return (unsigned long long)reinterpret_cast<const uint16_t*>(dbase)[i];
   } else if (kKind == 3) {
-    return (unsigned long long)(long long)static_cast<const int8_t*>(deltas)[i];
+    return (unsigned long long)(long long)reinterpret_cast<const int8_t*>(dbase)[i];
   } else if (kKind == 4) {
-    return (unsigned long long)(long long)static_cast<const int16_t*>(deltas)[i];
+    return (unsigned long long)(long long)reinterpret_cast<const int16_t*>(dbase)[i];
   } else {
-    return (unsigned long long)(long long)static_cast<const int32_t*>(deltas)[i];
+    return (unsigned long long)(long long)reinterpret_cast<const int32_t*>(dbase)[i];
   }
 }
 
-template <int kKind, typename OT>
-__global__ void __launch_bounds__(kScanThreads)
-    delta_decode_kernel(const long long* __restrict__ bases, const void* __restrict__ deltas,
-                        long long dstride, const int* __restrict__ rows, long long off,
-                        long long L, int tiles_per_shard, OT* __restrict__ out,
-                        unsigned long long* flags, unsigned long long* agg,
-                        unsigned long long* incl, unsigned int* ticket) {
-  __shared__ int s_tile;
-  __shared__ unsigned long long s_excl;
-  __shared__ unsigned long long warp_incl[kWarps];
-  if (threadIdx.x == 0) s_tile = (int)atomicAdd(ticket, 1u);
-  __syncthreads();
-  const int tile = s_tile;
+__device__ __forceinline__ unsigned int word_of(const uint4* v, int w) {
+  const uint4 q = v[w >> 2];
+  return (w & 3) == 0 ? q.x : (w & 3) == 1 ? q.y : (w & 3) == 2 ? q.z : q.w;
+}
+
+// Row j of a thread's payload words, sign-extended by kind.
+template <int kKind>
+__device__ __forceinline__ unsigned long long delta_of(const uint4* v, int j) {
+  if (kKind == 0) return (word_of(v, j >> 3) >> ((j & 7) * 4)) & 0xFu;
+  if (kKind == 1) return (word_of(v, j >> 2) >> ((j & 3) * 8)) & 0xFFu;
+  if (kKind == 3) return (unsigned long long)(long long)(int8_t)(word_of(v, j >> 2) >> ((j & 3) * 8));
+  if (kKind == 2) return (word_of(v, j >> 1) >> ((j & 1) * 16)) & 0xFFFFu;
+  if (kKind == 4) return (unsigned long long)(long long)(int16_t)(word_of(v, j >> 1) >> ((j & 1) * 16));
+  return (unsigned long long)(long long)(int32_t)word_of(v, j);
+}
+
+// Loads the thread's payload as uint4s when the shard's payload is 16-byte
+// aligned and holds the whole chunk; returns whether it did.
+template <int kKind>
+__device__ __forceinline__ bool load_vec(const unsigned char* dbase, long long pbytes, bool aligned,
+                                         long long row0, uint4 (&v)[(DeltaCfg<kKind>::kBytes + 15) / 16]) {
+  using C = DeltaCfg<kKind>;
+  const long long byte0 = kKind == 0 ? row0 / 2 : row0 * C::kElem;
+  if (!aligned || byte0 + C::kBytes > pbytes) return false;
+#pragma unroll
+  for (int q = 0; q < C::kBytes / 16; ++q) v[q] = __ldg(reinterpret_cast<const uint4*>(dbase + byte0) + q);
+  return true;
+}
+
+// The thread's kRows values of d64 (delta + off; 0 at row 0 and at rows
+// >= r) for the rows from row0: without a per-row test when every row is
+// in (0, r), row by row where the payload could not be read as vectors.
+template <int kKind>
+__device__ __forceinline__ void load_d64(const unsigned char* dbase, long long pbytes, bool aligned,
+                                         long long row0, long long r, long long off,
+                                         unsigned long long (&d64)[DeltaCfg<kKind>::kRows]) {
+  using C = DeltaCfg<kKind>;
+  uint4 v[(C::kBytes + 15) / 16];
+  if (row0 >= r) {
+#pragma unroll
+    for (int j = 0; j < C::kRows; ++j) d64[j] = 0ull;
+  } else if (load_vec<kKind>(dbase, pbytes, aligned, row0, v)) {
+    if (row0 > 0 && row0 + C::kRows <= r) {
+#pragma unroll
+      for (int j = 0; j < C::kRows; ++j) d64[j] = delta_of<kKind>(v, j) + (unsigned long long)off;
+    } else {
+#pragma unroll
+      for (int j = 0; j < C::kRows; ++j) {
+        const long long i = row0 + j;
+        d64[j] = (i > 0 && i < r) ? delta_of<kKind>(v, j) + (unsigned long long)off : 0ull;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::kRows; ++j) {
+      const long long i = row0 + j;
+      d64[j] = (i > 0 && i < r) ? load_delta<kKind>(dbase, i) + (unsigned long long)off : 0ull;
+    }
+  }
+}
+
+// The sum of a whole chunk's raw deltas (sign-extended): nibbles and bytes
+// a word at a time (SWAR), other kinds row by row.
+template <int kKind>
+__device__ __forceinline__ unsigned long long chunk_sum(const uint4 (&v)[(DeltaCfg<kKind>::kBytes + 15) / 16]) {
+  using C = DeltaCfg<kKind>;
+  unsigned long long t = 0ull;
+  if (kKind == 0 || kKind == 1) {
+#pragma unroll
+    for (int w = 0; w < C::kBytes / 4; ++w) {
+      const unsigned int x = word_of(v, w);
+      if (kKind == 0) {
+        const unsigned int b = (x & 0x0F0F0F0Fu) + ((x >> 4) & 0x0F0F0F0Fu);  // bytes <= 30
+        t += (b * 0x01010101u) >> 24;
+      } else {
+        const unsigned int h = (x & 0x00FF00FFu) + ((x >> 8) & 0x00FF00FFu);  // halves <= 510
+        t += (h & 0xFFFFu) + (h >> 16);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::kRows; ++j) t += delta_of<kKind>(v, j);
+  }
+  return t;
+}
+
+// Where a tile's payload starts, its byte width and whether it is 16-byte
+// aligned.
+template <int kKind>
+__device__ __forceinline__ const unsigned char* shard_payload(const void* deltas, long long dstride,
+                                                              int s, long long* pbytes,
+                                                              bool* aligned) {
+  using C = DeltaCfg<kKind>;
+  *pbytes = kKind == 0 ? dstride : dstride * C::kElem;
+  const unsigned char* p = static_cast<const unsigned char*>(deltas) + s * *pbytes;
+  *aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  return p;
+}
+
+// Pass 1: each tile's sum of d64, written in full (no flags, no zeroed
+// scratch).
+template <int kKind>
+__global__ void __launch_bounds__(DeltaCfg<kKind>::kThreads)
+    delta_tile_sums_kernel(const void* __restrict__ deltas, long long dstride,
+                           const int* __restrict__ rows, long long off, long long L,
+                           int tiles_per_shard, unsigned long long* __restrict__ sums) {
+  using C = DeltaCfg<kKind>;
+  __shared__ unsigned long long warp_sum[C::kWarps];
+  const int tile = blockIdx.x;
   const int s = tile / tiles_per_shard;
   const int k = tile - s * tiles_per_shard;
-  const long long r = rows[s];
-  const unsigned char* dbase =
-      static_cast<const unsigned char*>(deltas) +
-      (kKind == 0 ? s * dstride
-                  : s * dstride * (long long)(kKind == 2 || kKind == 4 ? 2 : kKind == 5 ? 4 : 1));
+  long long pbytes;
+  bool aligned;
+  const unsigned char* dbase = shard_payload<kKind>(deltas, dstride, s, &pbytes, &aligned);
+  const long long r = min((long long)rows[s], L);
+  const long long row0 = (long long)k * kDeltaTile + threadIdx.x * C::kRows;
+  unsigned long long acc = 0ull;
+  uint4 v[(C::kBytes + 15) / 16];
+  if (row0 > 0 && row0 + C::kRows <= r && load_vec<kKind>(dbase, pbytes, aligned, row0, v)) {
+    acc = chunk_sum<kKind>(v) + (unsigned long long)C::kRows * (unsigned long long)off;
+  } else {
+    unsigned long long d64[C::kRows];
+    load_d64<kKind>(dbase, pbytes, aligned, row0, r, off, d64);
+#pragma unroll
+    for (int j = 0; j < C::kRows; ++j) acc += d64[j];
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t = 0ull;
+#pragma unroll
+    for (int w = 0; w < C::kWarps; ++w) t += warp_sum[w];
+    sums[tile] = t;
+  }
+}
 
-  // The thread's kItems rows: d64 and their running (inclusive) sums.
-  const long long row0 = (long long)k * kTile + (long long)threadIdx.x * kItems;
-  unsigned long long run[kItems];
+// Pass 2: one CTA a shard turns its tile sums, in place, into each tile's
+// exclusive prefix plus the shard's base.
+constexpr int kScanCta = 1024;
+
+__global__ void __launch_bounds__(kScanCta)
+    delta_tile_scan_kernel(const long long* __restrict__ bases, int tiles_per_shard,
+                           unsigned long long* __restrict__ sums) {
+  __shared__ unsigned long long warp_incl[kScanCta / 32];
+  const int s = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long carry = (unsigned long long)bases[s];
+  unsigned long long* t = sums + (long long)s * tiles_per_shard;
+  for (int c0 = 0; c0 < tiles_per_shard; c0 += kScanCta) {
+    const int i = c0 + threadIdx.x;
+    const unsigned long long x = i < tiles_per_shard ? t[i] : 0ull;
+    unsigned long long incl = x;
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_incl[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      unsigned long long w = warp_incl[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_incl[lane] = w;
+    }
+    __syncthreads();
+    incl += warp ? warp_incl[warp - 1] : 0ull;
+    if (i < tiles_per_shard) t[i] = carry + incl - x;
+    const unsigned long long total = warp_incl[31];
+    __syncthreads();  // warp_incl is reused by the next chunk
+    carry += total;
+  }
+}
+
+// Staging words of a tile: one padding word after every 32, so that the
+// threads' strided writes of their own rows fall in distinct banks.
+__device__ __forceinline__ int padded(int w) { return w + (w >> 5); }
+
+// Pass 3: each tile re-reads its payload, scans it in registers and across
+// the CTA, adds its prefix, stages the low bytes of each sum in shared
+// memory and writes the tile out in 16-byte vectors (row by row where the
+// shard's block is not 16-byte aligned).
+template <int kKind, typename OT>
+__global__ void __launch_bounds__(DeltaCfg<kKind>::kThreads)
+    delta_decode_kernel(const void* __restrict__ deltas, long long dstride,
+                        const int* __restrict__ rows, long long off, long long L,
+                        int tiles_per_shard, const unsigned long long* __restrict__ prefix,
+                        OT* __restrict__ out) {
+  using C = DeltaCfg<kKind>;
+  constexpr int kWords = kDeltaTile * (int)sizeof(OT) / 4;   // the tile's bytes as words
+  constexpr int kThreadWords = C::kRows * (int)sizeof(OT) / 4;
+  __shared__ unsigned int stage[kWords + kWords / 32];
+  __shared__ unsigned long long warp_incl[C::kWarps];
+  const int tile = blockIdx.x;
+  const int s = tile / tiles_per_shard;
+  const int k = tile - s * tiles_per_shard;
+  long long pbytes;
+  bool aligned;
+  const unsigned char* dbase = shard_payload<kKind>(deltas, dstride, s, &pbytes, &aligned);
+  const long long r = min((long long)rows[s], L);
+  const unsigned long long tile_prefix = prefix[tile];  // in flight with the payload
+  const long long tile0 = (long long)k * kDeltaTile;
+  const long long row0 = tile0 + threadIdx.x * C::kRows;
+  unsigned long long run[C::kRows];
+  load_d64<kKind>(dbase, pbytes, aligned, row0, r, off, run);
   unsigned long long acc = 0ull;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long i = row0 + j;
-    unsigned long long d64 = 0ull;
-    if (i > 0 && i < r && i < L) d64 = load_delta<kKind>(dbase, i) + (unsigned long long)off;
-    acc += d64;
+  for (int j = 0; j < C::kRows; ++j) {
+    acc += run[j];
     run[j] = acc;
   }
 
-  // Block-wide inclusive scan of the per-thread totals.
+  // CTA-wide exclusive scan of the thread totals.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned long long tincl = acc;
   for (int o = 1; o < 32; o <<= 1) {
@@ -142,69 +347,96 @@ __global__ void __launch_bounds__(kScanThreads)
   if (lane == 31) warp_incl[warp] = tincl;
   __syncthreads();
   if (warp == 0) {
-    unsigned long long w = lane < kWarps ? warp_incl[lane] : 0ull;
-    for (int o = 1; o < kWarps; o <<= 1) {
+    unsigned long long w = lane < C::kWarps ? warp_incl[lane] : 0ull;
+    for (int o = 1; o < C::kWarps; o <<= 1) {
       const unsigned long long y = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += y;
     }
-    if (lane < kWarps) warp_incl[lane] = w;
+    if (lane < C::kWarps) warp_incl[lane] = w;
   }
   __syncthreads();
-  const unsigned long long thread_excl = (warp ? warp_incl[warp - 1] : 0ull) + tincl - acc;
-  const unsigned long long tile_sum = warp_incl[kWarps - 1];
+  const unsigned long long base = tile_prefix + (warp ? warp_incl[warp - 1] : 0ull) + tincl - acc;
 
-  // Decoupled look-back for the tile's exclusive prefix within its shard.
-  if (threadIdx.x == 0) {
-    unsigned long long excl = 0ull;
-    if (k > 0) {
-      *(volatile unsigned long long*)&agg[tile] = tile_sum;
-      __threadfence();
-      atomicExch(&flags[tile], 1ull);
-      int j = tile - 1;
-      while (true) {
-        const unsigned long long f = *(volatile unsigned long long*)&flags[j];
-        if (f == 0ull) continue;  // not published yet
-        __threadfence();
-        if (f == 2ull) {
-          excl += *(volatile unsigned long long*)&incl[j];
-          break;
-        }
-        excl += *(volatile unsigned long long*)&agg[j];
-        --j;
+  // The thread's rows as words of OT, little-endian, into the staging
+  // (1- and 2-byte values packed into words first).
+  const int w0 = threadIdx.x * kThreadWords;
+  if (sizeof(OT) >= 4) {
+#pragma unroll
+    for (int j = 0; j < C::kRows; ++j) {
+      const unsigned long long v = row0 + j < r ? base + run[j] : 0ull;
+      if (sizeof(OT) == 8) {
+        stage[padded(w0 + 2 * j)] = (unsigned int)v;
+        stage[padded(w0 + 2 * j + 1)] = (unsigned int)(v >> 32);
+      } else {
+        stage[padded(w0 + j)] = (unsigned int)v;
       }
     }
-    *(volatile unsigned long long*)&incl[tile] = excl + tile_sum;
-    __threadfence();
-    atomicExch(&flags[tile], 2ull);
-    s_excl = excl;
+  } else {
+    constexpr int kPer = 4 / (int)sizeof(OT);  // values a word
+#pragma unroll
+    for (int w = 0; w < kThreadWords; ++w) {
+      unsigned int word = 0u;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int j = w * kPer + q;
+        const unsigned long long v = row0 + j < r ? base + run[j] : 0ull;
+        word |= ((unsigned int)v & (sizeof(OT) == 2 ? 0xFFFFu : 0xFFu)) << (q * 8 * (int)sizeof(OT));
+      }
+      stage[padded(w0 + w)] = word;
+    }
   }
   __syncthreads();
 
-  const unsigned long long base = (unsigned long long)bases[s] + s_excl + thread_excl;
-  OT* o = out + (long long)s * L;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const long long i = row0 + j;
-    if (i < L) o[i] = (OT)(i < r ? base + run[j] : 0ull);
+  const int nrows = (int)min((long long)kDeltaTile, L - tile0);
+  OT* o = out + (long long)s * L + tile0;
+  if ((reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    const int nbytes = nrows * (int)sizeof(OT);
+    unsigned char* ob = reinterpret_cast<unsigned char*>(o);
+    for (int c = threadIdx.x; c * 16 < nbytes; c += C::kThreads) {
+      if (c * 16 + 16 <= nbytes) {
+        const uint4 q = make_uint4(stage[padded(4 * c)], stage[padded(4 * c + 1)],
+                                   stage[padded(4 * c + 2)], stage[padded(4 * c + 3)]);
+        *reinterpret_cast<uint4*>(ob + 16 * c) = q;
+      } else {
+        for (int b = 16 * c; b < nbytes; ++b) {
+          ob[b] = (unsigned char)(stage[padded(b >> 2)] >> ((b & 3) * 8));
+        }
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < nrows; e += C::kThreads) {
+      if (sizeof(OT) == 8) {
+        o[e] = (OT)(((unsigned long long)stage[padded(2 * e + 1)] << 32) | stage[padded(2 * e)]);
+      } else if (sizeof(OT) == 4) {
+        o[e] = (OT)stage[padded(e)];
+      } else if (sizeof(OT) == 2) {
+        o[e] = (OT)(stage[padded(e >> 1)] >> ((e & 1) * 16));
+      } else {
+        o[e] = (OT)(stage[padded(e >> 2)] >> ((e & 3) * 8));
+      }
+    }
   }
 }
 
 template <int kKind>
 cudaError_t launch_delta_kind(const void* bases, const void* deltas, long long dstride,
                               const void* rows, long long off, int d, long long L, int out_size,
-                              void* out, void* scratch, cudaStream_t stream) {
-  const int tps = (int)((L + kTile - 1) / kTile);
-  const long long tiles = (long long)d * tps;
-  unsigned long long* words = static_cast<unsigned long long*>(scratch);
-  unsigned long long* flags = words;
-  unsigned long long* agg = words + tiles;
-  unsigned long long* incl = words + 2 * tiles;
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(words + 3 * tiles);
-  const dim3 grid((unsigned int)tiles);
-#define PX_DELTA(OT)                                                                      \
-  delta_decode_kernel<kKind, OT><<<grid, kScanThreads, 0, stream>>>(                      \
-      (const long long*)bases, deltas, dstride, (const int*)rows, off, L, tps, (OT*)out, \
-      flags, agg, incl, ticket)
+                              void* out, void* sums, cudaStream_t stream) {
+  using C = DeltaCfg<kKind>;
+  const int tps = (int)((L + kDeltaTile - 1) / kDeltaTile);
+  const dim3 grid((unsigned int)((long long)d * tps));
+  unsigned long long* t = static_cast<unsigned long long*>(sums);
+  delta_tile_sums_kernel<kKind><<<grid, C::kThreads, 0, stream>>>(deltas, dstride, (const int*)rows,
+                                                                  off, L, tps, t);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  delta_tile_scan_kernel<<<d, kScanCta, 0, stream>>>((const long long*)bases, tps, t);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+#define PX_DELTA(OT)                                                                    \
+  delta_decode_kernel<kKind, OT><<<grid, C::kThreads, 0, stream>>>(deltas, dstride,     \
+                                                                   (const int*)rows, off, \
+                                                                   L, tps, t, (OT*)out)
   switch (out_size) {
     case 1: PX_DELTA(uint8_t); break;
     case 2: PX_DELTA(uint16_t); break;
@@ -237,8 +469,8 @@ int px_codec_rle_decode(const void* values, const void* ends, int d, int R, long
 
 // bases: int64 [d]; deltas: [d, dstride] of `kind` (0 nibbles: dstride =
 // ceil(L / 2) bytes); rows: int32 [d]; out: [d, L] elements of `out_size`
-// bytes; scratch: zeroed int64 [3 * d * ceil(L / 2048) + 1] (flags, tile
-// sums, inclusive prefixes, then the ticket).
+// bytes; scratch: int64 [d * ceil(L / 4096)], any contents (the tile sums,
+// then the tiles' prefixes). Enqueues three grids.
 int px_codec_delta_decode(const void* bases, const void* deltas, long long dstride, int kind,
                           const void* rows, long long off, int d, long long L, int out_size,
                           void* out, void* scratch, void* stream) {

@@ -15,16 +15,35 @@
 //    highest priorities of the state's k slots and the group's candidate
 //    rows, in descending order; ties keep the reference's stable order (the
 //    state's slots first, then the rows in row order). The caller buckets
-//    the rows by group (a stable sort of the gids: order, offsets). One CTA
-//    a group. A priority is the 53-bit integer key = p * 2^53 (-inf: -1),
-//    which orders them exactly. A row at or below the k-th best key so far
-//    cannot enter (it loses to every kept entry, ties included), so once a
-//    reservoir is full almost every row is pruned by one compare; the
-//    survivors go to a 1024-entry buffer in shared memory that a bitonic
-//    sort by (key desc, origin asc) cuts back to k when it fills, and once
-//    at the end. Bound: bytes (each row's order index, priority; the
-//    state); the time is the gather and the CTA's serial walk of its
-//    group's rows.
+//    the rows by group (a stable sort of the gids: order, offsets). A
+//    priority is the 53-bit integer key = p * 2^53 (-inf: -1), which
+//    orders them exactly; an entry's origin (slot s, or k + its bucketed
+//    position) breaks ties. Bound: bytes (each row's order index and
+//    priority, the entering rows' values, the state).
+//    The first design ran one CTA a group over all its rows and bitonic-
+//    sorted a fixed 1024-entry buffer at every cut: at the main path's 16
+//    groups 16 CTAs walked ~92k rows each on an idle card (0.270 ms, 38x
+//    its bound), at 4096 groups each CTA sorted 1024 entries for ~360 rows
+//    (0.242 ms), and the caller's stable sort of the gids cost more than
+//    the kernel. Now there are two entries. px_reservoir_topk_rows (up to
+//    64 groups, G k <= 1024: the main path's 16 services) fills the card
+//    and needs no sort: a CTA a chunk of the rows in row order keeps every
+//    group's best k in one buffer (a cut sorts it by group and keeps k a
+//    group), then merges of runs of those lists, then a CTA a group merges
+//    the state and the lists and counts the group's rows.
+//    px_reservoir_topk (bucketed rows: the merges, whose n = G k rows need
+//    no more CTAs, and updates of many groups, which fill the card alone)
+//    runs one CTA a group over the state and the group's rows.
+//    Pruning stays exact across CTAs: an item at or below the k-th best of
+//    entries with earlier origins (the state's, or the buffer's after a
+//    cut, since items arrive in origin order) cannot enter; a chunk or a
+//    merge of the sort-free entry also publishes its k-th best (atomicMax
+//    on a per-group word the wrapper fills with -1 each call) and the
+//    others prune strictly below it, since a row equal to it may still beat
+//    that CTA's entries on origin. Each thread reads 4 rows' order indices or gids (coalesced)
+//    before their priorities; a cut orders the entries present, by rank
+//    counting up to 256 entries and by a bitonic sort of the next power of
+//    two above that, never a fixed 1024. Buffer 2048 entries: k <= 1024.
 // H27 px_kmeans_fit      replaces ml.py kmeans_fit (:128, vmapped over
 //    groups): one CTA a group, its S x d f32 points and weights in shared
 //    memory. Farthest-point seeding from the first live point, min(k, S) -
@@ -70,8 +89,10 @@ __global__ void reservoir_priority_kernel(const unsigned long long* __restrict__
 
 // ---------------------------------------------------------------- H26
 constexpr int kTopkThreads = 256;
-constexpr int kTopkCap = 1024;  // candidate buffer entries
-constexpr int kTopkMaxK = kTopkCap - kTopkThreads;
+constexpr int kTopkPer = 4;                         // items a thread takes a step
+constexpr int kTopkStep = kTopkThreads * kTopkPer;  // items a step
+constexpr int kTopkCap = 2 * kTopkStep;             // buffer entries
+constexpr int kTopkMaxK = kTopkCap - kTopkStep;     // a cut's k entries and one step fit
 
 // The exact integer key of a priority m / 2^53; -inf (an empty slot, a
 // masked row) is -1.
@@ -84,21 +105,54 @@ __device__ __forceinline__ bool before(long long ka, int oa, long long kb, int o
   return ka > kb || (ka == kb && oa < ob);
 }
 
-// Bitonic sort of the whole buffer into ``before`` order.
-__device__ void sort_buffer(long long* key, int* org) {
-  for (int size = 2; size <= kTopkCap; size <<= 1) {
+// A CTA's candidate buffer. ``thr``: an item at or below it cannot enter
+// (k entries of earlier origin beat it: the state's k-th best, or the
+// buffer's after a cut).
+struct TopkBuf {
+  long long key[kTopkCap];
+  int org[kTopkCap];
+  int n;
+  long long thr;
+};
+
+// Lists of at most k entries (key desc, origin asc) in scratch: list s of
+// group g is slot g * S + s; ``rows`` counts the candidate rows the list
+// stands for.
+struct TopkLists {
+  long long* key;
+  int* org;
+  int* cnt;
+  int* rows;
+  int S;
+};
+
+// Whether (ga, ka, oa) comes before (gb, kb, ob): lower group, then ``before``.
+__device__ __forceinline__ bool before_g(int ga, long long ka, int oa, int gb, long long kb,
+                                         int ob) {
+  return ga < gb || (ga == gb && before(ka, oa, kb, ob));
+}
+
+// Bitonic sort of key/org (and gid, when given)[0, p), p a power of two,
+// into ``before`` (``before_g``) order.
+__device__ void bitonic(long long* key, int* org, int* gid, int p) {
+  for (int size = 2; size <= p; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < kTopkCap / 2; t += kTopkThreads) {
+      for (int t = threadIdx.x; t < p / 2; t += kTopkThreads) {
         const int i = 2 * t - (t & (stride - 1));
         const int j = i + stride;
         const long long ki = key[i], kj = key[j];
         const int oi = org[i], oj = org[j];
-        const bool swap = (i & size) == 0 ? before(kj, oj, ki, oi) : before(ki, oi, kj, oj);
-        if (swap) {
+        const int gi = gid != nullptr ? gid[i] : 0, gj = gid != nullptr ? gid[j] : 0;
+        const bool j_first = before_g(gj, kj, oj, gi, ki, oi);
+        if ((i & size) == 0 ? j_first : !j_first) {
           key[i] = kj;
           key[j] = ki;
           org[i] = oj;
           org[j] = oi;
+          if (gid != nullptr) {
+            gid[i] = gj;
+            gid[j] = gi;
+          }
         }
       }
       __syncthreads();
@@ -106,69 +160,380 @@ __device__ void sort_buffer(long long* key, int* org) {
   }
 }
 
-__global__ void __launch_bounds__(kTopkThreads)
-    reservoir_topk_kernel(const long long* __restrict__ st_vals, const double* __restrict__ st_pri,
-                          int k, const long long* __restrict__ row_vals,
-                          const double* __restrict__ row_pri, const long long* __restrict__ order,
-                          const long long* __restrict__ offsets, long long* __restrict__ out_vals,
-                          double* __restrict__ out_pri) {
-  __shared__ long long key[kTopkCap];
-  __shared__ int org[kTopkCap];
-  __shared__ int n_buf;
-  __shared__ long long thr;
-  const long long g = blockIdx.x;
-  const int tid = threadIdx.x;
-  // The state's slots are origins 0..k-1, the group's rows k, k+1, ... in
-  // row order; free entries hold a sentinel below every key.
-  for (int s = tid; s < kTopkCap; s += kTopkThreads) {
-    key[s] = s < k ? pri_key(st_pri[g * k + s]) : LLONG_MIN;
-    org[s] = s < k ? s : INT_MAX;
+// Pads [n, p) with entries after every other and sorts [0, p), p the
+// power of two above n (at least a thread's worth).
+__device__ void pad_and_sort(TopkBuf& b, int* gid, int n) {
+  int p = kTopkThreads;
+  while (p < n) p <<= 1;
+  for (int i = n + threadIdx.x; i < p; i += kTopkThreads) {
+    b.key[i] = LLONG_MIN;
+    b.org[i] = INT_MAX;
+    if (gid != nullptr) gid[i] = INT_MAX;
   }
   __syncthreads();
-  if (tid == 0) {
-    long long lowest = LLONG_MAX;  // the k-th best entry so far
-    for (int s = 0; s < k; ++s) lowest = min(lowest, key[s]);
-    thr = lowest;
-    n_buf = k;
+  bitonic(b.key, b.org, gid, p);
+}
+
+// Puts the buffer's best min(n, k) entries at [0, kept) in ``before``
+// order and returns kept. Up to a thread's worth of entries each thread
+// counts the entries before its own (its rank; origins are unique); more
+// are sorted.
+__device__ int cut(TopkBuf& b, int k) {
+  const int n = b.n;
+  if (n <= kTopkThreads) {
+    const int t = threadIdx.x;
+    long long mk = 0;
+    int mo = 0, rank = 0;
+    if (t < n) {
+      mk = b.key[t];
+      mo = b.org[t];
+      for (int j = 0; j < n; ++j) rank += before(b.key[j], b.org[j], mk, mo);
+    }
+    __syncthreads();
+    if (t < n && rank < k) {
+      b.key[rank] = mk;
+      b.org[rank] = mo;
+    }
+  } else {
+    pad_and_sort(b, nullptr, n);
   }
   __syncthreads();
-  const long long lo = offsets[g], hi = offsets[g + 1];
-  for (long long base = lo; base < hi; base += kTopkThreads) {
-    const long long r = base + tid;
-    if (r < hi) {
-      const long long kr = pri_key(row_pri[order[r]]);
-      if (kr > thr) {
-        const int pos = atomicAdd(&n_buf, 1);
-        key[pos] = kr;
-        org[pos] = k + (int)(r - lo);
-      }
-    }
-    __syncthreads();
-    if (n_buf > kTopkCap - kTopkThreads) {  // the same for every thread
-      sort_buffer(key, org);
-      for (int s = k + tid; s < kTopkCap; s += kTopkThreads) {
-        key[s] = LLONG_MIN;
-        org[s] = INT_MAX;
-      }
-      if (tid == 0) {
-        n_buf = k;
-        thr = key[k - 1];
-      }
+  return min(n, k);
+}
+
+__device__ __forceinline__ void insert(TopkBuf& b, long long key, int org) {
+  const int pos = atomicAdd(&b.n, 1);
+  b.key[pos] = key;
+  b.org[pos] = org;
+}
+
+// The end of a step: when the next step might not fit, cut to k and raise
+// ``thr`` to the k-th best kept (every later item has a later origin).
+__device__ void settle(TopkBuf& b, int k) {
+  __syncthreads();
+  const int n = b.n;
+  __syncthreads();  // every thread has read n before the next step's inserts
+  if (n > kTopkCap - kTopkStep) {
+    const int kept = cut(b, k);
+    if (threadIdx.x == 0) {
+      b.n = kept;
+      if (kept == k) b.thr = max(b.thr, b.key[k - 1]);
     }
     __syncthreads();
   }
-  sort_buffer(key, org);
-  for (int s = tid; s < k; s += kTopkThreads) {
-    const long long kk = key[s];
-    const int o = org[s];
-    long long v = 0;  // an empty slot holds 0, as every empty slot of the reference does
+}
+
+// The least key of group g's k state slots (its k-th best: a state holds
+// exactly k slots), reduced by the calling warp.
+__device__ __forceinline__ long long state_min(const double* __restrict__ st_pri, long long g, int k) {
+  long long m = LLONG_MAX;
+  for (int i = threadIdx.x & 31; i < k; i += 32) m = min(m, pri_key(st_pri[g * k + i]));
+  for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
+// The state's k-th best key into ``thr``; with ``preload`` its slots also
+// fill the buffer as origins 0..k-1, ahead of every row.
+__device__ void load_state(TopkBuf& b, const double* __restrict__ st_pri, long long g, int k,
+                           bool preload) {
+  if (preload) {
+    for (int i = threadIdx.x; i < k; i += kTopkThreads) {
+      b.key[i] = pri_key(st_pri[g * k + i]);
+      b.org[i] = i;
+    }
+  }
+  if (threadIdx.x < 32) {
+    const long long m = state_min(st_pri, g, k);
+    if (threadIdx.x == 0) {
+      b.thr = m;
+      b.n = preload ? k : 0;
+    }
+  }
+  __syncthreads();
+}
+
+// Feeds the bucketed rows [a, e) (origins k + position), kTopkPer a thread
+// a step: each thread reads its rows' order indices (coalesced), then their
+// priorities. A row enters above ``thr``.
+__device__ void feed_rows(TopkBuf& b, long long a, long long e, int k,
+                          const double* __restrict__ row_pri, const long long* __restrict__ order) {
+  for (long long base = a; base < e; base += kTopkStep) {
+    const long long thr = b.thr;
+    long long idx[kTopkPer];
+#pragma unroll
+    for (int j = 0; j < kTopkPer; ++j) {
+      const long long r = base + j * kTopkThreads + threadIdx.x;
+      idx[j] = r < e ? __ldg(&order[r]) : -1ll;
+    }
+#pragma unroll
+    for (int j = 0; j < kTopkPer; ++j) {
+      if (idx[j] >= 0) {
+        const long long kr = pri_key(__ldg(&row_pri[idx[j]]));
+        if (kr > thr) insert(b, kr, k + (int)(base + j * kTopkThreads + threadIdx.x));
+      }
+    }
+    settle(b, k);
+  }
+}
+
+// Feeds group g's lists [s0, s1) of ``in``, whole lists a step, so that a
+// cut between steps leaves only earlier origins.
+__device__ void feed_lists(TopkBuf& b, const TopkLists& in, long long g, int s0, int s1, int k,
+                           long long pub) {
+  const int per = max(1, kTopkStep / k);
+  for (int sa = s0; sa < s1; sa += per) {
+    const long long thr = b.thr;
+    const int items = (min(s1, sa + per) - sa) * k;
+    for (int f = threadIdx.x; f < items; f += kTopkThreads) {
+      const int q = f / k;
+      const int i = f - q * k;
+      const long long slot = g * in.S + sa + q;
+      // The key is read with its list's count (past the count it is
+      // scratch, read and ignored).
+      const int cnt = in.cnt[slot];
+      const long long kr = in.key[slot * k + i];
+      if (i < cnt && kr > thr && kr >= pub) insert(b, kr, in.org[slot * k + i]);
+    }
+    settle(b, k);
+  }
+}
+
+// The buffer's kept entries [0, kept) as list ``slot`` of ``out``.
+__device__ void write_list(const TopkBuf& b, const TopkLists& out, long long slot, int k,
+                           int kept, int rows) {
+  for (int i = threadIdx.x; i < kept; i += kTopkThreads) {
+    out.key[slot * k + i] = b.key[i];
+    out.org[slot * k + i] = b.org[i];
+  }
+  if (threadIdx.x == 0) {
+    out.cnt[slot] = kept;
+    out.rows[slot] = rows;
+  }
+}
+
+// The buffer's kept entries as group g's new state: values of the state's
+// slots or of the rows (origin k + position p: row ``order[p]``, or row p
+// without ``order``); an empty slot holds 0 and -inf, as every empty slot
+// of the reference does.
+__device__ void write_state(const TopkBuf& b, long long g, int k, int kept,
+                            const long long* __restrict__ st_vals,
+                            const long long* __restrict__ row_vals,
+                            const long long* __restrict__ order, long long* __restrict__ out_vals,
+                            double* __restrict__ out_pri) {
+  for (int i = threadIdx.x; i < k; i += kTopkThreads) {
+    long long v = 0;
     double p = neg_inf();
-    if (kk >= 0) {
-      p = (double)kk / kTwo53;
-      v = o < k ? st_vals[g * k + o] : row_vals[order[lo + (o - k)]];
+    if (i < kept && b.key[i] >= 0) {
+      const int o = b.org[i];
+      p = (double)b.key[i] / kTwo53;
+      v = o < k ? st_vals[g * k + o] : row_vals[order != nullptr ? order[o - k] : o - k];
     }
-    out_vals[g * k + s] = v;
-    out_pri[g * k + s] = p;
+    out_vals[g * k + i] = v;
+    out_pri[g * k + i] = p;
+  }
+}
+
+// The bucketed path: one CTA a group, the state and all its rows, to the
+// new state.
+__global__ void __launch_bounds__(kTopkThreads)
+    topk_rows_kernel(const long long* __restrict__ st_vals, const double* __restrict__ st_pri,
+                     int k, const long long* __restrict__ row_vals,
+                     const double* __restrict__ row_pri, const long long* __restrict__ order,
+                     const long long* __restrict__ offsets, long long* __restrict__ out_vals,
+                     double* __restrict__ out_pri) {
+  __shared__ TopkBuf b;
+  const long long g = blockIdx.x;
+  load_state(b, st_pri, g, k, true);
+  feed_rows(b, offsets[g], offsets[g + 1], k, row_pri, order);
+  const int kept = cut(b, k);
+  write_state(b, g, k, kept, st_vals, row_vals, order, out_vals, out_pri);
+}
+
+// Merges lists. kFinal: one CTA a group, the state and the group's in.S
+// lists, to the new state (and, with ``out_count``, the state's count plus
+// the lists' rows). Else one CTA a (group, m) of in.S x out.S: lists
+// [in.S m / out.S, in.S (m + 1) / out.S) to list m of ``out``, its k-th
+// best to thr_pub[g].
+template <bool kFinal>
+__global__ void __launch_bounds__(kTopkThreads)
+    topk_lists_kernel(const long long* __restrict__ st_vals, const double* __restrict__ st_pri,
+                      const long long* __restrict__ st_count, int k,
+                      const long long* __restrict__ row_vals, const long long* __restrict__ order,
+                      TopkLists in, TopkLists out, long long* thr_pub,
+                      long long* __restrict__ out_vals, double* __restrict__ out_pri,
+                      long long* __restrict__ out_count) {
+  __shared__ TopkBuf b;
+  const long long g = kFinal ? blockIdx.x : blockIdx.x / out.S;
+  const int m = kFinal ? 0 : (int)(blockIdx.x - g * out.S);
+  const int s0 = kFinal ? 0 : (int)((long long)in.S * m / out.S);
+  const int s1 = kFinal ? in.S : (int)((long long)in.S * (m + 1) / out.S);
+  load_state(b, st_pri, g, k, kFinal);
+  feed_lists(b, in, g, s0, s1, k, thr_pub[g]);
+  const int kept = cut(b, k);
+  int rows = 0;  // the lists' candidate rows, summed by warp 0 (thread 0 holds the total)
+  if (threadIdx.x < 32) {
+    for (int s = s0 + threadIdx.x; s < s1; s += 32) rows += in.rows[g * in.S + s];
+    for (int o = 16; o > 0; o >>= 1) rows += __shfl_xor_sync(0xffffffffu, rows, o);
+  }
+  if (kFinal) {
+    write_state(b, g, k, kept, st_vals, row_vals, order, out_vals, out_pri);
+    if (threadIdx.x == 0 && out_count != nullptr) out_count[g] = st_count[g] + rows;
+  } else {
+    write_list(b, out, g * out.S + m, k, kept, rows);
+    if (threadIdx.x == 0 && kept == k) atomicMax(&thr_pub[g], b.key[k - 1]);
+  }
+}
+
+// The sort-free path for few groups (G <= kChunkMaxG, G k <= kTopkMaxK):
+// one CTA a chunk of the rows in row order (origins k + row index) keeps
+// every group's best k in one buffer. A cut sorts the buffer by (group,
+// key desc, origin) and keeps the first k of each group; each group keeps
+// its own ``thr`` and publishes its k-th best. Writes list c of each group
+// (in.S = C) with the group's candidate rows in the chunk.
+constexpr int kChunkMaxG = 64;
+constexpr int kTopkSlots = kTopkCap / kTopkThreads;  // entries a thread holds in a cut
+
+struct ChunkState {
+  int gid[kTopkCap];
+  long long thr[kChunkMaxG];
+  long long pub[kChunkMaxG];
+  int cnt[kChunkMaxG];
+  int start[kChunkMaxG];
+  int kstart[kChunkMaxG];
+  int rows[kChunkMaxG];
+};
+
+// Cuts the buffer to each group's best k, groups in order, each group's
+// entries from ``kstart``; raises and publishes each full group's k-th best.
+__device__ void cut_groups(TopkBuf& b, ChunkState& cs, int G, int k, long long* thr_pub) {
+  const int n = b.n;
+  if (threadIdx.x == 0) {
+    int s = 0, t = 0;
+    for (int g = 0; g < G; ++g) {
+      cs.start[g] = s;
+      cs.kstart[g] = t;
+      s += cs.cnt[g];
+      t += min(cs.cnt[g], k);
+    }
+  }
+  long long mk[kTopkSlots];
+  int mo[kTopkSlots], mg[kTopkSlots], pos[kTopkSlots];
+  if (n <= kTopkThreads) {
+    const int t = threadIdx.x;
+    pos[0] = -1;
+    if (t < n) {
+      mk[0] = b.key[t];
+      mo[0] = b.org[t];
+      mg[0] = cs.gid[t];
+      int rank = 0;
+      for (int j = 0; j < n; ++j) rank += before_g(cs.gid[j], b.key[j], b.org[j], mg[0], mk[0], mo[0]);
+      pos[0] = rank;
+    }
+#pragma unroll
+    for (int q = 1; q < kTopkSlots; ++q) pos[q] = -1;
+  } else {
+    pad_and_sort(b, cs.gid, n);
+#pragma unroll
+    for (int q = 0; q < kTopkSlots; ++q) {
+      const int i = threadIdx.x + q * kTopkThreads;
+      pos[q] = i < n ? i : -1;
+      if (i < n) {
+        mk[q] = b.key[i];
+        mo[q] = b.org[i];
+        mg[q] = cs.gid[i];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kTopkSlots; ++q) {
+    if (pos[q] < 0) continue;
+    const int gr = pos[q] - cs.start[mg[q]];
+    if (gr < k) {
+      const int at = cs.kstart[mg[q]] + gr;
+      b.key[at] = mk[q];
+      b.org[at] = mo[q];
+      cs.gid[at] = mg[q];
+      if (gr == k - 1) {
+        cs.thr[mg[q]] = max(cs.thr[mg[q]], mk[q]);
+        atomicMax(&thr_pub[mg[q]], mk[q]);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int kept = 0;
+    for (int g = 0; g < G; ++g) {
+      cs.cnt[g] = min(cs.cnt[g], k);
+      kept += cs.cnt[g];
+    }
+    b.n = kept;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kTopkThreads)
+    topk_chunk_kernel(const double* __restrict__ st_pri, int G, int k,
+                      const double* __restrict__ row_pri, const int* __restrict__ gids,
+                      long long n, TopkLists lists, long long* thr_pub) {
+  __shared__ TopkBuf b;
+  __shared__ ChunkState cs;
+  const int C = lists.S;
+  const int c = blockIdx.x;
+  const long long lo = n * c / C, hi = n * (c + 1) / C;
+  for (int g = threadIdx.x; g < G; g += kTopkThreads) {
+    cs.cnt[g] = 0;
+    cs.rows[g] = 0;
+  }
+  if (threadIdx.x == 0) b.n = 0;
+  for (int g = threadIdx.x >> 5; g < G; g += kTopkThreads / 32) {  // a warp a group
+    const long long m = state_min(st_pri, g, k);
+    if ((threadIdx.x & 31) == 0) cs.thr[g] = m;
+  }
+  for (int g = threadIdx.x; g < G; g += kTopkThreads) cs.pub[g] = *(volatile long long*)&thr_pub[g];
+  __syncthreads();
+  for (long long base = lo; base < hi; base += kTopkStep) {
+    int gi[kTopkPer];
+    double pr[kTopkPer];
+#pragma unroll
+    for (int j = 0; j < kTopkPer; ++j) {
+      const long long r = base + j * kTopkThreads + threadIdx.x;
+      gi[j] = r < hi ? __ldg(&gids[r]) : G;
+      pr[j] = r < hi ? __ldg(&row_pri[r]) : -1.0;
+    }
+#pragma unroll
+    for (int j = 0; j < kTopkPer; ++j) {
+      if ((unsigned)gi[j] < (unsigned)G) {
+        atomicAdd(&cs.rows[gi[j]], 1);  // the chunk's candidate rows a group
+        const long long kr = pri_key(pr[j]);
+        if (kr > cs.thr[gi[j]] && kr >= cs.pub[gi[j]]) {
+          const int p = atomicAdd(&b.n, 1);
+          b.key[p] = kr;
+          b.org[p] = k + (int)(base + j * kTopkThreads + threadIdx.x);
+          cs.gid[p] = gi[j];
+          atomicAdd(&cs.cnt[gi[j]], 1);
+        }
+      }
+    }
+    __syncthreads();
+    const int held = b.n;
+    // The next step's published thresholds: nothing reads cs.pub until the
+    // barrier below.
+    for (int g = threadIdx.x; g < G; g += kTopkThreads) cs.pub[g] = *(volatile long long*)&thr_pub[g];
+    __syncthreads();
+    if (held > kTopkCap - kTopkStep) cut_groups(b, cs, G, k, thr_pub);
+  }
+  __syncthreads();
+  cut_groups(b, cs, G, k, thr_pub);
+  for (int i = threadIdx.x; i < b.n; i += kTopkThreads) {
+    const int g = cs.gid[i];
+    const long long slot = (long long)g * C + c;
+    lists.key[slot * k + i - cs.kstart[g]] = b.key[i];
+    lists.org[slot * k + i - cs.kstart[g]] = b.org[i];
+  }
+  for (int g = threadIdx.x; g < G; g += kTopkThreads) {
+    lists.cnt[(long long)g * C + c] = cs.cnt[g];
+    lists.rows[(long long)g * C + c] = cs.rows[g];
   }
 }
 
@@ -273,14 +638,62 @@ int px_reservoir_priority(const void* words, long long n, const void* mask, cons
   return (int)cudaGetLastError();
 }
 
+// int64 words of G x S lists of k entries: keys, then int32 origins,
+// counts and rows.
+static long long list_words(long long G, int S, int k) {
+  return G * S * k + (G * S * (k + 2) + 1) / 2;
+}
+
+// Carves ``scratch`` into G x S lists of k entries.
+static TopkLists carve(void* scratch, long long G, int S, int k) {
+  TopkLists l;
+  l.S = S;
+  l.key = static_cast<long long*>(scratch);
+  l.org = reinterpret_cast<int*>(l.key + G * S * k);
+  l.cnt = l.org + G * S * k;
+  l.rows = l.cnt + G * S;
+  return l;
+}
+
+// The bucketed path: one CTA a group.
 int px_reservoir_topk(const void* st_vals, const void* st_pri, int G, int k, const void* row_vals,
-                      const void* row_pri, const void* order, const void* offsets,
-                      void* out_vals, void* out_pri, void* stream) {
+                      const void* row_pri, const void* order, const void* offsets, void* out_vals,
+                      void* out_pri, void* stream) {
   if (k < 1 || k > kTopkMaxK) return (int)cudaErrorInvalidValue;
-  reservoir_topk_kernel<<<G, kTopkThreads, 0, (cudaStream_t)stream>>>(
+  topk_rows_kernel<<<G, kTopkThreads, 0, (cudaStream_t)stream>>>(
       (const long long*)st_vals, (const double*)st_pri, k, (const long long*)row_vals,
       (const double*)row_pri, (const long long*)order, (const long long*)offsets,
       (long long*)out_vals, (double*)out_pri);
+  return (int)cudaGetLastError();
+}
+
+// The sort-free path: gids int32 [n] (G: not a candidate), rows in row
+// order. C chunks, then M merges of C / M lists a group, then a CTA a group
+// that merges the state and the M lists and adds the candidate rows to the
+// state's count. scratch: int64 [list_words(G, C, k) + list_words(G, M, k)],
+// any contents; thr: int64 [G], -1 on entry.
+int px_reservoir_topk_rows(const void* st_vals, const void* st_pri, const void* st_count, int G,
+                           int k, const void* row_vals, const void* row_pri, const void* gids,
+                           long long n, int C, int M, void* scratch, void* thr, void* out_vals,
+                           void* out_pri, void* out_count, void* stream) {
+  if (k < 1 || G < 1 || G > kChunkMaxG || G * k > kTopkMaxK || C < 1 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const TopkLists chunks = carve(scratch, G, C, k);
+  const TopkLists mids = carve(static_cast<long long*>(scratch) + list_words(G, C, k), G, M, k);
+  topk_chunk_kernel<<<C, kTopkThreads, 0, st>>>((const double*)st_pri, G, k, (const double*)row_pri,
+                                                (const int*)gids, n, chunks, (long long*)thr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  topk_lists_kernel<false><<<G * M, kTopkThreads, 0, st>>>(
+      (const long long*)st_vals, (const double*)st_pri, nullptr, k, (const long long*)row_vals,
+      nullptr, chunks, mids, (long long*)thr, nullptr, nullptr, nullptr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  topk_lists_kernel<true><<<G, kTopkThreads, 0, st>>>(
+      (const long long*)st_vals, (const double*)st_pri, (const long long*)st_count, k,
+      (const long long*)row_vals, nullptr, mids, mids, (long long*)thr, (long long*)out_vals,
+      (double*)out_pri, (long long*)out_count);
   return (int)cudaGetLastError();
 }
 

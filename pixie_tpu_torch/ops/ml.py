@@ -9,8 +9,10 @@ associative and static-shape. k-means is Lloyd's over [G, S, d] sample
 tensors at finalize time.
 
 On a CUDA tensor the priorities are H25 (``reservoir_priority``) and the
-per-group top-k of an update or a merge is H26 (``reservoir_topk``, after a
-stable sort of the gids buckets the rows by group), k-means is H27
+per-group top-k of an update or a merge is H26: for an update of few groups
+(``kernels.topk_rows_fits``) over the rows in row order
+(``reservoir_topk_rows``), else after a stable sort of the gids buckets the
+rows by group (``reservoir_topk``, one CTA a group); k-means is H27
 (``kmeans_fit``); on a CPU tensor the plain versions below run, which repeat
 the reference's sorts step for step. ``kmeans_assign`` is numpy on the host
 in both packages.
@@ -120,32 +122,35 @@ def topk_rows_plain(state: dict, g: torch.Tensor, pri: torch.Tensor, v: torch.Te
 def bucket_rows(g: torch.Tensor, G: int) -> tuple:
     """(order, offsets): the rows of group j are order[offsets[j]:offsets[j +
     1]] in row order (a stable sort of the gids, each group's bounds found
-    in the sorted gids); rows of group G (not candidates) sort last."""
+    in the sorted gids); rows of group G (not candidates) sort last. The
+    gids sort as int32 (half the radix passes of int64)."""
+    g = g.to(torch.int32)
     g_sorted, order = torch.sort(g, stable=True)
     offsets = torch.searchsorted(g_sorted, torch.arange(G + 1, dtype=g.dtype, device=g.device))
     return order, offsets
 
 
 def _update_kernel(state: dict, gids: torch.Tensor, values: torch.Tensor, mask) -> dict:
-    """H25 for the priorities, a stable sort of the gids to bucket the rows
-    by group (masked rows to bucket G), H26 for each group's top k."""
-    G = state["values"].shape[0]
+    """H25 for the priorities, then H26 for each group's top k: over the
+    rows in row order when every group's k fit one CTA
+    (``kernels.topk_rows_fits``: no bucketing), else after a stable sort of
+    the gids buckets the rows by group (masked rows to bucket G)."""
+    G, k = state["values"].shape
     v = values.to(state["values"].dtype).contiguous()
     salt = state["count"].sum().reshape(1)
     pri = kernels.reservoir_priority(hashing.words_u64(v).contiguous(), mask, salt)
-    g = gids.to(torch.int64)
+    g = gids.to(torch.int32)
     if mask is not None:
         g = torch.where(mask, g, G)
-    order, offsets = bucket_rows(g, G)
-    vals, pris = kernels.reservoir_topk(
-        _bits(state["values"]).contiguous(), state["priority"].contiguous(),
-        _bits(v), pri, order, offsets,
-    )
-    return {
-        "values": vals.view(state["values"].dtype),
-        "priority": pris,
-        "count": state["count"] + torch.diff(offsets),
-    }
+    st_vals, st_pri = _bits(state["values"]).contiguous(), state["priority"].contiguous()
+    if kernels.topk_rows_fits(G, k):
+        vals, pris, count = kernels.reservoir_topk_rows(
+            st_vals, st_pri, state["count"].contiguous(), _bits(v), pri, g.contiguous())
+    else:
+        order, offsets = bucket_rows(g, G)
+        vals, pris = kernels.reservoir_topk(st_vals, st_pri, _bits(v), pri, order, offsets)
+        count = state["count"] + torch.diff(offsets)
+    return {"values": vals.view(state["values"].dtype), "priority": pris, "count": count}
 
 
 def topk_by_priority_plain(vals_a, vals_b, pri_a, pri_b, k: int):

@@ -365,6 +365,68 @@ def test_delta_plain_decode_every_dtype(out_dtype, delta):
     assert np.array_equal(out.numpy(), v.astype(out_dtype))
 
 
+# H19 (ops/kernels/codec_kernels.cu) decodes in three grids: each tile's sum
+# of d64, an exclusive scan of the tile sums per shard (plus the shard's
+# base), then a scan within each tile added to its prefix. The model below
+# does the same in plain torch at any tile size.
+def _tiled_delta_model(bases, dl, rows, off, tile, out_dtype):
+    d, L = dl.shape
+    iota = torch.arange(L)
+    r = rows.to(torch.int64)[:, None]
+    d64 = torch.where((iota > 0) & (iota < r), dl.to(torch.int64) + off, 0)
+    tps = -(-L // tile)
+    t = torch.nn.functional.pad(d64, (0, tps * tile - L)).reshape(d, tps, tile)
+    sums = t.sum(dim=2)
+    prefix = bases[:, None] + torch.cumsum(sums, dim=1) - sums
+    v = (prefix[:, :, None] + torch.cumsum(t, dim=2)).reshape(d, -1)[:, :L]
+    v = torch.where(iota < r, v, 0)
+    return v.numpy().astype(out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [np.int64, np.uint16])
+@pytest.mark.parametrize("rows_at", ["edge", "off_edge"])
+@pytest.mark.parametrize("delta", ["nib", np.int16])
+@pytest.mark.parametrize("tile", [1, 7, 4096])
+def test_h19_tile_model_bit_exact(tile, delta, rows_at, out_dtype):
+    """The tile decomposition equals the plain decode and the reference's
+    decoder bit for bit over 3 shards of an odd length: rows on a tile edge
+    and one row off it (0 and L too), an offset near +-2^40 and bases near
+    +-2^63, so that the sums wrap at 2^64."""
+    rng = np.random.default_rng(19)
+    d, L = 3, 1001
+    edge = (L // 2 // tile) * tile
+    rows = np.array([edge, L, 0] if rows_at == "edge" else [max(edge - 1, 0), edge + 1, 1],
+                    np.int32)
+    bases = np.array([np.iinfo(np.int64).max - 5000, np.iinfo(np.int64).min + 3, 12345])
+    off = (1 << 40) - 5 if out_dtype == np.int64 else -(1 << 40) + 3
+    if delta == "nib":
+        dl = rng.integers(0, 16, (d, L)).astype(np.uint8)
+        padded = np.concatenate([dl, np.zeros((d, 1), np.uint8)], axis=1)
+        packed = (padded[:, 0::2] | (padded[:, 1::2] << 4))[:, : (L + 1) // 2]
+    else:
+        dl = rng.integers(-(1 << 15), 1 << 15, (d, L)).astype(np.int16)
+        packed = dl
+    got = _tiled_delta_model(torch.from_numpy(bases), torch.from_numpy(dl),
+                             torch.from_numpy(rows), off, tile, out_dtype)
+    plain = torch.zeros((d, L), dtype=codec.TORCH_DTYPES[np.dtype(out_dtype)])
+    codec.delta_decode_plain(torch.from_numpy(bases), torch.from_numpy(packed),
+                             torch.from_numpy(rows), off, delta == "nib", plain)
+    assert np.array_equal(got, plain.numpy())
+    plan = ref_codec.CodecPlan(kind="delta", dtype=np.dtype(out_dtype).str, d=d, shard_len=L,
+                               delta_dtype="nib" if delta == "nib" else np.dtype(delta).str,
+                               delta_off=off)
+    payload = ref_codec.CodecPayload(plan, (bases, packed, rows))
+    mesh = _mesh(d)
+    want = np.asarray(ref_codec.decoder(mesh, plan, 1, L)(*ref_codec.put_payload(mesh, payload)))
+    assert np.array_equal(_bits(got), _bits(want.reshape(d, L)))
+
+
+@pytest.mark.parametrize("d, L, want", [(1, 1 << 23, 2048), (3, 1_000_001, 3 * 245),
+                                        (8, 1, 8), (3, 4096, 3), (3, 4097, 6)])
+def test_delta_tiles(d, L, want):
+    assert kernels.delta_tiles(d, L) == want
+
+
 # -- the gid stream ----------------------------------------------------------------
 
 

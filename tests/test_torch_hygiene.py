@@ -119,6 +119,6 @@ def test_chip_smoke_never_imports_jax_or_the_reference():
     text = (REPO / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M)
     assert not re.search(r"^\s*(import pixie_tpu\b|from pixie_tpu[ .])", text, re.M)
-    for kernel in ("reservoir_priority", "reservoir_topk", "kmeans_fit", "encoder_forward",
-                   "merge_states", "countmin_query", "hash_columns", "clz64"):
+    for kernel in ("reservoir_priority", "reservoir_topk", "reservoir_topk_rows", "kmeans_fit",
+                   "encoder_forward", "merge_states", "countmin_query", "hash_columns", "clz64"):
         assert f'"{kernel}"' in text, kernel

@@ -28,7 +28,8 @@ bit for bit; the cell lane's HLL registers, count-min cells and totals
 integer sums and presence exactly and its f64 sums within 1e-12 * sum |v|
 of their cell (H2's bound). The resident ring's converters (H24) bit for
 bit, NaN payloads and f32 subnormals included. The ML lane: H25's
-priorities and H26's reservoir states bit for bit (forced ties included),
+priorities and H26's reservoir states bit for bit (forced ties, 1 to 4096
+groups, one group holding every row, empty groups, k 1 to 768, merges),
 H27's k-means centers and H28's embeddings within 1e-5. The cross-shard
 merge (H29) bit for bit, NaN, signed zeros and int64 overflow included; the
 sharded fold over real cards equal to the same geometry over logical shards
@@ -797,6 +798,118 @@ def check_encoder_kernel(dev: torch.device) -> None:
         want = cpu(ids, lens)
         got = card(ids.to(dev), lens.to(dev)).cpu()
         assert (got - want).abs().max() <= 1e-5
+
+
+def topk_edge_cases(rng, n: int = 1 << 21):
+    """H26's edge shapes: (name, G, k, gids with G for masked rows, row
+    priorities, row values as int64 bits, whether the state is full, the
+    state's priorities on a grid of 8 values)."""
+    mask = rng.random(n) < 0.7
+    words = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    for name, G, k, layout in (("G1", 1, 64, "spread"), ("G16", 16, 64, "spread"),
+                               ("G4096", 4096, 64, "spread"), ("one_group", 16, 64, "one"),
+                               ("empty_groups", 16, 64, "even"), ("k1", 16, 1, "spread"),
+                               ("k768", 16, 768, "spread"), ("k768_G4096", 4096, 768, "spread"),
+                               ("G64_k16", 64, 16, "spread")):
+        gids = rng.integers(0, G, n)
+        if layout == "one":
+            gids[:] = 5
+        elif layout == "even":
+            gids = 2 * rng.integers(0, G // 2, n)  # the odd groups get no rows
+        for ties in (False, True):
+            pri = np.floor(rng.random(n) * 8) / 8 if ties else rng.random(n)
+            pri = np.where(mask, pri, -np.inf)
+            for full in (False, True):
+                yield (f"{name}{'_ties' if ties else ''}{'_full' if full else ''}", G, k,
+                       np.where(mask, gids, G), pri, words, full)
+
+
+def topk_state(rng, G: int, k: int, full: bool, ties: bool) -> dict:
+    st = ml.reservoir_init(G, "cpu", k=k)
+    if full:
+        p = np.floor(rng.random((G, k)) * 8) / 8 if ties else rng.random((G, k))
+        st["priority"] = torch.from_numpy(-np.sort(-p, axis=1))
+        st["values"] = torch.from_numpy(rng.normal(0, 1, (G, k)))
+    return st
+
+
+def check_topk_edges(dev: torch.device) -> None:
+    """H26 bit for bit against ``topk_rows_plain`` (both on the card) at
+    2^21 rows: 1, 16, 64 and 4096 groups, one group holding every row, empty
+    groups, k 1, 16, 64 and 768, ties on a grid of 8 priorities, empty and
+    full states, through the bucketed entry and, where it fits, the
+    sort-free one (counts too); then the merge shapes: ``reservoir_merge`` of 16 and 4096
+    reservoirs and a TREE merge of four shards' states in device order."""
+    rng = np.random.default_rng(26)
+    for name, G, k, g, pri, words, full in topk_edge_cases(rng):
+        st = {key: t.to(dev) for key, t in topk_state(rng, G, k, full, "ties" in name).items()}
+        g_d, pri_d = torch.from_numpy(g).to(dev), torch.from_numpy(pri).to(dev)
+        w_d = torch.from_numpy(words).to(dev)
+        order, offsets = ml.bucket_rows(g_d, G)
+        vk, pk = kernels.reservoir_topk(st["values"].view(torch.int64), st["priority"], w_d,
+                                        pri_d, order, offsets)
+        want = ml.topk_rows_plain(st, g_d, pri_d, w_d.view(torch.float64))
+        assert torch.equal(vk, want["values"].view(torch.int64)), name
+        assert torch.equal(pk.view(torch.int64), want["priority"].view(torch.int64)), name
+        if kernels.topk_rows_fits(G, k):  # the sort-free entry, counted under its own name
+            counts = kernels.LAUNCHES["reservoir_topk_rows"], kernels.LAUNCHES["reservoir_topk"]
+            vr, pr, cr = kernels.reservoir_topk_rows(
+                st["values"].view(torch.int64), st["priority"], st["count"], w_d, pri_d,
+                g_d.to(torch.int32))
+            assert (kernels.LAUNCHES["reservoir_topk_rows"],
+                    kernels.LAUNCHES["reservoir_topk"]) == (counts[0] + 1, counts[1]), name
+            assert torch.equal(vr, want["values"].view(torch.int64)), name
+            assert torch.equal(pr.view(torch.int64), want["priority"].view(torch.int64)), name
+            assert torch.equal(cr, want["count"]), name
+    for G in (16, 4096):
+        shards = [{key: t.to(dev) for key, t in topk_state(rng, G, 64, True, ties).items()}
+                  for ties in (True, True, False, True)]
+        acc, acc_plain = shards[0], shards[0]
+        for b in shards[1:]:  # the TREE merge's order: acc = merge(acc, g[i])
+            acc = ml.reservoir_merge(acc, b)
+            acc_plain = ml.reservoir_merge_plain(acc_plain, b)
+            for key in acc:
+                assert torch.equal(acc[key], acc_plain[key]), (G, key)
+
+
+def check_delta_edges(dev: torch.device) -> None:
+    """H19 bit for bit against ``delta_decode_plain`` over 3 shards of L =
+    1, 7 and 1,000,001 rows, rows on its 4096-row tile edges and one off
+    them, nibbles and int16 deltas into int64 and uint8 blocks."""
+    from pixie_tpu_torch.ops import codec
+
+    rng = np.random.default_rng(19)
+    tile = kernels.DELTA_TILE_ROWS
+    for L, rows in ((1, (1, 0, 1)), (7, (7, 6, 1)), (1_000_001, (100 * tile, 100 * tile + 1,
+                                                                   100 * tile - 1)),
+                    (1_000_001, (1_000_001, tile, tile - 1)),
+                    (3 * tile, (3 * tile, 2 * tile, 2 * tile + 1))):
+        rows_t = torch.tensor(rows, dtype=torch.int32)
+        bases = torch.tensor([2**63 - 5000, -(2**63) + 3, 12345], dtype=torch.int64)
+        for nib in (True, False):
+            deltas = (torch.from_numpy(rng.integers(0, 256, (3, (L + 1) // 2)).astype(np.uint8))
+                      if nib else torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, (3, L))
+                                                   .astype(np.int16)))
+            for off in ((1 << 40) - 5, -(1 << 40) + 3):
+                for out_dtype in (torch.int64, torch.uint8):
+                    want = codec.delta_decode_plain(bases, deltas, rows_t, off, nib,
+                                                    torch.empty((3, L), dtype=out_dtype))
+                    got = kernels.codec_delta_decode(
+                        bases.to(dev), deltas.to(dev), rows_t.to(dev), off, nib,
+                        torch.empty((3, L), dtype=out_dtype, device=dev))
+                    assert torch.equal(got.cpu(), want), (L, rows, nib, off, out_dtype)
+
+
+@pytest.mark.cuda
+def test_reservoir_topk_edges_on_card():
+    _need_cards(1)
+    check_topk_edges(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+def test_delta_decode_edges_on_card():
+    _need_cards(1)
+    check_delta_edges(torch.device("cuda", 0))
 
 
 @pytest.mark.cuda

@@ -154,6 +154,224 @@ def test_reservoir_finalize_drops_nonfinite_from_json():
     assert list(got) == list(want)
 
 
+# -- H26's decompositions, modelled ----------------------------------------------
+# H26 (ops/kernels/ml_kernels.cu) keeps a group's best k in a buffer that it
+# cuts back to k when a step might overflow it, pruning a row at or below
+# the k-th best of entries with earlier origins (the state's, or its own
+# after a cut). The bucketed entry runs one such pass a group over the
+# state and the group's rows. The sort-free entry cuts the rows in row order
+# into C contiguous chunks, so each group's rows into C contiguous slices; a
+# chunk also prunes strictly below any k-th best another chunk published,
+# and merges then take the state and the C lists, whole lists a step. The
+# models below do the same in plain Python at a small step (the kernel's is
+# 1024 rows, its buffer two steps).
+_STEP = 8
+_CAP = 2 * _STEP
+
+
+def _key(p: float) -> int:
+    return int(p * 2.0**53) if p >= 0 else -1
+
+
+def _cut(buf: list, k: int) -> None:
+    buf.sort(key=lambda e: (-e[0], e[1]))
+    del buf[k:]
+
+
+def _feed(buf: list, thr: int, steps, k: int, pub) -> int:
+    """Each step's items (key, origin) enter above ``thr`` and not below
+    ``pub[0]``; a cut after a step that leaves k entries raises ``thr`` (and
+    ``pub[0]``) to the k-th best. Returns ``thr``."""
+    for step in steps:
+        floor = pub[0] if pub is not None else -1
+        buf.extend(e for e in step if e[0] > thr and e[0] >= floor)
+        if len(buf) > _CAP - _STEP:
+            _cut(buf, k)
+            if len(buf) == k:
+                thr = max(thr, buf[-1][0])
+                if pub is not None:
+                    pub[0] = max(pub[0], buf[-1][0])
+    return thr
+
+
+def _bucketed_model(state: dict, g: np.ndarray, pri: np.ndarray, v: np.ndarray) -> dict:
+    """H26's bucketed entry: a stable sort of the gids, then one pass a
+    group over the state's slots (origins 0..k-1) and the group's rows
+    (origins k + bucketed position)."""
+    G, k = state["values"].shape
+    order = np.argsort(g, kind="stable")
+    offsets = np.searchsorted(g[order], np.arange(G + 1))
+    keys = [_key(p) for p in pri[order]]
+    st_keys = [[_key(p) for p in row] for row in state["priority"]]
+    out_v = np.zeros((G, k), state["values"].dtype)
+    out_p = np.full((G, k), -np.inf)
+
+    def rows(a: int, e: int) -> list:
+        return [[(keys[r], k + r) for r in range(b, min(b + _STEP, e))]
+                for b in range(a, e, _STEP)]
+
+    for gid in range(G):
+        lo, hi = int(offsets[gid]), int(offsets[gid + 1])
+        buf = [(st_keys[gid][i], i) for i in range(k)]
+        _feed(buf, min(st_keys[gid]), rows(lo, hi), k, None)
+        _cut(buf, k)
+        for i, (kk, o) in enumerate(buf):
+            if kk >= 0:
+                out_p[gid, i] = kk / 2.0**53
+                out_v[gid, i] = state["values"][gid, o] if o < k else v[order[o - k]]
+    counts = np.bincount(g, minlength=G + 1)[:G]
+    return {"values": out_v, "priority": out_p, "count": state["count"] + counts}
+
+
+def _grid_case(state_kind: str, layout: str, G: int = 5, k: int = 4, n: int = 300):
+    """Priorities on a grid of 8 values (ties across every chunk edge),
+    70% masked in; group 3 has no rows, or group 0 holds every row."""
+    rng = np.random.default_rng(60)
+    pri = np.floor(rng.random(n) * 8) / 8
+    mask = rng.random(n) < 0.7
+    gids = rng.choice([0, 1, 2, 4], n).astype(np.int32)
+    if layout == "one_group":
+        gids[:] = 0
+    state = {"values": np.zeros((G, k)), "priority": np.full((G, k), -np.inf),
+             "count": np.zeros(G, np.int64)}
+    if state_kind == "full":
+        state["priority"] = -np.sort(-np.floor(rng.random((G, k)) * 8) / 8, axis=1)
+        state["values"] = rng.normal(0.0, 1.0, (G, k))
+        state["count"] = rng.integers(k, 100, G)
+    return state, gids, pri, mask, rng.normal(0.0, 1.0, n)
+
+
+@pytest.mark.parametrize("layout", ["group_without_rows", "one_group"])
+@pytest.mark.parametrize("state_kind", ["empty", "full"])
+def test_h26_bucketed_model_bit_exact(state_kind, layout, monkeypatch):
+    """The bucketed entry's pass equals the plain version and the
+    reference's reservoir_update (fed the same priorities) bit for bit."""
+    state, gids, pri, mask, v = _grid_case(state_kind, layout)
+    G = state["values"].shape[0]
+    g = np.where(mask, gids, G)
+    assert layout == "one_group" or not np.any(g == 3)
+    got = _bucketed_model(state, g, pri, v)
+    tstate = {key: torch.from_numpy(np.asarray(x)) for key, x in state.items()}
+    plain = ml.topk_rows_plain(tstate, torch.from_numpy(g.astype(np.int64)),
+                               torch.from_numpy(np.where(mask, pri, -np.inf)), torch.from_numpy(v))
+    _state_equal({key: torch.from_numpy(x) for key, x in got.items()},
+                 {key: x.numpy() for key, x in plain.items()})
+    monkeypatch.setattr(ref_ml, "_priorities", lambda values, salt: jnp.asarray(pri))
+    want = ref_ml.reservoir_update({key: jnp.asarray(x) for key, x in state.items()},
+                                   jnp.asarray(gids), jnp.asarray(v), jnp.asarray(mask))
+    _state_equal({key: torch.from_numpy(x) for key, x in got.items()}, want)
+
+
+def _chunk_model(state: dict, g: np.ndarray, pri: np.ndarray, v: np.ndarray, C: int,
+                 M: int, chunk_order) -> dict:
+    """H26's sort-free path for few groups: C chunks of the rows in row
+    order, each keeping every group's best k in one buffer (cut per group),
+    then M merges a group of contiguous runs of those lists, then a merge
+    of the state and the M lists. Origins are k + the row index."""
+    G, k = state["values"].shape
+    n = g.shape[0]
+    st_keys = [[_key(p) for p in row] for row in state["priority"]]
+    state_min = [min(row) for row in st_keys]
+    pub = [[-1] for _ in range(G)]
+    lists = [[None] * C for _ in range(G)]
+    for c in chunk_order(C):
+        thr = list(state_min)
+        buf = []
+        lo, hi = n * c // C, n * (c + 1) // C
+
+        def cut_groups(final: bool) -> None:
+            for gid in range(G):
+                own = [e for e in buf if e[2] == gid]
+                _cut(own, k)
+                if len(own) == k:
+                    thr[gid] = max(thr[gid], own[-1][0])
+                    pub[gid][0] = max(pub[gid][0], own[-1][0])
+                buf[:] = [e for e in buf if e[2] != gid] + own
+
+        for b in range(lo, hi, _STEP):
+            floor = [p[0] for p in pub]
+            for r in range(b, min(b + _STEP, hi)):
+                gid, kr = int(g[r]), _key(pri[r])
+                if gid < G and kr > thr[gid] and kr >= floor[gid]:
+                    buf.append((kr, k + r, gid))
+            if len(buf) > _CAP - _STEP:
+                cut_groups(False)
+        cut_groups(True)
+        for gid in range(G):
+            lists[gid][c] = sorted([(e[0], e[1]) for e in buf if e[2] == gid],
+                                   key=lambda e: (-e[0], e[1]))
+    out_v = np.zeros((G, k), state["values"].dtype)
+    out_p = np.full((G, k), -np.inf)
+    per = max(1, _STEP // k)
+    for gid in range(G):
+        mid = []
+        for m in range(M):
+            own = []
+            runs = lists[gid][C * m // M:C * (m + 1) // M]
+            _feed(own, state_min[gid], [sum(runs[s0:s0 + per], []) for s0 in
+                                        range(0, len(runs), per)], k, [pub[gid][0]])
+            _cut(own, k)
+            mid.append(own)
+        buf = [(st_keys[gid][i], i) for i in range(k)]
+        _feed(buf, state_min[gid], [sum(mid[s0:s0 + per], []) for s0 in range(0, M, per)], k,
+              [pub[gid][0]])
+        _cut(buf, k)
+        for i, (kk, o) in enumerate(buf):
+            if kk >= 0:
+                out_p[gid, i] = kk / 2.0**53
+                out_v[gid, i] = state["values"][gid, o] if o < k else v[o - k]
+    counts = np.bincount(g, minlength=G + 1)[:G]
+    return {"values": out_v, "priority": out_p, "count": state["count"] + counts}
+
+
+@pytest.mark.parametrize("chunk_order", ["forward", "reverse"])
+@pytest.mark.parametrize("layout", ["group_without_rows", "one_group"])
+@pytest.mark.parametrize("state_kind", ["empty", "full"])
+@pytest.mark.parametrize("C, M", [(1, 1), (2, 1), (3, 1), (7, 2), (40, 5), (64, 5)])
+def test_h26_chunk_model_bit_exact(C, M, state_kind, layout, chunk_order, monkeypatch):
+    """The sort-free path (chunks of rows in row order, every group in one
+    buffer, two merge levels) equals the plain version and the reference's
+    reservoir_update bit for bit, in either order of the chunks; chunks
+    running in reverse order publish a later chunk's k-th best first, which
+    rows of equal key and earlier origin must still beat."""
+    state, gids, pri, mask, v = _grid_case(state_kind, layout)
+    G = state["values"].shape[0]
+    g = np.where(mask, gids, G)
+    order = (lambda C_: range(C_)) if chunk_order == "forward" else (lambda C_: range(C_)[::-1])
+    got = _chunk_model(state, g, pri, v, C, M, order)
+    tstate = {key: torch.from_numpy(np.asarray(x)) for key, x in state.items()}
+    plain = ml.topk_rows_plain(tstate, torch.from_numpy(g.astype(np.int64)),
+                               torch.from_numpy(np.where(mask, pri, -np.inf)), torch.from_numpy(v))
+    _state_equal({key: torch.from_numpy(x) for key, x in got.items()},
+                 {key: x.numpy() for key, x in plain.items()})
+    monkeypatch.setattr(ref_ml, "_priorities", lambda values, salt: jnp.asarray(pri))
+    want = ref_ml.reservoir_update({key: jnp.asarray(x) for key, x in state.items()},
+                                   jnp.asarray(gids), jnp.asarray(v), jnp.asarray(mask))
+    _state_equal({key: torch.from_numpy(x) for key, x in got.items()}, want)
+
+
+def test_topk_scratch_words_hold_keys_origins_and_counts():
+    for G, S, k in ((16, 33, 64), (1, 528, 1024), (3, 7, 1), (1, 1, 1)):
+        assert kernels.topk_scratch_words(G, S, k) * 8 >= G * S * k * (8 + 4) + G * S * (4 + 4)
+
+
+@pytest.mark.parametrize("G, k, want", [(16, 64, True), (64, 16, True), (65, 1, False),
+                                        (16, 65, False), (1, 1024, True), (0, 64, False)])
+def test_topk_rows_fits(G, k, want):
+    assert kernels.topk_rows_fits(G, k) == want
+
+
+@pytest.mark.parametrize("n, k, sms, want", [
+    (1 << 21, 64, 132, (528, 33)),   # the main path: 528 chunks, 33 merges of 16 lists
+    (1 << 21, 1, 132, (528, 1)),
+    (1 << 21, 1024, 132, (528, 528)),
+    (5000, 64, 132, (5, 1)),
+    (0, 64, 132, (1, 1)),
+])
+def test_topk_chunks(n, k, sms, want):
+    assert kernels.topk_chunks(n, k, sms) == want
+
+
 # -- k-means ------------------------------------------------------------------------
 def _clusters(rng, G: int, S: int, d: int, k: int) -> tuple:
     truth = rng.normal(0.0, 1.0, (k, d)).astype(np.float32) * 3
