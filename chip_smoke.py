@@ -1466,6 +1466,135 @@ def let_programs(dev, n: int):
     return out
 
 
+H17_TILE_THREADS = 128  # scalar_kernels.cu kEvalThreads
+
+
+def h17_tile(prog) -> int:
+    """Rows of one H17 tile of ``prog``: kEvalThreads threads of R rows, R
+    8 (4 with a long op), halved while the register file overflows 48 KB
+    (scalar_kernels.cu)."""
+    from pixie_tpu_torch.ops import scalar
+
+    R = 4 if any(scalar.OPS[ins[0]] in scalar.LONG_OPS for ins in prog.code) else 8
+    while R > 1 and max(prog.n_regs, 1) * R * H17_TILE_THREADS * 8 > 48 * 1024:
+        R //= 2
+    return R * H17_TILE_THREADS
+
+
+def scalar_edge_programs(dev, n: int) -> list:
+    """H17's edge programs over seeded columns of every kind on ``dev``:
+    (i) comparisons, a select whose third operand comes from the register
+    file, an int64 LUT gather and bool, int32 and int64 stores over bool,
+    uint8, uint16, int32 and int64 columns; (ii) a tree that uses all 32
+    registers over f32 and f64 columns, into an f64 output; (iii) ops run
+    out of line (int64 modulo, f64 division and log10: 4 rows a thread). The uint16 and
+    int64 columns sit one element into their buffers (unaligned). Returns
+    [(program, env, aux)]."""
+    from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
+    from pixie_tpu_torch.ops import scalar
+    from pixie_tpu_torch.plan.expressions import ColumnRef as C, Constant as K, FuncCall as Fn
+    from pixie_tpu_torch.types import DataType as DT, Relation
+    from pixie_tpu_torch.udf.builtins import register_all
+    from pixie_tpu_torch.udf.registry import Registry
+
+    reg = Registry()
+    register_all(reg)
+    rng = np.random.default_rng(29)
+
+    def unaligned(a: np.ndarray) -> torch.Tensor:
+        buf = torch.empty(n + 1, dtype=torch.from_numpy(a[:0]).dtype, device=dev)
+        buf[1:] = torch.from_numpy(a).to(dev)
+        return buf[1:]
+
+    env = {
+        "flag": torch.from_numpy(rng.random(n) < 0.5).to(dev),
+        "u8": torch.from_numpy(rng.integers(0, 255, n).astype(np.uint8)).to(dev),
+        "u16": unaligned(rng.integers(0, 65535, n).astype(np.uint16)),
+        "code": torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)).to(dev),
+        "big": unaligned(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)),
+        "f32": torch.from_numpy(rng.exponential(3e7, n).astype(np.float32)).to(dev),
+        "x": torch.from_numpy(rng.uniform(-30, 30, n)).to(dev),
+    }
+    rel = Relation.of(("flag", DT.BOOLEAN), ("u8", DT.INT64), ("u16", DT.INT64),
+                      ("code", DT.INT64), ("big", DT.INT64), ("f32", DT.FLOAT64),
+                      ("x", DT.FLOAT64))
+    i, f = (lambda v: K(v, DT.INT64)), (lambda v: K(v, DT.FLOAT64))
+    edge = {
+        "lt": Fn("lessThan", (C("big"), i(0))),
+        "sel": Fn("select", (Fn("greaterThan", (C("u8"), i(100))), Fn("negate", (C("u16"),)),
+                             C("big"))),
+        "mix": Fn("logical_and", (C("flag"), Fn("notEqual", (C("code"), i(7))))),
+        "code32": Fn("add", (C("code"), C("u8"))),
+    }
+    deep = C("x")
+    for k in range(scalar.MAX_REGS - 1):  # every product live until the sums close
+        deep = Fn("add", (Fn("multiply", (C("f32"), f(k + 0.5))), deep))
+    long = {"mod": Fn("modulo", (C("big"), C("code"))),
+            "q": Fn("divide", (C("x"), C("f32"))), "lg": Fn("log10", (C("f32"),))}
+    dtypes = {k: v.dtype for k, v in env.items()}
+    out = []
+    for roots, extra in ((edge, [("g", C("code"), None, "lut_i64")]), ({"deep": deep}, []),
+                         (long, [])):
+        ev = ExpressionEvaluator(list(roots.items()), rel, reg)
+        aux = {"lut_i64": torch.from_numpy(rng.integers(-(2**62), 2**62, 33)).to(dev)}
+        rts = [(k, e, torch.int32 if k == "code32" else None, None) for k, e in roots.items()]
+        out.append((ev.compile_program(rts + extra, dtypes, aux), env, aux))
+    check(out[1][0].n_regs == scalar.MAX_REGS, "H17 edges: the deep program's 32 registers")
+    return out
+
+
+def scalar_edges(dev) -> list:
+    """H17 bit for bit against its plain interpreter on ``scalar_edge_
+    programs`` at 1 row, at a tile less and more one row (the ragged
+    tail) for each program's register depth, and at 2^21 rows, with a
+    frame-of-reference offset on every column (added to the ints only)."""
+    from pixie_tpu_torch.ops import scalar
+
+    tiles = {h17_tile(prog) for prog, _, _ in scalar_edge_programs(dev, 1)}
+    sizes = sorted({1, BLOCK_ROWS} | {t + d for t in tiles for d in (-1, 1)})
+    for n in sizes:
+        for prog, env, aux in scalar_edge_programs(dev, n):
+            offs = {c: 1000 + 7 * k for k, c in enumerate(env)}
+            got = prog.run(env, aux, n, raw=env, offsets=offs)
+            want = scalar.eval_plain(prog, [env[c] for c in prog.columns],
+                                     [aux[k] for k in prog.luts], n,
+                                     [offs[c] for c in prog.columns])
+            torch.cuda.synchronize()
+            for (name, _), w in zip(prog.outputs, want):
+                if name == "lg":  # an f64 transcendental: within 2 ulp
+                    same = (got[name] == w) | (torch.isnan(got[name]) & torch.isnan(w))
+                    gap = (got[name].view(torch.int64) - w.view(torch.int64))[~same].abs()
+                    check(gap.numel() == 0 or int(gap.max()) <= 2, f"H17 edge log10, {n} rows")
+                    continue
+                check(got[name].shape == (n,) and bits_equal(got[name], w),
+                      f"H17 edge ({name}, {n} rows, {prog.n_regs} registers): not bit-equal")
+    return sizes
+
+
+def h17_instruction_ms(dev, raw: dict, offs: dict) -> float:
+    """H17's cost of one interpreted instruction at 2^21 rows: two programs
+    over the let table's uint8 service codes, 8 and 32 alternating
+    instructions (!= 1, then AND with true) after one LOAD and before
+    one bool STORE (each value read from the accumulator, no register file
+    traffic), each held bit for bit against the plain interpreter; the
+    difference of their times over 24."""
+    from pixie_tpu_torch.ops import scalar
+
+    op = scalar.OP
+    times = []
+    for k in (8, 32):
+        code = [[op["LOAD"], 0, 0, 0, 0], [op["CONST"], 1, 0, 1, 0]]
+        code += [[op["NE_I"] if i % 2 == 0 else op["AND"], 0, 0, 1, 0] for i in range(k)]
+        code += [[op["STORE"], 0, 0, 0, 0]]
+        prog = scalar.ScalarProgram(code=code, consts=[1], columns=["service"], luts=[],
+                                    outputs=[("o", torch.bool)], n_regs=2)
+        run = lambda: prog.run({"__valid__": raw["__valid__"]}, {}, BLOCK_ROWS, raw=raw, offsets=offs)
+        want = scalar.eval_plain(prog, [raw["service"]], [], BLOCK_ROWS, [int(offs.get("service", 0))])
+        check(bits_equal(run()["o"], want[0]), f"H17 {k}-instruction chain: not bit-equal")
+        times.append(time_ms(run))
+    return (times[1] - times[0]) / 24
+
+
 def scalar_kernel_phase(dev) -> dict:
     """H17 against its plain interpreter on the card at 2^21 rows over the
     two programs of ``let_programs``: bool and int outputs bit for bit,
@@ -1541,7 +1670,14 @@ def scalar_kernel_phase(dev) -> dict:
             f"{r['torch_tree_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']}, "
             f"{in_bytes + out_bytes} B); bit-equal but log10 ({ulp} ulp)")
         rec[name] = r
-    main = dict(rec["a"])
+    per_ins = h17_instruction_ms(dev, raw, offs)  # the block the programs ran on
+    log(f"H17 one interpreted instruction over {n} rows (8 against 32 compare/AND "
+        f"instructions): {per_ins:.5f} ms")
+    sizes = scalar_edges(dev)
+    log(f"H17 edges: a select's third operand from the register file, bool/int32/int64 "
+        f"stores, unaligned columns, offsets on every column, 32 registers, out-of-line ops; "
+        f"bit-equal (log10 within 2 ulp) at {sizes} rows")
+    main = dict(rec["a"], by_instruction_ms=per_ins)
     for k, v in rec["b"].items():
         main[f"b_{k}"] = v
     return {"scalar_eval": main}
@@ -3470,7 +3606,8 @@ def ml_kernel_phase(dev) -> dict:
     on an empty and a full state and on forced equal priorities fed
     directly, and at its edges (``topk_edges``), through both entries (the
     sort-free one for few groups, the bucketed one); H27 within 1e-5 at G
-    16, S 128, d 64, k 4 and 8 with duplicated points; H28 within 1e-5 at 1
+    16, S 128, d 64, k 4 and 8 with duplicated points; H28 within 1e-5 at B 1
+    (1 and 64 tokens), every length 1..64 in one batch, lengths 0 and 70,
     and 4098 documents of 1, 17 and 64 tokens. Records: H25 f64 masked, H26's
     sort-free entry at 16 full groups (reservoir_latency's update; also an
     empty state and the whole update) and its bucketed entry at 4096
@@ -3604,14 +3741,23 @@ def ml_kernel_phase(dev) -> dict:
 
     params = transformer._init_params(0)
     enc = transformer.TransformerEncoder(params, dev)
-    for B in (1, N_PATHS + 2):
-        lens = torch.from_numpy(rng.choice([1, 17, 64], B).astype(np.int32)).to(dev)
+    # One document of 1 and of 64 tokens; every length 1..64 in one batch
+    # (tile edges inside documents); lengths 0 and 70 (clamped into 0..64);
+    # then the path count of 1, 17 or 64 tokens, the timed shape.
+    edge_lens = [np.array([1]), np.array([64]), rng.permutation(np.arange(1, 65)),
+                 np.array([5, 0, 64, 70, 1, 0, 33]), rng.choice([1, 17, 64], N_PATHS + 2)]
+    for lens_np in edge_lens:
+        B = lens_np.shape[0]
+        lens = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
         ids = torch.from_numpy(rng.integers(1, transformer.VOCAB, (B, 64)).astype(np.int32)).to(dev)
         ids[torch.arange(64, device=dev)[None, :] >= lens[:, None]] = 0
+        before = kernels.LAUNCHES["encoder_forward"]
         got = enc(ids, lens)
+        check(kernels.LAUNCHES["encoder_forward"] == before + 1, "H28: one launch a forward")
         want = transformer.encoder_forward_plain(ids, lens, enc.embed, enc.pos, enc.layers)
         err = float((got - want).abs().max())
-        check(err <= 1e-5, f"H28 {B} documents: embeddings {err:.3g} from plain")
+        check(err <= 1e-5, f"H28 {B} documents {sorted(set(lens_np.tolist()))[:8]}: "
+                           f"embeddings {err:.3g} from plain")
     ids_np, lens_np = ids.cpu().numpy(), lens.cpu().numpy()
     records["encoder_forward"] = record(
         lambda: kernels.encoder_forward(ids, lens, enc.embed, enc.pos, enc.layers),
@@ -3619,7 +3765,8 @@ def ml_kernel_phase(dev) -> dict:
         None, *bound(encoder_bytes(ids_np, lens_np, enc.layers.numel()), encoder_flops(lens_np)), err,
         f"{B} documents of 1, 17 or 64 tokens, 2 layers, f32",
     )
-    log(f"H28 encoder_forward: 1 and {B} documents within 1e-5 of plain (max {err:.3g}); "
+    log(f"H28 encoder_forward: B 1 (1, 64 tokens), lengths 1..64 in one batch, lengths 0 "
+        f"and 70, {B} documents: within 1e-5 of plain (max {err:.3g} at {B}); "
         f"{records['encoder_forward']['ms']:.4f} ms at {B}")
     return records
 
@@ -4688,11 +4835,15 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
 
 # One turn of ``--ab-parent --ab-paths``: the named paths in the tree of the
 # working directory, each on its own table as the main run builds it:
-# reservoir_latency (http_events) and reservoir_flows (conn_flows) warm,
-# flow_window (conn_flows) cold (the executor's caches dropped before each
-# query), the build of http_small_ring with resident ingest on (seconds
-# from create_table to stop(), the ring's window decodes included).
-AB_PATHS = ("reservoir_latency", "reservoir_flows", "flow_window", "ring_build")
+# service_stats and reservoir_latency (http_events), reservoir_flows
+# (conn_flows), svc_let, endpoint_load and path_embeddings (the let table)
+# warm, flow_window (conn_flows) cold (the executor's caches dropped before
+# each query), the build of http_small_ring with resident ingest on
+# (seconds from create_table to stop(), the ring's window decodes
+# included). The child runs the other tree's chip_smoke.py, so it calls
+# only helpers that tree has.
+AB_PATHS = ("service_stats", "reservoir_latency", "reservoir_flows", "flow_window", "ring_build",
+            "svc_let", "endpoint_load", "path_embeddings")
 AB_PATHS_CHILD = r"""
 import json, sys, time
 sys.path.insert(0, ".")
@@ -4702,16 +4853,27 @@ from pixie_tpu_torch.ops import kernels
 kernels.library()
 paths, reps = %r, %d
 out = {}
-def timed(c, q, cold):
+def timed(c, q, cold, now_ns=None):
     if cold:
         c.device_executor.clear_caches()
     torch.cuda.synchronize()
-    t = time.perf_counter(); c.execute_query(q); torch.cuda.synchronize()
+    t = time.perf_counter(); c.execute_query(q, now_ns=now_ns); torch.cuda.synchronize()
     return time.perf_counter() - t
-if "reservoir_latency" in paths:
+def warm(c, name, q, now_ns=None):
+    if name in paths:
+        timed(c, q, True, now_ns)
+        out[name] = [timed(c, q, False, now_ns) for _ in range(reps)]
+if "service_stats" in paths or "reservoir_latency" in paths:
     c = cs.build_carnot(cs.http_events(1 << 26), 1 << 26, "cuda")
-    timed(c, cs.RESERVOIR_LATENCY, True)
-    out["reservoir_latency"] = [timed(c, cs.RESERVOIR_LATENCY, False) for _ in range(reps)]
+    warm(c, "service_stats", cs.SERVICE_STATS)
+    warm(c, "reservoir_latency", cs.RESERVOIR_LATENCY)
+    del c
+if {"svc_let", "endpoint_load", "path_embeddings"} & set(paths):
+    c = cs.build_let_carnot(cs.let_events(cs.LET_ROWS), cs.LET_ROWS, "cuda")
+    queries = cs.let_queries()
+    warm(c, "svc_let", queries["let"], cs.LET_NOW)
+    warm(c, "endpoint_load", queries["load"], cs.LET_NOW)
+    warm(c, "path_embeddings", cs.PATH_EMBEDDINGS)
     del c
 if "reservoir_flows" in paths or "flow_window" in paths:
     f = cs.build_flows_carnot(cs.conn_flows(cs.FLOW_ROWS), cs.FLOW_ROWS, "cuda")

@@ -562,14 +562,17 @@ class _ProgramCompiler:
                         raise ValueError("a predicate is not boolean")
                     v = self.emit("AND", scalar.B, v, pv)
                 self.store("__mask__", v, torch.bool)
+        code, n_regs = self.allocate()
         return scalar.ScalarProgram(
-            code=self.allocate(), consts=self.consts, columns=self.columns,
-            luts=self.luts, outputs=self.outputs, passthrough=passthrough,
+            code=code, consts=self.consts, columns=self.columns,
+            luts=self.luts, outputs=self.outputs, n_regs=n_regs, passthrough=passthrough,
         )
 
-    def allocate(self) -> list:
+    def allocate(self) -> tuple[list, int]:
         """Virtual -> physical registers: each value's register is free again
-        after its last read (an op reads its operands before it writes)."""
+        after its last read (an op reads its operands before it writes), and
+        a new value takes the most recently freed one, else the lowest never
+        used. Returns the code and its high-water mark (registers used)."""
         reads = _register_operands
         last: dict = {}
         for i, ins in enumerate(self.code):
@@ -577,12 +580,13 @@ class _ProgramCompiler:
                 last[v] = i
         free = list(range(scalar.MAX_REGS - 1, -1, -1))
         phys: dict = {}
+        high = 0
         out = []
         for i, ins in enumerate(self.code):
             op, dst = ins[0], ins[1]
             srcs = reads(ins)
             new = list(ins)
-            for pos, v in _operand_slots(ins):
+            for pos, v in scalar.operand_slots(ins):
                 new[pos] = phys[v]
             for v in set(srcs):
                 if last[v] == i:
@@ -593,6 +597,7 @@ class _ProgramCompiler:
                         f"the expression needs more than {scalar.MAX_REGS} registers"
                     )
                 phys[dst] = free.pop()
+                high = max(high, phys[dst] + 1)
                 new[1] = phys[dst]
                 if dst not in last:  # never read: free at once
                     free.append(phys.pop(dst))
@@ -604,23 +609,11 @@ class _ProgramCompiler:
         if (len(self.columns) > scalar.MAX_COLS or len(self.luts) > scalar.MAX_LUTS
                 or len(self.outputs) > scalar.MAX_OUTS):
             raise ValueError("the program exceeds H17's column, LUT or output tables")
-        return out
-
-
-def _operand_slots(ins) -> list:
-    """(position, virtual register) of each register operand of ``ins``."""
-    op = scalar.OPS[ins[0]]
-    if op in ("LOAD", "CONST"):
-        return []
-    if op in ("STORE", "LUT") or op in scalar.UNARY_OPS:
-        return [(2, ins[2])]
-    if op == "SELECT":
-        return [(2, ins[2]), (3, ins[3]), (4, ins[4])]
-    return [(2, ins[2]), (3, ins[3])]
+        return out, high
 
 
 def _register_operands(ins) -> list:
-    return [v for _, v in _operand_slots(ins)]
+    return [v for _, v in scalar.operand_slots(ins)]
 
 
 def _find_parent(root, target):

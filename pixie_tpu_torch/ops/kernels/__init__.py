@@ -132,7 +132,8 @@ _SIGNATURES = {
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
     "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
     "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
-    "px_scalar_eval": (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL, _P),
+    "px_scalar_eval": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL,
+                       _P),
     "px_codec_rle_decode": (_P, _P, _I, _I, _LL, _I, _P, _P),
     "px_codec_delta_decode": (_P, _P, _LL, _I, _P, _LL, _I, _LL, _I, _P, _P, _P),
     "px_hll_cell_update": (_P, _P, _I, _I, _I, _P, _P),
@@ -148,7 +149,7 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P,
     ),
     "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "px_encoder_forward": (_P, _P, _I, _P, _P, _P, _I, _P, _P),
+    "px_encoder_forward": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     "px_merge_states": (_P, _I, _LL, _I, _I, _P, _P),
     "px_countmin_query": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
     "px_hash_columns": (
@@ -885,21 +886,25 @@ _SCALAR_LUT = (torch.bool, torch.int32, torch.int64, torch.float64)
 
 def scalar_eval(
     code: torch.Tensor, consts: torch.Tensor, cols: list, luts: list, out_dtypes: list,
-    n: int, offsets: Optional[list] = None,
+    n: int, offsets: list, n_regs: int, long_ops: bool,
 ) -> list:
-    """H17: runs the compiled program ``code`` (int32 [n_instr, 5]) with its
-    constant pool ``consts`` (int64 [k], the 8-byte constants' bits) for
+    """H17: runs the lowered program ``code`` (int32 [n_instr, 8],
+    ``ops/scalar.py`` lower) with its constant pool ``consts`` (int64 [k],
+    the 8-byte constants' bits) and ``n_regs`` registers (at most 32;
+    ``long_ops``: the code has an op of ``scalar.LONG_OPS``) for
     every row of one block: ``cols`` are its input columns ([n] each: bool,
     uint8, uint16, int32, int64, f32 or f64; an int column loads as int64
-    plus its entry of ``offsets``, 0 by default), ``luts`` its lookup tables
+    plus its entry of ``offsets``), ``luts`` its lookup tables
     (1-d bool, int32, int64 or f64). Returns one new [n] tensor per entry of
     ``out_dtypes`` (bool, int32, int64 or f64), in the program's out-index
     order (ops/scalar.py states the program and its semantics)."""
     device = code.device
     _require(code, "code", torch.int32, device, 2)
     _require(consts, "consts", torch.int64, device, 1)
-    if code.shape[1] != 5:
-        raise ValueError(f"code must be [n_instr, 5], got {tuple(code.shape)}")
+    if code.shape[1] != 8:
+        raise ValueError(f"code must be [n_instr, 8], got {tuple(code.shape)}")
+    if not 0 <= n_regs <= 32:
+        raise ValueError(f"n_regs {n_regs} is outside [0, 32]")
     for i, c in enumerate(cols):
         if c.dtype not in SCALAR_KINDS:
             raise TypeError(f"column {i} has dtype {c.dtype}, which H17 does not read")
@@ -919,12 +924,11 @@ def scalar_eval(
     if n == 0 or code.shape[0] == 0:
         return outs
     k, t, o = len(cols), len(luts), len(outs)
-    offsets = list(offsets) if offsets is not None else [0] * k
     if len(offsets) != k:
         raise ValueError(f"{len(offsets)} offsets for {k} columns")
     _launch(
         "scalar_eval", device,
-        code.data_ptr(), code.shape[0], consts.data_ptr(), consts.shape[0],
+        code.data_ptr(), code.shape[0], consts.data_ptr(), consts.shape[0], n_regs, int(long_ops),
         (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols]),
         (ctypes.c_int * max(k, 1))(*[SCALAR_KINDS[c.dtype] for c in cols]),
         (ctypes.c_longlong * max(k, 1))(*[int(x) for x in offsets]), k,
@@ -1388,9 +1392,11 @@ def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int,
 def encoder_forward(ids: torch.Tensor, lens: torch.Tensor, embed: torch.Tensor,
                     pos: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
     """H28: f32 [B, 64] unit sentence embeddings of B documents: ``ids``
-    int32 [B, 64] (shifted, pad 0), ``lens`` int32 [B] (tokens, 1..64),
-    ``embed`` f32 [V, 64], ``pos`` f32 [64, 64], ``layers`` f32 [n_layers,
-    ENCODER_LAYER_FLOATS] (``ops/transformer.py`` pack_layer's layout)."""
+    int32 [B, 64] (shifted, pad 0), ``lens`` int32 [B] (tokens; clamped into
+    0..64), ``embed`` f32 [V, 64], ``pos`` f32 [64, 64], ``layers`` f32
+    [n_layers >= 1, ENCODER_LAYER_FLOATS] (``ops/transformer.py``
+    pack_layer's layout). The documents' real rows are packed at the
+    offsets of a device cumsum of the lengths; only they are computed."""
     device = ids.device
     _require(ids, "ids", torch.int32, device, 2)
     _require(lens, "lens", torch.int32, device, 1)
@@ -1400,13 +1406,16 @@ def encoder_forward(ids: torch.Tensor, lens: torch.Tensor, embed: torch.Tensor,
     B = ids.shape[0]
     if ids.shape[1] != 64 or lens.shape[0] != B or embed.shape[1] != 64 or pos.shape != (64, 64):
         raise ValueError("encoder_forward: expected ids [B, 64], lens [B], d 64, L 64")
-    if layers.shape[1] != ENCODER_LAYER_FLOATS:
-        raise ValueError(f"encoder_forward: a layer holds {ENCODER_LAYER_FLOATS} floats")
+    if layers.shape[1] != ENCODER_LAYER_FLOATS or layers.shape[0] < 1:
+        raise ValueError(f"encoder_forward: layers must be [n >= 1, {ENCODER_LAYER_FLOATS}]")
     out = torch.empty((B, 64), dtype=torch.float32, device=device)
     if B == 0:
         return out
-    _launch("encoder_forward", device, ids.data_ptr(), lens.data_ptr(), B, embed.data_ptr(),
-            pos.data_ptr(), layers.data_ptr(), layers.shape[0], out.data_ptr())
+    lens = lens.clamp(0, 64)
+    ends = torch.cumsum(lens, 0, dtype=torch.int32)
+    _launch("encoder_forward", device, ids.data_ptr(), lens.data_ptr(), ends.data_ptr(), B,
+            embed.data_ptr(), pos.data_ptr(), layers.data_ptr(), layers.shape[0],
+            out.data_ptr())
     return out
 
 

@@ -13,11 +13,16 @@ the same instructions as torch ops (``eval_plain``), which is what the CPU
 tests hold against the reference.
 
 An instruction is five int32: (op, dst, a, b, c). Registers hold 8 bytes
-each: a bool as int64 0/1, an int64, or an f64's bits; the compiler knows
-each register's kind (B, I, F) and inserts the casts. The opcodes, and the
-storage kinds of columns, LUTs and outputs, are numbered as in
-scalar_kernels.cu (``tests/test_torch_scalars.py`` holds both tables
-equal). Semantics, per op, are the reference's jnp ones:
+each: a bool as int64 0 or 1 (H17's AND, OR and NOT rely on it), an int64,
+or an f64's bits; the compiler knows each register's kind (B, I, F),
+inserts the casts and records the program's depth ``n_regs`` (the
+allocator's high-water mark). H17 runs the program as ``lower`` rewrites it
+on upload: no CONST (a constant is an operand mode), an operand that the
+previous value came from read from the kernel's accumulator, and only the
+values that a later instruction reads from the register file written to
+it. The opcodes, and the storage kinds of columns, LUTs and outputs, are
+numbered as in scalar_kernels.cu (``tests/test_torch_scalars.py`` holds
+both tables equal). Semantics, per op, are the reference's jnp ones:
 
 - int64 add, sub, mul, neg and abs wrap; ``MOD_I`` is a floor modulo with
   0 for a divisor of 0 (the modulo UDF's guard) or -1 (INT64_MIN % -1 traps
@@ -88,13 +93,15 @@ class ScalarProgram:
     order), the ``luts`` (aux keys) and the ``outputs`` [(name, dtype)] that
     the STORE ops write, in out-index order. ``passthrough`` maps a result
     that needs no program (a bare column, a constant) to its env name or
-    Python value and its dtype (None: the env column's own)."""
+    Python value and its dtype (None: the env column's own). ``n_regs``:
+    the registers the code uses (1 + its highest register)."""
 
     code: list
     consts: list
     columns: list
     luts: list
     outputs: list
+    n_regs: int = MAX_REGS
     passthrough: dict = dataclasses.field(default_factory=dict)
     # Device copies of code and consts, per device.
     _uploaded: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -106,9 +113,10 @@ class ScalarProgram:
         ))
 
     def device_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The lowered code (int32 [n, 8]) and the constant pool on ``device``."""
         key = str(device)
         if key not in self._uploaded:
-            code = torch.tensor(self.code, dtype=torch.int32).reshape(-1, 5)
+            code = torch.tensor(lower(self.code), dtype=torch.int32).reshape(-1, 8)
             consts = torch.tensor(self.consts or [0], dtype=torch.int64)
             self._uploaded[key] = (code.to(device), consts.to(device))
         return self._uploaded[key]
@@ -132,7 +140,8 @@ class ScalarProgram:
                 res = kernels.scalar_eval(
                     code, consts, [c.contiguous() for c in cols],
                     [t.contiguous() for t in luts],
-                    [dt for _, dt in self.outputs], n, offs,
+                    [dt for _, dt in self.outputs], n, offs, self.n_regs,
+                    any(OPS[ins[0]] in LONG_OPS for ins in self.code),
                 )
             else:
                 res = eval_plain(self, cols, luts, n, offs)
@@ -144,6 +153,63 @@ class ScalarProgram:
                 dev = next(iter(env.values())).device
                 out[name] = torch.full((n,), src, dtype=dt, device=dev)
         return out
+
+
+def operand_slots(ins) -> list:
+    """(position, register) of each register operand of instruction ``ins``."""
+    op = OPS[ins[0]]
+    if op in ("LOAD", "CONST"):
+        return []
+    if op in ("STORE", "LUT") or op in UNARY_OPS:
+        return [(2, ins[2])]
+    if op == "SELECT":
+        return [(2, ins[2]), (3, ins[3]), (4, ins[4])]
+    return [(2, ins[2]), (3, ins[3])]
+
+
+# The ops H17 runs out of line, a call per row (scalar_kernels.cu long_op);
+# a program with one runs 4 rows a thread, not 8.
+LONG_OPS = frozenset({"MOD_I", "DIV_F", "MOD_F", "LN", "LOG2", "LOG10", "EXP", "SQRT", "POW",
+                      "LOGB"})
+
+# Operand sources of a lowered instruction (scalar_kernels.cu enum Mode):
+# the register file, the previous value (the kernel's accumulator), a
+# constant of the pool, none; two bits an operand (a, b, c from bit 0).
+M_RF, M_ACC, M_CONST, M_NONE = 0, 1, 2, 3
+W_RF = 1 << 6  # the instruction's value is also written to the file (kWriteRf)
+
+
+def lower(code: list) -> list:
+    """``code`` as H17 runs it: rows of eight int32 (op, dst, a, b, c, mode,
+    0, 0). A CONST emits nothing: each operand that reads its register
+    becomes an M_CONST operand holding the pool index. An operand whose
+    register the previous value-writing row (not a STORE) wrote is M_ACC.
+    Any other operand is M_RF, and the row that wrote its register gets
+    W_RF. The values, and so the outputs, are those of ``code``."""
+    rows: list = []
+    writer: dict = {}  # register -> its row, or ("const", pool index)
+    acc = None  # the row whose value the accumulator holds
+    for ins in code:
+        op = OPS[ins[0]]
+        if op == "CONST":
+            writer[ins[1]] = ("const", ins[2])
+            continue
+        row = list(ins) + [0, 0, 0]
+        modes = [M_NONE] * 3
+        for pos, reg in operand_slots(ins):
+            w = writer[reg]
+            if isinstance(w, tuple):
+                modes[pos - 2], row[pos] = M_CONST, w[1]
+            elif w == acc:
+                modes[pos - 2] = M_ACC
+            else:
+                modes[pos - 2] = M_RF
+                rows[w][5] |= W_RF
+        row[5] |= modes[0] | modes[1] << 2 | modes[2] << 4
+        if op != "STORE":
+            writer[ins[1]] = acc = len(rows)
+        rows.append(row)
+    return rows
 
 
 def _bits_to(value: int, kind: int):

@@ -8,10 +8,11 @@ vocabulary 32768) with the reference's deterministic seeded weights
 (``_init_params``, numpy: the same arrays from the same seed), and
 ``params_from_reference`` carries the reference's own parameter pytree
 across. ``TransformerEncoder`` holds the weights on an explicit device; its
-forward is H28 (``kernels.encoder_forward``, one CTA a document, both layers
-in one launch) on the card and ``encoder_forward_plain`` on the CPU. The
-plain version multiplies per document (``torch.bmm`` over the documents), so
-a document's embedding does not depend on the batch it rides in.
+forward is H28 (``kernels.encoder_forward``: the documents' real rows packed
+into tiles of whole documents, both layers in one launch) on the card and
+``encoder_forward_plain`` on the CPU. The plain version multiplies per
+document (``torch.bmm`` over the documents), so a document's embedding does
+not depend on the batch it rides in.
 
 ``tokenize`` stands in for SentencePiece with hash-bucketed 4-character
 shingles. ``ModelPool`` lends executors keyed by type and device.

@@ -397,8 +397,13 @@ def scalar_programs(dev, n: int = 1 << 20):
     bin, select, wraps) over uint8, uint16, int32, int64 and bool columns;
     (b) f64 work (divide, floor and the other casts, modulo, the
     transcendentals) over f64 and f32 columns with NaN, +-inf, +-0 and
-    huge values. Returns [(program, env, aux)]."""
+    huge values; (c) the comparisons and float signs (a) and (b) leave out,
+    a select of bools, an int add, gathers through int32, int64 and f64
+    LUTs; (d) B2I, written by hand (no tree compiles to it); (e) a tree
+    deep enough to use all 32 registers. Every column kind, LUT kind and
+    output kind is read or written. Returns [(program, env, aux)]."""
     from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
+    from pixie_tpu_torch.ops import scalar
     from pixie_tpu_torch.plan.expressions import ColumnRef as C, Constant as K, FuncCall as Fn
     from pixie_tpu_torch.types import DataType as DT, Relation
     from pixie_tpu_torch.udf.builtins import register_all
@@ -408,9 +413,10 @@ def scalar_programs(dev, n: int = 1 << 20):
     register_all(reg)
     rng = np.random.default_rng(17)
     x = rng.uniform(-30, 30, n)
-    x[:12] = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e300, -1e300, 2.0**63, -(2.0**63), 2.5, -2.5, 5e-324]
+    edges = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e300, -1e300, 2.0**63, -(2.0**63), 2.5, -2.5, 5e-324]
+    x[:min(n, 12)] = edges[:min(n, 12)]
     big = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
-    big[:3] = [-(2**63), 2**63 - 1, -1]
+    big[:min(n, 3)] = [-(2**63), 2**63 - 1, -1][:min(n, 3)]
     div = rng.choice([-7, -1, 0, 1, 5, 400], n).astype(np.int64)
     env = {
         "code": torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)),
@@ -451,17 +457,46 @@ def scalar_programs(dev, n: int = 1 << 20):
         "exp": Fn("exp", (C("x"),)), "pow": Fn("pow", (C("x"), f(1.7))), "logb": Fn("log", (f(3.0), C("lat"))),
         "sel": Fn("select", (Fn("greaterThanEqual", (C("status"), i(400))), C("lat"), f(0.0))),
     }
+    cmp = lambda op, col, k: Fn(op, (C(col), k))
+    cc = {
+        "eq_i": cmp("equal", "status", i(404)), "lt_i": cmp("lessThan", "big", i(0)),
+        "le_i": cmp("lessThanEqual", "u16", i(30000)), "gt_i": cmp("greaterThan", "div", i(1)),
+        "eq_f": cmp("equal", "x", f(2.5)), "ne_f": cmp("notEqual", "x", f(-2.5)),
+        "lt_f": cmp("lessThan", "x", f(0.0)), "le_f": cmp("lessThanEqual", "lat", f(3e7)),
+        "gt_f": cmp("greaterThan", "f32", f(1e7)), "ge_f": cmp("greaterThanEqual", "x", f(-0.0)),
+        "neg_f": Fn("negate", (C("x"),)), "abs_f": Fn("abs", (C("x"),)),
+        "add_i": Fn("add", (C("big"), C("div"))),
+        "sel_b": Fn("select", (C("flag"), cmp("lessThan", "x", f(1.0)), cmp("equal", "div", i(5)))),
+        # big is loaded before: the select reads its third operand from the file.
+        "sel_c": Fn("select", (cmp("greaterThan", "div", i(0)), Fn("negate", (C("div"),)), C("big"))),
+    }
+    luts = {"lut_i32": torch.arange(40, dtype=torch.int32) * 3 - 7,
+            "lut_i64": torch.from_numpy(rng.integers(-(2**62), 2**62, 33, dtype=np.int64)),
+            "lut_f64": torch.from_numpy(np.concatenate([[np.nan, -0.0], rng.normal(0, 1e9, 20)]))}
+    gathers = [("g_i32", C("code"), torch.int32, "lut_i32"), ("g_i64", C("code"), None, "lut_i64"),
+               ("g_f64", C("code"), None, "lut_f64")]
+    deep = C("x")
+    for k in range(scalar.MAX_REGS - 1):
+        # Right-leaning: every product stays live until the sums close.
+        deep = Fn("add", (Fn("multiply", (C("x"), f(k + 0.5))), deep))
     dicts = ["a", "b", "c"] + [f"svc-{k}" for k in range(37)]
     out = []
-    for roots, mask in ((a, preds), (b, [])):
+    dtypes = {k: v.dtype for k, v in env.items()}
+    for roots, mask, extra in ((a, preds, []), (b, [], []), (cc, [], gathers), ({"deep": deep}, [], [])):
         ev = ExpressionEvaluator(list(roots.items()) + [(f"p{k}", p) for k, p in enumerate(mask)], rel, reg)
-        aux = {}
+        aux = {k: v.to(dev) for k, v in luts.items()} if extra else {}
         for e in list(roots.values()) + mask:
             for key, v in ev.build_aux(e, {"code": _dictionary(dicts)}).items():
                 aux[key] = torch.as_tensor(np.asarray(v)).to(dev)
-        dtypes = {k: v.dtype for k, v in env.items()}
         rts = [(k, e, torch.int32 if k == "code32" else None, None) for k, e in roots.items()]
-        out.append((ev.compile_program(rts, dtypes, aux, mask=("__valid__", mask)), env, aux))
+        out.append((ev.compile_program(rts + extra, dtypes, aux, mask=("__valid__", mask)), env, aux))
+        if extra:  # (d): B2I by hand, into an int64 output
+            op = scalar.OP
+            hand = scalar.ScalarProgram(
+                code=[[op["LOAD"], 0, 0, 0, 0], [op["B2I"], 0, 0, 0, 0], [op["STORE"], 0, 0, 0, 0]],
+                consts=[], columns=["flag"], luts=[], outputs=[("b2i", torch.int64)], n_regs=1)
+            out.append((hand, env, {}))
+    assert out[-1][0].n_regs == scalar.MAX_REGS
     return out
 
 
@@ -483,33 +518,47 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ai - bi).abs().max())
 
 
-def check_scalar_programs(dev) -> dict:
-    """H17 against its plain interpreter on the same card tensors: every
-    bool, int and f64 output bit for bit except the transcendentals, which
-    agree within 2 ulp (PERF.md's H17 contract); returns the largest ulp gap
-    of each transcendental output."""
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one element into a larger buffer, so that
+    its pointer misses every vector alignment above one element."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def check_scalar_programs(dev, n: int = 1 << 20, edges: bool = False) -> dict:
+    """H17 against its plain interpreter on the same card tensors at ``n``
+    rows: every bool, int and f64 output bit for bit except the
+    transcendentals, which agree within 2 ulp (PERF.md's H17 contract);
+    returns the largest ulp gap of each transcendental output. With
+    ``edges`` every column also gets a frame-of-reference offset (which
+    only the int columns add) and two columns sit at unaligned pointers."""
     from pixie_tpu_torch.ops import scalar
 
     gaps = {}
-    for prog, env, aux in scalar_programs(dev):
+    for prog, env, aux in scalar_programs(dev, n):
+        offsets = None
+        if edges:
+            env = dict(env, u16=_unaligned(env["u16"]), big=_unaligned(env["big"]))
+            offsets = {c: 1000 + 7 * k for k, c in enumerate(env)}
         before = kernels.LAUNCHES["scalar_eval"]
-        n = env["x"].shape[0]
-        got = prog.run(env, aux, n)
+        got = prog.run(env, aux, n, raw=env if edges else None, offsets=offsets)
         assert kernels.LAUNCHES["scalar_eval"] == before + 1
         want = dict(zip([o for o, _ in prog.outputs], scalar.eval_plain(
-            prog, [env[c] for c in prog.columns], [aux[k] for k in prog.luts], n)))
+            prog, [env[c] for c in prog.columns], [aux[k] for k in prog.luts], n,
+            [offsets[c] for c in prog.columns] if offsets else None)))
         torch.cuda.synchronize()
         for name, w in want.items():
             g = got[name]
-            assert g.dtype == w.dtype, name
+            assert g.dtype == w.dtype and g.shape == (n,), name
             if name in ("log10", "ln", "log2", "exp", "pow", "logb"):
-                gaps[name] = _ulps(g, w)
+                gaps[name] = max(gaps.get(name, 0), _ulps(g, w))
                 assert gaps[name] <= 2, (name, gaps[name])
             elif g.dtype == torch.float64:
-                assert _ulps(g, w) == 0, name
+                assert _ulps(g, w) == 0, (name, n)
             else:
-                assert torch.equal(g, w), name
-        if "__mask__" in want:
+                assert torch.equal(g, w), (name, n)
+        if "__mask__" in want and not edges:  # offsets move the codes out of the dictionary
             assert 0 < int(want["__mask__"].sum()) < n
     return gaps
 
@@ -518,6 +567,18 @@ def check_scalar_programs(dev) -> dict:
 def test_scalar_kernel_matches_plain_on_card():
     _need_cards(1)
     check_scalar_programs(torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 511, 513, 1023, 1025, 1 << 21])
+def test_scalar_kernel_edges_on_card(n):
+    """Every opcode, column, LUT and output kind, and a program at 32
+    registers, at the sizes around a CTA's tile of 128 threads (128 rows at
+    32 registers; 512 with an out-of-line op, 4 rows a thread; 1024 with 8)
+    and at a 2^21-row block, with offsets on every column and unaligned
+    columns."""
+    _need_cards(1)
+    check_scalar_programs(torch.device("cuda", 0), n, edges=True)
 
 
 def check_codec_kernels(dev: torch.device) -> None:
@@ -784,20 +845,35 @@ def check_ml_kernels(dev: torch.device) -> None:
         assert (got - want).abs().max() <= 1e-5
 
 
+def encoder_batches(rng) -> list:
+    """(ids, lens) int32 CPU batches for H28: one document of 1 and of 64
+    tokens (B = 1), every length 1..64 in one batch (tile boundaries fall
+    inside documents), lengths 0 and 70 (clamped into 0..64) among others,
+    and 4098 documents of 1, 17 or 64 tokens (path_embeddings' count)."""
+    lens_sets = [np.array([1]), np.array([64]), rng.permutation(np.arange(1, 65)),
+                 np.array([5, 0, 64, 70, 1, 0, 33]), rng.choice([1, 17, 64], 4098)]
+    out = []
+    for lens in lens_sets:
+        lens = torch.from_numpy(lens.astype(np.int32))
+        ids = torch.from_numpy(rng.integers(1, transformer.VOCAB, (lens.shape[0], 64)).astype(np.int32))
+        ids[torch.arange(64)[None, :] >= lens[:, None]] = 0
+        out.append((ids, lens))
+    return out
+
+
 def check_encoder_kernel(dev: torch.device) -> None:
-    """H28 against its plain version within 1e-5, at 1 and 300 documents of
-    1, 17 and 64 tokens."""
+    """H28 against its plain version (on the CPU) within 1e-5 on every
+    batch of ``encoder_batches``, one launch a batch."""
     assert not torch.backends.cuda.matmul.allow_tf32
     params = transformer._init_params(0)
     cpu, card = (transformer.TransformerEncoder(params, d) for d in ("cpu", dev))
-    rng = np.random.default_rng(31)
-    for B in (1, 300):
-        lens = torch.from_numpy(rng.choice([1, 17, 64], B).astype(np.int32))
-        ids = torch.from_numpy(rng.integers(1, transformer.VOCAB, (B, 64)).astype(np.int32))
-        ids[torch.arange(64)[None, :] >= lens[:, None]] = 0
+    for ids, lens in encoder_batches(np.random.default_rng(31)):
         want = cpu(ids, lens)
+        before = kernels.LAUNCHES["encoder_forward"]
         got = card(ids.to(dev), lens.to(dev)).cpu()
-        assert (got - want).abs().max() <= 1e-5
+        assert kernels.LAUNCHES["encoder_forward"] == before + 1
+        err = float((got - want).abs().max())
+        assert err <= 1e-5, (ids.shape[0], err)
 
 
 def topk_edge_cases(rng, n: int = 1 << 21):

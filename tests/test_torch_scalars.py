@@ -397,6 +397,185 @@ def test_query_programs_match_tree_walk_and_reference():
         assert_same(got[name].numpy(), want, 2 if name == "q4_log10" else 0, name)
 
 
+def _service_stats_programs() -> dict:
+    """{name: (program, env, aux)}: service_stats' Q1-Q4 trees as one
+    program (the mask with Q1's predicates), svc_let's (Q1's predicates and
+    failure: chip_smoke.py's kernel phase program (a)) and the f64 program
+    of the kernel phase (b: floor(latency / 1e6), log10, a select)."""
+    data = _http(N, 6)
+    trees = _tree("port")
+    rel = Relation.of(*[(n, DataType[t]) for n, t in REL])
+    env = {k: torch.from_numpy(v) for k, v in data.items()}
+    env["__valid__"] = torch.from_numpy(np.random.default_rng(1).random(N) < 0.9)
+    dtypes = {k: v.dtype for k, v in env.items()}
+    preds = [trees["q1_service"], trees["q1_filter"], trees["q1_contains"]]
+    shapes = {
+        "service_stats": ([k for k in trees if k not in ("q1_service", "q1_filter", "q1_contains")], preds),
+        "svc_let": (["q1_failure"], preds),
+        "f64": (["q4_floor", "q4_log10", "q4_select"], []),
+    }
+    out = {}
+    for name, (keys, mask) in shapes.items():
+        ev = ExpressionEvaluator([(k, trees[k]) for k in keys] + [(f"p{i}", p) for i, p in enumerate(mask)],
+                                 rel, PORT)
+        aux = {}
+        for _, e in ev.named_exprs:
+            aux.update({k: torch.as_tensor(np.asarray(v))
+                        for k, v in ev.build_aux(e, _dicts(StringDictionary)).items()})
+        prog = ev.compile_program([(k, trees[k], None, None) for k in keys], dtypes, aux,
+                                  mask=("__valid__", mask))
+        out[name] = (prog, env, aux)
+    return out
+
+
+def _kernel_test_programs() -> list:
+    """tests/test_torch_kernels.py's H17 programs on the CPU (every opcode,
+    column, LUT and output kind; 32 registers)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_kernels import scalar_programs
+
+    return scalar_programs(torch.device("cpu"), N)
+
+
+def _peak_live(code) -> int:
+    """The most values live at once in allocated ``code``: at each write,
+    the registers whose value a later instruction still reads, plus the one
+    being written."""
+    peak = 0
+    for i, ins in enumerate(code):
+        if scalar.OPS[ins[0]] == "STORE":
+            continue
+        live = set()
+        for r in range(scalar.MAX_REGS):
+            for later in code[i + 1:]:
+                if r in [v for _, v in scalar.operand_slots(later)]:
+                    live.add(r)
+                    break
+                if scalar.OPS[later[0]] != "STORE" and later[1] == r:
+                    break
+        peak = max(peak, len(live | {ins[1]}))
+    return peak
+
+
+def test_program_n_regs_is_the_allocators_high_water_mark():
+    """ScalarProgram.n_regs, which sizes H17's register file: at most
+    MAX_REGS, one more than the highest register the code names, and the
+    most values live at once (the allocator reuses a freed register before
+    it takes a new one) for service_stats', svc_let's and the kernel phase's
+    programs and the kernel tests' (32 registers among them)."""
+    progs = [p for p, _, _ in _service_stats_programs().values()]
+    progs += [p for p, _, _ in _kernel_test_programs()]
+    assert max(p.n_regs for p in progs) == scalar.MAX_REGS
+    for prog in progs:
+        named = [ins[1] for ins in prog.code if scalar.OPS[ins[0]] != "STORE"]
+        named += [v for ins in prog.code for _, v in scalar.operand_slots(ins)]
+        assert prog.n_regs <= scalar.MAX_REGS
+        assert prog.n_regs == 1 + max(named) == _peak_live(prog.code)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.to(torch.int64)
+
+
+_F_OPERANDS = frozenset({
+    "ADD_F", "SUB_F", "MUL_F", "DIV_F", "MOD_F", "NEG_F", "ABS_F", "EQ_F", "NE_F", "LT_F",
+    "LE_F", "GT_F", "GE_F", "F2I", "FLOOR_F", "CEIL_F", "RINT_F", "LN", "LOG2", "LOG10",
+    "EXP", "SQRT", "POW", "LOGB",
+})
+
+
+def run_lowered(prog, cols: list, luts: list, n: int, offsets: list) -> tuple[list, set]:
+    """``scalar.lower(prog.code)`` run as H17 runs it, over 8-byte register
+    bits: the accumulator, the file (written only by a W_RF row; reading a
+    word no row wrote raises), constants from the pool. Returns the
+    outputs and the rows whose value was read from the file."""
+    acc, rf, read = None, {}, set()
+    writer: dict = {}
+    outs = [None] * len(prog.outputs)
+
+    def operand(mode: int, idx: int):
+        if mode == scalar.M_ACC:
+            return acc
+        if mode == scalar.M_CONST:
+            return torch.full((n,), prog.consts[idx], dtype=torch.int64)
+        read.add(writer[idx])
+        return rf[idx]
+
+    for r, (op_i, dst, a, b, c, mode, _, _) in enumerate(scalar.lower(prog.code)):
+        op = scalar.OPS[op_i]
+        assert op != "CONST"
+        ops = [operand(mode >> (2 * k) & 3, x) if mode >> (2 * k) & 3 != scalar.M_NONE else None
+               for k, x in enumerate((a, b, c))]
+        if op == "LOAD":
+            val = _bits(scalar._load(cols[a], offsets[a]))
+        elif op == "STORE":
+            dt = prog.outputs[b][1]
+            v = ops[0]
+            outs[b] = (v != 0 if dt == torch.bool else v.view(torch.float64) if dt == torch.float64
+                       else v.to(dt))
+            continue
+        elif op == "SELECT":
+            val = torch.where(ops[0] != 0, ops[1], ops[2])
+        elif op == "LUT":
+            lut = luts[b]
+            val = _bits(scalar._load(lut[torch.clamp(ops[0], 0, lut.shape[0] - 1)]))
+        else:
+            typed = [None if v is None else v.view(torch.float64) if op in _F_OPERANDS
+                     else v != 0 if op in ("AND", "OR", "NOT") else v for v in ops[:2]]
+            fn = scalar._UNARY.get(op) or scalar._BINARY[op]
+            val = _bits(fn(typed[0]) if op in scalar.UNARY_OPS else fn(typed[0], typed[1]))
+        acc = val.expand(n)
+        if mode & scalar.W_RF:
+            rf[dst], writer[dst] = acc, r
+    return outs, read
+
+
+def test_lowered_program_equals_the_program():
+    """``scalar.lower``, what H17 runs, computes the program's outputs bit
+    for bit (the plain interpreter's) for service_stats', svc_let's and the
+    kernel phase's programs and the kernel tests' (every opcode, column,
+    LUT and output kind; 32 registers), with offsets on every column: no
+    CONST is left, an operand read from the file was written there, and
+    only values read from the file are written to it."""
+    cases = list(_service_stats_programs().values()) + _kernel_test_programs()
+    select_c = {row[5] >> 4 & 3 for prog, _, _ in cases for row in scalar.lower(prog.code)
+                if scalar.OPS[row[0]] == "SELECT"}
+    assert select_c == {scalar.M_RF, scalar.M_ACC, scalar.M_CONST}
+    for prog, env, aux in cases:
+        cols = [env[c] for c in prog.columns]
+        offs = [1000 + 7 * k for k in range(len(cols))]
+        luts = [aux[k] for k in prog.luts]
+        rows = scalar.lower(prog.code)
+        consts = sum(scalar.OPS[ins[0]] == "CONST" for ins in prog.code)
+        assert len(rows) == len(prog.code) - consts
+        got, read = run_lowered(prog, cols, luts, N, offs)
+        want = scalar.eval_plain(prog, cols, luts, N, offs)
+        for (name, _), g, w in zip(prog.outputs, got, want):
+            assert g.dtype == w.dtype, name
+            assert torch.equal(_bits(g), _bits(w)), name
+        assert read == {r for r, row in enumerate(rows) if row[5] & scalar.W_RF}
+
+
+def test_lowered_modes_match_the_kernel_source():
+    """ops/scalar.py numbers the operand modes and the write flag as
+    scalar_kernels.cu does, and names the ops it runs out of line."""
+    src = open(os.path.join(os.path.dirname(scalar.__file__), "kernels",
+                            "scalar_kernels.cu")).read()
+    modes = re.search(r"enum Mode : int \{(.*?)\};", src, re.S).group(1)
+    assert [w.split("=")[0].strip() for w in modes.split(",")] == ["M_RF", "M_ACC", "M_CONST", "M_NONE"]
+    assert (scalar.M_RF, scalar.M_ACC, scalar.M_CONST, scalar.M_NONE) == (0, 1, 2, 3)
+    assert re.search(r"constexpr int kWriteRf = 1 << (\d+);", src).group(1) == "6"
+    assert scalar.W_RF == 1 << 6
+    body = re.search(r"u64 long_op\(int op, u64 a, u64 b\) \{(.*?)\n\}", src, re.S).group(1)
+    assert set(re.findall(r"case (\w+):", body)) == scalar.LONG_OPS
+    group = re.search(r"((?:case \w+: )+)PX_LANES\(long_op", " ".join(src.split())).group(1)
+    assert set(re.findall(r"case (\w+):", group)) == scalar.LONG_OPS
+
+
 def test_lut_gathers_clamp_codes_into_the_table():
     """A LUT gather reads entry clamp(code, 0, len - 1): the key LUT's int32
     gids and the arghash content hashes, as the reference's gathers do."""

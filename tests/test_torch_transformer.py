@@ -117,6 +117,64 @@ def test_encoder_plain_is_batch_invariant():
         assert torch.equal(one[0], full[i])
 
 
+def test_reference_embedding_ignores_pad_ids(executors):
+    """The premise of H28's packed rows: the reference's own forward (its
+    jitted function, JAX on the CPU) gives the same embedding, bit for bit,
+    whatever ids the pad positions hold (a pad key's weight is exactly 0, a
+    pad row never reaches the pool)."""
+    import jax.numpy as jnp
+
+    ref, _ = executors
+    rng = np.random.default_rng(9)
+    for n in (1, 17, 63, 64):
+        arr = np.zeros(tr.MAX_LENGTH, np.int32)
+        arr[:n] = rng.integers(1, tr.VOCAB, n)
+        mask = np.arange(tr.MAX_LENGTH) < n
+        want = np.asarray(ref._jitted(ref.params, jnp.asarray(arr), jnp.asarray(mask)))
+        other = arr.copy()
+        other[n:] = rng.integers(0, tr.VOCAB, tr.MAX_LENGTH - n)
+        got = np.asarray(ref._jitted(ref.params, jnp.asarray(other), jnp.asarray(mask)))
+        np.testing.assert_array_equal(got, want, err_msg=f"{n} tokens")
+
+
+def _trimmed_forward(ids: np.ndarray, n: int, params: dict) -> np.ndarray:
+    """One document through the reference's formulas over its ``n`` real
+    rows only (no pad rows, no key bias), in f32 torch ops on the CPU."""
+    x = torch.from_numpy(params["embed"][ids[:n]] + params["pos"][:n])
+    dh = tr.D_MODEL // tr.N_HEADS
+    for lp in params["layers"]:
+        w = {k: torch.from_numpy(v) for k, v in lp.items()}
+        h = x * w["ln1"] / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6) * 8.0
+        q, k, v = (
+            (h @ w[key]).reshape(n, tr.N_HEADS, dh).permute(1, 0, 2) for key in ("wq", "wk", "wv")
+        )
+        att = torch.softmax(q @ k.transpose(1, 2) / 4.0, dim=-1)
+        x = x + (att @ v).permute(1, 0, 2).reshape(n, tr.D_MODEL) @ w["wo"]
+        h2 = x * w["ln2"] / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6) * 8.0
+        x = x + torch.relu(h2 @ w["w1"]) @ w["w2"]
+    pooled = x.mean(dim=0)
+    return (pooled / (torch.linalg.vector_norm(pooled) + 1e-6)).numpy()
+
+
+def test_plain_encoder_over_trimmed_rows_equals_padded():
+    """The port's plain version over a document's real rows only equals its
+    padded [B, 64] result within 1e-6 (f32 sums in another order), at
+    every length 1..64 and with other ids in the pad positions."""
+    params = tr._init_params(0)
+    model = tr.TransformerEncoder(params, "cpu")
+    rng = np.random.default_rng(10)
+    lens = np.arange(1, 65, dtype=np.int32)
+    ids = rng.integers(1, tr.VOCAB, (64, 64)).astype(np.int32)
+    padded = ids.copy()
+    padded[np.arange(64)[None, :] >= lens[:, None]] = 0
+    want = model(torch.from_numpy(padded), torch.from_numpy(lens)).numpy()
+    other = model(torch.from_numpy(ids), torch.from_numpy(lens)).numpy()
+    np.testing.assert_allclose(other, want, rtol=0, atol=1e-6)
+    for i, n in enumerate(lens):
+        np.testing.assert_allclose(_trimmed_forward(ids[i], int(n), params), want[i],
+                                   rtol=0, atol=1e-6, err_msg=f"{n} tokens")
+
+
 def test_tokenize_string_equal():
     for text in ("GET /api/v1/users failed with 500", "", "a", "x" * 400,
                  "error connecting to db", " ".join(f"w{i}" for i in range(100))):
