@@ -641,6 +641,22 @@ def row_bins(kernels, histogram, values, log_gamma) -> torch.Tensor:
     return state.argmax(dim=1)
 
 
+def h1_cases(rng, n: int, dev) -> list:
+    """(name, [(tensor or None, offset)], S) of H1's timed shapes."""
+    big = lambda: torch.from_numpy(
+        rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)).to(dev)
+    sent = torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32)).to(dev)
+    recv = torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32)).to(dev)
+    return [
+        ("service_stats count", [(None, 0)], N_SERVICES),
+        ("service_stats mean count", [], N_SERVICES),
+        ("int64 row", [(big(), 0)], N_SERVICES),
+        ("flows", [(sent, 1 << 10), (recv, 3 << 20)], FLOW_GROUPS),
+        ("cell lane", [], N_SERVICES * len(STATUSES)),
+        ("S=32768", [(big(), 0), (big(), 0)], 32768),
+    ]
+
+
 def kernel_phases(kernels, segment, histogram, dev) -> dict:
     """Every kernel against its plain version on the card; returns per-kernel
     records for the main-path shape (the first case of each kernel)."""
@@ -653,31 +669,44 @@ def kernel_phases(kernels, segment, histogram, dev) -> dict:
         g = rng.integers(-1, S + 1, n).astype(np.int32)  # a few out of range
         return torch.from_numpy(g).to(dev), torch.from_numpy(mask_np).to(dev)
 
-    # H1: the fused lane's [count row] + presence, and mean's count (R = 0);
-    # S = 4096 still fits shared memory, S = 32768 takes the global path.
-    for R, S in [(1, N_SERVICES), (0, N_SERVICES), (1, 4096), (2, 32768)]:
+    # H1 at the main paths' shapes, each exact against its plain version
+    # (the rows widened, then summed) and timed beside index_add_ over the
+    # valid rows' widened values and count. service_stats: count's row is
+    # the presence row (R = 1), mean's count has none (R = 0), S = 16 (the
+    # register lane); R = 1 with an int64 row at S = 16 (the earlier table
+    # shape); flows: bytes_sent and bytes_recv as staged, int32 with their
+    # offsets, S = 4096 (the cluster lane); status_mix's cell-lane
+    # histogram, S = 16 groups x 4 codes (R = 0); S = 32768 with two int64
+    # rows. The first is the table's shape.
+    for name, specs, S in h1_cases(rng, n, dev):
         g, m = inputs(S)
-        rows = torch.from_numpy(
-            rng.integers(-(2**63), 2**63 - 1, (R, n), dtype=np.int64)
-        ).to(dev)
-        got = kernels.segment_rows_sum_i64(rows, g, m, S)
-        want = segment.segment_rows_sum_i64_plain(rows, g, m, S)
+        got = kernels.segment_rows_sum_i64(specs, g, m, S)
+        rows = [segment.PRESENCE if t is None else segment.Narrow(t, off) for t, off in specs]
+        want = segment.fused_segment_sums_plain(rows, g, S, m)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"H1 R={R} S={S} differs from its plain version")
-        shared = kernels.uses_shared("segment_rows_sum_i64", dev, S, rows=R)
-        log(f"H1 segment_rows_sum_i64 R={R} S={S} shared={shared}: exact")
-        if "segment_rows_sum_i64" in records:
-            continue
+        check(torch.equal(got, want), f"H1 {name} differs from its plain version")
+        value_rows = [t for t, _ in specs if t is not None]
+        lane = kernels.h1_lane(len(value_rows), S, kernels.smem_optin_bytes(dev))
         ok = m & (g >= 0) & (g < S)
-        idx, vals = g[ok].long(), rows[:, ok]
-        lib_out = torch.zeros((R, S), dtype=torch.int64, device=dev)
-        nbytes = R * n * 8 + n * 4 + n + (R + 1) * S * 8
-        records["segment_rows_sum_i64"] = record(
-            lambda: kernels.segment_rows_sum_i64(rows, g, m, S),
-            lambda: segment.segment_rows_sum_i64_plain(rows, g, m, S),
-            lambda: lib_out.index_add_(1, idx, vals),
-            *bound(nbytes, (R + 1) * n), 0.0, f"rows[{R},{n}] S={S}",
+        idx = g[ok].long()
+        lib_vals = torch.stack([segment.widen(r)[ok].long() if r is not None
+                                else torch.ones_like(idx) for r in rows + [None]])
+        lib_out = torch.zeros((len(rows) + 1, S), dtype=torch.int64, device=dev)
+        nbytes = sum(t.element_size() * n for t in value_rows) + n * 4 + n + (len(rows) + 1) * S * 8
+        rec = record(
+            lambda: kernels.segment_rows_sum_i64(specs, g, m, S),
+            lambda: segment.fused_segment_sums_plain(rows, g, S, m),
+            lambda: lib_out.index_add_(1, idx, lib_vals),
+            *bound(nbytes, (len(value_rows) + 1) * n), 0.0,
+            f"{name}: rows {[str(t.dtype) if t is not None else 'presence' for t, _ in specs]} "
+            f"n={n} S={S} lane={lane}",
         )
+        log(f"H1 segment_rows_sum_i64 {rec['shape']}: exact; {rec['ms']:.5f} ms "
+            f"[bound {rec['bound_ms']:.5f}; plain {rec['plain_ms']:.5f}; index_add_ "
+            f"{rec['library_ms']:.5f}]")
+        records.setdefault("segment_rows_sum_i64", dict(rec, by_shape={}))
+        records["segment_rows_sum_i64"]["by_shape"][name] = {
+            k: rec[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms", "shape")}
 
     # H2: mean's f64 sum of the predicate (0/1, as on the main path), and
     # exponential(3e7) latencies, whose sums an f32 or lossy add would miss
@@ -809,11 +838,56 @@ def kernel_phases(kernels, segment, histogram, dev) -> dict:
     return records
 
 
+SEQ_BLOCKS = 32  # a flows query's blocks: 64M rows in 2^21-row blocks
+
+
+def hll_sequence(kernels, hll, dev, mask, reps: int = 5) -> float:
+    """H5 over a flows query's sequence of SEQ_BLOCKS blocks (fresh ports
+    and pairs each, uint16 with offset 1024, 4096 groups) into one state
+    from zero, a 96 MB pass between launches evicting the L2 as the fold's
+    elementwise passes between two H5 launches do: the final registers
+    exact against the plain version; the median over ``reps`` sequences
+    of H5's mean device time a launch (events around each launch, all
+    queued behind a sleep kernel)."""
+    rng = np.random.default_rng(11)
+    G, n = FLOW_GROUPS, BLOCK_ROWS
+    blocks = [(torch.from_numpy(rng.integers(0, 65535 - 1024, n).astype(np.uint16)).to(dev),
+               torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev))
+              for _ in range(SEQ_BLOCKS)]
+    scrub = torch.zeros(24 << 20, dtype=torch.int32, device=dev)
+    want, got = hll.init(G, dev), hll.init(G, dev)
+    for p16, g in blocks:
+        want = hll.update_plain(want, g, p16.long() + 1024, mask)
+        kernels.hll_update(p16, g, mask, got, 1024)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "H5 flows sequence differs from the plain version")
+    times = []
+    for _ in range(reps):
+        state = hll.init(G, dev)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        marks = []
+        for p16, g in blocks:
+            scrub.add_(1)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            kernels.hll_update(p16, g, mask, state, 1024)
+            b.record()
+            marks.append((a, b))
+        torch.cuda.synchronize()
+        times.append(sum(a.elapsed_time(b) for a, b in marks) / SEQ_BLOCKS)
+    ms = float(np.median(times))
+    log(f"H5 hll_update flows sequence ({SEQ_BLOCKS} blocks, G={G}, lane="
+        f"{kernels.hll_lane(G, hll.DEFAULT_PRECISION, kernels.smem_optin_bytes(dev))}, "
+        f"the L2 evicted between launches): exact; {ms:.5f} ms a launch")
+    return ms
+
+
 def sketch_kernel_phases(dev) -> dict:
     """The sketch kernels against their plain versions on the card, at the
     main paths' shapes (2^21-row blocks; 16 groups, and 4096 for H5 and
     H10 as config 3 runs them); returns their records."""
-    from pixie_tpu_torch.ops import countmin, hashing, hll, kernels, tdigest
+    from pixie_tpu_torch.ops import countmin, hashing, hll, kernels, segment, tdigest
 
     M32 = hashing.M32
     rng = np.random.default_rng(1)
@@ -848,34 +922,42 @@ def sketch_kernel_phases(dev) -> dict:
         *bound(n * 8 + 2 * n * 4, 2 * 24 * n), 0.0, f"words[{n}] pair seed 1",
     )
 
-    # H5: G = 16 keeps the registers in shared memory, 4096 (config 3) in
-    # global; timed at 4096 on zeroed registers, as a query's first block
-    # finds them (registers already holding the block would skip every
-    # atomicMax). Bytes: the rows, and each register the block touches
-    # read and written once.
+    # H5 on flows' remote_port as staged (uint16, offset 1024): G = 16
+    # (shared registers) and 4096 (config 3) exact against the plain
+    # version over the widened ports; timed at 4096 on zeroed registers, as
+    # a query's first block finds them, and over a query's sequence of 32
+    # blocks on filling registers (ms per launch); G = 16 timed too. Bytes:
+    # the rows, and each register the block touches read and written once.
     ports = torch.from_numpy(rng.integers(1024, 65535, n)).to(dev)
+    port16 = (ports - 1024).to(torch.uint16)
     m = 1 << hll.DEFAULT_PRECISION
+    optin = kernels.smem_optin_bytes(dev)
     for G in (N_SERVICES, FLOW_GROUPS):
         g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
-        got = hll.update(hll.init(G, dev), g, ports, mask)
+        got = hll.update(hll.init(G, dev), g, segment.Narrow(port16, 1024), mask)
         want = hll.update_plain(hll.init(G, dev), g, ports, mask)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"H5 G={G} registers differ from the plain version")
-        log(f"H5 hll_update G={G} shared="
-            f"{kernels.uses_shared('hll_update', dev, G, nbins=m)}: registers exact")
-    regs, g4096 = got, g
-    reg, rho = hll._reg_rho(ports, hll.DEFAULT_PRECISION)
-    flat = (g4096.long() * m + reg.long())[mask]
-    touched, rho_kept = torch.unique(flat).numel(), rho[mask]
-    lib_state = torch.zeros(G * m, dtype=torch.int32, device=dev)
-    zeroed, plain_state = fresh(lambda: hll.init(G, dev)), hll.init(G, dev)
-    records["hll_update"] = record(
-        lambda: kernels.hll_update(ports, g4096, mask, zeroed()),
-        lambda: hll.update_plain(plain_state, g4096, ports, mask),
-        lambda: lib_state.scatter_reduce_(0, flat, rho_kept, "amax"),
-        *bound(n * 8 + n * 4 + n + 2 * touched * 4, 40 * n), 0.0,
-        f"words[{n}] state[{G},{m}] zeroed, {touched} registers touched",
-    )
+        lane = kernels.hll_lane(G, hll.DEFAULT_PRECISION, optin)
+        log(f"H5 hll_update G={G} lane={lane}: registers exact")
+        reg, rho = hll._reg_rho(ports, hll.DEFAULT_PRECISION)
+        flat = (g.long() * m + reg.long())[mask]
+        touched, rho_kept = torch.unique(flat).numel(), rho[mask]
+        lib_state = torch.zeros(G * m, dtype=torch.int32, device=dev)
+        zeroed, plain_state = fresh(lambda: hll.init(G, dev)), hll.init(G, dev)
+        rec = record(
+            lambda: kernels.hll_update(port16, g, mask, zeroed(), 1024),
+            lambda: hll.update_plain(plain_state, g, ports, mask),
+            lambda: lib_state.scatter_reduce_(0, flat, rho_kept, "amax"),
+            *bound(n * 2 + n * 4 + n + 2 * touched * 4, 40 * n), 0.0,
+            f"uint16 words[{n}] state[{G},{m}] zeroed, {touched} registers touched, lane={lane}",
+        )
+        log(f"H5 hll_update {rec['shape']}: {rec['ms']:.5f} ms [bound {rec['bound_ms']:.5f}; "
+            f"plain {rec['plain_ms']:.5f}; scatter_reduce_ {rec['library_ms']:.5f}]")
+        if G == FLOW_GROUPS:
+            records["hll_update"] = rec
+            regs, g4096 = got, g
+    records["hll_update"]["sequence_ms"] = hll_sequence(kernels, hll, dev, mask)
 
     # H10 on config 3's 4096 groups of those registers: the estimate within
     # 1e-12 before rounding; rounded equal unless within that of a .5.
@@ -4835,15 +4917,15 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
 
 # One turn of ``--ab-parent --ab-paths``: the named paths in the tree of the
 # working directory, each on its own table as the main run builds it:
-# service_stats and reservoir_latency (http_events), reservoir_flows
-# (conn_flows), svc_let, endpoint_load and path_embeddings (the let table)
-# warm, flow_window (conn_flows) cold (the executor's caches dropped before
-# each query), the build of http_small_ring with resident ingest on
-# (seconds from create_table to stop(), the ring's window decodes
-# included). The child runs the other tree's chip_smoke.py, so it calls
-# only helpers that tree has.
-AB_PATHS = ("service_stats", "reservoir_latency", "reservoir_flows", "flow_window", "ring_build",
-            "svc_let", "endpoint_load", "path_embeddings")
+# service_stats, sketches and reservoir_latency (http_events), flows and
+# reservoir_flows (conn_flows), svc_let, endpoint_load and path_embeddings
+# (the let table) warm, flow_window (conn_flows) cold (the executor's caches
+# dropped before each query), the build of http_small_ring with resident
+# ingest on (seconds from create_table to stop(), the ring's window decodes
+# included); "kernels": H1 and H5 alone, as one median each. The child runs
+# the other tree's chip_smoke.py, so it calls only helpers that tree has.
+AB_PATHS = ("service_stats", "sketches", "reservoir_latency", "flows", "reservoir_flows",
+            "flow_window", "ring_build", "svc_let", "endpoint_load", "path_embeddings", "kernels")
 AB_PATHS_CHILD = r"""
 import json, sys, time
 sys.path.insert(0, ".")
@@ -4863,9 +4945,10 @@ def warm(c, name, q, now_ns=None):
     if name in paths:
         timed(c, q, True, now_ns)
         out[name] = [timed(c, q, False, now_ns) for _ in range(reps)]
-if "service_stats" in paths or "reservoir_latency" in paths:
+if {"service_stats", "sketches", "reservoir_latency"} & set(paths):
     c = cs.build_carnot(cs.http_events(1 << 26), 1 << 26, "cuda")
     warm(c, "service_stats", cs.SERVICE_STATS)
+    warm(c, "sketches", cs.SKETCHES)
     warm(c, "reservoir_latency", cs.RESERVOIR_LATENCY)
     del c
 if {"svc_let", "endpoint_load", "path_embeddings"} & set(paths):
@@ -4875,8 +4958,9 @@ if {"svc_let", "endpoint_load", "path_embeddings"} & set(paths):
     warm(c, "endpoint_load", queries["load"], cs.LET_NOW)
     warm(c, "path_embeddings", cs.PATH_EMBEDDINGS)
     del c
-if "reservoir_flows" in paths or "flow_window" in paths:
+if {"flows", "reservoir_flows", "flow_window"} & set(paths):
     f = cs.build_flows_carnot(cs.conn_flows(cs.FLOW_ROWS), cs.FLOW_ROWS, "cuda")
+    warm(f, "flows", cs.FLOWS)
     if "reservoir_flows" in paths:
         timed(f, cs.RESERVOIR_FLOWS, True)
         out["reservoir_flows"] = [timed(f, cs.RESERVOIR_FLOWS, False) for _ in range(reps)]
@@ -4891,6 +4975,40 @@ if "ring_build" in paths:
     flags.set("resident_ingest", True)
     c = Carnot(device_executor=DeviceExecutor(device="cuda", block_rows=cs.BLOCK_ROWS))
     out["ring_build"] = [cs.build_small_table(c, "http_small_ring", hs, cs.SMALL_ROWS)]
+if "kernels" in paths:
+    # H1 and H5 through the call both trees take (int64 rows and words), at
+    # the shapes the kernel table times, each its own median of 30 calls.
+    import numpy as np
+    from pixie_tpu_torch.ops import hll
+    rng, n, dev = np.random.default_rng(0), cs.BLOCK_ROWS, torch.device("cuda")
+    mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
+    for R, S in ((1, 16), (0, 16), (2, 4096), (2, 32768)):
+        g = torch.from_numpy(rng.integers(-1, S + 1, n).astype(np.int32)).to(dev)
+        rows = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (R, n), dtype=np.int64)).to(dev)
+        out[f"kernels:h1 R={R} S={S}"] = [
+            cs.time_ms(lambda: kernels.segment_rows_sum_i64(rows, g, mask, S))]
+    ports = torch.from_numpy(rng.integers(1024, 65535, n)).to(dev)
+    for G in (16, 4096):
+        g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+        zeroed = cs.fresh(lambda: hll.init(G, dev))
+        out[f"kernels:h5 G={G} zeroed"] = [
+            cs.time_ms(lambda: kernels.hll_update(ports, g, mask, zeroed()))]
+    blocks = [(torch.from_numpy(rng.integers(1024, 65535, n)).to(dev),
+               torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32)).to(dev))
+              for _ in range(32)]
+    seq = []
+    for _ in range(5):
+        state = hll.init(4096, dev)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        for w, g in blocks:
+            kernels.hll_update(w, g, mask, state)
+        b.record()
+        torch.cuda.synchronize()
+        seq.append(a.elapsed_time(b) / 32)
+    out["kernels:h5 G=4096 sequence"] = [float(np.median(seq))]
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -4904,7 +5022,7 @@ def ab_paths(parent: str, pairs: int, paths: list, reps: int = 15) -> dict:
     parent's own spread (its largest turn median less its smallest)."""
     turns = ab_turns(parent, pairs, AB_PATHS_CHILD % (tuple(paths), reps))
     out = {}
-    for name in paths:
+    for name in turns["change"][0]:
         med = {tag: [float(np.median(t[name])) for t in turns[tag]] for tag in turns}
         out[name] = dict(
             parent=med["parent"], change=med["change"],
@@ -5331,7 +5449,7 @@ def main() -> int:
             "copy_bound_ms": r["bound_ms"] * HBM_BYTES_PER_S / rate
             if r["bound_by"] == "bytes" else None,
             **{k: v for k, v in r.items()
-               if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_"))},
+               if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_", "sequence"))},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -7,7 +7,8 @@ of the rest, plus one), and each register keeps its largest rho. Merge is an
 elementwise max.
 
 On a CUDA tensor ``update`` launches H5 (hash, register, rho and an atomic
-max in one pass over the block, IN PLACE), ``cell_update`` H20 (the
+max in one pass over the block, IN PLACE; a ``segment.Narrow`` column read
+as staged), ``cell_update`` H20 (the
 int-dictionary cell lane: one update per (group, value code) cell present in
 a histogram, IN PLACE) and ``estimate`` H10; on a CPU tensor the plain
 versions below run. The reference's sort-compact lane and its scatter-max
@@ -62,17 +63,22 @@ def update_plain(
 
 
 def update(
-    state: torch.Tensor, gids: torch.Tensor, values: torch.Tensor,
+    state: torch.Tensor, gids: torch.Tensor, values,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fold a block of (group, value) rows into the registers; on CUDA the
-    registers are updated in place."""
+    registers are updated in place. ``values`` is a column or a
+    ``segment.Narrow`` (a narrowed int64 column: each row hashes as its
+    int64 value, which H5 forms from the staged bytes and the offset)."""
     if state.is_cuda:
+        if isinstance(values, segment.Narrow):
+            col, off = values.values, values.offset
+        else:
+            col, off = values, None
         return kernels.hll_update(
-            hashing.words64(values).contiguous(), gids.to(torch.int32).contiguous(),
-            mask, state,
+            col.contiguous(), gids.to(torch.int32).contiguous(), mask, state, off,
         )
-    return update_plain(state, gids, values, mask)
+    return update_plain(state, gids, segment.widen(values), mask)
 
 
 def cell_update_plain(state: torch.Tensor, hist: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

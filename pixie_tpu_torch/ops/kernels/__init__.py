@@ -18,7 +18,9 @@ transformer UDF's encoder (H28), ``merge_kernels.cu`` the sharded
 fold's cross-shard merge of the states (H29), and ``hash_kernels.cu`` the
 row-wise 64-bit hash of several columns and the u64 leading-zero count
 (H31, H32; ``sketch_kernels.cu`` also holds the count-min query, H30:
-these three have no caller in either package yet); see each file's header. At
+these three have no caller in either package yet); ``rows.cuh`` holds the
+typed row loads of H1 and H5 (a column read as staged, ``ROW_*`` kinds);
+see each file's header. At
 the first launch, ``library()`` compiles them with ``nvcc`` for
 ``sm_90a``, one process per source started together, and links them into
 ``pixie_tpu_torch/_build/`` as one shared library with a plain C
@@ -99,7 +101,7 @@ SOURCES = (
     "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu", "ml_kernels.cu",
     "transformer_kernels.cu", "merge_kernels.cu", "hash_kernels.cu",
 )
-HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh")
+HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh", "rows.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,7 +111,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "px_smem_optin_bytes": (ctypes.POINTER(ctypes.c_int),),
-    "px_segment_rows_sum_i64": (_P, _I, _LL, _P, _P, _I, _P, _I, _P),
+    "px_segment_rows_sum_i64": (_P, _P, _P, _I, _LL, _P, _P, _I, _P, _I, _I, _P),
     "px_segment_sum_f64": (_P, _LL, _P, _P, _I, _P, _I, _P),
     "px_log_histogram_update": (
         _P, _LL, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P, _I, _P,
@@ -119,7 +121,7 @@ _SIGNATURES = {
         ctypes.c_double, _P, _P,
     ),
     "px_hash32": (_P, _LL, ctypes.c_uint, _I, _P, _P),
-    "px_hll_update": (_P, _LL, _P, _P, _I, _I, _P, _I, _P),
+    "px_hll_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _P, _I, _P),
     "px_countmin_update": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_pack": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _I, _P),
@@ -313,14 +315,10 @@ def uses_shared(
 ) -> bool:
     """Whether ``kernel``'s per-CTA partial fits ``device``'s opt-in shared
     memory."""
-    if kernel == "segment_rows_sum_i64":
-        nbytes = (rows + 1) * num_segments * 8
-    elif kernel == "segment_sum_f64":
+    if kernel == "segment_sum_f64":
         nbytes = num_segments * 8
     elif kernel == "log_histogram_update":
         nbytes = num_segments * nbins * 4
-    elif kernel == "hll_update":
-        nbytes = num_segments * nbins * 4  # nbins: registers per group
     elif kernel == "tdigest_cluster":
         nbytes = 2 * num_segments * nbins * 8  # nbins: capacity
     elif kernel == "segment_minmax":
@@ -332,27 +330,105 @@ def uses_shared(
     return nbytes <= smem_optin_bytes(device)
 
 
-def segment_rows_sum_i64(
-    rows: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    num_segments: int,
-) -> torch.Tensor:
+# Row kinds of H1 and H5 (rows.cuh RowKind): how a staged row's bytes
+# widen to 64 bits.
+ROW_PRESENCE, ROW_U8, ROW_U16, ROW_I32, ROW_I64, ROW_U32, ROW_F64 = range(7)
+SUM_ROW_KINDS = {
+    torch.bool: ROW_U8, torch.uint8: ROW_U8, torch.uint16: ROW_U16, torch.int32: ROW_I32,
+    torch.int64: ROW_I64,
+}
+H1_MAX_ROWS = 32  # kMaxRows of hopper_kernels.cu: output rows a launch
+H1_REGS_MAX_S = 32  # the register lane's largest bucket
+H1_CLUSTER = 8  # CTAs of the cluster lane (kCluster of hopper_kernels.cu)
+
+
+def _i64(x: int) -> int:
+    """``x`` mod 2^64 as a signed int64."""
+    return ((int(x) + (1 << 63)) % (1 << 64)) - (1 << 63)
+
+
+def h1_lane(value_rows: int, S: int, optin: int) -> tuple[str, int]:
+    """H1's lane for ``value_rows`` rows that read bytes (a presence row
+    reads none) over S groups, with ``optin`` bytes of shared memory a
+    block: ("regs", bucket) for S <= 32, the bucket 8, 16 or 32 groups;
+    ("cluster", CTAs) while the whole partial (8 B a value row and a 4-byte
+    count a group, ``h1_partial_bytes``) fits each CTA, the cluster adding
+    its CTAs' partials before the flush; else ("global", 0)."""
+    if S <= 0:
+        raise ValueError(f"H1 needs groups, got S={S}")
+    if S <= H1_REGS_MAX_S:
+        return "regs", 8 if S <= 8 else 16 if S <= 16 else 32
+    if h1_partial_bytes(value_rows, S) <= optin:
+        return "cluster", H1_CLUSTER
+    return "global", 0
+
+
+def h1_partial_bytes(value_rows: int, S: int) -> int:
+    """Shared bytes of a CTA of H1's cluster lane: S groups times (8 B a
+    value row + a 4-byte count)."""
+    return S * (8 * value_rows + 4)
+
+
+def cluster_slices(S: int, cluster: int) -> list:
+    """[lo, hi) of the groups each CTA of a cluster adds up and flushes
+    (rank order); trailing ranks may hold none."""
+    slice_ = -(-S // cluster)
+    return [(min(S, r * slice_), min(S, (r + 1) * slice_)) for r in range(cluster)]
+
+
+def _row_spec(t, off: int, i: int, n: int, device) -> tuple:
+    if t is None:
+        return None, ROW_PRESENCE, 0
+    if t.dtype not in SUM_ROW_KINDS:
+        raise TypeError(f"rows[{i}] has dtype {t.dtype}, expected one of {list(SUM_ROW_KINDS)}")
+    _require(t, f"rows[{i}]", t.dtype, device, 1)
+    if t.shape[0] != n:
+        raise ValueError(f"rows[{i}] has {t.shape[0]} rows, expected {n}")
+    return t.data_ptr(), SUM_ROW_KINDS[t.dtype], _i64(off)
+
+
+def segment_rows_sum_i64(rows, gids: torch.Tensor, mask: Optional[torch.Tensor],
+                         num_segments: int) -> torch.Tensor:
     """H1: int64 [R + 1, S] — row r's per-segment sums (mod 2^64) for r < R,
     then the per-segment count of valid rows. Rows with mask False or a gid
-    outside [0, S) contribute nothing."""
+    outside [0, S) contribute nothing. ``rows``: an int64 [R, n] tensor, or
+    R pairs (tensor, offset), each tensor [n] of bool, uint8, uint16, int32
+    or int64 read as it lies, every value plus ``offset`` summed (a
+    narrowed column with its frame-of-reference offset), or (None, 0): the
+    presence row, which reads nothing and equals the count. One launch
+    count per H1_MAX_ROWS rows."""
     device = gids.device
-    _require(rows, "rows", torch.int64, device, 2)
-    R, n = rows.shape
+    if isinstance(rows, torch.Tensor):
+        _require(rows, "rows", torch.int64, device, 2)
+        pairs, n = [(r, 0) for r in rows], rows.shape[1]
+    else:
+        pairs, n = list(rows), gids.shape[0]
     mask = _gids_mask(gids, mask, n, device)
-    out = torch.zeros((R + 1, num_segments), dtype=torch.int64, device=device)
-    if n == 0 or num_segments == 0:
+    specs = [_row_spec(t, off, i, n, device) for i, (t, off) in enumerate(pairs)]
+    R, S = len(specs), num_segments
+    out = torch.zeros((R + 1, S), dtype=torch.int64, device=device)
+    if n == 0 or S == 0:
         return out
-    _launch(
-        "segment_rows_sum_i64", device,
-        rows.data_ptr(), R, n, gids.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        num_segments, out.data_ptr(),
-        int(uses_shared("segment_rows_sum_i64", device, num_segments, rows=R)),
-    )
+    if n >= 1 << 31:
+        raise ValueError(f"H1 takes fewer than 2^31 rows, got {n}")
+    optin = smem_optin_bytes(device)
+    for lo in range(0, max(R, 1), H1_MAX_ROWS):
+        part = specs[lo:lo + H1_MAX_ROWS]
+        dst = out if R <= H1_MAX_ROWS else torch.zeros(
+            (len(part) + 1, S), dtype=torch.int64, device=device)
+        lane, arg = h1_lane(sum(k != ROW_PRESENCE for _, k, _ in part), S, optin)
+        r = len(part)
+        _launch(
+            "segment_rows_sum_i64", device,
+            ctypes.cast((ctypes.c_void_p * max(r, 1))(*[p for p, _, _ in part]), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_int * max(r, 1))(*[k for _, k, _ in part]), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_longlong * max(r, 1))(*[o for _, _, o in part]), ctypes.c_void_p),
+            r, n, gids.data_ptr(), mask.data_ptr() if mask is not None else None, S,
+            dst.data_ptr(), ("regs", "cluster", "global").index(lane), arg,
+        )
+        if dst is not out:
+            out[lo:lo + r] = dst[:r]
+            out[R] = dst[r]
     return out
 
 
@@ -438,16 +514,48 @@ def hash32(words: torch.Tensor, seed: int, pair: bool) -> torch.Tensor:
     return out
 
 
+def hll_lane(G: int, precision: int, optin: int) -> str:
+    """H5's lane: "shared" while [G, 2^p] int32 registers fit a block's
+    opt-in shared memory, else "onepass"."""
+    return "shared" if G * (1 << precision) * 4 <= optin else "onepass"
+
+
+_HLL_LANES = ("shared", "onepass")
+
+
+def hll_word_kind(dtype: torch.dtype, offset: Optional[int]) -> int:
+    """The row kind H5 reads a ``dtype`` column as: with an offset (a
+    narrowed int64 column) the int64 value plus it, so an int32 sign-
+    extends; without, ``hashing.words64``'s word, so an int32 zero-extends
+    as u32 and an f64 is its bits."""
+    if dtype == torch.float64:
+        if offset is not None:
+            raise ValueError("H5: a float column has no offset")
+        return ROW_F64
+    if dtype == torch.int32 and offset is None:
+        return ROW_U32
+    if dtype in SUM_ROW_KINDS:
+        return SUM_ROW_KINDS[dtype]
+    raise TypeError(f"H5 takes no {dtype} column")
+
+
 def hll_update(
-    words: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    state: torch.Tensor,
+    values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    state: torch.Tensor, offset: Optional[int] = None,
 ) -> torch.Tensor:
     """H5: folds each valid row's (register, rho) into ``state`` (int32
-    [S, 2^p]) IN PLACE by atomic max, and returns it."""
+    [S, 2^p]) IN PLACE by atomic max, and returns it. ``values`` [n] is read
+    as it lies. With ``offset`` (a narrowed int64 column: bool, uint8,
+    uint16, int32 or int64) a row hashes as its int64 value plus the
+    offset; without, as ``hashing.words64`` gives its word (int64 as is,
+    a narrower int zero-extended as u32, a float's f64 bits)."""
     device = gids.device
-    _require(words, "words", torch.int64, device, 1)
     _require(state, "state", torch.int32, device, 2)
-    n = words.shape[0]
+    if values.dtype in (torch.float32, torch.int8, torch.int16) and offset is None:
+        values = values.to(torch.float64 if values.is_floating_point() else torch.int32)
+    kind = hll_word_kind(values.dtype, offset)
+    _require(values, "values", values.dtype, device, 1)
+    n = values.shape[0]
     mask = _gids_mask(gids, mask, n, device)
     S, m = state.shape
     precision = m.bit_length() - 1
@@ -455,12 +563,12 @@ def hll_update(
         raise ValueError(f"HLL state width {m} is not a power of two >= 16")
     if n == 0 or S == 0:
         return state
+    lane = hll_lane(S, precision, smem_optin_bytes(device))
     _launch(
         "hll_update", device,
-        words.data_ptr(), n, gids.data_ptr(),
+        values.data_ptr(), kind, _i64(offset or 0), n, gids.data_ptr(),
         mask.data_ptr() if mask is not None else None,
-        S, precision, state.data_ptr(),
-        int(uses_shared("hll_update", device, S, nbins=m)),
+        S, precision, state.data_ptr(), _HLL_LANES.index(lane),
     )
     return state
 

@@ -7,7 +7,9 @@
 //
 // H1 px_segment_rows_sum_i64  replaces pixie_tpu/ops/segment.py
 //    limb_einsum_sums + reconstruct_i64 (:235, :269) and seg_count (:616):
-//    per-segment sums of R int64 rows plus one presence (row count) row.
+//    per-segment sums of R rows plus one presence (row count) row, each row
+//    read where the fold staged it (rows.cuh: bool, uint8, uint16, int32 or
+//    int64 with a frame-of-reference offset; count's row reads nothing).
 // H2 px_segment_sum_f64       replaces pixie_tpu/ops/segment.py seg_sum
 //    (:593) on f64 values (its _matvec_sum_f64 lane, :168).
 // H3 px_log_histogram_update  replaces pixie_tpu/ops/histogram.py bin_index
@@ -15,22 +17,31 @@
 // H4 px_hist_quantiles        replaces pixie_tpu/ops/histogram.py
 //    quantile_values (:83).
 // The sketch kernels (the hash kernel, H5-H10) are in sketch_kernels.cu,
-// the launch helpers both use in common.cuh.
+// the launch helpers both use in common.cuh, the typed row loads in
+// rows.cuh.
 //
 // The TPU versions ride the matrix unit through one-hot einsums and split
 // int64 into 8-bit limbs so that f32 accumulation stays exact; that design
 // exists only because the TPU's scatter unit is slow. Here every reduction
-// is an atomic add: into a per-CTA partial in shared memory while the
-// partial fits in the block's opt-in shared-memory limit, else straight into
-// the output in global memory. Each CTA flushes its partial with one global
-// atomic per non-zero cell.
+// adds: H2 and H3 into a per-CTA partial in shared memory while it fits the
+// block's opt-in limit, else straight into the output by global atomics.
+// H1 has three lanes (ops/kernels/__init__.py h1_lane): (a) S <= 32, each
+// thread's cells private in shared memory, no atomics until the CTA's
+// flush; (b) while the whole partial fits a CTA, native 32-bit shared
+// atomics (a 64-bit sum as two words with a carry), then a cluster of 8
+// CTAs adds its partials through distributed shared memory before one
+// flush; (c) otherwise global atomics. An offset is added once a cell at
+// the flush (sum(v + off) = sum(v) + count * off mod 2^64).
 //
 // What bounds them on an H100: H1-H3 read each input once and write a small
 // [cells] output, so they are memory-bound at their bytes over the HBM rate
-// when the atomics keep up. With few segments (the main path has 16) every
-// warp's lanes collide on the same shared addresses, and the serialised
-// shared atomics, not HBM, set the time. H4 reads S x 1024 counts once and
-// is latency-bound at small S.
+// when the adds keep up. H1's lane (a) costs a shared load and store a row
+// and cell kind, not the 16-way atomic collisions of one partial a CTA;
+// lane (b) is bound by its shared atomics (one a row for the count, one or
+// two a value row); lane (c) by the L2's atomics. H2 and H3 with few
+// segments collide on the same shared addresses, and the serialised shared
+// atomics, not HBM, set the time. H4 reads S x 1024 counts once and is
+// latency-bound at small S.
 //
 // Integer sums are unsigned 64-bit wrapping adds, so they are exact mod 2^64
 // like the reference's reconstruct_i64. The f64 sums add in a
@@ -39,7 +50,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -48,33 +64,222 @@ using px::grid_for;
 using px::kThreads;
 
 // ---------------------------------------------------------------- H1
-__global__ void segment_rows_sum_i64_kernel(const long long* __restrict__ rows, int R,
-                                            long long n, const int* __restrict__ gids,
-                                            const unsigned char* __restrict__ mask, int S,
-                                            unsigned long long* __restrict__ out,
-                                            int use_shared) {
-  extern __shared__ unsigned long long sh_u64[];
-  const long long cells = (long long)(R + 1) * S;
-  unsigned long long* acc = use_shared ? sh_u64 : out;
-  if (use_shared) {
-    for (long long c = threadIdx.x; c < cells; c += blockDim.x) sh_u64[c] = 0ull;
-    __syncthreads();
+// The rows of one launch, each read where the fold staged it (rows.cuh):
+// ``RV`` value rows (a typed pointer, an offset added once a row, the
+// output row it sums into), ``presence`` the output rows that are the
+// count itself (count's row: no bytes read), the count at ``count_row``.
+constexpr int kMaxRows = 32;
+
+struct RowArgs {
+  const void* ptr[kMaxRows];
+  long long off[kMaxRows];
+  int kind[kMaxRows];
+  int out_row[kMaxRows];
+  unsigned int vec_row;  // bit r: value row r takes vector loads
+  unsigned int presence;
+  int RV;
+  int count_row;
+  int vec;  // gids and mask take vector loads
+  const int* gids;
+  const unsigned char* mask;
+  long long n;
+  int S;
+  unsigned long long* out;
+};
+
+// Adds a group's count (cnt rows) into the count row and every presence
+// row of the output.
+__device__ __forceinline__ void add_count(const RowArgs& a, int g, unsigned long long cnt) {
+  const long long S = a.S;
+  atomicAdd(&a.out[(long long)a.count_row * S + g], cnt);
+  for (unsigned int p = a.presence; p != 0u; p &= p - 1u) {
+    atomicAdd(&a.out[(long long)(__ffs(p) - 1) * S + g], cnt);
   }
+}
+
+// Adds value row r's sum of cnt rows of group g with the row's offset:
+// sum(v + off) = sum(v) + cnt * off (mod 2^64).
+__device__ __forceinline__ void add_value(const RowArgs& a, int r, int g,
+                                          unsigned long long sum, unsigned long long cnt) {
+  const unsigned long long x = sum + cnt * (unsigned long long)a.off[r];
+  if (x != 0ull) atomicAdd(&a.out[(long long)a.out_row[r] * a.S + g], x);
+}
+
+// A 64-bit warp shuffle as two 32-bit ones.
+__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int w) {
+  const unsigned int lo = __shfl_xor_sync(0xFFFFFFFFu, (unsigned int)v, w);
+  const unsigned int hi = __shfl_xor_sync(0xFFFFFFFFu, (unsigned int)(v >> 32), w);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// A 64-bit add into two 32-bit words of shared memory by native 32-bit
+// atomics (a 64-bit shared atomic add is a compare-and-swap loop): the low
+// word's add returns its old value, and a wrap carries into the high word.
+__device__ __forceinline__ void add_u64_split(unsigned int* lo, unsigned int* hi,
+                                              unsigned long long v) {
+  const unsigned int vlo = (unsigned int)v, vhi = (unsigned int)(v >> 32);
+  const unsigned int old = atomicAdd(lo, vlo);
+  const unsigned int carry = old + vlo < old ? 1u : 0u;
+  if (vhi + carry != 0u) atomicAdd(hi, vhi + carry);
+}
+
+// (a) S <= SB <= 32: a count and RV sums a cell for each thread, private,
+// in shared memory laid out [cell][thread] (a thread's cells in distinct
+// banks: no conflicts, no atomics), 8 rows a thread a step; then the CTA
+// adds each cell's kRegsThreads entries by warps and flushes them: one
+// global atomic per CTA and cell, kRegsCtasPerSm CTAs an SM. Up to two
+// value rows a launch (the host launches again for more, the first launch
+// adds the count and presence).
+constexpr int kRegsThreads = 256;
+constexpr int kRegsCtasPerSm = 2;
+
+template <int SB, int RV>
+__global__ void __launch_bounds__(kRegsThreads)
+    rows_sum_regs_kernel(const RowArgs a, int first) {
+  constexpr int RVA = RV > 0 ? RV : 1;
+  extern __shared__ unsigned long long sh_priv[];
+  unsigned long long* val = sh_priv;  // [RV][SB][threads]
+  unsigned int* cnt = reinterpret_cast<unsigned int*>(sh_priv + RV * SB * kRegsThreads);
+  __shared__ unsigned long long sh_tot[RVA + 1][SB];  // the CTA's cells; row RV: counts
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < SB; ++s) {
+    cnt[s * kRegsThreads + t] = 0u;
+#pragma unroll
+    for (int r = 0; r < RV; ++r) val[(r * SB + s) * kRegsThreads + t] = 0ull;
+  }
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (mask != nullptr && !mask[i]) continue;
-    const int g = gids[i];
-    if (g < 0 || g >= S) continue;
-    for (int r = 0; r < R; ++r) {
-      atomicAdd(&acc[(long long)r * S + g], (unsigned long long)rows[(long long)r * n + i]);
+  for (long long c = (long long)blockIdx.x * blockDim.x + t; c < chunks; c += stride) {
+    const long long i0 = c * px::kRowsPerThread;
+    int g[px::kRowsPerThread];
+    px::load_gids8(a.gids, a.mask, i0, a.n, a.S, a.vec != 0, g);
+    unsigned long long v[RVA][px::kRowsPerThread];
+#pragma unroll
+    for (int r = 0; r < RV; ++r) {
+      px::load_vals8(a.ptr[r], a.kind[r], i0, a.n, (a.vec_row >> r) & 1u, v[r]);
     }
-    atomicAdd(&acc[(long long)R * S + g], 1ull);
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (g[j] < 0) continue;
+      cnt[g[j] * kRegsThreads + t] += 1u;
+#pragma unroll
+      for (int r = 0; r < RV; ++r) val[(r * SB + g[j]) * kRegsThreads + t] += v[r][j];
+    }
   }
-  if (use_shared) {
-    __syncthreads();
-    for (long long c = threadIdx.x; c < cells; c += blockDim.x) {
-      const unsigned long long v = sh_u64[c];
-      if (v != 0ull) atomicAdd(&out[c], v);
+  __syncthreads();
+  // Cell x of the CTA (x < SB: a count; then row r's sums) by one warp.
+  const int lane = t & 31, warp = t / 32, warps = kRegsThreads / 32;
+  for (int x = warp; x < (RV + 1) * SB; x += warps) {
+    unsigned long long sum = 0ull;
+    if (x < SB) {
+      for (int k = lane; k < kRegsThreads; k += 32) sum += cnt[x * kRegsThreads + k];
+    } else {
+      for (int k = lane; k < kRegsThreads; k += 32) sum += val[(x - SB) * kRegsThreads + k];
+    }
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) sum += shfl_xor(sum, w);
+    if (lane == 0) {
+      if (x < SB) sh_tot[RV][x] = sum;
+      else sh_tot[(x - SB) / SB][(x - SB) % SB] = sum;
+    }
+  }
+  __syncthreads();
+  for (int s = t; s < SB && s < a.S; s += blockDim.x) {
+    const unsigned long long cnt = sh_tot[RV][s];
+    if (cnt == 0ull) continue;
+    if (first) add_count(a, s, cnt);
+#pragma unroll
+    for (int r = 0; r < RV; ++r) add_value(a, r, s, sh_tot[r][s], cnt);
+  }
+}
+
+// (b) the partial [RV + 1, S] in each CTA's shared memory (the value rows'
+// sums as low and high 32-bit words, add_u64_split, then a u32 count),
+// while it fits: every row adds into its own CTA's partial by native
+// 32-bit shared atomics. Then a thread block cluster adds its CTAs' partials
+// through distributed shared memory, each rank the groups of its slice
+// [r * slice, (r + 1) * slice), and flushes them: a cell takes one global
+// atomic per cluster, not one per CTA.
+constexpr int kCluster = 8;  // CTAs of a cluster (ops/kernels/__init__.py H1_CLUSTER)
+
+__global__ void __launch_bounds__(px::kThreads)
+    rows_sum_cluster_kernel(const RowArgs a) {
+  constexpr int C = kCluster;
+  namespace cg = cooperative_groups;
+  extern __shared__ unsigned long long sh_u64[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = a.S;
+  // [RV][S] sums as low and high words ([RV][2][S] u32), then [S] counts.
+  unsigned int* vals = reinterpret_cast<unsigned int*>(sh_u64);
+  unsigned int* cnts = vals + 2ll * a.RV * S;
+  for (long long c = threadIdx.x; c < (2ll * a.RV + 1) * S; c += blockDim.x) vals[c] = 0u;
+  __syncthreads();
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
+    const long long i0 = c * px::kRowsPerThread;
+    int g[px::kRowsPerThread];
+    px::load_gids8(a.gids, a.mask, i0, a.n, S, a.vec != 0, g);
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (g[j] >= 0) atomicAdd(&cnts[g[j]], 1u);
+    }
+    for (int r = 0; r < a.RV; ++r) {
+      unsigned long long v[px::kRowsPerThread];
+      px::load_vals8(a.ptr[r], a.kind[r], i0, a.n, (a.vec_row >> r) & 1u, v);
+#pragma unroll
+      for (int j = 0; j < px::kRowsPerThread; ++j) {
+        if (g[j] >= 0 && v[j] != 0ull) {
+          unsigned int* lo = vals + 2ll * r * S + g[j];
+          add_u64_split(lo, lo + S, v[j]);
+        }
+      }
+    }
+  }
+  cluster.sync();  // every CTA's partial is complete
+  const int slice = (S + C - 1) / C;
+  const int lo = (int)cluster.block_rank() * slice;
+  const int hi = min(S, lo + slice);
+  for (int g = lo + threadIdx.x; g < hi; g += blockDim.x) {
+    unsigned long long cnt = 0ull;
+#pragma unroll
+    for (int q = 0; q < C; ++q) cnt += *cluster.map_shared_rank(&cnts[g], q);
+    if (cnt == 0ull) continue;
+    add_count(a, g, cnt);
+    for (int r = 0; r < a.RV; ++r) {
+      unsigned long long s = 0ull;
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const unsigned int* w = cluster.map_shared_rank(vals + 2ll * r * S + g, q);
+        s += ((unsigned long long)w[S] << 32) | w[0];
+      }
+      add_value(a, r, g, s, cnt);
+    }
+  }
+  cluster.sync();  // no CTA leaves while others read its partial
+}
+
+// (c) any S: every row straight into the output by global atomics, each
+// value with its offset.
+__global__ void __launch_bounds__(px::kThreads) rows_sum_global_kernel(const RowArgs a) {
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
+    const long long i0 = c * px::kRowsPerThread;
+    int g[px::kRowsPerThread];
+    px::load_gids8(a.gids, a.mask, i0, a.n, a.S, a.vec != 0, g);
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (g[j] >= 0) add_count(a, g[j], 1ull);
+    }
+    for (int r = 0; r < a.RV; ++r) {
+      unsigned long long v[px::kRowsPerThread];
+      px::load_vals8(a.ptr[r], a.kind[r], i0, a.n, (a.vec_row >> r) & 1u, v);
+#pragma unroll
+      for (int j = 0; j < px::kRowsPerThread; ++j) {
+        if (g[j] >= 0) add_value(a, r, g[j], v[j], 1ull);
+      }
     }
   }
 }
@@ -208,6 +413,93 @@ __global__ void hist_quantiles_kernel(const long long* __restrict__ state, int n
   }
 }
 
+// The register lane's launch: one wave of CTAs (as many as fit each SM).
+// A launch of ``kernel`` in clusters of ``csize`` CTAs: as many clusters as
+// fit the card at once (one wave), no more CTAs than ``want`` rounds up to.
+// Clusters of rows_sum_cluster_kernel at a shared size that fit the card at
+// once, by device, found once: the attribute calls and the occupancy query
+// cost the host more than a small launch.
+struct ClusterFit {
+  int device;
+  size_t smem;
+  int clusters;
+};
+std::mutex g_fit_lock;
+std::vector<ClusterFit> g_fits;
+
+// The cluster lane's launch: one wave of clusters, no more CTAs than
+// ``want`` rounds up to.
+cudaError_t launch_cluster_lane(const RowArgs& a, size_t smem, long long want,
+                                cudaStream_t st) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int clusters = 0;
+  {
+    std::lock_guard<std::mutex> hold(g_fit_lock);
+    for (const ClusterFit& f : g_fits) {
+      if (f.device == dev && f.smem == smem) clusters = f.clusters;
+    }
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(px::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(rows_sum_cluster_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveClusters(&clusters, (void*)rows_sum_cluster_kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    std::lock_guard<std::mutex> hold(g_fit_lock);
+    g_fits.push_back({dev, smem, clusters});
+  }
+  long long ctas = (long long)clusters * kCluster;
+  const long long need = (want + kCluster - 1) / kCluster * kCluster;
+  if (need < ctas) ctas = need > kCluster ? need : kCluster;
+  cfg.gridDim = dim3((unsigned)ctas);
+  err = cudaLaunchKernelEx(&cfg, rows_sum_cluster_kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The register lane's launch: kRegsCtasPerSm CTAs an SM at most.
+template <int SB, int RV>
+cudaError_t launch_regs_rv(const RowArgs& a, int first, cudaStream_t st) {
+  const long long want = ((a.n + 7) / 8 + kRegsThreads - 1) / kRegsThreads;
+  long long grid = (long long)px::num_sms() * kRegsCtasPerSm;
+  if (want < grid) grid = want > 0 ? want : 1;
+  const size_t smem = (size_t)SB * kRegsThreads * (4 + 8 * RV);
+  // The private cells with the static totals may pass 48 KB at smem < 48 KB.
+  cudaError_t err = cudaFuncSetAttribute(rows_sum_regs_kernel<SB, RV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  rows_sum_regs_kernel<SB, RV><<<(int)grid, kRegsThreads, smem, st>>>(a, first);
+  return cudaGetLastError();
+}
+
+template <int SB>
+cudaError_t launch_regs(const RowArgs& a, int first, cudaStream_t st) {
+  switch (a.RV) {
+    case 0: return launch_regs_rv<SB, 0>(a, first, st);
+    case 1: return launch_regs_rv<SB, 1>(a, first, st);
+    case 2: return launch_regs_rv<SB, 2>(a, first, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -220,17 +512,70 @@ int px_smem_optin_bytes(int* bytes) {
   return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// out: int64 [R + 1, S], zeroed by the caller; rows: int64 [R, n] row-major.
-int px_segment_rows_sum_i64(const void* rows, int R, long long n, const void* gids,
-                            const void* mask, int S, void* out, int use_shared,
-                            void* stream) {
-  const size_t smem = use_shared ? (size_t)(R + 1) * S * sizeof(unsigned long long) : 0;
-  cudaError_t err = allow_smem(segment_rows_sum_i64_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  segment_rows_sum_i64_kernel<<<grid_for(n, use_shared ? 2 : 8), kThreads, smem,
-                                (cudaStream_t)stream>>>(
-      (const long long*)rows, R, n, (const int*)gids, (const unsigned char*)mask, S,
-      (unsigned long long*)out, use_shared);
+// H1. ptrs, kinds, offs: R rows (kinds: rows.cuh RowKind, a kPresence
+// row's pointer unread; offs added to each of the row's values). out:
+// int64 [R + 1, S], zeroed by the caller, the count last. lane 0: the
+// register lane (S <= 32); 1: a cluster of csize CTAs (csize 1: one CTA an
+// SM) holding the partial; 2: global atomics (ops/kernels/__init__.py
+// h1_lane chooses).
+int px_segment_rows_sum_i64(const void* const* ptrs, const int* kinds, const long long* offs,
+                            int R, long long n, const void* gids, const void* mask, int S,
+                            void* out, int lane, int csize, void* stream) {
+  if (R < 0 || R > kMaxRows || S <= 0) return (int)cudaErrorInvalidValue;
+  RowArgs a = {};
+  a.gids = (const int*)gids;
+  a.mask = (const unsigned char*)mask;
+  a.n = n;
+  a.S = S;
+  a.out = (unsigned long long*)out;
+  a.count_row = R;
+  a.vec = px::vec_aligned(gids, px::kI32) && (mask == nullptr || (uintptr_t)mask % 8 == 0);
+  int rv = 0;
+  for (int r = 0; r < R; ++r) {
+    if (kinds[r] == px::kPresence) {
+      a.presence |= 1u << r;
+      continue;
+    }
+    a.ptr[rv] = ptrs[r];
+    a.kind[rv] = kinds[r];
+    a.off[rv] = offs[r];
+    a.out_row[rv] = r;
+    if (px::vec_aligned(ptrs[r], kinds[r])) a.vec_row |= 1u << rv;
+    ++rv;
+  }
+  a.RV = rv;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (lane == 0) {
+    if (S > 32) return (int)cudaErrorInvalidValue;
+    // Value rows two a launch; the first also adds the count and presence.
+    int done = 0;
+    do {
+      const int take = rv - done < 2 ? rv - done : 2;
+      RowArgs part = a;
+      part.vec_row = 0u;
+      for (int j = 0; j < take; ++j) {
+        part.ptr[j] = a.ptr[done + j];
+        part.kind[j] = a.kind[done + j];
+        part.off[j] = a.off[done + j];
+        part.out_row[j] = a.out_row[done + j];
+        part.vec_row |= ((a.vec_row >> (done + j)) & 1u) << j;
+      }
+      part.RV = take;
+      const int first = done == 0;
+      err = S <= 8 ? launch_regs<8>(part, first, st)
+                   : S <= 16 ? launch_regs<16>(part, first, st) : launch_regs<32>(part, first, st);
+      if (err != cudaSuccess) return (int)err;
+      done += take;
+    } while (done < rv);
+    return 0;
+  }
+  if (lane == 1) {
+    if (csize != kCluster) return (int)cudaErrorInvalidValue;
+    const long long want = ((n + 7) / 8 + px::kThreads - 1) / px::kThreads;
+    return (int)launch_cluster_lane(a, (size_t)S * (8 * rv + 4), want, st);
+  }
+  rows_sum_global_kernel<<<grid_for((n + 7) / 8, 8), kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -22,12 +22,17 @@
 // H30 px_countmin_query      replaces pixie_tpu/ops/countmin.py query
 //    (:114-120) with its _buckets (:48): the min over the depth rows.
 //
-// What bounds them on an H100. The hash kernel, H5, H7a and H7b read each
-// row once (8-16 bytes) and are bytes-bound when their atomics keep up. H5
-// keeps its registers in shared memory while [G, 2^p] int32 fits (G <= 16
-// at p = 11) and otherwise reads the global register before its atomicMax,
-// which skips the atomic once registers saturate. H6 adds depth u64 atomics
-// per row into a [G, depth, width] global sketch (4 MB at G = 16), so with
+// What bounds them on an H100. The hash kernel, H7a and H7b read each row
+// once (8-16 bytes) and are bytes-bound when their atomics keep up. H5 reads
+// the value column where the fold staged it (rows.cuh: a narrowed column's
+// 1-4 bytes and its offset, not a widened int64 word) with the streaming
+// hint, 8 rows a thread. It keeps its registers in shared memory while
+// [G, 2^p] int32 fits a block (G <= 28 at p = 11), one wave of CTAs;
+// otherwise each row reads its global register and issues an atomic max
+// only where it would raise it, and the random 4-byte accesses of a 32 MB
+// register file (4096 groups), in L2 and DRAM sectors, not the rows, set
+// its time. H6 adds depth u64 atomics per row into a [G, depth, width]
+// global sketch (4 MB at G = 16), so with
 // few distinct (group, value) pairs the serialised same-address atomics in
 // L2, not HBM, set its time. H7b walks the sorted keys in one contiguous
 // chunk per thread, so each thread flushes one atomic per (group, cluster)
@@ -53,6 +58,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "rows.cuh"
 #include "sketch_hash.cuh"
 
 namespace {
@@ -80,35 +86,88 @@ __global__ void hash32_kernel(const unsigned long long* __restrict__ words, long
 }
 
 // ---------------------------------------------------------------- H5
-__global__ void hll_update_kernel(const unsigned long long* __restrict__ words, long long n,
-                                  const int* __restrict__ gids,
-                                  const unsigned char* __restrict__ mask, int S,
-                                  int precision, int* state, int use_shared) {
+// The value column as staged (rows.cuh): the word a row hashes is its
+// 64-bit value plus the offset (kU32 and kF64 take offset 0: the
+// reference's u32 words of an int32 column and a double's bits).
+struct HllArgs {
+  const void* vals;
+  long long off;
+  int kind;
+  int vec_vals;
+  int vec;  // gids and mask take vector loads
+  const int* gids;
+  const unsigned char* mask;
+  long long n;
+  int S;
+  int precision;
+  int* state;
+};
+
+// (register cell, rho) of row i0 + j for the 8 rows a thread takes; cell
+// -1 for an invalid row.
+__device__ __forceinline__ void hll_rows8(const HllArgs& a, long long i0,
+                                          long long (&cell)[px::kRowsPerThread],
+                                          int (&rho)[px::kRowsPerThread]) {
+  int g[px::kRowsPerThread];
+  unsigned long long v[px::kRowsPerThread];
+  px::load_gids8(a.gids, a.mask, i0, a.n, a.S, a.vec != 0, g);
+  px::load_vals8(a.vals, a.kind, i0, a.n, a.vec_vals != 0, v);
+  const int p = a.precision;
+  const int rho_max = 32 - p + 1;
+#pragma unroll
+  for (int j = 0; j < px::kRowsPerThread; ++j) {
+    const uint32_t h = px::hash32(v[j] + (unsigned long long)a.off, 0u);
+    rho[j] = min(px::clz32(h << p) + 1, rho_max);
+    cell[j] = g[j] < 0 ? -1 : ((long long)g[j] << p) + (long long)(h >> (32 - p));
+  }
+}
+
+// Few groups ([S, 2^p] int32 in the opt-in shared memory): per-CTA
+// registers, one wave of CTAs, 8 rows a thread, then one atomic max per
+// non-zero register and CTA.
+__global__ void __launch_bounds__(kThreads) hll_shared_kernel(const HllArgs a) {
   extern __shared__ int sh_regs[];
-  const int m = 1 << precision;
-  const long long cells = (long long)S * m;
-  if (use_shared) {
-    for (long long c = threadIdx.x; c < cells; c += blockDim.x) sh_regs[c] = 0;
-    __syncthreads();
-  }
-  const int rho_max = 32 - precision + 1;
+  const long long cells = (long long)a.S << a.precision;
+  for (long long c = threadIdx.x; c < cells; c += blockDim.x) sh_regs[c] = 0;
+  __syncthreads();
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (mask != nullptr && !mask[i]) continue;
-    const int g = gids[i];
-    if (g < 0 || g >= S) continue;
-    const uint32_t h = px::hash32(words[i], 0u);
-    const int reg = (int)(h >> (32 - precision));
-    const int rho = min(px::clz32(h << precision) + 1, rho_max);
-    int* cell = (use_shared ? sh_regs : state) + (long long)g * m + reg;
-    // Registers only grow, so a stale read can only cost an extra atomic.
-    if (*cell < rho) atomicMax(cell, rho);
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
+    long long cell[px::kRowsPerThread];
+    int rho[px::kRowsPerThread];
+    hll_rows8(a, c * px::kRowsPerThread, cell, rho);
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (cell[j] >= 0 && sh_regs[cell[j]] < rho[j]) atomicMax(&sh_regs[cell[j]], rho[j]);
+    }
   }
-  if (use_shared) {
-    __syncthreads();
-    for (long long c = threadIdx.x; c < cells; c += blockDim.x) {
-      const int v = sh_regs[c];
-      if (v > 0 && state[c] < v) atomicMax(&state[c], v);
+  __syncthreads();
+  for (long long c = threadIdx.x; c < cells; c += blockDim.x) {
+    const int v = sh_regs[c];
+    if (v > 0 && a.state[c] < v) atomicMax(&a.state[c], v);
+  }
+}
+
+// Many groups: one pass, 8 rows a thread, read with the streaming hint
+// (evict first); every register read is issued before any atomic, and the
+// atomic max (its result unused: a reduction) only where the read is below
+// rho. Registers only grow, so a stale read can only cost an extra atomic;
+// once registers fill, most rows issue none, and the fewer dirty lines the
+// L2 writes back.
+__global__ void __launch_bounds__(kThreads) hll_onepass_kernel(const HllArgs a) {
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
+    long long cell[px::kRowsPerThread];
+    int rho[px::kRowsPerThread], cur[px::kRowsPerThread];
+    hll_rows8(a, c * px::kRowsPerThread, cell, rho);
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      cur[j] = cell[j] >= 0 ? __ldcg(a.state + cell[j]) : 64;
+    }
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (cur[j] < rho[j]) atomicMax(a.state + cell[j], rho[j]);
     }
   }
 }
@@ -491,16 +550,33 @@ int px_hash32(const void* words, long long n, unsigned int seed, int pair, void*
   return (int)cudaGetLastError();
 }
 
-// state: int32 [S, 2^precision], updated in place.
-int px_hll_update(const void* words, long long n, const void* gids, const void* mask, int S,
-                  int precision, void* state, int use_shared, void* stream) {
-  const size_t smem = use_shared ? (size_t)S * ((size_t)1 << precision) * sizeof(int) : 0;
-  cudaError_t err = allow_smem(hll_update_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  hll_update_kernel<<<grid_for(n, use_shared ? 1 : 8), kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      (const unsigned long long*)words, n, (const int*)gids, (const unsigned char*)mask, S,
-      precision, (int*)state, use_shared);
+// H5. vals: [n] of ``kind`` (rows.cuh; offset ``off``); state: int32
+// [S, 2^precision], updated in place. lane 0: shared registers; 1: one
+// pass (ops/kernels/__init__.py hll_lane chooses).
+int px_hll_update(const void* vals, int kind, long long off, long long n, const void* gids,
+                  const void* mask, int S, int precision, void* state, int lane, void* stream) {
+  HllArgs a;
+  a.vals = vals;
+  a.off = off;
+  a.kind = kind;
+  a.vec_vals = px::vec_aligned(vals, kind);
+  a.vec = px::vec_aligned(gids, px::kI32) && (mask == nullptr || (uintptr_t)mask % 8 == 0);
+  a.gids = (const int*)gids;
+  a.mask = (const unsigned char*)mask;
+  a.n = n;
+  a.S = S;
+  a.precision = precision;
+  a.state = (int*)state;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long threads = (n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  if (lane == 0) {
+    const size_t smem = (size_t)S * ((size_t)1 << precision) * sizeof(int);
+    cudaError_t err = allow_smem(hll_shared_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    hll_shared_kernel<<<grid_for(threads, 1), kThreads, smem, st>>>(a);
+  } else {
+    hll_onepass_kernel<<<grid_for(threads, 4), kThreads, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,7 @@ limbs exist only to keep the TPU's slow scatter unit off the hot path.
 
 Each function takes its device from its tensors: on a CUDA tensor it
 launches the hand kernel of ``ops/kernels`` (H1 for integer sums and counts,
+its rows read as the fold staged them: ``Narrow``, ``PRESENCE``;
 H2 for f64 sums, H11 for min and max; H13-H15 and H12 for the sort-merge
 join's primitives, H16 for the join-aggregate lane's weighted fold at the
 end), on a CPU tensor it runs the plain PyTorch
@@ -18,7 +19,7 @@ them on the card.
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -88,34 +89,74 @@ def segment_sum_f64_plain(
     return out.index_add_(0, idx, torch.where(ok, values, 0.0))
 
 
-def segment_rows_sum_i64(
-    rows: torch.Tensor, seg_ids: torch.Tensor, mask: Optional[torch.Tensor],
-    num_segments: int,
-) -> torch.Tensor:
-    """int64 [R + 1, S]: per-segment sums of R int64 rows (mod 2^64), then
-    the per-segment count of valid rows. H1 on CUDA."""
-    seg_ids = seg_ids.to(torch.int32)
-    if seg_ids.is_cuda:
-        return kernels.segment_rows_sum_i64(
-            rows.contiguous(), seg_ids.contiguous(), mask, num_segments
-        )
-    return segment_rows_sum_i64_plain(rows, seg_ids, mask, num_segments)
+class Narrow(NamedTuple):
+    """A column as the fold staged it: row i's int64 value is
+    ``values[i] + offset`` (wrapping), ``values`` uint8, uint16 or int32
+    (frame-of-reference narrowing, ``staging._narrow_int``)."""
+
+    values: torch.Tensor
+    offset: int
+
+
+# The presence row of the fused-sum lane: count's row, the count of valid
+# rows itself (H1 reads no bytes for it).
+PRESENCE = None
+
+
+def widen(col):
+    """The int64 column of a ``Narrow`` (any other column as it is)."""
+    if isinstance(col, Narrow):
+        return col.values.to(torch.int64) + col.offset
+    return col
+
+
+def _plain_row(row, mask: Optional[torch.Tensor], n: int, device) -> torch.Tensor:
+    if row is PRESENCE:
+        if mask is None:
+            return torch.ones(n, dtype=torch.int64, device=device)
+        return mask.to(torch.int64)
+    return widen(row).to(torch.int64)
 
 
 def fused_segment_sums(
-    rows: Sequence[torch.Tensor], seg_ids: torch.Tensor,
+    rows: Sequence, seg_ids: torch.Tensor,
     num_segments: int, mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The fused-sum lane: every int64 row of the sum-family UDAs plus the
-    presence row in one reduction, int64 [len(rows) + 1, S]. Counterpart of
-    the reference's limb_einsum_sums + reconstruct_i64 over limb rows."""
-    n = seg_ids.shape[0]
+    """The fused-sum lane: every row of the sum-family UDAs plus the
+    presence row in one reduction, int64 [len(rows) + 1, S] (sums mod 2^64,
+    the count last). A row is an integer or bool tensor, a ``Narrow`` or
+    ``PRESENCE``; H1 reads each where it lies, the plain version widens
+    them. Counterpart of the reference's limb_einsum_sums + reconstruct_i64
+    over limb rows."""
+    seg_ids = seg_ids.to(torch.int32)
+    if seg_ids.is_cuda:
+        pairs = []
+        for row in rows:
+            if row is PRESENCE:
+                pairs.append((None, 0))
+            elif isinstance(row, Narrow):
+                pairs.append((row.values.contiguous(), row.offset))
+            elif row.dtype in kernels.SUM_ROW_KINDS:
+                pairs.append((row.contiguous(), 0))
+            else:
+                pairs.append((row.to(torch.int64).contiguous(), 0))
+        return kernels.segment_rows_sum_i64(pairs, seg_ids.contiguous(), mask, num_segments)
+    return fused_segment_sums_plain(rows, seg_ids, num_segments, mask)
+
+
+def fused_segment_sums_plain(
+    rows: Sequence, seg_ids: torch.Tensor,
+    num_segments: int, mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the fused-sum lane, on any device: every row
+    widened to int64 and stacked, then H1's plain version."""
+    n, device = seg_ids.shape[0], seg_ids.device
     stacked = (
-        torch.stack([r.to(torch.int64) for r in rows])
+        torch.stack([_plain_row(r, mask, n, device) for r in rows])
         if rows
-        else torch.empty((0, n), dtype=torch.int64, device=seg_ids.device)
+        else torch.empty((0, n), dtype=torch.int64, device=device)
     )
-    return segment_rows_sum_i64(stacked, seg_ids, mask, num_segments)
+    return segment_rows_sum_i64_plain(stacked, seg_ids, mask, num_segments)
 
 
 def seg_count(

@@ -2567,26 +2567,29 @@ class DeviceExecutor:
         return out
 
     @staticmethod
-    def _block_env(staged: StagedColumns, blk: int, names=None) -> dict:
+    def _block_env(staged: StagedColumns, blk: int, names=None, keep=frozenset()) -> dict:
         """Block ``blk``'s columns (``names``, or all of them), the narrowed
-        ints widened back to int64 (torch has no arithmetic on uint16)."""
+        ints widened back to int64 (torch has no arithmetic on uint16) but
+        those in ``keep``, which stay as staged."""
         names = staged.blocks if names is None else names
         env = {name: staged.blocks[name][0, blk] for name in names}
         for name in env:
-            if name in staged.narrow_offsets:
+            if name in staged.narrow_offsets and name not in keep:
                 env[name] = env[name].to(torch.int64) + staged.narrow_offsets[name]
         return env
 
-    def _run_block(self, program, staged: StagedColumns, blk: int, aux) -> dict:
+    def _run_block(self, program, staged: StagedColumns, blk: int, aux,
+                   keep=frozenset()) -> dict:
         """One block through its H17 program: {result name: [n] tensor}, the
         block's mask (``__mask__``) among them. The program reads the staged
         columns as they are (H17 widens a narrowed int on load); only the
-        columns a passthrough hands on are widened here."""
+        columns a passthrough hands on are widened here, but those in
+        ``keep`` (``_staged_args``), handed on as staged."""
         valid = staged.mask[0, blk]
         raw = {c: staged.blocks[c][0, blk] for c in program.columns if c in staged.blocks}
         raw["__valid__"] = valid
         env = self._block_env(
-            staged, blk, [c for c in program.passthrough_names() if c in staged.blocks]
+            staged, blk, [c for c in program.passthrough_names() if c in staged.blocks], keep
         )
         env["__valid__"] = valid
         return program.run(env, aux, staged.block_rows, raw=raw, offsets=staged.narrow_offsets)
@@ -3076,18 +3079,21 @@ class DeviceExecutor:
         }
         hist_cols = self._hist_cols(specs, staged, capacity, cell_cols)
 
-        def cell_values(col: str, blk: int) -> torch.Tensor:
+        def cell_values(col: str, blk: int, uda):
             """The row path's values of a cell column: LUT-gathered codes, or
-            the column as staged."""
+            the column as staged (a narrowed one as a ``segment.Narrow`` to
+            a UDA that takes it, else widened)."""
             if col in staged.int_dicts:
                 codes = staged.blocks[col][0, blk].to(torch.int64)
                 return aux[f"intdict:{col}"][codes]
+            if uda.narrow_args and col in staged.narrow_offsets:
+                return segment.Narrow(staged.blocks[col][0, blk], staged.narrow_offsets[col])
             return self._block_env(staged, blk, [col])[col]
 
-        def prologue(blk: int, gid_base: int) -> tuple:
+        def prologue(blk: int, gid_base: int, keep=frozenset()) -> tuple:
             """(program results, the mask in this pass's gid window, gids
             relative to the window)."""
-            vals = self._run_block(program, staged, blk, aux)
+            vals = self._run_block(program, staged, blk, aux, keep)
             mask = vals["__mask__"]
             if host_gids:
                 gids = staged.gids[0, blk].to(torch.int32)
@@ -3101,7 +3107,8 @@ class DeviceExecutor:
 
         def update_states(carry: dict, vals, gids, mask, blk: int, done: dict) -> None:
             """The cell lane's histograms and every state not in ``done``
-            ({out: its new state}) under ``mask``."""
+            ({out: its new state}) under ``mask``; ``vals`` the arguments
+            (``arg:<out>``)."""
             for col, C in hist_cols.items():
                 flat = gids * C + staged.blocks[col][0, blk].to(torch.int32)
                 carry["hists"][col] += segment.seg_count(flat, capacity * C, mask)
@@ -3114,7 +3121,7 @@ class DeviceExecutor:
                         new_states.append(st)  # folded once, in _finish_pass
                     else:
                         new_states.append(
-                            uda.update(st, gids, cell_values(cell[out], blk), mask=mask)
+                            uda.update(st, gids, cell_values(cell[out], blk, uda), mask=mask)
                         )
                 elif not uda.reads_args:
                     new_states.append(uda.update(st, gids, gids, mask=mask))
@@ -3122,8 +3129,13 @@ class DeviceExecutor:
                     new_states.append(uda.update(st, gids, vals[f"arg:{out}"], mask=mask))
             carry["states"] = new_states
 
+        staged_args = self._staged_args(specs, program, staged, cell)
+        keep = frozenset(staged_args.values())
+
         def body(carry: dict, blk: int, gid_base: int) -> None:
-            vals, mask, gids = prologue(blk, gid_base)
+            vals, mask, gids = prologue(blk, gid_base, keep)
+            for out, col in staged_args.items():
+                vals[f"arg:{out}"] = segment.Narrow(vals[f"arg:{out}"], staged.narrow_offsets[col])
             rows = []
             fused: dict[str, tuple[int, int]] = {}
             for out, arg_e, uda in specs:
@@ -3188,6 +3200,28 @@ class DeviceExecutor:
                     carry["states"] = [done[out] for out, _, _ in specs]
 
         return batched_body, hist_cols
+
+    @staticmethod
+    def _staged_args(specs, program, staged, cell: dict) -> dict:
+        """{out: column} of the arguments the fold hands over as staged
+        (``segment.Narrow``) instead of widened: a bare narrowed column
+        whose every reader takes one (``uda.narrow_args``) and which no
+        other passthrough of the program hands on."""
+        readers: dict[str, list] = {}
+        for out, arg_e, uda in specs:
+            if out not in cell and uda.reads_args and isinstance(arg_e, ColumnRef):
+                readers.setdefault(arg_e.name, []).append((out, uda))
+        sources: dict[str, set] = {}
+        for name, (src, dt) in program.passthrough.items():
+            if isinstance(src, str):
+                sources.setdefault(src, set()).add(name if dt is None else None)
+        out = {}
+        for col, users in readers.items():
+            if col not in staged.narrow_offsets or not all(u.narrow_args for _, u in users):
+                continue
+            if sources.get(col, set()) == {f"arg:{o}" for o, _ in users}:
+                out.update((o, col) for o, _ in users)
+        return out
 
     @staticmethod
     def _new_carry(specs, capacity: int, hist_cols: dict, device) -> dict:

@@ -242,7 +242,7 @@ def register(r: Registry) -> None:
             finalize=lambda st: st,
             merge_kind=MergeKind.PSUM,
             reads_args=False,  # counts rows; never reads the column
-            fused_rows=lambda col, mask: [mask.to(torch.int64)],
+            fused_rows=lambda col, mask: [segment.PRESENCE],
             fused_apply=lambda st, t: st + t[0],
             doc="Number of rows in the group.",
         )
@@ -252,24 +252,27 @@ def register(r: Registry) -> None:
 
     def sum_uda(arg_t, out_t, acc_dtype):
         if acc_dtype == torch.int64:
-            # Masked rows are skipped by the reduction itself.
-            fused_rows = lambda col, mask: [col.to(torch.int64)]
+            # Masked rows are skipped by the reduction itself; H1 reads a
+            # narrow or bool column as it lies.
+            fused_rows = lambda col, mask: [col]
             fused_apply = lambda st, t: st + t[0]
         else:
             fused_rows = fused_apply = None  # f64 keeps its own lane
+        narrow = acc_dtype == torch.int64
         return UDA(
             name="sum",
             arg_types=(arg_t,),
             out_type=out_t,
             init=lambda g, device: torch.zeros(g, dtype=acc_dtype, device=device),
             update=lambda st, gids, col, mask=None: st
-            + segment.seg_sum(col.to(acc_dtype), gids, st.shape[0], mask),
+            + segment.seg_sum(segment.widen(col).to(acc_dtype), gids, st.shape[0], mask),
             merge=lambda a, b: a + b,
             finalize=lambda st: st,
             merge_kind=MergeKind.PSUM,
             out_semantic=_preserve_first,
             fused_rows=fused_rows,
             fused_apply=fused_apply,
+            narrow_args=narrow,
             doc="Sum of the column within the group.",
         )
 

@@ -123,6 +123,7 @@ def register(r: Registry) -> None:
                     st, gids, col, mask
                 ),
                 merge=hll.merge,
+                narrow_args=True,  # H5 hashes a narrowed column as staged
                 # The int-dictionary cell lane: the pipeline routes only
                 # INT64 columns here, so the LUT hashes as the row path's
                 # values do.

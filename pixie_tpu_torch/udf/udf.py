@@ -131,20 +131,22 @@ class UDA:
     # arg 0; the partial stage then ships that dictionary in the StateBatch
     # and the merge stage translates incoming codes into its own latch.
     string_state: bool = False
-    # Fused-sum lane (r4): sum-family UDAs contribute f32 limb rows to ONE
-    # shared one-hot einsum per block instead of issuing their own segment
-    # reduction — the one-hot generation dominates MXU segment sums, so
-    # batching every sum/count (and the engine's presence counter) into a
-    # single einsum is ~3x cheaper than per-UDA calls (measured r4).
-    #   fused_rows(col, mask) -> list of [n] f32 rows, each value an
-    #     integer in [0, 255] (masked rows must contribute 0). The bound
-    #     is what makes the shared einsum exact: chunk(2^16) * 255 < 2^24
-    #     keeps every f32 partial sum exactly representable. Wider values
-    #     must be limb-decomposed (segment.limb_rows_i64).
+    # Fused-sum lane: sum-family UDAs contribute rows to ONE shared
+    # per-block segment sum (H1, ops/segment.fused_segment_sums) with the
+    # engine's presence counter, instead of a reduction of their own.
+    #   fused_rows(col, mask) -> list of [n] rows, each an integer or bool
+    #     tensor (bool, uint8, uint16, int32 or int64: H1 reads it as it
+    #     lies and widens in registers), a segment.Narrow (a staged narrow
+    #     column and its offset) or segment.PRESENCE (the count of valid
+    #     rows, which reads nothing). Masked rows are skipped by the
+    #     reduction itself; sums wrap mod 2^64 like int64 adds.
     #   fused_apply(state, totals) -> state, where totals is the [L, G]
-    #     float64 exact per-segment sums of this UDA's rows.
+    #     int64 per-segment sums of this UDA's rows.
     fused_rows: Callable[..., list] | None = None
     fused_apply: Callable[[Any, Any], Any] | None = None
+    # True when fused_rows and update take a segment.Narrow: the fold then
+    # hands a bare narrowed column over as staged instead of widening it.
+    narrow_args: bool = False
     # Cell lane (r5): when the arg column arrives as small-dictionary
     # codes (the pipeline's int-dictionary staging), the pipeline computes
     # ONE per-(group, code) histogram on the MXU and hands it to the UDA

@@ -334,6 +334,119 @@ def test_segment_kernels_match_plain_on_card():
     _check_segment_kernels(torch.device("cuda", 0))
 
 
+# H1 and H5 at their edges: row counts around the 8-row vectors and the
+# bin grid's 8192-row chunks, views one element into a buffer (no vector
+# loads), every staged dtype with offsets that wrap, and S and G on both
+# sides of every lane boundary; bit for bit against the plain versions.
+EDGE_ROWS = [1, 31, 33, 8191, 8193, 1 << 21]
+_I64 = np.iinfo(np.int64)
+
+
+def _h1_edge_rows(rng, n: int, dev, unaligned: bool) -> list:
+    """(tensor or None, offset) rows: bool, uint8, uint16, int32 narrowed,
+    int64, each with an offset, and the presence row."""
+    def put(a):
+        t = torch.from_numpy(a).to(dev)
+        return _unaligned(t) if unaligned else t
+    return [
+        (put(rng.random(n) < 0.5), 0),
+        (put(rng.integers(0, 256, n).astype(np.uint8)), int(_I64.max) - 3),
+        (put(rng.integers(0, 65536, n).astype(np.uint16)), int(_I64.min) + 11),
+        (put(rng.integers(0, 1 << 31, n).astype(np.int32)), int(_I64.max) - (1 << 30)),
+        (None, 0),
+        (put(rng.integers(_I64.min, _I64.max, n, dtype=np.int64)), -7),
+    ]
+
+
+def _h1_edge_S(optin: int, value_rows: int) -> list:
+    """S around the register lane's buckets and the cluster lane's limit."""
+    limit = optin // (8 * value_rows + 4)
+    assert kernels.h1_lane(value_rows, limit, optin)[0] == "cluster"
+    assert kernels.h1_lane(value_rows, limit + 1, optin)[0] == "global"
+    return [1, 8, 9, 16, 17, 32, 33, 4096, limit, limit + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_segment_rows_sum_edges_on_card(n):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n)
+    optin = kernels.smem_optin_bytes(dev)
+    for unaligned in (False, True):
+        rows = _h1_edge_rows(rng, n, dev, unaligned)
+        value_rows = sum(t is not None for t, _ in rows)
+        for S in _h1_edge_S(optin, value_rows):
+            gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32)).to(dev)
+            mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+            if unaligned:
+                gids, mask = _unaligned(gids), _unaligned(mask)
+            plain = [segment.PRESENCE if t is None else segment.Narrow(t, off) for t, off in rows]
+            # every row, one value row, the presence row alone, the count alone
+            for idx in (range(len(rows)), [0], [4], []):
+                sub, psub = [rows[i] for i in idx], [plain[i] for i in idx]
+                got = kernels.segment_rows_sum_i64(sub, gids, mask, S)
+                want = segment.fused_segment_sums_plain(psub, gids, S, mask)
+                assert torch.equal(got, want), (n, S, unaligned, len(sub))
+            got = kernels.segment_rows_sum_i64(rows, gids, None, S)
+            want = segment.fused_segment_sums_plain(plain, gids, S, None)
+            assert torch.equal(got, want), (n, S, unaligned, "no mask")
+
+
+@pytest.mark.cuda
+def test_segment_rows_sum_many_rows_on_card():
+    """More rows than one launch takes (kernels.H1_MAX_ROWS): the wrapper
+    splits them, each part with its count; in every lane."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    n = 4099
+    rows = [r for _ in range(7) for r in _h1_edge_rows(rng, n, dev, False)][:kernels.H1_MAX_ROWS + 8]
+    plain = [segment.PRESENCE if t is None else segment.Narrow(t, off) for t, off in rows]
+    for S in (16, 4096, 40_000):
+        gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        got = kernels.segment_rows_sum_i64(rows, gids, mask, S)
+        want = segment.fused_segment_sums_plain(plain, gids, S, mask)
+        assert got.shape == (len(rows) + 1, S) and torch.equal(got, want), S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_hll_update_edges_on_card(n):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n + 1)
+    optin = kernels.smem_optin_bytes(dev)
+    p = hll.DEFAULT_PRECISION
+    m = 1 << p
+    g_max = optin // (4 * m)  # the shared lane's largest G
+    assert kernels.hll_lane(g_max, p, optin) == "shared"
+    assert kernels.hll_lane(g_max + 1, p, optin) != "shared"
+    columns = [
+        (rng.integers(0, 256, n).astype(np.uint8), 1 << 40),
+        (rng.integers(0, 65536, n).astype(np.uint16), 1024),
+        (rng.integers(0, 1 << 31, n).astype(np.int32), -(1 << 35)),
+        (rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32), None),
+        (rng.integers(_I64.min, _I64.max, n, dtype=np.int64), int(_I64.max) - 5),
+        (rng.normal(0, 1e6, n), None),
+    ]
+    for G in (1, 16, g_max, g_max + 1, 4096):
+        gids = torch.from_numpy(rng.integers(-2, G + 2, n).astype(np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        state0 = torch.from_numpy(rng.integers(0, 5, (G, m)).astype(np.int32)).to(dev)
+        for unaligned in (False, True):
+            g, mk = (_unaligned(gids), _unaligned(mask)) if unaligned else (gids, mask)
+            for v, off in columns:
+                col = torch.from_numpy(v).to(dev)
+                if unaligned:
+                    col = _unaligned(col)
+                wide = segment.widen(segment.Narrow(col, off)) if off is not None else col
+                want = hll.update_plain(state0.clone(), g, wide, mk)
+                got = kernels.hll_update(col, g, mk, state0.clone(), off)
+                assert torch.equal(got, want), (n, G, unaligned, str(col.dtype), off)
+
+
 @pytest.mark.cuda
 def test_histogram_kernels_match_plain_on_card():
     _need_cards(1)

@@ -164,3 +164,134 @@ def test_interop_rejects_wrong_state():
         interop.state_from_numpy(uda, {"sum": np.zeros(2)})
     with pytest.raises(TypeError):
         interop.state_from_numpy(uda, {"sum": np.zeros(2, np.float32), "count": np.zeros(2, np.int64)})
+
+
+# ---------------------------------------------------------------- typed rows
+# The fused-sum lane's rows as the fold stages them (H1 reads each where it
+# lies): bool, and uint8, uint16, int32, int64 columns with frame-of-
+# reference offsets, some near +-2^63 so that v + off wraps; count's row as
+# the presence row.
+TYPED_KINDS = ("bool", "uint8", "uint16", "int32", "int64")
+_OFFSETS = {
+    "bool": 0,
+    "uint8": np.iinfo(np.int64).max - 100,
+    "uint16": np.iinfo(np.int64).min + 7,
+    "int32": np.iinfo(np.int64).max - (1 << 30),
+    "int64": -123_456_789,
+}
+
+
+def _typed_row(rng, kind: str):
+    """(staged values, offset, their int64 values v + off mod 2^64)."""
+    if kind == "bool":
+        v = rng.random(N) < 0.5
+    elif kind == "int64":
+        v = rng.integers(-(2**63), 2**63 - 1, N, dtype=np.int64)
+    else:
+        info = np.iinfo(kind)
+        v = rng.integers(0, int(info.max) + 1, N).astype(kind)
+    off = int(_OFFSETS[kind])
+    wide = (v.astype(np.int64).view(np.uint64) + np.uint64(off % (1 << 64))).view(np.int64)
+    return v, off, wide
+
+
+def _port_row(v: np.ndarray, off: int):
+    t = _t(v)
+    return t if off == 0 else segment.Narrow(t, off)
+
+
+def _ref_fused(wides: list, gids, mask, presence: int) -> list:
+    """The reference's lane: 8-bit limb rows of each int64 row, the count
+    and presence rows (f32), limb_einsum_sums, reconstruct_i64; seg_count."""
+    jmask = jnp.asarray(mask)
+    rows = []
+    for w in wides:
+        rows.extend(ref_segment.limb_rows_i64(jnp.where(jmask, jnp.asarray(w), 0)))
+    rows.extend([jmask.astype(jnp.float32)] * (presence + 1))
+    totals = ref_segment.limb_einsum_sums(rows, jnp.asarray(gids), S)
+    out = [np.asarray(ref_segment.reconstruct_i64(totals[8 * i: 8 * i + 8]))
+           for i in range(len(wides))]
+    out += [np.asarray(totals[8 * len(wides) + j]).astype(np.int64) for j in range(presence + 1)]
+    count = np.asarray(ref_segment.seg_count(jnp.asarray(gids), S, jmask))
+    np.testing.assert_array_equal(out[-1], count)
+    return out
+
+
+@pytest.mark.parametrize("kind", TYPED_KINDS)
+def test_fused_typed_row_matches_reference(strategy, kind):
+    """One staged row with its offset, count's presence row, the count."""
+    gids, mask, _, _ = _inputs(6)
+    v, off, wide = _typed_row(np.random.default_rng(7), kind)
+    want = _ref_fused([wide], gids, mask, presence=1)
+    got = segment.fused_segment_sums(
+        [_port_row(v, off), segment.PRESENCE], _t(gids), S, _t(mask)
+    ).numpy()
+    assert got.shape == (3, S)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_fused_typed_rows_together(strategy):
+    """Every kind in one lane, presence rows between them, no mask."""
+    gids, _, _, _ = _inputs(8)
+    rng = np.random.default_rng(9)
+    typed = [_typed_row(rng, k) for k in TYPED_KINDS]
+    mask = np.ones(N, bool)
+    want = _ref_fused([w for _, _, w in typed], gids, mask, presence=2)
+    rows = [_port_row(v, off) for v, off, _ in typed]
+    got = segment.fused_segment_sums(
+        rows[:2] + [segment.PRESENCE] + rows[2:] + [segment.PRESENCE], _t(gids), S
+    ).numpy()
+    order = [0, 1, 3, 4, 5, 2, 6, 7]  # where each of want's rows lands in got
+    for i, j in enumerate(order):
+        np.testing.assert_array_equal(got[j], want[i])
+
+
+# ---------------------------------------------------------------- H1 lanes
+# H1's lane chooser as a pure function: every S in exactly one lane, each
+# lane's shared bytes within the opt-in limit, a cluster's group slices
+# covering [0, S) once.
+_S_GRID = [1, 7, 8, 9, 16, 17, 31, 32, 33, 64, 4095, 4096, 4097, 32768, 65536, 1 << 20]
+
+
+@pytest.mark.parametrize("optin", [48 * 1024, 101_376, 232_448])
+def test_h1_lane_chooser_grid(optin):
+    from pixie_tpu_torch.ops import kernels
+
+    for R in range(0, 6):
+        last = None
+        for S in _S_GRID:
+            lane, arg = kernels.h1_lane(R, S, optin)
+            assert lane in ("regs", "cluster", "global")
+            if lane == "regs":
+                assert S <= kernels.H1_REGS_MAX_S and arg in (8, 16, 32) and S <= arg
+                assert arg // 2 < S or arg == 8
+                # the register lane's static partial: counts and two rows
+                assert arg * (4 + 8 * 2) <= 48 * 1024
+            elif lane == "cluster":
+                assert S > kernels.H1_REGS_MAX_S and arg == kernels.H1_CLUSTER
+                assert kernels.h1_partial_bytes(R, S) <= optin
+            else:
+                assert kernels.h1_partial_bytes(R, S) > optin
+            # lanes only widen with S: regs, then cluster, then global
+            order = ("regs", "cluster", "global")
+            assert last is None or order.index(lane) >= order.index(last)
+            last = lane
+    with pytest.raises(ValueError):
+        kernels.h1_lane(1, 0, optin)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_h1_cluster_slices_cover_groups(cluster):
+    from pixie_tpu_torch.ops import kernels
+
+    for S in _S_GRID:
+        slices = kernels.cluster_slices(S, cluster)
+        assert len(slices) == cluster
+        covered = np.zeros(S, np.int64)
+        for lo, hi in slices:
+            assert 0 <= lo <= hi <= S
+            covered[lo:hi] += 1
+        assert (covered == 1).all()
+        # contiguous in rank order, as the kernel's rank * slice bounds are
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))

@@ -335,3 +335,148 @@ def test_fault4_worst_case_moves_quantiles_within_contract(monkeypatch):
         a, b = json.loads(a), json.loads(b)
         rel += [abs(a[k] - b[k]) / abs(a[k]) for k in a]
     assert max(rel) <= 1e-2, max(rel)
+
+
+# ---------------------------------------------------------------- H5 inputs
+# H5 hashes a column where the fold staged it: a narrowed int64 column
+# (uint8, uint16 or int32 with its frame-of-reference offset) as its int64
+# value v + off, an unnarrowed int32 column as words64's u32, an f64 column
+# as its bits. The plain path widens (segment.Narrow); both must give the
+# reference's registers over the widened column.
+_NARROW_CASES = {
+    "uint8+off": ("uint8", 1 << 40),
+    "uint16+off": ("uint16", 1024),
+    "int32+off": ("int32", -(1 << 35)),
+    "int64+off": ("int64", np.iinfo(np.int64).max - 50),
+    "int32": ("int32", None),
+    "float64": ("float64", None),
+}
+
+
+def _narrow_column(rng, case: str):
+    """(staged values, offset or None, the column the reference sees)."""
+    dt, off = _NARROW_CASES[case]
+    if dt == "float64":
+        v = rng.normal(0.0, 1e6, N)
+        v[:3] = [0.0, -0.0, np.inf]
+        return v, None, v
+    if dt == "int32" and off is None:
+        v = rng.integers(-(2**31), 2**31 - 1, N).astype(np.int32)
+        return v, None, v
+    hi = min(int(np.iinfo(dt).max), (1 << 31) - 1)
+    v = rng.integers(0, hi + 1, N).astype(dt)
+    wide = (v.astype(np.int64).view(np.uint64) + np.uint64(off % (1 << 64))).view(np.int64)
+    return v, off, wide
+
+
+@pytest.mark.parametrize("case", list(_NARROW_CASES))
+def test_hll_narrow_input_matches_reference(sorted_lane, case):
+    from pixie_tpu_torch.ops import segment
+
+    rng = np.random.default_rng(21)
+    G = 300
+    gids = rng.integers(0, G, N).astype(np.int32)
+    mask = rng.random(N) < 0.85
+    v, off, ref_col = _narrow_column(rng, case)
+    want = ref_hll.update(ref_hll.init(G), jnp.asarray(gids), jnp.asarray(ref_col),
+                          jnp.asarray(mask))
+    col = _t(v) if off is None else segment.Narrow(_t(v), off)
+    got = hll.update(hll.init(G, "cpu"), _t(gids), col, _t(mask))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _kind_words(v: np.ndarray, kind: int, off) -> np.ndarray:
+    """H5's word of each row from its staged bytes and row kind (rows.cuh
+    load_vals8, then + off), as int64."""
+    from pixie_tpu_torch.ops import kernels
+
+    if kind == kernels.ROW_F64:
+        raw = v.astype(np.float64).view(np.uint64)
+    elif kind == kernels.ROW_U32:
+        raw = v.view(np.uint32).astype(np.uint64)
+    elif kind == kernels.ROW_I32:
+        raw = v.astype(np.int64).view(np.uint64)
+    else:  # u8, u16 zero-extend; i64 as it is
+        raw = v.astype(np.uint64) if v.dtype != np.int64 else v.view(np.uint64)
+    return (raw + np.uint64((off or 0) % (1 << 64))).view(np.int64)
+
+
+@pytest.mark.parametrize("case", list(_NARROW_CASES) + ["bool"])
+def test_hll_word_kind_gives_words64(case):
+    """The row kind H5 reads each staged dtype as, applied to its bytes,
+    gives the word the plain path hashes: hashing.words64 of the column
+    the fold would have widened."""
+    from pixie_tpu_torch.ops import hashing, kernels, segment
+
+    rng = np.random.default_rng(22)
+    if case == "bool":
+        v, off = rng.random(N) < 0.5, None
+    else:
+        v, off, _ = _narrow_column(rng, case)
+    kind = kernels.hll_word_kind(_t(v).dtype, off)
+    col = _t(v) if off is None else segment.Narrow(_t(v), off)
+    want = hashing.words64(segment.widen(col)).numpy()
+    np.testing.assert_array_equal(_kind_words(v, kind, off), want)
+    with pytest.raises(ValueError):
+        kernels.hll_word_kind(torch.float64, 3)
+
+
+# ---------------------------------------------------------------- H5 edges
+M32 = 0xFFFFFFFF
+
+
+def _inv_mix32(h: np.ndarray, seed: int) -> np.ndarray:
+    """The inverse of hashing.mix32 (murmur3's fmix32 is a bijection)."""
+    x = h.astype(np.uint64) & M32
+    x ^= x >> 16
+    x = (x * pow(0xC2B2AE35, -1, 1 << 32)) & M32
+    x ^= (x >> 13) ^ (x >> 26)
+    x = (x * pow(0x85EBCA6B, -1, 1 << 32)) & M32
+    x ^= x >> 16
+    return x ^ np.uint64(seed & M32)
+
+
+def _words_hashing_to(h: np.ndarray) -> np.ndarray:
+    """int64 words below 2^32 whose hash32 (seed 0) is ``h``."""
+    from pixie_tpu_torch.ops import hashing
+
+    inner = int(hashing.mix32(torch.tensor([0]), 0x9E3779B9)[0])
+    return (_inv_mix32(h, 0x85EBCA77) ^ np.uint64(inner)).astype(np.int64)
+
+
+_GRID = [(G, p) for G in (1, 16, 17, 4096) for p in (4, 11, 16) if (G, p) != (4096, 16)]
+
+
+@pytest.mark.parametrize("G,p", _GRID)
+def test_hll_update_edges_match_reference(G, p):
+    """Rows over two and a half of H5's 8192-row vectors' worth of chunks:
+    some gids out of range, some rows masked, rows whose hash rests are
+    zero (rho at its cap 33 - p), on a state already holding registers;
+    the update (its plain version) against the reference."""
+    rng = np.random.default_rng(G * 100 + p)
+    n = 2 * 8192 + 4096
+    gids = rng.integers(-2, G + 2, n).astype(np.int32)
+    mask = rng.random(n) < 0.9
+    words = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    m = 1 << p
+    capped = rng.integers(0, m, 64).astype(np.uint64) << np.uint64(32 - p)
+    words[:64] = _words_hashing_to(capped)
+    gids[:64] = rng.integers(0, G, 64)
+    mask[:64] = True
+    state = rng.integers(0, 4, (G, m)).astype(np.int32)
+    got = hll.update(_t(state), _t(gids), _t(words), _t(mask)).numpy()
+    assert got[gids[0], int(capped[0] >> np.uint64(32 - p))] == 33 - p
+    ok = (gids >= 0) & (gids < G)
+    want = ref_hll.update(jnp.asarray(state), jnp.asarray(np.where(ok, gids, 0)),
+                          jnp.asarray(words), jnp.asarray(mask & ok))
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_hll_update_all_masked_keeps_state():
+    rng = np.random.default_rng(5)
+    G, p, n = 4096, 11, 8192 + 3
+    state = rng.integers(0, 9, (G, 1 << p)).astype(np.int32)
+    gids = rng.integers(0, G, n).astype(np.int32)
+    words = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
+    got = hll.update(_t(state), _t(gids), _t(words), _t(np.zeros(n, bool))).numpy()
+    np.testing.assert_array_equal(got, state)
