@@ -16,7 +16,10 @@ the CUDA toolkit. In order it:
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
-   and H11 as config 3 and the flows min/max run them, config 1's first
+   as config 3 runs them; H6 at config 5's 16 x 4 keys, endpoint_load's 34
+   groups x 4098 content words and past its tables; H11 over every staged
+   row kind in every lane, timed at flow_window's S = 1, config 10's S = 64
+   f64 and the flows min/max's S = 4096 int32 narrowed; config 1's first
    block for H12, config 8's probe side for H13-H15, join8_oncall_agg's
    block for H16, a block of the let table for H17's two programs: svc_let's
    predicate program and an f64 program; a full 2^23-row stream window for
@@ -153,7 +156,7 @@ the CUDA toolkit. In order it:
      latency_histogram (counts exact, Q3's float bins bit-equal to numpy's),
      and Q4, per-endpoint load keyed by regex_replace of the path (the
      dictionary-LUT key) with approx_count_distinct and count_min over
-     STRING columns (the arghash lane: hash32, H5, H6, H10), stddev,
+     STRING columns (the arghash lane: H5, H6, H10), stddev,
      variance, a select sum, mean(log10) and a floor sum, against numpy
      truths (counts and integer sums exact, p50/p90/p99 within 4%, error
      rate within 1e-9, distinct clients within 12%, variance within
@@ -189,8 +192,9 @@ the CUDA toolkit. In order it:
      checkpoints' cost are printed;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H32 and the hash kernel; H30-H32 with 0
-   launches: no path calls them), the nvidia-smi line, and as its last line
+   line of per-kernel results (H1-H32 and the hash kernel; H30-H32 and the
+   hash kernel with 0 launches: no path calls them), the nvidia-smi line,
+   and as its last line
    {"ok": true, "device": {...}}.
 
 With ``--mesh-cards N`` it runs only the mesh paths over N real cards
@@ -264,9 +268,11 @@ REPLACES = {
     "hash_columns": "pixie_tpu/ops/hashing.py:48",
     "clz64": "pixie_tpu/ops/hashing.py:56",
 }
-# The TPU kernels no path of either package calls: their launch count on the
-# main paths is 0 by design; their kernel phase holds and times them.
-UNCALLED = ("countmin_query", "hash_columns", "clz64")
+# The kernels no path of the port calls: H30-H32, whose TPU kernels no path
+# of either package calls, and the hash kernel, whose hashing H5, H6, H20
+# and H21 do in registers. Their launch count on the main paths is 0 by
+# design; their kernel phases hold and time them.
+UNCALLED = ("hash32", "countmin_query", "hash_columns", "clz64")
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
     **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:12]},
@@ -976,32 +982,68 @@ def sketch_kernel_phases(dev) -> dict:
         *bound(G * m * 4 + G * 16, 3 * G * m), rel, f"state[{G},{m}]",
     )
 
-    # H6: config 5's 16 groups, its (h1, h2) pair from the hash kernel.
+    # H6, which hashes its words itself, cells and totals exact: config 5's
+    # 16 groups x resp_status (64 keys); endpoint_load's block (34 endpoint
+    # groups, the 4098 request paths' content words as the let table draws
+    # them, the query's all-true mask): the timed row; more distinct keys
+    # than a CTA's table holds (2^21 random words: most rows take the cells
+    # at once); and a narrowed column with its offset. Bytes: the words,
+    # gids and mask once, the touched cells and the totals read and written
+    # once; operations: the two hashes (24 each) and the depth updates.
+    from pixie_tpu_torch.table.column import fnv1a64_batch
+
+    def h6_case(G, words, g, m, off=None):
+        cm, total = countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)
+        kernels.countmin_update(words, g, m, cm, total, off)
+        wide = words if off is None else segment.widen(segment.Narrow(words, off))
+        want = countmin.update_plain(countmin.init(G, dev), g, wide, m)
+        ok = (g >= 0) & (g < G) if m is None else m & (g >= 0) & (g < G)
+        torch.cuda.synchronize()
+        check(torch.equal(cm, want), f"H6 G={G} cells differ from the plain version")
+        check(torch.equal(total, torch.bincount(g[ok].long(), minlength=G)), f"H6 G={G} totals")
+        depth, width = cm.shape[1], cm.shape[2]
+        flat4 = torch.cat([((g.long() * depth + d) * width + b.long())[ok]
+                           for d, b in enumerate(countmin._buckets(wide, depth, width))])
+        ones4 = torch.ones_like(flat4)
+        touched = torch.unique(flat4).numel()
+        lib_cm = torch.zeros(G * depth * width, dtype=torch.int64, device=dev)
+        rec = record(
+            lambda: kernels.countmin_update(words, g, m, cm, total, off),
+            lambda: countmin.update_plain(cm, g, wide, m),
+            lambda: lib_cm.index_add_(0, flat4, ones4),
+            *bound(n * words.element_size() + n * 4 + n + 2 * touched * 8 + 2 * G * 8,
+                   (48 + 2 * depth) * n), 0.0,
+            f"words[{n}] {words.dtype} cm[{G},{depth},{width}], {touched} cells touched",
+        )
+        log(f"H6 countmin_update {rec['shape']}: cells and totals exact; {rec['ms']:.5f} ms "
+            f"[bound {rec['bound_ms']:.5f}; plain {rec['plain_ms']:.5f}; index_add_ "
+            f"{rec['library_ms']:.5f}]")
+        return rec
+
     G = N_SERVICES
     g16 = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
-    pair = kernels.hash32(status, 1, pair=True)
-    cm, total = countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)
-    kernels.countmin_update(pair, g16, mask, cm, total)
-    want_cm = countmin.update_plain(countmin.init(G, dev), g16, status, mask)
-    torch.cuda.synchronize()
-    check(torch.equal(cm, want_cm), "H6 cells differ from the plain version")
-    check(torch.equal(total, torch.bincount(g16[mask].long(), minlength=G)), "H6 totals")
-    log(f"H6 countmin_update G={G}: cells and totals exact")
-    depth, width = cm.shape[1], cm.shape[2]
-    buckets = countmin._buckets(status, depth, width)
-    flat4 = torch.cat([
-        ((g16.long() * depth + d) * width + b.long())[mask] for d, b in enumerate(buckets)
-    ])
-    ones4 = torch.ones_like(flat4)
-    touched = torch.unique(flat4).numel()  # the cells the block can touch
-    lib_cm = torch.zeros(G * depth * width, dtype=torch.int64, device=dev)
-    records["countmin_update"] = record(
-        lambda: kernels.countmin_update(pair, g16, mask, cm, total),
-        lambda: countmin.update_plain(cm, g16, status, mask),
-        lambda: lib_cm.index_add_(0, flat4, ones4),
-        *bound(n * 8 + n * 4 + n + 2 * touched * 8 + 2 * G * 8, 6 * n), 0.0,
-        f"pair[2,{n}] cm[{G},{depth},{width}], {touched} cells touched",
-    )
+    config5 = h6_case(G, status, g16, mask)
+    paths = let_dictionaries()["req_path"]
+    path_words = torch.from_numpy(fnv1a64_batch(paths).view(np.int64)).to(dev)
+    code = rng.integers(0, N_PATHS, n)
+    u = rng.random(n)
+    code[u < 0.02] = N_PATHS
+    code[(u >= 0.02) & (u < 0.03)] = N_PATHS + 1
+    endpoint = np.where(code < N_PATHS, code // N_IDS, N_RESOURCES + code - N_PATHS)
+    records["countmin_update"] = h6_case(
+        N_RESOURCES + 2, path_words[torch.from_numpy(code).to(dev)],
+        torch.from_numpy(endpoint.astype(np.int32)).to(dev), torch.ones(n, dtype=torch.bool,
+                                                                        device=dev))
+    records["countmin_update"]["by_config5"] = {
+        k: config5[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shape")}
+    distinct = torch.from_numpy(
+        rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, n, dtype=np.int64)).to(dev)
+    overflow = h6_case(G, distinct, g16, mask)
+    records["countmin_update"]["by_overflow"] = {
+        k: overflow[k] for k in ("ms", "bound_ms", "shape")}
+    narrow = h6_case(G, (status - 200).to(torch.uint16), g16, mask, 200)
+    log(f"H6 over every table case: config 5 {config5['ms']:.5f} ms, overflow "
+        f"{overflow['ms']:.5f} ms, narrowed uint16 {narrow['ms']:.5f} ms")
 
     # H7a + torch.sort: the sorted keys decode to the plain version's sorted
     # (group, value) rows bit for bit, packed (G = 16) and two-key (G = 300).
@@ -1111,15 +1153,19 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def minmax_kernel_phase(dev) -> dict:
     """H11 against its plain version, bit for bit: min and max over int64
-    and f64 at 16 and 4096 groups (shared partials) and 2^20 groups (global
-    atomics), then a block of edge values. Timed at the flows min/max shape:
-    int64 byte counts, 4096 (src, dst) groups, each call on a fresh
-    identity-filled state, as a query's first block finds it."""
+    and f64 at 16, 4096 and 2^20 groups, then a block of edge values; every
+    row kind as staged (uint8, uint16, int32 with offsets at the ends of
+    their ranges and near INT64_MIN/MAX, bool, int64, f64) in every lane
+    (S = 1, 5, 32, 64, 4096, 2^20). Timed at the three shapes the paths
+    give it, each call on a fresh identity state (a query's first block):
+    flow_window's S = 1 int64 (H19's decoded time_), config 10's S = 64 f64
+    (lat), and flows' S = 4096 int32 narrowed (bytes_sent, the row)."""
     from pixie_tpu_torch.ops import kernels, segment
 
     rng = np.random.default_rng(2)
     n = BLOCK_ROWS
     mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
+    optin = kernels.smem_optin_bytes(dev)
     records: dict = {}
     for S in (N_SERVICES, FLOW_GROUPS, 1 << 20):
         g = torch.from_numpy(rng.integers(-1, S + 1, n).astype(np.int32)).to(dev)
@@ -1135,9 +1181,8 @@ def minmax_kernel_phase(dev) -> dict:
                 torch.cuda.synchronize()
                 check(bits_equal(got, want),
                       f"H11 S={S} {dtype} {'min' if is_min else 'max'} differs from plain")
-        log(f"H11 segment_minmax S={S} shared="
-            f"{kernels.uses_shared('segment_minmax', dev, S)}: int64 and f64, min and "
-            "max, bit for bit")
+        log(f"H11 segment_minmax S={S} lane={kernels.h11_lane(S, optin)}: int64 and f64, "
+            "min and max, bit for bit")
     # Edge values into 8 groups: NaN of both signs, +-0.0 in one group (both
     # orders), +-inf, subnormals, int64 min and max, an all-masked group; then
     # a second launch into the same state, which holds NaN and +-0.0 by then.
@@ -1170,22 +1215,84 @@ def minmax_kernel_phase(dev) -> dict:
                   f"{got.tolist()} vs {want.tolist()}")
     log("H11 edge block (NaN of both signs, +-0.0 both orders, +-inf, subnormals, "
         "int64 min/max, an all-masked group, a second launch): bit for bit")
-    S = FLOW_GROUPS
-    g = torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
-    v = torch.from_numpy(rng.integers(0, 1 << 20, n)).to(dev)
-    ident = segment._identity_for(torch.int64, False)
-    states = fresh(lambda: torch.full((S,), ident, dtype=torch.int64, device=dev))
-    plain_state = torch.full((S,), ident, dtype=torch.int64, device=dev)
-    idx, vals = g[mask].long(), v[mask]
-    lib_state = torch.full((S,), ident, dtype=torch.int64, device=dev)
-    records["segment_minmax"] = record(
-        lambda: kernels.segment_minmax(v, g, mask, states(), False),
-        lambda: segment.segment_minmax_plain(plain_state, v, g, mask, False),
-        lambda: lib_state.scatter_reduce_(0, idx, vals, "amax", include_self=True),
-        # values, gids and mask read once; the state read and written once
-        *bound(n * 8 + n * 4 + n + 2 * S * 8, n), 0.0,
-        f"values[{n}] int64 state[{S}] max, fresh identity state",
-    )
+    # Every row kind as staged, in every lane: the staged values include both
+    # ends of the type's range; a second launch into the same state.
+    i64 = np.iinfo(np.int64)
+    f = rng.normal(0.0, 1e6, n)
+    f[:8] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 5e-324, -5e-324]
+    kinds = [
+        (np.uint8, 255, int(i64.max) - 255), (np.uint8, 255, int(i64.min)),
+        (np.uint16, 65535, int(i64.max) - 65535), (np.uint16, 65535, -(1 << 40)),
+        (np.int32, 2**31 - 1, int(i64.max) - 2**31 + 1), (np.int32, 2**31 - 1, int(i64.min)),
+        (np.int32, 2**31 - 1, 1 << 20),
+    ]
+    cols = []
+    for dt, top, off in kinds:
+        a = rng.integers(0, top + 1, n).astype(dt)
+        a[:2] = [0, top]
+        cols.append((torch.from_numpy(a).to(dev), off))
+    cols += [(torch.from_numpy(rng.random(n) < 0.5).to(dev), 0),
+             (torch.from_numpy(rng.integers(i64.min, i64.max, n, dtype=np.int64)).to(dev), 0),
+             (torch.from_numpy(f).to(dev), 0)]
+    lanes = set()
+    for S in (1, 5, 32, 64, FLOW_GROUPS, 1 << 20):
+        g = torch.from_numpy(rng.integers(-1, S + 1, n).astype(np.int32)).to(dev)
+        g[:2] = 0
+        lanes.add(kernels.h11_lane(S, optin)[0])
+        for col, off in cols:
+            f64 = col.dtype == torch.float64
+            dtype = torch.float64 if f64 else torch.int64
+            wide = col if f64 else segment.widen(segment.Narrow(col, off))
+            for is_min in (True, False):
+                fill = segment._identity_for(dtype, is_min)
+                got = torch.full((S,), fill, dtype=dtype, device=dev)
+                want = got.clone()
+                for _ in range(2):
+                    kernels.segment_minmax(col, g, mask, got, is_min, off)
+                    segment.segment_minmax_plain(want, wide, g, mask, is_min)
+                torch.cuda.synchronize()
+                check(bits_equal(got, want),
+                      f"H11 S={S} {col.dtype} offset {off} min={is_min} differs from plain")
+    check(lanes == {"regs", "cluster", "global"}, f"H11 lanes {lanes}")
+    log(f"H11 every row kind (uint8, uint16, int32 with offsets at INT64_MIN/MAX, bool, "
+        f"int64, f64) at S = 1, 5, 32, 64, 4096, 2^20 (lanes {sorted(lanes)}): bit for bit")
+
+    def timed(S, col, off, is_min, row_bytes, what):
+        g = torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
+        f64 = col.dtype == torch.float64
+        dtype = torch.float64 if f64 else torch.int64
+        ident = segment._identity_for(dtype, is_min)
+        states = fresh(lambda: torch.full((S,), ident, dtype=dtype, device=dev))
+        plain_state = torch.full((S,), ident, dtype=dtype, device=dev)
+        narrow = col if f64 or off is None else segment.Narrow(col, off)
+        wide = segment.widen(narrow)
+        idx, kept = g[mask].long(), wide[mask]
+        lib_state = torch.full((S,), ident, dtype=dtype, device=dev)
+        rec = record(
+            lambda: kernels.segment_minmax(col, g, mask, states(), is_min, off or 0),
+            lambda: segment.segment_minmax_plain(plain_state, segment.widen(narrow), g, mask,
+                                                 is_min),
+            lambda: lib_state.scatter_reduce_(0, idx, kept, "amin" if is_min else "amax",
+                                              include_self=True),
+            # values, gids and mask read once; the state read and written once
+            *bound(n * row_bytes + n * 4 + n + 2 * S * 8, n), 0.0,
+            f"{what}: values[{n}] {col.dtype} state[{S}] {'min' if is_min else 'max'}, "
+            f"fresh identity state, lane {kernels.h11_lane(S, optin)[0]}",
+        )
+        log(f"H11 {rec['shape']}: {rec['ms']:.5f} ms [bound {rec['bound_ms']:.5f}; plain "
+            f"{rec['plain_ms']:.5f}; scatter_reduce_ {rec['library_ms']:.5f}]")
+        return rec
+
+    bytes_sent = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)).to(dev)
+    records["segment_minmax"] = timed(FLOW_GROUPS, bytes_sent, 0, False, 4,
+                                      "flow_span (int32 narrowed)")
+    time_ = torch.arange(n, dtype=torch.int64, device=dev) * 1000
+    lat = torch.from_numpy(rng.standard_normal(n)).to(dev)
+    for key, args in (("by_s1_int64", (1, time_, None, False, 8, "flow_window (int64)")),
+                      ("by_s64_f64", (MESH_SERVICES, lat, None, True, 8, "config 10 (f64)"))):
+        rec = timed(*args)
+        records["segment_minmax"][key] = {
+            k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shape")}
     return records
 
 
@@ -4917,15 +5024,18 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
 
 # One turn of ``--ab-parent --ab-paths``: the named paths in the tree of the
 # working directory, each on its own table as the main run builds it:
-# service_stats, sketches and reservoir_latency (http_events), flows and
-# reservoir_flows (conn_flows), svc_let, endpoint_load and path_embeddings
-# (the let table) warm, flow_window (conn_flows) cold (the executor's caches
-# dropped before each query), the build of http_small_ring with resident
-# ingest on (seconds from create_table to stop(), the ring's window decodes
-# included); "kernels": H1 and H5 alone, as one median each. The child runs
-# the other tree's chip_smoke.py, so it calls only helpers that tree has.
-AB_PATHS = ("service_stats", "sketches", "reservoir_latency", "flows", "reservoir_flows",
-            "flow_window", "ring_build", "svc_let", "endpoint_load", "path_embeddings", "kernels")
+# service_stats, sketches and reservoir_latency (http_events), flows,
+# flow_span and reservoir_flows (conn_flows), svc_let, endpoint_load and
+# path_embeddings (the let table) and mesh_d1 (config 10's table at d:1)
+# warm, flow_window (conn_flows) cold (the executor's caches dropped before
+# each query), the build of http_small_ring with resident ingest on (seconds
+# from create_table to stop(), the ring's window decodes included);
+# "kernels": H11 and H6 alone at their path shapes, as one median each. The
+# child runs the other tree's chip_smoke.py, so it calls only helpers that
+# tree has.
+AB_PATHS = ("service_stats", "sketches", "reservoir_latency", "flows", "flow_span",
+            "reservoir_flows", "flow_window", "ring_build", "svc_let", "endpoint_load",
+            "path_embeddings", "mesh_d1", "kernels")
 AB_PATHS_CHILD = r"""
 import json, sys, time
 sys.path.insert(0, ".")
@@ -4958,15 +5068,20 @@ if {"svc_let", "endpoint_load", "path_embeddings"} & set(paths):
     warm(c, "endpoint_load", queries["load"], cs.LET_NOW)
     warm(c, "path_embeddings", cs.PATH_EMBEDDINGS)
     del c
-if {"flows", "reservoir_flows", "flow_window"} & set(paths):
+if {"flows", "flow_span", "reservoir_flows", "flow_window"} & set(paths):
     f = cs.build_flows_carnot(cs.conn_flows(cs.FLOW_ROWS), cs.FLOW_ROWS, "cuda")
     warm(f, "flows", cs.FLOWS)
+    warm(f, "flow_span", cs.FLOW_SPAN)
     if "reservoir_flows" in paths:
         timed(f, cs.RESERVOIR_FLOWS, True)
         out["reservoir_flows"] = [timed(f, cs.RESERVOIR_FLOWS, False) for _ in range(reps)]
     if "flow_window" in paths:
         out["flow_window"] = [timed(f, cs.FLOW_WINDOW, True) for _ in range(3)]
     del f
+if "mesh_d1" in paths:
+    c = cs.build_mesh_carnot(cs.mesh_table(cs.MESH_ROWS), cs.MESH_ROWS, "cuda")
+    warm(c, "mesh_d1", cs.MESH_QUERY)
+    del c
 if "ring_build" in paths:
     from pixie_tpu_torch.engine import Carnot
     from pixie_tpu_torch.parallel import DeviceExecutor
@@ -4976,39 +5091,35 @@ if "ring_build" in paths:
     c = Carnot(device_executor=DeviceExecutor(device="cuda", block_rows=cs.BLOCK_ROWS))
     out["ring_build"] = [cs.build_small_table(c, "http_small_ring", hs, cs.SMALL_ROWS)]
 if "kernels" in paths:
-    # H1 and H5 through the call both trees take (int64 rows and words), at
-    # the shapes the kernel table times, each its own median of 30 calls.
+    # H11 and H6 through the calls both trees take (int64 or f64 values, int64
+    # words), at their path shapes, each on fresh states, each its own median
+    # of 30 calls: H11 at flows' S = 4096 (int64 bytes), config 10's S = 64
+    # f64 and flow_window's S = 1; H6 (with its words' hashing) at
+    # endpoint_load's 34 groups x 4098 content words and config 5's 16 x 4.
     import numpy as np
-    from pixie_tpu_torch.ops import hll
+    from pixie_tpu_torch.ops import countmin, segment
+    from pixie_tpu_torch.table.column import fnv1a64_batch
     rng, n, dev = np.random.default_rng(0), cs.BLOCK_ROWS, torch.device("cuda")
     mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
-    for R, S in ((1, 16), (0, 16), (2, 4096), (2, 32768)):
-        g = torch.from_numpy(rng.integers(-1, S + 1, n).astype(np.int32)).to(dev)
-        rows = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (R, n), dtype=np.int64)).to(dev)
-        out[f"kernels:h1 R={R} S={S}"] = [
-            cs.time_ms(lambda: kernels.segment_rows_sum_i64(rows, g, mask, S))]
-    ports = torch.from_numpy(rng.integers(1024, 65535, n)).to(dev)
-    for G in (16, 4096):
-        g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
-        zeroed = cs.fresh(lambda: hll.init(G, dev))
-        out[f"kernels:h5 G={G} zeroed"] = [
-            cs.time_ms(lambda: kernels.hll_update(ports, g, mask, zeroed()))]
-    blocks = [(torch.from_numpy(rng.integers(1024, 65535, n)).to(dev),
-               torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32)).to(dev))
-              for _ in range(32)]
-    seq = []
-    for _ in range(5):
-        state = hll.init(4096, dev)
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
-        a.record()
-        for w, g in blocks:
-            kernels.hll_update(w, g, mask, state)
-        b.record()
-        torch.cuda.synchronize()
-        seq.append(a.elapsed_time(b) / 32)
-    out["kernels:h5 G=4096 sequence"] = [float(np.median(seq))]
+    for S, v, is_min in ((4096, torch.from_numpy(rng.integers(0, 1 << 20, n)), False),
+                         (64, torch.from_numpy(rng.standard_normal(n)), True),
+                         (1, torch.arange(n, dtype=torch.int64) * 1000, False)):
+        v, g = v.to(dev), torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
+        ident = segment._identity_for(v.dtype, is_min)
+        states = cs.fresh(lambda: torch.full((S,), ident, dtype=v.dtype, device=dev))
+        out[f"kernels:h11 S={S} {v.dtype}"] = [
+            cs.time_ms(lambda: kernels.segment_minmax(v, g, mask, states(), is_min))]
+    words = torch.from_numpy(fnv1a64_batch(cs.let_dictionaries()["req_path"]).view(np.int64))
+    code = torch.from_numpy(rng.integers(0, cs.N_PATHS, n))
+    status = torch.tensor([200, 301, 404, 500])[torch.from_numpy(
+        rng.choice(4, n, p=[0.85, 0.05, 0.05, 0.05]))]
+    for name, G, w, g in (
+            ("endpoint_load", 34, words[code], (code // cs.N_IDS).to(torch.int32)),
+            ("config5", 16, status, torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)))):
+        w, g = w.to(dev), g.to(dev)
+        cm, tot = countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)
+        out[f"kernels:h6 {name}"] = [
+            cs.time_ms(lambda: countmin.update_counted(cm, tot, g, w, mask))]
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -5017,9 +5128,10 @@ def ab_paths(parent: str, pairs: int, paths: list, reps: int = 15) -> dict:
     """``--ab-parent DIR --ab-paths ...``: the named paths of AB_PATHS in
     ``parent``'s tree and in this one (``ab_turns``); a warm path times
     ``reps`` warm queries a turn, flow_window three cold ones, ring_build
-    one build. Per path: each side's turn medians, the change's wins and
-    the change minus the parent's median of turn medians, with the
-    parent's own spread (its largest turn median less its smallest)."""
+    one build, kernels one median of 30 calls each. Per path: each side's
+    turn medians, the change's wins and the change minus the parent's
+    median of turn medians, with the parent's own spread (its largest turn
+    median less its smallest)."""
     turns = ab_turns(parent, pairs, AB_PATHS_CHILD % (tuple(paths), reps))
     out = {}
     for name in turns["change"][0]:
@@ -5314,7 +5426,7 @@ def main() -> int:
         ("latency_histogram", "lat_hist", verify_q3, fold,
          {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
         ("endpoint_load", "load", verify_q4,
-         fold + ("segment_sum_f64", "hash32", "hll_update", "hll_estimate", "countmin_update"),
+         fold + ("segment_sum_f64", "hll_update", "hll_estimate", "countmin_update"),
          {"fold_key_lut": 1 + WARM_QUERIES, "arghash": 1 + WARM_QUERIES, "stage_stream": 1}),
     ):
         t0 = time.perf_counter()

@@ -7,9 +7,10 @@ u32 hashes of ``hashing.hash32_pair(value, seed=1)`` (Kirsch-Mitzenmacher
 double hashing). Merge is an elementwise add; ``query`` takes the min over
 the depth rows.
 
-On a CUDA tensor ``update_counted`` launches the hash kernel for the pair and
-H6 for the buckets, which also adds each group's row count into the UDA's
-``total`` in the same pass; on a CPU tensor the plain versions below run.
+On a CUDA tensor ``update_counted`` launches H6, which reads the column as
+staged, hashes each word itself and adds each group's row count into the
+UDA's ``total`` in the same pass; on a CPU tensor the plain versions below
+run.
 ``cell_update_counted`` is the int-dictionary cell lane: one update per
 (group, value code) cell of a histogram, which gives the row path's cells;
 on CUDA one H21 launch updates the sketch and ``total`` in place. ``query``
@@ -40,8 +41,8 @@ def init(
 
 
 def _buckets(values: torch.Tensor, depth: int, width: int) -> list:
-    """The ``depth`` int32 bucket indices of each value (plain; H6 computes
-    them from the hash kernel's pair)."""
+    """The ``depth`` int32 bucket indices of each value (plain; H6 hashes
+    in the kernel)."""
     h1, h2 = hashing.hash32_pair_plain(values, seed=1)
     return [((h1 + d * h2) & (width - 1)).to(torch.int32) for d in range(depth)]
 
@@ -63,17 +64,24 @@ def update_plain(
 
 def update_counted(
     state: torch.Tensor, total: torch.Tensor, gids: torch.Tensor,
-    values: torch.Tensor, mask: Optional[torch.Tensor] = None,
+    values, mask: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(counts, total): the sketch updated with a block of rows and each
     group's count of valid rows added to ``total`` (int64 [num_groups]).
-    On CUDA both are updated in place by one H6 launch."""
+    ``values`` is a column or a ``segment.Narrow`` (a narrowed int64 column:
+    each row hashes as its int64 value, which H6 forms from the staged bytes
+    and the offset). On CUDA both are updated in place by one H6 launch,
+    which hashes the words itself."""
     if state.is_cuda:
-        pair = kernels.hash32(hashing.words64(values).contiguous(), 1, pair=True)
+        if isinstance(values, segment.Narrow):
+            col, off = values.values, values.offset
+        else:
+            col, off = values, None
         kernels.countmin_update(
-            pair, gids.to(torch.int32).contiguous(), mask, state, total
+            col.contiguous(), gids.to(torch.int32).contiguous(), mask, state, total, off
         )
         return state, total
+    values = segment.widen(values)
     counts = update_plain(state, gids, values, mask)
     return counts, total + segment.seg_count_plain(gids, total.shape[0], mask)
 

@@ -18,9 +18,10 @@ transformer UDF's encoder (H28), ``merge_kernels.cu`` the sharded
 fold's cross-shard merge of the states (H29), and ``hash_kernels.cu`` the
 row-wise 64-bit hash of several columns and the u64 leading-zero count
 (H31, H32; ``sketch_kernels.cu`` also holds the count-min query, H30:
-these three have no caller in either package yet); ``rows.cuh`` holds the
-typed row loads of H1 and H5 (a column read as staged, ``ROW_*`` kinds);
-see each file's header. At
+these three have no caller in either package yet, and the hash kernel has
+none in the port: H5, H6, H20 and H21 hash in registers); ``rows.cuh``
+holds the typed row loads of H1, H5, H6 and H11 (a column read as staged,
+``ROW_*`` kinds); see each file's header. At
 the first launch, ``library()`` compiles them with ``nvcc`` for
 ``sm_90a``, one process per source started together, and links them into
 ``pixie_tpu_torch/_build/`` as one shared library with a plain C
@@ -122,13 +123,13 @@ _SIGNATURES = {
     ),
     "px_hash32": (_P, _LL, ctypes.c_uint, _I, _P, _P),
     "px_hll_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _P, _I, _P),
-    "px_countmin_update": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "px_countmin_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_pack": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _I, _P),
     "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
-    "px_segment_minmax": (_P, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
+    "px_segment_minmax": (_P, _I, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
     "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P),
     "px_join_probe": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
@@ -321,8 +322,6 @@ def uses_shared(
         nbytes = num_segments * nbins * 4
     elif kernel == "tdigest_cluster":
         nbytes = 2 * num_segments * nbins * 8  # nbins: capacity
-    elif kernel == "segment_minmax":
-        nbytes = num_segments * 8
     elif kernel == "batched_segment_sums":
         nbytes = rows * num_segments * 8  # rows: B * ((R + 1) + F)
     else:
@@ -330,8 +329,8 @@ def uses_shared(
     return nbytes <= smem_optin_bytes(device)
 
 
-# Row kinds of H1 and H5 (rows.cuh RowKind): how a staged row's bytes
-# widen to 64 bits.
+# Row kinds of H1, H5, H6 and H11 (rows.cuh RowKind): how a staged row's
+# bytes widen to 64 bits.
 ROW_PRESENCE, ROW_U8, ROW_U16, ROW_I32, ROW_I64, ROW_U32, ROW_F64 = range(7)
 SUM_ROW_KINDS = {
     torch.bool: ROW_U8, torch.uint8: ROW_U8, torch.uint16: ROW_U16, torch.int32: ROW_I32,
@@ -523,20 +522,28 @@ def hll_lane(G: int, precision: int, optin: int) -> str:
 _HLL_LANES = ("shared", "onepass")
 
 
-def hll_word_kind(dtype: torch.dtype, offset: Optional[int]) -> int:
-    """The row kind H5 reads a ``dtype`` column as: with an offset (a
+def word_kind(dtype: torch.dtype, offset: Optional[int]) -> int:
+    """The row kind H5 and H6 read a ``dtype`` column as: with an offset (a
     narrowed int64 column) the int64 value plus it, so an int32 sign-
     extends; without, ``hashing.words64``'s word, so an int32 zero-extends
     as u32 and an f64 is its bits."""
     if dtype == torch.float64:
         if offset is not None:
-            raise ValueError("H5: a float column has no offset")
+            raise ValueError("a float column has no offset")
         return ROW_F64
     if dtype == torch.int32 and offset is None:
         return ROW_U32
     if dtype in SUM_ROW_KINDS:
         return SUM_ROW_KINDS[dtype]
-    raise TypeError(f"H5 takes no {dtype} column")
+    raise TypeError(f"H5 and H6 take no {dtype} column")
+
+
+def _word_column(values: torch.Tensor, offset: Optional[int]) -> torch.Tensor:
+    """A column H5 and H6 read as it lies: f32, int8 and int16 (no staged
+    kind) first take ``hashing.words64``'s f64 and u32 words."""
+    if values.dtype in (torch.float32, torch.int8, torch.int16) and offset is None:
+        return values.to(torch.float64 if values.is_floating_point() else torch.int32)
+    return values
 
 
 def hll_update(
@@ -551,9 +558,8 @@ def hll_update(
     a narrower int zero-extended as u32, a float's f64 bits)."""
     device = gids.device
     _require(state, "state", torch.int32, device, 2)
-    if values.dtype in (torch.float32, torch.int8, torch.int16) and offset is None:
-        values = values.to(torch.float64 if values.is_floating_point() else torch.int32)
-    kind = hll_word_kind(values.dtype, offset)
+    values = _word_column(values, offset)
+    kind = word_kind(values.dtype, offset)
     _require(values, "values", values.dtype, device, 1)
     n = values.shape[0]
     mask = _gids_mask(gids, mask, n, device)
@@ -573,30 +579,49 @@ def hll_update(
     return state
 
 
+# H6 counts (group, bucket pair) keys in a table of 2^H6_TABLE_BITS slots a
+# CTA before it adds them to the cells; a sketch wider than
+# 2^H6_MAX_TABLE_WBITS (where a key no longer fits 64 bits) takes no table.
+H6_TABLE_BITS = 13  # 8192 slots: 96 KB a CTA
+H6_MAX_TABLE_WBITS = 16
+
+
+def h6_table_bits(width: int) -> int:
+    """log2 of H6's table slots a CTA for a sketch of ``width`` buckets (a
+    power of two): H6_TABLE_BITS, or 0 (no table: every row adds to its
+    cells) past 2^H6_MAX_TABLE_WBITS buckets."""
+    return H6_TABLE_BITS if width.bit_length() - 1 <= H6_MAX_TABLE_WBITS else 0
+
+
 def countmin_update(
-    pair: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    cm: torch.Tensor, total: torch.Tensor,
+    values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    cm: torch.Tensor, total: torch.Tensor, offset: Optional[int] = None,
 ) -> None:
     """H6: adds one to each valid row's ``depth`` buckets of ``cm`` (int64
     [S, depth, width]) and to its group's ``total`` (int64 [S]), IN PLACE.
-    ``pair`` is the hash kernel's [2, n] output for seed 1."""
+    ``values`` [n] is read as it lies and hashed in the kernel
+    (``hash32_pair`` of the word, seed 1): with ``offset`` (a narrowed int64
+    column) a row's word is its int64 value plus the offset; without,
+    ``hashing.words64``'s word, as H5's."""
     device = gids.device
-    _require(pair, "pair", torch.int32, device, 2)
     _require(cm, "cm", torch.int64, device, 3)
     _require(total, "total", torch.int64, device, 1)
-    n = pair.shape[1]
+    values = _word_column(values, offset)
+    kind = word_kind(values.dtype, offset)
+    _require(values, "values", values.dtype, device, 1)
+    n = values.shape[0]
     mask = _gids_mask(gids, mask, n, device)
     S, depth, width = cm.shape
-    if pair.shape[0] != 2 or total.shape[0] != S or width & (width - 1):
-        raise ValueError("countmin_update: pair must be [2, n], total [S], width a power of two")
+    if total.shape[0] != S or width < 1 or width & (width - 1):
+        raise ValueError("countmin_update: total must be [S], width a power of two")
     if n == 0 or S == 0:
         return
     _launch(
         "countmin_update", device,
-        pair.data_ptr(), n, gids.data_ptr(),
+        values.data_ptr(), kind, _i64(offset or 0), n, gids.data_ptr(),
         mask.data_ptr() if mask is not None else None,
-        S, depth, width, cm.data_ptr(), total.data_ptr(),
-        int(S * 8 <= smem_optin_bytes(device)),
+        S, depth, width.bit_length() - 1, cm.data_ptr(), total.data_ptr(),
+        h6_table_bits(width),
     )
 
 
@@ -748,30 +773,58 @@ def hll_estimate(state: torch.Tensor, alpha: float) -> tuple[torch.Tensor, torch
 
 
 # ---------------------------------------------------------------- min/max
+MINMAX_KINDS = {**SUM_ROW_KINDS, torch.float64: ROW_F64}
+H11_REGS_BUCKETS = (1, 8)  # the register lane's group buckets
+H11_CLUSTER = 8  # CTAs of the cluster lane (kCluster of minmax_kernels.cu)
+_H11_LANES = ("regs", "cluster", "global")
+
+
+def h11_lane(S: int, optin: int) -> tuple[str, int]:
+    """H11's lane over S groups with ``optin`` bytes of shared memory a
+    block: ("regs", bucket) for S <= 8, the bucket 1 (a register a thread)
+    or 8 groups (a private shared cell a group and thread); ("cluster",
+    CTAs) while S 8-byte keys fit a CTA, the cluster picking over its CTAs'
+    keys before the flush; else ("global", 0). The cluster lane beats
+    private cells from about 8 groups on (PERF.md §6)."""
+    if S <= 0:
+        raise ValueError(f"H11 needs groups, got S={S}")
+    if S <= H11_REGS_BUCKETS[-1]:
+        return "regs", next(b for b in H11_REGS_BUCKETS if S <= b)
+    if S * 8 <= optin:
+        return "cluster", H11_CLUSTER
+    return "global", 0
+
+
 def segment_minmax(
     values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    state: torch.Tensor, is_min: bool,
+    state: torch.Tensor, is_min: bool, offset: int = 0,
 ) -> torch.Tensor:
     """H11: ``state[g] = min/max(state[g], v)`` over each valid row's value,
-    IN PLACE on ``state`` (int64 or f64 [S], the dtype of ``values``), and
-    returns it. f64 orders -0.0 below +0.0; a NaN wins and is written as
-    the canonical quiet NaN; a NaN already in the state stays."""
+    IN PLACE on ``state``, and returns it. ``values`` [n] is read as it
+    lies: f64 (``state`` f64), or bool, uint8, uint16, int32 or int64 whose
+    row value is its int64 value plus ``offset`` (a narrowed column with its
+    frame-of-reference offset; ``state`` int64). f64 orders -0.0 below
+    +0.0; a NaN wins and is written as the canonical quiet NaN; a NaN
+    already in the state stays."""
     device = gids.device
-    if values.dtype not in (torch.int64, torch.float64):
-        raise TypeError(f"values has dtype {values.dtype}, expected int64 or float64")
+    if values.dtype not in MINMAX_KINDS:
+        raise TypeError(f"values has dtype {values.dtype}, expected one of {list(MINMAX_KINDS)}")
+    f64 = values.dtype == torch.float64
+    if f64 and offset:
+        raise ValueError("H11: an f64 column has no offset")
     _require(values, "values", values.dtype, device, 1)
-    _require(state, "state", values.dtype, device, 1)
+    _require(state, "state", torch.float64 if f64 else torch.int64, device, 1)
     n = values.shape[0]
     mask = _gids_mask(gids, mask, n, device)
     S = state.shape[0]
     if n == 0 or S == 0:
         return state
+    lane, arg = h11_lane(S, smem_optin_bytes(device))
     _launch(
         "segment_minmax", device,
-        values.data_ptr(), n, gids.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        S, state.data_ptr(), int(is_min), int(values.dtype == torch.float64),
-        int(uses_shared("segment_minmax", device, S)),
+        values.data_ptr(), MINMAX_KINDS[values.dtype], _i64(offset), n, gids.data_ptr(),
+        mask.data_ptr() if mask is not None else None, S, state.data_ptr(), int(is_min),
+        _H11_LANES.index(lane), arg,
     )
     return state
 

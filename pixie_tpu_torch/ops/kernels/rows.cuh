@@ -1,4 +1,5 @@
-// Typed row loads shared by H1 (hopper_kernels.cu) and H5 (sketch_kernels.cu):
+// Typed row loads shared by H1 (hopper_kernels.cu), H5 and H6
+// (sketch_kernels.cu) and H11 (minmax_kernels.cu):
 // a column is read where the fold staged it (bool, uint8, uint16, int32 or
 // int64, a frame-of-reference offset beside it) and widened in registers,
 // 8 rows a thread, as 16-byte vectors where every pointer allows it, with

@@ -1,6 +1,6 @@
 // The u32 hash functions of the sketches, as __device__ functions: one
-// definition for the hash kernel, H5 (HLL) and, through the hash kernel's
-// output, H6 (count-min). Bit for bit pixie_tpu/ops/hashing.py's u32 path
+// definition for the hash kernel, H5 (HLL), H6 (count-min) and the cell
+// lane's H20 and H21. Bit for bit pixie_tpu/ops/hashing.py's u32 path
 // (u32_words, mix32, hash32, hash32_pair, clz32): a value hashes as its
 // 64-bit word, lo = the low 32 bits, hi = the high 32 bits.
 #pragma once

@@ -6,10 +6,12 @@
 //
 // hash  px_hash32            replaces pixie_tpu/ops/hashing.py u32_words,
 //    mix32, hash32, hash32_pair (:78-112): one or two u32 hashes per word.
+//    No path calls it: H5, H6, H20 and H21 hash in registers.
 // H5  px_hll_update          replaces pixie_tpu/ops/hll.py _reg_rho + update
 //    (:43, :54), with hash32 and clz32 (:100, :114) inlined.
 // H6  px_countmin_update     replaces pixie_tpu/ops/countmin.py _buckets +
-//    update (:48, :58) and the UDA's per-group total (seg_count).
+//    update (:48, :58), with hash32_pair (hashing.py:106) inlined, and the
+//    UDA's per-group total (seg_count).
 // H7a px_tdigest_pack        replaces the key packing of
 //    pixie_tpu/ops/tdigest.py _packed_sort (:56) and the group counts of
 //    update (:78); the sort between H7a and H7b is torch.sort.
@@ -31,12 +33,17 @@
 // otherwise each row reads its global register and issues an atomic max
 // only where it would raise it, and the random 4-byte accesses of a 32 MB
 // register file (4096 groups), in L2 and DRAM sectors, not the rows, set
-// its time. H6 adds depth u64 atomics per row into a [G, depth, width]
-// global sketch (4 MB at G = 16), so with
-// few distinct (group, value) pairs the serialised same-address atomics in
-// L2, not HBM, set its time. H7b walks the sorted keys in one contiguous
-// chunk per thread, so each thread flushes one atomic per (group, cluster)
-// run, not per row. H8-H10 are one CTA (or thread) per group and
+// its time. H6 reads the word column as staged (a narrowed INT64 column's
+// 1-4 bytes and its offset, or the arghash lane's int64 words), hashes it in
+// registers, and counts equal (group, h1 mod width, h2 mod width) keys in an
+// open-addressed table in shared memory before any global atomic: a key's
+// depth cells take one add of its count a CTA, not one a row, so the rows
+// (13 bytes each at most), the table's shared atomics and the flush's
+// global adds (one a cell and CTA) set its time, not the L2's same-address
+// atomics; a row that finds no slot adds to its cells at once, as every row
+// did before. H7b walks the sorted keys in one contiguous chunk per thread,
+// so each thread flushes one atomic per (group, cluster) run, not per row.
+// H8-H10 are one CTA (or thread) per group and
 // latency-bound at the main path's 16 groups. H30 is a gather: one thread a
 // query hashes its word once and reads its group's depth cells, so it moves
 // 12 bytes in and 8 out a query plus the cells it touches; at config 10's
@@ -173,36 +180,154 @@ __global__ void __launch_bounds__(kThreads) hll_onepass_kernel(const HllArgs a) 
 }
 
 // ---------------------------------------------------------------- H6
-__global__ void countmin_update_kernel(const uint32_t* __restrict__ pair, long long n,
-                                       const int* __restrict__ gids,
-                                       const unsigned char* __restrict__ mask, int S,
-                                       int depth, int width,
-                                       unsigned long long* __restrict__ cm,
-                                       unsigned long long* __restrict__ total,
-                                       int total_shared) {
-  extern __shared__ unsigned long long sh_total[];
-  if (total_shared) {
-    for (int c = threadIdx.x; c < S; c += blockDim.x) sh_total[c] = 0ull;
-    __syncthreads();
+// The value column as staged (rows.cuh), each row's word as H5's: its
+// 64-bit value plus the offset (kU32 and kF64 take offset 0), hashed in
+// registers by hash32_pair(word, 1).
+struct CmArgs {
+  const void* vals;
+  long long off;
+  int kind;
+  int vec_vals;
+  int vec;  // gids and mask take vector loads
+  const int* gids;
+  const unsigned char* mask;
+  long long n;
+  int S;
+  int depth;
+  int wbits;  // width = 2^wbits
+  unsigned long long* cm;
+  unsigned long long* total;
+  int tbits;          // a CTA's table: 2^tbits slots (0: no table)
+  int shared_totals;  // the S totals as u32 in shared memory
+};
+
+constexpr unsigned long long kEmptySlot = ~0ull;
+constexpr int kCmProbe = 32;  // slots a row probes before it goes straight to the cells
+
+// A row's table key: (gid, h1 mod width, h2 mod width). Bucket d is
+// (h1 + d * h2) mod width, which only the residues decide, so rows with one
+// key add to the same depth cells: counting keys is exact. 31 + 2 * wbits
+// <= 63 bits (wbits <= 16), so no key is the empty slot's all-ones.
+__device__ __forceinline__ unsigned long long cm_key(int g, uint2 h, int wbits) {
+  const uint32_t wmask = (1u << wbits) - 1u;
+  return ((unsigned long long)g << (2 * wbits)) |
+         ((unsigned long long)(h.x & wmask) << wbits) | (unsigned long long)(h.y & wmask);
+}
+
+__device__ __forceinline__ void add_cells(const CmArgs& a, int g, uint32_t h1, uint32_t h2,
+                                          unsigned long long cnt) {
+  const uint32_t wmask = (1u << a.wbits) - 1u;
+  unsigned long long* row = a.cm + (((long long)g * a.depth) << a.wbits);
+  for (int d = 0; d < a.depth; ++d) {
+    atomicAdd(&row[((long long)d << a.wbits) + ((h1 + (uint32_t)d * h2) & wmask)], cnt);
   }
-  const uint32_t wmask = (uint32_t)width - 1u;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (mask != nullptr && !mask[i]) continue;
-    const int g = gids[i];
-    if (g < 0 || g >= S) continue;
-    const uint32_t h1 = pair[i], h2 = pair[n + i];
-    unsigned long long* row = cm + (long long)g * depth * width;
-    for (int d = 0; d < depth; ++d) {
-      atomicAdd(&row[(long long)d * width + ((h1 + (uint32_t)d * h2) & wmask)], 1ull);
+}
+
+__device__ __forceinline__ void add_total(const CmArgs& a, unsigned int* sh_tot, int g,
+                                          unsigned int cnt) {
+  if (a.shared_totals) {
+    atomicAdd(&sh_tot[g], cnt);
+  } else {
+    atomicAdd(&a.total[g], (unsigned long long)cnt);
+  }
+}
+
+// A key's count into its depth cells and its group's total.
+__device__ __forceinline__ void add_key(const CmArgs& a, unsigned int* sh_tot,
+                                        unsigned long long key, unsigned int cnt) {
+  const uint32_t wmask = (1u << a.wbits) - 1u;
+  const int g = (int)(key >> (2 * a.wbits));
+  add_cells(a, g, (uint32_t)(key >> a.wbits) & wmask, (uint32_t)key & wmask, cnt);
+  add_total(a, sh_tot, g, cnt);
+}
+
+__device__ __forceinline__ unsigned int slot_of(unsigned long long key, int bits) {
+  return (unsigned int)((key * 0x9E3779B97F4A7C15ull) >> (64 - bits));
+}
+
+// Adds one to key's slot of an open-addressed table of 2^bits slots (keys,
+// u32 counts, in shared memory): a free slot is claimed by a
+// compare-and-swap on its key. False when kCmProbe slots from the key's
+// home hold other keys: the caller adds the row to its cells.
+__device__ __forceinline__ bool table_add(unsigned long long* keys, unsigned int* cnts, int bits,
+                                          unsigned long long key) {
+  const unsigned int tmask = (1u << bits) - 1u;
+  unsigned int s = slot_of(key, bits);
+  for (int p = 0; p < kCmProbe; ++p, s = (s + 1u) & tmask) {
+    unsigned long long k = *(volatile unsigned long long*)&keys[s];
+    if (k == kEmptySlot) {
+      k = atomicCAS(&keys[s], kEmptySlot, key);
+      if (k == kEmptySlot) k = key;
     }
-    atomicAdd(total_shared ? &sh_total[g] : &total[g], 1ull);
+    if (k == key) {
+      atomicAdd(&cnts[s], 1u);
+      return true;
+    }
   }
-  if (total_shared) {
+  return false;
+}
+
+// Each CTA counts its rows' keys in its table (shared atomics), one CTA an
+// SM; a row that finds no slot adds one to its cells and total at once.
+// Then the CTA adds each key's count to its cells and the totals. Measured
+// on the H100 (PERF.md §6): tables merged across a cluster of 8 through
+// distributed shared memory before the flush, 1024 threads a CTA, or two
+// CTAs an SM were no faster at endpoint_load's 4098 keys.
+__global__ void __launch_bounds__(kThreads) countmin_table_kernel(const CmArgs a) {
+  extern __shared__ unsigned long long sh_cm[];
+  const int T = a.tbits > 0 ? 1 << a.tbits : 0;
+  unsigned long long* keys = sh_cm;                                 // [T]
+  unsigned int* cnts = reinterpret_cast<unsigned int*>(keys + T);  // [T]
+  unsigned int* sh_tot = cnts + T;                                  // [S] with shared_totals
+  for (int s = threadIdx.x; s < T; s += blockDim.x) {
+    keys[s] = kEmptySlot;
+    cnts[s] = 0u;
+  }
+  if (a.shared_totals) {
+    for (int g = threadIdx.x; g < a.S; g += blockDim.x) sh_tot[g] = 0u;
+  }
+  __syncthreads();
+  // Each thread's next chunk is loaded before it counts the current one,
+  // so a chunk's loads overlap the previous chunk's table work.
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int gn[px::kRowsPerThread];
+  unsigned long long vn[px::kRowsPerThread];
+  if (c < chunks) {
+    px::load_gids8(a.gids, a.mask, c * px::kRowsPerThread, a.n, a.S, a.vec != 0, gn);
+    px::load_vals8(a.vals, a.kind, c * px::kRowsPerThread, a.n, a.vec_vals != 0, vn);
+  }
+  for (; c < chunks; c += stride) {
+    int g[px::kRowsPerThread];
+    unsigned long long v[px::kRowsPerThread];
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      g[j] = gn[j];
+      v[j] = vn[j];
+    }
+    if (c + stride < chunks) {
+      const long long i1 = (c + stride) * px::kRowsPerThread;
+      px::load_gids8(a.gids, a.mask, i1, a.n, a.S, a.vec != 0, gn);
+      px::load_vals8(a.vals, a.kind, i1, a.n, a.vec_vals != 0, vn);
+    }
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (g[j] < 0) continue;
+      const uint2 h = px::hash32_pair(v[j] + (unsigned long long)a.off, 1u);
+      if (T > 0 && table_add(keys, cnts, a.tbits, cm_key(g[j], h, a.wbits))) continue;
+      add_cells(a, g[j], h.x, h.y, 1ull);
+      add_total(a, sh_tot, g[j], 1u);
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < T; s += blockDim.x) {
+    if (keys[s] != kEmptySlot) add_key(a, sh_tot, keys[s], cnts[s]);
+  }
+  if (a.shared_totals) {
     __syncthreads();
-    for (int c = threadIdx.x; c < S; c += blockDim.x) {
-      const unsigned long long v = sh_total[c];
-      if (v != 0ull) atomicAdd(&total[c], v);
+    for (int g = threadIdx.x; g < a.S; g += blockDim.x) {
+      if (sh_tot[g] != 0u) atomicAdd(&a.total[g], (unsigned long long)sh_tot[g]);
     }
   }
 }
@@ -580,17 +705,51 @@ int px_hll_update(const void* vals, int kind, long long off, long long n, const 
   return (int)cudaGetLastError();
 }
 
-// pair: u32 [2, n]; cm: int64 [S, depth, width] and total: int64 [S],
-// updated in place.
-int px_countmin_update(const void* pair, long long n, const void* gids, const void* mask,
-                       int S, int depth, int width, void* cm, void* total, int total_shared,
-                       void* stream) {
-  const size_t smem = total_shared ? (size_t)S * sizeof(unsigned long long) : 0;
-  cudaError_t err = allow_smem(countmin_update_kernel, smem);
+// H6. vals: [n] of ``kind`` (rows.cuh; offset ``off``, as H5's words);
+// cm: int64 [S, depth, width] (width = 2^wbits) and total: int64 [S],
+// updated in place. tbits: a CTA's table of 2^tbits slots, 0 for none
+// (every row straight to its cells; needed past wbits 16, where a key no
+// longer fits 64 bits; ops/kernels/__init__.py h6_table_bits chooses).
+int px_countmin_update(const void* vals, int kind, long long off, long long n, const void* gids,
+                       const void* mask, int S, int depth, int wbits, void* cm, void* total,
+                       int tbits, void* stream) {
+  if (S <= 0 || depth <= 0 || wbits < 0 || wbits > 30 || tbits < 0 || tbits > 16 ||
+      (tbits > 0 && wbits > 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CmArgs a;
+  a.vals = vals;
+  a.off = off;
+  a.kind = kind;
+  a.vec_vals = px::vec_aligned(vals, kind);
+  a.vec = px::vec_aligned(gids, px::kI32) && (mask == nullptr || (uintptr_t)mask % 8 == 0);
+  a.gids = (const int*)gids;
+  a.mask = (const unsigned char*)mask;
+  a.n = n;
+  a.S = S;
+  a.depth = depth;
+  a.wbits = wbits;
+  a.cm = (unsigned long long*)cm;
+  a.total = (unsigned long long*)total;
+  a.tbits = tbits;
+  const size_t table =
+      (tbits > 0 ? (size_t)1 << tbits : 0) * (sizeof(unsigned long long) + sizeof(unsigned int));
+  int optin = 0, dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  countmin_update_kernel<<<grid_for(n, 4), kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)pair, n, (const int*)gids, (const unsigned char*)mask, S, depth, width,
-      (unsigned long long*)cm, (unsigned long long*)total, total_shared);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  a.shared_totals = table + (size_t)S * sizeof(unsigned int) <= (size_t)optin;
+  const size_t smem = table + (a.shared_totals ? (size_t)S * sizeof(unsigned int) : 0);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  err = allow_smem(countmin_table_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long want =
+      ((n + px::kRowsPerThread - 1) / px::kRowsPerThread + kThreads - 1) / kThreads;
+  // One CTA an SM with a table; without one, a wave of four.
+  long long grid = (long long)px::num_sms() * (tbits > 0 ? 1 : 4);
+  if (want < grid) grid = want > 0 ? want : 1;
+  countmin_table_kernel<<<(int)grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -7,10 +7,10 @@ limbs exist only to keep the TPU's slow scatter unit off the hot path.
 
 Each function takes its device from its tensors: on a CUDA tensor it
 launches the hand kernel of ``ops/kernels`` (H1 for integer sums and counts,
-its rows read as the fold staged them: ``Narrow``, ``PRESENCE``;
-H2 for f64 sums, H11 for min and max; H13-H15 and H12 for the sort-merge
-join's primitives, H16 for the join-aggregate lane's weighted fold at the
-end), on a CPU tensor it runs the plain PyTorch
+its rows read as the fold staged them: ``Narrow``, ``PRESENCE``; H2 for f64
+sums; H11 for min and max, a ``Narrow`` read as staged too; H13-H15 and H12
+for the sort-merge join's primitives, H16 for the join-aggregate lane's
+weighted fold at the end), on a CPU tensor it runs the plain PyTorch
 version beside it. The plain versions are the ones the CPU tests
 hold against the reference, and chip_smoke.py holds the kernels against
 them on the card.
@@ -232,18 +232,26 @@ def segment_minmax_plain(
 
 
 def segment_minmax(
-    state: torch.Tensor, values: torch.Tensor, seg_ids: torch.Tensor,
+    state: torch.Tensor, values, seg_ids: torch.Tensor,
     mask: Optional[torch.Tensor], is_min: bool,
 ) -> torch.Tensor:
     """``state[g] = min/max(state[g], v)`` over the valid rows, in place on
-    ``state`` (int64 or f64, the dtype ``values`` is cast to). H11 on CUDA."""
-    values = values.to(state.dtype)
+    ``state`` (int64 or f64). ``values`` is a column or a ``Narrow`` (a
+    narrowed int64 column: H11 reads its staged bytes and adds the offset,
+    the plain version widens it). H11 on CUDA; a column H11 does not read as
+    it lies is cast to the state's dtype first."""
     seg_ids = seg_ids.to(torch.int32)
-    if seg_ids.is_cuda:
-        return kernels.segment_minmax(
-            values.contiguous(), seg_ids.contiguous(), mask, state, is_min
-        )
-    return segment_minmax_plain(state, values, seg_ids, mask, is_min)
+    if not seg_ids.is_cuda:
+        return segment_minmax_plain(state, widen(values).to(state.dtype), seg_ids, mask, is_min)
+    if isinstance(values, Narrow):
+        col, off = values.values, values.offset
+    else:
+        col, off = values, 0
+        if state.dtype == torch.float64 or col.dtype not in kernels.SUM_ROW_KINDS:
+            col = col.to(state.dtype)
+    return kernels.segment_minmax(
+        col.contiguous(), seg_ids.contiguous(), mask, state, is_min, off
+    )
 
 
 def minmax_pick(a: torch.Tensor, b: torch.Tensor, is_min: bool) -> torch.Tensor:
@@ -254,26 +262,33 @@ def minmax_pick(a: torch.Tensor, b: torch.Tensor, is_min: bool) -> torch.Tensor:
     return segment_minmax_plain(out, b, idx, None, is_min)
 
 
-def _filled(values: torch.Tensor, num_segments: int, is_min: bool) -> torch.Tensor:
-    ident = _identity_for(values.dtype, is_min)
-    return torch.full((num_segments,), ident, dtype=values.dtype, device=values.device)
+def _filled(values, num_segments: int, is_min: bool) -> torch.Tensor:
+    """The identity-filled state of ``values``' dtype (int64 for a
+    ``Narrow``)."""
+    if isinstance(values, Narrow):
+        dtype, device = torch.int64, values.values.device
+    else:
+        dtype, device = values.dtype, values.device
+    ident = _identity_for(dtype, is_min)
+    return torch.full((num_segments,), ident, dtype=dtype, device=device)
 
 
 def seg_min(
-    values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+    values, seg_ids: torch.Tensor, num_segments: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-segment min of int64 or f64 values; empty segments hold the
-    identity (+inf, int64 max), as the reference's scatter lane gives."""
+    """Per-segment min of int64 or f64 values (or a ``Narrow``); empty
+    segments hold the identity (+inf, int64 max), as the reference's scatter
+    lane gives."""
     return segment_minmax(_filled(values, num_segments, True), values, seg_ids, mask, True)
 
 
 def seg_max(
-    values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+    values, seg_ids: torch.Tensor, num_segments: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-segment max of int64 or f64 values; empty segments hold the
-    identity (-inf, int64 min)."""
+    """Per-segment max of int64 or f64 values (or a ``Narrow``); empty
+    segments hold the identity (-inf, int64 min)."""
     return segment_minmax(_filled(values, num_segments, False), values, seg_ids, mask, False)
 
 

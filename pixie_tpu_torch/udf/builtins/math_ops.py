@@ -314,7 +314,8 @@ def register(r: Registry) -> None:
     def minmax_uda(name, arg_t, is_min):
         # The reference's init, update, merge and finalize
         # (pixie_tpu/udf/builtins/math_ops.py:183-219): update is
-        # pick(state, seg_fn(col)), which H11 computes in place on the state.
+        # pick(state, seg_fn(col)), which H11 computes in place on the state,
+        # reading an INT64 column the fold narrowed as staged.
         dtype = torch.float64 if arg_t == F else torch.int64
         ident = segment._identity_for(dtype, is_min)
 
@@ -327,12 +328,13 @@ def register(r: Registry) -> None:
             out_type=arg_t,
             init=lambda g, device: torch.full((g,), ident, dtype=dtype, device=device),
             update=lambda st, gids, col, mask=None: segment.segment_minmax(
-                st, col.to(dtype), gids, mask, is_min
+                st, col, gids, mask, is_min
             ),
             merge=lambda a, b: segment.minmax_pick(a, b, is_min),
             finalize=fin,
             merge_kind=MergeKind.PMIN if is_min else MergeKind.PMAX,
             out_semantic=_preserve_first,
+            narrow_args=dtype == torch.int64,
             doc=f"{'Minimum' if is_min else 'Maximum'} value in the group.",
         )
 

@@ -156,6 +156,7 @@ def _countmin_uda(arg_t) -> UDA:
             "total": a["total"] + b["total"],
         },
         cell_update=_countmin_cell_update,
+        narrow_args=arg_t == I,  # H6 hashes a narrowed column as staged
         finalize=lambda st: _format_cm_totals(
             _to_numpy(_countmin_totals(st))
         ),

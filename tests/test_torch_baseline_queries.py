@@ -290,3 +290,28 @@ def test_flow_span_min_max_matches_reference():
         np.maximum.at(hi, flat, data[col].astype(np.int64))
         assert got[f"{col}_min"] == lo[pair].tolist()
         assert got[f"{col}_max"] == hi[pair].tolist()
+
+
+def test_flow_span_hands_byte_columns_to_min_max_as_staged(monkeypatch):
+    """bytes_sent and bytes_recv (values below 2^20) stage narrowed to
+    int32 with their offsets; the fold hands them to all four min and max
+    states as segment.Narrow (``_staged_args``), which H11 reads as staged
+    on the card, and the result still equals the reference's."""
+    from pixie_tpu_torch.ops import segment
+
+    seen = []
+    real = segment.segment_minmax
+
+    def spy(state, values, seg_ids, mask, is_min):
+        seen.append((type(values), getattr(values, "values", values).dtype, is_min))
+        return real(state, values, seg_ids, mask, is_min)
+
+    monkeypatch.setattr(segment, "segment_minmax", spy)
+    data = conn_flows(50_000)
+    got, ex = run_port(data, FLOW_SPAN, "flow_span", 1 << 14)
+    blocks = -(-50_000 // (1 << 14))
+    assert len(seen) == 4 * blocks
+    assert all(t is segment.Narrow and dt == torch.int32 for t, dt, _ in seen), seen
+    assert sum(m for _, _, m in seen) == 2 * blocks
+    want, _ = run_ref(data, FLOW_SPAN, "flow_span", 1 << 14)
+    assert got == want

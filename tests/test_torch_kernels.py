@@ -447,6 +447,124 @@ def test_hll_update_edges_on_card(n):
                 assert torch.equal(got, want), (n, G, unaligned, str(col.dtype), off)
 
 
+# H11 and H6 read their columns as staged: every row kind with offsets at
+# the ends of a narrowed range and near INT64_MIN/MAX, aligned and one
+# element into a buffer; H11's S on both sides of every lane's edge; H6's
+# tables overflowing; bit for bit (exactly) against the plain versions.
+def _minmax_edge_columns(rng, n: int) -> list:
+    """(numpy values, offset) of every kind H11 reads."""
+    f = rng.normal(0.0, 1e6, n)
+    special = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 5e-324, -5e-324]
+    f[: min(n, 8)] = special[: min(n, 8)]
+    u8 = rng.integers(0, 256, n).astype(np.uint8)
+    u8[: min(n, 2)] = [255, 0][: min(n, 2)]
+    return [
+        (u8, int(_I64.max) - 255),
+        (rng.integers(0, 65536, n).astype(np.uint16), int(_I64.min)),
+        (rng.integers(0, 1 << 31, n).astype(np.int32), int(_I64.max) - (1 << 31) + 1),
+        (rng.integers(0, 1 << 31, n).astype(np.int32), -(1 << 40)),
+        (rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32), 0),
+        (rng.random(n) < 0.5, 0),
+        (rng.integers(_I64.min, _I64.max, n, dtype=np.int64), 0),
+        (f, 0),
+    ]
+
+
+def _h11_edge_S(optin: int) -> list:
+    limit = optin // 8
+    assert kernels.h11_lane(limit, optin)[0] == "cluster"
+    assert kernels.h11_lane(limit + 1, optin)[0] == "global"
+    return [1, 2, 8, 9, 16, 33, 64, 4096, limit, limit + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_segment_minmax_edges_on_card(n):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n + 11)
+    optin = kernels.smem_optin_bytes(dev)
+    columns = _minmax_edge_columns(rng, n)
+    for S in _h11_edge_S(optin):
+        gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        for unaligned in (False, True):
+            g, mk = (_unaligned(gids), _unaligned(mask)) if unaligned else (gids, mask)
+            for v, off in columns:
+                col = torch.from_numpy(v).to(dev)
+                if unaligned:
+                    col = _unaligned(col)
+                f64 = col.dtype == torch.float64
+                wide = col if f64 else segment.widen(segment.Narrow(col, off))
+                dtype = torch.float64 if f64 else torch.int64
+                for is_min in (True, False):
+                    # A state that already holds values, one group a NaN.
+                    base = torch.full((S,), segment._identity_for(dtype, is_min), dtype=dtype)
+                    k = base[::3].shape[0]
+                    base[::3] = torch.from_numpy(
+                        rng.normal(0.0, 1e6, k) if f64 else rng.integers(-(1 << 40), 1 << 40, k))
+                    if f64:
+                        base[S // 2] = float("nan")
+                    base = base.to(dev)
+                    got = kernels.segment_minmax(col, g, mk, base.clone(), is_min, off)
+                    kernels.segment_minmax(col, g, mk, got, is_min, off)  # a second launch
+                    want = segment.segment_minmax_plain(base.clone(), wide, g, mk, is_min)
+                    assert torch.equal(got.view(torch.int64), want.view(torch.int64)), (
+                        n, S, unaligned, str(col.dtype), off, is_min)
+            i64 = torch.from_numpy(columns[6][0]).to(dev)
+            if unaligned:
+                i64 = _unaligned(i64)
+            zero = torch.zeros(S, dtype=torch.int64, device=dev)
+            got = kernels.segment_minmax(i64, g, None, zero.clone(), False)
+            want = segment.segment_minmax_plain(zero.clone(), i64, g, None, False)
+            assert torch.equal(got, want), (n, S, unaligned, "no mask")
+
+
+@pytest.mark.cuda
+def test_countmin_update_tables_on_card():
+    """H6's tables at config 5's shape (64 keys), endpoint_load's (34
+    groups x 4098 content words), overflowing (2^21 distinct words: most
+    rows find no slot and add to their cells at once), narrowed columns
+    with offsets, unaligned columns, more groups than the shared totals
+    hold, and a width past the tables' (every row to its cells); cells
+    and totals exact against the plain version."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(6)
+    n = 1 << 21
+    words = rng.integers(_I64.min, _I64.max, 4098, dtype=np.int64)
+    cases = [
+        ("config5", 16, np.array([200, 301, 404, 500])[rng.choice(4, n, p=[.85, .05, .05, .05])],
+         None, countmin.DEFAULT_WIDTH),
+        ("endpoint_load", 34, words[rng.integers(0, 4098, n)], None, countmin.DEFAULT_WIDTH),
+        ("overflow", 16, rng.integers(_I64.min, _I64.max, n, dtype=np.int64), None,
+         countmin.DEFAULT_WIDTH),
+        ("uint16+off", 300, rng.integers(0, 65536, n).astype(np.uint16), -(1 << 40), 1024),
+        ("int32+off", 34, rng.integers(0, 1 << 31, 70_001).astype(np.int32),
+         int(_I64.max) - (1 << 31) + 1, countmin.DEFAULT_WIDTH),
+        ("int32 words", 34, rng.integers(-(2**31), 2**31 - 1, 70_001).astype(np.int32), None,
+         countmin.DEFAULT_WIDTH),
+        ("no shared totals", 40_000, rng.integers(0, 5000, 70_001), None, 64),
+        ("width 2^17", 8, rng.integers(0, 1 << 20, 70_001), None, 1 << 17),
+    ]
+    for name, G, v, off, width in cases:
+        m = v.shape[0]
+        gids = torch.from_numpy(rng.integers(-1, G + 1, m).astype(np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random(m) < 0.97).to(dev)
+        col = torch.from_numpy(v).to(dev)
+        for unaligned in (False, True):
+            c, g, mk = ((_unaligned(col), _unaligned(gids), _unaligned(mask)) if unaligned
+                        else (col, gids, mask))
+            cm = countmin.init(G, dev, width=width)
+            total = torch.zeros(G, dtype=torch.int64, device=dev)
+            kernels.countmin_update(c, g, mk, cm, total, off)
+            wide = segment.widen(segment.Narrow(c, off)) if off is not None else c
+            ok = mk & (g >= 0) & (g < G)
+            want = countmin.update_plain(countmin.init(G, dev, width=width), g, wide, mk)
+            assert torch.equal(cm, want), (name, unaligned)
+            assert torch.equal(total, torch.bincount(g[ok].long(), minlength=G)), (name,)
+
+
 @pytest.mark.cuda
 def test_histogram_kernels_match_plain_on_card():
     _need_cards(1)

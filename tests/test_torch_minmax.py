@@ -241,3 +241,121 @@ def test_fault5_sorted_lane_differs_on_nan_and_signed_zeros():
     assert neg[2] == 5
     port = segment.seg_max(_t(np.array([5, 7], np.int64)), _t(np.array([-1, 0], np.int32)), 3)
     assert port.tolist() == [7, np.iinfo(np.int64).min, np.iinfo(np.int64).min]
+
+
+# ---------------------------------------------------------------- staged columns
+# H11 reads a column where the fold staged it: uint8, uint16 or int32 with
+# its frame-of-reference offset, added in registers before any comparison.
+# staging._narrow_int stores value - min, non-negative and within its type,
+# so value + offset never wraps and the staged order is the int64 order. The
+# port takes a segment.Narrow; the reference gets the widened int64 column.
+# Staged values include both ends of the type's range; offsets are 0,
+# negative, large, and as near INT64_MAX and INT64_MIN as the range allows.
+_I64 = np.iinfo(np.int64)
+_NARROW_DTYPES = {"uint8": (np.uint8, 255), "uint16": (np.uint16, 65535),
+                  "int32": (np.int32, 2**31 - 1)}
+_OFFSETS = {
+    "zero": lambda top: 0,
+    "negative": lambda top: -1_000_003,
+    "large": lambda top: 1 << 40,
+    "near_max": lambda top: int(_I64.max) - top,
+    "near_min": lambda top: int(_I64.min),
+}
+
+
+def _narrow_rows(seed: int, S: int, dt: str, off_case: str):
+    """(gids, mask, staged values, offset, the widened int64 column)."""
+    np_dt, top = _NARROW_DTYPES[dt]
+    rng = np.random.default_rng(seed)
+    gids = rng.integers(0, S - 4, N).astype(np.int32)
+    gids[:40] = S + rng.integers(0, 3, 40)
+    mask = rng.random(N) < 0.8
+    staged = rng.integers(0, top + 1, N).astype(np_dt)
+    staged[40:44] = [0, top, 0, top]
+    gids[40:44] = [1, 1, 2, 2]  # each end in one group, both in another
+    staged[44:46] = [top, 0]
+    gids[44:46] = 3
+    mask[40:46] = True
+    off = _OFFSETS[off_case](top)
+    wide = staged.astype(np.int64) + off  # within int64: no wrap
+    return gids, mask, staged, off, wide
+
+
+@pytest.mark.parametrize("off_case", list(_OFFSETS))
+@pytest.mark.parametrize("dt", list(_NARROW_DTYPES))
+def test_seg_min_max_narrow_match_reference(sorted_lane, dt, off_case):
+    S = 64
+    gids, mask, staged, off, wide = _narrow_rows(len(dt) + len(off_case), S, dt, off_case)
+    col = segment.Narrow(_t(staged), off)
+    for use_mask in (False, True):
+        m_ref = jnp.asarray(mask) if use_mask else None
+        m_port = _t(mask) if use_mask else None
+        for ref_fn, fn in ((ref_segment.seg_min, segment.seg_min),
+                           (ref_segment.seg_max, segment.seg_max)):
+            want = np.asarray(ref_fn(jnp.asarray(wide), jnp.asarray(gids), S, m_ref))
+            got = fn(col, _t(gids), S, m_port).numpy()
+            assert got.dtype == np.int64 and np.array_equal(got, want), (ref_fn.__name__, use_mask)
+    mn = segment.seg_min(col, _t(gids), S).numpy()
+    mx = segment.seg_max(col, _t(gids), S).numpy()
+    top = _NARROW_DTYPES[dt][1]
+    assert mn[1] == off and mx[1] == off + top  # the type's ends, offset
+    assert mn[3] == off and mx[3] == off + top
+
+
+@pytest.mark.parametrize("dt", list(_NARROW_DTYPES))
+@pytest.mark.parametrize("name", ["min", "max"])
+def test_minmax_udas_narrow_match_reference(sorted_lane, name, dt):
+    """The INT64 min and max take a narrowed column as staged
+    (``narrow_args``; the FLOAT64 ones do not): three blocks of update over
+    Narrow columns with different offsets, against the reference's UDA over
+    the widened columns."""
+    G = 300
+    ref, port = _uda_pair(name, "INT64")
+    assert port.narrow_args and not _uda_pair(name, "FLOAT64")[1].narrow_args
+    st_ref, st_port = ref.init(G), port.init(G, "cpu")
+    for blk, off_case in enumerate(("negative", "near_max", "zero")):
+        gids, mask, staged, off, wide = _narrow_rows(30 + blk, G, dt, off_case)
+        st_ref = ref.update(st_ref, jnp.asarray(gids), jnp.asarray(wide), mask=jnp.asarray(mask))
+        st_port = port.update(st_port, _t(gids), segment.Narrow(_t(staged), off), mask=_t(mask))
+        assert np.array_equal(interop.state_to_numpy(port, st_port), np.asarray(st_ref)), blk
+    assert np.array_equal(port.finalize(st_port).numpy(), np.asarray(ref.finalize(st_ref)))
+
+
+# ---------------------------------------------------------------- H11 lanes
+# H11's lane chooser as a pure function: every S in exactly one lane, the
+# register lane's bucket the smallest that holds S (S <= 8), the cluster lane
+# only while S 8-byte keys fit a block's opt-in shared memory.
+_S_GRID = [1, 2, 7, 8, 9, 16, 17, 31, 32, 33, 64, 4095, 4096, 4097, 6144, 6145, 12288,
+           29056, 29057, 32768, 1 << 20]
+
+
+@pytest.mark.parametrize("optin", [48 * 1024, 101_376, 232_448])
+def test_h11_lane_chooser_grid(optin):
+    from pixie_tpu_torch.ops import kernels
+
+    order = ("regs", "cluster", "global")
+    last = None
+    for S in _S_GRID:
+        lane, arg = kernels.h11_lane(S, optin)
+        if lane == "regs":
+            assert S <= 8 and arg in kernels.H11_REGS_BUCKETS and S <= arg
+            smaller = [b for b in kernels.H11_REGS_BUCKETS if b < arg]
+            assert not smaller or smaller[-1] < S
+            assert (arg == 1) == (S == 1)  # one group: a register a thread
+            assert arg * 256 * 8 <= 16 * 1024  # private cells of 256 threads
+        elif lane == "cluster":
+            assert S > 8 and arg == kernels.H11_CLUSTER and S * 8 <= optin
+        else:
+            assert lane == "global" and arg == 0 and S * 8 > optin
+        assert last is None or order.index(lane) >= order.index(last)
+        last = lane
+    # The paths' shapes: flow_window S = 1, the join aggregates' 4 and 5,
+    # config 10's S = 64, flows' 4096.
+    assert kernels.h11_lane(1, optin) == ("regs", 1)
+    assert kernels.h11_lane(5, optin) == ("regs", 8)
+    assert kernels.h11_lane(16, optin) == ("cluster", kernels.H11_CLUSTER)
+    assert kernels.h11_lane(64, optin) == ("cluster", kernels.H11_CLUSTER)
+    assert kernels.h11_lane(4096, optin)[0] == ("cluster" if optin >= 32768 else "global")
+    for bad in (0, -1):
+        with pytest.raises(ValueError):
+            kernels.h11_lane(bad, optin)

@@ -403,9 +403,9 @@ def _kind_words(v: np.ndarray, kind: int, off) -> np.ndarray:
 
 @pytest.mark.parametrize("case", list(_NARROW_CASES) + ["bool"])
 def test_hll_word_kind_gives_words64(case):
-    """The row kind H5 reads each staged dtype as, applied to its bytes,
-    gives the word the plain path hashes: hashing.words64 of the column
-    the fold would have widened."""
+    """The row kind H5 and H6 read each staged dtype as, applied to its
+    bytes, gives the word the plain path hashes: hashing.words64 of the
+    column the fold would have widened."""
     from pixie_tpu_torch.ops import hashing, kernels, segment
 
     rng = np.random.default_rng(22)
@@ -413,12 +413,56 @@ def test_hll_word_kind_gives_words64(case):
         v, off = rng.random(N) < 0.5, None
     else:
         v, off, _ = _narrow_column(rng, case)
-    kind = kernels.hll_word_kind(_t(v).dtype, off)
+    kind = kernels.word_kind(_t(v).dtype, off)
     col = _t(v) if off is None else segment.Narrow(_t(v), off)
     want = hashing.words64(segment.widen(col)).numpy()
     np.testing.assert_array_equal(_kind_words(v, kind, off), want)
     with pytest.raises(ValueError):
-        kernels.hll_word_kind(torch.float64, 3)
+        kernels.word_kind(torch.float64, 3)
+
+
+# ---------------------------------------------------------------- H6 inputs
+# H6 hashes its words in the kernel from the column as staged, as H5 does: a
+# narrowed INT64 column (uint8, uint16 or int32 with its offset) as v + off,
+# an int64 column (the arghash lane's content words of a STRING column) as
+# it is. The plain path widens; both must give the reference's cells, and
+# the totals must count every valid row.
+@pytest.mark.parametrize("case", list(_NARROW_CASES) + ["arghash"])
+def test_countmin_narrow_input_matches_reference(sorted_lane, case):
+    from pixie_tpu_torch.ops import segment
+    from pixie_tpu_torch.table.column import fnv1a64_batch
+
+    rng = np.random.default_rng(23)
+    G = 34  # endpoint_load's endpoints
+    gids = rng.integers(-1, G + 1, N).astype(np.int32)
+    mask = rng.random(N) < 0.9
+    if case == "arghash":
+        paths = [f"/api/v1/res-{r}/{i}" for r in range(32) for i in range(128)]
+        words = fnv1a64_batch(paths + ["/healthz", "/readyz"]).view(np.int64)
+        v = off = None
+        ref_col = words[rng.integers(0, len(words), N)]
+        col = _t(ref_col)
+    else:
+        v, off, ref_col = _narrow_column(rng, case)
+        col = _t(v) if off is None else segment.Narrow(_t(v), off)
+    ok = (gids >= 0) & (gids < G)
+    want = ref_cm.update(ref_cm.init(G), jnp.asarray(np.where(ok, gids, 0)),
+                         jnp.asarray(ref_col), jnp.asarray(mask & ok))
+    cm, total = countmin.update_counted(
+        countmin.init(G, "cpu"), torch.zeros(G, dtype=torch.int64), _t(gids), col, _t(mask)
+    )
+    np.testing.assert_array_equal(cm.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        total.numpy(), np.bincount(gids[mask & ok], minlength=G))
+    assert int(cm.numpy().sum()) == countmin.DEFAULT_DEPTH * int((mask & ok).sum())
+
+
+def test_countmin_uda_takes_narrowed_int64_only():
+    """count_min(INT64) takes a narrowed column as staged (``narrow_args``);
+    the STRING overload keeps its arghash int64 words."""
+    reg = default_registry()
+    assert reg.lookup_uda("count_min", [DataType.INT64]).narrow_args
+    assert not reg.lookup_uda("count_min", [DataType.STRING]).narrow_args
 
 
 # ---------------------------------------------------------------- H5 edges
