@@ -233,7 +233,7 @@ TRUTH_LO, TRUTH_HI = 1.0, 1e12
 TRUTH_EDGES = np.logspace(math.log10(TRUTH_LO), math.log10(TRUTH_HI), TRUTH_BINS - 1)
 REPLACES = {
     "segment_rows_sum_i64": "pixie_tpu/ops/segment.py:235",
-    "segment_sum_f64": "pixie_tpu/ops/segment.py:593",
+    "segment_rows_sum_f64": "pixie_tpu/ops/segment.py:593",
     "log_histogram_update": "pixie_tpu/ops/histogram.py:59",
     "hist_quantiles": "pixie_tpu/ops/histogram.py:83",
     "hash32": "pixie_tpu/ops/hashing.py:106",
@@ -663,6 +663,145 @@ def h1_cases(rng, n: int, dev) -> list:
     ]
 
 
+def unaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one element into a larger buffer: its pointer
+    misses every vector alignment above one element."""
+    buf = torch.empty(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def h2_rows(rng, n: int, dev, skew: bool = False) -> list:
+    """(tensor, offset, square) rows of every kind H2 reads: f64 (one with
+    NaN and +-inf), bool, uint8, uint16, int32 with an offset near INT64_MAX
+    (v + off wraps), int64; values and squares. With ``skew`` the tensors
+    lie one element into a buffer (no vector loads)."""
+    put = (lambda a: unaligned(torch.from_numpy(a).to(dev))) if skew else \
+        (lambda a: torch.from_numpy(a).to(dev))
+    f = rng.exponential(3e7, n)
+    for x in (np.nan, np.inf, -np.inf):
+        f[rng.random(n) < 1e-4] = x
+    return [
+        (put(rng.normal(0.0, 1e6, n)), 0, False),
+        (put(rng.random(n) < 0.15), 0, False),
+        (put(rng.integers(0, 256, n).astype(np.uint8)), 7, True),
+        (put(rng.integers(0, 65536, n).astype(np.uint16)), -70_000, False),
+        (put(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)), (1 << 63) - 5, False),
+        (put(rng.integers(-(2**40), 2**40, n, dtype=np.int64)), 0, True),
+        (put(f), 0, False),
+        (put(f), 0, True),
+    ]
+
+
+def h2_plain_rows(segment, rows: list) -> list:
+    return [segment.F64Row(segment.Narrow(t, off) if off else t, sq) for t, off, sq in rows]
+
+
+def h2_check(segment, got, rows: list, g, m, S: int, what: str) -> float:
+    """H2's contract against its plain version: each finite sum within
+    1e-12 * sum |v| of the group (integer rows whose sums stay below 2^53
+    exactly), NaN and +-inf where the plain version has them. Returns the
+    largest |error| of a finite sum."""
+    plain = h2_plain_rows(segment, rows)
+    want = segment.segment_rows_sum_f64_plain(plain, g, S, m)
+    check(got.shape == want.shape, f"H2 {what}: shape {tuple(got.shape)}")
+    worst = 0.0
+    for r, row in enumerate(plain):
+        x = segment._f64_row_values(row)
+        abs_sum = segment.segment_sum_f64_plain(
+            torch.where(torch.isfinite(x), x, 0.0).abs(), g, m, S)
+        gr, w = got[r], want[r]
+        fin = torch.isfinite(w)
+        err = (gr[fin] - w[fin]).abs()
+        check(torch.equal(torch.isnan(gr), torch.isnan(w))
+              and torch.equal(gr[torch.isinf(w)], w[torch.isinf(w)]),
+              f"H2 {what} row {r}: non-finite sums differ")
+        check(bool(torch.all(err <= 1e-12 * abs_sum[fin])),
+              f"H2 {what} row {r}: beyond 1e-12 * sum|v|")
+        if rows[r][0].dtype != torch.float64 and bool(torch.all(abs_sum < 2.0**53)) \
+                and bool(torch.all(x == torch.round(x))):
+            check(torch.equal(gr, w), f"H2 {what} row {r}: an integer row not exact")
+        worst = max(worst, err.max().item() if err.numel() else 0.0)
+    return worst
+
+
+def h2_phase(kernels, segment, dev, rng, n: int, mask_np, records: dict) -> None:
+    """H2 against its plain version: every row kind and both ops, R = 1 to 8
+    rows a call, in each lane (S = 16 and 64 private cells or the warp
+    lane by the rows, 4096 shared partials, 32768 global atomics), n - 3
+    rows (off the 8-row vectors), rows aligned and one element into a
+    buffer, masked and out-of-range gids, NaN and +-inf; the private and
+    warp lanes twice, bit for bit. Timed at the main
+    paths' shapes: one f64 row at S = 16 (the table's shape), endpoint_load's
+    block (latency, its squares and log_lat at its fold's capacity 64, 34
+    endpoints used), config 10's f64 sum at S = 64, and S = 4096 and 32768,
+    beside index_add_ over the valid rows' values (squared beforehand)."""
+    optin = kernels.smem_optin_bytes(dev)
+    m_full = torch.from_numpy(mask_np).to(dev)
+    worst = 0.0
+    for skew in (False, True):
+        nn = n - 3
+        rows = h2_rows(rng, nn, dev, skew)
+        m = unaligned(m_full[:nn]) if skew else m_full[:nn]
+        for S in (16, 64, 4096, 32768):
+            g = torch.from_numpy(rng.integers(-1, S + 1, nn).astype(np.int32)).to(dev)
+            if skew:
+                g = unaligned(g)
+            for idx in ([0], [6, 7], [1, 2, 3], [0, 2, 4, 5], [0, 1, 2, 3, 4], list(range(7)),
+                        list(range(8))):
+                sub = [rows[i] for i in idx]
+                lane = kernels.h2_lane(len(sub), S, optin)[0]
+                what = f"S={S} rows {idx} lane={lane}{' unaligned' if skew else ''}"
+                got = kernels.segment_rows_sum_f64(sub, g, m, S)
+                worst = max(worst, h2_check(segment, got, sub, g, m, S, what))
+                if lane in ("private", "warps"):
+                    again = kernels.segment_rows_sum_f64(sub, g, m, S)
+                    torch.cuda.synchronize()
+                    check(bits_equal(got, again), f"H2 {what}: two runs differ")
+            log(f"H2 segment_rows_sum_f64 S={S}{' unaligned' if skew else ''}: every row "
+                f"kind and op, R = 1 to 8, within 1e-12 * sum|v| (integer rows exact), "
+                f"non-finite as plain; the private and warp lanes bit for bit twice")
+    log(f"H2 edges: largest |error| of a finite sum {worst:.3g} (rows up to 2^62 in "
+        f"magnitude, squares to 2^80: each within 1e-12 * sum|v| of its group)")
+    lat = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
+    log_lat = torch.log10(lat)
+    cases = [
+        ("f64 row", [(lat, 0, False)], 16, 16),
+        ("endpoint_load", [(lat, 0, False), (lat, 0, True), (log_lat, 0, False)], 64, 34),
+        ("config10 sum", [(lat, 0, False)], 64, 64),
+        ("S=4096", [(lat, 0, False)], 4096, 4096),
+        ("S=32768", [(lat, 0, False)], 32768, 32768),
+    ]
+    for name, rows, S, used in cases:
+        g = torch.from_numpy(rng.integers(0, used, n).astype(np.int32)).to(dev)
+        m = m_full
+        got = kernels.segment_rows_sum_f64(rows, g, m, S)
+        err = h2_check(segment, got, rows, g, m, S, name)
+        plain = h2_plain_rows(segment, rows)
+        ok = m & (g >= 0) & (g < S)
+        idx = g[ok].long()
+        vals = torch.stack([segment._f64_row_values(r)[ok] for r in plain])
+        lib_out = torch.zeros((len(rows), S), dtype=torch.float64, device=dev)
+        R = len(rows)
+        cols = {t.data_ptr(): t for t, _, _ in rows}  # each column read once
+        rec = record(
+            lambda: kernels.segment_rows_sum_f64(rows, g, m, S),
+            lambda: segment.segment_rows_sum_f64_plain(plain, g, S, m),
+            lambda: lib_out.index_add_(1, idx, vals),
+            *bound(sum(t.element_size() * n for t in cols.values()) + n * 4 + n + R * S * 8,
+                   n * (R + sum(sq for *_, sq in rows))),
+            err, f"{name}: rows {R} (squares {sum(sq for *_, sq in rows)}) n={n} "
+            f"S={S} ({used} used) lane={kernels.h2_lane(R, S, optin)[0]}",
+        )
+        log(f"H2 segment_rows_sum_f64 {rec['shape']}: {rec['ms']:.5f} ms [bound "
+            f"{rec['bound_ms']:.5f}; plain {rec['plain_ms']:.5f}; index_add_ "
+            f"{rec['library_ms']:.5f}; host-paced {rec['host_paced_ms']:.5f}]")
+        records.setdefault("segment_rows_sum_f64", dict(rec, by_shape={}))
+        records["segment_rows_sum_f64"]["by_shape"][name] = {
+            k: rec[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms", "host_paced_ms",
+                                "shape")}
+
+
 def kernel_phases(kernels, segment, histogram, dev) -> dict:
     """Every kernel against its plain version on the card; returns per-kernel
     records for the main-path shape (the first case of each kernel)."""
@@ -714,41 +853,7 @@ def kernel_phases(kernels, segment, histogram, dev) -> dict:
         records["segment_rows_sum_i64"]["by_shape"][name] = {
             k: rec[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms", "shape")}
 
-    # H2: mean's f64 sum of the predicate (0/1, as on the main path), and
-    # exponential(3e7) latencies, whose sums an f32 or lossy add would miss
-    # by far more than the bound; S = 4096 shared, 32768 global.
-    for S in [N_SERVICES, 4096, 32768]:
-        g, m = inputs(S)
-        errs = []
-        for kind, v_np in [
-            ("0/1", (rng.random(n) < 0.15).astype(np.float64)),
-            ("exp(3e7)", rng.exponential(3e7, n)),
-        ]:
-            v = torch.from_numpy(v_np).to(dev)
-            got = kernels.segment_sum_f64(v, g, m, S)
-            want = segment.segment_sum_f64_plain(v, g, m, S)
-            abs_sum = segment.segment_sum_f64_plain(v.abs(), g, m, S)
-            err = (got - want).abs()
-            torch.cuda.synchronize()
-            check(bool(torch.all(err <= 1e-12 * abs_sum)),
-                  f"H2 S={S} {kind} beyond 1e-12*sum|v|")
-            errs.append(err.max().item())
-            log(f"H2 segment_sum_f64 S={S} {kind} "
-                f"shared={kernels.uses_shared('segment_sum_f64', dev, S)}: "
-                f"max |err| {errs[-1]:.3g}, max |err|/sum|v| "
-                f"{(err / abs_sum.clamp_min(1e-300)).max().item():.3g}")
-        if "segment_sum_f64" in records:
-            continue
-        ok = m & (g >= 0) & (g < S)
-        v = torch.from_numpy((rng.random(n) < 0.15).astype(np.float64)).to(dev)
-        idx, vals = g[ok].long(), v[ok]
-        lib_out = torch.zeros(S, dtype=torch.float64, device=dev)
-        records["segment_sum_f64"] = record(
-            lambda: kernels.segment_sum_f64(v, g, m, S),
-            lambda: segment.segment_sum_f64_plain(v, g, m, S),
-            lambda: lib_out.index_add_(0, idx, vals),
-            *bound(n * 8 + n * 4 + n + S * 8, n), max(errs), f"values[{n}] S={S}",
-        )
+    h2_phase(kernels, segment, dev, rng, n, mask_np, records)
 
     # H3 under the Fault-1 contract: CUDA's logf and the plain version's
     # correctly rounded log may put a value lying within 2.5e-4 of a bin
@@ -1096,6 +1201,15 @@ def sketch_kernel_phases(dev) -> dict:
             *bound(n * 4 + (G + 1) * 4 + 2 * G * C * 8, 60 * n), verr.max().item(),
             f"keys[{n}] G={G} C={C}",
         )
+        # The update's sort between H7a and H7b, on the same keys.
+        packed = keys
+        records["tdigest_cluster"]["sort_ms"] = time_ms(lambda: torch.sort(packed))
+        log(f"H7b tdigest_cluster G={G}: {records['tdigest_cluster']['ms']:.5f} ms [bound "
+            f"{records['tdigest_cluster']['bound_ms']:.5f}; plain "
+            f"{records['tdigest_cluster']['plain_ms']:.5f}; index_add_ "
+            f"{records['tdigest_cluster']['library_ms']:.5f}]; the update's torch.sort of "
+            f"its keys {records['tdigest_cluster']['sort_ms']:.5f} ms")
+    h7b_edges(kernels, tdigest, dev, rng)
 
     # H8: a digest of a few plain blocks merged with H7b's raw sums; H9 on
     # the result. Weights exact per group; cells under Fault-4 as above;
@@ -1143,6 +1257,69 @@ def sketch_kernel_phases(dev) -> dict:
         f"state[{G},{C}] Q={len(QS)}",
     )
     return records
+
+
+def h7b_case(kernels, tdigest, dev, gids: np.ndarray, vals: np.ndarray, mask: np.ndarray,
+             G: int, what: str, C: int = 256) -> None:
+    """H7a, torch.sort and H7b over one block against the plain version
+    under Fault-4: group weights exact, cells moved only by rows near a
+    cluster edge, the other cells' value sums within 1e-12; and over the
+    same keys less the first, a view one key in (no vector loads)."""
+    g = torch.from_numpy(gids.astype(np.int32)).to(dev)
+    v = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    keys, counts = kernels.tdigest_pack(v, g, m, G)
+    ks = torch.sort(keys).values
+    g_s, v_s = tdigest._sorted_rows(g, v, m, G)
+    for skip in (0, 1):
+        c = counts.clone()
+        if skip:
+            c[int(g_s[0])] -= 1
+        got = kernels.tdigest_cluster(ks[skip:], c, G, C)
+        want = tdigest._cluster_sums_plain(g_s[skip:], v_s[skip:], G, C)
+        dw = (got[0] - want[0]).abs()
+        same = dw == 0
+        verr = ((got[1] - want[1]).abs() / want[1].abs().clamp_min(1e-300))[same]
+        torch.cuda.synchronize()
+        check(torch.equal(got[0].sum(dim=1), want[0].sum(dim=1)), f"H7b {what}: group weights")
+        check(bool(torch.all(dw.sum(dim=1) <= 2 * near_edge_rows(tdigest, g_s[skip:], G, C))),
+              f"H7b {what}: beyond Fault-4")
+        check(verr.numel() == 0 or verr.max().item() <= 1e-12, f"H7b {what}: value sums")
+
+
+def h7b_edges(kernels, tdigest, dev, rng) -> None:
+    """H7b's edges: an empty group, groups of 1 and 2 rows, every row
+    masked, one group holding every row, n off the 16-byte vectors (a tail
+    of 1 to 3 keys), runs of one cell across warp (128 keys) and CTA (4096
+    keys) edges, G = 300 (wide keys) and G past the shared starts (scanned
+    into scratch first)."""
+    n, G = 1 << 20, N_SERVICES
+    base = lambda: (rng.integers(0, G, n), rng.exponential(3e7, n), rng.random(n) < 0.9)
+    g, v, m = base()
+    g[g == 3] = 4
+    h7b_case(kernels, tdigest, dev, g, v, m, G, "an empty group")
+    g, v, m = base()
+    g[g <= 1] = 2
+    g[:3], m[:3] = [0, 1, 1], True
+    h7b_case(kernels, tdigest, dev, g, v, m, G, "groups of 1 and 2 rows")
+    g, v, _ = base()
+    h7b_case(kernels, tdigest, dev, g, v, np.zeros(n, bool), G, "every row masked")
+    _, v, m = base()
+    h7b_case(kernels, tdigest, dev, np.full(n, 7), v, m, G, "one group")
+    for tail in (1, 2, 3):
+        g, v, m = (x[: n - tail] for x in base())
+        h7b_case(kernels, tdigest, dev, g, v, m, G, f"n - {tail} keys")
+    g, _, m = base()
+    v = np.repeat(rng.exponential(3e7, n // 5000 + 1), 5000)[:n]  # runs of 5000 equal values
+    h7b_case(kernels, tdigest, dev, g, v, m, G, "runs across warp and CTA edges")
+    g, v, m = base()
+    h7b_case(kernels, tdigest, dev, rng.integers(0, 300, n), v, m, 300, "G = 300, wide keys")
+    big = kernels.TD_SHARED_STARTS + 100
+    h7b_case(kernels, tdigest, dev, rng.integers(0, big, n), v, m, big,
+             f"G = {big}, starts in scratch")
+    log("H7b edges: an empty group, groups of 1 and 2 rows, every row masked, one group, "
+        "n - 1..3 keys, runs across warp and CTA edges, G = 300 and "
+        f"{big}, each also one key into its buffer: weights exact, Fault-4, value sums 1e-12")
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -3571,7 +3748,7 @@ def sorted_path(n_rows: int) -> dict:
     log(f"slice parity at {n_rows} rows: sorted keys kernel path == plain path (one window and "
         "four, twice each)")
     return drive(cuda, SORTED_KEYS, lambda r: verify_sorted(r, data, want),
-                 ("codec_rle_decode", "segment_rows_sum_i64", "segment_sum_f64",
+                 ("codec_rle_decode", "segment_rows_sum_i64", "segment_rows_sum_f64",
                   "segment_minmax"))
 
 
@@ -5029,13 +5206,14 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
 # path_embeddings (the let table) and mesh_d1 (config 10's table at d:1)
 # warm, flow_window (conn_flows) cold (the executor's caches dropped before
 # each query), the build of http_small_ring with resident ingest on (seconds
-# from create_table to stop(), the ring's window decodes included);
-# "kernels": H11 and H6 alone at their path shapes, as one median each. The
+# from create_table to stop(), the ring's window decodes included),
+# sketches_small (http_small) warm; "kernels": H2 and H7b and the calls
+# around them at their path shapes, as one median each. The
 # child runs the other tree's chip_smoke.py, so it calls only helpers that
 # tree has.
 AB_PATHS = ("service_stats", "sketches", "reservoir_latency", "flows", "flow_span",
             "reservoir_flows", "flow_window", "ring_build", "svc_let", "endpoint_load",
-            "path_embeddings", "mesh_d1", "kernels")
+            "path_embeddings", "mesh_d1", "sketches_small", "kernels")
 AB_PATHS_CHILD = r"""
 import json, sys, time
 sys.path.insert(0, ".")
@@ -5090,36 +5268,46 @@ if "ring_build" in paths:
     flags.set("resident_ingest", True)
     c = Carnot(device_executor=DeviceExecutor(device="cuda", block_rows=cs.BLOCK_ROWS))
     out["ring_build"] = [cs.build_small_table(c, "http_small_ring", hs, cs.SMALL_ROWS)]
+if "sketches_small" in paths:
+    c, _ = cs.build_small_carnot(cs.http_small(cs.SMALL_ROWS), cs.SMALL_ROWS, "cuda")
+    warm(c, "sketches_small", cs.SKETCHES.replace("'http_events'", "'http_small'"))
+    del c
 if "kernels" in paths:
-    # H11 and H6 through the calls both trees take (int64 or f64 values, int64
-    # words), at their path shapes, each on fresh states, each its own median
-    # of 30 calls: H11 at flows' S = 4096 (int64 bytes), config 10's S = 64
-    # f64 and flow_window's S = 1; H6 (with its words' hashing) at
-    # endpoint_load's 34 groups x 4098 content words and config 5's 16 x 4.
+    # H2 and H7b through the calls both trees take, at their path shapes,
+    # each its own median of 30 calls: seg_sum of an f64 row (H2 and, in a
+    # tree that needs one, the output's fill) at S = 16 and config 10's 64;
+    # the variance and mean UDAs' own updates (the host AggNode's, in both
+    # trees a count and the f64 sums: endpoint_load's latency at 64 groups,
+    # 34 used; service_stats' bool predicate at 16); H7b over a block's
+    # sorted keys at 16 groups, and t-digest's whole update (H7a, the sort,
+    # H7b, H8).
     import numpy as np
-    from pixie_tpu_torch.ops import countmin, segment
-    from pixie_tpu_torch.table.column import fnv1a64_batch
+    from pixie_tpu_torch.ops import segment, tdigest
+    from pixie_tpu_torch.types import DataType
+    from pixie_tpu_torch.udf.registry import default_registry
     rng, n, dev = np.random.default_rng(0), cs.BLOCK_ROWS, torch.device("cuda")
     mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
-    for S, v, is_min in ((4096, torch.from_numpy(rng.integers(0, 1 << 20, n)), False),
-                         (64, torch.from_numpy(rng.standard_normal(n)), True),
-                         (1, torch.arange(n, dtype=torch.int64) * 1000, False)):
-        v, g = v.to(dev), torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
-        ident = segment._identity_for(v.dtype, is_min)
-        states = cs.fresh(lambda: torch.full((S,), ident, dtype=v.dtype, device=dev))
-        out[f"kernels:h11 S={S} {v.dtype}"] = [
-            cs.time_ms(lambda: kernels.segment_minmax(v, g, mask, states(), is_min))]
-    words = torch.from_numpy(fnv1a64_batch(cs.let_dictionaries()["req_path"]).view(np.int64))
-    code = torch.from_numpy(rng.integers(0, cs.N_PATHS, n))
-    status = torch.tensor([200, 301, 404, 500])[torch.from_numpy(
-        rng.choice(4, n, p=[0.85, 0.05, 0.05, 0.05]))]
-    for name, G, w, g in (
-            ("endpoint_load", 34, words[code], (code // cs.N_IDS).to(torch.int32)),
-            ("config5", 16, status, torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)))):
-        w, g = w.to(dev), g.to(dev)
-        cm, tot = countmin.init(G, dev), torch.zeros(G, dtype=torch.int64, device=dev)
-        out[f"kernels:h6 {name}"] = [
-            cs.time_ms(lambda: countmin.update_counted(cm, tot, g, w, mask))]
+    lat = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
+    g16 = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
+    g64 = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(dev)
+    g34 = torch.from_numpy(rng.integers(0, 34, n).astype(np.int32)).to(dev)
+    out["kernels:h2 S=16"] = [cs.time_ms(lambda: segment.seg_sum(lat, g16, 16, mask))]
+    out["kernels:h2 S=64"] = [cs.time_ms(lambda: segment.seg_sum(lat, g64, 64, mask))]
+    reg = default_registry()
+    var = reg.lookup_uda("variance", [DataType.FLOAT64])
+    mean = reg.lookup_uda("mean", [DataType.FLOAT64])
+    st_var, st_mean = var.init(64, dev), mean.init(16, dev)
+    fail = torch.from_numpy(rng.random(n) < 0.15).to(dev)
+    out["kernels:variance update S=64"] = [
+        cs.time_ms(lambda: var.update(st_var, g34, lat, mask=mask))]
+    out["kernels:mean(bool) update S=16"] = [
+        cs.time_ms(lambda: mean.update(st_mean, g16, fail, mask=mask))]
+    keys, counts = kernels.tdigest_pack(lat.float(), g16, mask, 16)
+    ks = torch.sort(keys).values
+    out["kernels:h7b G=16"] = [cs.time_ms(lambda: kernels.tdigest_cluster(ks, counts, 16, 256))]
+    td = tdigest.init(16, dev)
+    out["kernels:tdigest update G=16"] = [
+        cs.time_ms(lambda: tdigest.update(td, g16, lat, mask))]
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -5254,8 +5442,16 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["service_stats"] = drive(
         carnot, SERVICE_STATS, lambda r: verify(r, data, args.rows),
-        kernels.KERNELS[:4] + ("scalar_eval",),  # H17: mean(resp_status >= 400)
+        ("segment_rows_sum_i64", "log_histogram_update", "hist_quantiles",
+         "scalar_eval"),  # H17: mean(resp_status >= 400)
     )
+    # count's presence row and the mean's bool predicate in one H1 launch a
+    # block, the mean's count that presence row: no H2, no second H1.
+    got = {k: paths["service_stats"]["launches"][k]
+           for k in ("segment_rows_sum_i64", "segment_rows_sum_f64")}
+    want = {"segment_rows_sum_i64": (1 + WARM_QUERIES) * -(-args.rows // BLOCK_ROWS),
+            "segment_rows_sum_f64": 0}
+    check(got == want, f"service_stats: launches {got}, expected {want}")
     phase_s["service_stats"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     # count_min(resp_status) takes the int-dictionary cell lane (H21): no
@@ -5385,7 +5581,7 @@ def main() -> int:
               f"{name}: lanes {lanes}, expected join_sort_merge on every query")
         phase_s[name] = time.perf_counter() - t0
     truth = join_fact_truth(jf)
-    host_agg = ("segment_rows_sum_i64", "segment_sum_f64", "segment_minmax")
+    host_agg = ("segment_rows_sum_i64", "segment_rows_sum_f64", "segment_minmax")
     for name, query, verify_fn, expect, lane in (
         ("join8_team_agg", JOIN8_TEAM_AGG, verify_join8_team_agg,
          host_agg + ("join_agg_fold",), "join_agg"),
@@ -5419,14 +5615,14 @@ def main() -> int:
     fold = ("scalar_eval", "segment_rows_sum_i64")
     for name, table, verify_fn, expect, lanes_want in (
         ("svc_let", "let", verify_q1,
-         fold + ("segment_sum_f64", "log_histogram_update", "hist_quantiles"),
+         fold + ("log_histogram_update", "hist_quantiles"),
          {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
         ("code_histogram", "codes", verify_q2, fold,
          {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
         ("latency_histogram", "lat_hist", verify_q3, fold,
          {"fold_key_host": 1 + WARM_QUERIES, "stage_stream": 1}),
         ("endpoint_load", "load", verify_q4,
-         fold + ("segment_sum_f64", "hll_update", "hll_estimate", "countmin_update"),
+         fold + ("segment_rows_sum_f64", "hll_update", "hll_estimate", "countmin_update"),
          {"fold_key_lut": 1 + WARM_QUERIES, "arghash": 1 + WARM_QUERIES, "stage_stream": 1}),
     ):
         t0 = time.perf_counter()
@@ -5435,6 +5631,16 @@ def main() -> int:
         lanes = paths[name]["lanes"]
         check(lanes == lanes_want, f"{name}: lanes {lanes}, expected {lanes_want}")
         phase_s[name] = time.perf_counter() - t0
+    # One int launch (H1) a block on each let path, and endpoint_load's f64
+    # rows (stddev's and variance's shared latency and its squares,
+    # mean(log_lat)) one f64 launch (H2) a block beside it; svc_let's mean of
+    # its bool predicate rides the int launch: no H2.
+    let_blocks = (1 + WARM_QUERIES) * -(-LET_ROWS // BLOCK_ROWS)
+    for name, h2 in (("svc_let", 0), ("endpoint_load", let_blocks)):
+        got = {k: paths[name]["launches"][k] for k in ("segment_rows_sum_i64",
+                                                       "segment_rows_sum_f64")}
+        check(got == {"segment_rows_sum_i64": let_blocks, "segment_rows_sum_f64": h2},
+              f"{name}: launches {got}, expected {let_blocks} H1 and {h2} H2")
     t0 = time.perf_counter()
     emb_truth = path_embedding_truth(dev)
     paths["path_embeddings"] = drive(
@@ -5561,7 +5767,8 @@ def main() -> int:
             "copy_bound_ms": r["bound_ms"] * HBM_BYTES_PER_S / rate
             if r["bound_by"] == "bytes" else None,
             **{k: v for k, v in r.items()
-               if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_", "sequence"))},
+               if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_", "sequence",
+                                "sort_ms"))},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi_line(), flush=True)

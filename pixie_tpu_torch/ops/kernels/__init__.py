@@ -56,7 +56,7 @@ import torch
 
 KERNELS = (
     "segment_rows_sum_i64",
-    "segment_sum_f64",
+    "segment_rows_sum_f64",
     "log_histogram_update",
     "hist_quantiles",
     "hash32",
@@ -113,7 +113,9 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "px_smem_optin_bytes": (ctypes.POINTER(ctypes.c_int),),
     "px_segment_rows_sum_i64": (_P, _P, _P, _I, _LL, _P, _P, _I, _P, _I, _I, _P),
-    "px_segment_sum_f64": (_P, _LL, _P, _P, _I, _P, _I, _P),
+    "px_segment_rows_sum_f64": (
+        _P, _P, _P, ctypes.c_uint, _I, _LL, _P, _P, _I, _P, _I, _I, _P, _P, _P,
+    ),
     "px_log_histogram_update": (
         _P, _LL, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P, _I, _P,
     ),
@@ -125,7 +127,7 @@ _SIGNATURES = {
     "px_hll_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _P, _I, _P),
     "px_countmin_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_pack": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
-    "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _I, _P),
+    "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _P, _P),
     "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
@@ -316,12 +318,8 @@ def uses_shared(
 ) -> bool:
     """Whether ``kernel``'s per-CTA partial fits ``device``'s opt-in shared
     memory."""
-    if kernel == "segment_sum_f64":
-        nbytes = num_segments * 8
-    elif kernel == "log_histogram_update":
+    if kernel == "log_histogram_update":
         nbytes = num_segments * nbins * 4
-    elif kernel == "tdigest_cluster":
-        nbytes = 2 * num_segments * nbins * 8  # nbins: capacity
     elif kernel == "batched_segment_sums":
         nbytes = rows * num_segments * 8  # rows: B * ((R + 1) + F)
     else:
@@ -431,25 +429,132 @@ def segment_rows_sum_i64(rows, gids: torch.Tensor, mask: Optional[torch.Tensor],
     return out
 
 
-def segment_sum_f64(
-    values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    num_segments: int,
-) -> torch.Tensor:
-    """H2: f64 [S] per-segment sums of the valid rows."""
+# H2's lanes (hopper_kernels.cu): private cells and the warp lane up to
+# H2_WARP_MAX_S groups, H2_WARP_ROWS rows a launch.
+H2_MAX_ROWS = 32  # kF64MaxRows: rows a launch of the atomic lanes
+H2_WARP_ROWS = 4  # kF64WarpRows
+H2_WARP_MAX_S = 64  # kF64WarpMaxS
+H2_PRIVATE_CELLS = 64  # kF64PrivMaxCells: rows a launch x S's bucket
+H2_THREADS = 512  # kF64Threads
+H2_PRIVATE_THREADS = 256  # kF64PrivThreads
+H2_KINDS = {**SUM_ROW_KINDS, torch.float64: ROW_F64}
+
+
+def h2_bucket(S: int) -> int:
+    """The private lane's groups a row: S rounded up to 8, 16, 32 or 64."""
+    return 8 if S <= 8 else 16 if S <= 16 else 32 if S <= 32 else 64
+
+
+def h2_lane(rows: int, S: int, optin: int) -> tuple[str, int]:
+    """H2's lane for ``rows`` value rows over S groups, and the rows a launch
+    takes. Up to H2_WARP_MAX_S groups, H2_WARP_ROWS rows a launch, no f64
+    atomics, the last CTA writing the output: ("private", k) while k rows
+    times S's bucket is at most H2_PRIVATE_CELLS cells (each thread's cells
+    in shared memory), else ("warps", k) (equal gids of a warp added by
+    shuffles); above, ("shared", k) while k rows' [k, S] f64 partial fits a
+    CTA's ``optin`` bytes of shared memory; else ("global", H2_MAX_ROWS)."""
+    if S <= 0 or rows <= 0:
+        raise ValueError(f"H2 needs rows and groups, got {rows} rows, S={S}")
+    if S <= H2_WARP_MAX_S:
+        per = min(rows, H2_WARP_ROWS)
+        return ("private" if per * h2_bucket(S) <= H2_PRIVATE_CELLS else "warps"), per
+    fit = optin // (8 * S)
+    if fit >= 1:
+        return "shared", min(rows, fit, H2_MAX_ROWS)
+    return "global", min(rows, H2_MAX_ROWS)
+
+
+def h2_grid(n: int, sms: int, lane: str, rows: int, S: int) -> int:
+    """CTAs of H2's private or warp lane over n rows, 8 rows a thread: the
+    private lane two CTAs an SM up to 48 cells a thread (two CTAs' cells
+    fit an SM's shared memory), one above; the warp lane one (its
+    registers)."""
+    chunks = -(-n // 8)
+    if lane == "private":
+        ctas = 2 if rows * h2_bucket(S) <= 48 else 1
+        return max(1, min(-(-chunks // H2_PRIVATE_THREADS), sms * ctas))
+    return max(1, min(-(-chunks // H2_THREADS), sms))
+
+
+def h2_parts(R: int, S: int, n: int, sms: int, optin: int) -> list:
+    """H2's launches for R rows over S groups and n rows: (first row, rows,
+    lane, CTAs) each, ``h2_lane``'s rows a launch; a last part of fewer
+    rows takes its own lane (one row over at most 64 groups always the
+    private one). CTAs are 0 for the atomic lanes."""
+    lane, per = h2_lane(R, S, optin)
+    parts = []
+    for lo in range(0, R, per):
+        r = min(per, R - lo)
+        if lane in ("private", "warps"):
+            part_lane = h2_lane(r, S, optin)[0]
+            parts.append((lo, r, part_lane, h2_grid(n, sms, part_lane, r, S)))
+        else:
+            parts.append((lo, r, lane, 0))
+    return parts
+
+
+# H2's warp-lane tickets, by (device index, stream): one int32 the last CTA
+# sets back to 0, so launches in one stream share it in turn.
+_h2_tickets: dict[tuple, torch.Tensor] = {}
+
+
+def _h2_ticket(device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(device).cuda_stream)
+    ticket = _h2_tickets.get(key)
+    if ticket is None:
+        with _lock:
+            ticket = _h2_tickets.setdefault(key, torch.zeros(1, dtype=torch.int32, device=device))
+    return ticket
+
+
+def segment_rows_sum_f64(rows, gids: torch.Tensor, mask: Optional[torch.Tensor],
+                         num_segments: int) -> torch.Tensor:
+    """H2: f64 [R, S] — row r's per-segment sums of the valid rows (mask set
+    or none, 0 <= gid < S). ``rows``: R triples (tensor, offset, square),
+    each tensor [n] of f64 or of an integer kind H1 reads (bool, uint8,
+    uint16, int32, int64) read as it lies, an integer value plus ``offset``
+    rounded to f64; ``square`` sums each value's square. The lane of
+    ``h2_lane``; one launch count per launch."""
     device = gids.device
-    _require(values, "values", torch.float64, device, 1)
-    n = values.shape[0]
+    rows = list(rows)
+    n = gids.shape[0]
     mask = _gids_mask(gids, mask, n, device)
-    out = torch.zeros(num_segments, dtype=torch.float64, device=device)
-    if n == 0 or num_segments == 0:
-        return out
-    _launch(
-        "segment_sum_f64", device,
-        values.data_ptr(), n, gids.data_ptr(),
-        mask.data_ptr() if mask is not None else None,
-        num_segments, out.data_ptr(),
-        int(uses_shared("segment_sum_f64", device, num_segments)),
-    )
+    specs = []
+    for i, (t, off, square) in enumerate(rows):
+        if t.dtype not in H2_KINDS:
+            raise TypeError(f"rows[{i}] has dtype {t.dtype}, expected one of {list(H2_KINDS)}")
+        _require(t, f"rows[{i}]", t.dtype, device, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"rows[{i}] has {t.shape[0]} rows, expected {n}")
+        specs.append((t.data_ptr(), H2_KINDS[t.dtype], _i64(off), bool(square)))
+    R, S = len(specs), num_segments
+    if n == 0 or S == 0 or R == 0:
+        return torch.zeros((R, S), dtype=torch.float64, device=device)
+    if n >= 1 << 31:
+        raise ValueError(f"H2 takes fewer than 2^31 rows, got {n}")
+    parts = h2_parts(R, S, n, sm_count(device), smem_optin_bytes(device))
+    whole = parts[0][2] in ("private", "warps")  # the kernel writes the output whole
+    if whole:  # the output, then the largest part's partials, in one buffer
+        scratch = max(grid * r for _, r, _, grid in parts) * S
+        buf = torch.empty(R * S + scratch, dtype=torch.float64, device=device)
+        out, ticket = buf[:R * S].view(R, S), _h2_ticket(device)
+    else:
+        out, ticket = torch.zeros((R, S), dtype=torch.float64, device=device), None
+    base = out.data_ptr()
+    for lo, r, part_lane, grid in parts:
+        part = specs[lo:lo + r]
+        _launch(
+            "segment_rows_sum_f64", device,
+            ctypes.cast((ctypes.c_void_p * r)(*[p for p, _, _, _ in part]), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_int * r)(*[k for _, k, _, _ in part]), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_longlong * r)(*[o for _, _, o, _ in part]), ctypes.c_void_p),
+            sum(1 << j for j, (_, _, _, sq) in enumerate(part) if sq),
+            r, n, gids.data_ptr(), mask.data_ptr() if mask is not None else None, S,
+            base + lo * S * 8, ("private", "warps", "shared", "global").index(part_lane), grid,
+            base + R * S * 8 if whole else None,
+            ticket.data_ptr() if ticket is not None else None,
+        )
     return out
 
 
@@ -679,11 +784,16 @@ def tdigest_pack(
     return keys, counts
 
 
+TD_SHARED_STARTS = 16384  # kTdSharedStarts of sketch_kernels.cu
+
+
 def tdigest_cluster(
     keys: torch.Tensor, counts: torch.Tensor, num_groups: int, capacity: int
 ) -> torch.Tensor:
     """H7b: f64 [2, G, C] per-(group, cluster) row counts and value sums
-    over H7a's keys, sorted."""
+    over H7a's keys, sorted, and its counts (the groups' starts are their
+    scan). Above TD_SHARED_STARTS - 2 groups a first grid of the same
+    launch scans the starts into scratch."""
     device = keys.device
     bits_g = max((num_groups + 1).bit_length(), 1)
     wide = bits_g > PACK_MAX_GROUP_BITS
@@ -695,11 +805,16 @@ def tdigest_cluster(
     sums = torch.zeros((2, num_groups, capacity), dtype=torch.float64, device=device)
     if n == 0 or num_groups == 0:
         return sums
+    if n >= 1 << 31:
+        raise ValueError(f"H7b takes fewer than 2^31 keys, got {n}")
+    starts = (
+        torch.empty(num_groups + 2, dtype=torch.int32, device=device)
+        if num_groups + 2 > TD_SHARED_STARTS else None
+    )
     _launch(
         "tdigest_cluster", device,
         keys.data_ptr(), n, counts.data_ptr(), num_groups, capacity, bits_g,
-        int(wide), sums.data_ptr(),
-        int(uses_shared("tdigest_cluster", device, num_groups, nbins=capacity)),
+        int(wide), sums.data_ptr(), starts.data_ptr() if starts is not None else None,
     )
     return sums
 

@@ -10,8 +10,11 @@
 //    per-segment sums of R rows plus one presence (row count) row, each row
 //    read where the fold staged it (rows.cuh: bool, uint8, uint16, int32 or
 //    int64 with a frame-of-reference offset; count's row reads nothing).
-// H2 px_segment_sum_f64       replaces pixie_tpu/ops/segment.py seg_sum
-//    (:593) on f64 values (its _matvec_sum_f64 lane, :168).
+// H2 px_segment_rows_sum_f64  replaces pixie_tpu/ops/segment.py seg_sum
+//    (:593) on f64 values (its _matvec_sum_f64 lane, :168): per-segment f64
+//    sums of R rows, each read where the fold staged it (rows.cuh: f64, or
+//    an integer row widened in registers) and summed as it is or squared
+//    (variance's sum of squares, pixie_tpu/udf/builtins/math_ops.py:237).
 // H3 px_log_histogram_update  replaces pixie_tpu/ops/histogram.py bin_index
 //    + update (:49, :59).
 // H4 px_hist_quantiles        replaces pixie_tpu/ops/histogram.py
@@ -23,8 +26,17 @@
 // The TPU versions ride the matrix unit through one-hot einsums and split
 // int64 into 8-bit limbs so that f32 accumulation stays exact; that design
 // exists only because the TPU's scatter unit is slow. Here every reduction
-// adds: H2 and H3 into a per-CTA partial in shared memory while it fits the
+// adds: H3 into a per-CTA partial in shared memory while it fits the
 // block's opt-in limit, else straight into the output by global atomics.
+// H2 has four lanes (ops/kernels/__init__.py h2_lane). Up to S = 64 no f64
+// atomics: (a1) while rows x S's bucket <= 64 cells, each thread's cells
+// private in shared memory; (a2) else runs of equal gids merged in a
+// thread's registers and equal gids of a warp added by shuffles into the
+// warp's cells; in both the CTA adds its threads or warps in a fixed order
+// into its partial, and the last CTA adds the partials in a fixed order and
+// writes the output (no fill launch, the same bits every run). Above: (b) a
+// per-CTA [R, S] partial in shared memory, one atomic a run; (c) global
+// atomics.
 // H1 has three lanes (ops/kernels/__init__.py h1_lane): (a) S <= 32, each
 // thread's cells private in shared memory, no atomics until the CTA's
 // flush; (b) while the whole partial fits a CTA, native 32-bit shared
@@ -38,14 +50,21 @@
 // when the adds keep up. H1's lane (a) costs a shared load and store a row
 // and cell kind, not the 16-way atomic collisions of one partial a CTA;
 // lane (b) is bound by its shared atomics (one a row for the count, one or
-// two a value row); lane (c) by the L2's atomics. H2 and H3 with few
-// segments collide on the same shared addresses, and the serialised shared
-// atomics, not HBM, set the time. H4 reads S x 1024 counts once and is
-// latency-bound at small S.
+// two a value row); lane (c) by the L2's atomics. H2 reads R rows (a row
+// over the same column as the row before, its value then its square, reads
+// nothing again), the gids and the mask once (8 rows a thread, 16-byte
+// streaming loads); lanes (a1) and (a2) add without f64 atomics (a shared
+// f64 atomic is a compare-and-swap loop), so the loads set (a1)'s time;
+// (a2)'s shuffles (about 2R a row) and the last CTA's pass over the
+// partials (about 2-3 us, measured) add to it. H3 with few segments
+// collides on the same shared
+// addresses, and the serialised shared atomics, not HBM, set the time. H4
+// reads S x 1024 counts once and is latency-bound at small S.
 //
 // Integer sums are unsigned 64-bit wrapping adds, so they are exact mod 2^64
-// like the reference's reconstruct_i64. The f64 sums add in a
-// non-deterministic order; PERF.md states their bound.
+// like the reference's reconstruct_i64. H2's f64 adds and products round on
+// their own (__dadd_rn, __dmul_rn); lanes (b) and (c) add in a
+// non-deterministic order; PERF.md states the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -285,30 +304,328 @@ __global__ void __launch_bounds__(px::kThreads) rows_sum_global_kernel(const Row
 }
 
 // ---------------------------------------------------------------- H2
-__global__ void segment_sum_f64_kernel(const double* __restrict__ values, long long n,
-                                       const int* __restrict__ gids,
-                                       const unsigned char* __restrict__ mask, int S,
-                                       double* __restrict__ out, int use_shared) {
-  extern __shared__ double sh_f64[];
-  double* acc = use_shared ? sh_f64 : out;
-  if (use_shared) {
-    for (int c = threadIdx.x; c < S; c += blockDim.x) sh_f64[c] = 0.0;
-    __syncthreads();
-  }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (mask != nullptr && !mask[i]) continue;
-    const int g = gids[i];
-    if (g < 0 || g >= S) continue;
-    atomicAdd(&acc[g], values[i]);
-  }
-  if (use_shared) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < S; c += blockDim.x) {
-      const double v = sh_f64[c];
-      if (v != 0.0) atomicAdd(&out[c], v);
+// The rows of one launch: ``R`` value rows (a typed pointer, the offset of a
+// narrowed integer row, whether the row sums its values' squares), the
+// gids and mask they share, the [R, S] output; the warp lane's [grid, R, S]
+// partials and its ticket (0 between launches).
+constexpr int kF64MaxRows = 32;  // rows a launch (ops/kernels/__init__.py H2_MAX_ROWS)
+constexpr int kF64WarpRows = 4;  // rows a launch of the warp lane (H2_WARP_ROWS)
+constexpr int kF64WarpMaxS = 64;  // the warp lane's largest S (H2_WARP_MAX_S)
+constexpr int kF64Threads = 512;
+
+struct F64Args {
+  const void* ptr[kF64MaxRows];
+  long long off[kF64MaxRows];
+  int kind[kF64MaxRows];
+  unsigned int square;     // bit r: row r sums its values' squares
+  unsigned int vec_row;    // bit r: row r takes vector loads
+  unsigned int same_prev;  // bit r: row r reads row r - 1's column (pointer, kind, offset)
+  int R;
+  int vec;  // gids and mask take vector loads
+  const int* gids;
+  const unsigned char* mask;
+  long long n;
+  int S;
+  double* out;
+  double* partials;
+  unsigned int* ticket;
+};
+
+// Row r's value of a raw 64-bit load: an f64 as it is, an integer (plus its
+// offset, wrapping) rounded to the nearest double; squared on its own
+// (__dmul_rn: nvcc contracts nothing into an FMA with the add after it).
+__device__ __forceinline__ double f64_value(const F64Args& a, int r, unsigned long long raw) {
+  const double x = a.kind[r] == px::kF64
+                       ? __longlong_as_double((long long)raw)
+                       : __ll2double_rn((long long)(raw + (unsigned long long)a.off[r]));
+  return ((a.square >> r) & 1u) ? __dmul_rn(x, x) : x;
+}
+
+// Rows j of a thread's 8 whose gid equals row j + 1's carry their sum on:
+// x[j + 1] += x[j], and row j leaves (g[j] = -1). What is left is one row a
+// run of equal gids, its run's sum in x (in row order).
+template <int R>
+__device__ __forceinline__ void merge_runs(int (&g)[px::kRowsPerThread],
+                                           double (&x)[R][px::kRowsPerThread]) {
+#pragma unroll
+  for (int j = 0; j + 1 < px::kRowsPerThread; ++j) {
+    if (g[j] >= 0 && g[j] == g[j + 1]) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) x[r][j + 1] = __dadd_rn(x[r][j], x[r][j + 1]);
+      g[j] = -1;
     }
   }
+}
+
+// After each CTA wrote its [cells] partial (a.partials[blockIdx.x]): the
+// last CTA to take a ticket adds every CTA's partial into a.out, k threads
+// a cell each adding every k-th partial in CTA order (eight loads in
+// flight), then the cell's thread their k sums in order; it sets the
+// ticket back to 0. ``scratch``: blockDim doubles of shared memory.
+__device__ void finish_partials(const F64Args& a, int cells, double* scratch) {
+  __shared__ bool sh_last;
+  // One fence a CTA, by the thread that takes the ticket after the barrier
+  // (cumulative: it orders the CTA's partial before the ticket).
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    sh_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+    if (sh_last) __threadfence();
+  }
+  __syncthreads();
+  if (!sh_last) return;
+  int k = 1;
+  while (2 * k * cells <= (int)blockDim.x && 2 * k <= 32) k *= 2;
+  const int grid = (int)gridDim.x;
+  for (int t = threadIdx.x; t < k * cells; t += blockDim.x) {
+    const int c = t % cells;
+    double sum = 0.0;
+    for (int b = t / cells; b < grid; b += 8 * k) {
+      double v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int bq = b + q * k;
+        v[q] = bq < grid ? __ldcg(&a.partials[(long long)bq * cells + c]) : 0.0;
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum = __dadd_rn(sum, v[q]);
+    }
+    scratch[t] = sum;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    double sum = 0.0;
+    for (int p = 0; p < k; ++p) sum = __dadd_rn(sum, scratch[p * cells + c]);
+    a.out[c] = sum;
+  }
+  if (threadIdx.x == 0) *a.ticket = 0u;
+}
+
+// (a1) R * SB <= 64 cells (SB: S rounded up to 8, 16, 32 or 64): each
+// thread's cells private in shared memory, laid out [cell][thread] (a
+// thread's cells in distinct banks: no conflicts, no atomics), its rows
+// added in row order; then each cell's threads added by a warp in a fixed
+// order into the CTA's partial, and the partials as the warp lane adds
+// them (finish_partials). Two CTAs an SM up to 48 cells, one above.
+constexpr int kF64PrivThreads = 256;
+
+template <int R, int SB>
+__global__ void __launch_bounds__(kF64PrivThreads, 2) rows_f64_private_kernel(const F64Args a) {
+  constexpr int J = px::kRowsPerThread, T = kF64PrivThreads, CELLS = R * SB;
+  extern __shared__ double sh_priv_f64[];  // [CELLS][T], then the tail's scratch
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, warps = T / 32;
+  const int S = a.S;
+#pragma unroll
+  for (int c = 0; c < CELLS; ++c) sh_priv_f64[c * T + t] = 0.0;
+  const long long chunks = (a.n + J - 1) / J;
+  const long long stride = (long long)gridDim.x * T;
+  for (long long ch = (long long)blockIdx.x * T + t; ch < chunks; ch += stride) {
+    const long long i0 = ch * J;
+    int g[J];
+    px::load_gids8(a.gids, a.mask, i0, a.n, S, a.vec != 0, g);
+    unsigned long long raw[J];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r == 0 || !((a.same_prev >> r) & 1u)) {
+        px::load_vals8(a.ptr[r], a.kind[r], i0, a.n, (a.vec_row >> r) & 1u, raw);
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (g[j] >= 0) {
+          double* cell = &sh_priv_f64[(r * SB + g[j]) * T + t];
+          *cell = __dadd_rn(*cell, f64_value(a, r, raw[j]));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // Cell c (row c / SB, group c % SB) of the CTA by warp c % warps: each
+  // lane adds its 8 threads in order, then a fixed shuffle tree.
+  for (int c = warp; c < CELLS; c += warps) {
+    double sum = 0.0;
+#pragma unroll
+    for (int q = 0; q < T / 32; ++q) sum = __dadd_rn(sum, sh_priv_f64[c * T + q * 32 + lane]);
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) sum = __dadd_rn(sum, __shfl_xor_sync(0xFFFFFFFFu, sum, w));
+    const int r = c / SB, s = c % SB;
+    if (lane == 0 && s < S) __stcg(&a.partials[((long long)blockIdx.x * R + r) * S + s], sum);
+  }
+  finish_partials(a, R * S, sh_priv_f64 + CELLS * T);
+}
+
+// (a2) S <= kF64WarpMaxS, more cells than (a1) takes: no f64 atomics. A
+// thread merges its 8 rows' runs
+// of equal gids in registers. Then, for each of its 8 rows at once (8
+// independent chains), the warp finds the lanes that hold the same gid
+// (a ballot of each of the gid's bits) and adds their
+// sums in a fixed tree (each round a lane adds the next peer still in
+// play, and every second peer leaves), so the lowest lane of each gid holds
+// its sum and adds it into the warp's own [R, S] cells in shared memory.
+// The CTA adds its warps in order into its [R, S] partial in global
+// scratch; the last CTA to finish (a ticket) adds the partials in a fixed
+// order and writes the output. The same inputs give the same bits on every
+// run.
+template <int R>
+__global__ void __launch_bounds__(kF64Threads, 1) rows_f64_warp_kernel(const F64Args a) {
+  constexpr int J = px::kRowsPerThread;
+  extern __shared__ double sh_warp[];  // [warps][R][S]
+  const int S = a.S, cells = R * S;
+  const int nb = S > 1 ? 32 - __clz(S - 1) : 0;  // bits of a gid
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const unsigned int below = (1u << lane) - 1u;
+  for (int c = threadIdx.x; c < warps * cells; c += blockDim.x) sh_warp[c] = 0.0;
+  __syncthreads();
+  double* mine = sh_warp + warp * cells;
+  const long long chunks = (a.n + J - 1) / J;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // Every lane of a warp runs the same trips (the shuffles need them all).
+  for (long long c0 = (long long)blockIdx.x * blockDim.x + warp * 32; c0 < chunks; c0 += stride) {
+    const long long i0 = (c0 + lane) * J;
+    int g[J];
+    px::load_gids8(a.gids, a.mask, i0, a.n, S, a.vec != 0, g);
+    double x[R][J];
+    unsigned long long raw[J];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // A row over the column before's (its value, then its square) reads
+      // nothing again.
+      if (r == 0 || !((a.same_prev >> r) & 1u)) {
+        px::load_vals8(a.ptr[r], a.kind[r], i0, a.n, (a.vec_row >> r) & 1u, raw);
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) x[r][j] = f64_value(a, r, raw[j]);
+    }
+    merge_runs<R>(g, x);
+    unsigned int rest[J], lead = 0u;  // lead: bit j, this lane adds row j's gid
+    int rank[J];
+    int most = 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      unsigned int p = __ballot_sync(0xFFFFFFFFu, g[j] >= 0);
+#pragma unroll
+      for (int b = 0; b < 6; ++b) {
+        if (b < nb) {
+          const bool bit = (g[j] >> b) & 1;
+          const unsigned int m = __ballot_sync(0xFFFFFFFFu, bit);
+          p &= bit ? m : ~m;
+        }
+      }
+      if (g[j] < 0) p = 0u;
+      rank[j] = __popc(p & below);
+      rest[j] = p & (0xFFFFFFFEu << lane);
+      if (g[j] >= 0 && rank[j] == 0) lead |= 1u << j;
+      most = max(most, __popc(p));
+    }
+    most = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned int)most);
+    for (int span = 1; span < most; span <<= 1) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int next = __ffs(rest[j]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const double t = __shfl_sync(0xFFFFFFFFu, x[r][j], (next - 1) & 31);
+          if (next) x[r][j] = __dadd_rn(x[r][j], t);
+        }
+        rest[j] &= __ballot_sync(0xFFFFFFFFu, (rank[j] & 1) == 0);
+        rank[j] >>= 1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if ((lead >> j) & 1u) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) mine[r * S + g[j]] = __dadd_rn(mine[r * S + g[j]], x[r][j]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    double t = 0.0;
+    for (int w = 0; w < warps; ++w) t = __dadd_rn(t, sh_warp[w * cells + c]);
+    __stcg(&a.partials[(long long)blockIdx.x * cells + c], t);
+  }
+  finish_partials(a, cells, sh_warp);
+}
+
+// (b) a larger S whose [R, S] partial fits a CTA's shared memory: the rows'
+// runs merged in registers, then one shared f64 atomic a run and cell (a
+// compare-and-swap loop on sm_90a: ATOMS.CAST.SPIN.64), one global atomic a
+// CTA and cell at the flush; (c) one global atomic a run and cell (the
+// L2's native f64 add) into the output, zeroed by the caller.
+__global__ void __launch_bounds__(px::kThreads) rows_f64_atomic_kernel(const F64Args a,
+                                                                       int use_shared) {
+  extern __shared__ double sh_acc[];
+  const int S = a.S;
+  const long long cells = (long long)a.R * S;
+  if (use_shared) {
+    for (long long c = threadIdx.x; c < cells; c += blockDim.x) sh_acc[c] = 0.0;
+    __syncthreads();
+  }
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < chunks; c += stride) {
+    const long long i0 = c * px::kRowsPerThread;
+    int g[px::kRowsPerThread];
+    px::load_gids8(a.gids, a.mask, i0, a.n, S, a.vec != 0, g);
+    for (int r = 0; r < a.R; ++r) {
+      unsigned long long raw[px::kRowsPerThread];
+      px::load_vals8(a.ptr[r], a.kind[r], i0, a.n, (a.vec_row >> r) & 1u, raw);
+      double run = 0.0;
+#pragma unroll
+      for (int j = 0; j < px::kRowsPerThread; ++j) {
+        if (g[j] < 0) continue;
+        run = __dadd_rn(run, f64_value(a, r, raw[j]));
+        if (j + 1 == px::kRowsPerThread || g[j + 1] != g[j]) {
+          // One address space a branch: a shared f64 add is a CAS loop, a
+          // global one the L2's native add.
+          if (use_shared) atomicAdd(&sh_acc[(long long)r * S + g[j]], run);
+          else atomicAdd(&a.out[(long long)r * S + g[j]], run);
+          run = 0.0;
+        }
+      }
+    }
+  }
+  if (use_shared) {
+    __syncthreads();
+    for (long long c = threadIdx.x; c < cells; c += blockDim.x) {
+      const double v = sh_acc[c];
+      if (v != 0.0) atomicAdd(&a.out[c], v);  // NaN too
+    }
+  }
+}
+
+constexpr int kF64PrivMaxCells = 64;  // ops/kernels/__init__.py H2_PRIVATE_CELLS
+
+template <int R, int SB>
+cudaError_t launch_f64_private(const F64Args& a, int grid, cudaStream_t st) {
+  const size_t smem = (size_t)(R * SB + 1) * kF64PrivThreads * sizeof(double);
+  cudaError_t err = allow_smem(rows_f64_private_kernel<R, SB>, smem);
+  if (err != cudaSuccess) return err;
+  rows_f64_private_kernel<R, SB><<<grid, kF64PrivThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int SB>
+cudaError_t launch_f64_private_sb(const F64Args& a, int grid, cudaStream_t st) {
+  switch (a.R) {
+    case 1: return launch_f64_private<1, SB>(a, grid, st);
+    case 2: return SB <= 32 ? launch_f64_private<2, (SB <= 32 ? SB : 32)>(a, grid, st)
+                            : cudaErrorInvalidValue;
+    case 3: return SB <= 16 ? launch_f64_private<3, (SB <= 16 ? SB : 16)>(a, grid, st)
+                            : cudaErrorInvalidValue;
+    case 4: return SB <= 16 ? launch_f64_private<4, (SB <= 16 ? SB : 16)>(a, grid, st)
+                            : cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int R>
+cudaError_t launch_f64_warps(const F64Args& a, int grid, cudaStream_t st) {
+  // The warps' cells, and room for the last CTA's k sums a cell.
+  const int cells = (kF64Threads / 32) * R * a.S;
+  const size_t smem = (size_t)(cells > kF64Threads ? cells : kF64Threads) * sizeof(double);
+  rows_f64_warp_kernel<R><<<grid, kF64Threads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- H3
@@ -579,16 +896,69 @@ int px_segment_rows_sum_i64(const void* const* ptrs, const int* kinds, const lon
   return (int)cudaGetLastError();
 }
 
-// out: f64 [S], zeroed by the caller.
-int px_segment_sum_f64(const void* values, long long n, const void* gids, const void* mask,
-                       int S, void* out, int use_shared, void* stream) {
-  const size_t smem = use_shared ? (size_t)S * sizeof(double) : 0;
-  cudaError_t err = allow_smem(segment_sum_f64_kernel, smem);
+// H2. ptrs, kinds, offs: R value rows (kinds: rows.cuh RowKind but
+// kPresence; offs added to an integer row's values); square: bit r, row r
+// sums squares. out: f64 [R, S]. lane 0: private cells (R * SB <= 64, R <=
+// 4), 1: the warp lane (S <= 64, R <= 4), each over grid CTAs with partials
+// f64 [grid, R, S] and ticket (0) its scratch, out written whole; 2: shared
+// partials; 3: global atomics, out zeroed by the caller
+// (ops/kernels/__init__.py h2_lane chooses).
+int px_segment_rows_sum_f64(const void* const* ptrs, const int* kinds, const long long* offs,
+                            unsigned int square, int R, long long n, const void* gids,
+                            const void* mask, int S, void* out, int lane, int grid,
+                            void* partials, void* ticket, void* stream) {
+  if (R <= 0 || R > kF64MaxRows || S <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  F64Args a = {};
+  a.gids = (const int*)gids;
+  a.mask = (const unsigned char*)mask;
+  a.n = n;
+  a.S = S;
+  a.R = R;
+  a.square = square;
+  a.out = (double*)out;
+  a.partials = (double*)partials;
+  a.ticket = (unsigned int*)ticket;
+  a.vec = px::vec_aligned(gids, px::kI32) && (mask == nullptr || (uintptr_t)mask % 8 == 0);
+  for (int r = 0; r < R; ++r) {
+    if (kinds[r] == px::kPresence) return (int)cudaErrorInvalidValue;
+    a.ptr[r] = ptrs[r];
+    a.kind[r] = kinds[r];
+    a.off[r] = offs[r];
+    if (px::vec_aligned(ptrs[r], kinds[r])) a.vec_row |= 1u << r;
+    if (r > 0 && ptrs[r] == ptrs[r - 1] && kinds[r] == kinds[r - 1] && offs[r] == offs[r - 1]) {
+      a.same_prev |= 1u << r;
+    }
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (lane == 0) {
+    const int sb = S <= 8 ? 8 : S <= 16 ? 16 : S <= 32 ? 32 : 64;
+    if (S > 64 || R > kF64WarpRows || R * sb > kF64PrivMaxCells || grid <= 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    switch (sb) {
+      case 8: return (int)launch_f64_private_sb<8>(a, grid, st);
+      case 16: return (int)launch_f64_private_sb<16>(a, grid, st);
+      case 32: return (int)launch_f64_private_sb<32>(a, grid, st);
+      default: return (int)launch_f64_private_sb<64>(a, grid, st);
+    }
+  }
+  if (lane == 1) {
+    // One row over at most 64 groups always takes (a1).
+    if (S > kF64WarpMaxS || R < 2 || R > kF64WarpRows || grid <= 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+    switch (R) {
+      case 2: return (int)launch_f64_warps<2>(a, grid, st);
+      case 3: return (int)launch_f64_warps<3>(a, grid, st);
+      default: return (int)launch_f64_warps<4>(a, grid, st);
+    }
+  }
+  const int use_shared = lane == 2;
+  const size_t smem = use_shared ? (size_t)R * S * sizeof(double) : 0;
+  cudaError_t err = allow_smem(rows_f64_atomic_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  segment_sum_f64_kernel<<<grid_for(n, use_shared ? 2 : 8), kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      (const double*)values, n, (const int*)gids, (const unsigned char*)mask, S,
-      (double*)out, use_shared);
+  rows_f64_atomic_kernel<<<grid_for((n + 7) / 8, use_shared ? 2 : 8), kThreads, smem, st>>>(
+      a, use_shared);
   return (int)cudaGetLastError();
 }
 

@@ -41,8 +41,12 @@
 // (13 bytes each at most), the table's shared atomics and the flush's
 // global adds (one a cell and CTA) set its time, not the L2's same-address
 // atomics; a row that finds no slot adds to its cells at once, as every row
-// did before. H7b walks the sorted keys in one contiguous chunk per thread,
-// so each thread flushes one atomic per (group, cluster) run, not per row.
+// did before. H7b reads the sorted keys as 16-byte vectors, a warp's loads
+// one contiguous span, takes each row's rank from its group's start (a
+// scan of H7a's counts in shared memory, not a search over the keys) and
+// joins the rows of a (group, cluster) run across a warp's lanes by
+// shuffles: one pair of global f64 adds a run and warp, not a row; its f32
+// rank, division and asinf a row, not its 4 bytes, set its time.
 // H8-H10 are one CTA (or thread) per group and
 // latency-bound at the main path's 16 groups. H30 is a gather: one thread a
 // query hashes its word once and reads its group's depth cells, so it moves
@@ -381,24 +385,6 @@ __global__ void tdigest_pack_kernel(const float* __restrict__ values, long long 
 }
 
 // ---------------------------------------------------------------- H7b
-__device__ __forceinline__ void decode_key(const void* keys, long long i, int bits_g, int wide,
-                                           int* g, float* v) {
-  if (wide) {
-    const unsigned long long k = ((const unsigned long long*)keys)[i];
-    *g = (int)(k >> 32);
-    *v = from_order_key((uint32_t)k);
-  } else {
-    const uint32_t k = ((const uint32_t*)keys)[i] ^ 0x80000000u;
-    *g = (int)(k >> (32 - bits_g));
-    *v = from_order_key(k << bits_g);
-  }
-}
-
-__device__ __forceinline__ int key_group(const void* keys, long long i, int bits_g, int wide) {
-  if (wide) return (int)(((const unsigned long long*)keys)[i] >> 32);
-  return (int)((((const uint32_t*)keys)[i] ^ 0x80000000u) >> (32 - bits_g));
-}
-
 // The k1-scale cluster of a mid-quantile, as pixie_tpu/ops/tdigest.py
 // _cluster_ids computes it in f32: clip(q, 1e-7, 1 - 1e-7), 2q - 1,
 // arcsin / pi + 0.5, * capacity, floor, clip.
@@ -410,74 +396,205 @@ __device__ __forceinline__ int cluster_id(float q, int C) {
   return min(max(c, 0), C - 1);
 }
 
-// Over the sorted keys: each row's rank in its group, its mid-quantile
-// (rank + 0.5) / count, its cluster, and the (weight, value) sums of each
-// (group, cluster) into sums [2, G * C] (zeroed by the caller). Each thread
-// walks one contiguous chunk; a group's first row is found by a binary
-// search at the chunk's start and is the row where the group changes after
-// it. Sentinel rows sort last and end the walk.
-__global__ void tdigest_cluster_kernel(const void* __restrict__ keys, long long n,
-                                       const int* __restrict__ counts, int G, int C,
-                                       int bits_g, int wide, double* __restrict__ sums,
-                                       int use_shared) {
-  extern __shared__ double sh_sums[];
-  const long long cells = (long long)G * C;
-  if (use_shared) {
-    for (long long c = threadIdx.x; c < 2 * cells; c += blockDim.x) sh_sums[c] = 0.0;
+// A sorted key's group and value: packed u32 keys (stored with the sign bit
+// flipped) or int64 (group << 32 | order key).
+__device__ __forceinline__ void decode_key(uint32_t key, int bits_g, int* g, float* v) {
+  const uint32_t k = key ^ 0x80000000u;
+  *g = (int)(k >> (32 - bits_g));
+  *v = from_order_key(k << bits_g);
+}
+
+__device__ __forceinline__ void decode_key(unsigned long long key, int, int* g, float* v) {
+  *g = (int)(key >> 32);
+  *v = from_order_key((uint32_t)key);
+}
+
+// A 16-byte vector's keys in row order.
+__device__ __forceinline__ void unpack_keys(const uint4 w, uint32_t (&k)[4]) {
+  k[0] = w.x; k[1] = w.y; k[2] = w.z; k[3] = w.w;
+}
+
+__device__ __forceinline__ void unpack_keys(const uint4 w, unsigned long long (&k)[2]) {
+  k[0] = ((unsigned long long)w.y << 32) | w.x;
+  k[1] = ((unsigned long long)w.w << 32) | w.z;
+}
+
+constexpr int kTdThreads = 512;
+constexpr int kTdVecs = 2;  // 16-byte vectors a thread a tile
+// Groups whose starts each CTA scans into shared memory (ops/kernels/
+// __init__.py TD_SHARED_STARTS); above, one CTA scans them into scratch
+// first.
+constexpr int kTdSharedStarts = 16384;
+
+// dst[g] = counts[0] + ... + counts[g - 1] for g <= G + 1 (counts has G + 1
+// entries), by one CTA: chunks of blockDim counts, each a warp scan, the
+// warps' totals scanned by warp 0, and the running total carried on.
+__device__ void scan_counts(const int* __restrict__ counts, int G, int* dst) {
+  __shared__ int sh_wsum[32];
+  __shared__ int sh_carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  if (threadIdx.x == 0) sh_carry = 0;
+  __syncthreads();
+  for (int base = 0; base <= G + 1; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const int c = i <= G ? counts[i] : 0;
+    int s = c;  // inclusive warp scan
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xFFFFFFFFu, s, d);
+      if (lane >= d) s += t;
+    }
+    if (lane == 31) sh_wsum[warp] = s;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < warps ? sh_wsum[lane] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(0xFFFFFFFFu, w, d);
+        if (lane >= d) w += t;
+      }
+      if (lane < warps) sh_wsum[lane] = w;
+    }
+    __syncthreads();
+    const int excl = sh_carry + (warp > 0 ? sh_wsum[warp - 1] : 0) + s - c;
+    if (i <= G + 1) dst[i] = excl;
+    __syncthreads();
+    if (threadIdx.x == 0) sh_carry += sh_wsum[warps - 1];
     __syncthreads();
   }
-  double* acc = use_shared ? sh_sums : sums;
-  const long long nthreads = (long long)gridDim.x * blockDim.x;
-  const long long per = (n + nthreads - 1) / nthreads;
-  const long long lo = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * per;
-  const long long hi = min(lo + per, n);
-  if (lo < hi) {
-    int g = key_group(keys, lo, bits_g, wide);
-    long long start = 0;
-    {
-      long long a = 0, b = lo;  // first row whose group is >= g
-      while (a < b) {
-        const long long mid = (a + b) >> 1;
-        if (key_group(keys, mid, bits_g, wide) < g) a = mid + 1; else b = mid;
+}
+
+__global__ void __launch_bounds__(kTdThreads) tdigest_starts_kernel(const int* __restrict__ counts,
+                                                                   int G, int* __restrict__ starts) {
+  scan_counts(counts, G, starts);
+}
+
+// Over the sorted keys, every CTA a tile of consecutive rows a trip, each
+// thread kTdVecs 16-byte vectors of them (a warp's loads one contiguous
+// span), read with the streaming hint: a row's rank is its index less its
+// group's start (the exclusive scan of H7a's counts: no search over the
+// keys), its mid-quantile (rank + 0.5) / count, its cluster as today's
+// kernel computed it, its cell g * C + cluster. Sorted keys give runs of
+// equal cells: a thread's rows are added up a run, the warp joins the runs
+// that cross its lanes by a segmented shuffle scan, and the lane where a
+// run ends issues the run's two global f64 adds (weight, value) into sums
+// [2, G * C], zeroed by the caller. A run cut by a warp's edge adds twice,
+// and so does a cell that comes back: nothing rests on the order of the
+// clusters. Rows past the live ones (the starts' G-th entry: the masked
+// rows' sentinel group sorts last) end the walk.
+template <typename K>
+__global__ void __launch_bounds__(kTdThreads) tdigest_cluster_kernel(
+    const K* __restrict__ keys, long long n, const int* __restrict__ counts, int G, int C,
+    int bits_g, int vec, const int* __restrict__ starts_in, double* __restrict__ sums) {
+  constexpr int V = 16 / sizeof(K);  // keys a vector
+  constexpr int TILE = kTdThreads * kTdVecs * V;
+  extern __shared__ int sh_starts[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // The first tile's loads go out before the scan.
+  K cur[kTdVecs][V];
+  auto load = [&](long long base, K (&k)[kTdVecs][V]) {
+#pragma unroll
+    for (int u = 0; u < kTdVecs; ++u) {
+      const long long i0 = base + ((long long)(u * (kTdThreads / 32) + warp) * 32 + lane) * V;
+      if (vec && i0 + V <= n) {
+        unpack_keys(__ldcs(reinterpret_cast<const uint4*>(keys + i0)), k[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) k[u][j] = i0 + j < n ? keys[i0 + j] : (K)0;
       }
-      start = a;
     }
-    int cur_g = g;
-    long long cur_cell = -1;
-    double w_acc = 0.0, v_acc = 0.0;
-    for (long long i = lo; i < hi; ++i) {
-      float v;
-      decode_key(keys, i, bits_g, wide, &g, &v);
-      if (g >= G) break;
-      if (g != cur_g) {
-        cur_g = g;
-        start = i;
-      }
-      const float rank = (float)(i - start);
-      const float q = __fdiv_rn(__fadd_rn(rank, 0.5f), fmaxf((float)counts[g], 1.0f));
-      const long long cell = (long long)g * C + cluster_id(q, C);
-      if (cell != cur_cell) {
-        if (cur_cell >= 0) {
-          atomicAdd(&acc[cur_cell], w_acc);
-          atomicAdd(&acc[cells + cur_cell], v_acc);
+  };
+  long long base = (long long)blockIdx.x * TILE;
+  if (base < n) load(base, cur);
+  const int* starts = starts_in;
+  if (starts == nullptr) {
+    scan_counts(counts, G, sh_starts);
+    __syncthreads();
+    starts = sh_starts;
+  }
+  const long long live = starts[G];
+  const int cells = G * C;
+  for (; base < live; base += (long long)gridDim.x * TILE) {
+    K nxt[kTdVecs][V];
+    const long long next = base + (long long)gridDim.x * TILE;
+    if (next < live) load(next, nxt);
+#pragma unroll
+    for (int u = 0; u < kTdVecs; ++u) {
+      const long long i0 = base + ((long long)(u * (kTdThreads / 32) + warp) * 32 + lane) * V;
+      int cell[V];
+      double v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        cell[j] = -1;
+        v[j] = 0.0;
+        if (i0 + j < live) {
+          int g;
+          float x;
+          decode_key(cur[u][j], bits_g, &g, &x);
+          const int start = starts[g];
+          // The rank and count as ints convert to the floats today's kernel
+          // took from their 64-bit values: the same integers.
+          const float rank = (float)((int)(i0 + j) - start);
+          const float cnt = (float)(starts[g + 1] - start);
+          const float q = __fdiv_rn(__fadd_rn(rank, 0.5f), fmaxf(cnt, 1.0f));
+          cell[j] = g * C + cluster_id(q, C);
+          v[j] = (double)x;
         }
-        cur_cell = cell;
-        w_acc = 0.0;
-        v_acc = 0.0;
       }
-      w_acc += 1.0;
-      v_acc += (double)v;
+      // A thread's runs: run sums (w, s) at each row, restarted at a head.
+      const int before = __shfl_up_sync(0xFFFFFFFFu, cell[V - 1], 1);
+      const int after = __shfl_down_sync(0xFFFFFFFFu, cell[0], 1);
+      bool head[V];
+      int w[V];
+      double s[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        head[j] = j == 0 ? (lane == 0 || cell[0] != before) : cell[j] != cell[j - 1];
+        w[j] = (j == 0 || head[j]) ? 1 : w[j - 1] + 1;
+        s[j] = (j == 0 || head[j]) ? v[j] : __dadd_rn(s[j - 1], v[j]);
+      }
+      // The warp's segmented inclusive scan of each lane's last run,
+      // (flag: a run starts in the lane, w, s); the lane before's result is
+      // what this lane's first run carries in.
+      bool f = false;
+#pragma unroll
+      for (int j = 0; j < V; ++j) f = f || head[j];
+      int sw = w[V - 1];
+      double ss = s[V - 1];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int fu = __shfl_up_sync(0xFFFFFFFFu, (int)f, d);
+        const int wu = __shfl_up_sync(0xFFFFFFFFu, sw, d);
+        const double su = __shfl_up_sync(0xFFFFFFFFu, ss, d);
+        if (lane >= d) {
+          if (!f) {
+            sw += wu;
+            ss = __dadd_rn(su, ss);
+          }
+          f = f || fu;
+        }
+      }
+      int cw = __shfl_up_sync(0xFFFFFFFFu, sw, 1);
+      double cs = __shfl_up_sync(0xFFFFFFFFu, ss, 1);
+      if (lane == 0 || head[0]) {
+        cw = 0;
+        cs = 0.0;
+      }
+      bool open = true;  // no head yet: rows still in the run carried in
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        open = open && !head[j];
+        const bool tail = j + 1 < V ? cell[j] != cell[j + 1] : (lane == 31 || cell[j] != after);
+        if (tail && cell[j] >= 0) {
+          atomicAdd(&sums[cell[j]], (double)(w[j] + (open ? cw : 0)));
+          atomicAdd(&sums[cells + cell[j]], open ? __dadd_rn(cs, s[j]) : s[j]);
+        }
+      }
     }
-    if (cur_cell >= 0) {
-      atomicAdd(&acc[cur_cell], w_acc);
-      atomicAdd(&acc[cells + cur_cell], v_acc);
-    }
-  }
-  if (use_shared) {
-    __syncthreads();
-    for (long long c = threadIdx.x; c < 2 * cells; c += blockDim.x) {
-      const double v = sh_sums[c];
-      if (v != 0.0) atomicAdd(&sums[c], v);
+#pragma unroll
+    for (int u = 0; u < kTdVecs; ++u) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) cur[u][j] = nxt[u][j];
     }
   }
 }
@@ -768,14 +885,39 @@ int px_tdigest_pack(const void* values, long long n, const void* gids, const voi
 }
 
 // keys: H7a's keys, sorted; sums: f64 [2, G * C], zeroed by the caller.
+// starts: int32 [G + 2] scratch, used above kTdSharedStarts groups.
 int px_tdigest_cluster(const void* keys, long long n, const void* counts, int G, int C,
-                       int bits_g, int wide, void* sums, int use_shared, void* stream) {
-  const size_t smem = use_shared ? (size_t)2 * G * C * sizeof(double) : 0;
-  cudaError_t err = allow_smem(tdigest_cluster_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  tdigest_cluster_kernel<<<grid_for(n, use_shared ? 2 : 4), kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      keys, n, (const int*)counts, G, C, bits_g, wide, (double*)sums, use_shared);
+                       int bits_g, int wide, void* sums, void* starts, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool shared_starts = G + 2 <= kTdSharedStarts;
+  if (!shared_starts) {
+    if (starts == nullptr) return (int)cudaErrorInvalidValue;
+    tdigest_starts_kernel<<<1, kTdThreads, 0, st>>>((const int*)counts, G, (int*)starts);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t smem = shared_starts ? (size_t)(G + 2) * sizeof(int) : 0;
+  const int* starts_in = shared_starts ? nullptr : (const int*)starts;
+  const int vec = (uintptr_t)keys % 16 == 0;
+  const long long tile = (long long)kTdThreads * kTdVecs * (wide ? 2 : 4);
+  long long grid = (n + tile - 1) / tile;
+  const long long cap = (long long)px::num_sms() * 2;
+  if (grid > cap) grid = cap;
+  if (grid < 1) grid = 1;
+  cudaError_t err;
+  if (wide) {
+    err = allow_smem(tdigest_cluster_kernel<unsigned long long>, smem);
+    if (err != cudaSuccess) return (int)err;
+    tdigest_cluster_kernel<unsigned long long><<<(int)grid, kTdThreads, smem, st>>>(
+        (const unsigned long long*)keys, n, (const int*)counts, G, C, bits_g, vec, starts_in,
+        (double*)sums);
+  } else {
+    err = allow_smem(tdigest_cluster_kernel<uint32_t>, smem);
+    if (err != cudaSuccess) return (int)err;
+    tdigest_cluster_kernel<uint32_t><<<(int)grid, kTdThreads, smem, st>>>(
+        (const uint32_t*)keys, n, (const int*)counts, G, C, bits_g, vec, starts_in,
+        (double*)sums);
+  }
   return (int)cudaGetLastError();
 }
 

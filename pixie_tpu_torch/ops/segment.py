@@ -8,8 +8,9 @@ limbs exist only to keep the TPU's slow scatter unit off the hot path.
 Each function takes its device from its tensors: on a CUDA tensor it
 launches the hand kernel of ``ops/kernels`` (H1 for integer sums and counts,
 its rows read as the fold staged them: ``Narrow``, ``PRESENCE``; H2 for f64
-sums; H11 for min and max, a ``Narrow`` read as staged too; H13-H15 and H12
-for the sort-merge join's primitives, H16 for the join-aggregate lane's
+sums, ``F64Row``s of f64 or integer columns summed or squared; H11 for min
+and max, a ``Narrow`` read as staged too; H13-H15 and H12 for the
+sort-merge join's primitives, H16 for the join-aggregate lane's
 weighted fold at the end), on a CPU tensor it runs the plain PyTorch
 version beside it. The plain versions are the ones the CPU tests
 hold against the reference, and chip_smoke.py holds the kernels against
@@ -176,12 +177,62 @@ def seg_sum(
         return fused_segment_sums([values], seg_ids, num_segments, mask)[0]
     if values.dtype != torch.float64:
         raise TypeError(f"seg_sum takes int64 or float64 values, not {values.dtype}")
+    return f64_segment_sums([F64Row(values)], seg_ids, num_segments, mask)[0]
+
+
+class F64Row(NamedTuple):
+    """A row of the f64 lane (H2): ``values`` an f64 column, or an integer
+    or bool column (or a ``Narrow``) whose values are rounded to f64, summed
+    as they are or, with ``square``, each value's square (rounded on its
+    own) summed."""
+
+    values: object
+    square: bool = False
+
+    def key(self) -> tuple:
+        """Rows of equal keys (on one device) sum the same values: one view
+        of one storage (and offset), one op."""
+        col, off = (self.values.values, self.values.offset) \
+            if isinstance(self.values, Narrow) else (self.values, 0)
+        return col.data_ptr(), col.dtype, col.shape, col.stride(), off, self.square
+
+
+def _f64_row_values(row: F64Row) -> torch.Tensor:
+    x = widen(row.values).to(torch.float64)
+    return x * x if row.square else x
+
+
+def segment_rows_sum_f64_plain(
+    rows: Sequence[F64Row], seg_ids: torch.Tensor, num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of H2: f64 [R, S], each row widened to f64 (and
+    squared), then H2's single-row plain version."""
+    out = torch.zeros((len(rows), num_segments), dtype=torch.float64, device=seg_ids.device)
+    for r, row in enumerate(rows):
+        out[r] = segment_sum_f64_plain(_f64_row_values(row), seg_ids, mask, num_segments)
+    return out
+
+
+def f64_segment_sums(
+    rows: Sequence[F64Row], seg_ids: torch.Tensor, num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The f64 lane: f64 [len(rows), S] per-segment sums of ``F64Row``s in
+    one reduction (H2 reads each row where it lies: f64, or an integer row
+    widened in registers, a ``Narrow`` with its offset). Counterpart of the
+    reference's seg_sum over f64 values, one call a row."""
     seg_ids = seg_ids.to(torch.int32)
-    if seg_ids.is_cuda:
-        return kernels.segment_sum_f64(
-            values.contiguous(), seg_ids.contiguous(), mask, num_segments
-        )
-    return segment_sum_f64_plain(values, seg_ids, mask, num_segments)
+    if not seg_ids.is_cuda:
+        return segment_rows_sum_f64_plain(rows, seg_ids, num_segments, mask)
+    triples = []
+    for row in rows:
+        col, off = (row.values.values, row.values.offset) if isinstance(row.values, Narrow) \
+            else (row.values, 0)
+        if col.dtype not in kernels.H2_KINDS:
+            col = col.to(torch.float64)
+        triples.append((col.contiguous(), off, row.square))
+    return kernels.segment_rows_sum_f64(triples, seg_ids.contiguous(), mask, num_segments)
 
 
 def _identity_for(dtype: torch.dtype, is_min: bool):

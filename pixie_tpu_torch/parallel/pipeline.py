@@ -3046,7 +3046,10 @@ class DeviceExecutor:
         column (a string-hash argument gathered through its content-hash
         LUT); rows outside this pass's gid window are masked; then every UDA
         updates: the sum-family UDAs and the presence row in one fused
-        segment sum (H1), the others through their own update.
+        segment sum (H1), the f64 rows of the moment UDAs (sum over
+        FLOAT64, mean, variance, stddev) in one f64 segment sum (H2, each
+        (column, op) once), their counts the presence row; the others
+        through their own update.
 
         The cell lane (pixie_tpu/parallel/pipeline.py:5453-5510): a
         cell-capable UDA over a column staged as int-dictionary codes takes
@@ -3136,21 +3139,42 @@ class DeviceExecutor:
             vals, mask, gids = prologue(blk, gid_base, keep)
             for out, col in staged_args.items():
                 vals[f"arg:{out}"] = segment.Narrow(vals[f"arg:{out}"], staged.narrow_offsets[col])
-            rows = []
+            rows, frows = [], []
             fused: dict[str, tuple[int, int]] = {}
+            moment: dict[str, list] = {}  # out: [(is an f64 row, its index)]
+            fkeys: dict[tuple, int] = {}
             for out, arg_e, uda in specs:
-                if uda.fused_rows is None or out in cell:
+                if out in cell or (uda.fused_rows is None and uda.moment_rows is None):
                     continue
                 col = vals[f"arg:{out}"] if uda.reads_args else None
-                r = uda.fused_rows(col, mask)
-                fused[out] = (len(rows), len(rows) + len(r))
-                rows.extend(r)
+                if uda.fused_rows is not None:
+                    r = uda.fused_rows(col, mask)
+                    fused[out] = (len(rows), len(rows) + len(r))
+                    rows.extend(r)
+                    continue
+                where = []
+                for r in uda.moment_rows(col, mask):
+                    if isinstance(r, segment.F64Row):
+                        # stddev and variance of one column share its rows
+                        i = fkeys.setdefault(r.key(), len(frows))
+                        if i == len(frows):
+                            frows.append(r)
+                        where.append((True, i))
+                    else:
+                        where.append((False, len(rows)))
+                        rows.append(r)
+                moment[out] = where
             totals = segment.fused_segment_sums(rows, gids, capacity, mask)
-            carry["presence"] = carry["presence"] + totals[-1]
-            done = {
-                out: uda.fused_apply(st, totals[fused[out][0] : fused[out][1]])
-                for (out, _, uda), st in zip(specs, carry["states"]) if out in fused
-            }
+            ftotals = segment.f64_segment_sums(frows, gids, capacity, mask) if frows else None
+            presence = totals[-1]
+            carry["presence"] = carry["presence"] + presence
+            done = {}
+            for (out, _, uda), st in zip(specs, carry["states"]):
+                if out in fused:
+                    done[out] = uda.fused_apply(st, totals[fused[out][0] : fused[out][1]])
+                elif out in moment:
+                    t = [ftotals[i] if f else totals[i] for f, i in moment[out]]
+                    done[out] = uda.moment_apply(st, t, presence)
             update_states(carry, vals, gids, mask, blk, done)
 
         if pred_batch is None:

@@ -12,7 +12,9 @@ torch tensors with a leading num_groups axis, built on an explicit device;
 ``update`` reduces through pixie_tpu_torch.ops.segment, whose CUDA kernels
 run on the card. Sum-family UDAs feed int64 rows to the fused-sum lane: the
 kernel adds int64 directly, so their totals are exact mod 2^64 like the
-reference's reconstructed 8-bit limbs.
+reference's reconstructed 8-bit limbs. Their f64 kin (sum over FLOAT64,
+mean, variance, stddev) feed f64 rows to the moment lane (one H2 launch a
+block) and take their counts from the fused lane's presence row.
 """
 
 from __future__ import annotations
@@ -251,13 +253,16 @@ def register(r: Registry) -> None:
         r.register_uda(count_uda(t))
 
     def sum_uda(arg_t, out_t, acc_dtype):
+        moment_rows = moment_apply = None
         if acc_dtype == torch.int64:
             # Masked rows are skipped by the reduction itself; H1 reads a
             # narrow or bool column as it lies.
             fused_rows = lambda col, mask: [col]
             fused_apply = lambda st, t: st + t[0]
         else:
-            fused_rows = fused_apply = None  # f64 keeps its own lane
+            fused_rows = fused_apply = None  # f64 takes the moment lane (H2)
+            moment_rows = lambda col, mask: [segment.F64Row(col)]
+            moment_apply = lambda st, t, n: st + t[0]
         narrow = acc_dtype == torch.int64
         return UDA(
             name="sum",
@@ -272,6 +277,8 @@ def register(r: Registry) -> None:
             out_semantic=_preserve_first,
             fused_rows=fused_rows,
             fused_apply=fused_apply,
+            moment_rows=moment_rows,
+            moment_apply=moment_apply,
             narrow_args=narrow,
             doc="Sum of the column within the group.",
         )
@@ -279,6 +286,23 @@ def register(r: Registry) -> None:
     r.register_uda(sum_uda(F, F, torch.float64))
     r.register_uda(sum_uda(I, I, torch.int64))
     r.register_uda(sum_uda(B, I, torch.int64))
+
+    def mean_rows(col, mask):
+        # The bool predicate of mean(x >= c) sums as an integer row in H1's
+        # launch: a block's count of trues lies below 2^53, so its f64 value
+        # is the reference's f64 sum of the 0/1 values bit for bit.
+        return [col] if col.dtype == torch.bool else [segment.F64Row(col)]
+
+    def mean_apply(st, t, n):
+        return {"sum": st["sum"] + t[0].to(torch.float64), "count": st["count"] + n}
+
+    def mean_update(st, gids, col, mask=None):
+        G = st["count"].shape[0]
+        if col.dtype == torch.bool:  # one H1 launch: the trues, then the count
+            t = segment.fused_segment_sums([col], gids, G, mask)
+            return mean_apply(st, [t[0]], t[1])
+        return mean_apply(st, [segment.seg_sum(col.to(torch.float64), gids, G, mask)],
+                          segment.seg_count(gids, G, mask))
 
     def mean_uda(arg_t):
         return UDA(
@@ -289,16 +313,7 @@ def register(r: Registry) -> None:
                 "sum": torch.zeros(g, dtype=torch.float64, device=device),
                 "count": torch.zeros(g, dtype=torch.int64, device=device),
             },
-            update=lambda st, gids, col, mask=None: {
-                # The bool predicate of mean(x >= c) is read as f64 here,
-                # explicitly: torch's default float is f32.
-                "sum": st["sum"]
-                + segment.seg_sum(
-                    col.to(torch.float64), gids, st["sum"].shape[0], mask
-                ),
-                "count": st["count"]
-                + segment.seg_count(gids, st["count"].shape[0], mask),
-            },
+            update=mean_update,
             merge=lambda a, b: {
                 "sum": a["sum"] + b["sum"],
                 "count": a["count"] + b["count"],
@@ -306,6 +321,8 @@ def register(r: Registry) -> None:
             finalize=lambda st: st["sum"] / torch.clamp_min(st["count"], 1),
             merge_kind=MergeKind.PSUM,
             out_semantic=_preserve_first,
+            moment_rows=mean_rows,
+            moment_apply=mean_apply,
             doc="Arithmetic mean (sum/count pair state; merge-safe).",
         )
 
@@ -342,9 +359,22 @@ def register(r: Registry) -> None:
         r.register_uda(minmax_uda("min", arg_t, True))
         r.register_uda(minmax_uda("max", arg_t, False))
 
+    def var_rows(col, mask):
+        # The column and its squares, each square rounded on its own before
+        # the add, as the reference sums col * col (math_ops.py:237).
+        return [segment.F64Row(col), segment.F64Row(col, square=True)]
+
+    def var_apply(st, t, n):
+        return {"n": st["n"] + n, "sum": st["sum"] + t[0], "sumsq": st["sumsq"] + t[1]}
+
+    def var_update(st, gids, col, mask=None):
+        G = st["n"].shape[0]
+        sums = segment.f64_segment_sums(var_rows(col, mask), gids, G, mask)
+        return var_apply(st, [sums[0], sums[1]], segment.seg_count(gids, G, mask))
+
     def var_state_uda(name, finalize):
         # State n, sum, sumsq (pixie_tpu/udf/builtins/math_ops.py:222-251):
-        # n through the fused-sum lane's count (H1), the sums through H2.
+        # n the count (H1), the sums one H2 launch of two rows.
         return UDA(
             name=name,
             arg_types=(F,),
@@ -354,19 +384,12 @@ def register(r: Registry) -> None:
                 "sum": torch.zeros(g, dtype=torch.float64, device=device),
                 "sumsq": torch.zeros(g, dtype=torch.float64, device=device),
             },
-            update=lambda st, gids, col, mask=None: {
-                "n": st["n"] + segment.seg_count(gids, st["n"].shape[0], mask),
-                "sum": st["sum"] + segment.seg_sum(
-                    col.to(torch.float64), gids, st["sum"].shape[0], mask
-                ),
-                "sumsq": st["sumsq"] + segment.seg_sum(
-                    col.to(torch.float64) * col.to(torch.float64), gids,
-                    st["sumsq"].shape[0], mask,
-                ),
-            },
+            update=var_update,
             merge=lambda a, b: {k: a[k] + b[k] for k in a},
             finalize=finalize,
             merge_kind=MergeKind.PSUM,
+            moment_rows=var_rows,
+            moment_apply=var_apply,
             doc="Moment-based dispersion aggregate.",
         )
 

@@ -147,6 +147,20 @@ class UDA:
     # True when fused_rows and update take a segment.Narrow: the fold then
     # hands a bare narrowed column over as staged instead of widening it.
     narrow_args: bool = False
+    # Moment lane: sum over FLOAT64, mean, variance and stddev add their
+    # f64 rows into ONE per-block f64 segment sum (H2,
+    # ops/segment.f64_segment_sums) beside the fused-sum lane's H1 launch,
+    # and take their counts from that launch's presence row.
+    #   moment_rows(col, mask) -> list of rows, each a segment.F64Row (an
+    #     f64 row for H2, its values or their squares) or an integer or
+    #     bool row as fused_rows gives them (H1's launch: mean's bool
+    #     predicate). The fold sums rows of equal F64Row.key() once.
+    #   moment_apply(state, totals, count) -> state, where totals holds each
+    #     row's [G] per-segment sums in moment_rows' order (f64 for an
+    #     F64Row, int64 for an H1 row) and count is the presence row, int64
+    #     [G].
+    moment_rows: Callable[..., list] | None = None
+    moment_apply: Callable[[Any, list, Any], Any] | None = None
     # Cell lane (r5): when the arg column arrives as small-dictionary
     # codes (the pipeline's int-dictionary staging), the pipeline computes
     # ONE per-(group, code) histogram on the MXU and hands it to the UDA

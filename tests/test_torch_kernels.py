@@ -87,7 +87,8 @@ def _check_segment_kernels(dev: torch.device) -> None:
         assert got.device == dev
         assert torch.equal(got.cpu(), want)
         want = segment.segment_sum_f64_plain(floats, gids, mask, S)
-        got = kernels.segment_sum_f64(floats.to(dev), gids.to(dev), mask.to(dev), S)
+        got = kernels.segment_rows_sum_f64(
+            [(floats.to(dev), 0, False)], gids.to(dev), mask.to(dev), S)[0]
         abs_sum = segment.segment_sum_f64_plain(floats.abs(), gids, mask, S)
         assert torch.all((got.cpu() - want).abs() <= 1e-12 * abs_sum)
 
@@ -409,6 +410,179 @@ def test_segment_rows_sum_many_rows_on_card():
         got = kernels.segment_rows_sum_i64(rows, gids, mask, S)
         want = segment.fused_segment_sums_plain(plain, gids, S, mask)
         assert got.shape == (len(rows) + 1, S) and torch.equal(got, want), S
+
+
+# H2 at its edges: every row kind (f64, and the integer kinds H1 reads, with
+# offsets), both ops, R = 1 to 6 rows a call (the warp lane takes 4 a
+# launch), views one element into a buffer, NaN and +-inf, S on both sides
+# of every lane's edge; each row within 1e-12 * sum |v| of the plain
+# version, integer rows whose sums stay below 2^53 exactly, non-finite sums
+# where the plain version has them, and the private and warp lanes the same
+# bits twice.
+def _h2_edge_rows(rng, n: int, dev, unaligned: bool) -> list:
+    """(tensor, offset, square) rows of every kind H2 reads."""
+    def put(a):
+        t = torch.from_numpy(a).to(dev)
+        return _unaligned(t) if unaligned else t
+    f = rng.exponential(3e7, n)
+    f[rng.random(n) < 1e-3] = np.nan
+    f[rng.random(n) < 1e-3] = np.inf
+    f[rng.random(n) < 1e-3] = -np.inf
+    return [
+        (put(rng.normal(0.0, 1e6, n)), 0, False),
+        (put(rng.random(n) < 0.5), 0, False),
+        (put(rng.integers(0, 256, n).astype(np.uint8)), 7, True),
+        (put(rng.integers(0, 65536, n).astype(np.uint16)), -70_000, False),
+        (put(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)), int(_I64.max) - 5, False),
+        (put(rng.integers(-(2**40), 2**40, n, dtype=np.int64)), 0, True),
+        (put(f), 0, False),
+        (put(f), 0, True),
+    ]
+
+
+def _h2_check(got: torch.Tensor, rows: list, gids, mask, S: int, what) -> None:
+    plain = [segment.F64Row(segment.Narrow(t, off) if off else t, sq) for t, off, sq in rows]
+    want = segment.segment_rows_sum_f64_plain(plain, gids, S, mask)
+    assert got.shape == want.shape == (len(rows), S), what
+    for r, row in enumerate(plain):
+        x = segment._f64_row_values(row)
+        finite = torch.where(torch.isfinite(x), x, 0.0)
+        abs_sum = segment.segment_sum_f64_plain(finite.abs(), gids, mask, S)
+        g, w = got[r], want[r]
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), (what, r)
+        fin = torch.isfinite(w)
+        assert torch.equal(g[~fin & ~torch.isnan(w)], w[~fin & ~torch.isnan(w)]), (what, r)
+        assert torch.all((g[fin] - w[fin]).abs() <= 1e-12 * abs_sum[fin]), (what, r)
+        if rows[r][0].dtype != torch.float64 and bool(torch.all(abs_sum < 2.0**53)) \
+                and bool(torch.all(x == torch.round(x))):
+            assert torch.equal(g, w), (what, r, "integer row")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_segment_rows_sum_f64_edges_on_card(n):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n + 7)
+    optin = kernels.smem_optin_bytes(dev)
+    shared_max = optin // 8  # one row's partial fills the opt-in bytes
+    assert kernels.h2_lane(1, shared_max, optin)[0] == "shared"
+    assert kernels.h2_lane(1, shared_max + 1, optin)[0] == "global"
+    for unaligned in (False, True):
+        rows = _h2_edge_rows(rng, n, dev, unaligned)
+        for S in (1, 16, 63, 64, 65, 4096, shared_max, shared_max + 1):
+            gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32)).to(dev)
+            mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+            if unaligned:
+                gids, mask = _unaligned(gids), _unaligned(mask)
+            for idx in ([0], [1, 2], [3, 4, 5], [0, 2, 4, 6], [0, 1, 2, 3, 4], list(range(6)),
+                        list(range(7)), [6, 7]):
+                sub = [rows[i] for i in idx]
+                got = kernels.segment_rows_sum_f64(sub, gids, mask, S)
+                _h2_check(got, sub, gids, mask, S, (n, S, unaligned, idx))
+                if kernels.h2_lane(len(sub), S, optin)[0] in ("private", "warps"):
+                    again = kernels.segment_rows_sum_f64(sub, gids, mask, S)
+                    assert bits_equal(got, again), (n, S, unaligned, idx, "twice")
+            got = kernels.segment_rows_sum_f64(rows[:3], gids, None, S)
+            _h2_check(got, rows[:3], gids, None, S, (n, S, unaligned, "no mask"))
+
+
+@pytest.mark.cuda
+def test_segment_rows_sum_f64_sorted_runs_on_card():
+    """Gids in long runs (a thread's 8 rows and a warp's lanes share one):
+    the register merge and the shuffles add whole runs; S = 1 and 64."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(5)
+    n = (1 << 20) + 3
+    for S in (1, 64):
+        gids = torch.from_numpy(np.sort(rng.integers(0, S, n)).astype(np.int32)).to(dev)
+        rows = _h2_edge_rows(rng, n, dev, False)[:4]
+        got = kernels.segment_rows_sum_f64(rows, gids, None, S)
+        _h2_check(got, rows, gids, None, S, ("sorted", S))
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit (NaN payloads and signs of zero included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+# H7b at its edges: an empty group, groups of 1 and 2 rows, every row
+# masked, one group holding every row, n off the 16-byte vectors, runs
+# across warp and CTA edges, wide keys (G = 300) and the starts scanned
+# into scratch (G above kernels.TD_SHARED_STARTS); against the plain
+# version under Fault-4: group weights exact, the cells' weights moved only
+# by rows whose cluster coordinate lies within 1e-4 of an integer, value
+# sums of the other cells within 1e-12.
+def _td_near(g_s, G: int, C: int) -> torch.Tensor:
+    _, qmid = tdigest._row_clusters(g_s, G, C)
+    q = torch.clamp(qmid.double(), float(np.float32(1e-7)), float(np.float32(1 - 1e-7)))
+    c = (torch.asin(2 * q - 1) / math.pi + 0.5) * C
+    near = ((c - torch.round(c)).abs() <= 1e-4) & (g_s < G)
+    return torch.bincount(g_s[near], minlength=G)[:G]
+
+
+def check_tdigest_cluster(dev, gids: np.ndarray, vals: np.ndarray, mask: np.ndarray, G: int,
+                          what, C: int = tdigest.DEFAULT_CAPACITY) -> None:
+    g = torch.from_numpy(gids.astype(np.int32)).to(dev)
+    v = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    keys, counts = kernels.tdigest_pack(v, g, m, G)
+    ks = torch.sort(keys).values
+    got = kernels.tdigest_cluster(ks, counts, G, C)
+    g_s, v_s = tdigest._sorted_rows(g, v, m, G)
+    want = tdigest._cluster_sums_plain(g_s, v_s, G, C)
+    assert torch.equal(got[0].sum(dim=1), want[0].sum(dim=1)), (what, "group weights")
+    dw = (got[0] - want[0]).abs()
+    assert bool(torch.all(dw.sum(dim=1) <= 2 * _td_near(g_s, G, C))), (what, "Fault-4")
+    same = dw == 0
+    verr = (got[1] - want[1]).abs() / want[1].abs().clamp_min(1e-300)
+    assert bool(torch.all(verr[same] <= 1e-12)), (what, "value sums")
+    # The keys less the first, a view one key in (no vector loads), with
+    # the counts of its rows.
+    counts1 = counts.clone()
+    counts1[int(g_s[0])] -= 1
+    got1 = kernels.tdigest_cluster(ks[1:], counts1, G, C)
+    want1 = tdigest._cluster_sums_plain(g_s[1:], v_s[1:], G, C)
+    assert torch.equal(got1[0].sum(dim=1), want1[0].sum(dim=1)), (what, "unaligned")
+
+
+TD_EDGE_CASES = ["basic", "empty_group", "tiny_groups", "all_masked", "one_group",
+                 "off_vector", "long_runs", "wide", "scratch_starts"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TD_EDGE_CASES)
+def test_tdigest_cluster_edges_on_card(case):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(TD_EDGE_CASES.index(case))
+    n, G = 1 << 18, 16
+    mask = rng.random(n) < 0.9
+    vals = rng.exponential(3e7, n)
+    gids = rng.integers(0, G, n)
+    if case == "empty_group":
+        gids[gids == 3] = 4
+    elif case == "tiny_groups":
+        gids[gids <= 1] = 2
+        gids[:3] = [0, 1, 1]
+        mask[:3] = True
+    elif case == "all_masked":
+        mask[:] = False
+    elif case == "one_group":
+        gids[:] = 7
+    elif case == "off_vector":
+        n = (1 << 18) + 7
+        mask, vals, gids = rng.random(n) < 0.9, rng.exponential(3e7, n), rng.integers(0, G, n)
+    elif case == "long_runs":
+        vals = np.repeat(rng.exponential(3e7, n // 4096), 4096)  # equal values: long cells
+    elif case == "wide":
+        G = 300
+        gids = rng.integers(0, G, n)
+    elif case == "scratch_starts":
+        G = kernels.TD_SHARED_STARTS + 100
+        gids = rng.integers(0, G, n)
+    check_tdigest_cluster(dev, gids, vals, mask, G, case)
 
 
 @pytest.mark.cuda

@@ -295,3 +295,200 @@ def test_h1_cluster_slices_cover_groups(cluster):
         assert (covered == 1).all()
         # contiguous in rank order, as the kernel's rank * slice bounds are
         assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+
+
+# ---------------------------------------------------------------- the f64 lane
+# H2's plain version (segment.f64_segment_sums on CPU tensors) against the
+# reference's seg_sum over the same f64 values: f64 rows, and integer or
+# bool rows as the fold stages them (a Narrow's offset added, then rounded
+# to f64), each summed or squared (variance's col * col). Held within
+# 1e-12 * sum |v| of math.fsum (the Fault-17 bound) and exactly where every
+# value and every sum of a group is an integer below 2^53; against the
+# reference's scatter lane within 1e-12 * sum |v|, its matmul lane within
+# that plus the lane's own chunk bound.
+F64_KINDS = ("bool", "uint8", "uint16", "int32", "int64", "float64")
+_F64_OFFSETS = {"bool": 0, "uint8": 5, "uint16": 70_000, "int32": -1000, "int64": 0,
+                "float64": 0}
+
+
+def _f64_row(rng, kind: str, square: bool, off=None):
+    """(the port's F64Row, the reference's f64 values: col.astype(f64), squared
+    as col * col)."""
+    if kind == "float64":
+        v = rng.normal(0.0, 1e6, N)
+        v[::97] = rng.exponential(3e7, v[::97].size)
+        port, wide = _t(v), v
+    else:
+        if kind == "bool":
+            v = rng.random(N) < 0.5
+        elif kind == "int64":
+            v = rng.integers(-(2**40), 2**40, N, dtype=np.int64)
+        else:
+            info = np.iinfo(kind)
+            v = rng.integers(max(int(info.min), -(2**31)), int(info.max) + 1, N).astype(kind)
+        off = _F64_OFFSETS[kind] if off is None else off
+        wide = (v.astype(np.int64).view(np.uint64) + np.uint64(off % (1 << 64))).view(np.int64)
+        port = _port_row(v, off)
+    x = jnp.asarray(wide).astype(jnp.float64)
+    return segment.F64Row(port, square), np.asarray(x * x if square else x)
+
+
+def _fsum_groups(x: np.ndarray, gids, mask) -> tuple:
+    import math
+
+    ok = mask & (gids >= 0) & (gids < S)
+    exact = np.array([math.fsum(x[ok & (gids == g)]) for g in range(S)])
+    abs_sum = np.array([math.fsum(np.abs(x[ok & (gids == g)])) for g in range(S)])
+    return exact, abs_sum
+
+
+def _hold_f64(got: np.ndarray, x: np.ndarray, gids, mask, strategy) -> None:
+    exact, abs_sum = _fsum_groups(x, gids, mask)
+    if np.all(x == np.round(x)) and abs_sum.max() < 2.0**53:
+        np.testing.assert_array_equal(got, exact)
+    assert np.all(np.abs(got - exact) <= 1e-12 * abs_sum)
+    want = np.asarray(ref_segment.seg_sum(jnp.asarray(x), jnp.asarray(gids), S, jnp.asarray(mask)))
+    lane = ref_segment._F64_CHUNK * 2.0**-24 if strategy == "matmul" else 0.0
+    assert np.all(np.abs(got - want) <= (1e-12 + lane) * abs_sum)
+
+
+def _f64_gids(seed: int):
+    gids, mask, _, _ = _inputs(seed)
+    gids[gids == 5] = S + 1  # group 5 stays empty
+    return gids, mask
+
+
+@pytest.mark.parametrize("square", [False, True], ids=["value", "square"])
+@pytest.mark.parametrize("kind", F64_KINDS)
+def test_f64_lane_row_matches_reference(strategy, kind, square):
+    """One row of each kind and op: masked rows, gids out of range, an
+    empty group."""
+    gids, mask = _f64_gids(11)
+    row, x = _f64_row(np.random.default_rng(12), kind, square)
+    got = segment.f64_segment_sums([row], _t(gids), S, _t(mask)).numpy()
+    assert got.shape == (1, S) and got.dtype == np.float64 and got[0, 5] == 0.0
+    _hold_f64(got[0], x, gids, mask, strategy)
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5])
+def test_f64_lane_rows_together(strategy, R):
+    """R rows of mixed kinds and ops in one call, each held as alone; the
+    narrowed value rows with offsets near the int64 edge (v + off wraps;
+    their squares would pass the f32 range of the reference's matmul
+    lane)."""
+    gids, mask = _f64_gids(13)
+    rng = np.random.default_rng(14 + R)
+    picks = [(F64_KINDS[(3 * i + R) % len(F64_KINDS)], (i + R) % 2 == 1) for i in range(R)]
+    rows = [_f64_row(rng, k, sq, None if sq else _OFFSETS.get(k))
+            for k, sq in picks]
+    got = segment.f64_segment_sums([r for r, _ in rows], _t(gids), S, _t(mask)).numpy()
+    assert got.shape == (R, S)
+    for r, (_, x) in enumerate(rows):
+        _hold_f64(got[r], x, gids, mask, strategy)
+    alone = segment.f64_segment_sums([rows[0][0]], _t(gids), S, None).numpy()
+    _hold_f64(alone[0], rows[0][1], gids, np.ones(N, bool), strategy)
+
+
+@pytest.mark.parametrize("square", [False, True], ids=["value", "square"])
+def test_f64_lane_nonfinite_propagates(square):
+    """NaN and +-inf propagate as the reference's scatter lane adds them
+    (the matmul lane's one-hot products spread a NaN over every group):
+    NaN where a group holds a NaN or both infinities, the infinity where it
+    holds one kind, the finite sum elsewhere."""
+    gids, mask = _f64_gids(15)
+    v = np.random.default_rng(16).normal(0.0, 1e3, N)
+    ok = mask & (gids >= 0) & (gids < S)
+    rows = np.flatnonzero(ok)
+    first = {g: rows[gids[rows] == g][:2] for g in (0, 1, 2, 3)}
+    v[first[0][0]] = np.nan
+    v[first[1][0]], v[first[1][1]] = np.inf, -np.inf
+    v[first[2][0]] = np.inf
+    v[first[3][0]] = -np.inf
+    v[np.flatnonzero(~ok)[:5]] = np.nan  # masked and out-of-range NaN: ignored
+    x = v * v if square else v
+    ref_segment.set_strategy("scatter")
+    try:
+        want = np.asarray(ref_segment.seg_sum(jnp.asarray(x), jnp.asarray(gids), S,
+                                              jnp.asarray(mask)))
+    finally:
+        ref_segment.set_strategy(None)
+    got = segment.f64_segment_sums([segment.F64Row(_t(v), square)], _t(gids), S,
+                                   _t(mask)).numpy()[0]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(got[inf], want[inf])
+    assert np.isnan(got[0]) and np.isnan(got[1]) == (not square) and got[2] == np.inf
+    fin = np.isfinite(want)
+    _, abs_sum = _fsum_groups(np.where(np.isfinite(x), x, 0.0), gids, mask)
+    assert np.all(np.abs(got[fin] - want[fin]) <= 1e-12 * abs_sum[fin])
+
+
+def test_seg_sum_f64_is_the_f64_lane():
+    """seg_sum over f64 values is the f64 lane's single value row."""
+    gids, mask, _, floats = _inputs(17)
+    got = segment.seg_sum(_t(floats), _t(gids), S, _t(mask))
+    want = segment.f64_segment_sums([segment.F64Row(_t(floats))], _t(gids), S, _t(mask))[0]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("optin", [48 * 1024, 101_376, 232_448])
+def test_h2_lane_chooser_grid(optin):
+    """H2's lanes as a pure function: up to 64 groups at most 4 rows a
+    launch, private cells while rows x S's bucket <= 64, else the warp
+    lane; shared partials while k rows fit the opt-in bytes, then global
+    atomics; lanes only widen with S."""
+    from pixie_tpu_torch.ops import kernels
+
+    order = ("private", "warps", "shared", "global")
+    for R in range(1, 9):
+        last = None
+        for S_ in _S_GRID:
+            lane, per = kernels.h2_lane(R, S_, optin)
+            assert 1 <= per <= R
+            if lane in ("private", "warps"):
+                assert S_ <= kernels.H2_WARP_MAX_S and per == min(R, kernels.H2_WARP_ROWS)
+                cells = per * kernels.h2_bucket(S_)
+                assert (cells <= kernels.H2_PRIVATE_CELLS) == (lane == "private")
+                assert S_ <= kernels.h2_bucket(S_) < 2 * max(S_, 8)
+            elif lane == "shared":
+                assert S_ > kernels.H2_WARP_MAX_S and per * S_ * 8 <= optin
+                assert per == R or (per + 1) * S_ * 8 > optin or per == kernels.H2_MAX_ROWS
+            else:
+                assert S_ * 8 > optin
+            assert last is None or order.index(lane) >= order.index(last)
+            last = lane
+    with pytest.raises(ValueError):
+        kernels.h2_lane(1, 0, optin)
+    assert kernels.h2_grid(1 << 21, 132, "warps", 3, 64) == 132
+    assert kernels.h2_grid(4096, 132, "warps", 3, 64) == 1
+    assert kernels.h2_grid(1, 132, "private", 1, 16) == 1
+    assert kernels.h2_grid(1 << 21, 132, "private", 1, 16) == 264
+    assert kernels.h2_grid(1 << 21, 132, "private", 1, 64) == 132
+    for S_ in range(1, kernels.H2_WARP_MAX_S + 1):  # one row never takes the warp lane
+        assert kernels.h2_lane(1, S_, optin)[0] == "private"
+
+
+@pytest.mark.parametrize("optin", [48 * 1024, 232_448])
+def test_h2_parts_cover_rows(optin):
+    """H2's launches for R rows: every row once in order, the warp lane
+    never with one row, the private lane within its cells, and the scratch
+    the wrapper sizes (the largest part's CTAs x rows) enough for every
+    part."""
+    from pixie_tpu_torch.ops import kernels
+
+    for R in range(1, 13):
+        for S_ in _S_GRID:
+            for n in (1, 4099, 1 << 21):
+                parts = kernels.h2_parts(R, S_, n, 132, optin)
+                assert [lo for lo, _, _, _ in parts] == list(np.cumsum([0] + [r for _, r, _, _ in parts])[:-1])
+                assert sum(r for _, r, _, _ in parts) == R
+                scratch = max(g * r for _, r, _, g in parts)
+                for _, r, lane, grid in parts:
+                    assert lane != "warps" or r >= 2
+                    if lane == "private":
+                        assert r * kernels.h2_bucket(S_) <= kernels.H2_PRIVATE_CELLS
+                    if lane in ("private", "warps"):
+                        assert 1 <= grid and grid * r <= scratch
+                    else:
+                        assert grid == 0
+
