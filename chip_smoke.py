@@ -16,7 +16,12 @@ the CUDA toolkit. In order it:
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
-   as config 3 runs them; H6 at config 5's 16 x 4 keys, endpoint_load's 34
+   as config 3 runs them; H7, the t-digest's update without a sort, at ten
+   edge blocks and at sketches' block, with its phases' device times and
+   its device operations a block against the sorting update (H7a,
+   torch.sort, H7b)
+   (those two held and timed at 16 and 300 groups: no path sends more
+   than 254); H6 at config 5's 16 x 4 keys, endpoint_load's 34
    groups x 4098 content words and past its tables; H11 over every staged
    row kind in every lane, timed at flow_window's S = 1, config 10's S = 64
    f64 and the flows min/max's S = 4096 int32 narrowed; config 1's first
@@ -29,8 +34,10 @@ the CUDA toolkit. In order it:
    that wrap); config 5's 16 x 4
    cells and the budget's 32 x 256 for H20 and H21; a block of the
    service_stats table for H22 (B = 1, 7, 16, 32 slots of one to three
-   terms, op-6 lists of 2 and 1024 members) and H23 (the seven families'
-   slot bits, 16 groups; 4096 groups for its global path); a 2^21-row ring
+   terms, op-6 lists of 2 and 1024 members) and H23 over rows as staged
+   (the seven families' slot bits, 16 groups: the slot lane; B = 16 with
+   narrowed, int64 and f64 rows: shared partials; 4096 groups: global
+   atomics); a 2^21-row ring
    window for H24 (int32 codes and int64 narrowed, f64 to f32 with NaN
    payloads, +-0, +-inf, f32 subnormals and overflow, int-dictionary codes
    at C = 3, 256 and 65536, a raw cast), also against the host pack) and at
@@ -192,8 +199,9 @@ the CUDA toolkit. In order it:
      checkpoints' cost are printed;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H32 and the hash kernel; H30-H32 and the
-   hash kernel with 0 launches: no path calls them), the nvidia-smi line,
+   line of per-kernel results (H1-H32, H7 and the hash kernel; H30-H32, the
+   hash kernel, H7a and H7b with 0 launches: no path calls them), the
+   nvidia-smi line,
    and as its last line
    {"ok": true, "device": {...}}.
 
@@ -267,12 +275,15 @@ REPLACES = {
     "countmin_query": "pixie_tpu/ops/countmin.py:114",
     "hash_columns": "pixie_tpu/ops/hashing.py:48",
     "clz64": "pixie_tpu/ops/hashing.py:56",
+    "tdigest_update": "pixie_tpu/ops/tdigest.py:56",
 }
 # The kernels no path of the port calls: H30-H32, whose TPU kernels no path
-# of either package calls, and the hash kernel, whose hashing H5, H6, H20
-# and H21 do in registers. Their launch count on the main paths is 0 by
-# design; their kernel phases hold and time them.
-UNCALLED = ("hash32", "countmin_query", "hash_columns", "clz64")
+# of either package calls, the hash kernel, whose hashing H5, H6, H20 and
+# H21 do in registers, and H7a and H7b, the t-digest update of more than 254
+# groups (no path sends so many: H7 updates up to 254). Their launch count
+# on the main paths is 0 by design; their kernel phases hold and time them.
+UNCALLED = ("hash32", "countmin_query", "hash_columns", "clz64", "tdigest_pack",
+            "tdigest_cluster")
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
     **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:12]},
@@ -295,6 +306,7 @@ SOURCES = {
     "merge_states": "pixie_tpu_torch/ops/kernels/merge_kernels.cu",
     "countmin_query": "pixie_tpu_torch/ops/kernels/sketch_kernels.cu",
     **{k: "pixie_tpu_torch/ops/kernels/hash_kernels.cu" for k in ("hash_columns", "clz64")},
+    "tdigest_update": "pixie_tpu_torch/ops/kernels/tdigest_kernels.cu",
 }
 N_PODS = 64
 FLOW_ROWS = 64_000_000  # conn_flows rows: bench.py's BENCH_SMALL_ROWS default
@@ -352,8 +364,8 @@ HTTP_DATA = (
 # default (BENCH_RESIDENT=1, bench.py:790-846).
 HTTP_DATA_RING = HTTP_DATA.replace("'http_small'", "'http_small_ring'")
 SKETCHES_RING = SKETCHES.replace("'http_events'", "'http_small_ring'")
-SKETCH_KERNELS = ("segment_rows_sum_i64", "countmin_cell_update", "tdigest_pack",
-                  "tdigest_cluster", "tdigest_merge", "tdigest_quantiles")
+SKETCH_KERNELS = ("segment_rows_sum_i64", "countmin_cell_update", "tdigest_update",
+                  "tdigest_merge", "tdigest_quantiles")
 RING_WINDOWS = SMALL_ROWS // (1 << 21)  # 30 full 2^21-row windows of 64M rows
 RING_BYTES = RING_WINDOWS * (1 << 21) * (8 + 4 + 8 + 8)  # time_, service, status, latency
 BOUNDED_ROWS = 5_000_000  # the time-bounded query's rows
@@ -1210,6 +1222,7 @@ def sketch_kernel_phases(dev) -> dict:
             f"{records['tdigest_cluster']['library_ms']:.5f}]; the update's torch.sort of "
             f"its keys {records['tdigest_cluster']['sort_ms']:.5f} ms")
     h7b_edges(kernels, tdigest, dev, rng)
+    records["tdigest_update"] = h7_phase(kernels, tdigest, dev, rng, mask)
 
     # H8: a digest of a few plain blocks merged with H7b's raw sums; H9 on
     # the result. Weights exact per group; cells under Fault-4 as above;
@@ -1257,6 +1270,144 @@ def sketch_kernel_phases(dev) -> dict:
         f"state[{G},{C}] Q={len(QS)}",
     )
     return records
+
+
+# H7's edge blocks (tests/test_torch_kernels.py td_update_inputs draws the
+# same): every value equal, two values, a group of one row, empty groups,
+# masked rows and gids out of range, NaN, +-inf, +-0 and subnormals, G = 1,
+# 16 and 254, exponential(3e7) latencies.
+TD_UPDATE_CASES = (("exponential", 1), ("exponential", 16), ("exponential", 254),
+                   ("all_equal", 16), ("two_values", 16), ("single_row", 16),
+                   ("empty_groups", 16), ("masked", 16), ("specials", 16), ("specials", 254))
+TD_SPECIALS = (math.nan, math.inf, -math.inf, 0.0, -0.0, 1e-40, -1e-41, 1.4e-45, 5e-324)
+
+
+def td_update_block(case: str, G: int, n: int, seed: int = 0):
+    """(gids int32, f64 values, mask) of a block of H7's edge case."""
+    rng = np.random.default_rng([seed, G, [c for c, _ in TD_UPDATE_CASES].index(case)])
+    gids = rng.integers(0, G, n)
+    mask = rng.random(n) < 0.9
+    vals = rng.exponential(3e7, n)
+    if case == "all_equal":
+        vals[:] = 12345.678
+    elif case == "two_values":
+        vals = rng.choice(np.array([250.0, 7.5e7]), n)
+    elif case == "single_row":
+        gids[gids == 3] = 4
+        gids[n // 2], mask[n // 2] = 3, True
+    elif case == "empty_groups":
+        gids[gids % 3 == 1] = 0
+    elif case == "masked":
+        gids = rng.integers(-2, G + 2, n)
+        mask = rng.random(n) < 0.6
+    elif case == "specials":
+        k = n // 8
+        vals[rng.choice(n, k, replace=False)] = rng.choice(np.array(TD_SPECIALS), k)
+    return gids.astype(np.int32), vals, mask
+
+
+def h7_check(kernels, tdigest, dev, g, v64, m, G: int, what: str,
+             C: int = 256) -> float:
+    """H7 over one block, its values as f64 and as f32, against the plain
+    sums over the sorted rows: weights bit for bit, value sums within 1e-12
+    * sum |v| (NaN and inf cells alike). Returns the largest |error| of a
+    finite value sum."""
+    v32 = v64.float()
+    g_s, v_s = tdigest._sorted_rows(g, v32, m, G)
+    want = tdigest._cluster_sums_plain(g_s, v_s, G, C)
+    scale = tdigest._cluster_sums_plain(g_s, v_s.abs(), G, C)[1]
+    worst = 0.0
+    for v in (v64, v32):
+        got = kernels.tdigest_update_sums(v, g, m, G, C)
+        nan, fin = torch.isnan(want[1]), torch.isfinite(want[1])
+        err = (got[1] - want[1]).abs()[fin]
+        torch.cuda.synchronize()
+        check(bits_equal(got[0], want[0]), f"H7 {what} {v.dtype}: weights differ from plain")
+        check(torch.equal(torch.isnan(got[1]), nan)
+              and torch.equal(got[1][~fin & ~nan], want[1][~fin & ~nan]),
+              f"H7 {what} {v.dtype}: NaN or inf cells differ")
+        check(bool(torch.all(err <= 1e-12 * scale[fin])), f"H7 {what} {v.dtype}: value sums")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+def device_ops(fn) -> dict:
+    """The device operations one call of ``fn`` runs (a warm call traced by
+    torch.profiler): kernels, and memsets and copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    other = [n for n in names if n.startswith(("Memset", "Memcpy"))]
+    return {"kernels": len(names) - len(other), "memsets_copies": len(other)}
+
+
+def h7_phase(kernels, tdigest, dev, rng, mask) -> dict:
+    """H7, the sort-free t-digest update of up to 254 groups: bit-equal
+    weights and value sums within 1e-12 * sum |v| at every edge block (2^16
+    and 2^21 + 3 rows) and at sketches' block (2^21 rows, 16 groups, f64
+    latency as the fold hands it over, the mask), timed there with its
+    phases' device times, the whole update (H7 and H8) against the
+    sorting one (H7a, torch.sort, H7b, H8) and each one's device operations."""
+    worst = 0.0
+    for case, G in TD_UPDATE_CASES:
+        for n in (1 << 16, (1 << 21) + 3):
+            gids, vals, m = td_update_block(case, G, n)
+            worst = max(worst, h7_check(
+                kernels, tdigest, dev, torch.from_numpy(gids).to(dev),
+                torch.from_numpy(vals).to(dev), torch.from_numpy(m).to(dev), G,
+                f"{case} G={G} n={n}"))
+    log(f"H7 tdigest_update edges ({len(TD_UPDATE_CASES)} cases at 2^16 and 2^21 + 3 rows, "
+        f"f64 and f32 values): weights bit for bit, value sums max |err| {worst:.3g}")
+    n, G, C = BLOCK_ROWS, N_SERVICES, tdigest.DEFAULT_CAPACITY
+    lat = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
+    g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+    err = h7_check(kernels, tdigest, dev, g, lat, mask, G, "sketches' block")
+    worst = max(worst, err)
+    rec = record(
+        lambda: kernels.tdigest_update_sums(lat, g, mask, G, C),
+        lambda: tdigest._cluster_sums_plain(*tdigest._sorted_rows(g, lat.float(), mask, G), G, C),
+        None,
+        # bytes: f64 values, gids and mask read once, the [2, G, C] sums
+        # written once; operations: a key a row and a cluster a rank (~40)
+        *bound(n * (8 + 4 + 1) + 2 * G * C * 8, 40 * n), worst,
+        f"values f64[{n}] G={G} C={C}, mask; max |err| over the edge blocks too",
+    )
+    stamps = torch.zeros(kernels.TD_STAMPS, dtype=torch.int64, device=dev)
+    for _ in range(3):
+        kernels.tdigest_update_sums(lat, g, mask, G, C, stamps=stamps)
+    torch.cuda.synchronize()
+    st = stamps.cpu().tolist()
+    names = ("pack+L1", "L1 flush", "L1 scan", "run starts", "L2 rows", "L2 bins", "L3 rows",
+             "L3 bins", "runs", "other rows", "partials")
+    rec["b_phases_us"] = {nm: (st[k + 1] - st[k]) / 1e3 for k, nm in enumerate(names)}
+    rec["b_slots"] = {"level2": st[14], "level3": st[15]}
+    state = tdigest.init(G, dev)
+
+    def before():  # the sorting update: H7a, torch.sort, H7b, H8
+        keys, counts = kernels.tdigest_pack(lat.to(torch.float32).contiguous(), g, mask, G)
+        sums = kernels.tdigest_cluster(torch.sort(keys).values, counts, G, C)
+        return kernels.tdigest_merge(state["means"], state["weights"], sums[0], sums[1], raw_b=True)
+
+    def after():
+        return tdigest.update(state, g, lat, mask)
+
+    rec["block_ops_before"], rec["block_ops_after"] = device_ops(before), device_ops(after)
+    rec["by_update_ms"] = {"before": time_ms(before), "after": time_ms(after)}
+    log(f"H7 tdigest_update {rec['shape']}: {rec['ms']:.5f} ms [bound {rec['bound_ms']:.5f}; "
+        f"plain {rec['plain_ms']:.5f}]; phases us {json.dumps(rec['b_phases_us'])}; slots "
+        f"{rec['b_slots']}; the whole update {rec['by_update_ms']['after']:.5f} ms against "
+        f"the sorting one's {rec['by_update_ms']['before']:.5f}; device operations a block "
+        f"{rec['block_ops_after']} against {rec['block_ops_before']}")
+    check(rec["block_ops_after"]["kernels"] + rec["block_ops_after"]["memsets_copies"]
+          < rec["block_ops_before"]["kernels"] + rec["block_ops_before"]["memsets_copies"],
+          "H7: no fewer device operations a block than H7a + torch.sort + H7b")
+    return rec
 
 
 def h7b_case(kernels, tdigest, dev, gids: np.ndarray, vals: np.ndarray, mask: np.ndarray,
@@ -2293,12 +2444,14 @@ def batch_kernel_phase(dev) -> dict:
     block of the service_stats table (16 groups; resp_status narrowed to
     uint16 at offset 200 as staging narrows it, f64 latency). H22 for B = 1,
     7 (the sum group's seven families: T = 1, an op-6 list of 2), 16 and 32
-    (T = 2 and 3 with an op-6 list of 1024), bit for bit; H23 for the shared
-    partials at the main path's shape (the 7 families' bits, no int row, one
-    f64 row, 16 groups) and at B = 16 with two int and two f64 rows, and for
-    the global-memory path at B = 32 and 4096 groups: integers exact, f64
-    sums within 1e-12 * sum |v|. Records: the main path's shapes (B = 7)."""
-    from pixie_tpu_torch.ops import batched, kernels
+    (T = 2 and 3 with an op-6 list of 1024), bit for bit; H23 over rows as
+    staged at the main path's shape (the 7 families' bits, no int row, one
+    f64 row, 16 groups: the slot lane, the same bits twice), at B = 16 with
+    two int rows (status narrowed, an int64 row) and two f64 rows (shared
+    partials) and at B = 32 and 4096 groups (global atomics): integers
+    exact, f64 sums within 1e-12 * sum |v|. Records: the main path's shapes
+    (B = 7)."""
+    from pixie_tpu_torch.ops import batched, kernels, segment
 
     rng = np.random.default_rng(24)
     n = BLOCK_ROWS
@@ -2341,21 +2494,29 @@ def batch_kernel_phase(dev) -> dict:
             records["pred_slot_masks"][f"by_shape_B{B}"] = {
                 k: rec[k] for k in ("ms", "plain_ms", "torch_tree_ms", "bound_ms")}
     lat = cols["latency"][0]
+    status = cols["resp_status"][0]
+    optin = kernels.smem_optin_bytes(dev)
     for B, R, F, S in ((7, 0, 1, N_SERVICES), (16, 2, 2, N_SERVICES), (32, 1, 1, 4096)):
         gids = torch.from_numpy(rng.integers(0, S, n).astype(np.int32)).to(dev)
         bits = bits7 if B == 7 else torch.from_numpy(
             rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(dev)
-        irows = torch.from_numpy(rng.integers(-(2**40), 2**40, (R, n))).to(dev)
-        frows = torch.stack([lat] + [lat * (f + 2) for f in range(F - 1)]) if F else \
-            torch.empty((0, n), dtype=torch.float64, device=dev)
+        # Rows as the fold stages them: resp_status narrowed to uint16 at
+        # offset 200, an int64 row; latency f64 and a second f64 row.
+        irows = [segment.Narrow(status, 200),
+                 torch.from_numpy(rng.integers(-(2**40), 2**40, n)).to(dev)][:R]
+        frows = [lat, lat * 2.0][:F]
         got_i, got_f = batched.batched_segment_sums(irows, frows, gids, bits, B, S)
+        again_f = batched.batched_segment_sums(irows, frows, gids, bits, B, S)[1]
         want_i, want_f = batched.batched_segment_sums_plain(irows, frows, gids, bits, B, S)
-        _, abs_f = batched.batched_segment_sums_plain(irows, frows.abs(), gids, bits, B, S)
+        _, abs_f = batched.batched_segment_sums_plain(irows, [f.abs() for f in frows], gids, bits,
+                                                      B, S)
+        lane, threads = kernels.h23_lane(B, R, F, S, optin)
         torch.cuda.synchronize()
         check(torch.equal(got_i, want_i), f"H23 B={B} S={S}: integer sums or presence differ")
         err = float((got_f - want_f).abs().max()) if F else 0.0
         check(bool(torch.all((got_f - want_f).abs() <= 1e-12 * abs_f)),
               f"H23 B={B} S={S}: f64 sums beyond 1e-12 * sum |v|")
+        check(lane != "slots" or bits_equal(again_f, got_f), f"H23 B={B} S={S}: not the same bits")
         # One index_add_ over slot-flattened ids s * S + g of the B-times
         # expanded first f64 row (rows outside a slot into a spare cell).
         slots = torch.arange(B, device=dev)[:, None]
@@ -2363,18 +2524,18 @@ def batch_kernel_phase(dev) -> dict:
         flat = torch.where(on, slots * S + gids[None, :].long(), B * S).reshape(-1)
         vals = frows[0].expand(B, n).reshape(-1)
         lib_out = torch.zeros(B * S + 1, dtype=torch.float64, device=dev)
-        shared = kernels.uses_shared("batched_segment_sums", dev, S, rows=B * (R + 1 + F))
+        row_bytes = sum(2 if isinstance(r, segment.Narrow) else 8 for r in irows) + 8 * F
         rec = record(
             lambda: batched.batched_segment_sums(irows, frows, gids, bits, B, S),
             lambda: batched.batched_segment_sums_plain(irows, frows, gids, bits, B, S),
             lambda: lib_out.index_add_(0, flat, vals),
-            *bound(n * (4 + 4 + 8 * (R + F)) + B * (R + 1 + F) * S * 8,
+            *bound(n * (4 + 4 + row_bytes) + B * (R + 1 + F) * S * 8,
                    int(on.sum()) * (R + 1 + F)),
-            err, f"{n} rows, B={B}, R={R}, F={F}, S={S}, "
-            f"{'shared partials' if shared else 'global atomics'}",
+            err, f"{n} rows, B={B}, R={R}, F={F}, S={S}, lane {lane}"
+            + (f" ({threads} threads)" if threads else ""),
         )
-        log(f"H23 batched_segment_sums B={B} R={R} F={F} S={S} "
-            f"({'shared' if shared else 'global'}): integers exact, f64 max abs err {err:.3g}; "
+        log(f"H23 batched_segment_sums B={B} R={R} F={F} S={S} ({lane}): integers exact, f64 max "
+            f"abs err {err:.3g}{', the same bits twice' if lane == 'slots' else ''}; "
             f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, index_add_ "
             f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f})")
         if B == 7:
@@ -5207,13 +5368,16 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
 # warm, flow_window (conn_flows) cold (the executor's caches dropped before
 # each query), the build of http_small_ring with resident ingest on (seconds
 # from create_table to stop(), the ring's window decodes included),
-# sketches_small (http_small) warm; "kernels": H2 and H7b and the calls
-# around them at their path shapes, as one median each. The
+# sketches_small (http_small), sketches_ring (http_small_ring, built with
+# resident ingest on), sketches_mesh4 (a 4-shard mesh of the card) warm,
+# shared_scan (three concurrent runs a turn: their walls); "kernels": the
+# t-digest update and H23 at their path shapes, as one median each. The
 # child runs the other tree's chip_smoke.py, so it calls only helpers that
 # tree has.
 AB_PATHS = ("service_stats", "sketches", "reservoir_latency", "flows", "flow_span",
             "reservoir_flows", "flow_window", "ring_build", "svc_let", "endpoint_load",
-            "path_embeddings", "mesh_d1", "sketches_small", "kernels")
+            "path_embeddings", "mesh_d1", "sketches_small", "sketches_ring", "sketches_mesh4",
+            "shared_scan", "kernels")
 AB_PATHS_CHILD = r"""
 import json, sys, time
 sys.path.insert(0, ".")
@@ -5233,12 +5397,20 @@ def warm(c, name, q, now_ns=None):
     if name in paths:
         timed(c, q, True, now_ns)
         out[name] = [timed(c, q, False, now_ns) for _ in range(reps)]
-if {"service_stats", "sketches", "reservoir_latency"} & set(paths):
-    c = cs.build_carnot(cs.http_events(1 << 26), 1 << 26, "cuda")
+if {"service_stats", "sketches", "reservoir_latency", "sketches_mesh4",
+        "shared_scan"} & set(paths):
+    data = cs.http_events(1 << 26)
+    c = cs.build_carnot(data, 1 << 26, "cuda")
     warm(c, "service_stats", cs.SERVICE_STATS)
     warm(c, "sketches", cs.SKETCHES)
     warm(c, "reservoir_latency", cs.RESERVOIR_LATENCY)
-    del c
+    if "sketches_mesh4" in paths:
+        m4 = cs.mesh_carnot(c, f"d:{cs.TREE_SHARDS}", cs.TREE_SHARDS)
+        warm(m4, "sketches_mesh4", cs.SKETCHES)
+        del m4
+    if "shared_scan" in paths:
+        out["shared_scan"] = [cs.shared_scan_path(c, data, False)["wall"] for _ in range(3)]
+    del c, data
 if {"svc_let", "endpoint_load", "path_embeddings"} & set(paths):
     c = cs.build_let_carnot(cs.let_events(cs.LET_ROWS), cs.LET_ROWS, "cuda")
     queries = cs.let_queries()
@@ -5268,46 +5440,35 @@ if "ring_build" in paths:
     flags.set("resident_ingest", True)
     c = Carnot(device_executor=DeviceExecutor(device="cuda", block_rows=cs.BLOCK_ROWS))
     out["ring_build"] = [cs.build_small_table(c, "http_small_ring", hs, cs.SMALL_ROWS)]
-if "sketches_small" in paths:
-    c, _ = cs.build_small_carnot(cs.http_small(cs.SMALL_ROWS), cs.SMALL_ROWS, "cuda")
+if {"sketches_small", "sketches_ring"} & set(paths):
+    hs = cs.http_small(cs.SMALL_ROWS)
+    c, _ = cs.build_small_carnot(hs, cs.SMALL_ROWS, "cuda")
     warm(c, "sketches_small", cs.SKETCHES.replace("'http_events'", "'http_small'"))
-    del c
+    if "sketches_ring" in paths:
+        from pixie_tpu_torch.utils import flags
+        flags.set("resident_ingest", True)
+        cs.build_small_table(c, "http_small_ring", hs, cs.SMALL_ROWS)
+        warm(c, "sketches_ring", cs.SKETCHES_RING)
+    del c, hs
 if "kernels" in paths:
-    # H2 and H7b through the calls both trees take, at their path shapes,
-    # each its own median of 30 calls: seg_sum of an f64 row (H2 and, in a
-    # tree that needs one, the output's fill) at S = 16 and config 10's 64;
-    # the variance and mean UDAs' own updates (the host AggNode's, in both
-    # trees a count and the f64 sums: endpoint_load's latency at 64 groups,
-    # 34 used; service_stats' bool predicate at 16); H7b over a block's
-    # sorted keys at 16 groups, and t-digest's whole update (H7a, the sort,
-    # H7b, H8).
+    # The t-digest update and H23 through the calls both trees take, at
+    # their path shapes, each its own median of 30 calls: t-digest's whole
+    # update at sketches' block (2^21 rows, 16 groups, f64 latency, a mask),
+    # and the batched fold's sums at shared_scan's (7 slots, one f64 row,
+    # 16 groups), over stacked rows as both trees take them.
     import numpy as np
-    from pixie_tpu_torch.ops import segment, tdigest
-    from pixie_tpu_torch.types import DataType
-    from pixie_tpu_torch.udf.registry import default_registry
+    from pixie_tpu_torch.ops import batched, tdigest
     rng, n, dev = np.random.default_rng(0), cs.BLOCK_ROWS, torch.device("cuda")
     mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
     lat = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
     g16 = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
-    g64 = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(dev)
-    g34 = torch.from_numpy(rng.integers(0, 34, n).astype(np.int32)).to(dev)
-    out["kernels:h2 S=16"] = [cs.time_ms(lambda: segment.seg_sum(lat, g16, 16, mask))]
-    out["kernels:h2 S=64"] = [cs.time_ms(lambda: segment.seg_sum(lat, g64, 64, mask))]
-    reg = default_registry()
-    var = reg.lookup_uda("variance", [DataType.FLOAT64])
-    mean = reg.lookup_uda("mean", [DataType.FLOAT64])
-    st_var, st_mean = var.init(64, dev), mean.init(16, dev)
-    fail = torch.from_numpy(rng.random(n) < 0.15).to(dev)
-    out["kernels:variance update S=64"] = [
-        cs.time_ms(lambda: var.update(st_var, g34, lat, mask=mask))]
-    out["kernels:mean(bool) update S=16"] = [
-        cs.time_ms(lambda: mean.update(st_mean, g16, fail, mask=mask))]
-    keys, counts = kernels.tdigest_pack(lat.float(), g16, mask, 16)
-    ks = torch.sort(keys).values
-    out["kernels:h7b G=16"] = [cs.time_ms(lambda: kernels.tdigest_cluster(ks, counts, 16, 256))]
+    bits = torch.from_numpy(rng.integers(0, 1 << 7, n).astype(np.int32)).to(dev)
     td = tdigest.init(16, dev)
     out["kernels:tdigest update G=16"] = [
         cs.time_ms(lambda: tdigest.update(td, g16, lat, mask))]
+    none = torch.empty((0, n), dtype=torch.int64, device=dev)
+    out["kernels:batched sums B=7 S=16"] = [
+        cs.time_ms(lambda: batched.batched_segment_sums(none, lat[None, :], g16, bits, 7, 16))]
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -5768,7 +5929,7 @@ def main() -> int:
             if r["bound_by"] == "bytes" else None,
             **{k: v for k, v in r.items()
                if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_", "sequence",
-                                "sort_ms"))},
+                                "sort_ms", "block_"))},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -14,10 +14,11 @@ block is read once for every slot:
 - ``slot_masks``: one uint32 of slot bits a row (bit s: the row passes the
   block mask and every term of slot s). H22 ``pred_slot_masks`` on a CUDA
   tensor, ``slot_masks_plain`` on a CPU one.
-- ``batched_segment_sums``: for every slot, the per-group sums of R int64
-  rows and F f64 rows over the rows whose bit s is set, plus the slot's
-  presence (its row count) per group. H23 ``batched_segment_sums`` on a
-  CUDA tensor, ``batched_segment_sums_plain`` on a CPU one.
+- ``batched_segment_sums``: for every slot, the per-group sums of R integer
+  rows and F f64 rows (each as the fold staged it) over the rows whose bit
+  s is set, plus the slot's presence (its row count) per group. H23
+  ``batched_segment_sums`` on a CUDA tensor, ``batched_segment_sums_plain``
+  on a CPU one.
 
 The plain versions are the serial fold's own reductions applied slot by
 slot (``segment_rows_sum_i64_plain`` and ``segment_sum_f64_plain`` under
@@ -32,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pixie_tpu_torch.ops import kernels
+from pixie_tpu_torch.ops import kernels, segment
 from pixie_tpu_torch.ops.segment import segment_rows_sum_i64_plain, segment_sum_f64_plain
 
 # H22's limits: a row's slot bits are one uint32; a slot's terms and the
@@ -211,18 +212,32 @@ def slot_masks(
     return slot_masks_plain(cols, offsets, base, table)
 
 
+def _stack(rows, dtype: torch.dtype, n: int, device) -> torch.Tensor:
+    """[R, n] of ``dtype``: a tensor of rows as it is, or each staged row (a
+    tensor or a ``segment.Narrow``) widened (its value plus its offset)."""
+    if isinstance(rows, torch.Tensor):
+        return rows
+    rows = list(rows)
+    if not rows:
+        return torch.empty((0, n), dtype=dtype, device=device)
+    return torch.stack([segment.widen(r).to(dtype) for r in rows])
+
+
 def batched_segment_sums_plain(
-    irows: torch.Tensor, frows: torch.Tensor, gids: torch.Tensor, bits: torch.Tensor,
-    B: int, num_segments: int,
+    irows, frows, gids: torch.Tensor, bits: torch.Tensor, B: int, num_segments: int,
 ) -> tuple:
     """Plain version of H23: (int64 [B, R + 1, S], f64 [B, F, S]). For slot
-    s: row r < R of the int64 block is ``irows[r]``'s per-segment sum over
+    s: row r < R of the int64 block is integer row r's per-segment sum over
     the rows whose bit s is set (mod 2^64), row R their count; the f64
-    block holds ``frows``' sums. Each slot is the serial reductions under
-    the slot's mask."""
+    block holds the f64 rows' sums. ``irows`` and ``frows`` as
+    ``batched_segment_sums`` takes them, widened. Each slot is the serial
+    reductions under the slot's mask."""
+    n, device = gids.shape[0], gids.device
+    irows = _stack(irows, torch.int64, n, device)
+    frows = _stack(frows, torch.float64, n, device)
     R, F = irows.shape[0], frows.shape[0]
-    out_i = torch.zeros((B, R + 1, num_segments), dtype=torch.int64, device=gids.device)
-    out_f = torch.zeros((B, F, num_segments), dtype=torch.float64, device=gids.device)
+    out_i = torch.zeros((B, R + 1, num_segments), dtype=torch.int64, device=device)
+    out_f = torch.zeros((B, F, num_segments), dtype=torch.float64, device=device)
     for s in range(B):
         m = slot_mask(bits, s)
         out_i[s] = segment_rows_sum_i64_plain(irows, gids, m, num_segments)
@@ -231,18 +246,38 @@ def batched_segment_sums_plain(
     return out_i, out_f
 
 
+def _staged_pairs(rows, kinds, wide: torch.dtype) -> list:
+    """(tensor, offset) of each row as H23 reads it: a tensor of rows by
+    rows; a ``segment.Narrow`` as it lies with its offset; a dtype H23 does
+    not read as ``wide``."""
+    pairs = []
+    for r in rows:
+        if isinstance(r, segment.Narrow):
+            pairs.append((r.values.contiguous(), r.offset))
+        elif r.dtype in kinds:
+            pairs.append((r.contiguous(), 0))
+        else:
+            pairs.append((r.to(wide).contiguous(), 0))
+    return pairs
+
+
 def batched_segment_sums(
-    irows: torch.Tensor, frows: torch.Tensor, gids: torch.Tensor, bits: torch.Tensor,
-    B: int, num_segments: int,
+    irows, frows, gids: torch.Tensor, bits: torch.Tensor, B: int, num_segments: int,
 ) -> tuple:
     """(int64 [B, R + 1, S], f64 [B, F, S]): the sum family of B slots in
-    one pass over the rows (``batched_segment_sums_plain``'s contract; on
-    the card the f64 sums add in a non-deterministic order). H23 on CUDA."""
+    one pass over the rows (``batched_segment_sums_plain``'s contract).
+    ``irows``: integer rows, an int64 [R, n] tensor or R staged rows (an
+    integer or bool tensor, or a ``segment.Narrow``); ``frows``: f64 rows,
+    an f64 [F, n] tensor or F rows (f64, or an integer, bool or narrowed
+    row summed as f64). H23 on CUDA reads each row where it lies; in its
+    slot lane (``kernels.h23_lane``) the f64 sums are the same bits every
+    run."""
     gids = gids.to(torch.int32)
     if gids.is_cuda:
         return kernels.batched_segment_sums(
-            irows.contiguous(), frows.contiguous(), gids.contiguous(), bits.contiguous(),
-            B, num_segments,
+            _staged_pairs(irows, kernels.SUM_ROW_KINDS, torch.int64),
+            _staged_pairs(frows, kernels.H2_KINDS, torch.float64),
+            gids.contiguous(), bits.contiguous(), B, num_segments,
         )
     return batched_segment_sums_plain(irows, frows, gids, bits, B, num_segments)
 

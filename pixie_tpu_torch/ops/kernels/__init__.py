@@ -2,7 +2,9 @@
 
 ``hopper_kernels.cu`` holds the CUDA C++ kernels of the sum and
 log-histogram fold (H1-H4), ``sketch_kernels.cu`` those of the sketches
-(the hash kernel and H5-H10), ``minmax_kernels.cu`` the segment min/max
+(the hash kernel and H5-H10; H7a and H7b the t-digest's sorting update of
+more than 254 groups), ``tdigest_kernels.cu`` the t-digest's block update
+without a sort (H7, up to 254 groups), ``minmax_kernels.cu`` the segment min/max
 (H11), ``scan_kernels.cu`` the scan's stream compaction (H12) and
 ``join_kernels.cu`` the sort-merge join's probe, pair emission and gathers
 (H13-H15), ``join_agg_kernels.cu`` the join-aggregate lane's weighted
@@ -62,6 +64,7 @@ KERNELS = (
     "hash32",
     "hll_update",
     "countmin_update",
+    "tdigest_update",
     "tdigest_pack",
     "tdigest_cluster",
     "tdigest_merge",
@@ -100,7 +103,7 @@ SOURCES = (
     "hopper_kernels.cu", "sketch_kernels.cu", "minmax_kernels.cu", "scan_kernels.cu",
     "join_kernels.cu", "join_agg_kernels.cu", "scalar_kernels.cu", "codec_kernels.cu",
     "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu", "ml_kernels.cu",
-    "transformer_kernels.cu", "merge_kernels.cu", "hash_kernels.cu",
+    "transformer_kernels.cu", "merge_kernels.cu", "hash_kernels.cu", "tdigest_kernels.cu",
 )
 HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh", "rows.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
@@ -126,6 +129,9 @@ _SIGNATURES = {
     "px_hash32": (_P, _LL, ctypes.c_uint, _I, _P, _P),
     "px_hll_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _P, _I, _P),
     "px_countmin_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
+    "px_tdigest_update": (
+        _P, _I, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _LL, _P, _P, _P,
+    ),
     "px_tdigest_pack": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _P, _P),
     "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
@@ -146,7 +152,9 @@ _SIGNATURES = {
     "px_pred_slot_masks": (
         _P, _P, _P, _I, _P, _LL, _P, _I, _I, _P, ctypes.c_uint, _P, _P,
     ),
-    "px_batched_segment_sums": (_P, _I, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _P),
+    "px_batched_segment_sums": (
+        _P, _P, _P, _I, _P, _P, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+    ),
     "px_ring_convert": (_P, _I, _P, _I, _I, _LL, _P, _I, _LL, _P),
     "px_reservoir_priority": (_P, _LL, _P, _P, _P, _P),
     "px_reservoir_topk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
@@ -313,17 +321,12 @@ def _gids_mask(gids, mask, n, device):
     return mask
 
 
-def uses_shared(
-    kernel: str, device: torch.device, num_segments: int, rows: int = 0, nbins: int = 0
-) -> bool:
+def uses_shared(kernel: str, device: torch.device, num_segments: int, nbins: int) -> bool:
     """Whether ``kernel``'s per-CTA partial fits ``device``'s opt-in shared
     memory."""
-    if kernel == "log_histogram_update":
-        nbytes = num_segments * nbins * 4
-    elif kernel == "batched_segment_sums":
-        nbytes = rows * num_segments * 8  # rows: B * ((R + 1) + F)
-    else:
+    if kernel != "log_histogram_update":
         raise ValueError(kernel)
+    nbytes = num_segments * nbins * 4
     return nbytes <= smem_optin_bytes(device)
 
 
@@ -755,6 +758,109 @@ def countmin_query(state: torch.Tensor, gids: torch.Tensor, words: torch.Tensor)
 
 
 PACK_MAX_GROUP_BITS = 8
+TD_UPDATE_MAX_G = 254  # the packed lane: G + 1 fits PACK_MAX_GROUP_BITS key bits
+TD_L1_MAX_CELLS = 40960  # level-1 counts a CTA's shared memory holds (160 KB)
+TD_BITMAP_WORDS = 8192  # shared words for the level-2 bitmap: 1024 slots of 2^8 bins
+TD_SHARED_BYTES = 64 * 1024  # the final pass's value sums in shared memory, at most
+
+
+def td_levels(num_groups: int) -> tuple[int, int, int]:
+    """(b1, b2, b3): the bits of a packed key (32 - bits_g of them) that each
+    level of H7's select resolves: level 1 as many as leave 16 while G << b1
+    counts fit TD_L1_MAX_CELLS, level 2 eight, level 3 the rest."""
+    bits_g = max((num_groups + 1).bit_length(), 1)
+    W = 32 - bits_g
+    b1 = W - 16
+    while (num_groups << b1) > TD_L1_MAX_CELLS:
+        b1 -= 1
+    return b1, 8, W - b1 - 8
+
+
+def tdigest_update_scratch_words(n: int, G: int, C: int, levels: tuple, grid: int,
+                                 shared_sums: bool) -> int:
+    """The u32 words of H7's scratch (tdigest_kernels.cu scratch_words:
+    each array on a 16-byte boundary; level 2's slots min(2^b1, C) a group,
+    level 3's C)."""
+    b1, b2, b3 = levels
+    up4 = lambda w: -(-w // 4) * 4  # noqa: E731
+    L1, R, S1 = G << b1, up4(G * C), G * min(1 << b1, C)
+    w = up4(2 * grid * G * C if shared_sums else 0) + up4(n) + 2 * L1 + up4(G) + 4
+    w += 3 * 32 * G + 9 * R
+    return w + 2 * (S1 << b2) + up4((S1 << b2) // 32) + (R << b3)
+
+
+# H7's grid barriers, by (device index, stream): two u32 (arrivals,
+# generation), zero before the first launch, left with no arrivals.
+_td_bars: dict[tuple, torch.Tensor] = {}
+
+
+def _td_bar(device: torch.device) -> torch.Tensor:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(device).cuda_stream)
+    bar = _td_bars.get(key)
+    if bar is None:
+        with _lock:
+            bar = _td_bars.setdefault(key, torch.zeros(2, dtype=torch.int32, device=device))
+    return bar
+
+
+TD_STAMPS = 16  # the stamps px_tdigest_update writes
+
+
+def tdigest_update_sums(
+    values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    num_groups: int, capacity: int, stamps: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """H7: f64 [2, G, C] per-(group, cluster) row counts and value sums of a
+    block, the rows in their (group, value) order without a sort: the
+    values (f32, or f64 rounded to f32) packed with their groups as H7a
+    packs them (masked rows and gids outside [0, G) left out), each group's
+    keys selected at the ranks where the cluster changes (``td_levels``),
+    and the sums added up from those keys. One cooperative launch for up to
+    TD_UPDATE_MAX_G groups; a cluster that comes back traps. ``stamps``:
+    None, or int64 [TD_STAMPS] on the device for the device clock (ns) at
+    the end of each phase (0: the start, 11: the end; entries 14 and 15 the
+    level-2 and level-3 bins that held a run start)."""
+    device = gids.device
+    if values.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"values has dtype {values.dtype}, expected float32 or float64")
+    _require(values, "values", values.dtype, device, 1)
+    n = values.shape[0]
+    mask = _gids_mask(gids, mask, n, device)
+    G, C = num_groups, capacity
+    if not 1 <= G <= TD_UPDATE_MAX_G or C < 1:
+        raise ValueError(f"H7 takes 1 to {TD_UPDATE_MAX_G} groups, got G={G}, C={C}")
+    if n >= 1 << 31:
+        raise ValueError(f"H7 takes fewer than 2^31 rows, got {n}")
+    if stamps is not None:
+        _require(stamps, "stamps", torch.int64, device, 1)
+        if stamps.shape[0] < TD_STAMPS:
+            raise ValueError(f"stamps has {stamps.shape[0]} entries, expected {TD_STAMPS}")
+    if n == 0:
+        return torch.zeros((2, G, C), dtype=torch.float64, device=device)
+    bits_g = max((G + 1).bit_length(), 1)
+    levels = td_levels(G)
+    R, L1 = G * C, G << levels[0]
+    shared_sums = R * 8 <= TD_SHARED_BYTES
+    # Level 1's counts, later its slots and the bitmap of level 2's bins
+    # (TD_BITMAP_WORDS, while it fits); a group's runs; the final pass's sums.
+    region = max(L1 + TD_BITMAP_WORDS, 10 * C, 2 * R if shared_sums else 0)
+    smem = 4 * (region + 3 * G + 67)  # then the starts, the counts, the scans
+    if smem > smem_optin_bytes(device):
+        raise ValueError(f"H7 needs {smem} B of shared memory at G={G}, C={C}")
+    grid = sm_count(device)
+    words = tdigest_update_scratch_words(n, G, C, levels, grid, shared_sums)
+    scratch = torch.empty(words, dtype=torch.int32, device=device)
+    sums = torch.empty((2, G, C), dtype=torch.float64, device=device)
+    _launch(
+        "tdigest_update", device,
+        values.data_ptr(), int(values.dtype == torch.float64), n, gids.data_ptr(),
+        mask.data_ptr() if mask is not None else None, G, C, bits_g, *levels,
+        int(shared_sums), region, smem, grid, sums.data_ptr(),
+        scratch.data_ptr(), words, _td_bar(device).data_ptr(),
+        stamps.data_ptr() if stamps is not None else None,
+    )
+    return sums
 
 
 def tdigest_pack(
@@ -1414,35 +1520,116 @@ def pred_slot_masks(
     return out
 
 
+H23_MAX_ROWS = 16  # kSumMaxRows of batch_kernels.cu: integer rows, and f64 rows, a launch
+H23_THREADS = 512  # kSumThreads
+H23_STAGE = 256  # kSumStage: rows a warp stages
+H23_SLOT_MAX_S = 64  # kSumSlotMaxS
+H23_MIN_WARPS = 4  # the slot lane's fewest warps a CTA
+# The slot lane's most slots: a lane walks its bucket once a slot, so its
+# cost grows with B; at B = 16, R = F = 2, S = 16 it took 0.437 ms against
+# the shared lane's 0.29 (NVIDIA H100 80GB HBM3, PERF.md section 6).
+H23_SLOT_MAX_B = 8
+H23_LANES = ("slots", "shared", "global")
+
+
+def h23_warp_bytes(B: int, R: int, F: int, S: int) -> int:
+    """Shared bytes a warp of H23's slot lane takes: its staged rows (slot
+    bits and R + F values), its lanes' sums of their (slot, gid) pairs
+    (R + 1 + F each) and its bucket counts."""
+    pairs_a_lane = -(-B * S // 32)
+    return 8 * (H23_STAGE * (1 + R + F) + pairs_a_lane * (R + 1 + F) * 32 + (S + 2) // 2)
+
+
+def h23_lane(B: int, R: int, F: int, S: int, optin: int) -> tuple[str, int]:
+    """H23's lane for B slots of R integer and F f64 rows over S groups,
+    and its threads a CTA: ("slots", threads) up to H23_SLOT_MAX_B slots and
+    H23_SLOT_MAX_S groups while H23_MIN_WARPS warps' ``h23_warp_bytes`` fit
+    ``optin`` bytes of shared memory (up to 16 warps); else ("shared", 0)
+    while one CTA's [B, R + 1 + F, S] partial fits; else ("global", 0)."""
+    warps = min(H23_THREADS // 32, optin // h23_warp_bytes(B, R, F, S))
+    if B <= H23_SLOT_MAX_B and S <= H23_SLOT_MAX_S and warps >= H23_MIN_WARPS:
+        return "slots", 32 * warps
+    if 8 * B * (R + 1 + F) * S <= optin:
+        return "shared", 0
+    return "global", 0
+
+
+def _h23_specs(rows, kinds: dict, what: str, n: int, device) -> list:
+    specs = []
+    for i, (t, off) in enumerate(rows):
+        if t.dtype not in kinds:
+            raise TypeError(f"{what}[{i}] has dtype {t.dtype}, expected one of {list(kinds)}")
+        _require(t, f"{what}[{i}]", t.dtype, device, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"{what}[{i}] has {t.shape[0]} rows, expected {n}")
+        specs.append((t.data_ptr(), kinds[t.dtype], _i64(off)))
+    return specs
+
+
+def _c_array(ctype, values: list):
+    return ctypes.cast((ctype * max(len(values), 1))(*values), ctypes.c_void_p)
+
+
 def batched_segment_sums(
-    irows: torch.Tensor, frows: torch.Tensor, gids: torch.Tensor, bits: torch.Tensor,
-    B: int, num_segments: int,
+    irows, frows, gids: torch.Tensor, bits: torch.Tensor, B: int, num_segments: int,
 ) -> tuple:
     """H23: (int64 [B, R + 1, S], f64 [B, F, S]). Every row i with a gid in
-    [0, S) adds, for each set bit s of bits[i] (s < B), irows[r, i] into
-    [s, r, g] (wrapping, exact mod 2^64), one into [s, R, g] and frows[f, i]
-    into the f64 [s, f, g]. ``irows`` int64 [R, n], ``frows`` f64 [F, n],
-    ``gids`` and ``bits`` int32 [n]."""
+    [0, S) adds, for each set bit s of bits[i] (s < B), its value of integer
+    row r into [s, r, g] (wrapping, exact mod 2^64), one into [s, R, g] and
+    its value of f64 row f into [s, f, g]. ``irows``: R pairs (tensor,
+    offset), each [n] of bool, uint8, uint16, int32 or int64 read as it
+    lies, every value plus ``offset``; ``frows``: F pairs (tensor, offset),
+    f64 or one of those integer dtypes (its value plus ``offset`` rounded to
+    f64); ``gids`` and ``bits`` int32 [n]. The lane of ``h23_lane``; one
+    launch count per launch (one a block up to H23_MAX_ROWS rows of each)."""
     device = gids.device
-    _require(irows, "irows", torch.int64, device, 2)
-    _require(frows, "frows", torch.float64, device, 2)
+    irows, frows = list(irows), list(frows)
     _require(bits, "bits", torch.int32, device, 1)
-    R, n = irows.shape
-    F = frows.shape[0]
-    if frows.shape[1] != n or bits.shape[0] != n:
-        raise ValueError("batched_segment_sums: irows, frows and bits need the same rows")
+    n = gids.shape[0]
+    if bits.shape[0] != n:
+        raise ValueError("batched_segment_sums: gids and bits need the same rows")
     _gids_mask(gids, None, n, device)
     if not 1 <= B <= PRED_MAX_SLOTS:
         raise ValueError(f"batched_segment_sums: B {B} must be in [1, {PRED_MAX_SLOTS}]")
-    out_i = torch.zeros((B, R + 1, num_segments), dtype=torch.int64, device=device)
-    out_f = torch.zeros((B, F, num_segments), dtype=torch.float64, device=device)
-    if n == 0 or num_segments == 0:
-        return out_i, out_f
-    shared = uses_shared("batched_segment_sums", device, num_segments, rows=B * (R + 1 + F))
+    S, R, F = num_segments, len(irows), len(frows)
+    if R > H23_MAX_ROWS or F > H23_MAX_ROWS:  # a launch for each H23_MAX_ROWS rows of each
+        parts = [batched_segment_sums(irows[k:k + H23_MAX_ROWS], frows[k:k + H23_MAX_ROWS],
+                                      gids, bits, B, S)
+                 for k in range(0, max(R, F), H23_MAX_ROWS)]
+        return (torch.cat([p[0][:, :-1] for p in parts] + [parts[0][0][:, -1:]], dim=1),
+                torch.cat([p[1] for p in parts], dim=1))
+    ispecs = _h23_specs(irows, SUM_ROW_KINDS, "irows", n, device)
+    fspecs = _h23_specs(frows, H2_KINDS, "frows", n, device)
+    if n == 0 or S == 0:
+        return (torch.zeros((B, R + 1, S), dtype=torch.int64, device=device),
+                torch.zeros((B, F, S), dtype=torch.float64, device=device))
+    if n >= 1 << 31:
+        raise ValueError(f"H23 takes fewer than 2^31 rows, got {n}")
+    lane, threads = h23_lane(B, R, F, S, smem_optin_bytes(device))
+    ci, cf = B * (R + 1) * S, B * F * S
+    grid = partials = ticket = None
+    if lane == "slots":  # the outputs, then the CTAs' partials, in one buffer
+        per_sm = 2 if threads // 32 * h23_warp_bytes(B, R, F, S) <= 100 * 1024 else 1
+        tiles = -(-n // H23_STAGE)
+        grid = max(1, min(-(-tiles // (threads // 32)), sm_count(device) * per_sm))
+        buf = torch.empty(ci + cf + grid * (ci + cf), dtype=torch.int64, device=device)
+        out_i = buf[:ci].view(B, R + 1, S)
+        out_f = buf[ci:ci + cf].view(torch.float64).view(B, F, S)
+        partials, ticket = buf.data_ptr() + 8 * (ci + cf), _h2_ticket(device).data_ptr()
+    else:
+        out_i = torch.zeros((B, R + 1, S), dtype=torch.int64, device=device)
+        out_f = torch.zeros((B, F, S), dtype=torch.float64, device=device)
     _launch(
         "batched_segment_sums", device,
-        irows.data_ptr(), R, frows.data_ptr(), F, n, gids.data_ptr(), bits.data_ptr(), B,
-        num_segments, out_i.data_ptr(), out_f.data_ptr(), int(shared),
+        _c_array(ctypes.c_void_p, [p for p, _, _ in ispecs]),
+        _c_array(ctypes.c_int, [k for _, k, _ in ispecs]),
+        _c_array(ctypes.c_longlong, [o for _, _, o in ispecs]), R,
+        _c_array(ctypes.c_void_p, [p for p, _, _ in fspecs]),
+        _c_array(ctypes.c_int, [k for _, k, _ in fspecs]),
+        _c_array(ctypes.c_longlong, [o for _, _, o in fspecs]), F,
+        n, gids.data_ptr(), bits.data_ptr(), B, S, out_i.data_ptr(), out_f.data_ptr(),
+        H23_LANES.index(lane), threads or H23_THREADS, grid or 0,
+        partials, ticket,
     )
     return out_i, out_f
 

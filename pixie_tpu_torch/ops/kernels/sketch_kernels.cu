@@ -17,6 +17,8 @@
 //    update (:78); the sort between H7a and H7b is torch.sort.
 // H7b px_tdigest_cluster     replaces the rank, k1 cluster and per-cluster
 //    sums of pixie_tpu/ops/tdigest.py update (:78).
+//    H7a and H7b update more than 254 groups (int64 keys); H7
+//    (tdigest_kernels.cu) updates up to 254 without a sort.
 // H8  px_tdigest_merge       replaces pixie_tpu/ops/tdigest.py merge (:133).
 // H9  px_tdigest_quantiles   replaces pixie_tpu/ops/tdigest.py
 //    quantile_values (:163).

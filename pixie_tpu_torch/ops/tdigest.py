@@ -9,10 +9,13 @@ the state: concatenate, stable-sort each group's centroids by mean (empty
 ones last), and recompress by the cluster ids of the cumulative weights'
 midpoints.
 
-On CUDA tensors ``update`` runs H7a (pack each row's sort key, count rows
-per group), ``torch.sort`` of the keys, H7b (rank, cluster and per-cluster
-sums over the sorted keys) and H8 (the merge); ``merge`` is H8 and
-``quantile_values`` H9. On CPU tensors the plain versions below run.
+On CUDA tensors ``update`` runs H7 (up to 254 groups: the block's
+per-cluster sums without a sort, from each group's keys selected at the
+ranks where the cluster changes) and H8 (the merge); above 254 groups H7a
+(pack each row's sort key, count rows per group), ``torch.sort`` of the
+keys and H7b (rank, cluster and per-cluster sums over the sorted keys)
+take H7's place. ``merge`` is H8 and ``quantile_values`` H9. On CPU
+tensors the plain versions below run.
 
 The arithmetic of ranks, mid-quantiles and cluster ids is the reference's
 float32 arithmetic, step by step. Its ``arcsin`` is not: XLA-CPU, PyTorch
@@ -149,13 +152,17 @@ def update(state: dict, gids, values, mask: Optional[torch.Tensor] = None) -> di
     if not state["means"].is_cuda:
         return update_plain(state, gids, values, mask)
     num_groups, capacity = state["means"].shape
-    keys, counts = kernels.tdigest_pack(
-        values.to(_F32).contiguous(), gids.to(torch.int32).contiguous(), mask, num_groups
-    )
-    # A library sort, as the reference's jnp.sort; the packed keys are
-    # stored with the sign bit flipped, so a signed sort orders them as u32.
-    keys = torch.sort(keys).values
-    sums = kernels.tdigest_cluster(keys, counts, num_groups, capacity)
+    gids = gids.to(torch.int32).contiguous()
+    if num_groups <= kernels.TD_UPDATE_MAX_G:
+        if values.dtype not in (torch.float32, torch.float64):
+            values = values.to(_F32)
+        sums = kernels.tdigest_update_sums(values.contiguous(), gids, mask, num_groups, capacity)
+    else:
+        keys, counts = kernels.tdigest_pack(values.to(_F32).contiguous(), gids, mask, num_groups)
+        # A library sort, as the reference's jnp.sort, of int64 (group << 32
+        # | order key) keys.
+        keys = torch.sort(keys).values
+        sums = kernels.tdigest_cluster(keys, counts, num_groups, capacity)
     return kernels.tdigest_merge(
         state["means"], state["weights"], sums[0], sums[1], raw_b=True
     )

@@ -3071,7 +3071,8 @@ class DeviceExecutor:
         adds the sum family of every slot (count and mean's count are the
         slot's presence, integer sums, f64 sums and mean's sums), and every
         other UDA and the cell lane's histogram update once per slot under
-        that slot's mask, read from the bits.
+        that slot's mask, read from the bits. H23 reads every row as the fold
+        staged it (a narrowed argument as a ``segment.Narrow``).
 
         ``staged`` is one shard (``StagedColumns.shard``) and ``aux`` on its
         device. Returns (body, hist_cols), hist_cols {column: C} of the
@@ -3135,10 +3136,15 @@ class DeviceExecutor:
         staged_args = self._staged_args(specs, program, staged, cell)
         keep = frozenset(staged_args.values())
 
-        def body(carry: dict, blk: int, gid_base: int) -> None:
+        def staged_prologue(blk: int, gid_base: int) -> tuple:
+            """``prologue`` with the staged arguments as ``segment.Narrow``."""
             vals, mask, gids = prologue(blk, gid_base, keep)
             for out, col in staged_args.items():
                 vals[f"arg:{out}"] = segment.Narrow(vals[f"arg:{out}"], staged.narrow_offsets[col])
+            return vals, mask, gids
+
+        def body(carry: dict, blk: int, gid_base: int) -> None:
+            vals, mask, gids = staged_prologue(blk, gid_base)
             rows, frows = [], []
             fused: dict[str, tuple[int, int]] = {}
             moment: dict[str, list] = {}  # out: [(is an f64 row, its index)]
@@ -3185,23 +3191,18 @@ class DeviceExecutor:
         per_slot = bool(hist_cols) or len(lanes) < len(specs)
 
         def batched_body(carries: list, blk: int, gid_base: int) -> None:
-            vals, base, gids = prologue(blk, gid_base)
+            vals, base, gids = staged_prologue(blk, gid_base)
             cols, offsets = batched.term_columns(staged, pred_batch, blk)
             bits = batched.slot_masks(cols, offsets, base, pred_batch)
             irows, frows, where = [], [], {}
-            for out, lane in lanes.items():
+            for out, lane in lanes.items():  # every row as staged (H23 reads it so)
                 if lane == "sum_i":
                     where[out] = len(irows)
-                    irows.append(vals[f"arg:{out}"].to(torch.int64))
+                    irows.append(vals[f"arg:{out}"])
                 elif lane in ("sum_f", "mean"):
                     where[out] = len(frows)
-                    frows.append(vals[f"arg:{out}"].to(torch.float64))
-            n, dev = base.shape[0], base.device
-            ti, tf = batched.batched_segment_sums(
-                torch.stack(irows) if irows else torch.empty((0, n), dtype=torch.int64, device=dev),
-                torch.stack(frows) if frows else torch.empty((0, n), dtype=torch.float64, device=dev),
-                gids, bits, len(carries), capacity,
-            )
+                    frows.append(vals[f"arg:{out}"])
+            ti, tf = batched.batched_segment_sums(irows, frows, gids, bits, len(carries), capacity)
             R = len(irows)
             for s, carry in enumerate(carries):
                 presence = ti[s, R]

@@ -585,6 +585,77 @@ def test_tdigest_cluster_edges_on_card(case):
     check_tdigest_cluster(dev, gids, vals, mask, G, case)
 
 
+# H7, the sort-free t-digest update, at its edges: every value equal, two
+# values, a group of one row, empty groups, masked rows and gids out of
+# range, NaN, +-inf, +-0 and subnormals, G = 1, 16 and 254, and
+# exponential(3e7) latencies; against the plain version's sums over the
+# sorted rows: the weights bit for bit, the value sums within 1e-12 * sum
+# |v| (NaN where the plain version has NaN). The CPU tests hold a
+# step-by-step model of H7 against the same plain sums
+# (tests/test_torch_sketches.py).
+TD_UPDATE_CASES = [("exponential", 1), ("exponential", 16), ("exponential", 254),
+                   ("all_equal", 16), ("two_values", 16), ("single_row", 16),
+                   ("empty_groups", 16), ("masked", 16), ("specials", 16), ("specials", 254)]
+TD_SPECIALS = [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-41, 1.4e-45, 5e-324]
+
+
+def td_update_inputs(case: str, G: int, n: int = 1 << 16, seed: int = 0):
+    """(gids int32, f64 values, mask) of a block of H7's edge case."""
+    rng = np.random.default_rng([seed, G, [c for c, _ in TD_UPDATE_CASES].index(case)])
+    gids = rng.integers(0, G, n)
+    mask = rng.random(n) < 0.9
+    vals = rng.exponential(3e7, n)
+    if case == "all_equal":
+        vals[:] = 12345.678
+    elif case == "two_values":
+        vals = rng.choice(np.array([250.0, 7.5e7]), n)
+    elif case == "single_row":
+        gids[gids == 3] = 4
+        gids[n // 2], mask[n // 2] = 3, True
+    elif case == "empty_groups":
+        gids[gids % 3 == 1] = 0
+    elif case == "masked":
+        gids = rng.integers(-2, G + 2, n)
+        mask = rng.random(n) < 0.6
+    elif case == "specials":
+        k = n // 8
+        vals[rng.choice(n, k, replace=False)] = rng.choice(np.array(TD_SPECIALS), k)
+    return gids.astype(np.int32), vals, mask
+
+
+def check_tdigest_update(dev, gids: np.ndarray, vals: np.ndarray, mask: np.ndarray, G: int,
+                         what, C: int = tdigest.DEFAULT_CAPACITY) -> float:
+    """H7 over one block, its values as f64 and as f32, against the plain
+    sums; returns the largest |error| of a finite value sum."""
+    g = torch.from_numpy(gids).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    v32 = torch.from_numpy(vals.astype(np.float32)).to(dev)
+    g_s, v_s = tdigest._sorted_rows(g, v32, m, G)
+    want = tdigest._cluster_sums_plain(g_s, v_s, G, C)
+    scale = tdigest._cluster_sums_plain(g_s, v_s.abs(), G, C)[1]
+    worst = 0.0
+    for v in (torch.from_numpy(vals).to(dev), v32):
+        got = kernels.tdigest_update_sums(v, g, m, G, C)
+        assert bits_equal(got[0], want[0]), (what, v.dtype, "weights")
+        nan = torch.isnan(want[1])
+        assert torch.equal(torch.isnan(got[1]), nan), (what, v.dtype, "NaN cells")
+        fin = torch.isfinite(want[1])
+        assert torch.equal(got[1][~fin & ~nan], want[1][~fin & ~nan]), (what, "inf cells")
+        err = (got[1] - want[1]).abs()[fin]
+        assert bool(torch.all(err <= 1e-12 * scale[fin])), (what, v.dtype, "value sums")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,G", TD_UPDATE_CASES)
+def test_tdigest_update_edges_on_card(case, G):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    for n in (1 << 16, (1 << 21) + 3):
+        check_tdigest_update(dev, *td_update_inputs(case, G, n), G, (case, G, n))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", EDGE_ROWS)
 def test_hll_update_edges_on_card(n):
@@ -1185,8 +1256,11 @@ def check_batch_kernels(dev: torch.device) -> None:
     bits = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32))
     irows = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, (2, n), dtype=np.int64))
     frows = torch.from_numpy(rng.exponential(3e7, (2, n)))
-    for B, S in ((16, 16), (32, 4096)):  # shared partials, then the global path
-        assert kernels.uses_shared("batched_segment_sums", dev, S, rows=B * 5) == (S == 16)
+    optin = kernels.smem_optin_bytes(dev)
+    # the slot lane, shared partials, then the global path
+    for B, S, lane in ((2, 16, "slots"), (8, 64, "slots"), (16, 16, "shared"),
+                       (32, 4096, "global")):
+        assert kernels.h23_lane(B, 2, 2, S, optin)[0] == lane
         gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32))
         want_i, want_f = batched.batched_segment_sums_plain(irows, frows, gids, bits, B, S)
         got_i, got_f = batched.batched_segment_sums(
@@ -1194,6 +1268,61 @@ def check_batch_kernels(dev: torch.device) -> None:
         assert torch.equal(got_i.cpu(), want_i)
         _, abs_f = batched.batched_segment_sums_plain(irows, frows.abs(), gids, bits, B, S)
         assert torch.all((got_f.cpu() - want_f).abs() <= 1e-12 * abs_f)
+        if lane == "slots":  # the same bits every run
+            again = batched.batched_segment_sums(
+                irows.to(dev), frows.to(dev), gids.to(dev), bits.to(dev), B, S)[1]
+            assert bits_equal(again, got_f)
+
+
+def h23_staged_rows(rng, n: int, dev, unaligned: bool) -> tuple:
+    """H23's rows as the fold stages them: integer rows uint8, uint16 and
+    int32 with offsets, int64 and bool; f64 rows f64, a narrowed int32 and
+    a bool; each a view one row into its buffer when ``unaligned``."""
+    def put(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a).to(dev)
+        return _unaligned(t) if unaligned else t
+    i32 = rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    flag = rng.random(n) < 0.3
+    lat = rng.exponential(3e7, n)
+    lat[: min(n, 3)] = [np.nan, -0.0, 1e-300][: min(n, 3)]
+    irows = [segment.Narrow(put(rng.integers(0, 256, n).astype(np.uint8)), 200),
+             segment.Narrow(put(rng.integers(0, 65536, n).astype(np.uint16)), -(2**40)),
+             segment.Narrow(put(i32), 2**62), put(rng.integers(-(2**62), 2**62, n)), put(flag)]
+    frows = [put(lat), segment.Narrow(put(i32), 1000), put(flag)]
+    return irows, frows
+
+
+# H23 at its edges: rows as staged (every kind, offsets, views one row into
+# their buffers), n on and off the 8-row vectors, B 1 to 32, S at each lane
+# boundary; integers and presence exact, f64 sums within 1e-12 * sum |v|
+# (NaN where the plain version has NaN), the slot lane the same bits twice.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_ROWS)
+def test_batched_segment_sums_edges_on_card(n):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n)
+    optin = kernels.smem_optin_bytes(dev)
+    for B, S in ((1, 1), (2, 16), (7, 16), (32, 64), (3, 65), (32, 256), (32, 4096)):
+        gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32)).to(dev)
+        bits = torch.from_numpy(rng.integers(-(2**31), 2**31, n).astype(np.int32)).to(dev)
+        for unaligned in (False, True):
+            irows, frows = h23_staged_rows(rng, n, dev, unaligned)
+            for ir, fr in ((irows, frows), (irows[:1], []), ([], frows[:1]), ([], [])):
+                got_i, got_f = batched.batched_segment_sums(ir, fr, gids, bits, B, S)
+                want_i, want_f = batched.batched_segment_sums_plain(ir, fr, gids, bits, B, S)
+                what = (B, S, unaligned, len(ir), len(fr),
+                        kernels.h23_lane(B, len(ir), len(fr), S, optin)[0])
+                assert torch.equal(got_i, want_i), what
+                absr = [segment.widen(r).to(torch.float64).abs() for r in fr]
+                scale = batched.batched_segment_sums_plain([], absr, gids, bits, B, S)[1]
+                nan = torch.isnan(want_f)
+                assert torch.equal(torch.isnan(got_f), nan), what
+                assert bool(torch.all((got_f - want_f).abs()[~nan] <= 1e-12 * scale[~nan])), what
+                again = batched.batched_segment_sums(ir, fr, gids, bits, B, S)
+                assert torch.equal(again[0], got_i), what
+                if what[-1] == "slots":
+                    assert bits_equal(again[1], got_f), what
 
 
 @pytest.mark.cuda

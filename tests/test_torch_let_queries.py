@@ -21,8 +21,8 @@ estimates exactly; the quantile-derived latencies within one log bin
 1e-12 (f64 sums in another order); variance within 4e-12 * E[x^2] of the
 reference's on the same group (and stddev correspondingly). Q1-Q3 run
 under both forced lanes, Q4 under the scatter lane and the reference's own
-choice (``ref_lane_q4``). Both packages
-must take the same device lane (checked by their lane records), and no
+choice (``ref_lane_q4``), each against a reference engine built under that
+lane. Both packages must take the same device lane (checked by their lane records), and no
 reference query may fall back.
 """
 
@@ -119,24 +119,42 @@ def _relation(dt, rel, st):
     )
 
 
+class _RefEngines:
+    """One reference Carnot + MeshExecutor for each ``segment.set_strategy``
+    lane, built under that lane at first use: an executor built under one
+    lane keeps serving that lane's f64 sums after the lane is switched
+    (clearing its program cache or jax's caches does not reset it)."""
+
+    def __init__(self, data: dict):
+        self.data, self.by_lane = data, {}
+
+    def current(self):
+        lane = ref_segment._FORCE
+        if lane not in self.by_lane:
+            ex = MeshExecutor(mesh=Mesh(np.array(jax.devices()[:1]), ("d",)), block_rows=1 << 14)
+            ref = RefCarnot(device_executor=ex)
+            ref.table_store.create_table(
+                "http_events", _relation(RefDT, RefRelation, RefST)).write_pydict(dict(self.data))
+            self.by_lane[lane] = ref
+        return self.by_lane[lane]
+
+
 @pytest.fixture(scope="module")
 def engines():
     data = http_events(N)
-    ex = MeshExecutor(mesh=Mesh(np.array(jax.devices()[:1]), ("d",)), block_rows=1 << 14)
-    ref = RefCarnot(device_executor=ex)
-    ref.table_store.create_table("http_events", _relation(RefDT, RefRelation, RefST)).write_pydict(
-        dict(data))
     port_ex = DeviceExecutor(device="cpu", block_rows=1 << 14)
     port = Carnot(device_executor=port_ex)
     port.table_store.create_table("http_events", _relation(DataType, Relation, SemanticType)).write_pydict(
         dict(data))
-    return data, ref, port
+    return data, _RefEngines(data), port
 
 
 def _run(engines, name: str):
     """(port table, reference table, the reference's fold key, the port's
-    lanes) of query ``name``."""
-    _, ref, port = engines
+    lanes) of query ``name``; the reference engine is the one built under
+    the current lane."""
+    _, refs, port = engines
+    ref = refs.current()
     ref.device_executor._program_cache.clear()
     want = ref.execute_query(QUERIES[name], now_ns=NOW).table(name)
     folds = [k for k in ref.device_executor._program_cache if k.startswith("fold|")]

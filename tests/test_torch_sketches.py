@@ -34,7 +34,7 @@ from pixie_tpu.ops import tdigest as ref_td
 from pixie_tpu.udf.registry import default_registry as ref_registry
 from pixie_tpu.types import DataType as RefDT
 from pixie_tpu_torch import interop
-from pixie_tpu_torch.ops import countmin, hll, tdigest
+from pixie_tpu_torch.ops import countmin, hll, kernels, tdigest
 from pixie_tpu_torch.types import DataType
 from pixie_tpu_torch.udf.registry import default_registry
 
@@ -258,6 +258,133 @@ def test_tdigest_packed_sort_matches_reference():
     np.testing.assert_array_equal(gg.numpy(), np.asarray(wg))
     np.testing.assert_array_equal(gv.numpy().view(np.int32), np.asarray(wv).view(np.int32))
     assert (np.asarray(wg) == G).sum() == (g_ref == G).sum()
+
+
+# H7, the sort-free block update (ops/kernels/tdigest_kernels.cu), modelled
+# step by step in torch: (a) the packed keys and each group's level-1
+# counts, (b) the run starts from the counts alone, (c) the key at each run
+# start selected by two more histogram levels, with its lt and eq, (d) the
+# runs' weights and ties, and every other row added to the run of the
+# largest selected key below it. Held against the plain version's sums over
+# the sorted rows (``_cluster_sums_plain(_sorted_rows(...))``): the weights
+# and each cell's multiset of values (value bits, multiplicity) bit for bit,
+# the f64 value sums within 1e-12 * sum |v|.
+from test_torch_kernels import TD_UPDATE_CASES, td_update_inputs  # noqa: E402
+
+
+def _h7_model(gids, v32, mask, G: int, C: int) -> dict:
+    b1, b2, b3 = kernels.td_levels(G)
+    bits_g = (G + 1).bit_length()
+    W = 32 - bits_g
+    B1, B2, B3 = 1 << b1, 1 << b2, 1 << b3
+    i64 = torch.int64
+    # (a) pack; level-1 counts a group, scanned
+    ok = (gids >= 0) & (gids < G) & mask
+    g = torch.where(ok, gids.to(i64), G)
+    u = tdigest._order_key(v32) >> bits_g
+    bin1 = u >> (W - b1)
+    hist1 = torch.zeros(G * B1, dtype=i64).index_add_(0, (g * B1 + bin1)[ok],
+                                                       torch.ones(int(ok.sum()), dtype=i64))
+    hist1 = hist1.view(G, B1)
+    n_g = hist1.sum(dim=1)
+    cum1 = torch.cumsum(hist1, dim=1) - hist1
+    # (b) the cluster at every rank of every group; the ranks where it changes
+    rg, rr, rc = [], [], []
+    for gg in range(G):
+        n = int(n_g[gg])
+        if n == 0:
+            continue
+        q = (torch.arange(n).to(torch.int32).to(torch.float32) + 0.5) / float(n)
+        cl = tdigest._cluster_ids(q, C)
+        start = torch.ones(n, dtype=torch.bool)
+        start[1:] = cl[1:] != cl[:-1]
+        r = torch.nonzero(start)[:, 0]
+        assert r.numel() <= C  # the kernel traps past C runs a group
+        rg.append(torch.full_like(r, gg))
+        rr.append(r)
+        rc.append(cl[r].to(i64))
+    rg, rr, rc = torch.cat(rg), torch.cat(rr), torch.cat(rc)
+    rb1 = torch.searchsorted(cum1[rg], rr[:, None], right=True)[:, 0] - 1
+    t = rr - cum1[rg, rb1]
+    lt = cum1[rg, rb1].clone()
+    # (c) level 2, then level 3: a histogram over the rows of the bins that
+    # hold a run start, the run start's bin in it by its rank
+    act1, slot1 = torch.unique(rg * B1 + rb1, return_inverse=True)
+    map1 = torch.zeros(G * B1, dtype=i64)
+    map1[act1] = torch.arange(1, act1.numel() + 1)
+    s = map1[g.clamp_max(G - 1) * B1 + bin1] * ok
+    in2 = s > 0
+    hist2 = torch.zeros(act1.numel() * B2, dtype=i64).index_add_(
+        0, ((s - 1) * B2 + ((u >> b3) & (B2 - 1)))[in2], torch.ones(int(in2.sum()), dtype=i64))
+    inc2 = torch.cumsum(hist2.view(-1, B2), dim=1)[slot1]
+    rb2 = torch.searchsorted(inc2, t[:, None], right=True)[:, 0]
+    below = inc2.gather(1, rb2[:, None])[:, 0] - hist2.view(-1, B2)[slot1, rb2]
+    t, lt = t - below, lt + below
+    act2, slot2 = torch.unique(slot1 * B2 + rb2, return_inverse=True)
+    map2 = torch.zeros(act1.numel() * B2, dtype=i64)
+    map2[act2] = torch.arange(1, act2.numel() + 1)
+    s2 = torch.where(in2, map2[((s - 1) * B2 + ((u >> b3) & (B2 - 1))).clamp_min(0)], 0)
+    in3 = s2 > 0
+    hist3 = torch.zeros(act2.numel() * B3, dtype=i64).index_add_(
+        0, ((s2 - 1) * B3 + (u & (B3 - 1)))[in3], torch.ones(int(in3.sum()), dtype=i64))
+    inc3 = torch.cumsum(hist3.view(-1, B3), dim=1)[slot2]
+    rb3 = torch.searchsorted(inc3, t[:, None], right=True)[:, 0]
+    eq = hist3.view(-1, B3)[slot2, rb3]
+    lt = lt + inc3.gather(1, rb3[:, None])[:, 0] - eq
+    key = (rb1 << (W - b1)) | (rb2 << b3) | rb3
+    # (d) runs in rank order: weights, ties; the other rows
+    order = torch.argsort(rg * (1 << 32) + rr)
+    rg, rr, rc, key, lt, eq = (x[order] for x in (rg, rr, rc, key, lt, eq))
+    last = torch.ones_like(rg, dtype=torch.bool)
+    last[:-1] = rg[1:] != rg[:-1]
+    nxt = torch.where(last, n_g[rg], torch.roll(rr, -1))
+    cell = rg * C + rc
+    weights = torch.zeros(G * C, dtype=torch.float64).index_add_(0, cell, (nxt - rr).double())
+    x_of = lambda k: tdigest._from_order_key((k << bits_g) & tdigest.M32)  # noqa: E731
+    terms = []  # (cell, key, m)
+    for k2, lt2, eq2, use in ((key, lt, eq, torch.ones_like(last)),
+                              (torch.roll(key, -1), torch.roll(lt, -1), torch.roll(eq, -1),
+                               ~last & (torch.roll(key, -1) != key))):
+        m = torch.clamp_min(torch.minimum(nxt, lt2 + eq2) - torch.maximum(rr, lt2), 0) * use
+        terms.append((cell[m > 0], k2[m > 0], m[m > 0]))
+    flat_k = rg * (1 << W) + key
+    row_k = g * (1 << W) + u
+    p = torch.searchsorted(flat_k, row_k)
+    tie = (p < flat_k.numel()) & (flat_k[p.clamp_max(flat_k.numel() - 1)] == row_k)
+    other = ok & ~tie
+    row_cell = cell[(p - 1).clamp_min(0)]
+    values = torch.zeros(G * C, dtype=torch.float64).index_add_(
+        0, row_cell[other], x_of(u[other]).double())
+    multiset = {}
+    for c, k, m in [(row_cell[other], u[other], torch.ones(int(other.sum()), dtype=i64))] + terms:
+        for ci, ki, mi in zip(c.tolist(), x_of(k).view(torch.int32).tolist(), m.tolist()):
+            multiset[ci, ki] = multiset.get((ci, ki), 0) + mi
+    for c, k, m in terms:
+        values.index_add_(0, c, m.double() * x_of(k).double())
+    return {"weights": weights.view(G, C), "values": values.view(G, C), "multiset": multiset}
+
+
+@pytest.mark.parametrize("case,G", TD_UPDATE_CASES)
+def test_tdigest_update_model_matches_plain(case, G):
+    gids, vals, mask = td_update_inputs(case, G)
+    C = tdigest.DEFAULT_CAPACITY
+    g, v32, m = _t(gids), _t(vals.astype(np.float32)), _t(mask)
+    got = _h7_model(g, v32, m, G, C)
+    g_s, v_s = tdigest._sorted_rows(g, v32, m, G)
+    want = tdigest._cluster_sums_plain(g_s, v_s, G, C)
+    assert torch.equal(got["weights"].view(torch.int64), want[0].view(torch.int64))
+    flat, _ = tdigest._row_clusters(g_s, G, C)
+    live = g_s < G
+    plain = {}
+    for ci, ki in zip(flat[live].tolist(), v_s[live].view(torch.int32).tolist()):
+        plain[ci, ki] = plain.get((ci, ki), 0) + 1
+    assert got["multiset"] == plain
+    scale = tdigest._cluster_sums_plain(g_s, v_s.abs(), G, C)[1]
+    nan = torch.isnan(want[1])
+    assert torch.equal(torch.isnan(got["values"]), nan)
+    fin = torch.isfinite(want[1])
+    assert torch.equal(got["values"][~fin & ~nan], want[1][~fin & ~nan])
+    assert bool(torch.all((got["values"] - want[1]).abs()[fin] <= 1e-12 * scale[fin]))
 
 
 def test_tdigest_merge_of_states(strategy):
