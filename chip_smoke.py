@@ -16,7 +16,12 @@ the CUDA toolkit. In order it:
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (2^21-row blocks; 16 groups, 4096 for the HLL kernels
-   as config 3 runs them; H7, the t-digest's update without a sort, at ten
+   as config 3 runs them; H3 in each of its lanes (S = 16, 64 and 600, f32
+   and f64 values, its global atomics counted; 2^23 + 5 rows into one
+   cell) and H8 at sketches' blocks and
+   pixie_tpu_torch/ops/tdigest_edges.py's edge digests (the groups on its exact
+   branches counted), both timed beside an empty kernel on the same grid
+   and with CTA 0's phases; H7, the t-digest's update without a sort, at ten
    edge blocks and at sketches' block, with its phases' device times and
    its device operations a block against the sorting update (H7a,
    torch.sort, H7b)
@@ -43,8 +48,8 @@ the CUDA toolkit. In order it:
    at C = 3, 256 and 65536, a raw cast), also against the host pack) and at
    shapes that take its other memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
-   scan's compaction and the join exact; t-digest cluster cells under
-   Fault-4; H17 bit for bit but the f64 transcendentals, within 2 ulp; H18
+   scan's compaction and the join exact; H7b's t-digest cluster cells under
+   Fault-4, H7's and H8's weights bit for bit; H17 bit for bit but the f64 transcendentals, within 2 ulp; H18
    and H19 bit for bit; H20 and H21 exact; H22 bit for bit, H23's integers
    exact and its f64 sums within 1e-12 * sum |v|; H24 bit for bit; H29,
    the cross-shard merge, bit for bit at 2, 4 and 8 shards of 4096 groups
@@ -633,6 +638,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def probe_phases_us(probe: torch.Tensor, names: tuple, first: int, khz: int) -> dict:
+    """Microseconds between a kernel probe's consecutive clock64 stamps
+    (CTA 0's, from index ``first``), at the SM clock's rate ``khz``."""
+    p = probe.cpu().tolist()
+    return {nm: (p[first + k + 1] - p[first + k]) * 1e3 / khz for k, nm in enumerate(names)}
+
+
 # ---------------------------------------------------------------- kernels
 def record(fn, plain, library, bound_ms, bound_by, max_abs_err, shape) -> dict:
     return dict(
@@ -867,48 +879,104 @@ def kernel_phases(kernels, segment, histogram, dev) -> dict:
 
     h2_phase(kernels, segment, dev, rng, n, mask_np, records)
 
-    # H3 under the Fault-1 contract: CUDA's logf and the plain version's
+    # H3 in each lane (kernels.h3_lane: S = 16 and 64 the cluster lane, S =
+    # 600 global atomics), 2^21 + 3 rows (off the
+    # 8-row vectors), f32 values and f64 (as the shared scan's sketch group
+    # hands them over, rounded in registers), masked rows and gids out of
+    # range, under the Fault-1 contract: CUDA's logf and the plain version's
     # correctly rounded log may put a value lying within 2.5e-4 of a bin
-    # edge one bin over; every other value lands in the same bin. S = 16
-    # counts in shared memory, S = 64 (256 KB) in global.
+    # edge one bin over; every other value lands in the same bin; totals
+    # exact. Each lane's global atomics (the probe) are logged. Timed at
+    # service_stats' shape (S = 16, f32, 2^21 rows: the table's shape) and
+    # at S = 64 and 600, each beside an empty kernel on the same grid.
     spec = histogram.DEFAULT_SPEC
     log_gamma = math.log(spec.gamma)
+    optin = kernels.smem_optin_bytes(dev)
+    n3 = n + 3
+    lat3 = rng.exponential(3e7, n3)
+    x = np.log(np.maximum(lat3.astype(np.float32), spec.min_value) / spec.min_value) / log_gamma
+    edge3 = torch.from_numpy(np.abs(x - np.round(x)) <= 2.5e-4).to(dev)
+    m3 = torch.from_numpy(rng.random(n3) < 0.97).to(dev)
+    h3_worst = 0
+    for S in (N_SERVICES, 64, 600):
+        g = torch.from_numpy(rng.integers(-1, S + 1, n3).astype(np.int32)).to(dev)
+        lane = kernels.h3_lane(S, spec.nbins, optin)[0]
+        for dtype in (torch.float32, torch.float64):
+            vals = torch.from_numpy(lat3).to(dev).to(dtype)
+            probe = torch.zeros(kernels.H3_PROBE, dtype=torch.int64, device=dev)
+            got = kernels.log_histogram_update(vals, g, m3, histogram.init(S, dev),
+                                               spec.min_value, log_gamma, probe=probe)
+            want = histogram.update_plain(histogram.init(S, dev), g, vals, m3)
+            off_edge = m3 & ~edge3
+            got_off = kernels.log_histogram_update(vals, g, off_edge, histogram.init(S, dev),
+                                                   spec.min_value, log_gamma)
+            want_off = histogram.update_plain(histogram.init(S, dev), g, vals, off_edge)
+            valid = m3 & (g >= 0) & (g < S)
+            near = (edge3 & valid).sum().item()
+            cell_err = (got - want).abs()
+            torch.cuda.synchronize()
+            what = f"H3 S={S} lane={lane} {dtype}"
+            check(torch.equal(got_off, want_off), f"{what}: rows off bin edges differ")
+            check(cell_err.sum().item() <= 2 * near, f"{what}: cell diffs beyond the contract")
+            check(int(got.sum()) == int(want.sum()), f"{what}: total count differs")
+            atomics = int(probe[0])
+            check(atomics == int(valid.sum()) if lane == "global"
+                  else 0 < atomics < int(valid.sum()) // 4, f"{what}: {atomics} global atomics")
+            h3_worst = max(h3_worst, cell_err.max().item())
+            log(f"{what}: exact off bin edges; {cell_err.sum().item()} cell diffs from "
+                f"{near} rows at bin edges; {atomics} global atomics for {int(valid.sum())} "
+                f"valid rows")
+    # 2^23 + 5 rows into one cell in the cluster lane (S = 16 and 64): a CTA
+    # counts up to 57,344 of them into one u16 count, over more than one
+    # wave of clusters; the count exact.
+    n1 = (1 << 23) + 5
+    one = torch.full((n1,), 3e7, dtype=torch.float32, device=dev)
+    for S in (N_SERVICES, 64):
+        g1 = torch.full((n1,), S - 1, dtype=torch.int32, device=dev)
+        got = kernels.log_histogram_update(one, g1, None, histogram.init(S, dev),
+                                           spec.min_value, log_gamma)
+        want = histogram.update_plain(histogram.init(S, dev), g1, one, None)
+        check(torch.equal(got, want) and int(got.sum()) == n1,
+              f"H3 S={S}: {n1} rows into one cell miscounted")
+        log(f"H3 S={S}: {n1} rows into one cell exact over "
+            f"{kernels.h3_geometry(dev, n1, S, spec.nbins)[0]} CTAs")
+    del one, g1
     lat = torch.from_numpy(rng.exponential(3e7, n).astype(np.float32)).to(dev)
     x = torch.log(lat.double() / spec.min_value) / log_gamma
     edge = (x - torch.round(x)).abs() <= 2.5e-4
-    for S in [N_SERVICES, 64]:
+    for S in (N_SERVICES, 64, 600):
         g, m = inputs(S)
-        got = kernels.log_histogram_update(
-            lat, g, m, histogram.init(S, dev), spec.min_value, log_gamma
-        )
-        want = histogram.update_plain(histogram.init(S, dev), g, lat, m)
-        cell_err = (got - want).abs()
-        near = (edge & m & (g >= 0) & (g < S)).sum().item()
-        off_edge = m & ~edge
-        got_off = kernels.log_histogram_update(
-            lat, g, off_edge, histogram.init(S, dev), spec.min_value, log_gamma
-        )
-        want_off = histogram.update_plain(histogram.init(S, dev), g, lat, off_edge)
-        torch.cuda.synchronize()
-        check(torch.equal(got_off, want_off), f"H3 S={S}: rows off bin edges differ")
-        check(cell_err.sum().item() <= 2 * near, f"H3 S={S}: cell diffs beyond the contract")
-        check(int(got.sum()) == int(want.sum()), f"H3 S={S} total count differs")
-        log(f"H3 log_histogram_update S={S} shared="
-            f"{kernels.uses_shared('log_histogram_update', dev, S, nbins=spec.nbins)}: "
-            f"exact off bin edges; {cell_err.sum().item()} cell diffs from {near} "
-            f"rows at bin edges")
-        if "log_histogram_update" in records:
-            continue
         ok = m & (g >= 0) & (g < S)
         flat = g[ok].long() * spec.nbins + histogram.bin_index(lat[ok]).long()
         state = histogram.init(S, dev)
-        records["log_histogram_update"] = record(
+        probe = torch.zeros(kernels.H3_PROBE, dtype=torch.int64, device=dev)
+        for _ in range(3):
+            probe.zero_()
+            kernels.log_histogram_update(lat, g, m, state, spec.min_value, log_gamma, probe=probe)
+        torch.cuda.synchronize()
+        grid, threads, smem = kernels.h3_geometry(dev, n, S, spec.nbins)
+        rec = record(
             lambda: kernels.log_histogram_update(lat, g, m, state, spec.min_value, log_gamma),
             lambda: histogram.update_plain(state, g, lat, m),
             lambda: torch.bincount(flat, minlength=S * spec.nbins),
             *bound(n * 4 + n * 4 + n + 2 * S * spec.nbins * 8, 8 * n),
-            cell_err.max().item(), f"values[{n}] state[{S},{spec.nbins}]",
+            h3_worst, f"values[{n}] state[{S},{spec.nbins}] "
+            f"lane={kernels.h3_lane(S, spec.nbins, optin)[0]}",
         )
+        rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(dev, grid, threads, smem))
+        rec["b_flush_atomics"] = int(probe[0])
+        rec["b_phases_us"] = probe_phases_us(probe, ("zero", "rows", "flush"), 2,
+                                             kernels.sm_clock_khz(dev))
+        log(f"H3 log_histogram_update {rec['shape']}: {rec['ms']:.5f} ms [bound "
+            f"{rec['bound_ms']:.5f}; floor {rec['floor_ms']:.5f}; plain {rec['plain_ms']:.5f}; "
+            f"bincount {rec['library_ms']:.5f}]; CTA 0's phases us {json.dumps(rec['b_phases_us'])}; "
+            f"{rec['b_flush_atomics']} global atomics")
+        if S == N_SERVICES:
+            records["log_histogram_update"] = dict(rec, by_lane={})
+        else:
+            records["log_histogram_update"]["by_lane"][f"S={S}"] = {
+                k: rec[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms", "floor_ms",
+                                    "b_flush_atomics", "b_phases_us", "shape")}
     # Each bin-edge row's own bin (global path) is the plain one or next to
     # it; values at and below min (bin 0), past max (the clip), +-inf and
     # NaN (shared path) land exactly where the plain version puts them.
@@ -1224,10 +1292,18 @@ def sketch_kernel_phases(dev) -> dict:
     h7b_edges(kernels, tdigest, dev, rng)
     records["tdigest_update"] = h7_phase(kernels, tdigest, dev, rng, mask)
 
-    # H8: a digest of a few plain blocks merged with H7b's raw sums; H9 on
-    # the result. Weights exact per group; cells under Fault-4 as above;
-    # means of the others within 2C * 2^-24 * max|mean| (f32 sums in the
-    # plain version's atomic order); quantiles of one state within 1e-6.
+    # H8: a digest of a few plain blocks merged with H7b's raw sums (the
+    # table's shape, sketches' blocks), then ops/tdigest_edges.py's edge
+    # digests (an empty a; a digest of three blocks and a block's sums
+    # at 1, 16, 254 and 300 groups; a sparse group; equal means across the
+    # halves; an inverted pair and clusters that drop back, each forcing its
+    # exact branch in every group; NaN, +-inf, -0/+0 means; raw sums with
+    # zero weights): weights bit for bit with the plain version on the card
+    # (0 cells moved: H8 takes the plain version's cluster arithmetic),
+    # means within 2C * 2^-24 * max|finite input mean| of the group; H9 on
+    # the result. The probe counts the groups on each exact branch.
+    from pixie_tpu_torch.ops.tdigest_edges import H8_CASES, h8_expected_branches, h8_inputs
+
     G = N_SERVICES
     a = tdigest.init(G, dev)
     for _ in range(3):
@@ -1235,26 +1311,50 @@ def sketch_kernel_phases(dev) -> dict:
             a, torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev),
             torch.from_numpy(rng.exponential(3e7, n).astype(np.float32)).to(dev), mask,
         )
-    got = kernels.tdigest_merge(a["means"], a["weights"], sums16[0], sums16[1], raw_b=True)
-    want = tdigest.merge_plain(a, tdigest.batch_from_sums(sums16[0], sums16[1]))
-    same = got["weights"] == want["weights"]
-    mbound = 2 * C * 2.0**-24 * want["means"].abs().amax(dim=1, keepdim=True)
-    merr = (got["means"] - want["means"]).abs()
-    torch.cuda.synchronize()
-    check(torch.equal(got["weights"].sum(dim=1), want["weights"].sum(dim=1)), "H8 weights")
-    check((~same).float().mean().item() <= 0.01, "H8: more than 1% of cells moved")
-    check(bool(torch.all(merr[same] <= mbound.expand_as(merr)[same])), "H8 means")
-    log(f"H8 tdigest_merge G={G}: group weights exact, {int((~same).sum())} cells moved, "
-        f"means max |err| {merr[same].max().item():.3g}")
-    records["tdigest_merge"] = record(
+    b16 = tdigest.batch_from_sums(sums16[0], sums16[1])
+    probe = torch.zeros(kernels.TD_MERGE_PROBE, dtype=torch.int64, device=dev)
+    got = kernels.tdigest_merge(a["means"], a["weights"], sums16[0], sums16[1], raw_b=True,
+                                probe=probe)
+    merr = h8_check(got, tdigest.merge_plain(a, b16), a, b16, C, "sketches' blocks")
+    branches = {"sketches' blocks": probe[:2].tolist()}
+    for case, Gc in H8_CASES:
+        ea, eb, raw_b = h8_inputs(case, Gc, C)
+        ea, eb = ({k: v.to(dev) for k, v in d.items()} for d in (ea, eb))
+        eprobe = torch.zeros(kernels.TD_MERGE_PROBE, dtype=torch.int64, device=dev)
+        b0, b1 = (eb["weights"], eb["means"]) if raw_b else (eb["means"], eb["weights"])
+        egot = kernels.tdigest_merge(ea["means"], ea["weights"], b0, b1, raw_b=raw_b,
+                                     probe=eprobe)
+        bb = tdigest.batch_from_sums(eb["weights"], eb["means"]) if raw_b else eb
+        merr = max(merr, h8_check(egot, tdigest.merge_plain(ea, bb), ea, bb, C, f"{case} G={Gc}"))
+        name, expect = f"{case} G={Gc}", h8_expected_branches(case, Gc)
+        branches[name] = eprobe[:2].tolist()
+        check(expect is None or branches[name] == expect,
+              f"H8 {name}: groups on the exact branches {branches[name]}")
+    log(f"H8 tdigest_merge: weights bit for bit (0 cells moved) at sketches' blocks and "
+        f"{len(H8_CASES)} edge digests; means max |err| {merr:.3g}; groups on the all-pairs "
+        f"rank and the per-cluster walk: {json.dumps(branches)}")
+    rec = record(
         lambda: kernels.tdigest_merge(a["means"], a["weights"], sums16[0], sums16[1], raw_b=True),
-        lambda: tdigest.merge_plain(a, tdigest.batch_from_sums(sums16[0], sums16[1])),
+        lambda: tdigest.merge_plain(a, b16),
         None,
-        # ops: a comparison sort of 2C centroids and one pass over them
+        # ops: a binary search of 2C centroids and one pass over them
         *bound(2 * G * C * 4 + 2 * G * C * 8 + 2 * G * C * 4,
                G * 2 * C * (math.log2(2 * C) + 1)),
-        merr[same].max().item(), f"state[{G},{C}] + sums[2,{G},{C}]",
+        merr, f"state[{G},{C}] + sums[2,{G},{C}]",
     )
+    rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(dev, *kernels.tdigest_merge_geometry(G, C)))
+    for _ in range(3):
+        probe.zero_()
+        kernels.tdigest_merge(a["means"], a["weights"], sums16[0], sums16[1], raw_b=True,
+                              probe=probe)
+    torch.cuda.synchronize()
+    rec["b_phases_us"] = probe_phases_us(
+        probe, ("load+classes", "rank", "scan", "clusters", "sums"), 2, kernels.sm_clock_khz(dev))
+    rec["b_branch_groups"] = branches
+    records["tdigest_merge"] = rec
+    log(f"H8 tdigest_merge {rec['shape']}: {rec['ms']:.5f} ms [bound {rec['bound_ms']:.5f}; "
+        f"floor {rec['floor_ms']:.5f}; plain {rec['plain_ms']:.5f}]; CTA 0's phases us "
+        f"{json.dumps(rec['b_phases_us'])}")
     qs_t = torch.tensor(QS, dtype=torch.float32, device=dev)
     qg = kernels.tdigest_quantiles(got["means"], got["weights"], qs_t)
     qw = tdigest.quantile_values_plain(got, QS)
@@ -1329,6 +1429,24 @@ def h7_check(kernels, tdigest, dev, g, v64, m, G: int, what: str,
         check(bool(torch.all(err <= 1e-12 * scale[fin])), f"H7 {what} {v.dtype}: value sums")
         worst = max(worst, float(err.max()) if err.numel() else 0.0)
     return worst
+
+
+def h8_check(got: dict, want: dict, a: dict, b: dict, C: int, what: str) -> float:
+    """H8 against merge_plain on the card: weights bit for bit, means within
+    2C * 2^-24 * max|finite input mean| of the group, NaN and inf alike.
+    Returns the largest |error| of a finite mean."""
+    inputs = torch.cat([a["means"], b["means"].float()], dim=1)
+    scale = torch.where(torch.isfinite(inputs), inputs.abs(), 0.0).amax(dim=1, keepdim=True)
+    gm, wm = got["means"], want["means"]
+    fin = torch.isfinite(wm)
+    err = (gm - wm).abs()[fin]
+    torch.cuda.synchronize()
+    check(bits_equal(got["weights"], want["weights"]), f"H8 {what}: weights differ from plain")
+    check(torch.equal(torch.isnan(gm), torch.isnan(wm))
+          and torch.equal(gm[torch.isinf(wm)], wm[torch.isinf(wm)]), f"H8 {what}: NaN or inf")
+    check(bool(torch.all(err <= (2 * C * 2.0**-24 * scale).expand_as(wm)[fin])),
+          f"H8 {what}: means beyond 2C * 2^-24 * max|mean|")
+    return float(err.max()) if err.numel() else 0.0
 
 
 def device_ops(fn) -> dict:
@@ -5370,8 +5488,8 @@ def ab_widths(parent: str, pairs: int, warm: int = 15) -> dict:
 # from create_table to stop(), the ring's window decodes included),
 # sketches_small (http_small), sketches_ring (http_small_ring, built with
 # resident ingest on), sketches_mesh4 (a 4-shard mesh of the card) warm,
-# shared_scan (three concurrent runs a turn: their walls); "kernels": the
-# t-digest update and H23 at their path shapes, as one median each. The
+# shared_scan (three concurrent runs a turn: their walls); "kernels": H3,
+# H8 and the t-digest update at their path shapes, one median each. The
 # child runs the other tree's chip_smoke.py, so it calls only helpers that
 # tree has.
 AB_PATHS = ("service_stats", "sketches", "reservoir_latency", "flows", "flow_span",
@@ -5451,24 +5569,28 @@ if {"sketches_small", "sketches_ring"} & set(paths):
         warm(c, "sketches_ring", cs.SKETCHES_RING)
     del c, hs
 if "kernels" in paths:
-    # The t-digest update and H23 through the calls both trees take, at
-    # their path shapes, each its own median of 30 calls: t-digest's whole
-    # update at sketches' block (2^21 rows, 16 groups, f64 latency, a mask),
-    # and the batched fold's sums at shared_scan's (7 slots, one f64 row,
-    # 16 groups), over stacked rows as both trees take them.
+    # H3, H8 and the t-digest update through the calls both trees take, at
+    # their path shapes, each its own median of 30 calls: H3 at
+    # service_stats' block (2^21 f32 rows, 16 groups, a mask), H8 at
+    # sketches' (a digest of 16 groups and a block's f64 sums) and the
+    # whole t-digest update (H7 and H8) at sketches' block (f64 latency).
+    import math
     import numpy as np
-    from pixie_tpu_torch.ops import batched, tdigest
+    from pixie_tpu_torch.ops import histogram, tdigest
     rng, n, dev = np.random.default_rng(0), cs.BLOCK_ROWS, torch.device("cuda")
     mask = torch.from_numpy(rng.random(n) < 0.97).to(dev)
     lat = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
     g16 = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
-    bits = torch.from_numpy(rng.integers(0, 1 << 7, n).astype(np.int32)).to(dev)
-    td = tdigest.init(16, dev)
+    spec, st = histogram.DEFAULT_SPEC, histogram.init(16, dev)
+    lat32 = lat.float()
+    out["kernels:H3 S=16"] = [cs.time_ms(lambda: kernels.log_histogram_update(
+        lat32, g16, mask, st, spec.min_value, math.log(spec.gamma)))]
+    td = tdigest.update(tdigest.init(16, dev), g16, lat, mask)
+    sums = kernels.tdigest_update_sums(lat, g16, mask, 16, tdigest.DEFAULT_CAPACITY)
+    out["kernels:H8 G=16"] = [cs.time_ms(lambda: kernels.tdigest_merge(
+        td["means"], td["weights"], sums[0], sums[1], raw_b=True))]
     out["kernels:tdigest update G=16"] = [
         cs.time_ms(lambda: tdigest.update(td, g16, lat, mask))]
-    none = torch.empty((0, n), dtype=torch.int64, device=dev)
-    out["kernels:batched sums B=7 S=16"] = [
-        cs.time_ms(lambda: batched.batched_segment_sums(none, lat[None, :], g16, bits, 7, 16))]
 print("RESULT " + json.dumps(out), flush=True)
 """
 
@@ -5929,7 +6051,7 @@ def main() -> int:
             if r["bound_by"] == "bytes" else None,
             **{k: v for k, v in r.items()
                if k.startswith(("b_", "by_", "torch_tree", "log10", "library_ms_", "sequence",
-                                "sort_ms", "block_"))},
+                                "sort_ms", "block_", "floor_"))},
         })
     print(json.dumps({"kernels": out}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -89,8 +89,12 @@ def update(
 ) -> torch.Tensor:
     """Count each valid row into its (group, log bin) cell, in place."""
     if state.is_cuda:
+        # H3 reads f32 or f64 values as staged (f64 rounded to f32 in
+        # registers); any other dtype is converted here.
+        if values.dtype not in (torch.float32, torch.float64):
+            values = values.to(torch.float32)
         return kernels.log_histogram_update(
-            values.to(torch.float32).contiguous(),
+            values.contiguous(),
             gids.to(torch.int32).contiguous(),
             mask,
             state,

@@ -22,8 +22,9 @@ row-wise 64-bit hash of several columns and the u64 leading-zero count
 (H31, H32; ``sketch_kernels.cu`` also holds the count-min query, H30:
 these three have no caller in either package yet, and the hash kernel has
 none in the port: H5, H6, H20 and H21 hash in registers); ``rows.cuh``
-holds the typed row loads of H1, H5, H6 and H11 (a column read as staged,
-``ROW_*`` kinds); see each file's header. At
+holds the typed row loads of H1, H3, H5, H6 and H11 (a column read as
+staged, ``ROW_*`` kinds), ``tdigest_cluster.cuh`` the t-digest's cluster of
+a mid-quantile that H7 and H8 share; see each file's header. At
 the first launch, ``library()`` compiles them with ``nvcc`` for
 ``sm_90a``, one process per source started together, and links them into
 ``pixie_tpu_torch/_build/`` as one shared library with a plain C
@@ -105,7 +106,7 @@ SOURCES = (
     "cell_kernels.cu", "batch_kernels.cu", "convert_kernels.cu", "ml_kernels.cu",
     "transformer_kernels.cu", "merge_kernels.cu", "hash_kernels.cu", "tdigest_kernels.cu",
 )
-HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh", "rows.cuh")
+HEADERS = ("common.cuh", "sketch_hash.cuh", "hash64.cuh", "rows.cuh", "tdigest_cluster.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "_build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-O3", "-std=c++17", ARCH, "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -120,8 +121,11 @@ _SIGNATURES = {
         _P, _P, _P, ctypes.c_uint, _I, _LL, _P, _P, _I, _P, _I, _I, _P, _P, _P,
     ),
     "px_log_histogram_update": (
-        _P, _LL, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P, _I, _P,
+        _P, _I, _LL, _P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _P, _I, _P, _P,
     ),
+    "px_log_histogram_geometry": (_LL, _I, _I, _I, _P),
+    "px_empty_launch": (_I, _I, _I, _P),
+    "px_sm_clock_khz": (ctypes.POINTER(ctypes.c_int),),
     "px_hist_quantiles": (
         _P, _I, _I, _P, _I, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, _P, _P,
@@ -134,7 +138,8 @@ _SIGNATURES = {
     ),
     "px_tdigest_pack": (_P, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
     "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _P, _P),
-    "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    "px_tdigest_merge_geometry": (_I, _I, _P),
     "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
     "px_segment_minmax": (_P, _I, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -275,6 +280,26 @@ def smem_optin_bytes(device: torch.device) -> int:
     return _smem_optin[index]
 
 
+def empty_launch(device: torch.device, grid: int, threads: int, smem: int = 0) -> None:
+    """Launches an empty kernel of ``grid`` CTAs of ``threads`` (``smem``
+    bytes of dynamic shared memory) on ``device``'s current stream: the
+    floor under a kernel's launch of that shape. No port kernel, so not
+    counted in LAUNCHES."""
+    with torch.cuda.device(device):
+        status = library().px_empty_launch(
+            grid, threads, smem, torch.cuda.current_stream(device).cuda_stream)
+    _check(status, "empty_launch")
+
+
+def sm_clock_khz(device: torch.device) -> int:
+    """The SM clock's rate (kHz) of ``device``: H3's and H8's probe stamps
+    are its cycles (clock64)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _check(library().px_sm_clock_khz(ctypes.byref(out)), "clock query")
+    return out.value
+
+
 def _check(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {status}")
@@ -319,15 +344,6 @@ def _gids_mask(gids, mask, n, device):
     if mask.shape[0] != n:
         raise ValueError(f"mask has {mask.shape[0]} rows, expected {n}")
     return mask
-
-
-def uses_shared(kernel: str, device: torch.device, num_segments: int, nbins: int) -> bool:
-    """Whether ``kernel``'s per-CTA partial fits ``device``'s opt-in shared
-    memory."""
-    if kernel != "log_histogram_update":
-        raise ValueError(kernel)
-    nbytes = num_segments * nbins * 4
-    return nbytes <= smem_optin_bytes(device)
 
 
 # Row kinds of H1, H5, H6 and H11 (rows.cuh RowKind): how a staged row's
@@ -561,26 +577,68 @@ def segment_rows_sum_f64(rows, gids: torch.Tensor, mask: Optional[torch.Tensor],
     return out
 
 
+H3_CLUSTER = 8  # CTAs of a cluster of H3's cluster lane (kCluster of hopper_kernels.cu)
+H3_PROBE = 6  # probe words: [0] global atomics, [2..5] CTA 0's clocks (start, zeroed, rows, flushed)
+_H3_LANES = ("cluster", "global")
+
+
+def h3_lane(S: int, nbins: int, optin: int) -> tuple[str, int]:
+    """H3's lane over S groups of ``nbins`` bins with ``optin`` bytes of
+    shared memory a block: ("cluster", 8) while the whole [S, nbins]
+    partial of u16 counts (two a word, rounded up to 16 bytes) fits a CTA
+    (each CTA of a cluster of 8 counts into its own); else ("global", 0)."""
+    if S <= 0 or nbins <= 0:
+        raise ValueError(f"H3 needs groups and bins, got S={S}, nbins={nbins}")
+    if -(-(S * nbins) // 8) * 16 <= optin:
+        return "cluster", H3_CLUSTER
+    return "global", 0
+
+
+def h3_geometry(device: torch.device, n: int, S: int, nbins: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA) of H3's launch over
+    ``n`` rows of S groups of ``nbins`` bins on ``device``, as its launcher
+    computes them."""
+    lane, _ = h3_lane(S, nbins, smem_optin_bytes(device))
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        status = library().px_log_histogram_geometry(n, S, nbins, _H3_LANES.index(lane), out)
+    _check(status, "log_histogram_update geometry")
+    return tuple(out)
+
+
 def log_histogram_update(
     values: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
     state: torch.Tensor, min_value: float, log_gamma: float,
+    probe: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """H3: adds each valid row's (group, log bin) count into ``state``
-    (int64 [S, nbins]) IN PLACE and returns it."""
+    (int64 [S, nbins]) IN PLACE and returns it. ``values``: f32, or f64
+    (rounded to f32 in registers, as ``.to(torch.float32)``), read as
+    staged; the lane by ``h3_lane``. ``probe``: None, or int64 [H3_PROBE]
+    on the device: [0] gains the launch's global atomics, [2..5] take CTA
+    0's SM clock at the start and after the zeroing, the rows and the
+    flush."""
     device = gids.device
-    _require(values, "values", torch.float32, device, 1)
+    if values.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"values has dtype {values.dtype}, expected float32 or float64")
+    _require(values, "values", values.dtype, device, 1)
     _require(state, "state", torch.int64, device, 2)
+    if probe is not None:
+        _require(probe, "probe", torch.int64, device, 1)
+        if probe.shape[0] < H3_PROBE:
+            raise ValueError(f"probe has {probe.shape[0]} entries, expected {H3_PROBE}")
     n = values.shape[0]
     mask = _gids_mask(gids, mask, n, device)
     S, nbins = state.shape
     if n == 0 or S == 0:
         return state
+    lane, _ = h3_lane(S, nbins, smem_optin_bytes(device))
     _launch(
         "log_histogram_update", device,
-        values.data_ptr(), n, gids.data_ptr(),
+        values.data_ptr(), int(values.dtype == torch.float64), n, gids.data_ptr(),
         mask.data_ptr() if mask is not None else None,
-        S, nbins, min_value, log_gamma, state.data_ptr(),
-        int(uses_shared("log_histogram_update", device, S, nbins=nbins)),
+        S, nbins, min_value, log_gamma, state.data_ptr(), _H3_LANES.index(lane),
+        probe.data_ptr() if probe is not None else None,
     )
     return state
 
@@ -925,13 +983,29 @@ def tdigest_cluster(
     return sums
 
 
+TD_MERGE_PROBE = 8  # probe words of H8: [0], [1] its exact branches' groups, [2..7] clocks
+
+
+def tdigest_merge_geometry(G: int, C: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA) of H8's launch over
+    G groups of capacity C, as its launcher computes them."""
+    out = (ctypes.c_int * 3)()
+    _check(library().px_tdigest_merge_geometry(G, C, out), "tdigest_merge geometry")
+    return tuple(out)
+
+
 def tdigest_merge(
     a_means: torch.Tensor, a_weights: torch.Tensor, b0: torch.Tensor,
-    b1: torch.Tensor, raw_b: bool = False,
+    b1: torch.Tensor, raw_b: bool = False, probe: Optional[torch.Tensor] = None,
 ) -> dict:
     """H8: the merged digest {"means", "weights"} (new f32 [G, C] tensors)
     of digest a and digest b (f32 means, weights) or, with ``raw_b``, of a
-    and H7b's f64 (weight, value) sums."""
+    and H7's or H7b's f64 (weight, value) sums. ``probe``: None, or int64
+    [TD_MERGE_PROBE] on the device: [0] gains the groups ranked by all
+    pairs (a half whose finite means were not in order), [1] the groups
+    summed by the per-cluster walk (clusters not nondecreasing), [2..7]
+    take CTA 0's SM clock at the start and after each of the five steps
+    (sketch_kernels.cu)."""
     device = a_means.device
     G, C = a_means.shape
     b_dtype = torch.float64 if raw_b else torch.float32
@@ -943,6 +1017,10 @@ def tdigest_merge(
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(G, C)}")
     if 2 * C > 1024:
         raise ValueError(f"t-digest capacity {C} above 512 is not supported")
+    if probe is not None:
+        _require(probe, "probe", torch.int64, device, 1)
+        if probe.shape[0] < TD_MERGE_PROBE:
+            raise ValueError(f"probe has {probe.shape[0]} entries, expected {TD_MERGE_PROBE}")
     out = {
         "means": torch.empty((G, C), dtype=torch.float32, device=device),
         "weights": torch.empty((G, C), dtype=torch.float32, device=device),
@@ -953,6 +1031,7 @@ def tdigest_merge(
         "tdigest_merge", device,
         a_means.data_ptr(), a_weights.data_ptr(), b0.data_ptr(), b1.data_ptr(),
         int(raw_b), G, C, out["means"].data_ptr(), out["weights"].data_ptr(),
+        probe.data_ptr() if probe is not None else None,
     )
     return out
 

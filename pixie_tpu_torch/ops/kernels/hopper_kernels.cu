@@ -26,8 +26,13 @@
 // The TPU versions ride the matrix unit through one-hot einsums and split
 // int64 into 8-bit limbs so that f32 accumulation stays exact; that design
 // exists only because the TPU's scatter unit is slow. Here every reduction
-// adds: H3 into a per-CTA partial in shared memory while it fits the
-// block's opt-in limit, else straight into the output by global atomics.
+// adds. H3 has two lanes (ops/kernels/__init__.py h3_lane), each reading
+// its values as staged (f32 or f64): (a) while an [S, nbins] partial of
+// u16 counts fits a CTA, one CTA of 1024 threads an SM, 8 rows a thread,
+// in clusters of 8, each counting into its own partial by shared atomics,
+// the cluster adding its partials through distributed shared memory before
+// one global atomic a nonzero cell; (b) global atomics, a row a thread a
+// step.
 // H2 has four lanes (ops/kernels/__init__.py h2_lane). Up to S = 64 no f64
 // atomics: (a1) while rows x S's bucket <= 64 cells, each thread's cells
 // private in shared memory; (a2) else runs of equal gids merged in a
@@ -56,9 +61,10 @@
 // streaming loads); lanes (a1) and (a2) add without f64 atomics (a shared
 // f64 atomic is a compare-and-swap loop), so the loads set (a1)'s time;
 // (a2)'s shuffles (about 2R a row) and the last CTA's pass over the
-// partials (about 2-3 us, measured) add to it. H3 with few segments
-// collides on the same shared
-// addresses, and the serialised shared atomics, not HBM, set the time. H4
+// partials (about 2-3 us, measured) add to it. H3's lane (a) is bound by
+// log_bin's arithmetic a row (an IEEE division and logf: the rows phase,
+// measured, takes about twice the loads' time), then by a shared atomic a
+// row and one global atomic a nonzero cell a cluster. H4
 // reads S x 1024 counts once and is latency-bound at small S.
 //
 // Integer sums are unsigned 64-bit wrapping adds, so they are exact mod 2^64
@@ -632,9 +638,11 @@ cudaError_t launch_f64_warps(const F64Args& a, int grid, cudaStream_t st) {
 // bin_index exactly as pixie_tpu/ops/histogram.py:49-56 writes it, in f32:
 // max(v, min) (NaN propagates, as jnp.maximum does), log(v / min) / log(gamma)
 // with the accurate logf (no fast-math), floor, +1, v <= min -> 0, clip.
-__device__ __forceinline__ int log_bin(float vf, float min_value, float log_gamma, int nbins) {
+// unit_min (min 1): v / min is v exactly, so the division is left out.
+__device__ __forceinline__ int log_bin(float vf, float min_value, float log_gamma, int nbins,
+                                       bool unit_min) {
   const float v = (vf != vf) ? vf : fmaxf(vf, min_value);
-  const float x = floorf(logf(v / min_value) / log_gamma);
+  const float x = floorf(logf(unit_min ? v : v / min_value) / log_gamma);
   // cvt.rzi.s32.f32 saturates and maps NaN to 0, as XLA's convert does;
   // the +1 wraps like the reference's int32 add.
   int idx = (int)((unsigned int)__float2int_rz(x) + 1u);
@@ -642,37 +650,154 @@ __device__ __forceinline__ int log_bin(float vf, float min_value, float log_gamm
   return min(max(idx, 0), nbins - 1);
 }
 
-__global__ void log_histogram_update_kernel(const float* __restrict__ values, long long n,
-                                            const int* __restrict__ gids,
-                                            const unsigned char* __restrict__ mask, int S,
-                                            int nbins, float min_value, float log_gamma,
-                                            unsigned long long* __restrict__ state,
-                                            int use_shared) {
-  extern __shared__ unsigned int sh_u32[];
-  const long long cells = (long long)S * nbins;
-  if (use_shared) {
-    for (long long c = threadIdx.x; c < cells; c += blockDim.x) sh_u32[c] = 0u;
-    __syncthreads();
-  }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (mask != nullptr && !mask[i]) continue;
-    const int g = gids[i];
-    if (g < 0 || g >= S) continue;
-    const long long cell = (long long)g * nbins + log_bin(values[i], min_value, log_gamma, nbins);
-    if (use_shared) {
-      atomicAdd(&sh_u32[cell], 1u);
+// H3's rows and lane: the values f32, or f64 rounded to f32 in registers
+// (torch's .to(float32)), read where the fold staged them.
+struct HistArgs {
+  const void* values;
+  int f64;
+  const int* gids;
+  const unsigned char* mask;
+  long long n;
+  int S, nbins;
+  float min_value, log_gamma;
+  int unit_min;  // min_value is 1: v / min is v exactly, so log_bin skips the division
+  int vec;       // values, gids and mask take vector loads
+  int part;      // cells a rank flushes (cluster lane), a multiple of 8
+  unsigned long long* state;
+  long long* probe;  // null, or int64 [H3_PROBE]: [0] global atomics, [2..5] CTA 0's clocks
+};
+
+constexpr int kHistThreads = 1024;  // the cluster lane's CTA: one an SM
+constexpr int kHistChunks = 7;      // chunks of 8 rows a thread at most: u16 counts stay exact
+
+__device__ __forceinline__ void hist_clock(const HistArgs& a, int k) {
+  if (a.probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) a.probe[k] = clock64();
+}
+
+__device__ __forceinline__ float hist_value(const HistArgs& a, long long i) {
+  return a.f64 ? __double2float_rn(((const double*)a.values)[i]) : ((const float*)a.values)[i];
+}
+
+__device__ __forceinline__ long long hist_cell(const HistArgs& a, int g, float v) {
+  return (long long)g * a.nbins + log_bin(v, a.min_value, a.log_gamma, a.nbins, a.unit_min != 0);
+}
+
+// The (group, log bin) cell of rows i0 .. i0 + 7, -1 for a row that adds
+// nothing.
+__device__ __forceinline__ void hist_cells8(const HistArgs& a, long long i0,
+                                            long long (&cell)[px::kRowsPerThread]) {
+  int g[px::kRowsPerThread];
+  px::load_gids8(a.gids, a.mask, i0, a.n, a.S, a.vec != 0, g);
+  float v[px::kRowsPerThread];
+  if (a.vec && i0 + px::kRowsPerThread <= a.n) {
+    if (a.f64) {
+      const double2* p = reinterpret_cast<const double2*>((const double*)a.values + i0);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const double2 x = __ldcs(p + k);
+        v[2 * k] = __double2float_rn(x.x);
+        v[2 * k + 1] = __double2float_rn(x.y);
+      }
     } else {
-      atomicAdd(&state[cell], 1ull);
+      const float4* p = reinterpret_cast<const float4*>((const float*)a.values + i0);
+      const float4 x = __ldcs(p), y = __ldcs(p + 1);
+      v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      v[j] = i0 + j < a.n ? hist_value(a, i0 + j) : 0.0f;
     }
   }
-  if (use_shared) {
-    __syncthreads();
-    for (long long c = threadIdx.x; c < cells; c += blockDim.x) {
-      const unsigned int v = sh_u32[c];
-      if (v != 0u) atomicAdd(&state[c], (unsigned long long)v);
+#pragma unroll
+  for (int j = 0; j < px::kRowsPerThread; ++j) cell[j] = g[j] < 0 ? -1 : hist_cell(a, g[j], v[j]);
+}
+
+// Adds the CTA's count of global atomics into probe[0].
+__device__ __forceinline__ void hist_count_atomics(const HistArgs& a, unsigned long long k) {
+  if (a.probe == nullptr) return;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) k += __shfl_xor_sync(0xFFFFFFFFu, k, w);
+  if ((threadIdx.x & 31) == 0 && k != 0ull) {
+    atomicAdd((unsigned long long*)&a.probe[0], k);
+  }
+}
+
+// The cluster lane, a cluster of kCluster CTAs, one CTA an SM. Each CTA
+// counts its rows into its own [S, nbins] partial of u16 counts, two a
+// word, by shared atomics; after the cluster's barrier each rank adds its
+// part of the cells across the kCluster partials through distributed
+// shared memory (16-byte reads: 8 cells) and issues one global atomic a
+// nonzero cell, not one a CTA or a row. A thread takes at most
+// kHistChunks chunks of 8 rows (the launch's grid sees to it), so a CTA
+// counts at most 57,344 rows and no u16 count carries into its neighbour.
+__global__ void __launch_bounds__(kHistThreads) hist_cluster_kernel(const HistArgs a) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned int sh_hist[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const long long cells = (long long)a.S * a.nbins;
+  hist_clock(a, 2);
+  for (long long w = threadIdx.x; w < (cells + 7) / 8; w += blockDim.x) {
+    reinterpret_cast<uint4*>(sh_hist)[w] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  hist_clock(a, 3);
+  const long long chunks = (a.n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x; ch < chunks;
+       ch += stride) {
+    long long cell[px::kRowsPerThread];
+    hist_cells8(a, ch * px::kRowsPerThread, cell);
+#pragma unroll
+    for (int j = 0; j < px::kRowsPerThread; ++j) {
+      if (cell[j] >= 0) atomicAdd(&sh_hist[cell[j] >> 1], 1u << ((cell[j] & 1) << 4));
     }
   }
+  cluster.sync();  // every row is counted
+  hist_clock(a, 4);
+  const long long lo = (long long)cluster.block_rank() * a.part;
+  const long long hi = min(cells, lo + a.part);
+  unsigned long long issued = 0ull;
+  for (long long c = lo + 8ll * threadIdx.x; c < hi; c += 8ll * blockDim.x) {
+    unsigned int k[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < kCluster; ++q) {
+      const uint4 x = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(sh_hist + c / 2, q));
+      const unsigned int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        k[2 * j] += w[j] & 0xFFFFu;
+        k[2 * j + 1] += w[j] >> 16;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (k[j] != 0u && c + j < hi) {
+        atomicAdd(&a.state[c + j], (unsigned long long)k[j]);
+        ++issued;
+      }
+    }
+  }
+  hist_count_atomics(a, issued);
+  cluster.sync();  // no CTA leaves while others read its partial
+  hist_clock(a, 5);
+}
+
+// (b) any S: every row straight into the state by a global atomic, a row a
+// thread a step (more rows a thread in flight lost to the L2's same-cell
+// atomics at S = 64).
+__global__ void __launch_bounds__(px::kThreads) hist_global_kernel(const HistArgs a) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  unsigned long long issued = 0ull;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
+    if (a.mask != nullptr && !a.mask[i]) continue;
+    const int g = a.gids[i];
+    if (g < 0 || g >= a.S) continue;
+    atomicAdd(&a.state[hist_cell(a, g, hist_value(a, i))], 1ull);
+    ++issued;
+  }
+  hist_count_atomics(a, issued);
 }
 
 // ---------------------------------------------------------------- H4
@@ -730,24 +855,27 @@ __global__ void hist_quantiles_kernel(const long long* __restrict__ state, int n
   }
 }
 
-// The register lane's launch: one wave of CTAs (as many as fit each SM).
-// A launch of ``kernel`` in clusters of ``csize`` CTAs: as many clusters as
-// fit the card at once (one wave), no more CTAs than ``want`` rounds up to.
-// Clusters of rows_sum_cluster_kernel at a shared size that fit the card at
-// once, by device, found once: the attribute calls and the occupancy query
-// cost the host more than a small launch.
+// Clusters of a kernel at a shared size that fit the card at once, by
+// device, found once: the attribute calls and the occupancy query cost the
+// host more than a small launch.
 struct ClusterFit {
   int device;
+  const void* fn;
   size_t smem;
   int clusters;
 };
 std::mutex g_fit_lock;
 std::vector<ClusterFit> g_fits;
 
-// The cluster lane's launch: one wave of clusters, no more CTAs than
-// ``want`` rounds up to.
-cudaError_t launch_cluster_lane(const RowArgs& a, size_t smem, long long want,
-                                cudaStream_t st) {
+// A launch of ``kernel`` in clusters of kCluster CTAs of ``threads`` with
+// ``smem`` bytes each: one wave of as many clusters as fit the card at
+// once, at most ``cap`` CTAs and no more than ``want`` CTAs round up to,
+// but at least ``least`` rounded up (then in more waves). Fills ``cfg``
+// (its stream 0) and ``attr``, the cluster attribute it points to.
+template <typename Args>
+cudaError_t cluster_config(void (*kernel)(Args), size_t smem, int threads, long long want,
+                           long long cap, long long least, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -755,38 +883,51 @@ cudaError_t launch_cluster_lane(const RowArgs& a, size_t smem, long long want,
   {
     std::lock_guard<std::mutex> hold(g_fit_lock);
     for (const ClusterFit& f : g_fits) {
-      if (f.device == dev && f.smem == smem) clusters = f.clusters;
+      if (f.device == dev && f.fn == (const void*)kernel && f.smem == smem) clusters = f.clusters;
     }
   }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(px::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(kCluster);
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
   if (clusters == 0) {
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(rows_sum_cluster_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveClusters(&clusters, (void*)rows_sum_cluster_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, cfg);
     if (err != cudaSuccess) return err;
     if (clusters < 1) return cudaErrorInvalidConfiguration;
     std::lock_guard<std::mutex> hold(g_fit_lock);
-    g_fits.push_back({dev, smem, clusters});
+    g_fits.push_back({dev, (const void*)kernel, smem, clusters});
   }
   long long ctas = (long long)clusters * kCluster;
+  if (ctas > cap) ctas = cap / kCluster * kCluster;
   const long long need = (want + kCluster - 1) / kCluster * kCluster;
-  if (need < ctas) ctas = need > kCluster ? need : kCluster;
-  cfg.gridDim = dim3((unsigned)ctas);
+  if (need < ctas) ctas = need;
+  if (ctas < least) ctas = (least + kCluster - 1) / kCluster * kCluster;
+  if (ctas < kCluster) ctas = kCluster;
+  cfg->gridDim = dim3((unsigned)ctas);
+  return cudaSuccess;
+}
+
+// The cluster lane's launch: one wave of clusters, no more CTAs than
+// ``want`` rounds up to.
+cudaError_t launch_cluster_lane(const RowArgs& a, size_t smem, long long want,
+                                cudaStream_t st) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(rows_sum_cluster_kernel, smem, px::kThreads, want, 1ll << 40,
+                                   0, attr, &cfg);
+  if (err != cudaSuccess) return err;
+  cfg.stream = st;
   err = cudaLaunchKernelEx(&cfg, rows_sum_cluster_kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -816,6 +957,11 @@ cudaError_t launch_regs(const RowArgs& a, int first, cudaStream_t st) {
     default: return cudaErrorInvalidValue;
   }
 }
+
+// An empty kernel on ``grid`` CTAs of ``threads`` with ``smem`` bytes of
+// dynamic shared memory: the floor under a launch of that shape (timed
+// beside H3 and H8; it replaces no TPU kernel and no path calls it).
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -962,18 +1108,93 @@ int px_segment_rows_sum_f64(const void* const* ptrs, const int* kinds, const lon
   return (int)cudaGetLastError();
 }
 
-// state: int64 [S, nbins], updated in place.
-int px_log_histogram_update(const void* values, long long n, const void* gids,
+// H3's launch over n rows of S groups of nbins bins in ``lane`` (0: the
+// cluster lane, each CTA holding the whole [S, nbins] partial of u16
+// counts; 1: global atomics; ops/kernels/__init__.py h3_lane chooses):
+// ``cfg`` (its stream 0; ``attr`` its cluster attribute on lane 0) and the
+// cells a rank flushes.
+static cudaError_t hist_config(long long n, int S, int nbins, int lane,
+                               cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg, int* part) {
+  if (S <= 0 || nbins <= 0 || n <= 0 || lane < 0 || lane > 1) return cudaErrorInvalidValue;
+  *part = 0;
+  if (lane == 1) {
+    *cfg = {};
+    cfg->gridDim = dim3((unsigned)grid_for(n, 8));
+    cfg->blockDim = dim3(kThreads);
+    return cudaSuccess;
+  }
+  const long long cells = (long long)S * nbins;
+  if (cells >= (1ll << 31)) return cudaErrorInvalidValue;
+  // A rank's cells, a multiple of 8 (16 bytes of u16 counts); one CTA an
+  // SM, and at least enough CTAs that no thread takes more than
+  // kHistChunks chunks of rows.
+  *part = (int)(((cells + kCluster - 1) / kCluster + 7) / 8 * 8);
+  const long long chunks = (n + px::kRowsPerThread - 1) / px::kRowsPerThread;
+  const long long want = (chunks + kHistThreads - 1) / kHistThreads;
+  const long long least = (chunks + kHistChunks * kHistThreads - 1) / (kHistChunks * kHistThreads);
+  return cluster_config(hist_cluster_kernel, (size_t)((cells + 7) / 8) * 16, kHistThreads, want,
+                        px::num_sms() / kCluster * kCluster, least, attr, cfg);
+}
+
+// H3. values: f32, or f64 (f64 1) rounded to f32; state: int64 [S, nbins],
+// updated in place; lane as hist_config reads it. probe: null, or int64
+// [H3_PROBE] (its counter added to, its clocks written).
+int px_log_histogram_update(const void* values, int f64, long long n, const void* gids,
                             const void* mask, int S, int nbins, float min_value,
-                            float log_gamma, void* state, int use_shared, void* stream) {
-  const size_t smem = use_shared ? (size_t)S * nbins * sizeof(unsigned int) : 0;
-  cudaError_t err = allow_smem(log_histogram_update_kernel, smem);
+                            float log_gamma, void* state, int lane, void* probe,
+                            void* stream) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  HistArgs a = {};
+  cudaError_t err = hist_config(n, S, nbins, lane, attr, &cfg, &a.part);
   if (err != cudaSuccess) return (int)err;
-  log_histogram_update_kernel<<<grid_for(n, use_shared ? 2 : 8), kThreads, smem,
-                                (cudaStream_t)stream>>>(
-      (const float*)values, n, (const int*)gids, (const unsigned char*)mask, S, nbins,
-      min_value, log_gamma, (unsigned long long*)state, use_shared);
+  a.values = values;
+  a.f64 = f64;
+  a.gids = (const int*)gids;
+  a.mask = (const unsigned char*)mask;
+  a.n = n;
+  a.S = S;
+  a.nbins = nbins;
+  a.min_value = min_value;
+  a.log_gamma = log_gamma;
+  a.state = (unsigned long long*)state;
+  a.probe = (long long*)probe;
+  a.vec = px::vec_aligned(values, f64 ? px::kF64 : px::kI32) && px::vec_aligned(gids, px::kI32) &&
+          (mask == nullptr || (uintptr_t)mask % 8 == 0);
+  a.unit_min = min_value == 1.0f;
+  cfg.stream = (cudaStream_t)stream;
+  err = cudaLaunchKernelEx(&cfg, lane == 0 ? hist_cluster_kernel : hist_global_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// H3's launch shape over n rows in ``lane``: out[0] CTAs, out[1] threads a
+// CTA, out[2] bytes of dynamic shared memory a CTA.
+int px_log_histogram_geometry(long long n, int S, int nbins, int lane, int* out) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int part = 0;
+  cudaError_t err = hist_config(n, S, nbins, lane, attr, &cfg, &part);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = (int)cfg.gridDim.x;
+  out[1] = (int)cfg.blockDim.x;
+  out[2] = (int)cfg.dynamicSmemBytes;
+  return 0;
+}
+
+int px_empty_launch(int grid, int threads, int smem, void* stream) {
+  cudaError_t err = allow_smem(empty_kernel, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  empty_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The SM clock's rate (kHz) of this device, for the probes' clock64 stamps.
+int px_sm_clock_khz(int* khz) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaDeviceGetAttribute(khz, cudaDevAttrClockRate, dev);
 }
 
 // out: f64 [S, Q].

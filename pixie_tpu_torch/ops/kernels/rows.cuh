@@ -1,4 +1,4 @@
-// Typed row loads shared by H1 (hopper_kernels.cu), H5 and H6
+// Typed row loads shared by H1 and H3's gids (hopper_kernels.cu), H5 and H6
 // (sketch_kernels.cu) and H11 (minmax_kernels.cu):
 // a column is read where the fold staged it (bool, uint8, uint16, int32 or
 // int64, a frame-of-reference offset beside it) and widened in registers,

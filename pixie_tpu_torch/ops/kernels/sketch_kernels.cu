@@ -49,7 +49,11 @@
 // joins the rows of a (group, cluster) run across a warp's lanes by
 // shuffles: one pair of global f64 adds a run and warp, not a row; its f32
 // rank, division and asinf a row, not its 4 bytes, set its time.
-// H8-H10 are one CTA (or thread) per group and
+// H8 is one CTA a group: its 2C centroids' ranks by a binary search a
+// key (not 2C compares), one scan, the cluster of each midpoint and one
+// segmented scan, about 2 barriers a step; at the main path's 16 groups
+// it is bound by its latency (16 CTAs, a launch, dependent shared-memory
+// steps), not by its bytes. H9 and H10 are one CTA (or thread) per group and
 // latency-bound at the main path's 16 groups. H30 is a gather: one thread a
 // query hashes its word once and reads its group's depth cells, so it moves
 // 12 bytes in and 8 out a query plus the cells it touches; at config 10's
@@ -61,10 +65,12 @@
 // FMAs and each rounds on its own, as the reference's quantile_values does
 // when XLA-CPU compiles it alone (inside a larger fused program XLA-CPU
 // contracts some of them; PERF.md's quantile bound covers that).
-// asinf is CUDA's accurate one (no fast-math); it may differ from XLA's and
-// the plain version's arcsin by an ulp or two, which moves a cluster id by
-// one only where k(q) * capacity lies within 1e-4 of an integer (the
-// Fault-4 contract, PERF.md). Per-cluster sums of H7b add in f64 and round
+// H7b's asinf is CUDA's accurate one (no fast-math); it may differ from
+// XLA's and the plain version's arcsin by an ulp or two, which moves a
+// cluster id by one only where k(q) * capacity lies within 1e-4 of an
+// integer (the Fault-4 contract, PERF.md). H8 takes the plain version's
+// f64 asin rounded to f32 (tdigest_cluster.cuh), so its clusters are the
+// plain version's on the card. Per-cluster sums of H7b add in f64 and round
 // to f32 once.
 
 #include <cuda_runtime.h>
@@ -73,6 +79,7 @@
 #include "common.cuh"
 #include "rows.cuh"
 #include "sketch_hash.cuh"
+#include "tdigest_cluster.cuh"
 
 namespace {
 
@@ -608,69 +615,230 @@ __device__ __forceinline__ uint32_t sort_key(float x) {
   return order_key(x == 0.0f ? 0.0f : x);
 }
 
-// One CTA of 2C threads per group: the 2C centroids of a and b, a stable
-// sort by (weight > 0 ? mean : +inf) as a rank count over unique
-// (key, index) pairs, the f32 cumulative weights (exact for integer weights
-// below 2^24), cluster ids of their midpoints, and each cluster's f32 sums
-// in sorted order. With raw_b, b is H7b's f64 (weight, value) sums and its
-// centroids are built as the reference's update builds its batch.
-__global__ void tdigest_merge_kernel(const float* __restrict__ a_means,
-                                     const float* __restrict__ a_weights,
-                                     const void* __restrict__ b0, const void* __restrict__ b1,
-                                     int raw_b, int C, float* __restrict__ out_means,
-                                     float* __restrict__ out_weights) {
-  extern __shared__ unsigned long long sh_keys[];
+// One CTA per group, 2C threads (rounded up to whole warps), the 2C
+// centroids of a (threads 0 .. C - 1) and b, in five steps:
+//  (a) classes: each centroid's argsort key (weight > 0 ? mean : +inf, by
+//      sort_key) is finite (below +inf's key), +inf (the empties and +inf
+//      means) or NaN; ballots and popc give each its index within its class
+//      and within its half's finite keys, which are packed in order;
+//  (b) rank: when each half's finite keys are nondecreasing (checked), a
+//      finite key's rank is its index among its half's plus a binary search
+//      into the other half's (an a key counts b's keys below it, a b key
+//      a's at or below it: ties go to a first, as the stable argsort puts
+//      them); +inf and NaN keys follow in concatenation order. Otherwise the
+//      group counts every (key, index) pair below its own (all pairs, exact);
+//  (c) the f32 cumulative weights in sorted order by a warp-shuffle scan and
+//      the warps' totals in shared memory (exact for integer weights below
+//      2^24, as the plain version's cumsum);
+//  (d) the cluster of each midpoint (tdigest_cluster.cuh: the plain
+//      version's arithmetic, nondecreasing in the midpoint);
+//  (e) when the clusters are nondecreasing along the sorted order (checked),
+//      each cluster's f32 sums (weights, means * weights) by a segmented
+//      warp-shuffle scan, runs that cross warps joined through the warps'
+//      last partial sums, the run's last position writing its cluster;
+//      clusters with no run get 0. Otherwise each of the C threads walks the
+//      2C centroids for its own cluster (exact).
+// With raw_b, b is H7's or H7b's f64 (weight, value) sums and its
+// centroids are built as the reference's update builds its batch. probe
+// (null, or int64 [TD_MERGE_PROBE]): [0] groups ranked by all pairs, [1]
+// groups summed by the per-cluster walk, [2..7] CTA 0's SM clock (clock64)
+// at the start and after steps (a) (the loads too), (b), (c), (d), (e).
+constexpr uint32_t kInfKey = 0xFF800000u;  // sort_key(+inf)
+constexpr int kMergeMaxWarps = 32;
+
+__device__ __forceinline__ void probe_clock(long long* probe, int k) {
+  if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) probe[k] = clock64();
+}
+
+// The first index in [0, len) of sorted v whose value is >= x (strict) or
+// > x (!strict).
+__device__ __forceinline__ int bound_in(const uint32_t* v, int len, uint32_t x, bool strict) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (strict ? v[mid] < x : v[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(1024) tdigest_merge_kernel(
+    const float* __restrict__ a_means, const float* __restrict__ a_weights,
+    const void* __restrict__ b0, const void* __restrict__ b1, int raw_b, int C,
+    float* __restrict__ out_means, float* __restrict__ out_weights,
+    long long* __restrict__ probe) {
+  extern __shared__ __align__(16) uint32_t sh_m[];
   const int n2 = 2 * C;
-  float* sm = (float*)(sh_keys + n2);
-  float* sw = sm + n2;
-  float* cum = sw + n2;
-  int* cl = (int*)(cum + n2);
-  const int t = threadIdx.x;
+  uint32_t* keys = sh_m;                        // [n2] argsort keys by index
+  uint32_t* fin = keys + n2;                    // [n2] a's finite keys at 0, b's at C
+  float* sm = (float*)(fin + n2);               // [n2] means, sorted
+  float* sw = sm + n2;                          // [n2] weights, sorted
+  int* cls = (int*)(sw + n2);                   // [n2] clusters, sorted
+  float* ow = (float*)(cls + n2);               // [C] the clusters' weights
+  float* om = ow + C;                           // [C] their means * weights
+  __shared__ int sh_wc[4][kMergeMaxWarps];      // class counts a warp, scanned
+  __shared__ int sh_tot[4];
+  __shared__ float sh_ws[kMergeMaxWarps], sh_wm[kMergeMaxWarps];
+  __shared__ int sh_wf[kMergeMaxWarps];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, warps = blockDim.x >> 5;
+  const bool live = t < n2;
   const long long base = (long long)blockIdx.x * C;
-  float mv, wv;
+  probe_clock(probe, 2);
+  float mv = 0.0f, wv = 0.0f;
   if (t < C) {
     mv = a_means[base + t];
     wv = a_weights[base + t];
-  } else if (raw_b) {
+  } else if (live && raw_b) {
     wv = (float)((const double*)b0)[base + t - C];
     const float vs = (float)((const double*)b1)[base + t - C];
     mv = wv > 0.0f ? __fdiv_rn(vs, fmaxf(wv, 1.0f)) : 0.0f;
-  } else {
+  } else if (live) {
     mv = ((const float*)b0)[base + t - C];
     wv = ((const float*)b1)[base + t - C];
   }
-  const unsigned long long mine =
-      ((unsigned long long)sort_key(wv > 0.0f ? mv : __int_as_float(0x7f800000)) << 32) | (unsigned)t;
-  sh_keys[t] = mine;
-  __syncthreads();
-  int rank = 0;
-  for (int j = 0; j < n2; ++j) rank += sh_keys[j] < mine;
-  sm[rank] = mv;
-  sw[rank] = wv;
-  __syncthreads();
-  cum[t] = sw[t];
-  __syncthreads();
-  for (int off = 1; off < n2; off <<= 1) {
-    const float add = t >= off ? cum[t - off] : 0.0f;
-    __syncthreads();
-    cum[t] = __fadd_rn(cum[t], add);
-    __syncthreads();
-  }
-  const float total = cum[n2 - 1];
-  const float q = __fdiv_rn(__fsub_rn(cum[t], __fmul_rn(0.5f, sw[t])), fmaxf(total, 1.0f));
-  cl[t] = cluster_id(q, C);
-  __syncthreads();
   if (t < C) {
-    float ws = 0.0f, ms = 0.0f;
+    ow[t] = 0.0f;
+    om[t] = 0.0f;
+  }
+  // (a) classes: 0 finite, 1 +inf, 2 NaN; 3 counts the finite keys of a.
+  const uint32_t key = sort_key(wv > 0.0f ? mv : __int_as_float(0x7f800000));
+  const int kind = !live ? -1 : key < kInfKey ? 0 : key == kInfKey ? 1 : 2;
+  if (live) keys[t] = key;
+  const unsigned int below = (1u << lane) - 1u;
+  int before[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const unsigned int b = __ballot_sync(0xFFFFFFFFu, c < 3 ? kind == c : (kind == 0 && t < C));
+    before[c] = __popc(b & below);
+    if (lane == 0) sh_wc[c][warp] = __popc(b);
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive scans of the warps' counts, and the totals
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int x = lane < warps ? sh_wc[c][lane] : 0;
+      int s = x;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xFFFFFFFFu, s, d);
+        if (lane >= d) s += u;
+      }
+      if (lane < warps) sh_wc[c][lane] = s - x;
+      if (lane == 31) sh_tot[c] = s;
+    }
+  }
+  __syncthreads();
+  const int na = sh_tot[3], nb = sh_tot[0] - na;
+  const int pos = kind >= 0 ? sh_wc[kind][warp] + before[kind] : 0;  // index within the class
+  const int half_pos = t < C ? pos : pos - na;  // a finite key's index within its half
+  if (kind == 0) fin[(t < C ? 0 : C) + half_pos] = key;
+  __syncthreads();
+  const bool unsorted = __syncthreads_or(kind == 0 && half_pos > 0 &&
+                                         fin[(t < C ? 0 : C) + half_pos - 1] > key);
+  probe_clock(probe, 3);
+  // (b) rank
+  int rank = 0;
+  if (!unsorted) {
+    if (kind == 0) {
+      rank = half_pos + (t < C ? bound_in(fin + C, nb, key, true) : bound_in(fin, na, key, false));
+    } else if (kind == 1) {
+      rank = sh_tot[0] + pos;
+    } else if (kind == 2) {
+      rank = sh_tot[0] + sh_tot[1] + pos;
+    }
+  } else if (live) {
     for (int j = 0; j < n2; ++j) {
-      if (cl[j] == t) {
-        ws = __fadd_rn(ws, sw[j]);
-        ms = __fadd_rn(ms, __fmul_rn(sm[j], sw[j]));
+      const uint32_t k = keys[j];
+      rank += k < key || (k == key && j < t);
+    }
+  }
+  if (unsorted && t == 0 && probe != nullptr) atomicAdd((unsigned long long*)&probe[0], 1ull);
+  if (live) {
+    sm[rank] = mv;
+    sw[rank] = wv;
+  }
+  __syncthreads();
+  probe_clock(probe, 4);
+  // (c) the cumulative weights in sorted order
+  const float w = live ? sw[t] : 0.0f, m = live ? sm[t] : 0.0f;
+  float cum = w;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float u = __shfl_up_sync(0xFFFFFFFFu, cum, d);
+    if (lane >= d) cum = __fadd_rn(cum, u);
+  }
+  if (lane == 31) sh_ws[warp] = cum;
+  __syncthreads();
+  float carry = 0.0f, total = 0.0f;
+  for (int k = 0; k < warps; ++k) {
+    if (k == warp) carry = total;
+    total = __fadd_rn(total, sh_ws[k]);
+  }
+  cum = __fadd_rn(carry, cum);
+  probe_clock(probe, 5);
+  // (d) the cluster of each midpoint
+  const int c = live ? px::td_q_cluster(
+      __fdiv_rn(__fsub_rn(cum, __fmul_rn(0.5f, w)), fmaxf(total, 1.0f)), C) : C;
+  if (live) cls[t] = c;
+  __syncthreads();
+  const int prev = t > 0 && live ? cls[t - 1] : -1;
+  const bool descends = __syncthreads_or(live && c < prev);
+  probe_clock(probe, 6);
+  // (e) the clusters' sums
+  const float mw = __fmul_rn(m, w);
+  if (!descends) {
+    const bool head = live && c != prev;
+    float s_w = w, s_m = mw;
+    int f = head;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int fu = __shfl_up_sync(0xFFFFFFFFu, f, d);
+      const float wu = __shfl_up_sync(0xFFFFFFFFu, s_w, d);
+      const float mu = __shfl_up_sync(0xFFFFFFFFu, s_m, d);
+      if (lane >= d) {
+        if (!f) {
+          s_w = __fadd_rn(wu, s_w);
+          s_m = __fadd_rn(mu, s_m);
+        }
+        f = f | fu;
       }
     }
-    out_weights[base + t] = ws;
-    out_means[base + t] = ws > 0.0f ? __fdiv_rn(ms, fmaxf(ws, 1e-9f)) : 0.0f;
+    if (lane == 31) {
+      sh_ws[warp] = s_w;
+      sh_wm[warp] = s_m;
+      sh_wf[warp] = f;
+    }
+    __syncthreads();
+    const bool tail = live && (t == n2 - 1 || cls[t + 1] != c);
+    if (tail) {
+      for (int k = warp - 1; !f && k >= 0; --k) {  // the run began in an earlier warp
+        s_w = __fadd_rn(sh_ws[k], s_w);
+        s_m = __fadd_rn(sh_wm[k], s_m);
+        f = sh_wf[k];
+      }
+      ow[c] = s_w;
+      om[c] = s_m;
+    }
+  } else {
+    if (t == 0 && probe != nullptr) atomicAdd((unsigned long long*)&probe[1], 1ull);
+    if (t < C) {
+      float ws = 0.0f, ms = 0.0f;
+      for (int j = 0; j < n2; ++j) {
+        if (cls[j] == t) {
+          ws = __fadd_rn(ws, sw[j]);
+          ms = __fadd_rn(ms, __fmul_rn(sm[j], sw[j]));
+        }
+      }
+      ow[t] = ws;
+      om[t] = ms;
+    }
   }
+  __syncthreads();
+  if (t < C) {
+    const float ws = ow[t];
+    out_weights[base + t] = ws;
+    out_means[base + t] = ws > 0.0f ? __fdiv_rn(om[t], fmaxf(ws, 1e-9f)) : 0.0f;
+  }
+  probe_clock(probe, 7);
 }
 
 // ---------------------------------------------------------------- H9
@@ -923,19 +1091,34 @@ int px_tdigest_cluster(const void* keys, long long n, const void* counts, int G,
   return (int)cudaGetLastError();
 }
 
+// H8's CTA: a thread a key of the 2C, rounded up to whole warps, and 12
+// words of shared memory a centroid.
+static int td_merge_threads(int C) { return (2 * C + 31) / 32 * 32; }
+static size_t td_merge_smem(int C) { return (size_t)12 * C * sizeof(uint32_t); }
+
 // a_*: f32 [G, C]; b0/b1: f32 [G, C] means/weights, or with raw_b f64
 // [G, C] weight/value sums; out_*: f32 [G, C].
 int px_tdigest_merge(const void* a_means, const void* a_weights, const void* b0,
                      const void* b1, int raw_b, int G, int C, void* out_means,
-                     void* out_weights, void* stream) {
+                     void* out_weights, void* probe, void* stream) {
   if (G <= 0) return 0;
-  const size_t smem = (size_t)2 * C * (sizeof(unsigned long long) + 3 * sizeof(float) + sizeof(int));
+  if (C <= 0 || 2 * C > 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = td_merge_smem(C);
   cudaError_t err = allow_smem(tdigest_merge_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  tdigest_merge_kernel<<<G, 2 * C, smem, (cudaStream_t)stream>>>(
+  tdigest_merge_kernel<<<G, td_merge_threads(C), smem, (cudaStream_t)stream>>>(
       (const float*)a_means, (const float*)a_weights, b0, b1, raw_b, C, (float*)out_means,
-      (float*)out_weights);
+      (float*)out_weights, (long long*)probe);
   return (int)cudaGetLastError();
+}
+
+// H8's launch shape: out[0] CTAs, out[1] threads a CTA, out[2] bytes of
+// dynamic shared memory a CTA.
+int px_tdigest_merge_geometry(int G, int C, int* out) {
+  out[0] = G;
+  out[1] = td_merge_threads(C);
+  out[2] = (int)td_merge_smem(C);
+  return 0;
 }
 
 // out: f64 [G, Q].

@@ -64,11 +64,11 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tdigest_cluster.cuh"
 
 namespace {
 
 constexpr int kTuThreads = 1024;
-constexpr float kPiF = 3.14159265358979323846f;
 constexpr uint32_t kNone = 0xFFFFFFFFu;
 constexpr int kLine = 32;  // u32 words of a 128-byte line
 
@@ -132,29 +132,13 @@ __device__ __forceinline__ float from_order_key(uint32_t mp) {
   return __uint_as_float((mp >> 31) ? (mp & 0x7FFFFFFFu) : ~mp);
 }
 
-// The f32 steps after the asin: / pi + 0.5, * C, floor, clip.
-__device__ __forceinline__ int k_cluster(float a, int C) {
-  const float k = __fadd_rn(__fdiv_rn(a, kPiF), 0.5f);
-  const int cid = __float2int_rz(floorf(__fmul_rn(k, (float)C)));
-  return min(max(cid, 0), C - 1);
-}
-
 // The cluster of rank r in a group of cnt rows, step by step as
-// ops/tdigest.py _row_clusters and _cluster_ids compute it, the asin in f64
-// rounded to f32. CUDA's asinf lies within a few ulps of that value; where
-// the f32 steps after it give one cluster for every value 16 ulps either
-// side of asinf's, that is the cluster, else the f64 asin decides.
+// ops/tdigest.py _row_clusters and _cluster_ids compute it: f32 rank + 0.5,
+// the division by the count, then tdigest_cluster.cuh's td_q_cluster.
 __device__ __forceinline__ int rank_cluster(uint32_t r, uint32_t cnt, int C) {
   const float rank = __uint2float_rn(r);
   const float c = __uint2float_rn(cnt);
-  float q = __fdiv_rn(__fadd_rn(rank, 0.5f), fmaxf(c, 1.0f));
-  q = fminf(fmaxf(q, 1e-7f), (float)(1.0 - 1e-7));
-  const float x = __fsub_rn(__fmul_rn(2.0f, q), 1.0f);
-  const float a32 = asinf(x);
-  const float d = fmaxf(fabsf(a32) * 0x1p-19f, 1e-30f);
-  const int lo = k_cluster(__fsub_rn(a32, d), C);
-  if (lo == k_cluster(__fadd_rn(a32, d), C)) return lo;
-  return k_cluster(__double2float_rn(asin((double)x)), C);
+  return px::td_q_cluster(__fdiv_rn(__fadd_rn(rank, 0.5f), fmaxf(c, 1.0f)), C);
 }
 
 // rank_cluster without its divisions where that is safe: the coordinate
@@ -168,7 +152,7 @@ __device__ __forceinline__ int rank_cluster(uint32_t r, uint32_t cnt, int C) {
 __device__ __forceinline__ int rank_cluster_fast(uint32_t r, uint32_t cnt, float inv, int C) {
   float q = __fmul_rn(__fadd_rn(__uint2float_rn(r), 0.5f), inv);
   q = fminf(fmaxf(q, 1e-7f), (float)(1.0 - 1e-7));
-  const float y = (asinf(2.0f * q - 1.0f) * (1.0f / kPiF) + 0.5f) * (float)C;
+  const float y = (asinf(2.0f * q - 1.0f) * (1.0f / px::kTdPiF) + 0.5f) * (float)C;
   const float f = y - floorf(y);
   const float m = fmaxf(0.1f, 4e-4f * (float)C);  // the bound above scales with C
   if (f > m && f < 1.0f - m) return min(max((int)floorf(y), 0), C - 1);

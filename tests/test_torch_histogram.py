@@ -22,7 +22,7 @@ from pixie_tpu.ops import segment as ref_segment
 from pixie_tpu.udf.builtins.sketch_ops import QUANTILE_QS
 from pixie_tpu.udf.registry import default_registry as ref_registry
 from pixie_tpu_torch import interop
-from pixie_tpu_torch.ops import histogram
+from pixie_tpu_torch.ops import histogram, kernels
 from pixie_tpu_torch.types import DataType
 from pixie_tpu_torch.udf.builtins.sketch_ops import QUANTILE_QS as PORT_QS
 from pixie_tpu_torch.udf.registry import default_registry
@@ -109,3 +109,63 @@ def test_quantile_values_on_carried_state():
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
     assert list(uda.format_output(got)) == list(ref_uda.format_output(want))
     assert PORT_QS == QUANTILE_QS
+
+
+# H3's lanes (ops/kernels h3_lane): the whole [S, nbins] partial of u16
+# counts (two a word, rounded up to 16 bytes) in each CTA of a cluster
+# while it fits the opt-in shared memory, global atomics beyond; at the
+# boundary, for the H100's 227 KB and two smaller limits.
+@pytest.mark.parametrize("optin", [232448, 101376, 49152])
+@pytest.mark.parametrize("nbins", [1024, 100])
+def test_h3_lane_boundaries(optin, nbins):
+    whole = lambda S: -(-S * nbins // 8) * 16  # noqa: E731
+    last_cluster = max(S for S in range(1, 20000) if whole(S) <= optin)
+    assert kernels.h3_lane(1, nbins, optin) == ("cluster", 8)
+    assert kernels.h3_lane(last_cluster, nbins, optin) == ("cluster", 8)
+    assert kernels.h3_lane(last_cluster + 1, nbins, optin) == ("global", 0)
+    if (optin, nbins) == (232448, 1024):  # the main paths' S = 16, then 64 and 600
+        assert last_cluster == 113
+        assert [kernels.h3_lane(S, nbins, optin)[0] for S in (16, 64, 600)] == [
+            "cluster", "cluster", "global"]
+    with pytest.raises(ValueError):
+        kernels.h3_lane(0, nbins, optin)
+
+
+def _off_edge_values(rng, n: int) -> np.ndarray:
+    """n exponential(3e7) values, none within the Fault-1 distance of a
+    bin edge (redrawn until so), a few at and below min and past max."""
+    v = rng.exponential(3e7, n)
+    v[:5] = [0.0, -3.0, 0.5, 2e12, 5e13]
+    bad = _near_edge(v)
+    while bad.any():
+        v[bad] = rng.exponential(3e7, int(bad.sum()))
+        bad = _near_edge(v)
+    return v
+
+
+# The plain version of H3 against the reference's update under both of
+# its lanes, at each of H3's lanes' S: 2^16 + 3 rows, gids out of range,
+# with and without a mask; counts exactly equal (no row lies near a bin
+# edge).
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("S", [16, 64, 600])
+@pytest.mark.parametrize("strategy", ["matmul", "scatter"])
+def test_update_plain_matches_reference_at_h3_lanes(strategy, S, masked):
+    rng = np.random.default_rng([S, masked])
+    n = (1 << 16) + 3
+    v = _off_edge_values(rng, n)
+    gids = rng.integers(-2, S + 2, n).astype(np.int32)
+    mask = rng.random(n) < 0.8 if masked else None
+    ref_segment.set_strategy(strategy)
+    try:
+        want = np.asarray(ref_hist.update(
+            ref_hist.init(S), jnp.asarray(gids), jnp.asarray(v),
+            None if mask is None else jnp.asarray(mask)))
+    finally:
+        ref_segment.set_strategy(None)
+    got = histogram.update_plain(
+        histogram.init(S, "cpu"), torch.from_numpy(gids), torch.from_numpy(v),
+        None if mask is None else torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(got, want)
+    ok = (gids >= 0) & (gids < S) & (True if mask is None else mask)
+    assert got.sum() == ok.sum()

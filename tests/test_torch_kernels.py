@@ -13,9 +13,12 @@ rows whose bin coordinate lies within 2.5e-4 of a bin edge are left out (the
 Fault-1 contract); quantiles within a relative 1e-12 on one state. Sketches:
 hashes bit for bit, HLL registers and count-min cells and totals exactly,
 HLL estimates within a relative 1e-12; t-digest group weights exactly, at
-most 1% of (group, cluster) cells moved by the Fault-4 contract, means of
-the others within B * (w + 2) * 2^-24 * max|v| after B blocks, quantiles of
-one state within a relative 1e-6. Segment min/max (H11) and the scan's
+most 1% of (group, cluster) cells moved by the Fault-4 contract against the
+CPU's plain version, means of the others within B * (w + 2) * 2^-24 *
+max|v| after B blocks, quantiles of one state within a relative 1e-6; H7's
+and H8's weights bit for bit with the plain version on the same card, H8's
+means within 2C * 2^-24 * max|mean|. H3 in each of its lanes: counts exact
+off bin edges, totals exact. Segment min/max (H11) and the scan's
 compaction (H12) bit for bit, NaN, signed zeros and subnormals included.
 The join's probe (H13), pair emission (H14) on the slots below the match
 count, gathers (H15) and unmatched-row compaction (H12 over row indices)
@@ -50,6 +53,7 @@ from pixie_tpu_torch.ops import (
     batched, countmin, hashing, histogram, hll, kernels, ml, scan, segment, tdigest,
 )
 from pixie_tpu_torch.ops import transformer
+from pixie_tpu_torch.ops.tdigest_edges import H8_CASES, h8_expected_branches, h8_inputs
 
 EDGE = 2.5e-4
 SPEC = histogram.DEFAULT_SPEC
@@ -654,6 +658,115 @@ def test_tdigest_update_edges_on_card(case, G):
     dev = torch.device("cuda", 0)
     for n in (1 << 16, (1 << 21) + 3):
         check_tdigest_update(dev, *td_update_inputs(case, G, n), G, (case, G, n))
+
+
+# H8, the merge, at its edges (pixie_tpu_torch/ops/tdigest_edges.py)
+# against merge_plain on the same device: the weights bit for bit, the
+# means within 2C * 2^-24 * max|finite input mean| of the group (f32 sums
+# in another order), NaN and inf alike. The CPU tests hold a step-by-step
+# model of H8 on the same digests (tests/test_torch_sketches.py).
+def assert_h8_means(got: torch.Tensor, want: torch.Tensor, a: dict, b: dict,
+                    cells: torch.Tensor, C: int) -> None:
+    """Means of ``cells`` within 2C * 2^-24 * max|finite input mean| of the
+    group; NaN and inf where ``want`` has them."""
+    inputs = torch.cat([a["means"], b["means"].float()], dim=1)
+    scale = torch.where(torch.isfinite(inputs), inputs.abs(), 0.0).amax(dim=1, keepdim=True)
+    fin = torch.isfinite(want) & cells
+    assert torch.equal(torch.isnan(got) & cells, torch.isnan(want) & cells)
+    inf = torch.isinf(want) & cells
+    assert torch.equal(got[inf], want[inf])
+    bound = (2 * C * 2.0**-24 * scale).expand_as(want)
+    assert bool(torch.all((got - want).abs()[fin] <= bound[fin]))
+
+def h8_call(a: dict, b: dict, raw_b: bool, probe=None) -> dict:
+    b0, b1 = (b["weights"], b["means"]) if raw_b else (b["means"], b["weights"])
+    return kernels.tdigest_merge(a["means"], a["weights"], b0, b1, raw_b=raw_b, probe=probe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,G", H8_CASES)
+def test_tdigest_merge_edges_on_card(case, G):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    C = tdigest.DEFAULT_CAPACITY
+    a, b, raw_b = h8_inputs(case, G, C)
+    a, b = ({k: v.to(dev) for k, v in d.items()} for d in (a, b))
+    probe = torch.zeros(kernels.TD_MERGE_PROBE, dtype=torch.int64, device=dev)
+    got = h8_call(a, b, raw_b, probe)
+    bb = tdigest.batch_from_sums(b["weights"], b["means"]) if raw_b else b
+    want = tdigest.merge_plain(a, bb)
+    assert bits_equal(got["weights"], want["weights"]), case
+    assert_h8_means(got["means"].cpu(), want["means"].cpu(), {k: v.cpu() for k, v in a.items()},
+                    {k: v.cpu() for k, v in bb.items()}, torch.ones((G, C), dtype=torch.bool), C)
+    expect = h8_expected_branches(case, G)
+    if expect is not None:
+        assert probe[:2].tolist() == expect, (case, probe.tolist())
+
+
+# H3 in each lane (kernels.h3_lane: S = 16 and 64 the cluster lane, 600
+# global atomics) at 2^21 + 3 rows, f32 and f64
+# values, with and without a mask, gids out of range, the rows aligned and
+# one element into a buffer (no vector loads): exact where no row lies
+# within 2.5e-4 of a bin edge; with the edge rows, totals exact and at most
+# two cell counts moved a row (the Fault-1 contract: one bin over).
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 64, 600])
+def test_log_histogram_lanes_on_card(S):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(S)
+    n = (1 << 21) + 3
+    v = rng.exponential(3e7, n)
+    v[:6] = [0.0, -3.0, np.nan, np.inf, 1.0, 5e13]
+    with np.errstate(invalid="ignore"):  # NaN and inf are near no edge
+        near = torch.from_numpy(_near_edge(v))
+    gids = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32))
+    lane = kernels.h3_lane(S, SPEC.nbins, kernels.smem_optin_bytes(dev))[0]
+    assert lane == {16: "cluster", 64: "cluster", 600: "global"}[S]
+    lg = math.log(SPEC.gamma)
+    for mask in (None, torch.from_numpy(rng.random(n) < 0.8)):
+        for dtype in (torch.float32, torch.float64):
+            vals = torch.from_numpy(v).to(dtype)
+            for skew in (False, True):
+                put = (lambda t: _unaligned(t.to(dev))) if skew else (lambda t: t.to(dev))
+                m = None if mask is None else put(mask)
+                probe = torch.zeros(kernels.H3_PROBE, dtype=torch.int64, device=dev)
+                got = kernels.log_histogram_update(put(vals), put(gids), m, histogram.init(S, dev),
+                                                   SPEC.min_value, lg, probe=probe).cpu()
+                want = histogram.update_plain(histogram.init(S, "cpu"), gids, vals, mask)
+                off = ~near if mask is None else mask & ~near
+                got_off = kernels.log_histogram_update(
+                    put(vals), put(gids), put(off), histogram.init(S, dev), SPEC.min_value,
+                    lg).cpu()
+                want_off = histogram.update_plain(histogram.init(S, "cpu"), gids, vals, off)
+                what = (S, lane, dtype, mask is not None, skew)
+                assert torch.equal(got_off, want_off), what
+                assert int(got.sum()) == int(want.sum()), what
+                ok = (gids >= 0) & (gids < S) & near & (True if mask is None else mask)
+                assert int((got - want).abs().sum()) <= 2 * int(ok.sum()), what
+                valid = (gids >= 0) & (gids < S) & (True if mask is None else mask)
+                if lane == "global":
+                    assert int(probe[0]) == int(valid.sum()), what
+                else:  # one global atomic a nonzero cell a cluster: fewer than one a row
+                    assert 0 < int(probe[0]) < int(valid.sum()) // 4, what
+
+
+# H3's cluster lane with every row in one cell: a CTA counts at most 57,344
+# rows into one u16 count (the grid grows past a wave for more rows), so
+# the count stays exact; at 2^23 + 5 rows and at the last S of the lane.
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 113])
+def test_log_histogram_one_cell_on_card(S):
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    assert kernels.h3_lane(S, SPEC.nbins, kernels.smem_optin_bytes(dev))[0] == "cluster"
+    n = (1 << 23) + 5
+    vals = torch.full((n,), 3e7, dtype=torch.float32, device=dev)
+    gids = torch.full((n,), S - 1, dtype=torch.int32, device=dev)
+    got = kernels.log_histogram_update(vals, gids, None, histogram.init(S, dev),
+                                       SPEC.min_value, math.log(SPEC.gamma))
+    want = histogram.update_plain(histogram.init(S, dev), gids, vals, None)
+    assert torch.equal(got, want) and int(got.sum()) == n
 
 
 @pytest.mark.cuda

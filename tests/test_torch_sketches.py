@@ -21,6 +21,7 @@ sort-compact lane and the scatter lane) and both segment strategies
 
 import json
 import math
+from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
@@ -269,7 +270,8 @@ def test_tdigest_packed_sort_matches_reference():
 # the sorted rows (``_cluster_sums_plain(_sorted_rows(...))``): the weights
 # and each cell's multiset of values (value bits, multiplicity) bit for bit,
 # the f64 value sums within 1e-12 * sum |v|.
-from test_torch_kernels import TD_UPDATE_CASES, td_update_inputs  # noqa: E402
+from test_torch_kernels import TD_UPDATE_CASES, assert_h8_means, td_update_inputs  # noqa: E402
+from pixie_tpu_torch.ops.tdigest_edges import H8_CASES, h8_inputs  # noqa: E402
 
 
 def _h7_model(gids, v32, mask, G: int, C: int) -> dict:
@@ -385,6 +387,149 @@ def test_tdigest_update_model_matches_plain(case, G):
     fin = torch.isfinite(want[1])
     assert torch.equal(got["values"][~fin & ~nan], want[1][~fin & ~nan])
     assert bool(torch.all((got["values"] - want[1]).abs()[fin] <= 1e-12 * scale[fin]))
+
+
+# H8, the merge (ops/kernels/sketch_kernels.cu), modelled step by step in
+# torch: (a) each centroid's argsort key and class (finite, +inf, NaN) and
+# its index in its class and among its half's finite keys; (b) its rank by
+# a binary search into the other half's finite keys while both halves'
+# are nondecreasing, else by all (key, index) pairs below it; (c) the
+# cumulative weights by the kernel's warp scan (a Hillis-Steele scan of 32
+# lanes, the warps' totals added in order); (d) the clusters of the
+# midpoints (the plain version's arithmetic); (e) while the clusters are
+# nondecreasing, each run's sums by the kernel's segmented warp scan and
+# its carries across warps, else each cluster's sums over the sorted
+# centroids. Held against merge_plain (weights bit for bit, means within
+# 2C * 2^-24 * max|mean| of the group's finite inputs, NaN and inf alike)
+# and against the reference's merge under the Fault-4 contract.
+_INF_KEY = 0xFF800000  # sort_key(+inf)
+
+
+def _sort_key(x: torch.Tensor) -> torch.Tensor:
+    """sketch_kernels.cu sort_key: the order key (-0 as +0), NaN last."""
+    k = tdigest._order_key(torch.where(x == 0, torch.zeros_like(x), x))
+    return torch.where(torch.isnan(x), 0xFFFFFFFF, k)
+
+
+def _warp_scan(x: torch.Tensor, head: Optional[torch.Tensor] = None):
+    """The kernel's inclusive scan of x [G, n] (n a multiple of 32) within
+    each warp of 32 lanes, f32 adds; with ``head``, segmented (a head
+    restarts the sum). Returns (sums, flags: a head at or before the lane
+    in its warp)."""
+    G, n = x.shape
+    s = x.view(G, n // 32, 32)
+    f = (torch.zeros_like(s, dtype=torch.bool) if head is None else head.view(G, n // 32, 32))
+    for d in (1, 2, 4, 8, 16):
+        add = torch.where(f[..., d:], s[..., d:], s[..., :-d] + s[..., d:])
+        s = torch.cat([s[..., :d], add], dim=-1)
+        f = torch.cat([f[..., :d], f[..., d:] | f[..., :-d]], dim=-1)
+    return s, f
+
+
+def _h8_model(a: dict, b: dict, raw_b: bool = False) -> dict:
+    G, C = a["means"].shape
+    f32 = torch.float32
+    if raw_b:  # b is H7's f64 (weight, value) sums
+        bw = b["weights"].to(f32)
+        bm = torch.where(bw > 0, b["means"].to(f32) / torch.clamp_min(bw, 1.0), 0.0)
+    else:
+        bm, bw = b["means"], b["weights"]
+    m = torch.cat([a["means"], bm], dim=1)
+    w = torch.cat([a["weights"], bw], dim=1)
+    n2, n = 2 * C, -(-2 * C // 32) * 32
+    # (a), (b)
+    key = _sort_key(torch.where(w > 0, m, math.inf))
+    kind = torch.where(key < _INF_KEY, 0, torch.where(key == _INF_KEY, 1, 2))
+    idx = torch.arange(n2)
+    sm = torch.zeros((G, n), dtype=f32)
+    sw = torch.zeros((G, n), dtype=f32)
+    branches = [0, 0]
+    for g in range(G):
+        k, kd = key[g], kind[g]
+        fa, fb = k[:C][kd[:C] == 0], k[C:][kd[C:] == 0]
+        if bool(torch.all(fa[1:] >= fa[:-1])) and bool(torch.all(fb[1:] >= fb[:-1])):
+            rank = torch.zeros(n2, dtype=torch.int64)
+            rank[:C][kd[:C] == 0] = torch.arange(fa.numel()) + torch.searchsorted(fb, fa)
+            rank[C:][kd[C:] == 0] = torch.arange(fb.numel()) + torch.searchsorted(
+                fa, fb, right=True)
+            for c, before in ((1, fa.numel() + fb.numel()),
+                              (2, fa.numel() + fb.numel() + int((kd == 1).sum()))):
+                rank[kd == c] = before + torch.arange(int((kd == c).sum()))
+        else:
+            branches[0] += 1
+            rank = ((k[None, :] < k[:, None])
+                    | ((k[None, :] == k[:, None]) & (idx[None, :] < idx[:, None]))).sum(dim=1)
+        assert torch.equal(torch.sort(rank).values, idx)
+        sm[g, rank] = m[g]
+        sw[g, rank] = w[g]
+    # (c)
+    s, _ = _warp_scan(sw)
+    total = torch.zeros(G, dtype=f32)
+    carry = torch.zeros((G, n // 32), dtype=f32)
+    for k in range(n // 32):
+        carry[:, k] = total
+        total = total + s[:, k, 31]
+    cum = (carry[..., None] + s).view(G, n)[:, :n2]
+    sw, sm = sw[:, :n2], sm[:, :n2]
+    # (d)
+    q = (cum - tdigest._f32(0.5, "cpu") * sw) / torch.clamp_min(total, 1.0)[:, None]
+    cl = tdigest._cluster_ids(q, C).to(torch.int64)
+    # (e)
+    mw = sm * sw
+    ow = torch.zeros((G, C), dtype=f32)
+    om = torch.zeros((G, C), dtype=f32)
+    prev = torch.cat([torch.full((G, 1), -1), cl[:, :-1]], dim=1)
+    pad = lambda x, v: torch.cat([x, torch.full((G, n - n2), v, dtype=x.dtype)], 1)  # noqa: E731
+    sws, fl = _warp_scan(pad(sw, 0.0), pad(cl != prev, True))
+    sms, _ = _warp_scan(pad(mw, 0.0), pad(cl != prev, True))
+    sws, sms, fl = (x.reshape(G, n)[:, :n2] for x in (sws, sms, fl))
+    nxt = torch.cat([cl[:, 1:], torch.full((G, 1), C)], dim=1)
+    for g in range(G):
+        if bool(torch.any(cl[g] < prev[g])):
+            branches[1] += 1
+            ow[g].index_add_(0, cl[g], sw[g])
+            om[g].index_add_(0, cl[g], mw[g])
+            continue
+        for t in torch.nonzero(nxt[g] != cl[g])[:, 0].tolist():
+            s_w, s_m, f = sws[g, t], sms[g, t], bool(fl[g, t])
+            k = t // 32 - 1
+            while not f and k >= 0:  # the run began in an earlier warp
+                last = 32 * k + 31
+                s_w, s_m, f = sws[g, last] + s_w, sms[g, last] + s_m, bool(fl[g, last])
+                k -= 1
+            ow[g, cl[g, t]], om[g, cl[g, t]] = s_w, s_m
+    means = torch.where(ow > 0, om / torch.clamp_min(ow, 1e-9), 0.0)
+    return {"means": means, "weights": ow, "branches": branches, "q": q, "sorted_w": sw}
+
+
+@pytest.mark.parametrize("case,G", H8_CASES)
+def test_tdigest_merge_model_matches_plain_and_reference(case, G):
+    C = tdigest.DEFAULT_CAPACITY
+    a, b, raw_b = h8_inputs(case, G, C)
+    got = _h8_model(a, b, raw_b)
+    bb = tdigest.batch_from_sums(b["weights"], b["means"]) if raw_b else b
+    want = tdigest.merge_plain(a, bb)
+    assert torch.equal(got["weights"].view(torch.int32), want["weights"].view(torch.int32))
+    assert_h8_means(got["means"], want["means"], a, bb, torch.ones_like(want["means"],
+                                                                            dtype=torch.bool), C)
+    expect = {"inverted": [G, 0], "repeat": [0, G]}.get(case)
+    if expect is not None or case != "blocks":
+        assert got["branches"] == (expect or [0, 0]), got["branches"]
+    # The reference's merge under the Fault-4 contract: group weights
+    # exact; a cell's weight moves only by centroids whose f64 cluster
+    # coordinate lies within 1e-4 of an integer; the other cells' means as
+    # above.
+    ref = ref_td.merge({k: jnp.asarray(v.numpy()) for k, v in a.items()},
+                       {k: jnp.asarray(v.numpy()) for k, v in bb.items()})
+    rw, rm = _t(np.asarray(ref["weights"])), _t(np.asarray(ref["means"]))
+    assert torch.equal(rw.sum(dim=1), got["weights"].sum(dim=1))
+    qc = torch.clamp(got["q"].double(), float(np.float32(1e-7)), float(np.float32(1 - 1e-7)))
+    coord = (torch.asin(2 * qc - 1) / math.pi + 0.5) * C
+    near = (coord - torch.round(coord)).abs() <= EPS_F4
+    allow = 2 * torch.where(near, got["sorted_w"].abs(), 0.0).sum(dim=1)
+    dw = (rw - got["weights"]).abs()
+    assert bool(torch.all(dw.sum(dim=1) <= allow))
+    assert_h8_means(got["means"], rm, a, bb, dw == 0, C)
 
 
 def test_tdigest_merge_of_states(strategy):
