@@ -223,10 +223,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2505,30 +2507,20 @@ def cell_kernel_phase(dev) -> dict:
     return records
 
 
-def soak_terms() -> list:
-    """The sum group's seven families as the normalizer writes their terms
-    (resp_status on the int stack, latency on the float stack)."""
-    return [
-        [("i", "resp_status", 0, 200, 0.0, ())], [("i", "resp_status", 0, 404, 0.0, ())],
-        [("i", "resp_status", 0, 500, 0.0, ())], [("i", "resp_status", 1, 200, 0.0, ())],
-        [("f", "latency", 4, 0, 2e7, ())], [("i", "resp_status", 6, 0, 0.0, (200, 404))], [],
-    ]
+def ptxas_frame(kernel: str) -> Optional[tuple]:
+    """(stack frame, spill stores, spill loads) bytes that ptxas reported
+    for the kernel whose mangled name holds ``kernel``, or None when this
+    process found the library built (no ptxas output)."""
+    from pixie_tpu_torch.ops import kernels
 
-
-def wide_terms(B: int) -> list:
-    """B slots of one to three terms: the soak's families, then further
-    families with an op-6 list of 1024 members (every even status) and a
-    latency range."""
-    fams = soak_terms()
-    out = []
-    for s in range(B):
-        terms = list(fams[s % len(fams)])
-        if s >= len(fams):
-            terms.append(("i", "resp_status", 6, 0, 0.0, tuple(range(0, 2048, 2))))
-        if s >= 2 * len(fams):
-            terms.append(("f", "latency", 2, 0, float(1e6 * (s + 1)), ()))
-        out.append(terms)
-    return out
+    lines = kernels.BUILD_INFO.get("ptxas", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line and i + 1 < len(lines):
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", lines[i + 1])
+            if m:
+                return tuple(int(x) for x in m.groups())
+    return None
 
 
 def torch_tree(cols: dict, base: torch.Tensor, slot_terms: list):
@@ -2562,14 +2554,17 @@ def batch_kernel_phase(dev) -> dict:
     block of the service_stats table (16 groups; resp_status narrowed to
     uint16 at offset 200 as staging narrows it, f64 latency). H22 for B = 1,
     7 (the sum group's seven families: T = 1, an op-6 list of 2), 16 and 32
-    (T = 2 and 3 with an op-6 list of 1024), bit for bit; H23 over rows as
+    (T = 2 and 3 with an op-6 list of 1024; ops/pred_edges.py), bit for bit
+    with the columns aligned and one element into their buffers with a
+    5-row tail, with its floor (an empty kernel on its grid) and ptxas's
+    stack frame (0 bytes); H23 over rows as
     staged at the main path's shape (the 7 families' bits, no int row, one
     f64 row, 16 groups: the slot lane, the same bits twice), at B = 16 with
     two int rows (status narrowed, an int64 row) and two f64 rows (shared
     partials) and at B = 32 and 4096 groups (global atomics): integers
     exact, f64 sums within 1e-12 * sum |v|. Records: the main path's shapes
     (B = 7)."""
-    from pixie_tpu_torch.ops import batched, kernels, segment
+    from pixie_tpu_torch.ops import batched, kernels, pred_edges, segment
 
     rng = np.random.default_rng(24)
     n = BLOCK_ROWS
@@ -2584,7 +2579,7 @@ def batch_kernel_phase(dev) -> dict:
     records: dict = {}
     bits7 = None
     for B in (7, 1, 16, 32):  # the main path's shape first: its record
-        slot_terms = soak_terms() if B == 7 else wide_terms(B)
+        slot_terms = pred_edges.soak_terms() if B == 7 else pred_edges.wide_terms(B)
         table = batched.build_term_table(slot_terms, dtypes).to(dev)
         tcols = [cols[c][0] for c in table.columns]
         offs = [cols[c][1] for c in table.columns]
@@ -2594,23 +2589,39 @@ def batch_kernel_phase(dev) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"H22 B={B}: slot bits differ from plain")
         check(torch.equal(got.to(torch.int64) & 0xFFFFFFFF, tree()), f"H22 B={B}: bits vs torch tree")
+        # The columns and the mask one element into their buffers (no vector
+        # loads) and a tail of 5 rows past the last 8-row vector.
+        m = n - 5
+        ucols = [unaligned(t[:m]) for t in tcols]
+        check(torch.equal(batched.slot_masks(ucols, offs, unaligned(base[:m]), table), want[:m]),
+              f"H22 B={B}: unaligned columns or the tail differ from plain")
         col_bytes = sum(t.element_size() for t in tcols)
+        prog = table.prog
         rec = record(
             lambda: batched.slot_masks(tcols, offs, base, table),
             lambda: batched.slot_masks_plain(tcols, offs, base, table), None,
-            *bound(n * (1 + col_bytes + 4), n * table.B * table.T), 0,
+            *bound(n * (1 + col_bytes + 4), n * prog.num_terms), 0,
             f"{n} rows, B={B} (padded {table.B}), T={table.T}, L={table.L}, "
-            f"columns {table.columns}",
+            f"columns {table.columns}, {prog.num_terms} distinct terms, lists {prog.forms}",
         )
         rec["torch_tree_ms"] = time_ms(tree)
-        log(f"H22 pred_slot_masks B={B} T={table.T} L={table.L}: bit-equal to plain; "
-            f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, torch tree "
-            f"{rec['torch_tree_ms']:.4f}, bound {rec['bound_ms']:.4f})")
+        geo = kernels.pred_slot_masks_geometry(n, prog.num_terms, prog.shared_words)
+        rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(dev, *geo))
+        log(f"H22 pred_slot_masks B={B} T={table.T} L={table.L}, {prog.num_terms} distinct terms, "
+            f"lists {prog.forms}: bit-equal to plain and the torch tree, unaligned and tail too; "
+            f"{rec['ms']:.5f} ms (floor {rec['floor_ms']:.5f}, plain {rec['plain_ms']:.4f}, torch "
+            f"tree {rec['torch_tree_ms']:.4f}, bound {rec['bound_ms']:.5f})")
         if B == 7:
             records["pred_slot_masks"], bits7 = rec, got
         else:
             records["pred_slot_masks"][f"by_shape_B{B}"] = {
-                k: rec[k] for k in ("ms", "plain_ms", "torch_tree_ms", "bound_ms")}
+                k: rec[k] for k in ("ms", "plain_ms", "torch_tree_ms", "bound_ms", "floor_ms",
+                                    "shape")}
+    frame = ptxas_frame("pred_slot_masks_kernel")
+    if frame is not None:
+        check(frame == (0, 0, 0), f"H22: ptxas reports {frame} bytes of stack frame and spills")
+    records["pred_slot_masks"]["b_ptxas_stack_spills"] = frame
+    log(f"H22 ptxas stack frame, spill stores, spill loads: {frame}")
     lat = cols["latency"][0]
     status = cols["resp_status"][0]
     optin = kernels.smem_optin_bytes(dev)
@@ -4251,14 +4262,16 @@ def ml_kernel_phase(dev) -> dict:
     on an empty and a full state and on forced equal priorities fed
     directly, and at its edges (``topk_edges``), through both entries (the
     sort-free one for few groups, the bucketed one); H27 within 1e-5 at G
-    16, S 128, d 64, k 4 and 8 with duplicated points; H28 within 1e-5 at B 1
-    (1 and 64 tokens), every length 1..64 in one batch, lengths 0 and 70,
+    16, S 128, d 64, k 4 and 8 with duplicated points, with the plain
+    version's NaN pattern on the NaN and infinity groups, exact on ties;
+    H28 within 1e-5 at B 1 (1 and 64 tokens), every length 1..64 in one
+    batch, lengths 0 and 70,
     and 4098 documents of 1, 17 and 64 tokens. Records: H25 f64 masked, H26's
     sort-free entry at 16 full groups (reservoir_latency's update; also an
     empty state and the whole update) and its bucketed entry at 4096
     (reservoir_flows'; also the bucketing sort and the whole update), H27
     k 8, H28 4098 documents."""
-    from pixie_tpu_torch.ops import kernels, ml, transformer
+    from pixie_tpu_torch.ops import kernels, kmeans_edges, ml, transformer
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is off: the plain versions' products run in full f32 on the card")
@@ -4375,14 +4388,46 @@ def ml_kernel_phase(dev) -> dict:
     for k in (4, 8):
         err = float((ml.kmeans_fit(pts, w, k) - ml.kmeans_fit_plain(pts, w, k)).abs().max())
         check(err <= 1e-5, f"H27 k={k}: centers {err:.3g} from plain")
-    records["kmeans_fit"] = record(
+    # NaN and infinities as the reference takes them (ops/kmeans_edges.py:
+    # NaN in a live, a dead and the first live point, +-inf, every point
+    # dead; k 3, 8 and 20 > S): the plain version's NaN pattern and 1e-5
+    # elsewhere; the tie groups exactly.
+    npts, nw = (torch.from_numpy(a).to(dev) for a in kmeans_edges.nan_groups())
+    nan_centers = {}
+    for k in (3, 8, 20):
+        got, want = ml.kmeans_fit(npts, nw, k), ml.kmeans_fit_plain(npts, nw, k)
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan), f"H27 NaN groups k={k}: NaN pattern differs")
+        err = float(torch.where(got == want, 0.0, (got - want).abs())[~nan].max())
+        check(err <= 1e-5, f"H27 NaN groups k={k}: centers {err:.3g} from plain (inf = inf)")
+        nan_centers[k] = int(nan.any(-1).sum())
+    tpts, tw = (torch.from_numpy(a).to(dev) for a in kmeans_edges.tie_groups())
+    for k in (2, 3, 4):
+        check(torch.equal(ml.kmeans_fit(tpts, tw, k), ml.kmeans_fit_plain(tpts, tw, k)),
+              f"H27 tie groups k={k}: not the first index")
+    rec = records["kmeans_fit"] = record(
         lambda: kernels.kmeans_fit(pts, w, 8),
         lambda: ml.kmeans_fit_plain(pts, w, 8), None,
         *bound(Gk * S * d * 4 + Gk * S * 4 + Gk * 8 * d * 4, kmeans_flops(int(w_np.sum()), d, 8)),
         float((ml.kmeans_fit(pts, w, 8) - ml.kmeans_fit_plain(pts, w, 8)).abs().max()),
         f"G {Gk}, S {S}, d {d}, k 8, 10 iterations",
     )
-    log(f"H27 kmeans_fit: k 4 and 8 within 1e-5 of plain; {records['kmeans_fit']['ms']:.4f} ms")
+    rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(
+        dev, *kernels.kmeans_fit_geometry(Gk, S, d, 8)))
+    probe = torch.zeros(kernels.KMEANS_PROBE, dtype=torch.int64, device=dev)
+    for _ in range(3):
+        kernels.kmeans_fit(pts, w, 8, probe=probe)
+    torch.cuda.synchronize()
+    khz = kernels.sm_clock_khz(dev)
+    rec["b_phases_us"] = dict(
+        probe_phases_us(probe, ("load", "seeding", "lloyd"), 0, khz),
+        assign=int(probe[4]) * 1e3 / khz, update=int(probe[5]) * 1e3 / khz)
+    rec["b_nan_centers"] = nan_centers
+    log(f"H27 kmeans_fit: k 4 and 8 within 1e-5 of plain; the NaN and inf groups with the plain "
+        f"version's NaN pattern (centers holding NaN at k 3, 8, 20: {nan_centers}), 1e-5 "
+        f"elsewhere; ties exact; {rec['ms']:.5f} ms (floor {rec['floor_ms']:.5f}, plain "
+        f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.5f}); CTA 0's phases us "
+        f"{json.dumps(rec['b_phases_us'])}")
 
     params = transformer._init_params(0)
     enc = transformer.TransformerEncoder(params, dev)

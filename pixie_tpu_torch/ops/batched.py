@@ -13,7 +13,10 @@ block is read once for every slot:
 
 - ``slot_masks``: one uint32 of slot bits a row (bit s: the row passes the
   block mask and every term of slot s). H22 ``pred_slot_masks`` on a CUDA
-  tensor, ``slot_masks_plain`` on a CPU one.
+  tensor, ``slot_masks_plain`` on a CPU one. H22 runs the table as
+  ``compile_terms`` compiles it on the host: each distinct term once a row,
+  with the slots that contain it (``need``), so that a row's bits are
+  ``base ? slot_on & ~OR{need[u] : term u false} : 0``.
 - ``batched_segment_sums``: for every slot, the per-group sums of R integer
   rows and F f64 rows (each as the fold staged it) over the rows whose bit
   s is set, plus the slot's presence (its row count) per group. H23
@@ -43,6 +46,18 @@ MAX_SLOTS = kernels.PRED_MAX_SLOTS
 MAX_TERMS = kernels.PRED_MAX_TERMS
 MAX_COLS = kernels.PRED_MAX_COLS
 
+# H22's program (``compile_terms``): the words of one distinct term, its op
+# codes, the forms of its membership lists and the shared-memory budget of
+# the lists (batch_kernels.cu kProgWords, the Code and ListForm enums,
+# kListSharedWords).
+PROG_WORDS = kernels.PRED_PROG_WORDS
+CODE_IN = 6  # int stack, op 6: membership; 0-5 int compares; 8 + op float compares
+CODE_FLOAT = 8
+LIST_GLOBAL, LIST_SORTED, LIST_BITMAP = 0, 1, 2
+LIST_FORMS = ("global", "sorted", "bitmap")
+LIST_SHARED_WORDS = kernels.PRED_LIST_SHARED_WORDS
+BITMAP_MAX_SPAN = 1 << 16  # bits of the widest bitmap list
+
 # Fields of one term row (int64 each): the column's index in
 # ``TermTable.columns``, the stack (0 int64, 1 float64), the op (0 ==, 1 !=,
 # 2 <, 3 <=, 4 >, 5 >=, 6 IN; -1 an inactive pad term), the int64 threshold,
@@ -59,13 +74,40 @@ def _pow2(n: int) -> int:
 
 
 @dataclasses.dataclass
+class TermProgram:
+    """H22's form of a term table: its distinct active terms, sorted by
+    column (``terms`` int64 [U, PROG_WORDS]: the column, the code (0-5 an
+    int compare, 6 IN, 8 + op a float compare), the threshold (int64, or the
+    f64's bits), the list's form, word offset in ``lists``, length (members,
+    or the bitmap's span in bits) and lowest member, and ``need``, the
+    uint32 of the slots that hold the term), and their distinct membership
+    lists in ``lists`` (int64 words; the first ``shared_words`` go to
+    shared memory: bitmaps of span <= BITMAP_MAX_SPAN and sorted lists while
+    they fit LIST_SHARED_WORDS, the rest stay sorted in global memory).
+    ``forms`` names each distinct list's form, in ``lists``' order."""
+
+    terms: torch.Tensor
+    lists: torch.Tensor
+    shared_words: int
+    forms: list
+
+    @property
+    def num_terms(self) -> int:
+        return self.terms.shape[0]
+
+    def to(self, device) -> "TermProgram":
+        return dataclasses.replace(self, terms=self.terms.to(device), lists=self.lists.to(device))
+
+
+@dataclasses.dataclass
 class TermTable:
     """One batch's predicate terms as data: ``terms`` int64 [B * T,
     TERM_WORDS] (slot s's term t at row s * T + t), ``lut`` int64
     [B * T * L] (term (s, t)'s members from offset (s * T + t) * L), the
     distinct term ``columns`` and ``slot_on``, a bit per real slot. B, T and
     L are padded to powers of two as the reference pads them
-    (pixie_tpu/parallel/pipeline.py:6902-6936)."""
+    (pixie_tpu/parallel/pipeline.py:6902-6936). ``prog`` is the table as
+    H22 runs it (``compile_terms``)."""
 
     columns: list
     terms: torch.Tensor
@@ -74,10 +116,12 @@ class TermTable:
     T: int
     L: int
     slot_on: int
+    prog: TermProgram = None  # H22's form of the table, filled by build_term_table
 
     def to(self, device) -> "TermTable":
         return dataclasses.replace(
-            self, terms=self.terms.to(device), lut=self.lut.to(device)
+            self, terms=self.terms.to(device), lut=self.lut.to(device),
+            prog=self.prog.to(device),
         )
 
 
@@ -139,9 +183,85 @@ def build_term_table(slot_terms: list, block_dtypes: dict) -> TermTable:
                 col_idx[col], int(stack == "f"), op, thr_i,
                 np.float64(thr_f).view(np.int64), row * L, len(members),
             )
-    return TermTable(
+    table = TermTable(
         columns=columns, terms=torch.from_numpy(terms_np), lut=torch.from_numpy(lut),
         B=B, T=T, L=L, slot_on=slot_on,
+    )
+    table.prog = compile_terms(table)
+    return table
+
+
+def _code(stack: int, op: int) -> int:
+    """A term's code as the plain version evaluates it (``_cmp``: an op
+    past 4 compares >=; op 6 tests membership on the int stack only)."""
+    if stack:
+        return CODE_FLOAT + min(op, 5)
+    return CODE_IN if op == 6 else min(op, 5)
+
+
+def compile_terms(table: TermTable) -> TermProgram:
+    """The distinct active terms of ``table`` (a term of a slot in
+    ``slot_on`` whose op is not -1) with the slots that hold each, sorted
+    by column, and their distinct membership lists laid out by form (see
+    ``TermProgram``). Two terms are one when their column, code and
+    threshold bits or member lists are equal."""
+    rows = table.terms.cpu().numpy()
+    lut = table.lut.cpu().numpy()
+    index: dict = {}  # the term's key -> [column, code, threshold, list key, need]
+    for s in range(table.B):
+        if not (table.slot_on >> s) & 1:
+            continue
+        for col, stack, op, thr_i, thr_f, off, ln in rows[s * table.T : (s + 1) * table.T]:
+            if op < 0:
+                continue
+            code = _code(int(stack), int(op))
+            members = tuple(lut[off : off + ln].tolist()) if code == CODE_IN else None
+            thr = 0 if members is not None else int(thr_f if stack else thr_i)
+            key = (int(col), code, thr, members)
+            if key not in index:
+                index[key] = [int(col), code, thr, members, 0]
+            index[key][4] |= 1 << s
+    entries = sorted(index.values(), key=lambda e: e[0])  # stable: first-seen order a column
+    lists: dict = {}  # members -> (form, members)
+    for e in entries:
+        if e[3] is not None and e[3] not in lists:
+            lists[e[3]] = None
+    budget = LIST_SHARED_WORDS
+    for members in lists:  # bitmaps and sorted lists into shared memory while they fit
+        span = members[-1] - members[0] + 1 if members else 0
+        bitmap_words = -(-span // 64)
+        if members and span <= BITMAP_MAX_SPAN and bitmap_words <= budget:
+            lists[members], budget = LIST_BITMAP, budget - bitmap_words
+        elif len(members) <= budget:
+            lists[members], budget = LIST_SORTED, budget - len(members)
+        else:
+            lists[members] = LIST_GLOBAL
+    words: list = []
+    place: dict = {}  # members -> (form, word offset, length, lowest member)
+    for shared in (True, False):
+        for members, form in lists.items():
+            if (form != LIST_GLOBAL) != shared:
+                continue
+            if form == LIST_BITMAP:
+                span = members[-1] - members[0] + 1
+                bitmap = np.zeros(-(-span // 64), np.uint64)
+                at = np.asarray(members, np.int64) - members[0]
+                np.bitwise_or.at(bitmap, at >> 6, np.uint64(1) << (at & 63).astype(np.uint64))
+                place[members] = (form, len(words), span, members[0])
+                words.extend(bitmap.view(np.int64).tolist())
+            else:
+                place[members] = (form, len(words), len(members),
+                                  members[0] if members else 0)
+                words.extend(members)
+        if shared:
+            shared_words = len(words)
+    terms = np.zeros((len(entries), PROG_WORDS), np.int64)
+    for u, (col, code, thr, members, need) in enumerate(entries):
+        form, off, length, lo = place[members] if members is not None else (0, 0, 0, 0)
+        terms[u] = (col, code, thr, form, off, length, lo, need)
+    return TermProgram(
+        terms=torch.from_numpy(terms), lists=torch.from_numpy(np.asarray(words, np.int64)),
+        shared_words=shared_words, forms=[LIST_FORMS[f] for f in lists.values()],
     )
 
 
@@ -203,11 +323,13 @@ def slot_masks(
 ) -> torch.Tensor:
     """int32 [n]: each row's uint32 slot bits (``slot_masks_plain``'s
     contract). ``cols`` are ``table.columns``' blocks as staged (uint8,
-    uint16, int32 or int64 with ``offsets``, bool, f32, f64). H22 on CUDA."""
+    uint16, int32 or int64 with ``offsets``, bool, f32, f64). H22 on CUDA
+    runs ``table.prog``."""
     if base.is_cuda:
+        prog = table.prog
         return kernels.pred_slot_masks(
             [c.contiguous() for c in cols], [int(o) for o in offsets], base.contiguous(),
-            table.terms, table.lut, table.B, table.T, table.slot_on,
+            prog.terms, prog.lists, prog.shared_words, table.slot_on,
         )
     return slot_masks_plain(cols, offsets, base, table)
 

@@ -155,8 +155,9 @@ _SIGNATURES = {
     "px_hll_cell_update": (_P, _P, _I, _I, _I, _P, _P),
     "px_countmin_cell_update": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     "px_pred_slot_masks": (
-        _P, _P, _P, _I, _P, _LL, _P, _I, _I, _P, ctypes.c_uint, _P, _P,
+        _P, _P, _P, _I, _P, _LL, _P, _I, _P, _I, ctypes.c_uint, _P, _P,
     ),
+    "px_pred_slot_masks_geometry": (_LL, _I, _I, _P),
     "px_batched_segment_sums": (
         _P, _P, _P, _I, _P, _P, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
     ),
@@ -166,7 +167,8 @@ _SIGNATURES = {
     "px_reservoir_topk_rows": (
         _P, _P, _P, _I, _I, _P, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P, _P,
     ),
-    "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "px_kmeans_fit": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    "px_kmeans_fit_geometry": (_I, _I, _I, _I, _P),
     "px_encoder_forward": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P),
     "px_merge_states": (_P, _I, _LL, _I, _I, _P, _P),
     "px_countmin_query": (_P, _I, _I, _I, _P, _P, _LL, _P, _P),
@@ -1544,11 +1546,14 @@ def countmin_cell_update(
 
 
 # ---------------------------------------------------------------- batched fold
-# H22's limits (batch_kernels.cu's kMaxSlots, kMaxTerms, kMaxPredCols).
+# H22's limits (batch_kernels.cu's kMaxSlots, kMaxPredCols, kMaxProgTerms,
+# kProgWords, kListSharedWords); a slot's terms in a term table.
 PRED_MAX_SLOTS = 32
 PRED_MAX_TERMS = 16
 PRED_MAX_COLS = 16
-PRED_TERM_WORDS = 7
+PRED_MAX_PROG_TERMS = PRED_MAX_SLOTS * PRED_MAX_TERMS
+PRED_PROG_WORDS = 8
+PRED_LIST_SHARED_WORDS = 4096
 # H22's codes of the staged block dtypes (batch_kernels.cu enum ColKind).
 PRED_COL_KINDS = {
     torch.bool: 0, torch.uint8: 1, torch.uint16: 2, torch.int32: 3, torch.int64: 4,
@@ -1556,28 +1561,41 @@ PRED_COL_KINDS = {
 }
 
 
+def pred_slot_masks_geometry(n: int, U: int, shared_words: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA) of H22's launch over
+    ``n`` rows with ``U`` program terms and ``shared_words`` shared list
+    words, as its launcher computes them."""
+    out = (ctypes.c_int * 3)()
+    _check(library().px_pred_slot_masks_geometry(n, U, shared_words, out),
+           "pred_slot_masks geometry")
+    return tuple(out)
+
+
 def pred_slot_masks(
-    cols: list, offsets: list, base: torch.Tensor, terms: torch.Tensor, lut: torch.Tensor,
-    B: int, T: int, slot_on: int,
+    cols: list, offsets: list, base: torch.Tensor, prog: torch.Tensor, lists: torch.Tensor,
+    shared_words: int, slot_on: int,
 ) -> torch.Tensor:
-    """H22: int32 [n], each row's uint32 slot bits: bit s set where base[i]
-    holds, bit s of ``slot_on`` is set, and every active term of slot s
-    holds on row i. ``cols``: the term columns' blocks as staged (bool,
+    """H22: int32 [n], each row's uint32 slot bits: bits of ``slot_on``
+    where base[i] holds, less the ``need`` slots of every program term that
+    is false on row i. ``cols``: the term columns' blocks as staged (bool,
     uint8, uint16, int32, int64 with ``offsets`` added, f32, f64), [n] each;
-    ``terms`` int64 [B * T, 7] (ops.batched.TermTable); ``lut`` int64, the
-    op-6 members, sorted within each term's (offset, length)."""
+    ``prog`` int64 [U, PRED_PROG_WORDS] and ``lists`` int64, a compiled
+    term table (``ops.batched.compile_terms``), whose first ``shared_words``
+    list words go to shared memory."""
     device = base.device
     _require(base, "base", torch.bool, device, 1)
     n = base.shape[0]
-    if not 1 <= B <= PRED_MAX_SLOTS or not 1 <= T <= PRED_MAX_TERMS:
-        raise ValueError(f"pred_slot_masks: B {B} must be in [1, {PRED_MAX_SLOTS}] and T {T} "
-                         f"in [1, {PRED_MAX_TERMS}]")
     if len(cols) > PRED_MAX_COLS or len(offsets) != len(cols):
         raise ValueError(f"pred_slot_masks: at most {PRED_MAX_COLS} columns, one offset each")
-    _require(terms, "terms", torch.int64, device, 2)
-    if tuple(terms.shape) != (B * T, PRED_TERM_WORDS):
-        raise ValueError(f"terms has shape {tuple(terms.shape)}, expected {(B * T, 7)}")
-    _require(lut, "lut", torch.int64, device, 1)
+    _require(prog, "prog", torch.int64, device, 2)
+    U = prog.shape[0]
+    if U > PRED_MAX_PROG_TERMS or prog.shape[1] != PRED_PROG_WORDS:
+        raise ValueError(f"prog has shape {tuple(prog.shape)}, expected at most "
+                         f"({PRED_MAX_PROG_TERMS}, {PRED_PROG_WORDS})")
+    _require(lists, "lists", torch.int64, device, 1)
+    if not 0 <= shared_words <= min(PRED_LIST_SHARED_WORDS, lists.shape[0]):
+        raise ValueError(f"pred_slot_masks: {shared_words} shared list words of {lists.shape[0]}"
+                         f" (at most {PRED_LIST_SHARED_WORDS})")
     for c in cols:
         if c.dtype not in PRED_COL_KINDS:
             raise TypeError(f"a term column has dtype {c.dtype}")
@@ -1594,7 +1612,8 @@ def pred_slot_masks(
     _launch(
         "pred_slot_masks", device,
         ctypes.addressof(ptrs), ctypes.addressof(offs), ctypes.addressof(kinds), len(cols),
-        base.data_ptr(), n, terms.data_ptr(), B, T, lut.data_ptr(), slot_on, out.data_ptr(),
+        base.data_ptr(), n, prog.data_ptr(), U, lists.data_ptr(), shared_words, slot_on,
+        out.data_ptr(),
     )
     return out
 
@@ -1910,24 +1929,44 @@ def reservoir_topk_rows(
     return out_vals, out_pri, out_count
 
 
+KMEANS_PROBE = 6  # H27's probe: CTA 0's clock64 at 4 points, its assign and update cycles
+
+
+def kmeans_fit_geometry(G: int, S: int, d: int, k: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA) of H27's launch, as
+    its launcher computes them."""
+    out = (ctypes.c_int * 3)()
+    _check(library().px_kmeans_fit_geometry(G, S, d, k, out), "kmeans_fit geometry")
+    return tuple(out)
+
+
 def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int,
-               iters: int = 10) -> torch.Tensor:
+               iters: int = 10, probe: Optional[torch.Tensor] = None) -> torch.Tensor:
     """H27: f32 [G, k, d] centers of each group's points (f32 [G, S, d]) with
     weights (f32 [G, S], 0 = an empty slot): farthest-point seeding, then
-    ``iters`` Lloyd steps."""
+    ``iters`` Lloyd steps, NaN taken as the reference takes it
+    (ml_kernels.cu). ``probe``: None, or int64 [KMEANS_PROBE] on the device:
+    [0..3] take CTA 0's SM clock at the start, after the load, after the
+    seeding and at the end, [4] and [5] its cycles in Lloyd's assign and
+    update steps."""
     device = points.device
     _require(points, "points", torch.float32, device, 3)
     _require(weights, "weights", torch.float32, device, 2)
     G, S, d = points.shape
     if weights.shape != (G, S):
         raise ValueError("kmeans_fit: weights must be [G, S]")
-    if k < 1 or S < 1 or d < 1:
-        raise ValueError(f"kmeans_fit: k {k}, S {S}, d {d} must be positive")
+    if k < 1 or S < 1 or d < 1 or iters < 0:
+        raise ValueError(f"kmeans_fit: k {k}, S {S}, d {d} must be positive, iters {iters} not "
+                         f"negative")
+    if probe is not None:
+        _require(probe, "probe", torch.int64, device, 1)
+        if probe.shape[0] < KMEANS_PROBE:
+            raise ValueError(f"probe has {probe.shape[0]} entries, expected {KMEANS_PROBE}")
     out = torch.empty((G, k, d), dtype=torch.float32, device=device)
     if G == 0:
         return out
     _launch("kmeans_fit", device, points.data_ptr(), weights.data_ptr(), G, S, d, k, iters,
-            out.data_ptr())
+            out.data_ptr(), probe.data_ptr() if probe is not None else None)
     return out
 
 

@@ -23,13 +23,22 @@
 // a (B, T, L, rows) IN-list compare, then runs B masked copies of every
 // update. Here each row is read once for every slot:
 //
-// - H22: one thread a row (grid-stride). The term table (at most 32 slots x
-//   16 terms) sits in shared memory, read by every thread alike (broadcast).
-//   A row loads each distinct term column once, then walks its slots' terms;
-//   a membership list is scanned when short and binary-searched when long
-//   (at most 1024 members, read through the read-only cache). Nothing is
-//   materialized per (slot, term, row). Bound: bytes (the base mask, each
-//   term column once, 4 B a row written); the compares are a few per byte.
+// - H22 runs the table as the host compiled it (ops/batched.py
+//   compile_terms): each distinct term (column, op, threshold or member
+//   list) once, with ``need``, the slots that hold it, so a row's bits are
+//   base ? slot_on & ~OR{need[u] : term u false} : 0 and the cost grows
+//   with the distinct terms, not with the slots. 8 rows a thread: the mask
+//   as one 8-byte load, each column once through rows.cuh's 16-byte loads
+//   (loaded whatever the mask holds, so no load waits on another), the
+//   bits out as two 16-byte streaming stores. The program and the lists
+//   that fit sit in shared memory: a list of span <= 2^16 as a bitmap (one
+//   load a row), others sorted (a lower bound by a fixed count of
+//   halvings), in global memory past 32 KB of lists. Nothing is indexed at
+//   run time but shared memory, so no row state spills to local memory.
+//   The first design ran one row a thread over every (slot, term)
+//   with the row's columns in arrays indexed at run time: 0.0458 ms at the
+//   soak's 7 slots against a bound of 0.0094, 0.639 at 32 (PERF.md).
+//   Bound: bytes (the base mask, each term column once, 4 B a row written).
 // - H23: rows read as staged (rows.cuh: an integer row's bool, uint8,
 //   uint16, int32 or int64 with its offset; f64, or an integer row rounded
 //   to f64), gids and slot bits as 16-byte vectors, 8 rows a thread, each
@@ -55,122 +64,208 @@ using px::allow_smem;
 using px::grid_for;
 using px::kThreads;
 
-constexpr int kMaxSlots = 32;
-constexpr int kMaxTerms = 16;
+constexpr int kMaxSlots = 32;  // a row's slot bits are one uint32
 constexpr int kMaxPredCols = 16;
-constexpr int kTermWords = 7;  // col, stack, op, thr_i, thr_f bits, lut_off, lut_len
-constexpr int kLinearMembers = 16;
+constexpr int kMaxProgTerms = 512;  // distinct terms: at most kMaxSlots x 16
+constexpr int kProgWords = 8;  // col, code, thr, form, off, len, lo, need
+constexpr int kListSharedWords = 4096;  // int64 words of the lists in shared memory
+constexpr int kPredThreads = 256;
+constexpr int kPredCtasPerSm = 8;
+constexpr int kPredRows = 8;  // rows a thread
 
 // Staged block dtypes (ops/kernels/__init__.py PRED_COL_KINDS).
 enum ColKind { kBool = 0, kU8 = 1, kU16 = 2, kI32 = 3, kI64 = 4, kF32 = 5, kF64 = 6 };
+// A term's code (ops/batched.py compile_terms): 0-5 an int64 compare (==,
+// !=, <, <=, >, >=), 6 membership of an int64 list, 8 + op an f64 compare.
+enum Code { kIn = 6, kFloat = 8 };
+// Where a membership list lies: sorted in global memory, sorted in shared
+// memory, or a bitmap of its span in shared memory.
+enum ListForm { kListGlobal = 0, kListSorted = 1, kListBitmap = 2 };
 
 struct PredCols {
   const void* ptr[kMaxPredCols];
   long long offset[kMaxPredCols];
   int kind[kMaxPredCols];
-  int n;
+  unsigned int vec;  // bit j: column j takes vector loads
 };
 
-// The int64 value (int, bool and code blocks: the staged value plus its
-// offset, wrapping) or the f64 value (float blocks) of column j at row i.
-__device__ __forceinline__ void load_col(const PredCols& c, int j, long long i, long long* iv,
-                                         double* fv) {
-  const unsigned long long off = (unsigned long long)c.offset[j];
-  switch (c.kind[j]) {
-    case kBool:
-      iv[j] = ((const unsigned char*)c.ptr[j])[i] != 0;
-      break;
-    case kU8:
-      iv[j] = (long long)((unsigned long long)((const unsigned char*)c.ptr[j])[i] + off);
-      break;
-    case kU16:
-      iv[j] = (long long)((unsigned long long)((const unsigned short*)c.ptr[j])[i] + off);
-      break;
-    case kI32:
-      iv[j] = (long long)((unsigned long long)(long long)((const int*)c.ptr[j])[i] + off);
-      break;
-    case kI64:
-      iv[j] = (long long)((unsigned long long)((const long long*)c.ptr[j])[i] + off);
-      break;
-    case kF32:
-      fv[j] = (double)((const float*)c.ptr[j])[i];
-      break;
-    default:
-      fv[j] = ((const double*)c.ptr[j])[i];
-      break;
-  }
-}
-
-template <typename V>
-__device__ __forceinline__ bool compare(int op, V v, V t) {
-  switch (op) {
-    case 0: return v == t;
-    case 1: return v != t;
-    case 2: return v < t;
-    case 3: return v <= t;
-    case 4: return v > t;
-    default: return v >= t;
-  }
-}
-
-// Whether v is one of the len sorted values at lut[off].
-__device__ __forceinline__ bool member(const long long* __restrict__ lut, long long off, int len,
-                                       long long v) {
-  const long long* a = lut + off;
-  if (len <= kLinearMembers) {
-    for (int k = 0; k < len; ++k) {
-      if (__ldg(a + k) == v) return true;
-    }
-    return false;
-  }
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < v) {
-      lo = mid + 1;
+// v[r] = row i0 + r of a term column as its stack holds it: an int, bool or
+// code block's value plus its offset (wrapping) as int64 bits, a float
+// block's value as f64 bits (f32 widened exactly); 0 past n.
+__device__ __forceinline__ void load_term8(const void* __restrict__ p, int kind,
+                                           unsigned long long off, long long i0, long long n,
+                                           bool vec, unsigned long long (&v)[kPredRows]) {
+  if (kind == kF32) {
+    const float* f = static_cast<const float*>(p);
+    if (vec && i0 + kPredRows <= n) {
+      const float4 a = __ldcs(reinterpret_cast<const float4*>(f + i0));
+      const float4 b = __ldcs(reinterpret_cast<const float4*>(f + i0 + 4));
+      const float x[kPredRows] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int r = 0; r < kPredRows; ++r) v[r] = (unsigned long long)__double_as_longlong(x[r]);
     } else {
-      hi = mid;
+#pragma unroll
+      for (int r = 0; r < kPredRows; ++r) {
+        v[r] = i0 + r < n ? (unsigned long long)__double_as_longlong((double)f[i0 + r]) : 0ull;
+      }
     }
+    return;
   }
-  return lo < len && __ldg(a + lo) == v;
+  px::load_vals8(p, kind == kBool ? (int)px::kU8 : kind, i0, n, vec, v);
+  if (kind != kF64) {
+#pragma unroll
+    for (int r = 0; r < kPredRows; ++r) v[r] += off;
+  }
+}
+
+// Whether v is one of the len sorted members at a (shared or, with
+// kGlobal, global memory): a lower bound by a fixed count of halvings, the
+// same for every lane of a term.
+template <bool kGlobal>
+__device__ __forceinline__ bool in_sorted(const long long* a, int len, long long v) {
+  if (len == 0) return false;
+  int at = 0, m = len;
+  while (m > 1) {
+    const int half = m >> 1;
+    if ((kGlobal ? __ldg(a + at + half) : a[at + half]) < v) at += half;
+    m -= half;
+  }
+  if ((kGlobal ? __ldg(a + at) : a[at]) < v) ++at;
+  return at < len && (kGlobal ? __ldg(a + at) : a[at]) == v;
+}
+
+template <int kOp, typename V>
+__device__ __forceinline__ bool op_holds(V x, V t) {
+  if (kOp == 0) return x == t;
+  if (kOp == 1) return x != t;
+  if (kOp == 2) return x < t;
+  if (kOp == 3) return x <= t;
+  if (kOp == 4) return x > t;
+  return x >= t;
+}
+
+// A false term sets its need slots in the fail masks: an int64 compare of
+// op kOp, or (kFloat) an f64 one (IEEE: NaN passes != alone).
+template <int kOp, bool kFloat>
+__device__ __forceinline__ void compare_term(const unsigned long long (&v)[kPredRows], long long t,
+                                             unsigned int need, unsigned int (&fail)[kPredRows]) {
+#pragma unroll
+  for (int r = 0; r < kPredRows; ++r) {
+    const bool ok = kFloat ? op_holds<kOp>(__longlong_as_double((long long)v[r]),
+                                           __longlong_as_double(t))
+                           : op_holds<kOp>((long long)v[r], t);
+    fail[r] |= ok ? 0u : need;
+  }
 }
 
 // ---------------------------------------------------------------- H22
-__global__ void pred_slot_masks_kernel(PredCols cols, const unsigned char* __restrict__ base,
-                                       long long n, const long long* __restrict__ terms, int B,
-                                       int T, const long long* __restrict__ lut,
-                                       unsigned int slot_on, unsigned int* __restrict__ out) {
-  extern __shared__ long long sh_terms[];
-  const int words = B * T * kTermWords;
-  for (int k = threadIdx.x; k < words; k += blockDim.x) sh_terms[k] = terms[k];
+// Each thread takes 8 rows: the base mask as one 8-byte load, each column
+// through load_term8 once (16-byte loads where aligned), loaded whatever
+// the mask holds, then every distinct term of the column on the 8 rows:
+// a false term sets its ``need`` slots in the row's fail mask. The columns
+// are walked in the program's order (terms sorted by column), so nothing
+// is indexed at run time but shared memory. A term's op (and a list's
+// form) is chosen once a term, so each row takes one compare a term.
+__global__ void __launch_bounds__(kPredThreads)
+    pred_slot_masks_kernel(PredCols cols, const unsigned char* __restrict__ base, int base_vec,
+                           long long n, const long long* __restrict__ prog, int U,
+                           const long long* __restrict__ lists, int shared_words,
+                           unsigned int slot_on, unsigned int* __restrict__ out, int out_vec) {
+  extern __shared__ long long sh_prog[];  // [U][kProgWords] terms, then shared_words of lists
+  __shared__ const void* c_ptr[kMaxPredCols];
+  __shared__ unsigned long long c_off[kMaxPredCols];
+  __shared__ int c_kind[kMaxPredCols];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < kMaxPredCols; ++j) {
+      c_ptr[j] = cols.ptr[j];
+      c_off[j] = (unsigned long long)cols.offset[j];
+      c_kind[j] = cols.kind[j];
+    }
+  }
+  const int term_words = U * kProgWords;
+  for (int k = threadIdx.x; k < term_words + shared_words; k += blockDim.x) {
+    sh_prog[k] = k < term_words ? prog[k] : lists[k - term_words];
+  }
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    unsigned int bits = 0u;
-    if (base[i]) {
-      long long iv[kMaxPredCols];
-      double fv[kMaxPredCols];
-      for (int j = 0; j < cols.n; ++j) load_col(cols, j, i, iv, fv);
-      for (int s = 0; s < B; ++s) {
-        if (!((slot_on >> s) & 1u)) continue;
-        bool ok = true;
-        for (int t = 0; t < T && ok; ++t) {
-          const long long* w = sh_terms + (s * T + t) * kTermWords;
-          const int op = (int)w[2];
-          if (op < 0) continue;  // a pad term
-          const int c = (int)w[0];
-          if (w[1] != 0) {
-            ok = compare<double>(op, fv[c], __longlong_as_double(w[4]));
-          } else if (op == 6) {
-            ok = member(lut, w[5], (int)w[6], iv[c]);
+  const long long* sh_lists = sh_prog + term_words;
+  const long long stride = (long long)gridDim.x * blockDim.x * kPredRows;
+  for (long long i0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kPredRows; i0 < n;
+       i0 += stride) {
+    const bool full = i0 + kPredRows <= n;
+    unsigned int b[kPredRows];
+    if (base_vec && full) {
+      const uint2 m = __ldcs(reinterpret_cast<const uint2*>(base + i0));
+#pragma unroll
+      for (int r = 0; r < kPredRows; ++r) b[r] = ((r < 4 ? m.x : m.y) >> (8 * (r & 3))) & 0xFFu;
+    } else {
+#pragma unroll
+      for (int r = 0; r < kPredRows; ++r) b[r] = i0 + r < n ? base[i0 + r] : 0u;
+    }
+    unsigned int fail[kPredRows];
+#pragma unroll
+    for (int r = 0; r < kPredRows; ++r) fail[r] = 0u;
+    unsigned long long v[kPredRows];
+    int cur = -1;
+    for (int u = 0; u < U; ++u) {
+      const long long* w = sh_prog + u * kProgWords;
+      const int c = (int)w[0];
+      if (c != cur) {  // the next column: its 8 values, once
+        cur = c;
+        load_term8(c_ptr[c], c_kind[c], c_off[c], i0, n, (cols.vec >> c) & 1u, v);
+      }
+      const int code = (int)w[1];
+      const unsigned int need = (unsigned int)w[7];
+      switch (code) {
+        case 0: compare_term<0, false>(v, w[2], need, fail); break;
+        case 1: compare_term<1, false>(v, w[2], need, fail); break;
+        case 2: compare_term<2, false>(v, w[2], need, fail); break;
+        case 3: compare_term<3, false>(v, w[2], need, fail); break;
+        case 4: compare_term<4, false>(v, w[2], need, fail); break;
+        case 5: compare_term<5, false>(v, w[2], need, fail); break;
+        case kFloat + 0: compare_term<0, true>(v, w[2], need, fail); break;
+        case kFloat + 1: compare_term<1, true>(v, w[2], need, fail); break;
+        case kFloat + 2: compare_term<2, true>(v, w[2], need, fail); break;
+        case kFloat + 3: compare_term<3, true>(v, w[2], need, fail); break;
+        case kFloat + 4: compare_term<4, true>(v, w[2], need, fail); break;
+        case kFloat + 5: compare_term<5, true>(v, w[2], need, fail); break;
+        default: {  // kIn
+          const int form = (int)w[3], off = (int)w[4], len = (int)w[5];
+          const unsigned long long lo = (unsigned long long)w[6];
+          if (form == kListBitmap) {
+#pragma unroll
+            for (int r = 0; r < kPredRows; ++r) {
+              const unsigned long long at = v[r] - lo;
+              const bool ok = at < (unsigned long long)len &&
+                  ((unsigned long long)sh_lists[off + (int)(at >> 6)] >> (at & 63ull)) & 1ull;
+              fail[r] |= ok ? 0u : need;
+            }
+          } else if (form == kListSorted) {
+#pragma unroll
+            for (int r = 0; r < kPredRows; ++r) {
+              fail[r] |= in_sorted<false>(sh_lists + off, len, (long long)v[r]) ? 0u : need;
+            }
           } else {
-            ok = compare<long long>(op, iv[c], w[3]);
+#pragma unroll
+            for (int r = 0; r < kPredRows; ++r) {
+              fail[r] |= in_sorted<true>(lists + off, len, (long long)v[r]) ? 0u : need;
+            }
           }
         }
-        if (ok) bits |= 1u << s;
       }
     }
-    out[i] = bits;
+    unsigned int bits[kPredRows];
+#pragma unroll
+    for (int r = 0; r < kPredRows; ++r) bits[r] = b[r] ? slot_on & ~fail[r] : 0u;
+    if (out_vec && full) {
+      __stcs(reinterpret_cast<uint4*>(out + i0), make_uint4(bits[0], bits[1], bits[2], bits[3]));
+      __stcs(reinterpret_cast<uint4*>(out + i0 + 4), make_uint4(bits[4], bits[5], bits[6], bits[7]));
+    } else {
+#pragma unroll
+      for (int r = 0; r < kPredRows; ++r) {
+        if (i0 + r < n) out[i0 + r] = bits[r];
+      }
+    }
   }
 }
 
@@ -518,12 +613,28 @@ __global__ void __launch_bounds__(kSumThreads) batched_sums_atomic_kernel(const 
 
 extern "C" {
 
+// H22's launch over n rows with U program terms and shared_words shared
+// list words: out[0] CTAs, out[1] threads a CTA, out[2] dynamic shared bytes.
+int px_pred_slot_masks_geometry(long long n, int U, int shared_words, int* out) {
+  long long want = ((n + kPredRows - 1) / kPredRows + kPredThreads - 1) / kPredThreads;
+  const long long cap = (long long)px::num_sms() * kPredCtasPerSm;
+  if (want > cap) want = cap;
+  out[0] = want > 0 ? (int)want : 1;
+  out[1] = kPredThreads;
+  out[2] = (int)(((size_t)U * kProgWords + shared_words) * sizeof(long long));
+  return 0;
+}
+
 // col_ptrs, col_offsets (int64) and col_kinds (int32): ncols host arrays;
-// base: bool [n]; terms: int64 [B * T, 7]; lut: int64; out: uint32 [n].
+// base: bool [n]; prog: int64 [U, 8] (ops/batched.py compile_terms: terms
+// sorted by column, every column index below ncols); lists: int64, the
+// first shared_words of them copied to shared memory; out: uint32 [n].
 int px_pred_slot_masks(const void* col_ptrs, const void* col_offsets, const void* col_kinds,
-                       int ncols, const void* base, long long n, const void* terms, int B,
-                       int T, const void* lut, unsigned int slot_on, void* out, void* stream) {
-  if (ncols < 0 || ncols > kMaxPredCols || B < 1 || B > kMaxSlots || T < 1 || T > kMaxTerms) {
+                       int ncols, const void* base, long long n, const void* prog, int U,
+                       const void* lists, int shared_words, unsigned int slot_on, void* out,
+                       void* stream) {
+  if (ncols < 0 || ncols > kMaxPredCols || U < 0 || U > kMaxProgTerms || shared_words < 0 ||
+      shared_words > kListSharedWords || n < 1) {
     return (int)cudaErrorInvalidValue;
   }
   PredCols cols = {};
@@ -531,14 +642,19 @@ int px_pred_slot_masks(const void* col_ptrs, const void* col_offsets, const void
     cols.ptr[j] = (const void*)((const long long*)col_ptrs)[j];
     cols.offset[j] = ((const long long*)col_offsets)[j];
     cols.kind[j] = ((const int*)col_kinds)[j];
+    if (cols.kind[j] < kBool || cols.kind[j] > kF64) return (int)cudaErrorInvalidValue;
+    const int row_kind = cols.kind[j] == kBool ? (int)px::kU8
+                         : cols.kind[j] == kF32 ? (int)px::kI32 : cols.kind[j];
+    if (px::vec_aligned(cols.ptr[j], row_kind)) cols.vec |= 1u << j;
   }
-  cols.n = ncols;
-  const size_t smem = (size_t)B * T * kTermWords * sizeof(long long);
-  cudaError_t err = allow_smem(pred_slot_masks_kernel, smem);
+  int geo[3];
+  px_pred_slot_masks_geometry(n, U, shared_words, geo);
+  cudaError_t err = allow_smem(pred_slot_masks_kernel, (size_t)geo[2]);
   if (err != cudaSuccess) return (int)err;
-  pred_slot_masks_kernel<<<grid_for(n, 8), kThreads, smem, (cudaStream_t)stream>>>(
-      cols, (const unsigned char*)base, n, (const long long*)terms, B, T,
-      (const long long*)lut, slot_on, (unsigned int*)out);
+  pred_slot_masks_kernel<<<geo[0], geo[1], geo[2], (cudaStream_t)stream>>>(
+      cols, (const unsigned char*)base, px::vec_aligned(base, px::kU8), n,
+      (const long long*)prog, U, (const long long*)lists, shared_words, slot_on,
+      (unsigned int*)out, px::vec_aligned(out, px::kU32));
   return (int)cudaGetLastError();
 }
 

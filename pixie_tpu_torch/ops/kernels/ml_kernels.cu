@@ -48,10 +48,30 @@
 //    groups): one CTA a group, its S x d f32 points and weights in shared
 //    memory. Farthest-point seeding from the first live point, min(k, S) -
 //    1 steps (dead points -inf), then iters Lloyd steps; distances as
-//    sum (p - c)^2; argmin and argmax take the first index; a thread per
-//    (center, dim) sums the points in index order (no atomics:
-//    deterministic); an empty cluster keeps its center. Bound: operations,
-//    a few hundred kFLOP a group: launch latency sets the time.
+//    sum (p - c)^2; an empty cluster keeps its center. NaN as the
+//    reference takes it: a point's minimum distance is NaN when one is
+//    (jnp.min), seeding's argmax and Lloyd's argmin take the first NaN,
+//    else the first maximum or minimum, and a (center, coordinate) sum is
+//    NaN when any point's (one-hot x weight) x coordinate is (onehot.T @
+//    points: 0 x inf and 0 x NaN are NaN). The first design kept
+//    the points as [S][64] in shared memory, so a warp's 32 points read one
+//    bank (32-way conflicts), recomputed every chosen center at each
+//    seeding step, took the argmax and the first live point on thread 0,
+//    summed every (center, coordinate) over all S points, and dropped NaN
+//    (fminf, > and <): 0.551 ms at G 16, S 128, d 64, k 8 (PERF.md). Now:
+//    the points padded to a stride of 4 mod 8 floats (16-byte loads of 8
+//    points hit 32 banks), a running minimum updated by the newest center
+//    alone, the first live point by a warp reduction and the argmax by warp
+//    shuffles on (value, index), four centers a pass over a point's
+//    coordinates, and each cluster's members as bit masks (ballots), then
+//    the points sorted by cluster from the masks' counts, so a center's
+//    coordinate sums its members alone (a thread two coordinates), in
+//    index order (no atomics: the same bits every run), with counts of the
+//    non-finite terms to give the reference's NaN (counted only when a
+//    CTA-wide vote finds one). One CTA a group: 16 groups fill 16 of 132
+//    SMs; Lloyd's assign is bound by its SM's shared-memory reads of the
+//    centers, which a warp broadcasts (PERF.md).
+//    Bound: operations, a few hundred kFLOP a group.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -539,91 +559,329 @@ __global__ void __launch_bounds__(kTopkThreads)
 
 // ---------------------------------------------------------------- H27
 constexpr int kKmThreads = 256;
+constexpr int kKmWarps = kKmThreads / 32;
 
-__device__ __forceinline__ float sq_dist(const float* a, const float* b, int d) {
-  float s = 0.f;
-  for (int j = 0; j < d; ++j) {
-    const float t = a[j] - b[j];
-    s += t * t;
-  }
-  return s;
+__device__ __forceinline__ bool km_finite(float x) {
+  return (__float_as_uint(x) & 0x7F800000u) != 0x7F800000u;
 }
 
+// jnp.min's and torch.amin's minimum: a NaN wins.
+__device__ __forceinline__ float km_nanmin(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+
+// Whether (av, ai) comes before (bv, bi) in jnp.argmax's order: the first
+// NaN, else the largest, else the first index.
+__device__ __forceinline__ bool km_before(float av, int ai, float bv, int bi) {
+  const bool an = av != av, bn = bv != bv;
+  if (an != bn) return an;
+  if (an) return ai < bi;
+  return av > bv || (av == bv && ai < bi);
+}
+
+// s[u] = the squared distance of point x to center c0 + u (centers past k
+// repeat the last), summed over the coordinates in order as the first
+// design summed them: 16-byte loads, the padding coordinates 0 on both.
+// kD: the padded width D4 when the kernel was built for it (unrolled), else 0.
+template <int kU, int kD>
+__device__ __forceinline__ void km_dist(const float* __restrict__ x, const float* __restrict__ cen,
+                                        int D4, int c0, int k, float (&s)[kU]) {
+  const int D = kD > 0 ? kD : D4;
+  const float* c[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    c[u] = cen + min(c0 + u, k - 1) * D;
+    s[u] = 0.f;
+  }
+#pragma unroll(kD > 0 ? kD / 4 : 1)
+  for (int j = 0; j < D; j += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(x + j);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const float4 cv = *reinterpret_cast<const float4*>(c[u] + j);
+      float t = xv.x - cv.x;
+      s[u] = fmaf(t, t, s[u]);
+      t = xv.y - cv.y;
+      s[u] = fmaf(t, t, s[u]);
+      t = xv.z - cv.z;
+      s[u] = fmaf(t, t, s[u]);
+      t = xv.w - cv.w;
+      s[u] = fmaf(t, t, s[u]);
+    }
+  }
+}
+
+__device__ __forceinline__ void km_stamp(long long* probe, int at) {
+  if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) probe[at] = clock64();
+}
+
+// One CTA a group. Shared: the points [S][stride] (stride = d rounded up to
+// 4, then to 4 mod 8 floats, so a warp's 16-byte loads of 8 points hit 32
+// distinct banks), the centers [k][D4], weights, running minimum distances,
+// each cluster's members as bit masks [k][S / 32], per coordinate the
+// points whose (0 * w) * x is NaN (a non-finite weight or coordinate), each
+// point's center and the points sorted by center.
+// kD: 64 for the UDA's 64 coordinates (the distance loops unrolled), else
+// 0 (any width). Non-finite points or weights are rare: without them (a
+// CTA-wide vote while loading) nothing counts the NaN terms.
+template <int kD>
 __global__ void __launch_bounds__(kKmThreads)
     kmeans_fit_kernel(const float* __restrict__ points, const float* __restrict__ weights, int S,
-                      int d, int k, int iters, float* __restrict__ centers_out) {
-  extern __shared__ float sm[];
-  float* pts = sm;            // [S, d]
-  float* w = pts + S * d;     // [S]
-  float* cen = w + S;         // [k, d]
-  float* mind = cen + k * d;  // [S]
-  int* assign = reinterpret_cast<int*>(mind + S);  // [S]
-  __shared__ int pick;
+                      int d, int k, int iters, int vec, float* __restrict__ centers_out,
+                      long long* __restrict__ probe) {
+  extern __shared__ float4 km_sm[];
+  const int D4 = kD > 0 ? kD : (d + 3) & ~3;
+  const int stride = D4 % 8 == 0 ? D4 + 4 : D4;
+  const int nch = (S + 31) / 32;
+  float* pts = reinterpret_cast<float*>(km_sm);
+  float* cen = pts + S * stride;
+  float* w = cen + k * D4;
+  float* mind = w + S;
+  unsigned int* members = reinterpret_cast<unsigned int*>(mind + S);
+  int* nf = reinterpret_cast<int*>(members + k * nch);
+  int* asg = nf + D4;  // [S]: each point's center
+  int* by_center = asg + S;  // [S]: the points by center, in index order within one
+  int* cstart = by_center + S;  // [k + 1]: where each center's points start in by_center
+  __shared__ float red_v[kKmWarps];
+  __shared__ int red_i[kKmWarps];
+  __shared__ int nf_w;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long g = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < S * d; i += kKmThreads) pts[i] = points[g * S * d + i];
-  for (int i = tid; i < S; i += kKmThreads) w[i] = weights[g * S + i];
-  for (int i = tid; i < k * d; i += kKmThreads) cen[i] = 0.f;
-  __syncthreads();
-  if (tid == 0) {  // the first live point (0 when none is)
-    int first = 0;
-    for (int p = 0; p < S; ++p) {
-      if (w[p] > 0.f) {
-        first = p;
-        break;
-      }
-    }
-    pick = first;
-  }
-  __syncthreads();
-  for (int j = tid; j < d; j += kKmThreads) cen[j] = pts[pick * d + j];
-  __syncthreads();
   const float inf = __int_as_float(0x7F800000);
-  for (int i = 1; i < min(k, S); ++i) {  // farthest-point seeding
-    for (int p = tid; p < S; p += kKmThreads) {
-      float m = inf;
-      for (int c = 0; c < i; ++c) m = fminf(m, sq_dist(pts + p * d, cen + c * d, d));
-      mind[p] = w[p] > 0.f ? m : -inf;
+  km_stamp(probe, 0);
+
+  // The group's points, weights and first live point (0 when none is).
+  const float* gp = points + g * S * d;
+  bool bad_in = false;  // a non-finite coordinate or weight
+  if (vec) {
+    for (int q = tid; q < S * d / 4; q += kKmThreads) {
+      const int e = 4 * q, p = e / d;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(gp) + q);
+      bad_in |= !(km_finite(v.x) && km_finite(v.y) && km_finite(v.z) && km_finite(v.w));
+      *reinterpret_cast<float4*>(pts + p * stride + (e - p * d)) = v;
     }
-    __syncthreads();
-    if (tid == 0) {
-      int best = 0;
-      for (int p = 1; p < S; ++p) {
-        if (mind[p] > mind[best]) best = p;
+  } else {
+    for (int e = tid; e < S * d; e += kKmThreads) {
+      const int p = e / d;
+      const float v = __ldg(gp + e);
+      bad_in |= !km_finite(v);
+      pts[p * stride + (e - p * d)] = v;
+    }
+  }
+  if (D4 > d) {
+    for (int e = tid; e < S * (D4 - d); e += kKmThreads) {
+      const int p = e / (D4 - d);
+      pts[p * stride + d + (e - p * (D4 - d))] = 0.f;
+    }
+  }
+  for (int e = tid; e < k * D4; e += kKmThreads) cen[e] = 0.f;
+  int first = INT_MAX;
+  for (int p = tid; p < S; p += kKmThreads) {
+    const float wp = __ldg(weights + g * S + p);
+    w[p] = wp;
+    bad_in |= !km_finite(wp);
+    if (wp > 0.f) first = min(first, p);
+  }
+  first = __reduce_min_sync(0xFFFFFFFFu, first);
+  if (lane == 0) red_i[warp] = first;
+  const bool any_bad = __syncthreads_or(bad_in) != 0;
+  first = INT_MAX;
+#pragma unroll
+  for (int x = 0; x < kKmWarps; ++x) first = min(first, red_i[x]);
+  if (first == INT_MAX) first = 0;
+  for (int j = tid; j < d; j += kKmThreads) cen[j] = pts[first * stride + j];
+  if (any_bad) {
+    for (int j = tid; j < d; j += kKmThreads) {
+      int bad = 0, bad_w = 0;
+      for (int p = 0; p < S; ++p) {
+        const bool wf = km_finite(w[p]);
+        bad += !(wf && km_finite(pts[p * stride + j]));
+        bad_w += !wf;
       }
-      pick = best;
+      nf[j] = bad;
+      if (j == 0) nf_w = bad_w;
+    }
+  }
+  __syncthreads();
+  km_stamp(probe, 1);
+
+  // Farthest-point seeding: each point's minimum distance to the centers
+  // so far, kept and updated by the newest center alone (a minimum is
+  // exact: the same as recomputing it, NaN included); dead points -inf;
+  // the argmax by warp shuffles, then over the warps.
+  for (int i = 1; i < min(k, S); ++i) {
+    float bv = -inf;
+    int bi = INT_MAX;
+    for (int p = tid; p < S; p += kKmThreads) {
+      float dist[1];
+      km_dist<1, kD>(pts + p * stride, cen, D4, i - 1, k, dist);
+      const float m = i == 1 ? dist[0] : km_nanmin(mind[p], dist[0]);
+      mind[p] = m;
+      const float key = w[p] > 0.f ? m : -inf;
+      if (km_before(key, p, bv, bi)) {
+        bv = key;
+        bi = p;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xFFFFFFFFu, bv, off);
+      const int oi = __shfl_xor_sync(0xFFFFFFFFu, bi, off);
+      if (km_before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      red_v[warp] = bv;
+      red_i[warp] = bi;
     }
     __syncthreads();
-    for (int j = tid; j < d; j += kKmThreads) cen[i * d + j] = pts[pick * d + j];
+    bv = red_v[0];
+    bi = red_i[0];
+#pragma unroll
+    for (int x = 1; x < kKmWarps; ++x) {
+      if (km_before(red_v[x], red_i[x], bv, bi)) {
+        bv = red_v[x];
+        bi = red_i[x];
+      }
+    }
+    for (int j = tid; j < d; j += kKmThreads) cen[i * D4 + j] = pts[bi * stride + j];
     __syncthreads();
   }
+  km_stamp(probe, 2);
+
+  long long t_assign = 0, t_update = 0;
   for (int it = 0; it < iters; ++it) {  // Lloyd
-    for (int p = tid; p < S; p += kKmThreads) {
-      int best = 0;
-      float bv = inf;
-      for (int c = 0; c < k; ++c) {
-        const float s = sq_dist(pts + p * d, cen + c * d, d);
-        if (s < bv) {
-          bv = s;
-          best = c;
+    const long long t0 = clock64();
+    // Each point's center: the first NaN distance, else the first minimum;
+    // then a warp's 32 points as one bit mask a cluster.
+    for (int r = 0; r < (S + kKmThreads - 1) / kKmThreads; ++r) {
+      const int p = r * kKmThreads + tid;
+      int a = -1;
+      if (p < S) {
+        float bv = inf;
+        bool nan = false;
+        a = 0;
+        for (int c0 = 0; c0 < k; c0 += 4) {
+          float s4[4];
+          km_dist<4, kD>(pts + p * stride, cen, D4, c0, k, s4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (c0 + u >= k) break;
+            if (s4[u] != s4[u]) {
+              if (!nan) {
+                nan = true;
+                a = c0 + u;
+              }
+            } else if (!nan && s4[u] < bv) {
+              bv = s4[u];
+              a = c0 + u;
+            }
+          }
         }
       }
-      assign[p] = best;
-    }
-    __syncthreads();
-    for (int o = tid; o < k * d; o += kKmThreads) {
-      const int c = o / d, j = o - c * d;
-      float sum = 0.f, wsum = 0.f;
-      for (int p = 0; p < S; ++p) {
-        const float oh = assign[p] == c ? w[p] : 0.f;
-        sum += oh * pts[p * d + j];
-        wsum += oh;
+      const int ch = r * kKmWarps + warp;  // = p / 32
+      for (int c = 0; c < k; ++c) {
+        const unsigned int m = __ballot_sync(0xFFFFFFFFu, a == c);
+        if (lane == 0 && ch < nch) members[c * nch + ch] = m;
       }
-      if (wsum > 0.f) cen[o] = sum / fmaxf(wsum, 1e-9f);
+      if (p < S) asg[p] = a;
     }
     __syncthreads();
+    // A counting sort by center from the masks: each warp scans the
+    // centers' counts by shuffles (warp 0 keeps the starts for the
+    // update); a point's place is its center's start, then its center's
+    // members before it.
+    for (int r = 0; r < (S + kKmThreads - 1) / kKmThreads; ++r) {
+      const int p = r * kKmThreads + tid;
+      const int a = p < S ? asg[p] : -1;
+      int start = 0, carry = 0;
+      for (int c0 = 0; c0 < k; c0 += 32) {
+        const int c = c0 + lane;
+        int cnt = 0;
+        if (c < k) {
+          for (int x = 0; x < nch; ++x) cnt += __popc(members[c * nch + x]);
+        }
+        int incl = cnt;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        const int excl = carry + incl - cnt;
+        if (r == 0 && warp == 0 && c < k) cstart[c] = excl;
+        const int mine = __shfl_sync(0xFFFFFFFFu, excl, (a - c0) & 31);
+        if (a >= c0 && a < c0 + 32) start = mine;
+        carry += __shfl_sync(0xFFFFFFFFu, incl, 31);
+      }
+      if (r == 0 && warp == 0 && lane == 0) cstart[k] = carry;
+      if (p < S) {
+        const int ch = p >> 5;
+        int at = start + __popc(members[a * nch + ch] & ((1u << (p & 31)) - 1u));
+        for (int x = 0; x < ch; ++x) at += __popc(members[a * nch + x]);
+        by_center[at] = p;
+      }
+    }
+    __syncthreads();
+    const long long t1 = clock64();
+    // A thread a center and two coordinates (j, j + d/2): its members'
+    // weighted sums in index order, four members' loads at a time; the
+    // reference's onehot.T @ points but for the zero terms of the other
+    // points, which add nothing unless one is NaN (0 * inf, 0 * NaN): then
+    // the sum is NaN, as is the weight sum's for a non-finite weight
+    // elsewhere. An empty cluster keeps its center.
+    const int dh = (d + 1) >> 1;
+    for (int o = tid; o < k * dh; o += kKmThreads) {
+      const int c = o / dh, j = o - c * dh, j2 = j + dh;
+      const bool two = j2 < d;
+      const int cnt = cstart[c + 1] - cstart[c];
+      const int* list = by_center + cstart[c];
+      float sum = 0.f, sum2 = 0.f, wsum = 0.f;
+      int bad = 0, bad2 = 0, bad_w = 0;
+      for (int t = 0; t < cnt; t += 4) {
+        float wq[4], xq[4], yq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float* row = pts + list[min(t + q, cnt - 1)] * stride;
+          wq[q] = w[list[min(t + q, cnt - 1)]];
+          xq[q] = row[j];
+          yq[q] = two ? row[j2] : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (t + q >= cnt) break;
+          sum += wq[q] * xq[q];
+          sum2 += wq[q] * yq[q];
+          wsum += wq[q];
+          if (any_bad) {
+            const bool wf = km_finite(wq[q]);
+            bad += !(wf && km_finite(xq[q]));
+            bad2 += !(wf && km_finite(yq[q]));
+            bad_w += !wf;
+          }
+        }
+      }
+      if (any_bad && nf_w > bad_w) wsum = __int_as_float(0x7FC00000);
+      if (!(wsum > 0.f)) continue;
+      const float div = fmaxf(wsum, 1e-9f);
+      cen[c * D4 + j] = (any_bad && nf[j] > bad ? __int_as_float(0x7FC00000) : sum) / div;
+      if (two) cen[c * D4 + j2] = (any_bad && nf[j2] > bad2 ? __int_as_float(0x7FC00000) : sum2) / div;
+    }
+    __syncthreads();
+    const long long t2 = clock64();
+    t_assign += t1 - t0;
+    t_update += t2 - t1;
   }
-  for (int i = tid; i < k * d; i += kKmThreads) centers_out[g * k * d + i] = cen[i];
+  km_stamp(probe, 3);
+  if (probe != nullptr && blockIdx.x == 0 && tid == 0) {
+    probe[4] = t_assign;
+    probe[5] = t_update;
+  }
+  for (int o = tid; o < k * d; o += kKmThreads) {
+    const int c = o / d;
+    centers_out[g * k * d + o] = cen[c * D4 + (o - c * d)];
+  }
 }
 
 }  // namespace
@@ -697,15 +955,35 @@ int px_reservoir_topk_rows(const void* st_vals, const void* st_pri, const void* 
   return (int)cudaGetLastError();
 }
 
+// H27's launch: out[0] CTAs, out[1] threads a CTA, out[2] dynamic shared
+// bytes (points, centers, weights, minimum distances, member masks, NaN
+// counts, assignments, the points by center and the centers' starts);
+// over the card's opt-in limit, allow_smem's error stands.
+int px_kmeans_fit_geometry(int G, int S, int d, int k, int* out) {
+  const long long D4 = (d + 3) & ~3, stride = D4 % 8 == 0 ? D4 + 4 : D4;
+  const long long words = (long long)S * stride + (long long)k * D4 + 4LL * S +
+                          (long long)k * ((S + 31) / 32) + D4 + k + 1;
+  out[0] = G;
+  out[1] = kKmThreads;
+  out[2] = (int)(words * 4);
+  return 0;
+}
+
+// points f32 [G, S, d], weights f32 [G, S], centers f32 [G, k, d]; probe:
+// null, or int64 [6]: CTA 0's clock64 at the start, after the load, after
+// seeding and at the end, then its cycles in Lloyd's assign and update.
 int px_kmeans_fit(const void* points, const void* weights, int G, int S, int d, int k, int iters,
-                  void* centers, void* stream) {
-  // points, weights, centers, min distances (f32) and assignments (int);
-  // over the card's opt-in limit, allow_smem's error stands.
-  const size_t smem = (size_t)(S * d + S + k * d + S) * sizeof(float) + (size_t)S * sizeof(int);
-  cudaError_t err = px::allow_smem(kmeans_fit_kernel, smem);
+                  void* centers, void* probe, void* stream) {
+  if (G < 1 || S < 1 || d < 1 || k < 1 || iters < 0) return (int)cudaErrorInvalidValue;
+  int geo[3];
+  px_kmeans_fit_geometry(G, S, d, k, geo);
+  const int vec = d % 4 == 0 && (uintptr_t)points % 16 == 0;
+  const auto kernel = (d + 3) / 4 == 16 ? kmeans_fit_kernel<64> : kmeans_fit_kernel<0>;
+  cudaError_t err = px::allow_smem(kernel, (size_t)geo[2]);
   if (err != cudaSuccess) return (int)err;
-  kmeans_fit_kernel<<<G, kKmThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)points, (const float*)weights, S, d, k, iters, (float*)centers);
+  kernel<<<geo[0], geo[1], geo[2], (cudaStream_t)stream>>>(
+      (const float*)points, (const float*)weights, S, d, k, iters, vec, (float*)centers,
+      (long long*)probe);
   return (int)cudaGetLastError();
 }
 

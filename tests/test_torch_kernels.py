@@ -33,7 +33,9 @@ of their cell (H2's bound). The resident ring's converters (H24) bit for
 bit, NaN payloads and f32 subnormals included. The ML lane: H25's
 priorities and H26's reservoir states bit for bit (forced ties, 1 to 4096
 groups, one group holding every row, empty groups, k 1 to 768, merges),
-H27's k-means centers and H28's embeddings within 1e-5. The cross-shard
+H27's k-means centers and H28's embeddings within 1e-5 (H27's with the
+plain version's NaN pattern where a point holds NaN or an infinity, and
+exact on ties). The cross-shard
 merge (H29) bit for bit, NaN, signed zeros and int64 overflow included; the
 sharded fold over real cards equal to the same geometry over logical shards
 of one card, exactly but for f64 sums (within 1e-12 * sum |v|), and so are
@@ -50,7 +52,8 @@ import pytest
 import torch
 
 from pixie_tpu_torch.ops import (
-    batched, countmin, hashing, histogram, hll, kernels, ml, scan, segment, tdigest,
+    batched, countmin, hashing, histogram, hll, kernels, kmeans_edges, ml, pred_edges, scan,
+    segment, tdigest,
 )
 from pixie_tpu_torch.ops import transformer
 from pixie_tpu_torch.ops.tdigest_edges import H8_CASES, h8_expected_branches, h8_inputs
@@ -1438,6 +1441,53 @@ def test_batched_segment_sums_edges_on_card(n):
                     assert bits_equal(again[1], got_f), what
 
 
+def _h22_cases(n: int) -> list:
+    """(name, columns {name: (CPU tensor, offset)}, slot terms) of H22's
+    card cases: _slot_terms at B 1, 7, 16 and 32, the soak's B 7 and
+    wide_terms 16 and 32 on the staged status and latency, SLOT_CASES on
+    the edge columns, 16 columns of every dtype, and op-6 lists of every
+    form (ops/pred_edges.py)."""
+    cols, _ = _pred_columns(n)
+    rng = np.random.default_rng(24)
+    i64 = rng.integers(-(1 << 16), 1 << 16, n)
+    i64[:6] = [pred_edges.INT64_MIN, pred_edges.INT64_MAX, pred_edges.INT64_MIN + 7, 0, -1,
+               (1 << 15) - 1]
+    cols["i64"] = (torch.from_numpy(i64), 0)
+    many = {c: (torch.from_numpy(a), o) for c, (a, o) in pred_edges.sixteen_columns(n).items()}
+    edge = {c: (torch.from_numpy(a), o) for c, (a, o) in pred_edges.edge_columns(n).items()}
+    cases = [(f"slot_terms B={B}", cols, _slot_terms(B)) for B in (1, 7, 16, 32)]
+    cases.append(("soak B=7", cols, pred_edges.soak_terms("status", "latency")))
+    cases += [(f"wide_terms({B})", cols, pred_edges.wide_terms(B, "status", "latency"))
+              for B in (16, 32)]
+    cases += [(f"SLOT_CASES[{i}]", edge, st) for i, st in enumerate(pred_edges.SLOT_CASES)]
+    cases.append(("sixteen columns", many, pred_edges.sixteen_terms()))
+    cases.append(("lists", cols, pred_edges.lists_terms()))
+    return cases
+
+
+# H22 at the soak's and the wide batches' shapes and its edges: a 2^21-row
+# block and its 8-row tail (n = 2^21 + 3), every column, the mask and the
+# output aligned and every column and the mask one element into its buffer
+# (no vector loads); bit for bit against the plain version.
+@pytest.mark.cuda
+def test_pred_slot_masks_shapes_on_card():
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    n = (1 << 21) + 3
+    base = torch.from_numpy(np.random.default_rng(25).random(n) < 0.9)
+    for name, cols, slot_terms in _h22_cases(n):
+        table = batched.build_term_table(
+            slot_terms, {c: t.numpy().dtype for c, (t, _) in cols.items()})
+        tcols = [cols[c][0] for c in table.columns]
+        offs = [cols[c][1] for c in table.columns]
+        want = batched.slot_masks_plain(tcols, offs, base, table)
+        dtable = table.to(dev)
+        for unaligned in (False, True):
+            put = (lambda t: _unaligned(t.to(dev))) if unaligned else (lambda t: t.to(dev))
+            got = batched.slot_masks([put(t) for t in tcols], offs, put(base), dtable)
+            assert got.device == dev and torch.equal(got.cpu(), want), (name, unaligned)
+
+
 @pytest.mark.cuda
 def test_batch_kernels_match_plain_on_card():
     _need_cards(1)
@@ -1490,6 +1540,43 @@ def check_ml_kernels(dev: torch.device) -> None:
         want = ml.kmeans_fit_plain(pts, w, k)
         got = ml.kmeans_fit(pts.to(dev), w.to(dev), k).cpu()
         assert (got - want).abs().max() <= 1e-5
+
+
+def _same_nan_close(got: torch.Tensor, want: torch.Tensor, what) -> None:
+    """The same NaN pattern; elsewhere equal (infinities) or within 1e-5."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), what
+    assert bool(((got == want) | ((got - want).abs() <= 1e-5))[~nan].all()), what
+
+
+# H27 where NaN and infinities reach it (a JSON embedding may hold them):
+# the same NaN pattern as the plain version (a NaN distance wins the
+# minimum, the argmax and the argmin as the first NaN; 0 * NaN and 0 * inf
+# make a center's sum NaN) and 1e-5 elsewhere, every point dead, k above
+# S; exact copies on the tie groups (the first index); and the main path's
+# shape with NaN in a live and in a dead point.
+@pytest.mark.cuda
+def test_kmeans_fit_nan_inf_and_ties_on_card():
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    pts, w = (torch.from_numpy(a) for a in kmeans_edges.nan_groups())
+    for k in (3, 4, 8, 20):
+        want = ml.kmeans_fit_plain(pts, w, k)
+        got = ml.kmeans_fit(pts.to(dev), w.to(dev), k).cpu()
+        _same_nan_close(got, want, ("nan groups", k))
+    tpts, tw = (torch.from_numpy(a) for a in kmeans_edges.tie_groups())
+    for k in (2, 3, 4):
+        assert torch.equal(ml.kmeans_fit(tpts.to(dev), tw.to(dev), k).cpu(),
+                           ml.kmeans_fit_plain(tpts, tw, k)), ("ties", k)
+    rng = np.random.default_rng(26)
+    big = torch.from_numpy(rng.normal(0, 3, (16, 128, 64)).astype(np.float32))
+    bw = torch.from_numpy((rng.random((16, 128)) < 0.9).astype(np.float32))
+    big[3, 40, 7], bw[3, 40] = float("nan"), 1.0
+    big[5, 9, 63], bw[5, 9] = float("nan"), 0.0
+    big[7, 2, 0], bw[7, 2] = float("inf"), 1.0
+    for k in (4, 8):
+        _same_nan_close(ml.kmeans_fit(big.to(dev), bw.to(dev), k).cpu(),
+                        ml.kmeans_fit_plain(big, bw, k), ("G 16 S 128 d 64", k))
 
 
 def encoder_batches(rng) -> list:

@@ -32,7 +32,7 @@ from pixie_tpu.parallel import MeshExecutor
 from pixie_tpu.types import DataType as RefDT, Relation as RefRelation
 from pixie_tpu.utils import flags as ref_flags
 from pixie_tpu_torch.engine import Carnot
-from pixie_tpu_torch.ops import kernels, ml
+from pixie_tpu_torch.ops import kernels, kmeans_edges, ml
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.serving import SharedScanCoordinator
 from pixie_tpu_torch.types import DataType, Relation
@@ -407,6 +407,100 @@ def test_kmeans_fit_ties_take_the_first_index():
         want = np.asarray(fit(jnp.asarray(pts), jnp.asarray(w), k))
         got = ml.kmeans_fit(torch.from_numpy(pts), torch.from_numpy(w), k).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+def _same_nan_close(got: np.ndarray, want: np.ndarray, atol: float = 1e-5) -> None:
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("k", [3, 20])  # 20 > S: centers past S stay 0
+def test_kmeans_fit_nan_and_inf_match_reference(k):
+    """The plain version against the reference, vmapped over the groups,
+    where a point holds NaN or +-inf and where every point is dead: the
+    same NaN pattern (a NaN distance wins the minimum and the argmax/argmin
+    as the first NaN; 0 * NaN and 0 * inf poison the sums) and 1e-5
+    elsewhere."""
+    pts, w = kmeans_edges.nan_groups()
+    fit = jax.vmap(ref_ml.kmeans_fit, in_axes=(0, 0, None))
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = np.asarray(fit(jnp.asarray(pts), jnp.asarray(w), k))
+        got = ml.kmeans_fit(torch.from_numpy(pts), torch.from_numpy(w), k).numpy()
+    assert np.isnan(want).any(axis=(1, 2)).tolist()[:3] == [True] * 3  # every NaN group shows
+    assert np.isinf(want[3:5]).any(axis=(1, 2)).all()  # and each inf group
+    _same_nan_close(got, want)
+
+
+def _h27_model(pts: np.ndarray, w: np.ndarray, k: int, iters: int = 10) -> tuple:
+    """A step model of H27 (ml_kernels.cu) in f32: the first live point by
+    a search; seeding's running minimum (np.minimum: NaN wins) updated by
+    the newest center alone and its argmax as the kernel's key order (the
+    first NaN, else the first maximum; dead points -inf); Lloyd's argmin
+    (the first NaN, else the first minimum); each center's members summed
+    in index order, NaN where a non-member's (0 * w) * x is NaN, counted as
+    the kernel counts it. Returns (seeds, centers)."""
+    G, S, d = pts.shape
+    seeds = np.zeros((G, k, d), np.float32)
+    out = np.zeros((G, k, d), np.float32)
+    bad = lambda wv, xv: ~np.isfinite(wv)[:, None] | ~np.isfinite(xv)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for g in range(G):
+            x, wg = pts[g], w[g]
+            live = wg > 0
+            first = int(np.nonzero(live)[0][0]) if live.any() else 0
+            cen = np.zeros((k, d), np.float32)
+            cen[0] = x[first]
+            dist = lambda c: ((x - c) ** 2).sum(axis=1, dtype=np.float32)
+            mind = None
+            for i in range(1, min(k, S)):
+                dd = dist(cen[i - 1])
+                mind = dd if mind is None else np.minimum(mind, dd)
+                key = np.where(live, mind, -np.inf).astype(np.float32)
+                nan = np.isnan(key)
+                cen[i] = x[int(np.argmax(nan)) if nan.any() else int(np.argmax(key))]
+            seeds[g] = cen
+            nf, nf_w = bad(wg, x).sum(axis=0), int((~np.isfinite(wg)).sum())
+            for _ in range(iters):
+                D = np.stack([dist(cen[c]) for c in range(k)], axis=1)
+                nanrow = np.isnan(D)
+                a = np.where(nanrow.any(axis=1), np.argmax(nanrow, axis=1),
+                             np.argmin(np.where(nanrow, np.inf, D), axis=1))
+                for c in range(k):
+                    mem = np.nonzero(a == c)[0]
+                    sums, wsum = np.zeros(d, np.float32), np.float32(0)
+                    for p in mem:
+                        sums = sums + wg[p] * x[p]
+                        wsum = np.float32(wsum + wg[p])
+                    sums[nf > bad(wg[mem], x[mem]).sum(axis=0)] = np.nan
+                    if nf_w > int((~np.isfinite(wg[mem])).sum()):
+                        wsum = np.float32(np.nan)
+                    if wsum > 0:
+                        cen[c] = sums / max(wsum, np.float32(1e-9))
+            out[g] = cen
+    return seeds, out
+
+
+@pytest.mark.parametrize("case", ["nan", "nan_k_over_S", "clusters", "ties"])
+def test_h27_model_equals_plain(case):
+    """The step model of H27's seeding (running minimum, NaN-first argmax)
+    gives kmeans_fit_plain's seeds exactly (iters 0), and its Lloyd steps
+    (member masks, non-finite counts) the plain centers' NaN pattern and
+    1e-5 elsewhere."""
+    if case.startswith("nan"):
+        pts, w = kmeans_edges.nan_groups()
+        k = 20 if case == "nan_k_over_S" else 3
+    elif case == "clusters":
+        pts, w = _clusters(np.random.default_rng(4), 3, 128, 64, 8)
+        k = 8
+    else:
+        (pts, w), k = kmeans_edges.tie_groups(), 4
+    seeds, got = _h27_model(pts, w, k)
+    with np.errstate(invalid="ignore", over="ignore"):
+        want_seeds = ml.kmeans_fit_plain(torch.from_numpy(pts), torch.from_numpy(w), k, 0).numpy()
+        want = ml.kmeans_fit_plain(torch.from_numpy(pts), torch.from_numpy(w), k).numpy()
+    np.testing.assert_array_equal(seeds, want_seeds)
+    _same_nan_close(got, want)
 
 
 # -- through PxL ------------------------------------------------------------------

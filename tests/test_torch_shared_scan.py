@@ -34,7 +34,7 @@ from pixie_tpu.udf.builtins import register_all as ref_register_all
 from pixie_tpu.udf.registry import Registry as RefRegistry
 from pixie_tpu_torch.engine import Carnot
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator
-from pixie_tpu_torch.ops import batched, segment
+from pixie_tpu_torch.ops import batched, pred_edges, segment
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.parallel.pipeline import normalize_predicates
 from pixie_tpu_torch.plan.expressions import ColumnRef, Constant, FuncCall
@@ -308,7 +308,7 @@ def test_normalizer_matches_reference(case):
 
 # -- H22 and H23's plain versions against numpy ------------------------------
 
-INT64_MIN, INT64_MAX = -(2**63), 2**63 - 1
+INT64_MIN, INT64_MAX = pred_edges.INT64_MIN, pred_edges.INT64_MAX
 
 
 def _np_cmp(op, v, t):
@@ -316,34 +316,8 @@ def _np_cmp(op, v, t):
             np.greater_equal][op](v, t)
 
 
-def _edge_columns(n: int):
-    rng = np.random.default_rng(11)
-    i64 = rng.integers(INT64_MIN, INT64_MAX, n, dtype=np.int64, endpoint=True)
-    i64[:6] = [INT64_MIN, INT64_MAX, 0, -1, 1, INT64_MIN + 1]
-    f64 = rng.normal(0, 10, n)
-    f64[:8] = [np.nan, 0.0, -0.0, np.inf, -np.inf, 5e-324, 1.5, -1.5]
-    f32 = rng.normal(0, 10, n).astype(np.float32)
-    f32[:4] = [np.float32(0.1), np.nan, -0.0, 0.0]
-    u16 = rng.integers(0, 1 << 16, n).astype(np.uint16)
-    codes = rng.integers(-1, 2000, n).astype(np.int32)
-    flags_ = rng.random(n) < 0.5
-    return {"i64": (i64, 0), "f64": (f64, 0), "f32": (f32, 0), "u16": (u16, -70_000),
-            "codes": (codes, 0), "b": (flags_, 0)}
-
-
-SLOT_CASES = [
-    [[("i", "i64", 0, INT64_MIN, 0.0, ())], [("i", "i64", 5, INT64_MAX, 0.0, ())],
-     [("i", "i64", 2, 0, 0.0, ())]],
-    [[("f", "f64", 0, 0, 0.0, ())], [("f", "f64", 1, 0, float("nan"), ())],
-     [("f", "f64", 4, 0, -0.0, ())], [("f", "f64", 3, 0, float("inf"), ())],
-     [("f", "f64", 1, 0, 1.5, ())]],
-    [[("f", "f32", 0, 0, float(np.float64(np.float32(0.1))), ())],
-     [("i", "u16", 4, -40_000, 0.0, ()), ("i", "b", 1, 0, 0.0, ())],
-     [("i", "codes", 6, 0, 0.0, (-1, 5, 17))],
-     [("i", "codes", 6, 0, 0.0, tuple(range(-1, 2046, 2)))],  # L = 1024
-     []],  # no term: every base row
-    [[("i", "u16", s % 6, -70_000 + 2000 * s, 0.0, ())] for s in range(32)],
-]
+_edge_columns = pred_edges.edge_columns
+SLOT_CASES = pred_edges.SLOT_CASES
 
 
 @pytest.mark.parametrize("case", range(len(SLOT_CASES)))
@@ -378,6 +352,97 @@ def test_term_table_checks_stacks_and_limits():
     assert not batched.fits([[]] * (batched.MAX_SLOTS + 1))
     runs = batched.split_batch([[("i", f"c{s}", 0, 1, 0.0, ())] for s in range(40)])
     assert [len(r) for r in runs] == [16, 16, 8]  # at most 16 distinct columns a table
+
+
+def _edge_soak(B: int = 7) -> list:
+    """The soak's families (B 7) or wide_terms(B) on the edge columns."""
+    if B == 7:
+        return pred_edges.soak_terms("u16", "f64", -69_800, 2.0)
+    return pred_edges.wide_terms(B, "u16", "f64", -69_800, 2.0, 1.0)
+
+
+# (slot terms, the columns' maker, distinct terms, the lists' forms)
+COMPILE_CASES = [
+    (SLOT_CASES[0], _edge_columns, 3, []),
+    (SLOT_CASES[1], _edge_columns, 5, []),
+    (SLOT_CASES[2], _edge_columns, 5, ["bitmap", "bitmap"]),
+    (SLOT_CASES[3], _edge_columns, 32, []),
+    (_edge_soak(7), _edge_columns, 6, ["bitmap"]),
+    (_edge_soak(16), _edge_columns, 9, ["bitmap", "bitmap"]),
+    (_edge_soak(32), _edge_columns, 25, ["bitmap", "bitmap"]),
+    (pred_edges.sixteen_terms(), pred_edges.sixteen_columns, 16, ["bitmap"] * 2),
+    (pred_edges.lists_terms(), _edge_columns, 4, ["sorted", "bitmap", "sorted", "global"]),
+]
+
+
+def _program_bits(cols: list, offsets: list, base: torch.Tensor, table) -> torch.Tensor:
+    """A torch model of H22 over ``table.prog``: each distinct term once
+    (compares as (lt, eq, gt) selections, negated for !=; lists as their
+    form lays them out), a false term's ``need`` into the row's fail mask,
+    then base ? slot_on & ~fail : 0, as int32."""
+    prog = table.prog
+    words = prog.lists.numpy().view(np.uint64)
+    vals = [batched._widen(c, int(o)) for c, o in zip(cols, offsets)]
+    fail = torch.zeros(base.shape[0], dtype=torch.int64)
+    for col, code, thr, form, off, ln, lo, need in prog.terms.numpy().tolist():
+        v = vals[col]
+        if code == batched.CODE_IN:
+            if form == batched.LIST_BITMAP:
+                at = (v - lo).numpy()  # wraps as the kernel's unsigned difference
+                inside = (at >= 0) & (at < ln)
+                idx = np.where(inside, at, 0)
+                bit = (words[off + (idx >> 6)] >> (idx & 63).astype(np.uint64)) & np.uint64(1)
+                ok = torch.from_numpy(inside & (bit == 1))
+            else:
+                members = torch.from_numpy(prog.lists.numpy()[off : off + ln])
+                at = torch.searchsorted(members, v).clamp(max=max(ln - 1, 0))
+                ok = (members[at] == v) if ln else torch.zeros_like(v, dtype=torch.bool)
+        else:
+            op = code - batched.CODE_FLOAT if code >= batched.CODE_FLOAT else code
+            t = float(np.int64(thr).view(np.float64)) if code >= batched.CODE_FLOAT else thr
+            hit = ((v < t) & (op in (2, 3))) | ((v == t) & (op in (0, 1, 3, 5))) \
+                | ((v > t) & (op in (4, 5)))
+            ok = hit ^ (op == 1)
+        fail |= torch.where(ok, 0, need)
+    bits = torch.where(base, table.slot_on & ~fail, 0)
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", range(len(COMPILE_CASES)))
+def test_compile_terms_model_equals_plain(case):
+    """compile_terms keeps each distinct active term once, sorted by column,
+    with the slots that hold it; running the program (slot_on & ~OR need[u]
+    of the false terms) gives slot_masks_plain's bits bit for bit."""
+    slot_terms, make_cols, distinct, forms = COMPILE_CASES[case]
+    n = 5000
+    cols = make_cols(n)
+    base = torch.from_numpy(np.random.default_rng(case + 40).random(n) < 0.9)
+    table = batched.build_term_table(slot_terms, {c: a.dtype for c, (a, _) in cols.items()})
+    prog = table.prog
+    assert prog.num_terms == distinct
+    assert prog.forms == forms
+    terms = prog.terms.numpy()
+    assert np.all(np.diff(terms[:, 0]) >= 0)  # sorted by column
+    assert int(np.bitwise_or.reduce(terms[:, 7], initial=0)) & ~table.slot_on == 0
+    for s, st in enumerate(slot_terms):  # a slot's terms are the terms that need it
+        assert int(((terms[:, 7] >> s) & 1).sum()) == len(set(map(repr, st)))
+    assert prog.shared_words <= batched.LIST_SHARED_WORDS
+    tcols = [torch.from_numpy(cols[c][0]) for c in table.columns]
+    offs = [cols[c][1] for c in table.columns]
+    want = batched.slot_masks_plain(tcols, offs, base, table)
+    assert torch.equal(_program_bits(tcols, offs, base, table), want)
+
+
+def test_compile_terms_shares_a_repeated_list():
+    """wide_terms(32): one 1024-member list in 25 slots is one term (its
+    need holds slots 7..31) and one bitmap of 32 words."""
+    table = batched.build_term_table(_edge_soak(32), {"u16": np.uint16, "f64": np.float64})
+    terms = table.prog.terms.numpy()
+    lists = terms[terms[:, 1] == batched.CODE_IN]
+    big = lists[lists[:, 5] == 2047]
+    assert len(big) == 1 and int(big[0, 7]) == ((1 << 32) - 1) & ~((1 << 7) - 1)
+    # and the soak's 2-member list (span 205): a bitmap of 4 words
+    assert int(big[0, 3]) == batched.LIST_BITMAP and table.prog.shared_words == 32 + 4
 
 
 def test_batched_segment_sums_plain_is_the_serial_reductions():
