@@ -1816,21 +1816,72 @@ def join_edge_keys(seed: int, nb: int, n_probe: int, K: int, pad_b: int, pad_p: 
             lmask, rmask)
 
 
+def join_left_agg_keys(dev) -> tuple:
+    """join8_left_agg's join keys as the sort-merge lane builds them
+    (``_join_key_ids``, then ``_run_device_join``): join_fact's 4,000,000
+    service codes as the build side and svc_owners_partial's 18 services as
+    the probe side, densified by one GroupEncoder (left first: K 20), each
+    side padded to its staged block geometry (2^21-row blocks: 4,194,304
+    build rows; 256 probe rows) with keys K and K + 1. Returns (build keys,
+    probe keys, K, M, cap_m), the keys int32 on ``dev``."""
+    from pixie_tpu_torch.exec.group_encoder import GroupEncoder
+    from pixie_tpu_torch.parallel.staging import _pow2_at_least, block_geometry
+
+    left = join_fact(JOIN_ROWS)["svc_idx"].astype(np.int64)
+    right = np.array([SERVICES.index(s) if s in SERVICES else N_SERVICES + int(s[6:])
+                      for s in partial_owners()], dtype=np.int64)
+    enc = GroupEncoder()
+    kl, kr = enc.encode([left]), enc.encode([right])
+    K = max(enc.num_groups, 1)
+    M = int((np.bincount(kl, minlength=K) * np.bincount(kr, minlength=K)).sum())
+    out = []
+    for ids, pad in ((kl, K), (kr, K + 1)):
+        b, nblk = block_geometry(len(ids), 1, BLOCK_ROWS)
+        keys = np.full(b * nblk, pad, np.int32)
+        keys[: len(ids)] = ids
+        out.append(torch.from_numpy(keys).to(dev))
+    return out[0], out[1], K, M, _pow2_at_least(max(M, 1))
+
+
+def config8_join_keys(dev) -> tuple:
+    """Config 8's standalone join as the sort-merge lane stages it: the 16
+    services as the build side, padded to 256 rows with key K, and 4,000,000
+    probe rows padded to 4,194,304 (2^21-row blocks) with key K + 1, one
+    match each. Returns (build keys, probe keys, K, the probe side's f64
+    latency column as numpy), the keys int32 on ``dev``."""
+    rng = np.random.default_rng(46)
+    n_real, n = JOIN_ROWS, 2 * BLOCK_ROWS
+    svc_idx = rng.integers(0, N_SERVICES, n_real).astype(np.int32)
+    latency = np.zeros(n)
+    latency[:n_real] = rng.exponential(3e7, n_real)
+    nb, K = 256, N_SERVICES
+    lkey = torch.tensor(list(range(K)) + [K] * (nb - K), dtype=torch.int32, device=dev)
+    rkey = np.full(n, K + 1, np.int32)
+    rkey[:n_real] = svc_idx
+    return lkey, torch.from_numpy(rkey).to(dev), K, latency
+
+
 def join_kernel_phase(dev) -> dict:
     """H13, H14, H15 and H12's compaction of unmatched row indices against
     their plain versions on the card, bit for bit, on the slots below the
     match count: first edge cases (many-to-many keys, fanout 0 and a large
-    fanout, padded rows, a cap exactly at the count) through all four join
-    types' sections, then config 8's shapes, where the kernels are timed:
-    the 16-row build side padded to 256, 4,000,000 probe rows padded to
-    4,194,304 (2^21-row blocks), one match each, cap_m 4,194,304; H15 on the
-    f64 latency column; H12 on the OUTER join's unmatched probe rows (the
-    two services svc_owners_partial does not own)."""
+    fanout, padded rows, a cap exactly at the count; fanouts in the
+    thousands between fanout-0 rows; one row of more than 2^20 pairs)
+    through all four join types' sections, then config 8's shapes, where the
+    kernels are timed: the 16-row build side padded to 256, 4,000,000 probe
+    rows padded to 4,194,304 (2^21-row blocks), one match each, cap_m
+    4,194,304 (H13 checked in its table lane, as local_sort_merge calls it,
+    with its widest table, and in its search lane, and timed in the first and
+    the last); H15 on the f64 latency column; H12 on the OUTER join's
+    unmatched probe rows (the two services svc_owners_partial does not own);
+    then H13, with a LEFT join's presence, and H14 at join8_left_agg's shape
+    (``join_left_agg_keys``: 14 of 256 probe rows own about 250,000 pairs
+    each)."""
     from pixie_tpu_torch.ops import kernels, scan, segment
 
     K = 40
     for seed, nb, n_probe, pad_b, pad_p in ((0, 256, 3001, 37, 5), (1, 7, 1, 0, 0),
-                                            (2, 5000, 20000, 1000, 0)):
+                                            (2, 5000, 20000, 1000, 0), (24, 1 << 15, 12, 100, 2)):
         host = [torch.from_numpy(a) for a in join_edge_keys(seed, nb, n_probe, K, pad_b, pad_p)]
         card = [t.to(dev) for t in host]
         _, fanout, _ = segment.join_probe_plain(torch.sort(host[0], stable=True)[0], host[1])
@@ -1851,33 +1902,53 @@ def join_kernel_phase(dev) -> dict:
                                                       for i, r in secs], 5, -1)
                 w = segment.join_gather_plain(col, secs, 5, -1)
                 check(torch.equal(g.cpu(), w), f"H15 edge case {seed} side {side}: differs")
+    # One probe row of more than 2^20 pairs between rows of none and of a few.
+    rng = np.random.default_rng(7)
+    nb = (1 << 20) + 5000
+    lk = np.where(rng.random(nb) < 0.998, 0, rng.integers(1, 4, nb)).astype(np.int32)
+    host = [torch.from_numpy(lk), torch.tensor([2, 5, 0, 5, 3, 1, 0], dtype=torch.int32),
+            torch.ones(nb, dtype=torch.bool), torch.ones(7, dtype=torch.bool)]
+    _, fanout, _ = segment.join_probe_plain(torch.sort(host[0], stable=True)[0], host[1])
+    M = int(fanout.sum())
+    check(int(fanout.max()) > 1 << 20, "join edge case: no row above 2^20 pairs")
+    for cap_m in (M, 1 << 20):  # the count, and a cap through the first heavy row
+        got = segment.local_sort_merge(*[t.to(dev) for t in host], cap_m, 8, 16, 6)
+        want = segment.local_sort_merge(*host, cap_m, 8, 16, 6)
+        torch.cuda.synchronize()
+        S = min(M, cap_m)
+        check(torch.equal(got[0][:S].cpu(), want[0][:S]) and torch.equal(got[1][:S].cpu(),
+                                                                        want[1][:S])
+              and all(torch.equal(g.cpu(), w) for g, w in zip(got[2:], want[2:])),
+              f"join edge case: a row of {int(fanout.max())} pairs, cap {cap_m}: kernel != plain")
     log("H13/H14/H12 (via local_sort_merge) and H15: edge cases (many-to-many, fanout 0, "
-        "a large fanout, padded rows, cap at the count), INNER/LEFT/RIGHT/OUTER, bit for bit")
+        "a large fanout, padded rows, cap at the count, fanouts in the thousands between "
+        f"fanout-0 rows, one row of {int(fanout.max())} pairs with caps at and below the count), "
+        "INNER/LEFT/RIGHT/OUTER, bit for bit")
 
     # Config 8's shapes.
-    rng = np.random.default_rng(46)
-    n_real, n = JOIN_ROWS, 2 * BLOCK_ROWS
-    svc_idx = rng.integers(0, N_SERVICES, n_real).astype(np.int32)
-    latency = np.zeros(n)
-    latency[:n_real] = rng.exponential(3e7, n_real)
-    nb, K = 256, N_SERVICES
-    lkey = torch.tensor(list(range(K)) + [K] * (nb - K), dtype=torch.int32, device=dev)
-    rkey_np = np.full(n, K + 1, np.int32)
-    rkey_np[:n_real] = svc_idx
-    rkey = torch.from_numpy(rkey_np).to(dev)
+    lkey, rkey, K, latency = config8_join_keys(dev)
+    nb, n, n_real = lkey.shape[0], rkey.shape[0], JOIN_ROWS
     sk, order = torch.sort(lkey, stable=True)
     order = order.to(torch.int32)
-    got = kernels.join_probe(sk, rkey)
-    want = segment.join_probe_plain(sk, rkey)
-    torch.cuda.synchronize()
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "H13 config 8: differs")
+    want = segment.join_probe_plain(sk, rkey, K + 2)
+    # The table lane (local_sort_merge's call), its widest table (4,194,304
+    # probe rows are enough), and the search lane (a key space above the
+    # table, or none).
+    for ks, lane in ((K + 2, "table"), (kernels.JOIN_TABLE_IDS, "table"),
+                     (kernels.JOIN_TABLE_IDS + 1, "search"), (0, "search")):
+        check(kernels.join_probe_geometry(n, ks)[3] == lane,
+              f"H13 config 8, key space {ks}: not the {lane} lane")
+        got = kernels.join_probe(sk, rkey, K + 2, ks)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"H13 config 8, key space {ks}: differs")
     lo, fanout, _ = want
     prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
     M = int(prefix[-1])
     check(M == n_real, f"config 8: {M} matches, expected {n_real}")
     cap = 1 << (M - 1).bit_length()
-    gb, gp = kernels.join_emit_pairs(lo, fanout, prefix, order, cap)
     wb, wp = segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap)
+    gb, gp = kernels.join_emit_pairs(lo, fanout, prefix, order, cap)
     torch.cuda.synchronize()
     check(torch.equal(gb[:M], wb[:M]) and torch.equal(gp[:M], wp[:M]), "H14 config 8: differs")
     col = torch.from_numpy(latency).to(dev)
@@ -1889,22 +1960,24 @@ def join_kernel_phase(dev) -> dict:
     log(f"H13/H14/H15 at config 8's shapes (build {nb} rows, probe {n} rows, cap_m {cap}): "
         "bit for bit")
     log2 = max(nb, 1).bit_length()
+    # probe keys read, lo and fanout written; the build keys read where a
+    # search reads them, at most once each; two binary searches of log2(nb)
+    # + 1 compares a row
+    probe_bound = bound(n * 12 + min(nb, 2 * log2 * n) * 4, 2 * log2 * n)
     records = {
         "join_probe": record(
-            lambda: kernels.join_probe(sk, rkey),
+            lambda: kernels.join_probe(sk, rkey, 0, K + 2),
             lambda: segment.join_probe_plain(sk, rkey),
             lambda: (torch.searchsorted(sk, rkey), torch.searchsorted(sk, rkey, right=True)),
-            # probe keys read, lo and fanout written; the build keys read once;
-            # two binary searches of log2(nb) + 1 compares a row
-            *bound(n * 12 + nb * 4, 2 * log2 * n), 0.0,
-            f"build keys[{nb}] probe keys[{n}]",
+            *probe_bound, 0.0, f"build keys[{nb}] probe keys[{n}] key space {K + 2} (table lane)",
         ),
         "join_emit_pairs": record(
             lambda: kernels.join_emit_pairs(lo, fanout, prefix, order, cap),
             lambda: segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap),
             None,  # repeat_interleave gives the probe rows, not the build rows
-            # lo, fanout, prefix read, the build order read once, M pairs written
-            *bound(n * 12 + nb * 4 + M * 8, M), 0.0,
+            # lo, fanout, prefix read, the build order read where a slot reads
+            # it (at most min(nb, M) entries), M pairs written
+            *bound(n * 12 + min(nb, M) * 4 + M * 8, M), 0.0,
             f"probe rows[{n}] M {M} cap {cap}",
         ),
         "join_gather": record(
@@ -1916,6 +1989,25 @@ def join_kernel_phase(dev) -> dict:
             f"f64 column[{n}] matched section[{cap}]",
         ),
     }
+    rec = records["join_probe"]
+    rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(
+        dev, *kernels.join_probe_geometry(n, K + 2)[:3]))
+    rec["by_search_lane"] = {
+        "ms": time_ms(lambda: kernels.join_probe(sk, rkey)),
+        "floor_ms": time_ms(lambda: kernels.empty_launch(
+            dev, *kernels.join_probe_geometry(n, 0)[:3])),
+        "bound_ms": probe_bound[0], "bound_by": probe_bound[1],
+    }
+    rec = records["join_emit_pairs"]
+    geo = kernels.join_emit_pairs_geometry(n, nb, cap)
+    rec["shape"] += f" ({geo[3]} lane)"
+    rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(dev, *geo[:3]))
+    log(f"H13 config 8: table lane {records['join_probe']['ms']:.5f} ms (floor "
+        f"{records['join_probe']['floor_ms']:.5f}), search lane "
+        f"{records['join_probe']['by_search_lane']['ms']:.5f} (floor "
+        f"{records['join_probe']['by_search_lane']['floor_ms']:.5f}); bound {probe_bound[0]:.5f}; "
+        f"H14 {geo[3]} lane {rec['ms']:.5f} ms (floor {rec['floor_ms']:.5f}); "
+        f"bound {rec['bound_ms']:.5f}")
     # H12 over the row indices of the OUTER join's unmatched probe rows.
     owned = [i for i in range(N_SERVICES) if i not in UNOWNED]
     lkey = torch.tensor(owned + list(range(K, K + 4)) + [K + 4] * (nb - 18),
@@ -1946,6 +2038,42 @@ def join_kernel_phase(dev) -> dict:
     log(f"H12 unmatched-row compaction at config 8 OUTER ({UR} of {n} probe rows, cap_r "
         f"{cap_r}): bit for bit; ms {h12['ms']} plain_ms {h12['plain_ms']} library_ms "
         f"(nonzero) {h12['library_ms']} bound_ms {h12['bound_ms']} ({h12['bound_by']})")
+    # H14 (and H13, the lane's call) at join8_left_agg's shape.
+    lkey, rkey, K, M, cap = join_left_agg_keys(dev)
+    nb, n = lkey.shape[0], rkey.shape[0]
+    sk, order = torch.sort(lkey, stable=True)
+    order = order.to(torch.int32)
+    # A LEFT join: local_sort_merge asks H13 for the presence of [0, K + 2).
+    lo, fanout, present = kernels.join_probe(sk, rkey, K + 2, K + 2)
+    want = segment.join_probe_plain(sk, rkey, K + 2)
+    check(all(torch.equal(g, w) for g, w in zip((lo, fanout, present), want)),
+          "H13 join8_left_agg: differs")
+    prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
+    check(int(prefix[-1]) == M, f"join8_left_agg: {int(prefix[-1])} matches, expected {M}")
+    gb, gp = kernels.join_emit_pairs(lo, fanout, prefix, order, cap)
+    wb, wp = segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap)
+    torch.cuda.synchronize()
+    check(torch.equal(gb[:M], wb[:M]) and torch.equal(gp[:M], wp[:M]),
+          "H14 join8_left_agg: differs")
+    left = record(
+        lambda: kernels.join_emit_pairs(lo, fanout, prefix, order, cap),
+        lambda: segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap), None,
+        # lo, fanout, prefix read, the build order read where a slot reads it
+        # (each owning probe row has its own key's run: min(nb, M) entries),
+        # M pairs written
+        *bound(n * 12 + min(nb, M) * 4 + M * 8, M), 0.0,
+        f"build rows[{nb}] probe rows[{n}] K {K} M {M} cap {cap}, max fanout "
+        f"{int(fanout.max())}",
+    )
+    geo = kernels.join_emit_pairs_geometry(n, nb, cap)
+    left["shape"] += f" ({geo[3]} lane)"
+    left["floor_ms"] = time_ms(lambda: kernels.empty_launch(dev, *geo[:3]))
+    left["join_probe_ms"] = time_ms(lambda: kernels.join_probe(sk, rkey, K + 2, K + 2))
+    left.pop("max_abs_err")
+    records["join_emit_pairs"]["by_join8_left_agg"] = left
+    log(f"H14 at join8_left_agg's shape ({left['shape']}): bit for bit; {left['ms']:.5f} ms "
+        f"(floor {left['floor_ms']:.5f}) [bound {left['bound_ms']:.5f}; plain "
+        f"{left['plain_ms']:.5f}]; H13 there, with presence, {left['join_probe_ms']:.5f} ms")
     return records
 
 

@@ -144,8 +144,10 @@ _SIGNATURES = {
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
     "px_segment_minmax": (_P, _I, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
     "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P),
-    "px_join_probe": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
+    "px_join_probe": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _P),
+    "px_join_probe_geometry": (_LL, _I, _P),
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
+    "px_join_emit_pairs_geometry": (_LL, _I, _LL, _P),
     "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
     "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
     "px_scalar_eval": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL,
@@ -1182,19 +1184,40 @@ def _int32_1d(t: torch.Tensor, name: str, device) -> int:
     return t.shape[0]
 
 
+# H13's launcher tables a key space K (K + 1 bounds) of at most
+# JOIN_TABLE_IDS ids where K + 1 <= JOIN_TABLE_ALWAYS_IDS or the probe side
+# has at least JOIN_TABLE_ROWS_PER_ID rows for each bound (join_kernels.cu
+# kTableIds, kTableAlwaysIds, kTableLaneRowsPerId); else it searches.
+JOIN_TABLE_IDS = 8192
+JOIN_TABLE_ALWAYS_IDS = 512
+JOIN_TABLE_ROWS_PER_ID = 128
+
+
+def join_probe_geometry(n: int, key_space: int) -> tuple[int, int, int, str]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA, lane) of H13's launch
+    over ``n`` probe rows with keys of ``key_space`` ids (0: unknown), as its
+    launcher computes them; the lane is "table" or "search"."""
+    out = (ctypes.c_int * 4)()
+    _check(library().px_join_probe_geometry(n, key_space, out), "join_probe geometry")
+    return out[0], out[1], out[2], "table" if out[3] > 0 else "search"
+
+
 def join_probe(
-    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0
+    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0, key_space: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """H13: (lo, fanout, present) — each probe key's lower bound in the
     ascending int32 build keys ``sorted_keys`` and its count of equal keys
     (int32 [n] each); with ``present_size`` > 0 also a bool presence array
     [present_size] whose entry k is True iff some probe key equals k (else
-    None)."""
+    None). ``key_space`` > 0 says the keys are ids of [0, key_space), which
+    lets the launcher look them up in a table of every id's bounds in shared
+    memory (``join_probe_geometry`` says when; a key outside the table is
+    searched); the results are the same either way."""
     device = keys.device
     nb = _int32_1d(sorted_keys, "sorted_keys", device)
     n = _int32_1d(keys, "keys", device)
-    if nb >= 2**31 or present_size < 0 or present_size >= 2**31:
-        raise ValueError("join_probe: build rows and presence size must fit int32")
+    if nb >= 2**31 or not 0 <= present_size < 2**31 or not 0 <= key_space < 2**31:
+        raise ValueError("join_probe: build rows, presence size and key space must fit int32")
     lo = torch.empty(n, dtype=torch.int32, device=device)
     fanout = torch.empty(n, dtype=torch.int32, device=device)
     present = (
@@ -1205,9 +1228,23 @@ def join_probe(
     _launch(
         "join_probe", device,
         sorted_keys.data_ptr(), nb, keys.data_ptr(), n, lo.data_ptr(), fanout.data_ptr(),
-        present.data_ptr() if present is not None else None, present_size,
+        present.data_ptr() if present is not None else None, present_size, key_space,
     )
     return lo, fanout, present
+
+
+# H14's launcher takes its row lane while the build side has at most this
+# many rows (join_kernels.cu kRowsLaneBuild), its merge lane above.
+JOIN_ROWS_LANE_BUILD = 256
+
+
+def join_emit_pairs_geometry(n: int, nb: int, cap: int) -> tuple[int, int, int, str]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA, lane) of H14's launch
+    over ``n`` probe rows, ``nb`` build rows and ``cap`` slots, as its
+    launcher computes them; the lane is "rows" or "merge"."""
+    out = (ctypes.c_int * 4)()
+    _check(library().px_join_emit_pairs_geometry(n, nb, cap, out), "join_emit_pairs geometry")
+    return out[0], out[1], out[2], ("rows", "merge")[out[3]]
 
 
 def join_emit_pairs(
@@ -1218,7 +1255,10 @@ def join_emit_pairs(
     slots prefix[p] - fanout[p] + j (j < fanout[p], slot < cap), build row
     ``order[lo[p] + j]`` (the position clamped into ``order``). ``prefix`` is
     the inclusive int32 prefix sum of ``fanout``. Slots at or past the match
-    count are left unwritten."""
+    count are left unwritten. The launcher gives a probe row a thread while
+    the build side (so every fanout) has at most ``JOIN_ROWS_LANE_BUILD``
+    rows, else each CTA an equal share of rows plus slots, so no row's
+    fanout sets a thread's work; the results are the same."""
     device = lo.device
     n = _int32_1d(lo, "lo", device)
     for t, name in ((fanout, "fanout"), (prefix, "prefix")):

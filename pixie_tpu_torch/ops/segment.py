@@ -390,11 +390,15 @@ def join_probe_plain(
 
 
 def join_probe(
-    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0
+    sorted_keys: torch.Tensor, keys: torch.Tensor, present_size: int = 0, key_space: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """H13 on CUDA, ``join_probe_plain`` on the CPU."""
+    """H13 on CUDA, ``join_probe_plain`` on the CPU. ``key_space`` > 0 says
+    the keys are ids of [0, key_space), which lets H13 look each up in a
+    table of every id's bounds; it changes no result."""
     if keys.is_cuda:
-        return kernels.join_probe(sorted_keys.contiguous(), keys.contiguous(), present_size)
+        return kernels.join_probe(
+            sorted_keys.contiguous(), keys.contiguous(), present_size, key_space
+        )
     return join_probe_plain(sorted_keys, keys, present_size)
 
 
@@ -472,10 +476,12 @@ def local_sort_merge(
     ur, ul): the pairs, each probe row's match count, and the compacted
     unmatched probe rows (cap_r) and build rows (cap_l), None where the cap
     is 0. A build row is matched iff its key occurs among the probe keys:
-    H13's presence array over [0, num_keys + 2)."""
+    H13's presence array over [0, num_keys + 2), the key space H13 takes."""
     sorted_keys, order = torch.sort(lkey, stable=True)
     order = order.to(torch.int32)
-    lo, fanout, present = join_probe(sorted_keys, rkey, num_keys + 2 if cap_l else 0)
+    lo, fanout, present = join_probe(
+        sorted_keys, rkey, num_keys + 2 if cap_l else 0, num_keys + 2
+    )
     prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
     build_rows, probe_rows = join_emit_pairs(lo, fanout, prefix, order, cap_m)
     ur = compact_unmatched_rows(rmask & (fanout == 0), cap_r) if cap_r else None

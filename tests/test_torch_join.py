@@ -93,7 +93,11 @@ def _keys(seed: int, nb: int, n_probe: int, K: int, pad_b: int, pad_p: int):
             lmask, rmask)
 
 
-CASES = [(0, 256, 3001, 37, 5), (1, 64, 1, 3, 0), (2, 2000, 700, 0, 100)]
+# (seed, build rows, probe rows, padded build rows, padded probe rows). The
+# last has fewer probe rows than build rows, as join8_left_agg does: fanouts
+# of 702 to 3912, with fanout-0 rows (probe-only key 1) between them.
+CASES = [(0, 256, 3001, 37, 5), (1, 64, 1, 3, 0), (2, 2000, 700, 0, 100),
+         (24, 1 << 15, 12, 100, 2)]
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -257,26 +257,80 @@ def _join_keys(seed: int, nb: int, n_probe: int, K: int, pad_b: int, pad_p: int)
     return [torch.from_numpy(a) for a in (lk, rk, lmask, rmask)]
 
 
+def _check_join_probe(dev, sk, rk, present_size: int, key_space: int, lane: str,
+                      unaligned: bool = False) -> None:
+    """H13 in ``lane`` against its plain version: lo, fanout and presence;
+    ``unaligned`` puts the probe keys one element into a buffer on the card."""
+    assert kernels.join_probe_geometry(rk.shape[0], key_space)[3] == lane
+    want = segment.join_probe_plain(sk, rk, present_size)
+    keys = rk.to(dev)
+    if unaligned:
+        keys = torch.empty(rk.shape[0] + 1, dtype=torch.int32, device=dev)[1:]
+        keys.copy_(rk)
+    got = kernels.join_probe(sk.to(dev), keys, present_size, key_space)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None) and (b is None or torch.equal(a.cpu(), b))
+
+
+def _check_emit_pairs(dev, lo, fanout, order, caps) -> None:
+    """H14 against its plain version on the slots below min(M, cap), in the
+    lane its launcher takes (the row lane only while the build side has at
+    most JOIN_ROWS_LANE_BUILD rows) and, for a build side that small, also
+    in the merge lane: ``order`` padded past JOIN_ROWS_LANE_BUILD rows with
+    entries no slot reads gives the same pairs."""
+    prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
+    M, n, nb = int(prefix[-1]), lo.shape[0], order.shape[0]
+    orders = [order]
+    if nb <= kernels.JOIN_ROWS_LANE_BUILD:
+        orders.append(torch.cat([order, torch.full((kernels.JOIN_ROWS_LANE_BUILD + 1 - nb,), -1,
+                                                   dtype=torch.int32)]))
+    for cap in caps:
+        wb, wp = segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap)
+        for o, lane in zip(orders, ("rows" if nb <= kernels.JOIN_ROWS_LANE_BUILD else "merge",
+                                    "merge")):
+            assert kernels.join_emit_pairs_geometry(n, o.shape[0], cap)[3] == lane
+            gb, gp = kernels.join_emit_pairs(
+                lo.to(dev), fanout.to(dev), prefix.to(dev), o.to(dev), cap
+            )
+            S = min(M, cap)
+            assert torch.equal(gb[:S].cpu(), wb[:S]) and torch.equal(gp[:S].cpu(), wp[:S])
+
+
+# (seed, build rows, probe rows, padded build rows, padded probe rows); the
+# last as tests/test_torch_join.py's heavy case: fanouts of 702 to 3912 with
+# fanout-0 rows between them. Build sides of 256 rows and fewer take H14's
+# row lane, larger ones its merge lane.
+JOIN_CASES = ((0, 256, 3001, 37, 5), (1, 7, 1, 0, 0), (2, 5000, 20000, 1000, 0),
+              (24, 1 << 15, 12, 100, 2))
+
+
 def _check_join_kernels(dev: torch.device) -> None:
     K = 40
-    for seed, nb, n_probe, pad_b, pad_p in ((0, 256, 3001, 37, 5), (1, 7, 1, 0, 0),
-                                            (2, 5000, 20000, 1000, 0)):
+    for seed, nb, n_probe, pad_b, pad_p in JOIN_CASES:
         lk, rk, lmask, rmask = _join_keys(seed, nb, n_probe, K, pad_b, pad_p)
         sk, order = torch.sort(lk, stable=True)
         order = order.to(torch.int32)
-        want = segment.join_probe_plain(sk, rk, K + 2)
-        got = kernels.join_probe(sk.to(dev), rk.to(dev), K + 2)
-        for a, b in zip(got, want):
-            assert torch.equal(a.cpu(), b)
-        lo, fanout, _ = want
-        prefix = torch.cumsum(fanout, 0, dtype=torch.int32)
-        M = int(prefix[-1])
-        for cap in (M, M + 9):  # a cap exactly at the count, then above it
-            wb, wp = segment.join_emit_pairs_plain(lo, fanout, prefix, order, cap)
-            gb, gp = kernels.join_emit_pairs(
-                lo.to(dev), fanout.to(dev), prefix.to(dev), order.to(dev), cap
-            )
-            assert torch.equal(gb[:M].cpu(), wb[:M]) and torch.equal(gp[:M].cpu(), wp[:M])
+        # H13: the search lane (no key space, one above the table, or one
+        # too wide for so few probe rows), the table lane (the join's own key
+        # space, or the widest any probe side tables), keys outside the table
+        # (some negative, some at or past a narrower key space), and
+        # unaligned keys (the table lane's row-at-a-time loop).
+        _check_join_probe(dev, sk, rk, K + 2, 0, "search")
+        _check_join_probe(dev, sk, rk, K + 2, kernels.JOIN_TABLE_IDS + 1, "search")
+        _check_join_probe(dev, sk, rk, K + 2, kernels.JOIN_TABLE_ALWAYS_IDS, "search")
+        _check_join_probe(dev, sk, rk, K + 2, K + 2, "table")
+        _check_join_probe(dev, sk, rk, 0, K + 2, "table")
+        _check_join_probe(dev, sk, rk, K + 2, kernels.JOIN_TABLE_ALWAYS_IDS - 1, "table")
+        outside = torch.where(torch.arange(n_probe) % 7 == 3, -rk - 1, rk)
+        _check_join_probe(dev, sk, outside, K + 2, K // 2, "table")
+        _check_join_probe(dev, sk, outside, K // 3, K // 2, "table")
+        _check_join_probe(dev, sk, rk, K + 2, K + 2, "table", unaligned=True)
+        lo, fanout, _ = segment.join_probe_plain(sk, rk)
+        M = int(fanout.sum())
+        # H14: a cap at the count, above it, and through the heaviest row.
+        heavy = int(torch.argmax(fanout))
+        cut = int(fanout[: heavy + 1].sum()) - int(fanout[heavy]) // 2
+        _check_emit_pairs(dev, lo, fanout, order, (M, M + 9, max(cut, 1)))
         for cap_r, cap_l in ((0, 0), (64, 0), (0, 64), (4096, 1024)):
             want = segment.local_sort_merge(lk, rk, lmask, rmask, M, cap_r, cap_l, K)
             got = segment.local_sort_merge(
@@ -310,6 +364,27 @@ def _check_join_kernels(dev: torch.device) -> None:
         # H12 over an int32 row-index column: the unmatched probe rows.
         got = segment.compact_unmatched_rows((rmask & (fanout == 0)).to(dev), 4096)
         assert torch.equal(got.cpu(), ur)
+    # H13 over the widest key space its table holds: tabled from
+    # JOIN_TABLE_ROWS_PER_ID probe rows a bound on, searched one row short of
+    # that, and searched above the table's size; with presence over every id.
+    ids = kernels.JOIN_TABLE_IDS
+    rng = np.random.default_rng(8)
+    sk = torch.sort(torch.from_numpy(rng.integers(0, ids, 5000).astype(np.int32)))[0]
+    busy = kernels.JOIN_TABLE_ROWS_PER_ID * (ids + 1)
+    rk = torch.from_numpy(rng.integers(-3, ids + 3, busy).astype(np.int32))
+    _check_join_probe(dev, sk, rk, ids, ids, "table")
+    _check_join_probe(dev, sk, rk[1:], ids, ids, "search")
+    _check_join_probe(dev, sk, rk, ids + 1, ids + 1, "search")
+    # One probe row of more than 2^20 pairs between rows of none and of a few.
+    rng = np.random.default_rng(7)
+    lk = torch.from_numpy(np.where(rng.random((1 << 20) + 5000) < 0.998, 0,
+                                   rng.integers(1, 4, (1 << 20) + 5000)).astype(np.int32))
+    rk = torch.tensor([2, 5, 0, 5, 3, 1, 0], dtype=torch.int32)
+    sk, order = torch.sort(lk, stable=True)
+    lo, fanout, _ = segment.join_probe_plain(sk, rk)
+    assert int(fanout.max()) > 1 << 20
+    _check_join_probe(dev, sk, rk, 8, 8, "table")
+    _check_emit_pairs(dev, lo, fanout, order.to(torch.int32), (int(fanout.sum()), 1 << 19))
 
 
 @pytest.mark.cuda
