@@ -30,10 +30,13 @@ the CUDA toolkit. In order it:
    groups x 4098 content words and past its tables; H11 over every staged
    row kind in every lane, timed at flow_window's S = 1, config 10's S = 64
    f64 and the flows min/max's S = 4096 int32 narrowed; config 1's first
-   block for H12, config 8's probe side for H13-H15, join8_oncall_agg's
+   block for H12 (with CTA 0's phases) and its index lane at config 8
+   OUTER's unmatched rows as compact_unmatched_rows calls it (the call's
+   time and device operations too), config 8's probe side for H13-H15, join8_oncall_agg's
    block for H16, a block of the let table for H17's two programs: svc_let's
    predicate program and an f64 program; a full 2^23-row stream window for
-   the codec's decodes H18 (4096 runs, every block dtype) and H19 (nibble,
+   the codec's decodes H18 (4096 runs, every block dtype; and the codec's
+   worst admitted int64 shape, about 2.3 rows a run) and H19 (nibble,
    uint8 and uint16 deltas into every integer dtype; and its edges: 3
    shards of 1, 7 and 1,000,001 rows, rows on and off its tile edges, sums
    that wrap); config 5's 16 x 4
@@ -1750,7 +1753,8 @@ def scan_kernel_phase(dev) -> dict:
     block, one past every survivor, a block with no survivor, and a last
     block mostly padding. Timed at config 1's first block: 10% of rows
     selected, time_ (int64), service codes (int32), latency_ms (f64), limit
-    1000, a fresh zeroed counter each call."""
+    1000, a fresh zeroed counter each call, beside an empty kernel on its
+    grid, with CTA 0's phases (``probe``)."""
     from pixie_tpu_torch.ops import kernels, scan
 
     rng = np.random.default_rng(3)
@@ -1797,6 +1801,16 @@ def scan_kernel_phase(dev) -> dict:
         *bound(span + 2 * SCAN_LIMIT * row_bytes, span), 0.0,
         f"mask[{n}] 10% selected, 3 columns, limit {SCAN_LIMIT}, span {span} rows",
     )}
+    rec = records["scan_compact"]
+    rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(
+        dev, *kernels.scan_compact_geometry(dev, n)))
+    probe = torch.zeros(kernels.SCAN_PROBE, dtype=torch.int64, device=dev)
+    kernels.scan_compact(mask, cols, torch.zeros(1, dtype=torch.int32, device=dev), bufs,
+                         SCAN_LIMIT, probe=probe)
+    rec["by_cta0_phases_us"] = probe_phases_us(
+        probe, ("count", "wait", "copy", "pad"), 0, kernels.sm_clock_khz(dev))
+    log(f"H12 at config 1's first block: {rec['ms']:.5f} ms, an empty kernel on its grid "
+        f"{rec['floor_ms']:.5f}; CTA 0's phases (us) {json.dumps(rec['by_cta0_phases_us'])}")
     return records
 
 
@@ -2018,26 +2032,29 @@ def join_kernel_phase(dev) -> dict:
     unmatched = rmask & (fanout == 0)
     UR = int(unmatched.sum())
     cap_r = 1 << (UR - 1).bit_length()
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
     got = segment.compact_unmatched_rows(unmatched, cap_r)
-    plain_out = torch.full((cap_r,), n, dtype=torch.int32, device=dev)
-    plain_w = torch.zeros(1, dtype=torch.int32, device=dev)
-    scan.compact_rows_plain(unmatched, [idx], plain_w, [plain_out], cap_r)
+    want = scan.compact_indices_plain(unmatched, cap_r)
     torch.cuda.synchronize()
-    check(torch.equal(got, plain_out), "H12 unmatched-row compaction: differs")
-    counters = fresh(lambda: torch.zeros(1, dtype=torch.int32, device=dev))
-    out = torch.full((cap_r,), n, dtype=torch.int32, device=dev)
+    check(torch.equal(got, want), "H12 unmatched-row compaction: differs")
+    call = lambda: segment.compact_unmatched_rows(unmatched, cap_r)
     h12 = record(
-        lambda: kernels.scan_compact(unmatched, [idx], counters(), [out], cap_r),
-        lambda: (plain_w.zero_(), scan.compact_rows_plain(unmatched, [idx], plain_w, [out], cap_r)),
+        lambda: kernels.scan_compact_indices(unmatched, cap_r),
+        lambda: scan.compact_indices_plain(unmatched, cap_r),
         lambda: torch.nonzero(unmatched),
-        # the mask read once, the unmatched rows' indices read and written
-        *bound(n + 8 * UR, n), 0.0,
-        f"mask[{n}] {UR} unmatched, cap_r {cap_r}",
+        # the mask read once, the output (indices, then padding) written once
+        *bound(n + 4 * cap_r, n), 0.0,
+        f"mask[{n}] {UR} unmatched, cap_r {cap_r} (the index lane)",
     )
+    h12["call_ms"] = time_ms(call)
+    h12["call_device_ops"] = device_ops(call)
+    h12["floor_ms"] = time_ms(lambda: kernels.empty_launch(
+        dev, *kernels.scan_compact_geometry(dev, n)))
+    records["scan_compact_unmatched"] = h12
     log(f"H12 unmatched-row compaction at config 8 OUTER ({UR} of {n} probe rows, cap_r "
-        f"{cap_r}): bit for bit; ms {h12['ms']} plain_ms {h12['plain_ms']} library_ms "
-        f"(nonzero) {h12['library_ms']} bound_ms {h12['bound_ms']} ({h12['bound_by']})")
+        f"{cap_r}, the index lane): bit for bit; ms {h12['ms']} plain_ms {h12['plain_ms']} "
+        f"library_ms (nonzero) {h12['library_ms']} bound_ms {h12['bound_ms']} "
+        f"({h12['bound_by']}) floor_ms {h12['floor_ms']}; compact_unmatched_rows "
+        f"{h12['call_ms']} ms, device operations {h12['call_device_ops']}")
     # H14 (and H13, the lane's call) at join8_left_agg's shape.
     lkey, rkey, K, M, cap = join_left_agg_keys(dev)
     nb, n = lkey.shape[0], rkey.shape[0]
@@ -2448,14 +2465,71 @@ def scalar_kernel_phase(dev) -> dict:
     return {"scalar_eval": main}
 
 
+def rle_payload(rng, d: int, L: int, runs: list, dtype, R: Optional[int] = None) -> dict:
+    """An RLE payload as ``codec.encode_window`` lays it out: values (as
+    bytes) [d, R * width] and int32 ends [d, R] of d shards of L rows, shard
+    s in runs[s] runs of random lengths whose neighbours differ, padded to R
+    runs (default the most runs) with ends L."""
+    R = R or max(runs)
+    w = np.dtype(dtype).itemsize
+    values = np.zeros((d, R * w), np.uint8)
+    ends = np.full((d, R), L, np.int32)
+    for s, r in enumerate(runs):
+        ends[s, : r - 1] = np.sort(rng.choice(np.arange(1, L), r - 1, replace=False))
+        raw = rng.integers(0, 1 << 63, r, dtype=np.uint64)
+        if w == 1:
+            raw = np.cumsum(1 + rng.integers(0, 255, r)).astype(np.uint64) & 0xFF
+        values[s, : r * w] = raw.view(np.uint8).reshape(r, 8)[:, :w].reshape(-1)
+    return dict(values=values, ends=ends, L=L, dtype=np.dtype(dtype).name, runs=np.array(runs))
+
+
+def rle_worst_payload(rng, d: int, L: int, dtype) -> dict:
+    """The codec's worst admitted RLE shape for ``d`` shards of L rows of
+    ``dtype``: the largest run cap ``codec.plan_codec_local`` still ships as
+    RLE under the ``staging_codec_min_ratio`` flag (runs_cap * (w + 4) *
+    ratio <= L * w: about L / 2.3 for 8-byte blocks, L / 8 for 1-byte ones),
+    every shard holding cap - 2 runs (the plan's slack), planned and encoded
+    by the codec itself (``rle_payload``'s keys)."""
+    from pixie_tpu_torch.ops import codec
+    from pixie_tpu_torch.utils import flags
+
+    w = np.dtype(dtype).itemsize
+    ratio = float(flags.staging_codec_min_ratio)
+    c = int(L * w / (ratio * (w + 4)))
+    step = 1 << max((c - 1).bit_length() - 3, 0)
+    cap = (c // step) * step  # the largest bucket_cap value <= c
+    p = rle_payload(rng, d, L, [cap - 2] * d, dtype)
+    # Each shard opens on the value the one before it closes on: a change at
+    # a shard's trailing edge would count as one more run at plan time.
+    vals = p["values"].reshape(d, cap - 2, w)
+    for s in range(1, d):
+        vals[s, 0] = vals[s - 1, -1]
+        while (vals[s, 1] == vals[s, 0]).all() or (vals[s, 1] == vals[s, 2]).all():
+            vals[s, 1, 0] += 1
+    flat = np.empty((d, L), dtype)
+    rows = flat.view(np.uint8).reshape(d, L, w)
+    for s in range(d):
+        rows[s] = vals[s][np.searchsorted(p["ends"][s], np.arange(L), side="right")]
+    flat = flat.reshape(-1)
+    nblk, b = max(L // BLOCK_ROWS, 1), min(L, BLOCK_ROWS)
+    plan = codec.plan_codec_local(flat, d, nblk, b, d * L, ratio)
+    check(plan is not None and plan.kind == "rle" and plan.runs_cap == cap,
+          f"worst RLE shape {d}x{L} {dtype}: the codec plans {plan}, not rle at {cap} runs")
+    values, ends = codec.encode_window(flat, plan, d * L).arrays
+    return dict(values=values.view(np.uint8).reshape(d, -1), ends=ends, L=L,
+                dtype=np.dtype(dtype).name, runs=np.full(d, cap - 2))
+
+
 def codec_kernel_phase(dev) -> dict:
     """H18 and H19 against their plain versions on the card, bit for bit, at
     a full stream window (2^23 rows): H18 with 4096 runs in every block
-    dtype (NaN payloads and -0.0 among the values), H19 for each delta
-    dtype (nibbles, uint8, uint16) into every integer block dtype, then
-    H19's edges (``delta_edges``). Timed at each dtype; the records are
-    uint16 for H18 (the sorted path's status column) and nibbles into int64
-    for H19 (flow_window's time_)."""
+    dtype (NaN payloads and -0.0 among the values) and at the codec's worst
+    admitted int64 shape (``rle_worst_payload``: about 2.3 rows a run), H19
+    for each delta dtype (nibbles, uint8, uint16) into every integer block
+    dtype, then H19's edges (``delta_edges``). Timed at each dtype, H18
+    beside an empty kernel on its grid; the records are uint16 for H18 (the
+    sorted path's status column) and nibbles into int64 for H19
+    (flow_window's time_)."""
     from pixie_tpu_torch.ops import codec, kernels
 
     rng = np.random.default_rng(18)
@@ -2481,14 +2555,52 @@ def codec_kernel_phase(dev) -> dict:
             lambda: kernels.codec_rle_decode(values, ends, out),
             lambda: codec.rle_decode_plain(values, ends, out2),
             None,
-            *bound(R * (w + 4) + L * w, 12 * L), 0.0,
+            # the values and ends read once, the block written once; a
+            # compare a row places it in its run
+            *bound(R * (w + 4) + L * w, L + R), 0.0,
             f"values[1,{R}] {dtype} -> [1,{L}]",
         )
         by_dtype[str(dtype).split(".")[1]] = rec["ms"]
         if dtype == torch.uint16:
             records["codec_rle_decode"] = rec
-    records["codec_rle_decode"]["by_dtype_ms"] = by_dtype
-    log(f"H18 codec_rle_decode: bit for bit in 6 dtypes at {L} rows, {R} runs; ms {by_dtype}")
+    rec = records["codec_rle_decode"]
+    rec["by_dtype_ms"] = by_dtype
+    rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(
+        dev, *kernels.codec_rle_decode_geometry(1, L, 2)))
+    probe = torch.zeros(kernels.RLE_PROBE, dtype=torch.int64, device=dev)
+    values = torch.from_numpy(rng.integers(0, 1 << 16, R).astype(np.uint16)[None]).to(dev)
+    kernels.codec_rle_decode(values, ends, torch.empty((1, L), dtype=torch.uint16, device=dev),
+                             probe=probe)
+    rec["by_cta0_phases_us"] = probe_phases_us(
+        probe, ("search", "stage", "expand"), 0, kernels.sm_clock_khz(dev))
+    log(f"H18 codec_rle_decode: bit for bit in 6 dtypes at {L} rows, {R} runs; ms {by_dtype}; "
+        f"an empty kernel on its grid (uint16) {rec['floor_ms']:.5f}; the first CTA's phases "
+        f"(us) {json.dumps(rec['by_cta0_phases_us'])}")
+    # The codec's worst admitted int64 shape: the most runs it still ships
+    # as RLE (each about 2.3 rows).
+    p = rle_worst_payload(rng, 1, L, np.int64)
+    values = torch.from_numpy(p["values"]).to(dev).view(torch.int64)
+    ends = torch.from_numpy(p["ends"]).to(dev)
+    Rw, used = ends.shape[1], int(p["runs"][0])
+    out, out2 = (torch.empty((1, L), dtype=torch.int64, device=dev) for _ in range(2))
+    kernels.codec_rle_decode(values, ends, out)
+    codec.rle_decode_plain(values, ends, out2)
+    torch.cuda.synchronize()
+    check(torch.equal(out.view(torch.uint8), out2.view(torch.uint8)),
+          "H18 at the worst admitted int64 shape: differs from the plain version")
+    worst = record(
+        lambda: kernels.codec_rle_decode(values, ends, out),
+        lambda: codec.rle_decode_plain(values, ends, out2),
+        None, *bound(used * 12 + L * 8, L + used), 0.0,
+        f"values[1,{Rw}] int64, {used} runs -> [1,{L}]",
+    )
+    worst["floor_ms"] = time_ms(lambda: kernels.empty_launch(
+        dev, *kernels.codec_rle_decode_geometry(1, L, 8)))
+    rec["by_worst_int64"] = {k: worst[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "shape")}
+    log(f"H18 at the codec's worst admitted int64 shape ({used} runs of {Rw} over {L} rows): "
+        f"bit for bit; ms {worst['ms']:.5f} plain_ms {worst['plain_ms']:.5f} bound_ms "
+        f"{worst['bound_ms']:.5f} ({worst['bound_by']}), floor {worst['floor_ms']:.5f}")
 
     by_delta = {}
     bases = torch.tensor([1 << 40], dtype=torch.int64, device=dev)
@@ -5520,6 +5632,69 @@ def mesh_cards_paths(n: int, paths: dict, phase_s: dict) -> dict:
     return out
 
 
+# With --log-shapes: the shape of every H12 and H18 launch a path makes,
+# entries whose device values (selected rows, runs used) are read when the
+# path ends, so recording adds no sync inside a query.
+SHAPES: Optional[list] = None
+
+
+def log_launch_shapes(kernels) -> None:
+    """Wraps H12's and H18's wrappers in ``kernels`` so that each call adds
+    its shape to SHAPES: for H12 n, the selected rows, ``written`` before
+    the launch, the limit (or cap) and the columns' widths (the index lane:
+    none); for H18 d, L, R, the block dtype and the runs each shard uses
+    (the ends below L, plus one)."""
+    global SHAPES
+    SHAPES = []
+
+    def wrap(name, shape):
+        fn = getattr(kernels, name)
+
+        def logged(*a, **kw):
+            SHAPES.append(shape(*a, **kw))
+            return fn(*a, **kw)
+
+        setattr(kernels, name, logged)
+
+    def h12(mask, cols, written, bufs, limit, *rest, **kw):
+        return {"kernel": "scan_compact", "n": mask.shape[0], "selected": mask.sum(),
+                "written": written.clone(), "limit": limit,
+                "widths": [c.element_size() for c in cols]}
+
+    def h12_index(mask, cap, *rest, **kw):
+        return {"kernel": "scan_compact", "lane": "index", "n": mask.shape[0],
+                "selected": mask.sum(), "written": torch.zeros(1, dtype=torch.int32),
+                "limit": cap, "widths": []}
+
+    def h18(values, ends, out, *rest, **kw):
+        d, L = out.shape
+        return {"kernel": "codec_rle_decode", "d": d, "L": L, "R": values.shape[1],
+                "dtype": str(out.dtype).split(".")[1],
+                "runs": torch.clamp_max((ends < L).sum(dim=1) + 1, values.shape[1])}
+
+    wrap("scan_compact", h12)
+    if hasattr(kernels, "scan_compact_indices"):
+        wrap("scan_compact_indices", h12_index)
+    wrap("codec_rle_decode", h18)
+
+
+def take_shapes() -> list:
+    """SHAPES since the last call, their device values read (a sync)."""
+    if SHAPES is None:
+        return []
+    out = []
+    for e in SHAPES:
+        e = dict(e)
+        for k in ("selected", "written"):
+            if k in e:
+                e[k] = int(e[k].reshape(-1)[0]) if k == "written" else int(e[k])
+        if "runs" in e:
+            e["runs"] = [int(x) for x in e["runs"].tolist()]
+        out.append(e)
+    SHAPES.clear()
+    return out
+
+
 def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
           streamed: bool = True, offloaded: bool = True) -> dict:
     """One main path: launch counts and lanes zeroed just before, one cold
@@ -5537,6 +5712,7 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
     staging.reset_cold_profile()
     segment.reduce_lanes(reset=True)
     torch.cuda.synchronize()
+    take_shapes()
     t0 = time.perf_counter()
     result = carnot.execute_query(query, now_ns=now_ns)
     torch.cuda.synchronize()
@@ -5561,7 +5737,7 @@ def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
         check(lanes.get("stage_stream") == 1 and cold_phases.get("stream_windows", 0) > 0,
               f"the cold query did not stream once: lanes {lanes}")
     return dict(cold=cold, cold_phases=cold_phases, warm=warm, warm_phases=warm_phases,
-                launches=launches, lanes=lanes, result=result)
+                launches=launches, lanes=lanes, result=result, shapes=take_shapes())
 
 
 # One turn of ``--ab-parent``: config 10's table and query in the tree of
@@ -5812,6 +5988,9 @@ def main() -> int:
                          + " to compare instead of config 10's widths")
     ap.add_argument("--ab-reps", type=int, default=15,
                     help="with --ab-paths: warm queries a turn of a warm path")
+    ap.add_argument("--log-shapes", default="",
+                    help="also record the shape of every H12 and H18 launch of each main "
+                         "path and write them to this JSON file")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5868,6 +6047,8 @@ def main() -> int:
     records.update(minmax_kernel_phase(dev))
     records.update(scan_kernel_phase(dev))
     records.update(join_kernel_phase(dev))
+    records["scan_compact"]["by_join_unmatched"] = {
+        k: v for k, v in records.pop("scan_compact_unmatched").items() if k != "host_paced_ms"}
     records.update(join_agg_kernel_phase(dev))
     records.update(scalar_kernel_phase(dev))
     records.update(codec_kernel_phase(dev))
@@ -5882,6 +6063,8 @@ def main() -> int:
     phase_s["kernels"] = time.perf_counter() - t0
 
     paths = {}
+    if args.log_shapes:
+        log_launch_shapes(kernels)
     t0 = time.perf_counter()
     slice_parity(1 << 20)
     paths["sorted_keys"] = sorted_path(SORTED_ROWS)
@@ -6163,6 +6346,11 @@ def main() -> int:
         log(f"{name} launches over {n_queries} queries: "
             f"{ {k: v for k, v in p['launches'].items() if v} }; per query: "
             f"{ {k: v / n_queries for k, v in p['launches'].items() if v} }")
+    if args.log_shapes:
+        shapes = {name: p["shapes"] for name, p in paths.items() if p.get("shapes")}
+        with open(args.log_shapes, "w") as f:
+            json.dump(shapes, f, indent=1)
+        log(f"H12 and H18 launch shapes by path: {json.dumps(shapes)}")
     launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
                 + ring_launches[k] for k in kernels.KERNELS}
     for name, count in launches.items():

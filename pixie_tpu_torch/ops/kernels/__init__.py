@@ -143,7 +143,8 @@ _SIGNATURES = {
     "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
     "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
     "px_segment_minmax": (_P, _I, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
-    "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P),
+    "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _I, _I, _LL, _P, ctypes.c_uint, _P,
+                        _P),
     "px_join_probe": (_P, _I, _P, _LL, _P, _P, _P, _I, _I, _P),
     "px_join_probe_geometry": (_LL, _I, _P),
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
@@ -152,7 +153,7 @@ _SIGNATURES = {
     "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
     "px_scalar_eval": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL,
                        _P),
-    "px_codec_rle_decode": (_P, _P, _I, _I, _LL, _I, _P, _P),
+    "px_codec_rle_decode": (_P, _P, _I, _I, _LL, _I, _P, _P, _P),
     "px_codec_delta_decode": (_P, _P, _LL, _I, _P, _LL, _I, _LL, _I, _P, _P, _P),
     "px_hll_cell_update": (_P, _P, _I, _I, _I, _P, _P),
     "px_countmin_cell_update": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
@@ -1135,19 +1136,102 @@ def segment_minmax(
 
 # ---------------------------------------------------------------- scan
 SCAN_MAX_COLS = 64  # kMaxScanCols of scan_kernels.cu
-SCAN_TILE_ROWS = 2048  # kTile of scan_kernels.cu
+SCAN_GROUP_ROWS = 16  # kGroup: rows of one 16-byte mask load; a share is a multiple
+SCAN_CHUNK_ROWS = 8192  # kChunk: rows a copy round stages, and a share's least size
+SCAN_THREADS = 256  # kScanThreads
+SCAN_CTAS_PER_SM = 2
+SCAN_PROBE = 5  # CTA 0's clock64 at the start and after the count, wait, copy, padding
 _SCAN_WIDE = {torch.int64: 1, torch.float64: 1, torch.int32: 0}
 
 
+def h12_shares(n: int, sms: int) -> tuple[int, int]:
+    """(CTAs, rows a CTA) of H12's launch over ``n`` rows on a card of
+    ``sms`` SMs: at most SCAN_CTAS_PER_SM CTAs an SM and no more CTAs than
+    the rows' SCAN_CHUNK_ROWS-row chunks, each share a multiple of
+    SCAN_GROUP_ROWS rows and none of them empty."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"h12_shares: n {n} and sms {sms} must be positive")
+    grid = max(1, min(sms * SCAN_CTAS_PER_SM, -(-n // SCAN_CHUNK_ROWS)))
+    share = -(-(-(-n // grid)) // SCAN_GROUP_ROWS) * SCAN_GROUP_ROWS
+    return -(-n // share), share
+
+
+class ScanEpochs:
+    """H12's status words, one buffer of int64 words for each (device,
+    stream) it launches on: zeroed once when made, then never, and the
+    epoch of each launch on it (1, 2, ...). A launch publishes its shares'
+    counts tagged with its epoch and waits only for words of that epoch, so
+    an earlier launch's words are never taken for its own. Launches on one
+    stream run in turn, so a buffer is never shared by two at once; the
+    epoch wraps after MAX_EPOCH launches, and the buffer is zeroed again
+    (on the same stream, before the next launch)."""
+
+    MAX_EPOCH = 2**32 - 1
+
+    def __init__(self) -> None:
+        self._bufs: dict = {}
+        self._lock = threading.Lock()
+
+    def take(self, device: torch.device, key, words: int) -> tuple[torch.Tensor, int]:
+        """(the buffer of ``key``, of at least ``words`` words, and the next
+        launch's epoch)."""
+        with self._lock:
+            entry = self._bufs.get(key)
+            if entry is None or entry[0].shape[0] < words:
+                entry = self._bufs[key] = [torch.zeros(words, dtype=torch.int64, device=device), 0]
+            if entry[1] >= self.MAX_EPOCH:
+                entry[0].zero_()
+                entry[1] = 0
+            entry[1] += 1
+            return entry[0], entry[1]
+
+
+_scan_epochs = ScanEpochs()
+
+
+def scan_compact_geometry(device: torch.device, n: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA) of H12's launch over
+    ``n`` rows on ``device``."""
+    return h12_shares(n, sm_count(device))[0], SCAN_THREADS, 0
+
+
+def _scan_launch(mask: torch.Tensor, cols: list, bufs: list, written, limit: int, index_out,
+                 pad: int, probe: Optional[torch.Tensor]) -> None:
+    device = mask.device
+    if probe is not None:
+        _require(probe, "probe", torch.int64, device, 1)
+        if probe.shape[0] < SCAN_PROBE:
+            raise ValueError(f"probe has {probe.shape[0]} entries, expected {SCAN_PROBE}")
+    n, k = mask.shape[0], len(cols)
+    sms = sm_count(device)
+    grid, share = h12_shares(n, sms)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    words, epoch = _scan_epochs.take(
+        device, (index, torch.cuda.current_stream(device).cuda_stream), sms * SCAN_CTAS_PER_SM)
+    _launch(
+        "scan_compact", device,
+        mask.data_ptr(), n,
+        (ctypes.c_void_p * max(k, 1))(*[c.data_ptr() for c in cols]),
+        (ctypes.c_void_p * max(k, 1))(*[b.data_ptr() for b in bufs]),
+        (ctypes.c_int * max(k, 1))(*[_SCAN_WIDE[c.dtype] for c in cols]),
+        k, written.data_ptr() if written is not None else None, limit,
+        index_out.data_ptr() if index_out is not None else None, pad, grid, share,
+        words.data_ptr(), epoch, probe.data_ptr() if probe is not None else None,
+    )
+
+
 def scan_compact(
-    mask: torch.Tensor, cols: list, written: torch.Tensor, bufs: list, limit: int
+    mask: torch.Tensor, cols: list, written: torch.Tensor, bufs: list, limit: int,
+    probe: Optional[torch.Tensor] = None,
 ) -> None:
     """H12: writes the rows of one block whose ``mask`` is true, in row
     order, to ``bufs[c][written + rank]`` while that is below ``limit``, and
     sets ``written`` (int32 [1], on the device) to min(written + count,
     limit), all on the device; a launch that finds written >= limit returns
     at once. ``cols[c]`` ([n]) and ``bufs[c]`` share an int64, f64 or int32
-    dtype."""
+    dtype. ``probe``: None, or int64 [SCAN_PROBE] on the device for CTA 0's
+    clock64 at the start and after the count, the wait for the shares'
+    counts, the copy and the padding (none here)."""
     device = mask.device
     _require(mask, "mask", torch.bool, device, 1)
     _require(written, "written", torch.int32, device, 1)
@@ -1165,17 +1249,29 @@ def scan_compact(
             raise ValueError(f"column {i} must have {n} rows and its buffer {limit} or more")
     if n == 0:
         return
-    k = len(cols)
-    tiles = (n + SCAN_TILE_ROWS - 1) // SCAN_TILE_ROWS
-    scratch = torch.zeros(tiles + 1, dtype=torch.int64, device=device)
-    _launch(
-        "scan_compact", device,
-        mask.data_ptr(), n,
-        (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
-        (ctypes.c_void_p * k)(*[b.data_ptr() for b in bufs]),
-        (ctypes.c_int * k)(*[_SCAN_WIDE[c.dtype] for c in cols]),
-        k, written.data_ptr(), limit, scratch.data_ptr(),
-    )
+    _scan_launch(mask, cols, bufs, written, limit, None, -1, probe)
+
+
+def scan_compact_indices(
+    mask: torch.Tensor, cap: int, probe: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """H12's index lane: the indices of the rows whose ``mask`` is true, in
+    row order, int32 [cap], and ``n`` (the mask's length) in every slot past
+    their count: the reference's sentinel sort (pixie_tpu/ops/segment.py
+    compact_unmatched_rows), in one launch that reads no index column.
+    ``probe`` as ``scan_compact``'s."""
+    device = mask.device
+    _require(mask, "mask", torch.bool, device, 1)
+    n = mask.shape[0]
+    if not 0 <= cap < 2**31 or n >= 2**31:
+        raise ValueError(f"scan_compact_indices: cap {cap} and rows {n} must fit int32")
+    out = torch.empty(cap, dtype=torch.int32, device=device)
+    if cap == 0:
+        return out
+    if n == 0:
+        return out.fill_(0)  # every slot is padding
+    _scan_launch(mask, [], [], None, cap, out, n, probe)
+    return out
 
 
 # ---------------------------------------------------------------- join
@@ -1466,19 +1562,48 @@ def _decode_out(out: torch.Tensor, device) -> tuple[int, int]:
     return out.shape[0], out.shape[1]
 
 
-def codec_rle_decode(values: torch.Tensor, ends: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+RLE_THREADS = 256  # kRleThreads of codec_kernels.cu
+RLE_PROBE = 4  # the first CTA's clock64 at the start and after the search, staging, expansion
+
+
+def rle_tile_rows(elem_size: int) -> int:
+    """H18's rows a CTA for a block of ``elem_size``-byte elements
+    (codec_kernels.cu RleTile::kRows)."""
+    if elem_size not in (1, 2, 4, 8):
+        raise ValueError(f"rle_tile_rows: elements of {elem_size} bytes")
+    return 4096 if elem_size <= 2 else 2048
+
+
+def codec_rle_decode_geometry(d: int, L: int, elem_size: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes a CTA) of H18's launch over
+    a [d, L] block of ``elem_size``-byte elements: a CTA a tile of each
+    shard."""
+    return d * -(-L // rle_tile_rows(elem_size)), RLE_THREADS, 0
+
+
+def codec_rle_decode(values: torch.Tensor, ends: torch.Tensor, out: torch.Tensor,
+                     probe: Optional[torch.Tensor] = None) -> torch.Tensor:
     """H18: writes values[s, min(searchsorted(ends[s], i, right), R - 1)] to
     ``out[s, i]`` for every row i of each shard s, as bits, and returns
     ``out`` ([d, L], the dtype of ``values`` [d, R]; ``ends`` int32 [d, R],
-    ascending in each shard)."""
+    ascending in each shard; d up to 65535, L below 2^31). A CTA a tile of
+    each shard (``codec_rle_decode_geometry``). ``probe``: None, or int64
+    [RLE_PROBE] on the device for the first CTA's clock64 at the start and
+    after the search for its runs, their staging and the expansion."""
     device = values.device
     d, L = _decode_out(out, device)
     _require(values, "values", out.dtype, device, 2)
     _require(ends, "ends", torch.int32, device, 2)
     R = values.shape[1]
-    if values.shape[0] != d or tuple(ends.shape) != (d, R) or R == 0 or R >= 2**31:
+    if probe is not None:
+        _require(probe, "probe", torch.int64, device, 1)
+        if probe.shape[0] < RLE_PROBE:
+            raise ValueError(f"probe has {probe.shape[0]} entries, expected {RLE_PROBE}")
+    if (values.shape[0] != d or tuple(ends.shape) != (d, R) or R == 0 or R >= 2**31
+            or d > 65535 or L >= 2**31):
         raise ValueError(
-            f"codec_rle_decode: values and ends must be [{d}, R] with 0 < R < 2^31; got "
+            f"codec_rle_decode: values and ends must be [{d}, R] with 0 < R < 2^31, "
+            f"d <= 65535 and L < 2^31; got "
             f"{tuple(values.shape)}, {tuple(ends.shape)}"
         )
     if d == 0 or L == 0:
@@ -1486,6 +1611,7 @@ def codec_rle_decode(values: torch.Tensor, ends: torch.Tensor, out: torch.Tensor
     _launch(
         "codec_rle_decode", device,
         values.data_ptr(), ends.data_ptr(), d, R, L, out.element_size(), out.data_ptr(),
+        probe.data_ptr() if probe is not None else None,
     )
     return out
 

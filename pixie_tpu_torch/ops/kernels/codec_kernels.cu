@@ -21,8 +21,30 @@
 //
 // What bounds them on an H100: both read their payload once and write the
 // block once, so bytes bound them (a 2^23-row int64 block is 64 MB, ~20 us
-// at 3.35 TB/s). H18 is one thread per output row with a binary search over
-// its shard's run ends (R int32, ~16 KB at 4096 runs, served from L1/L2).
+// at 3.35 TB/s).
+//
+// H18's first design (PR 7) gave each output row a thread, a 64-bit
+// division i / L and a binary search over its shard's run ends: 12
+// dependent loads a row at 4096 runs, 22 at the codec's short-run limit
+// (runs_cap up to about L / 2.1 for 8-byte blocks, where `ends` is 16 MB
+// and leaves the L1), and a scalar store of 1-8 bytes. 0.081-0.089 ms at
+// 2^23 rows and 4096 runs, 17x its bound. Now a CTA takes a tile of
+// consecutive rows of one shard (4096 rows of 1- and 2-byte blocks, 2048 of
+// 4- and 8-byte ones; a 2-D grid, no division): warps 0 and 1 find the runs
+// of its first and last row at once by a 32-ary search (ballots over 32
+// ends a round: 3 rounds at 4096 runs, 5 at 2^22; with 256 runs or fewer
+// the CTA takes them all and searches nothing), the CTA stages those runs'
+// ends and values in shared memory with coalesced loads (at most the
+// tile's rows + 1 of them), and each thread expands 16-byte slots of the
+// output (aligned to the address, so a shard that starts off 16 bytes
+// writes its edge rows one by one): a binary search of the staged ends
+// finds the slot's first run; a slot inside one run is that run's value
+// repeated, else a walk with the next end in a register; the slot goes out
+// as one vector store, neighbouring threads on neighbouring slots (a shard
+// of 256 rows or fewer: a row a thread, each searched). Runs of no
+// rows (repeated ends) inside a tile can outnumber the staged window; a row
+// past it is searched in global memory, and a row past the last end takes
+// run R - 1.
 //
 // H19's first design (a single-pass scan with decoupled look-back over
 // 2048-row tiles) took 0.268 ms at 2^23 nibble rows whatever the output
@@ -46,44 +68,164 @@
 // A shard whose payload or block is not 16-byte aligned (a short odd shard
 // of a multi-shard window) is read or written row by row.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "common.cuh"
-
 namespace {
 
-using px::grid_for;
-using px::kThreads;
-
 // ---------------------------------------------------------------- H18
+constexpr int kRleThreads = 256;
+
 template <typename T>
-__global__ void rle_decode_kernel(const T* __restrict__ values, const int* __restrict__ ends,
-                                  int R, long long L, long long total, T* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const long long s = i / L;
-    const int r = (int)(i - s * L);
-    const int* e = ends + s * R;
-    int lo = 0, hi = R;  // the count of ends <= r
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(&e[mid]) <= r) {
-        lo = mid + 1;
+struct RleTile {
+  static constexpr int kRows = sizeof(T) <= 2 ? 4096 : 2048;  // rows a CTA
+  static constexpr int kCap = kRows + 1;  // staged runs: the tile's, at most
+  static constexpr int kVec = 16 / (int)sizeof(T);  // rows of a 16-byte slot
+};
+
+// The count of e[lo, hi) at or below x (e ascending), by a 32-ary search:
+// each round 32 lanes test evenly spaced ends and a ballot keeps the span
+// between the last that passes and the first that fails. Every lane of
+// the warp calls it and gets the count.
+__device__ __forceinline__ int warp_upper_bound(const int* __restrict__ e, int lo, int hi,
+                                                long long x) {
+  const int lane = threadIdx.x & 31;
+  while (hi > lo) {
+    const int step = (hi - lo + 31) / 32;
+    const long long p = (long long)lo + (long long)(lane + 1) * step - 1;
+    const bool le = p < hi && (long long)__ldg(e + p) <= x;
+    const int m = __popc(__ballot_sync(0xffffffffu, le));
+    const long long top = (long long)lo + (long long)(m + 1) * step - 1;
+    hi = top < hi ? (int)top : hi;
+    lo += m * step;
+  }
+  return lo;
+}
+
+// The count of e[0, w) at or below x (e ascending, in shared memory).
+__device__ __forceinline__ int shared_upper_bound(const int* e, int w, int x) {
+  int lo = 0, hi = w;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (e[mid] <= x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// The value of row r whose count of staged ends reached w: past the last
+// end (run R - 1), or past a window that repeated ends cut short (searched
+// in global memory). Rare, so kept out of line.
+template <typename T>
+__device__ __noinline__ T rle_beyond(const T* __restrict__ v, const int* __restrict__ e, int R,
+                                     int from, int r) {
+  int lo = from, hi = R;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(e + mid) <= r) lo = mid + 1; else hi = mid;
+  }
+  return __ldg(v + (lo < R ? lo : R - 1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRleThreads)
+    rle_decode_kernel(const T* __restrict__ values, const int* __restrict__ ends, int R, int L,
+                      T* __restrict__ out, long long* probe) {
+  using Tile = RleTile<T>;
+  __shared__ int s_end[Tile::kCap];
+  __shared__ T s_val[Tile::kCap];
+  __shared__ int s_j[2];
+  const bool probing = probe != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0;
+  if (probing) probe[0] = clock64();
+  const int s = blockIdx.y;
+  const int a = blockIdx.x * Tile::kRows;
+  const int b = a + Tile::kRows < L ? a + Tile::kRows : L;
+  const int* e = ends + (long long)s * R;
+  const T* v = values + (long long)s * R;
+  const int warp = threadIdx.x >> 5;
+  // The runs of the tile's first and last row, j0 and j1 (R: past every
+  // end); with a run for each thread or fewer the CTA stages them all.
+  if (R > kRleThreads && warp < 2) {
+    const int j = warp_upper_bound(e, 0, R, warp == 0 ? a : b - 1);
+    if ((threadIdx.x & 31) == 0) s_j[warp] = j;
+  }
+  __syncthreads();
+  if (probing) probe[1] = clock64();
+  const int j0 = R > kRleThreads ? s_j[0] : 0;
+  const int j1 = R > kRleThreads ? s_j[1] : R;
+  const int need = (j1 < R ? j1 + 1 : R) - j0;  // runs j0 .. min(j1, R - 1)
+  const int w = need < Tile::kCap ? need : Tile::kCap;
+  for (int i = threadIdx.x; i < w; i += kRleThreads) {
+    s_end[i] = __ldg(e + j0 + i);
+    s_val[i] = __ldg(v + j0 + i);
+  }
+  __syncthreads();
+  if (probing) probe[2] = clock64();
+  const bool clamp = j0 + w >= R;
+  const int from = clamp ? R : j0 + w;  // where rle_beyond searches
+  T* shard = out + (long long)s * L;
+  if (L <= kRleThreads) {  // a shard of a row a thread or fewer: a search a row
+    if ((int)threadIdx.x < L) {
+      const int c = shared_upper_bound(s_end, w, threadIdx.x);
+      shard[threadIdx.x] = c < w ? s_val[c] : rle_beyond(v, e, R, from, threadIdx.x);
+    }
+    if (probing) probe[3] = clock64();
+    return;
+  }
+  // 16-byte slots of the address space that hold the tile's rows [a, b),
+  // neighbouring threads on neighbouring slots. A binary search of the
+  // staged ends finds a slot's first run; a slot inside one run takes its
+  // value at once, else a walk with the next end in a register. A count
+  // that reaches w takes rle_beyond.
+  const long long base = (long long)reinterpret_cast<uintptr_t>(shard);
+  const long long q0 = (base + (long long)a * (long long)sizeof(T)) / 16;
+  const long long q1 = (base + (long long)b * (long long)sizeof(T) - 1) / 16;
+  for (long long q = q0 + threadIdx.x; q <= q1; q += kRleThreads) {
+    // The slot's rows: first (before a where the slot starts before the
+    // tile, or before the shard), then the next kVec - 1.
+    const int first = (int)((q * 16 - base) / (long long)sizeof(T));
+    const int r0 = first > a ? first : a;
+    const int r1 = first + Tile::kVec < b ? first + Tile::kVec : b;
+    int c = shared_upper_bound(s_end, w, r0);
+    int next = c < w ? s_end[c] : INT_MAX;  // the row where run c ends
+    T cur = c < w ? s_val[c] : rle_beyond(v, e, R, from, r0);
+    if (first >= a && first + Tile::kVec <= b) {
+      union { uint4 u; T t[Tile::kVec]; } slot;
+      if (next >= first + Tile::kVec && (c < w || clamp)) {  // one run holds the slot
+#pragma unroll
+        for (int k = 0; k < Tile::kVec; ++k) slot.t[k] = cur;
       } else {
-        hi = mid;
+#pragma unroll
+        for (int k = 0; k < Tile::kVec; ++k) {
+          const int r = first + k;
+          if (r >= next || (c >= w && !clamp)) {
+            while (r >= next) next = ++c < w ? s_end[c] : INT_MAX;
+            cur = c < w ? s_val[c] : rle_beyond(v, e, R, from, r);
+          }
+          slot.t[k] = cur;
+        }
+      }
+      *reinterpret_cast<uint4*>(shard + first) = slot.u;
+    } else {  // the slot holds rows outside the tile: its own rows one by one
+      for (int r = r0; r < r1; ++r) {
+        if (r >= next || (c >= w && !clamp)) {
+          while (r >= next) next = ++c < w ? s_end[c] : INT_MAX;
+          cur = c < w ? s_val[c] : rle_beyond(v, e, R, from, r);
+        }
+        shard[r] = cur;
       }
     }
-    out[i] = values[s * R + (lo < R - 1 ? lo : R - 1)];
   }
+  if (probing) probe[3] = clock64();
 }
 
 template <typename T>
 cudaError_t launch_rle(const void* values, const void* ends, int d, int R, long long L, void* out,
-                       cudaStream_t stream) {
-  const long long total = (long long)d * L;
-  rle_decode_kernel<T><<<grid_for(total, 8), kThreads, 0, stream>>>(
-      (const T*)values, (const int*)ends, R, L, total, (T*)out);
+                       void* probe, cudaStream_t stream) {
+  if (L >= (1ll << 31) || d > 65535) return cudaErrorInvalidValue;
+  const long long tiles = (L + RleTile<T>::kRows - 1) / RleTile<T>::kRows;
+  rle_decode_kernel<T><<<dim3((unsigned int)tiles, (unsigned int)d), kRleThreads, 0, stream>>>(
+      (const T*)values, (const int*)ends, R, (int)L, (T*)out, (long long*)probe);
   return cudaGetLastError();
 }
 
@@ -452,17 +594,19 @@ cudaError_t launch_delta_kind(const void* bases, const void* deltas, long long d
 
 extern "C" {
 
-// values: [d, R] elements of `elem_size` bytes; ends: int32 [d, R];
-// out: [d, L] elements of `elem_size` bytes.
+// values: [d, R] elements of `elem_size` bytes; ends: int32 [d, R],
+// ascending in each shard; out: [d, L] elements of `elem_size` bytes, L <
+// 2^31, d <= 65535; probe: null, or int64 [4] for the first CTA's clock64
+// at the start and after the search, the staging and the expansion.
 int px_codec_rle_decode(const void* values, const void* ends, int d, int R, long long L,
-                        int elem_size, void* out, void* stream) {
+                        int elem_size, void* out, void* probe, void* stream) {
   if (d <= 0 || R <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (elem_size) {
-    case 1: return (int)launch_rle<uint8_t>(values, ends, d, R, L, out, st);
-    case 2: return (int)launch_rle<uint16_t>(values, ends, d, R, L, out, st);
-    case 4: return (int)launch_rle<uint32_t>(values, ends, d, R, L, out, st);
-    case 8: return (int)launch_rle<unsigned long long>(values, ends, d, R, L, out, st);
+    case 1: return (int)launch_rle<uint8_t>(values, ends, d, R, L, out, probe, st);
+    case 2: return (int)launch_rle<uint16_t>(values, ends, d, R, L, out, probe, st);
+    case 4: return (int)launch_rle<uint32_t>(values, ends, d, R, L, out, probe, st);
+    case 8: return (int)launch_rle<unsigned long long>(values, ends, d, R, L, out, probe, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

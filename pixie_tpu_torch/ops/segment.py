@@ -455,15 +455,9 @@ def merge_join_pairs(
 def compact_unmatched_rows(unmatched: torch.Tensor, cap: int) -> torch.Tensor:
     """The indices of the ``unmatched`` rows in row order, int32 [cap];
     entries past their count are ``n`` (padding), as the reference's
-    sentinel sort gives. The compaction is H12 on CUDA, over an int32
-    row-index column."""
-    n = unmatched.shape[0]
-    out = torch.full((cap,), n, dtype=torch.int32, device=unmatched.device)
-    if cap and n:
-        written = torch.zeros(1, dtype=torch.int32, device=unmatched.device)
-        idx = torch.arange(n, dtype=torch.int32, device=unmatched.device)
-        scan.compact_rows(unmatched.contiguous(), [idx], written, [out], cap)
-    return out
+    sentinel sort gives. On CUDA one launch of H12's index lane, which
+    writes the indices and the padding."""
+    return scan.compact_indices(unmatched.contiguous(), cap)
 
 
 def local_sort_merge(

@@ -365,6 +365,194 @@ def test_delta_plain_decode_every_dtype(out_dtype, delta):
     assert np.array_equal(out.numpy(), v.astype(out_dtype))
 
 
+# H18 (ops/kernels/codec_kernels.cu) gives a CTA a tile of consecutive rows
+# of one shard: warps 0 and 1 find the runs of its first and last row by a
+# 32-ary search over the ends (with 256 runs or fewer it takes them all),
+# the CTA stages those runs (at most the tile's rows + 1 of them), and each
+# thread expands 16-byte slots of the output, a binary search of the staged
+# ends for the slot's first run and a walk for the rest (a shard of 256 rows
+# or fewer: a search a row); a row past a window that repeated ends cut
+# short is searched in global memory, one past the last end takes run R - 1.
+# The models below do the same in numpy at any tile, window and slot.
+def _warp_upper_bound(e: np.ndarray, lo: int, hi: int, x: int) -> int:
+    while hi > lo:
+        step = (hi - lo + 31) // 32
+        p = lo + (np.arange(32) + 1) * step - 1
+        le = (p < hi) & (e[np.minimum(p, e.size - 1)] <= x)
+        m = int(le.sum())
+        hi = min(hi, lo + (m + 1) * step - 1)
+        lo += m * step
+    return lo
+
+
+def _h18_tile_model(values: np.ndarray, ends: np.ndarray, L: int, tile: int, cap: int,
+                    run: int) -> np.ndarray:
+    """[d, L] decoded by H18's steps: ``tile`` rows a CTA, at most ``cap``
+    staged runs, a search for each slot of ``run`` rows and a walk through
+    it (a row a slot in a shard of 256 rows or fewer)."""
+    run = 1 if L <= kernels.RLE_THREADS else run
+    d, R = ends.shape
+    out = np.zeros((d, L), values.dtype)
+    writes = np.zeros((d, L), np.int64)
+    for s in range(d):
+        e, v = ends[s].astype(np.int64), values[s]
+        for a in range(0, L, tile):
+            b = min(L, a + tile)
+            if R > kernels.RLE_THREADS:
+                j0, j1 = _warp_upper_bound(e, 0, R, a), _warp_upper_bound(e, 0, R, b - 1)
+            else:  # a run a thread or fewer: all staged, no search
+                j0, j1 = 0, R
+            w = min((j1 + 1 if j1 < R else R) - j0, cap)
+            staged = e[j0:j0 + w]
+            for r0 in range(a, b, run):  # a slot's rows
+                c = int(np.searchsorted(staged, r0, side="right"))
+                for r in range(r0, min(r0 + run, b)):
+                    while c < w and staged[c] <= r:
+                        c += 1
+                    if c < w:
+                        j = j0 + c
+                    elif j0 + w >= R:
+                        j = R - 1
+                    else:
+                        j = min(j0 + w + int(np.searchsorted(e[j0 + w:], r, side="right")), R - 1)
+                    out[s, r] = v[j]
+                    writes[s, r] += 1
+    assert (writes == 1).all()  # every row written once, by one slot
+    return out
+
+
+def _ref_rle_decode(values: np.ndarray, ends: np.ndarray, L: int) -> np.ndarray:
+    d, R = ends.shape
+    plan = ref_codec.CodecPlan(kind="rle", dtype=values.dtype.str, d=d, shard_len=L, runs_cap=R)
+    payload = ref_codec.CodecPayload(plan, (values, ends))
+    mesh = _mesh(d)
+    out = ref_codec.decoder(mesh, plan, 1, L)(*ref_codec.put_payload(mesh, payload))
+    return np.asarray(out).reshape(d, L)
+
+
+def _plain_rle_decode(values: np.ndarray, ends: np.ndarray, L: int) -> np.ndarray:
+    out = torch.zeros((ends.shape[0], L), dtype=codec.TORCH_DTYPES[values.dtype])
+    codec.rle_decode_plain(torch.from_numpy(values), torch.from_numpy(ends), out)
+    return out.numpy()
+
+
+def _rle_edge_case(name: str, dtype, rng):
+    """(values [d, R], ends [d, R], L) of one edge of H18's contract."""
+    L = 1001
+    if name == "R1":
+        ends = np.array([[L]], np.int32)
+    elif name == "R1-rows-past-the-end":
+        ends = np.array([[37]], np.int32)
+    elif name == "repeated-padding-ends":
+        ends = np.concatenate([np.sort(rng.choice(np.arange(1, L), 9, replace=False)), [L] * 23])
+        ends = np.stack([ends, np.sort(rng.choice(np.arange(1, L), 32, replace=False))])
+    elif name == "repeated-ends-inside":
+        ends = np.sort(np.concatenate([[5] * 40, [6] * 3, [300] * 90, [L] * 2,
+                                       rng.choice(np.arange(7, 300), 20, replace=False)]))[None]
+    elif name == "rows-past-the-last-end":
+        ends = np.stack([np.sort(rng.choice(np.arange(1, L - 100), 17, replace=False))
+                         for _ in range(3)])
+    else:
+        raise ValueError(name)
+    ends = ends.astype(np.int32)
+    d, R = ends.shape
+    w = np.dtype(dtype).itemsize
+    raw = rng.integers(0, 1 << 63, (d, R), dtype=np.uint64)
+    raw[0, :2] = [0x7FF80000DEADBEEF, 1 << 63][:2] if R > 1 else [0x7FF80000DEADBEEF]
+    values = raw.view(np.uint8).reshape(d, R, 8)[:, :, :w].copy().view(dtype).reshape(d, R)
+    return values, ends, L
+
+
+RLE_EDGES = ["R1", "R1-rows-past-the-end", "repeated-padding-ends", "repeated-ends-inside",
+             "rows-past-the-last-end"]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int64, np.float64])
+@pytest.mark.parametrize("name", RLE_EDGES)
+def test_rle_decode_edges_match_reference(name, dtype):
+    """H18's contract at its edges (one run; runs of no rows at the end and
+    inside a tile; rows past the last end, which take run R - 1): the plain
+    decode and H18's tile model, at the kernel's tile and at small tiles and
+    windows that repeated ends overflow, equal the reference's decoder bit
+    for bit."""
+    values, ends, L = _rle_edge_case(name, dtype, np.random.default_rng(len(name)))
+    want = _ref_rle_decode(values, ends, L)
+    assert np.array_equal(_bits(_plain_rle_decode(values, ends, L)), _bits(want))
+    tile = kernels.rle_tile_rows(np.dtype(dtype).itemsize)
+    for t, cap, run in ((tile, tile + 1, 16 // values.itemsize), (64, 65, 16), (64, 8, 8),
+                        (7, 2, 3)):
+        got = _h18_tile_model(values, ends, L, t, cap, run)
+        assert np.array_equal(_bits(got), _bits(want)), (t, cap, run)
+
+
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("dtype", [np.int64, np.uint8])
+def test_rle_at_the_codecs_short_run_limit(dtype, d):
+    """The most runs the codec still ships as RLE (runs_cap * (w + 4) * 1.4
+    <= L * w: about L / 2.3 rows a run for int64, L / 8 for uint8), every
+    shard at the plan's cap less its slack: planned, encoded and decoded as
+    the reference does, and by H18's tile model."""
+    rng = np.random.default_rng(d)
+    L, w = NBLK * B, np.dtype(dtype).itemsize
+    c = int(L * w / (1.4 * (w + 4)))
+    step = 1 << ((c - 1).bit_length() - 3)
+    cap = (c // step) * step
+    flat = np.empty((d, L), dtype)
+    prev = None
+    for s in range(d):
+        cut = np.sort(rng.choice(np.arange(1, L), cap - 3, replace=False))
+        run = np.searchsorted(cut, np.arange(L), side="right")
+        if w == 1:  # neighbours differ
+            vals = (np.cumsum(1 + rng.integers(0, 200, cap - 2)) % 251).astype(dtype)
+        else:  # wide values: no delta encoding pays
+            vals = rng.integers(0, 1 << 62, cap - 2).astype(dtype)
+        if prev is not None:  # no change at a shard's edge: cap - 2 runs each
+            vals[0] = prev
+            vals[1] = prev + 1 if vals[1] == prev else vals[1]
+        flat[s] = vals[run]
+        prev = int(flat[s, -1])
+    plan, out = _roundtrip(flat.reshape(-1), d * L, min_ratio=1.4, d=d)
+    assert plan is not None and plan.kind == "rle" and plan.runs_cap == cap
+    assert np.array_equal(out.reshape(-1), flat.reshape(-1))
+    values, ends = codec.encode_window(flat.reshape(-1), plan, d * L).arrays
+    tile = kernels.rle_tile_rows(w)
+    got = _h18_tile_model(values, ends, L, tile, tile + 1, 16 // w)
+    assert np.array_equal(got, flat)
+    assert np.array_equal(_h18_tile_model(values, ends, L, 32, 33, 8), flat)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_h18_warp_search_is_an_upper_bound(seed):
+    """H18's 32-ary search of the ends (ballots over 32 evenly spaced ends a
+    round) counts the ends at or below x in [lo, hi), repeated ends and x
+    outside the ends included."""
+    rng = np.random.default_rng(seed)
+    e = np.sort(rng.integers(0, 5000, int(rng.integers(1, 70_000))))
+    e[: e.size // 3] = np.sort(np.repeat(e[: e.size // 30 + 1], 10)[: e.size // 3])
+    e = np.sort(e)
+    for _ in range(200):
+        lo = int(rng.integers(0, e.size))
+        hi = int(rng.integers(lo, e.size + 1))
+        x = int(rng.integers(-5, 5010))
+        assert _warp_upper_bound(e, lo, hi, x) == lo + int(np.searchsorted(e[lo:hi], x, "right"))
+
+
+@pytest.mark.parametrize("w, d, L, want", [(1, 1, 1 << 23, (2048, 4096)), (2, 3, 4097, (6, 4096)),
+                                           (4, 1, 2048, (1, 2048)), (8, 4, 1 << 21, (4096, 2048)),
+                                           (8, 2, 1, (2, 2048))])
+def test_rle_decode_geometry(w, d, L, want):
+    """H18's grid: a CTA a tile of each shard, 4096 rows of 1- and 2-byte
+    blocks, 2048 of 4- and 8-byte ones, as codec_kernels.cu's RleTile."""
+    import os
+
+    assert kernels.codec_rle_decode_geometry(d, L, w) == (want[0], kernels.RLE_THREADS, 0)
+    assert kernels.rle_tile_rows(w) == want[1]
+    with open(os.path.join(os.path.dirname(kernels.__file__), "codec_kernels.cu")) as f:
+        src = f.read()
+    assert "kRows = sizeof(T) <= 2 ? 4096 : 2048;" in src
+    assert f"constexpr int kRleThreads = {kernels.RLE_THREADS};" in src
+
+
 # H19 (ops/kernels/codec_kernels.cu) decodes in three grids: each tile's sum
 # of d64, an exclusive scan of the tile sums per shard (plus the shard's
 # base), then a scan within each tile added to its prefix. The model below

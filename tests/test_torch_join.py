@@ -159,6 +159,23 @@ def test_compact_unmatched_rows_matches_reference(frac, cap):
     assert got.dtype == np.int32 and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("n, count, cap", [
+    (3000, 0, 64), (3000, 1, 64), (3000, 640, 640), (3000, 640, 3077), (3000, 3000, 4096),
+    (1, 1, 5), (1, 0, 1), (16, 16, 16), (4097, 4097, 4100),
+], ids=["none", "one", "count-at-cap", "cap-past-n", "all-cap-past-n", "n1-all", "n1-none",
+        "n16-all-at-cap", "n4097-all"])
+def test_compact_unmatched_rows_edges_match_reference(n, count, cap):
+    """The index lane's wrapper (``segment.compact_unmatched_rows`` through
+    ``scan.compact_indices``) against the reference's sentinel sort at
+    counts 0, 1 and at the cap, and caps past n."""
+    rng = np.random.default_rng(n + count + cap)
+    unmatched = np.zeros(n, bool)
+    unmatched[rng.choice(n, count, replace=False)] = True
+    want = np.asarray(ref_segment.compact_unmatched_rows(jnp.asarray(unmatched), cap))
+    got = segment.compact_unmatched_rows(torch.from_numpy(unmatched), cap).numpy()
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
 def test_join_gather_plain_sections():
     """H15's plain version: clamped gathers, widening by the offset, and
     null sections of the column's type."""

@@ -405,6 +405,91 @@ def test_scan_kernel_matches_plain_on_card():
     _check_scan_kernel(torch.device("cuda", 0))
 
 
+def _h12_mask(rng, n: int, count: int) -> torch.Tensor:
+    mask = np.zeros(n, bool)
+    mask[rng.choice(n, count, replace=False)] = True
+    return torch.from_numpy(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 17, 4096, 4097, 3 * 4096 * 7 + 5, (1 << 21) + 5, 1 << 22])
+def test_scan_compact_index_lane_edges_on_card(n):
+    """H12's index lane against the plain version, bit for bit: counts 0,
+    1, a seventh and every row, caps 1, at the count, past it and past n
+    (padding ``n``), one CTA and many shares; an unaligned mask (row-wise
+    loads); fifty launches queued on one stream (each its own epoch) and
+    launches on a second stream (its own status words)."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n)
+    for count in sorted({0, 1, n // 7, n}):
+        mask = _h12_mask(rng, n, count)
+        card = mask.to(dev)
+        for cap in sorted({1, max(count, 1), count + 7, n + 100}):
+            want = scan.compact_indices_plain(mask, cap)
+            assert torch.equal(kernels.scan_compact_indices(card, cap).cpu(), want), (count, cap)
+            assert torch.equal(segment.compact_unmatched_rows(card, cap).cpu(), want)
+        got = kernels.scan_compact_indices(_unaligned(card), count + 3)
+        assert torch.equal(got.cpu(), scan.compact_indices_plain(mask, count + 3)), count
+    masks = [_h12_mask(rng, n, int(rng.integers(0, n + 1))) for _ in range(5)]
+    cards = [m.to(dev) for m in masks]
+    outs = [kernels.scan_compact_indices(cards[i % 5], n) for i in range(50)]
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        side_outs = [kernels.scan_compact_indices(c, n) for c in cards]
+    side.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out.cpu(), scan.compact_indices_plain(masks[i % 5], n)), i
+    for m, out in zip(masks, side_outs):
+        assert torch.equal(out.cpu(), scan.compact_indices_plain(m, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 5000, (1 << 21) + 5])
+def test_scan_compact_edges_on_card(n):
+    """H12 over columns against the plain version, bit for bit (written and
+    every buffer, slots past the count untouched): ``written`` 0, inside the
+    limit, one short of it, at it and past it (the launch returns at once);
+    a limit that ends inside a later share; an unaligned mask and unaligned
+    columns; no columns at all (``written`` alone); CTA 0's probe stamps in
+    order."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(n + 12)
+    mask = _h12_mask(rng, n, int(rng.integers(0, n + 1)) if n > 1 else 1)
+    cols = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)),
+            torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)),
+            torch.from_numpy(rng.normal(size=n))]
+    count = int(mask.sum())
+    for limit in sorted({0, 1, count // 2 + 1, count, count + 9}):
+        for w0 in sorted({0, min(5, limit), max(limit - 1, 0), limit, limit + 3}):
+            for skew in (False, True):
+                out = []
+                for where in ("cpu", dev):
+                    written = torch.full((1,), w0, dtype=torch.int32, device=where)
+                    bufs = [torch.full((limit + 4,), 7, dtype=c.dtype, device=where) for c in cols]
+                    m, cs = mask.to(where), [c.to(where) for c in cols]
+                    if skew and where != "cpu":
+                        m, cs = _unaligned(m), [_unaligned(c) for c in cs]
+                    scan.compact_rows(m, cs, written, bufs, limit)
+                    out.append((int(written[0]), [b.cpu() for b in bufs]))
+                (wp, bp), (wk, bk) = out
+                assert wp == wk, (limit, w0, skew)
+                assert all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                           for x, y in zip(bp, bk)), (limit, w0, skew)
+    for limit in (1, count + 9):  # no columns: the count alone
+        got = torch.zeros(1, dtype=torch.int32, device=dev)
+        kernels.scan_compact(mask.to(dev), [], got, [], limit)
+        assert int(got[0]) == min(count, limit)
+    probe = torch.zeros(kernels.SCAN_PROBE, dtype=torch.int64, device=dev)
+    kernels.scan_compact(mask.to(dev), [c.to(dev) for c in cols],
+                         torch.zeros(1, dtype=torch.int32, device=dev),
+                         [torch.empty(count + 1, dtype=c.dtype, device=dev) for c in cols],
+                         count + 1, probe=probe)
+    stamps = probe.cpu().tolist()
+    assert all(0 < a <= b for a, b in zip(stamps, stamps[1:])), stamps
+
+
 @pytest.mark.cuda
 def test_sketch_kernels_match_plain_on_card():
     _need_cards(1)
@@ -1324,6 +1409,67 @@ def check_cell_kernels(dev: torch.device) -> None:
 def test_codec_kernels_match_plain_on_card():
     _need_cards(1)
     check_codec_kernels(torch.device("cuda", 0))
+
+
+def _rle_values(rng, d: int, R: int, dtype) -> torch.Tensor:
+    w = torch.empty(0, dtype=dtype).element_size()
+    raw = rng.integers(0, 1 << 63, (d, R), dtype=np.uint64)
+    raw[0, : min(R, 3)] = [0x7FF80000DEADBEEF, 1 << 63, 0x7FC0DEAD][: min(R, 3)]
+    return torch.from_numpy(raw.view(np.uint8).reshape(d, R, 8)[:, :, :w].copy()
+                            .reshape(d, R * w)).view(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32, torch.int64,
+                                   torch.float32, torch.float64])
+def test_rle_decode_edges_on_card(dtype):
+    """H18 against its plain version, bit for bit, at its edges: one run (R
+    1, its end at L and short of it), rows past the last end (run R - 1),
+    runs of no rows inside a tile that overflow its staged window (rows
+    past it searched in global memory), runs at the codec's short-run limit
+    (2.3 rows a run), a block one element past a 16-byte boundary, shards of
+    1, 7 and 4097 rows (shards that start off a boundary), and 4096 runs
+    over the full 2^23-row window."""
+    _need_cards(1)
+    from pixie_tpu_torch.ops import codec
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(180)
+    cases = []
+    for d, L in ((1, 1), (3, 7), (3, 4097), (2, 100_003)):
+        cases.append((np.full((d, 1), L, np.int32), L))
+        cases.append((np.full((d, 1), max(L // 3, 1), np.int32), L))
+    L = 100_003
+    past = np.sort(rng.choice(np.arange(1, L - 500), (2, 300)), axis=1)
+    cases.append((past, L))
+    inside = np.sort(np.concatenate([[5] * 5000, [9000] * 7000, [L] * 3,
+                                     rng.choice(np.arange(6, 9000), 100, replace=False),
+                                     rng.choice(np.arange(9001, L), 400, replace=False)]))
+    cases.append((inside[None], L))
+    short = np.concatenate([np.sort(rng.choice(np.arange(1, L), L // 2 - 2, replace=False)),
+                            [L, L]])
+    cases.append((short[None], L))
+    for d, L, R in ((3, 4097, 1500), (1, 1 << 23, 4096)):
+        e = np.sort(rng.choice(np.arange(1, L), (d, R - 1)), axis=1)
+        cases.append((np.concatenate([e, np.full((d, 1), L)], axis=1), L))
+    for ends, L in cases:
+        ends = torch.from_numpy(np.ascontiguousarray(ends).astype(np.int32))
+        d, R = ends.shape
+        values = _rle_values(rng, d, R, dtype)
+        want = codec.rle_decode_plain(values, ends, torch.empty((d, L), dtype=dtype))
+        got = kernels.codec_rle_decode(values.to(dev), ends.to(dev),
+                                       torch.empty((d, L), dtype=dtype, device=dev))
+        assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8)), (d, L, R)
+        if d * L < 1 << 21:  # the block one element past a 16-byte boundary
+            buf = torch.empty(d * L + 1, dtype=dtype, device=dev)
+            out = buf[1:].view(d, L)
+            kernels.codec_rle_decode(values.to(dev), ends.to(dev), out)
+            assert torch.equal(out.cpu().view(torch.uint8), want.view(torch.uint8)), (d, L, R)
+    probe = torch.zeros(kernels.RLE_PROBE, dtype=torch.int64, device=dev)
+    kernels.codec_rle_decode(values.to(dev), ends.to(dev),
+                             torch.empty((d, L), dtype=dtype, device=dev), probe=probe)
+    stamps = probe.cpu().tolist()
+    assert all(0 < x <= y for x, y in zip(stamps, stamps[1:])), stamps
 
 
 _F64_EDGES = np.array([
