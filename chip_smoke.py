@@ -33,7 +33,10 @@ the CUDA toolkit. In order it:
    block for H12 (with CTA 0's phases) and its index lane at config 8
    OUTER's unmatched rows as compact_unmatched_rows calls it (the call's
    time and device operations too), config 8's probe side for H13-H15, join8_oncall_agg's
-   block for H16, a block of the let table for H17's two programs: svc_let's
+   block for H16 as staged (uint8 keys and gids; with CTA 0's phases and the
+   call's device operations; and a uint16 key column with an offset, the warp
+   lane's 64 groups and K 2^20 over 2^16 groups, the same bits in two launches
+   up to 64 groups), a block of the let table for H17's two programs: svc_let's
    predicate program and an f64 program; a full 2^23-row stream window for
    the codec's decodes H18 (4096 runs, every block dtype; and the codec's
    worst admitted int64 shape, about 2.3 rows a run) and H19 (nibble,
@@ -1155,22 +1158,43 @@ def sketch_kernel_phases(dev) -> dict:
             regs, g4096 = got, g
     records["hll_update"]["sequence_ms"] = hll_sequence(kernels, hll, dev, mask)
 
-    # H10 on config 3's 4096 groups of those registers: the estimate within
-    # 1e-12 before rounding; rounded equal unless within that of a .5.
-    est, rounded = kernels.hll_estimate(regs, hll._alpha(m))
-    want_est = hll.estimate_plain(regs)
-    rel = ((est - want_est).abs() / want_est.abs().clamp_min(1e-300)).max().item()
-    half = ((want_est - torch.floor(want_est) - 0.5).abs() <= 1e-12 * want_est)
-    torch.cuda.synchronize()
-    check(rel <= 1e-12, f"H10 relative error {rel}")
-    check(bool(torch.all((rounded == torch.round(want_est).long()) | half)), "H10 rounding")
-    log(f"H10 hll_estimate G={G}: max rel err {rel:.3g}, rounded estimates equal")
+    # H10 on config 3's 4096 groups of those registers, on status_mix's 16
+    # groups, and with one register of group 0 outside [0, 33 - p] (its
+    # group takes the f64 terms): the estimate within 1e-12 before rounding,
+    # rounded equal unless within that of a .5; groups bit for bit counted.
+    top = 33 - hll.DEFAULT_PRECISION
+    odd = regs.clone()
+    odd[0, 7] = top + 3
+    rels = {}
+    for name, st in (("flows", regs), ("status_mix", regs[:N_SERVICES].contiguous()),
+                     ("out_of_range", odd)):
+        est, rounded = kernels.hll_estimate(st, hll._alpha(m))
+        want_est = hll.estimate_plain(st)
+        rel = ((est - want_est).abs() / want_est.abs().clamp_min(1e-300)).max().item()
+        half = ((want_est - torch.floor(want_est) - 0.5).abs() <= 1e-12 * want_est)
+        same = int((est.view(torch.int64) == want_est.view(torch.int64)).sum())
+        torch.cuda.synchronize()
+        rels[name] = rel
+        check(rel <= 1e-12, f"H10 {name}: relative error {rel}")
+        check(bool(torch.all((rounded == torch.round(want_est).long()) | half)),
+              f"H10 {name}: rounding")
+        log(f"H10 hll_estimate {name} state[{st.shape[0]},{m}]: max rel err {rel:.3g}, "
+            f"{same} of {st.shape[0]} estimates bit for bit, rounded estimates equal")
     records["hll_estimate"] = record(
         lambda: kernels.hll_estimate(regs, hll._alpha(m)),
         lambda: hll.estimate_plain(regs),
         None,
-        *bound(G * m * 4 + G * 16, 3 * G * m), rel, f"state[{G},{m}]",
+        *bound(G * m * 4 + G * 16, 3 * G * m), rels["flows"], f"state[{G},{m}]",
     )
+    records["hll_estimate"]["floor_ms"] = time_ms(
+        lambda: kernels.empty_launch(dev, *kernels.hll_estimate_geometry(G)))
+    small = regs[:N_SERVICES].contiguous()
+    records["hll_estimate"]["by_status_mix"] = {
+        "ms": time_ms(lambda: kernels.hll_estimate(small, hll._alpha(m))),
+        "floor_ms": time_ms(
+            lambda: kernels.empty_launch(dev, *kernels.hll_estimate_geometry(N_SERVICES))),
+        "bound_ms": bound(N_SERVICES * m * 4 + N_SERVICES * 16, 3 * N_SERVICES * m)[0],
+    }
 
     # H6, which hashes its words itself, cells and totals exact: config 5's
     # 16 groups x resp_status (64 keys); endpoint_load's block (34 endpoint
@@ -2094,20 +2118,25 @@ def join_kernel_phase(dev) -> dict:
     return records
 
 
-def join_agg_case(dev, seed: int, n: int, K: int, cap: int, jk, gids, mask, n_right, left, right):
+def join_agg_case(dev, seed: int, n: int, K: int, cap: int, jk, gids, mask, n_right, left, right,
+                  jk_offset: int = 0):
     """H16 against its plain version on the card: the count row and the
     effective mask exact, every sum within 1e-12 * sum |terms| of its cell
-    (H2's bound). Returns (kernel acc, max abs difference of the sums)."""
+    (H2's bound), and up to 64 groups the same bits in two launches.
+    ``jk`` and ``gids`` as the fold stages them (``jk`` plus ``jk_offset``
+    is the key). Returns (kernel acc, max abs difference of the sums)."""
     from pixie_tpu_torch.ops import kernels, segment
 
     rows = 1 + left.shape[0] + right.shape[0]
     got = torch.zeros((rows, cap), dtype=torch.float64, device=dev)
-    want, mag = torch.zeros_like(got), torch.zeros_like(got)
+    again, want, mag = torch.zeros_like(got), torch.zeros_like(got), torch.zeros_like(got)
     eff_got = torch.empty(n, dtype=torch.bool, device=dev)
     eff_want = torch.empty_like(eff_got)
-    kernels.join_agg_fold(jk, gids, mask, n_right, left, right, got, eff_got)
-    segment.join_agg_fold_plain(jk, gids, mask, n_right, left, right, want, eff_want)
-    segment.join_agg_fold_plain(jk, gids, mask, n_right, left.abs(), right.abs(), mag)
+    key = segment.Narrow(jk, jk_offset)
+    kernels.join_agg_fold(jk, gids, mask, n_right, left, right, got, eff_got, jk_offset=jk_offset)
+    kernels.join_agg_fold(jk, gids, mask, n_right, left, right, again, jk_offset=jk_offset)
+    segment.join_agg_fold_plain(key, gids, mask, n_right, left, right, want, eff_want)
+    segment.join_agg_fold_plain(key, gids, mask, n_right, left.abs(), right.abs(), mag)
     torch.cuda.synchronize()
     what = f"H16 seed {seed} (K {K}, cap {cap})"
     check(torch.equal(eff_got, eff_want), f"{what}: effective mask differs")
@@ -2115,29 +2144,49 @@ def join_agg_case(dev, seed: int, n: int, K: int, cap: int, jk, gids, mask, n_ri
     check(bool(torch.isfinite(got).all()), f"{what}: a non-finite sum")
     err = (got - want).abs()
     check(bool(torch.all(err <= 1e-12 * mag)), f"{what}: a sum outside 1e-12 * sum|terms|")
+    if cap <= kernels.H2_WARP_MAX_S:
+        check(torch.equal(got.view(torch.int64), again.view(torch.int64)),
+              f"{what}: two launches gave different bits")
     return got, float(err.max())
 
 
 def join_agg_kernel_phase(dev) -> dict:
-    """H16 against its plain version on the card at two shapes: (a)
-    join8_oncall_agg's block, 2^21 rows of join_fact keyed by service (K 16,
-    16 groups), the f64 latency weighted by the on-call rows of each service
-    (0-3) and one gathered right sum (the seats), which takes the shared-
-    memory path; (b) K 2^20 keys and 2^16 groups, weights 0-5 and a random
-    mask, which takes the global one. Masked and zero-weight rows carry
-    +-inf and NaN at (b). Timed at (a), with the index_select + index_add_
+    """H16 against its plain version on the card, ``jk`` and ``gids`` as the
+    fold stages them: (a) join8_oncall_agg's block, 2^21 rows of join_fact
+    keyed by service (K 16, 16 groups; keys and gids uint8), the f64
+    latency weighted by the on-call rows of each service (0-3) and one
+    gathered right sum (the seats), the private lane; (a2) the same rows
+    with the keys as a uint16 column offset by 1000 over K 300, and over 64
+    groups with two left sums (the warp lane); (b) K 2^20 keys (int32) and
+    2^16 groups (uint16), weights 0-5 and a random mask, the global lane.
+    Masked and zero-weight rows carry +-inf and NaN at (b). Timed at (a)
+    beside an empty kernel on its grid, with CTA 0's phases, the call's
+    device operations (the staged columns handed over against the widening,
+    casts and stack the fold ran before) and the index_select + index_add_
     sequence of the reference's formula as the library yardstick."""
     from pixie_tpu_torch.ops import kernels, segment
 
     n = BLOCK_ROWS
     rng = np.random.default_rng(46)
-    svc = rng.integers(0, N_SERVICES, n).astype(np.int32)
+    svc = rng.integers(0, N_SERVICES, n)
     seats = np.array([sum(1 + (i + j) % 5 for j in range(i % 4)) for i in range(N_SERVICES)])
     a = [torch.from_numpy(x).to(dev) for x in (
-        svc, svc, np.ones(n, dtype=bool), np.arange(N_SERVICES) % 4.0,
-        rng.exponential(3e7, (1, n)), seats[None, :].astype(np.float64),
+        svc.astype(np.uint8), svc.astype(np.uint8), np.ones(n, dtype=bool),
+        np.arange(N_SERVICES) % 4.0, rng.exponential(3e7, (1, n)),
+        seats[None, :].astype(np.float64),
     )]
     _, err_a = join_agg_case(dev, 46, n, N_SERVICES, N_SERVICES, *a)
+    K2 = 300
+    keys2 = rng.integers(0, K2, n)
+    a2 = [torch.from_numpy(x).to(dev) for x in (
+        (keys2 + 1000).astype(np.uint16), svc.astype(np.uint8), rng.random(n) < 0.9,
+        rng.integers(0, 4, K2).astype(np.float64), rng.exponential(3e7, (1, n)),
+        rng.exponential(3e7, (1, K2)),
+    )]
+    _, err_a2 = join_agg_case(dev, 48, n, K2, N_SERVICES, *a2, jk_offset=-1000)
+    a3 = [a2[0], torch.from_numpy(rng.integers(0, 64, n).astype(np.uint8)).to(dev), a2[2],
+          a2[3], torch.from_numpy(rng.exponential(3e7, (2, n))).to(dev), a2[5]]
+    _, err_a3 = join_agg_case(dev, 49, n, K2, 64, *a3, jk_offset=-1000)
     K, cap = 1 << 20, 1 << 16
     jk = rng.integers(0, K, n).astype(np.int32)
     mask = rng.random(n) < 0.8
@@ -2146,42 +2195,75 @@ def join_agg_kernel_phase(dev) -> dict:
     dead = ~mask | (n_right[jk] == 0)
     left[0, dead] = rng.choice([np.inf, -np.inf, np.nan], int(dead.sum()))
     b = [torch.from_numpy(x).to(dev) for x in (
-        jk, rng.integers(0, cap, n).astype(np.int32), mask, n_right, left,
+        jk, rng.integers(0, cap, n).astype(np.uint16), mask, n_right, left,
         rng.exponential(3e7, (1, K)),
     )]
     _, err_b = join_agg_case(dev, 47, n, K, cap, *b)
-    log(f"H16 join_agg_fold: (a) K {N_SERVICES} cap {N_SERVICES} S_l 1 S_r 1 and (b) K {K} "
-        f"cap {cap}, {n} rows each: count rows and effective masks exact, sums within 1e-12 * "
-        f"sum|terms| (max abs diff {err_a:.3g}, {err_b:.3g})")
+    log(f"H16 join_agg_fold: (a) K {N_SERVICES} cap {N_SERVICES} S_l 1 S_r 1 (uint8 keys and "
+        f"gids), (a2) uint16 keys offset by 1000 over K {K2}, over 64 groups with S_l 2, and "
+        f"(b) K {K} cap {cap}, {n} rows each: count rows and effective masks exact, sums "
+        f"within 1e-12 * sum|terms| (max abs diff {err_a:.3g}, {err_a2:.3g}, {err_a3:.3g}, "
+        f"{err_b:.3g}), the same bits in two launches up to 64 groups")
 
     def timed_case(ins, cap_):
         jk_, gids_, mask_, nr_, left_, right_ = ins
         acc = torch.zeros((1 + left_.shape[0] + right_.shape[0], cap_), dtype=torch.float64,
                           device=dev)
         eff = torch.empty(n, dtype=torch.bool, device=dev)
+        jk64, g64 = jk_.long(), gids_.long()
 
         def library():
-            w = torch.index_select(nr_, 0, jk_)
+            w = torch.index_select(nr_, 0, jk64)
             wm = torch.where(mask_ & (w > 0), w, 0.0)
-            acc[0].index_add_(0, gids_, wm)
-            acc[1].index_add_(0, gids_, left_[0] * wm)
-            acc[2].index_add_(0, gids_, torch.where(wm > 0, torch.index_select(right_[0], 0, jk_), 0.0))
+            acc[0].index_add_(0, g64, wm)
+            acc[1].index_add_(0, g64, left_[0] * wm)
+            acc[2].index_add_(0, g64, torch.where(wm > 0, torch.index_select(right_[0], 0, jk64),
+                                                  0.0))
 
         K_ = nr_.shape[0]
-        nbytes = n * (4 + 4 + 1 + 8 * left_.shape[0] + 1) + 8 * K_ * (1 + right_.shape[0]) + 16 * acc.numel()
+        # the staged keys and gids, the mask and the left rows read once, the
+        # effective mask written once, the statistics read once, the sums
+        # read and written once
+        nbytes = n * (jk_.element_size() + gids_.element_size() + 1 + 8 * left_.shape[0] + 1) \
+            + 8 * K_ * (1 + right_.shape[0]) + 16 * acc.numel()
         ops = n * (1 + 2 * left_.shape[0] + right_.shape[0])
-        return record(
+        rec = record(
             lambda: kernels.join_agg_fold(jk_, gids_, mask_, nr_, left_, right_, acc, eff),
             lambda: segment.join_agg_fold_plain(jk_, gids_, mask_, nr_, left_, right_, acc, eff),
             library, *bound(nbytes, ops), 0.0, "",
         )
+        geo = kernels.join_agg_fold_geometry(dev, n, acc.shape[0], cap_, K_, right_.shape[0])
+        rec["floor_ms"] = time_ms(lambda: kernels.empty_launch(dev, *geo[:3]))
+        rec["lane"] = geo[3]
+        return rec, acc, eff
 
-    rec = timed_case(a, N_SERVICES)
-    rec.update(max_abs_err=err_a, shape=f"rows[{n}] K {N_SERVICES} cap {N_SERVICES} S_l 1 S_r 1")
-    rec_b = timed_case(b, cap)
-    log(f"H16 at (b) K {K} cap {cap}: ms {rec_b['ms']} plain_ms {rec_b['plain_ms']} library_ms "
-        f"(index_select + index_add_) {rec_b['library_ms']} bound_ms {rec_b['bound_ms']} "
-        f"({rec_b['bound_by']})")
+    rec, acc, eff = timed_case(a, N_SERVICES)
+    rec.update(max_abs_err=err_a, shape=f"rows[{n}] K {N_SERVICES} cap {N_SERVICES} S_l 1 S_r 1, "
+               f"keys and gids uint8 ({rec['lane']} lane)")
+    probe = torch.zeros(kernels.JOIN_AGG_PROBE, dtype=torch.int64, device=dev)
+    kernels.join_agg_fold(*a[:6], acc, eff, probe=probe)
+    rec["block_cta0_phases_us"] = probe_phases_us(probe, ("load", "fold", "combine"), 0,
+                                                  kernels.sm_clock_khz(dev))
+    jk8, g8, mask8, nr8, left8, right8 = a
+    rows8 = list(left8)
+
+    def widening_call():  # the fold's steps of a block before H16 read rows as staged
+        j = (jk8.to(torch.int64) + 0).to(torch.int32)
+        kernels.join_agg_fold(j, g8.to(torch.int32), mask8, nr8, torch.stack(rows8), right8,
+                              acc, eff)
+
+    rec["block_ops_before"] = device_ops(widening_call)
+    rec["block_ops_after"] = device_ops(lambda: segment.join_agg_fold(
+        segment.Narrow(jk8, 0), g8, mask8, nr8, rows8, right8, acc, eff))
+    check(rec["block_ops_after"] == {"kernels": 1, "memsets_copies": 0},
+          f"H16's call is not one device operation: {rec['block_ops_after']}")
+    rec_b, _, _ = timed_case(b, cap)
+    rec["by_case_b"] = {k: rec_b[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by", "floor_ms", "lane")}
+    log(f"H16 at (a): {rec['ms']:.5f} ms (floor {rec['floor_ms']:.5f}, {rec['lane']} lane) "
+        f"[bound {rec['bound_ms']:.5f}]; CTA 0's phases {rec['block_cta0_phases_us']} us; the "
+        f"call's device operations {rec['block_ops_after']} (widening first: "
+        f"{rec['block_ops_before']}); at (b) K {K} cap {cap}: {json.dumps(rec['by_case_b'])}")
     return {"join_agg_fold": rec}
 
 
@@ -4204,9 +4286,11 @@ def shared_scan_path(carnot, data: dict, profile: bool) -> dict:
         w0, z0 = width.merged_counts(), size.merged_counts()
         kernels.reset_launches()
         segment.reduce_lanes(reset=True)
+        take_shapes()
         results, lat, wall = run_clients()
         launches = dict(kernels.LAUNCHES)
         lanes = segment.reduce_lanes(reset=True)
+        shapes = take_shapes()
         delta = {k: c.value() - before[k] for k, c in counters.items()}
         widths = [a - b for a, b in zip(width.merged_counts(), w0)]
         sizes = [a - b for a, b in zip(size.merged_counts(), z0)]
@@ -4238,7 +4322,7 @@ def shared_scan_path(carnot, data: dict, profile: bool) -> dict:
         launches=launches, lanes=lanes, wall=wall, qps=n_req / wall,
         serial_qps=n_req / serial_s, p50=float(np.percentile(lat, 50)),
         p99=float(np.percentile(lat, 99)), dispatches=delta["dispatches"], requests=n_req,
-        widths=widths, sizes=sizes, counters=delta, serial_warm=warm,
+        widths=widths, sizes=sizes, counters=delta, serial_warm=warm, shapes=shapes,
     )
     log(f"shared_scan: {n_req} requests from {SOAK_CLIENTS} clients in {wall:.4f} s = "
         f"{out['qps']:.2f} queries/s (serial baselines' summed warm time {serial_s:.4f} s = "
@@ -5632,18 +5716,20 @@ def mesh_cards_paths(n: int, paths: dict, phase_s: dict) -> dict:
     return out
 
 
-# With --log-shapes: the shape of every H12 and H18 launch a path makes,
-# entries whose device values (selected rows, runs used) are read when the
-# path ends, so recording adds no sync inside a query.
+# With --log-shapes: the shape of every H10, H12, H16 and H18 launch a path
+# makes, entries whose device values (selected rows, runs used) are read when
+# the path ends, so recording adds no sync inside a query.
 SHAPES: Optional[list] = None
 
 
 def log_launch_shapes(kernels) -> None:
-    """Wraps H12's and H18's wrappers in ``kernels`` so that each call adds
-    its shape to SHAPES: for H12 n, the selected rows, ``written`` before
-    the launch, the limit (or cap) and the columns' widths (the index lane:
-    none); for H18 d, L, R, the block dtype and the runs each shard uses
-    (the ends below L, plus one)."""
+    """Wraps H10's, H12's, H16's and H18's wrappers in ``kernels`` so that
+    each call adds its shape to SHAPES: for H10 S and m; for H12 n, the
+    selected rows, ``written`` before the launch, the limit (or cap) and the
+    columns' widths (the index lane: none); for H16 n, K, cap, S_l, S_r, the
+    dtypes ``jk`` and ``gids`` reach the kernel in, ``jk``'s offset and
+    whether the effective mask is asked for; for H18 d, L, R, the block
+    dtype and the runs each shard uses (the ends below L, plus one)."""
     global SHAPES
     SHAPES = []
 
@@ -5672,6 +5758,19 @@ def log_launch_shapes(kernels) -> None:
                 "dtype": str(out.dtype).split(".")[1],
                 "runs": torch.clamp_max((ends < L).sum(dim=1) + 1, values.shape[1])}
 
+    def h10(state, *rest, **kw):
+        return {"kernel": "hll_estimate", "S": state.shape[0], "m": state.shape[1]}
+
+    def h16(jk, gids, mask, n_right, left_vals, right_sums, acc, eff_mask=None,
+            jk_offset=0, **kw):
+        return {"kernel": "join_agg_fold", "n": jk.shape[0], "K": n_right.shape[0],
+                "cap": acc.shape[1], "S_l": len(left_vals), "S_r": right_sums.shape[0],
+                "jk": str(jk.dtype).split(".")[1], "jk_offset": int(jk_offset),
+                "gids": str(gids.dtype).split(".")[1], "mask": mask is not None,
+                "eff_mask": eff_mask is not None}
+
+    wrap("hll_estimate", h10)
+    wrap("join_agg_fold", h16)
     wrap("scan_compact", h12)
     if hasattr(kernels, "scan_compact_indices"):
         wrap("scan_compact_indices", h12_index)
@@ -5989,8 +6088,8 @@ def main() -> int:
     ap.add_argument("--ab-reps", type=int, default=15,
                     help="with --ab-paths: warm queries a turn of a warm path")
     ap.add_argument("--log-shapes", default="",
-                    help="also record the shape of every H12 and H18 launch of each main "
-                         "path and write them to this JSON file")
+                    help="also record the shape of every H10, H12, H16 and H18 launch of "
+                         "each main path and write them to this JSON file")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6347,10 +6446,11 @@ def main() -> int:
             f"{ {k: v for k, v in p['launches'].items() if v} }; per query: "
             f"{ {k: v / n_queries for k, v in p['launches'].items() if v} }")
     if args.log_shapes:
-        shapes = {name: p["shapes"] for name, p in paths.items() if p.get("shapes")}
+        shapes = {name: p["shapes"] for name, p in {**paths, "shared_scan": shared}.items()
+                  if p.get("shapes")}
         with open(args.log_shapes, "w") as f:
             json.dump(shapes, f, indent=1)
-        log(f"H12 and H18 launch shapes by path: {json.dumps(shapes)}")
+        log(f"H10, H12, H16 and H18 launch shapes by path: {json.dumps(shapes)}")
     launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
                 + ring_launches[k] for k in kernels.KERNELS}
     for name, count in launches.items():

@@ -121,10 +121,14 @@ def _alpha(m: int) -> float:
 
 def estimate_plain(state: torch.Tensor) -> torch.Tensor:
     """Plain version of H10: float64 [num_groups] estimates with the
-    linear-counting (small range) and 2^32 (large range) corrections."""
+    linear-counting (small range) and 2^32 (large range) corrections. The
+    raw estimate is alpha m^2 over the sum in one IEEE division, as the
+    reference's and H10's (a Python float over a tensor would be torch's
+    reciprocal times the float, an ulp off that quotient)."""
     _, m = state.shape
     regs = state.to(torch.float64)
-    raw = _alpha(m) * m * m / torch.sum(torch.pow(2.0, -regs), dim=1)
+    sums = torch.sum(torch.pow(2.0, -regs), dim=1)
+    raw = torch.full_like(sums, _alpha(m) * m * m) / sums
     zeros = torch.sum(state == 0, dim=1).to(torch.float64)
     linear = m * torch.log(torch.clamp_min(m / torch.clamp_min(zeros, 1e-9), 1.0))
     use_linear = (raw <= 2.5 * m) & (zeros > 0)

@@ -141,7 +141,8 @@ _SIGNATURES = {
     "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "px_tdigest_merge_geometry": (_I, _I, _P),
     "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
-    "px_hll_estimate": (_P, _I, _I, ctypes.c_double, _P, _P, _P),
+    "px_hll_estimate": (_P, _I, _I, _I, ctypes.c_double, _P, _P, _P),
+    "px_hll_estimate_geometry": (_I, _P),
     "px_segment_minmax": (_P, _I, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
     "px_scan_compact": (_P, _LL, _P, _P, _P, _I, _P, _I, _P, _I, _I, _LL, _P, ctypes.c_uint, _P,
                         _P),
@@ -150,7 +151,9 @@ _SIGNATURES = {
     "px_join_emit_pairs": (_P, _P, _P, _LL, _P, _I, _LL, _P, _P, _P),
     "px_join_emit_pairs_geometry": (_LL, _I, _LL, _P),
     "px_join_gather": (_P, _LL, _I, _I, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _P, _P),
-    "px_join_agg_fold": (_P, _P, _P, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P),
+    "px_join_agg_fold": (_P, _I, _LL, _P, _I, _P, _LL, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
+                         _P, _I, _I, _I, _P, _P, _P, _P),
+    "px_join_agg_fold_geometry": (_I, _I, _I, _I, _I, _I, _P),
     "px_scalar_eval": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _LL,
                        _P),
     "px_codec_rle_decode": (_P, _P, _I, _I, _LL, _I, _P, _P, _P),
@@ -1062,7 +1065,10 @@ def tdigest_quantiles(
 
 
 def hll_estimate(state: torch.Tensor, alpha: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """H10: (f64 [S] estimates, int64 [S] estimates rounded half to even)."""
+    """H10: (f64 [S] estimates, int64 [S] estimates rounded half to even).
+    A warp a group sums 2^(33 - p - r) in integers (p = floor(log2 m)),
+    exact for registers in [0, 33 - p], which is every register an update
+    keeps; a group with another register sums 2^-r in f64."""
     device = state.device
     _require(state, "state", torch.int32, device, 2)
     S, m = state.shape
@@ -1070,11 +1076,22 @@ def hll_estimate(state: torch.Tensor, alpha: float) -> tuple[torch.Tensor, torch
     rounded = torch.empty(S, dtype=torch.int64, device=device)
     if S == 0:
         return est, rounded
+    if S >= 2**31 or m >= 2**31:
+        raise ValueError(f"hll_estimate: S and m must fit int32, got {S} x {m}")
     _launch(
         "hll_estimate", device,
-        state.data_ptr(), S, m, alpha * m * m, est.data_ptr(), rounded.data_ptr(),
+        state.data_ptr(), S, m, m.bit_length() - 1, alpha * m * m, est.data_ptr(),
+        rounded.data_ptr(),
     )
     return est, rounded
+
+
+def hll_estimate_geometry(S: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes) of H10's launch over S
+    groups, as its launcher computes them."""
+    out = (ctypes.c_int * 3)()
+    _check(library().px_hll_estimate_geometry(S, out), "hll_estimate geometry")
+    return tuple(out)
 
 
 # ---------------------------------------------------------------- min/max
@@ -1423,53 +1440,136 @@ def join_gather(
 
 
 # ---------------------------------------------------------------- join-aggregate
+JOIN_AGG_MAX_ROWS = 32  # kJaMaxRows of join_agg_kernels.cu: output rows a launch
+JOIN_AGG_PROBE = 4  # probe words: CTA 0's clocks at the start, after the load, fold, combine
+# The staged kinds H16 reads its keys and gids in.
+JOIN_AGG_KINDS = {torch.uint8: ROW_U8, torch.uint16: ROW_U16, torch.int32: ROW_I32}
+_JOIN_AGG_LANES = ("private", "warps", "shared", "global")
+
+
+def join_agg_parts(R: int, cap: int, n: int, sms: int, optin: int) -> list:
+    """H16's launches for R output rows over cap groups and n rows: (first
+    row, rows, lane, CTAs) each, over a grid-stride loop of 8 rows a
+    thread. Up to H2_WARP_MAX_S groups H2's lanes and rows a launch
+    (``h2_parts``: private cells or warp shuffles, at most H2_WARP_ROWS rows
+    a launch, deterministic), one CTA an SM: 512 threads (256 in the private
+    lane above 48 cells). Above, up to JOIN_AGG_MAX_ROWS rows a launch in
+    the shared lane while their [rows, cap] partial fits a CTA's ``optin``
+    bytes, else the global one (two and eight CTAs of 512 an SM)."""
+    chunks = -(-n // 8)
+    parts = []
+    if 1 <= cap <= H2_WARP_MAX_S:
+        for lo, r, lane, _ in h2_parts(R, cap, n, sms, optin):
+            threads = 256 if lane == "private" and r * h2_bucket(cap) > 48 else 512
+            parts.append((lo, r, lane, max(1, min(-(-chunks // threads), sms))))
+        return parts
+    for lo in range(0, R, JOIN_AGG_MAX_ROWS):
+        r = min(JOIN_AGG_MAX_ROWS, R - lo)
+        lane, ctas = ("shared", 2) if r * cap * 8 <= optin else ("global", 8)
+        parts.append((lo, r, lane, max(1, min(-(-chunks // 512), sms * ctas))))
+    return parts
+
+
+def join_agg_fold_geometry(device: torch.device, n: int, R: int, cap: int, K: int,
+                           S_r: int) -> tuple[int, int, int, str]:
+    """(CTAs, threads a CTA, dynamic shared bytes, lane) of H16's first
+    launch over n rows for R output rows of cap groups, K keys and S_r
+    right sums on ``device``, as its launcher computes them."""
+    optin = smem_optin_bytes(device)
+    _, r, lane, grid = join_agg_parts(R, cap, n, sm_count(device), optin)[0]
+    out = (ctypes.c_int * 2)()
+    status = library().px_join_agg_fold_geometry(
+        _JOIN_AGG_LANES.index(lane), r, cap, K, S_r, optin, out)
+    _check(status, "join_agg_fold geometry")
+    return grid, out[0], out[1], lane
+
+
 def join_agg_fold(
     jk: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    n_right: torch.Tensor, left_vals: torch.Tensor, right_sums: torch.Tensor,
-    acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None,
+    n_right: torch.Tensor, left_vals, right_sums: torch.Tensor,
+    acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None, jk_offset: int = 0,
+    probe: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """H16: for every row r with ``mask[r]`` and w = n_right[jk[r]] > 0, adds
-    w to acc[0, g], left_vals[i, r] * w to acc[1 + i, g] and
-    right_sums[j, jk[r]] to acc[1 + S_l + j, g] (g = gids[r] in [0, cap)),
-    IN PLACE on ``acc`` (f64 [1 + S_l + S_r, cap]), and returns it; writes
-    mask[r] && w > 0 to ``eff_mask`` (bool [n]) when given. ``jk``, ``gids``
-    int32 [n]; ``n_right`` f64 [K]; ``left_vals`` f64 [S_l, n];
-    ``right_sums`` f64 [S_r, K]."""
+    """H16: for every row r with ``mask[r]`` and w = n_right[k] > 0 (k =
+    jk[r] + ``jk_offset``; a key outside [0, K) weighs 0), adds w to acc[0,
+    g], left_vals[i][r] * w to acc[1 + i, g] and right_sums[j, k] to acc[1 +
+    S_l + j, g] (g = gids[r] in [0, cap)), IN PLACE on ``acc`` (f64 [1 +
+    S_l + S_r, cap]), and returns it; writes mask[r] && w > 0 to
+    ``eff_mask`` (bool [n]) when given. ``jk`` and ``gids`` uint8, uint16
+    or int32 [n], read as staged; ``left_vals`` S_l f64 [n] columns (or an
+    f64 [S_l, n] tensor); ``n_right`` f64 [K]; ``right_sums`` f64 [S_r, K].
+    The lanes of ``join_agg_parts``,
+    one launch count per launch; up to 64 groups the sums are the same bits
+    on every run. ``probe``: int64 [JOIN_AGG_PROBE] on the device, CTA 0's
+    clock64 phases of the first launch."""
     device = jk.device
-    n = _int32_1d(jk, "jk", device)
-    mask = _gids_mask(gids, mask, n, device)
+    for name, t in (("jk", jk), ("gids", gids)):
+        if t.dtype not in JOIN_AGG_KINDS:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected one of {list(JOIN_AGG_KINDS)}")
+    _require(jk, "jk", jk.dtype, device, 1)
+    n = jk.shape[0]
+    _require(gids, "gids", gids.dtype, device, 1)
+    if gids.shape[0] != n:
+        raise ValueError(f"gids has {gids.shape[0]} rows, expected {n}")
+    if mask is not None:
+        _require(mask, "mask", torch.bool, device, 1)
+        if mask.shape[0] != n:
+            raise ValueError(f"mask has {mask.shape[0]} rows, expected {n}")
+    lefts = list(left_vals)
+    for i, col in enumerate(lefts):
+        _require(col, f"left_vals[{i}]", torch.float64, device, 1)
+        if col.shape[0] != n:
+            raise ValueError(f"left_vals[{i}] has {col.shape[0]} rows, expected {n}")
     _require(n_right, "n_right", torch.float64, device, 1)
-    _require(left_vals, "left_vals", torch.float64, device, 2)
     _require(right_sums, "right_sums", torch.float64, device, 2)
     _require(acc, "acc", torch.float64, device, 2)
     K = n_right.shape[0]
-    S_l, S_r = left_vals.shape[0], right_sums.shape[0]
-    cap = acc.shape[1]
-    if left_vals.shape[1] != n or right_sums.shape[1] != K or acc.shape[0] != 1 + S_l + S_r:
+    S_l, S_r = len(lefts), right_sums.shape[0]
+    R, cap = 1 + S_l + S_r, acc.shape[1]
+    if right_sums.shape[1] != K or acc.shape[0] != R:
         raise ValueError(
-            f"join_agg_fold: left_vals must be [S_l, {n}], right_sums [S_r, {K}] and acc "
-            f"[1 + S_l + S_r, cap]; got {tuple(left_vals.shape)}, {tuple(right_sums.shape)}, "
-            f"{tuple(acc.shape)}"
+            f"join_agg_fold: right_sums must be [S_r, {K}] and acc [1 + S_l + S_r, cap]; got "
+            f"{tuple(right_sums.shape)}, {tuple(acc.shape)} with S_l {S_l}"
         )
     if eff_mask is not None:
         _require(eff_mask, "eff_mask", torch.bool, device, 1)
         if eff_mask.shape[0] != n:
             raise ValueError(f"eff_mask has {eff_mask.shape[0]} rows, expected {n}")
+    if probe is not None:
+        _require(probe, "probe", torch.int64, device, 1)
+        if probe.shape[0] < JOIN_AGG_PROBE:
+            raise ValueError(f"probe needs {JOIN_AGG_PROBE} words")
     if K >= 2**31 or cap >= 2**31:
         raise ValueError("join_agg_fold: K and cap must fit int32")
     if n == 0:
         return acc
     optin = smem_optin_bytes(device)
-    acc_bytes = (1 + S_l + S_r) * cap * 8
-    shared_acc = acc_bytes <= optin
-    shared_stats = (1 + S_r) * K * 8 + (acc_bytes if shared_acc else 0) <= optin
-    _launch(
-        "join_agg_fold", device,
-        jk.data_ptr(), gids.data_ptr(), mask.data_ptr() if mask is not None else None, n,
-        n_right.data_ptr(), K, left_vals.data_ptr(), S_l, right_sums.data_ptr(), S_r,
-        acc.data_ptr(), cap, eff_mask.data_ptr() if eff_mask is not None else None,
-        int(shared_acc), int(shared_stats),
-    )
+    parts = join_agg_parts(R, cap, n, sm_count(device), optin)
+    scratch = ticket = None
+    if parts[0][2] in ("private", "warps"):  # each CTA's partial, then the last CTA adds them
+        scratch = torch.empty(max(grid * r for _, r, _, grid in parts) * cap,
+                              dtype=torch.float64, device=device)
+        ticket = _h2_ticket(device)
+    # Output row q: the count (kind 0), left sum q - 1 (1), right sum q - 1 - S_l (2).
+    kinds = [0] + [1] * S_l + [2] * S_r
+    cols = [None] + [c.data_ptr() for c in lefts] + [None] * S_r
+    rights = [0] * (1 + S_l) + list(range(S_r))
+    for lo, r, lane, grid in parts:
+        _launch(
+            "join_agg_fold", device,
+            jk.data_ptr(), JOIN_AGG_KINDS[jk.dtype], _i64(jk_offset), gids.data_ptr(),
+            JOIN_AGG_KINDS[gids.dtype], mask.data_ptr() if mask is not None else None, n,
+            n_right.data_ptr(), K, right_sums.data_ptr(), S_r,
+            ctypes.cast((ctypes.c_int * r)(*kinds[lo:lo + r]), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_void_p * r)(*cols[lo:lo + r]), ctypes.c_void_p),
+            ctypes.cast((ctypes.c_int * r)(*rights[lo:lo + r]), ctypes.c_void_p),
+            r, acc.data_ptr() + lo * cap * 8, cap,
+            eff_mask.data_ptr() if eff_mask is not None and lo == 0 else None,
+            _JOIN_AGG_LANES.index(lane), grid, optin,
+            scratch.data_ptr() if scratch is not None else None,
+            ticket.data_ptr() if ticket is not None else None,
+            probe.data_ptr() if probe is not None and lo == 0 else None,
+        )
     return acc
 
 

@@ -53,11 +53,14 @@
 // key (not 2C compares), one scan, the cluster of each midpoint and one
 // segmented scan, about 2 barriers a step; at the main path's 16 groups
 // it is bound by its latency (16 CTAs, a launch, dependent shared-memory
-// steps), not by its bytes. H9 and H10 are one CTA (or thread) per group and
-// latency-bound at the main path's 16 groups. H30 is a gather: one thread a
-// query hashes its word once and reads its group's depth cells, so it moves
-// 12 bytes in and 8 out a query plus the cells it touches; at config 10's
-// 64 x 4 x 8192 state (16 MB) the cells stay in L2.
+// steps), not by its bytes. H9 is a thread a (group, quantile), latency-bound
+// at the main path's 16 groups. H10 is a warp a group with the sum in
+// integers (no shared memory, no barrier): at flows' 4096 groups of 2048
+// registers its 32 MB read sets its time; at 16 to 64 groups, its launch.
+// H30 is a gather: one thread a query hashes its word once and reads its
+// group's depth cells, so it moves 12 bytes in and 8 out a query plus the
+// cells it touches; at config 10's 64 x 4 x 8192 state (16 MB) the cells
+// stay in L2.
 //
 // Float arithmetic. The t-digest's f32 steps (rank + 0.5, the division by
 // the count, 2q - 1, the division by pi, + 0.5, * capacity, and those of
@@ -887,45 +890,103 @@ __global__ void tdigest_quantiles_kernel(const float* __restrict__ means,
 }
 
 // ---------------------------------------------------------------- H10
-constexpr int kEstThreads = 256;
+constexpr int kEstWarps = 8;  // groups a CTA: a warp a group
 
-// One CTA per group: the f64 sum of 2^-reg and the zero count, then the
-// linear-counting and 2^32 large-range corrections of hll.py estimate, and
-// the estimate rounded half to even (jnp.round) as int64.
-__global__ void hll_estimate_kernel(const int* __restrict__ state, int m, double alpha_m2,
-                                    double* __restrict__ est, long long* __restrict__ rounded) {
-  __shared__ double sh_sum[kEstThreads];
-  __shared__ int sh_zeros[kEstThreads];
-  const int* regs = state + (long long)blockIdx.x * m;
-  double s = 0.0;
-  int zeros = 0;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int r = regs[j];
-    s += ldexp(1.0, -r);
-    zeros += r == 0;
-  }
-  sh_sum[threadIdx.x] = s;
-  sh_zeros[threadIdx.x] = zeros;
-  __syncthreads();
-  for (int off = kEstThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) {
-      sh_sum[threadIdx.x] += sh_sum[threadIdx.x + off];
-      sh_zeros[threadIdx.x] += sh_zeros[threadIdx.x + off];
+// A register's term of the estimate's sum, 2^-r, as an integer multiple of
+// 2^-top (top = 33 - p, the largest register H5, H20 and the reference's
+// _reg_rho keep): 2^(top - r). A group's sum of such terms is at most
+// m * 2^top < 2^34, so the integer sum is exact and, scaled by 2^-top, it
+// is the f64 sum of 2^-r in any order bit for bit.
+__device__ __forceinline__ void est_term(int r, int top, unsigned long long& isum,
+                                         unsigned int& zeros, bool& odd) {
+  const bool ok = (unsigned int)r <= (unsigned int)top;
+  isum += ok ? 1ull << (top - r) : 0ull;
+  zeros += r == 0;
+  odd |= !ok;
+}
+
+// A warp a group, eight groups a CTA of 256, no shared memory and no
+// barrier: each lane reads its registers as 16-byte vectors (16 a lane at
+// m = 2048, all issued before they are added), adds 2^(top - r) into a
+// uint64 and counts the zeros, and five shuffle rounds add the lanes. A
+// group holding a register outside [0, top] (no path makes one) adds
+// ldexp(1, -r) in f64 instead, in a fixed order, in the same warp (its
+// registers read again, from the L1). Lane 0
+// then applies hll.py estimate's linear-counting and 2^32 large-range
+// corrections in f64 and rounds half to even (jnp.round) as int64.
+__global__ void __launch_bounds__(kEstWarps * 32)
+    hll_estimate_kernel(const int* __restrict__ state, int S, int m, int top, int vec,
+                        double alpha_m2, double* __restrict__ est,
+                        long long* __restrict__ rounded) {
+  constexpr unsigned int kAll = 0xFFFFFFFFu;
+  constexpr int kBatch = 16;  // 16-byte loads in flight a lane: m = 2048 in one round
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * kEstWarps + (threadIdx.x >> 5);
+  if (g >= S) return;  // a whole warp
+  const int* regs = state + g * m;
+  unsigned long long isum = 0ull;
+  unsigned int zeros = 0u;
+  bool odd = false;
+  if (vec) {
+    const int4* q = reinterpret_cast<const int4*>(regs);
+    const int nq = m >> 2;
+    for (int c0 = 0; c0 < nq; c0 += 32 * kBatch) {
+      int4 v[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int c = c0 + b * 32 + lane;
+        v[b] = c < nq ? __ldcs(q + c) : make_int4(-1, -1, -1, -1);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (c0 + b * 32 + lane < nq) {
+          est_term(v[b].x, top, isum, zeros, odd);
+          est_term(v[b].y, top, isum, zeros, odd);
+          est_term(v[b].z, top, isum, zeros, odd);
+          est_term(v[b].w, top, isum, zeros, odd);
+        }
+      }
     }
-    __syncthreads();
+  } else {
+    for (int j = lane; j < m; j += 32) est_term(regs[j], top, isum, zeros, odd);
   }
-  if (threadIdx.x == 0) {
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    isum += __shfl_xor_sync(kAll, isum, w);
+    zeros += __shfl_xor_sync(kAll, zeros, w);
+  }
+  double s = ldexp((double)isum, -top);
+  if (__any_sync(kAll, odd)) {
+    // 2^-r as torch.pow(2.0, -r) gives it (inf below r = -1100, 0 above
+    // 1100), added in f64 in a fixed order: each lane its 16-byte chunks
+    // lane, lane + 32, ... (registers in order), then the shuffle rounds.
+    s = 0.0;
+    if (vec) {
+      const int4* q = reinterpret_cast<const int4*>(regs);
+      for (int c = lane; c < (m >> 2); c += 32) {
+        const int4 v = q[c];
+        const int r4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s += ldexp(1.0, -max(min(r4[e], 1100), -1100));
+      }
+    } else {
+      for (int j = lane; j < m; j += 32) s += ldexp(1.0, -max(min(regs[j], 1100), -1100));
+    }
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) s += __shfl_xor_sync(kAll, s, w);
+  }
+  if (lane == 0) {
     const double md = (double)m;
-    const double raw = alpha_m2 / sh_sum[0];
-    const double z = (double)sh_zeros[0];
+    const double raw = alpha_m2 / s;
+    const double z = (double)zeros;
     const double linear = md * log(fmax(md / fmax(z, 1e-9), 1.0));
     const bool use_linear = raw <= 2.5 * md && z > 0.0;
     const double two32 = 4294967296.0;
     const double large = -two32 * log(fmax(1.0 - fmin(raw, two32 * 0.9999) / two32, 1e-12));
     const double corrected = raw > two32 / 30.0 ? large : raw;
     const double e = use_linear ? linear : corrected;
-    est[blockIdx.x] = e;
-    rounded[blockIdx.x] = llrint(e);
+    est[g] = e;
+    rounded[g] = llrint(e);
   }
 }
 
@@ -1133,13 +1194,25 @@ int px_tdigest_quantiles(const void* means, const void* weights, int G, int C, c
   return (int)cudaGetLastError();
 }
 
-// est: f64 [S]; rounded: int64 [S].
-int px_hll_estimate(const void* state, int S, int m, double alpha_m2, void* est, void* rounded,
-                    void* stream) {
+// state: int32 [S, m]; est: f64 [S]; rounded: int64 [S]. p = floor(log2 m):
+// registers in [0, 33 - p] take the integer sum.
+int px_hll_estimate(const void* state, int S, int m, int p, double alpha_m2, void* est,
+                    void* rounded, void* stream) {
   if (S <= 0) return 0;
-  hll_estimate_kernel<<<S, kEstThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)state, m, alpha_m2, (double*)est, (long long*)rounded);
+  const int vec = m % 4 == 0 && (uintptr_t)state % 16 == 0;
+  hll_estimate_kernel<<<(S + kEstWarps - 1) / kEstWarps, kEstWarps * 32, 0,
+                        (cudaStream_t)stream>>>((const int*)state, S, m, 33 - p, vec, alpha_m2,
+                                                (double*)est, (long long*)rounded);
   return (int)cudaGetLastError();
+}
+
+// out: {CTAs, threads a CTA, dynamic shared bytes} of px_hll_estimate's
+// launch over S groups.
+int px_hll_estimate_geometry(int S, int* out) {
+  out[0] = S > 0 ? (S + kEstWarps - 1) / kEstWarps : 0;
+  out[1] = kEstWarps * 32;
+  out[2] = 0;
+  return 0;
 }
 
 // state: int64 [G, depth, width] (width a power of two); gids int32 [n];

@@ -519,9 +519,20 @@ def join_gather(
 
 # -- the join-aggregate lane's weighted fold (pixie_tpu/parallel/pipeline.py
 # _run_left_join_agg, :2664-2732) ---------------------------------------------
+def _left_rows(left_vals, n: int, device) -> torch.Tensor:
+    """The left sums' columns as one f64 [S_l, n] tensor (a sequence of [n]
+    columns stacked; an [S_l, n] tensor as it is)."""
+    if isinstance(left_vals, torch.Tensor):
+        return left_vals
+    rows = list(left_vals)
+    if not rows:
+        return torch.empty((0, n), dtype=torch.float64, device=device)
+    return torch.stack(rows)
+
+
 def join_agg_fold_plain(
-    jk: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    n_right: torch.Tensor, left_vals: torch.Tensor, right_sums: torch.Tensor,
+    jk, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    n_right: torch.Tensor, left_vals, right_sums: torch.Tensor,
     acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of H16: over the rows with ``mask`` and a weight
@@ -529,11 +540,15 @@ def join_agg_fold_plain(
     value times w and each gathered right sum into acc[:, gids] IN PLACE (a
     gid outside [0, cap) adds nothing); returns ``acc``. Writes the effective
     mask (mask & w > 0) into ``eff_mask`` when given. Rows that fail it are
-    left out, never multiplied by a zero weight (Fault-7)."""
+    left out, never multiplied by a zero weight (Fault-7). ``jk`` is an
+    integer column or a ``Narrow``, ``gids`` any integer column, both widened
+    to int64; ``left_vals`` S_l f64 [n] columns or an f64 [S_l, n] tensor."""
+    jk, gids = widen(jk).to(torch.int64), gids.to(torch.int64)
+    left = _left_rows(left_vals, jk.shape[0], jk.device)
     K, cap = n_right.shape[0], acc.shape[1]
-    S_l = left_vals.shape[0]
+    S_l = left.shape[0]
     k_ok = (jk >= 0) & (jk < K)
-    kk = torch.where(k_ok, jk, 0).long()
+    kk = torch.where(k_ok, jk, 0)
     w = torch.where(k_ok, n_right[kk], 0.0)
     eff = w > 0
     if mask is not None:
@@ -541,28 +556,37 @@ def join_agg_fold_plain(
     if eff_mask is not None:
         eff_mask.copy_(eff)
     ok = eff & (gids >= 0) & (gids < cap)
-    g, wk, kr = gids[ok].long(), w[ok], kk[ok]
+    g, wk, kr = gids[ok], w[ok], kk[ok]
     acc[0].index_add_(0, g, wk)
     if S_l:
-        acc[1 : 1 + S_l].index_add_(1, g, left_vals[:, ok] * wk)
+        acc[1 : 1 + S_l].index_add_(1, g, left[:, ok] * wk)
     if right_sums.shape[0]:
         acc[1 + S_l :].index_add_(1, g, right_sums[:, kr])
     return acc
 
 
 def join_agg_fold(
-    jk: torch.Tensor, gids: torch.Tensor, mask: Optional[torch.Tensor],
-    n_right: torch.Tensor, left_vals: torch.Tensor, right_sums: torch.Tensor,
+    jk, gids: torch.Tensor, mask: Optional[torch.Tensor],
+    n_right: torch.Tensor, left_vals, right_sums: torch.Tensor,
     acc: torch.Tensor, eff_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The join-aggregate lane's left-side fold of one block: the join's
     count, the weighted left sums and the gathered right sums per group in
     ``acc`` (f64 [1 + S_l + S_r, cap], in place), and the effective mask.
-    H16 on CUDA."""
-    jk, gids = jk.to(torch.int32), gids.to(torch.int32)
-    if jk.is_cuda:
-        return kernels.join_agg_fold(
-            jk.contiguous(), gids.contiguous(), mask, n_right.contiguous(),
-            left_vals.contiguous(), right_sums.contiguous(), acc, eff_mask,
-        )
-    return join_agg_fold_plain(jk, gids, mask, n_right, left_vals, right_sums, acc, eff_mask)
+    ``jk`` (a column or a ``Narrow``) and ``gids`` as the fold staged them,
+    ``left_vals`` S_l f64 [n] columns (or an f64 [S_l, n] tensor). H16 on
+    CUDA reads each where it lies (uint8, uint16 or int32; other keys are
+    widened and clamped to [-1, K] first, which weighs every key outside
+    [0, K) 0 as before; other gids cast to int32)."""
+    col, off = (jk.values, jk.offset) if isinstance(jk, Narrow) else (jk, 0)
+    if not col.is_cuda:
+        return join_agg_fold_plain(jk, gids, mask, n_right, left_vals, right_sums, acc, eff_mask)
+    if col.dtype not in kernels.JOIN_AGG_KINDS:
+        col, off = widen(jk).to(torch.int64).clamp(-1, n_right.shape[0]).to(torch.int32), 0
+    if gids.dtype not in kernels.JOIN_AGG_KINDS:
+        gids = gids.to(torch.int32)
+    return kernels.join_agg_fold(
+        col.contiguous(), gids.contiguous(), mask, n_right.contiguous(),
+        [c.contiguous() for c in left_vals], right_sums.contiguous(), acc, eff_mask,
+        jk_offset=off,
+    )

@@ -2372,21 +2372,24 @@ class DeviceExecutor:
                 for blk in range(sv.num_blocks):
                     vals = self._run_block(program, sv, blk, a)
                     mask = vals["__mask__"]
-                    jk = self._block_env(sv, blk, ["__jk__"])["__jk__"].to(torch.int32)
-                    gids = sv.gids[0, blk].to(torch.int32)
-                    n = mask.shape[0]
-                    left_vals = (
-                        torch.stack([vals[f"arg:{o}"] for o in sums_l])
-                        if sums_l else torch.empty((0, n), dtype=torch.float64, device=dev)
-                    )
-                    eff = torch.empty(n, dtype=torch.bool, device=dev) if extremes else None
-                    segment.join_agg_fold(jk, gids, mask, rs["n_right"], left_vals,
+                    # H16 reads the join keys and gids as staged: one device
+                    # operation a block for the call.
+                    jk = sv.blocks["__jk__"][0, blk]
+                    if "__jk__" in sv.narrow_offsets:
+                        jk = segment.Narrow(jk, sv.narrow_offsets["__jk__"])
+                    gids = sv.gids[0, blk]
+                    eff = (torch.empty(mask.shape[0], dtype=torch.bool, device=dev)
+                           if extremes else None)
+                    segment.join_agg_fold(jk, gids, mask, rs["n_right"],
+                                          [vals[f"arg:{o}"] for o in sums_l],
                                           rs["right_sums"], acc, eff)
+                    if extremes:
+                        gids = gids.to(torch.int32)
                     for (o, side, name), st in zip(extremes, ext):
                         if side == 0:
                             val = vals[f"arg:{o}"].contiguous()
                         else:
-                            val = rs[f"r:{o}"][jk.long()]
+                            val = rs[f"r:{o}"][segment.widen(jk).long()]
                         segment.segment_minmax(st, val, gids, eff, name == "min")
                 shard_leaves.append([acc] + ext)
             # The shards' folds merge at the root (K18: the count and sums

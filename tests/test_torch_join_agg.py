@@ -358,3 +358,73 @@ def test_join_agg_fold_plain_matches_loop(K, cap, S_l, S_r):
     assert np.isfinite(got).all()
     assert np.all(np.abs(got - want) <= 1e-12 * mag)
     assert not any(kernels.LAUNCHES.values())  # CPU tensors never launch
+
+
+# ---------------------------------------------------------------- H16 as staged
+# (staged jk dtype, jk offset, K, staged gids dtype, cap): config 8's shape
+# (uint8 keys and gids), a negative offset whose first keys fall below 0, a
+# uint16 key column with an offset over 300 groups, and int32 as it is.
+STAGED_CASES = {
+    "uint8": ("uint8", 0, 16, "uint8", 16),
+    "uint8_offset": ("uint8", -3, 200, "uint8", 16),
+    "uint16_offset": ("uint16", 1000, 40000, "uint16", 300),
+    "int32": ("int32", 0, 1 << 20, "int32", 65536),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGED_CASES))
+@pytest.mark.parametrize("S_l,S_r", [(0, 1), (1, 1), (2, 2)])
+def test_join_agg_fold_plain_takes_staged_columns(case, S_l, S_r):
+    """``jk`` as a ``Narrow`` (the staged bytes and their offset), the gids
+    in their staged dtype and the left sums as separate columns give the
+    int32 form's sums and effective mask bit for bit, keys outside [0, K)
+    and gids outside [0, cap) included."""
+    jk_dt, off, K, gid_dt, cap = STAGED_CASES[case]
+    rng = np.random.default_rng(len(case) * 10 + S_l + S_r)
+    n = 4000
+    hi = min(K + 2, np.iinfo(jk_dt).max + off)
+    keys = rng.integers(off, hi, n)
+    gids = rng.integers(0, min(cap + 2, np.iinfo(gid_dt).max), n)
+    mask = torch.from_numpy(rng.random(n) < 0.9)
+    n_right = torch.from_numpy(rng.integers(0, 4, K).astype(np.float64))
+    left = rng.normal(0, 1e3, (S_l, n))
+    right = torch.from_numpy(rng.normal(0, 1e3, (S_r, K)))
+    got = torch.zeros((1 + S_l + S_r, cap), dtype=torch.float64)
+    want = torch.zeros_like(got)
+    eff_got = torch.empty(n, dtype=torch.bool)
+    eff_want = torch.empty_like(eff_got)
+    staged_jk = torch.from_numpy((keys - off).astype(jk_dt))
+    segment.join_agg_fold(segment.Narrow(staged_jk, off), torch.from_numpy(gids.astype(gid_dt)),
+                          mask, n_right, [torch.from_numpy(r) for r in left], right, got, eff_got)
+    segment.join_agg_fold(torch.from_numpy(keys.astype(np.int32)),
+                          torch.from_numpy(gids.astype(np.int32)), mask, n_right,
+                          torch.from_numpy(left), right, want, eff_want)
+    assert torch.equal(eff_got, eff_want)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert int(eff_want.sum()) > 0
+
+
+def test_join_agg_lane_hands_h16_its_staged_columns(monkeypatch):
+    """The lane's fold hands H16 the join keys as staged (a ``Narrow`` of
+    uint8 over these 40 keys), the gids as staged (uint8 over 3 services)
+    and the left sums as separate columns, with no conversion of its own;
+    the results equal the reference's join-aggregate lane (``run_ref``)."""
+    seen = []
+    fold = segment.join_agg_fold
+
+    def spy(jk, gids, mask, n_right, left_vals, *rest):
+        seen.append((jk, gids.dtype, left_vals))
+        return fold(jk, gids, mask, n_right, left_vals, *rest)
+
+    monkeypatch.setattr(segment, "join_agg_fold", spy)
+    q = LANE_CASES["decomposition"]
+    tables = _tables()
+    got, lanes = run_port(tables, q)
+    want, ref_took, _ = run_ref(tables, q)
+    assert lanes == {"join_agg": 1} and ref_took
+    assert seen
+    for jk, gid_dtype, left_vals in seen:
+        assert isinstance(jk, segment.Narrow) and jk.values.dtype == torch.uint8
+        assert gid_dtype == torch.uint8
+        assert isinstance(left_vals, list) and len(left_vals) == 1
+    assert_rows_match(got, want)

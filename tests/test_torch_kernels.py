@@ -1092,55 +1092,158 @@ def test_histogram_kernels_match_plain_on_card():
     _check_histogram_kernels(torch.device("cuda", 0))
 
 
-def join_agg_inputs(seed: int, n: int, K: int, cap: int, S_l: int, S_r: int, dev):
+def join_agg_inputs(seed: int, n: int, K: int, cap: int, S_l: int, S_r: int, dev,
+                    jk_dtype=np.int32, jk_offset: int = 0, gid_dtype=np.int32,
+                    outside: int = 0, kept: float = 0.8):
     """H16's inputs: weights 0-5 (a zero weight is a key with no match), a
-    random mask, masked and zero-weight rows carrying +-inf and NaN."""
+    random mask keeping ``kept`` of the rows, masked and zero-weight rows
+    carrying +-inf and NaN; the keys staged as ``jk_dtype`` less
+    ``jk_offset``, the gids as ``gid_dtype``; with ``outside``, keys from
+    -outside to K + outside - 1 and gids up to cap + outside - 1 (a key
+    outside [0, K) weighs 0)."""
     rng = np.random.default_rng(seed)
-    jk = rng.integers(0, K, n).astype(np.int32)
-    gids = rng.integers(0, cap, n).astype(np.int32)
-    mask = rng.random(n) < 0.8
+    jk = rng.integers(-outside, K + outside, n)
+    gids = rng.integers(0, cap + outside, n)
+    mask = rng.random(n) < kept
     n_right = rng.integers(0, 6, K).astype(np.float64)
     left = rng.exponential(3e7, (S_l, n))
-    dead = ~mask | (n_right[jk] == 0)
+    inside = (jk >= 0) & (jk < K)
+    dead = ~mask | ~inside | (n_right[np.where(inside, jk, 0)] == 0)
     left[:, dead] = rng.choice([np.inf, -np.inf, np.nan], (S_l, int(dead.sum())))
     right = rng.exponential(3e7, (S_r, K))
-    return [torch.from_numpy(a).to(dev) for a in (jk, gids, mask, n_right, left, right)]
+    return [torch.from_numpy(a).to(dev) for a in (
+        (jk - jk_offset).astype(jk_dtype), gids.astype(gid_dtype), mask, n_right, left, right)]
 
 
-def check_join_agg_fold(ins, cap: int) -> None:
-    """H16 against its plain version on the same card tensors."""
+def check_join_agg_fold(ins, cap: int, jk_offset: int = 0) -> None:
+    """H16 against its plain version on the same card tensors, through the
+    fold's entry (``segment.join_agg_fold``: the keys a ``Narrow``, the
+    left sums as columns): the count row and the effective mask exactly,
+    every sum within 1e-12 * sum |terms|, one launch count a launch of
+    ``kernels.join_agg_parts``, and up to 64 groups the same bits again."""
     jk, gids, mask, n_right, left, right = ins
     rows = 1 + left.shape[0] + right.shape[0]
-    dev = jk.device
+    dev, n = jk.device, jk.shape[0]
+    key = segment.Narrow(jk, jk_offset)
+    cols = list(left)
     got = torch.zeros((rows, cap), dtype=torch.float64, device=dev)
-    want = torch.zeros_like(got)
-    mag = torch.zeros_like(got)
-    eff_got = torch.empty(jk.shape[0], dtype=torch.bool, device=dev)
+    again, want, mag = torch.zeros_like(got), torch.zeros_like(got), torch.zeros_like(got)
+    eff_got = torch.empty(n, dtype=torch.bool, device=dev)
     eff_want = torch.empty_like(eff_got)
+    parts = kernels.join_agg_parts(rows, cap, n, kernels.sm_count(dev),
+                                   kernels.smem_optin_bytes(dev))
     before = kernels.LAUNCHES["join_agg_fold"]
-    segment.join_agg_fold(jk, gids, mask, n_right, left, right, got, eff_got)
-    assert kernels.LAUNCHES["join_agg_fold"] == before + 1
-    segment.join_agg_fold_plain(jk, gids, mask, n_right, left, right, want, eff_want)
+    segment.join_agg_fold(key, gids, mask, n_right, cols, right, got, eff_got)
+    assert kernels.LAUNCHES["join_agg_fold"] == before + len(parts)
+    segment.join_agg_fold(key, gids, mask, n_right, cols, right, again)
+    segment.join_agg_fold_plain(key, gids, mask, n_right, left, right, want, eff_want)
     # sum |terms| per cell: the plain fold of |values| (weights are >= 0).
-    segment.join_agg_fold_plain(jk, gids, mask, n_right, left.abs(), right.abs(), mag)
+    segment.join_agg_fold_plain(key, gids, mask, n_right, left.abs(), right.abs(), mag)
     torch.cuda.synchronize()
     assert torch.equal(eff_got, eff_want)
     assert torch.equal(got[0], want[0])
     assert bool(torch.isfinite(got).all())
     assert bool(torch.all((got - want).abs() <= 1e-12 * mag))
+    if cap <= kernels.H2_WARP_MAX_S:
+        assert torch.equal(got.view(torch.int64), again.view(torch.int64))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,cap,S_l,S_r", [
-    (16, 16, 1, 1),  # the join8_oncall_agg block: statistics and sums in shared memory
-    (1 << 20, 1 << 16, 1, 1),  # both in global memory
-    (1 << 16, 16, 2, 0),  # shared sums, statistics through __ldg
-    (16, 1 << 16, 0, 2),  # shared statistics, global sums
+@pytest.mark.parametrize("K,cap,S_l,S_r,jk_dtype,jk_offset,gid_dtype", [
+    # join8_oncall_agg's block as staged: the private lane, statistics in shared memory
+    (16, 16, 1, 1, np.uint8, 0, np.uint8),
+    (16, 16, 1, 1, np.int32, 0, np.int32),  # the columns the fold widened before
+    (300, 16, 1, 1, np.uint16, -1000, np.uint8),  # a narrowed key column with its offset
+    (300, 64, 2, 1, np.uint16, -1000, np.uint8),  # 4 rows x 64 groups: the warp lane
+    (16, 40, 3, 0, np.uint8, 0, np.uint8),  # 40 groups in the bucket of 64: the warp lane
+    (16, 16, 5, 2, np.uint8, 0, np.uint8),  # 8 rows: two launches of the private lane
+    (1 << 20, 1 << 16, 1, 1, np.int32, 0, np.uint16),  # both in global memory
+    (1 << 20, 1 << 16, 1, 1, np.int64, 7, np.int32),  # int64 keys with an offset
+    (1 << 16, 16, 2, 0, np.int32, 0, np.int32),  # private sums, statistics through __ldg
+    (16, 1 << 16, 0, 2, np.uint8, 0, np.uint16),  # shared statistics, global sums
+    (16, 512, 1, 1, np.uint8, 0, np.uint16),  # the shared lane
 ])
-def test_join_agg_kernel_matches_plain_on_card(K, cap, S_l, S_r):
+def test_join_agg_kernel_matches_plain_on_card(K, cap, S_l, S_r, jk_dtype, jk_offset, gid_dtype):
     _need_cards(1)
     dev = torch.device("cuda", 0)
-    check_join_agg_fold(join_agg_inputs(K + cap, 1 << 21, K, cap, S_l, S_r, dev), cap)
+    ins = join_agg_inputs(K + cap, 1 << 21, K, cap, S_l, S_r, dev, jk_dtype, jk_offset, gid_dtype)
+    check_join_agg_fold(ins, cap, jk_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane_cap", [16, 64, 512])
+def test_join_agg_kernel_edges_on_card(lane_cap):
+    """H16 at the edges: a row count that is no multiple of 8 (2^21 + 5 and
+    13), views one element into their storage (no vector loads), keys
+    outside [0, K) and gids outside [0, cap) (both add nothing), no mask, a
+    probe of CTA 0's phases, and no right key at all (K 0)."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    K = 16
+    gdt = np.uint8 if lane_cap < 250 else np.uint16
+    for n in ((1 << 21) + 5, 13):
+        for kept in (0.8, 1.0):  # with a mask, and with none (every row kept)
+            # keys -2 .. K + 1 and gids up to cap + 1, one row into each storage
+            jk, gids, mask, n_right, left, right = join_agg_inputs(
+                n + lane_cap, n + 1, K, lane_cap, 1, 1, dev, np.uint8, -2, gdt, outside=2,
+                kept=kept)
+            ins = [jk[1:], gids[1:], mask[1:] if kept < 1 else None, n_right, left[:, 1:], right]
+            check_join_agg_fold(ins, lane_cap, -2)
+    probe = torch.zeros(kernels.JOIN_AGG_PROBE, dtype=torch.int64, device=dev)
+    jk, gids, mask, n_right, left, right = join_agg_inputs(
+        3, 1 << 21, K, lane_cap, 1, 1, dev, np.uint8, 0, np.uint16)
+    acc = torch.zeros((3, lane_cap), dtype=torch.float64, device=dev)
+    kernels.join_agg_fold(jk, gids, mask, n_right, list(left), right, acc, probe=probe)
+    clocks = probe.cpu().tolist()
+    assert all(b >= a for a, b in zip(clocks, clocks[1:])) and clocks[0] > 0
+    empty = torch.empty(0, dtype=torch.float64, device=dev)
+    eff = torch.ones(jk.shape[0], dtype=torch.bool, device=dev)
+    acc.zero_()
+    kernels.join_agg_fold(jk, gids, mask, empty, list(left), empty.view(1, 0), acc, eff)
+    torch.cuda.synchronize()
+    assert not bool(eff.any()) and not bool(acc.any())
+
+
+# (S, m) of the H10 launches the paths send (chip_smoke.py --log-shapes).
+H10_SHAPES = [(16, 2048), (64, 2048), (4096, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,m", H10_SHAPES + [(5, 16), (3, 1 << 14)])
+@pytest.mark.parametrize("odd", [False, True])
+def test_hll_estimate_matches_plain_on_card(S, m, odd):
+    """H10 against its plain version on registers as updates keep them (in
+    [0, 33 - p]: zero shares for linear counting, high ranks for the
+    large-range correction) and, with ``odd``, one group holding a register
+    above the range and one a negative register: within a relative 1e-12,
+    rounded estimates equal, and every group that takes the raw estimate
+    bit for bit (its f64 sum is exact in any order, and both divide
+    alpha m^2 by it once)."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    p = m.bit_length() - 1
+    top = 33 - p
+    rng = np.random.default_rng(S + m)
+    state = np.minimum(rng.geometric(0.5, (S, m)), top).astype(np.int32)
+    state[rng.random((S, m)) < rng.random(S)[:, None]] = 0
+    state[S // 2:] = np.maximum(state[S // 2:], rng.integers(0, top + 1, (S - S // 2, m)))
+    if odd:
+        state[0, 3] = top + 2
+        state[-1, m - 1] = -1
+    regs = torch.from_numpy(state).to(dev)
+    est, rounded = kernels.hll_estimate(regs, hll._alpha(m))
+    want = hll.estimate_plain(regs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(est, want, rtol=1e-12, atol=0)
+    half = (want - torch.floor(want) - 0.5).abs() <= 1e-12 * want
+    assert bool(torch.all((rounded == torch.round(want).long()) | half))
+    zeros = (regs == 0).sum(dim=1)
+    sums = torch.sum(torch.pow(2.0, -regs.to(torch.float64)), dim=1)
+    raw = torch.full_like(sums, hll._alpha(m) * m * m) / sums
+    takes_raw = ~((raw <= 2.5 * m) & (zeros > 0)) & (raw <= 2.0**32 / 30)
+    if odd:
+        takes_raw[0] = takes_raw[-1] = False
+    assert torch.equal(est[takes_raw].view(torch.int64), want[takes_raw].view(torch.int64))
 
 
 def scalar_programs(dev, n: int = 1 << 20):

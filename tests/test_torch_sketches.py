@@ -120,6 +120,98 @@ def test_hll_estimate_ranges():
     assert want[3] > 2**32 / 30
 
 
+def _h10_states(p: int, seed: int) -> np.ndarray:
+    """Registers in [0, 33 - p], as every update keeps them: all zero, all
+    at the top, uniform, geometric ranks (a sketch's shape), mostly zero
+    (linear counting) and high (the large-range correction at p = 11)."""
+    rng = np.random.default_rng(seed)
+    m, top = 1 << p, 33 - p
+    state = np.zeros((6, m), np.int32)
+    state[1] = top
+    state[2] = rng.integers(0, top + 1, m)
+    state[3] = np.minimum(rng.geometric(0.5, m), top)
+    state[4, : m // 16] = rng.integers(1, top + 1, m // 16)
+    state[5] = rng.integers(max(top - 3, 0), top + 1, m)
+    return state
+
+
+def _h10_model(state: np.ndarray) -> np.ndarray:
+    """H10's sum of 2^-r a group as the kernel forms it: lane l of a warp
+    takes the 16-byte chunks l, l + 32, ... of the group's registers and adds
+    2^(top - r) into a uint64 (top = 33 - p); five xor-shuffle rounds add
+    the lanes; the sum scaled by 2^-top. A group holding a register outside
+    [0, top] adds 2^-r in f64 instead, each lane its chunks' registers in
+    order, then the same rounds."""
+    S, m = state.shape
+    top = 33 - (m.bit_length() - 1)
+    out = np.empty(S)
+    for g in range(S):
+        regs = state[g]
+        if np.all((regs >= 0) & (regs <= top)):
+            terms = np.left_shift(np.uint64(1), (top - regs).astype(np.uint64))
+            chunks = terms.reshape(-1, 4).sum(axis=1, dtype=np.uint64)
+            lanes = np.array([chunks[l::32].sum(dtype=np.uint64) for l in range(32)])
+            dtype_sum, scale = np.uint64, True
+        else:
+            lanes = np.zeros(32)
+            chunks = regs.reshape(-1, 4)
+            for l in range(32):
+                for r in chunks[l::32].reshape(-1):
+                    lanes[l] += np.ldexp(1.0, -int(np.clip(r, -1100, 1100)))
+            dtype_sum, scale = np.float64, False
+        w = 16
+        while w >= 1:
+            lanes = (lanes + lanes[np.arange(32) ^ w]).astype(dtype_sum)
+            w //= 2
+        out[g] = np.ldexp(float(lanes[0]), -top) if scale else lanes[0]
+    return out
+
+
+@pytest.mark.parametrize("p", [4, 11, 14])
+def test_hll_estimate_integer_sum_is_exact(p):
+    """H10's integer sum: over registers in [0, 33 - p], sum 2^(33 - p - r)
+    times 2^-(33 - p) equals torch.sum(torch.pow(2.0, -regs)) bit for bit
+    (every partial sum is a multiple of 2^-(33 - p) below 2^34 of them), and
+    so does the kernel's order (``_h10_model``); the plain estimate matches
+    the reference's on the same state (bit for bit where it takes the raw
+    estimate, alpha m^2 over the sum in one division; within 1e-12 where it
+    takes a log), its rounded estimates equal."""
+    state = _h10_states(p, 30 + p)
+    top = 33 - p
+    isum = np.left_shift(np.uint64(1), (top - state).astype(np.uint64)).sum(axis=1,
+                                                                            dtype=np.uint64)
+    exact = torch.from_numpy(np.ldexp(isum.astype(np.float64), -top))
+    want = torch.sum(torch.pow(2.0, -_t(state).to(torch.float64)), dim=1)
+    assert torch.equal(exact.view(torch.int64), want.view(torch.int64))
+    model = torch.from_numpy(_h10_model(state))
+    assert torch.equal(model.view(torch.int64), want.view(torch.int64))
+    est = hll.estimate_plain(_t(state)).numpy()
+    ref = np.asarray(ref_hll.estimate(jnp.asarray(state)))
+    np.testing.assert_allclose(est, ref, rtol=1e-12, atol=0)
+    m = 1 << p
+    raw = hll._alpha(m) * m * m / want.numpy()
+    takes_raw = ~((raw <= 2.5 * m) & (state == 0).any(axis=1)) & (raw <= 2.0**32 / 30)
+    assert takes_raw.any()
+    np.testing.assert_array_equal(est[takes_raw].view(np.int64), ref[takes_raw].view(np.int64))
+    np.testing.assert_array_equal(
+        hll.estimate_rounded(_t(state)).numpy(), np.round(ref).astype(np.int64))
+
+
+def test_hll_estimate_out_of_range_register_takes_f64_terms():
+    """A register outside [0, 33 - p] (no path makes one: above the top,
+    and negative) sends its group down H10's f64 lane: the model's sum of
+    2^-r in the kernel's order is within a relative 1e-12 of the plain
+    version's, and the other groups stay bit for bit."""
+    state = _h10_states(11, 41)
+    state[2, 5] = 33 - 11 + 4
+    state[3, 700] = -2
+    want = torch.sum(torch.pow(2.0, -_t(state).to(torch.float64)), dim=1).numpy()
+    got = _h10_model(state)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    keep = [0, 1, 4, 5]
+    assert np.array_equal(got[keep].view(np.int64), want[keep].view(np.int64))
+
+
 # ---------------------------------------------------------------- count-min
 @pytest.mark.parametrize("kind", ["status", "int64"])
 def test_countmin_cells_and_totals_exact(sorted_lane, kind):
