@@ -249,6 +249,7 @@ BLOCK_ROWS = 1 << 21
 TIME_REPS, TIME_WARMUP = 30, 3  # calls per time_ms
 WARM_QUERIES = 3
 N_SERVICES = 16
+H4_GROUPS = (N_SERVICES, 1024, 4096)  # the paths' H4 group counts (--log-shapes), and 4096
 TRUTH_BINS = 4096
 TRUTH_LO, TRUTH_HI = 1.0, 1e12
 TRUTH_EDGES = np.logspace(math.log10(TRUTH_LO), math.log10(TRUTH_HI), TRUTH_BINS - 1)
@@ -1005,35 +1006,53 @@ def kernel_phases(kernels, segment, histogram, dev) -> dict:
     log(f"H3 per-row bins: {int((moved == 1).sum())} of {edge_vals.numel()} bin-edge "
         f"rows one bin over; special values {special_bins.tolist()} as plain")
 
-    # H4: the finalize of the main path's 16 groups, and 4096 groups.
-    qs = (0.01, 0.10, 0.25, 0.50, 0.75, 0.90, 0.99)
+    # H4 bit for bit with its plain version on the card (its values come
+    # from the plain version's own midpoint table): at the paths' group
+    # counts (H4_GROUPS, from --log-shapes) and 4096, then the edge groups
+    # (empty, all in bin 0, one bin, one count in the last bin, counts near
+    # 2^40, ones, a sparse row) at every width of HIST_NBINS, for 7 qs and 40.
+    from pixie_tpu_torch.ops.quantile_edges import HIST_NBINS, QS_WIDE, hist_edge_state
+
+    qs = QS
     qs_t = torch.tensor(qs, dtype=torch.float64, device=dev)
-    for S in [N_SERVICES, 4096]:
-        state = torch.from_numpy(
-            rng.integers(0, 1 << 20, (S, spec.nbins)).astype(np.int64)
-        ).to(dev)
-        state[:, : spec.nbins // 3] = 0
-        state[1] = 0  # empty group
-        state[2] = 0
-        state[2, 0] = 5  # everything in bin 0
-        got = kernels.hist_quantiles(state, qs_t, spec.min_value, spec.gamma,
-                                     math.sqrt(spec.gamma))
+    mid = histogram.midpoint_table(spec, dev)
+    Q = len(qs)
+    for S in H4_GROUPS:
+        state = torch.from_numpy(hist_edge_state(spec.nbins, S, seed=S)).to(dev)
+        got = kernels.hist_quantiles(state, qs_t, mid)
         want = histogram.quantile_values_plain(state, qs)
-        rel = ((got - want).abs() / want.abs().clamp_min(1e-300)).max().item()
         torch.cuda.synchronize()
-        check(rel <= 1e-12, f"H4 S={S}: relative error {rel}")
-        log(f"H4 hist_quantiles S={S}: max rel err {rel:.3g}")
-        if "hist_quantiles" in records:
+        check(torch.equal(got, want), f"H4 S={S}: {int((got != want).sum())} values differ")
+        if S != N_SERVICES:
             continue
-        Q = len(qs)
-        records["hist_quantiles"] = record(
-            lambda: kernels.hist_quantiles(
-                state, qs_t, spec.min_value, spec.gamma, math.sqrt(spec.gamma)),
+        rec = record(
+            lambda: kernels.hist_quantiles(state, qs_t, mid),
             lambda: histogram.quantile_values_plain(state, qs),
             None,
-            *bound(S * spec.nbins * 8 + Q * 8 + S * Q * 8, 2 * S * spec.nbins * Q),
+            # the function's own bytes: the counts and the qs read once, the
+            # output written once (the midpoint table is the kernel's design)
+            *bound(S * spec.nbins * 8 + Q * 8 + S * Q * 8,
+                   2 * S * spec.nbins * Q),
             (got - want).abs().max().item(), f"state[{S},{spec.nbins}] Q={Q}",
         )
+        rec["floor_ms"] = time_ms(
+            lambda: kernels.empty_launch(dev, *kernels.hist_quantiles_geometry(S)))
+        records["hist_quantiles"] = rec
+    for nbins in HIST_NBINS:
+        espec = histogram.LogHistogramSpec(nbins=nbins)
+        state = torch.from_numpy(hist_edge_state(nbins, N_SERVICES, seed=nbins)).to(dev)
+        for eqs in (qs, QS_WIDE):
+            got = kernels.hist_quantiles(
+                state, torch.tensor(eqs, dtype=torch.float64, device=dev),
+                histogram.midpoint_table(espec, dev))
+            want = histogram.quantile_values_plain(state, eqs, espec)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"H4 edges nbins={nbins} Q={len(eqs)}: {int((got != want).sum())} values differ")
+    rec = records["hist_quantiles"]
+    log(f"H4 hist_quantiles: bit for bit at S {H4_GROUPS} and the edge groups at nbins "
+        f"{list(HIST_NBINS)}, Q 7 and {len(QS_WIDE)}; {rec['shape']} {rec['ms']:.5f} ms "
+        f"[bound {rec['bound_ms']:.5f}; floor {rec['floor_ms']:.5f}; plain {rec['plain_ms']:.5f}]")
     return records
 
 
@@ -1384,20 +1403,58 @@ def sketch_kernel_phases(dev) -> dict:
     log(f"H8 tdigest_merge {rec['shape']}: {rec['ms']:.5f} ms [bound {rec['bound_ms']:.5f}; "
         f"floor {rec['floor_ms']:.5f}; plain {rec['plain_ms']:.5f}]; CTA 0's phases us "
         f"{json.dumps(rec['b_phases_us'])}")
+    # H9 on the merged digest (every group's weights whole, totalling at
+    # most 2^24: bit for bit with the plain version), then the edge digests
+    # (empty, one centroid, empties between full ones, all weight in the
+    # last, a total of 2^24; a total above 2^24, fractional weights and a
+    # weight above 2^24 within td_inexact_tol) at every capacity of
+    # TD_CAPACITIES, for 7 qs and 40.
+    from pixie_tpu_torch.ops.quantile_edges import (
+        QS_WIDE, TD_CAPACITIES, td_edge_state, td_inexact_tol,
+    )
+
     qs_t = torch.tensor(QS, dtype=torch.float32, device=dev)
     qg = kernels.tdigest_quantiles(got["means"], got["weights"], qs_t)
     qw = tdigest.quantile_values_plain(got, QS)
-    qrel = ((qg - qw).abs() / qw.abs().clamp_min(1e-300)).max().item()
+    exact = tdigest.quantile_exact_groups(got["weights"])
     torch.cuda.synchronize()
-    check(qrel <= 1e-6, f"H9 relative error {qrel}")
-    log(f"H9 tdigest_quantiles G={G}: max rel err {qrel:.3g}")
-    records["tdigest_quantiles"] = record(
+    check(bool(exact.all()), "H9: a group of sketches' merged digest is outside the exact range")
+    check(torch.equal(qg, qw), f"H9 G={G}: {int((qg != qw).sum())} values differ")
+    inexact = {"groups": 0, "max_rel_err": 0.0, "max_err_over_tol": 0.0}
+    for ec in TD_CAPACITIES:
+        em, ew = (torch.from_numpy(a).to(dev) for a in td_edge_state(ec, G, seed=ec))
+        est = {"means": em, "weights": ew}
+        ex = tdigest.quantile_exact_groups(ew)
+        for eqs in (QS, QS_WIDE):
+            tol = td_inexact_tol(em[~ex], ew[~ex], eqs)
+            eg = kernels.tdigest_quantiles(em, ew, torch.tensor(eqs, dtype=torch.float32,
+                                                                device=dev))
+            ewant = tdigest.quantile_values_plain(est, eqs)
+            torch.cuda.synchronize()
+            check(torch.equal(eg[ex], ewant[ex]),
+                  f"H9 edges C={ec} Q={len(eqs)}: {int((eg[ex] != ewant[ex]).sum())} values differ")
+            err = (eg[~ex] - ewant[~ex]).abs()
+            check(bool(torch.all(err <= tol)), f"H9 edges C={ec} Q={len(eqs)}: beyond the bound")
+            inexact["groups"] += int((~ex).sum())
+            inexact["max_rel_err"] = max(inexact["max_rel_err"], float(
+                (err / ewant[~ex].abs().clamp_min(1e-300)).max()))
+            inexact["max_err_over_tol"] = max(  # a bound of 0 holds only an error of 0
+                inexact["max_err_over_tol"], float((err / tol.clamp_min(1e-300)).max()))
+    rec = record(
         lambda: kernels.tdigest_quantiles(got["means"], got["weights"], qs_t),
         lambda: tdigest.quantile_values_plain(got, QS),
         None,
-        *bound(2 * G * C * 4 + len(QS) * 4 + G * len(QS) * 8, 6 * G * len(QS) * C), qrel,
-        f"state[{G},{C}] Q={len(QS)}",
+        *bound(2 * G * C * 4 + len(QS) * 4 + G * len(QS) * 8, 6 * G * len(QS) * C),
+        (qg - qw).abs().max().item(), f"state[{G},{C}] Q={len(QS)}",
     )
+    rec["floor_ms"] = time_ms(
+        lambda: kernels.empty_launch(dev, *kernels.tdigest_quantiles_geometry(G)))
+    rec["b_inexact_edges"] = inexact
+    records["tdigest_quantiles"] = rec
+    log(f"H9 tdigest_quantiles: bit for bit on the merged digest and the exact edge groups at "
+        f"C {list(TD_CAPACITIES)}, Q 7 and {len(QS_WIDE)}; the inexact ones {json.dumps(inexact)}; "
+        f"{rec['shape']} {rec['ms']:.5f} ms [bound {rec['bound_ms']:.5f}; floor "
+        f"{rec['floor_ms']:.5f}; plain {rec['plain_ms']:.5f}]")
     return records
 
 
@@ -5716,20 +5773,25 @@ def mesh_cards_paths(n: int, paths: dict, phase_s: dict) -> dict:
     return out
 
 
-# With --log-shapes: the shape of every H10, H12, H16 and H18 launch a path
-# makes, entries whose device values (selected rows, runs used) are read when
-# the path ends, so recording adds no sync inside a query.
+# With --log-shapes: the shape of every H4, H9, H10, H12, H16 and H18 launch
+# a path makes, entries whose device values (selected rows, runs used, exact
+# groups) are read when the path ends, so recording adds no sync inside a
+# query.
 SHAPES: Optional[list] = None
 
 
 def log_launch_shapes(kernels) -> None:
-    """Wraps H10's, H12's, H16's and H18's wrappers in ``kernels`` so that
-    each call adds its shape to SHAPES: for H10 S and m; for H12 n, the
+    """Wraps H4's, H9's, H10's, H12's, H16's and H18's wrappers in ``kernels``
+    so that each call adds its shape to SHAPES: for H4 S, nbins and Q; for
+    H9 G, C, Q and the groups whose weights are whole and total at most
+    2^24 (the exact ones); for H10 S and m; for H12 n, the
     selected rows, ``written`` before the launch, the limit (or cap) and the
     columns' widths (the index lane: none); for H16 n, K, cap, S_l, S_r, the
     dtypes ``jk`` and ``gids`` reach the kernel in, ``jk``'s offset and
     whether the effective mask is asked for; for H18 d, L, R, the block
     dtype and the runs each shard uses (the ends below L, plus one)."""
+    from pixie_tpu_torch.ops import tdigest
+
     global SHAPES
     SHAPES = []
 
@@ -5761,6 +5823,14 @@ def log_launch_shapes(kernels) -> None:
     def h10(state, *rest, **kw):
         return {"kernel": "hll_estimate", "S": state.shape[0], "m": state.shape[1]}
 
+    def h4(state, qs, *rest, **kw):
+        return {"kernel": "hist_quantiles", "S": state.shape[0], "nbins": state.shape[1],
+                "Q": qs.shape[0]}
+
+    def h9(means, weights, qs, *rest, **kw):
+        return {"kernel": "tdigest_quantiles", "G": means.shape[0], "C": means.shape[1],
+                "Q": qs.shape[0], "exact": tdigest.quantile_exact_groups(weights).sum()}
+
     def h16(jk, gids, mask, n_right, left_vals, right_sums, acc, eff_mask=None,
             jk_offset=0, **kw):
         return {"kernel": "join_agg_fold", "n": jk.shape[0], "K": n_right.shape[0],
@@ -5769,6 +5839,8 @@ def log_launch_shapes(kernels) -> None:
                 "gids": str(gids.dtype).split(".")[1], "mask": mask is not None,
                 "eff_mask": eff_mask is not None}
 
+    wrap("hist_quantiles", h4)
+    wrap("tdigest_quantiles", h9)
     wrap("hll_estimate", h10)
     wrap("join_agg_fold", h16)
     wrap("scan_compact", h12)
@@ -5784,7 +5856,7 @@ def take_shapes() -> list:
     out = []
     for e in SHAPES:
         e = dict(e)
-        for k in ("selected", "written"):
+        for k in ("selected", "written", "exact"):
             if k in e:
                 e[k] = int(e[k].reshape(-1)[0]) if k == "written" else int(e[k])
         if "runs" in e:
@@ -6088,8 +6160,8 @@ def main() -> int:
     ap.add_argument("--ab-reps", type=int, default=15,
                     help="with --ab-paths: warm queries a turn of a warm path")
     ap.add_argument("--log-shapes", default="",
-                    help="also record the shape of every H10, H12, H16 and H18 launch of "
-                         "each main path and write them to this JSON file")
+                    help="also record the shape of every H4, H9, H10, H12, H16 and H18 launch "
+                         "of each main path and write them to this JSON file")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -6450,7 +6522,7 @@ def main() -> int:
                   if p.get("shapes")}
         with open(args.log_shapes, "w") as f:
             json.dump(shapes, f, indent=1)
-        log(f"H10, H12, H16 and H18 launch shapes by path: {json.dumps(shapes)}")
+        log(f"H4, H9, H10, H12, H16 and H18 launch shapes by path: {json.dumps(shapes)}")
     launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
                 + ring_launches[k] for k in kernels.KERNELS}
     for name, count in launches.items():

@@ -108,6 +108,16 @@ def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a + b
 
 
+def _bin_values(bins: torch.Tensor, spec: LogHistogramSpec) -> torch.Tensor:
+    """f64 value of each bin index: its geometric midpoint
+    min * gamma^(bin - 1) * sqrt(gamma), bin 0 the minimum."""
+    g = torch.tensor(spec.gamma, dtype=torch.float64, device=bins.device)
+    vals = spec.min_value * torch.pow(
+        g, torch.clamp_min(bins - 1, 0).to(torch.float64)
+    ) * math.sqrt(spec.gamma)
+    return torch.where(bins == 0, spec.min_value, vals)
+
+
 def quantile_values_plain(
     state: torch.Tensor, qs: Sequence[float], spec: LogHistogramSpec = DEFAULT_SPEC
 ) -> torch.Tensor:
@@ -122,12 +132,24 @@ def quantile_values_plain(
     reached = cum[:, :, None] >= target[:, None, :]  # [G, B, Q]
     # first True along the bins (0 where none is, like argmax)
     bin_idx = torch.argmax(reached.to(torch.uint8), dim=1)
-    g = torch.tensor(spec.gamma, dtype=torch.float64, device=state.device)
-    vals = spec.min_value * torch.pow(
-        g, torch.clamp_min(bin_idx - 1, 0).to(torch.float64)
-    ) * math.sqrt(spec.gamma)
-    vals = torch.where(bin_idx == 0, spec.min_value, vals)
-    return torch.where(total > 0, vals, 0.0)
+    return torch.where(total > 0, _bin_values(bin_idx, spec), 0.0)
+
+
+_MIDPOINTS: dict = {}
+
+
+def midpoint_table(spec: LogHistogramSpec, device) -> torch.Tensor:
+    """f64 [nbins]: each bin's value as ``quantile_values_plain`` computes it
+    on ``device`` (the same expression), built once per (spec, device). H4
+    reads a quantile's value from it and so returns the plain version's
+    bits."""
+    device = torch.device(device)
+    key = (spec, device)
+    table = _MIDPOINTS.get(key)
+    if table is None:
+        table = _bin_values(torch.arange(spec.nbins, dtype=torch.int64, device=device), spec)
+        _MIDPOINTS[key] = table
+    return table
 
 
 def quantile_values(
@@ -137,8 +159,6 @@ def quantile_values(
         return kernels.hist_quantiles(
             state.contiguous(),
             torch.as_tensor(qs, dtype=torch.float64, device=state.device),
-            spec.min_value,
-            spec.gamma,
-            math.sqrt(spec.gamma),
+            midpoint_table(spec, state.device),
         )
     return quantile_values_plain(state, qs, spec)

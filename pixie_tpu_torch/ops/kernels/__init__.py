@@ -126,10 +126,8 @@ _SIGNATURES = {
     "px_log_histogram_geometry": (_LL, _I, _I, _I, _P),
     "px_empty_launch": (_I, _I, _I, _P),
     "px_sm_clock_khz": (ctypes.POINTER(ctypes.c_int),),
-    "px_hist_quantiles": (
-        _P, _I, _I, _P, _I, ctypes.c_double, ctypes.c_double,
-        ctypes.c_double, _P, _P,
-    ),
+    "px_hist_quantiles": (_P, _I, _I, _P, _I, _P, _P, _P, _P),
+    "px_hist_quantiles_geometry": (_I, _P),
     "px_hash32": (_P, _LL, ctypes.c_uint, _I, _P, _P),
     "px_hll_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _P, _I, _P),
     "px_countmin_update": (_P, _I, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _I, _P),
@@ -140,7 +138,8 @@ _SIGNATURES = {
     "px_tdigest_cluster": (_P, _LL, _P, _I, _I, _I, _I, _P, _P, _P),
     "px_tdigest_merge": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "px_tdigest_merge_geometry": (_I, _I, _P),
-    "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P),
+    "px_tdigest_quantiles": (_P, _P, _I, _I, _P, _I, _P, _P, _P),
+    "px_tdigest_quantiles_geometry": (_I, _P),
     "px_hll_estimate": (_P, _I, _I, _I, ctypes.c_double, _P, _P, _P),
     "px_hll_estimate_geometry": (_I, _P),
     "px_segment_minmax": (_P, _I, _LL, _LL, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -340,6 +339,15 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, device, ndim: int) 
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _probe_arg(probe: Optional[torch.Tensor], n: int, device) -> None:
+    """Checks an optional probe: int64 [>= n] on ``device``."""
+    if probe is None:
+        return
+    _require(probe, "probe", torch.int64, device, 1)
+    if probe.shape[0] < n:
+        raise ValueError(f"probe has {probe.shape[0]} entries, expected {n}")
 
 
 def _gids_mask(gids, mask, n, device):
@@ -631,10 +639,7 @@ def log_histogram_update(
         raise TypeError(f"values has dtype {values.dtype}, expected float32 or float64")
     _require(values, "values", values.dtype, device, 1)
     _require(state, "state", torch.int64, device, 2)
-    if probe is not None:
-        _require(probe, "probe", torch.int64, device, 1)
-        if probe.shape[0] < H3_PROBE:
-            raise ValueError(f"probe has {probe.shape[0]} entries, expected {H3_PROBE}")
+    _probe_arg(probe, H3_PROBE, device)
     n = values.shape[0]
     mask = _gids_mask(gids, mask, n, device)
     S, nbins = state.shape
@@ -651,25 +656,47 @@ def log_histogram_update(
     return state
 
 
+HQ_PROBE = 4  # H4's probe: CTA 0's clock64 at the start, the total, the searches, the stores
+
+
 def hist_quantiles(
-    state: torch.Tensor, qs: torch.Tensor, min_value: float, gamma: float,
-    sqrt_gamma: float,
+    state: torch.Tensor, qs: torch.Tensor, mid: torch.Tensor,
+    probe: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """H4: f64 [S, Q] quantile estimates of each group's log histogram."""
+    """H4: f64 [S, Q] quantile estimates of each group's log histogram: per
+    q the first bin whose cumulative count reaches max(q * total, 1e-9)
+    (bin 0 when none does), its value ``mid[bin]`` (f64 [nbins],
+    ``histogram.midpoint_table``), 0 for an empty group. A warp a group.
+    ``probe``: None, or int64 [HQ_PROBE] on the device for CTA 0's clock64
+    phases."""
     device = state.device
     _require(state, "state", torch.int64, device, 2)
     _require(qs, "qs", torch.float64, device, 1)
     S, nbins = state.shape
+    _require(mid, "mid", torch.float64, device, 1)
+    if mid.shape[0] != nbins:
+        raise ValueError(f"hist_quantiles: mid has {mid.shape[0]} bins, the state {nbins}")
     Q = qs.shape[0]
     out = torch.empty((S, Q), dtype=torch.float64, device=device)
     if S == 0 or Q == 0:
         return out
+    if S >= 2**31 or nbins >= 2**31 or S * Q >= 2**31:
+        raise ValueError(f"hist_quantiles: S, nbins and S * Q must fit int32, got {S}, {nbins}, {Q}")
+    _probe_arg(probe, HQ_PROBE, device)
     _launch(
         "hist_quantiles", device,
-        state.data_ptr(), S, nbins, qs.data_ptr(), Q, min_value, gamma,
-        sqrt_gamma, out.data_ptr(),
+        state.data_ptr(), S, nbins, qs.data_ptr(), Q, mid.data_ptr(), out.data_ptr(),
+        probe.data_ptr() if probe is not None else None,
     )
     return out
+
+
+def hist_quantiles_geometry(S: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes) of H4's launch over S
+    groups, as its launcher computes them."""
+    out = (ctypes.c_int * 3)()
+    _check(library().px_hist_quantiles_geometry(S, out), "hist_quantiles geometry")
+    return tuple(out)
 
 
 # ---------------------------------------------------------------- sketches
@@ -1025,10 +1052,7 @@ def tdigest_merge(
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(G, C)}")
     if 2 * C > 1024:
         raise ValueError(f"t-digest capacity {C} above 512 is not supported")
-    if probe is not None:
-        _require(probe, "probe", torch.int64, device, 1)
-        if probe.shape[0] < TD_MERGE_PROBE:
-            raise ValueError(f"probe has {probe.shape[0]} entries, expected {TD_MERGE_PROBE}")
+    _probe_arg(probe, TD_MERGE_PROBE, device)
     out = {
         "means": torch.empty((G, C), dtype=torch.float32, device=device),
         "weights": torch.empty((G, C), dtype=torch.float32, device=device),
@@ -1044,24 +1068,47 @@ def tdigest_merge(
     return out
 
 
+TQ_PROBE = 5  # H9's probe: CTA 0's clock64 at the start, the checks, the midpoints, the
+# searches, the stores
+
+
 def tdigest_quantiles(
-    means: torch.Tensor, weights: torch.Tensor, qs: torch.Tensor
+    means: torch.Tensor, weights: torch.Tensor, qs: torch.Tensor,
+    probe: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """H9: f64 [G, Q] quantiles of each group's digest."""
+    """H9: f64 [G, Q] quantiles of each group's digest, a warp a group. A
+    group whose weights are whole numbers in [0, 2^24] summing to at most
+    2^24 (``tdigest.quantile_exact_groups``) gets the plain version's bits;
+    another sums its weights in centroid order. ``probe``: None, or int64
+    [TQ_PROBE] on the device for CTA 0's clock64 phases."""
     device = means.device
     _require(means, "means", torch.float32, device, 2)
     _require(weights, "weights", torch.float32, device, 2)
     _require(qs, "qs", torch.float32, device, 1)
     G, C = means.shape
+    if weights.shape != means.shape:
+        raise ValueError(f"tdigest_quantiles: weights {tuple(weights.shape)}, means {(G, C)}")
     Q = qs.shape[0]
     out = torch.empty((G, Q), dtype=torch.float64, device=device)
     if G == 0 or Q == 0:
         return out
+    if G >= 2**31 or C >= 2**31 or G * Q >= 2**31:
+        raise ValueError(f"tdigest_quantiles: G, C and G * Q must fit int32, got {G}, {C}, {Q}")
+    _probe_arg(probe, TQ_PROBE, device)
     _launch(
         "tdigest_quantiles", device,
         means.data_ptr(), weights.data_ptr(), G, C, qs.data_ptr(), Q, out.data_ptr(),
+        probe.data_ptr() if probe is not None else None,
     )
     return out
+
+
+def tdigest_quantiles_geometry(G: int) -> tuple[int, int, int]:
+    """(CTAs, threads a CTA, dynamic shared bytes) of H9's launch over G
+    groups, as its launcher computes them."""
+    out = (ctypes.c_int * 3)()
+    _check(library().px_tdigest_quantiles_geometry(G, out), "tdigest_quantiles geometry")
+    return tuple(out)
 
 
 def hll_estimate(state: torch.Tensor, alpha: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1215,10 +1262,7 @@ def scan_compact_geometry(device: torch.device, n: int) -> tuple[int, int, int]:
 def _scan_launch(mask: torch.Tensor, cols: list, bufs: list, written, limit: int, index_out,
                  pad: int, probe: Optional[torch.Tensor]) -> None:
     device = mask.device
-    if probe is not None:
-        _require(probe, "probe", torch.int64, device, 1)
-        if probe.shape[0] < SCAN_PROBE:
-            raise ValueError(f"probe has {probe.shape[0]} entries, expected {SCAN_PROBE}")
+    _probe_arg(probe, SCAN_PROBE, device)
     n, k = mask.shape[0], len(cols)
     sms = sm_count(device)
     grid, share = h12_shares(n, sms)
@@ -1535,10 +1579,7 @@ def join_agg_fold(
         _require(eff_mask, "eff_mask", torch.bool, device, 1)
         if eff_mask.shape[0] != n:
             raise ValueError(f"eff_mask has {eff_mask.shape[0]} rows, expected {n}")
-    if probe is not None:
-        _require(probe, "probe", torch.int64, device, 1)
-        if probe.shape[0] < JOIN_AGG_PROBE:
-            raise ValueError(f"probe needs {JOIN_AGG_PROBE} words")
+    _probe_arg(probe, JOIN_AGG_PROBE, device)
     if K >= 2**31 or cap >= 2**31:
         raise ValueError("join_agg_fold: K and cap must fit int32")
     if n == 0:
@@ -1695,10 +1736,7 @@ def codec_rle_decode(values: torch.Tensor, ends: torch.Tensor, out: torch.Tensor
     _require(values, "values", out.dtype, device, 2)
     _require(ends, "ends", torch.int32, device, 2)
     R = values.shape[1]
-    if probe is not None:
-        _require(probe, "probe", torch.int64, device, 1)
-        if probe.shape[0] < RLE_PROBE:
-            raise ValueError(f"probe has {probe.shape[0]} entries, expected {RLE_PROBE}")
+    _probe_arg(probe, RLE_PROBE, device)
     if (values.shape[0] != d or tuple(ends.shape) != (d, R) or R == 0 or R >= 2**31
             or d > 65535 or L >= 2**31):
         raise ValueError(
@@ -2224,10 +2262,7 @@ def kmeans_fit(points: torch.Tensor, weights: torch.Tensor, k: int,
     if k < 1 or S < 1 or d < 1 or iters < 0:
         raise ValueError(f"kmeans_fit: k {k}, S {S}, d {d} must be positive, iters {iters} not "
                          f"negative")
-    if probe is not None:
-        _require(probe, "probe", torch.int64, device, 1)
-        if probe.shape[0] < KMEANS_PROBE:
-            raise ValueError(f"probe has {probe.shape[0]} entries, expected {KMEANS_PROBE}")
+    _probe_arg(probe, KMEANS_PROBE, device)
     out = torch.empty((G, k, d), dtype=torch.float32, device=device)
     if G == 0:
         return out

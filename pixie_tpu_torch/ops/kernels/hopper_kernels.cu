@@ -64,8 +64,10 @@
 // partials (about 2-3 us, measured) add to it. H3's lane (a) is bound by
 // log_bin's arithmetic a row (an IEEE division and logf: the rows phase,
 // measured, takes about twice the loads' time), then by a shared atomic a
-// row and one global atomic a nonzero cell a cluster. H4
-// reads S x 1024 counts once and is latency-bound at small S.
+// row and one global atomic a nonzero cell a cluster. H4 reads S x 1024
+// counts once: at the paths' 16 and 1024 groups a warp's chain (its loads,
+// two scans, a lower bound, a table read) sets its time over the launch, at
+// 4096 groups the 33.5 MB read.
 //
 // Integer sums are unsigned 64-bit wrapping adds, so they are exact mod 2^64
 // like the reference's reconstruct_i64. H2's f64 adds and products round on
@@ -801,57 +803,205 @@ __global__ void __launch_bounds__(px::kThreads) hist_global_kernel(const HistArg
 }
 
 // ---------------------------------------------------------------- H4
-// One CTA per group: a block scan of the group's bins, then for each q the
-// first bin whose cumulative count reaches max(q * total, 1e-9) (bin 0 when
-// none does, as the reference's argmax over an all-false row gives), and
-// that bin's geometric midpoint min * gamma^(bin-1) * sqrt(gamma); bin 0
-// gives min, an empty group 0. Counts stay int64: below 2^53 the f64
-// comparison against the target is the reference's exactly.
-constexpr int kScanThreads = 256;
+// A warp a group, no barrier; as many groups a CTA as there are groups for
+// each SM, up to 4 (``hq_warps``), so that a few groups spread over as many
+// SMs. A lane holds 32 consecutive bins of a chunk of 1024 (at nbins = 1024
+// the whole row). The warp reads the chunk coalesced (16 loads of 16 bytes a
+// lane, all issued before any is used: a lane's own 256 bytes read straight
+// would touch 32 lines an instruction) and hands each lane its bins through
+// its 8.5 KB of shared memory, rows padded so that neither side conflicts. A
+// lane adds its bins in int64, and a five-round shuffle scan gives it the
+// counts before its bins and the group's total. Each cumulative count is
+// converted to f64 once: below 2^53 these and the total are the reference's
+// f64 sums exactly. The first bin whose count reaches a target is the first
+// whose running maximum of the counts so far does (``key``, non-decreasing
+// along the bins; the counts themselves where none is negative), so each q
+// is a lower bound over sorted keys, and every lane searches its own q at
+// once: five shuffle steps find the lane, the 32 keys of that lane the bin.
+// The target is max(q * total, 1e-9) in f64, as the reference computes it;
+// a q that no bin reaches takes bin 0 (the reference's argmax over an
+// all-false row). The value is the bin's geometric midpoint from ``mid``, a
+// table the wrapper builds with the plain version's own expression on the
+// same device, so the kernel computes no pow and returns the plain version's
+// bits; an empty group gives 0. A row wider than a chunk is summed in one
+// pass, then searched chunk by chunk (reloaded from the L1) until every q of
+// a block of 32 has its bin.
+constexpr unsigned int kHqAll = 0xFFFFFFFFu;
+constexpr int kHqMaxWarps = 4;   // groups a CTA at most: a warp a group
+constexpr int kHqLaneBins = 32;  // consecutive bins a lane
+constexpr int kHqChunk = 32 * kHqLaneBins;
+constexpr int kHqRow = kHqLaneBins + 2;  // a lane's row of shared memory, in int64
 
-__global__ void hist_quantiles_kernel(const long long* __restrict__ state, int nbins,
-                                      const double* __restrict__ qs, int Q, double min_value,
-                                      double gamma, double sqrt_gamma,
-                                      double* __restrict__ out) {
-  __shared__ long long scan[kScanThreads];
-  __shared__ int first_bin;
-  const long long* row = state + (long long)blockIdx.x * nbins;
-  const int per = (nbins + kScanThreads - 1) / kScanThreads;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, nbins);
-  long long mine = 0;
-  for (int b = lo; b < hi; ++b) mine += row[b];
-  scan[threadIdx.x] = mine;
-  __syncthreads();
-  // Hillis-Steele inclusive scan over the per-thread sums.
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const long long add = threadIdx.x >= off ? scan[threadIdx.x - off] : 0;
-    __syncthreads();
-    scan[threadIdx.x] += add;
-    __syncthreads();
+// Groups a CTA: about one a warp on every SM, 1 to kHqMaxWarps.
+inline int hq_warps(int S) {
+  const int sms = px::num_sms();
+  return max(1, min(kHqMaxWarps, (S + sms - 1) / sms));
+}
+
+// A lane's bins of the chunk starting at bin c0 (0 past nbins), read
+// coalesced into the warp's rows ``sh`` and back; ``vec``: the row is
+// 16-byte aligned and nbins even.
+__device__ __forceinline__ void hq_load(const long long* __restrict__ row, int nbins, bool vec,
+                                        int c0, int lane, long long* __restrict__ sh,
+                                        long long (&b)[kHqLaneBins]) {
+  if (vec) {  // load i: bins c0 + 64 i + 2 lane and the next, row 2 i + lane / 16
+    longlong2 v[kHqLaneBins / 2];
+#pragma unroll
+    for (int i = 0; i < kHqLaneBins / 2; ++i) {
+      const int bin = c0 + 64 * i + 2 * lane;
+      v[i] = bin < nbins ? __ldg(reinterpret_cast<const longlong2*>(row + bin))
+                         : make_longlong2(0ll, 0ll);
+    }
+#pragma unroll
+    for (int i = 0; i < kHqLaneBins / 2; ++i) {
+      *reinterpret_cast<longlong2*>(sh + (2 * i + (lane >> 4)) * kHqRow + ((2 * lane) & 31)) =
+          v[i];
+    }
+  } else {  // load i: bin c0 + 32 i + lane, row i
+    long long v[kHqLaneBins];
+#pragma unroll
+    for (int i = 0; i < kHqLaneBins; ++i) {
+      const int bin = c0 + 32 * i + lane;
+      v[i] = bin < nbins ? row[bin] : 0ll;
+    }
+#pragma unroll
+    for (int i = 0; i < kHqLaneBins; ++i) sh[i * kHqRow + lane] = v[i];
   }
-  const long long total = scan[kScanThreads - 1];
-  const long long before = scan[threadIdx.x] - mine;
-  for (int q = 0; q < Q; ++q) {
-    if (threadIdx.x == 0) first_bin = nbins;
-    __syncthreads();
-    const double target = fmax(qs[q] * (double)total, 1e-9);
-    long long cum = before;
-    for (int b = lo; b < hi; ++b) {
-      cum += row[b];
-      if ((double)cum >= target) {
-        atomicMin(&first_bin, b);
-        break;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < kHqLaneBins / 2; ++k) {
+    const longlong2 x = *reinterpret_cast<const longlong2*>(sh + lane * kHqRow + 2 * k);
+    b[2 * k] = x.x;
+    b[2 * k + 1] = x.y;
+  }
+  __syncwarp();  // the rows are free for the next chunk
+}
+
+// The running maximum of the cumulative counts (f64) through each of the
+// lane's bins into ``key``, from ``carry`` (the counts of the chunks before)
+// and ``kcarry`` (their keys' maximum); returns the chunk's total. Where no
+// count of the chunk is negative the cumulative counts are their own
+// running maximum.
+__device__ __forceinline__ long long hq_keys(const long long (&b)[kHqLaneBins], long long carry,
+                                             double kcarry, int lane,
+                                             double (&key)[kHqLaneBins]) {
+  long long s = 0;
+  bool down = false;
+#pragma unroll
+  for (int k = 0; k < kHqLaneBins; ++k) {
+    s += b[k];
+    down = down || b[k] < 0;
+  }
+  long long incl = s;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long t = __shfl_up_sync(kHqAll, incl, d);
+    if (lane >= d) incl += t;
+  }
+  long long run = carry + incl - s;
+#pragma unroll
+  for (int k = 0; k < kHqLaneBins; ++k) {
+    run += b[k];
+    key[k] = (double)run;
+  }
+  if (__any_sync(kHqAll, down)) {
+    double mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kHqLaneBins; ++k) {
+      mx = fmax(mx, key[k]);
+      key[k] = mx;
+    }
+    double before = __shfl_up_sync(kHqAll, mx, 1);  // the lanes before's maximum
+    before = lane == 0 ? kcarry : fmax(before, kcarry);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const double t = __shfl_up_sync(kHqAll, before, d);
+      if (lane >= d) before = fmax(before, t);
+    }
+    kcarry = before;
+  }
+#pragma unroll
+  for (int k = 0; k < kHqLaneBins; ++k) key[k] = fmax(key[k], kcarry);
+  return __shfl_sync(kHqAll, incl, 31);
+}
+
+// CTA 0's first lane stamps clock64 into probe[k] (if given): 0 at the
+// start, 1 with the total, 2 after the searches, 3 after the stores.
+__device__ __forceinline__ void hq_clock(long long* probe, int k) {
+  if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) probe[k] = clock64();
+}
+
+template <bool kOne>  // kOne: the row is one chunk, loaded once
+__device__ __forceinline__ void hq_group(const long long* __restrict__ row, int nbins, bool vec,
+                                         const double* __restrict__ qs, int Q,
+                                         const double* __restrict__ mid,
+                                         double* __restrict__ out, int lane,
+                                         long long* __restrict__ sh, long long* probe) {
+  const int nch = kOne ? 1 : (nbins + kHqChunk - 1) / kHqChunk;
+  long long b[kHqLaneBins];
+  double key[kHqLaneBins];
+  long long total = 0;
+  if (kOne) {
+    hq_load(row, nbins, vec, 0, lane, sh, b);
+    total = hq_keys(b, 0, -INFINITY, lane, key);
+  } else {
+    for (int c = 0; c < nch; ++c) {  // the lane's sums, then one warp sum
+      hq_load(row, nbins, vec, c * kHqChunk, lane, sh, b);
+#pragma unroll
+      for (int k = 0; k < kHqLaneBins; ++k) total += b[k];
+    }
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) total += __shfl_xor_sync(kHqAll, total, w);
+  }
+  hq_clock(probe, 1);
+  const double dtotal = (double)total;
+  for (int q0 = 0; q0 < Q; q0 += 32) {
+    const int nq = min(Q - q0, 32);
+    // lane j searches the block's j-th q
+    const double target = fmax((lane < nq ? qs[q0 + lane] : 0.0) * dtotal, 1e-9);
+    int bin = 0;
+    bool found = false;
+    long long carry = 0;
+    double kcarry = -INFINITY;
+    for (int c = 0; c < nch && __any_sync(kHqAll, lane < nq && !found); ++c) {
+      if (!kOne) {
+        hq_load(row, nbins, vec, c * kHqChunk, lane, sh, b);
+        carry += hq_keys(b, carry, kcarry, lane, key);
       }
+      kcarry = __shfl_sync(kHqAll, key[kHqLaneBins - 1], 31);  // the chunk's largest key
+      int pos = 0;  // the first lane whose last key reaches the target
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) {
+        pos += __shfl_sync(kHqAll, key[kHqLaneBins - 1], pos + d - 1) < target ? d : 0;
+      }
+      int slot = 0;  // its keys below the target
+#pragma unroll
+      for (int k = 0; k < kHqLaneBins; ++k) slot += __shfl_sync(kHqAll, key[k], pos) < target;
+      const bool now = !found && kcarry >= target;
+      bin = now ? c * kHqChunk + pos * kHqLaneBins + slot : bin;
+      found = found || now;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const int bin = first_bin == nbins ? 0 : first_bin;
-      double v = bin == 0 ? min_value
-                          : min_value * pow(gamma, (double)(bin - 1)) * sqrt_gamma;
-      out[(long long)blockIdx.x * Q + q] = total > 0 ? v : 0.0;
-    }
-    __syncthreads();
+    hq_clock(probe, 2);
+    if (lane < nq) out[q0 + lane] = total > 0 ? mid[bin] : 0.0;
+  }
+  hq_clock(probe, 3);
+}
+
+__global__ void __launch_bounds__(kHqMaxWarps * 32)
+    hist_quantiles_kernel(const long long* __restrict__ state, int S, int nbins, int vec,
+                          const double* __restrict__ qs, int Q, const double* __restrict__ mid,
+                          double* __restrict__ out, long long* __restrict__ probe) {
+  __shared__ __align__(16) long long rows[kHqMaxWarps][32 * kHqRow];
+  hq_clock(probe, 0);
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= S) return;  // a whole warp
+  const long long* row = state + g * nbins;
+  long long* sh = rows[threadIdx.x >> 5];
+  if (nbins <= kHqChunk) {
+    hq_group<true>(row, nbins, vec != 0, qs, Q, mid, out + g * Q, lane, sh, probe);
+  } else {
+    hq_group<false>(row, nbins, vec != 0, qs, Q, mid, out + g * Q, lane, sh, probe);
   }
 }
 
@@ -1197,15 +1347,27 @@ int px_sm_clock_khz(int* khz) {
   return (int)cudaDeviceGetAttribute(khz, cudaDevAttrClockRate, dev);
 }
 
-// out: f64 [S, Q].
-int px_hist_quantiles(const void* state, int S, int nbins, const void* qs, int Q,
-                      double min_value, double gamma, double sqrt_gamma, void* out,
-                      void* stream) {
-  if (S <= 0) return 0;
-  hist_quantiles_kernel<<<S, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)state, nbins, (const double*)qs, Q, min_value, gamma, sqrt_gamma,
-      (double*)out);
+// mid: f64 [nbins], each bin's value; out: f64 [S, Q]; probe: null or
+// int64 [4], CTA 0's clock64 phases.
+int px_hist_quantiles(const void* state, int S, int nbins, const void* qs, int Q, const void* mid,
+                      void* out, void* probe, void* stream) {
+  if (S <= 0 || Q <= 0) return 0;
+  const int vec = nbins % 2 == 0 && (uintptr_t)state % 16 == 0;
+  const int warps = hq_warps(S);
+  hist_quantiles_kernel<<<(S + warps - 1) / warps, warps * 32, 0, (cudaStream_t)stream>>>(
+      (const long long*)state, S, nbins, vec, (const double*)qs, Q, (const double*)mid,
+      (double*)out, (long long*)probe);
   return (int)cudaGetLastError();
+}
+
+// out: {CTAs, threads a CTA, dynamic shared bytes} of px_hist_quantiles'
+// launch over S groups on the current device (its shared rows are static).
+int px_hist_quantiles_geometry(int S, int* out) {
+  const int warps = hq_warps(max(S, 1));
+  out[0] = S > 0 ? (S + warps - 1) / warps : 0;
+  out[1] = warps * 32;
+  out[2] = 0;
+  return 0;
 }
 
 }  // extern "C"

@@ -53,8 +53,9 @@
 // key (not 2C compares), one scan, the cluster of each midpoint and one
 // segmented scan, about 2 barriers a step; at the main path's 16 groups
 // it is bound by its latency (16 CTAs, a launch, dependent shared-memory
-// steps), not by its bytes. H9 is a thread a (group, quantile), latency-bound
-// at the main path's 16 groups. H10 is a warp a group with the sum in
+// steps), not by its bytes. H9 is a warp a group (its loads, a shuffle scan,
+// and about 36 shuffles that search every q at once), latency-bound at the
+// main path's 16 groups: its launch sets most of its time. H10 is a warp a group with the sum in
 // integers (no shared memory, no barrier): at flows' 4096 groups of 2048
 // registers its 32 MB read sets its time; at 16 to 64 groups, its launch.
 // H30 is a gather: one thread a query hashes its word once and reads its
@@ -845,48 +846,295 @@ __global__ void __launch_bounds__(1024) tdigest_merge_kernel(
 }
 
 // ---------------------------------------------------------------- H9
-// One thread per (group, q): the first non-empty centroid whose cumulative
-// midpoint reaches q * total (else the last non-empty one), and the f32
-// interpolation between it and its predecessor, as quantile_values does.
-__global__ void tdigest_quantiles_kernel(const float* __restrict__ means,
-                                         const float* __restrict__ weights, int G, int C,
-                                         const float* __restrict__ qs, int Q,
-                                         double* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= G * Q) return;
-  const int g = idx / Q;
-  const float* w = weights + (long long)g * C;
-  const float* m = means + (long long)g * C;
-  float total = 0.0f;
-  for (int i = 0; i < C; ++i) total = __fadd_rn(total, w[i]);
-  const float target = __fmul_rn(qs[idx % Q], total);
-  int hi = -1, nvalid = 0;
-  float run = 0.0f;
-  for (int i = 0; i < C; ++i) {
-    run = __fadd_rn(run, w[i]);
-    if (w[i] > 0.0f) {
-      ++nvalid;
-      if (hi < 0 && __fsub_rn(run, __fmul_rn(0.5f, w[i])) >= target) hi = i;
+// A warp a group, no shared memory and no barrier; as many groups a CTA as
+// there are groups for each SM, up to 8 (``tq_warps``). A lane holds 8
+// consecutive centroids of a chunk of 256 (at C = 256 the whole digest: two
+// 16-byte loads each of weights and means, all issued before any is used).
+// A ballot asks whether every weight is a whole number in [0, 2^24] and the
+// total at most 2^24 (every weight a path makes counts rows): then every
+// partial sum is exact in any order, so an integer shuffle scan gives the
+// sequential f32 cumulative weights and total bit for bit, and each midpoint
+// cum - 0.5 w is one correctly rounded __fsub_rn of the same operands as the
+// plain version's. Another group is summed in the old sequential order, one
+// lane after the other in the same warp. The first non-empty centroid whose
+// midpoint reaches a target is the first whose running maximum of the
+// non-empty midpoints so far does (``key``, non-decreasing), so each q is a
+// lower bound over sorted keys and every lane searches its own q at once:
+// five shuffle steps find the lane, its 8 keys the centroid, and 18 more
+// shuffles bring the midpoints and means at it and its predecessor. A q
+// that no midpoint reaches takes the reference's last_valid (the count of
+// non-empty centroids less one). Each lane then runs its q's f32
+// interpolation, quantile_values' with every step rounded on its own. A
+// digest wider than a chunk is checked and counted in one pass of its
+// lanes, then searched chunk by chunk (reloaded from the L1) until every q
+// of a block of 32 has its centroid.
+constexpr unsigned int kTqAll = 0xFFFFFFFFu;
+constexpr int kTqMaxWarps = 8;  // groups a CTA at most: a warp a group
+constexpr int kTqLane = 8;      // consecutive centroids a lane
+constexpr int kTqChunk = 32 * kTqLane;
+constexpr unsigned int kTqExact = 1u << 24;  // the largest exact total
+
+// Groups a CTA: about one a warp on every SM, 1 to kTqMaxWarps.
+inline int tq_warps(int G) {
+  const int sms = px::num_sms();
+  return max(1, min(kTqMaxWarps, (G + sms - 1) / sms));
+}
+
+// A lane's weights and means of the chunk starting at c0 (0 past C);
+// ``vec``: both rows 16-byte aligned and C a multiple of 4, so a 16-byte
+// vector lies wholly inside or outside the row.
+__device__ __forceinline__ void tq_load(const float* __restrict__ w, const float* __restrict__ m,
+                                        int C, bool vec, int c0, int lane, float (&wr)[kTqLane],
+                                        float (&mr)[kTqLane]) {
+  const int first = c0 + lane * kTqLane;
+  if (vec) {
+    float4 a[kTqLane / 4], b[kTqLane / 4];
+#pragma unroll
+    for (int h = 0; h < kTqLane / 4; ++h) {
+      const bool in = first + 4 * h < C;
+      a[h] = in ? __ldg(reinterpret_cast<const float4*>(w + first) + h) : make_float4(0, 0, 0, 0);
+      b[h] = in ? __ldg(reinterpret_cast<const float4*>(m + first) + h) : make_float4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int h = 0; h < kTqLane / 4; ++h) {
+      wr[4 * h] = a[h].x, wr[4 * h + 1] = a[h].y, wr[4 * h + 2] = a[h].z, wr[4 * h + 3] = a[h].w;
+      mr[4 * h] = b[h].x, mr[4 * h + 1] = b[h].y, mr[4 * h + 2] = b[h].z, mr[4 * h + 3] = b[h].w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kTqLane; ++k) {
+      wr[k] = first + k < C ? w[first + k] : 0.0f;
+      mr[k] = first + k < C ? m[first + k] : 0.0f;
     }
   }
-  if (hi < 0) hi = max(nvalid - 1, 0);
-  const int lo = max(hi - 1, 0);
-  float c_lo = 0.0f, c_hi = 0.0f;
-  run = 0.0f;
-  for (int i = 0; i <= hi; ++i) {
-    run = __fadd_rn(run, w[i]);
-    const float c = __fsub_rn(run, __fmul_rn(0.5f, w[i]));
-    if (i == lo) c_lo = c;
-    if (i == hi) c_hi = c;
+}
+
+// The midpoints cum - 0.5 w of the lane's centroids, the cumulative weight
+// carried from the chunks before in ``icarry`` (exact groups, as an
+// integer) or ``fcarry`` (others: f32 adds in centroid order, lane after
+// lane); both carries advance past the chunk.
+__device__ __forceinline__ void tq_midpoints(const float (&wr)[kTqLane], bool exact,
+                                             unsigned int& icarry, float& fcarry, int lane,
+                                             float (&cum)[kTqLane]) {
+  float run[kTqLane];
+  if (exact) {
+    unsigned int lp[kTqLane], s = 0u;
+#pragma unroll
+    for (int k = 0; k < kTqLane; ++k) {
+      s += (unsigned int)wr[k];
+      lp[k] = s;
+    }
+    unsigned int incl = s;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned int t = __shfl_up_sync(kTqAll, incl, d);
+      if (lane >= d) incl += t;
+    }
+    const unsigned int base = icarry + incl - s;
+#pragma unroll
+    for (int k = 0; k < kTqLane; ++k) run[k] = __uint2float_rn(base + lp[k]);
+    icarry += __shfl_sync(kTqAll, incl, 31);
+  } else {
+    float r = fcarry;
+    for (int L = 0; L < 32; ++L) {
+      if (lane == L) {
+#pragma unroll
+        for (int k = 0; k < kTqLane; ++k) {
+          r = __fadd_rn(r, wr[k]);
+          run[k] = r;
+        }
+      }
+      r = __shfl_sync(kTqAll, r, L);
+    }
+    fcarry = r;
   }
-  const float m_lo = m[lo], m_hi = m[hi];
-  float frac = c_hi > c_lo
-                   ? __fdiv_rn(__fsub_rn(target, c_lo), fmaxf(__fsub_rn(c_hi, c_lo), 1e-9f))
-                   : 1.0f;
-  frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-  float v = __fadd_rn(m_lo, __fmul_rn(frac, __fsub_rn(m_hi, m_lo)));
-  if (hi == lo) v = m_hi;
-  out[idx] = total > 0.0f ? (double)v : 0.0;
+#pragma unroll
+  for (int k = 0; k < kTqLane; ++k) cum[k] = __fsub_rn(run[k], __fmul_rn(0.5f, wr[k]));
+}
+
+// The running maximum of the non-empty centroids' midpoints through each of
+// the lane's centroids (-inf before the first) into ``key``, from
+// ``kcarry``, the chunks before's.
+__device__ __forceinline__ void tq_keys(const float (&wr)[kTqLane], const float (&cum)[kTqLane],
+                                        float kcarry, int lane, float (&key)[kTqLane]) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kTqLane; ++k) {
+    mx = wr[k] > 0.0f ? fmaxf(mx, cum[k]) : mx;  // fmaxf drops a NaN midpoint
+    key[k] = mx;
+  }
+  float before = __shfl_up_sync(kTqAll, mx, 1);  // the lanes before's maximum
+  before = lane == 0 ? kcarry : fmaxf(before, kcarry);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float t = __shfl_up_sync(kTqAll, before, d);
+    if (lane >= d) before = fmaxf(before, t);
+  }
+#pragma unroll
+  for (int k = 0; k < kTqLane; ++k) key[k] = fmaxf(key[k], before);
+}
+
+// The midpoint and mean of centroid i (the same in every lane) into (cv, mv)
+// when it lies in the chunk at c0, or is the chunk before's last (pc, pm);
+// branch-free, every lane taking part in the shuffles.
+__device__ __forceinline__ void tq_pick(int i, int c0, const float (&cum)[kTqLane],
+                                        const float (&mr)[kTqLane], float pc, float pm,
+                                        float& cv, float& mv) {
+  const int r = i - c0;
+  const int slot = r & (kTqLane - 1);
+  float a = cum[0], b = mr[0];
+#pragma unroll
+  for (int k = 1; k < kTqLane; ++k) {
+    a = slot == k ? cum[k] : a;
+    b = slot == k ? mr[k] : b;
+  }
+  a = __shfl_sync(kTqAll, a, (r / kTqLane) & 31);
+  b = __shfl_sync(kTqAll, b, (r / kTqLane) & 31);
+  const bool in = r >= 0 && r < kTqChunk;
+  cv = i == c0 - 1 ? pc : in ? a : cv;
+  mv = i == c0 - 1 ? pm : in ? b : mv;
+}
+
+// CTA 0's first lane stamps clock64 into probe[k] (if given): 0 at the
+// start, 1 after the checks, 2 after the midpoints, 3 after the searches,
+// 4 after the stores.
+__device__ __forceinline__ void tq_clock(long long* probe, int k) {
+  if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) probe[k] = clock64();
+}
+
+template <bool kOne>  // kOne: the digest is one chunk, loaded once
+__device__ __forceinline__ void tq_group(const float* __restrict__ w, const float* __restrict__ m,
+                                         int C, bool vec, const float* __restrict__ qs, int Q,
+                                         double* __restrict__ out, int lane, long long* probe) {
+  const int nch = kOne ? 1 : (C + kTqChunk - 1) / kTqChunk;
+  float wr[kTqLane], mr[kTqLane], cum[kTqLane], key[kTqLane];
+  bool ok = true;
+  unsigned int isum = 0u;  // the lane's whole weights, capped at 2^25
+  int nv = 0;
+  for (int c = 0; c < nch; ++c) {
+    tq_load(w, m, C, vec, c * kTqChunk, lane, wr, mr);
+#pragma unroll
+    for (int k = 0; k < kTqLane; ++k) {
+      const float x = wr[k];
+      ok = ok && x >= 0.0f && x <= (float)kTqExact && x == truncf(x);
+      isum = min(isum + (ok ? (unsigned int)x : 0u), 2u * kTqExact);
+      nv += x > 0.0f;
+    }
+  }
+  const unsigned int itotal = __reduce_add_sync(kTqAll, isum);  // at most 2^30
+  const bool exact = __all_sync(kTqAll, ok) && itotal <= kTqExact;
+  const int last_valid = max((int)__reduce_add_sync(kTqAll, (unsigned int)nv) - 1, 0);
+  tq_clock(probe, 1);
+  float total = __uint2float_rn(itotal);
+  if (kOne) {
+    unsigned int ic = 0u;
+    float fc = 0.0f;
+    tq_midpoints(wr, exact, ic, fc, lane, cum);
+    tq_keys(wr, cum, -INFINITY, lane, key);
+    if (!exact) total = fc;
+  } else if (!exact) {
+    unsigned int ic = 0u;
+    float fc = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      tq_load(w, m, C, vec, c * kTqChunk, lane, wr, mr);
+      tq_midpoints(wr, false, ic, fc, lane, cum);
+    }
+    total = fc;
+  }
+  tq_clock(probe, 2);
+  for (int q0 = 0; q0 < Q; q0 += 32) {
+    const int nq = min(Q - q0, 32);
+    // lane j searches the block's j-th q: its centroid (hi) and the
+    // midpoints and means at hi and its predecessor
+    const float target = __fmul_rn(lane < nq ? qs[q0 + lane] : 0.0f, total);
+    int hi = last_valid;
+    bool found = false;
+    float c_lo = 0.0f, c_hi = 0.0f, m_lo = 0.0f, m_hi = 0.0f;
+    // the same at last_valid, for a q whose target no midpoint reaches
+    float f_clo = 0.0f, f_chi = 0.0f, f_mlo = 0.0f, f_mhi = 0.0f;
+    float pc = 0.0f, pm = 0.0f;  // the chunk before's last midpoint and mean
+    float kcarry = -INFINITY;
+    unsigned int ic = 0u;
+    float fc = 0.0f;
+    for (int c = 0; c < nch && __any_sync(kTqAll, lane < nq && !found); ++c) {
+      const int c0 = c * kTqChunk;
+      if (!kOne) {
+        tq_load(w, m, C, vec, c0, lane, wr, mr);
+        tq_midpoints(wr, exact, ic, fc, lane, cum);
+        tq_keys(wr, cum, kcarry, lane, key);
+      }
+      tq_pick(last_valid, c0, cum, mr, pc, pm, f_chi, f_mhi);
+      tq_pick(max(last_valid - 1, 0), c0, cum, mr, pc, pm, f_clo, f_mlo);
+      kcarry = __shfl_sync(kTqAll, key[kTqLane - 1], 31);  // the chunk's largest key
+      int pos = 0;  // the first lane whose last key reaches the target
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1) {
+        pos += __shfl_sync(kTqAll, key[kTqLane - 1], pos + d - 1) < target ? d : 0;
+      }
+      int slot = 0;  // its keys below the target
+      float a[kTqLane], b[kTqLane];
+#pragma unroll
+      for (int k = 0; k < kTqLane; ++k) {
+        slot += __shfl_sync(kTqAll, key[k], pos) < target;
+        a[k] = __shfl_sync(kTqAll, cum[k], pos);
+        b[k] = __shfl_sync(kTqAll, mr[k], pos);
+      }
+      const float ac = __shfl_sync(kTqAll, cum[kTqLane - 1], (pos + 31) & 31);
+      const float bc = __shfl_sync(kTqAll, mr[kTqLane - 1], (pos + 31) & 31);
+      float chi = a[0], mhi = b[0];
+      float clo = pos > 0 ? ac : c0 > 0 ? pc : a[0];  // slot 0's predecessor
+      float mlo = pos > 0 ? bc : c0 > 0 ? pm : b[0];
+#pragma unroll
+      for (int k = 1; k < kTqLane; ++k) {
+        chi = slot == k ? a[k] : chi;
+        mhi = slot == k ? b[k] : mhi;
+        clo = slot == k ? a[k - 1] : clo;
+        mlo = slot == k ? b[k - 1] : mlo;
+      }
+      const bool now = !found && kcarry >= target;
+      hi = now ? c0 + pos * kTqLane + slot : hi;
+      c_lo = now ? clo : c_lo;
+      c_hi = now ? chi : c_hi;
+      m_lo = now ? mlo : m_lo;
+      m_hi = now ? mhi : m_hi;
+      found = found || now;
+      pc = __shfl_sync(kTqAll, cum[kTqLane - 1], 31);
+      pm = __shfl_sync(kTqAll, mr[kTqLane - 1], 31);
+    }
+    tq_clock(probe, 3);
+    if (lane < nq) {  // each lane its q's interpolation
+      c_lo = found ? c_lo : f_clo;
+      c_hi = found ? c_hi : f_chi;
+      m_lo = found ? m_lo : f_mlo;
+      m_hi = found ? m_hi : f_mhi;
+      const int lo = max(hi - 1, 0);
+      float frac = c_hi > c_lo
+                       ? __fdiv_rn(__fsub_rn(target, c_lo), fmaxf(__fsub_rn(c_hi, c_lo), 1e-9f))
+                       : 1.0f;
+      frac = fminf(fmaxf(frac, 0.0f), 1.0f);
+      float v = __fadd_rn(m_lo, __fmul_rn(frac, __fsub_rn(m_hi, m_lo)));
+      if (hi == lo) v = m_hi;
+      out[q0 + lane] = total > 0.0f ? (double)v : 0.0;
+    }
+  }
+  tq_clock(probe, 4);
+}
+
+__global__ void __launch_bounds__(kTqMaxWarps * 32)
+    tdigest_quantiles_kernel(const float* __restrict__ means, const float* __restrict__ weights,
+                             int G, int C, int vec, const float* __restrict__ qs, int Q,
+                             double* __restrict__ out, long long* __restrict__ probe) {
+  tq_clock(probe, 0);
+  const int lane = threadIdx.x & 31;
+  const long long g = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (g >= G) return;  // a whole warp
+  const float* w = weights + g * C;
+  const float* m = means + g * C;
+  if (C <= kTqChunk) {
+    tq_group<true>(w, m, C, vec != 0, qs, Q, out + g * Q, lane, probe);
+  } else {
+    tq_group<false>(w, m, C, vec != 0, qs, Q, out + g * Q, lane, probe);
+  }
 }
 
 // ---------------------------------------------------------------- H10
@@ -1182,16 +1430,26 @@ int px_tdigest_merge_geometry(int G, int C, int* out) {
   return 0;
 }
 
-// out: f64 [G, Q].
+// out: f64 [G, Q]; probe: null or int64 [5], CTA 0's clock64 phases.
 int px_tdigest_quantiles(const void* means, const void* weights, int G, int C, const void* qs,
-                         int Q, void* out, void* stream) {
-  const int total = G * Q;
-  if (total <= 0) return 0;
-  const int threads = 128;
-  tdigest_quantiles_kernel<<<(total + threads - 1) / threads, threads, 0,
-                             (cudaStream_t)stream>>>(
-      (const float*)means, (const float*)weights, G, C, (const float*)qs, Q, (double*)out);
+                         int Q, void* out, void* probe, void* stream) {
+  if (G <= 0 || Q <= 0) return 0;
+  const int vec = C % 4 == 0 && (uintptr_t)means % 16 == 0 && (uintptr_t)weights % 16 == 0;
+  const int warps = tq_warps(G);
+  tdigest_quantiles_kernel<<<(G + warps - 1) / warps, warps * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)means, (const float*)weights, G, C, vec, (const float*)qs, Q, (double*)out,
+      (long long*)probe);
   return (int)cudaGetLastError();
+}
+
+// out: {CTAs, threads a CTA, dynamic shared bytes} of px_tdigest_quantiles'
+// launch over G groups on the current device.
+int px_tdigest_quantiles_geometry(int G, int* out) {
+  const int warps = tq_warps(max(G, 1));
+  out[0] = G > 0 ? (G + warps - 1) / warps : 0;
+  out[1] = warps * 32;
+  out[2] = 0;
+  return 0;
 }
 
 // state: int32 [S, m]; est: f64 [S]; rounded: int64 [S]. p = floor(log2 m):

@@ -230,10 +230,21 @@ def quantile_values_plain(state: dict, qs: Sequence[float]) -> torch.Tensor:
     return torch.where(total > 0, out, 0.0).to(torch.float64)
 
 
+def quantile_exact_groups(weights: torch.Tensor) -> torch.Tensor:
+    """bool [num_groups]: the groups whose weights are whole numbers in
+    [0, 2^24] with a total of at most 2^24. Every partial sum of such a
+    group is exact in any order, so H9's quantiles of it are the plain
+    version's bits; every digest a path makes has whole weights (they count
+    rows)."""
+    whole = (weights >= 0) & (weights <= 2.0**24) & (weights == torch.trunc(weights))
+    total = torch.where(whole, weights, 0.0).to(torch.float64).sum(dim=1)
+    return whole.all(dim=1) & (total <= 2.0**24)
+
+
 def quantile_values(state: dict, qs: Sequence[float]) -> torch.Tensor:
     if state["means"].is_cuda:
         return kernels.tdigest_quantiles(
-            state["means"], state["weights"],
+            state["means"].contiguous(), state["weights"].contiguous(),
             torch.as_tensor(qs, dtype=_F32, device=state["means"].device),
         )
     return quantile_values_plain(state, qs)

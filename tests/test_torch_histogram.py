@@ -9,7 +9,13 @@ with the reference pixie_tpu.ops.histogram on the CPU.
 - Given identical bins, ``update`` counts are exactly equal (under both
   reference strategies).
 - ``quantile_values`` of one state, carried across with interop, agree
-  within a relative 1e-12.
+  within a relative 1e-12; so does the plain version at H4's edge states
+  (``ops/quantile_edges.py``: empty, bin 0, one bin, counts near 2^40,
+  widths other than 1024, 40 qs).
+- H4's midpoint table is the plain version's value of each bin bit for bit,
+  and a model of H4's warp search (lanes of 32 bins, chunks of 1024, a
+  lower bound over the running maximum of the cumulative counts) returns
+  the plain version's bits, also where counts are negative.
 """
 
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ from pixie_tpu.udf.builtins.sketch_ops import QUANTILE_QS
 from pixie_tpu.udf.registry import default_registry as ref_registry
 from pixie_tpu_torch import interop
 from pixie_tpu_torch.ops import histogram, kernels
+from pixie_tpu_torch.ops.quantile_edges import HIST_NBINS, QS, QS_WIDE, hist_edge_state
 from pixie_tpu_torch.types import DataType
 from pixie_tpu_torch.udf.builtins.sketch_ops import QUANTILE_QS as PORT_QS
 from pixie_tpu_torch.udf.registry import default_registry
@@ -169,3 +176,78 @@ def test_update_plain_matches_reference_at_h3_lanes(strategy, S, masked):
     np.testing.assert_array_equal(got, want)
     ok = (gids >= 0) & (gids < S) & (True if mask is None else mask)
     assert got.sum() == ok.sum()
+
+
+@pytest.mark.parametrize("qs", [QS, QS_WIDE], ids=["qs7", "qs40"])
+@pytest.mark.parametrize("nbins", HIST_NBINS)
+def test_quantile_values_plain_edges_match_reference(nbins, qs):
+    """The plain version of H4 against the reference's quantile_values at
+    the edge states, within a relative 1e-12."""
+    state = hist_edge_state(nbins, 12, seed=nbins)
+    ref_spec = ref_hist.LogHistogramSpec(nbins=nbins)
+    spec = histogram.LogHistogramSpec(nbins=nbins)
+    want = np.asarray(ref_hist.quantile_values(jnp.asarray(state), qs, ref_spec))
+    got = histogram.quantile_values_plain(torch.from_numpy(state), qs, spec).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    assert not got[0].any() and np.all(got[1] == spec.min_value)
+
+
+@pytest.mark.parametrize("nbins", [1024, 100])
+def test_midpoint_table_is_plain_bin_by_bin(nbins):
+    """Group b holds one count in bin b, so every q lands on bin b: the
+    plain version's value there equals the table's entry bit for bit; the
+    table is built once per (spec, device)."""
+    spec = histogram.LogHistogramSpec(nbins=nbins)
+    state = torch.diag(torch.ones(nbins, dtype=torch.int64))
+    plain = histogram.quantile_values_plain(state, (0.5,), spec)[:, 0]
+    table = histogram.midpoint_table(spec, "cpu")
+    assert table.dtype == torch.float64 and table.shape == (nbins,)
+    assert torch.equal(plain.view(torch.int64), table.view(torch.int64))
+    assert histogram.midpoint_table(spec, torch.device("cpu")) is table
+
+
+def _h4_model(state: np.ndarray, qs, table: np.ndarray) -> np.ndarray:
+    """H4 as its warp computes it: chunks of 1024 bins, 32 lanes of 32
+    consecutive bins, the int64 cumulative counts converted to f64 once and
+    their running maximum taken (the keys, carried across chunks); per q a
+    target max(q * total, 1e-9), a five-step lower bound over the lanes'
+    last keys, then the count of that lane's keys below the target; bin 0
+    when no key reaches; the value from the table, 0 for an empty group."""
+    S, nbins = state.shape
+    nch = -(-nbins // 1024)
+    out = np.zeros((S, len(qs)))
+    for g in range(S):
+        b = np.zeros(nch * 1024, np.int64)
+        b[:nbins] = state[g]
+        total = int(b.sum())
+        keys = np.maximum.accumulate(np.cumsum(b).astype(np.float64)).reshape(nch, 32, 32)
+        for j, q in enumerate(qs):
+            target = max(q * float(total), 1e-9)
+            bin_ = 0
+            for c in range(nch):
+                if keys[c, 31, 31] < target:
+                    continue
+                pos = 0
+                for d in (16, 8, 4, 2, 1):
+                    pos += d if keys[c, pos + d - 1, 31] < target else 0
+                bin_ = c * 1024 + pos * 32 + int((keys[c, pos] < target).sum())
+                break
+            out[g, j] = table[bin_] if total > 0 else 0.0
+    return out
+
+
+@pytest.mark.parametrize("nbins", HIST_NBINS)
+def test_h4_model_matches_plain(nbins):
+    """The model of H4's search returns the plain version's bits at the
+    edge states and at a state with negative counts (the running maximum
+    keeps the first reaching bin), for 7 qs and 40."""
+    spec = histogram.LogHistogramSpec(nbins=nbins)
+    state = hist_edge_state(nbins, 12, seed=nbins + 1)
+    rng = np.random.default_rng(nbins)
+    state[-1] = rng.integers(-1000, 1000, nbins)
+    state[-1, nbins // 2] = 50_000
+    table = histogram.midpoint_table(spec, "cpu").numpy()
+    for qs in (QS, QS_WIDE):
+        want = histogram.quantile_values_plain(torch.from_numpy(state), qs, spec).numpy()
+        got = _h4_model(state, qs, table)
+        assert np.array_equal(got.view(np.int64), want.view(np.int64))

@@ -10,12 +10,16 @@ runs on a machine that has only PyTorch:
 Tolerances: integer results exactly equal; f64 sums within 1e-12 * sum|v|
 per group (H2's bound, PERF.md); log-histogram counts exactly equal once the
 rows whose bin coordinate lies within 2.5e-4 of a bin edge are left out (the
-Fault-1 contract); quantiles within a relative 1e-12 on one state. Sketches:
+Fault-1 contract); H4's quantiles bit for bit with the plain version on the
+same card (its values come from ``histogram.midpoint_table``). Sketches:
 hashes bit for bit, HLL registers and count-min cells and totals exactly,
 HLL estimates within a relative 1e-12; t-digest group weights exactly, at
 most 1% of (group, cluster) cells moved by the Fault-4 contract against the
 CPU's plain version, means of the others within B * (w + 2) * 2^-24 *
-max|v| after B blocks, quantiles of one state within a relative 1e-6; H7's
+max|v| after B blocks; H9's quantiles bit for bit with the plain version on
+the same card for every group of whole weights totalling at most 2^24
+(``tdigest.quantile_exact_groups``: every digest a path makes), within
+``quantile_edges.td_inexact_tol`` (a bound a value) for the others; H7's
 and H8's weights bit for bit with the plain version on the same card, H8's
 means within 2C * 2^-24 * max|mean|. H3 in each of its lanes: counts exact
 off bin edges, totals exact. Segment min/max (H11) and the scan's
@@ -56,6 +60,10 @@ from pixie_tpu_torch.ops import (
     segment, tdigest,
 )
 from pixie_tpu_torch.ops import transformer
+from pixie_tpu_torch.ops.quantile_edges import (
+    HIST_EDGE_GROUPS, HIST_NBINS, QS_WIDE, TD_CAPACITIES, TD_EDGE_GROUPS, hist_edge_state,
+    td_edge_state, td_inexact_tol,
+)
 from pixie_tpu_torch.ops.tdigest_edges import H8_CASES, h8_expected_branches, h8_inputs
 
 EDGE = 2.5e-4
@@ -118,11 +126,9 @@ def _check_histogram_kernels(dev: torch.device) -> None:
         assert torch.equal(got.cpu(), want)
         q = kernels.hist_quantiles(
             got, torch.tensor(QS, dtype=torch.float64, device=dev),
-            SPEC.min_value, SPEC.gamma, math.sqrt(SPEC.gamma),
+            histogram.midpoint_table(SPEC, dev),
         )
-        torch.testing.assert_close(
-            q.cpu(), histogram.quantile_values_plain(want, QS), rtol=1e-12, atol=0
-        )
+        assert torch.equal(q, histogram.quantile_values_plain(got, QS))
 
 
 def _check_sketch_kernels(dev: torch.device) -> None:
@@ -177,9 +183,8 @@ def _check_sketch_kernels(dev: torch.device) -> None:
         err = (got["means"].cpu().double() - want["means"].double()).abs()
         assert torch.all(err[same] <= bound[same])
         q = tdigest.quantile_values(want_dev := {k: t.to(dev) for k, t in want.items()}, QS)
-        torch.testing.assert_close(
-            q.cpu(), tdigest.quantile_values_plain(want, QS), rtol=1e-6, atol=0
-        )
+        assert bool(tdigest.quantile_exact_groups(want_dev["weights"]).all())
+        assert torch.equal(q, tdigest.quantile_values_plain(want_dev, QS))
         merged = tdigest.merge(want_dev, want_dev)
         plain = tdigest.merge_plain(want, want)
         assert torch.equal(merged["weights"].cpu().sum(dim=1), plain["weights"].sum(dim=1))
@@ -1090,6 +1095,71 @@ def test_countmin_update_tables_on_card():
 def test_histogram_kernels_match_plain_on_card():
     _need_cards(1)
     _check_histogram_kernels(torch.device("cuda", 0))
+
+
+# S of the H4 launches the paths send (chip_smoke.py --log-shapes), and 4096.
+H4_GROUPS = [16, 1024, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbins", HIST_NBINS)
+@pytest.mark.parametrize("S", H4_GROUPS)
+def test_hist_quantiles_edges_on_card(nbins, S):
+    """H4 bit for bit with its plain version on the card at the paths'
+    group counts and the edge groups (empty, all in bin 0, one bin, one
+    count in the last bin, counts near 2^40, ones, a sparse row), at the
+    spec's 1024 bins and at widths inside and past a warp's chunk, for the
+    UDAs' 7 qs and for 40 (a second block of 32)."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    spec = histogram.LogHistogramSpec(nbins=nbins)
+    state = torch.from_numpy(hist_edge_state(nbins, S, seed=S + nbins)).to(dev)
+    mid = histogram.midpoint_table(spec, dev)
+    for qs in (QS, QS_WIDE):
+        got = kernels.hist_quantiles(state, torch.tensor(qs, dtype=torch.float64, device=dev),
+                                     mid)
+        want = histogram.quantile_values_plain(state, qs, spec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (qs == QS, (got != want).nonzero()[:8].tolist())
+        assert not bool(got[0].any()) and bool(torch.all(got[1] == spec.min_value))
+    # an unaligned state (offset by one bin) takes the scalar loads
+    wide = torch.zeros(S * nbins + 1, dtype=torch.int64, device=dev)
+    wide[1:] = state.reshape(-1)
+    shifted = wide[1:].view(S, nbins)
+    got = kernels.hist_quantiles(shifted, torch.tensor(QS, dtype=torch.float64, device=dev), mid)
+    assert torch.equal(got, histogram.quantile_values_plain(state, QS, spec))
+    assert HIST_EDGE_GROUPS < S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", TD_CAPACITIES)
+@pytest.mark.parametrize("G", [16, 300])
+def test_tdigest_quantiles_edges_on_card(C, G):
+    """H9 against its plain version on the card at the edge digests (empty,
+    one centroid, empties between full centroids, all weight in the last,
+    a total of exactly 2^24) and full ones: bit for bit where the group's
+    weights are whole and total at most 2^24, within ``td_inexact_tol``
+    where they are not (a total above 2^24, fractional weights, a weight
+    above 2^24), at the paths' capacity and at capacities that are not a
+    multiple of 256, for 7 qs and 40."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    means, weights = td_edge_state(C, G, seed=G + C)
+    state = {"means": torch.from_numpy(means).to(dev),
+             "weights": torch.from_numpy(weights).to(dev)}
+    exact = tdigest.quantile_exact_groups(state["weights"])
+    assert exact[:TD_EDGE_GROUPS].tolist() == [True] * 6 + [False] * 3
+    assert bool(exact[TD_EDGE_GROUPS:].all())
+    for qs in (QS, QS_WIDE):
+        tol = td_inexact_tol(state["means"][~exact], state["weights"][~exact], qs)
+        got = kernels.tdigest_quantiles(state["means"], state["weights"],
+                                        torch.tensor(qs, dtype=torch.float32, device=dev))
+        want = tdigest.quantile_values_plain(state, qs)
+        torch.cuda.synchronize()
+        assert torch.equal(got[exact], want[exact]), (
+            (got[exact] != want[exact]).nonzero()[:8].tolist())
+        assert bool(torch.all((got[~exact] - want[~exact]).abs() <= tol))
+        assert not bool(got[0].any())
 
 
 def join_agg_inputs(seed: int, n: int, K: int, cap: int, S_l: int, S_r: int, dev,

@@ -7,7 +7,19 @@ letter. HLL estimates before rounding within a relative 1e-12. t-digest
 means within the reference's own f32 summation error: per block, a
 cluster's sum of w rows may be off by (w + 2) * 2^-24 * max|v|, so after B
 blocks |port - ref| <= B * (w + 2) * 2^-24 * max|v|. Quantiles of one
-state within a relative 1e-6 (a few f32 ulps).
+state within a relative 1e-6 (a few f32 ulps), also at H9's edge digests
+(``ops/quantile_edges.py``: empty, one centroid, empties between full
+ones, all weight in the last, totals of 2^24 and above, fractional
+weights, capacities other than 256, 40 qs), but for the groups whose
+cumulative weights round (a total above 2^24, fractional weights): the
+reference and the plain version sum them in their own orders, so those
+agree within ``quantile_edges.td_inexact_tol`` (value by value: the range
+of the reference's interpolation over the targets that the two orders'
+rounding can reach, plus 4 f32 ulps). A
+model of H9's warp (lanes of 8 centroids, chunks of 256, integer sums where
+the weights are whole and total at most 2^24, a lower bound over the
+running maximum of the non-empty midpoints) returns the plain version's
+bits on such groups and agrees within that bound on the others.
 
 The t-digest's cluster ids follow the Fault-4 contract (PERF.md): the
 reference's f32 arcsin (XLA-CPU) and the plain version's (the f64 asin
@@ -36,6 +48,9 @@ from pixie_tpu.udf.registry import default_registry as ref_registry
 from pixie_tpu.types import DataType as RefDT
 from pixie_tpu_torch import interop
 from pixie_tpu_torch.ops import countmin, hll, kernels, tdigest
+from pixie_tpu_torch.ops.quantile_edges import (
+    QS_WIDE, TD_CAPACITIES, TD_EDGE_GROUPS, td_edge_state, td_inexact_tol,
+)
 from pixie_tpu_torch.types import DataType
 from pixie_tpu_torch.udf.registry import default_registry
 
@@ -888,3 +903,100 @@ def test_hll_update_all_masked_keeps_state():
     words = rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)
     got = hll.update(_t(state), _t(gids), _t(words), _t(np.zeros(n, bool))).numpy()
     np.testing.assert_array_equal(got, state)
+
+
+@pytest.mark.parametrize("qs", [QS, QS_WIDE], ids=["qs7", "qs40"])
+@pytest.mark.parametrize("C", TD_CAPACITIES)
+def test_tdigest_quantile_plain_edges_match_reference(C, qs):
+    """The plain version of H9 against the reference's quantile_values at
+    the edge digests: within a relative 1e-6 where the weights are whole
+    and total at most 2^24, within ``td_inexact_tol`` where the cumulative
+    weights round (a total above 2^24, fractional weights)."""
+    means, weights = td_edge_state(C, 14, seed=C)
+    want = np.asarray(ref_td.quantile_values(
+        {"means": jnp.asarray(means), "weights": jnp.asarray(weights)}, qs))
+    got = tdigest.quantile_values_plain({"means": _t(means), "weights": _t(weights)}, qs).numpy()
+    exact = tdigest.quantile_exact_groups(_t(weights)).numpy()
+    np.testing.assert_allclose(got[exact], want[exact], rtol=1e-6, atol=0)
+    tol = td_inexact_tol(_t(means)[~exact], _t(weights)[~exact], qs).numpy()
+    assert np.all(np.abs(got[~exact] - want[~exact]) <= tol)
+    assert not got[0].any()
+
+
+def test_quantile_exact_groups_flags_the_edges():
+    """Whole weights in [0, 2^24] with a total of at most 2^24 are exact
+    (2^24 itself included); a total above it, a fractional weight, a
+    weight above 2^24, a negative or NaN weight are not."""
+    means, weights = td_edge_state(256, 12, seed=1)
+    flags = tdigest.quantile_exact_groups(_t(weights))
+    assert flags.tolist() == [True] * 6 + [False] * 3 + [True] * (12 - TD_EDGE_GROUPS)
+    w = torch.ones((3, 4))
+    w[1, 2] = -1.0
+    w[2, 0] = float("nan")
+    assert tdigest.quantile_exact_groups(w).tolist() == [True, False, False]
+
+
+def _h9_model(means: np.ndarray, weights: np.ndarray, qs) -> np.ndarray:
+    """H9 as its warp computes it, in f32 with every step rounded: chunks
+    of 256 centroids, 32 lanes of 8; where every weight is whole in
+    [0, 2^24] and the total at most 2^24 the cumulative weights are integer
+    sums converted once, else f32 adds in centroid order; the keys, the
+    running maximum of the non-empty centroids' midpoints (-inf before the
+    first, NaN dropped), carried across chunks; per q a five-step lower
+    bound over the lanes' last keys and the count of that lane's keys below
+    the target, else the count of non-empty centroids less one; the
+    interpolation of quantile_values."""
+    f = np.float32
+    G, C = weights.shape
+    pad = -(-C // 256) * 256
+    out = np.zeros((G, len(qs)))
+    for g in range(G):
+        w = np.zeros(pad, f)
+        m = np.zeros(pad, f)
+        w[:C], m[:C] = weights[g], means[g]
+        whole = (w >= 0) & (w <= 2**24) & (w == np.trunc(w))
+        if whole.all() and w.astype(np.int64).sum() <= 2**24:
+            run = np.cumsum(w.astype(np.int64)).astype(f)
+        else:
+            run, r = np.zeros(pad, f), f(0)
+            for i in range(pad):
+                r = f(r + w[i])
+                run[i] = r
+        cum = run - f(0.5) * w
+        keys = np.fmax.accumulate(np.where(w > 0, cum, f(-np.inf))).reshape(-1, 32, 8)
+        total = run[-1]
+        last_valid = max(int((w > 0).sum()) - 1, 0)
+        for j, q in enumerate(qs):
+            target = f(f(q) * total)
+            hi = last_valid
+            for c in range(pad // 256):
+                if not keys[c, 31, 7] >= target:
+                    continue
+                pos = 0
+                for d in (16, 8, 4, 2, 1):
+                    pos += d if keys[c, pos + d - 1, 7] < target else 0
+                hi = c * 256 + pos * 8 + int((keys[c, pos] < target).sum())
+                break
+            lo = max(hi - 1, 0)
+            c_lo, c_hi = cum[lo], cum[hi]
+            frac = (target - c_lo) / max(f(c_hi - c_lo), f(1e-9)) if c_hi > c_lo else f(1)
+            frac = min(max(frac, f(0)), f(1))
+            v = m[hi] if hi == lo else m[lo] + frac * (m[hi] - m[lo])
+            out[g, j] = float(v) if total > 0 else 0.0
+    return out
+
+
+@pytest.mark.parametrize("C", TD_CAPACITIES)
+def test_h9_model_matches_plain(C):
+    """The model of H9 returns the plain version's bits on every exact
+    group of the edge digests and agrees within ``td_inexact_tol`` on the
+    others, for 7 qs and 40."""
+    means, weights = td_edge_state(C, 14, seed=C + 1)
+    state = {"means": _t(means), "weights": _t(weights)}
+    exact = tdigest.quantile_exact_groups(state["weights"]).numpy()
+    for qs in (QS, QS_WIDE):
+        want = tdigest.quantile_values_plain(state, qs).numpy()
+        got = _h9_model(means, weights, qs)
+        assert np.array_equal(got[exact].view(np.int64), want[exact].view(np.int64))
+        tol = td_inexact_tol(state["means"][~exact], state["weights"][~exact], qs).numpy()
+        assert np.all(np.abs(got[~exact] - want[~exact]) <= tol)
