@@ -51,7 +51,9 @@ the CUDA toolkit. In order it:
    atomics); a 2^21-row ring
    window for H24 (int32 codes and int64 narrowed, f64 to f32 with NaN
    payloads, +-0, +-inf, f32 subnormals and overflow, int-dictionary codes
-   at C = 3, 256 and 65536, a raw cast), also against the host pack) and at
+   at C = 3, 256 and 65536, a raw cast), also against the host pack, and
+   its shard-stride lane: a window of 1, 4 and 8 logical shards converted
+   by one launch into its slice of a one-card staging, timed at 8) and at
    shapes that take its other memory path (edge cases for the join's kernels),
    under the contract PERF.md states (integers, hashes, min/max and the
    scan's compaction and the join exact; H7b's t-digest cluster cells under
@@ -208,6 +210,22 @@ the CUDA toolkit. In order it:
      flat fold (and numpy); after an append the next fold runs on the full
      geometry again; recovery seconds, the refolded fraction and the
      checkpoints' cost are printed;
+   - the sharded ring (ring_mesh_d8, ring_mesh_hosts2_d4): bench.py's
+     default http_small at full width (64M rows: 30 ring windows of 2^21
+     rows, 1,761,607,680 B over 4 columns), ringed by two executors over
+     8 logical shards of the card (d:8 and hosts:2,d:4; each window 8
+     shards of 2^18 rows, converted by one H24 launch a column a window);
+     http_data and config 5's sketches over each, cold and warm, held to
+     bench.py's truths, 30 hits a cold query, equal bit for bit to the
+     same geometry with the ring off; then ring_mesh_chaos, a host lost
+     mid-fold on the hosts:2,d:4 ring: the degraded rung serves no ring
+     window and equals the unfaulted fold, the next query hits the ring
+     on the full geometry;
+   - the pre-join predicate pushdown (join8_pushdown,
+     join8_outer_pushdown): config 8 with r.latency above its median and
+     one owned service left out of l, in the device lane, held to numpy
+     and to the host EquijoinNode's rows, then on hosts:2,d:4 in the
+     partitioned lane;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
    line of per-kernel results (H1-H32, H7 and the hash kernel; H30-H32, the
@@ -218,7 +236,9 @@ the CUDA toolkit. In order it:
 
 With ``--mesh-cards N`` it runs only the mesh paths over N real cards
 against the same geometry over N logical shards of card 0: config 10 at
-d:N and hosts:2,d:N/2, config 8's joins and config 12 at hosts:2,d:N/2.
+d:N and hosts:2,d:N/2, config 8's joins and config 12 at hosts:2,d:N/2,
+and the http_small ring at d:N. A path that means one card names it
+(``CARD``, cuda:0): an executor that names no device spans every card.
 
 Any failed check raises, and the script exits non-zero before the last
 line. Without a CUDA device it exits non-zero at once.
@@ -246,6 +266,10 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
 BLOCK_ROWS = 1 << 21
+# The card a one-card path names: an executor that names no device spans
+# every card (the flat mesh over all of them), so a path that means one
+# card names it.
+CARD = "cuda:0"
 TIME_REPS, TIME_WARMUP = 30, 3  # calls per time_ms
 WARM_QUERIES = 3
 N_SERVICES = 16
@@ -3057,51 +3081,6 @@ def batch_kernel_phase(dev) -> dict:
 # f64 edge values of the f32 conversion (bits): NaN payloads of both signs,
 # quiet and signalling, +-inf, +-0, f32 subnormals (2^-149, 1.5 * 2^-149,
 # just below 2^-126), a rounding tie, values that overflow f32.
-F64_EDGES = np.array([
-    0x7FF8000000000000, 0xFFF8000000000000, 0x7FF80000DEADBEEF, 0x7FF4000000000001,
-    0xFFF0000000000001, 0x7FF0000000000000, 0xFFF0000000000000, 0x0000000000000000,
-    0x8000000000000000, 0x36A0000000000000, 0xB6A8000000000000, 0x380FFFFFFFFFFFFF,
-    0x47EFFFFFF0000000, 0x4800000000000000, 0x7FEFFFFFFFFFFFFF, 0x3FF0000010000000,
-], dtype=np.uint64)
-
-
-def ring_case(name: str, rng, n: int):
-    """(raw numpy column, col_plan, the plan's block dtype, the narrow
-    offset or None) of one H24 case at n rows: the
-    kinds the ring paths convert (service codes and resp_status narrowed,
-    latency as f32, resp_status as int-dictionary codes) and the others the
-    plans can give."""
-    from pixie_tpu_torch.ops import codec
-
-    if name == "narrow_i32_u8":  # service codes (http_data_ring, sketches_ring)
-        return (rng.integers(0, N_SERVICES, n).astype(np.int32),
-                ("narrow", (np.dtype(np.uint8), 0)), np.dtype(np.uint8), 0)
-    if name == "narrow_i64_u16":  # resp_status (http_data_ring)
-        a = rng.choice([200, 404, 500, 200 + 65535], n).astype(np.int64)
-        return a, ("narrow", (np.dtype(np.uint16), 200)), np.dtype(np.uint16), 200
-    if name == "narrow_i64_i32":
-        a = rng.integers(-(1 << 40), -(1 << 40) + (1 << 31) - 1, n).astype(np.int64)
-        return a, ("narrow", (np.dtype(np.int32), -(1 << 40))), np.dtype(np.int32), -(1 << 40)
-    if name == "f32":  # latency (sketches_ring's t-digest)
-        x = rng.exponential(3e7, n)
-        x[: F64_EDGES.size] = F64_EDGES.view(np.float64)
-        x[F64_EDGES.size : 2 * F64_EDGES.size] = -F64_EDGES.view(np.float64)
-        return x, ("f32", None), np.dtype(np.float32), None
-    if name.startswith("intdict"):  # resp_status (sketches_ring's cell lane)
-        C = int(name.split("_c")[1])
-        lut = (np.array([200, 404, 500], np.int64) if C == 3 else
-               np.unique(rng.integers(-(1 << 50), 1 << 50, C + 64))[:C].astype(np.int64))
-        dt = np.dtype(np.uint8 if C <= 256 else np.uint16)
-        return lut[rng.integers(0, C, n)], ("intdict", (lut, dt)), dt, None
-    if name == "raw_i64_i32":
-        return (rng.integers(-(1 << 62), 1 << 62, n), ("raw", None), np.dtype(np.int32), None)
-    raise AssertionError(name)
-
-
-RING_CASES = ("narrow_i32_u8", "narrow_i64_u16", "narrow_i64_i32", "f32", "intdict_c3",
-              "intdict_c256", "intdict_c65536", "raw_i64_i32")
-
-
 def ring_kernel_phase(dev) -> dict:
     """H24 against ``convert_block_plain`` on the card and against the host
     pack (numpy, pack_stream_window's transform) of the same rows, bit for
@@ -3112,8 +3091,16 @@ def ring_kernel_phase(dev) -> dict:
     for the casts), and the torch sequence otherwise (narrow: a subtract
     and a cast; intdict: searchsorted, clamp, cast). Record: int64 ->
     uint16 narrow (resp_status, http_data_ring). Also reports what torch's
-    own f64 -> f32 cast on the card makes of NaN payloads against numpy."""
+    own f64 -> f32 cast on the card makes of NaN payloads against numpy.
+    Then the shard-stride lane: a window of D logical shards of one card
+    ([D, nblk, b], 2^21 rows) converted in one launch into its slice of a
+    staging of three windows (D runs at the staging's shard stride), for D
+    1, 4 and 8 and every case, bit for bit the plain version on the same
+    slice, the other windows untouched; timed at D 8 (``by_shards``)."""
     from pixie_tpu_torch.ops import codec, kernels
+    from pixie_tpu_torch.ops.convert_edges import (
+        F64_EDGES, RING_CASES, SHARD_COUNTS, ring_case, strided_staging,
+    )
     from pixie_tpu_torch.parallel import staging
 
     rng = np.random.default_rng(24)
@@ -3183,6 +3170,43 @@ def ring_kernel_phase(dev) -> dict:
     log("H24 ring_convert: bit for bit the plain version and the host pack in "
         f"{len(RING_CASES)} cases at {n} rows; ms [bound] " +
         ", ".join(f"{k} {v['ms']:.4f} [{v['bound_ms']:.4f}]" for k, v in by_case.items()))
+    by_shards = {}
+    for d in SHARD_COUNTS:
+        nblk, b = 2, n // (2 * d)
+        for name in RING_CASES:
+            raw, col_plan, dt, off = ring_case(name, rng, n)
+            x = torch.from_numpy(raw.reshape(d, nblk, b)).to(dev)
+            tdt = codec.TORCH_DTYPES[dt]
+            got_all, got = strided_staging(d, nblk, b, tdt, dev)
+            want_all, want = strided_staging(d, nblk, b, tdt, dev)
+            int_dtype = dt if col_plan[0] == "raw" else None
+            kernels.reset_launches()
+            codec.convert_block(col_plan, x, out=got, int_dtype=int_dtype)
+            check(kernels.LAUNCHES["ring_convert"] == 1,
+                  f"H24 {name} at D {d}: {kernels.LAUNCHES['ring_convert']} launches, not 1")
+            codec.convert_block_plain(col_plan, x, want)
+            torch.cuda.synchronize()
+            check(torch.equal(got_all.view(torch.uint8), want_all.view(torch.uint8)),
+                  f"H24 {name} at D {d}: the strided slice differs from the plain version's")
+            if d != SHARD_COUNTS[-1]:
+                continue
+            lut_t = (torch.as_tensor(col_plan[1][0], device=dev) if col_plan[0] == "intdict"
+                     else None)
+            lut_bytes = lut_t.numel() * 8 if lut_t is not None else 0
+            ops = n * math.ceil(math.log2(lut_t.numel() + 1)) if lut_t is not None else n
+            kind = col_plan[0]
+            ms = time_ms(lambda: kernels.ring_convert(x, got, kind, off=off or 0, lut=lut_t))
+            bms = bound(n * (x.element_size() + got.element_size()) + lut_bytes, ops)[0]
+            by_shards[name] = {"d": d, "ms": ms, "bound_ms": bms,
+                               "plain_ms": time_ms(lambda: codec.convert_block_plain(
+                                   col_plan, x, want), reps=10, warmup=1)}
+    kernels.reset_launches()
+    record_out["by_shards"] = by_shards
+    log(f"H24 ring_convert, shard-stride lane: bit for bit the plain version at D "
+        f"{', '.join(map(str, SHARD_COUNTS))} in {len(RING_CASES)} cases ({n} rows a window, "
+        "one launch a window); at D 8, ms [bound; plain] " +
+        ", ".join(f"{k} {v['ms']:.4f} [{v['bound_ms']:.4f}; {v['plain_ms']:.4f}]"
+                  for k, v in by_shards.items()))
     return {"ring_convert": record_out}
 
 
@@ -4052,7 +4076,7 @@ def slice_parity(n_rows: int) -> None:
     from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
 
     data = http_events(n_rows)
-    cuda, cpu = build_carnot(data, n_rows, "cuda"), build_carnot(data, n_rows, "cpu")
+    cuda, cpu = build_carnot(data, n_rows, CARD), build_carnot(data, n_rows, "cpu")
     got = cuda.execute_query(SERVICE_STATS).table("service_stats")
     want = cpu.execute_query(SERVICE_STATS).table("service_stats")
     check(got["service"] == want["service"], "group set/order: cuda vs cpu")
@@ -4073,7 +4097,7 @@ def slice_parity(n_rows: int) -> None:
     log(f"slice parity at {n_rows} rows: sketches count-min JSON equal, t-digest "
         f"quantiles max rel diff {worst:.3g}")
     fl = conn_flows(n_rows)
-    flows_cuda = build_flows_carnot(fl, n_rows, "cuda")
+    flows_cuda = build_flows_carnot(fl, n_rows, CARD)
     flows_cpu = build_flows_carnot(fl, n_rows, "cpu")
     got = flows_cuda.execute_query(FLOWS).table("flows")
     want = flows_cpu.execute_query(FLOWS).table("flows")
@@ -4088,11 +4112,11 @@ def slice_parity(n_rows: int) -> None:
     want = flows_cpu.execute_query(FLOW_SPAN).table("flow_span")
     check(got == want, "flow_span: cuda vs cpu")
     hs = http_small(n_rows)
-    got = build_small_carnot(hs, n_rows, "cuda")[0].execute_query(HTTP_DATA).table("out")
+    got = build_small_carnot(hs, n_rows, CARD)[0].execute_query(HTTP_DATA).table("out")
     want = build_small_carnot(hs, n_rows, "cpu")[0].execute_query(HTTP_DATA).table("out")
     check(got == want and len(got["time_"]) == SCAN_LIMIT, "http_data: cuda vs cpu")
     st = stacks(n_rows)
-    st_cuda, st_cpu = build_stacks_carnot(st, n_rows, "cuda"), build_stacks_carnot(st, n_rows, "cpu")
+    st_cuda, st_cpu = build_stacks_carnot(st, n_rows, CARD), build_stacks_carnot(st, n_rows, "cpu")
     for query in (FLAMEGRAPH, FLAMEGRAPH_FILTERED):
         got = st_cuda.execute_query(query).table("merged")
         want = st_cpu.execute_query(query).table("merged")
@@ -4100,7 +4124,7 @@ def slice_parity(n_rows: int) -> None:
     log(f"slice parity at {n_rows} rows: flow_span, http_data and flamegraph (plain and "
         "filtered) kernel path == plain path, every column")
     jf = join_fact(n_rows)
-    join_cuda, join_cpu = build_join_carnot(jf, n_rows, "cuda"), build_join_carnot(jf, n_rows, "cpu")
+    join_cuda, join_cpu = build_join_carnot(jf, n_rows, CARD), build_join_carnot(jf, n_rows, "cpu")
     for how in ("inner", "left", "right", "outer"):
         for query in (JOIN8.replace("how='inner'", f"how='{how}'"),
                       JOIN8_OUTER.replace("how='outer'", f"how='{how}'")):
@@ -4405,7 +4429,7 @@ def sorted_path(n_rows: int) -> dict:
     from pixie_tpu_torch.utils import flags
 
     data = sorted_events(n_rows)
-    cuda, cpu = build_carnot(data, n_rows, "cuda"), build_carnot(data, n_rows, "cpu")
+    cuda, cpu = build_carnot(data, n_rows, CARD), build_carnot(data, n_rows, "cpu")
     want = cpu.execute_query(SORTED_KEYS).table("sorted")
     verify_sorted(cpu.execute_query(SORTED_KEYS), data, want)
     for window in (flags.streaming_window_rows, 1 << 18):
@@ -4432,7 +4456,7 @@ def let_parity(n_rows: int) -> None:
     from pixie_tpu_torch.ops.histogram import DEFAULT_SPEC
 
     ev = let_events(n_rows)
-    cuda, cpu = build_let_carnot(ev, n_rows, "cuda"), build_let_carnot(ev, n_rows, "cpu")
+    cuda, cpu = build_let_carnot(ev, n_rows, CARD), build_let_carnot(ev, n_rows, "cpu")
     for table, query in let_queries().items():
         got = cuda.execute_query(query, now_ns=LET_NOW).table(table)
         want = cpu.execute_query(query, now_ns=LET_NOW).table(table)
@@ -5448,14 +5472,14 @@ def k18_reads(carnot, device: str) -> tuple:
     for _ in range(WARM_QUERIES):
         t1 = time.perf_counter()
         carnot.execute_query(MESH_QUERY)
-        if device == "cuda":
+        if device.startswith("cuda"):
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t1)
         k18.append(ex.merge_device_ms())
     return float(np.median(k18)), float(np.median(secs))
 
 
-def mesh_paths(mb: dict, paths: dict, phase_s: dict, device: str = "cuda") -> dict:
+def mesh_paths(mb: dict, paths: dict, phase_s: dict, device: str = CARD) -> dict:
     """Config 10's sweep: d:1, then every 8-shard width, each driven (cold,
     then warm) and checked against numpy; every 8-shard width's integer,
     min/max, HLL and count-min outputs equal d:1's, and it launches H29.
@@ -5495,7 +5519,7 @@ def mesh_paths(mb: dict, paths: dict, phase_s: dict, device: str = "cuda") -> di
     return summary
 
 
-def mesh_cards_sweep(n: int, device: str = "cuda", cards=None) -> dict:
+def mesh_cards_sweep(n: int, device: str = CARD, cards=None) -> dict:
     """``--mesh-cards n``: config 10's table and query over n real cards and
     over n logical shards of card 0, at d:n and hosts:2,d:n/2, in turns
     (logical, cards, cards, logical), each driven cold and warm and checked
@@ -5629,6 +5653,382 @@ def mesh_join_paths(join_carnot, jf: dict, paths: dict, phase_s: dict, specs=MES
     return summary
 
 
+# The sharded ring: bench.py's default http_small table at full
+# width, ringed on 8 logical shards of the card (each 2^21-row window 8
+# shards of 2^18 rows) at d:8 and at hosts:2,d:4; both executors' rings
+# listen to one table, so its writes feed both.
+RING_MESH_TABLE = "http_small_mesh"
+RING_MESH_SPECS = ("d:8", "hosts:2,d:4")
+RING_WINDOW_ROWS = 1 << 21  # resident_window_rows' default
+
+
+def ring_mesh_queries(table: str = RING_MESH_TABLE) -> dict:
+    return {"http_data": HTTP_DATA_RING.replace("'http_small_ring'", f"'{table}'"),
+            "sketches": SKETCHES_RING.replace("'http_small_ring'", f"'{table}'")}
+
+
+def ring_mesh_build(hs: dict, specs, shards: int, devices=None,
+                    table: str = RING_MESH_TABLE) -> tuple:
+    """({spec: Carnot}, build seconds, the build's launches): one Carnot a
+    geometry over ``devices`` (by default ``shards`` logical shards of the
+    card) sharing one table store, and http_small written once as ``table``
+    with ``resident_ingest`` on, so every executor's ring stages its
+    windows on the writer's thread. Each ring is checked: valid, 30 windows
+    of [shards, nblk, b] lanes, RING_BYTES in its executor's pool, pinned."""
+    from pixie_tpu_torch.distributed import MeshConfig
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.ops import kernels
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.utils import flags
+
+    devices = devices or [CARD] * shards
+    base = Carnot(device_executor=DeviceExecutor(
+        block_rows=BLOCK_ROWS, mesh_config=MeshConfig.parse(specs[0], shards), devices=devices))
+    carnots = {specs[0]: base}
+    for spec in specs[1:]:
+        carnots[spec] = mesh_carnot(base, spec, shards, devices)
+    flags.set("resident_ingest", True)
+    try:
+        kernels.reset_launches()
+        build_s = build_small_table(base, table, hs, SMALL_ROWS)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        flags.reset("resident_ingest")
+    for spec, c in carnots.items():
+        ex = c.device_executor
+        ring = ex._resident.ring_for(table)
+        snap, pool = ring.snapshot(), ex._staged_cache.snapshot()
+        log(f"ring {spec} over {len(set(map(str, devices)))} device(s): {json.dumps(snap)}; "
+            f"pool {json.dumps(pool)}")
+        check(snap["valid"] and snap["last_error"] is None, f"ring {spec} is invalid: {snap}")
+        check(snap["windows"] == RING_WINDOWS and ring.d == shards,
+              f"ring {spec}: {snap['windows']} windows of {ring.d} shards")
+        check(ring.d * ring.nblk * ring.b == RING_WINDOW_ROWS,
+              f"ring {spec}: windows of {ring.d} x {ring.nblk} x {ring.b} rows")
+        check(all(lane.shape == (shards, ring.nblk, ring.b)
+                  for w in ring.windows.values() for lane in w.blocks.values()),
+              f"ring {spec}: a window is not shard-major")
+        check(pool["resident_bytes"] == RING_BYTES and snap["bytes"] == RING_BYTES,
+              f"ring {spec}: resident bytes {pool['resident_bytes']} != {RING_BYTES}")
+        check(pool["pinned_bytes"] >= RING_BYTES, f"ring {spec}: pinned {pool['pinned_bytes']}")
+    log(f"{table}: {SMALL_ROWS} rows written in {build_s:.3f} s feeding {len(carnots)} rings; "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    return carnots, build_s, launches
+
+
+def ring_unringed(c, query: str, name: str):
+    """``query`` on ``c``'s geometry with the ring off at query time and the
+    stream at the ring's window size (the same shard-major layout), cold."""
+    from pixie_tpu_torch.utils import flags
+
+    was = flags.get("resident_ingest")
+    flags.set("resident_ingest", False)
+    flags.set("streaming_window_rows", RING_WINDOW_ROWS)
+    try:
+        c.device_executor.clear_caches()
+        return c.execute_query(query).table(name)
+    finally:
+        flags.set("resident_ingest", was)
+        flags.reset("streaming_window_rows")
+
+
+def ring_mesh_paths(hs: dict, truth: dict, paths: dict, phase_s: dict,
+                    profile: bool = False) -> tuple:
+    """ring_mesh_d8 and ring_mesh_hosts2_d4: http_data (config 1) and config
+    5's sketches over the sharded ring of RING_MESH_TABLE, each a main path
+    (cold, then warm) held to bench.py's truths, as ``ring_paths`` holds
+    the d:1 ring: every window a hit (30 on each cold query), the sketches'
+    wire below a tenth of the staged bytes, a warm http_data query copying
+    nothing; each output equal to the same geometry's with the ring off
+    (stream windows of the ring's size). Then ring_mesh_chaos. With
+    ``profile``, one warm query of each path under torch.profiler
+    (``profile_warm``). Returns (the ring build's launches, {spec:
+    summary}, the chaos summary)."""
+    from pixie_tpu_torch.utils import flags
+
+    t0 = time.perf_counter()
+    carnots, build_s, build_launches = ring_mesh_build(hs, RING_MESH_SPECS, MESH_SHARDS)
+    phase_s["ring_mesh_table"] = time.perf_counter() - t0
+    queries = ring_mesh_queries()
+    summary = {}
+    flags.set("resident_ingest", True)
+    try:
+        for spec, c in carnots.items():
+            tag = "ring_mesh_" + spec.replace(":", "").replace(",", "_")
+            t0 = time.perf_counter()
+            p = paths[f"{tag}_http_data"] = drive(
+                c, queries["http_data"], lambda r: verify_http_data(r, hs),
+                ("scan_compact", "scalar_eval", "ring_convert"), streamed=False,
+            )
+            cp = p["cold_phases"]
+            check(cp.get("stage_resident_hits") == RING_WINDOWS,
+                  f"{tag} http_data: {cp.get('stage_resident_hits')} resident hits")
+            check(cp["wire_bytes"] < cp["stage_bytes"] / 3,
+                  f"{tag} http_data: wire {cp['wire_bytes']} of stage {cp['stage_bytes']}")
+            check(all(w.get("wire_bytes", 0.0) == 0.0 for w in p["warm_phases"]),
+                  f"{tag} http_data: a warm query copied {p['warm_phases']}")
+            check(p["launches"]["ring_convert"] == 2 * RING_WINDOWS,
+                  f"{tag} http_data: {p['launches']['ring_convert']} H24 launches, expected one "
+                  f"a converted column a window ({2 * RING_WINDOWS})")
+            check(ring_unringed(c, queries["http_data"], "out") == p["result"].table("out"),
+                  f"{tag} http_data: differs from the unringed {spec}")
+            phase_s[f"{tag}_http_data"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            p = paths[f"{tag}_sketches"] = drive(
+                c, queries["sketches"], lambda r: verify_sketches(r, truth, SMALL_ROWS),
+                SKETCH_KERNELS + ("ring_convert",),
+            )
+            cp, lanes = p["cold_phases"], p["lanes"]
+            check(cp.get("stage_resident_hits") == RING_WINDOWS
+                  and cp.get("stream_windows") == RING_WINDOWS + 1,
+                  f"{tag} sketches: {cp.get('stage_resident_hits')} hits in "
+                  f"{cp.get('stream_windows')} windows")
+            check(cp["wire_bytes"] < cp["stage_bytes"] / 10,
+                  f"{tag} sketches: wire {cp['wire_bytes']} of stage {cp['stage_bytes']}")
+            check(all(lanes.get(f"convert_{k}") == RING_WINDOWS
+                      for k in ("f32", "intdict", "narrow")), f"{tag} sketches: lanes {lanes}")
+            check(p["launches"]["ring_convert"] == 3 * RING_WINDOWS,
+                  f"{tag} sketches: {p['launches']['ring_convert']} H24 launches")
+            check(ring_unringed(c, queries["sketches"], "sketches")
+                  == p["result"].table("sketches"),
+                  f"{tag} sketches: differs from the unringed {spec}")
+            ex = c.device_executor
+            snap, pool = ex._resident.ring_for(RING_MESH_TABLE).snapshot(), ex._staged_cache.snapshot()
+            check(snap["valid"] and snap["windows"] == RING_WINDOWS
+                  and pool["pinned_bytes"] >= RING_BYTES, f"{tag}: ring {snap}, pool {pool}")
+            summary[spec] = {
+                "http_data": {"warm_s": min(paths[f"{tag}_http_data"]["warm"]),
+                              "cold_s": paths[f"{tag}_http_data"]["cold"]},
+                "sketches": {"warm_s": min(p["warm"]), "cold_s": p["cold"],
+                             "wire_bytes": cp["wire_bytes"], "stage_bytes": cp["stage_bytes"]},
+                "pinned_bytes": pool["pinned_bytes"],
+            }
+            log(f"{tag}: 30 hits a cold query, equal to the unringed {spec} bit for bit; "
+                f"{json.dumps(summary[spec])}")
+            if profile:
+                for q in ("http_data", "sketches"):
+                    profile_warm(c, queries[q], min(paths[f"{tag}_{q}"]["warm"]), f"{tag}_{q}")
+            phase_s[f"{tag}_sketches"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        chaos = ring_mesh_chaos(carnots["hosts:2,d:4"], queries["sketches"],
+                                paths["ring_mesh_hosts2_d4_sketches"]["result"].table("sketches"))
+        phase_s["ring_mesh_chaos"] = time.perf_counter() - t0
+    finally:
+        flags.reset("resident_ingest")
+    for c in carnots.values():
+        c.device_executor._resident.ring_for(RING_MESH_TABLE).release_all()
+        c.device_executor.clear_caches()
+    return build_launches, summary, chaos
+
+
+def ring_mesh_chaos(c, query: str, unfaulted: dict) -> dict:
+    """ring_mesh_chaos: config 5's sketches over the hosts:2,d:4 ring, cold,
+    with one ``mesh.host_loss`` armed after half the windows' dispatches.
+    The fold re-plans on the next rung (d:8), where the ring serves no
+    window (every ring lookup of the query happens on the full geometry),
+    and equals the unfaulted ringed output; the next cold query runs on the
+    full geometry again and hits every window."""
+    from pixie_tpu_torch.ops import kernels
+    from pixie_tpu_torch.parallel import staging
+    from pixie_tpu_torch.utils import faults, flags
+
+    ex = c.device_executor
+    full = ex.mesh_recovery_snapshot()["full_geometry"]
+    ring = ex._resident.ring_for(RING_MESH_TABLE)
+    sigs = []
+    lookup = ring.lookup
+
+    def spied(*a, **k):
+        sigs.append(ex.mesh_recovery_snapshot()["geometry"])
+        return lookup(*a, **k)
+
+    ring.lookup = spied
+    flags.set("streaming_window_rows", RING_WINDOW_ROWS)
+    try:
+        ex.clear_caches()
+        staging.reset_cold_profile()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        faults.arm("mesh.host_loss", count=1, after=RING_WINDOWS // 2)
+        t0 = time.perf_counter()
+        try:
+            res = c.execute_query(query).table("sketches")
+        finally:
+            faults.reset()
+        torch.cuda.synchronize()
+        faulted_s = time.perf_counter() - t0
+        prof = staging.reset_cold_profile()
+        snap = ex.mesh_recovery_snapshot()
+        check(snap["degrade_events"] == 1 and snap["geometry"] != full,
+              f"ring_mesh_chaos: no degrade: {snap}")
+        check(sigs and set(sigs) == {full},
+              f"ring_mesh_chaos: ring lookups on {sorted(set(sigs))}, not only {full}")
+        check(res == unfaulted, "ring_mesh_chaos: the degraded fold differs from the ringed one")
+        degraded_to, n_lookups = snap["geometry"], len(sigs)
+        ex.clear_caches()
+        staging.reset_cold_profile()
+        res2 = c.execute_query(query).table("sketches")
+        prof2 = staging.reset_cold_profile()
+        check(prof2.get("stage_resident_hits") == RING_WINDOWS
+              and ex.mesh_recovery_snapshot()["geometry"] == full,
+              f"ring_mesh_chaos: the next query hit {prof2.get('stage_resident_hits')} windows "
+              f"on {ex.mesh_recovery_snapshot()['geometry']}")
+        check(res2 == unfaulted, "ring_mesh_chaos: the next query differs")
+    finally:
+        ring.lookup = lookup
+        flags.reset("streaming_window_rows")
+    out = dict(geometry=full, degraded_to=degraded_to, faulted_s=faulted_s,
+               faulted_hits=prof.get("stage_resident_hits", 0.0), lookups=n_lookups,
+               resume=ex.last_resume_stats, next_hits=prof2.get("stage_resident_hits"))
+    log(f"ring_mesh_chaos: host lost after {RING_WINDOWS // 2} window dispatches on {full}, "
+        f"the fold re-planned on {degraded_to} with no ring window served there, equal to the "
+        f"unfaulted ringed fold; next query {RING_WINDOWS} hits on {full}; {json.dumps(out)}")
+    return out
+
+
+# The pushdown: config 8 with a pre-join predicate on each side.
+PUSHDOWN_DROPPED = 5  # the INNER join drops svc-5's owner row
+PUSHDOWN_OUTER_DROPPED = 6  # the OUTER join drops svc-6's (an owned service)
+
+
+def join8_pushdown_queries(median: float) -> dict:
+    r_pred = f"r = r[r.latency > {median!r}]\n"
+    return {
+        "join8_pushdown": JOIN8.replace(
+            "j = l.merge", r_pred + f"l = l[l.svc != '{SERVICES[PUSHDOWN_DROPPED]}']\nj = l.merge"),
+        "join8_outer_pushdown": JOIN8_OUTER.replace(
+            "j = l.merge",
+            r_pred + f"l = l[l.svc != '{SERVICES[PUSHDOWN_OUTER_DROPPED]}']\nj = l.merge"),
+    }
+
+
+def verify_join8_pushdown(result, jf: dict, median: float) -> None:
+    """INNER to svc_owners without svc-5's row, of the fact rows with
+    latency above the median: those rows but svc-5's in row order, svc ==
+    service, owner team-{i % 4}."""
+    cols = joined(result)
+    idx = jf["svc_idx"].astype(np.int64)
+    rows = np.flatnonzero((jf["latency"] > median) & (idx != PUSHDOWN_DROPPED))
+    check(len(cols["time_"]) == rows.size,
+          f"join8_pushdown: {len(cols['time_'])} rows, expected {rows.size}")
+    check(np.array_equal(cols["time_"], rows * 1000), "join8_pushdown: time_")
+    check(f64_bits_equal(cols["latency"], jf["latency"][rows]), "join8_pushdown: latency")
+    check(np.array_equal(name_index(cols["svc"], SERVICES), idx[rows]), "join8_pushdown: svc")
+    check(np.array_equal(name_index(cols["service"], SERVICES), idx[rows]),
+          "join8_pushdown: service")
+    check(np.array_equal(name_index(cols["owner"], [f"team-{i}" for i in range(4)]),
+                         idx[rows] % 4), "join8_pushdown: owner")
+
+
+def verify_join8_outer_pushdown(result, jf: dict, median: float) -> None:
+    """OUTER to svc_owners_partial without svc-6's row, of the fact rows
+    with latency above the median, in the lane's order: the matched fact
+    rows in row order with their owner; the unmatched ones (unowned, or
+    svc-6) in row order with svc and owner ""; then the 4 ghost rows."""
+    cols = joined(result)
+    partial = partial_owners()
+    idx = jf["svc_idx"].astype(np.int64)
+    sel = jf["latency"] > median
+    owned = ~np.isin(idx, UNOWNED + (PUSHDOWN_OUTER_DROPPED,))
+    rows = np.concatenate([np.flatnonzero(sel & owned), np.flatnonzero(sel & ~owned)])
+    m = int((sel & owned).sum())
+    ghosts = [partial.index(f"ghost-{j}") for j in range(4)]
+    pos = np.array([partial.index(s) if s in partial else -1 for s in SERVICES])
+    nulls = np.full(rows.size - m, -1)
+    check(len(cols["time_"]) == rows.size + 4,
+          f"join8_outer_pushdown: {len(cols['time_'])} rows, expected {rows.size + 4}")
+    check(np.array_equal(cols["time_"], np.concatenate([rows * 1000, [0] * 4])),
+          "join8_outer_pushdown: time_")
+    check(f64_bits_equal(cols["latency"], np.concatenate([jf["latency"][rows], [0.0] * 4])),
+          "join8_outer_pushdown: latency")
+    check(np.array_equal(name_index(cols["service"], SERVICES),
+                         np.concatenate([idx[rows], [-1] * 4])), "join8_outer_pushdown: service")
+    check(np.array_equal(name_index(cols["svc"], partial),
+                         np.concatenate([pos[idx[rows[:m]]], nulls, ghosts])),
+          "join8_outer_pushdown: svc")
+    check(np.array_equal(name_index(cols["owner"], [f"team-{i}" for i in range(4)]),
+                         np.concatenate([pos[idx[rows[:m]]] % 4, nulls, np.array(ghosts) % 4])),
+          "join8_outer_pushdown: owner")
+
+
+def joined_multiset_equal(a, b) -> bool:
+    """Two joined results hold the same rows as a multiset: each row as
+    int64 words (strings as their index in the sorted union of both
+    dictionaries' values, floats as their bits), the rows sorted."""
+    ca, cb = joined(a), joined(b)
+    if sorted(ca) != sorted(cb):
+        return False
+    mats = ([], [])
+    for name in sorted(ca):
+        x, y = ca[name], cb[name]
+        if hasattr(x, "codes"):
+            names = sorted(set(x.dictionary.values()) | set(y.dictionary.values()))
+            mats[0].append(name_index(x, names))
+            mats[1].append(name_index(y, names))
+            continue
+        for m, col in zip(mats, (x, y)):
+            v = np.asarray(col)
+            m.append(v.view(np.int64) if v.dtype == np.float64 else v.astype(np.int64))
+    rows = [np.stack(m, axis=1) for m in mats]
+    if rows[0].shape != rows[1].shape:
+        return False
+    a_rows, b_rows = (r[np.lexsort(r.T[::-1])] for r in rows)
+    return np.array_equal(a_rows, b_rows)
+
+
+def join8_pushdown_paths(join_carnot, jf: dict, paths: dict, phase_s: dict,
+                         profile: bool = False) -> dict:
+    """join8_pushdown and join8_outer_pushdown: config 8 with a pre-join
+    predicate on each side (r.latency above its median, l.svc not one
+    owned service), each a main path (cold, then warm) in the device lane
+    (join_sort_merge on every query) held to its numpy truth, and to the
+    host EquijoinNode's rows on the same tables (INNER in order, OUTER as a
+    multiset: the host node interleaves each probe batch's unmatched rows);
+    then each once on hosts:2,d:4 over 8 logical shards, in the partitioned
+    lane (join_partitioned), equal to the device lane's rows in order. With
+    ``profile``, one warm query of each under torch.profiler."""
+    from pixie_tpu_torch.engine import Carnot
+
+    median = float(np.median(jf["latency"]))
+    queries = join8_pushdown_queries(median)
+    host = Carnot(table_store=join_carnot.table_store)  # no device executor: the host nodes
+    mesh = mesh_carnot(join_carnot, "hosts:2,d:4", MESH_SHARDS)
+    out = {}
+    for name, verify_fn, expect in (
+        ("join8_pushdown", verify_join8_pushdown, JOIN_KERNELS),
+        ("join8_outer_pushdown", verify_join8_outer_pushdown, JOIN_KERNELS + ("scan_compact",)),
+    ):
+        t0 = time.perf_counter()
+        p = paths[name] = drive(join_carnot, queries[name],
+                                lambda r, f=verify_fn: f(r, jf, median), expect, streamed=False)
+        check(p["lanes"] == {"join_sort_merge": 1 + WARM_QUERIES},
+              f"{name}: lanes {p['lanes']}, expected join_sort_merge on every query")
+        t1 = time.perf_counter()
+        on_host = host.execute_query(queries[name])
+        host_s = time.perf_counter() - t1
+        if name == "join8_pushdown":
+            check(joined_equal(p["result"], on_host), f"{name}: rows differ from the host node's")
+        else:
+            check(joined_multiset_equal(p["result"], on_host),
+                  f"{name}: rows differ from the host node's as a multiset")
+        del on_host
+        pname = f"{name}_hosts2_d4"
+        pm = paths[pname] = drive(mesh, queries[name], lambda r, f=verify_fn: f(r, jf, median),
+                                  expect, streamed=False)
+        check(pm["lanes"] == {"join_partitioned": 1 + WARM_QUERIES},
+              f"{pname}: lanes {pm['lanes']}, expected join_partitioned on every query")
+        check(joined_equal(pm["result"], p["result"]), f"{pname}: rows differ from d:1's")
+        out[name] = {"warm_s": min(p["warm"]), "cold_s": p["cold"], "host_node_s": host_s,
+                     "rows": len(joined(p["result"])["time_"]),
+                     "hosts2_d4_warm_s": min(pm["warm"]), "hosts2_d4_cold_s": pm["cold"],
+                     "pushdown_s": p["cold_phases"].get("join_pushdown", 0.0)}
+        log(f"{name}: {json.dumps(out[name])}; equal to numpy, the host node and hosts:2,d:4")
+        if profile:
+            profile_warm(join_carnot, queries[name], min(p["warm"]), name)
+        phase_s[name] = time.perf_counter() - t0
+    return out
+
+
 CHAOS_ROWS = 1 << 25
 CHAOS_WINDOWS = 8
 CHAOS_SPEC = "hosts:2,d:4"
@@ -5636,7 +6036,7 @@ CHAOS_APPEND = 4096
 
 
 def mesh_chaos(mb: dict, spec: str = CHAOS_SPEC, shards: int = MESH_SHARDS,
-               devices=None, device: str = "cuda") -> dict:
+               devices=None, device: str = CARD) -> dict:
     """bench.py config 12 (tools/microbench_mesh.py:176-310) at config 10's
     scale: mesh_bench's query over a table of ``mb``'s rows (seed 23), written
     anew for each call, in
@@ -5750,7 +6150,7 @@ def mesh_cards_paths(n: int, paths: dict, phase_s: dict) -> dict:
     cards = [torch.device("cuda", i) for i in range(n)]
     spec = f"hosts:2,d:{n // 2}"
     jf = join_fact(JOIN_ROWS)
-    join_carnot = build_join_carnot(jf, JOIN_ROWS, "cuda")
+    join_carnot = build_join_carnot(jf, JOIN_ROWS, CARD)
     for name, query, verify_fn, expect in (
         ("join8", JOIN8, verify_join8, JOIN_KERNELS),
         ("join8_outer", JOIN8_OUTER, verify_join8_outer, JOIN_KERNELS + ("scan_compact",)),
@@ -5770,6 +6170,54 @@ def mesh_cards_paths(n: int, paths: dict, phase_s: dict) -> dict:
     out["chaos"] = chaos
     log(f"mesh over {n} cards, {spec}: joins {json.dumps(out['join'])}; chaos "
         f"{json.dumps(chaos)}")
+    return out
+
+
+def ring_mesh_cards(n: int, cards=None) -> dict:
+    """``--mesh-cards n``: http_small ringed at d:n over n logical shards
+    of card 0 and then over n real cards (each its own table, written
+    anew), http_data and config 5's sketches
+    driven cold and warm on each, every cold query 30 hits; the cards'
+    outputs equal the logical shards' (http_data's rows, the sketches'
+    count-min cells and t-digest quantiles). Returns {placement: {query:
+    (best warm s, cold s)}}."""
+    from pixie_tpu_torch.utils import flags
+
+    if cards is None:
+        check(torch.cuda.device_count() >= n,
+              f"--mesh-cards {n}: {torch.cuda.device_count()} cards")
+        cards = [torch.device("cuda", i) for i in range(n)]
+    hs = http_small(SMALL_ROWS)
+    truth = small_truths(hs)
+    out, results = {}, {}
+    for placement, devices in (("logical", None), ("cards", cards)):
+        carnots, build_s, _ = ring_mesh_build(hs, (f"d:{n}",), n, devices)
+        c = carnots[f"d:{n}"]
+        flags.set("resident_ingest", True)
+        try:
+            res = {}
+            for q, query in ring_mesh_queries().items():
+                verify_fn = ((lambda r: verify_http_data(r, hs)) if q == "http_data" else
+                             (lambda r: verify_sketches(r, truth, SMALL_ROWS)))
+                p = drive(c, query, verify_fn, ("ring_convert",), streamed=q == "sketches")
+                check(p["cold_phases"].get("stage_resident_hits") == RING_WINDOWS,
+                      f"ring over {n} {placement}: {q} hit "
+                      f"{p['cold_phases'].get('stage_resident_hits')} windows")
+                res[q] = p["result"].table("out" if q == "http_data" else "sketches")
+                out.setdefault(placement, {})[q] = (min(p["warm"]), p["cold"])
+            out[placement]["build_s"] = build_s
+        finally:
+            flags.reset("resident_ingest")
+        results[placement] = res
+        c.device_executor._resident.ring_for(RING_MESH_TABLE).release_all()
+        del carnots, c
+    a, b = results["logical"], results["cards"]
+    check(a["http_data"] == b["http_data"], f"ring over {n} cards: http_data rows differ")
+    check(a["sketches"]["freq"] == b["sketches"]["freq"]
+          and a["sketches"]["service"] == b["sketches"]["service"],
+          f"ring over {n} cards: count-min cells differ")
+    out["sketches_equal"] = a["sketches"] == b["sketches"]
+    log(f"ring over {n} cards against {n} logical shards of card 0, d:{n}: {json.dumps(out)}")
     return out
 
 
@@ -6186,7 +6634,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase_s: dict = {}
-    dev = torch.device("cuda")
+    dev = torch.device(CARD)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"device: {kind}")
@@ -6207,6 +6655,8 @@ def main() -> int:
         log(f"mesh cards sweep: {json.dumps(sweep)}; {time.perf_counter() - t_start:.1f} s")
         mesh_cards_paths(args.mesh_cards, {}, phase_s)
         log(f"mesh cards joins and chaos: {time.perf_counter() - t_start:.1f} s")
+        ring_mesh_cards(args.mesh_cards)
+        log(f"mesh cards ring: {time.perf_counter() - t_start:.1f} s")
         print(nvidia_smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -6243,7 +6693,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     data = http_events(args.rows)
-    carnot = build_carnot(data, args.rows, "cuda")
+    carnot = build_carnot(data, args.rows, CARD)
     log(f"http_events: {args.rows} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_s["http_events_table"] = time.perf_counter() - t0
@@ -6300,7 +6750,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     fl = conn_flows(FLOW_ROWS)
-    flows = build_flows_carnot(fl, FLOW_ROWS, "cuda")
+    flows = build_flows_carnot(fl, FLOW_ROWS, CARD)
     log(f"conn_flows: {FLOW_ROWS} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_s["conn_flows_table"] = time.perf_counter() - t0
@@ -6336,7 +6786,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     hs = http_small(SMALL_ROWS)
-    small, small_build_s = build_small_carnot(hs, SMALL_ROWS, "cuda")
+    small, small_build_s = build_small_carnot(hs, SMALL_ROWS, CARD)
     log(f"http_small: {SMALL_ROWS} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s (the table's build {small_build_s:.3f} s)")
     phase_s["http_small_table"] = time.perf_counter() - t0
@@ -6358,10 +6808,12 @@ def main() -> int:
     t0 = time.perf_counter()
     ring_launches = ring_paths(small, hs, small_truth, small_build_s, paths)
     phase_s["ring_paths"] = time.perf_counter() - t0
+    ring_mesh_launches, ring_mesh, ring_chaos = ring_mesh_paths(hs, small_truth, paths, phase_s,
+                                                                args.profile)
 
     t0 = time.perf_counter()
     st = stacks(SMALL_ROWS)
-    stack_carnot = build_stacks_carnot(st, SMALL_ROWS, "cuda")
+    stack_carnot = build_stacks_carnot(st, SMALL_ROWS, CARD)
     log(f"stacks: {SMALL_ROWS} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_s["stacks_table"] = time.perf_counter() - t0
@@ -6374,7 +6826,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     jf = join_fact(JOIN_ROWS)
-    join_carnot = build_join_carnot(jf, JOIN_ROWS, "cuda")
+    join_carnot = build_join_carnot(jf, JOIN_ROWS, CARD)
     log(f"join_fact: {JOIN_ROWS} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s")
     phase_s["join_tables"] = time.perf_counter() - t0
@@ -6409,10 +6861,11 @@ def main() -> int:
               f"{name}: lanes {lanes}, expected only {lane} on every query")
         phase_s[name] = time.perf_counter() - t0
     mesh_join = mesh_join_paths(join_carnot, jf, paths, phase_s)
+    pushdown = join8_pushdown_paths(join_carnot, jf, paths, phase_s, args.profile)
 
     t0 = time.perf_counter()
     ev = let_events(LET_ROWS)
-    let_carnot = build_let_carnot(ev, LET_ROWS, "cuda")
+    let_carnot = build_let_carnot(ev, LET_ROWS, CARD)
     log(f"let http_events: {LET_ROWS} rows generated and written in "
         f"{time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
@@ -6462,7 +6915,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     km = km_embeddings(KM_ROWS)
-    km_carnot = build_km_carnot(km, KM_ROWS, "cuda")
+    km_carnot = build_km_carnot(km, KM_ROWS, CARD)
     log(f"embeddings: {KM_ROWS} rows generated and written in {time.perf_counter() - t0:.1f} s")
     paths["kmeans_services"] = drive(  # a host aggregation: the AggNode, H27 at finalize
         km_carnot, KMEANS_SERVICES, lambda r: verify_kmeans_services(r, km), ("kmeans_fit",),
@@ -6498,7 +6951,10 @@ def main() -> int:
                "reservoir_mesh4": args.rows,
                **{"mesh_" + spec.replace(":", "").replace(",", "_"): MESH_ROWS
                   for spec in ("d:1",) + MESH_WIDTHS},
-               **{name: JOIN_ROWS for name in mesh_join}}
+               **{name: JOIN_ROWS for name in mesh_join},
+               **{f"{name}{sfx}": JOIN_ROWS for name in pushdown for sfx in ("", "_hosts2_d4")},
+               **{f"ring_mesh_{spec.replace(':', '').replace(',', '_')}_{q}": SMALL_ROWS
+                  for spec in RING_MESH_SPECS for q in ("http_data", "sketches")}}
     for name, p in paths.items():
         best = min(p["warm"])
         cp = p["cold_phases"]
@@ -6524,7 +6980,7 @@ def main() -> int:
             json.dump(shapes, f, indent=1)
         log(f"H4, H9, H10, H12, H16 and H18 launch shapes by path: {json.dumps(shapes)}")
     launches = {k: sum(p["launches"][k] for p in paths.values()) + shared["launches"][k]
-                + ring_launches[k] for k in kernels.KERNELS}
+                + ring_launches[k] + ring_mesh_launches[k] for k in kernels.KERNELS}
     for name, count in launches.items():
         if name in UNCALLED:
             check(count == 0, f"kernel {name} has no caller but launched {count} times")
@@ -6568,6 +7024,10 @@ def main() -> int:
         f"card): {json.dumps(mesh_join)}")
     log(f"mesh chaos (config 12, {CHAOS_ROWS} rows, {CHAOS_SPEC} over {MESH_SHARDS} logical "
         f"shards of the card): {json.dumps(chaos)}")
+    log(f"ring mesh (http_small, {SMALL_ROWS} rows, {RING_WINDOWS} windows of {RING_WINDOW_ROWS} "
+        f"rows over {MESH_SHARDS} logical shards of the card): {json.dumps(ring_mesh)}; chaos "
+        f"{json.dumps(ring_chaos)}")
+    log(f"join pushdown (config 8, {JOIN_ROWS} fact rows): {json.dumps(pushdown)}")
     phase_s["total"] = time.perf_counter() - t_start
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     out = []

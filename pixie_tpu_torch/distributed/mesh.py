@@ -263,9 +263,11 @@ def resolve_mesh(mesh: Optional[Mesh] = None, mesh_config: Optional[MeshConfig] 
     - ``devices`` given alone: the ``mesh_axes`` geometry over them (flat
       when the flag is empty).
     - none of them: the ``mesh_axes`` flag over every CUDA card (over
-      ``[device]`` when named) when it is set; when it is empty, the flat
-      mesh ``d:1`` on ``device`` (the card by default). The reference's
-      empty flag spans every local device (ROADMAP Difference-17).
+      ``[device]`` when named; flat when the flag is empty), as the
+      reference's flag spans every local device
+      (pixie_tpu/distributed/mesh.py:223-241): ``d:<cards>`` on a machine
+      of several cards, ``d:1`` on one card, on a named device, or on
+      ``device="cpu"``. Raises without CUDA unless a device is named.
     """
     if mesh is not None:
         return mesh, MeshConfig.of_mesh(mesh)
@@ -273,14 +275,9 @@ def resolve_mesh(mesh: Optional[Mesh] = None, mesh_config: Optional[MeshConfig] 
         devs = list(devices)
         cfg = mesh_config if mesh_config is not None else MeshConfig.from_flags(len(devs))
         return cfg.build(devs), cfg
-    if mesh_config is not None:
-        return mesh_config.build(local_devices(device)), mesh_config
-    if (flags.mesh_axes or "").strip():
-        devs = local_devices(device)
-        cfg = MeshConfig.from_flags(len(devs))
-        return cfg.build(devs), cfg
-    cfg = MeshConfig.flat(1)
-    return cfg.build([device if device is not None else "cuda"]), cfg
+    devs = local_devices(device)
+    cfg = mesh_config if mesh_config is not None else MeshConfig.from_flags(len(devs))
+    return cfg.build(devs), cfg
 
 
 def data_axes(mesh: Mesh) -> tuple:

@@ -417,7 +417,9 @@ def _wrap_to(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def convert_block_plain(col_plan, raw_block: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Plain version of H24: ``out`` (the plan's dtype, the shape of
-    ``raw_block``) gets ``raw_block`` converted per ``col_plan``:
+    ``raw_block``; a strided view such as a window's slice of a staging of
+    D shards is written in place) gets ``raw_block`` converted per
+    ``col_plan``:
     ("raw", _) a cast, ("narrow", (dt, off)) ``(x.astype(int64) - off)
     .astype(dt)``, ("f32", _) ``x.astype(float32)``, ("intdict", (lut, dt))
     ``min(searchsorted(lut, x), C - 1).astype(dt)``; integers wrap to their
@@ -445,9 +447,11 @@ def convert_block_plain(col_plan, raw_block: torch.Tensor, out: torch.Tensor) ->
 def convert_block(col_plan, raw_block: torch.Tensor, out: Optional[torch.Tensor] = None,
                   int_dtype=None) -> torch.Tensor:
     """Apply a StreamPlan col_plan ("raw" / "narrow" / "f32" / "intdict") to
-    a raw-dtype resident block ([1, nblk, b]), returning the plan-dtype
-    block the fold reads. ``out`` (the window's slice of the stream's
-    preallocated staging) receives it with no further allocation;
+    a raw-dtype resident block ([D, nblk, b]: a ring window's D shards on
+    one device), returning the plan-dtype block the fold reads. ``out`` (the
+    window's slice of the stream's preallocated staging, ``[:, lo:hi]``: D
+    runs at the staging's shard stride) receives it with no further
+    allocation, in one launch;
     ``int_dtype`` is the plan's block dtype of a "raw" column. The narrow
     offset and the LUT are the whole column's (``plan_stream``). H24 on
     CUDA tensors, ``convert_block_plain`` on CPU tensors."""

@@ -166,7 +166,7 @@ _SIGNATURES = {
     "px_batched_segment_sums": (
         _P, _P, _P, _I, _P, _P, _P, _I, _LL, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
     ),
-    "px_ring_convert": (_P, _I, _P, _I, _I, _LL, _P, _I, _LL, _P),
+    "px_ring_convert": (_P, _I, _P, _I, _I, _LL, _P, _I, _I, _LL, _LL, _LL, _P),
     "px_reservoir_priority": (_P, _LL, _P, _P, _P, _P),
     "px_reservoir_topk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "px_reservoir_topk_rows": (
@@ -2057,15 +2057,44 @@ CONVERT_PAIRS = {
 CONVERT_MAX_LUT = 1 << 16  # uint16 codes
 
 
+def ring_convert_shards(src: torch.Tensor, out: torch.Tensor) -> tuple[int, int, int, int]:
+    """(d, L, src_stride, dst_stride) of H24's launch over ``src`` and ``out``
+    (strides in elements): both contiguous, one run of every element (d 1);
+    else both [d, ...] with d up to 65535, each shard ``t[s]`` a contiguous
+    run of L elements at ``s * t.stride(0)``, as a window's slice
+    ``staging[:, lo:hi]`` of a one-card staging of d logical shards is.
+    Raises ValueError for any other layout, or for runs that overlap."""
+    n = src.numel()
+    if out.numel() != n:
+        raise ValueError(f"ring_convert: src has {n} elements, out {out.numel()}")
+    if src.is_contiguous() and out.is_contiguous():
+        return 1, n, n, n
+    if src.dim() < 2 or src.shape[0] != out.shape[0] or out.dim() < 2:
+        raise ValueError("ring_convert: a strided src or out must be [d, ...] like the other")
+    d = src.shape[0]
+    L = n // d if d else 0
+    strides = []
+    for t in (src, out):
+        if not t[0].is_contiguous() or (d > 1 and t.stride(0) < L):
+            raise ValueError("ring_convert: each shard of src and out must be a contiguous run "
+                             "of its elements, the runs apart")
+        strides.append(t.stride(0) if d > 1 else L)
+    if d > 65535:
+        raise ValueError(f"ring_convert: {d} shards, at most 65535")
+    return d, L, strides[0], strides[1]
+
+
 def ring_convert(src: torch.Tensor, out: torch.Tensor, kind: str, off: int = 0,
                  lut: Optional[torch.Tensor] = None) -> torch.Tensor:
     """H24: writes ``src`` (a resident block in its raw dtype) converted per
-    ``kind`` into ``out`` (the plan's dtype, as many elements, any shape;
-    a slice of a staging is fine when contiguous) and returns ``out``:
-    "raw" a cast, "narrow" (int64(x) - off) keeping the low bytes, "f32"
-    f64 -> f32 with NaN payloads kept as the host casts them, "intdict"
-    min(searchsorted(lut, x), C - 1) with ``lut`` sorted int64 [C],
-    1 <= C <= 65536."""
+    ``kind`` into ``out`` (the plan's dtype, as many elements) and returns
+    ``out``: "raw" a cast, "narrow" (int64(x) - off) keeping the low bytes,
+    "f32" f64 -> f32 with NaN payloads kept as the host casts them,
+    "intdict" min(searchsorted(lut, x), C - 1) with ``lut`` sorted int64
+    [C], 1 <= C <= 65536. ``src`` and ``out`` are contiguous, any shape, or
+    [d, ...] views whose shards are contiguous runs at a stride
+    (``ring_convert_shards``): one launch converts a window's d shards into
+    their slices of a one-card staging."""
     device = src.device
     if kind not in _CONVERT_KINDS:
         raise ValueError(f"ring_convert: unknown kind {kind!r}")
@@ -2073,11 +2102,7 @@ def ring_convert(src: torch.Tensor, out: torch.Tensor, kind: str, off: int = 0,
         raise TypeError(f"ring_convert: {kind} does not convert {src.dtype} to {out.dtype}")
     if out.device != device:
         raise ValueError(f"out is on {out.device}, expected {device}")
-    if not src.is_contiguous() or not out.is_contiguous():
-        raise ValueError("ring_convert: src and out must be contiguous")
-    n = src.numel()
-    if out.numel() != n:
-        raise ValueError(f"ring_convert: src has {n} elements, out {out.numel()}")
+    d, L, src_stride, dst_stride = ring_convert_shards(src, out)
     lut_ptr, C = None, 0
     if kind == "intdict":
         if lut is None:
@@ -2087,12 +2112,12 @@ def ring_convert(src: torch.Tensor, out: torch.Tensor, kind: str, off: int = 0,
         if not 1 <= C <= CONVERT_MAX_LUT:
             raise ValueError(f"ring_convert: lut of {C} entries, expected 1 to {CONVERT_MAX_LUT}")
         lut_ptr = lut.data_ptr()
-    if n == 0:
+    if d * L == 0:
         return out
     _launch(
         "ring_convert", device,
         src.data_ptr(), _CONVERT_CODES[src.dtype], out.data_ptr(), _CONVERT_CODES[out.dtype],
-        _CONVERT_KINDS[kind], int(off), lut_ptr, C, n,
+        _CONVERT_KINDS[kind], int(off), lut_ptr, C, d, L, src_stride, dst_stride,
     )
     return out
 

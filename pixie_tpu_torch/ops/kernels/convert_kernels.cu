@@ -19,11 +19,18 @@
 //               (searchsorted's left side; the LUT sorted int64, C >= 1).
 //    Each is bit for bit the host pack of the same rows (pack_stream_window).
 //
+//    A window of a ring sharded over D logical shards of one card is a
+//    [D, nblk, b] block, and its slice of a streamed staging [D, N, b][:,
+//    lo:hi] is D runs of nblk * b elements N * b apart: the launch takes the
+//    D runs of L elements, each source and destination shard at its own
+//    stride, so one launch converts a window's D slices.
+//
 // What bounds it on an H100: bytes. It reads each raw element once and
 // writes each converted one once (a 2^21-row int64 -> uint16 window is 21 MB,
-// ~6 us at 3.35 TB/s), and the LUT once a CTA. One thread an element in a
-// grid-stride loop, templated on (kind, source, destination) so the loop
-// body has no branch on types. intdict stages the LUT in shared memory when
+// ~6 us at 3.35 TB/s), and the LUT once a CTA. A grid of (x, D): blockIdx.y
+// a shard, one thread an element in a grid-stride loop over the shard's L
+// elements (no division by L), templated on (kind, source, destination) so
+// the loop body has no branch on types. intdict stages the LUT in shared memory when
 // it fits in 48 KB (C <= 6144, every LUT of the cell lane: C <= 256) and
 // searches it there; a larger LUT (up to uint16 codes' 65536 entries,
 // 512 KB) is searched in global memory through the read-only cache. No
@@ -83,8 +90,14 @@ __device__ __forceinline__ int lower_bound(const long long* lut, int C, long lon
   return lo;
 }
 
+// The shard geometry of one launch: d runs of n elements, the source's and
+// the destination's shard s at s * src_stride and s * dst_stride elements.
+struct Shards {
+  long long n, src_stride, dst_stride;
+};
+
 template <int K, typename S, typename D>
-__global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, long long n,
+__global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, Shards g,
                                long long off, const long long* __restrict__ lut, int C) {
   extern __shared__ long long s_lut[];
   const long long* L = lut;
@@ -93,6 +106,9 @@ __global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, l
     __syncthreads();
     L = s_lut;
   }
+  src += (long long)blockIdx.y * g.src_stride;
+  dst += (long long)blockIdx.y * g.dst_stride;
+  const long long n = g.n;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const S x = src[i];
@@ -108,26 +124,30 @@ __global__ void convert_kernel(const S* __restrict__ src, D* __restrict__ dst, l
 }
 
 template <int K, typename S, typename D>
-cudaError_t launch(const void* src, void* dst, long long n, long long off, const void* lut,
+cudaError_t launch(const void* src, void* dst, int d, Shards g, long long off, const void* lut,
                    int C, cudaStream_t stream) {
   const size_t smem = K == kIntDictSmem ? (size_t)C * sizeof(long long) : 0;
-  convert_kernel<K, S, D><<<grid_for(n, 8), kThreads, smem, stream>>>(
-      (const S*)src, (D*)dst, n, off, (const long long*)lut, C);
+  // The CTAs a one-shard launch of d * n elements would take, shared out
+  // over the d shards.
+  const int total = grid_for(g.n * d, 8);
+  const dim3 grid((unsigned)((total + d - 1) / d), (unsigned)d);
+  convert_kernel<K, S, D><<<grid, kThreads, smem, stream>>>(
+      (const S*)src, (D*)dst, g, off, (const long long*)lut, C);
   return cudaGetLastError();
 }
 
 // Destination dtype codes: 0 bool, 1 uint8, 2 uint16, 3 int32, 4 int64,
 // 5 f32, 6 f64 (ops/kernels/__init__.py _CONVERT_CODES).
 template <int K, typename S>
-cudaError_t dispatch_dst(const void* src, void* dst, int dst_code, long long n, long long off,
-                         const void* lut, int C, cudaStream_t stream) {
+cudaError_t dispatch_dst(const void* src, void* dst, int dst_code, int d, Shards g,
+                         long long off, const void* lut, int C, cudaStream_t stream) {
   switch (dst_code) {
-    case 0: return launch<K, S, bool>(src, dst, n, off, lut, C, stream);
-    case 1: return launch<K, S, uint8_t>(src, dst, n, off, lut, C, stream);
-    case 2: return launch<K, S, uint16_t>(src, dst, n, off, lut, C, stream);
-    case 3: return launch<K, S, int32_t>(src, dst, n, off, lut, C, stream);
-    case 4: return launch<K, S, long long>(src, dst, n, off, lut, C, stream);
-    case 5: return launch<K, S, float>(src, dst, n, off, lut, C, stream);
+    case 0: return launch<K, S, bool>(src, dst, d, g, off, lut, C, stream);
+    case 1: return launch<K, S, uint8_t>(src, dst, d, g, off, lut, C, stream);
+    case 2: return launch<K, S, uint16_t>(src, dst, d, g, off, lut, C, stream);
+    case 3: return launch<K, S, int32_t>(src, dst, d, g, off, lut, C, stream);
+    case 4: return launch<K, S, long long>(src, dst, d, g, off, lut, C, stream);
+    case 5: return launch<K, S, float>(src, dst, d, g, off, lut, C, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -141,19 +161,29 @@ extern "C" {
 // admits only the pairs the plans produce: raw casts from bool/int32/int64 to
 // bool, uint8, uint16, int32, int64 or f32 and f64 -> f32 or f64; narrow from
 // int32/int64 to an integer; f32 from f64; intdict from int64 to uint8,
-// uint16 or int32.
+// uint16 or int32. d shards (1 to 65535) of n elements each, shard s of the
+// source at s * src_stride elements and of the destination at s *
+// dst_stride.
 int px_ring_convert(const void* src, int src_code, void* dst, int dst_code, int kind,
-                    long long off, const void* lut, int lut_len, long long n,
-                    cudaStream_t stream) {
-  if (n <= 0) return cudaSuccess;
+                    long long off, const void* lut, int lut_len, int d, long long n,
+                    long long src_stride, long long dst_stride, cudaStream_t stream) {
+  if (n <= 0 || d <= 0) return cudaSuccess;
+  if (d > 65535) return cudaErrorInvalidValue;
+  const Shards g{n, src_stride, dst_stride};
   if (kind == kRaw || kind == kF32) {
     switch (src_code) {
-      case 0: return dispatch_dst<kRaw, bool>(src, dst, dst_code, n, 0, nullptr, 0, stream);
-      case 3: return dispatch_dst<kRaw, int32_t>(src, dst, dst_code, n, 0, nullptr, 0, stream);
-      case 4: return dispatch_dst<kRaw, long long>(src, dst, dst_code, n, 0, nullptr, 0, stream);
+      case 0: return dispatch_dst<kRaw, bool>(src, dst, dst_code, d, g, 0, nullptr, 0, stream);
+      case 3:
+        return dispatch_dst<kRaw, int32_t>(src, dst, dst_code, d, g, 0, nullptr, 0, stream);
+      case 4:
+        return dispatch_dst<kRaw, long long>(src, dst, dst_code, d, g, 0, nullptr, 0, stream);
       case 6:
-        if (dst_code == 5) return launch<kRaw, double, float>(src, dst, n, 0, nullptr, 0, stream);
-        if (dst_code == 6) return launch<kRaw, double, double>(src, dst, n, 0, nullptr, 0, stream);
+        if (dst_code == 5) {
+          return launch<kRaw, double, float>(src, dst, d, g, 0, nullptr, 0, stream);
+        }
+        if (dst_code == 6) {
+          return launch<kRaw, double, double>(src, dst, d, g, 0, nullptr, 0, stream);
+        }
         return cudaErrorInvalidValue;
       default: return cudaErrorInvalidValue;
     }
@@ -161,18 +191,21 @@ int px_ring_convert(const void* src, int src_code, void* dst, int dst_code, int 
   if (kind == kNarrow) {
     if (dst_code < 1 || dst_code > 4) return cudaErrorInvalidValue;
     switch (src_code) {
-      case 3: return dispatch_dst<kNarrow, int32_t>(src, dst, dst_code, n, off, nullptr, 0, stream);
+      case 3:
+        return dispatch_dst<kNarrow, int32_t>(src, dst, dst_code, d, g, off, nullptr, 0, stream);
       case 4:
-        return dispatch_dst<kNarrow, long long>(src, dst, dst_code, n, off, nullptr, 0, stream);
+        return dispatch_dst<kNarrow, long long>(src, dst, dst_code, d, g, off, nullptr, 0,
+                                                stream);
       default: return cudaErrorInvalidValue;
     }
   }
   if (kind == kIntDict) {
     if (src_code != 4 || dst_code < 1 || dst_code > 3 || lut_len < 1) return cudaErrorInvalidValue;
     if (lut_len <= kSmemLut) {
-      return dispatch_dst<kIntDictSmem, long long>(src, dst, dst_code, n, 0, lut, lut_len, stream);
+      return dispatch_dst<kIntDictSmem, long long>(src, dst, dst_code, d, g, 0, lut, lut_len,
+                                                   stream);
     }
-    return dispatch_dst<kIntDict, long long>(src, dst, dst_code, n, 0, lut, lut_len, stream);
+    return dispatch_dst<kIntDict, long long>(src, dst, dst_code, d, g, 0, lut, lut_len, stream);
   }
   return cudaErrorInvalidValue;
 }

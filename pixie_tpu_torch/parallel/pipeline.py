@@ -122,6 +122,7 @@ from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator, call_
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
 from pixie_tpu_torch.ops import batched, codec, merge, scan, segment
 from pixie_tpu_torch.parallel.staging import (
+    ShardedBlocks,
     StagedColumns,
     WindowStager,
     _pow2_at_least,
@@ -836,6 +837,104 @@ def _lut_pred_term(p, evaluator, staged, aux):
 
 
 @dataclasses.dataclass
+class _HostNormShim:
+    """A stand-in staging for ``normalize_predicates`` over a relation's
+    host columns (pixie_tpu/parallel/pipeline.py:548-571): one empty block
+    a column in its host dtype (STRING as int32 codes), so the normalizer's
+    dtype gates resolve as they would against a host-geometry staging and
+    no int-dictionary column applies. A UINT128 column has no block: a
+    predicate on it falls outside the class."""
+
+    blocks: dict
+    int_dicts: dict = dataclasses.field(default_factory=dict)
+
+
+def host_norm_shim(relation) -> _HostNormShim:
+    blocks = {}
+    for schema in relation:
+        if schema.data_type == DataType.STRING:
+            blocks[schema.name] = torch.empty(0, dtype=torch.int32)
+        elif schema.data_type != DataType.UINT128:
+            blocks[schema.name] = torch.from_numpy(np.empty(0, dtype=host_dtype(schema.data_type)))
+    return _HostNormShim(blocks)
+
+
+def predicate_fold_digest(predicates, relation, registry, func_ctx=None) -> Optional[str]:
+    """The canonical digest of a conjunctive predicate list over
+    ``relation``, or None when any predicate falls outside the normalizable
+    class (``normalize_predicates``; pixie_tpu/parallel/pipeline.py:574).
+    Two lists with the same digest keep exactly the same rows: string
+    constants canonicalize by value (the normalizer runs over a private
+    value-sorted code assignment, whose codes the digest translates back to
+    the values), and the terms sort, so the order of a conjunction never
+    splits a digest. The standalone join's pushdown keys each side's
+    staging by it."""
+    named = [(f"pred{i}", p) for i, p in enumerate(predicates)]
+    try:
+        evaluator = ExpressionEvaluator(named, relation, registry, func_ctx)
+    except (ValueError, KeyError):
+        return None
+    svals = sorted({
+        e.value for _, p in named for e in walk(p)
+        if isinstance(e, Constant) and isinstance(e.value, str)
+    })
+    code_of = {v: i for i, v in enumerate(svals)}
+    aux = {
+        f"const:{id(e)}": code_of[e.value]
+        for _, p in named for e in walk(p)
+        if isinstance(e, Constant) and isinstance(e.value, str)
+    }
+    terms = normalize_predicates(predicates, evaluator, host_norm_shim(relation), aux)
+    if terms is None:
+        return None
+    val_of_code = {c: v for v, c in code_of.items()}
+    string_cols = {c.name for c in relation if c.data_type == DataType.STRING}
+    canon = []
+    for stack, col, op, ithr, fthr, invals in terms:
+        if col in string_cols and op in (0, 1):
+            canon.append((col, op, "s", val_of_code[ithr]))
+        elif col in string_cols and op == 6:
+            canon.append((col, op, "s", tuple(sorted(val_of_code[c] for c in invals))))
+        else:
+            canon.append((col, op, stack, ithr, fthr, invals))
+    return "preds:" + repr(sorted(canon, key=repr))
+
+
+def host_pred_mask(preds, relation, table, cols: dict, registry, func_ctx, device):
+    """The AND of pre-join predicates over the host columns ``cols`` (the
+    read the join keys came from), each evaluated by the ExpressionEvaluator
+    the host FilterNode runs, so the kept rows, selected by the mask in row
+    order, are the rows the host plan's pre-join filter keeps
+    (pixie_tpu/parallel/pipeline.py:3165). None when a STRING column has no
+    dictionary or no predicate reads a column; the digest's gate has already
+    admitted the predicates, so an evaluation error raises."""
+    needed = set()
+    for p in preds:
+        needed |= referenced_columns(p)
+    if not needed:
+        return None
+    schemas, batch_cols = [], []
+    for name in sorted(needed):
+        schema = relation.col(name)
+        arr = cols[name]
+        if schema.data_type == DataType.STRING:
+            d = table.dictionaries.get(name)
+            if d is None:
+                return None
+            arr = DictColumn(np.asarray(arr).astype(np.int32), d)
+        schemas.append(schema)
+        batch_cols.append(arr)
+    sub_rel = Relation(schemas)
+    batch = RowBatch(sub_rel, batch_cols)
+    mask = None
+    for i, p in enumerate(preds):
+        ev = ExpressionEvaluator([(f"p{i}", p)], sub_rel, registry, func_ctx, device=device)
+        m = ev.evaluate_predicate(batch)
+        mask = m if mask is None else (mask & m)
+    return mask
+
+
+@dataclasses.dataclass
 class _KeyPlan:
     """How gids materialize: ``device_expr`` evaluated per block on the
     device, or ``host_gids`` densified on the host (neither: one group)."""
@@ -908,6 +1007,15 @@ def _unpack_bytes(host: np.ndarray, meta: list) -> list:
         out.append(host[off : off + n].view(_NP_DTYPES[dtype]).reshape(shape))
         off += n
     return out
+
+
+def _device_pairs(src, dst) -> list:
+    """[(source, destination)] of two lanes of the same layout, a pair a
+    device: the lanes themselves when each is one tensor, else each
+    ``ShardedBlocks`` part with its counterpart."""
+    if isinstance(dst, ShardedBlocks):
+        return list(zip(src.parts, dst.parts))
+    return [(src, dst)]
 
 
 def _fetch(tensors: list) -> list:
@@ -1060,9 +1168,11 @@ def _sum_lane(uda) -> Optional[str]:
 
 class DeviceExecutor:
     """Runs matching fragments on a mesh of devices. ``device=None`` is the
-    flat mesh ``d:1`` on the CUDA card (raising when there is none),
-    ``device="cpu"`` on the CPU, which runs the plain PyTorch versions of
-    the kernels. A mesh of more shards comes from ``mesh`` (a
+    ``mesh_axes`` geometry over every CUDA card (flat, ``d:<cards>``, when
+    the flag is empty; raising when there is no card); a named device is
+    that device alone (``d:1`` with the flag empty), ``device="cpu"`` the
+    CPU, which runs the plain PyTorch versions of the kernels. A mesh of
+    more shards also comes from ``mesh`` (a
     ``distributed.Mesh``), from ``mesh_config`` over ``devices`` (every
     CUDA card when None; a list may name one device several times: logical
     shards of it), or from the ``mesh_axes`` flag (``resolve_mesh``). A
@@ -1565,19 +1675,26 @@ class DeviceExecutor:
         return self._resident_manager().enable(table)
 
     def _resident_manager(self) -> ResidentIngestManager:
+        """The ring registry, its rings sharded over the full geometry's
+        mesh (the rung the executor was built on)."""
         with self._cache_lock:
             if self._resident is None:
-                self._resident = ResidentIngestManager(
-                    self.device, self.block_rows, self._staged_cache, shards=self.mesh.size
-                )
+                full = self._rung_meshes[self._full_mesh_config.signature()]
+                self._resident = ResidentIngestManager(full, self.block_rows, self._staged_cache)
             return self._resident
 
     def _resident_ring(self, table, source_op):
         """The table's ring when the resident path applies: a ring exists,
-        ``resident_ingest`` is on and the query has no time bounds (window w
-        of the plan is ring window (min_row + w * W) / W only when the
-        cursor returns every row; pixie_tpu/parallel/pipeline.py:1296)."""
+        ``resident_ingest`` is on, the executor is on the full geometry and
+        the query has no time bounds (window w of the plan is ring window
+        (min_row + w * W) / W only when the cursor returns every row;
+        pixie_tpu/parallel/pipeline.py:1296). On a degraded rung the ring
+        serves nothing, as the reference's ring windows are sharded on its
+        full mesh only (:1305-1310); it serves again once the full rung is
+        restored (the same Mesh object)."""
         if self._resident is None or not flags.resident_ingest:
+            return None
+        if self._resident.mesh is not self.mesh:
             return None
         if source_op.start_time is not None or source_op.stop_time is not None:
             return None
@@ -1604,20 +1721,26 @@ class DeviceExecutor:
         """Resident window ``rw``'s raw blocks, converted to the plan's block
         dtypes on the device (``codec.convert_block``: H24), into window
         ``w``'s slice of ``staged``: bit for bit the host pack, no wire bytes
-        (pixie_tpu/parallel/pipeline.py:1396). A "raw" column whose dtype
-        already matches is one device-to-device copy, not K8: timed apart as
-        ``stage_resident_identity`` inside ``stage_resident_convert``."""
+        (pixie_tpu/parallel/pipeline.py:1396). One launch a device: the D
+        shards of a one-device mesh at once (the slice is D runs at the
+        staging's shard stride), a shard a card over distinct cards. A
+        "raw" column whose dtype already matches is one device-to-device copy
+        a device, not K8: timed apart as ``stage_resident_identity`` inside
+        ``stage_resident_convert``."""
         t0 = time.perf_counter()
         lo, hi = w * plan.nblk, (w + 1) * plan.nblk
         for name, block in staged.blocks.items():
-            raw, col_plan, out = rw.blocks[name], plan.col_plans[name], block[:, lo:hi]
-            if col_plan[0] == "raw" and raw.dtype == out.dtype:
+            col_plan = plan.col_plans[name]
+            pairs = _device_pairs(rw.blocks[name], block[:, lo:hi])
+            if col_plan[0] == "raw" and pairs[0][0].dtype == pairs[0][1].dtype:
                 t1 = time.perf_counter()
-                out.copy_(raw)
+                for raw, out in pairs:
+                    out.copy_(raw)
                 profile_add("stage_resident_identity", time.perf_counter() - t1)
                 segment.lane_count("convert_identity")
                 continue
-            codec.convert_block(col_plan, raw, out=out, int_dtype=plan.block_dtypes[name])
+            for raw, out in pairs:
+                codec.convert_block(col_plan, raw, out=out, int_dtype=plan.block_dtypes[name])
             segment.lane_count(f"convert_{col_plan[0]}")
         profile_add("stage_resident_convert", time.perf_counter() - t0)
         profile_add("stage_resident_hits", 1.0)
@@ -1638,11 +1761,12 @@ class DeviceExecutor:
         plan = plan_stream(
             cols, n, ring.window_rows, block_rows=self.block_rows,
             num_groups=max(num_groups, 1), has_gids=gids is not None, gids=gids,
+            d=self.mesh.size,
         )
         hits = self._resident_hits(ring, plan, base_row, sorted(cols))
         if not hits:
             return None
-        stager = WindowStager(plan, self.device)
+        stager = WindowStager(plan, self.mesh.devices)
         for w in range(plan.n_windows):
             win = stager.pack(cols, gids, w, skip_cols=w in hits)
             if w in hits:
@@ -1753,18 +1877,29 @@ class DeviceExecutor:
         matched shape, bare-column keys and outputs, a dictionary for every
         STRING output, two non-empty sides of ``device_join_min_rows`` rows or
         more together, at most 2^22 key ids, and at most
-        ``device_join_max_out`` output rows. Two more are the port's: a side
-        with a pre-join predicate (the reference pushes predicates down
-        through its predicate normalizer and a row-selected staging; the port
-        has the normalizer, ``normalize_predicates``, but not the pushdown
-        yet) and a UINT128 key or output (staging has no 128-bit lane)
-        decline too. A declined join runs on the host EquijoinNode with the
-        same result."""
+        ``device_join_max_out`` output rows. One more is the port's: a
+        UINT128 key or output (staging has no 128-bit lane) declines too. A
+        declined join runs on the host EquijoinNode with the same result.
+
+        Pre-join predicates push down (:2905-2985): a side's predicates
+        must fall inside the normalizable class (``predicate_fold_digest``
+        is their gate, before anything runs), are evaluated on the host over
+        the read the keys came from (``host_pred_mask``), and select that
+        side's rows by mask, in row order, before its keys encode and its
+        columns stage; each side's digest joins the staging's identity. A
+        side with no row left declines, and ``device_join_min_rows`` counts
+        the selected rows."""
         if not flags.device_join:
             return None
         m = match_join(fragment, relations)
-        if m is None or m.left_preds or m.right_preds:
+        if m is None:
             return None
+        digests = []
+        for preds, rel in ((m.left_preds, m.left_relation), (m.right_preds, m.right_relation)):
+            digest = predicate_fold_digest(preds, rel, registry, func_ctx) if preds else ""
+            if digest is None:
+                return None
+            digests.append(digest)
         lt = table_store.get_table(m.left_source_op.table_name)
         rt = table_store.get_table(m.right_source_op.table_name)
         if lt is None or rt is None:
@@ -1786,15 +1921,27 @@ class DeviceExecutor:
         key_types += [m.right_relation.col(e.name).data_type for e in m.right_key_exprs]
         if DataType.UINT128 in key_types:
             return None
-        with timed("read_columns"):
-            lcols, nl = read_columns(
-                lt, sorted({e.name for e in m.left_key_exprs}),
-                m.left_source_op.start_time, m.left_source_op.stop_time,
-            )
-            rcols, nr = read_columns(
-                rt, sorted({e.name for e in m.right_key_exprs}),
-                m.right_source_op.start_time, m.right_source_op.stop_time,
-            )
+        sides = []
+        for table, op, keys, preds, rel in (
+            (lt, m.left_source_op, m.left_key_exprs, m.left_preds, m.left_relation),
+            (rt, m.right_source_op, m.right_key_exprs, m.right_preds, m.right_relation),
+        ):
+            need = {e.name for e in keys}
+            for p in preds:
+                need |= referenced_columns(p)
+            with timed("read_columns"):
+                cols, n = read_columns(table, sorted(need), op.start_time, op.stop_time)
+            sel = None
+            if preds:
+                with timed("join_pushdown"):
+                    sel = host_pred_mask(preds, rel, table, cols, registry, func_ctx,
+                                         self.device)
+                    if sel is None:
+                        return None
+                    cols = {c: np.asarray(a)[sel] for c, a in cols.items()}
+                    n = int(np.count_nonzero(sel))
+            sides.append((cols, n, sel))
+        (lcols, nl, left_sel), (rcols, nr, right_sel) = sides
         if nl == 0 or nr == 0 or nl + nr < flags.device_join_min_rows:
             return None  # a trivial side or a small join: the host node's
         with timed("key_plan"):
@@ -1824,6 +1971,7 @@ class DeviceExecutor:
             repr(m.left_key_exprs) + repr(m.right_key_exprs),
             m.left_source_op.start_time, m.left_source_op.stop_time,
             m.right_source_op.start_time, m.right_source_op.stop_time,
+            *digests,
         ))
         # A side with no output column still needs its mask and ids on the
         # device: it stages its first key column.
@@ -1836,17 +1984,20 @@ class DeviceExecutor:
             # replicated lane below, never to the host.
             batch = self._try_partitioned_join(
                 m, lt, rt, kl, kr, K, count_l, count_r, out_plan, key_space_sig,
-                cols_l, cols_r, nl, nr,
+                cols_l, cols_r, nl, nr, left_sel, right_sel,
             )
             if batch is not None:
                 return m.join_nid, batch
         key_l, staged_l = self._stage_cached(
-            lt, m.left_source_op, cols_l, ":joindevL:" + key_space_sig, K, gids=kl
+            lt, m.left_source_op, cols_l, ":joindevL:" + key_space_sig, K, gids=kl,
+            row_sel=left_sel,
         )
         key_r, staged_r = self._stage_cached(
-            rt, m.right_source_op, cols_r, ":joindevR:" + key_space_sig, K, gids=kr
+            rt, m.right_source_op, cols_r, ":joindevR:" + key_space_sig, K, gids=kr,
+            row_sel=right_sel,
         )
-        if staged_l.num_rows != nl or staged_r.num_rows != nr:
+        if (staged_l is None or staged_r is None
+                or staged_l.num_rows != nl or staged_r.num_rows != nr):
             return None  # a table moved between the key read and the staging
         pool = self._staged_cache
         with pool.pin(key_l), pool.pin(key_r), timed("fold"):
@@ -1951,6 +2102,7 @@ class DeviceExecutor:
     def _try_partitioned_join(
         self, m: _JoinMatch, lt, rt, kl, kr, K: int, count_l, count_r, out_plan,
         key_space_sig: str, cols_l: set, cols_r: set, nl: int, nr: int,
+        left_sel=None, right_sel=None,
     ) -> Optional[RowBatch]:
         """The sort-merge join over the hosts axis
         (pixie_tpu/parallel/pipeline.py:3426): both sides' rows go to one
@@ -1966,7 +2118,10 @@ class DeviceExecutor:
         moved while staging, or no work at all) falls through to the
         replicated lane. The mesh is read once: another query may move the
         executor to another rung meanwhile, and every step of this one
-        stays on the geometry it planned for."""
+        stays on the geometry it planned for. ``left_sel`` and ``right_sel``
+        are the pushed-down predicates' row masks over each side's read
+        (None: every row); ``kl``, ``kr``, ``nl`` and ``nr`` are of the
+        selected rows."""
         mesh = self.mesh
         H = int(mesh.shape[0])
         work = count_l * count_r + count_l + count_r
@@ -1996,11 +2151,13 @@ class DeviceExecutor:
             _pow2_at_least(max(int(ul_s.max()), 1)) if how in (JoinType.LEFT, JoinType.OUTER) else 0,
         )
         ck_l, staged_l = self._stage_partitioned_side(
-            mesh, lt, m.left_source_op, cols_l, kl, perm_l, rows_l, K, nl, key_space_sig, "L")
+            mesh, lt, m.left_source_op, cols_l, kl, perm_l, rows_l, K, nl, key_space_sig, "L",
+            left_sel)
         if staged_l is None:
             return None
         ck_r, staged_r = self._stage_partitioned_side(
-            mesh, rt, m.right_source_op, cols_r, kr, perm_r, rows_r, K, nr, key_space_sig, "R")
+            mesh, rt, m.right_source_op, cols_r, kr, perm_r, rows_r, K, nr, key_space_sig, "R",
+            right_sel)
         if staged_r is None:
             return None
         segment.lane_count("join_partitioned")
@@ -2045,9 +2202,10 @@ class DeviceExecutor:
 
     def _stage_partitioned_side(
         self, mesh, table, src_op, cols_needed: set, kk, perm, rows_s, K: int, n_expect: int,
-        key_space_sig: str, tag: str,
+        key_space_sig: str, tag: str, row_sel=None,
     ) -> tuple:
-        """(cache key, staging) of one join side read, permuted shard-major
+        """(cache key, staging) of one join side read, its rows selected by
+        ``row_sel`` (a mask over the read, or None), permuted shard-major
         and staged by ``stage_partitioned`` (pixie_tpu/parallel/pipeline.py:
         3557), or (None, None) when the table moved under the read. Cached
         and registered in the residency pool under ``:meshjoin{tag}:{H}:``;
@@ -2061,6 +2219,11 @@ class DeviceExecutor:
         with timed("read_columns"):
             cols, n = read_columns(table, sorted(cols_needed), src_op.start_time,
                                    src_op.stop_time)
+        if row_sel is not None:
+            if len(row_sel) != n:
+                return None, None
+            cols = {c: np.asarray(a)[row_sel] for c, a in cols.items()}
+            n = int(np.count_nonzero(row_sel))
         if n != n_expect or len(kk) != n:
             return None, None
         with timed("stage_host_pack"):
@@ -2510,14 +2673,20 @@ class DeviceExecutor:
     def _stage_cached(
         self, table, source_op, base_cols: set, key_sig: str, num_groups: int,
         gids: Optional[np.ndarray] = None, extra_cols: Optional[dict] = None,
+        row_sel: Optional[np.ndarray] = None,
     ) -> tuple:
         """(cache key, the staged columns) of this table version and window,
         staged in one piece (with the codec) and cached on a miss: the scan,
-        join and join-aggregate lanes. With no ``extra_cols`` a table with a
-        resident ring assembles its staging from the ring's windows and the
-        staged tail (``_try_resident_assemble``). ``extra_cols`` are host
-        columns of the table's rows staged beside the read ones (the
-        join-aggregate lane's join-key ids), pinned by ``key_sig``."""
+        join and join-aggregate lanes. With no ``extra_cols`` and no
+        ``row_sel`` a table with a resident ring assembles its staging from
+        the ring's windows and the staged tail (``_try_resident_assemble``).
+        ``extra_cols`` are host columns of the table's rows staged beside the
+        read ones (the join-aggregate lane's join-key ids), pinned by
+        ``key_sig``. ``row_sel`` is a mask over the read (the join's
+        pushed-down predicates, pinned by ``key_sig``'s digests): the rows
+        it keeps stage, in row order, and ``gids`` are theirs. The staging
+        is None when the table moved under the mask (pixie_tpu/parallel/
+        pipeline.py:3940-3973)."""
         cache_key = self._staged_key(table, source_op, base_cols, key_sig, num_groups)
         key, staged = self._staged_lookup(cache_key)
         if staged is None:
@@ -2526,9 +2695,14 @@ class DeviceExecutor:
                 cols, n = read_columns(
                     table, sorted(base_cols), source_op.start_time, source_op.stop_time
                 )
+            if row_sel is not None:
+                if len(row_sel) != n:
+                    return cache_key, None
+                cols = {c: np.asarray(a)[row_sel] for c, a in cols.items()}
+                n = int(np.count_nonzero(row_sel))
             cols.update(extra_cols or {})
             with timed("stage"):
-                if not extra_cols:
+                if not extra_cols and row_sel is None:
                     staged = self._try_resident_assemble(
                         table, source_op, cols, n, gids, num_groups, base_row
                     )
@@ -3495,10 +3669,10 @@ class DeviceExecutor:
         (``_build_fold``/``_build_merge``, :5805-5938). Every window lands in
         its slice of one preallocated staging, which is the warm-cache
         entry. With the table's resident ``ring`` (``base_row`` its first
-        row id; one shard only) the stream runs at the ring's window size,
-        and a window the ring holds packs only its gids and converts its
-        columns on the device instead of copying them (:5990-6005,
-        :6186-6197, :6310-6320).
+        row id; its windows sharded over the same devices) the stream runs
+        at the ring's window size, and a window the ring holds packs only
+        its gids and converts its columns on the device, shard by shard,
+        instead of copying them (:5990-6005, :6186-6197, :6310-6320).
 
         Each window's fold and the final merge are mesh dispatches
         (``_mesh_dispatch``, :6219-6225, :6391-6397). On an executor whose

@@ -8,27 +8,31 @@ table's full windows already on the card, staging only the tail.
 
 - A ``ResidentRing`` listens to a Table's appends. Appends buffer on the
   host until a full ring window (``resident_window_rows`` rows, geometry
-  from ``staging.block_geometry``, exactly the stream plan's) is available;
-  the window is then packed in RAW column dtypes, encoded with the staging
-  codec where an encoder pays (``codec.plan_codec_local``,
-  ``encode_window``), copied and decoded on the device (H18, H19) into
-  [1, nblk, b] blocks that stay resident. A column the codec declines is
-  copied raw.
+  from ``staging.block_geometry`` over the executor's mesh, exactly the
+  stream plan's) is available; the window is then packed in RAW column
+  dtypes, encoded with the staging codec where an encoder pays
+  (``codec.plan_codec_local``, ``encode_window``), copied and decoded on
+  the devices (H18, H19) into [D, nblk, b] blocks that stay resident: shard
+  s of every window on the mesh's device s (one [D, nblk, b] tensor when
+  every shard is on one device, a ``ShardedBlocks`` over distinct cards),
+  as the reference shards its windows over its mesh. A column the codec
+  declines is copied raw.
 - Queries over the table stream at the ring's window size, so plan window w
   covers the same rows as ring window ``(min_row + w * W) / W``. On a hit
   the executor skips the pack and the copy and converts the raw blocks to
-  the plan's dtypes on the card (``codec.convert_block``, H24): bit for bit
-  the host pack, no wire bytes. Misses (the partial tail) stage as usual.
+  the plan's dtypes on the card (``codec.convert_block``, H24: one launch a
+  device over its shards): bit for bit the host pack, no wire bytes. Misses
+  (the partial tail) stage as usual.
 - Ring windows are registered with the ResidencyPool as permanently pinned
-  bytes (``register_resident``); the ring's depth bound
+  bytes (``register_resident``: every shard's); the ring's depth bound
   (``resident_max_windows``) rolls the oldest window out and frees its
   accounting.
 
 Staging runs on the writer's thread, inside ``Table.write``; each window's
-device writes are complete (its stream synchronized) before the window is
-published, so any stream may read it. The table catches and logs a failing
-append listener, so a staging failure also invalidates the ring and is kept
-as ``last_error`` in ``snapshot()``.
+device writes are complete (the stream of every device it lands on
+synchronized) before the window is published, so any stream may read it.
+The table catches and logs a failing append listener, so a staging failure
+also invalidates the ring and is kept as ``last_error`` in ``snapshot()``.
 
 The ring only serves FULL windows whose rows it observed gap-free in row-id
 order: a skipped row id or a dtype mismatch invalidates it for good and
@@ -82,12 +86,7 @@ _RAW_DTYPES = {
 }
 
 
-def _check_ported_flags(shards: int = 1) -> None:
-    if shards > 1:
-        raise NotImplementedError(
-            f"a resident ring on a mesh of {shards} shards: the sharded ring "
-            "(shard-major ring windows) is not ported yet"
-        )
+def _check_ported_flags() -> None:
     if flags.durable_resident and flags.wal_dir:
         raise NotImplementedError(
             "durable_resident: the resident ring's durable spill "
@@ -107,22 +106,22 @@ class ResidentWindow:
         self.index = index
         self.start_row = start_row
         self.rows = rows
-        self.blocks = blocks  # col -> [1, nblk, b] raw-dtype tensor on the device
+        self.blocks = blocks  # col -> [D, nblk, b] raw-dtype lane over the mesh's devices
         self.nbytes = nbytes
 
 
 class ResidentRing:
     """Per-table device ring of full append windows in raw column dtypes."""
 
-    def __init__(self, device: torch.device, table, block_rows: int, pool=None,
-                 shards: int = 1):
+    def __init__(self, mesh, table, block_rows: int, pool=None):
         from pixie_tpu_torch.parallel.staging import block_geometry
 
-        _check_ported_flags(shards)
-        self.device = device
+        _check_ported_flags()
+        self.mesh = mesh
+        self.devices = mesh.devices  # shard s on devices[s]
         self.table_name = table.name
         self.window_rows = int(flags.resident_window_rows)
-        self.d = 1
+        self.d = len(self.devices)
         self.b, self.nblk = block_geometry(self.window_rows, self.d, block_rows)
         self._pool = pool
         self._lock = threading.Lock()
@@ -200,10 +199,11 @@ class ResidentRing:
 
     def _stage_window_locked(self, k: int, win_cols: dict) -> None:
         """Pack window ``k`` in raw dtypes, copy it (encoded where the codec
-        pays) and decode it into resident [1, nblk, b] blocks; publish it
-        once its device writes are complete."""
+        pays) and decode it into resident [D, nblk, b] lanes, shard s on the
+        mesh's device s; publish it once every device's writes are
+        complete."""
         from pixie_tpu_torch.ops import codec
-        from pixie_tpu_torch.parallel.staging import codec_min_ratio
+        from pixie_tpu_torch.parallel.staging import alloc_lane, codec_min_ratio, split_targets
 
         total = self.d * self.nblk * self.b
         W = self.window_rows
@@ -222,21 +222,25 @@ class ResidentRing:
                         payload = codec.encode_window(flat, cp, W)
                     except codec.CodecOverflow:
                         payload = None
-            out = torch.empty((self.d, self.nblk, self.b), dtype=codec.TORCH_DTYPES[flat.dtype],
-                              device=self.device)
-            if payload is not None:
-                args = [torch.from_numpy(x).to(self.device) for x in payload.arrays]
-                codec.decode(args, payload.plan, out.view(self.d, self.nblk * self.b))
-                wire += payload.nbytes
-            else:
-                out.copy_(torch.from_numpy(flat).reshape(out.shape))
-                wire += flat.nbytes
+            out = alloc_lane((self.d, self.nblk, self.b), codec.TORCH_DTYPES[flat.dtype],
+                             self.devices)
+            # One decode or copy a device: the whole [D, shard_len] block on
+            # a one-device mesh, a shard a card over distinct cards.
+            for part, dst in split_targets(payload if payload is not None else flat, out):
+                if isinstance(part, codec.CodecPayload):
+                    args = [torch.from_numpy(x).to(dst.device) for x in part.arrays]
+                    codec.decode(args, part.plan, dst.view(part.plan.d, part.plan.shard_len))
+                else:
+                    dst.copy_(torch.from_numpy(part).reshape(dst.shape))
+            wire += payload.nbytes if payload is not None else flat.nbytes
             blocks[name] = out
             nbytes += flat.nbytes
-        if self.device.type == "cuda":
-            # Readers run on other threads' streams: the window is published
-            # only after its copies and decodes have finished.
-            torch.cuda.current_stream(self.device).synchronize()
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                # Readers run on other threads' streams: the window is
+                # published only after every device's copies and decodes
+                # have finished.
+                torch.cuda.current_stream(dev).synchronize()
         self.windows[k] = ResidentWindow(k, k * W, W, blocks, nbytes)
         _WINDOWS.inc()
         _WIRE.inc(wire)
@@ -292,14 +296,13 @@ class ResidentRing:
 
 
 class ResidentIngestManager:
-    """The DeviceExecutor's registry of per-table rings."""
+    """The DeviceExecutor's registry of per-table rings, each sharded over
+    ``mesh`` (the executor's full geometry)."""
 
-    def __init__(self, device: torch.device, block_rows: int, pool=None, shards: int = 1):
-        self.device = device
+    def __init__(self, mesh, block_rows: int, pool=None):
+        self.mesh = mesh
         self.block_rows = block_rows
         self.pool = pool
-        # The executor's mesh shards: a ring over more than one raises.
-        self.shards = shards
         self._lock = threading.Lock()
         self._rings: dict[str, ResidentRing] = {}
 
@@ -310,7 +313,7 @@ class ResidentIngestManager:
             ring = self._rings.get(table.name)
             if ring is not None:
                 return ring
-            ring = ResidentRing(self.device, table, self.block_rows, self.pool, self.shards)
+            ring = ResidentRing(self.mesh, table, self.block_rows, self.pool)
             if not ring.columns:
                 return None
             self._rings[table.name] = ring

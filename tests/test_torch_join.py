@@ -20,9 +20,8 @@ Three levels, every one exact (a join only gathers, so no tolerance):
   fact table never names). Both packages must take their device lanes
   (``reduce_lanes`` shows ``join_sort_merge``; the reference's
   ``fallback_errors`` stays empty). The gates route the same joins to both
-  host nodes; a pre-join filter sends the port's join to its host node and
-  the reference's to its lane (the port does not push predicates down yet),
-  with equal results; a join feeding a group-by takes the port's
+  host nodes; a pre-join filter is pushed down by both packages into their
+  lanes, with equal results; a join feeding a group-by takes the port's
   join-aggregate lane (tests/test_torch_join_agg.py holds that lane).
 """
 
@@ -448,9 +447,10 @@ def test_device_join_flag_off_keeps_both_on_the_host(join_flags):
 
 @pytest.mark.parametrize("how", ["inner", "left"])
 def test_prejoin_filter_runs_on_the_port_host_node(join_flags, how):
-    """A pre-join predicate: the reference filters on the host and takes its
-    lane, the port's lane declines (no predicate pushdown yet) and its host
-    node runs the join; the rows are equal."""
+    """A pre-join predicate: both packages filter the side on the host and
+    take their lanes (the pushdown; tests/test_torch_join_pushdown.py holds
+    it in full), and the rows equal the reference's and the port's host
+    node's."""
     fact = fact_data(8_000)
     q = (
         "l = px.DataFrame(table='svc_owners_partial')\n"
@@ -462,8 +462,9 @@ def test_prejoin_filter_runs_on_the_port_host_node(join_flags, how):
     )
     got, lanes = run_port(fact, q)
     want, ref_lanes = run_ref(fact, q)
-    assert lanes == {} and ref_lanes.get("join_sort_merge") == 1
+    assert lanes == {"join_sort_merge": 1} and ref_lanes.get("join_sort_merge") == 1
     assert got == want and len(got["time_"]) > 0
+    assert got == run_port(fact, q, device_executor=False)[0]
 
 
 def test_host_suffix_after_the_device_join(join_flags):

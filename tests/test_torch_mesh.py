@@ -33,7 +33,6 @@ from pixie_tpu_torch.engine import Carnot
 from pixie_tpu_torch.ops import merge
 from pixie_tpu_torch.parallel import DeviceExecutor
 from pixie_tpu_torch.parallel import staging
-from pixie_tpu_torch.serving.resident import ResidentIngestManager
 from pixie_tpu_torch.serving.residency import staged_nbytes
 from pixie_tpu_torch.serving.shared_scan import SharedScanCoordinator
 from pixie_tpu_torch.types import DataType, Relation
@@ -231,20 +230,93 @@ def test_residency_counts_every_shard():
     assert staged_nbytes(staged) == 3 * 4 * 8 * 8 + 3 * 4 * 8
 
 
-def test_ring_on_a_mesh_is_not_ported_yet():
-    mgr = ResidentIngestManager(torch.device("cpu"), BLOCK, shards=4)
-    c = Carnot(device="cpu")
-    t = c.table_store.create_table("t", Relation.of(("v", DataType.INT64)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mgr.enable(t)
-    flags.set("resident_ingest", True)
+def _ring_table(c, n: int = 30_000) -> None:
+    rng = np.random.default_rng(4)
+    t = c.table_store.create_table("t", Relation.of(
+        ("svc", DataType.STRING), ("v", DataType.INT64), ("x", DataType.FLOAT64)))
+    for off in range(0, n, 3000):
+        m = min(3000, n - off)
+        t.write_pydict({"svc": rng.choice(["a", "b", "c"], m).astype(object),
+                        "v": rng.integers(0, 50, m), "x": rng.standard_normal(m)})
+
+
+RING_QUERY = (
+    "df = px.DataFrame(table='t')\n"
+    "g = df.groupby('svc').agg(n=('v', px.count), s=('x', px.sum), hi=('v', px.max))\n"
+    "px.display(g, 'out')\n"
+)
+
+
+def test_ring_on_a_mesh_serves():
+    """A resident ring on d:4 stages shard-major windows and serves them:
+    over 4 logical shards of the CPU (one [4, nblk, b] tensor a column) and
+    over devices torch counts as distinct ("cpu", "cpu:0": a ShardedBlocks
+    a column), each equal to the same geometry without the ring."""
+    outs = []
+    for devices in (["cpu"] * 4, ["cpu", "cpu:0"] * 2):
+        flags.set("resident_ingest", True)
+        flags.set("resident_window_rows", 8192)
+        flags.set("streaming_window_rows", 8192)
+        try:
+            ex = DeviceExecutor(block_rows=1024, mesh_config=MeshConfig.parse("d:4", 4),
+                                devices=devices)
+            c = Carnot(device_executor=ex)
+            _ring_table(c)
+            ring = ex._resident.ring_for("t")
+            assert ring.d == 4 and ring.snapshot()["windows"] == 3 and ring.snapshot()["valid"]
+            lanes = [b for w in ring.windows.values() for b in w.blocks.values()]
+            sharded = len(set(devices)) > 1
+            assert all(isinstance(b, staging.ShardedBlocks) == sharded for b in lanes)
+            assert all(b.shape == (4, ring.nblk, ring.b) for b in lanes)
+            # Every shard's bytes are pinned.
+            assert ex._staged_cache.snapshot()["resident_bytes"] == 3 * 8192 * (4 + 8 + 8)
+            staging.reset_cold_profile()
+            got = c.execute_query(RING_QUERY).table("out")
+            assert staging.reset_cold_profile().get("stage_resident_hits") == 3.0
+            flags.set("resident_ingest", False)
+            ex.clear_caches()
+            assert c.execute_query(RING_QUERY).table("out") == got
+            outs.append(got)
+        finally:
+            for k in ("resident_ingest", "resident_window_rows", "streaming_window_rows"):
+                flags.reset(k)
+    assert outs[0] == outs[1]
+    assert sum(outs[0]["n"]) == 30_000
+
+
+def test_default_geometry_spans_every_card(monkeypatch):
+    """With ``mesh_axes`` empty and no device named, the executor's mesh is
+    flat over every card, as the reference's spans every local device; a
+    named device stays one device, and the flag's geometry spans the same
+    list."""
+    from pixie_tpu_torch.distributed import mesh as mesh_mod
+
+    cards = ["cpu", "cpu:0", "cpu", "cpu:0"]  # four devices to the mesh
+
+    def local_devices(device=None):
+        if device is not None:
+            return [mesh_mod.indexed_device(device)]
+        return [mesh_mod.indexed_device(d) for d in cards]
+
+    monkeypatch.setattr(mesh_mod, "local_devices", local_devices)
+    m, cfg = mesh_mod.resolve_mesh()
+    assert cfg.signature() == "d:4" and m.devices == tuple(torch.device(d) for d in cards)
+    assert cfg.signature() == RefMeshConfig.parse("", 4).signature()
+    ex = DeviceExecutor()
+    assert ex.mesh.size == 4 and ex.mesh_config.signature() == "d:4"
+    assert ex.device == torch.device("cpu")
+    m, cfg = mesh_mod.resolve_mesh(device="cpu")
+    assert cfg.signature() == "d:1" and m.devices == (torch.device("cpu"),)
+    assert DeviceExecutor(device="cpu").mesh.size == 1
+    flags.set("mesh_axes", "hosts:2,d:-1")
     try:
-        ex = cpu_shards("d:4", 4)
-        c = Carnot(device_executor=ex)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            c.table_store.create_table("t", Relation.of(("v", DataType.INT64)))
+        assert mesh_mod.resolve_mesh()[1].signature() == "hosts:2,d:2"
+        with pytest.raises(ValueError):
+            mesh_mod.resolve_mesh(device="cpu")  # one device: hosts:2 cannot fit
     finally:
-        flags.reset("resident_ingest")
+        flags.reset("mesh_axes")
+    cards[:] = ["cpu"]
+    assert mesh_mod.resolve_mesh()[1].signature() == "d:1"
 
 
 # ---------------------------------------------------------------- the merge

@@ -35,8 +35,10 @@ from pixie_tpu.parallel import MeshExecutor
 from pixie_tpu.parallel.staging import reset_cold_profile as ref_reset_cold_profile
 from pixie_tpu.types import DataType as RefDT, Relation as RefRelation, SemanticType as RefST
 from pixie_tpu.utils import flags as ref_flags
+from pixie_tpu_torch.distributed import MeshConfig
 from pixie_tpu_torch.engine import Carnot
-from pixie_tpu_torch.ops import codec, histogram, segment
+from pixie_tpu_torch.ops import codec, histogram, kernels, segment
+from pixie_tpu_torch.ops.convert_edges import RING_CASES, SHARD_COUNTS, ring_case, strided_staging
 from pixie_tpu_torch.parallel import DeviceExecutor, staging
 from pixie_tpu_torch.serving import ResidencyPool, staged_nbytes
 from pixie_tpu_torch.types import DataType, Relation, SemanticType
@@ -47,6 +49,7 @@ from pixie_tpu_torch.utils import faults, flags, metrics_registry
 torch.set_num_threads(2)
 
 N, WINDOW, BLOCK, SEED = 20_000, 4096, 512, 7
+NDEV = 4  # the logical CPU shards of a sharded ring
 AGG_PXL = (
     "df = px.DataFrame(table='http_events')\n"
     "df.failure = df.resp_status >= 400\n"
@@ -100,7 +103,17 @@ class _flags:
 
 
 def _ring_flags(**extra):
-    return _flags(resident_ingest=True, resident_window_rows=WINDOW, **extra)
+    # The reference derives a watchdog deadline from its cost model once
+    # warm, which a loaded host can trip on a hosts axis: no watchdog.
+    return _flags(resident_ingest=True, resident_window_rows=WINDOW,
+                  mesh_dispatch_timeout_s=-1.0, **extra)
+
+
+def _plain_flags():
+    """The unringed engine's stream at the ring's window size: the same
+    shard-major window layout, so its output is comparable bit for bit
+    at any geometry (at d:1 the blocks are the same at any window)."""
+    return _flags(streaming_window_rows=WINDOW)
 
 
 def _data(n=N, seed=SEED) -> dict:
@@ -121,10 +134,16 @@ def _fill(t, data: dict) -> None:
     t.stop()
 
 
-def _port(data: dict):
+def _port(data: dict, spec: str = "d:1"):
     """(Carnot, its DeviceExecutor on the CPU, the table), built under the
-    flags in force: with ``resident_ingest`` the table gets its ring."""
-    c = Carnot(device_executor=DeviceExecutor(device="cpu", block_rows=BLOCK))
+    flags in force: with ``resident_ingest`` the table gets its ring,
+    sharded over ``spec``'s 4 logical CPU shards (d:1: the CPU alone)."""
+    if spec == "d:1":
+        ex = DeviceExecutor(device="cpu", block_rows=BLOCK)
+    else:
+        ex = DeviceExecutor(block_rows=BLOCK, mesh_config=MeshConfig.parse(spec, NDEV),
+                            devices=["cpu"] * NDEV)
+    c = Carnot(device_executor=ex)
     rel = Relation.of(("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
                       ("service", DataType.STRING), ("resp_status", DataType.INT64),
                       ("latency", DataType.FLOAT64))
@@ -133,8 +152,10 @@ def _port(data: dict):
     return c, c.device_executor, t
 
 
-def _ref(data: dict):
-    ex = MeshExecutor(mesh=Mesh(np.array(jax.devices()[:1]), ("d",)), block_rows=BLOCK)
+def _ref(data: dict, spec: str = "d:1"):
+    cfg = MeshConfig.parse(spec, 1 if spec == "d:1" else NDEV)
+    devs = np.array(jax.devices()[:cfg.total_devices]).reshape(cfg.shape)
+    ex = MeshExecutor(mesh=Mesh(devs, cfg.names), block_rows=BLOCK)
     c = RefCarnot(device_executor=ex)
     rel = RefRelation.of(("time_", RefDT.TIME64NS, RefST.ST_TIME_NS),
                          ("service", RefDT.STRING), ("resp_status", RefDT.INT64),
@@ -159,15 +180,21 @@ def _assert_agg_matches_reference(got: dict, want: dict) -> None:
         assert all(_within_a_bin(g[k], w[k]) for k in w)
 
 
-@pytest.fixture(scope="module")
-def ringed():
-    """Both packages' ringed engines over one table, and the port's
-    unringed one: (data, port, reference, port without a ring)."""
+# The ring's geometries: one device, and 4 logical CPU shards flat and with
+# a hosts axis (the reference on 4 of its virtual CPU devices).
+RING_SPECS = ("d:1", "d:4", "hosts:2,d:2")
+
+
+@pytest.fixture(scope="module", params=RING_SPECS)
+def ringed(request):
+    """Both packages' ringed engines over one table on one geometry, and the
+    port's unringed one on it: (data, port, reference, port without a
+    ring)."""
     data = _data()
     with _ring_flags():
-        port = _port(data)
-        ref = _ref(data)
-    plain = _port(data)
+        port = _port(data, request.param)
+        ref = _ref(data, request.param)
+    plain = _port(data, request.param)
     return data, port, ref, plain
 
 
@@ -188,9 +215,10 @@ def test_ring_windows_and_pool_accounting_match_reference(ringed):
     assert pool["resident_bytes"] == ref_pool["resident_bytes"] == 4 * 4096 * 28
     assert pool["pinned_bytes"] >= pool["resident_bytes"]
     ring = ex._resident.ring_for("http_events")
+    assert ring.d == ex.mesh.size
     for w in ring.windows.values():
         assert {n: b.shape for n, b in w.blocks.items()} == {
-            n: (1, ring.nblk, ring.b) for n in ("time_", "service", "resp_status", "latency")}
+            n: (ring.d, ring.nblk, ring.b) for n in ("time_", "service", "resp_status", "latency")}
 
 
 def test_resident_windows_hold_the_raw_rows(ringed):
@@ -232,7 +260,8 @@ def test_resident_ingest_hot_table_stages_only_tail(ringed):
     assert lanes.get("convert_narrow") == 8 and lanes.get("convert_identity") == 4, lanes
     assert not rex.stream_fallback_errors
     _assert_agg_matches_reference(got, want)
-    assert got == pc.execute_query(AGG_PXL).table("out")
+    with _plain_flags():
+        assert got == pc.execute_query(AGG_PXL).table("out")
 
 
 def test_resident_scan_row_set_and_warm_cache(ringed):
@@ -255,10 +284,23 @@ def test_resident_scan_row_set_and_warm_cache(ringed):
     assert lanes.get("stage_resident") == 1
     assert prof2.get("wire_bytes", 0.0) == 0.0, prof2
     sel = data["resp_status"] >= 400
-    assert np.array_equal(np.asarray(got["time_"]), data["time_"][sel])
-    assert list(got["service"]) == list(data["service"][sel])
+    order = np.arange(N)
+    if ex.mesh.size > 1:
+        # The ring's staging is shard-major a window (shard s holds each
+        # window's rows from s * W / D), and the scan takes the shards in
+        # device order, as the reference's ringed scan does.
+        span = WINDOW // ex.mesh.size
+        order = np.concatenate([
+            np.arange(w * WINDOW + s * span, w * WINDOW + (s + 1) * span)
+            for s in range(ex.mesh.size) for w in range(-(-N // WINDOW))
+        ])
+        order = order[order < N]
+        assert got == want
+    sel_rows = order[sel[order]]
+    assert np.array_equal(np.asarray(got["time_"]), data["time_"][sel_rows])
+    assert list(got["service"]) == list(data["service"][sel_rows])
     assert np.asarray(got["latency"]).view(np.uint64).tolist() == \
-        data["latency"][sel].view(np.uint64).tolist()
+        data["latency"][sel_rows].view(np.uint64).tolist()
     assert sorted(np.asarray(want["time_"]).tolist()) == sorted(np.asarray(got["time_"]).tolist())
     assert warm == got
 
@@ -281,7 +323,8 @@ def test_every_staged_kind_converts_from_the_ring(ringed):
     for kind in ("narrow", "f32", "intdict", "identity"):
         assert lanes.get(f"convert_{kind}") == 4, lanes
     assert lanes.get("cell_lane") == 1
-    assert got == pc.execute_query(KINDS_PXL).table("out")
+    with _plain_flags():
+        assert got == pc.execute_query(KINDS_PXL).table("out")
     assert got["service"] == want["service"]
     assert got["freq"] == want["freq"] and got["first"] == want["first"]
     for gq, wq in zip(got["lat"], want["lat"]):
@@ -307,6 +350,64 @@ def test_time_bounded_query_skips_resident(ringed):
     assert prof.get("stage_resident_hits", 0.0) == ref_prof.get("stage_resident_hits", 0.0) == 0.0
     assert int(np.asarray(got["n"]).sum()) == 5001
     assert got == want
+
+
+def _lane_numpy(lane) -> np.ndarray:
+    """A ring window's [D, nblk, b] lane as numpy (a ShardedBlocks' parts
+    stacked in shard order)."""
+    if isinstance(lane, staging.ShardedBlocks):
+        return np.concatenate([p.numpy() for p in lane.parts])
+    return lane.numpy()
+
+
+def test_ring_windows_equal_the_references_shard_by_shard(ringed):
+    """Every staged window, each column and each shard, equals the
+    reference's ``ResidentRing.windows[k].blocks[name]`` bit for bit."""
+    _data_, (_c, ex, _t), (_rc, rex, _rt), _plain = ringed
+    ring = ex._resident.ring_for("http_events")
+    ref_ring = rex._resident.ring_for("http_events")
+    assert (ring.d, ring.nblk, ring.b) == (ref_ring.d, ref_ring.nblk, ref_ring.b)
+    assert sorted(ring.windows) == sorted(ref_ring.windows) == [0, 1, 2, 3]
+    for k, w in ring.windows.items():
+        rw = ref_ring.windows[k]
+        assert (w.start_row, w.rows, w.nbytes) == (rw.start_row, rw.rows, rw.nbytes)
+        for name, lane in w.blocks.items():
+            got, want = _lane_numpy(lane), np.asarray(rw.blocks[name])
+            assert got.shape == want.shape == (ring.d, ring.nblk, ring.b)
+            assert got.dtype == want.dtype, name
+            for s in range(ring.d):
+                assert np.array_equal(_bits(got[s]), _bits(want[s])), (k, name, s)
+
+
+def test_degraded_rung_serves_no_ring_window():
+    """On a rung below the full geometry the ring serves nothing (its
+    windows are sharded on the full mesh, as the reference's are): the
+    fold stages from the host and equals the unringed engine's; once the
+    full rung is back, the ring serves again."""
+    data = _data()
+    with _ring_flags():
+        c, ex, _t = _port(data, "hosts:2,d:2")
+    plain = _port(data, "hosts:2,d:2")[0]
+    full = ex.mesh_config.signature()
+    with _plain_flags():
+        want = plain.execute_query(AGG_PXL).table("out")
+    with _ring_flags(mesh_breaker_threshold=1, mesh_breaker_cooldown_s=3600.0,
+                     streaming_window_rows=WINDOW):
+        ex._geom_breaker_record(full, ok=False)  # the full rung's breaker opens
+        staging.reset_cold_profile()
+        got = c.execute_query(AGG_PXL).table("out")
+        prof = staging.reset_cold_profile()
+        assert ex.mesh_recovery_snapshot()["geometry"] == "d:4"
+        assert ex._resident_ring(_t, types.SimpleNamespace(
+            table_name="http_events", start_time=None, stop_time=None)) is None
+        assert prof.get("stage_resident_hits", 0.0) == 0.0, prof
+        ex._geom_breaker.clear()
+        ex.clear_caches()
+        staging.reset_cold_profile()
+        again = c.execute_query(AGG_PXL).table("out")
+        assert staging.reset_cold_profile().get("stage_resident_hits") == 4.0
+        assert ex.mesh_recovery_snapshot()["geometry"] == full
+    assert got == want and again == want
 
 
 def test_clear_caches_keeps_the_ring(ringed):
@@ -558,6 +659,62 @@ def test_fault15_reference_converter_flushes_f32_subnormals():
     assert np.array_equal(_bits(got), _bits(host))
     assert np.all(want[sub] == 0) and np.array_equal(np.signbit(want[sub]), np.signbit(host[sub]))
     assert np.array_equal(_bits(want)[~sub], _bits(host)[~sub])
+
+
+@pytest.mark.parametrize("d", SHARD_COUNTS)
+@pytest.mark.parametrize("case", RING_CASES)
+def test_convert_block_plain_lands_d_shards_in_a_strided_slice(case, d):
+    """A ring window of ``d`` shards ([d, nblk, b]) converted into its slice
+    of a one-card staging of three windows (d runs at the staging's shard
+    stride): each shard equals the reference's converter on its ``d``-device
+    mesh and the host pack of its rows, bit for bit (but where the reference
+    flushes an f32 subnormal, Fault-15); the other windows keep their
+    bytes."""
+    nblk, b = 2, 512
+    raw, col_plan, dt, _off = ring_case(case, np.random.default_rng(30 + d), d * nblk * b)
+    tdt = codec.TORCH_DTYPES[dt]
+    staged, out = strided_staging(d, nblk, b, tdt, "cpu")
+    untouched = staged.clone()
+    int_dtype = dt if col_plan[0] == "raw" else None
+    assert kernels.ring_convert_shards(torch.from_numpy(raw.reshape(d, nblk, b)), out) == (
+        (1, nblk * b, nblk * b, nblk * b) if d == 1 else (d, nblk * b, nblk * b, 3 * nblk * b))
+    got = codec.convert_block(col_plan, torch.from_numpy(raw.reshape(d, nblk, b)), out=out,
+                              int_dtype=int_dtype)
+    assert got is out
+    got = got.numpy()
+    mesh = Mesh(np.array(jax.devices()[:d]), ("d",))
+    with np.errstate(all="ignore"):
+        want = np.asarray(ref_codec.convert_block(
+            mesh, col_plan, jnp.asarray(raw.reshape(d, nblk, b)), int_dtype=np.dtype(dt)))
+        host = raw.astype(dt) if col_plan[0] == "raw" else np.asarray(staging.pack_stream_window(
+            staging.StreamPlan(
+                col_plans={"c": col_plan}, narrow_offsets={}, int_dicts={},
+                block_dtypes={"c": dt}, window_rows=d * nblk * b, num_rows=d * nblk * b,
+                n_windows=1, d=d, nblk=nblk, b=b, gid_dtype=None, num_groups=1,
+            ), {"c": raw}, None, 0)[1]["c"])
+    keep = ~_f32_subnormal(got) if case == "f32" else np.ones(got.shape, dtype=bool)
+    for s_ in range(d):
+        assert np.array_equal(_bits(got[s_])[keep[s_]], _bits(want[s_])[keep[s_]]), (case, s_)
+    assert np.array_equal(_bits(got.reshape(-1)), _bits(host.reshape(-1))), case
+    for w in (0, 2):
+        sl = slice(w * nblk, (w + 1) * nblk)
+        assert torch.equal(staged[:, sl].contiguous().view(torch.uint8),
+                           untouched[:, sl].contiguous().view(torch.uint8))
+
+
+def test_ring_convert_shards_reads_the_strided_layouts():
+    a = torch.zeros((4, 2, 8), dtype=torch.int64)
+    big = torch.zeros((4, 6, 8), dtype=torch.uint16)
+    assert kernels.ring_convert_shards(a, big[:, 2:4]) == (4, 16, 16, 48)
+    assert kernels.ring_convert_shards(a, torch.empty((4, 2, 8), dtype=torch.uint16)) == (
+        1, 64, 64, 64)
+    assert kernels.ring_convert_shards(big[:, 0:2], a) == (4, 16, 48, 16)
+    with pytest.raises(ValueError):  # a shard not one run
+        kernels.ring_convert_shards(a, torch.zeros((4, 8, 2), dtype=torch.uint16).transpose(1, 2))
+    with pytest.raises(ValueError):  # other shard counts
+        kernels.ring_convert_shards(a.reshape(2, 4, 8), big[:, 2:4])
+    with pytest.raises(ValueError):  # element counts differ
+        kernels.ring_convert_shards(a, big[:, 2:5])
 
 
 def test_convert_block_writes_into_a_staging_slice():
