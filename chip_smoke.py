@@ -25,8 +25,8 @@ the CUDA toolkit. In order it:
    edge blocks and at sketches' block, with its phases' device times and
    its device operations a block against the sorting update (H7a,
    torch.sort, H7b)
-   (those two held and timed at 16 and 300 groups: no path sends more
-   than 254); H6 at config 5's 16 x 4 keys, endpoint_load's 34
+   (those two held at 16, 300 and 512 groups and timed at the windowed
+   paths' 512 slots and at 16); H6 at config 5's 16 x 4 keys, endpoint_load's 34
    groups x 4098 content words and past its tables; H11 over every staged
    row kind in every lane, timed at flow_window's S = 1, config 10's S = 64
    f64 and the flows min/max's S = 4096 int32 narrowed; config 1's first
@@ -226,18 +226,33 @@ the CUDA toolkit. In order it:
      one owned service left out of l, in the device lane, held to numpy
      and to the host EquijoinNode's rows, then on hosts:2,d:4 in the
      partitioned lane;
+   - the declined aggregation lanes (svc_windowed, sketches_windowed,
+     svc_pem_split, sketches_pem_split): service_stats and config 5's
+     sketches made windowed (the compiled plan's AggOp with windowed=True,
+     run by execute_plan) over http_events' rows written in 2^17-row
+     batches with eow on each 2^21-row window's last (32 windows, 512
+     (window, service) slots: H3's global lane, the t-digest's wide lane
+     H7a, torch.sort, H7b), each window's batch against that window's
+     numpy truths and the key plan's share of the cold query printed; and
+     the same queries split by the DistributedPlanner over two PEM Carnots
+     (rows 0-2^25 and 2^25-2^26, each with its own DeviceExecutor) and a
+     Kelvin, one BridgeRouter, each instance's fragments run by
+     execute_plan(manage_router=False), every PEM's PARTIAL fold on the
+     card (its executor offloads every query, the fold_partial lane twice
+     a query), against the whole table's truths;
 6. prints each path's cold breakdown (the stream's keys and wire_bytes /
    stage_bytes), warm times and launches, each phase's seconds, one JSON
-   line of per-kernel results (H1-H32, H7 and the hash kernel; H30-H32, the
-   hash kernel, H7a and H7b with 0 launches: no path calls them), the
-   nvidia-smi line,
+   line of per-kernel results (H1-H32, H7 and the hash kernel; H30-H32 and
+   the hash kernel with 0 launches: no path calls them; H7a and H7b timed
+   at sketches_windowed's 512 slots), the nvidia-smi line,
    and as its last line
    {"ok": true, "device": {...}}.
 
 With ``--mesh-cards N`` it runs only the mesh paths over N real cards
 against the same geometry over N logical shards of card 0: config 10 at
 d:N and hosts:2,d:N/2, config 8's joins and config 12 at hosts:2,d:N/2,
-and the http_small ring at d:N. A path that means one card names it
+the http_small ring at d:N, and the PEM split with its two PEMs on cuda:0
+and cuda:1. A path that means one card names it
 (``CARD``, cuda:0): an executor that names no device spans every card.
 
 Any failed check raises, and the script exits non-zero before the last
@@ -316,12 +331,12 @@ REPLACES = {
     "tdigest_update": "pixie_tpu/ops/tdigest.py:56",
 }
 # The kernels no path of the port calls: H30-H32, whose TPU kernels no path
-# of either package calls, the hash kernel, whose hashing H5, H6, H20 and
-# H21 do in registers, and H7a and H7b, the t-digest update of more than 254
-# groups (no path sends so many: H7 updates up to 254). Their launch count
-# on the main paths is 0 by design; their kernel phases hold and time them.
-UNCALLED = ("hash32", "countmin_query", "hash_columns", "clz64", "tdigest_pack",
-            "tdigest_cluster")
+# of either package calls, and the hash kernel, whose hashing H5, H6, H20
+# and H21 do in registers. Their launch count on the main paths is 0 by
+# design; their kernel phases hold and time them. (H7a and H7b, the
+# t-digest update of more than 254 groups, run on sketches_windowed's 512
+# (window, service) slots.)
+UNCALLED = ("hash32", "countmin_query", "hash_columns", "clz64")
 SOURCES = {
     **{k: "pixie_tpu_torch/ops/kernels/hopper_kernels.cu" for k in list(REPLACES)[:4]},
     **{k: "pixie_tpu_torch/ops/kernels/sketch_kernels.cu" for k in list(REPLACES)[4:12]},
@@ -357,6 +372,15 @@ SCAN_LIMIT = 1000
 FLOW_GROUPS = N_PODS * N_PODS
 STATUSES = (200, 301, 404, 500)
 F4_EPS = 1e-4  # the Fault-4 contract (PERF.md)
+# The windowed paths: http_events cut into WINDOWS end-of-window windows, so
+# the fold's (window, service) slots number WINDOWS x N_SERVICES. The cursor
+# reads a table in batches of at most READ_ROWS rows (the table's
+# DEFAULT_COMPACTED_ROWS), and every batch read from a written batch carries
+# that batch's eow: the table is written in READ_ROWS-row batches, eow on
+# each window's last.
+WINDOWS = 32
+WINDOW_SLOTS = WINDOWS * N_SERVICES
+READ_ROWS = 1 << 17
 QS = (0.01, 0.10, 0.25, 0.50, 0.75, 0.90, 0.99)
 SERVICE_STATS = (
     "df = px.DataFrame(table='http_events')\n"
@@ -1303,11 +1327,16 @@ def sketch_kernel_phases(dev) -> dict:
         f"{overflow['ms']:.5f} ms, narrowed uint16 {narrow['ms']:.5f} ms")
 
     # H7a + torch.sort: the sorted keys decode to the plain version's sorted
-    # (group, value) rows bit for bit, packed (G = 16) and two-key (G = 300).
+    # (group, value) rows bit for bit, packed (G = 16) and two-key (G = 300,
+    # and the windowed paths' 512 slots: a block is one window's rows, so
+    # its gids are that window's 16 of the 512).
     lat = torch.from_numpy(rng.exponential(3e7, n).astype(np.float32)).to(dev)
     C = tdigest.DEFAULT_CAPACITY
-    for G in (N_SERVICES, 300):
-        g = torch.from_numpy(rng.integers(0, G, n).astype(np.int32)).to(dev)
+    h7ab = {}
+    for G in (N_SERVICES, 300, WINDOW_SLOTS):
+        lo = 5 * N_SERVICES if G == WINDOW_SLOTS else 0
+        span = N_SERVICES if G == WINDOW_SLOTS else G
+        g = torch.from_numpy((lo + rng.integers(0, span, n)).astype(np.int32)).to(dev)
         keys, counts = kernels.tdigest_pack(lat, g, mask, G)
         ks = torch.sort(keys).values
         g_s, v_s = decode_keys(tdigest, ks, G)
@@ -1333,34 +1362,45 @@ def sketch_kernel_phases(dev) -> dict:
         log(f"H7a+sort+H7b G={G} ({'wide' if G > 254 else 'packed'} keys): sorted rows "
             f"exact; {int((~same).sum())} cells moved by {int(near.sum())} rows near a "
             f"cluster edge; value sums max rel err {verr.max().item():.3g}")
-        if G != N_SERVICES:
+        if G == N_SERVICES:
+            sums16 = sums
+        if G == 300:
             continue
-        sorted_keys, counts16, sums16 = ks, counts, sums
-        records["tdigest_pack"] = record(
-            lambda: kernels.tdigest_pack(lat, g, mask, N_SERVICES),
-            lambda: tdigest._sorted_rows(g, lat, mask, N_SERVICES),
+        # Keys are int32 packed up to 254 groups, int64 above.
+        kb = keys.element_size()
+        pack_rec = record(
+            lambda g=g, G=G: kernels.tdigest_pack(lat, g, mask, G),
+            lambda g=g, G=G: tdigest._sorted_rows(g, lat, mask, G),
             None,
-            *bound(n * 4 + n * 4 + n + n * 4 + (G + 1) * 4, 6 * n), 0.0,
+            *bound(n * 4 + n * 4 + n + n * kb + (G + 1) * 4, 6 * n), 0.0,
             f"values[{n}] G={G}",
         )
         flat_cells, _ = tdigest._row_clusters(want_g, G, C)
         lib_sums = torch.zeros(G * C + 1, dtype=torch.float64, device=dev)
         v64 = want_v.double()
-        records["tdigest_cluster"] = record(
-            lambda: kernels.tdigest_cluster(sorted_keys, counts16, N_SERVICES, C),
-            lambda: tdigest._cluster_sums_plain(want_g, want_v, N_SERVICES, C),
-            lambda: lib_sums.index_add_(0, flat_cells, v64),
-            *bound(n * 4 + (G + 1) * 4 + 2 * G * C * 8, 60 * n), verr.max().item(),
+        cluster_rec = record(
+            lambda ks=ks, counts=counts, G=G: kernels.tdigest_cluster(ks, counts, G, C),
+            lambda want_g=want_g, want_v=want_v, G=G: tdigest._cluster_sums_plain(
+                want_g, want_v, G, C),
+            lambda lib_sums=lib_sums, flat_cells=flat_cells, v64=v64: lib_sums.index_add_(
+                0, flat_cells, v64),
+            *bound(n * kb + (G + 1) * 4 + 2 * G * C * 8, 60 * n), verr.max().item(),
             f"keys[{n}] G={G} C={C}",
         )
         # The update's sort between H7a and H7b, on the same keys.
-        packed = keys
-        records["tdigest_cluster"]["sort_ms"] = time_ms(lambda: torch.sort(packed))
-        log(f"H7b tdigest_cluster G={G}: {records['tdigest_cluster']['ms']:.5f} ms [bound "
-            f"{records['tdigest_cluster']['bound_ms']:.5f}; plain "
-            f"{records['tdigest_cluster']['plain_ms']:.5f}; index_add_ "
-            f"{records['tdigest_cluster']['library_ms']:.5f}]; the update's torch.sort of "
-            f"its keys {records['tdigest_cluster']['sort_ms']:.5f} ms")
+        cluster_rec["sort_ms"] = time_ms(lambda keys=keys: torch.sort(keys))
+        log(f"H7a tdigest_pack G={G}: {pack_rec['ms']:.5f} ms [bound {pack_rec['bound_ms']:.5f}; "
+            f"plain {pack_rec['plain_ms']:.5f}]; H7b tdigest_cluster G={G}: "
+            f"{cluster_rec['ms']:.5f} ms [bound {cluster_rec['bound_ms']:.5f}; plain "
+            f"{cluster_rec['plain_ms']:.5f}; index_add_ {cluster_rec['library_ms']:.5f}]; the "
+            f"update's torch.sort of its keys {cluster_rec['sort_ms']:.5f} ms")
+        h7ab[G] = (pack_rec, cluster_rec)
+    # The line's shape is the one the windowed paths send (512 slots, wide
+    # keys); the packed 16-group shape rides beside it.
+    for i, name in enumerate(("tdigest_pack", "tdigest_cluster")):
+        records[name] = h7ab[WINDOW_SLOTS][i]
+        records[name]["by_g16"] = {k: h7ab[N_SERVICES][i][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "shape")}
     h7b_edges(kernels, tdigest, dev, rng)
     records["tdigest_update"] = h7_phase(kernels, tdigest, dev, rng, mask)
 
@@ -6314,47 +6354,297 @@ def take_shapes() -> list:
     return out
 
 
+def write_http_events(table, data: dict, lo: int, hi: int, window_rows: int = 0) -> None:
+    """http_events rows [lo, hi) of ``data`` into ``table`` (the service
+    dictionary's identity codes already set): in 16M-row batches, or with
+    ``window_rows`` in READ_ROWS-row batches, eow on the last batch of every
+    ``window_rows`` rows from ``lo`` (and on the table's last batch)."""
+    from pixie_tpu_torch.table.column import DictColumn
+
+    svc_dict = table.dictionaries["service"]
+    step = READ_ROWS if window_rows else 16_000_000
+    off = lo
+    while off < hi:
+        m = min(step, hi - off)
+        if window_rows:
+            m = min(m, window_rows - (off - lo) % window_rows)
+        end = off + m
+        table.write_pydict({
+            "time_": np.arange(off, end, dtype=np.int64) * 1000,
+            "service": DictColumn(data["svc"][off:end].astype(np.int32), svc_dict),
+            "resp_status": data["status"][off:end],
+            "latency": data["latency"][off:end],
+        }, eow=bool(window_rows) and ((end - lo) % window_rows == 0 or end == hi))
+        off = end
+
+
+def http_events_carnot(data: dict, lo: int, hi: int, device: str, window_rows: int = 0,
+                       router=None, instance: str = "local"):
+    """A Carnot with a DeviceExecutor on ``device`` whose http_events holds
+    rows [lo, hi) of ``data`` (``write_http_events``)."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.types import DataType, Relation, SemanticType
+
+    carnot = Carnot(router=router, instance=instance,
+                    device_executor=DeviceExecutor(device=device, block_rows=BLOCK_ROWS))
+    rel = Relation.of(
+        ("time_", DataType.TIME64NS, SemanticType.ST_TIME_NS),
+        ("service", DataType.STRING, SemanticType.ST_SERVICE_NAME),
+        ("resp_status", DataType.INT64),
+        ("latency", DataType.FLOAT64, SemanticType.ST_DURATION_NS),
+    )
+    table = carnot.table_store.create_table("http_events", rel, size_limit=1 << 42)
+    for i in range(N_SERVICES):  # identity codes 0..15, as bench.py
+        table.dictionaries["service"].get_code(f"ns/svc-{i}")
+    write_http_events(table, data, lo, hi, window_rows)
+    if not window_rows:
+        table.compact()
+    table.stop()
+    check(table.min_row_id() == 0 and table.end_row_id() == hi - lo, "table expired rows")
+    return carnot
+
+
+def window_truths(data: dict, n_rows: int, window_rows: int) -> list:
+    """The per-window truths of http_events cut every ``window_rows`` rows:
+    for each window, the counts, error counts, truth latency histograms and
+    per-status counts per service (``http_events``' keys)."""
+    n_win = -(-n_rows // window_rows)
+    slots = n_win * N_SERVICES
+    tc = np.zeros(slots, np.int64)
+    te = np.zeros(slots, np.int64)
+    th = np.zeros(slots * TRUTH_BINS, np.int64)
+    ts = np.zeros(slots * len(STATUSES), np.int64)
+    opts = np.array(STATUSES, np.uint16)
+    chunk = 16_000_000
+    for off in range(0, n_rows, chunk):
+        m = min(chunk, n_rows - off)
+        slot = (np.arange(off, off + m, dtype=np.int64) // window_rows) * N_SERVICES + (
+            data["svc"][off : off + m])
+        st = data["status"][off : off + m]
+        tc += np.bincount(slot, minlength=slots)
+        te += np.bincount(slot, weights=(st >= 400), minlength=slots).astype(np.int64)
+        th += np.bincount(slot * TRUTH_BINS + np.digitize(data["latency"][off : off + m],
+                                                          TRUTH_EDGES),
+                          minlength=slots * TRUTH_BINS)
+        ts += np.bincount(slot * len(STATUSES) + np.searchsorted(opts, st),
+                          minlength=slots * len(STATUSES))
+    tc, te = tc.reshape(n_win, N_SERVICES), te.reshape(n_win, N_SERVICES)
+    th = th.reshape(n_win, N_SERVICES, TRUTH_BINS)
+    ts = ts.reshape(n_win, N_SERVICES, len(STATUSES))
+    return [dict(tc=tc[w], te=te[w], th=th[w], ts=ts[w]) for w in range(n_win)]
+
+
+class OneBatch:
+    """A result whose ``table(name)`` is one RowBatch's columns: a window's
+    batch handed to the whole-table verifiers."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def table(self, name: str) -> dict:
+        return self.batch.to_pydict()
+
+
+def verify_windowed(result, name: str, truths: list, verify_one) -> None:
+    """One batch a window, in window order, eow on each and eos on the last
+    only; each window's batch verified against that window's truths."""
+    batches = result.tables[name]
+    check(len(batches) == len(truths), f"{name}: {len(batches)} batches for {len(truths)} windows")
+    for w, (b, t) in enumerate(zip(batches, truths)):
+        check(b.eow and b.eos == (w == len(truths) - 1), f"{name}: window {w}'s flags")
+        verify_one(OneBatch(b), t, int(t["tc"].sum()))
+
+
+def windowed_plan(carnot, query: str):
+    """``query`` compiled, its aggregation made windowed: what a plan that
+    reaches the engine through ``execute_plan`` carries (no PxL script
+    makes a windowed aggregation)."""
+    import dataclasses
+
+    from pixie_tpu_torch.plan.operators import AggOp
+
+    plan = carnot.compiler.compile(query, carnot.table_store.relation_map())
+    (frag,) = plan.fragments
+    aggs = [nid for nid in frag.nodes() if isinstance(frag.node(nid), AggOp)]
+    check(len(aggs) == 1, f"windowed_plan: {len(aggs)} aggregations")
+    frag._nodes[aggs[0]].op = dataclasses.replace(frag.node(aggs[0]), windowed=True)
+    return plan
+
+
+def split_query(pems: list, kelvin, query: str):
+    """``query`` split by the port's DistributedPlanner over the PEM Carnots
+    (each holding part of http_events) and the Kelvin, all on one
+    BridgeRouter; each instance runs its fragments as an agent does
+    (``execute_plan(manage_router=False)``, pixie_tpu/vizier/agent.py:667),
+    the PEMs first. Every PEM's PARTIAL fragment must fold on its executor
+    and hand its MERGE a StateBatch. Returns the Kelvin's result."""
+    import uuid
+
+    from pixie_tpu_torch.distributed import AgentInfo, DistributedPlanner, DistributedState
+    from pixie_tpu_torch.plan.operators import AggOp, AggStage, BridgeSinkOp
+    from pixie_tpu_torch.plan.plan import Plan
+
+    rels = pems[0].table_store.relation_map()
+    logical = kelvin.compiler.compile(query, rels, query_id=str(uuid.uuid4()))
+    state = DistributedState([AgentInfo(p.instance, frozenset(rels)) for p in pems]
+                             + [AgentInfo(kelvin.instance, frozenset(), is_kelvin=True)])
+    plan = DistributedPlanner(kelvin.registry, rels).plan(logical, state)
+    qid, router = plan.query_id, kelvin.router
+    subs: dict = {}
+    for f in plan.fragments:
+        inst = plan.executing_instance[f.fragment_id]
+        sub = subs.setdefault(inst, Plan(qid))
+        sub.fragments.append(f)
+        sub.executing_instance[f.fragment_id] = inst
+        for nid in f.nodes():
+            if isinstance(f.node(nid), BridgeSinkOp):
+                router.register_producer(qid, f.node(nid).bridge_id)
+    try:
+        for p in pems:
+            (frag,) = subs[p.instance].fragments
+            stages = [frag.node(n).stage for n in frag.nodes() if isinstance(frag.node(n), AggOp)]
+            check(stages == [AggStage.PARTIAL], f"{p.instance}: stages {stages}")
+            p.execute_plan(subs[p.instance], manage_router=False)
+        return kelvin.execute_plan(subs[kelvin.instance], manage_router=False)
+    finally:
+        router.cleanup_query(qid)
+
+
+def pem_split_carnots(data: dict, n_rows: int, devices: list) -> tuple:
+    """Two PEM Carnots (rows [0, n/2) and [n/2, n) of http_events, each with
+    its own DeviceExecutor on ``devices[i]``) and a Kelvin Carnot on
+    ``devices[2]``, sharing one BridgeRouter."""
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.exec import BridgeRouter
+
+    router = BridgeRouter()
+    half = n_rows // 2
+    pems = [http_events_carnot(data, lo, hi, devices[i], router=router, instance=f"pem{i}")
+            for i, (lo, hi) in enumerate(((0, half), (half, n_rows)))]
+    kelvin = Carnot(router=router, instance="kelvin", device=devices[2])
+    return pems, kelvin
+
+
+def windowed_paths(data: dict, n_rows: int, paths: dict, phase_s: dict):
+    """service_stats and config 5's sketches as windowed FULL folds over
+    http_events cut into WINDOWS windows at full width: WINDOW_SLOTS
+    (window, service) slots, so H3 past its cluster lane and the t-digest's
+    wide lane (H7a, torch.sort, H7b). Returns the windowed Carnot."""
+    t0 = time.perf_counter()
+    window_rows = -(-n_rows // WINDOWS)
+    win = http_events_carnot(data, 0, n_rows, CARD, window_rows=window_rows)
+    truths = window_truths(data, n_rows, window_rows)
+    log(f"windowed http_events: {n_rows} rows in {WINDOWS} windows written and their truths "
+        f"in {time.perf_counter() - t0:.1f} s")
+    phase_s["windowed_table"] = time.perf_counter() - t0
+    for name, query, table, verify_one, expect in (
+        ("svc_windowed", SERVICE_STATS, "service_stats", verify,
+         ("segment_rows_sum_i64", "log_histogram_update", "hist_quantiles", "scalar_eval")),
+        ("sketches_windowed", SKETCHES, "sketches", verify_sketches,
+         ("tdigest_pack", "tdigest_cluster", "tdigest_merge", "tdigest_quantiles")),
+    ):
+        t0 = time.perf_counter()
+        paths[name] = drive(
+            win, query, lambda r, t=table, v=verify_one: verify_windowed(r, t, truths, v), expect,
+            run=lambda q=query: win.execute_plan(windowed_plan(win, q)),
+        )
+        lanes = paths[name]["lanes"]
+        check(lanes.get("fold_windowed") == 1 + WARM_QUERIES and "fold_key_host" in lanes,
+              f"{name}: lanes {lanes}")
+        cp = paths[name]["cold_phases"]
+        log(f"{name}: the key plan {cp.get('key_plan', 0.0):.3f} s of the cold query's "
+            f"{paths[name]['cold']:.3f} s ({100 * cp.get('key_plan', 0.0) / paths[name]['cold']:.1f}%; "
+            f"_windowize_key_plan reads the table twice); warm key plans "
+            f"{[round(p.get('key_plan', 0.0), 3) for p in paths[name]['warm_phases']]} s")
+        phase_s[name] = time.perf_counter() - t0
+    check(paths["sketches_windowed"]["launches"]["tdigest_update"] == 0,
+          "sketches_windowed: a 512-slot update took H7")
+    return win
+
+
+def pem_split_paths(data: dict, n_rows: int, paths: dict, phase_s: dict,
+                    devices=(CARD, CARD, CARD)) -> tuple:
+    """service_stats and config 5's sketches split by the DistributedPlanner
+    over two PEMs on ``devices[0]`` and ``devices[1]``, each folding its
+    half of http_events as a PARTIAL aggregation whose states stay on its
+    card, merged by the Kelvin's MERGE AggNode on ``devices[2]`` (H8, H4,
+    H9 there), against the whole table's truths. Returns (pems, kelvin)."""
+    t0 = time.perf_counter()
+    pems, kelvin = pem_split_carnots(data, n_rows, list(devices))
+    log(f"PEM split: {n_rows} rows over two PEMs on {devices[0]} and {devices[1]}, the Kelvin on "
+        f"{devices[2]}, written in {time.perf_counter() - t0:.1f} s")
+    phase_s["pem_split_tables"] = time.perf_counter() - t0
+    for name, query, verify_fn, expect in (
+        ("svc_pem_split", SERVICE_STATS, lambda r: verify(r, data, n_rows),
+         ("segment_rows_sum_i64", "log_histogram_update", "hist_quantiles", "scalar_eval")),
+        ("sketches_pem_split", SKETCHES, lambda r: verify_sketches(r, data, n_rows),
+         ("tdigest_update", "tdigest_merge", "tdigest_quantiles")),
+    ):
+        t0 = time.perf_counter()
+        paths[name] = drive(
+            None, query, verify_fn, expect, run=lambda q=query: split_query(pems, kelvin, q),
+            executors=[p.device_executor for p in pems],
+        )
+        lanes = paths[name]["lanes"]
+        check(lanes.get("fold_partial") == 2 * (1 + WARM_QUERIES), f"{name}: lanes {lanes}")
+        phase_s[name] = time.perf_counter() - t0
+    return pems, kelvin
+
+
 def drive(carnot, query: str, verify_fn, expect: tuple, now_ns=None,
-          streamed: bool = True, offloaded: bool = True) -> dict:
+          streamed: bool = True, offloaded: bool = True, run=None, executors=None) -> dict:
     """One main path: launch counts and lanes zeroed just before, one cold
-    query (the executor's staged columns and key plans dropped first, so
+    query (the executors' staged columns and key plans dropped first, so
     that no path reuses another's) and WARM_QUERIES warm queries, each
     verified, counts and lanes read just after. A ``streamed`` path must
     have staged its cold query through the stream (the stage_stream lane,
-    once) and no warm one; an ``offloaded`` one must have folded on the
-    device lanes (a path of host aggregations only does not)."""
+    once an executor) and no warm one; an ``offloaded`` one must have
+    folded on the device lanes (a path of host aggregations only does not).
+    ``run`` (default: ``carnot.execute_query(query)``) runs one query;
+    ``executors`` (default: the carnot's) are the path's DeviceExecutors,
+    each of which must have folded every query."""
     from pixie_tpu_torch.ops import kernels, segment
     from pixie_tpu_torch.parallel import staging
 
-    carnot.device_executor.clear_caches()
+    executors = executors or [carnot.device_executor]
+    run = run or (lambda: carnot.execute_query(query, now_ns=now_ns))
+
+    def one() -> tuple:
+        for ex in executors:
+            ex.last_fold_ms = None
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(not offloaded or all(ex.last_fold_ms is not None for ex in executors),
+              "fragment not offloaded")
+        return result, secs
+
+    for ex in executors:
+        ex.clear_caches()
     kernels.reset_launches()
     staging.reset_cold_profile()
     segment.reduce_lanes(reset=True)
     torch.cuda.synchronize()
     take_shapes()
-    t0 = time.perf_counter()
-    result = carnot.execute_query(query, now_ns=now_ns)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
+    result, cold = one()
     cold_phases = staging.reset_cold_profile()
     verify_fn(result)
     warm, warm_phases = [], []
     for _ in range(WARM_QUERIES):
-        t0 = time.perf_counter()
-        result = carnot.execute_query(query, now_ns=now_ns)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
+        result, secs = one()
+        warm.append(secs)
         warm_phases.append(staging.reset_cold_profile())
         verify_fn(result)
     launches = dict(kernels.LAUNCHES)
     lanes = segment.reduce_lanes(reset=True)
     for name in expect:
         check(launches[name] > 0, f"kernel {name} was not launched on its main path")
-    check(not offloaded or carnot.device_executor.last_fold_ms is not None,
-          "fragment not offloaded")
     if streamed:
-        check(lanes.get("stage_stream") == 1 and cold_phases.get("stream_windows", 0) > 0,
-              f"the cold query did not stream once: lanes {lanes}")
+        check(lanes.get("stage_stream") == len(executors)
+              and cold_phases.get("stream_windows", 0) > 0,
+              f"the cold query did not stream once an executor: lanes {lanes}")
     return dict(cold=cold, cold_phases=cold_phases, warm=warm, warm_phases=warm_phases,
                 launches=launches, lanes=lanes, result=result, shapes=take_shapes())
 
@@ -6657,6 +6947,15 @@ def main() -> int:
         log(f"mesh cards joins and chaos: {time.perf_counter() - t_start:.1f} s")
         ring_mesh_cards(args.mesh_cards)
         log(f"mesh cards ring: {time.perf_counter() - t_start:.1f} s")
+        # The PEM split with its two PEMs on two cards, the Kelvin on card 0.
+        split_paths: dict = {}
+        pem_split_paths(http_events(args.rows), args.rows, split_paths, phase_s,
+                        devices=("cuda:0", "cuda:1", "cuda:0"))
+        for name, p in split_paths.items():
+            log(f"{name} over cuda:0 and cuda:1: cold {p['cold']:.3f} s, warm "
+                f"{[round(w, 4) for w in p['warm']]} s; launches "
+                f"{ {k: v for k, v in p['launches'].items() if v} }")
+        log(f"mesh cards PEM split: {time.perf_counter() - t_start:.1f} s")
         print(nvidia_smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
@@ -6747,6 +7046,8 @@ def main() -> int:
     t0 = time.perf_counter()
     shared = shared_scan_path(carnot, data, args.profile)
     phase_s["shared_scan"] = time.perf_counter() - t0
+    win_carnot = windowed_paths(data, args.rows, paths, phase_s)
+    pems, kelvin = pem_split_paths(data, args.rows, paths, phase_s)
 
     t0 = time.perf_counter()
     fl = conn_flows(FLOW_ROWS)
@@ -6948,7 +7249,9 @@ def main() -> int:
                "reservoir_latency": args.rows, "reservoir_flows": FLOW_ROWS,
                "path_embeddings": LET_ROWS, "kmeans_services": KM_ROWS,
                "kmeans_predict": KM_ROWS, "sketches_mesh4": args.rows,
-               "reservoir_mesh4": args.rows,
+               "reservoir_mesh4": args.rows, "svc_windowed": args.rows,
+               "sketches_windowed": args.rows, "svc_pem_split": args.rows,
+               "sketches_pem_split": args.rows,
                **{"mesh_" + spec.replace(":", "").replace(",", "_"): MESH_ROWS
                   for spec in ("d:1",) + MESH_WIDTHS},
                **{name: JOIN_ROWS for name in mesh_join},
@@ -7009,6 +7312,12 @@ def main() -> int:
                             ("latency_histogram", "lat_hist"), ("endpoint_load", "load")):
             profile_warm(let_carnot, queries[table], min(paths[name]["warm"]), name,
                          now_ns=LET_NOW)
+        for name, query in (("svc_windowed", SERVICE_STATS), ("sketches_windowed", SKETCHES)):
+            profile_warm(win_carnot, query, min(paths[name]["warm"]), name,
+                         run=lambda q=query: win_carnot.execute_plan(windowed_plan(win_carnot, q)))
+        for name, query in (("svc_pem_split", SERVICE_STATS), ("sketches_pem_split", SKETCHES)):
+            profile_warm(kelvin, query, min(paths[name]["warm"]), name,
+                         run=lambda q=query: split_query(pems, kelvin, q))
         for name, c, query in (
             ("reservoir_latency", carnot, RESERVOIR_LATENCY),
             ("reservoir_flows", flows, RESERVOIR_FLOWS),
@@ -7053,19 +7362,23 @@ def main() -> int:
     return 0
 
 
-def profile_warm(carnot, query: str, warm_best: float, name: str = "", now_ns=None) -> None:
+def profile_warm(carnot, query: str, warm_best: float, name: str = "", now_ns=None,
+                 run=None) -> None:
     """One warm query under torch.profiler (after one unprofiled query, which
     restages what a later path's cold query dropped): device time by op,
     and the device's busy time as a share of the profiled wall and of the
-    best unprofiled warm query."""
+    best unprofiled warm query, and the host time beside it (the wall less
+    the busy time). ``run`` runs the query (default: ``carnot``'s
+    ``execute_query``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    carnot.execute_query(query, now_ns=now_ns)
+    run = run or (lambda: carnot.execute_query(query, now_ns=now_ns))
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        carnot.execute_query(query, now_ns=now_ns)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Device events only: CPU ops also carry their kernels' device time.
@@ -7076,7 +7389,8 @@ def profile_warm(carnot, query: str, warm_best: float, name: str = "", now_ns=No
     busy = device_us / 1e6
     log(f"profile {name or query.splitlines()[-1]}: device busy {busy:.4f} s = "
         f"{100 * busy / wall:.1f}% of the profiled wall {wall:.4f} s, "
-        f"{100 * busy / warm_best:.1f}% of the best warm query {warm_best:.4f} s")
+        f"{100 * busy / warm_best:.1f}% of the best warm query {warm_best:.4f} s; host "
+        f"{wall - busy:.4f} s")
     log(table)
 
 

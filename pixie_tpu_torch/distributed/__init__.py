@@ -1,7 +1,10 @@
-"""Mesh geometry of the sharded fold (pixie_tpu/distributed).
+"""The distributed layer: the PEM/Kelvin plan splitter and the mesh geometry.
 
-Ref: pixie_tpu/distributed/mesh.py. The reference's planner (the PEM/Kelvin
-splitter, ``distributed/planner.py``) is not ported yet.
+Ref: pixie_tpu/distributed. ``planner.py`` cuts a logical plan at its
+blocking aggregation into per-agent PEM fragments (``Agg(PARTIAL) ->
+BridgeSink``) and a Kelvin fragment (``BridgeSource -> Agg(MERGE) -> ...``),
+pruning agents without the tables; ``mesh.py`` is the geometry of the
+sharded fold on a device mesh.
 """
 
 from pixie_tpu_torch.distributed.mesh import (
@@ -10,5 +13,18 @@ from pixie_tpu_torch.distributed.mesh import (
     MeshGeometryError,
     resolve_mesh,
 )
+from pixie_tpu_torch.distributed.planner import (
+    AgentInfo,
+    DistributedPlanner,
+    DistributedState,
+)
 
-__all__ = ["Mesh", "MeshConfig", "MeshGeometryError", "resolve_mesh"]
+__all__ = [
+    "AgentInfo",
+    "DistributedPlanner",
+    "DistributedState",
+    "Mesh",
+    "MeshConfig",
+    "MeshGeometryError",
+    "resolve_mesh",
+]

@@ -395,10 +395,19 @@ class Carnot:
                         if offloaded is not None:
                             agg_nid, batch = offloaded
                             key = f"device:{frag.fragment_id}:{agg_nid}"
-                            state.inline_batches[key] = [batch]
-                            frag = _splice_inline_source(
-                                frag, agg_nid, key, batch.relation
-                            )
+                            # A windowed aggregation returns one batch a
+                            # window (eow-cadenced, as the host AggNode).
+                            batches = batch if isinstance(batch, list) else [batch]
+                            state.inline_batches[key] = batches
+                            # A StateBatch (a PARTIAL aggregation) has no
+                            # relation: the aggregation's declared output.
+                            rel = getattr(batches[0], "relation", None)
+                            if rel is None:
+                                rel = frag.resolve_relations(
+                                    self.registry,
+                                    lambda op: self.table_store.get_relation(op.table_name),
+                                )[agg_nid]
+                            frag = _splice_inline_source(frag, agg_nid, key, rel)
                     graph = ExecutionGraph(frag, state)
                     graph.execute()
                     if analyze:

@@ -1,12 +1,19 @@
 """The device fold: source -> map/filter -> aggregate on one CUDA device.
 
 Counterpart of pixie_tpu/parallel/pipeline.py's MeshExecutor for the simple
-aggregation core. Fragments of the shape
+aggregation core. Fragments of the shapes
 
-    MemorySource -> (Map | Filter)* -> Agg(FULL, not windowed)
+    MemorySource -> (Map | Filter)* -> Agg(FULL)
+    MemorySource -> (Map | Filter)* -> Agg(PARTIAL, not windowed)
 
-run here. A group key that is one dictionary-coded string column is its
-codes, evaluated per block on the device; a string key computed by a
+run here. A windowed FULL aggregation folds the window id as one more
+(leading) group axis, gid' = wid * G + gid, its windows cut at the cursor's
+end-of-window markers (``_windowize_key_plan``), and emits one RowBatch a
+window. A PARTIAL aggregation (the PEM side of a distributed split,
+``distributed/planner.py``) ships its raw UDA states, left on the device,
+as the StateBatch its MERGE consumes (``_partial_state_batch``). A group
+key that is one dictionary-coded string column is its codes, evaluated per
+block on the device; a string key computed by a
 dict_compatible host function of one dictionary column (``regex_replace``
 of a request path) is the dictionary-LUT key (``_dict_lut_key``): per-code
 gids gathered on the device; any other key (several columns, ints,
@@ -92,9 +99,9 @@ The right side reduces to per-key statistics (H1, H2, H11 over the join-key
 ids) and the left side folds once with per-row weights nR[jk] (H16, then
 H11 under H16's effective mask).
 
-A fragment outside those shapes — windowed or PARTIAL aggregation, an
-aggregation over an aggregation, a source shared with a second sink, a
-string-hash or code-valued UDA over a computed string argument (only a
+A fragment outside those shapes — a windowed PARTIAL or a MERGE
+aggregation, an aggregation over an aggregation, a source shared with a
+second sink, a string-hash or code-valued UDA over a computed string argument (only a
 bare dictionary column has the content hashes or codes, as in the
 reference), a tree H17 cannot run (a host function without a table), a join
 the lanes decline — returns None and runs on the host exec graph: its
@@ -118,6 +125,7 @@ import torch
 
 from pixie_tpu_torch.compiler.analyzer import substitute
 from pixie_tpu_torch.distributed.mesh import MeshGeometryError, resolve_mesh
+from pixie_tpu_torch.exec.agg_node import StateBatch
 from pixie_tpu_torch.exec.expression_evaluator import ExpressionEvaluator, call_host
 from pixie_tpu_torch.exec.group_encoder import GroupEncoder
 from pixie_tpu_torch.ops import batched, codec, merge, scan, segment
@@ -130,6 +138,7 @@ from pixie_tpu_torch.parallel.staging import (
     plan_stream,
     profile_add,
     read_columns,
+    read_columns_windowed,
     shard_of,
     stage_columns,
     stage_partitioned,
@@ -1026,6 +1035,22 @@ def _fetch(tensors: list) -> list:
     return _unpack_bytes(buf.cpu().numpy(), meta)
 
 
+def _fetch_slots(outs: list, force_state: bool = False) -> list:
+    """Each slot's pass outputs (``_finish_pass``'s: the spec outputs, then
+    presence) on the host with ONE device -> host copy for all slots. With
+    ``force_state`` (a PARTIAL fold) only the presences come back: the state
+    leaves stay on the device, where the MERGE stage reads them."""
+    if force_state:
+        presence = _fetch([o[-1] for o in outs])
+        return [list(o[:-1]) + [p] for o, p in zip(outs, presence)]
+    host = _fetch([t for o in outs for t in o])
+    out, i = [], 0
+    for o in outs:
+        out.append(host[i : i + len(o)])
+        i += len(o)
+    return out
+
+
 def _copy_to_host(packed: list) -> list:
     """[(host bytes, meta)] of each ``_pack_bytes`` result, which may lie on
     different cards: every copy is enqueued (into pinned memory on CUDA)
@@ -1241,8 +1266,10 @@ class DeviceExecutor:
     def try_execute_fragment(
         self, fragment: PlanFragment, table_store, registry, func_ctx=None
     ) -> Optional[tuple[int, RowBatch]]:
-        """(agg, join or limit node id, its RowBatch) when the fragment has a
+        """(agg, join or limit node id, its output) when the fragment has a
         device shape, else None (the host graph then runs the fragment). The
+        output is a RowBatch; a windowed aggregation's is a list of them, one
+        a window, and a PARTIAL aggregation's a StateBatch. The
         fold runs under the mesh recovery plane (``_execute_with_recovery``):
         a host loss or a hung dispatch re-plans it on the next rung of the
         degradation ladder. An exhausted ladder raises its last
@@ -1525,8 +1552,6 @@ class DeviceExecutor:
             if out is not None:
                 self.last_fold_ms = (time.perf_counter() - t0) * 1e3
             return out
-        if m.agg_op.stage != AggStage.FULL or m.agg_op.windowed:
-            return None
         table = table_store.get_table(m.source_op.table_name)
         if table is None:
             return None
@@ -1536,11 +1561,16 @@ class DeviceExecutor:
         evaluator = self._make_evaluator(m, specs, registry, func_ctx)
         if evaluator is None:
             return None
+        # match_fragment takes FULL (windowed or not) and non-windowed
+        # PARTIAL (pixie_tpu/parallel/pipeline.py:1942).
+        partial = m.agg_op.stage == AggStage.PARTIAL
+        windowed = m.agg_op.windowed and not partial
         # any() over a bare column with no predicate may take the host lane
-        # (_plan_host_any): its column is not staged unless that lane falls
-        # through. UDAs that never read their column (count) stage nothing.
+        # (_plan_host_any) in a FULL, unwindowed fold: its column is not
+        # staged unless that lane falls through. UDAs that never read their
+        # column (count) stage nothing.
         any_candidates = set()
-        if not m.predicates:
+        if not m.predicates and not partial and not windowed:
             any_candidates = {
                 out for out, arg_e, uda in specs
                 if uda.name == "any" and uda.reads_args and isinstance(arg_e, ColumnRef)
@@ -1554,6 +1584,14 @@ class DeviceExecutor:
         key_plan = self._plan_keys(m, table, registry, func_ctx, base_cols)
         if key_plan is None:
             return None
+        base_groups = max(key_plan.num_groups, 1)
+        n_windows = 1
+        if windowed:
+            with timed("key_plan"):
+                wk = self._windowize_key_plan(m, table, key_plan, base_groups)
+            if wk is None:
+                return None
+            key_plan, n_windows = wk
         with timed("host_any"):
             host_any = (
                 self._plan_host_any(m, specs, key_plan, table) if any_candidates else {}
@@ -1582,7 +1620,11 @@ class DeviceExecutor:
             return None
         program, aux = compiled
         f32_cols = self._sketch_f32_cols(m, device_specs)
-        key_sig = repr([m.col_exprs[g] for g in m.agg_op.groups]) + ":dev"
+        # A windowed staging (its gids hold the window ids) never serves an
+        # unwindowed query, nor the reverse (pixie_tpu/parallel/pipeline.py:2003).
+        key_sig = repr([m.col_exprs[g] for g in m.agg_op.groups]) + ":dev" + (
+            f":win{n_windows}" if windowed else ""
+        )
         cache_key = self._staged_key(
             table, m.source_op, base_cols, key_sig, key_plan.num_groups, f32_cols, cell_cols
         )
@@ -1594,6 +1636,8 @@ class DeviceExecutor:
                 cols, n = read_columns(
                     table, sorted(base_cols), m.source_op.start_time, m.source_op.stop_time
                 )
+            if key_plan.host_gids is not None and len(key_plan.host_gids) != n:
+                return None  # the table moved under the key plan (:2076)
             if flags.streaming_stage and n_passes == 1:
                 # The reference's default cold path: the aggregate is folded
                 # window by window while the table stages. More than one
@@ -1615,7 +1659,7 @@ class DeviceExecutor:
                     outputs, staged = self._stream_execute(
                         device_specs, program, key_plan, aux, cols, n, f32_cols, cell_cols,
                         capacity, self._resident_ring(table, m.source_op), base_row,
-                        ckpt_ident=ckpt_ident,
+                        ckpt_ident=ckpt_ident, force_state=partial,
                     )
                 segment.lane_count("stage_stream")
             else:
@@ -1633,7 +1677,8 @@ class DeviceExecutor:
                     )
                 else:
                     outputs, capacity = self._run_program(
-                        device_specs, program, key_plan, staged, aux, cell_cols
+                        device_specs, program, key_plan, staged, aux, cell_cols,
+                        force_state=partial,
                     )
         elif flags.shared_scans and trace.ACTIVE:
             # The stream computed the fold while staging: nothing to share,
@@ -1649,9 +1694,24 @@ class DeviceExecutor:
         ))
         if any(lut and lut.startswith("arghash:") for _, _, _, lut in roots):
             segment.lane_count("arghash")
-        batch = self._finalize(
-            m, specs, key_plan, outputs, registry, table, host_any=host_any
-        )
+        if partial:
+            batch = self._partial_state_batch(m, device_specs, key_plan, outputs, table)
+            segment.lane_count("fold_partial")
+        elif windowed:
+            segment.lane_count("fold_windowed")
+            # One RowBatch a window, in window order, eow on each and eos on
+            # the last, as the host AggNode emits them (:2181-2198).
+            batch = [
+                self._finalize(
+                    m, specs, key_plan, outputs, registry, table, host_any=host_any,
+                    group_range=(w * base_groups, base_groups), eos=w == n_windows - 1,
+                )
+                for w in range(n_windows)
+            ]
+        else:
+            batch = self._finalize(
+                m, specs, key_plan, outputs, registry, table, host_any=host_any
+            )
         self.last_fold_ms = (time.perf_counter() - t0) * 1e3
         return m.agg_nid, batch
 
@@ -2967,8 +3027,9 @@ class DeviceExecutor:
         (pixie_tpu/parallel/pipeline.py:4328). {out_name: per-group array
         (codes for strings)}, cached per (table version, window, keys,
         column); {} when no gid source is usable, which sends the column
-        back to the device lane."""
-        if m.predicates:
+        back to the device lane, and for a PARTIAL fold (its states cross
+        the bridge)."""
+        if m.predicates or m.agg_op.stage != AggStage.FULL:
             return {}
         num_groups = max(key_plan.num_groups, 1)
         gids = key_plan.host_gids
@@ -3012,6 +3073,44 @@ class DeviceExecutor:
                         self._hostany_cache.popitem(last=False)
             out[out_name] = rep
         return out
+
+    def _windowize_key_plan(self, m: _Match, table, key_plan: _KeyPlan, base_groups: int):
+        """(the key plan with gid' = wid * G + gid, n_windows), or None
+        (pixie_tpu/parallel/pipeline.py:4269-4327). The window ids come from
+        the cursor's end-of-window markers (``read_columns_windowed``); the
+        per-row gids are the host plan's, else materialized from the table
+        as the reference does: zeros for group-by-none, a dictionary key's
+        codes, a LUT key's per-code gids. Declines above 2^22 slots (the
+        state tensors would be unreasonable) and when the table moved
+        between the reads."""
+        _, n, wids, n_windows = read_columns_windowed(
+            table, [], m.source_op.start_time, m.source_op.stop_time
+        )
+        if n_windows * base_groups > (1 << 22):
+            return None
+        gids = key_plan.host_gids
+        if gids is None:
+            if key_plan.device_expr is None:
+                gids = np.zeros(n, np.int32)
+            else:
+                if isinstance(key_plan.device_expr, ColumnRef):
+                    src, lut = key_plan.device_expr.name, None
+                else:
+                    _, src, lut = key_plan.device_expr
+                cols, n2 = read_columns(
+                    table, [src], m.source_op.start_time, m.source_op.stop_time
+                )
+                if n2 != n:
+                    return None
+                codes = np.maximum(cols[src], 0)
+                gids = codes if lut is None else np.asarray(lut)[codes]
+        if len(gids) != n or len(wids) != n:
+            return None
+        combined = wids * base_groups + gids.astype(np.int64)
+        return dataclasses.replace(
+            key_plan, host_gids=combined.astype(np.int32), device_expr=None,
+            num_groups=n_windows * base_groups,
+        ), n_windows
 
     def _sketch_f32_cols(self, m: _Match, specs) -> set:
         """FLOAT64 source columns read ONLY as bare args of f32-grained
@@ -3458,25 +3557,28 @@ class DeviceExecutor:
         return states
 
     def _finish_pass(self, specs, carries: list, capacity: int, auxes: list, hist_cols: dict,
-                     cell_cols: dict) -> list:
+                     cell_cols: dict, force_state: bool = False) -> list:
         """The pass's outputs on the root: every shard's states, merged over
-        the shards (K18), then finalized."""
+        the shards (K18), then finalized (or, with ``force_state``, packed
+        as raw states)."""
         shard_states = [
             self._shard_states(specs, c, capacity, a, hist_cols, cell_cols)
             for c, a in zip(carries, auxes)
         ]
         states, presence = self._merge(specs, shard_states, [c["presence"] for c in carries])
-        return self._finalize_pack(specs, states, presence)
+        return self._finalize_pack(specs, states, presence, force_state)
 
-    def _finalize_pack(self, specs, states, presence) -> list:
+    def _finalize_pack(self, specs, states, presence, force_state: bool = False) -> list:
         """Finalize on the device where the UDA allows it (device_finalize,
         else finalize): one output tensor per spec; a UDA whose finalize
         makes host values (``_state_mode``) packs its state's leaves instead
         (``_state_keys`` order), which ride the pass's one device -> host
-        copy; then presence."""
+        copy; then presence. ``force_state`` (a PARTIAL fold: raw states
+        cross the bridge, pixie_tpu/parallel/pipeline.py:4698) packs every
+        UDA's state leaves."""
         outs = []
         for (_, _, uda), st in zip(specs, states):
-            if _state_mode(uda):
+            if force_state or _state_mode(uda):
                 keys = _state_keys(uda)
                 outs.extend([st[key] for key in keys] if keys is not None else [st])
             elif uda.device_finalize is not None:
@@ -3487,10 +3589,18 @@ class DeviceExecutor:
 
     @staticmethod
     def _outputs(per_pass: list) -> tuple:
-        leaves = [np.concatenate(parts, axis=0) for parts in zip(*per_pass)]
+        """(outputs, presence) of the passes' outputs, each leaf's passes
+        concatenated (a PARTIAL fold's state leaves on the device)."""
+        leaves = [
+            parts[0] if len(parts) == 1
+            else torch.cat(parts) if isinstance(parts[0], torch.Tensor)
+            else np.concatenate(parts, axis=0)
+            for parts in zip(*per_pass)
+        ]
         return leaves[:-1], leaves[-1]
 
-    def _run_program(self, specs, program, key_plan, staged, aux, cell_cols):
+    def _run_program(self, specs, program, key_plan, staged, aux, cell_cols,
+                     force_state: bool = False):
         """Fold every block, pass by pass: every shard folds its own blocks
         into its own carry (block by block across the shards, so every
         device has work queued), then the carries merge at the root; returns
@@ -3507,7 +3617,9 @@ class DeviceExecutor:
                 for body, carry in zip(bodies, carries):
                     body(carry, blk, p * capacity)
             # ONE blocking device -> host copy per pass.
-            return _fetch(self._finish_pass(specs, carries, capacity, auxes, hist_cols, cell_cols))
+            return _fetch_slots([self._finish_pass(
+                specs, carries, capacity, auxes, hist_cols, cell_cols, force_state
+            )], force_state)[0]
 
         per_pass = [
             self._mesh_dispatch(lambda: one_pass(p), what="warm_fold") for p in range(n_passes)
@@ -3549,8 +3661,11 @@ class DeviceExecutor:
             aux_digest(list(host_aux.values()) + intdicts),
         )
 
+        force_state = m.agg_op.stage == AggStage.PARTIAL
+
         def compute():
-            return self._run_program(specs, program, key_plan, staged, aux, cell_cols)
+            return self._run_program(specs, program, key_plan, staged, aux, cell_cols,
+                                     force_state)
 
         batch_key = terms = compute_batch = None
         if flags.shared_scan_predicate_batching:
@@ -3577,7 +3692,7 @@ class DeviceExecutor:
 
             def compute_batch(slot_terms):
                 return self._run_program_batched(
-                    specs, erased, key_plan, staged, aux, cell_cols, slot_terms
+                    specs, erased, key_plan, staged, aux, cell_cols, slot_terms, force_state
                 )
 
         return self._shared_scans.run(
@@ -3604,7 +3719,8 @@ class DeviceExecutor:
             key_mode, key_plan.num_groups, capacity, n_passes, tuple(sorted(cell_cols.items())),
         )
 
-    def _run_program_batched(self, specs, program, key_plan, staged, aux, cell_cols, slot_terms):
+    def _run_program_batched(self, specs, program, key_plan, staged, aux, cell_cols, slot_terms,
+                             force_state: bool = False):
         """ONE scan of the staged blocks for ``len(slot_terms)`` queries (K16,
         pixie_tpu/parallel/pipeline.py:6883): each slot's outputs are what
         ``_run_program`` gives for that query alone. ``program`` is the
@@ -3639,16 +3755,17 @@ class DeviceExecutor:
                         body(shard_carries, blk, p * capacity)
                 outs = [
                     self._finish_pass(
-                        specs, [c[i] for c in carries], capacity, auxes, hist_cols, cell_cols
+                        specs, [c[i] for c in carries], capacity, auxes, hist_cols, cell_cols,
+                        force_state,
                     )
                     for i in range(len(run))
                 ]
-                return _fetch([t for o in outs for t in o]), len(outs[0])  # ONE copy per pass
+                return _fetch_slots(outs, force_state)  # ONE copy per pass
 
             for p in range(n_passes):
-                host, k = self._mesh_dispatch(lambda: one_pass(p), what="batched_fold")
+                host = self._mesh_dispatch(lambda: one_pass(p), what="batched_fold")
                 for i in range(len(run)):
-                    per_slot[i].append(host[i * k : (i + 1) * k])
+                    per_slot[i].append(host[i])
             for i, s in enumerate(run):
                 results[s] = (self._outputs(per_slot[i]), capacity)
         return results
@@ -3656,7 +3773,7 @@ class DeviceExecutor:
     def _stream_execute(
         self, specs, program, key_plan, aux, cols: dict, n: int, f32_cols: set,
         cell_cols: dict, capacity: int, ring=None, base_row: int = 0,
-        ckpt_ident: Optional[str] = None,
+        ckpt_ident: Optional[str] = None, force_state: bool = False,
     ):
         """The streamed cold path (pixie_tpu/parallel/pipeline.py:5939-6459,
         for one pass): (outputs, the staging for the warm cache). A
@@ -3764,9 +3881,9 @@ class DeviceExecutor:
                         self._checkpoint_carries(ckpt_key, w + 1, carries)
             with timed("stage_stream_drain"):
                 outputs = self._mesh_dispatch(
-                    lambda: self._outputs([_fetch(self._finish_pass(
-                        specs, carries, capacity, auxes, hist_cols, cell_cols
-                    ))]),
+                    lambda: self._outputs(_fetch_slots([self._finish_pass(
+                        specs, carries, capacity, auxes, hist_cols, cell_cols, force_state
+                    )], force_state)),
                     what="stream_merge",
                 )
         finally:
@@ -3785,18 +3902,75 @@ class DeviceExecutor:
                 }
         return outputs, staged
 
+    def _partial_state_batch(self, m, specs, key_plan, outputs, table) -> StateBatch:
+        """The PARTIAL stage's StateBatch for the MERGE consumer
+        (pixie_tpu/parallel/pipeline.py:7297-7338): the observed groups'
+        key columns and raw states, in gid order (a dictionary-keyed plan's
+        unobserved slots left out; group-by-none its one group). The state
+        leaves stay on the device; a code-valued state (any(STRING)) carries
+        a snapshot of its column's dictionary, through which the merge
+        translates its codes."""
+        values, presence = outputs
+        leaves = iter(values)
+        n = max(key_plan.num_groups, 1) if m.agg_op.groups else 1
+        keep = presence[:n] > 0 if m.agg_op.groups else np.ones(1, dtype=bool)
+        idx = np.nonzero(keep)[0]
+        key_columns = [
+            col.take(idx) if isinstance(col, DictColumn) else np.asarray(col)[idx]
+            for col in key_plan.key_columns
+        ]
+        sel = {}
+
+        def kept(leaf: torch.Tensor) -> torch.Tensor:
+            ix = sel.get(leaf.device)
+            if ix is None:
+                ix = sel[leaf.device] = torch.from_numpy(idx).to(leaf.device)
+            return leaf[:n].index_select(0, ix)
+
+        states, arg_dicts = {}, {}
+        for out_name, arg_e, uda in specs:
+            keys = _state_keys(uda)
+            if keys is None:
+                states[out_name] = kept(next(leaves))
+            else:
+                states[out_name] = {key: kept(next(leaves)) for key in keys}
+            if uda.string_state and isinstance(arg_e, ColumnRef):
+                d = table.dictionaries.get(arg_e.name)
+                if d is not None:
+                    arg_dicts[out_name] = StringDictionary(list(d.values()))
+        return StateBatch(
+            key_columns=key_columns,
+            states=states,
+            num_groups=len(idx),
+            group_names=m.agg_op.groups,
+            eow=True,
+            eos=True,
+            arg_dicts=arg_dicts,
+        )
+
     def _finalize(
-        self, m, specs, key_plan, outputs, registry, table, host_any=None
+        self, m, specs, key_plan, outputs, registry, table, host_any=None,
+        group_range: Optional[tuple] = None, eos: bool = True,
     ) -> RowBatch:
         """Emit only the observed groups (presence > 0), in gid order — the
         dictionary-code order — as the reference's _finalize does. ``outputs``
         hold the device specs' values (those not in ``host_any``); host any()
         representatives and code-valued states decode through the table's
-        dictionary (pixie_tpu/parallel/pipeline.py:7397-7438)."""
+        dictionary (pixie_tpu/parallel/pipeline.py:7397-7438). A windowed
+        fold finalizes window by window: ``group_range`` (offset, count) is
+        one window's slice of the (window, group) slots, its batch ``eow``
+        and ``eos`` on the last window only (:7340-7370); group-by-none
+        emits one row a window, an empty window's too."""
         host_any = host_any or {}
         values, presence = outputs
+        if group_range is not None:
+            off, cnt = group_range
+            values = [v[off : off + cnt] for v in values]
+            presence = presence[off : off + cnt]
+            n = cnt if m.agg_op.groups else 1
+        else:
+            n = max(key_plan.num_groups, 1) if m.agg_op.groups else 1
         device_vals = iter(values)
-        n = max(key_plan.num_groups, 1) if m.agg_op.groups else 1
         rel = m.agg_op.output_relation([_pre_agg_relation(m, registry)], registry)
         if m.agg_op.groups:
             keep = presence[:n] > 0
@@ -3837,7 +4011,7 @@ class DeviceExecutor:
                 vals = np.asarray(out, dtype=object)
             d = StringDictionary()
             out_cols.append(DictColumn(d.encode(np.asarray(vals, dtype=object)), d))
-        return RowBatch(rel, out_cols, eow=True, eos=True)
+        return RowBatch(rel, out_cols, eow=True, eos=eos)
 
 
 def _first_rows(codes: torch.Tensor, num_codes: int) -> torch.Tensor:

@@ -246,22 +246,52 @@ def read_columns(
 ) -> tuple[dict[str, np.ndarray], int]:
     """Materialize the needed columns via a cursor (host side). String
     columns come back as their int32 code arrays."""
+    cols, n, _, _ = read_columns_windowed(table, columns, start_time, stop_time,
+                                          want_windows=False)
+    return cols, n
+
+
+def read_columns_windowed(
+    table: Table,
+    columns: list[str],
+    start_time: Optional[int] = None,
+    stop_time: Optional[int] = None,
+    want_windows: bool = True,
+):
+    """``read_columns`` plus each row's window id from the cursor's
+    end-of-window markers (pixie_tpu/parallel/staging.py:185): a batch with
+    ``eow`` closes the current window, with or without rows (the boundaries
+    the host AggNode emits on), and the rows after the last ``eow`` form a
+    final, unclosed window. Returns (cols, n, window ids int64 or None,
+    n_windows)."""
     batches = []
     cur = table.cursor(start_time, stop_time)
     while not cur.done():
         b = cur.next_batch()
         if b is None:
             break
-        if b.num_rows:
+        if b.num_rows or b.eow:
             batches.append(b)
     cols: dict[str, np.ndarray] = {}
     for name in columns:
         parts = []
         for b in batches:
-            c = b.col(name)
-            parts.append(c.codes if isinstance(c, DictColumn) else np.asarray(c))
+            if b.num_rows:
+                c = b.col(name)
+                parts.append(c.codes if isinstance(c, DictColumn) else np.asarray(c))
         cols[name] = np.concatenate(parts) if parts else np.empty(0, np.int32)
-    return cols, sum(b.num_rows for b in batches)
+    n = sum(b.num_rows for b in batches)
+    if not want_windows:
+        return cols, n, None, 1
+    parts, w = [], 0
+    for b in batches:
+        if b.num_rows:
+            parts.append(np.full(b.num_rows, w, np.int64))
+        if b.eow:
+            w += 1
+    wids = np.concatenate(parts) if parts else np.empty(0, np.int64)
+    n_windows = w + 1 if not batches or not batches[-1].eow else w
+    return cols, n, wids, max(n_windows, 1)
 
 
 def int_dict_encode(arr: np.ndarray, max_card: int) -> Optional[tuple[np.ndarray, np.ndarray]]:

@@ -720,7 +720,7 @@ def check_tdigest_cluster(dev, gids: np.ndarray, vals: np.ndarray, mask: np.ndar
 
 
 TD_EDGE_CASES = ["basic", "empty_group", "tiny_groups", "all_masked", "one_group",
-                 "off_vector", "long_runs", "wide", "scratch_starts"]
+                 "off_vector", "long_runs", "wide", "scratch_starts", "windowed_512"]
 
 
 @pytest.mark.cuda
@@ -754,7 +754,120 @@ def test_tdigest_cluster_edges_on_card(case):
     elif case == "scratch_starts":
         G = kernels.TD_SHARED_STARTS + 100
         gids = rng.integers(0, G, n)
+    elif case == "windowed_512":
+        # A windowed fold's block: one window's 16 services of 32 x 16 slots.
+        G = 512
+        gids = 5 * 16 + rng.integers(0, 16, n)
     check_tdigest_cluster(dev, gids, vals, mask, G, case)
+
+
+@pytest.mark.cuda
+def test_tdigest_wide_lane_update_at_512_slots():
+    """``tdigest.update`` of 512 (window, service) slots takes the wide lane
+    (H7a, torch.sort, H7b, then H8), never H7, and over three windows' blocks
+    equals the plain update on the card: group weights exactly, each
+    group's quantiles under the Fault-4 contract (1e-2 of the value plus
+    1e-5 of the group's largest)."""
+    _need_cards(1)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(26)
+    G, n = 512, 1 << 18
+    got, want = tdigest.init(G, dev), tdigest.init(G, dev)
+    kernels.reset_launches()
+    for w in (0, 7, 31):
+        g = torch.from_numpy((w * 16 + rng.integers(0, 16, n)).astype(np.int32)).to(dev)
+        v = torch.from_numpy(rng.exponential(3e7, n)).to(dev)
+        m = torch.from_numpy(rng.random(n) < 0.95).to(dev)
+        got = tdigest.update(got, g, v, m)
+        want = tdigest.update_plain(want, g, v, m)
+    assert kernels.LAUNCHES["tdigest_update"] == 0
+    assert all(kernels.LAUNCHES[k] == 3 for k in ("tdigest_pack", "tdigest_cluster"))
+    assert torch.equal(got["weights"].sum(dim=1), want["weights"].sum(dim=1))
+    gq = tdigest.quantile_values_plain(got, QS).cpu().numpy()
+    wq = tdigest.quantile_values_plain(want, QS).cpu().numpy()
+    top = np.abs(wq).max(axis=1, keepdims=True)
+    assert np.all(np.abs(gq - wq) <= 1e-2 * np.abs(wq) + 1e-5 * top)
+
+
+@pytest.mark.cuda
+def test_partial_state_batch_stays_on_card():
+    """A PEM fragment's PARTIAL fold on the card (the DistributedPlanner's
+    split of service_stats over two PEMs) returns a StateBatch whose state
+    leaves are on the card, and the Kelvin's MERGE on the card over two of
+    them equals the same split on the CPU's plain path: groups, order and
+    counts exact, error_rate within 1e-12, quantiles equal or one bin
+    apart."""
+    _need_cards(1)
+    import uuid
+
+    from pixie_tpu_torch.distributed import AgentInfo, DistributedPlanner, DistributedState
+    from pixie_tpu_torch.engine import Carnot
+    from pixie_tpu_torch.exec import BridgeRouter
+    from pixie_tpu_torch.exec.agg_node import StateBatch
+    from pixie_tpu_torch.interop import table_from_columns
+    from pixie_tpu_torch.parallel import DeviceExecutor
+    from pixie_tpu_torch.plan.operators import BridgeSinkOp
+    from pixie_tpu_torch.plan.plan import Plan
+    from pixie_tpu_torch.types import DataType, Relation
+
+    rng = np.random.default_rng(26)
+    rel = Relation.of(("service", DataType.STRING), ("resp_status", DataType.INT64),
+                      ("latency", DataType.FLOAT64))
+    shards = [{
+        "service": np.array([f"svc-{i}" for i in rng.integers(0, 16, n)], dtype=object),
+        "resp_status": rng.choice([200, 301, 404, 500], n, p=[0.85, 0.05, 0.05, 0.05]),
+        "latency": rng.exponential(3e7, n),
+    } for n in (70_000, 50_000)]
+    pxl = (
+        "df = px.DataFrame(table='t')\n"
+        "df.failure = df.resp_status >= 400\n"
+        "s = df.groupby(['service']).agg(throughput=('resp_status', px.count),\n"
+        "    error_rate=('failure', px.mean), latency=('latency', px.quantiles))\n"
+        "px.display(s, 'o')\n"
+    )
+    out = {}
+    for device in ("cuda:0", "cpu"):
+        router = BridgeRouter()
+        pems = []
+        for i, cols in enumerate(shards):
+            c = Carnot(router=router, instance=f"pem{i}",
+                       device_executor=DeviceExecutor(device=device, block_rows=1 << 14))
+            table_from_columns(c.table_store, "t", rel, cols)
+            pems.append(c)
+        kelvin = Carnot(router=router, instance="kelvin", device=device)
+        logical = kelvin.compiler.compile(pxl, {"t": rel}, query_id=str(uuid.uuid4()))
+        plan = DistributedPlanner(kelvin.registry, {"t": rel}).plan(logical, DistributedState(
+            [AgentInfo(p.instance, frozenset({"t"})) for p in pems]
+            + [AgentInfo("kelvin", frozenset(), is_kelvin=True)]))
+        for p, frag in zip(pems, plan.fragments[:2]):
+            _, sb = p.device_executor.try_execute_fragment(frag, p.table_store, p.registry)
+            assert isinstance(sb, StateBatch)
+            for st in sb.states.values():
+                for leaf in (st.values() if isinstance(st, dict) else [st]):
+                    assert leaf.device == torch.device(device)
+        subs = {}
+        for f in plan.fragments:
+            inst = plan.executing_instance[f.fragment_id]
+            subs.setdefault(inst, Plan(plan.query_id)).fragments.append(f)
+            subs[inst].executing_instance[f.fragment_id] = inst
+        for f in plan.fragments:
+            for nid in f.nodes():
+                if isinstance(f.node(nid), BridgeSinkOp):
+                    router.register_producer(plan.query_id, f.node(nid).bridge_id)
+        kernels.reset_launches()
+        for p in pems:
+            p.execute_plan(subs[p.instance], manage_router=False)
+        out[device] = kelvin.execute_plan(subs["kelvin"], manage_router=False).table("o")
+        if device != "cpu":
+            assert all(kernels.LAUNCHES[k] > 0 for k in (
+                "segment_rows_sum_i64", "log_histogram_update", "hist_quantiles", "scalar_eval"))
+    got, want = out["cuda:0"], out["cpu"]
+    assert got["service"] == want["service"] and got["throughput"] == want["throughput"]
+    assert np.allclose(got["error_rate"], want["error_rate"], rtol=0, atol=1e-12)
+    for gq, wq in zip(got["latency"], want["latency"]):
+        g, w = json.loads(gq), json.loads(wq)
+        for k in w:
+            assert g[k] == w[k] or max(g[k], w[k]) / min(g[k], w[k]) <= SPEC.gamma * (1 + 1e-9)
 
 
 # H7, the sort-free t-digest update, at its edges: every value equal, two
